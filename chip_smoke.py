@@ -6,23 +6,29 @@ Phases, one line each (``[phase] ...``):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No card -> the script raises before anything else.
-2. build: K1 and K2 compiled from ``multimodal_audio_search_tpu_torch/
-   csrc`` with nvcc for sm_90a; build seconds and ptxas resource lines.
+2. build: K1-K4 compiled from ``multimodal_audio_search_tpu_torch/
+   csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
+   seconds and ptxas resource lines.
 3. kernels against their plain PyTorch versions on the card, at the
-   shapes the main path gives them: K1 at B=32, T=1500, (H, D) = (8, 64)
+   shapes the main paths give them: K1 at B=32, T=1500, (H, D) = (8, 64)
    (whisper-base) and (6, 64) (whisper-tiny), each on a residual input
    and on two inputs that isolate the attention term (K1_CASES); K2
-   cross at B=32, T=1500,
-   H=8 and K2 self at B=32, L=68, pos in {0, 3, 67}. Tolerances asserted;
-   median times from CUDA events after a warm-up.
-4. the engine: a default-config AudioSearchEngine on cuda (random init
-   from a seed, bf16) ingests two 16-bit WAVs made with numpy (320 s =
-   one full batch of 32 segments, and 25 s = 3 segments) and answers
-   queries. The launch counts of K1 and K2 over that run must be > 0 and
-   equal the counts the path implies; the ASR text of one ingested
-   segment, used as a query, must rank its own segment first; the
-   encoder and a decode step are held against their plain paths on a
-   small input.
+   cross at B=32, T=1500, H=8 and K2 self at B=32, L=68, pos in {0, 3,
+   67}; K3 and K3-q at B=32, L=68, pos in K3_POS, K4 and K4-o at B=32,
+   each at both model widths, on inputs whose block term dominates the
+   output (DELTA_MAX). Tolerances asserted; median times from CUDA
+   events after a warm-up.
+4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
+   init from a seed, bf16) built from its config alone: the default
+   config and ``apply_profile(EngineConfig(), "fast_lossless")`` ingest
+   two 16-bit WAVs made with numpy (320 s = one full batch of 32
+   segments, and 25 s = 3 segments) and answer 4 queries; the same
+   profile with ``fused_layer="v2"`` ingests the 320 s WAV and answers
+   them. Each path's launch counts (set to 0 just before, read just
+   after) must be > 0 and equal what the path implies; the ASR text of
+   one ingested segment, used as a query, must rank its own segment
+   first. The default engine's encoder and decode steps (unfused, fused,
+   "v2") are then held against their plain paths on a small input.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -69,6 +75,29 @@ K1_CASES = (("residual", 1.0, True), ("attention", 1.0, False),
 # K2: f32 output, f32 softmax and products on the same bf16 inputs in
 #     both -> only the summation order differs.
 K2_ATOL, K2_RTOL = 1e-3, 1e-3
+# K3 (self block), K3-q, K4 (MLP block), K4-o: kernel and plain version
+# round to bf16 at the same places, and sum in different orders, so a
+# rounding may land one bf16 step apart and carry on from there.
+# * The block's term out - x is held to the plain version's, relative to
+#   its own scale: max |err| <= DELTA_MAX * max |d_ref| and ||err|| <=
+#   DELTA_L2 * ||d_ref||. The inputs make that term dominate: x ~ 0.01
+#   N(0, 1), which the layer norm scales up to unit size, while the
+#   residual it is added to stays small, so an error in the attention or
+#   the MLP is not hidden under x (K1's lesson). A float64 emulation of
+#   the kernels' roundings at these inputs (B=32, both widths) reads at
+#   most 0.29 % (max) and 0.04 % (norm). Planted faults read: the fresh
+#   row counted twice 14-28 % / 9-24 % at pos 3 and 67; dropped, 17-82 %
+#   / 10-58 % (non-finite at pos 0); the unwritten cache row pos attended,
+#   55-61 % / 53-54 % at pos 0 and 0.6-0.8 % / 0.9 % at pos 67; fc1's
+#   bias left out, 44-46 % / 46-47 %. Each fault fails at one pos at
+#   least (tests/test_torch_decoder_block.py holds these checks to it).
+# * k1, v1 and q_cross (unit scale) elementwise within 1e-2 + 1e-2
+#   relative: one bf16 step of a value in [1, 2) is 7.8e-3.
+DELTA_MAX, DELTA_L2 = 2e-2, 5e-3
+KV_ATOL, KV_RTOL = 1e-2, 1e-2
+K3_POS = (0, 3, 67)
+# (label, D, heads, F): whisper-base and whisper-tiny widths
+DEC_WIDTHS = (("base", 512, 8, 2048), ("tiny", 384, 6, 1536))
 # the engine's kernel path (K1 encoder, K2 decode step) against its plain
 # path (plain encoder, einsum cross attention) on one bf16 input: both
 # round bf16 activations at different places through 6 layers. Limits are
@@ -76,6 +105,10 @@ K2_ATOL, K2_RTOL = 1e-3, 1e-3
 # a scale of 2.23); PERF.md lists what planted faults read.
 ENC_MEAN_ERR_MAX = 1.2e-2
 LOGITS_ERR_REL = 2e-2
+# four fused decode steps (fused_layer True and "v2", B=8) against the
+# unfused steps on the same bf16 weights: max |err| of the logits over
+# the steps, relative to their max.
+FUSED_LOGITS_ERR_REL = 2e-2
 
 
 def phase(name: str, **kv) -> None:
@@ -191,6 +224,130 @@ def check_k1(name, got, ref, residual: bool) -> dict:
             "rel_l2_err": rel_l2}
 
 
+def _rand(gen: torch.Generator, device, dtype=torch.bfloat16):
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(
+            device, dtype)
+    return rn
+
+
+def k3_inputs(gen: torch.Generator, b: int, l: int, d: int, *,
+              device="cuda"):
+    """K3/K3-q inputs as the decode step hands them over: x [B, D] bf16 at
+    0.01 N(0, 1); the self sub-block's LN (float32 scale), q/k/v/o
+    weights [D, D] and biases in bf16; the cross LN, q weight and bias
+    (K3-q's tail); unit-scale caches [B, L, D]."""
+    rn, rf = _rand(gen, device), _rand(gen, device, torch.float32)
+    w = 1 / math.sqrt(d)
+    selfw = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
+             rn(d, d, scale=w), rn(d, scale=0.1), rn(d, d, scale=w),
+             rn(d, d, scale=w), rn(d, scale=0.1), rn(d, d, scale=w),
+             rn(d, scale=0.1)]
+    tail = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
+            rn(d, d, scale=w), rn(d, scale=0.1)]
+    return rn(b, d, scale=0.01), selfw, tail, rn(b, l, d), rn(b, l, d)
+
+
+def k4_inputs(gen: torch.Generator, b: int, d: int, f: int, *,
+              device="cuda"):
+    """K4/K4-o inputs: x [B, D] bf16 at 0.01 N(0, 1); the MLP's LN (float32
+    scale), fc1 [D, F], fc2 [F, D] and biases in bf16 (fc1's bias at
+    0.5 N(0, 1), so it moves the GELU); the cross attention output
+    [B, D] float32 and the cross o-projection (K4-o's head)."""
+    rn, rf = _rand(gen, device), _rand(gen, device, torch.float32)
+    mlp = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
+           rn(d, f, scale=1 / math.sqrt(d)), rn(f, scale=0.5),
+           rn(f, d, scale=1 / math.sqrt(f)), rn(d, scale=0.1)]
+    head = [rf(b, d, scale=0.3), rn(d, d, scale=1 / math.sqrt(d)),
+            rn(d, scale=0.1)]
+    return rn(b, d, scale=0.01), mlp, head
+
+
+def check_delta(name, got, ref, x) -> dict:
+    """A block's output against its plain version's on the block's term
+    out - x (see DELTA_MAX); raises outside the limits."""
+    got, ref = got.float(), ref.float()
+    _same_shape_finite(name, got, ref)
+    d_ref = ref - x.float()
+    err = got - ref
+    rel_max = float(err.abs().max() / d_ref.abs().max())
+    rel_l2 = float(err.norm() / d_ref.norm())
+    if not (rel_max <= DELTA_MAX and rel_l2 <= DELTA_L2):
+        raise AssertionError(
+            f"{name}: out - x off its plain version: max |err| = "
+            f"{rel_max:.3e} of max |d| (limit {DELTA_MAX}), ||err|| = "
+            f"{rel_l2:.3e} of ||d|| (limit {DELTA_L2})")
+    return {"max_abs_err": float(err.abs().max()), "rel_max_err": rel_max,
+            "rel_l2_err": rel_l2}
+
+
+def check_k3(name, got, ref, x) -> dict:
+    """K3's (x_out, k1, v1[, q_cross]) against the plain version's: x_out
+    on its block term, the rest elementwise."""
+    out = check_delta(name, got[0], ref[0], x)
+    for label, g, r in zip(("k1", "v1", "q_cross"), got[1:], ref[1:]):
+        out[f"{label}_max_abs_err"] = check_close(f"{name} {label}", g, r,
+                                                  KV_ATOL, KV_RTOL)
+    return out
+
+
+def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
+    """K3, K3-q, K4 and K4-o against their plain versions at B=32 and both
+    model widths (K3 at every pos of K3_POS, cache L=68)."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    src = "multimodal_audio_search_tpu_torch/csrc/decoder_block.cu"
+    jx = "multimodal_audio_search_tpu/ops/decoder_block.py"
+    specs = {
+        "K3": ("decoder_self_block", f"{jx}:200", DB.fused_self_block,
+               DB.self_block_plain),
+        "K3-q": ("decoder_self_block_q", f"{jx}:272", DB.fused_self_block_q,
+                 DB.self_block_q_plain),
+        "K4": ("decoder_mlp_block", f"{jx}:611", DB.fused_mlp_block,
+               DB.mlp_block_plain),
+        "K4-o": ("decoder_mlp_block_o", f"{jx}:363", DB.fused_mlp_block_o,
+                 DB.mlp_block_o_plain)}
+    out = {k: {"name": n, "route": "cuda", "source": src, "replaces": r,
+               "cases": []} for k, (n, r, _, _) in specs.items()}
+    b, l = 32, 68
+    for label, d, heads, f in DEC_WIDTHS:
+        x, selfw, tail, kc, vc = k3_inputs(gen, b, l, d)
+        for key in ("K3", "K3-q"):
+            _, _, fused, plain = specs[key]
+            extra = tail if key == "K3-q" else []
+            for pos in K3_POS:
+                args = (x, *selfw, *extra)
+                ref = plain(*args, kc, vc, pos, heads=heads)
+                got = fused(*args, kc.clone(), vc.clone(), pos, heads=heads)
+                torch.cuda.synchronize()
+                case = {"shape": f"{label} B={b} D={d} H={heads} L={l} "
+                                 f"pos={pos}",
+                        **check_k3(f"{key} {label} pos={pos}", got, ref, x)}
+                if pos == K3_POS[-1]:
+                    case["ms"] = time_ms(
+                        lambda: fused(*args, kc, vc, pos, heads=heads))
+                    case["plain_ms"] = time_ms(
+                        lambda: plain(*args, kc, vc, pos, heads=heads))
+                out[key]["cases"].append(case)
+                phase("kernels", kernel=key, card=card,
+                      tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2,
+                           "kv": [KV_ATOL, KV_RTOL]}, **case)
+        x, mlp, head = k4_inputs(gen, b, d, f)
+        for key in ("K4", "K4-o"):
+            _, _, fused, plain = specs[key]
+            args = (x, *head, *mlp) if key == "K4-o" \
+                else (x, *mlp)
+            got, ref = fused(*args), plain(*args)
+            torch.cuda.synchronize()
+            case = {"shape": f"{label} B={b} D={d} F={f}",
+                    **check_delta(f"{key} {label}", got, ref, x),
+                    "ms": time_ms(lambda: fused(*args)),
+                    "plain_ms": time_ms(lambda: plain(*args))}
+            out[key]["cases"].append(case)
+            phase("kernels", kernel=key, card=card,
+                  tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}, **case)
+    return list(out.values())
+
+
 def kernel_phase(card: str, gen: torch.Generator):
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
@@ -259,23 +416,74 @@ def kernel_phase(card: str, gen: torch.Generator):
     return k1, k2
 
 
-def engine_phase(card: str, rng: np.random.Generator):
+# the engine configurations driven on the card: (label, profile, fused)
+ENGINE_PATHS = (("default", None, False),
+                ("fast_lossless", "fast_lossless", True),
+                ("v2", "fast_lossless", "v2"))
+# launch-count key of each kernel in runtime.COUNTS
+KEYS = {"K1": "encoder_attn_o_residual", "K2": "single_query_attention",
+        "K3": "decoder_self_block", "K3-q": "decoder_self_block_q",
+        "K4": "decoder_mlp_block", "K4-o": "decoder_mlp_block_o"}
+
+
+def engine_config(profile, fused):
+    """EngineConfig for one entry of ENGINE_PATHS; "v2" is fast_lossless
+    with fused_layer="v2" on both models."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch.config import (
+        EngineConfig, apply_profile)
+    cfg = EngineConfig()
+    if profile:
+        cfg = apply_profile(cfg, profile)
+    if fused == "v2":
+        cfg = cfg.replace(**{k: dataclasses.replace(
+            getattr(cfg, k), fused_layer="v2")
+            for k in ("asr_decode", "caption_decode")})
+    return cfg
+
+
+def expected_launches(fused, steps, disp, asr, cap) -> dict:
+    """What one ingest run must have launched: K1 once per encoder layer
+    and dispatch; per decode step and decoder layer, K2 twice on the
+    unfused path, and on the fused paths K2 once (cross only) beside K3
+    and K4, or K3-q and K4-o for "v2"."""
+    per_step = steps[0] * asr.cfg.dec_layers + steps[1] * cap.cfg.dec_layers
+    exp = {k: 0 for k in KEYS}
+    exp["K1"] = disp[0] * asr.cfg.enc_layers + disp[1] * cap.cfg.enc_layers
+    if not fused:
+        exp["K2"] = 2 * per_step
+    else:
+        exp["K2"] = per_step
+        pair = ("K3-q", "K4-o") if fused == "v2" else ("K3", "K4")
+        for k in pair:
+            exp[k] = per_step
+    return exp
+
+
+def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
+                 fused, clips, ref_texts=None):
+    """Build the engine of one ENGINE_PATHS entry on cuda, ingest
+    ``clips`` and answer the queries with every launch count set to 0
+    just before and read just after; check the counts and self-retrieval.
+    Returns (launch counts, {(source, start): ASR text})."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
 
     t0 = time.perf_counter()
-    eng = AudioSearchEngine(device="cuda", seed=0)
+    eng = AudioSearchEngine(cfg=engine_config(profile, fused),
+                            device="cuda", seed=0)
     eng.load_all_models()
     ing = eng.ingest_pipeline
     asr, cap = ing.asr, ing.caption
     torch.cuda.synchronize()
-    phase("engine", step="built", seconds=time.perf_counter() - t0,
+    phase("engine", path=label, step="built",
+          seconds=time.perf_counter() - t0,
           asr=f"whisper-base d={asr.cfg.d_model} L={asr.cfg.enc_layers}",
           caption=f"whisper-tiny d={cap.cfg.d_model}",
-          dtype=str(asr.dtype), batch=eng.cfg.ingest_batch)
+          dtype=str(asr.dtype), batch=eng.cfg.ingest_batch,
+          fused_layer=[asr.decode.fused_layer, cap.decode.fused_layer],
+          transfer=eng.cfg.transfer_dtype)
 
-    clips = [("long.wav", make_audio(320, rng)),
-             ("short.wav", make_audio(25, rng))]
-    # ---- the main path, counted
+    # ---- the path, counted
     runtime.reset_counts()
     steps0 = (asr.total_steps, cap.total_steps)
     disp0 = (asr.dispatches, cap.dispatches)
@@ -291,7 +499,7 @@ def engine_phase(card: str, rng: np.random.Generator):
     queries = []
     texts = [m["asr_text"] for m in eng.store.meta]
     if not texts:
-        raise AssertionError("no segment survived validation")
+        raise AssertionError(f"{label}: no segment survived validation")
     # the query: the ASR text of an ingested segment, unique if any is
     counts_by_text = {tx: texts.count(tx) for tx in texts}
     unique = [i for i, tx in enumerate(texts) if counts_by_text[tx] == 1
@@ -308,53 +516,66 @@ def engine_phase(card: str, rng: np.random.Generator):
         lat.append((time.perf_counter() - tq) * 1e3)
         if qi == 0:
             hits0 = hits
-    counts = dict(runtime.COUNTS)
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
     steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
     disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
-    # ---- what the main path must have launched
-    exp_k1 = disp[0] * asr.cfg.enc_layers + disp[1] * cap.cfg.enc_layers
-    exp_k2 = 2 * (steps[0] * asr.cfg.dec_layers
-                  + steps[1] * cap.cfg.dec_layers)
-    if counts["encoder_attn_o_residual"] != exp_k1 or exp_k1 == 0:
-        raise AssertionError(f"K1 launches {counts} != expected {exp_k1}")
-    if counts["single_query_attention"] != exp_k2 or exp_k2 == 0:
-        raise AssertionError(f"K2 launches {counts} != expected {exp_k2}")
+    # ---- what the path must have launched
+    exp = expected_launches(fused, steps, disp, asr, cap)
+    if counts != exp or not all(counts[k] > 0 for k in exp if exp[k]):
+        raise AssertionError(f"{label}: launches {counts} != expected {exp}")
     # ---- self-retrieval
     if not hits0:
-        raise AssertionError("self-retrieval query returned no hit")
+        raise AssertionError(f"{label}: self-retrieval query returned no hit")
     top = hits0[0]
     if unique:
         if top["index"] != own:
             raise AssertionError(
-                f"own segment {own} not first: {[h['index'] for h in hits0]}")
+                f"{label}: own segment {own} not first: "
+                f"{[h['index'] for h in hits0]}")
     elif top["asr_text"] != texts[own]:
-        raise AssertionError("no unique ASR text, and the top hit does "
-                             "not even share the query's text")
+        raise AssertionError(f"{label}: no unique ASR text, and the top hit "
+                             f"does not even share the query's text")
     if not top["asr_similarity"] > 0.999:
-        raise AssertionError(f"self cosine {top['asr_similarity']}")
-    phase("engine", step="main path", card=card, segments=n_segs,
-          audio_seconds=audio_s, ingest_seconds=ingest_s,
+        raise AssertionError(f"{label}: self cosine {top['asr_similarity']}")
+    by_seg = {(m["source"], m["start_time"]): m["asr_text"]
+              for m in eng.store.meta}
+    same = None
+    if ref_texts is not None:
+        common = [k for k in by_seg if k in ref_texts]
+        same = {"segments": len(common), "share_equal": sum(
+            by_seg[k] == ref_texts[k] for k in common) / max(1, len(common))}
+    phase("engine", path=label, step="ingest and queries", card=card,
+          segments=n_segs, audio_seconds=audio_s, ingest_seconds=ingest_s,
           ingest_audio_s_per_s=audio_s / ingest_s,
           query_ms=lat, query_p50_ms=float(np.median(lat)),
           decode_steps={"asr": steps[0], "caption": steps[1]},
           dispatches={"asr": disp[0], "caption": disp[1]},
-          launches=counts, expected={"K1": exp_k1, "K2": exp_k2},
+          launches=counts, expected=exp,
+          transfer={"resolved": ing.last_transfer_resolved,
+                    "probe_s": ing.last_probe},
+          asr_text_vs_default=same,
           distinct_asr_texts=len(counts_by_text), stored=len(texts),
           self_query_segment=own, self_query_unique=bool(unique),
           top_hit=top["index"], top_score=top["fusion_score"],
           trace_ms=[{k: round(v * 1e3, 3) for k, v in tr.items()}
                     for tr in traces])
-    reference_check(asr, rng)
-    return counts
+    if label == "default":
+        reference_check(asr, rng)
+    del eng, ing, asr, cap
+    torch.cuda.empty_cache()
+    return counts, by_seg
 
 
 def reference_check(asr, rng: np.random.Generator) -> None:
     """The ASR model's kernel path against its plain path on one small
     input: the K1 encoder against the plain encoder, a decode step over
-    merged cross K/V (K2) against the einsum one, and an 8-token greedy
-    run for shapes. Raises outside ENC_MEAN_ERR_MAX / LOGITS_ERR_REL.
-    Both decode steps take K2 for the cached self attention, so this sees
-    K2's cross use only; the kernel phase checks its ``pos`` mask."""
+    merged cross K/V (K2) against the einsum one, four fused decode steps
+    (True: K3 + K2 + K4; "v2": K3-q + K2 + K4-o) at B=8 against the
+    unfused ones, and an 8-token greedy run for shapes. Raises outside
+    ENC_MEAN_ERR_MAX / LOGITS_ERR_REL / FUSED_LOGITS_ERR_REL. The
+    unfused decode steps take K2 for the cached self attention, so the
+    K2 comparison sees K2's cross use only; the kernel phase checks its
+    ``pos`` mask."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.models.generate import generate
     from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
@@ -376,6 +597,22 @@ def reference_check(asr, rng: np.random.Generator) -> None:
         lg = W.decode_step(asr.params, tok, 0, cache, ckv, asr.cfg)
         lg_e = W.decode_step(asr.params, tok, 0, cache_e, ckv_e, asr.cfg)
         lg_err = (lg - lg_e).abs()
+        # fused steps at B=8 (the fused paths need B % 8 == 0)
+        ckv8 = W.cross_kv_merged(asr.params, enc_k.repeat(4, 1, 1), asr.cfg)
+        fused_err = {}
+        for fused in (False, True, "v2"):
+            cache8 = W.init_cache(asr.cfg, 8, 8, asr.dtype, dev)
+            steps = []
+            for pos, t in enumerate(asr.prefix_ids):
+                steps.append(W.decode_step(
+                    asr.params, torch.full((8,), t, device=dev), pos, cache8,
+                    ckv8, asr.cfg, fused_layer=fused))
+            if fused is False:
+                base = steps
+                continue
+            fused_err[str(fused)] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(steps, base))
         prefix = torch.tensor([asr.prefix_ids] * 2, device=dev)
         out = generate(asr.params, enc_k, prefix, cfg=asr.cfg,
                        decode=asr.decode, max_new_tokens=8)
@@ -387,7 +624,8 @@ def reference_check(asr, rng: np.random.Generator) -> None:
     phase("engine", step="reference", encoder_max_abs_err=float(
         enc_err.max()), encoder_mean_abs_err=float(enc_err.mean()),
         logits_max_abs_err=float(lg_err.max()),
-        logits_scale=float(lg_e.abs().max()), shapes_ok=ok_shapes,
+        logits_scale=float(lg_e.abs().max()),
+        fused_step_logits_rel_err=fused_err, shapes_ok=ok_shapes,
         finite=finite)
     if not (ok_shapes and finite):
         raise AssertionError("engine outputs: wrong shape or non-finite")
@@ -398,6 +636,10 @@ def reference_check(asr, rng: np.random.Generator) -> None:
             f"{float(enc_err.mean()):.3e} (limit {ENC_MEAN_ERR_MAX}), "
             f"logits max {float(lg_err.max()):.3e} (limit {LOGITS_ERR_REL} "
             f"x {float(lg_e.abs().max()):.3f})")
+    if not all(e <= FUSED_LOGITS_ERR_REL for e in fused_err.values()):
+        raise AssertionError(
+            f"fused decode steps disagree with the unfused ones: {fused_err}"
+            f" (limit {FUSED_LOGITS_ERR_REL} of the logits' scale)")
 
 
 def main() -> int:
@@ -425,16 +667,30 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(0)
     k1, k2 = kernel_phase(card, gen)
-    counts = engine_phase(card, rng)
+    dec = decoder_kernel_phase(card, gen)
+    clips = [("long.wav", make_audio(320, rng)),
+             ("short.wav", make_audio(25, rng))]
+    counts, ref_texts = {}, None
+    for label, profile, fused in ENGINE_PATHS:
+        c, texts = engine_phase(card, rng, label, profile, fused,
+                                clips[:1] if fused == "v2" else clips,
+                                ref_texts)
+        counts[label] = c
+        ref_texts = ref_texts or texts
+    # each kernel's launches from the path that runs it
+    path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
+               "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2"}
     kern = []
-    for k in (k1, k2):
-        first = k["cases"][0]
+    for key, k in zip(KEYS, (k1, k2, *dec)):
+        first = next(c for c in k["cases"] if "ms" in c)
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": counts[k["name"]],
+            "replaces": k["replaces"],
+            "launches": counts[path_of[key]][key],
             "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "shape": first["shape"], "cases": k["cases"]})
+            "shape": first["shape"], "path": path_of[key],
+            "cases": k["cases"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

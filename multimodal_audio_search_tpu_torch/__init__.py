@@ -2,9 +2,10 @@
 
 The port of ``multimodal_audio_search_tpu`` (JAX/Pallas), which stays
 beside it as the reference. Same subpackage and module names, same
-config, same param pytree keys, same on-disk index format; the two
-Pallas kernels of the default ingest path are hand-written CUDA kernels
-here (``csrc/``, built with nvcc for sm_90a at first use).
+config, same param pytree keys, same on-disk index format; the Pallas
+kernels of the default ingest path and of the ``fast_lossless``
+profile's fused decode layers are hand-written CUDA kernels here
+(``csrc/``, built with nvcc for sm_90a at first use).
 
 Public surface:
 

@@ -48,3 +48,14 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t r) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&r);
   return __bfloat1622float2(v);
 }
+
+// eight bf16 (one 16-byte load) -> eight floats
+__device__ __forceinline__ void bf16x8_to_f32(uint4 r, float f[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = unpack_bf16(w[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}

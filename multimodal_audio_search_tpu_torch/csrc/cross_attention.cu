@@ -32,16 +32,6 @@ constexpr int D = 64;
 constexpr int NT = 256;
 constexpr int GROUPS = NT / 8;  // K/V rows in flight per block
 
-__device__ __forceinline__ void bf16x8_to_f32(uint4 r, float f[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = unpack_bf16(w[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-
 __global__ void __launch_bounds__(NT) single_query_attention_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, float* __restrict__ out, int T, int HD,

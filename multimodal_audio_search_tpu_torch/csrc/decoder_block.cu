@@ -1,0 +1,448 @@
+// K3 and K4: the two fused sub-blocks of one Whisper decode step.
+//
+// K3, decoder self block (template flag TAIL = K3-q):
+//   x_out = x + (single-query attention of LN(x) over the cache rows
+//           t < pos + the fresh row, heads merged) @ Wo + bo,
+//   k1/v1 written into row pos of the caches; with TAIL also
+//   q_cross = LN2(x_out) @ Wcq + bcq.
+// Replaces the Pallas kernels multimodal_audio_search_tpu/ops/
+// decoder_block.py::fused_self_block (body _self_block_body, pallas_call
+// at :200) and, with TAIL, fused_self_block_q (pallas_call at :272).
+//
+// K4, decoder MLP block (template flag HEAD = K4-o):
+//   out = x1 + fc2(gelu(fc1(LN(x1)))),  x1 = x, or with HEAD
+//   x1 = x + attn @ Wco + bco (float32, not rounded).
+// Replaces fused_mlp_block (pallas_call at :611) and, with HEAD,
+// fused_mlp_block_o (pallas_call at :363).
+//
+// What bounds them on an H100: weight bytes. One decode step at B=32 and
+// whisper-base width reads 2 MB of Wq/Wk/Wv/Wo (K3) plus at most 4.5 MB
+// of K/V cache at L=68, and 4 MB of fc1/fc2 (K4), per layer, for ~2 FLOP
+// per weight element and row: far under the card's balance point. The
+// TPU kernels run on 4 grid steps of 8 rows (BC=8); 4 blocks on 132 SMs
+// would leave the card's bandwidth unused. So both kernels split the
+// WEIGHTS across blocks:
+//   * K3: one block per (head, 2-row block) -- 128 blocks at base, B=32.
+//     Each block projects its rows onto its head's 64 columns of Wq/Wk/
+//     Wv, attends its head over the cache, multiplies the head's output
+//     by its 64 rows of Wo, and writes that partial sum. The last block
+//     of a row block to arrive (an arrival counter, as in CUDA's
+//     threadFenceReduction sample) sums the H partials in head order and
+//     adds bias and residual, so the result does not depend on the order
+//     blocks ran in. The arrival counters are left zero for the next
+//     launch; launches of one kernel must not overlap on two streams.
+//   * K4: one block per (128 fc1 columns, 4-row block) -- 128 blocks at
+//     base. Each block computes its slice of u = gelu(fc1(LN x)) and
+//     multiplies it by the matching 128 rows of fc2 into a partial sum;
+//     the last block of the row block sums the partials in slice order.
+//   * The two variants need a whole row before their extra product (the
+//     cross LN of x_out; the LN after the cross o-projection), which no
+//     one block of the split has. So each runs one more small kernel,
+//     one block per (64 columns, 4 rows), launched from the same C call:
+//     after K3-q, LN2 + Wcq; before K4-o, attn @ Wco + bco + x into a
+//     float32 buffer that K4-o's blocks read as their x.
+// The products are FMA in float32 on bf16 operands, with 16-byte weight
+// loads coalesced across threads (8 columns a thread); a block reduces
+// its threads' K slices through shared memory in a fixed order. No
+// tensor cores, TMA or pipelining yet (ROADMAP: mma.sync/wgmma tiles).
+//
+// Numerics follow the TPU kernels' roundings (ops/decoder_block.py's
+// plain versions): h, q1, k1, v1, the fresh-row products q1*k1, the
+// normalised weights p and pn, the merged attention output and gelu's
+// output are rounded to bf16; LN scales (float32 in the parameter tree)
+// are rounded to bf16 as the JAX wrappers cast them. The cache rows
+// t < pos are read, the fresh row enters in closed form, and row pos is
+// written by the blocks of its head -- so it is counted once. The GELU
+// takes erff where the TPU kernels evaluate Abramowitz-Stegun 7.1.26
+// (|difference| < 1.5e-7).
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;   // threads per block
+constexpr int HDIM = 64;  // head dim of every Whisper preset
+constexpr int RB3 = 2;    // rows per K3 block
+constexpr int RB4 = 4;    // rows per K4 block and per extra-phase block
+constexpr int FC = 128;   // fc1 columns per K4 block
+constexpr int PC = 64;    // output columns per extra-phase block
+constexpr int MAX_ROW_BLOCKS = 4096;  // arrival counters per kernel
+constexpr size_t SMEM_MAX = 48 * 1024;
+
+__device__ __forceinline__ float bfr(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float bf(const bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Layer norm of the block's rows into sH [RB][D] bf16, one warp per row:
+// float32 mean and variance, (x - mu) / sqrt(var + eps) * g + b with g
+// and b rounded to bf16, the result rounded to bf16. Rows >= nrows (the
+// ragged edge of the batch) are zero.
+template <int RB, typename Load>
+__device__ void ln_rows(Load load, int nrows, int D, const float* g,
+                        const bf16* b, float eps, bf16* sH) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < RB; r += NT / 32) {
+    bf16* hr = sH + r * D;
+    if (r >= nrows) {
+      for (int k = lane; k < D; k += 32) hr[k] = __float2bfloat16(0.f);
+      continue;
+    }
+    float s = 0.f;
+    for (int k = lane; k < D; k += 32) s += load(r, k);
+    const float mu = warp_sum(s) / D;
+    float v = 0.f;
+    for (int k = lane; k < D; k += 32) {
+      const float d = load(r, k) - mu;
+      v = fmaf(d, d, v);
+    }
+    const float rs = 1.f / sqrtf(warp_sum(v) / D + eps);
+    for (int k = lane; k < D; k += 32)
+      hr[k] = __float2bfloat16((load(r, k) - mu) * rs * bfr(g[k]) + bf(b[k]));
+  }
+}
+
+// sum_k sIn[r][k] * W[k][c] for the block's RB rows and NC columns of a
+// row-major bf16 W (row stride ldw; NC % 8 == 0, NC / 8 <= NT): thread
+// (cg, ks) accumulates columns 8cg..8cg+7 over k = ks, ks + KS, ... with
+// one 16-byte load per W row; the KS partial sums are added in order and
+// handed to epi(r, c, sum) once per (r, c). red: NT * 8 * RB floats.
+template <int RB, typename Epi>
+__device__ void rows_x_w(const bf16* sIn, int K, const bf16* __restrict__ W,
+                         int ldw, int NC, float* red, Epi epi) {
+  const int CG = NC / 8, KS = NT / CG;
+  const int cg = threadIdx.x % CG, ks = threadIdx.x / CG;
+  if (ks < KS) {
+    float acc[RB][8];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+    const bf16* wp = W + cg * 8;
+#pragma unroll 4
+    for (int k = ks; k < K; k += KS) {
+      float w[8];
+      bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(
+                        wp + (long long)k * ldw)), w);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float hv = bf(sIn[r * K + k]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(hv, w[j], acc[r][j]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float4* dst = reinterpret_cast<float4*>(red + (ks * RB + r) * NC +
+                                              cg * 8);
+      dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < RB * NC; i += NT) {
+    float s = 0.f;
+    for (int q = 0; q < KS; ++q) s += red[q * RB * NC + i];
+    epi(i / NC, i % NC, s);
+  }
+  __syncthreads();
+}
+
+// Arrival of this block at its row block's counter; true in the last
+// block to arrive, which then resets the counter for the next launch.
+__device__ bool last_to_arrive(int* counter, int expected) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(counter + blockIdx.y, 1) == expected - 1;
+  __syncthreads();
+  if (s_last) __threadfence();
+  return s_last;
+}
+
+template <bool TAIL>
+__global__ void __launch_bounds__(NT) self_block_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ g1,
+    const bf16* __restrict__ b1, const bf16* __restrict__ wq,
+    const bf16* __restrict__ bq, const bf16* __restrict__ wk,
+    const bf16* __restrict__ wv, const bf16* __restrict__ bv,
+    const bf16* __restrict__ wo, const bf16* __restrict__ bo, bf16* kc,
+    bf16* vc, float* part, int* counter, bf16* __restrict__ xout,
+    float* __restrict__ xo32, int B, int H, int L, int pos, float scale,
+    float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = H * HDIM;
+  float* red = reinterpret_cast<float*>(smem_raw);  // NT * 8 * RB3
+  float* sQ = red + NT * 8 * RB3;                    // [RB3][64] q1
+  float* sK = sQ + RB3 * HDIM;                       // k1
+  float* sV = sK + RB3 * HDIM;                       // v1
+  float* sP = sV + RB3 * HDIM;                       // [RB3][L] logits, p
+  bf16* sH = reinterpret_cast<bf16*>(sP + RB3 * L);  // [RB3][D]
+  bf16* sA = sH + RB3 * D;                           // [RB3][64] attention
+  const int h = blockIdx.x, r0 = blockIdx.y * RB3;
+  const int nrows = min(RB3, B - r0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = h * HDIM;
+
+  ln_rows<RB3>([&](int r, int k) { return bf(x[(long long)(r0 + r) * D + k]); },
+               nrows, D, g1, b1, eps, sH);
+  __syncthreads();
+  rows_x_w<RB3>(sH, D, wq + c0, D, HDIM, red, [&](int r, int c, float s) {
+    sQ[r * HDIM + c] = bfr(s + bf(bq[c0 + c]));
+  });
+  rows_x_w<RB3>(sH, D, wk + c0, D, HDIM, red, [&](int r, int c, float s) {
+    sK[r * HDIM + c] = bfr(s);
+  });
+  rows_x_w<RB3>(sH, D, wv + c0, D, HDIM, red, [&](int r, int c, float s) {
+    sV[r * HDIM + c] = bfr(s + bf(bv[c0 + c]));
+  });
+  // this step's k1/v1 into cache row pos (read by later steps only)
+  for (int i = threadIdx.x; i < nrows * HDIM; i += NT) {
+    const long long off =
+        ((long long)(r0 + i / HDIM) * L + pos) * D + c0 + i % HDIM;
+    kc[off] = __float2bfloat16(sK[i]);
+    vc[off] = __float2bfloat16(sV[i]);
+  }
+  // attention of head h, one warp per row
+  if (warp < RB3) {
+    const int r = warp;
+    float a0 = 0.f, a1 = 0.f;
+    if (r < nrows) {
+      const float* q = sQ + r * HDIM;
+      float* p = sP + r * L;
+      const long long base = (long long)(r0 + r) * L * D + c0;
+      float mx = -INFINITY;
+      for (int t = lane; t < pos; t += 32) {  // stale rows t < pos
+        const uint4* kr = reinterpret_cast<const uint4*>(kc + base +
+                                                         (long long)t * D);
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < HDIM / 8; ++i) {
+          float kf[8];
+          bf16x8_to_f32(kr[i], kf);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s = fmaf(q[i * 8 + j], kf[j], s);
+        }
+        s *= scale;
+        p[t] = s;
+        mx = fmaxf(mx, s);
+      }
+      // fresh row: per-head sum of the bf16-rounded products q1 * k1
+      const float* k1 = sK + r * HDIM;
+      const float l_new =
+          warp_sum(bfr(q[lane] * k1[lane]) + bfr(q[lane + 32] * k1[lane + 32])) *
+          scale;
+      mx = fmaxf(warp_max(mx), l_new);
+      float sum = 0.f;
+      for (int t = lane; t < pos; t += 32) {
+        const float e = expf(p[t] - mx);
+        p[t] = e;
+        sum += e;
+      }
+      const float denom = warp_sum(sum) + expf(l_new - mx);
+      const float pn = bfr(expf(l_new - mx) / denom);
+      __syncwarp();
+      const bf16* vb = vc + base + 2 * lane;
+      for (int t = 0; t < pos; ++t) {
+        const float pt = bfr(p[t] / denom);
+        const float2 vv = unpack_bf16(ld32(vb + (long long)t * D));
+        a0 = fmaf(pt, vv.x, a0);
+        a1 = fmaf(pt, vv.y, a1);
+      }
+      a0 += pn * sV[r * HDIM + 2 * lane];
+      a1 += pn * sV[r * HDIM + 2 * lane + 1];
+    }
+    *reinterpret_cast<uint32_t*>(sA + r * HDIM + 2 * lane) = pack_bf16(a0, a1);
+  }
+  __syncthreads();
+  // this head's share of the o-projection, into part[h]
+  rows_x_w<RB3>(sA, HDIM, wo + (long long)c0 * D, D, D, red,
+                [&](int r, int c, float s) {
+                  if (r < nrows) part[((long long)h * B + r0 + r) * D + c] = s;
+                });
+  if (!last_to_arrive(counter, H)) return;
+  for (int i = threadIdx.x; i < nrows * D; i += NT) {
+    const long long row = r0 + i / D;
+    const int c = i % D;
+    float o = 0.f;
+    for (int hh = 0; hh < H; ++hh) o += __ldcg(part + (hh * B + row) * D + c);
+    const float xo = bf(x[row * D + c]) + (o + bf(bo[c]));
+    xout[row * D + c] = __float2bfloat16(xo);
+    if (TAIL) xo32[row * D + c] = xo;
+  }
+  if (threadIdx.x == 0) counter[blockIdx.y] = 0;
+}
+
+// One block per (64 output columns, 4 rows) of a [B, D] x [D, D] product
+// on float32 input rows `in`:
+//   LN:  out (bf16) = LN(in) @ W + bias          (K3-q's tail)
+//   !LN: out (f32)  = xres + bf16(in) @ W + bias  (K4-o's head)
+template <bool LN>
+__global__ void __launch_bounds__(NT) rowproj_kernel(
+    const float* __restrict__ in, const float* __restrict__ g,
+    const bf16* __restrict__ bln, const bf16* __restrict__ W,
+    const bf16* __restrict__ bias, const bf16* __restrict__ xres, void* out,
+    int B, int D, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* red = reinterpret_cast<float*>(smem_raw);    // NT * 8 * RB4
+  bf16* sH = reinterpret_cast<bf16*>(red + NT * 8 * RB4);  // [RB4][D]
+  const int c0 = blockIdx.x * PC, r0 = blockIdx.y * RB4;
+  const int nrows = min(RB4, B - r0);
+  auto load = [&](int r, int k) { return in[(long long)(r0 + r) * D + k]; };
+  if (LN) {
+    ln_rows<RB4>(load, nrows, D, g, bln, eps, sH);
+  } else {
+    for (int i = threadIdx.x; i < RB4 * D; i += NT)
+      sH[i] = __float2bfloat16(i / D < nrows ? load(i / D, i % D) : 0.f);
+  }
+  __syncthreads();
+  rows_x_w<RB4>(sH, D, W + c0, D, PC, red, [&](int r, int c, float s) {
+    if (r >= nrows) return;
+    const long long i = (long long)(r0 + r) * D + c0 + c;
+    const float y = s + bf(bias[c0 + c]);
+    if (LN)
+      static_cast<bf16*>(out)[i] = __float2bfloat16(y);
+    else
+      static_cast<float*>(out)[i] = bf(xres[i]) + y;
+  });
+}
+
+template <bool HEAD>
+__global__ void __launch_bounds__(NT) mlp_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ x32,
+    const float* __restrict__ g, const bf16* __restrict__ bln,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+    const bf16* __restrict__ w2, const bf16* __restrict__ b2, float* part,
+    int* counter, bf16* __restrict__ out, int B, int D, int F, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* red = reinterpret_cast<float*>(smem_raw);          // NT * 8 * RB4
+  bf16* sH = reinterpret_cast<bf16*>(red + NT * 8 * RB4);  // [RB4][D]
+  bf16* sU = sH + RB4 * D;                                  // [RB4][FC]
+  const int j = blockIdx.x, r0 = blockIdx.y * RB4;
+  const int nrows = min(RB4, B - r0);
+  auto xin = [&](long long i) { return HEAD ? x32[i] : bf(x[i]); };
+  ln_rows<RB4>([&](int r, int k) { return xin((long long)(r0 + r) * D + k); },
+               nrows, D, g, bln, eps, sH);
+  __syncthreads();
+  // u = gelu(LN(x) @ W1[:, slice] + b1[slice]), rounded to bf16
+  rows_x_w<RB4>(sH, D, w1 + j * FC, F, FC, red, [&](int r, int c, float s) {
+    const float u = s + bf(b1[j * FC + c]);
+    sU[r * FC + c] =
+        __float2bfloat16(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
+  });
+  // this slice's share of fc2, into part[j]
+  rows_x_w<RB4>(sU, FC, w2 + (long long)j * FC * D, D, D, red,
+                [&](int r, int c, float s) {
+                  if (r < nrows) part[((long long)j * B + r0 + r) * D + c] = s;
+                });
+  if (!last_to_arrive(counter, gridDim.x)) return;
+  for (int i = threadIdx.x; i < nrows * D; i += NT) {
+    const long long row = r0 + i / D;
+    const int c = i % D;
+    float y = 0.f;
+    for (int q = 0; q < (int)gridDim.x; ++q)
+      y += __ldcg(part + (q * B + row) * D + c);
+    out[row * D + c] = __float2bfloat16(xin(row * D + c) + (y + bf(b2[c])));
+  }
+  if (threadIdx.x == 0) counter[blockIdx.y] = 0;
+}
+
+inline dim3 rows_grid(int cols, int B, int rb) {
+  return dim3(cols, (B + rb - 1) / rb);
+}
+
+}  // namespace
+
+// K3 / K3-q. x, x_out, q_cross: [B, D] bf16 (D = H * 64); g1, g2: [D]
+// float32 LN scales; b1, b2, bq, bv, bo, bcq: [D] bf16; wq, wk, wv, wo,
+// wcq: [D, D] bf16 row-major ([in, out]); kc, vc: [B, L, D] bf16 caches,
+// row pos written; part: [H, B, D] float32 scratch; counter: >= ceil(B/2)
+// zeroed ints; xo32: [B, D] float32 scratch. wcq == NULL runs K3 (g2, b2,
+// bcq, xo32, q_cross unused). Every pointer 16-byte aligned. Returns the
+// first CUDA error of the launches (0 = none).
+extern "C" int mas_decoder_self_block(
+    const void* x, const void* g1, const void* b1, const void* wq,
+    const void* bq, const void* wk, const void* wv, const void* bv,
+    const void* wo, const void* bo, void* kc, void* vc, void* part,
+    void* counter, void* x_out, const void* g2, const void* b2,
+    const void* wcq, const void* bcq, void* xo32, void* q_cross, int B, int H,
+    int L, int pos, float scale, float eps, void* stream) {
+  const int D = H * HDIM;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = rows_grid(H, B, RB3);
+  const size_t smem = (size_t)(NT * 8 * RB3 + 3 * RB3 * HDIM + RB3 * L) * 4 +
+                      (size_t)(RB3 * D + RB3 * HDIM) * 2;
+  if (grid.y > MAX_ROW_BLOCKS || smem > SMEM_MAX || pos < 0 || pos >= L)
+    return (int)cudaErrorInvalidValue;
+  const bool tail = wcq != nullptr;
+#define K3_ARGS                                                              \
+  (const bf16*)x, (const float*)g1, (const bf16*)b1, (const bf16*)wq,        \
+      (const bf16*)bq, (const bf16*)wk, (const bf16*)wv, (const bf16*)bv,    \
+      (const bf16*)wo, (const bf16*)bo, (bf16*)kc, (bf16*)vc, (float*)part, \
+      (int*)counter, (bf16*)x_out, (float*)xo32, B, H, L, pos, scale, eps
+  if (tail)
+    self_block_kernel<true><<<grid, NT, smem, s>>>(K3_ARGS);
+  else
+    self_block_kernel<false><<<grid, NT, smem, s>>>(K3_ARGS);
+#undef K3_ARGS
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !tail) return (int)e;
+  const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
+  rowproj_kernel<true><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
+      (const float*)xo32, (const float*)g2, (const bf16*)b2,
+      (const bf16*)wcq, (const bf16*)bcq, nullptr, q_cross, B, D, eps);
+  return (int)cudaGetLastError();
+}
+
+// K4 / K4-o. x, out: [B, D] bf16 (D % 64 == 0); g: [D] float32; bln, b2,
+// bco: [D] bf16; w1: [D, F], w2: [F, D], wco: [D, D] bf16 row-major
+// (F % 128 == 0); b1: [F] bf16; attn: [B, D] float32; x32: [B, D]
+// float32 scratch; part: [F / 128, B, D] float32 scratch; counter:
+// >= ceil(B/4) zeroed ints. wco == NULL runs K4 (attn, bco, x32 unused).
+// Returns the first CUDA error of the launches (0 = none).
+extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
+                                     const void* bln, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, const void* attn,
+                                     const void* wco, const void* bco,
+                                     void* x32, void* part, void* counter,
+                                     void* out, int B, int D, int F,
+                                     float eps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = rows_grid(F / FC, B, RB4);
+  const size_t smem = (size_t)NT * 8 * RB4 * 4 +
+                      (size_t)(RB4 * D + RB4 * FC) * 2;
+  if (grid.y > MAX_ROW_BLOCKS || smem > SMEM_MAX || D % PC || F % FC)
+    return (int)cudaErrorInvalidValue;
+  const bool head = wco != nullptr;
+  if (head) {
+    const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
+    rowproj_kernel<false><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
+        (const float*)attn, nullptr, nullptr, (const bf16*)wco,
+        (const bf16*)bco, (const bf16*)x, x32, B, D, 0.f);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+#define K4_ARGS                                                              \
+  (const bf16*)x, (const float*)x32, (const float*)g, (const bf16*)bln,      \
+      (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,    \
+      (float*)part, (int*)counter, (bf16*)out, B, D, F, eps
+  if (head)
+    mlp_kernel<true><<<grid, NT, smem, s>>>(K4_ARGS);
+  else
+    mlp_kernel<false><<<grid, NT, smem, s>>>(K4_ARGS);
+#undef K4_ARGS
+  return (int)cudaGetLastError();
+}

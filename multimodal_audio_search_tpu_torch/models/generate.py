@@ -6,8 +6,11 @@ Counterpart of ``multimodal_audio_search_tpu/models/generate.py::generate``
 emitted EOS) is checked on the host once per step -- one device sync per
 step. ``pos`` is a host int handed to the kernels as an argument.
 
+``decode.fused_layer`` passes through to ``decode_step`` (the fused
+sub-block kernels K3/K4, ops/decoder_block.py).
+
 Not ported (ROADMAP A4/A9): ``method="sample"``, beam search, int8 cross
-K/V, ``fused_layer``, ``scan_layers``.
+K/V, ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -93,9 +96,6 @@ def check_supported(decode: DecodeConfig) -> None:
         raise NotImplementedError(
             f"method={decode.method!r} is not ported; greedy only "
             f"(ROADMAP A4)")
-    if decode.fused_layer:
-        raise NotImplementedError(
-            "fused_layer is not ported (ROADMAP A9, kernels B3-B5)")
     if decode.scan_layers:
         raise NotImplementedError("scan_layers is not ported (ROADMAP)")
     if decode.fused_encoder not in (None, True, False):
@@ -134,7 +134,8 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     ar = torch.arange(total, device=dev)
     pos = 0
     while pos < total - 1:
-        logits = decode_step(params, tokens[:, pos], pos, cache, ckv, cfg)
+        logits = decode_step(params, tokens[:, pos], pos, cache, ckv, cfg,
+                             fused_layer=decode.fused_layer)
         logits = apply_repetition_penalty(
             logits, tokens, (ar <= pos)[None, :].expand(b, total),
             decode.repetition_penalty)

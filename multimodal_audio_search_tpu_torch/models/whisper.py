@@ -13,12 +13,22 @@ package's paths:
     cache [B, L, H*D]; K2 (ops/cross_attention.py) serves both attentions
     of a step. The [B, H, T, D] einsum format stays for
     ``cross_attn="einsum"``.
+  * ``fused_layer`` (ops/decoder_block.py): True runs each layer's self
+    sub-block through K3 and its MLP sub-block through K4, with K2 for the
+    cross attention between them; "v2" (with merged cross K/V) runs K3-q,
+    whose tail emits the cross query, K2 on that query, and K4-o, whose
+    head applies the cross o-projection -- three launches per layer.
 
 The cache is updated IN PLACE (``cache[:, pos] = row``), where JAX builds
 a new array per step; nothing else holds the old cache.
 
-Not ported (ROADMAP A9/A13): ``fused_layer`` (B3-B5), int8 K/V (B6/B7),
-``scan_layers``, tensor-parallel meshes.
+Where the JAX package's gate differs: its ``decode_step`` computes
+``fused_layer = fused_layer and B % 8 == 0``, which turns "v2" into True,
+so its v2 branch never runs (ROADMAP, faults in the reference). The port
+keeps the value and takes the v2 branch.
+
+Not ported (ROADMAP A9/A13): int8 K/V (B6/B7), ``scan_layers``,
+tensor-parallel meshes.
 """
 from __future__ import annotations
 
@@ -242,27 +252,63 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, dtype,
 
 
 def decode_step(params, token: torch.Tensor, pos: int, cache, ckv,
-                cfg: WhisperConfig) -> torch.Tensor:
-    """One KV-cached decode step (the JAX package's non-fused_layer
-    branch). token [B] int64, pos a host int; ``cache`` (from init_cache)
-    is written in place at row ``pos``. Returns logits [B, vocab] f32."""
+                cfg: WhisperConfig, fused_layer: bool | str = False
+                ) -> torch.Tensor:
+    """One KV-cached decode step. token [B] int64, pos a host int;
+    ``cache`` (from init_cache) is written in place at row ``pos``.
+    ``fused_layer`` (False / True / "v2", taken only when B % 8 == 0)
+    picks the fused sub-block kernels (module docstring). Returns logits
+    [B, vocab] f32."""
+    from ..ops import decoder_block as DB
     dec = params["decoder"]
     dtype = cache[0]["k"].dtype
     x = (dec["embed_tokens"][token][:, None, :].float()
          + dec["positions"][pos][None, None, :].float()).to(dtype)
+    fused = bool(fused_layer) and x.shape[0] % 8 == 0
+    v2 = fused and fused_layer == "v2" and ckv[0][0].dim() == 3
     for blk, layer_cache, ckv_entry in zip(dec["blocks"], cache, ckv):
-        h = L.layer_norm(blk["self_ln"], x, cfg.ln_eps)
-        # dense outputs ARE the merged-head layout: one row write each
-        layer_cache["k"][:, pos] = L.dense(blk["self_attn"]["k"], h)[:, 0]
-        layer_cache["v"][:, pos] = L.dense(blk["self_attn"]["v"], h)[:, 0]
-        q1 = L.dense(blk["self_attn"]["q"], h)[:, 0, :]
-        attn = _self_attend_cached(q1, layer_cache["k"], layer_cache["v"],
-                                   pos, cfg)
-        x = x + L.dense(blk["self_attn"]["o"], attn[:, None, :].to(dtype))
+        a = blk["self_attn"]
+        self_args = (blk["self_ln"]["scale"], blk["self_ln"]["bias"],
+                     a["q"]["w"], a["q"]["b"], a["k"]["w"], a["v"]["w"],
+                     a["v"]["b"], a["o"]["w"], a["o"]["b"])
+        mlp_args = (blk["mlp_ln"]["scale"], blk["mlp_ln"]["bias"],
+                    blk["mlp_in"]["w"], blk["mlp_in"]["b"],
+                    blk["mlp_out"]["w"], blk["mlp_out"]["b"])
+        if v2:
+            from ..ops.cross_attention import fused_single_query_attention
+            c = blk["cross_attn"]
+            x1, _, _, qc = DB.fused_self_block_q(
+                x[:, 0], *self_args, blk["cross_ln"]["scale"],
+                blk["cross_ln"]["bias"], c["q"]["w"], c["q"]["b"],
+                layer_cache["k"], layer_cache["v"], pos, heads=cfg.heads,
+                eps=cfg.ln_eps)
+            attn = fused_single_query_attention(qc, *ckv_entry,
+                                                heads=cfg.heads)
+            x = DB.fused_mlp_block_o(x1, attn, c["o"]["w"], c["o"]["b"],
+                                     *mlp_args, eps=cfg.ln_eps)[:, None]
+            continue
+        if fused:
+            x = DB.fused_self_block(
+                x[:, 0], *self_args, layer_cache["k"], layer_cache["v"],
+                pos, heads=cfg.heads, eps=cfg.ln_eps)[0][:, None]
+        else:
+            h = L.layer_norm(blk["self_ln"], x, cfg.ln_eps)
+            # dense outputs ARE the merged-head layout: one row write each
+            layer_cache["k"][:, pos] = L.dense(a["k"], h)[:, 0]
+            layer_cache["v"][:, pos] = L.dense(a["v"], h)[:, 0]
+            q1 = L.dense(a["q"], h)[:, 0, :]
+            attn = _self_attend_cached(q1, layer_cache["k"],
+                                       layer_cache["v"], pos, cfg)
+            x = x + L.dense(a["o"], attn[:, None, :].to(dtype))
         h = L.layer_norm(blk["cross_ln"], x, cfg.ln_eps)
         x = x + _cross_attend(blk, h, ckv_entry, cfg)
-        h = L.layer_norm(blk["mlp_ln"], x, cfg.ln_eps)
-        x = x + L.dense(blk["mlp_out"], L.gelu(L.dense(blk["mlp_in"], h)))
+        if fused and "w" in blk["mlp_in"]:
+            x = DB.fused_mlp_block(x[:, 0], *mlp_args,
+                                   eps=cfg.ln_eps)[:, None]
+        else:
+            h = L.layer_norm(blk["mlp_ln"], x, cfg.ln_eps)
+            x = x + L.dense(blk["mlp_out"],
+                            L.gelu(L.dense(blk["mlp_in"], h)))
     x = L.layer_norm(dec["ln"], x, cfg.ln_eps)
     return _tied_logits(dec, x[:, 0, :])
 

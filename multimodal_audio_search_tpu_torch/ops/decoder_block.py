@@ -1,0 +1,344 @@
+"""Fused decoder sub-blocks of one KV-cached decode step (K3, K4).
+
+Counterpart of ``multimodal_audio_search_tpu/ops/decoder_block.py``:
+
+  fused_self_block    (K3)   x -> LN -> q/k/v -> single-query attention
+                             over the cache rows t < pos + the fresh row
+                             -> o-proj -> +x;  returns (x_out, k1, v1)
+  fused_self_block_q  (K3-q) the same + the next sub-block's cross-LN and
+                             cross q-projection; returns (.., q_cross)
+  fused_mlp_block     (K4)   x -> x + fc2(gelu(fc1(LN x)))
+  fused_mlp_block_o   (K4-o) x -> x + attn @ Wco + bco, then the K4 math
+
+On a CUDA tensor each wrapper launches ``csrc/decoder_block.cu``; on a CPU
+tensor it runs the ``*_plain`` version of the same math. There is no
+other route: a launch that fails raises.
+
+The ``*_plain`` functions have the JAX kernels' signatures and return
+tuples, and round where they round, in the working dtype (x's): h after
+the layer norm, q1/k1/v1 after the projections, the fresh-row products
+q1*k1 before their per-head sum, the normalised stale-row weights p and
+the fresh-row weight pn before their products with V and v1, the merged
+attention output before the o-projection, gelu's output before fc2, and
+each block's output. The residual sums stay float32 until the output is
+rounded. Layer-norm scales and biases and the projection biases are
+rounded to the working dtype first, as the JAX wrappers cast them. The
+MLP's erf-GELU is the JAX kernels' Abramowitz-Stegun 7.1.26 polynomial
+(|err| < 1.5e-7).
+
+The cache is written in place: the K3 wrappers store k1/v1 into row
+``pos`` of ``k_cache``/``v_cache`` (the kernel itself on the card) and
+return views of that row, where the JAX caller writes the row with
+``dynamic_update_slice`` after the kernel. The attention reads only the
+rows t < pos and adds the fresh row in closed form, so the row is
+counted once whoever writes it.
+
+The TPU kernels' ``BC=8`` row blocking, block-diagonal ``maskf`` matmuls
+and ``KV_BUDGET_BYTES`` row sizing are VMEM/Mosaic layout devices and
+are not carried over.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import runtime
+
+# A&S 7.1.26 coefficients, as in the JAX kernels
+_AS_P = 0.3275911
+_AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+
+
+def _r(a: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Round to the working dtype, continue in float32."""
+    return a.to(dt).float()
+
+
+def _ln(xf: torch.Tensor, g, b, dt, eps: float) -> torch.Tensor:
+    """Layer norm in float32 with dtype-rounded scale and bias."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * _r(g, dt) + _r(b, dt)
+
+
+def _proj(h: torch.Tensor, w, b, dt) -> torch.Tensor:
+    """h (dtype values, f32) @ W + b in float32 on dtype-rounded operands."""
+    y = h @ _r(w, dt)
+    return y if b is None else y + _r(b, dt)
+
+
+def gelu_as(u: torch.Tensor) -> torch.Tensor:
+    """erf-GELU with erf from Abramowitz-Stegun 7.1.26, float32."""
+    z = u / math.sqrt(2.0)
+    az = z.abs()
+    t = 1.0 / (1.0 + _AS_P * az)
+    a1, a2, a3, a4, a5 = _AS_A
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    erf = torch.sign(z) * (1.0 - poly * torch.exp(-az * az))
+    return 0.5 * u * (1.0 + erf)
+
+
+def _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                     k_cache, v_cache, pos: int, heads: int, eps: float):
+    """x_out before its rounding (f32 [B, D]), and k1, v1 in x's dtype."""
+    dt = x.dtype
+    b, hd = x.shape
+    d = hd // heads
+    scale = 1.0 / math.sqrt(d)
+    xf = x.float()
+    h = _r(_ln(xf, ln_g, ln_b, dt, eps), dt)
+    q1 = _r(_proj(h, wq, bq, dt), dt)
+    k1 = _r(_proj(h, wk, None, dt), dt)
+    v1 = _r(_proj(h, wv, bv, dt), dt)
+    qh = q1.reshape(b, heads, d)
+    # fresh row: per-head sum of the dtype-rounded products q1*k1
+    l_new = _r(q1 * k1, dt).reshape(b, heads, d).sum(-1) * scale   # [B, H]
+    kc = k_cache[:, :pos].float().reshape(b, pos, heads, d)
+    vc = v_cache[:, :pos].float().reshape(b, pos, heads, d)
+    logits = torch.einsum("bhd,bthd->bht", qh, kc) * scale          # t < pos
+    m = torch.maximum(logits.amax(-1), l_new) if pos else l_new
+    p = torch.exp(logits - m[..., None])
+    pn = torch.exp(l_new - m)
+    denom = p.sum(-1) + pn
+    p = _r(p / denom[..., None], dt)
+    pn = _r(pn / denom, dt)
+    row = torch.einsum("bht,bthd->bhd", p, vc)
+    attn = _r((row + pn[..., None] * v1.reshape(b, heads, d))
+              .reshape(b, hd), dt)
+    xo = xf + _proj(attn, wo, bo, dt)
+    return xo, k1.to(dt), v1.to(dt)
+
+
+def self_block_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                     k_cache, v_cache, pos: int, *, heads: int,
+                     eps: float = 1e-5):
+    """B3 in plain PyTorch. x [B, D]; k_cache/v_cache [B, L, D] hold the
+    rows t < pos (row pos and later are not read). Returns (x_out, k1,
+    v1), all [B, D] in x's dtype; the caches are not written."""
+    xo, k1, v1 = _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
+                                  bo, k_cache, v_cache, int(pos), heads, eps)
+    return xo.to(x.dtype), k1, v1
+
+
+def self_block_q_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                       cross_ln_g, cross_ln_b, wcq, bcq,
+                       k_cache, v_cache, pos: int, *, heads: int,
+                       eps: float = 1e-5):
+    """B5a in plain PyTorch: B3, then the cross-LN of the unrounded x_out
+    and the cross q-projection. Returns (x_out, k1, v1, q_cross)."""
+    dt = x.dtype
+    xo, k1, v1 = _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
+                                  bo, k_cache, v_cache, int(pos), heads, eps)
+    h2 = _r(_ln(xo, cross_ln_g, cross_ln_b, dt, eps), dt)
+    qc = _proj(h2, wcq, bcq, dt)
+    return xo.to(dt), k1, v1, qc.to(dt)
+
+
+def _mlp_math(xf, ln_g, ln_b, w1, b1, w2, b2, dt, eps):
+    h = _r(_ln(xf, ln_g, ln_b, dt, eps), dt)
+    u = _r(gelu_as(_proj(h, w1, b1, dt)), dt)
+    return (xf + _proj(u, w2, b2, dt)).to(dt)
+
+
+def mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """B4 in plain PyTorch: x + fc2(gelu(fc1(LN x))), [B, D] in x's dtype."""
+    return _mlp_math(x.float(), ln_g, ln_b, w1, b1, w2, b2, x.dtype, eps)
+
+
+def mlp_block_o_plain(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
+                      eps: float = 1e-5):
+    """B5b in plain PyTorch: x1 = x + attn @ Wco + bco (float32, attn
+    rounded to x's dtype first), then x1 + fc2(gelu(fc1(LN x1)))."""
+    dt = x.dtype
+    x1 = x.float() + _proj(_r(attn, dt), wco, bco, dt)
+    return _mlp_math(x1, ln_g, ln_b, w1, b1, w2, b2, dt, eps)
+
+
+# ------------------------------------------------------------- card side
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """Zeroed int32 arrival counters for the kernels' last-block
+    epilogues; each launch leaves them zero again. One set per device:
+    the kernels run on one stream at a time."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        c = _COUNTERS[device] = torch.zeros(2, 4096, dtype=torch.int32,
+                                            device=device)
+    return c
+
+
+def _check(kernel: str, ref: torch.Tensor, **tensors) -> None:
+    for name, a in tensors.items():
+        if a.device != ref.device:
+            raise ValueError(f"{kernel}: {name} on {a.device}, x on "
+                             f"{ref.device}")
+        want = torch.float32 if name in ("ln_g", "cross_ln_g", "attn") \
+            else torch.bfloat16
+        if a.dtype != want:
+            raise TypeError(f"{kernel} takes {name} as {want}, got {a.dtype}")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"{kernel} takes a contiguous 16-byte aligned "
+                             f"{name}")
+
+
+def _shape(kernel: str, a: torch.Tensor, want: tuple, name: str) -> None:
+    if tuple(a.shape) != want:
+        raise ValueError(f"{kernel}: {name} is {tuple(a.shape)}, expected "
+                         f"{want}")
+
+
+def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
+                 v_cache, pos: int, heads: int, eps: float, tail=None):
+    kernel = "K3-q" if tail else "K3"
+    b, hd = x.shape
+    if hd != heads * 64:
+        raise ValueError(f"{kernel} takes head dim 64: D={hd}, heads={heads}")
+    l = k_cache.shape[1]
+    vecs = dict(ln_g=ln_g, ln_b=ln_b, bq=bq, bv=bv, bo=bo)
+    mats = dict(wq=wq, wk=wk, wv=wv, wo=wo)
+    if tail:
+        vecs.update(cross_ln_g=tail[0], cross_ln_b=tail[1], bcq=tail[3])
+        mats["wcq"] = tail[2]
+    for name, a in vecs.items():
+        _shape(kernel, a, (hd,), name)
+    for name, a in mats.items():
+        _shape(kernel, a, (hd, hd), name)
+    _shape(kernel, v_cache, (b, l, hd), "v_cache")
+    _shape(kernel, k_cache, (b, l, hd), "k_cache")
+    _check(kernel, x, x=x, k_cache=k_cache, v_cache=v_cache, **vecs, **mats)
+    if not 0 <= pos < l:
+        raise ValueError(f"{kernel}: pos {pos} outside [0, {l})")
+    dev = x.device
+    x_out = torch.empty_like(x)
+    part = torch.empty((heads, b, hd), dtype=torch.float32, device=dev)
+    qc = torch.empty_like(x) if tail else None
+    xo32 = torch.empty((b, hd), dtype=torch.float32, device=dev) \
+        if tail else None
+    cross = tail or (None,) * 4
+    lib = runtime.kernels()
+    rc = lib.mas_decoder_self_block(
+        x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+        wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+        bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        part.data_ptr(), _counters(dev)[0].data_ptr(), x_out.data_ptr(),
+        *(_ptr(a) for a in (*cross, xo32, qc)),
+        b, heads, l, int(pos), 1.0 / math.sqrt(64), eps,
+        runtime.stream_handle(dev))
+    runtime.check_launch(rc, "mas_decoder_self_block")
+    runtime.bump("decoder_self_block_q" if tail else "decoder_self_block")
+    k1, v1 = k_cache[:, pos], v_cache[:, pos]
+    return (x_out, k1, v1, qc) if tail else (x_out, k1, v1)
+
+
+def _ptr(a: torch.Tensor | None) -> int:
+    """Device address, or 0 (NULL) for an input the variant does not take."""
+    return 0 if a is None else a.data_ptr()
+
+
+def _store_row(k_cache, v_cache, pos: int, k1, v1):
+    k_cache[:, pos] = k1
+    v_cache[:, pos] = v1
+    return k_cache[:, pos], v_cache[:, pos]
+
+
+def _device(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def fused_self_block(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                     k_cache, v_cache, pos: int, *, heads: int,
+                     eps: float = 1e-5):
+    """B3: returns (x_out, k1, v1) [B, D] and writes k1/v1 into row
+    ``pos`` of the caches (k1/v1 are views of that row). ``pos`` is a
+    host int. CUDA tensors launch K3, CPU tensors take the plain version.
+    On the card every tensor is bf16 except the float32 LN scale."""
+    pos = int(pos)
+    if _device(x) == "cuda":
+        return _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                            k_cache, v_cache, pos, heads, eps)
+    xo, k1, v1 = self_block_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                                  k_cache, v_cache, pos, heads=heads, eps=eps)
+    return (xo, *_store_row(k_cache, v_cache, pos, k1, v1))
+
+
+def fused_self_block_q(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                       cross_ln_g, cross_ln_b, wcq, bcq,
+                       k_cache, v_cache, pos: int, *, heads: int,
+                       eps: float = 1e-5):
+    """B5a: fused_self_block + the cross-LN and cross q-projection of its
+    output. Returns (x_out, k1, v1, q_cross); the cache row is written as
+    in fused_self_block. CUDA tensors launch K3-q (the K3 kernel's tail
+    variant), CPU tensors take the plain version."""
+    pos = int(pos)
+    if _device(x) == "cuda":
+        return _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                            k_cache, v_cache, pos, heads, eps,
+                            tail=(cross_ln_g, cross_ln_b, wcq, bcq))
+    xo, k1, v1, qc = self_block_q_plain(
+        x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, cross_ln_g, cross_ln_b,
+        wcq, bcq, k_cache, v_cache, pos, heads=heads, eps=eps)
+    return (xo, *_store_row(k_cache, v_cache, pos, k1, v1), qc)
+
+
+def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
+    kernel = "K4-o" if head else "K4"
+    b, hd = x.shape
+    f = w1.shape[1]
+    if hd % 64 or f % 128:
+        raise ValueError(f"{kernel} takes D % 64 == 0 and F % 128 == 0: "
+                         f"D={hd}, F={f}")
+    vecs = dict(ln_g=ln_g, ln_b=ln_b, b2=b2)
+    _shape(kernel, b1, (f,), "b1")
+    _shape(kernel, w1, (hd, f), "w1")
+    _shape(kernel, w2, (f, hd), "w2")
+    extra = {}
+    if head:
+        attn, wco, bco = head
+        _shape(kernel, attn, (b, hd), "attn")
+        _shape(kernel, wco, (hd, hd), "wco")
+        vecs["bco"] = bco
+        extra = dict(attn=attn, wco=wco)
+    for name, a in vecs.items():
+        _shape(kernel, a, (hd,), name)
+    _check(kernel, x, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
+    dev = x.device
+    out = torch.empty_like(x)
+    part = torch.empty((f // 128, b, hd), dtype=torch.float32, device=dev)
+    x32 = torch.empty((b, hd), dtype=torch.float32, device=dev) \
+        if head else None
+    lib = runtime.kernels()
+    rc = lib.mas_decoder_mlp_block(
+        x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        *(_ptr(a) for a in (*(head or (None,) * 3), x32)),
+        part.data_ptr(), _counters(dev)[1].data_ptr(), out.data_ptr(),
+        b, hd, f, eps, runtime.stream_handle(dev))
+    runtime.check_launch(rc, "mas_decoder_mlp_block")
+    runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
+    return out
+
+
+def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """B4: x + fc2(gelu(fc1(LN x))), [B, D]. CUDA tensors launch K4 (which
+    takes erff for the erf of the GELU), CPU tensors the plain version."""
+    if _device(x) == "cuda":
+        return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps)
+    return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps=eps)
+
+
+def fused_mlp_block_o(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
+                      eps: float = 1e-5):
+    """B5b: the cross o-projection + residual, then B4. ``attn`` is the
+    cross attention's float32 output [B, D]. CUDA tensors launch K4-o
+    (the K4 kernel's head variant), CPU tensors the plain version."""
+    if _device(x) == "cuda":
+        return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,
+                           head=(attn, wco, bco))
+    return mlp_block_o_plain(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2,
+                             eps=eps)

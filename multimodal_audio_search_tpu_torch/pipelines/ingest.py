@@ -6,15 +6,20 @@ conditional normalization -> 10 s windows (drop < 3 s) -> per segment run
 ASR and captioning -> validate texts -> embed valid texts -> keep the
 segment iff at least one pipeline produced text.
 
-Per batch of segments the waveform crosses to the device ONCE, as int16
-at the true segment length (``transfer_dtype="int16"``, the default) or
-float32, from a pinned host buffer with a non-blocking copy. The device
-dequantizes, zero-pads to the mel context and computes the log-mel that
-both Whisper models share, then runs ASR and captioning. Every
-surviving text of the waveform embeds in one MiniLM batch.
+Per batch of segments the waveform crosses to the device ONCE, from a
+pinned host buffer with a non-blocking copy, at the true segment length:
+as int16 codes (``transfer_dtype="int16"``, the default), as their
+first differences with int16 wraparound (``"int16d"``; the device undoes
+them with a cumsum, bit-identical to the int16 codes), or float32.
+``"auto"`` times the two lossless codecs on a slice of the payload and
+takes the faster, again after every ``AUTO_REPROBE_MB`` shipped. The
+device dequantizes, zero-pads to the mel context and computes the
+log-mel that both Whisper models share, then runs ASR and captioning.
+Every surviving text of the waveform embeds in one MiniLM batch.
 
 Differences from the JAX package:
-  * only the int16 and float32 transfer codecs are ported (ROADMAP A10);
+  * the int12, mulaw8 and mel transfer codecs are not ported (ROADMAP
+    A10);
   * the two Whisper pipelines must share one mel config (the JAX
     package's separate-mel branch has no caller in the port);
   * a failing batch raises instead of being retried and then degraded to
@@ -40,7 +45,21 @@ from .embed import TextEmbedder
 from .validators import validate_asr_text, validate_audio_description
 from .whisper_pipeline import WhisperTextPipeline
 
-TRANSFER_DTYPES = ("int16", "float32")
+TRANSFER_DTYPES = ("int16", "int16d", "float32", "auto")
+
+
+def delta_encode_int16(q: np.ndarray) -> None:
+    """int16 codes [B, N] -> their first differences along N, in place,
+    with int16 wraparound (the first column stays)."""
+    q[:, 1:] = np.diff(q, axis=1)
+
+
+def delta_decode_int16(d: torch.Tensor) -> torch.Tensor:
+    """Inverse of delta_encode_int16 on the device: a cumsum (int64, so
+    nothing overflows) re-centred into the int16 range. Returns int64
+    codes equal to the int16 codes."""
+    c = torch.cumsum(d.long(), dim=1)
+    return torch.remainder(c + 32768, 65536) - 32768
 
 
 class DualPipelineIngest:
@@ -70,6 +89,55 @@ class DualPipelineIngest:
         # never collide within one store
         self._seg_counter = itertools.count()
         self.last_trace: dict[str, float] = {}
+        self.last_probe: dict[str, float] = {}
+        self.last_transfer_resolved: str | None = None
+        self._auto_transfer_choice: str | None = None
+        self._bytes_since_probe = 0.0
+
+    # the lossless codecs "auto" chooses between: both give the device
+    # the same int16 codes
+    AUTO_TRANSFER_CANDIDATES = ("int16", "int16d")
+    # after this many MB shipped, the next batch probes again
+    AUTO_REPROBE_MB = 256.0
+    # bytes of payload per timed put
+    AUTO_PROBE_PUT_BYTES = 2_000_000
+
+    def _resolve_auto_transfer(self, waves, seg_len: int,
+                               scale: np.float32) -> str:
+        """The JAX package's probe for transfer_dtype="auto": encode and
+        ship a slice of this payload (at most AUTO_PROBE_PUT_BYTES, at
+        most 32 segments) in each candidate codec, 4 times; drop the
+        first (cold) time and take the codec with the lower median. The
+        choice holds until AUTO_REPROBE_MB more have been shipped. A put
+        is pinned host buffer -> non-blocking copy -> device sync (on the
+        CPU, a plain copy)."""
+        if self._auto_transfer_choice is not None and \
+                self._bytes_since_probe < self.AUTO_REPROBE_MB * 1e6:
+            return self._auto_transfer_choice
+        cap = max(1, int(self.AUTO_PROBE_PUT_BYTES // (seg_len * 2)))
+        sample = waves[: min(len(waves), cap, 32)]
+        best, best_t = "int16", float("inf")
+        probe = {}
+        for mode in self.AUTO_TRANSFER_CANDIDATES:
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                q = self._encode_transfer(sample, len(sample), seg_len,
+                                          scale, mode)
+                q.to(self.device, non_blocking=True, copy=True)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                times.append(time.perf_counter() - t0)
+            t = float(np.median(times[1:]))
+            probe[mode] = round(t, 4)
+            if t < best_t:
+                best, best_t = mode, t
+        self._auto_transfer_choice = best
+        self._bytes_since_probe = 0.0
+        self.last_probe = probe
+        if self.stats is not None:
+            self.stats.log.log("transfer_auto_choice", best_t, mode=best)
+        return best
 
     def process_file(
         self, src, source_name: str = "upload"
@@ -78,10 +146,11 @@ class DualPipelineIngest:
         return self.process_waveform(wave, sr, source_name)
 
     def _encode_transfer(self, chunk, b: int, seg_len: int,
-                         scale: np.float32) -> torch.Tensor:
-        """Host side: [b, seg_len] int16 (or float32) batch, the deferred
+                         scale: np.float32, mode: str) -> torch.Tensor:
+        """Host side: [b, seg_len] int16 codes (``mode`` "int16"), their
+        wraparound differences ("int16d") or float32, the deferred
         normalization scale applied, in a pinned buffer on CUDA."""
-        int16 = self.cfg.transfer_dtype == "int16"
+        int16 = mode in ("int16", "int16d")
         pin = self.device.type == "cuda"
         buf = torch.zeros((b, seg_len),
                           dtype=torch.int16 if int16 else torch.float32,
@@ -96,14 +165,18 @@ class DualPipelineIngest:
                 q[i, :m] = np.clip(np.nan_to_num(wn), -1.0, 1.0) * 32767.0
             else:
                 q[i, :m] = np.nan_to_num(wn)
+        if mode == "int16d":
+            delta_encode_int16(q)
         return buf
 
-    def _device_mel(self, qd: torch.Tensor) -> torch.Tensor:
+    def _device_mel(self, qd: torch.Tensor, mode: str) -> torch.Tensor:
         """Device side: dequantize, zero-pad to the mel context, log-mel
         (float32 [B, n_mels, frames])."""
         from ..ops.mel import log_mel_spectrogram
         mel_cfg = self.asr.mel_cfg
-        w = qd.float() / 32767.0 if qd.dtype == torch.int16 else qd.float()
+        if mode == "int16d":
+            qd = delta_decode_int16(qd)
+        w = qd.float() / 32767.0 if mode != "float32" else qd.float()
         w = F.pad(w, (0, mel_cfg.n_samples - w.shape[1]))
         return log_mel_spectrogram(w, mel_cfg)
 
@@ -118,7 +191,7 @@ class DualPipelineIngest:
         cfg = self.cfg
         t_wall0 = time.perf_counter()
         tr = {k: 0.0 for k in (
-            "resample", "segment", "quantize", "put", "dispatch",
+            "resample", "segment", "probe", "quantize", "put", "dispatch",
             "wait", "detok", "validate", "embed", "build")}
         self.last_trace = tr
         target_sr = self.asr.mel_cfg.sample_rate
@@ -144,19 +217,28 @@ class DualPipelineIngest:
         seg_len = min(int(cfg.segment.segment_seconds * sr),
                       self.asr.mel_cfg.n_samples)
 
+        transfer = cfg.transfer_dtype
+        if transfer == "auto":
+            t0 = time.perf_counter()
+            transfer = self._resolve_auto_transfer(waves, seg_len, scale)
+            tr["probe"] = time.perf_counter() - t0
+        self.last_transfer_resolved = transfer
+
         batch_texts: list[tuple[int, int, list, list, list, list]] = []
         for lo in range(0, len(wins), cfg.ingest_batch):
             hi = min(lo + cfg.ingest_batch, len(wins))
             n = hi - lo
             t0 = time.perf_counter()
             b = _bucket(n, self.asr.batch_floor())
-            q = self._encode_transfer(waves[lo:hi], b, seg_len, scale)
+            q = self._encode_transfer(waves[lo:hi], b, seg_len, scale,
+                                      transfer)
             tp = time.perf_counter()
             tr["quantize"] += tp - t0
             qd = q.to(self.device, non_blocking=True)
+            self._bytes_since_probe += q.numel() * q.element_size()
             td = time.perf_counter()
             tr["put"] += td - tp
-            mel = self._device_mel(qd)
+            mel = self._device_mel(qd, transfer)
             a_tok, a_len = self.asr.dispatch_mel(mel)
             c_tok, c_len = self.caption.dispatch_mel(mel)
             tw = time.perf_counter()

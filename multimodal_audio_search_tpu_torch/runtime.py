@@ -7,10 +7,12 @@
   runs on its accelerator (``pipelines/whisper_pipeline.py``); float32 on
   the CPU, where the parity tests run.
 * Kernels: every ``csrc/*.cu`` file is compiled with ``nvcc`` for
-  ``sm_90a`` into one shared library with a plain C interface, at first
-  use, and loaded with ``ctypes``. The build lands in ``_build/`` beside
-  this file (git-ignored), keyed by a hash of the sources and flags, so a
-  changed source is never served by a stale library.
+  ``sm_90a`` (one ``nvcc`` per source, all started together) and the
+  objects are linked into one shared library with a plain C interface,
+  at first use, and loaded with ``ctypes``. The build lands in
+  ``_build/`` beside this file (git-ignored), keyed by a hash of the
+  sources and flags, so a changed source is never served by a stale
+  library.
 * Counts: each kernel wrapper adds one to its entry in ``COUNTS`` where
   it launches, and nowhere else; a run reads them to show which kernels
   the main path went through.
@@ -32,12 +34,16 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_counts()
 COUNTS: dict[str, int] = {
     "encoder_attn_o_residual": 0,
     "single_query_attention": 0,
+    "decoder_self_block": 0,
+    "decoder_self_block_q": 0,
+    "decoder_mlp_block": 0,
+    "decoder_mlp_block_o": 0,
 }
 
 _lock = threading.Lock()
@@ -119,6 +125,53 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,            # B, H, T, HD, n_valid
         f, p]                     # scale, stream
     lib.mas_single_query_attention.restype = i
+    lib.mas_decoder_self_block.argtypes = [
+        p, p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo, bo
+        p, p, p, p, p,            # k/v caches, partials, counters, x_out
+        p, p, p, p, p, p,         # g2, b2, wcq, bcq, xo32, q_cross (K3-q)
+        i, i, i, i,               # B, H, L, pos
+        f, f, p]                  # scale, eps, stream
+    lib.mas_decoder_self_block.restype = i
+    lib.mas_decoder_mlp_block.argtypes = [
+        p, p, p, p, p, p, p,      # x, g, b, w1, b1, w2, b2
+        p, p, p, p,               # attn, wco, bco, x32 (K4-o)
+        p, p, p,                  # partials, counters, out
+        i, i, i,                  # B, D, F
+        f, p]                     # eps, stream
+    lib.mas_decoder_mlp_block.restype = i
+
+
+def _build(so: pathlib.Path) -> tuple[str, str]:
+    """Compile each source to an object (all nvcc processes at once), then
+    link them into ``so``. Returns the commands and the compilers' output;
+    raises on the first failure."""
+    tag = f".tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}{tag}.o" for s in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [pr.communicate()[0] for pr in procs]
+    tmp = so.with_suffix(f"{tag}.so")
+    link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    log = "".join(outs)
+    try:
+        for c, pr, out in zip(cmds, procs, outs):
+            if pr.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({pr.returncode}):\n{' '.join(c)}\n{out}")
+        res = subprocess.run(link, capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(link)}\n{log}")
+        tmp.replace(so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "\n".join(" ".join(c) for c in [*cmds, link]), log
 
 
 def kernels() -> ctypes.CDLL:
@@ -140,26 +193,14 @@ def kernels() -> ctypes.CDLL:
                 f"sm_{cap[0]}{cap[1]}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"libmas_kernels_{_source_key()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(so),
-               *[str(s) for s in _sources()]]
         t0 = time.perf_counter()
-        log = ""
-        if not so.exists():
-            tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-            cmd[cmd.index(str(so))] = str(tmp)
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{log}")
-            tmp.replace(so)
+        cmd, log = _build(so) if not so.exists() else ("", "")
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         check_launch(lib.mas_attn_o_residual_init(),
                      "mas_attn_o_residual_init")
         build_info.update(seconds=time.perf_counter() - t0, library=str(so),
-                          command=" ".join(cmd), log=log)
+                          command=cmd, log=log)
         _lib = lib
         return lib
 

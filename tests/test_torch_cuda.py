@@ -1,4 +1,4 @@
-"""K1 and K2 on the card, against their plain PyTorch versions.
+"""K1, K2, K3 and K4 on the card, against their plain PyTorch versions.
 
 Marked ``requires_cuda``: on a machine without a CUDA card every test
 here skips (the card is looked up inside a fixture, never at import).
@@ -8,7 +8,9 @@ Run them there with ``python -m pytest tests/test_torch_cuda.py -q``.
 Inputs and checks are chip_smoke.py's: K1 on a residual input (bf16
 output, atol 1e-2 + rtol 1.6e-2) and on inputs with x = 0 and bo = 0 that
 isolate the attention term (within 1e-2 of its max and 7e-3 of its
-norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3.
+norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3; K3 and K4
+(both variants) on their block's term out - x (chip_smoke.check_delta)
+and k1/v1/q_cross elementwise, each with a planted fault it rejects.
 """
 import pytest
 import torch
@@ -143,3 +145,153 @@ def test_tiny_engine_on_card_matches_cpu(cuda):
     assert [s["start_time"] for s in gpu] == [s["start_time"] for s in cpu]
     assert runtime.COUNTS["encoder_attn_o_residual"] == 2 * 2
     assert runtime.COUNTS["single_query_attention"] > 0
+
+
+# ------------------------------------------------ K3 / K4 (decoder blocks)
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("b,heads,l,pos", [(1, 2, 41, 0), (3, 6, 41, 1),
+                                           (33, 8, 68, 40), (5, 2, 7, 6)])
+def test_k3_matches_plain(cuda, tail, b, heads, l, pos):
+    """K3 and K3-q at odd batch rows (ragged last row block) and pos,
+    held by chip_smoke's check; the cache row pos is written, the rows
+    t < pos are not touched, and the wrapper counts one launch."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(b * 100 + pos)
+    x, selfw, tl, kc, vc = chip_smoke.k3_inputs(gen, b, l, heads * 64)
+    extra = tl if tail else []
+    fused = DB.fused_self_block_q if tail else DB.fused_self_block
+    plain = DB.self_block_q_plain if tail else DB.self_block_plain
+    ref = plain(x, *selfw, *extra, kc, vc, pos, heads=heads)
+    kg, vg = kc.clone(), vc.clone()
+    runtime.reset_counts()
+    got = fused(x, *selfw, *extra, kg, vg, pos, heads=heads)
+    torch.cuda.synchronize()
+    key = "decoder_self_block_q" if tail else "decoder_self_block"
+    assert runtime.COUNTS[key] == 1 and sum(runtime.COUNTS.values()) == 1
+    chip_smoke.check_k3("K3", got, ref, x)
+    assert torch.equal(kg[:, pos], got[1]) and torch.equal(vg[:, pos], got[2])
+    assert torch.equal(kg[:, :pos], kc[:, :pos])
+    assert torch.equal(vg[:, pos + 1:], vc[:, pos + 1:])
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("b,d,f", [(1, 128, 256), (5, 384, 1536),
+                                   (33, 512, 2048)])
+def test_k4_matches_plain(cuda, head, b, d, f):
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(b + d)
+    x, mlp, hd = chip_smoke.k4_inputs(gen, b, d, f)
+    args = (x, *hd, *mlp) if head else (x, *mlp)
+    fused = DB.fused_mlp_block_o if head else DB.fused_mlp_block
+    plain = DB.mlp_block_o_plain if head else DB.mlp_block_plain
+    runtime.reset_counts()
+    got = fused(*args)
+    torch.cuda.synchronize()
+    assert sum(runtime.COUNTS.values()) == 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    chip_smoke.check_delta("K4", got, plain(*args), x)
+
+
+def test_k3_check_sees_fresh_row_counted_twice(cuda):
+    """A planted fault: K3 at pos + 1 over caches whose row pos already
+    holds this step's k1/v1 computes what a kernel that read the row it
+    wrote (t <= pos) AND added the closed-form fresh row computes at pos.
+    chip_smoke's check passes K3 at pos and rejects that."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(3)
+    x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 8, 68, 512)
+    pos = 3
+    ref = DB.self_block_plain(x, *selfw, kc, vc, pos, heads=8)
+    good = DB.fused_self_block(x, *selfw, kc, vc, pos, heads=8)
+    faulty = DB.fused_self_block(x, *selfw, kc, vc, pos + 1, heads=8)
+    chip_smoke.check_k3("K3", good, ref, x)
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_k3("K3 fresh row twice", faulty, ref, x)
+
+
+def test_k4_check_sees_missing_fc1_bias(cuda):
+    """A planted fault: K4 run with fc1's bias zeroed, held to the plain
+    version with the bias, is rejected; with the bias it passes."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(4)
+    x, mlp, _ = chip_smoke.k4_inputs(gen, 32, 512, 2048)
+    ref = DB.mlp_block_plain(x, *mlp)
+    chip_smoke.check_delta("K4", DB.fused_mlp_block(x, *mlp), ref, x)
+    no_b1 = list(mlp)
+    no_b1[3] = torch.zeros_like(mlp[3])
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_delta("K4 b1 missing", DB.fused_mlp_block(x, *no_b1),
+                               ref, x)
+
+
+def test_decoder_wrappers_raise_instead_of_falling_back(cuda):
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(5)
+    x, selfw, tail, kc, vc = chip_smoke.k3_inputs(gen, 8, 16, 128)
+    with pytest.raises(TypeError):                    # float32 x
+        DB.fused_self_block(x.float(), *selfw, kc, vc, 2, heads=2)
+    with pytest.raises(ValueError):                   # head dim 32
+        DB.fused_self_block(x, *selfw, kc, vc, 2, heads=4)
+    cpu_w = list(selfw)
+    cpu_w[2] = cpu_w[2].cpu()
+    with pytest.raises(ValueError):                   # a weight on the CPU
+        DB.fused_self_block(x, *cpu_w, kc, vc, 2, heads=2)
+    with pytest.raises(ValueError):                   # pos outside the cache
+        DB.fused_self_block_q(x, *selfw, *tail, kc, vc, 16, heads=2)
+    xm, mlp, head = chip_smoke.k4_inputs(gen, 8, 128, 256)
+    with pytest.raises(ValueError):                   # F % 128 != 0
+        DB.fused_mlp_block(xm, mlp[0], mlp[1], mlp[2][:, :200],
+                           mlp[3][:200], mlp[4][:200], mlp[5])
+    with pytest.raises(TypeError):                    # bf16 attn
+        DB.fused_mlp_block_o(xm, head[0].bfloat16(), *head[1:], *mlp)
+
+
+@pytest.mark.parametrize("fused", [True, "v2"])
+def test_tiny_fused_engine_on_card(cuda, fused):
+    """The toy-width engine with fused_layer on both models: on the card
+    every decode layer step went through K3/K4 (or K3-q/K4-o) and K2
+    once, and the segments are the CPU engine's."""
+    import numpy as np
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.config import (
+        DecodeConfig, EngineConfig, MelConfig)
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.pipelines.embed import (
+        TextEmbedder)
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        DualPipelineIngest)
+    from multimodal_audio_search_tpu_torch.pipelines.whisper_pipeline import (
+        WhisperTextPipeline)
+    wcfg = W.config_for("test", d_model=128, heads=2)   # head dim 64
+    mel = MelConfig(padded_seconds=2.0)
+
+    def engine(device):
+        dec = DecodeConfig(max_new_tokens=5, fused_layer=fused)
+        asr = WhisperTextPipeline(cfg=wcfg, decode=dec, mel_cfg=mel,
+                                  device=device)
+        cap = WhisperTextPipeline(cfg=wcfg, decode=dec, mel_cfg=mel, seed=1,
+                                  prefix_ids=[wcfg.bos_token_id],
+                                  device=device)
+        emb = TextEmbedder(cfg=PRESETS["test"], device=device)
+        cfg = EngineConfig(ingest_batch=4, embed_dim=64,
+                           transfer_dtype="auto")
+        return AudioSearchEngine(cfg=cfg, ingest_pipeline=DualPipelineIngest(
+            asr, cap, emb, cfg))
+
+    x = (np.random.default_rng(0).normal(size=16000 * 25) * 0.3) \
+        .astype(np.float32)
+    runtime.reset_counts()
+    eng = engine("cuda")
+    gpu = eng.ingest_waveform(x, 16000, "x")
+    steps = eng.ingest_pipeline.asr.total_steps + \
+        eng.ingest_pipeline.caption.total_steps
+    cpu = engine("cpu").ingest_waveform(x, 16000, "x")
+    assert [s["start_time"] for s in gpu] == [s["start_time"] for s in cpu]
+    pair = ("decoder_self_block_q", "decoder_mlp_block_o") if fused == "v2" \
+        else ("decoder_self_block", "decoder_mlp_block")
+    for k in pair + ("single_query_attention",):
+        assert runtime.COUNTS[k] == steps * wcfg.dec_layers > 0, k
+    assert eng.ingest_pipeline.last_transfer_resolved in ("int16", "int16d")

@@ -9,6 +9,7 @@ package, end to end on the CPU at toy widths and the same weights.
 * the on-disk index: a store saved by either package loads in the other;
 * the port imports and runs with jax absent.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +46,7 @@ from multimodal_audio_search_tpu_torch.pipelines.ingest import (
     DualPipelineIngest, make_default_ingest)
 from multimodal_audio_search_tpu_torch.pipelines.whisper_pipeline import (
     WhisperTextPipeline)
+from multimodal_audio_search_tpu_torch.service.stats import StatsRegistry
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -78,6 +80,31 @@ def test_generate_tokens_identical(rng, penalty, ngram):
     assert 1 <= out.steps <= 4 + 10 - 1
 
 
+@pytest.mark.parametrize("fused", [True, "v2"])
+@pytest.mark.parametrize("penalty,ngram", [(1.0, 0), (1.3, 2)])
+def test_generate_fused_layer_tokens_identical(rng, fused, penalty, ngram):
+    """B=8, so the fused sub-blocks run (the plain versions of K3/K4 on
+    the CPU; the Pallas kernels in interpret mode in JAX, whose "v2" runs
+    its True branch -- ROADMAP, faults in the reference)."""
+    cfg = JW.PRESETS["test"]
+    jp = JW.init_params(jax.random.PRNGKey(8), cfg)
+    tp = W.prepare_params(weights.whisper_params(_np(jp)), torch.float32,
+                          CPU)
+    enc = rng.normal(size=(8, 100, cfg.d_model)).astype(np.float32)
+    prefix = np.tile(np.asarray(JW.forced_prefix(cfg), np.int32), (8, 1))
+    kw = dict(max_new_tokens=8, repetition_penalty=penalty,
+              no_repeat_ngram_size=ngram, fused_layer=fused)
+    ref = JG.generate(jp, jnp.asarray(enc), jnp.asarray(prefix), cfg=cfg,
+                      decode=jcfg.DecodeConfig(**kw), prefix_len=4,
+                      max_new_tokens=8)
+    out = G.generate(tp, torch.from_numpy(enc), torch.from_numpy(prefix),
+                     cfg=W.PRESETS["test"], decode=tcfg.DecodeConfig(**kw),
+                     max_new_tokens=8)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(out.lengths.numpy(),
+                                  np.asarray(ref.lengths))
+
+
 @pytest.mark.parametrize("n", [1, 2, 3])
 def test_logits_processors_match(rng, n):
     logits = rng.normal(size=(4, 50)).astype(np.float32)
@@ -103,8 +130,10 @@ MEL_S = 2.0           # the "test" preset's 100 encoder positions
 EMB = dict(vocab_size=2048, hidden=64, layers=1, heads=2, intermediate=128)
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _make_engines(profile=None):
+    """A JAX and a PyTorch engine on the same toy weights; ``profile``
+    ("fast_lossless") is applied to both configs, and its decode options
+    reach both pipelines."""
     wcfg = JW.PRESETS["test"]
     mcfg_j = JM.MiniLMConfig(**EMB)
     # 3x the init scale on every matrix: at the stock 0.02 the toy
@@ -114,8 +143,14 @@ def engines():
         JW.init_params(jax.random.PRNGKey(s), wcfg)) for s in (0, 1))
     emb_p = JM.init_params(jax.random.PRNGKey(2), mcfg_j)
 
-    cfg_j = jcfg.EngineConfig(ingest_batch=4, embed_dim=64)
-    dec_j = jcfg.DecodeConfig(max_new_tokens=6)
+    def config(mod):
+        cfg = mod.EngineConfig(ingest_batch=4, embed_dim=64)
+        if profile:
+            cfg = mod.apply_profile(cfg, profile)
+        dec = dataclasses.replace(cfg.asr_decode, max_new_tokens=6)
+        return cfg, dec
+
+    cfg_j, dec_j = config(jcfg)
     mel_j = jcfg.MelConfig(padded_seconds=MEL_S)
     jasr = JPipe(params=asr_p, cfg=wcfg, decode=dec_j, mel_cfg=mel_j,
                  dtype=jnp.float32, name="asr")
@@ -127,8 +162,7 @@ def engines():
         jasr, jcap, jemb, cfg_j))
 
     twcfg = W.PRESETS["test"]
-    cfg_t = tcfg.EngineConfig(ingest_batch=4, embed_dim=64)
-    dec_t = tcfg.DecodeConfig(max_new_tokens=6)
+    cfg_t, dec_t = config(tcfg)
     mel_t = tcfg.MelConfig(padded_seconds=MEL_S)
     tasr = WhisperTextPipeline(
         params=weights.whisper_params(_np(asr_p)), cfg=twcfg, decode=dec_t,
@@ -140,8 +174,13 @@ def engines():
     temb = TextEmbedder(params=weights.minilm_params(_np(emb_p)),
                         cfg=M.MiniLMConfig(**EMB), device="cpu")
     teng = AudioSearchEngine(cfg=cfg_t, ingest_pipeline=DualPipelineIngest(
-        tasr, tcap, temb, cfg_t))
+        tasr, tcap, temb, cfg_t, StatsRegistry()))
     return jeng, teng
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _make_engines()
 
 
 def _pieces(rng, seconds):
@@ -155,8 +194,7 @@ def _pieces(rng, seconds):
         .astype(np.float32)
 
 
-def test_engine_parity(engines, rng, tmp_path):
-    jeng, teng = engines
+def _check_engine_parity(jeng, teng, rng, tmp_path):
     wave = _pieces(rng, 65)            # 7 windows -> 2 batches of <= 4
     p = str(tmp_path / "clip.wav")
     write_wav(p, wave, SR)
@@ -187,13 +225,184 @@ def test_engine_parity(engines, rng, tmp_path):
     own = next(i for i, s in enumerate(tsegs)
                if s["asr_text"] and texts.count(s["asr_text"]) == 1)
     assert teng.search(tsegs[own]["asr_text"])[0][0]["index"] == own
-    # K1/K2 stay plain on CPU tensors: the wrappers counted no launch
+    # the kernels stay plain on CPU tensors: the wrappers counted no launch
     from multimodal_audio_search_tpu_torch import runtime
-    assert runtime.COUNTS == {"encoder_attn_o_residual": 0,
-                              "single_query_attention": 0}
+    assert runtime.COUNTS == dict.fromkeys(
+        ("encoder_attn_o_residual", "single_query_attention",
+         "decoder_self_block", "decoder_self_block_q", "decoder_mlp_block",
+         "decoder_mlp_block_o"), 0)
     stats = json.loads(teng.export_stats_json())
     assert stats["database"]["total_segments"] == len(tsegs)
 
+
+def test_engine_parity(engines, rng, tmp_path):
+    _check_engine_parity(*engines, rng, tmp_path)
+
+
+def test_engine_parity_fast_lossless(rng, tmp_path, monkeypatch):
+    """Both engines under apply_profile(..., "fast_lossless"): the fused
+    encoder and decode sub-blocks (K1, K3, K4 as plain versions here; the
+    Pallas kernels in interpret mode in JAX) and the "auto" transfer
+    probe. Same segments, texts, embeddings and top-10."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    calls = []
+    fn = DB.fused_self_block
+    monkeypatch.setattr(DB, "fused_self_block",
+                        lambda *a, **k: (calls.append(1), fn(*a, **k))[1])
+    jeng, teng = _make_engines("fast_lossless")
+    _check_engine_parity(jeng, teng, rng, tmp_path)
+    ing = teng.ingest_pipeline
+    assert ing.asr.decode.fused_layer is True and calls
+    assert ing.last_transfer_resolved in ing.AUTO_TRANSFER_CANDIDATES
+    assert set(ing.last_probe) == {"int16", "int16d"}
+    assert jeng.ingest_pipeline.last_transfer_resolved in ("int16", "int16d")
+
+
+
+@pytest.mark.parametrize("via", ["apply_profile", "MAS_PROFILE"])
+def test_fast_lossless_engine_from_config_alone(monkeypatch, rng, via):
+    """AudioSearchEngine(cfg=...) under the profile builds the fused
+    pipelines with no further argument, and ingests through them."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    base = tcfg.EngineConfig(ingest_batch=4, embed_dim=64,
+                             short_context=True).replace(
+        asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
+        caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
+        text_embedder=tcfg.ModelSpec(family="minilm", preset="test"),
+        segment=tcfg.SegmentConfig(segment_seconds=2.0,
+                                   min_segment_seconds=1.0),
+        asr_decode=tcfg.DecodeConfig(max_new_tokens=4),
+        caption_decode=tcfg.DecodeConfig(max_new_tokens=4))
+    if via == "MAS_PROFILE":
+        monkeypatch.setenv("MAS_PROFILE", "fast_lossless")
+        cfg = tcfg.config_from_env(base)
+    else:
+        cfg = tcfg.apply_profile(base, "fast_lossless")
+    calls = []
+    for name in ("fused_self_block", "fused_mlp_block"):
+        fn = getattr(DB, name)
+        monkeypatch.setattr(DB, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    eng = AudioSearchEngine(cfg=cfg, device="cpu")
+    ing = eng.ingest_pipeline
+    for p in (ing.asr, ing.caption):
+        assert p.decode.fused_layer is True and p.fused_encoder_resolved
+    segs = eng.ingest_waveform(_pieces(rng, 5), SR, "x")
+    assert ing.last_transfer_resolved in ("int16", "int16d")
+    assert {"fused_self_block", "fused_mlp_block"} <= set(calls)
+    assert len(segs) >= 1
+
+
+def _captured_codes(monkeypatch, run, module, attr):
+    """Arrays handed to ``module.attr`` while ``run()`` runs."""
+    seen, fn = [], getattr(module, attr)
+
+    def spy(x, *a, **k):
+        seen.append(np.array(x))
+        return fn(x, *a, **k)
+    with monkeypatch.context() as m:
+        m.setattr(module, attr, spy)
+        run()
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["noise", "full_scale_square", "nan_peaks"])
+def test_int16d_codes_bit_identical(engines, monkeypatch, kind):
+    """int16d on the host gives the JAX package's codes bit for bit, and
+    the device-side cumsum gives back the int16 codes, including the
+    wraparound of a full-scale square wave (peak 0.95, the loudest the
+    peak normalization leaves alone: differences of 62256) and of codes
+    at +-32767 (differences of 65534)."""
+    from multimodal_audio_search_tpu_torch.pipelines import ingest as TI
+    jeng, teng = engines
+    r = np.random.default_rng(3)
+    wave = (r.normal(size=SR * 5) * 0.3).astype(np.float32)
+    if kind == "full_scale_square":
+        wave = np.where(np.arange(wave.size) % 2, 0.95, -0.95).astype(
+            np.float32)
+    elif kind == "nan_peaks":
+        wave[::997] = np.nan
+        wave[1::991] = 4.0
+    codes = {}
+    for mode in ("int16", "int16d"):
+        cfg_j = jcfg.EngineConfig(ingest_batch=4, embed_dim=64,
+                                  transfer_dtype=mode)
+        ji = jeng.ingest_pipeline
+        jing = JIngest(ji.asr, ji.caption, ji.embedder, cfg_j)
+        codes["jax", mode] = _captured_codes(
+            monkeypatch, lambda: jing.process_waveform(wave, SR), jax,
+            "device_put")
+        ti = teng.ingest_pipeline
+        ting = DualPipelineIngest(ti.asr, ti.caption, ti.embedder,
+                                  tcfg.EngineConfig(ingest_batch=4,
+                                                    embed_dim=64,
+                                                    transfer_dtype=mode))
+        codes["port", mode] = _captured_codes(
+            monkeypatch, lambda: ting.process_waveform(wave, SR), ting,
+            "_device_mel")
+    assert len(codes["port", "int16d"]) == len(codes["jax", "int16d"]) >= 1
+    for mode in ("int16", "int16d"):
+        for got, ref in zip(codes["port", mode], codes["jax", mode]):
+            assert got.dtype == ref.dtype == np.int16
+            np.testing.assert_array_equal(got, ref)
+    for d, q in zip(codes["port", "int16d"], codes["port", "int16"]):
+        back = TI.delta_decode_int16(torch.from_numpy(d))
+        np.testing.assert_array_equal(back.numpy(), q.astype(np.int64))
+    if kind == "full_scale_square":
+        q = codes["port", "int16"][0].astype(np.int32)
+        assert np.abs(np.diff(q, axis=1)).max() > 32767        # wrapped
+        q = np.array([[32767, -32767, 32767, 0, -32767, -32767]], np.int16)
+        d = q.copy()
+        TI.delta_encode_int16(d)
+        assert d[0, 1] == 2 and d[0, 2] == -2
+        np.testing.assert_array_equal(
+            TI.delta_decode_int16(torch.from_numpy(d)).numpy(), q)
+
+
+def test_auto_transfer_probes_then_reprobes(engines, monkeypatch, rng):
+    """The "auto" probe times both candidates and records its choice;
+    the choice holds until AUTO_REPROBE_MB more were shipped; then the
+    next ingest probes again."""
+    _, teng = engines
+    ti = teng.ingest_pipeline
+    stats = StatsRegistry()
+    ing = DualPipelineIngest(
+        ti.asr, ti.caption, ti.embedder,
+        tcfg.EngineConfig(ingest_batch=4, embed_dim=64,
+                          transfer_dtype="auto"), stats)
+    wave = _pieces(rng, 25)
+    ing.process_waveform(wave, SR)
+    first = ing.last_probe
+    assert set(first) == {"int16", "int16d"} and min(first.values()) >= 0
+    # the faster (the recorded times are rounded to 0.1 ms)
+    assert first[ing.last_transfer_resolved] == min(first.values())
+    assert ing.last_trace["probe"] > 0
+    ing.process_waveform(wave, SR)        # 2 batches of 4 x 10 s int16
+    assert ing.last_probe is first        # < 256 MB shipped: no probe
+    monkeypatch.setattr(DualPipelineIngest, "AUTO_REPROBE_MB", 0.1)
+    ing.process_waveform(wave, SR)
+    assert ing.last_probe is not first
+    log = [e for e in stats.log.events
+           if e.operation == "transfer_auto_choice"]
+    assert len(log) == 2 and log[-1].details["mode"] in first
+
+
+@pytest.mark.parametrize("mode", ["int16d", "auto"])
+def test_lossless_transfers_give_the_int16_texts(engines, rng, mode):
+    """int16d and auto are lossless: the same segments and texts as the
+    default int16 transfer."""
+    _, teng = engines
+    ti = teng.ingest_pipeline
+    wave = _pieces(rng, 35)
+
+    def texts(m):
+        ing = DualPipelineIngest(ti.asr, ti.caption, ti.embedder,
+                                 tcfg.EngineConfig(ingest_batch=4,
+                                                   embed_dim=64,
+                                                   transfer_dtype=m))
+        return [(s["start_time"], s["asr_text"], s["audio_description"])
+                for s in ing.process_waveform(wave, SR)]
+    assert texts(mode) == texts("int16")
 
 # ---------------------------------------------------------------- store
 def _fill(store, rng, n=5, d=16):
@@ -267,19 +476,18 @@ def test_device_policy():
 @pytest.mark.parametrize("change", [
     dict(transfer_dtype="mulaw8"),
     dict(asr_decode=tcfg.DecodeConfig(method="beam")),
-    dict(asr_decode=tcfg.DecodeConfig(fused_layer=True)),
+    dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
+                                  quantize_decoder=True)),
     dict(asr_decode=tcfg.DecodeConfig(fused_encoder="int8")),
     dict(caption_decode=tcfg.DecodeConfig(cross_attn="int8_fused")),
     dict(data_parallel=2),
 ])
 def test_unported_modes_raise(change):
-    cfg = tcfg.EngineConfig(**change)
-    cfg = cfg.replace(asr_model=tcfg.ModelSpec(family="whisper",
-                                               preset="test"),
-                      caption_model=tcfg.ModelSpec(family="whisper",
-                                                   preset="test"),
-                      text_embedder=tcfg.ModelSpec(family="minilm",
-                                                   preset="test"))
+    cfg = tcfg.EngineConfig().replace(
+        asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
+        caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
+        text_embedder=tcfg.ModelSpec(family="minilm", preset="test"))
+    cfg = cfg.replace(**change)
     with pytest.raises(NotImplementedError):
         make_default_ingest(cfg, device="cpu")
 

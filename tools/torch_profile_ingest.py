@@ -1,14 +1,17 @@
 """Where an ingest batch of the PyTorch port spends its time, on the card.
 
-    python3 tools/torch_profile_ingest.py [--seconds 320] [--out DIR]
+    python3 tools/torch_profile_ingest.py [--paths default,fast_lossless,v2]
+                                          [--seconds 320] [--out DIR]
 
-Builds the default-config engine (random init, bf16, cuda), warms it up
-with one ingest, then ingests ``--seconds`` of audio (320 s = one full
-batch of 32 segments) under torch.profiler. Prints one JSON line: wall
-time, summed device (kernel) time, the device's idle share over the
-window, the per-phase host trace of the ingest, and the top kernels by
-device time; with ``--out`` the full kernel table goes to
-``DIR/profile_ingest.json``.
+Builds one engine per path (chip_smoke.ENGINE_PATHS: the default config,
+``apply_profile(..., "fast_lossless")``, and that profile with
+``fused_layer="v2"``; random init, bf16, cuda) and warms each up with
+one ingest. Then ingests ``--seconds`` of audio (320 s = one full batch
+of 32 segments) with each path in turns (A B C C B A), timing the host
+wall and the host trace, and once more per path under torch.profiler
+for the device's busy time and idle share. Prints one JSON line per run
+and a last line with each path's median wall and audio-s/s; with
+``--out`` the full kernel tables go to ``DIR/profile_ingest.json``.
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -25,35 +28,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--seconds", type=int, default=320)
-    ap.add_argument("--out", default=None,
-                    help="directory for the full kernel table")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    sys.path.insert(0, ROOT)
-    from chip_smoke import card_line, make_audio, wav_bytes
-    from multimodal_audio_search_tpu_torch import AudioSearchEngine
-    from torch.profiler import ProfilerActivity, profile
-
-    rng = np.random.default_rng(0)
-    eng = AudioSearchEngine(device="cuda", seed=0)
-    eng.load_all_models()
-    eng.ingest(wav_bytes(make_audio(args.seconds, rng)), "warmup")
-    clip = wav_bytes(make_audio(args.seconds, rng))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.ingest(clip, "profiled")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+def kernel_rows(prof) -> list[dict]:
+    """Device-side kernel events only: the aten op rows carry the same
+    device time again, attributed to the op that launched it."""
     rows = []
     for e in prof.key_averages():
-        # device-side kernel events only: the aten op rows carry the same
-        # device time again, attributed to the op that launched it
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total", 0.0)
@@ -61,20 +40,85 @@ def main() -> int:
             rows.append({"kernel": e.key[:120], "device_ms": dev_us / 1e3,
                          "count": e.count})
     rows.sort(key=lambda r: -r["device_ms"])
-    busy_ms = sum(r["device_ms"] for r in rows)
-    trace = {k: round(v * 1e3, 3)
-             for k, v in eng.ingest_pipeline.last_trace.items()}
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--paths", default="default",
+                    help="comma-separated labels of chip_smoke.ENGINE_PATHS")
+    ap.add_argument("--seconds", type=int, default=320)
+    ap.add_argument("--out", default=None,
+                    help="directory for the full kernel tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    sys.path.insert(0, ROOT)
+    from chip_smoke import (ENGINE_PATHS, card_line, engine_config,
+                            make_audio, wav_bytes)
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_line()
+    rng = np.random.default_rng(0)
+    paths = {label: (profile_, fused) for label, profile_, fused
+             in ENGINE_PATHS}
+    labels = args.paths.split(",")
+    engines = {}
+    for label in labels:
+        eng = AudioSearchEngine(cfg=engine_config(*paths[label]),
+                                device="cuda", seed=0)
+        eng.load_all_models()
+        eng.ingest(wav_bytes(make_audio(args.seconds, rng)), "warmup")
+        engines[label] = eng
+    clip = wav_bytes(make_audio(args.seconds, rng))
+
+    def run(label):
+        eng = engines[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.ingest(clip, label)
+        torch.cuda.synchronize()
+        ing = eng.ingest_pipeline
+        return ((time.perf_counter() - t0) * 1e3,
+                {k: round(v * 1e3, 3) for k, v in ing.last_trace.items()},
+                ing.asr.last_steps + ing.caption.last_steps)
+
+    walls = {label: [] for label in labels}
+    for label in labels + labels[::-1]:
+        wall_ms, trace, steps = run(label)
+        walls[label].append(wall_ms)
+        print(json.dumps({
+            "card": card, "path": label, "run": "timed", "wall_ms": wall_ms,
+            "audio_s_per_s": args.seconds / wall_ms * 1e3,
+            "decode_steps": steps,
+            "dispatch_ms_per_step": trace["dispatch"] / steps,
+            "host_trace_ms": trace}), flush=True)
+    tables = {}
+    for label in labels:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms, trace, steps = run(label)
+        rows = kernel_rows(prof)
+        busy_ms = sum(r["device_ms"] for r in rows)
+        tables[label] = rows
+        print(json.dumps({
+            "card": card, "path": label, "run": "profiled",
+            "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if rows else "not measured",
+            "device_idle_share": 1 - busy_ms / wall_ms if rows
+            else "not measured",
+            "host_trace_ms": trace, "top": rows[:10]}), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_ingest.json"), "w") as f:
-            json.dump({"card": card_line(), "rows": rows}, f, indent=1)
-    print(json.dumps({
-        "card": card_line(), "audio_seconds": args.seconds,
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms if rows else "not measured",
-        "device_idle_share": 1 - busy_ms / wall_ms if rows
-        else "not measured",
-        "host_trace_ms": trace, "top": rows[:12]}))
+            json.dump({"card": card, "tables": tables}, f, indent=1)
+    print(json.dumps({"card": card, "audio_seconds": args.seconds,
+                      "median_wall_ms": {k: float(np.median(v))
+                                         for k, v in walls.items()},
+                      "median_audio_s_per_s": {
+                          k: args.seconds / float(np.median(v)) * 1e3
+                          for k, v in walls.items()}}))
     return 0
 
 
