@@ -6,7 +6,7 @@ Phases, one line each (``[phase] ...``):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No card -> the script raises before anything else.
-2. build: K1-K4 compiled from ``multimodal_audio_search_tpu_torch/
+2. build: K1-K7 compiled from ``multimodal_audio_search_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
    seconds and ptxas resource lines.
 3. kernels against their plain PyTorch versions on the card, at the
@@ -16,19 +16,27 @@ Phases, one line each (``[phase] ...``):
    cross at B=32, T=1500, H=8 and K2 self at B=32, L=68, pos in {0, 3,
    67}; K3 and K3-q at B=32, L=68, pos in K3_POS, K4 and K4-o at B=32,
    each at both model widths, on inputs whose block term dominates the
-   output (DELTA_MAX). Tolerances asserted; median times from CUDA
-   events after a warm-up.
+   output (DELTA_MAX); K5 (int8 weights) at the (M, K, N) of a decode
+   step's dense layers, the tied logits and the cross K/V projection
+   over B*1500 rows (K5_SHAPES), K6 and K7 (int8 K/V) at B=32, T=1500,
+   H=8 and H=6. Tolerances asserted; median times from CUDA events after
+   a warm-up.
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
-   config and ``apply_profile(EngineConfig(), "fast_lossless")`` ingest
+   config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
+   int8 decoder memory mode (``quantize_decoder=True`` on both Whisper
+   slots) with ``cross_attn="int8_fused"`` and with ``"int8"`` ingest
    two 16-bit WAVs made with numpy (320 s = one full batch of 32
-   segments, and 25 s = 3 segments) and answer 4 queries; the same
-   profile with ``fused_layer="v2"`` ingests the 320 s WAV and answers
-   them. Each path's launch counts (set to 0 just before, read just
-   after) must be > 0 and equal what the path implies; the ASR text of
-   one ingested segment, used as a query, must rank its own segment
-   first. The default engine's encoder and decode steps (unfused, fused,
-   "v2") are then held against their plain paths on a small input.
+   segments, and 25 s = 3 segments) and answer 4 queries;
+   fast_lossless with ``fused_layer="v2"`` ingests the 320 s WAV and
+   answers them. Each path's launch counts (set to 0 just before, read
+   just after) must be > 0 and equal what the path implies; the ASR text
+   of one ingested segment, used as a query, must rank its own segment
+   first; each engine's peak device memory (reset before its build) is
+   printed beside the default's. The default engine's encoder and decode
+   steps (unfused, fused, "v2") are then held against their plain paths
+   on a small input, and each int8 engine's first decode step against
+   its quantized decoder's bf16 einsum cross attention (INT8_SPAN_MAX).
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -109,6 +117,44 @@ LOGITS_ERR_REL = 2e-2
 # unfused steps on the same bf16 weights: max |err| of the logits over
 # the steps, relative to their max.
 FUSED_LOGITS_ERR_REL = 2e-2
+# K5 (int8 weights): every product of a bf16 x with an int8 code is exact
+# in float32, so kernel and plain version differ only in the order of
+# their float32 sums: elementwise within K5_ATOL of max |ref| + K5_RTOL
+# relative; a bf16 output may round one bf16 step apart (2^-7 = 7.8e-3).
+# Planted faults -- the last, partial column tile of N = 51865 left out,
+# or the scale indexed by row -- are off by 100 % and ~50 % of a value
+# (tests/test_torch_quant.py).
+K5_ATOL, K5_RTOL_F32, K5_RTOL_BF16 = 1e-4, 1e-4, 8e-3
+# (M, K, N, output dtype, bias) at both widths: a decode step's q/k/v/o,
+# fc1 and fc2 (bf16 out with bias), the tied logits (float32 out), the
+# cross K/V projection over B*1500 encoder rows (bf16 out)
+K5_SHAPES = tuple(
+    (m, k, n, dt, bias)
+    for d, f in ((512, 2048), (384, 1536))
+    for m, k, n, dt, bias in (
+        (32, d, d, "bf16", True), (32, d, f, "bf16", True),
+        (32, f, d, "bf16", True), (32, d, 51865, "f32", False),
+        (48000, d, d, "bf16", True)))
+# K6 and K7 (int8 K/V): kernel and plain version compute the same integer
+# dots (K6, exact) or exact float32 products (K7) and differ in exp and in
+# the order of float32 sums; where that moves a weighted probability
+# across a rounding boundary of its int8 code (K6) or of bf16 (K7), one
+# term moves by one code step. Held relative to the output's scale: max
+# |err| <= INT8_ATT_MAX * max |ref| and ||err|| <= INT8_ATT_L2 * ||ref||.
+# Float64 emulations of the kernels' arithmetic at B=8, T=1500, H=8 and
+# 6 read 0 / 0 (K6: no code moved) and at most 2.0e-4 / 3.5e-5 (K7).
+# Planted faults read: K6 with head 0's q scale for every head 0.17-0.20 /
+# 0.067-0.10, K6 with the pos mask ignored 0.59-0.62 / 0.57-0.59, K7 with
+# vs left out of the weighted probabilities 47-50 / 49
+# (tests/test_torch_int8_attention.py).
+INT8_ATT_MAX, INT8_ATT_L2 = 1e-2, 2e-3
+# keys attended in K6's masked case (a cache of 1000 rows)
+K6_POS = 999
+# an int8 engine's first decode step (B=8) against the same quantized
+# decoder with bf16 cross K/V and the einsum attention: the JAX package's
+# guardrail for these modes (max |err| < 5 % of the logits' span, argmax
+# agreement >= 0.9; tests/test_cross_attention.py, tests/test_int8_kv.py)
+INT8_SPAN_MAX, INT8_AGREE_MIN = 5e-2, 0.9
 
 
 def phase(name: str, **kv) -> None:
@@ -348,6 +394,155 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
     return list(out.values())
 
 
+def k5_inputs(gen: torch.Generator, m: int, k: int, n: int, *, bias=True,
+              device="cuda"):
+    """K5's inputs: x [M, K] bf16 ~ N(0, 1); int8 codes [K, N] uniform in
+    [-127, 127]; per-column scales spread over 0.5-1.5 / (127 sqrt(K)),
+    so a scale read from the wrong index shows; a bf16 bias at 0.1 N(0, 1)
+    or None."""
+    x = torch.randn(m, k, generator=gen).to(device, torch.bfloat16)
+    wq = torch.randint(-127, 128, (k, n), generator=gen,
+                       dtype=torch.int8).to(device)
+    scale = ((0.5 + torch.rand(n, generator=gen))
+             / (127 * math.sqrt(k))).to(device)
+    b = (torch.randn(n, generator=gen) * 0.1).to(device, torch.bfloat16) \
+        if bias else None
+    return x, wq, scale, b
+
+
+def k5_plain(x, wq, scale, b, out_dtype):
+    """quant_dense_apply's arithmetic in plain PyTorch on any device."""
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    y = Q.quant_matmul_plain(x, wq, scale)
+    return (y if b is None else y + b.float()).to(out_dtype)
+
+
+def check_k5(name, got, ref) -> float:
+    """K5's output against its plain version's (K5_ATOL, K5_RTOL_*)."""
+    rtol = K5_RTOL_BF16 if ref.dtype == torch.bfloat16 else K5_RTOL_F32
+    return check_close(name, got, ref,
+                       K5_ATOL * float(ref.float().abs().max()), rtol)
+
+
+def k6_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
+              device="cuda"):
+    """K6's inputs as the int8_fused decode step hands them over: the
+    cross query [B, H*64] bf16 ~ N(0, 1), and merged-head K/V ~ N(0, 1)
+    quantized by quantize_kv_merged (int8 [B, T, H*64], scales [B, T, H])."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    hd = heads * 64
+    q = torch.randn(b, hd, generator=gen).to(device, torch.bfloat16)
+    k, v = (torch.randn(b, t, hd, generator=gen).to(device, torch.bfloat16)
+            for _ in range(2))
+    return (q, *CX.quantize_kv_merged(k, v, heads))
+
+
+def k7_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
+              device="cuda"):
+    """K7's inputs as the int8 decode step hands them over: q [B, H, 64]
+    bf16 ~ N(0, 1), K/V [B, H, T, 64] ~ N(0, 1) quantized by quantize_kv."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    q = torch.randn(b, heads, 64, generator=gen).to(device, torch.bfloat16)
+    k, v = (torch.randn(b, heads, t, 64, generator=gen).to(
+        device, torch.bfloat16) for _ in range(2))
+    return (q, *CA.quantize_kv(k, v))
+
+
+def check_rel(name, got, ref, max_lim: float, l2_lim: float) -> dict:
+    """got against ref relative to ref's own scale: max |err| <= max_lim *
+    max |ref| and ||err|| <= l2_lim * ||ref||; raises outside."""
+    got, ref = got.float(), ref.float()
+    _same_shape_finite(name, got, ref)
+    err = got - ref
+    rel_max = float(err.abs().max() / ref.abs().max())
+    rel_l2 = float(err.norm() / ref.norm())
+    if not (rel_max <= max_lim and rel_l2 <= l2_lim):
+        raise AssertionError(
+            f"{name}: off its plain version: max |err| = {rel_max:.3e} of "
+            f"max |ref| (limit {max_lim}), ||err|| = {rel_l2:.3e} of "
+            f"||ref|| (limit {l2_lim})")
+    return {"max_abs_err": float(err.abs().max()), "rel_max_err": rel_max,
+            "rel_l2_err": rel_l2}
+
+
+def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
+    """K5 at K5_SHAPES, K6 (pos None and K6_POS) and K7 at B=32, T=1500,
+    H=8 and H=6, each against its plain version."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    pkg, jx = "multimodal_audio_search_tpu_torch/csrc", \
+        "multimodal_audio_search_tpu/ops"
+    k5 = {"name": "quant_matmul", "route": "cuda",
+          "source": f"{pkg}/quant_matmul.cu", "replaces": f"{jx}/quant.py:113",
+          "cases": []}
+    for m, k, n, dt, bias in K5_SHAPES:
+        out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x, wq, scale, b = k5_inputs(gen, m, k, n, bias=bias)
+        p = {"wq": wq, "scale": scale, **({"b": b} if bias else {})}
+        got = Q.quant_dense_apply(p, x, out_dtype=out_dtype)
+        ref = k5_plain(x, wq, scale, b, out_dtype)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: Q.quant_dense_apply(p, x, out_dtype=out_dtype))
+        case = {"shape": f"M={m} K={k} N={n} out={dt} bias={bias} "
+                         f"tiling={'small' if m <= Q.SMALL_M else 'large'}",
+                "max_abs_err": check_k5(f"K5 {m}x{k}x{n}", got, ref), "ms": ms,
+                "plain_ms": time_ms(lambda: k5_plain(x, wq, scale, b,
+                                                     out_dtype)),
+                "weight_gbps": k * n / ms / 1e6,
+                "tflops": 2 * m * k * n / ms / 1e9}
+        k5["cases"].append(case)
+        phase("kernels", kernel="K5", card=card,
+              tol={"atol_of_max": K5_ATOL, "rtol": K5_RTOL_BF16 if dt ==
+                   "bf16" else K5_RTOL_F32}, **case)
+        del x, wq, scale, b, p, got, ref
+    k6 = {"name": "single_query_attention_int8", "route": "cuda",
+          "source": f"{pkg}/cross_attention_int8.cu",
+          "replaces": f"{jx}/cross_attention.py:329", "cases": []}
+    k7 = {"name": "int8_cached_attention", "route": "cuda",
+          "source": f"{pkg}/cached_attention.cu",
+          "replaces": f"{jx}/cached_attention.py:90", "cases": []}
+    b, t = 32, 1500
+    for label, heads in (("base", 8), ("tiny", 6)):
+        args = k6_inputs(gen, b, t, heads)
+        for pos in (None, K6_POS):
+            got = CX.fused_single_query_attention_int8(*args, heads=heads,
+                                                       pos=pos)
+            ref = CX.single_query_attention_int8_plain(*args, heads=heads,
+                                                       pos=pos)
+            torch.cuda.synchronize()
+            n = t if pos is None else pos + 1
+            case = {"shape": f"{label} B={b} T={t} H={heads} pos={pos}",
+                    **check_rel(f"K6 {label} pos={pos}", got, ref,
+                                INT8_ATT_MAX, INT8_ATT_L2),
+                    "ms": time_ms(lambda: CX.fused_single_query_attention_int8(
+                        *args, heads=heads, pos=pos)),
+                    "plain_ms": time_ms(
+                        lambda: CX.single_query_attention_int8_plain(
+                            *args, heads=heads, pos=pos))}
+            case["gbps"] = 2 * b * n * heads * 64 / case["ms"] / 1e6
+            k6["cases"].append(case)
+            phase("kernels", kernel="K6", card=card,
+                  tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
+        args = k7_inputs(gen, b, t, heads)
+        got = CA.int8_cached_attention(*args)
+        ref = CA.int8_cached_attention_plain(*args)
+        torch.cuda.synchronize()
+        case = {"shape": f"{label} B={b} T={t} H={heads}",
+                **check_rel(f"K7 {label}", got, ref, INT8_ATT_MAX,
+                            INT8_ATT_L2),
+                "ms": time_ms(lambda: CA.int8_cached_attention(*args)),
+                "plain_ms": time_ms(
+                    lambda: CA.int8_cached_attention_plain(*args))}
+        case["gbps"] = 2 * b * t * heads * 64 / case["ms"] / 1e6
+        k7["cases"].append(case)
+        phase("kernels", kernel="K7", card=card,
+              tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
+        del args, got, ref
+    torch.cuda.empty_cache()
+    return [k5, k6, k7]
+
+
 def kernel_phase(card: str, gen: torch.Generator):
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
@@ -416,19 +611,28 @@ def kernel_phase(card: str, gen: torch.Generator):
     return k1, k2
 
 
-# the engine configurations driven on the card: (label, profile, fused)
-ENGINE_PATHS = (("default", None, False),
-                ("fast_lossless", "fast_lossless", True),
-                ("v2", "fast_lossless", "v2"))
+# the engine configurations driven on the card: (label, profile, fused,
+# int8 cross_attn mode; one set means quantize_decoder=True on both models)
+ENGINE_PATHS = (("default", None, False, None),
+                ("fast_lossless", "fast_lossless", True, None),
+                ("v2", "fast_lossless", "v2", None),
+                ("int8_fused", None, False, "int8_fused"),
+                ("int8", None, False, "int8"))
 # launch-count key of each kernel in runtime.COUNTS
 KEYS = {"K1": "encoder_attn_o_residual", "K2": "single_query_attention",
         "K3": "decoder_self_block", "K3-q": "decoder_self_block_q",
-        "K4": "decoder_mlp_block", "K4-o": "decoder_mlp_block_o"}
+        "K4": "decoder_mlp_block", "K4-o": "decoder_mlp_block_o",
+        "K5": "quant_matmul", "K6": "single_query_attention_int8",
+        "K7": "int8_cached_attention"}
+# K5's launches per decode step and decoder layer: self q/k/v/o, cross
+# q/o, fc1, fc2
+K5_PER_LAYER_STEP = 8
 
 
-def engine_config(profile, fused):
+def engine_config(profile, fused, int8=None):
     """EngineConfig for one entry of ENGINE_PATHS; "v2" is fast_lossless
-    with fused_layer="v2" on both models."""
+    with fused_layer="v2" on both models; ``int8`` sets quantize_decoder
+    on both Whisper slots and that cross_attn on both decode configs."""
     import dataclasses
     from multimodal_audio_search_tpu_torch.config import (
         EngineConfig, apply_profile)
@@ -439,18 +643,34 @@ def engine_config(profile, fused):
         cfg = cfg.replace(**{k: dataclasses.replace(
             getattr(cfg, k), fused_layer="v2")
             for k in ("asr_decode", "caption_decode")})
+    if int8:
+        cfg = cfg.replace(
+            **{k: dataclasses.replace(getattr(cfg, k), quantize_decoder=True)
+               for k in ("asr_model", "caption_model")},
+            **{k: dataclasses.replace(getattr(cfg, k), cross_attn=int8)
+               for k in ("asr_decode", "caption_decode")})
     return cfg
 
 
-def expected_launches(fused, steps, disp, asr, cap) -> dict:
+def expected_launches(fused, int8, steps, disp, asr, cap) -> dict:
     """What one ingest run must have launched: K1 once per encoder layer
     and dispatch; per decode step and decoder layer, K2 twice on the
     unfused path, and on the fused paths K2 once (cross only) beside K3
-    and K4, or K3-q and K4-o for "v2"."""
+    and K4, or K3-q and K4-o for "v2". The int8 paths (unfused) take K2
+    for the self attention, K6 ("int8_fused") or K7 ("int8") for the
+    cross attention, and K5 for every dense layer (K5_PER_LAYER_STEP), for
+    the logits once a step, and for the cross k/v projections twice per
+    decoder layer and dispatch."""
     per_step = steps[0] * asr.cfg.dec_layers + steps[1] * cap.cfg.dec_layers
     exp = {k: 0 for k in KEYS}
     exp["K1"] = disp[0] * asr.cfg.enc_layers + disp[1] * cap.cfg.enc_layers
-    if not fused:
+    if int8:
+        exp["K2"] = per_step
+        exp["K6" if int8 == "int8_fused" else "K7"] = per_step
+        exp["K5"] = (K5_PER_LAYER_STEP * per_step + steps[0] + steps[1]
+                     + 2 * (disp[0] * asr.cfg.dec_layers
+                            + disp[1] * cap.cfg.dec_layers))
+    elif not fused:
         exp["K2"] = 2 * per_step
     else:
         exp["K2"] = per_step
@@ -461,15 +681,18 @@ def expected_launches(fused, steps, disp, asr, cap) -> dict:
 
 
 def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
-                 fused, clips, ref_texts=None):
+                 fused, int8, clips, ref_texts=None):
     """Build the engine of one ENGINE_PATHS entry on cuda, ingest
     ``clips`` and answer the queries with every launch count set to 0
     just before and read just after; check the counts and self-retrieval.
-    Returns (launch counts, {(source, start): ASR text})."""
+    Returns (launch counts, {(source, start): ASR text}, device memory:
+    the peak from the build to the last query, and decode_extra_bytes)."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = AudioSearchEngine(cfg=engine_config(profile, fused),
+    eng = AudioSearchEngine(cfg=engine_config(profile, fused, int8),
                             device="cuda", seed=0)
     eng.load_all_models()
     ing = eng.ingest_pipeline
@@ -481,7 +704,10 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
           caption=f"whisper-tiny d={cap.cfg.d_model}",
           dtype=str(asr.dtype), batch=eng.cfg.ingest_batch,
           fused_layer=[asr.decode.fused_layer, cap.decode.fused_layer],
-          transfer=eng.cfg.transfer_dtype)
+          quantize_decoder=[asr.quantized, cap.quantized],
+          cross_attn=[asr.decode.cross_attn, cap.decode.cross_attn],
+          transfer=eng.cfg.transfer_dtype,
+          allocated_bytes=torch.cuda.memory_allocated())
 
     # ---- the path, counted
     runtime.reset_counts()
@@ -520,7 +746,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
     disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
     # ---- what the path must have launched
-    exp = expected_launches(fused, steps, disp, asr, cap)
+    exp = expected_launches(fused, int8, steps, disp, asr, cap)
     if counts != exp or not all(counts[k] > 0 for k in exp if exp[k]):
         raise AssertionError(f"{label}: launches {counts} != expected {exp}")
     # ---- self-retrieval
@@ -544,7 +770,9 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
         common = [k for k in by_seg if k in ref_texts]
         same = {"segments": len(common), "share_equal": sum(
             by_seg[k] == ref_texts[k] for k in common) / max(1, len(common))}
-    phase("engine", path=label, step="ingest and queries", card=card,
+    mem = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "asr_decode_extra_bytes": decode_extra_bytes(asr, rng)}
+    phase("engine", path=label, step="ingest and queries", card=card, **mem,
           segments=n_segs, audio_seconds=audio_s, ingest_seconds=ingest_s,
           ingest_audio_s_per_s=audio_s / ingest_s,
           query_ms=lat, query_p50_ms=float(np.median(lat)),
@@ -561,9 +789,39 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
                     for tr in traces])
     if label == "default":
         reference_check(asr, rng)
+    if int8:
+        int8_reference_check(asr, rng, int8)
     del eng, ing, asr, cap
     torch.cuda.empty_cache()
-    return counts, by_seg
+    return counts, by_seg, mem
+
+
+def decode_extra_bytes(pipe, rng: np.random.Generator) -> int:
+    """The device bytes one full batch's decode (B=32, the pipeline's
+    decode config) holds at its peak above what is allocated once the
+    encoder output exists: the cross K/V in the path's format, the self
+    cache and the step temporaries. The engine's own peak is set earlier,
+    by the encoder; this is the part the int8 memory mode changes."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.models.generate import generate
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    b = 32
+    with torch.inference_mode():
+        x = torch.as_tensor(make_audio(10 * b, rng).reshape(b, -1),
+                            device=pipe.device)
+        mel = log_mel_spectrogram(torch.nn.functional.pad(
+            x, (0, pipe.mel_cfg.n_samples - x.shape[1])), pipe.mel_cfg)
+        enc = W.encode(pipe.params, mel.to(pipe.dtype), pipe.cfg,
+                       fused_blocks=pipe.fused_encoder_resolved)
+        prefix = torch.tensor([pipe.prefix_ids] * b, device=pipe.device)
+        del x, mel
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        generate(pipe.params, enc, prefix, cfg=pipe.cfg, decode=pipe.decode,
+                 max_new_tokens=pipe.decode.max_new_tokens)
+        torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def reference_check(asr, rng: np.random.Generator) -> None:
@@ -642,6 +900,52 @@ def reference_check(asr, rng: np.random.Generator) -> None:
             f" (limit {FUSED_LOGITS_ERR_REL} of the logits' scale)")
 
 
+def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
+    """An int8 engine's ASR model (quantized decoder) on 8 distinct 10 s
+    segments: the first decode step over its int8 cross K/V (K6 or K7)
+    against the same step over bf16 cross K/V with the einsum attention,
+    held to the JAX package's guardrail (INT8_SPAN_MAX, INT8_AGREE_MIN),
+    and an 8-token greedy run for shapes and finite values. Both steps
+    take K5 for every dense layer and the logits."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.models.generate import generate
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    dev, b = asr.device, 8
+    with torch.inference_mode():
+        x = make_audio(10 * b, rng).reshape(b, -1)
+        w = torch.nn.functional.pad(
+            torch.as_tensor(x, device=dev),
+            (0, asr.mel_cfg.n_samples - x.shape[1]))
+        enc = W.encode(asr.params, log_mel_spectrogram(w, asr.mel_cfg)
+                       .to(asr.dtype), asr.cfg, fused_blocks=True)
+        ckv_q = (W.cross_kv_merged_int8 if mode == "int8_fused"
+                 else W.cross_kv_quantized)(asr.params, enc, asr.cfg)
+        ckv_e = W.cross_kv(asr.params, enc, asr.cfg)
+        tok = torch.full((b,), asr.cfg.bos_token_id, device=dev)
+        lq, le = (W.decode_step(asr.params, tok, 0,
+                                W.init_cache(asr.cfg, b, 4, asr.dtype, dev),
+                                ckv, asr.cfg) for ckv in (ckv_q, ckv_e))
+        prefix = torch.tensor([asr.prefix_ids] * b, device=dev)
+        out = generate(asr.params, enc, prefix, cfg=asr.cfg,
+                       decode=asr.decode, max_new_tokens=8)
+    span = float(le.max() - le.min())
+    rel = float((lq - le).abs().max()) / span
+    agree = float((lq.argmax(-1) == le.argmax(-1)).float().mean())
+    ok = (tuple(lq.shape) == (b, asr.cfg.vocab_size)
+          and tuple(out.tokens.shape) == (b, len(asr.prefix_ids) + 8)
+          and bool(torch.isfinite(lq).all() and torch.isfinite(enc).all()))
+    phase("engine", path=mode, step="int8 reference",
+          first_step_err_of_span=rel, logits_span=span,
+          argmax_agreement=agree, shapes_finite_ok=ok)
+    if not ok:
+        raise AssertionError(f"{mode}: wrong shape or non-finite values")
+    if not (rel < INT8_SPAN_MAX and agree >= INT8_AGREE_MIN):
+        raise AssertionError(
+            f"{mode}: first step {rel:.3e} of the logits' span (limit "
+            f"{INT8_SPAN_MAX}), argmax agreement {agree} (limit "
+            f"{INT8_AGREE_MIN}) against bf16 cross K/V")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -668,20 +972,27 @@ def main() -> int:
     rng = np.random.default_rng(0)
     k1, k2 = kernel_phase(card, gen)
     dec = decoder_kernel_phase(card, gen)
+    int8k = int8_kernel_phase(card, gen)
     clips = [("long.wav", make_audio(320, rng)),
              ("short.wav", make_audio(25, rng))]
-    counts, ref_texts = {}, None
-    for label, profile, fused in ENGINE_PATHS:
-        c, texts = engine_phase(card, rng, label, profile, fused,
-                                clips[:1] if fused == "v2" else clips,
-                                ref_texts)
+    counts, mems, ref_texts = {}, {}, None
+    for label, profile, fused, int8 in ENGINE_PATHS:
+        c, texts, mems[label] = engine_phase(
+            card, rng, label, profile, fused, int8,
+            clips[:1] if fused == "v2" else clips, ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
+    phase("memory", card=card, **{key: {
+        "bytes": {k: m[key] for k, m in mems.items()},
+        "share_of_default": {k: m[key] / mems["default"][key]
+                             for k, m in mems.items()}}
+        for key in mems["default"]})
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
-               "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2"}
+               "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",
+               "K5": "int8_fused", "K6": "int8_fused", "K7": "int8"}
     kern = []
-    for key, k in zip(KEYS, (k1, k2, *dec)):
+    for key, k in zip(KEYS, (k1, k2, *dec, *int8k)):
         first = next(c for c in k["cases"] if "ms" in c)
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],

@@ -1,5 +1,6 @@
-// Shared helpers of the hand-written Hopper kernels: bf16 packing and the
-// m16n8k16 bf16 tensor-core product (mma.sync, f32 accumulate).
+// Shared helpers of the hand-written Hopper kernels: bf16 packing, the
+// m16n8k16 bf16 tensor-core product (mma.sync, f32 accumulate) and
+// block-wide reductions.
 //
 // Fragment layout of mma.sync.m16n8k16 (PTX ISA), with g = lane / 4 and
 // t = lane % 4:
@@ -58,4 +59,34 @@ __device__ __forceinline__ void bf16x8_to_f32(uint4 r, float f[8]) {
     f[2 * i] = p.x;
     f[2 * i + 1] = p.y;
   }
+}
+
+// Block-wide max / sum of one float per thread, returned to every thread.
+// `sm` holds one float per warp; the calls synchronise before and after,
+// so back-to-back calls may share it.
+template <int NT>
+__device__ __forceinline__ float block_max(float v, float* sm) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = sm[0];
+#pragma unroll
+  for (int i = 1; i < NT / 32; ++i) r = fmaxf(r, sm[i]);
+  return r;
+}
+
+template <int NT>
+__device__ __forceinline__ float block_sum(float v, float* sm) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) sm[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) r += sm[i];
+  return r;
 }

@@ -7,10 +7,12 @@ emitted EOS) is checked on the host once per step -- one device sync per
 step. ``pos`` is a host int handed to the kernels as an argument.
 
 ``decode.fused_layer`` passes through to ``decode_step`` (the fused
-sub-block kernels K3/K4, ops/decoder_block.py).
+sub-block kernels K3/K4, ops/decoder_block.py); ``decode.cross_attn`` and
+``decode.int8_cross_kv`` pick the cross K/V format (bf16 merged for K2,
+int8 merged for K6, int8 [B, H, T, D] for K7, or the einsum format).
 
-Not ported (ROADMAP A4/A9): ``method="sample"``, beam search, int8 cross
-K/V, ``scan_layers``.
+Not ported (ROADMAP A4): ``method="sample"``, beam search,
+``scan_layers``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import DecodeConfig
-from .whisper import (WhisperConfig, cross_kv, cross_kv_merged, decode_step,
+from .whisper import (WhisperConfig, cross_kv, cross_kv_merged,
+                      cross_kv_merged_int8, cross_kv_quantized, decode_step,
                       init_cache)
 
 NEG_INF = -1e9
@@ -76,13 +79,16 @@ def ban_repeated_ngrams(logits, tokens, cur_len: torch.Tensor, n: int):
 
 # ----------------------------------------------------------------- decoding
 def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
-    """Decode cross K/V format (DecodeConfig.cross_attn): "auto"/"fused"
-    give the merged-head format that K2 reads; "einsum" the [B,H,T,D]
-    format of the plain path."""
+    """Decode cross K/V format (DecodeConfig.cross_attn), in the JAX
+    function's order: "int8_fused" -> merged int8 (K6); "int8" or
+    ``int8_cross_kv`` -> int8 [B,H,T,D] (K7); "auto"/"fused" -> the
+    merged-head format that K2 reads; "einsum" -> the [B,H,T,D] format
+    of the plain path."""
     mode = decode.cross_attn
-    if mode in ("int8", "int8_fused") or decode.int8_cross_kv:
-        raise NotImplementedError(
-            "int8 cross K/V is not ported (ROADMAP B6/B7)")
+    if mode == "int8_fused":
+        return cross_kv_merged_int8(params, enc_out, cfg)
+    if decode.int8_cross_kv or mode == "int8":
+        return cross_kv_quantized(params, enc_out, cfg)
     if mode in ("auto", "fused"):
         return cross_kv_merged(params, enc_out, cfg)
     if mode == "einsum":
@@ -90,8 +96,10 @@ def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
     raise ValueError(f"unknown cross_attn {mode!r}")
 
 
-def check_supported(decode: DecodeConfig) -> None:
-    """Raise on decode options this port does not run yet."""
+def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
+    """Raise on decode options this port does not run yet, and on
+    ``fused_layer`` over a ``quantized`` (int8) decoder, which the JAX
+    package cannot run either (models/whisper.py, module docstring)."""
     if decode.method != "greedy":
         raise NotImplementedError(
             f"method={decode.method!r} is not ported; greedy only "
@@ -102,9 +110,11 @@ def check_supported(decode: DecodeConfig) -> None:
         raise NotImplementedError(
             f"fused_encoder={decode.fused_encoder!r} is not ported "
             f"(ROADMAP B1 variants)")
-    if decode.cross_attn in ("int8", "int8_fused") or decode.int8_cross_kv:
+    if quantized and decode.fused_layer:
         raise NotImplementedError(
-            "int8 cross K/V is not ported (ROADMAP B6/B7)")
+            f"fused_layer={decode.fused_layer!r} with quantize_decoder: "
+            f"the fused sub-block kernels take bf16 weights, and the JAX "
+            f"package has no int8 form of them; set fused_layer=False")
 
 
 class DecodeOut(NamedTuple):

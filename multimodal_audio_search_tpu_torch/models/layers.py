@@ -18,11 +18,11 @@ import torch
 def dense(params, x: torch.Tensor) -> torch.Tensor:
     """x @ W + b in x's dtype. On the card the bias lands in the GEMM
     epilogue before the single rounding to bf16, as the JAX layer adds it
-    in float32 before its cast."""
+    in float32 before its cast. An int8-quantized leaf (``"wq"``,
+    ops/quant.py) goes through K5."""
     if "wq" in params:
-        raise NotImplementedError(
-            "int8 decoder weights (quantize_decoder) are not ported "
-            "(ROADMAP A9/B8)")
+        from ..ops.quant import quant_dense_apply
+        return quant_dense_apply(params, x)
     w = params["w"]
     x2 = x.reshape(-1, x.shape[-1])
     if "b" in params:
@@ -109,8 +109,10 @@ def init_mha(gen: torch.Generator, d_model: int, bias: bool = True,
 
 def cast_floats(tree, dtype: torch.dtype, device: torch.device):
     """Move a param tree to ``device``, casting floating leaves to
-    ``dtype``. Leaves keyed 'scale' stay float32, as the JAX package's
-    cast_floats keeps them."""
+    ``dtype``. Leaves keyed 'scale' (layer-norm scales and the int8
+    weights' per-column scales) stay float32, as the JAX package's
+    cast_floats keeps them; integer leaves (int8 weights) keep their
+    dtype."""
     def f(x, key):
         if isinstance(x, dict):
             return {k: f(v, k) for k, v in x.items()}

@@ -19,16 +19,25 @@ package's paths:
     whose tail emits the cross query, K2 on that query, and K4-o, whose
     head applies the cross o-projection -- three launches per layer.
 
+  * the int8 memory mode: a decoder from ops/quant.py::
+    quantize_whisper_decoder runs every dense layer and the tied logits
+    through K5; ``cross_kv_merged_int8`` (K6, ``cross_attn="int8_fused"``)
+    and ``cross_kv_quantized`` (K7, ``"int8"`` / ``int8_cross_kv``) hold
+    the cross K/V in int8, and ``_cross_attend`` picks the kernel from the
+    K/V format, as the JAX function does.
+
 The cache is updated IN PLACE (``cache[:, pos] = row``), where JAX builds
 a new array per step; nothing else holds the old cache.
 
 Where the JAX package's gate differs: its ``decode_step`` computes
 ``fused_layer = fused_layer and B % 8 == 0``, which turns "v2" into True,
 so its v2 branch never runs (ROADMAP, faults in the reference). The port
-keeps the value and takes the v2 branch.
+keeps the value and takes the v2 branch. With a quantized decoder the JAX
+fused path reads ``a["q"]["w"]``, which quantization removed, and fails
+with ``KeyError: 'w'``; the port refuses ``fused_layer`` on a quantized
+decoder with a clear error (there is no fused int8 path to match).
 
-Not ported (ROADMAP A9/A13): int8 K/V (B6/B7), ``scan_layers``,
-tensor-parallel meshes.
+Not ported (ROADMAP A13): ``scan_layers``, tensor-parallel meshes.
 """
 from __future__ import annotations
 
@@ -139,11 +148,15 @@ def init_params(gen: torch.Generator, cfg: WhisperConfig):
 
 def prepare_params(params, dtype: torch.dtype, device: torch.device):
     """Place a param tree for serving: floats in ``dtype`` on ``device``
-    (LN scales stay float32), plus a float32 copy of the tied embedding
-    table for the logits (see _tied_logits)."""
+    (LN and quantization scales stay float32, int8 weights int8), plus a
+    float32 copy of the tied embedding table for the logits (see
+    _tied_logits) -- unless the decoder is quantized, whose logits come
+    from the int8 table: a float32 copy would cost more than the mode
+    saves (106 MB at whisper-base)."""
     p = L.cast_floats(params, dtype, device)
-    p["decoder"]["embed_tokens_f32"] = \
-        p["decoder"]["embed_tokens"].float()
+    if "embed_tokens_q" not in p["decoder"]:
+        p["decoder"]["embed_tokens_f32"] = \
+            p["decoder"]["embed_tokens"].float()
     return p
 
 
@@ -207,20 +220,56 @@ def cross_kv_merged(params, enc_out: torch.Tensor, cfg: WhisperConfig):
             for blk in params["decoder"]["blocks"]]
 
 
+def cross_kv_quantized(params, enc_out: torch.Tensor, cfg: WhisperConfig):
+    """Per-layer int8 cross K/V (k8, ks, v8, vs) in the [B, H, T, D]
+    layout, scales [B, H, T] (K7): computed once per segment batch, read
+    every step at half the bytes of bf16. Each k/v projection is
+    quantized and freed before the next is computed."""
+    from ..ops.cached_attention import quantize_rows
+    return [tuple(q for n in ("k", "v") for q in quantize_rows(
+        L.split_heads(L.dense(blk["cross_attn"][n], enc_out), cfg.heads)))
+        for blk in params["decoder"]["blocks"]]
+
+
+def cross_kv_merged_int8(params, enc_out: torch.Tensor,
+                         cfg: WhisperConfig):
+    """Per-layer merged-head int8 cross K/V (k8, ks, v8, vs), [B, T, H*D]
+    with scales [B, T, H] (K6); the k/v dense outputs are merged-head
+    already. Each projection is quantized and freed before the next."""
+    from ..ops.cross_attention import quantize_merged
+    return [tuple(q for n in ("k", "v") for q in quantize_merged(
+        L.dense(blk["cross_attn"][n], enc_out), cfg.heads))
+        for blk in params["decoder"]["blocks"]]
+
+
 def _cross_attend(blk, h, ckv_entry, cfg: WhisperConfig):
-    """Cross-attention for one block; the K/V format picks the path:
-    3-D merged K/V -> K2, 4-D [B, H, T, D] -> einsum."""
-    from ..ops.cross_attention import fused_single_query_attention
-    k, v = ckv_entry
+    """Cross-attention for one block; the K/V format picks the path, as
+    in the JAX function: (k, v) 3-D merged -> K2; (k8, ks, v8, vs) 3-D
+    merged -> K6; (k8, ks, v8, vs) 4-D [B, H, T, D] -> K7; (k, v) 4-D ->
+    einsum."""
+    from ..ops.cached_attention import int8_cached_attention
+    from ..ops.cross_attention import (fused_single_query_attention,
+                                       fused_single_query_attention_int8)
     q = L.dense(blk["cross_attn"]["q"], h)              # [B, 1, D]
-    if k.dim() == 3:
-        if q.shape[1] != 1:
-            raise ValueError("merged cross-attention is single-query")
-        o = fused_single_query_attention(q[:, 0], k, v, heads=cfg.heads)
+    merged = ckv_entry[0].dim() == 3
+    if (merged or len(ckv_entry) == 4) and q.shape[1] != 1:
+        raise ValueError("merged and int8 cross-attention are "
+                         "single-query (decode steps); use cross_kv()")
+    if merged and len(ckv_entry) == 4:
+        o = fused_single_query_attention_int8(q[:, 0], *ckv_entry,
+                                              heads=cfg.heads)
         attn = o[:, None, :].to(h.dtype)
+    elif merged:
+        o = fused_single_query_attention(q[:, 0], *ckv_entry,
+                                         heads=cfg.heads)
+        attn = o[:, None, :].to(h.dtype)
+    elif len(ckv_entry) == 4:
+        o = int8_cached_attention(L.split_heads(q, cfg.heads)[:, :, 0],
+                                  *ckv_entry)
+        attn = L.merge_heads(o[:, :, None, :].to(h.dtype))
     else:
         attn = L.merge_heads(L.attention_scores(
-            L.split_heads(q, cfg.heads), k, v))
+            L.split_heads(q, cfg.heads), *ckv_entry))
     return L.dense(blk["cross_attn"]["o"], attn)
 
 
@@ -229,7 +278,11 @@ def _tied_logits(dec, x: torch.Tensor) -> torch.Tensor:
     operands with float32 accumulation and a float32 result; the port
     multiplies the same bf16 values upcast to float32 (exact products,
     float32 sums, TF32 off), so the logits are not rounded to bf16
-    before the argmax."""
+    before the argmax. A quantized decoder takes K5 on the int8 table."""
+    if "embed_tokens_q" in dec:
+        from ..ops.quant import quant_dense_apply
+        return quant_dense_apply(dec["embed_tokens_q"], x,
+                                 out_dtype=torch.float32)
     return torch.matmul(x.float(), dec["embed_tokens_f32"].t())
 
 
@@ -251,6 +304,21 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, dtype,
             for _ in range(cfg.dec_layers)]
 
 
+def _self_args(blk) -> tuple:
+    """The self sub-block's LN and bf16 q/k/v/o weights, as K3 takes them."""
+    a = blk["self_attn"]
+    return (blk["self_ln"]["scale"], blk["self_ln"]["bias"], a["q"]["w"],
+            a["q"]["b"], a["k"]["w"], a["v"]["w"], a["v"]["b"], a["o"]["w"],
+            a["o"]["b"])
+
+
+def _mlp_args(blk) -> tuple:
+    """The MLP sub-block's LN and bf16 weights, as K4 takes them."""
+    return (blk["mlp_ln"]["scale"], blk["mlp_ln"]["bias"],
+            blk["mlp_in"]["w"], blk["mlp_in"]["b"], blk["mlp_out"]["w"],
+            blk["mlp_out"]["b"])
+
+
 def decode_step(params, token: torch.Tensor, pos: int, cache, ckv,
                 cfg: WhisperConfig, fused_layer: bool | str = False
                 ) -> torch.Tensor:
@@ -261,36 +329,38 @@ def decode_step(params, token: torch.Tensor, pos: int, cache, ckv,
     [B, vocab] f32."""
     from ..ops import decoder_block as DB
     dec = params["decoder"]
+    if fused_layer and "embed_tokens_q" in dec:
+        raise NotImplementedError(
+            "fused_layer with an int8-quantized decoder: the fused "
+            "sub-block kernels take bf16 weights and the JAX package has "
+            "no int8 form of them (its fused path fails with KeyError "
+            "'w'); use fused_layer=False with quantize_decoder")
     dtype = cache[0]["k"].dtype
     x = (dec["embed_tokens"][token][:, None, :].float()
          + dec["positions"][pos][None, None, :].float()).to(dtype)
     fused = bool(fused_layer) and x.shape[0] % 8 == 0
-    v2 = fused and fused_layer == "v2" and ckv[0][0].dim() == 3
+    v2 = (fused and fused_layer == "v2" and len(ckv[0]) == 2
+          and ckv[0][0].dim() == 3)
     for blk, layer_cache, ckv_entry in zip(dec["blocks"], cache, ckv):
         a = blk["self_attn"]
-        self_args = (blk["self_ln"]["scale"], blk["self_ln"]["bias"],
-                     a["q"]["w"], a["q"]["b"], a["k"]["w"], a["v"]["w"],
-                     a["v"]["b"], a["o"]["w"], a["o"]["b"])
-        mlp_args = (blk["mlp_ln"]["scale"], blk["mlp_ln"]["bias"],
-                    blk["mlp_in"]["w"], blk["mlp_in"]["b"],
-                    blk["mlp_out"]["w"], blk["mlp_out"]["b"])
         if v2:
             from ..ops.cross_attention import fused_single_query_attention
             c = blk["cross_attn"]
             x1, _, _, qc = DB.fused_self_block_q(
-                x[:, 0], *self_args, blk["cross_ln"]["scale"],
+                x[:, 0], *_self_args(blk), blk["cross_ln"]["scale"],
                 blk["cross_ln"]["bias"], c["q"]["w"], c["q"]["b"],
                 layer_cache["k"], layer_cache["v"], pos, heads=cfg.heads,
                 eps=cfg.ln_eps)
             attn = fused_single_query_attention(qc, *ckv_entry,
                                                 heads=cfg.heads)
             x = DB.fused_mlp_block_o(x1, attn, c["o"]["w"], c["o"]["b"],
-                                     *mlp_args, eps=cfg.ln_eps)[:, None]
+                                     *_mlp_args(blk), eps=cfg.ln_eps)[:, None]
             continue
         if fused:
             x = DB.fused_self_block(
-                x[:, 0], *self_args, layer_cache["k"], layer_cache["v"],
-                pos, heads=cfg.heads, eps=cfg.ln_eps)[0][:, None]
+                x[:, 0], *_self_args(blk), layer_cache["k"],
+                layer_cache["v"], pos, heads=cfg.heads,
+                eps=cfg.ln_eps)[0][:, None]
         else:
             h = L.layer_norm(blk["self_ln"], x, cfg.ln_eps)
             # dense outputs ARE the merged-head layout: one row write each
@@ -302,8 +372,8 @@ def decode_step(params, token: torch.Tensor, pos: int, cache, ckv,
             x = x + L.dense(a["o"], attn[:, None, :].to(dtype))
         h = L.layer_norm(blk["cross_ln"], x, cfg.ln_eps)
         x = x + _cross_attend(blk, h, ckv_entry, cfg)
-        if fused and "w" in blk["mlp_in"]:
-            x = DB.fused_mlp_block(x[:, 0], *mlp_args,
+        if fused:
+            x = DB.fused_mlp_block(x[:, 0], *_mlp_args(blk),
                                    eps=cfg.ln_eps)[:, None]
         else:
             h = L.layer_norm(blk["mlp_ln"], x, cfg.ln_eps)

@@ -1,14 +1,23 @@
-"""Single-query attention over merged-head K/V (K2).
+"""Single-query attention over merged-head K/V: bf16 (K2) and int8 (K6).
 
-Counterpart of ``multimodal_audio_search_tpu/ops/cross_attention.py::
-fused_single_query_attention``. It serves both attentions of a decode
-step: cross attention over the encoder K/V (``pos=None``: every key) and
-causal self attention over the KV cache (``pos``: keys 0..pos). K/V stay
-in the merged [B, T, H*D] layout the k/v dense layers emit.
+Counterpart of ``multimodal_audio_search_tpu/ops/cross_attention.py``:
 
-On a CUDA tensor the wrapper launches ``csrc/cross_attention.cu``; on a
-CPU tensor it runs ``single_query_attention_plain``. The int8 variants
-(``cross_attn="int8"``/``"int8_fused"``) are not ported (ROADMAP B6, B7).
+* ``fused_single_query_attention`` (K2, B2) serves both attentions of a
+  decode step: cross attention over the encoder K/V (``pos=None``: every
+  key) and causal self attention over the KV cache (``pos``: keys
+  0..pos). K/V stay in the merged [B, T, H*D] layout the k/v dense layers
+  emit.
+* ``quantize_kv_merged`` and ``fused_single_query_attention_int8`` (K6,
+  B6), the cross attention of ``cross_attn="int8_fused"``: int8 merged
+  K/V with per-(b, t, head) scales; the query and the weighted
+  probabilities are quantized per head inside, and both dots are
+  int8 x int8 -> int32 (module of the kernel: csrc/cross_attention_int8.cu).
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+its ``*_plain`` version. The int8 plain version carries the kernel's
+quantization of q and of the probabilities (the JAX package's CPU twin
+``xla_single_query_attention_int8`` dequantizes instead, so its engine's
+int8_fused numbers off the TPU are not the kernel's).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import math
 import torch
 
 from .. import runtime
+from .cached_attention import div_exact, quantize_rows
 
 
 def merge_heads_kv(k: torch.Tensor, v: torch.Tensor):
@@ -92,3 +102,105 @@ def fused_single_query_attention(
         return single_query_attention_plain(q_m, k_m, v_m, heads=heads,
                                             pos=pos)
     raise ValueError(f"unsupported device {k_m.device}")
+
+
+# ------------------------------------------------------------- int8 (K6)
+def quantize_merged(x: torch.Tensor, heads: int):
+    """[B, T, H*D] -> (int8 [B, T, H*D], scales [B, T, H]): per-(b, t,
+    head) scales over each head's D values."""
+    b, t, hd = x.shape
+    x8, s = quantize_rows(x.reshape(b, t, heads, hd // heads))
+    return x8.reshape(b, t, hd), s
+
+
+def quantize_kv_merged(k_m: torch.Tensor, v_m: torch.Tensor, heads: int):
+    """[B, T, H*D] -> (k8, ks, v8, vs), quantize_merged of each."""
+    return (*quantize_merged(k_m, heads), *quantize_merged(v_m, heads))
+
+
+def single_query_attention_int8_plain(q_m, k8, ks, v8, vs, *, heads: int,
+                                      pos=None):
+    """B6 in plain PyTorch, the TPU kernel's order of operations: q
+    quantized per head (qs), int logits li = k8 . q8, logits =
+    ((li * ks) * qs) / sqrt(D), keys after ``pos`` at -1e30, unnormalised
+    p = exp(logits - max), pw = p * vs quantized per head (spw), int
+    out = pw8 . v8, times spw / l. The integer dots run in float64, where
+    they are exact. Returns [B, H*D] float32."""
+    b, hd = q_m.shape
+    t = k8.shape[1]
+    d = hd // heads
+    q8, qs = quantize_rows(q_m.reshape(b, heads, d))
+    li = torch.einsum("bhd,bthd->bht", q8.double(),
+                      k8.reshape(b, t, heads, d).double()).float()
+    logits = li * ks.float().transpose(1, 2) * qs[..., None] \
+        * (1.0 / math.sqrt(d))
+    if pos is not None:
+        valid = torch.arange(t, device=k8.device) <= int(pos)
+        logits = logits.masked_fill(~valid[None, None, :], -1e30)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    pw = p * vs.float().transpose(1, 2)                      # [B, H, T]
+    spw = div_exact(pw.amax(dim=-1).clamp_min(1e-20), 127.0)
+    pw8 = torch.round(pw / spw[..., None]).clamp(-127, 127)
+    oi = torch.einsum("bht,bthd->bhd", pw8.double(),
+                      v8.reshape(b, t, heads, d).double()).float()
+    return (oi * (spw / l)[..., None]).reshape(b, hd)
+
+
+def _launch_int8(q_m, k8, ks, v8, vs, heads: int,
+                 n_valid: int) -> torch.Tensor:
+    b, hd = q_m.shape
+    t = k8.shape[1]
+    if hd != heads * 64:
+        raise ValueError(f"K6 takes head dim 64: H*D={hd}, heads={heads}")
+    if tuple(k8.shape) != (b, t, hd) or tuple(v8.shape) != (b, t, hd) \
+            or tuple(ks.shape) != (b, t, heads) \
+            or tuple(vs.shape) != (b, t, heads):
+        raise ValueError(
+            f"K6: q {tuple(q_m.shape)}, k8 {tuple(k8.shape)}, v8 "
+            f"{tuple(v8.shape)}, ks {tuple(ks.shape)}, vs {tuple(vs.shape)}")
+    if n_valid * 4 > 48 * 1024:
+        raise ValueError(f"K6 keeps {n_valid} logits in 48 KB of shared "
+                         f"memory")
+    for name, a, dt in (("q", q_m, torch.bfloat16), ("k8", k8, torch.int8),
+                        ("ks", ks, torch.float32), ("v8", v8, torch.int8),
+                        ("vs", vs, torch.float32)):
+        if a.dtype != dt:
+            raise TypeError(f"K6 takes {dt} {name}; got {a.dtype}")
+        if a.device != k8.device:
+            raise ValueError(f"K6: {name} on {a.device}, k8 on {k8.device}")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"K6 takes a contiguous 16-byte aligned {name}")
+    out = torch.empty((b, hd), dtype=torch.float32, device=k8.device)
+    lib = runtime.kernels()
+    rc = lib.mas_single_query_attention_int8(
+        q_m.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), b, heads, t, n_valid,
+        1.0 / math.sqrt(hd // heads), runtime.stream_handle(k8.device))
+    runtime.check_launch(rc, "mas_single_query_attention_int8")
+    runtime.bump("single_query_attention_int8")
+    return out
+
+
+def fused_single_query_attention_int8(
+    q_m: torch.Tensor,    # [B, H*D] float queries (quantized in here)
+    k8: torch.Tensor,     # [B, T, H*D] int8
+    ks: torch.Tensor,     # [B, T, H] f32 scales
+    v8: torch.Tensor,     # [B, T, H*D] int8
+    vs: torch.Tensor,     # [B, T, H] f32 scales
+    *,
+    heads: int,
+    pos: int | None = None,   # attend to keys [0, pos]; None = all
+) -> torch.Tensor:            # [B, H*D] f32
+    """Single-query attention over merged int8 K/V. CUDA tensors launch
+    K6 (q in bf16), CPU tensors take the plain version."""
+    t = k8.shape[1]
+    if pos is not None and not 0 <= int(pos) < t:
+        raise ValueError(f"pos {pos} outside [0, {t})")
+    if k8.device.type == "cuda":
+        n_valid = t if pos is None else int(pos) + 1
+        return _launch_int8(q_m, k8, ks, v8, vs, heads, n_valid)
+    if k8.device.type == "cpu":
+        return single_query_attention_int8_plain(q_m, k8, ks, v8, vs,
+                                                 heads=heads, pos=pos)
+    raise ValueError(f"unsupported device {k8.device}")

@@ -324,16 +324,15 @@ def make_default_ingest(
     whisper-tiny captioner with a bare <sot> prompt, MiniLM-L6)."""
     from ..config import MelConfig
     from ..models import whisper as W
+    from ..models.generate import check_supported
     from ..models.minilm import PRESETS as MLM_PRESETS
+    from ..ops.quant import quantize_whisper_decoder
     cfg = cfg or EngineConfig()
     for spec in (cfg.asr_model, cfg.caption_model, cfg.text_embedder):
         if spec.weights_path:
             raise NotImplementedError(
                 "loading converted checkpoints is not ported yet "
                 "(ROADMAP A17); weights come from the seed")
-        if spec.quantize_decoder:
-            raise NotImplementedError(
-                "quantize_decoder is not ported (ROADMAP A9, kernel B8)")
     if cfg.text_embedder.family != "minilm":
         raise NotImplementedError(
             f"embedder family {cfg.text_embedder.family!r} is not ported "
@@ -349,8 +348,14 @@ def make_default_ingest(
     ) if cfg.short_context else MelConfig(sample_rate=cfg.audio.sample_rate)
 
     def load_whisper(spec, decode, name, prefix):
+        wcfg = W.PRESETS[spec.preset]
+        params = None
+        if spec.quantize_decoder:       # int8 decoder weights (K5-K7)
+            check_supported(decode, quantized=True)
+            params = quantize_whisper_decoder(W.init_params(
+                torch.Generator().manual_seed(seed), wcfg))
         return WhisperTextPipeline(
-            cfg=W.PRESETS[spec.preset], decode=decode, dtype=dtype,
+            params=params, cfg=wcfg, decode=decode, dtype=dtype,
             seed=seed, name=name, prefix_ids=prefix, mel_cfg=mel_cfg,
             device=device)
 

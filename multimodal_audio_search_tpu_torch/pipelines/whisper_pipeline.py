@@ -19,6 +19,7 @@ from ..models import whisper as W
 from ..models.generate import check_supported, generate
 from ..models.tokenizer import load_tokenizer
 from ..ops.mel import log_mel_spectrogram
+from ..ops.quant import is_quantized
 from ..service.stats import PipelineStats
 from ..utils.batching import bucket_pow2 as _bucket
 
@@ -41,9 +42,11 @@ class WhisperTextPipeline:
         device: torch.device | str = "cuda",
     ):
         """``params``: a float32 param tree of torch tensors (see
-        weights.py to bring JAX params over); None = random init from
-        ``torch.Generator().manual_seed(seed)``. ``dtype`` defaults to
-        the device's policy (runtime.default_dtype)."""
+        weights.py to bring JAX params over), with the decoder int8 if it
+        went through ops/quant.py::quantize_whisper_decoder; None =
+        random init from ``torch.Generator().manual_seed(seed)``.
+        ``dtype`` defaults to the device's policy
+        (runtime.default_dtype)."""
         from .. import runtime
         self.device = runtime.select_device(device)
         self.dtype = dtype or runtime.default_dtype(self.device)
@@ -53,7 +56,8 @@ class WhisperTextPipeline:
                                    self.cfg)
         self.params = W.prepare_params(params, self.dtype, self.device)
         self.decode = decode or DecodeConfig(max_new_tokens=64)
-        check_supported(self.decode)
+        self.quantized = is_quantized(params)
+        check_supported(self.decode, quantized=self.quantized)
         self.mel_cfg = mel_cfg or MelConfig(n_mels=self.cfg.n_mels)
         self.tokenizer = tokenizer or load_tokenizer(
             vocab_size=self.cfg.vocab_size, add_cls_sep=False,

@@ -44,6 +44,9 @@ COUNTS: dict[str, int] = {
     "decoder_self_block_q": 0,
     "decoder_mlp_block": 0,
     "decoder_mlp_block_o": 0,
+    "quant_matmul": 0,
+    "single_query_attention_int8": 0,
+    "int8_cached_attention": 0,
 }
 
 _lock = threading.Lock()
@@ -139,6 +142,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, p]                     # eps, stream
     lib.mas_decoder_mlp_block.restype = i
+    lib.mas_quant_matmul.argtypes = [
+        p, p, p, p, p,            # x, wq, scale, bias (or null), out
+        i, i, i, i, i,            # M, K, N, out_bf16, small tiling
+        p]                        # stream
+    lib.mas_quant_matmul.restype = i
+    lib.mas_single_query_attention_int8.argtypes = [
+        p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
+        i, i, i, i,               # B, H, T, n_valid
+        f, p]                     # scale, stream
+    lib.mas_single_query_attention_int8.restype = i
+    lib.mas_int8_cached_attention.argtypes = [
+        p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
+        i, i, i,                  # B, H, T
+        f, p]                     # scale, stream
+    lib.mas_int8_cached_attention.restype = i
 
 
 def _build(so: pathlib.Path) -> tuple[str, str]:

@@ -7,6 +7,13 @@ conv W is [k, in, out]). The JAX side hands its tree over as numpy
 arrays -- ``jax.tree.map(np.asarray, params)`` -- so this module needs
 neither jax nor a copy of its code; a tree saved with numpy loads the
 same way.
+
+A Whisper tree from the JAX ``ops/quant.py::quantize_whisper_decoder``
+(int8 ``wq`` with float32 ``scale`` in every decoder dense layer, the
+``decoder/embed_tokens_q`` logits table and a bf16 ``embed_tokens``)
+comes over as it is: int8 leaves stay int8, the bf16 table becomes
+float32 holding the same values. Quantized leaves anywhere else (the
+encoder, MiniLM) are refused: the JAX package makes none.
 """
 from __future__ import annotations
 
@@ -26,22 +33,25 @@ def tree_to_torch(tree):
     if isinstance(tree, (list, tuple)):
         return [tree_to_torch(v) for v in tree]
     a = np.asarray(tree)
-    if np.issubdtype(a.dtype, np.floating):
+    if np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _check(tree, top: set[str], what: str) -> None:
+def _check(tree, top: set[str], what: str, quantized_ok: str = "") -> None:
+    """Check the top-level keys; refuse int8 leaves outside the subtree
+    named ``quantized_ok``."""
     if not isinstance(tree, dict) or set(tree) != top:
         got = sorted(tree) if isinstance(tree, dict) else type(tree)
         raise ValueError(f"not a {what} param tree: top-level keys {got}")
 
     def walk(t, path):
         if isinstance(t, dict):
-            if "wq" in t:
+            if "wq" in t and not (quantized_ok
+                                  and path.startswith(f"/{quantized_ok}/")):
                 raise NotImplementedError(
-                    f"int8-quantized weights at {path} are not ported "
-                    f"(ROADMAP A9, kernel B8)")
+                    f"int8-quantized weights at {path}: the JAX package "
+                    f"quantizes only the Whisper decoder")
             for k, v in t.items():
                 walk(v, f"{path}/{k}")
         elif isinstance(t, (list, tuple)):
@@ -52,8 +62,9 @@ def _check(tree, top: set[str], what: str) -> None:
 
 def whisper_params(tree):
     """A JAX Whisper param tree (numpy leaves) -> the port's float32
-    torch tree, ready for ``WhisperTextPipeline(params=...)``."""
-    _check(tree, _WHISPER_TOP, "Whisper")
+    torch tree, ready for ``WhisperTextPipeline(params=...)``; a tree
+    with an int8 decoder keeps it (module docstring)."""
+    _check(tree, _WHISPER_TOP, "Whisper", quantized_ok="decoder")
     return tree_to_torch(tree)
 
 

@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 on the card, against their plain PyTorch versions.
+"""K1-K7 on the card, against their plain PyTorch versions.
 
 Marked ``requires_cuda``: on a machine without a CUDA card every test
 here skips (the card is looked up inside a fixture, never at import).
@@ -10,7 +10,10 @@ output, atol 1e-2 + rtol 1.6e-2) and on inputs with x = 0 and bo = 0 that
 isolate the attention term (within 1e-2 of its max and 7e-3 of its
 norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3; K3 and K4
 (both variants) on their block's term out - x (chip_smoke.check_delta)
-and k1/v1/q_cross elementwise, each with a planted fault it rejects.
+and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
+(int8 weights) elementwise (chip_smoke.check_k5) in both tilings, at
+ragged M and N, float32 and bf16 outputs, with and without a bias; K6 and
+K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel).
 """
 import pytest
 import torch
@@ -295,3 +298,166 @@ def test_tiny_fused_engine_on_card(cuda, fused):
     for k in pair + ("single_query_attention",):
         assert runtime.COUNTS[k] == steps * wcfg.dec_layers > 0, k
     assert eng.ingest_pipeline.last_transfer_resolved in ("int16", "int16d")
+
+
+# ---------------------------------------- K5 / K6 / K7 (int8 memory mode)
+@pytest.mark.parametrize("small", [True, False])
+@pytest.mark.parametrize("m,k,n,dt,bias", [
+    (1, 64, 51865, "f32", False), (33, 136, 130, "bf16", True),
+    (130, 512, 515, "f32", True), (8, 2048, 512, "bf16", True)])
+def test_k5_matches_plain(cuda, small, m, k, n, dt, bias):
+    """K5 in both tilings at ragged M (rows past M are never stored), N
+    (odd N takes the byte loads and the last partial column tile) and K
+    (a partial K tile)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator().manual_seed(m + n)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, m, k, n, bias=bias)
+    runtime.reset_counts()
+    got = Q._launch(x, wq, scale, b, out_dtype, small=small)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["quant_matmul"] == 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    chip_smoke.check_k5("K5", got, chip_smoke.k5_plain(x, wq, scale, b,
+                                                       out_dtype))
+
+
+def test_k5_check_sees_a_dropped_column_tile(cuda):
+    """A planted fault: K5's output with its last, partial column tile
+    zeroed (what a grid of N // 32 tiles leaves) fails chip_smoke's
+    check; the kernel's own output passes."""
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(7)
+    x, wq, scale, _ = chip_smoke.k5_inputs(gen, 32, 512, 51865, bias=False)
+    ref = chip_smoke.k5_plain(x, wq, scale, None, torch.float32)
+    got = Q.quant_matmul(x, wq, scale)
+    chip_smoke.check_k5("K5", got, ref)
+    got[:, 51865 // 32 * 32:] = 0
+    with pytest.raises(AssertionError, match="outside atol"):
+        chip_smoke.check_k5("K5 last tile dropped", got, ref)
+
+
+@pytest.mark.parametrize("b,t,heads,pos", [(1, 1, 2, None), (3, 97, 6, 50),
+                                           (2, 1500, 8, None),
+                                           (5, 200, 8, 0)])
+def test_k6_matches_plain(cuda, b, t, heads, pos):
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(t + heads)
+    args = chip_smoke.k6_inputs(gen, b, t, heads)
+    runtime.reset_counts()
+    got = CX.fused_single_query_attention_int8(*args, heads=heads, pos=pos)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["single_query_attention_int8"] == 1
+    ref = CX.single_query_attention_int8_plain(*args, heads=heads, pos=pos)
+    assert got.dtype == torch.float32 and got.shape == (b, heads * 64)
+    chip_smoke.check_rel("K6", got, ref, chip_smoke.INT8_ATT_MAX,
+                         chip_smoke.INT8_ATT_L2)
+
+
+def test_k6_check_sees_an_ignored_mask(cuda):
+    """A planted fault: K6 attending every key, held to the plain version
+    masked at pos, fails chip_smoke's check."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(8)
+    args = chip_smoke.k6_inputs(gen, 4, 1500, 8)
+    ref = CX.single_query_attention_int8_plain(*args, heads=8, pos=999)
+    chip_smoke.check_rel("K6", CX.fused_single_query_attention_int8(
+        *args, heads=8, pos=999), ref, chip_smoke.INT8_ATT_MAX,
+        chip_smoke.INT8_ATT_L2)
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_rel("K6 mask ignored",
+                             CX.fused_single_query_attention_int8(
+                                 *args, heads=8), ref,
+                             chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
+@pytest.mark.parametrize("b,t,heads", [(1, 1, 2), (3, 97, 6), (2, 1500, 8)])
+def test_k7_matches_plain(cuda, b, t, heads):
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    gen = torch.Generator().manual_seed(t * heads)
+    args = chip_smoke.k7_inputs(gen, b, t, heads)
+    runtime.reset_counts()
+    got = CA.int8_cached_attention(*args)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["int8_cached_attention"] == 1
+    assert got.dtype == torch.float32 and got.shape == (b, heads, 64)
+    chip_smoke.check_rel("K7", got, CA.int8_cached_attention_plain(*args),
+                         chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
+def test_int8_wrappers_raise_instead_of_falling_back(cuda):
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(9)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, 4, 64, 96)
+    with pytest.raises(TypeError):                    # float32 x
+        Q.quant_matmul(x.float(), wq, scale)
+    with pytest.raises(ValueError):                   # K % 8 != 0
+        Q.quant_matmul(x[:, :60].contiguous(), wq[:60].contiguous(), scale)
+    with pytest.raises(ValueError):                   # scale on the CPU
+        Q.quant_matmul(x, wq, scale.cpu())
+    q, k8, ks, v8, vs = chip_smoke.k6_inputs(gen, 2, 16, 2)
+    with pytest.raises(TypeError):                    # float32 q
+        CX.fused_single_query_attention_int8(q.float(), k8, ks, v8, vs,
+                                             heads=2)
+    with pytest.raises(ValueError):                   # head dim 32
+        CX.fused_single_query_attention_int8(q, k8, ks.repeat(1, 1, 2), v8,
+                                             vs.repeat(1, 1, 2), heads=4)
+    q, k8, ks, v8, vs = chip_smoke.k7_inputs(gen, 2, 16, 2)
+    with pytest.raises(ValueError):                   # non-contiguous K
+        CA.int8_cached_attention(q, k8.transpose(2, 3), ks, v8, vs)
+
+
+@pytest.mark.parametrize("mode", ["int8_fused", "int8"])
+def test_tiny_int8_engine_on_card(cuda, mode):
+    """The toy-width engine (head dim 64) with the int8 decoder memory
+    mode on both models: on the card every dense decoder layer and the
+    logits went through K5, the cross attention through K6 or K7, and the
+    segments are the CPU engine's."""
+    import numpy as np
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.config import (
+        DecodeConfig, EngineConfig, MelConfig)
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.ops.quant import (
+        quantize_whisper_decoder)
+    from multimodal_audio_search_tpu_torch.pipelines.embed import (
+        TextEmbedder)
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        DualPipelineIngest)
+    from multimodal_audio_search_tpu_torch.pipelines.whisper_pipeline import (
+        WhisperTextPipeline)
+    wcfg = W.config_for("test", d_model=128, heads=2)   # head dim 64
+    mel = MelConfig(padded_seconds=2.0)
+
+    def engine(device):
+        dec = DecodeConfig(max_new_tokens=5, cross_attn=mode)
+        pipes = [WhisperTextPipeline(
+            params=quantize_whisper_decoder(W.init_params(
+                torch.Generator().manual_seed(s), wcfg)),
+            cfg=wcfg, decode=dec, mel_cfg=mel, device=device,
+            prefix_ids=None if s == 0 else [wcfg.bos_token_id])
+            for s in (0, 1)]
+        emb = TextEmbedder(cfg=PRESETS["test"], device=device)
+        cfg = EngineConfig(ingest_batch=4, embed_dim=64)
+        return AudioSearchEngine(cfg=cfg, ingest_pipeline=DualPipelineIngest(
+            *pipes, emb, cfg))
+
+    x = (np.random.default_rng(0).normal(size=16000 * 25) * 0.3) \
+        .astype(np.float32)
+    runtime.reset_counts()
+    eng = engine("cuda")
+    gpu = eng.ingest_waveform(x, 16000, "x")
+    ing = eng.ingest_pipeline
+    steps = (ing.asr.total_steps, ing.caption.total_steps)
+    disp = (ing.asr.dispatches, ing.caption.dispatches)
+    cpu = engine("cpu").ingest_waveform(x, 16000, "x")
+    assert [s["start_time"] for s in gpu] == [s["start_time"] for s in cpu]
+    counts = {k: runtime.COUNTS[v] for k, v in chip_smoke.KEYS.items()}
+    assert counts == chip_smoke.expected_launches(False, mode, steps, disp,
+                                                  ing.asr, ing.caption)

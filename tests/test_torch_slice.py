@@ -130,10 +130,14 @@ MEL_S = 2.0           # the "test" preset's 100 encoder positions
 EMB = dict(vocab_size=2048, hidden=64, layers=1, heads=2, intermediate=128)
 
 
-def _make_engines(profile=None):
+def _make_engines(profile=None, quantize=False, cross_attn="auto"):
     """A JAX and a PyTorch engine on the same toy weights; ``profile``
     ("fast_lossless") is applied to both configs, and its decode options
-    reach both pipelines."""
+    reach both pipelines. ``quantize`` gives both Whisper models the JAX
+    package's int8 decoder (the port takes the JAX tree through
+    weights.py); ``cross_attn`` goes to both decode configs."""
+    from multimodal_audio_search_tpu.ops.quant import (
+        quantize_whisper_decoder)
     wcfg = JW.PRESETS["test"]
     mcfg_j = JM.MiniLMConfig(**EMB)
     # 3x the init scale on every matrix: at the stock 0.02 the toy
@@ -141,13 +145,16 @@ def _make_engines(profile=None):
     asr_p, cap_p = (jax.tree.map(
         lambda a: a * 3.0 if a.ndim == 2 else a,
         JW.init_params(jax.random.PRNGKey(s), wcfg)) for s in (0, 1))
+    if quantize:
+        asr_p, cap_p = map(quantize_whisper_decoder, (asr_p, cap_p))
     emb_p = JM.init_params(jax.random.PRNGKey(2), mcfg_j)
 
     def config(mod):
         cfg = mod.EngineConfig(ingest_batch=4, embed_dim=64)
         if profile:
             cfg = mod.apply_profile(cfg, profile)
-        dec = dataclasses.replace(cfg.asr_decode, max_new_tokens=6)
+        dec = dataclasses.replace(cfg.asr_decode, max_new_tokens=6,
+                                  cross_attn=cross_attn)
         return cfg, dec
 
     cfg_j, dec_j = config(jcfg)
@@ -230,7 +237,8 @@ def _check_engine_parity(jeng, teng, rng, tmp_path):
     assert runtime.COUNTS == dict.fromkeys(
         ("encoder_attn_o_residual", "single_query_attention",
          "decoder_self_block", "decoder_self_block_q", "decoder_mlp_block",
-         "decoder_mlp_block_o"), 0)
+         "decoder_mlp_block_o", "quant_matmul",
+         "single_query_attention_int8", "int8_cached_attention"), 0)
     stats = json.loads(teng.export_stats_json())
     assert stats["database"]["total_segments"] == len(tsegs)
 
@@ -257,6 +265,84 @@ def test_engine_parity_fast_lossless(rng, tmp_path, monkeypatch):
     assert set(ing.last_probe) == {"int16", "int16d"}
     assert jeng.ingest_pipeline.last_transfer_resolved in ("int16", "int16d")
 
+
+
+def test_engine_parity_quantize_decoder(rng, tmp_path):
+    """Both engines on the JAX package's int8 decoders (every dense layer
+    and the logits through quant_matmul: K5's plain version here, the
+    JAX dequantizing path there) with bf16-style cross K/V: the same
+    segments, texts, embeddings and top-10."""
+    jeng, teng = _make_engines(quantize=True)
+    assert teng.ingest_pipeline.asr.quantized
+    assert "embed_tokens_q" in teng.ingest_pipeline.caption.params["decoder"]
+    _check_engine_parity(jeng, teng, rng, tmp_path)
+
+
+@pytest.mark.parametrize("mode", ["int8_fused", "int8"])
+def test_engine_int8_cross_attn(rng, tmp_path, mode):
+    """Both engines on int8 decoders with int8 cross K/V. The JAX engine
+    runs its dequantizing CPU twins, the port the kernels' arithmetic
+    (q and the probabilities quantized, or rounded to bf16), so texts may
+    differ where tokens are near ties (the step-level guardrail is
+    tests/test_torch_int8_attention.py's); the segments are the same,
+    and each engine finds a segment by its own ASR text first."""
+    jeng, teng = _make_engines(quantize=True, cross_attn=mode)
+    wave = _pieces(rng, 65)
+    p = str(tmp_path / "clip.wav")
+    write_wav(p, wave, SR)
+    jsegs = jeng.ingest(p, source_name="clip.wav")
+    tsegs = teng.ingest(p, source_name="clip.wav")
+    assert [s["start_time"] for s in tsegs] == \
+        [s["start_time"] for s in jsegs]
+    texts = [s["asr_text"] for s in tsegs]
+    same = sum(a == s["asr_text"] for a, s in zip(texts, jsegs))
+    assert same >= len(texts) // 2, (texts, [s["asr_text"] for s in jsegs])
+    own = next(i for i, tx in enumerate(texts) if tx and texts.count(tx) == 1)
+    assert teng.search(texts[own])[0][0]["index"] == own
+
+
+@pytest.mark.parametrize("mode", ["int8_fused", "int8"])
+def test_int8_engine_launches_what_chip_smoke_expects(monkeypatch, rng,
+                                                      mode):
+    """The launch counts chip_smoke.py asserts on the card, counted here
+    as calls of each kernel's entry point by a config-built engine with
+    the int8 memory mode (two batches, so a padded one too)."""
+    import chip_smoke
+    from multimodal_audio_search_tpu_torch.models import whisper as TW
+    from multimodal_audio_search_tpu_torch.ops import (
+        cached_attention, cross_attention, encoder_block, quant)
+    calls = dict.fromkeys(chip_smoke.KEYS, 0)
+    for key, mod, name in (
+            ("K1", encoder_block, "fused_attention_o_residual"),
+            ("K2", cross_attention, "fused_single_query_attention"),
+            ("K5", quant, "quant_dense_apply"),
+            ("K6", cross_attention, "fused_single_query_attention_int8"),
+            ("K7", cached_attention, "int8_cached_attention")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _k=key, **k: (
+            calls.__setitem__(_k, calls[_k] + 1), _f(*a, **k))[1])
+    spec = tcfg.ModelSpec(family="whisper", preset="test",
+                          quantize_decoder=True)
+    base = tcfg.EngineConfig(ingest_batch=4, embed_dim=64,
+                             short_context=True).replace(
+        asr_model=spec, caption_model=spec,
+        text_embedder=tcfg.ModelSpec(family="minilm", preset="test"),
+        segment=tcfg.SegmentConfig(segment_seconds=2.0,
+                                   min_segment_seconds=1.0),
+        asr_decode=tcfg.DecodeConfig(max_new_tokens=3, cross_attn=mode),
+        caption_decode=tcfg.DecodeConfig(max_new_tokens=3, cross_attn=mode))
+    eng = AudioSearchEngine(cfg=base, device="cpu")
+    ing = eng.ingest_pipeline
+    asr, cap = ing.asr, ing.caption
+    assert asr.quantized and cap.quantized
+    assert isinstance(asr.params["decoder"]["embed_tokens_q"]["wq"],
+                      torch.Tensor)
+    eng.ingest_waveform(_pieces(rng, 11), SR, "x")
+    steps = (asr.total_steps, cap.total_steps)
+    disp = (asr.dispatches, cap.dispatches)
+    assert disp == (2, 2) and TW.PRESETS["test"].dec_layers == 2
+    assert calls == chip_smoke.expected_launches(False, mode, steps, disp,
+                                                 asr, cap)
 
 
 @pytest.mark.parametrize("via", ["apply_profile", "MAS_PROFILE"])
@@ -477,9 +563,10 @@ def test_device_policy():
     dict(transfer_dtype="mulaw8"),
     dict(asr_decode=tcfg.DecodeConfig(method="beam")),
     dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
-                                  quantize_decoder=True)),
+                                  quantize_decoder=True),
+         asr_decode=tcfg.DecodeConfig(fused_layer=True)),
     dict(asr_decode=tcfg.DecodeConfig(fused_encoder="int8")),
-    dict(caption_decode=tcfg.DecodeConfig(cross_attn="int8_fused")),
+    dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
     dict(data_parallel=2),
 ])
 def test_unported_modes_raise(change):

@@ -1,11 +1,14 @@
 """Where an ingest batch of the PyTorch port spends its time, on the card.
 
-    python3 tools/torch_profile_ingest.py [--paths default,fast_lossless,v2]
+    python3 tools/torch_profile_ingest.py [--paths default,fast_lossless,v2,
+                                           int8_fused,int8]
                                           [--seconds 320] [--out DIR]
 
 Builds one engine per path (chip_smoke.ENGINE_PATHS: the default config,
-``apply_profile(..., "fast_lossless")``, and that profile with
-``fused_layer="v2"``; random init, bf16, cuda) and warms each up with
+``apply_profile(..., "fast_lossless")``, that profile with
+``fused_layer="v2"``, and the int8 decoder memory mode with
+``cross_attn="int8_fused"`` or ``"int8"``; random init, bf16, cuda) and
+warms each up with
 one ingest. Then ingests ``--seconds`` of audio (320 s = one full batch
 of 32 segments) with each path in turns (A B C C B A), timing the host
 wall and the host trace, and once more per path under torch.profiler
@@ -61,8 +64,7 @@ def main() -> int:
 
     card = card_line()
     rng = np.random.default_rng(0)
-    paths = {label: (profile_, fused) for label, profile_, fused
-             in ENGINE_PATHS}
+    paths = {label: rest for label, *rest in ENGINE_PATHS}
     labels = args.paths.split(",")
     engines = {}
     for label in labels:
