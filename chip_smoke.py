@@ -6,7 +6,7 @@ Phases, one line each (``[phase] ...``):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No card -> the script raises before anything else.
-2. build: K1-K7 compiled from ``multimodal_audio_search_tpu_torch/
+2. build: K1-K11 compiled from ``multimodal_audio_search_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
    seconds and ptxas resource lines.
 3. kernels against their plain PyTorch versions on the card, at the
@@ -19,8 +19,12 @@ Phases, one line each (``[phase] ...``):
    output (DELTA_MAX); K5 (int8 weights) at the (M, K, N) of a decode
    step's dense layers, the tied logits and the cross K/V projection
    over B*1500 rows (K5_SHAPES), K6 and K7 (int8 K/V) at B=32, T=1500,
-   H=8 and H=6. Tolerances asserted; median times from CUDA events after
-   a warm-up.
+   H=8 and H=6; the encoder variants K8 (per-head attention), K9 (int8
+   dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
+   three forms of the softmax division at base width, on K1's inputs.
+   Tolerances asserted; median times from CUDA events after a warm-up,
+   each beside the card's bound for the same work (bound()) and, for K2
+   and K8, one scaled_dot_product_attention call as a yardstick.
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
    config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
@@ -28,15 +32,21 @@ Phases, one line each (``[phase] ...``):
    slots) with ``cross_attn="int8_fused"`` and with ``"int8"`` ingest
    two 16-bit WAVs made with numpy (320 s = one full batch of 32
    segments, and 25 s = 3 segments) and answer 4 queries;
-   fast_lossless with ``fused_layer="v2"`` ingests the 320 s WAV and
-   answers them. Each path's launch counts (set to 0 just before, read
-   just after) must be > 0 and equal what the path implies; the ASR text
-   of one ingested segment, used as a query, must rank its own segment
-   first; each engine's peak device memory (reset before its build) is
-   printed beside the default's. The default engine's encoder and decode
-   steps (unfused, fused, "v2") are then held against their plain paths
-   on a small input, and each int8 engine's first decode step against
-   its quantized decoder's bf16 einsum cross attention (INT8_SPAN_MAX).
+   fast_lossless with ``fused_layer="v2"`` and the three encoder
+   variants (``fused_encoder`` False -> K8, "int8" -> K9, "paired" ->
+   K10, on both decode configs) ingest the 320 s WAV and answer them.
+   Each path's launch counts (set to 0 just before, read just after)
+   must be > 0 and equal what the path implies; the ASR text of one
+   ingested segment, used as a query, must rank its own segment first;
+   each engine's peak device memory (reset before its build) is printed
+   beside the default's, and its ASR texts' agreement with the default
+   engine's. The default engine's encoder and decode steps (unfused,
+   fused, "v2") are then held against their plain paths on a small
+   input, each int8 engine's first decode step against its quantized
+   decoder's bf16 einsum cross attention (INT8_SPAN_MAX), and each
+   encoder variant's encoder against the plain encoder (ENC_MEAN_ERR_MAX).
+5. the A/B path of K11: tools/torch_profile_encoder_kernel_ab.py's run()
+   (B=64, T=500 and 1500, each form), launches counted.
 
 The second-to-last line is the kernels JSON object, the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -80,6 +90,20 @@ K1_Y_MAX, K1_Y_L2 = 1e-2, 7e-3
 # (label, q scale, residual)
 K1_CASES = (("residual", 1.0, True), ("attention", 1.0, False),
             ("peaked", 3.0, False))
+# K8-K11, K1's relatives, are held as K1 is on K1's inputs at each shape:
+# K9, K10 and K11 (x + attn @ Wo + bo) on the residual input elementwise
+# and on the attention term alone relative to its scale (check_k1); K8,
+# which has no residual, on its output relative to its scale (check_rel
+# with K1_Y_MAX, K1_Y_L2). Readings on an H100 at B=32, T=1500, both
+# widths: at most 0.59 % (max) and 0.32 % (norm) of the term. K9 and its
+# plain version compute the same integer dots, so they differ only where
+# exp and the order of the float32 sum l move a p8 code across a
+# rounding boundary: at most 0.38 % / 0.012 %. Planted faults in float32
+# emulations at T=1500 read (max / norm; tests/test_torch_encoder_
+# variants.py): K8's 36 zero-padded keys of the last 64-key tile left
+# unmasked 1.26 % / 1.44 %; K9 with head 0's key scales for every head
+# 383 % / 55 %; K10 pairing each odd head's queries with its partner's
+# keys 89 % / 80 %; K11 without its 1/l over 9000 %.
 # K2: f32 output, f32 softmax and products on the same bf16 inputs in
 #     both -> only the summation order differs.
 K2_ATOL, K2_RTOL = 1e-3, 1e-3
@@ -155,6 +179,46 @@ K6_POS = 999
 # guardrail for these modes (max |err| < 5 % of the logits' span, argmax
 # agreement >= 0.9; tests/test_cross_attention.py, tests/test_int8_kv.py)
 INT8_SPAN_MAX, INT8_AGREE_MIN = 5e-2, 0.9
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): tensor-core operations per second by input type, and the
+# device memory's bytes per second
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_S = 3.35e12
+
+
+def bound(nbytes: float, **ops: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate of their type
+    (``bf16=..., int8=...``, summed over the types)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors
+               if a is not None)
+
+
+def attn_o_bound(b: int, t: int, heads: int, d: int = 64,
+                 int8: bool = False) -> dict:
+    """bound() of K1's function (and K9-K11's) at [B, T, H*D]: q/k/v
+    (int8 K/V with float32 scales for K9), x and out, Wo and bo; the two
+    attention products (int8 for K9) and the o-projection."""
+    hd = heads * d
+    kv = 2 * b * t * hd + 8 * b * heads * t if int8 else 4 * b * t * hd
+    attn = 4 * b * heads * t * t * d
+    ops = {"bf16": 2 * b * t * hd * hd}
+    if int8:
+        ops["int8"] = attn
+    else:
+        ops["bf16"] += attn
+    return bound(2 * b * t * hd + kv + 4 * b * t * hd + 2 * hd * hd + 2 * hd,
+                 **ops)
 
 
 def phase(name: str, **kv) -> None:
@@ -373,6 +437,12 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                         lambda: fused(*args, kc, vc, pos, heads=heads))
                     case["plain_ms"] = time_ms(
                         lambda: plain(*args, kc, vc, pos, heads=heads))
+                    # cache rows 0..pos-1 read, row pos written; the
+                    # [D, D] projections (q/k/v/o, and K3-q's cross q)
+                    case.update(bound(
+                        nbytes(*args, *got) + 2 * b * (pos + 1) * d * 2,
+                        bf16=2 * b * d * d * (5 if extra else 4)
+                        + 4 * b * (pos + 1) * d))
                 out[key]["cases"].append(case)
                 phase("kernels", kernel=key, card=card,
                       tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2,
@@ -387,7 +457,9 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
             case = {"shape": f"{label} B={b} D={d} F={f}",
                     **check_delta(f"{key} {label}", got, ref, x),
                     "ms": time_ms(lambda: fused(*args)),
-                    "plain_ms": time_ms(lambda: plain(*args))}
+                    "plain_ms": time_ms(lambda: plain(*args)),
+                    **bound(nbytes(*args, got), bf16=4 * b * d * f + (
+                        2 * b * d * d if key == "K4-o" else 0))}
             out[key]["cases"].append(case)
             phase("kernels", kernel=key, card=card,
                   tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}, **case)
@@ -490,7 +562,8 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                 "plain_ms": time_ms(lambda: k5_plain(x, wq, scale, b,
                                                      out_dtype)),
                 "weight_gbps": k * n / ms / 1e6,
-                "tflops": 2 * m * k * n / ms / 1e9}
+                "tflops": 2 * m * k * n / ms / 1e9,
+                **bound(nbytes(x, wq, scale, b, got), bf16=2 * m * k * n)}
         k5["cases"].append(case)
         phase("kernels", kernel="K5", card=card,
               tol={"atol_of_max": K5_ATOL, "rtol": K5_RTOL_BF16 if dt ==
@@ -521,6 +594,10 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                         lambda: CX.single_query_attention_int8_plain(
                             *args, heads=heads, pos=pos))}
             case["gbps"] = 2 * b * n * heads * 64 / case["ms"] / 1e6
+            # keys 0..n-1: int8 K/V rows and their float32 scales
+            case.update(bound(nbytes(args[0], got)
+                              + 2 * b * n * heads * (64 + 4),
+                              int8=4 * b * n * heads * 64))
             k6["cases"].append(case)
             phase("kernels", kernel="K6", card=card,
                   tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
@@ -535,12 +612,92 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                 "plain_ms": time_ms(
                     lambda: CA.int8_cached_attention_plain(*args))}
         case["gbps"] = 2 * b * t * heads * 64 / case["ms"] / 1e6
+        case.update(bound(nbytes(*args, got), int8=4 * b * t * heads * 64))
         k7["cases"].append(case)
         phase("kernels", kernel="K7", card=card,
               tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
         del args, got, ref
     torch.cuda.empty_cache()
     return [k5, k6, k7]
+
+
+def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
+    """K8, K9 and K10 at B=32, T=1500 and both widths, K11's three forms
+    at base width, each against its plain version on K1's inputs
+    (K1_CASES); timed on the residual input."""
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    pkg, jx = "multimodal_audio_search_tpu_torch/csrc", \
+        "multimodal_audio_search_tpu/ops"
+    out = {
+        "K8": {"name": "encoder_attention", "route": "cuda",
+               "source": f"{pkg}/encoder_block.cu",
+               "replaces": f"{jx}/attention.py:83", "cases": []},
+        "K9": {"name": "encoder_attn_o_residual_int8", "route": "cuda",
+               "source": f"{pkg}/encoder_block_int8.cu",
+               "replaces": f"{jx}/encoder_block.py:319", "cases": []},
+        "K10": {"name": "encoder_attn_o_residual_paired", "route": "cuda",
+                "source": f"{pkg}/encoder_block.cu",
+                "replaces": f"{jx}/encoder_block.py:375", "cases": []},
+        "K11": {"name": "encoder_attn_o_residual_ab", "route": "cuda",
+                "source": f"{pkg}/encoder_block.cu",
+                "replaces": "tools/profile_encoder_kernel_ab.py:118",
+                "cases": []}}
+    b, t = 32, 1500
+    for label, heads in (("base", 8), ("tiny", 6)):
+        for inputs, q_scale, residual in K1_CASES:
+            q, k, v, x, wo, bo = args = k1_inputs(
+                gen, b, t, heads, q_scale=q_scale, residual=residual)
+            kv = quantize_kv(k, v)
+            args9 = (q, *kv, x, wo, bo)
+            runs = {
+                "K8": (lambda: A.fused_encoder_attention(q, k, v),
+                       lambda: A.encoder_attention_plain(q, k, v)),
+                "K9": (lambda: EB.attention_o_residual_int8(*args9),
+                       lambda: EB.attention_o_residual_int8_plain(*args9)),
+                "K10": (lambda: EB.fused_attention_o_residual(
+                            *args, pair_heads=True),
+                        lambda: EB.attention_o_residual_paired_plain(*args))}
+            if label == "base":
+                for form in (False, True, "post"):
+                    runs[f"K11 {form}"] = (
+                        lambda f=form: EB.attention_o_residual_ab(*args, f),
+                        lambda f=form: EB.attention_o_residual_ab_plain(
+                            *args, f))
+            for name, (fused, plain) in runs.items():
+                key = name.split()[0]
+                got, ref = fused(), plain()
+                torch.cuda.synchronize()
+                tag = f"{name} {label} {inputs}"
+                err = (check_rel(tag, got, ref, K1_Y_MAX, K1_Y_L2)
+                       if key == "K8" else check_k1(tag, got, ref, residual))
+                case = {"shape": f"{label} B={b} T={t} H={heads} D=64",
+                        "inputs": inputs, **err}
+                if name.startswith("K11"):
+                    case["defer_div"] = name.split()[1]
+                if residual:
+                    case["ms"] = time_ms(fused)
+                    case["plain_ms"] = time_ms(plain, reps=5)
+                    if key == "K8":
+                        case["library_ms"] = time_ms(
+                            lambda: torch.nn.functional.
+                            scaled_dot_product_attention(q, k, v))
+                        case.update(bound(4 * nbytes(q),
+                                          bf16=4 * b * heads * t * t * 64))
+                    else:
+                        case.update(attn_o_bound(b, t, heads,
+                                                 int8=key == "K9"))
+                out[key]["cases"].append(case)
+                phase("kernels", kernel=name, card=card,
+                      tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}
+                      if key == "K8" or not residual else [K1_ATOL, K1_RTOL],
+                      **case)
+                del got, ref
+            del q, k, v, x, wo, bo, args, kv, args9, runs
+            torch.cuda.empty_cache()
+    return list(out.values())
 
 
 def kernel_phase(card: str, gen: torch.Generator):
@@ -574,7 +731,8 @@ def kernel_phase(card: str, gen: torch.Generator):
                 hd = heads * d
                 flops = 4 * b * heads * t * t * d + 2 * b * t * hd * hd
                 case.update(ms=ms, plain_ms=plain_ms,
-                            tflops=flops / ms / 1e9)
+                            tflops=flops / ms / 1e9,
+                            **attn_o_bound(b, t, heads))
             k1["cases"].append(case)
             phase("kernels", kernel="K1", card=card,
                   tol=[K1_ATOL, K1_RTOL] if residual
@@ -602,9 +760,19 @@ def kernel_phase(card: str, gen: torch.Generator):
         plain_ms = time_ms(lambda: K2.single_query_attention_plain(
             q, k, v, heads=heads, pos=pos))
         n = t if pos is None else pos + 1
+        # the yardstick: one PyTorch call over the same keys (views)
+        qh = q.view(b, 1, heads, d).transpose(1, 2)
+        kh, vh = (a[:, :n].view(b, n, heads, d).transpose(1, 2)
+                  for a in (k, v))
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh))
         case = {"shape": f"{label} B={b} T={t} H={heads} pos={pos}",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "gbps": 2 * b * n * hd * 2 / ms / 1e6}
+                "library_ms": library_ms,
+                "gbps": 2 * b * n * hd * 2 / ms / 1e6,
+                **bound(nbytes(q, got) + 2 * b * n * hd * 2,
+                        bf16=4 * b * n * hd)}
         k2["cases"].append(case)
         phase("kernels", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
               **case)
@@ -612,58 +780,79 @@ def kernel_phase(card: str, gen: torch.Generator):
 
 
 # the engine configurations driven on the card: (label, profile, fused,
-# int8 cross_attn mode; one set means quantize_decoder=True on both models)
-ENGINE_PATHS = (("default", None, False, None),
-                ("fast_lossless", "fast_lossless", True, None),
-                ("v2", "fast_lossless", "v2", None),
-                ("int8_fused", None, False, "int8_fused"),
-                ("int8", None, False, "int8"))
+# int8 cross_attn mode -- one set means quantize_decoder=True on both
+# models --, fused_encoder on both decode configs, None = the config's)
+ENGINE_PATHS = (("default", None, False, None, None),
+                ("fast_lossless", "fast_lossless", True, None, None),
+                ("v2", "fast_lossless", "v2", None, None),
+                ("int8_fused", None, False, "int8_fused", None),
+                ("int8", None, False, "int8", None),
+                ("enc_attn", None, False, None, False),
+                ("enc_int8", None, False, None, "int8"),
+                ("enc_paired", None, False, None, "paired"))
 # launch-count key of each kernel in runtime.COUNTS
 KEYS = {"K1": "encoder_attn_o_residual", "K2": "single_query_attention",
         "K3": "decoder_self_block", "K3-q": "decoder_self_block_q",
         "K4": "decoder_mlp_block", "K4-o": "decoder_mlp_block_o",
         "K5": "quant_matmul", "K6": "single_query_attention_int8",
-        "K7": "int8_cached_attention"}
+        "K7": "int8_cached_attention", "K8": "encoder_attention",
+        "K9": "encoder_attn_o_residual_int8",
+        "K10": "encoder_attn_o_residual_paired",
+        "K11": "encoder_attn_o_residual_ab"}
 # K5's launches per decode step and decoder layer: self q/k/v/o, cross
 # q/o, fc1, fc2
 K5_PER_LAYER_STEP = 8
 
 
-def engine_config(profile, fused, int8=None):
+def engine_config(profile, fused, int8=None, enc=None):
     """EngineConfig for one entry of ENGINE_PATHS; "v2" is fast_lossless
     with fused_layer="v2" on both models; ``int8`` sets quantize_decoder
-    on both Whisper slots and that cross_attn on both decode configs."""
+    on both Whisper slots and that cross_attn on both decode configs;
+    ``enc`` (not None) sets fused_encoder on both decode configs."""
     import dataclasses
     from multimodal_audio_search_tpu_torch.config import (
         EngineConfig, apply_profile)
     cfg = EngineConfig()
     if profile:
         cfg = apply_profile(cfg, profile)
+    dec = {}
     if fused == "v2":
-        cfg = cfg.replace(**{k: dataclasses.replace(
-            getattr(cfg, k), fused_layer="v2")
-            for k in ("asr_decode", "caption_decode")})
+        dec["fused_layer"] = "v2"
     if int8:
+        dec["cross_attn"] = int8
         cfg = cfg.replace(
             **{k: dataclasses.replace(getattr(cfg, k), quantize_decoder=True)
-               for k in ("asr_model", "caption_model")},
-            **{k: dataclasses.replace(getattr(cfg, k), cross_attn=int8)
-               for k in ("asr_decode", "caption_decode")})
-    return cfg
+               for k in ("asr_model", "caption_model")})
+    if enc is not None:
+        dec["fused_encoder"] = enc
+    return cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **dec)
+                          for k in ("asr_decode", "caption_decode")})
 
 
-def expected_launches(fused, int8, steps, disp, asr, cap) -> dict:
-    """What one ingest run must have launched: K1 once per encoder layer
-    and dispatch; per decode step and decoder layer, K2 twice on the
-    unfused path, and on the fused paths K2 once (cross only) beside K3
-    and K4, or K3-q and K4-o for "v2". The int8 paths (unfused) take K2
-    for the self attention, K6 ("int8_fused") or K7 ("int8") for the
-    cross attention, and K5 for every dense layer (K5_PER_LAYER_STEP), for
-    the logits once a step, and for the cross k/v projections twice per
+def encoder_kernel(enc, heads: int) -> str:
+    """The kernel one encoder layer of a model with ``heads`` heads
+    launches at T >= 512 on the card under fused_encoder ``enc``."""
+    if enc is False:
+        return "K8"
+    if enc == "int8":
+        return "K9"
+    return "K10" if enc == "paired" and heads % 2 == 0 else "K1"
+
+
+def expected_launches(fused, int8, steps, disp, asr, cap, enc=None) -> dict:
+    """What one ingest run must have launched: one encoder kernel per
+    encoder layer and dispatch (encoder_kernel: K1, or K8/K9/K10 under
+    ``enc``); per decode step and decoder layer, K2 twice on the unfused
+    path, and on the fused paths K2 once (cross only) beside K3 and K4,
+    or K3-q and K4-o for "v2". The int8 paths (unfused) take K2 for the
+    self attention, K6 ("int8_fused") or K7 ("int8") for the cross
+    attention, and K5 for every dense layer (K5_PER_LAYER_STEP), for the
+    logits once a step, and for the cross k/v projections twice per
     decoder layer and dispatch."""
     per_step = steps[0] * asr.cfg.dec_layers + steps[1] * cap.cfg.dec_layers
     exp = {k: 0 for k in KEYS}
-    exp["K1"] = disp[0] * asr.cfg.enc_layers + disp[1] * cap.cfg.enc_layers
+    for n, pipe in zip(disp, (asr, cap)):
+        exp[encoder_kernel(enc, pipe.cfg.heads)] += n * pipe.cfg.enc_layers
     if int8:
         exp["K2"] = per_step
         exp["K6" if int8 == "int8_fused" else "K7"] = per_step
@@ -681,7 +870,7 @@ def expected_launches(fused, int8, steps, disp, asr, cap) -> dict:
 
 
 def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
-                 fused, int8, clips, ref_texts=None):
+                 fused, int8, enc, clips, ref_texts=None):
     """Build the engine of one ENGINE_PATHS entry on cuda, ingest
     ``clips`` and answer the queries with every launch count set to 0
     just before and read just after; check the counts and self-retrieval.
@@ -692,7 +881,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = AudioSearchEngine(cfg=engine_config(profile, fused, int8),
+    eng = AudioSearchEngine(cfg=engine_config(profile, fused, int8, enc),
                             device="cuda", seed=0)
     eng.load_all_models()
     ing = eng.ingest_pipeline
@@ -706,6 +895,8 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
           fused_layer=[asr.decode.fused_layer, cap.decode.fused_layer],
           quantize_decoder=[asr.quantized, cap.quantized],
           cross_attn=[asr.decode.cross_attn, cap.decode.cross_attn],
+          fused_encoder=[asr.fused_encoder_resolved,
+                         cap.fused_encoder_resolved],
           transfer=eng.cfg.transfer_dtype,
           allocated_bytes=torch.cuda.memory_allocated())
 
@@ -746,7 +937,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
     disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
     # ---- what the path must have launched
-    exp = expected_launches(fused, int8, steps, disp, asr, cap)
+    exp = expected_launches(fused, int8, steps, disp, asr, cap, enc)
     if counts != exp or not all(counts[k] > 0 for k in exp if exp[k]):
         raise AssertionError(f"{label}: launches {counts} != expected {exp}")
     # ---- self-retrieval
@@ -791,6 +982,8 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
         reference_check(asr, rng)
     if int8:
         int8_reference_check(asr, rng, int8)
+    if enc is not None:
+        encoder_reference_check(asr, rng, enc)
     del eng, ing, asr, cap
     torch.cuda.empty_cache()
     return counts, by_seg, mem
@@ -845,7 +1038,7 @@ def reference_check(asr, rng: np.random.Generator) -> None:
             (0, asr.mel_cfg.n_samples - x.shape[1]))
         mel = log_mel_spectrogram(w, asr.mel_cfg).to(asr.dtype)
         enc_k = W.encode(asr.params, mel, asr.cfg, fused_blocks=True)
-        enc_p = W.encode(asr.params, mel, asr.cfg, fused_blocks=False)
+        enc_p = W.encode(asr.params, mel, asr.cfg, fused_attention=False)
         enc_err = (enc_k.float() - enc_p.float()).abs()
         ckv = W.cross_kv_merged(asr.params, enc_k, asr.cfg)
         ckv_e = W.cross_kv(asr.params, enc_k, asr.cfg)
@@ -900,6 +1093,35 @@ def reference_check(asr, rng: np.random.Generator) -> None:
             f" (limit {FUSED_LOGITS_ERR_REL} of the logits' scale)")
 
 
+def encoder_reference_check(asr, rng: np.random.Generator, enc) -> None:
+    """An encoder variant's engine (fused_encoder ``enc``: K8, K9 or K10)
+    against the plain encoder on two 10 s segments: mean |err| within
+    ENC_MEAN_ERR_MAX, as K1's encoder is held. The int8 dots add 7e-4 of
+    mean |err| at float32 on the CPU (whisper-base and tiny, seed 0), a
+    tenth of the bf16 roundings' 0.0059 on the card."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    dev = asr.device
+    with torch.inference_mode():
+        x = make_audio(20, rng).reshape(2, -1)
+        w = torch.nn.functional.pad(
+            torch.as_tensor(x, device=dev),
+            (0, asr.mel_cfg.n_samples - x.shape[1]))
+        mel = log_mel_spectrogram(w, asr.mel_cfg).to(asr.dtype)
+        got = W.encode(asr.params, mel, asr.cfg, fused_blocks=enc)
+        ref = W.encode(asr.params, mel, asr.cfg, fused_attention=False)
+    err = (got.float() - ref.float()).abs()
+    ok = got.shape == ref.shape and bool(torch.isfinite(got).all())
+    phase("engine", path=f"fused_encoder={enc}", step="encoder reference",
+          encoder_mean_abs_err=float(err.mean()),
+          encoder_max_abs_err=float(err.max()), shapes_finite_ok=ok)
+    if not ok or float(err.mean()) > ENC_MEAN_ERR_MAX:
+        raise AssertionError(
+            f"fused_encoder={enc}: encoder off the plain encoder: mean "
+            f"{float(err.mean()):.3e} (limit {ENC_MEAN_ERR_MAX}), shapes "
+            f"and finite values ok: {ok}")
+
+
 def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
     """An int8 engine's ASR model (quantized decoder) on 8 distinct 10 s
     segments: the first decode step over its int8 cross K/V (K6 or K7)
@@ -946,6 +1168,32 @@ def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
             f"{INT8_AGREE_MIN}) against bf16 cross K/V")
 
 
+def ab_phase(card: str) -> dict:
+    """K11's own path, the A/B tool (tools/torch_profile_encoder_kernel_
+    ab.py: B=64, T=500 and 1500, each form of the division), with every
+    launch count set to 0 just before and read just after; the counts
+    must be K11's three forms x two contexts and nothing else."""
+    import importlib.util
+    from multimodal_audio_search_tpu_torch import runtime
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_encoder_kernel_ab",
+        os.path.join(ROOT, "tools", "torch_profile_encoder_kernel_ab.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    reps = 20
+    runtime.reset_counts()
+    rows = tool.run(reps=reps, emit=lambda line: None)
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    exp = {k: 0 for k in KEYS}
+    # each case: the compared call, the warm-ups and the timed calls
+    exp["K11"] = len(rows) * (1 + tool.WARMUP + reps)
+    for row in rows:
+        phase("ab", card=card, **row)
+    if counts != exp:
+        raise AssertionError(f"A/B path: launches {counts} != {exp}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -973,13 +1221,16 @@ def main() -> int:
     k1, k2 = kernel_phase(card, gen)
     dec = decoder_kernel_phase(card, gen)
     int8k = int8_kernel_phase(card, gen)
+    encv = encoder_variant_phase(card, gen)
     clips = [("long.wav", make_audio(320, rng)),
              ("short.wav", make_audio(25, rng))]
     counts, mems, ref_texts = {}, {}, None
-    for label, profile, fused, int8 in ENGINE_PATHS:
+    for label, profile, fused, int8, enc in ENGINE_PATHS:
+        # v2 and the encoder variants take the 320 s clip only (time)
         c, texts, mems[label] = engine_phase(
-            card, rng, label, profile, fused, int8,
-            clips[:1] if fused == "v2" else clips, ref_texts)
+            card, rng, label, profile, fused, int8, enc,
+            clips[:1] if fused == "v2" or enc is not None else clips,
+            ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
     phase("memory", card=card, **{key: {
@@ -987,12 +1238,15 @@ def main() -> int:
         "share_of_default": {k: m[key] / mems["default"][key]
                              for k, m in mems.items()}}
         for key in mems["default"]})
+    counts["ab"] = ab_phase(card)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",
-               "K5": "int8_fused", "K6": "int8_fused", "K7": "int8"}
+               "K5": "int8_fused", "K6": "int8_fused", "K7": "int8",
+               "K8": "enc_attn", "K9": "enc_int8", "K10": "enc_paired",
+               "K11": "ab"}
     kern = []
-    for key, k in zip(KEYS, (k1, k2, *dec, *int8k)):
+    for key, k in zip(KEYS, (k1, k2, *dec, *int8k, *encv)):
         first = next(c for c in k["cases"] if "ms" in c)
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
@@ -1000,6 +1254,8 @@ def main() -> int:
             "launches": counts[path_of[key]][key],
             "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first.get("library_ms"),
             "shape": first["shape"], "path": path_of[key],
             "cases": k["cases"]})
     print(card, flush=True)

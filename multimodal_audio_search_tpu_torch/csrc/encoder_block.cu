@@ -1,64 +1,284 @@
-// K1: Whisper encoder self-attention over all heads + o-projection +
-// residual, in one kernel:  out = x + (softmax(Q K^T / sqrt(D)) V, heads
-// merged) @ Wo + bo.
+// The bf16 encoder attention kernels, one flash-attention loop shared by:
 //
-// Replaces the Pallas kernel multimodal_audio_search_tpu/ops/encoder_block.py
-// ::fused_attention_o_residual (body _attn_o_kernel, pallas_call at :425).
+// K1  out = x + (softmax(Q K^T / sqrt(D)) V, heads merged) @ Wo + bo.
+//     Replaces multimodal_audio_search_tpu/ops/encoder_block.py::
+//     fused_attention_o_residual (body _attn_o_kernel, pallas_call :425).
+// K8  softmax(Q K^T / sqrt(D)) V per (batch, head), no o-projection.
+//     Replaces multimodal_audio_search_tpu/ops/attention.py::
+//     fused_encoder_attention (body _attn_kernel, pallas_call :83), the
+//     fused_encoder=False path at T >= 512.
+// K10 K1's function over head pairs. Replaces the same wrapper's
+//     pair_heads=True form (body _attn_o_kernel_paired, pallas_call :375).
+// K11 K1 with the softmax division placed three ways. Replaces the A/B
+//     copy tools/profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2
+//     :48, pallas_call :118).
 //
-// What bounds it on an H100: tensor-core work. At the main-path shape
+// What bounds them on an H100: tensor-core work. At the main-path shape
 // (B=32, T=1500, H=8, D=64) attention is ~147 GFLOP and the o-projection
-// ~25 GFLOP, against ~0.15 GB of q/k/v/x/out traffic, far above the
+// ~25 GFLOP, against ~0.15-0.2 GB of q/k/v/x/out traffic, far above the
 // card's ~295 FLOP/byte balance point.
 //
-// Design. The TPU kernel keeps full-T K/V of every head in VMEM; one
+// Design. The TPU kernels keep full-T K/V of every head in VMEM; one
 // head's K alone is 192 KB at T=1500, which does not fit a block's 227 KB
 // of shared memory beside V and a query tile. So the structure is not
 // carried over: this is a flash-attention loop instead.
-//   * One block = 64 query rows of one batch row, 4 warps x 16 rows.
+//   * One block = 64 query rows, 4 warps x 16 rows; K1/K10/K11 take every
+//     head of one batch row, K8 one (batch, head).
 //   * For each head: Q fragments stay in registers; 64-key K/V tiles
 //     stream through shared memory; S = Q K^T and O += P V run on
 //     mma.sync m16n8k16 bf16 tensor-core tiles with f32 accumulation;
 //     the softmax is online (running max and sum in f32, exp2 with
-//     log2(e) folded into the scale) and the 1/l division is deferred to
-//     the [16, 64] output, as the TPU kernel's defer_div form does.
-//     Keys >= T are masked; rows >= T are computed on zero queries and
-//     never stored.
-//   * P is rounded to bf16 before the PV product, as the TPU kernel casts
-//     p to the V dtype.
-//   * Each head's normalised output is rounded to bf16 into a [64, H*D]
-//     shared-memory tile (the TPU kernel's attn.astype(wo.dtype)). After
-//     the last head the same block computes tile @ Wo in 64-column chunks,
-//     streaming 64x64 Wo tiles through shared memory, and writes
-//     x + y + bo in bf16. Fusing the o-projection keeps the merged
-//     attention output out of device memory.
-// Shared memory: 2 x 64x72 bf16 K/V tiles + the 64 x (H*D+8) bf16 tile =
-// 83 KB at base width (H*D=512), above the 48 KB default, so
-// mas_attn_o_residual_init raises the dynamic shared-memory limit once,
-// when the library loads. Rows are padded by 8 bf16 so the fragment
-// reads are free of bank conflicts.
+//     log2(e) folded into the scale). Keys >= T are masked; rows >= T are
+//     computed on zero queries and never stored.
+//   * P is rounded to bf16 before the PV product, as the TPU kernels cast
+//     p to the V dtype. Where the division by the row sum l goes is the
+//     template's Form: RECIP multiplies the [16, 64] output by 1/l (K1,
+//     K10, and K11's "post": the TPU A/B's x 1/l after the head concat,
+//     the same per-element product); DIV divides it by l (K8, as
+//     _attn_kernel's o / l, and K11's True); NORM divides P by l before
+//     the PV product (K11's False, the TPU kernel's default at T=1500),
+//     which needs l first: a first pass over K finds the row max and sum,
+//     a second recomputes S and forms P / l.
+//   * K1/K10/K11 round each head's output to bf16 into a [64, H*D]
+//     shared-memory tile (the TPU kernel's attn.astype(wo.dtype)); after
+//     the last head the same block computes tile @ Wo + bo + x
+//     (encoder_common.cuh), which keeps the merged attention output out of
+//     device memory. K8 writes its head's bf16 output to a [B, T, H, D]
+//     buffer, the merged layout the o-projection reads.
+//   * K10 handles two heads per pass: 32-key tiles of 128 columns (both
+//     heads' 64, 256-byte row slices of the merged q/k/v dense outputs)
+//     and a [16, 2 x 64] output per warp; the two online softmaxes run on
+//     the two halves of each [16, 2 x 32] score tile. The TPU's reason
+//     for pairing -- filling the MXU's 128-deep contraction -- has no
+//     counterpart in mma.sync, which contracts 16 at a time; the
+//     block-diagonal zeros of the TPU wrapper's packing are never formed.
+// Shared memory: 2 x 64x72 bf16 K/V tiles (K10: 2 x 32x136) + the
+// 64 x (H*D+8) bf16 tile = 83 KB at base width (H*D=512), above the 48 KB
+// default, so mas_attn_o_residual_init raises the dynamic shared-memory
+// limit once, when the library loads. Rows are padded by 8 bf16 so the
+// fragment reads are free of bank conflicts.
 // Later work (ROADMAP): cp.async/TMA double buffering, wgmma, ldmatrix.
-#include "common.cuh"
+#include "encoder_common.cuh"
 
 namespace {
 
-constexpr int D = 64;      // head dim of every Whisper preset
-constexpr int BQ = 64;     // query rows per block
-constexpr int BK = 64;     // keys per K/V tile
-constexpr int LDS = D + 8; // padded row stride of the 64-wide tiles
-constexpr int NT = 128;    // 4 warps
+using namespace enc;
 
-// [64 rows x 64 cols] bf16 tile from global (row stride ld elements)
-// into shared memory; rows >= nrows are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
-                                          int nrows) {
-  for (int i = threadIdx.x; i < 64 * 8; i += NT) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) v = *reinterpret_cast<const uint4*>(g + r * ld + c);
-    *reinterpret_cast<uint4*>(s + r * LDS + c) = v;
+enum Form { RECIP = 0, DIV = 1, NORM = 2 };
+
+constexpr int PBK = 32;         // keys per K10 tile
+constexpr int PLD = 2 * D + 8;  // padded row stride of K10's 128-wide tiles
+
+// Q fragments (A operand, 16 rows x 64) of one head for this warp's rows
+// ra and rb = ra + 8; zero past T.
+__device__ __forceinline__ void load_q(uint32_t qa[4][4], const bf16* qh,
+                                       long long st, int T, int ra, int rb,
+                                       int t4) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 16 + t4 * 2;
+    qa[kk][0] = ra < T ? ld32(qh + ra * st + c) : 0u;
+    qa[kk][1] = rb < T ? ld32(qh + rb * st + c) : 0u;
+    qa[kk][2] = ra < T ? ld32(qh + ra * st + c + 8) : 0u;
+    qa[kk][3] = rb < T ? ld32(qh + rb * st + c + 8) : 0u;
   }
 }
 
+// S = Q K^T for the warp's 16 rows x NJ*8 keys of a K tile (row stride
+// ld, this head's columns at sK), scaled to the log2 domain, keys >= T
+// set to -inf.
+template <int NJ>
+__device__ __forceinline__ void scores(float s[NJ][4], const uint32_t qa[4][4],
+                                       const bf16* sK, int ld, int kv0, int T,
+                                       float scale_log2, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const bf16* kr = sK + (j * 8 + g) * ld + t4 * 2;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_16816(s[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int key = kv0 + j * 8 + t4 * 2;
+    const bool v0 = key < T, v1 = key + 1 < T;
+    s[j][0] = v0 ? s[j][0] * scale_log2 : -INFINITY;
+    s[j][1] = v1 ? s[j][1] * scale_log2 : -INFINITY;
+    s[j][2] = v0 ? s[j][2] * scale_log2 : -INFINITY;
+    s[j][3] = v1 ? s[j][3] * scale_log2 : -INFINITY;
+  }
+}
+
+// Row maxima of s (rows g and g + 8), starting from m0/m1, over the quad.
+template <int NJ>
+__device__ __forceinline__ void row_max(const float s[NJ][4], float& mx0,
+                                        float& mx1) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+}
+
+// One online-softmax step: s -> exp2(s - m_new) in place, o rescaled,
+// per-thread partial sums l updated (quad-reduced by the caller at the
+// end). Every tile holds at least one unmasked key, so the new max is
+// finite and exp2(-inf - mx) = 0 rescales the empty first state.
+template <int NJ>
+__device__ __forceinline__ void online_step(float s[NJ][4], float o[8][4],
+                                            float& m0, float& m1, float& l0,
+                                            float& l1) {
+  float mx0 = m0, mx1 = m1;
+  row_max<NJ>(s, mx0, mx1);
+  const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    s[j][0] = exp2f(s[j][0] - m0);
+    s[j][1] = exp2f(s[j][1] - m0);
+    s[j][2] = exp2f(s[j][2] - m1);
+    s[j][3] = exp2f(s[j][3] - m1);
+    rs0 += s[j][0] + s[j][1];
+    rs1 += s[j][2] + s[j][3];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    o[j][0] *= c0;
+    o[j][1] *= c0;
+    o[j][2] *= c1;
+    o[j][3] *= c1;
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+}
+
+// O += P V over NJ*8 keys: the S accumulators are re-read as bf16 A
+// fragments; V from the tile at sV (row stride ld, this head's columns).
+template <int NJ>
+__device__ __forceinline__ void pv(float o[8][4], const float s[NJ][4],
+                                   const bf16* sV, int ld, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const bf16* vr = sV + (kk * 16 + t4 * 2) * ld + g;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bf16* p = vr + j * 8;
+      mma_16816(o[j], pa, pack_raw(p, p + ld), pack_raw(p + 8 * ld, p + 9 * ld));
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One head's attention for the warp's 16 rows (ra, rb), normalised as
+// FORM says; o in the C-fragment layout (rows g / g + 8, cols j*8 + 2t).
+// Every thread of the block calls it (it synchronises around the tiles).
+template <int FORM>
+__device__ __forceinline__ void attend_head(float o[8][4], const bf16* qh,
+                                            const bf16* kh, const bf16* vh,
+                                            long long st, int T, int ra,
+                                            int rb, float scale_log2, bf16* sK,
+                                            bf16* sV) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (T + BK - 1) / BK;
+  uint32_t qa[4][4];
+  load_q(qa, qh, st, T, ra, rb, t4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (FORM == NORM) {  // pass 1: the row max and sum, no PV
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int kv0 = kt * BK;
+      __syncthreads();
+      load_tile(sK, kh + kv0 * st, st, T - kv0);
+      __syncthreads();
+      float s[8][4];
+      scores<8>(s, qa, sK, LDS, kv0, T, scale_log2, g, t4);
+      online_step<8>(s, o, m0, m1, l0, l1);  // o is zero: rescaling is moot
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int kv0 = kt * BK;
+    __syncthreads();  // the previous tile is consumed
+    load_tile(sK, kh + kv0 * st, st, T - kv0);
+    load_tile(sV, vh + kv0 * st, st, T - kv0);
+    __syncthreads();
+    float s[8][4];
+    scores<8>(s, qa, sK, LDS, kv0, T, scale_log2, g, t4);
+    if (FORM == NORM) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = exp2f(s[j][0] - m0) / l0;
+        s[j][1] = exp2f(s[j][1] - m0) / l0;
+        s[j][2] = exp2f(s[j][2] - m1) / l1;
+        s[j][3] = exp2f(s[j][3] - m1) / l1;
+      }
+    } else {
+      online_step<8>(s, o, m0, m1, l0, l1);
+    }
+    pv<8>(o, s, sV, LDS, g, t4);
+  }
+  if (FORM == NORM) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (FORM == DIV) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j][0] /= l0;
+      o[j][1] /= l0;
+      o[j][2] /= l1;
+      o[j][3] /= l1;
+    }
+  } else {
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j][0] *= i0;
+      o[j][1] *= i0;
+      o[j][2] *= i1;
+      o[j][3] *= i1;
+    }
+  }
+}
+
+// The warp's [16, 64] head output, rounded to bf16, into the merged tile
+// at column col0.
+__device__ __forceinline__ void store_head(bf16* sA, int HDP, int col0,
+                                           const float o[8][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + j * 8 + t4 * 2;
+    *reinterpret_cast<uint32_t*>(sA + r * HDP + col) =
+        pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(sA + (r + 8) * HDP + col) =
+        pack_bf16(o[j][2], o[j][3]);
+  }
+}
+
+// K1 (FORM = RECIP) and K11 (all three forms).
+template <int FORM>
 __global__ void __launch_bounds__(NT) attn_o_residual_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, long long sb, long long sh, long long st,
@@ -69,209 +289,222 @@ __global__ void __launch_bounds__(NT) attn_o_residual_kernel(
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + BK * LDS;
   bf16* sA = sV + BK * LDS;  // [BQ][HD + 8]
-  const int HDP = HD + 8;
-
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;  // this warp's first row in the tile
-  const int ra = q0 + r0 + g, rb = ra + 8;
-  const int n_tiles = (T + BK - 1) / BK;
-
+  const int lane = threadIdx.x & 31;
+  const int ra = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2), rb = ra + 8;
   for (int h = 0; h < H; ++h) {
     const long long off = b * sb + h * sh;
-    const bf16* qh = q + off;
-    const bf16* kh = k + off;
-    const bf16* vh = v + off;
-
-    uint32_t qa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = kk * 16 + t4 * 2;
-      qa[kk][0] = ra < T ? ld32(qh + ra * st + c) : 0u;
-      qa[kk][1] = rb < T ? ld32(qh + rb * st + c) : 0u;
-      qa[kk][2] = ra < T ? ld32(qh + ra * st + c + 8) : 0u;
-      qa[kk][3] = rb < T ? ld32(qh + rb * st + c + 8) : 0u;
-    }
-
     float o[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    attend_head<FORM>(o, q + off, k + off, v + off, st, T, ra, rb, scale_log2,
+                      sK, sV);
+    store_head(sA, HD + 8, h * D, o);
+  }
+  o_proj_residual(sA, sK, x, wo, bo, out, b, q0, T, HD);
+}
 
+// K8: one (batch, head) per blockIdx.y; bf16 output into the merged
+// [B, T, H, 64] buffer.
+__global__ void __launch_bounds__(NT) encoder_attention_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, long long sb, long long sh, long long st,
+    bf16* __restrict__ out, int T, int H, float scale_log2) {
+  __shared__ __align__(16) unsigned char smem_raw[2 * BK * LDS * sizeof(bf16)];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * LDS;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ra = q0 + (threadIdx.x >> 5) * 16 + g, rb = ra + 8;
+  const long long off = b * sb + h * sh;
+  float o[8][4];
+  attend_head<DIV>(o, q + off, k + off, v + off, st, T, ra, rb, scale_log2,
+                   sK, sV);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = h * D + j * 8 + t4 * 2;
+    if (ra < T)
+      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + ra) * H * D +
+                                   col) = pack_bf16(o[j][0], o[j][1]);
+    if (rb < T)
+      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + rb) * H * D +
+                                   col) = pack_bf16(o[j][2], o[j][3]);
+  }
+}
+
+// [32 keys x 128 cols] bf16 tile: cols 0..63 from g0 (head 2p), 64..127
+// from g1 (head 2p+1), both with row stride ld; rows >= nrows zero-filled.
+__device__ __forceinline__ void load_pair_tile(bf16* s, const bf16* g0,
+                                               const bf16* g1, long long ld,
+                                               int nrows) {
+  for (int i = threadIdx.x; i < PBK * 16; i += NT) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nrows)
+      v = *reinterpret_cast<const uint4*>((c < D ? g0 : g1) + r * ld +
+                                          (c & (D - 1)));
+    *reinterpret_cast<uint4*>(s + r * PLD + c) = v;
+  }
+}
+
+// K10: heads 2p and 2p+1 per pass, K1's roundings (RECIP).
+__global__ void __launch_bounds__(NT) attn_o_residual_paired_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, long long sb, long long sh, long long st,
+    const bf16* __restrict__ x, const bf16* __restrict__ wo,
+    const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
+    int HD, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [PBK][PLD]
+  bf16* sV = sK + PBK * PLD;                     // [PBK][PLD]
+  bf16* sA = sV + PBK * PLD;                     // [BQ][HD + 8]
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ra = q0 + (threadIdx.x >> 5) * 16 + g, rb = ra + 8;
+  const int n_tiles = (T + PBK - 1) / PBK;
+  for (int p = 0; p < H / 2; ++p) {
+    const long long off0 = b * sb + (2 * p) * sh, off1 = off0 + sh;
+    uint32_t qa[2][4][4];
+    load_q(qa[0], q + off0, st, T, ra, rb, t4);
+    load_q(qa[1], q + off1, st, T, ra, rb, t4);
+    float o[2][8][4];
+    float m[2][2], l[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[e][j][0] = o[e][j][1] = o[e][j][2] = o[e][j][3] = 0.f;
+      m[e][0] = m[e][1] = -INFINITY;
+      l[e][0] = l[e][1] = 0.f;
+    }
     for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv0 = kt * BK;
-      __syncthreads();  // the previous tile is consumed
-      load_tile(sK, kh + kv0 * st, st, T - kv0);
-      load_tile(sV, vh + kv0 * st, st, T - kv0);
+      const int kv0 = kt * PBK;
       __syncthreads();
-
-      // S = Q K^T for this warp's 16 rows x 64 keys
-      float s[8][4];
+      load_pair_tile(sK, k + off0 + kv0 * st, k + off1 + kv0 * st, st,
+                     T - kv0);
+      load_pair_tile(sV, v + off0 + kv0 * st, v + off1 + kv0 * st, st,
+                     T - kv0);
+      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        const bf16* kr = sK + (j * 8 + g) * LDS + t4 * 2;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          mma_16816(s[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-      }
-      // scale (log2 domain) + key mask + running max
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int key = kv0 + j * 8 + t4 * 2;
-        const bool v0 = key < T, v1 = key + 1 < T;
-        s[j][0] = v0 ? s[j][0] * scale_log2 : -INFINITY;
-        s[j][1] = v1 ? s[j][1] * scale_log2 : -INFINITY;
-        s[j][2] = v0 ? s[j][2] * scale_log2 : -INFINITY;
-        s[j][3] = v1 ? s[j][3] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // every tile holds at least one unmasked key, so mx is finite and
-      // exp2(-inf - mx) = 0 rescales the empty first state
-      const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][0] = exp2f(s[j][0] - m0);
-        s[j][1] = exp2f(s[j][1] - m0);
-        s[j][2] = exp2f(s[j][2] - m1);
-        s[j][3] = exp2f(s[j][3] - m1);
-        rs0 += s[j][0] + s[j][1];
-        rs1 += s[j][2] + s[j][3];
-        o[j][0] *= c0;
-        o[j][1] *= c0;
-        o[j][2] *= c1;
-        o[j][3] *= c1;
-      }
-      l0 = l0 * c0 + rs0;  // per-thread partial sums, quad-reduced below
-      l1 = l1 * c1 + rs1;
-
-      // O += P V: the S accumulators are re-read as A fragments
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const bf16* vr = sV + (kk * 16 + t4 * 2) * LDS + g;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bf16* p = vr + j * 8;
-          mma_16816(o[j], pa, pack_raw(p, p + LDS),
-                    pack_raw(p + 8 * LDS, p + 9 * LDS));
-        }
+      for (int e = 0; e < 2; ++e) {  // the two halves of the score tile
+        float s[4][4];
+        scores<4>(s, qa[e], sK + e * D, PLD, kv0, T, scale_log2, g, t4);
+        online_step<4>(s, o[e], m[e][0], m[e][1], l[e][0], l[e][1]);
+        pv<4>(o[e], s, sV + e * D, PLD, g, t4);
       }
     }
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float i0 = 1.f / l0, i1 = 1.f / l1;
-    // head output, normalised and rounded to bf16, into the merged tile
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = h * D + j * 8 + t4 * 2;
-      *reinterpret_cast<uint32_t*>(sA + (r0 + g) * HDP + col) =
-          pack_bf16(o[j][0] * i0, o[j][1] * i0);
-      *reinterpret_cast<uint32_t*>(sA + (r0 + g + 8) * HDP + col) =
-          pack_bf16(o[j][2] * i1, o[j][3] * i1);
+    for (int e = 0; e < 2; ++e) {
+      const float i0 = 1.f / quad_sum(l[e][0]), i1 = 1.f / quad_sum(l[e][1]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[e][j][0] *= i0;
+        o[e][j][1] *= i0;
+        o[e][j][2] *= i1;
+        o[e][j][3] *= i1;
+      }
+      store_head(sA, HD + 8, (2 * p + e) * D, o[e]);
     }
   }
+  // the 32x136 K and V tiles together hold the 64x72 Wo tile
+  o_proj_residual(sA, sK, x, wo, bo, out, b, q0, T, HD);
+}
 
-  // epilogue: out = x + attn @ Wo + bo, 64 output columns at a time;
-  // Wo is [HD (in), HD (out)] row-major, streamed in 64x64 tiles
-  const int n_chunks = HD / 64;
-  for (int nc = 0; nc < n_chunks; ++nc) {
-    float y[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
-    for (int kc = 0; kc < n_chunks; ++kc) {
-      __syncthreads();
-      load_tile(sK, wo + (long long)kc * 64 * HD + nc * 64, HD, 64);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const bf16* ar = sA + (r0 + g) * HDP + kc * 64 + kk * 16 + t4 * 2;
-        uint32_t a[4];
-        a[0] = ld32(ar);
-        a[1] = ld32(ar + 8 * HDP);
-        a[2] = ld32(ar + 8);
-        a[3] = ld32(ar + 8 * HDP + 8);
-        const bf16* wr = sK + (kk * 16 + t4 * 2) * LDS + g;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bf16* p = wr + j * 8;
-          mma_16816(y[j], a, pack_raw(p, p + LDS),
-                    pack_raw(p + 8 * LDS, p + 9 * LDS));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = nc * 64 + j * 8 + t4 * 2;
-      const float2 bv = unpack_bf16(ld32(bo + col));
-      if (ra < T) {
-        const long long i = ((long long)b * T + ra) * HD + col;
-        const float2 xv = unpack_bf16(ld32(x + i));
-        *reinterpret_cast<uint32_t*>(out + i) =
-            pack_bf16(xv.x + y[j][0] + bv.x, xv.y + y[j][1] + bv.y);
-      }
-      if (rb < T) {
-        const long long i = ((long long)b * T + rb) * HD + col;
-        const float2 xv = unpack_bf16(ld32(x + i));
-        *reinterpret_cast<uint32_t*>(out + i) =
-            pack_bf16(xv.x + y[j][2] + bv.x, xv.y + y[j][3] + bv.y);
-      }
-    }
-  }
+template <int FORM>
+int launch_attn_o(const void* q, const void* k, const void* v, long long sb,
+                  long long sh, long long st, const void* x, const void* wo,
+                  const void* bo, void* out, int B, int H, int T, int HD,
+                  float scale_log2, void* stream) {
+  const int smem = (2 * BK * LDS + BQ * (HD + 8)) * (int)sizeof(bf16);
+  dim3 grid((T + BQ - 1) / BQ, B);
+  attn_o_residual_kernel<FORM><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st,
+      (const bf16*)x, (const bf16*)wo, (const bf16*)bo, (bf16*)out, T, H, HD,
+      scale_log2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Raises the kernel's dynamic shared-memory limit to the current card's
+// Raises the kernels' dynamic shared-memory limit to the current card's
 // opt-in maximum per block. Called once, when the library is loaded.
 extern "C" int mas_attn_o_residual_init(void) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_o_residual_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+  cudaError_t e = allow_max_smem(attn_o_residual_kernel<RECIP>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_kernel<DIV>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_kernel<NORM>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_paired_kernel);
   return (int)e;
 }
 
-// q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with unit
-// stride on the last dim; x/out: [B, T, HD] contiguous bf16; wo: [HD, HD]
-// row-major bf16 ([in, out]); bo: [HD] bf16. HD = H * 64, a multiple of 64.
-// Returns cudaGetLastError() after the launch; a width whose shared
-// memory exceeds the card's per-block limit fails the launch.
+// K1. q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with
+// unit stride on the last dim; x/out: [B, T, HD] contiguous bf16; wo:
+// [HD, HD] row-major bf16 ([in, out]); bo: [HD] bf16. HD = H * 64, a
+// multiple of 64. Returns cudaGetLastError() after the launch; a width
+// whose shared memory exceeds the card's per-block limit fails the launch.
 extern "C" int mas_attn_o_residual(const void* q, const void* k,
                                    const void* v, long long sb, long long sh,
                                    long long st, const void* x,
                                    const void* wo, const void* bo, void* out,
                                    int B, int H, int T, int HD,
                                    float scale_log2, void* stream) {
-  const int smem = (2 * BK * LDS + BQ * (HD + 8)) * (int)sizeof(bf16);
+  return launch_attn_o<RECIP>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                              HD, scale_log2, stream);
+}
+
+// K11: K1's arguments plus the form of the softmax division: 0 = x 1/l
+// after PV ("post"), 1 = / l after PV (True), 2 = P / l before PV (False).
+extern "C" int mas_attn_o_residual_ab(const void* q, const void* k,
+                                      const void* v, long long sb,
+                                      long long sh, long long st,
+                                      const void* x, const void* wo,
+                                      const void* bo, void* out, int B, int H,
+                                      int T, int HD, float scale_log2,
+                                      int form, void* stream) {
+  switch (form) {
+    case RECIP:
+      return launch_attn_o<RECIP>(q, k, v, sb, sh, st, x, wo, bo, out, B, H,
+                                  T, HD, scale_log2, stream);
+    case DIV:
+      return launch_attn_o<DIV>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                                HD, scale_log2, stream);
+    case NORM:
+      return launch_attn_o<NORM>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                                 HD, scale_log2, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K10: K1's arguments; H even.
+extern "C" int mas_attn_o_residual_paired(const void* q, const void* k,
+                                          const void* v, long long sb,
+                                          long long sh, long long st,
+                                          const void* x, const void* wo,
+                                          const void* bo, void* out, int B,
+                                          int H, int T, int HD,
+                                          float scale_log2, void* stream) {
+  const int smem = (2 * PBK * PLD + BQ * (HD + 8)) * (int)sizeof(bf16);
   dim3 grid((T + BQ - 1) / BQ, B);
-  attn_o_residual_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+  attn_o_residual_paired_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st,
       (const bf16*)x, (const bf16*)wo, (const bf16*)bo, (bf16*)out, T, H, HD,
       scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// K8. q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with
+// unit stride on the last dim; out: [B, T, H, 64] contiguous bf16.
+extern "C" int mas_encoder_attention(const void* q, const void* k,
+                                     const void* v, long long sb,
+                                     long long sh, long long st, void* out,
+                                     int B, int H, int T, float scale_log2,
+                                     void* stream) {
+  dim3 grid((T + BQ - 1) / BQ, B * H);
+  encoder_attention_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st, (bf16*)out,
+      T, H, scale_log2);
   return (int)cudaGetLastError();
 }

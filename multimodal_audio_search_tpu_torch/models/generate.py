@@ -97,19 +97,22 @@ def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
 
 
 def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
-    """Raise on decode options this port does not run yet, and on
-    ``fused_layer`` over a ``quantized`` (int8) decoder, which the JAX
-    package cannot run either (models/whisper.py, module docstring)."""
+    """Raise on decode options this port does not run yet, on an unknown
+    ``fused_encoder``, and on ``fused_layer`` over a ``quantized`` (int8)
+    decoder, which the JAX package cannot run either (models/whisper.py,
+    module docstring)."""
     if decode.method != "greedy":
         raise NotImplementedError(
             f"method={decode.method!r} is not ported; greedy only "
             f"(ROADMAP A4)")
     if decode.scan_layers:
         raise NotImplementedError("scan_layers is not ported (ROADMAP)")
-    if decode.fused_encoder not in (None, True, False):
+    fe = decode.fused_encoder
+    if not (fe is None or fe is True or fe is False or fe in ("int8",
+                                                              "paired")):
         raise NotImplementedError(
-            f"fused_encoder={decode.fused_encoder!r} is not ported "
-            f"(ROADMAP B1 variants)")
+            f"fused_encoder={fe!r}: the JAX package knows None, True, "
+            f"False, 'int8' and 'paired'")
     if quantized and decode.fused_layer:
         raise NotImplementedError(
             f"fused_layer={decode.fused_layer!r} with quantize_decoder: "

@@ -5,10 +5,12 @@ architecture (HF WhisperForConditionalGeneration parity), the same param
 keys and layouts, the same presets. What the port keeps of the JAX
 package's paths:
 
-  * ``encode``: the fused-block form (K1 for self-attention + o-proj +
-    residual, ops/encoder_block.py) and the plain form (``mha``); the conv
-    stem as shifted-slice patches + ONE matmul, not ``F.conv1d``, which
-    would route through cuDNN's TF32 default on the card.
+  * ``encode``: the fused-block forms (K1 for self-attention + o-proj +
+    residual, K9 with int8 dots, K10 over head pairs; ops/encoder_block.py),
+    the per-head fused attention (K8, ops/attention.py) and the plain form
+    (``mha``); the conv stem as shifted-slice patches + ONE matmul, not
+    ``F.conv1d``, which would route through cuDNN's TF32 default on the
+    card.
   * decoding: merged-head cross K/V [B, T, H*D] and a merged-head self
     cache [B, L, H*D]; K2 (ops/cross_attention.py) serves both attentions
     of a step. The [B, H, T, D] einsum format stays for
@@ -175,30 +177,57 @@ def _conv1d(p, x: torch.Tensor, stride: int) -> torch.Tensor:
     return L.dense({"w": w, "b": p["b"]}, patches)
 
 
+def use_fused_attention(t: int, device: torch.device) -> bool:
+    """The JAX package's dispatch rule for the per-head encoder attention
+    kernel (its ``use_pallas_attention``, "real TPU and T >= 512"), on the
+    card: K8 for a CUDA tensor at T >= 512."""
+    return device.type == "cuda" and t >= 512
+
+
 def encode(params, mel: torch.Tensor, cfg: WhisperConfig,
-           fused_blocks: bool = True) -> torch.Tensor:
+           fused_attention: bool | None = None,
+           fused_blocks: bool | str = False) -> torch.Tensor:
     """[B, n_mels, frames] log-mel -> [B, frames/2, d] encoder states.
 
-    ``fused_blocks`` routes self-attention + o-proj + residual through
-    K1 (ops/encoder_block.py; the plain twin on CPU tensors). False runs
-    the plain ``mha`` path, as the JAX package's fused_encoder=False."""
+    Dispatch as the JAX function's (CPU tensors take each kernel's plain
+    twin):
+      * ``fused_blocks`` True: self-attention + o-proj + residual through
+        K1 (ops/encoder_block.py); "int8" through K9 (int8 dots; it
+        outranks "paired"); "paired" through K10, or K1 for an odd head
+        count.
+      * otherwise ``fused_attention`` routes self-attention through K8
+        (ops/attention.py) and a plain o-projection; None means
+        ``use_fused_attention`` (a CUDA tensor at T >= 512). False runs
+        the plain ``mha`` path.
+    The JAX function's TPU-only VMEM gates (the float32 / T > 1024 reroute
+    and the 13 MiB "paired" gate) are left behind (ROADMAP)."""
+    from ..ops.attention import fused_encoder_attention
     from ..ops.encoder_block import fused_attention_o_residual
     enc = params["encoder"]
     x = mel.transpose(1, 2)                           # [B, T, n_mels]
     x = L.gelu(_conv1d(enc["conv1"], x, 1))
     x = L.gelu(_conv1d(enc["conv2"], x, 2))           # [B, T/2, d]
     x = x + enc["positions"][: x.shape[1]][None].to(x.dtype)
+    if fused_attention is None:
+        fused_attention = bool(fused_blocks) or use_fused_attention(
+            x.shape[1], x.device)
+    qk_int8 = fused_blocks == "int8"
+    pair = fused_blocks == "paired" and cfg.heads % 2 == 0
     for blk in enc["blocks"]:
         h = L.layer_norm(blk["self_ln"], x, cfg.ln_eps)
+        a = blk["self_attn"]
+        if fused_blocks or fused_attention:
+            q, k, v = (L.split_heads(L.dense(a[n], h), cfg.heads)
+                       for n in ("q", "k", "v"))
         if fused_blocks:
-            a = blk["self_attn"]
-            q = L.split_heads(L.dense(a["q"], h), cfg.heads)
-            k = L.split_heads(L.dense(a["k"], h), cfg.heads)
-            v = L.split_heads(L.dense(a["v"], h), cfg.heads)
             x = fused_attention_o_residual(
-                q, k, v, x, a["o"]["w"], a["o"]["b"])
+                q, k, v, x, a["o"]["w"], a["o"]["b"], pair_heads=pair,
+                qk_int8=qk_int8)
+        elif fused_attention:
+            attn = L.merge_heads(fused_encoder_attention(q, k, v))
+            x = x + L.dense(a["o"], attn)
         else:
-            x = x + L.mha(blk["self_attn"], h, h, cfg.heads)
+            x = x + L.mha(a, h, h, cfg.heads)
         h = L.layer_norm(blk["mlp_ln"], x, cfg.ln_eps)
         x = x + L.dense(blk["mlp_out"], L.gelu(L.dense(blk["mlp_in"], h)))
     return L.layer_norm(enc["ln"], x, cfg.ln_eps)

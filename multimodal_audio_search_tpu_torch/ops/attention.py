@@ -1,0 +1,76 @@
+"""Per-(batch, head) encoder self-attention without the o-projection (K8).
+
+Counterpart of ``multimodal_audio_search_tpu/ops/attention.py::
+fused_encoder_attention`` (B9), which the JAX encoder runs on a TPU for
+``fused_encoder=False`` at T >= 512; the o-projection after it stays a
+plain matmul, as JAX leaves it to XLA. On a CUDA tensor the wrapper
+launches ``csrc/encoder_block.cu``'s ``encoder_attention_kernel``; on a
+CPU tensor it runs ``encoder_attention_plain``, the same math in plain
+PyTorch. There is no other route: a launch that fails raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import runtime
+
+
+def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """softmax(QK^T/sqrt(D)) V for [B, H, T, D] inputs, non-causal, with
+    the TPU kernel's roundings: f32 scores, p = exp(s - max) unnormalised
+    and cast to V's dtype before the PV product, /l on the [T, D] output,
+    the result in q's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (o / l).to(q.dtype)
+
+
+def _launch(q, k, v) -> torch.Tensor:
+    b, h, t, d = q.shape
+    if d != 64:
+        raise ValueError(f"K8 takes head dim 64, got {d}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.dtype != torch.bfloat16:
+            raise TypeError(f"K8 takes bf16 tensors; {name} is {a.dtype}")
+        if a.device != q.device or tuple(a.shape) != (b, h, t, d):
+            raise ValueError(f"K8: {name} {tuple(a.shape)} on {a.device}, "
+                             f"q {tuple(q.shape)} on {q.device}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"K8: {name} is not 16-byte aligned")
+    if q.stride() != k.stride() or q.stride() != v.stride():
+        raise ValueError("K8 takes q, k, v views with equal strides")
+    sb, sh, st, sd = q.stride()
+    if sd != 1 or sb % 8 or sh % 8 or st % 8:
+        raise ValueError(
+            f"K8 needs a unit last stride and 16-byte aligned rows; "
+            f"strides {q.stride()}")
+    # the merged [B, T, H, D] layout the o-projection reads; returned as
+    # the [B, H, T, D] view, so merge_heads after it copies nothing
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = runtime.kernels()
+    rc = lib.mas_encoder_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st, out.data_ptr(),
+        b, h, t, math.log2(math.e) / math.sqrt(d),
+        runtime.stream_handle(q.device))
+    runtime.check_launch(rc, "mas_encoder_attention")
+    runtime.bump("encoder_attention")
+    return out.transpose(1, 2)
+
+
+def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """softmax(QK^T/sqrt(D))V for [B, H, T, D] inputs, non-causal; returns
+    [B, H, T, D] in q's dtype. CUDA tensors (bf16, head dim 64, any strides
+    with a unit last one, e.g. the head-split views of the q/k/v dense
+    outputs) launch K8, CPU tensors take the plain version."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v)
+    if q.device.type == "cpu":
+        return encoder_attention_plain(q, k, v)
+    raise ValueError(f"unsupported device {q.device}")

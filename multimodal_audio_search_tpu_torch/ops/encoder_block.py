@@ -1,13 +1,16 @@
-"""Encoder attention over all heads + o-projection + residual (K1).
+"""Encoder attention over all heads + o-projection + residual: K1 and its
+variants K9 (int8 dots), K10 (head pairs) and K11 (the division A/B).
 
 Counterpart of ``multimodal_audio_search_tpu/ops/encoder_block.py::
-fused_attention_o_residual`` (its default bf16 body). On a CUDA tensor
-the wrapper launches the hand-written kernel ``csrc/encoder_block.cu``;
-on a CPU tensor it runs ``attention_o_residual_plain``, the same math in
-plain PyTorch. There is no other route: a launch that fails raises.
-
-The int8 and head-paired variants of the TPU kernel
-(``fused_encoder="int8"`` / ``"paired"``) are not ported (ROADMAP B1).
+fused_attention_o_residual``: its default bf16 body (K1), its
+``qk_int8=True`` body (K9, ``fused_encoder="int8"``) and its
+``pair_heads=True`` body (K10, ``fused_encoder="paired"``); and of the A/B
+copy ``tools/profile_encoder_kernel_ab.py::fused_v2`` (K11), which places
+the softmax division three ways. On a CUDA tensor each wrapper launches
+its hand-written kernel (``csrc/encoder_block.cu``,
+``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
+PyTorch version beside it, the same math. There is no other route: a
+launch that fails raises.
 """
 from __future__ import annotations
 
@@ -16,6 +19,17 @@ import math
 import torch
 
 from .. import runtime
+from .cached_attention import div_exact, quantize_kv
+
+
+def _merge_o_residual(attn, x, wo, bo):
+    """x + attn @ Wo + bo from the [B, H, T, D] float32 attention output:
+    merged and rounded to Wo's dtype before the o-projection, the sum to
+    x's dtype, as the TPU kernels round."""
+    b, h, t, d = attn.shape
+    a = attn.transpose(1, 2).reshape(b, t, h * d).to(wo.dtype)
+    y = torch.matmul(a.float(), wo.float()) + bo.float()
+    return (x.float() + y).to(x.dtype)
 
 
 def attention_o_residual_plain(
@@ -27,73 +41,271 @@ def attention_o_residual_plain(
     PyTorch: f32 scores, softmax and products on the given inputs; the
     merged attention output is rounded to Wo's dtype before the
     o-projection and the sum to x's dtype, as the TPU kernel rounds."""
-    b, h, t, d = q.shape
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
     p = torch.softmax(s, dim=-1)
-    o = torch.matmul(p, v.float())                        # [B, H, T, D]
-    attn = o.transpose(1, 2).reshape(b, t, h * d).to(wo.dtype)
-    y = torch.matmul(attn.float(), wo.float()) + bo.float()
-    return (x.float() + y).to(x.dtype)
+    return _merge_o_residual(torch.matmul(p, v.float()), x, wo, bo)
 
 
-def _launch(q, k, v, x, wo, bo) -> torch.Tensor:
+def attention_o_residual_paired_plain(q, k, v, x, wo, bo) -> torch.Tensor:
+    """K10's function as the TPU kernel forms it: heads 2p and 2p+1 packed
+    into one [T, 2D] query, block-diagonal [2D, 2T] keys and [2T, 2D]
+    values, one [T, 2T] score tile whose two halves take their own
+    softmax (f32 throughout, as attention_o_residual_plain). H even."""
+    b, h, t, d = q.shape
+    qp = torch.cat([q[:, 0::2], q[:, 1::2]], dim=-1).float()  # [B,P,T,2D]
+    ke, ko = k[:, 0::2].float(), k[:, 1::2].float()             # [B,P,T,D]
+    z = torch.zeros_like(ke)
+    kb = torch.cat([torch.cat([ke, z], dim=-1),
+                    torch.cat([z, ko], dim=-1)], dim=-2)         # [B,P,2T,2D]
+    vb = torch.cat([torch.cat([v[:, 0::2].float(), z], dim=-1),
+                    torch.cat([z, v[:, 1::2].float()], dim=-1)], dim=-2)
+    s2 = torch.matmul(qp, kb.transpose(-1, -2)) / math.sqrt(d)  # [B,P,T,2T]
+    p2 = torch.cat([torch.softmax(s2[..., :t], dim=-1),
+                    torch.softmax(s2[..., t:], dim=-1)], dim=-1)
+    o2 = torch.matmul(p2, vb)                                    # [B,P,T,2D]
+    attn = torch.stack([o2[..., :d], o2[..., d:]], dim=2)        # [B,P,2,T,D]
+    return _merge_o_residual(attn.reshape(b, h, t, d), x, wo, bo)
+
+
+# K11's forms of the softmax division (TPU A/B tool: defer_div), by the
+# code the kernel takes
+AB_FORMS = {"post": 0, True: 1, False: 2}
+
+
+def _check_form(defer_div) -> None:
+    # by identity: 0 and 1 would otherwise pass as False and True
+    if not (defer_div is False or defer_div is True or defer_div == "post"):
+        raise ValueError(f"defer_div must be False, True or 'post'; got "
+                         f"{defer_div!r}")
+
+
+def attention_o_residual_ab_plain(q, k, v, x, wo, bo,
+                                  defer_div: bool | str) -> torch.Tensor:
+    """K11's function for one ``defer_div`` form, with the TPU A/B
+    kernel's roundings: f32 scores and p = exp(s - max); False divides p
+    by its row sum l, rounds it to V's dtype and multiplies by V; True
+    rounds the unnormalised p, multiplies by V and divides the [T, D]
+    output by l; "post" multiplies that output by 1/l."""
+    _check_form(defer_div)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if defer_div is False:
+        o = torch.matmul((p / l).to(v.dtype).float(), v.float())
+    else:
+        o = torch.matmul(p.to(v.dtype).float(), v.float())
+        o = o / l if defer_div is True else o * (1.0 / l)
+    return _merge_o_residual(o, x, wo, bo)
+
+
+def _quantize_rows_exact(xf: torch.Tensor, floor: float):
+    """(codes, scales) of float32 rows as the TPU kernel quantizes them:
+    s = max(max |x|, floor) / 127 and codes = clip(round(x / s)), with
+    true divisions; codes as float32 integers."""
+    s = div_exact(xf.abs().amax(dim=-1, keepdim=True).clamp_min(floor),
+                  127.0)
+    return torch.round(xf / s).clamp_(-127, 127), s
+
+
+def _int8_attention_heads(q, k8, ks, v8, vs) -> torch.Tensor:
+    """K9's attention for [B, H, T, D] q and quantized K/V, one head at a
+    time: [B, H, T, D] float32. Integer dots in float64 (exact: a PV sum
+    reaches T * 127^2 > 2^24, which float32 would round), everything else
+    in float32 in the TPU kernel's order."""
+    d = q.shape[-1]
+    outs = []
+    for h in range(q.shape[1]):
+        qf = q[:, h].float() * (1.0 / math.sqrt(d))
+        q8, qs = _quantize_rows_exact(qf, 1e-12)
+        s = torch.matmul(q8.double(), k8[:, h].double().transpose(-1, -2))
+        s = s.float() * qs * ks[:, h, None, :].float()
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+        pw = p * vs[:, h, None, :].float()
+        p8, ps = _quantize_rows_exact(pw, 1e-30)
+        pv = torch.matmul(p8.double(), v8[:, h].double()).float()
+        outs.append(pv * ps)
+    return torch.stack(outs, dim=1)
+
+
+def int8_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Counterpart of the JAX ``int8_attention_xla``: [B, H, T, D] q/k/v ->
+    [B, H, T, D] float32 attention with K9's quantization (K/V per
+    position by quantize_kv, q and the softmax rows per row)."""
+    return _int8_attention_heads(q, *quantize_kv(k, v))
+
+
+def attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo,
+                                    bo) -> torch.Tensor:
+    """K9 in plain PyTorch, on K9's own inputs: q [B, H, T, D], k8/v8
+    [B, H, T, D] int8 and ks/vs [B, H, T] float32 from quantize_kv, x, Wo,
+    bo as K1 takes them."""
+    return _merge_o_residual(_int8_attention_heads(q, k8, ks, v8, vs), x, wo,
+                             bo)
+
+
+def _check_widths(name, q, x, wo, bo):
+    """Head dim 64 and a square o-projection, as every kernel here takes."""
     b, h, t, d = q.shape
     hd = x.shape[-1]
     if d != 64:
-        raise ValueError(f"K1 takes head dim 64, got {d}")
+        raise ValueError(f"{name} takes head dim 64, got {d}")
     if h * d != hd or tuple(wo.shape) != (hd, hd) or \
             tuple(bo.shape) != (hd,):
         raise ValueError(
-            f"K1 takes a square o-projection: q {tuple(q.shape)}, "
+            f"{name} takes a square o-projection: q {tuple(q.shape)}, "
             f"x {tuple(x.shape)}, wo {tuple(wo.shape)}, bo {tuple(bo.shape)}")
-    if hd % 64:
-        raise ValueError(f"K1 takes H*D a multiple of 64, got {hd}")
-    for name, a in (("q", q), ("k", k), ("v", v), ("x", x), ("wo", wo),
-                    ("bo", bo)):
+
+
+def _check_block_args(name, q, k, v, x, wo, bo):
+    """The argument checks K1, K10 and K11 share; returns q's strides."""
+    _check_widths(name, q, x, wo, bo)
+    for n, a in (("q", q), ("k", k), ("v", v), ("x", x), ("wo", wo),
+                 ("bo", bo)):
         if a.dtype != torch.bfloat16:
-            raise TypeError(f"K1 takes bf16 tensors; {name} is {a.dtype}")
+            raise TypeError(f"{name} takes bf16 tensors; {n} is {a.dtype}")
         if a.device != x.device:
-            raise ValueError(f"K1: {name} on {a.device}, x on {x.device}")
+            raise ValueError(f"{name}: {n} on {a.device}, x on {x.device}")
     if q.stride() != k.stride() or q.stride() != v.stride():
-        raise ValueError("K1 takes q, k, v views with equal strides")
+        raise ValueError(f"{name} takes q, k, v views with equal strides")
+    _check_q_strides(name, q)
+    for n, a in (("x", x), ("wo", wo), ("bo", bo)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} takes a contiguous {n}")
+    # the kernels read q/k/v/wo rows with 16-byte loads, x and bo with
+    # 4-byte loads
+    for n, a, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
+                        ("wo", wo, 16), ("x", x, 4), ("bo", bo, 4)):
+        if a.data_ptr() % align:
+            raise ValueError(f"{name}: {n} is not {align}-byte aligned")
+    return q.stride()[:3]
+
+
+def _check_q_strides(name, q):
     sb, sh, st, sd = q.stride()
     if sd != 1 or sb % 8 or sh % 8 or st % 8:
         raise ValueError(
-            f"K1 needs a unit last stride and 16-byte aligned rows; "
+            f"{name} needs a unit last stride and 16-byte aligned rows; "
             f"strides {q.stride()}")
-    for name, a in (("x", x), ("wo", wo), ("bo", bo)):
-        if not a.is_contiguous():
-            raise ValueError(f"K1 takes a contiguous {name}")
-    # the kernel reads q/k/v/wo rows with 16-byte loads, x and bo with
-    # 4-byte loads
-    for name, a, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
-                           ("wo", wo, 16), ("x", x, 4), ("bo", bo, 4)):
-        if a.data_ptr() % align:
-            raise ValueError(f"K1: {name} is not {align}-byte aligned")
+
+
+def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None):
+    """K1, or K10 (pair_heads), or K11 (form, a key of AB_FORMS)."""
+    name = "K10" if pair_heads else "K11" if form is not None else "K1"
+    sb, sh, st = _check_block_args(name, q, k, v, x, wo, bo)
+    b, h, t, d = q.shape
+    if pair_heads and h % 2:
+        raise ValueError(f"K10 pairs heads; H={h} is odd")
     out = torch.empty_like(x)
     lib = runtime.kernels()
-    rc = lib.mas_attn_o_residual(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
-        x.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
-        b, h, t, hd, math.log2(math.e) / math.sqrt(d),
-        runtime.stream_handle(x.device))
-    runtime.check_launch(rc, "mas_attn_o_residual")
-    runtime.bump("encoder_attn_o_residual")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
+            x.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
+            b, h, t, x.shape[-1], math.log2(math.e) / math.sqrt(d))
+    stream = runtime.stream_handle(x.device)
+    if pair_heads:
+        rc, fn, key = lib.mas_attn_o_residual_paired(*args, stream), \
+            "mas_attn_o_residual_paired", "encoder_attn_o_residual_paired"
+    elif form is not None:
+        rc, fn, key = lib.mas_attn_o_residual_ab(*args, AB_FORMS[form],
+                                                 stream), \
+            "mas_attn_o_residual_ab", "encoder_attn_o_residual_ab"
+    else:
+        rc, fn, key = lib.mas_attn_o_residual(*args, stream), \
+            "mas_attn_o_residual", "encoder_attn_o_residual"
+    runtime.check_launch(rc, fn)
+    runtime.bump(key)
     return out
+
+
+def _launch_int8(q, k8, ks, v8, vs, x, wo, bo):
+    _check_widths("K9", q, x, wo, bo)
+    b, h, t, d = q.shape
+    hd = x.shape[-1]
+    for n, a, dt, shape in (
+            ("q", q, torch.bfloat16, (b, h, t, d)),
+            ("k8", k8, torch.int8, (b, h, t, d)),
+            ("ks", ks, torch.float32, (b, h, t)),
+            ("v8", v8, torch.int8, (b, h, t, d)),
+            ("vs", vs, torch.float32, (b, h, t)),
+            ("x", x, torch.bfloat16, (b, t, hd)),
+            ("wo", wo, torch.bfloat16, (hd, hd)),
+            ("bo", bo, torch.bfloat16, (hd,))):
+        if a.dtype != dt:
+            raise TypeError(f"K9 takes {dt} {n}; got {a.dtype}")
+        if a.device != x.device or tuple(a.shape) != shape:
+            raise ValueError(f"K9: {n} {tuple(a.shape)} on {a.device}; "
+                             f"expected {shape} on {x.device}")
+        if n != "q" and (not a.is_contiguous() or a.data_ptr() % 16):
+            raise ValueError(f"K9 takes a contiguous 16-byte aligned {n}")
+    _check_q_strides("K9", q)
+    if q.data_ptr() % 16:
+        raise ValueError("K9: q is not 16-byte aligned")
+    sb, sh, st = q.stride()[:3]
+    out = torch.empty_like(x)
+    lib = runtime.kernels()
+    rc = lib.mas_attn_o_residual_int8(
+        q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
+        v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
+        bo.data_ptr(), out.data_ptr(), b, h, t, hd, 1.0 / math.sqrt(d),
+        runtime.stream_handle(x.device))
+    runtime.check_launch(rc, "mas_attn_o_residual_int8")
+    runtime.bump("encoder_attn_o_residual_int8")
+    return out
+
+
+def _device(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
 
 
 def fused_attention_o_residual(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     x: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+    pair_heads: bool = False, qk_int8: bool = False,
 ) -> torch.Tensor:
     """x + (softmax(QK^T/sqrt(D)) V merged over heads) @ Wo + bo.
 
     Non-causal; f32 softmax and accumulation. q/k/v are [B, H, T, D]
     (any strides with a unit last one, e.g. the head-split views of the
     q/k/v dense outputs); x is [B, T, H*D]; output [B, T, H*D] in x's
-    dtype. CUDA tensors launch K1, CPU tensors take the plain version."""
-    if x.device.type == "cuda":
+    dtype. CUDA tensors launch K1, or K9 with ``qk_int8`` (k/v quantized
+    first by quantize_kv, as the TPU wrapper does; both attention dots
+    int8 x int8 -> int32), or K10 with ``pair_heads`` (H even); CPU
+    tensors take the plain versions."""
+    if qk_int8 and pair_heads:
+        raise ValueError("qk_int8 and pair_heads exclude each other")
+    dev = _device(x)
+    if qk_int8:
+        return attention_o_residual_int8(q, *quantize_kv(k, v), x, wo, bo)
+    if pair_heads:
+        if dev == "cuda":
+            return _launch(q, k, v, x, wo, bo, pair_heads=True)
+        return attention_o_residual_paired_plain(q, k, v, x, wo, bo)
+    if dev == "cuda":
         return _launch(q, k, v, x, wo, bo)
-    if x.device.type == "cpu":
-        return attention_o_residual_plain(q, k, v, x, wo, bo)
-    raise ValueError(f"unsupported device {x.device}")
+    return attention_o_residual_plain(q, k, v, x, wo, bo)
+
+
+def attention_o_residual_int8(q, k8, ks, v8, vs, x, wo,
+                              bo) -> torch.Tensor:
+    """K9 on K/V that quantize_kv already quantized: CUDA tensors launch
+    the kernel, CPU tensors take attention_o_residual_int8_plain."""
+    if _device(x) == "cuda":
+        return _launch_int8(q, k8, ks, v8, vs, x, wo, bo)
+    return attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo)
+
+
+def attention_o_residual_ab(q, k, v, x, wo, bo,
+                            defer_div: bool | str) -> torch.Tensor:
+    """K1's function with the softmax division placed as the TPU A/B tool
+    places it (``defer_div`` False, True or "post";
+    attention_o_residual_ab_plain). CUDA tensors launch K11, CPU tensors
+    take the plain version."""
+    _check_form(defer_div)
+    if _device(x) == "cuda":
+        return _launch(q, k, v, x, wo, bo, form=defer_div)
+    return attention_o_residual_ab_plain(q, k, v, x, wo, bo, defer_div)

@@ -68,9 +68,12 @@ class WhisperTextPipeline:
         self.stats = stats if stats is not None else PipelineStats(
             f"{name} pipeline", name)
         self.name = name
-        # None = auto: K1 (its plain twin on the CPU); False = plain mha
+        # None = auto: K1 (its plain twin on the CPU), as the JAX package
+        # resolves it on its accelerator; False, True, "int8" and "paired"
+        # pass through to encode(fused_blocks=...), which dispatches on the
+        # value (False: K8 on the card at T >= 512, plain mha elsewhere)
         fused = self.decode.fused_encoder
-        self.fused_encoder_resolved = True if fused is None else bool(fused)
+        self.fused_encoder_resolved = True if fused is None else fused
         # decode steps of the most recent dispatch (a step runs each
         # decoder layer's two attentions once), and running totals
         self.last_steps = 0

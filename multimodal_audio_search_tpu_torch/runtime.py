@@ -47,6 +47,10 @@ COUNTS: dict[str, int] = {
     "quant_matmul": 0,
     "single_query_attention_int8": 0,
     "int8_cached_attention": 0,
+    "encoder_attention": 0,
+    "encoder_attn_o_residual_int8": 0,
+    "encoder_attn_o_residual_paired": 0,
+    "encoder_attn_o_residual_ab": 0,
 }
 
 _lock = threading.Lock()
@@ -121,8 +125,28 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,               # B, H, T, HD
         f, p]                     # scale * log2(e), stream
     lib.mas_attn_o_residual.restype = i
-    lib.mas_attn_o_residual_init.argtypes = []
-    lib.mas_attn_o_residual_init.restype = i
+    for name in ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.mas_attn_o_residual_paired.argtypes = \
+        lib.mas_attn_o_residual.argtypes
+    lib.mas_attn_o_residual_paired.restype = i
+    lib.mas_attn_o_residual_ab.argtypes = [
+        *lib.mas_attn_o_residual.argtypes[:-1], i, p]  # ..., form, stream
+    lib.mas_attn_o_residual_ab.restype = i
+    lib.mas_attn_o_residual_int8.argtypes = [
+        p, ll, ll, ll,            # q and its strides
+        p, p, p, p,               # k8, ks, v8, vs
+        p, p, p, p,               # x, wo, bo, out
+        i, i, i, i,               # B, H, T, HD
+        f, p]                     # scale, stream
+    lib.mas_attn_o_residual_int8.restype = i
+    lib.mas_encoder_attention.argtypes = [
+        p, p, p, ll, ll, ll,      # q, k, v and their shared strides
+        p,                        # out [B, T, H, 64]
+        i, i, i,                  # B, H, T
+        f, p]                     # scale * log2(e), stream
+    lib.mas_encoder_attention.restype = i
     lib.mas_single_query_attention.argtypes = [
         p, p, p, p,               # q, k, v, out
         i, i, i, i, i,            # B, H, T, HD, n_valid
@@ -215,8 +239,9 @@ def kernels() -> ctypes.CDLL:
         cmd, log = _build(so) if not so.exists() else ("", "")
         lib = ctypes.CDLL(str(so))
         _declare(lib)
-        check_launch(lib.mas_attn_o_residual_init(),
-                     "mas_attn_o_residual_init")
+        for name in ("mas_attn_o_residual_init",
+                     "mas_attn_o_residual_int8_init"):
+            check_launch(getattr(lib, name)(), name)
         build_info.update(seconds=time.perf_counter() - t0, library=str(so),
                           command=cmd, log=log)
         _lib = lib

@@ -1,4 +1,4 @@
-"""K1-K7 on the card, against their plain PyTorch versions.
+"""K1-K11 on the card, against their plain PyTorch versions.
 
 Marked ``requires_cuda``: on a machine without a CUDA card every test
 here skips (the card is looked up inside a fixture, never at import).
@@ -13,7 +13,9 @@ norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3; K3 and K4
 and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
 (int8 weights) elementwise (chip_smoke.check_k5) in both tilings, at
 ragged M and N, float32 and bf16 outputs, with and without a bias; K6 and
-K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel).
+K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel); the
+encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
+output's scale, K9-K11 by the K1 check), at ragged T, with planted faults.
 """
 import pytest
 import torch
@@ -461,3 +463,186 @@ def test_tiny_int8_engine_on_card(cuda, mode):
     counts = {k: runtime.COUNTS[v] for k, v in chip_smoke.KEYS.items()}
     assert counts == chip_smoke.expected_launches(False, mode, steps, disp,
                                                   ing.asr, ing.caption)
+
+
+# ------------------------------------------ K8-K11 (encoder variants)
+ENC_SHAPES = [(1, 2, 1), (2, 4, 97), (3, 6, 200), (2, 8, 1500)]
+
+
+@pytest.mark.parametrize("b,heads,t", ENC_SHAPES)
+def test_k8_matches_plain(cuda, b, heads, t):
+    """K8 at ragged T (a partial last 64-key tile, rows past T never
+    stored), its output a [B, H, T, D] view of the merged layout."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    gen = torch.Generator().manual_seed(100 + t)
+    for inputs, q_scale, _ in chip_smoke.K1_CASES:
+        q, k, v, *_ = chip_smoke.k1_inputs(gen, b, t, heads, q_scale=q_scale)
+        runtime.reset_counts()
+        got = A.fused_encoder_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["encoder_attention"] == 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert got.transpose(1, 2).is_contiguous()
+        chip_smoke.check_rel(f"K8 {inputs}", got,
+                             A.encoder_attention_plain(q, k, v),
+                             chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
+
+
+@pytest.mark.parametrize("b,heads,t", ENC_SHAPES)
+def test_k9_k10_k11_match_plain(cuda, b, heads, t):
+    """K9 (on quantize_kv's codes), K10 (even head counts) and K11's three
+    forms on K1's inputs, held by chip_smoke's K1 check; one launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(200 + t)
+    for inputs, q_scale, residual in chip_smoke.K1_CASES:
+        args = chip_smoke.k1_inputs(gen, b, t, heads, q_scale=q_scale,
+                                    residual=residual)
+        q, k, v, x, wo, bo = args
+        args9 = (q, *quantize_kv(k, v), x, wo, bo)
+        runs = [("K9", "encoder_attn_o_residual_int8",
+                 lambda: EB.attention_o_residual_int8(*args9),
+                 lambda: EB.attention_o_residual_int8_plain(*args9))]
+        if heads % 2 == 0:
+            runs.append(("K10", "encoder_attn_o_residual_paired",
+                         lambda: EB.fused_attention_o_residual(
+                             *args, pair_heads=True),
+                         lambda: EB.attention_o_residual_paired_plain(*args)))
+        for form in (False, True, "post"):
+            runs.append((f"K11 {form}", "encoder_attn_o_residual_ab",
+                         lambda f=form: EB.attention_o_residual_ab(*args, f),
+                         lambda f=form: EB.attention_o_residual_ab_plain(
+                             *args, f)))
+        for name, key, fused, plain in runs:
+            runtime.reset_counts()
+            got = fused()
+            torch.cuda.synchronize()
+            assert runtime.COUNTS[key] == 1 and sum(runtime.COUNTS.values()) == 1
+            assert got.dtype == torch.bfloat16 and got.shape == x.shape
+            chip_smoke.check_k1(f"{name} {inputs}", got, plain(), residual)
+
+
+def test_k8_check_sees_unmasked_pad_keys(cuda):
+    """A planted fault: K8 at T=1536 on keys whose last 36 rows are zero
+    computes what a K8 that left the zero-filled pad of its last 64-key
+    tile unmasked computes at T=1500; chip_smoke's check rejects it."""
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, *_ = chip_smoke.k1_inputs(gen, 2, 1536, 8)
+    k[:, :, 1500:] = 0
+    v[:, :, 1500:] = 0
+    cut = [a[:, :, :1500] for a in (q, k, v)]
+    ref = A.encoder_attention_plain(*cut)
+
+    def check(name, got):
+        chip_smoke.check_rel(name, got, ref, chip_smoke.K1_Y_MAX,
+                             chip_smoke.K1_Y_L2)
+    check("K8 T=1500", A.fused_encoder_attention(*cut))
+    with pytest.raises(AssertionError, match="off its plain version"):
+        check("K8 pad keys unmasked",
+              A.fused_encoder_attention(q, k, v)[:, :, :1500])
+
+
+def test_k9_k10_checks_see_planted_faults(cuda):
+    """Planted faults through the kernels' inputs: K9 given head 0's key
+    scales for every head, K10 given each odd head's partner's keys; each
+    held to the plain version on the right inputs fails chip_smoke's
+    check, and the right inputs pass."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, x, wo, bo = chip_smoke.k1_inputs(gen, 2, 1500, 8,
+                                              residual=False)
+    k8, ks, v8, vs = quantize_kv(k, v)
+    ref = EB.attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo)
+    chip_smoke.check_k1("K9", EB.attention_o_residual_int8(
+        q, k8, ks, v8, vs, x, wo, bo), ref, residual=False)
+    ks0 = ks[:, :1].expand_as(ks).contiguous()
+    with pytest.raises(AssertionError, match="attention term"):
+        chip_smoke.check_k1("K9 head 0's key scales", EB.
+                            attention_o_residual_int8(q, k8, ks0, v8, vs, x,
+                                                      wo, bo), ref,
+                            residual=False)
+    ref = EB.attention_o_residual_paired_plain(q, k, v, x, wo, bo)
+    chip_smoke.check_k1("K10", EB.fused_attention_o_residual(
+        q, k, v, x, wo, bo, pair_heads=True), ref, residual=False)
+    kf = k.clone()
+    kf[:, 1::2] = k[:, 0::2]
+    with pytest.raises(AssertionError, match="attention term"):
+        chip_smoke.check_k1("K10 partner's keys", EB.fused_attention_o_residual(
+            q, kf, v, x, wo, bo, pair_heads=True), ref, residual=False)
+
+
+def test_encoder_variant_wrappers_raise_instead_of_falling_back(cuda):
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, x, wo, bo = chip_smoke.k1_inputs(gen, 1, 40, 3)
+    with pytest.raises(TypeError):                    # float32 q
+        A.fused_encoder_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):                   # head dim 32
+        A.fused_encoder_attention(*(a.reshape(1, 6, 40, 32)
+                                    for a in (q, k, v)))
+    with pytest.raises(ValueError):                   # odd head count
+        EB._launch(q, k, v, x, wo, bo, pair_heads=True)
+    with pytest.raises(TypeError):                    # float32 q
+        EB.attention_o_residual_int8(q.float(), *quantize_kv(k, v), x, wo,
+                                     bo)
+    with pytest.raises(ValueError):                   # not a form
+        EB.attention_o_residual_ab(q, k, v, x, wo, bo, "div")
+
+
+@pytest.mark.parametrize("enc", [False, "int8", "paired"])
+def test_tiny_encoder_variant_engine_on_card(cuda, enc):
+    """A toy-width engine (head dim 64) at a 12 s context (T=600 >= 512,
+    so fused_encoder=False takes K8) with each encoder variant on both
+    models: on the card every encoder layer went through K8, K9 or K10,
+    the launches are what chip_smoke expects, and the segments are the
+    CPU engine's."""
+    import numpy as np
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.config import (
+        DecodeConfig, EngineConfig, MelConfig)
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.pipelines.embed import (
+        TextEmbedder)
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        DualPipelineIngest)
+    from multimodal_audio_search_tpu_torch.pipelines.whisper_pipeline import (
+        WhisperTextPipeline)
+    wcfg = W.config_for("test", d_model=128, heads=2, enc_positions=600)
+    mel = MelConfig(padded_seconds=12.0)
+
+    def engine(device):
+        dec = DecodeConfig(max_new_tokens=5, fused_encoder=enc)
+        asr = WhisperTextPipeline(cfg=wcfg, decode=dec, mel_cfg=mel,
+                                  device=device)
+        cap = WhisperTextPipeline(cfg=wcfg, decode=dec, mel_cfg=mel, seed=1,
+                                  prefix_ids=[wcfg.bos_token_id],
+                                  device=device)
+        emb = TextEmbedder(cfg=PRESETS["test"], device=device)
+        cfg = EngineConfig(ingest_batch=4, embed_dim=64)
+        return AudioSearchEngine(cfg=cfg, ingest_pipeline=DualPipelineIngest(
+            asr, cap, emb, cfg))
+
+    x = (np.random.default_rng(0).normal(size=16000 * 25) * 0.3) \
+        .astype(np.float32)
+    runtime.reset_counts()
+    eng = engine("cuda")
+    gpu = eng.ingest_waveform(x, 16000, "x")
+    ing = eng.ingest_pipeline
+    steps = (ing.asr.total_steps, ing.caption.total_steps)
+    disp = (ing.asr.dispatches, ing.caption.dispatches)
+    counts = {k: runtime.COUNTS[v] for k, v in chip_smoke.KEYS.items()}
+    cpu = engine("cpu").ingest_waveform(x, 16000, "x")
+    assert [s["start_time"] for s in gpu] == [s["start_time"] for s in cpu]
+    exp = chip_smoke.expected_launches(False, None, steps, disp, ing.asr,
+                                       ing.caption, enc)
+    assert counts == exp and exp[chip_smoke.encoder_kernel(enc, 2)] > 0

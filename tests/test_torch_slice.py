@@ -130,12 +130,14 @@ MEL_S = 2.0           # the "test" preset's 100 encoder positions
 EMB = dict(vocab_size=2048, hidden=64, layers=1, heads=2, intermediate=128)
 
 
-def _make_engines(profile=None, quantize=False, cross_attn="auto"):
+def _make_engines(profile=None, quantize=False, cross_attn="auto",
+                  fused_encoder=None):
     """A JAX and a PyTorch engine on the same toy weights; ``profile``
     ("fast_lossless") is applied to both configs, and its decode options
     reach both pipelines. ``quantize`` gives both Whisper models the JAX
     package's int8 decoder (the port takes the JAX tree through
-    weights.py); ``cross_attn`` goes to both decode configs."""
+    weights.py); ``cross_attn`` and ``fused_encoder`` go to both decode
+    configs."""
     from multimodal_audio_search_tpu.ops.quant import (
         quantize_whisper_decoder)
     wcfg = JW.PRESETS["test"]
@@ -154,7 +156,8 @@ def _make_engines(profile=None, quantize=False, cross_attn="auto"):
         if profile:
             cfg = mod.apply_profile(cfg, profile)
         dec = dataclasses.replace(cfg.asr_decode, max_new_tokens=6,
-                                  cross_attn=cross_attn)
+                                  cross_attn=cross_attn,
+                                  fused_encoder=fused_encoder)
         return cfg, dec
 
     cfg_j, dec_j = config(jcfg)
@@ -238,7 +241,9 @@ def _check_engine_parity(jeng, teng, rng, tmp_path):
         ("encoder_attn_o_residual", "single_query_attention",
          "decoder_self_block", "decoder_self_block_q", "decoder_mlp_block",
          "decoder_mlp_block_o", "quant_matmul",
-         "single_query_attention_int8", "int8_cached_attention"), 0)
+         "single_query_attention_int8", "int8_cached_attention",
+         "encoder_attention", "encoder_attn_o_residual_int8",
+         "encoder_attn_o_residual_paired", "encoder_attn_o_residual_ab"), 0)
     stats = json.loads(teng.export_stats_json())
     assert stats["database"]["total_segments"] == len(tsegs)
 
@@ -343,6 +348,66 @@ def test_int8_engine_launches_what_chip_smoke_expects(monkeypatch, rng,
     assert disp == (2, 2) and TW.PRESETS["test"].dec_layers == 2
     assert calls == chip_smoke.expected_launches(False, mode, steps, disp,
                                                  asr, cap)
+
+
+@pytest.mark.parametrize("fused_encoder", [False, "paired", "int8"])
+def test_engine_parity_fused_encoder(rng, tmp_path, fused_encoder):
+    """Both engines with fused_encoder False (the plain mha encoder on the
+    CPU in both; K8 on the card at T >= 512), "paired" (K10's plain
+    version here, the Pallas kernel in interpret mode there) and "int8"
+    (K9's). Same segments, texts, embeddings and top-10: at these toy
+    widths no p8 code flip of the int8 encoder changes a token (the
+    module test counts the flips, tests/test_torch_encoder_variants.py)."""
+    jeng, teng = _make_engines(fused_encoder=fused_encoder)
+    for pipe in (teng.ingest_pipeline.asr, teng.ingest_pipeline.caption):
+        # the string is kept, not turned into True
+        assert repr(pipe.fused_encoder_resolved) == repr(fused_encoder)
+    _check_engine_parity(jeng, teng, rng, tmp_path)
+
+
+@pytest.mark.parametrize("enc", [False, "int8", "paired"])
+def test_encoder_variant_launches_what_chip_smoke_expects(monkeypatch, rng,
+                                                          enc):
+    """The launch counts chip_smoke.py asserts on the card for its
+    enc_attn / enc_int8 / enc_paired engines, counted here as calls of
+    each kernel's plain version by a config-built engine (two batches, so
+    a padded one too). The toy context is T=50, below K8's T >= 512, so
+    the dispatch rule is made true here as the card's T=1500 makes it."""
+    import chip_smoke
+    from multimodal_audio_search_tpu_torch.models import whisper as TW
+    from multimodal_audio_search_tpu_torch.ops import (
+        attention, cross_attention, encoder_block)
+    calls = dict.fromkeys(chip_smoke.KEYS, 0)
+    for key, mod, name in (
+            ("K1", encoder_block, "attention_o_residual_plain"),
+            ("K2", cross_attention, "fused_single_query_attention"),
+            ("K8", attention, "encoder_attention_plain"),
+            ("K9", encoder_block, "attention_o_residual_int8_plain"),
+            ("K10", encoder_block, "attention_o_residual_paired_plain")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _k=key, **k: (
+            calls.__setitem__(_k, calls[_k] + 1), _f(*a, **k))[1])
+    monkeypatch.setattr(TW, "use_fused_attention", lambda t, dev: True)
+    spec = tcfg.ModelSpec(family="whisper", preset="test")
+    dec = tcfg.DecodeConfig(max_new_tokens=3, fused_encoder=enc)
+    base = tcfg.EngineConfig(ingest_batch=4, embed_dim=64,
+                             short_context=True).replace(
+        asr_model=spec, caption_model=spec,
+        text_embedder=tcfg.ModelSpec(family="minilm", preset="test"),
+        segment=tcfg.SegmentConfig(segment_seconds=2.0,
+                                   min_segment_seconds=1.0),
+        asr_decode=dec, caption_decode=dec)
+    eng = AudioSearchEngine(cfg=base, device="cpu")
+    ing = eng.ingest_pipeline
+    asr, cap = ing.asr, ing.caption
+    eng.ingest_waveform(_pieces(rng, 11), SR, "x")
+    steps = (asr.total_steps, cap.total_steps)
+    disp = (asr.dispatches, cap.dispatches)
+    assert disp == (2, 2) and TW.PRESETS["test"].enc_layers == 2
+    exp = chip_smoke.expected_launches(False, None, steps, disp, asr, cap,
+                                       enc)
+    assert calls == exp and exp["K1"] == 0
+    assert exp[chip_smoke.encoder_kernel(enc, 4)] == 8
 
 
 @pytest.mark.parametrize("via", ["apply_profile", "MAS_PROFILE"])
@@ -565,7 +630,8 @@ def test_device_policy():
     dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
                                   quantize_decoder=True),
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
-    dict(asr_decode=tcfg.DecodeConfig(fused_encoder="int8")),
+    dict(asr_decode=tcfg.DecodeConfig(method="sample")),
+    dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
     dict(data_parallel=2),
 ])
@@ -599,7 +665,7 @@ def test_port_runs_without_jax():
             import WhisperTextPipeline
         mel = MelConfig(padded_seconds=2.0)
         w = W.PRESETS["test"]
-        d = DecodeConfig(max_new_tokens=4)
+        d = DecodeConfig(max_new_tokens=4, fused_encoder="int8")
         asr = WhisperTextPipeline(cfg=w, decode=d, mel_cfg=mel,
                                   device="cpu")
         cap = WhisperTextPipeline(cfg=w, decode=d, mel_cfg=mel, seed=1,
