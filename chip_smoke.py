@@ -6,7 +6,7 @@ Phases, one line each (``[phase] ...``):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions. No card -> the script raises before anything else.
-2. build: K1-K11 compiled from ``multimodal_audio_search_tpu_torch/
+2. build: K1-K14 compiled from ``multimodal_audio_search_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
    seconds and ptxas resource lines.
 3. kernels against their plain PyTorch versions on the card, at the
@@ -21,10 +21,16 @@ Phases, one line each (``[phase] ...``):
    over B*1500 rows (K5_SHAPES), K6 and K7 (int8 K/V) at B=32, T=1500,
    H=8 and H=6; the encoder variants K8 (per-head attention), K9 (int8
    dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
-   three forms of the softmax division at base width, on K1's inputs.
+   three forms of the softmax division at base width, on K1's inputs;
+   K12 (fused search scores) at N=1M and N=1027 in float32 and bf16 and
+   on the validity-rule rows, K13 (streaming read) on a 64 MiB slab and
+   at the calibration's 4 GiB x 8 passes, K14 (cross + MLP block) at
+   B=32, T=1500 and both widths -- K14's own path: its launches are
+   counted over this phase, since no decode step calls it.
    Tolerances asserted; median times from CUDA events after a warm-up,
    each beside the card's bound for the same work (bound()) and, for K2
-   and K8, one scaled_dot_product_attention call as a yardstick.
+   and K8, one scaled_dot_product_attention call as a yardstick (K13:
+   one torch.sum per pass).
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
    config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
@@ -45,11 +51,19 @@ Phases, one line each (``[phase] ...``):
    input, each int8 engine's first decode step against its quantized
    decoder's bf16 einsum cross attention (INT8_SPAN_MAX), and each
    encoder variant's encoder against the plain encoder (ENC_MEAN_ERR_MAX).
+   The default engine also answers its queries with search_batch, equal
+   to search, with the float32 index and with index_dtype="bfloat16".
 5. the A/B path of K11: tools/torch_profile_encoder_kernel_ab.py's run()
    (B=64, T=500 and 1500, each form), launches counted.
+6. search at scale, the path of K12 and K13: tools/torch_bench_search_
+   scale.py's run() (the card's calibration, then 100k / 400k / 1M
+   segments x float32 / bfloat16: scoring, sort, top-k, GB/s and share
+   of the calibrated and published read rates, query p50 through the
+   MiniLM embedder, the < 50 ms verdict at 1M float32), launches counted.
 
-The second-to-last line is the kernels JSON object, the last line
-``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
+The line before the last two is the card (nvidia-smi), then the kernels
+JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
+Any failure raises (exit code != 0).
 """
 from __future__ import annotations
 
@@ -179,12 +193,52 @@ K6_POS = 999
 # guardrail for these modes (max |err| < 5 % of the logits' span, argmax
 # agreement >= 0.9; tests/test_cross_attention.py, tests/test_int8_kv.py)
 INT8_SPAN_MAX, INT8_AGREE_MIN = 5e-2, 0.9
+# K12 (fused search scores): kernel and plain version compute the same
+# float32 dot products in different orders (a warp's shuffle tree, a
+# matmul), so the scores of rows both call valid agree within K12_ATOL.
+# A row's validity may differ only where such a rounding can move its
+# score across the threshold or its larger sim across 0 (within K12_ATOL
+# of either); those rows are counted ("edge_rows", "validity_flips").
+# The top-10 ids must match wherever the plain scores' gaps to their
+# neighbours exceed K12_ATOL. The rule rows (k12_rule_inputs: the JAX
+# tests' validity cases and a score exactly at the threshold, exact in
+# float32 and bf16) must come out bit for bit: a kernel comparing with
+# >= fails there (tests/test_torch_search.py, tests/test_torch_cuda.py).
+K12_ATOL = 1e-5
+# (N, index dtype): the search path's largest index and an odd tail
+K12_SHAPES = ((1_000_000, "float32"), (1_000_000, "bfloat16"),
+              (1027, "float32"), (1027, "bfloat16"))
+K12_RULE_THRESHOLD = 0.125
+# K13 (streaming read): every column sum of a random 64 MiB bf16 slab
+# (uniform in [0, 1), so no sum cancels) within K13_RTOL of the plain
+# float32 sums, over all `cols` columns: a kernel that read only the 128
+# columns the wrapper returns would leave 384 of 512 sums at zero and
+# report 4x the real rate (tests/test_torch_calibrate.py). Timed at the
+# calibration's shape, 4 GiB x 8 passes.
+K13_RTOL = 1e-3
+K13_CHECK_SHAPE = (65536, 512)
+# K14 (cross + MLP block) at B=32, T=1500 and both widths on two inputs:
+# "block" (x ~ 0.01 N(0, 1), so the block's term dominates; held by
+# check_delta as K4-o is) and "attention" (x, bco, fc1 and fc2 zero, Wco
+# the identity: the output is the bf16-rounded attention alone, held
+# relative to its scale with K1's attention limits).
+K14_T = 1500
+# On the "attention" input K14 is also held to its plain version bit for
+# bit (check_bits): the two round p to bf16 at the same place and divide
+# by l after PV, so only the order of float32 sums differs, and an output
+# element's bf16 rounding flips where that moves it across a rounding
+# boundary. A float64 emulation of the kernel at B=8, T=1500 matches on
+# more than 99 % of the elements; dividing by l before PV, or leaving p
+# unrounded, moves attention values by up to 2^-9 relative and matches on
+# far fewer (tests/test_torch_cross_mlp.py).
+K14_EQUAL_MIN = 0.99
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
-# 700 W limit): tensor-core operations per second by input type, and the
-# device memory's bytes per second
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# 700 W limit): tensor-core operations per second by input type (f32:
+# the CUDA cores, outside the tensor cores), and the device memory's
+# bytes per second
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
 
 
@@ -192,7 +246,7 @@ def bound(nbytes: float, **ops: float) -> dict:
     """The least time the card could take for a call: the larger of its
     bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak rate of their type
-    (``bf16=..., int8=...``, summed over the types)."""
+    (``bf16=..., int8=..., f32=...``, summed over the types)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -779,6 +833,352 @@ def kernel_phase(card: str, gen: torch.Generator):
     return k1, k2
 
 
+def load_tool(name: str):
+    """tools/<name>.py as a module (tools/ is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def k12_inputs(n: int, dtype: str, *, device="cuda", seed: int = 0):
+    """K12's inputs as the search path makes them (the search-at-scale
+    tool's make_index: n unit rows [n, 2, 384], success = uniform > 0.2,
+    generated on ``device``); the query is row 123's ASR embedding."""
+    e, ok = load_tool("torch_bench_search_scale").make_index(
+        n, getattr(torch, dtype), device, seed)
+    return e[min(123, n - 1), 0].float(), e, ok
+
+
+def k12_rule_inputs(dtype: str, *, device="cuda", n: int = 256,
+                    d: int = 64):
+    """The validity rules on exact values, with weights 0.5 / 0.5 and
+    K12_RULE_THRESHOLD: the JAX package's cases (tests/test_fused_search_
+    kernel.py) and a score exactly at the threshold. Returns (q, emb, ok,
+    the expected masked scores); rows not listed are zero (invalid)."""
+    emb = torch.zeros(n, 2, d)
+    ok = torch.zeros(n, 2, dtype=torch.bool)
+    want = torch.full((n,), -1e30)
+    # (row, ASR sim, audio sim, ASR ok, audio ok, score or None: invalid)
+    for row, sa, sb, oa, ob, score in (
+            (0, 1.0, 0.0, True, False, 1.0),       # valid
+            (1, 0.0625, 0.0, True, False, None),   # below the threshold
+            (2, -1.0, 0.0, True, False, None),     # negative sim
+            (3, 1.0, 0.0, False, False, None),     # no weight at all
+            (4, 0.125, 0.0, True, False, None),    # AT the threshold
+            (5, 0.0, 0.5, True, True, 0.25),       # one positive sim
+            (6, 0.5, -0.5, True, True, None),      # sims cancel: 0
+            (7, 1.0, 0.5, False, True, 0.5)):      # ASR weight dropped
+        emb[row, 0, 0], emb[row, 1, 0] = sa, sb
+        ok[row, 0], ok[row, 1] = oa, ob
+        if score is not None:
+            want[row] = score
+    q = torch.zeros(d)
+    q[0] = 1.0
+    return (q.to(device), emb.to(device, getattr(torch, dtype)),
+            ok.to(device), want)
+
+
+def check_k12_rules(name, got, want) -> None:
+    """K12 on k12_rule_inputs must give the expected scores exactly."""
+    got = got.float().cpu()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).nonzero().flatten().tolist()
+        raise AssertionError(f"{name}: rows {bad} break the validity rules: "
+                             f"{got[bad].tolist()} vs {want[bad].tolist()}")
+
+
+def check_topk(name, got, ref, k: int = 10, gap: float = K12_ATOL) -> None:
+    """The top-k ids of ``got`` (stable descending sort) equal ``ref``'s at
+    every rank whose plain score is more than ``gap`` from both
+    neighbours; raises otherwise."""
+    rs, ri = torch.sort(ref.float(), descending=True, stable=True)
+    gi = torch.sort(got.float(), descending=True, stable=True)[1]
+    rs, ri, gi = (a[: k + 1].cpu() for a in (rs, ri, gi))
+    for i in range(min(k, rs.numel())):
+        clear = (i + 1 >= rs.numel() or rs[i] - rs[i + 1] > gap) and (
+            i == 0 or rs[i - 1] - rs[i] > gap)
+        if clear and gi[i] != ri[i]:
+            raise AssertionError(f"{name}: rank {i} is {int(gi[i])}, the "
+                                 f"plain path's is {int(ri[i])}")
+
+
+def check_k12(name, got, q, emb, ok, wa, wb, threshold=0.1) -> dict:
+    """K12's masked scores against the plain version's (see K12_ATOL);
+    raises outside the tolerance, returns the errors and counts."""
+    from multimodal_audio_search_tpu_torch.index.fusion import fused_scores
+    ref, valid = fused_scores(q, emb, ok, wa, wb, threshold)
+    # the rows that pass every rule but the threshold, scored
+    loose = fused_scores(q, emb, ok, wa, wb, -math.inf)[0]
+    sims = torch.einsum("npd,d->np", emb.float(), q.float())
+    _same_shape_finite(name, got, ref)
+    gvalid = got > -1e29
+    edge = ((loose - threshold).abs() <= K12_ATOL) | (
+        sims.amax(-1).abs() <= K12_ATOL)
+    flips = gvalid != valid
+    if (flips & ~edge).any():
+        bad = (flips & ~edge).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f"{name}: validity differs from the plain "
+                             f"version on rows {bad} away from any edge")
+    both = gvalid & valid
+    err = float((got[both] - ref[both]).abs().max()) if both.any() else 0.0
+    if err > K12_ATOL:
+        raise AssertionError(f"{name}: max |score err| {err:.3e} > "
+                             f"{K12_ATOL}")
+    check_topk(name, got, ref)
+    return {"max_abs_err": err, "edge_rows": int(edge.sum()),
+            "validity_flips": int(flips.sum()),
+            "valid_rows": int(valid.sum())}
+
+
+def check_bits(name, got, ref, min_share: float = K14_EQUAL_MIN) -> dict:
+    """got equals ref bit for bit (as bf16) on at least ``min_share`` of
+    the elements; raises otherwise."""
+    got, ref = got.to(torch.bfloat16).float(), ref.to(torch.bfloat16).float()
+    _same_shape_finite(name, got, ref)
+    share = float((got == ref).float().mean())
+    if share < min_share:
+        raise AssertionError(f"{name}: equal to its plain version bit for "
+                             f"bit on {share:.4f} of the elements (limit "
+                             f"{min_share})")
+    return {"equal_share": share}
+
+
+def check_k13(name, got, ref) -> dict:
+    """K13's [cols] sums against the plain version's, every column, within
+    K13_RTOL relative; raises outside."""
+    got, ref = got.float(), ref.float()
+    _same_shape_finite(name, got, ref)
+    err = (got - ref).abs()
+    rel = float((err / ref.abs()).max())
+    if not rel <= K13_RTOL:
+        raise AssertionError(f"{name}: column sums off the plain version by "
+                             f"{rel:.3e} relative (limit {K13_RTOL}); "
+                             f"{int((err > K13_RTOL * ref.abs()).sum())} of "
+                             f"{ref.numel()} columns")
+    return {"max_abs_err": float(err.max()), "rel_err": rel}
+
+
+def search_kernel_phase(card: str) -> tuple[dict, dict]:
+    """K12 at K12_SHAPES and on the rule rows (float32 and bf16 index),
+    K13 on a 64 MiB slab and at the calibration's 4 GiB x 8 passes, each
+    against its plain version; K13's yardstick is one torch.sum per
+    pass."""
+    from multimodal_audio_search_tpu_torch.ops import fused_search as FS
+    from multimodal_audio_search_tpu_torch.ops import stream_read as SR
+    from multimodal_audio_search_tpu_torch.utils import calibrate as CAL
+    pkg = "multimodal_audio_search_tpu_torch/csrc"
+    k12 = {"name": "fused_scores", "route": "cuda",
+           "source": f"{pkg}/fused_search.cu",
+           "replaces": "multimodal_audio_search_tpu/ops/fused_search.py:73",
+           "cases": []}
+    for dtype in ("float32", "bfloat16"):
+        q, e, ok, want = k12_rule_inputs(dtype)
+        check_k12_rules(f"K12 rules {dtype}", FS.fused_scores_kernel(
+            q, e, ok, 0.5, 0.5, threshold=K12_RULE_THRESHOLD), want)
+    phase("kernels", kernel="K12", card=card, step="validity rules exact")
+    wa, wb = 0.6, 0.4
+    for n, dtype in K12_SHAPES:
+        q, e, ok = k12_inputs(n, dtype)
+        got = FS.fused_scores_kernel(q, e, ok, wa, wb)
+        torch.cuda.synchronize()
+        case = {"shape": f"N={n} D=384 {dtype}",
+                **check_k12(f"K12 N={n} {dtype}", got, q, e, ok, wa, wb)}
+        if n >= 1_000_000:
+            case["ms"] = time_ms(lambda: FS.fused_scores_kernel(
+                q, e, ok, wa, wb))
+            case["plain_ms"] = time_ms(lambda: FS.fused_scores_plain(
+                q, e, ok, wa, wb))
+            case["gbps"] = nbytes(e) / case["ms"] / 1e6
+            case.update(bound(nbytes(q, e, ok, got), f32=4 * n * 384))
+        k12["cases"].append(case)
+        phase("kernels", kernel="K12", card=card, tol=K12_ATOL, **case)
+        del q, e, ok, got
+    torch.cuda.empty_cache()
+
+    k13 = {"name": "stream_read", "route": "cuda",
+           "source": f"{pkg}/stream_read.cu", "replaces": "bench.py:206",
+           "cases": []}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand(K13_CHECK_SHAPE, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    case = {"shape": f"{list(K13_CHECK_SHAPE)} bf16 x {CAL.PASSES} passes",
+            **check_k13("K13 64 MiB", SR.stream_read_sums(x, CAL.PASSES),
+                        SR.stream_read_sums_plain(x, CAL.PASSES))}
+    k13["cases"].append(case)
+    phase("kernels", kernel="K13", card=card, tol=K13_RTOL, **case)
+    rows, p = CAL.ROWS * CAL.N_CHUNK, CAL.PASSES
+    x = torch.ones((rows, CAL.COLS), dtype=torch.bfloat16, device="cuda")
+    got = SR.stream_read_sums(x, p)
+    case = {"shape": f"[{rows}, {CAL.COLS}] bf16 (4 GiB) x {p} passes",
+            **check_k13("K13 4 GiB", got, SR.stream_read_sums_plain(x, p)),
+            "ms": time_ms(lambda: SR.stream_read_sums(x, p), reps=5),
+            "plain_ms": time_ms(lambda: SR.stream_read_sums_plain(x, p),
+                                reps=3, warmup=1),
+            "library_ms": time_ms(lambda: [
+                torch.sum(x, dim=0, dtype=torch.float32) for _ in range(p)],
+                reps=5)}
+    case["gbps"] = p * nbytes(x) / case["ms"] / 1e6
+    # the function reads x once; the kernel reads it p times by design
+    case["passes_bound_ms"] = bound(p * nbytes(x))["bound_ms"]
+    case.update(bound(nbytes(x, got), f32=p * x.numel()))
+    k13["cases"].append(case)
+    phase("kernels", kernel="K13", card=card, tol=K13_RTOL, **case)
+    del x, got
+    torch.cuda.empty_cache()
+    return k12, k13
+
+
+def k14_inputs(gen: torch.Generator, b: int, t: int, d: int, f: int, *,
+               attention_only: bool = False, device="cuda") -> tuple:
+    """fused_cross_mlp_block's inputs in the decode step's types (bf16,
+    float32 LN scales): x [B, D] at 0.01 N(0, 1), the cross LN, q and o
+    projections, the MLP's LN, fc1 (bias 0.5 N(0, 1)) and fc2, and
+    unit-scale merged cross K/V [B, T, D]. ``attention_only`` zeroes x,
+    bco, fc1 and fc2 and makes Wco the identity."""
+    rn, rf = _rand(gen, device), _rand(gen, device, torch.float32)
+    w = 1 / math.sqrt(d)
+    x = rn(b, d, scale=0.01)
+    cross = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
+             rn(d, d, scale=w), rn(d, scale=0.1), rn(d, d, scale=w),
+             rn(d, scale=0.1)]
+    mlp = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1), rn(d, f, scale=w),
+           rn(f, scale=0.5), rn(f, d, scale=1 / math.sqrt(f)),
+           rn(d, scale=0.1)]
+    kv = [rn(b, t, d), rn(b, t, d)]
+    if attention_only:
+        x = torch.zeros_like(x)
+        cross[4] = torch.eye(d, device=device, dtype=torch.bfloat16)
+        cross[5] = torch.zeros_like(cross[5])
+        mlp[2:] = [torch.zeros_like(a) for a in mlp[2:]]
+    return (x, *cross, *mlp, *kv)
+
+
+def cross_mlp_phase(card: str, gen: torch.Generator) -> tuple[dict, dict]:
+    """K14 at B=32, T=K14_T and both widths on the "block" and "attention"
+    inputs against its plain version, with every launch count set to 0
+    before and read after: no decode step calls K14 (as in the JAX
+    package), so this phase is its path. Returns (K14's entry, counts)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    k14 = {"name": "cross_mlp_block", "route": "cuda",
+           "source": "multimodal_audio_search_tpu_torch/csrc/"
+                     "decoder_block.cu",
+           "replaces": "multimodal_audio_search_tpu/ops/decoder_block.py:515",
+           "cases": []}
+    calls = 0
+
+    def fused(args, heads):
+        nonlocal calls
+        calls += 1
+        return DB.fused_cross_mlp_block(*args, heads=heads)
+
+    b, t = 32, K14_T
+    runtime.reset_counts()
+    for label, d, heads, f in DEC_WIDTHS:
+        for inputs in ("block", "attention"):
+            args = k14_inputs(gen, b, t, d, f,
+                              attention_only=inputs == "attention")
+            got = fused(args, heads)
+            ref = DB.cross_mlp_block_plain(*args, heads=heads)
+            torch.cuda.synchronize()
+            tag = f"K14 {label} {inputs}"
+            err = check_delta(tag, got, ref, args[0]) if inputs == "block" \
+                else {**check_rel(tag, got, ref, K1_Y_MAX, K1_Y_L2),
+                      **check_bits(tag, got, ref)}
+            case = {"shape": f"{label} B={b} T={t} D={d} H={heads} F={f}",
+                    "inputs": inputs, **err}
+            if inputs == "block":
+                case["ms"] = time_ms(lambda: fused(args, heads))
+                case["plain_ms"] = time_ms(
+                    lambda: DB.cross_mlp_block_plain(*args, heads=heads))
+                case.update(bound(nbytes(*args, got), bf16=4 * b * d * d
+                                  + 4 * b * t * d + 4 * b * d * f))
+            k14["cases"].append(case)
+            phase("kernels", kernel="K14", card=card,
+                  tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}
+                  if inputs == "block" else {"y_max": K1_Y_MAX, "y_l2":
+                                             K1_Y_L2, "equal_min":
+                                             K14_EQUAL_MIN}, **case)
+            del args, got, ref
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    exp = dict.fromkeys(KEYS, 0)
+    exp["K14"] = calls
+    if counts != exp:
+        raise AssertionError(f"K14 phase: launches {counts} != {exp}")
+    torch.cuda.empty_cache()
+    return k14, counts
+
+
+def search_scale_phase(card: str) -> dict:
+    """The search-at-scale path: tools/torch_bench_search_scale.py's run()
+    (calibration, then 100k / 400k / 1M segments x float32 / bfloat16),
+    with every launch count set to 0 just before and read just after; K12
+    and K13 must be the only kernels launched, as often as the tool
+    implies."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.utils import calibrate as CAL
+    tool = load_tool("torch_bench_search_scale")
+    runtime.reset_counts()
+    res = tool.run(emit=lambda line: None)
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    exp = dict.fromkeys(KEYS, 0)
+    exp["K12"] = len(res["rows"]) * tool.K12_LAUNCHES_PER_ROW
+    exp["K13"] = CAL.STREAM_READ_LAUNCHES
+    phase("search_scale", card=card, calibration=res["calibration"])
+    for row in res["rows"]:
+        phase("search_scale", card=card, **row)
+    phase("search_scale", card=card, launches=counts, expected=exp,
+          verdict=f"1M f32 parity p50 target <{tool.TARGET_MS:.0f} ms: "
+                  f"{res['verdict']}")
+    if len(res["rows"]) != len(tool.SIZES) * len(tool.DTYPES) or not all(
+            math.isfinite(v) and v > 0 for r in res["rows"]
+            for k, v in r.items() if k.endswith("_ms")):
+        raise AssertionError(f"search at scale: rows missing or not "
+                             f"positive: {res['rows']}")
+    if counts != exp:
+        raise AssertionError(f"search at scale: launches {counts} != {exp}")
+    return counts
+
+
+def query_entry_check(card: str, eng, queries, texts, own: int,
+                      unique: bool) -> None:
+    """The engine's search_batch against search on the same queries, with
+    the float32 index and again with FusionConfig(index_dtype="bfloat16")
+    (an engine on the same pipelines and store): the same ids, scores
+    within K12_ATOL, the self-retrieval query's own segment first."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    for dt in ("float32", "bfloat16"):
+        e = eng if dt == "float32" else AudioSearchEngine(
+            cfg=eng.cfg.replace(fusion=dataclasses.replace(
+                eng.cfg.fusion, index_dtype=dt)),
+            ingest_pipeline=eng.ingest_pipeline, store=eng.store)
+        batch = e.search_batch(queries)
+        singles = [e.search(qt) for qt in queries]
+        for qt, (bh, _), (sh, _) in zip(queries, batch, singles):
+            got, ref = ([(h["index"], h["fusion_score"]) for h in hits]
+                        for hits in (bh, sh))
+            if [i for i, _ in got] != [i for i, _ in ref] or any(
+                    abs(a - c) > K12_ATOL
+                    for (_, a), (_, c) in zip(got, ref)):
+                raise AssertionError(
+                    f"index_dtype={dt}: search_batch differs from search "
+                    f"on {qt!r}: {got} vs {ref}")
+        top = singles[0][0]
+        if not top or (top[0]["index"] != own if unique
+                       else top[0]["asr_text"] != texts[own]):
+            raise AssertionError(f"index_dtype={dt}: self-retrieval query "
+                                 f"did not rank segment {own} first")
+        phase("engine", path="default", step="search_batch", card=card,
+              index_dtype=dt, queries=len(queries),
+              hits=[len(h) for h, _ in batch], top_hit=top[0]["index"],
+              top_score=top[0]["fusion_score"],
+              self_cosine=top[0]["asr_similarity"])
+
+
 # the engine configurations driven on the card: (label, profile, fused,
 # int8 cross_attn mode -- one set means quantize_decoder=True on both
 # models --, fused_encoder on both decode configs, None = the config's)
@@ -798,7 +1198,8 @@ KEYS = {"K1": "encoder_attn_o_residual", "K2": "single_query_attention",
         "K7": "int8_cached_attention", "K8": "encoder_attention",
         "K9": "encoder_attn_o_residual_int8",
         "K10": "encoder_attn_o_residual_paired",
-        "K11": "encoder_attn_o_residual_ab"}
+        "K11": "encoder_attn_o_residual_ab", "K12": "fused_scores",
+        "K13": "stream_read", "K14": "cross_mlp_block"}
 # K5's launches per decode step and decoder layer: self q/k/v/o, cross
 # q/o, fc1, fc2
 K5_PER_LAYER_STEP = 8
@@ -979,6 +1380,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
           trace_ms=[{k: round(v * 1e3, 3) for k, v in tr.items()}
                     for tr in traces])
     if label == "default":
+        query_entry_check(card, eng, queries, texts, own, bool(unique))
         reference_check(asr, rng)
     if int8:
         int8_reference_check(asr, rng, int8)
@@ -1173,13 +1575,8 @@ def ab_phase(card: str) -> dict:
     ab.py: B=64, T=500 and 1500, each form of the division), with every
     launch count set to 0 just before and read just after; the counts
     must be K11's three forms x two contexts and nothing else."""
-    import importlib.util
     from multimodal_audio_search_tpu_torch import runtime
-    spec = importlib.util.spec_from_file_location(
-        "torch_profile_encoder_kernel_ab",
-        os.path.join(ROOT, "tools", "torch_profile_encoder_kernel_ab.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = load_tool("torch_profile_encoder_kernel_ab")
     reps = 20
     runtime.reset_counts()
     rows = tool.run(reps=reps, emit=lambda line: None)
@@ -1222,9 +1619,11 @@ def main() -> int:
     dec = decoder_kernel_phase(card, gen)
     int8k = int8_kernel_phase(card, gen)
     encv = encoder_variant_phase(card, gen)
+    k12, k13 = search_kernel_phase(card)
+    counts, mems, ref_texts = {}, {}, None
+    k14, counts["kernels"] = cross_mlp_phase(card, gen)
     clips = [("long.wav", make_audio(320, rng)),
              ("short.wav", make_audio(25, rng))]
-    counts, mems, ref_texts = {}, {}, None
     for label, profile, fused, int8, enc in ENGINE_PATHS:
         # v2 and the encoder variants take the 320 s clip only (time)
         c, texts, mems[label] = engine_phase(
@@ -1239,14 +1638,16 @@ def main() -> int:
                              for k, m in mems.items()}}
         for key in mems["default"]})
     counts["ab"] = ab_phase(card)
+    counts["search_scale"] = search_scale_phase(card)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",
                "K5": "int8_fused", "K6": "int8_fused", "K7": "int8",
                "K8": "enc_attn", "K9": "enc_int8", "K10": "enc_paired",
-               "K11": "ab"}
+               "K11": "ab", "K12": "search_scale", "K13": "search_scale",
+               "K14": "kernels"}
     kern = []
-    for key, k in zip(KEYS, (k1, k2, *dec, *int8k, *encv)):
+    for key, k in zip(KEYS, (k1, k2, *dec, *int8k, *encv, k12, k13, k14)):
         first = next(c for c in k["cases"] if "ms" in c)
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],

@@ -2,10 +2,9 @@
 
 The port of ``multimodal_audio_search_tpu`` (JAX/Pallas), which stays
 beside it as the reference. Same subpackage and module names, same
-config, same param pytree keys, same on-disk index format; the Pallas
-kernels of the default ingest path and of the ``fast_lossless``
-profile's fused decode layers are hand-written CUDA kernels here
-(``csrc/``, built with nvcc for sm_90a at first use).
+config, same param pytree keys, same on-disk index format; every Pallas
+kernel of the JAX package is a hand-written CUDA kernel here (``csrc/``,
+built with nvcc for sm_90a at first use).
 
 Public surface:
 
@@ -13,6 +12,7 @@ Public surface:
     engine = AudioSearchEngine(device="cuda")
     segments = engine.ingest("clip.wav")
     hits, weights = engine.search("upbeat music with drums", k=10)
+    batch = engine.search_batch(["rain on a roof", "a guitar solo"])
 
 This package imports torch and never jax.
 """

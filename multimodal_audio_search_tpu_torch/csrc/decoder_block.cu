@@ -41,6 +41,21 @@
 //     one block per (64 columns, 4 rows), launched from the same C call:
 //     after K3-q, LN2 + Wcq; before K4-o, attn @ Wco + bco + x into a
 //     float32 buffer that K4-o's blocks read as their x.
+// K14, decoder cross + MLP block (one C call, three stages):
+//   q1 = LN2(x) @ Wcq + bcq             (rowproj_kernel<true, bf16>)
+//   attn = single-query attention of q1 over merged cross K/V [B, T, D]
+//                                       (cross_mlp_attention_kernel)
+//   out = K4-o on (x, attn)             (rowproj_kernel<false> + mlp_kernel)
+// Replaces fused_cross_mlp_block (body _cross_mlp_kernel :389,
+// pallas_call at :515), which the JAX package keeps unwired (it measured
+// slower than the unfused block on the TPU); K14 is not wired into the
+// decode step either. Bounded by the cross K/V bytes (98 MB at B=32,
+// T=1500, whisper-base width) against 5 MB of weights. Its attention
+// rounds where the TPU kernel rounds, not where K2 does: the logits of
+// all T keys are kept in shared memory so p = exp(logit - max) is taken
+// against the row's true maximum; p is summed into l unrounded, rounded
+// to bf16 before PV, and the division by l comes after PV.
+//
 // The products are FMA in float32 on bf16 operands, with 16-byte weight
 // loads coalesced across threads (8 columns a thread); a block reduces
 // its threads' K slices through shared memory in a fixed order. No
@@ -285,13 +300,20 @@ __global__ void __launch_bounds__(NT) self_block_kernel(
   if (threadIdx.x == 0) counter[blockIdx.y] = 0;
 }
 
+__device__ __forceinline__ float ldf(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float ldf(const bf16* p, long long i) {
+  return bf(p[i]);
+}
+
 // One block per (64 output columns, 4 rows) of a [B, D] x [D, D] product
-// on float32 input rows `in`:
-//   LN:  out (bf16) = LN(in) @ W + bias          (K3-q's tail)
+// on input rows `in` (float32, or bf16 for K14's first stage):
+//   LN:  out (bf16) = LN(in) @ W + bias          (K3-q's tail, K14's q)
 //   !LN: out (f32)  = xres + bf16(in) @ W + bias  (K4-o's head)
-template <bool LN>
+template <bool LN, typename In>
 __global__ void __launch_bounds__(NT) rowproj_kernel(
-    const float* __restrict__ in, const float* __restrict__ g,
+    const In* __restrict__ in, const float* __restrict__ g,
     const bf16* __restrict__ bln, const bf16* __restrict__ W,
     const bf16* __restrict__ bias, const bf16* __restrict__ xres, void* out,
     int B, int D, float eps) {
@@ -300,7 +322,9 @@ __global__ void __launch_bounds__(NT) rowproj_kernel(
   bf16* sH = reinterpret_cast<bf16*>(red + NT * 8 * RB4);  // [RB4][D]
   const int c0 = blockIdx.x * PC, r0 = blockIdx.y * RB4;
   const int nrows = min(RB4, B - r0);
-  auto load = [&](int r, int k) { return in[(long long)(r0 + r) * D + k]; };
+  auto load = [&](int r, int k) {
+    return ldf(in, (long long)(r0 + r) * D + k);
+  };
   if (LN) {
     ln_rows<RB4>(load, nrows, D, g, bln, eps, sH);
   } else {
@@ -359,6 +383,82 @@ __global__ void __launch_bounds__(NT) mlp_kernel(
   if (threadIdx.x == 0) counter[blockIdx.y] = 0;
 }
 
+// K14's attention: one block per (head, batch row), 8 lanes per 64-wide
+// key row (one 16-byte load each), 32 rows in flight. Pass 1 writes the
+// scaled logits of all T keys to shared memory and takes their maximum;
+// pass 2 forms p = exp(logit - max), sums it into l, and accumulates
+// bf16(p) * V; the 32 row groups merge in a fixed order and the merged
+// output is divided by l. Output [B, H*64] float32, not rounded (K4-o's
+// head rounds it into the o-projection).
+constexpr int AG = NT / 8;  // key rows in flight per block
+
+__global__ void __launch_bounds__(NT) cross_mlp_attention_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, float* __restrict__ out, int T, int HD,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sS = reinterpret_cast<float*>(smem_raw);  // [T] logits
+  __shared__ float sm_acc[AG][HDIM];
+  __shared__ float sm_l[AG];
+  __shared__ float sm_red[NT / 32];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int sub = threadIdx.x & 7, grp = threadIdx.x >> 3;
+  const int col = h * HDIM + sub * 8;
+  float qf[8];
+  bf16x8_to_f32(*reinterpret_cast<const uint4*>(q + (long long)b * HD + col),
+                qf);
+  const bf16* kb = k + (long long)b * T * HD + col;
+  const bf16* vb = v + (long long)b * T * HD + col;
+
+  float mx = -INFINITY;
+  // uniform trip count over the block, so every lane reaches the shuffles
+  for (int t0 = 0; t0 < T; t0 += AG) {
+    const int t = t0 + grp;
+    uint4 kr = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T) kr = *reinterpret_cast<const uint4*>(kb + (long long)t * HD);
+    float kf[8];
+    bf16x8_to_f32(kr, kf);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s = fmaf(qf[i], kf[i], s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    if (t < T) {
+      s *= scale;
+      if (sub == 0) sS[t] = s;
+      mx = fmaxf(mx, s);
+    }
+  }
+  mx = block_max<NT>(mx, sm_red);  // its barriers publish sS too
+
+  float l = 0.f, acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int t = grp; t < T; t += AG) {
+    const float p = expf(sS[t] - mx);
+    l += p;
+    const float pb = bfr(p);
+    float vf[8];
+    bf16x8_to_f32(*reinterpret_cast<const uint4*>(vb + (long long)t * HD),
+                  vf);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = fmaf(pb, vf[i], acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sm_acc[grp][sub * 8 + i] = acc[i];
+  if (sub == 0) sm_l[grp] = l;
+  __syncthreads();
+  if (threadIdx.x < HDIM) {
+    float o = 0.f, ls = 0.f;
+    for (int g = 0; g < AG; ++g) {
+      o += sm_acc[g][threadIdx.x];
+      ls += sm_l[g];
+    }
+    out[(long long)b * HD + h * HDIM + threadIdx.x] = o / ls;
+  }
+}
+
 inline dim3 rows_grid(int cols, int B, int rb) {
   return dim3(cols, (B + rb - 1) / rb);
 }
@@ -400,7 +500,7 @@ extern "C" int mas_decoder_self_block(
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !tail) return (int)e;
   const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
-  rowproj_kernel<true><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
+  rowproj_kernel<true, float><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
       (const float*)xo32, (const float*)g2, (const bf16*)b2,
       (const bf16*)wcq, (const bf16*)bcq, nullptr, q_cross, B, D, eps);
   return (int)cudaGetLastError();
@@ -429,7 +529,7 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
   const bool head = wco != nullptr;
   if (head) {
     const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
-    rowproj_kernel<false><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
+    rowproj_kernel<false, float><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
         (const float*)attn, nullptr, nullptr, (const bf16*)wco,
         (const bf16*)bco, (const bf16*)x, x32, B, D, 0.f);
     cudaError_t e = cudaGetLastError();
@@ -445,4 +545,40 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
     mlp_kernel<false><<<grid, NT, smem, s>>>(K4_ARGS);
 #undef K4_ARGS
   return (int)cudaGetLastError();
+}
+
+// K14. x, out: [B, D] bf16 (D = H * 64); g2, g3: [D] float32 LN scales;
+// b2, bcq, bco, b3, b2m: [D] bf16; wcq, wco: [D, D], w1: [D, F], w2:
+// [F, D] bf16 row-major (F % 128 == 0); b1: [F] bf16; k, v: [B, T, D]
+// bf16 merged-head cross K/V; q1: [B, D] bf16, attn and x32: [B, D]
+// float32, part: [F / 128, B, D] float32 scratch; counter: >= ceil(B/4)
+// zeroed ints. Every pointer 16-byte aligned. Returns the first CUDA
+// error of the launches (0 = none).
+extern "C" int mas_cross_mlp_block(
+    const void* x, const void* g2, const void* b2, const void* wcq,
+    const void* bcq, const void* wco, const void* bco, const void* g3,
+    const void* b3, const void* w1, const void* b1, const void* w2,
+    const void* b2m, const void* k, const void* v, void* q1, void* attn,
+    void* x32, void* part, void* counter, void* out, int B, int H, int T,
+    int F, float scale, float eps, void* stream) {
+  const int D = H * HDIM;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem_q = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
+  // dynamic logits + the kernel's static arrays
+  const size_t smem_a = (size_t)T * 4;
+  const size_t static_a = (AG * HDIM + AG + NT / 32) * 4;
+  if (T < 1 || smem_q > SMEM_MAX || smem_a + static_a > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  rowproj_kernel<true, bf16><<<rows_grid(D / PC, B, RB4), NT, smem_q, s>>>(
+      (const bf16*)x, (const float*)g2, (const bf16*)b2, (const bf16*)wcq,
+      (const bf16*)bcq, nullptr, q1, B, D, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cross_mlp_attention_kernel<<<dim3(H, B), NT, smem_a, s>>>(
+      (const bf16*)q1, (const bf16*)k, (const bf16*)v, (float*)attn, T, D,
+      scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return mas_decoder_mlp_block(x, g3, b3, w1, b1, w2, b2m, attn, wco, bco,
+                               x32, part, counter, out, B, D, F, eps, stream);
 }

@@ -5,14 +5,16 @@ FusionSearcher``: analyze the query for weights, embed it, score every
 segment with availability-renormalized weighted cosine fusion, keep
 scores > threshold, return the top-10 plus a weight-info dict. The query
 embedding stays on the device between the embedder and the scoring.
+``search_batch`` embeds many queries at once and scores them all in one
+pass over the index. ``FusionConfig.index_dtype`` "float32" (default,
+exact top-k parity) or "bfloat16" sets the device index's dtype.
 
-Not ported (ROADMAP A12/A13): IVF, sharded search over a mesh, batched
-queries.
+Not ported (ROADMAP A12/A13): IVF, sharded search over a mesh.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -21,6 +23,9 @@ from ..pipelines.embed import TextEmbedder
 from .analyzer import KeywordAnalyzer, WeightAnalysis
 from .fusion import NEG_INF, fused_topk
 from .store import SegmentStore
+
+# FusionConfig.index_dtype -> the device index's dtype
+INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class FusionSearcher:
@@ -40,9 +45,11 @@ class FusionSearcher:
         if self.cfg.ann != "none":
             raise NotImplementedError(
                 f"ann={self.cfg.ann!r} is not ported (ROADMAP A12)")
-        if self.cfg.index_dtype != "float32":
+        if self.cfg.index_dtype not in INDEX_DTYPES:
             raise NotImplementedError(
-                f"index_dtype={self.cfg.index_dtype!r} is not ported")
+                f"index_dtype={self.cfg.index_dtype!r} is not ported; "
+                f"the port takes {sorted(INDEX_DTYPES)}")
+        self.index_dtype = INDEX_DTYPES[self.cfg.index_dtype]
         self.analyzer = analyzer or KeywordAnalyzer(self.cfg)
         self.device = embedder.device
 
@@ -79,7 +86,7 @@ class FusionSearcher:
         k = k or self.cfg.top_k
         t0 = time.perf_counter()
         wa = self.analyzer(query)
-        emb, ok = self.store.device_index(self.device)
+        emb, ok = self.store.device_index(self.device, self.index_dtype)
         q = self.embedder.embed_device([query])[0]   # unit-norm
         out = fused_topk(q, emb, ok, wa.asr_weight,
                          wa.audio_weight, k=min(k, emb.shape[0]),
@@ -94,3 +101,30 @@ class FusionSearcher:
             "latency_s": time.perf_counter() - t0,
         }
         return results, weight_info
+
+    @torch.inference_mode()
+    def search_batch(
+        self, queries: Sequence[str], k: int | None = None
+    ) -> list[tuple[list[dict[str, Any]], dict[str, Any]]]:
+        """Batched fusion search: one embed of all queries, one scoring pass
+        over the index for all of them. Returns [(results, weight_info)]
+        aligned with ``queries``."""
+        if len(self.store) == 0 or not queries:
+            return [([], {}) for _ in queries]
+        k = k or self.cfg.top_k
+        was = [self.analyzer(q) for q in queries]
+        emb, ok = self.store.device_index(self.device, self.index_dtype)
+        t0 = time.perf_counter()
+        q = self.embedder.embed_device(list(queries))      # [Q, D] unit-norm
+        out = fused_topk(q, emb, ok, [w.asr_weight for w in was],
+                         [w.audio_weight for w in was],
+                         k=min(k, emb.shape[0]),
+                         threshold=self.cfg.relevance_threshold)
+        out = {kk: v.cpu().numpy() for kk, v in out.items()}
+        dt = time.perf_counter() - t0
+        return [(self._rows({kk: v[qi] for kk, v in out.items()}, wa),
+                 {"asr_weight": wa.asr_weight,
+                  "audio_weight": wa.audio_weight,
+                  "analysis": wa.analysis, "query": query,
+                  "latency_s": dt})
+                for qi, (query, wa) in enumerate(zip(queries, was))]

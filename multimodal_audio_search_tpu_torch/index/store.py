@@ -113,13 +113,24 @@ class SegmentStore:
         return self._audio[i] if self.keep_audio and i < len(self._audio) \
             else None
 
+    def host_index(self, padded: bool = False) \
+            -> tuple[np.ndarray, np.ndarray]:
+        """(emb, success) host views. ``padded=True`` returns the full
+        capacity bucket (padding rows have success=False), row-aligned
+        with device_index()."""
+        if padded:
+            return self._emb, self._success
+        n = len(self.meta)
+        return self._emb[:n], self._success[:n]
+
     def device_index(self, device, dtype=torch.float32) \
             -> tuple[torch.Tensor, torch.Tensor]:
         """(emb[cap,2,D], success[cap,2]) on ``device``, padded to the
         capacity bucket; padding rows have success=False so the fused
         scoring marks them invalid. Cached until the store mutates or the
         requested device/dtype changes. float32 keeps exact top-k parity
-        with the reference."""
+        with the reference; bfloat16 (rounded to nearest even, as
+        jnp.asarray rounds) halves the bytes a query reads."""
         key = (self._cap, str(dtype), str(device))
         if self._device_view is None or self._device_view[0] != key:
             emb = torch.as_tensor(self._emb).to(device=device, dtype=dtype)

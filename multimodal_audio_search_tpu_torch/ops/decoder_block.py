@@ -1,4 +1,4 @@
-"""Fused decoder sub-blocks of one KV-cached decode step (K3, K4).
+"""Fused decoder sub-blocks of one KV-cached decode step (K3, K4, K14).
 
 Counterpart of ``multimodal_audio_search_tpu/ops/decoder_block.py``:
 
@@ -9,6 +9,9 @@ Counterpart of ``multimodal_audio_search_tpu/ops/decoder_block.py``:
                              cross q-projection; returns (.., q_cross)
   fused_mlp_block     (K4)   x -> x + fc2(gelu(fc1(LN x)))
   fused_mlp_block_o   (K4-o) x -> x + attn @ Wco + bco, then the K4 math
+  fused_cross_mlp_block (K14) x -> + cross attention of LN2(x) over
+                             merged K/V -> + MLP(LN3(.)); as in the JAX
+                             package, no decode step calls it
 
 On a CUDA tensor each wrapper launches ``csrc/decoder_block.cu``; on a CPU
 tensor it runs the ``*_plain`` version of the same math. There is no
@@ -155,6 +158,29 @@ def mlp_block_o_plain(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
     return _mlp_math(x1, ln_g, ln_b, w1, b1, w2, b2, dt, eps)
 
 
+def cross_mlp_block_plain(x, ln2_g, ln2_b, wcq, bcq, wco, bco,
+                          ln3_g, ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, *,
+                          heads: int, eps: float = 1e-5):
+    """B12 in plain PyTorch, rounding where ``_cross_mlp_kernel`` rounds:
+    h = LN2(x) and q1 = h @ Wcq + bcq in x's dtype; the unnormalised p =
+    exp(logits - max) in x's dtype before PV, summed into l unrounded, and
+    the division by l after PV; then mlp_block_o_plain (attn rounded
+    before the o-projection, x1 float32 into the MLP). x [B, D]; k_m, v_m
+    [B, T, D] merged-head cross K/V. Returns [B, D] in x's dtype."""
+    dt = x.dtype
+    b, hd = x.shape
+    t, d = k_m.shape[1], hd // heads
+    h = _r(_ln(x.float(), ln2_g, ln2_b, dt, eps), dt)
+    q1 = _r(_proj(h, wcq, bcq, dt), dt).reshape(b, heads, d)
+    kh, vh = (a.float().reshape(b, t, heads, d) for a in (k_m, v_m))
+    logits = torch.einsum("bhd,bthd->bht", q1, kh) * (1.0 / math.sqrt(d))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    of = torch.einsum("bht,bthd->bhd", _r(p, dt), vh)
+    attn = (of / p.sum(-1, keepdim=True)).reshape(b, hd)
+    return mlp_block_o_plain(x, attn, wco, bco, ln3_g, ln3_b, wm1, bm1, wm2,
+                             bm2, eps=eps)
+
+
 # ------------------------------------------------------------- card side
 _COUNTERS: dict = {}
 
@@ -175,7 +201,8 @@ def _check(kernel: str, ref: torch.Tensor, **tensors) -> None:
         if a.device != ref.device:
             raise ValueError(f"{kernel}: {name} on {a.device}, x on "
                              f"{ref.device}")
-        want = torch.float32 if name in ("ln_g", "cross_ln_g", "attn") \
+        want = torch.float32 if name in ("ln_g", "cross_ln_g", "attn",
+                                         "ln2_g", "ln3_g") \
             else torch.bfloat16
         if a.dtype != want:
             raise TypeError(f"{kernel} takes {name} as {want}, got {a.dtype}")
@@ -342,3 +369,58 @@ def fused_mlp_block_o(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
                            head=(attn, wco, bco))
     return mlp_block_o_plain(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2,
                              eps=eps)
+
+
+def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
+                      wm1, bm1, wm2, bm2, k_m, v_m, heads: int, eps: float):
+    b, hd = x.shape
+    f = wm1.shape[1]
+    if hd != heads * 64 or f % 128:
+        raise ValueError(f"K14 takes head dim 64 and F % 128 == 0: D={hd}, "
+                         f"heads={heads}, F={f}")
+    t = k_m.shape[1]
+    vecs = dict(ln2_g=ln2_g, ln2_b=ln2_b, bcq=bcq, bco=bco, ln3_g=ln3_g,
+                ln3_b=ln3_b, bm2=bm2)
+    for name, a in vecs.items():
+        _shape("K14", a, (hd,), name)
+    for name, a in dict(wcq=wcq, wco=wco).items():
+        _shape("K14", a, (hd, hd), name)
+    _shape("K14", wm1, (hd, f), "wm1")
+    _shape("K14", bm1, (f,), "bm1")
+    _shape("K14", wm2, (f, hd), "wm2")
+    _shape("K14", k_m, (b, t, hd), "k_m")
+    _shape("K14", v_m, (b, t, hd), "v_m")
+    _check("K14", x, x=x, wcq=wcq, wco=wco, wm1=wm1, bm1=bm1, wm2=wm2,
+           k_m=k_m, v_m=v_m, **vecs)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    q1, out = torch.empty_like(x), torch.empty_like(x)
+    attn, x32 = torch.empty((b, hd), **f32), torch.empty((b, hd), **f32)
+    part = torch.empty((f // 128, b, hd), **f32)
+    lib = runtime.kernels()
+    rc = lib.mas_cross_mlp_block(
+        *(a.data_ptr() for a in (x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
+                                 ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, q1,
+                                 attn, x32, part)),
+        _counters(dev)[1].data_ptr(), out.data_ptr(), b, heads, t, f,
+        1.0 / math.sqrt(64), eps, runtime.stream_handle(dev))
+    runtime.check_launch(rc, "mas_cross_mlp_block")
+    runtime.bump("cross_mlp_block")
+    return out
+
+
+def fused_cross_mlp_block(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
+                          wm1, bm1, wm2, bm2, k_m, v_m, *, heads: int,
+                          eps: float = 1e-5):
+    """B12: x -> x1 = x + cross attention of LN2(x) over k_m/v_m [B, T, D]
+    @ Wco + bco -> x1 + fc2(gelu(fc1(LN3 x1))), [B, D]. CUDA tensors
+    launch K14 (one C call: K3-q's LN + row projection, B12's attention,
+    K4-o's o-projection + MLP; bf16, float32 LN scales), CPU tensors the
+    plain version."""
+    if _device(x) == "cuda":
+        return _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
+                                 ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, heads,
+                                 eps)
+    return cross_mlp_block_plain(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
+                                 ln3_b, wm1, bm1, wm2, bm2, k_m, v_m,
+                                 heads=heads, eps=eps)

@@ -51,6 +51,9 @@ COUNTS: dict[str, int] = {
     "encoder_attn_o_residual_int8": 0,
     "encoder_attn_o_residual_paired": 0,
     "encoder_attn_o_residual_ab": 0,
+    "fused_scores": 0,
+    "stream_read": 0,
+    "cross_mlp_block": 0,
 }
 
 _lock = threading.Lock()
@@ -181,6 +184,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, H, T
         f, p]                     # scale, stream
     lib.mas_int8_cached_attention.restype = i
+    lib.mas_fused_scores.argtypes = [
+        p, p, p,                  # q, emb, success
+        f, f, f,                  # asr weight, audio weight, threshold
+        p, ll, i, i,              # out, N, D, bf16 index
+        p]                        # stream
+    lib.mas_fused_scores.restype = i
+    lib.mas_stream_read.argtypes = [
+        p, p, ll, i, i,           # x, sums, rows, cols, passes
+        p]                        # stream
+    lib.mas_stream_read.restype = i
+    lib.mas_cross_mlp_block.argtypes = [
+        p, p, p, p, p, p, p,      # x, g2, b2, wcq, bcq, wco, bco
+        p, p, p, p, p, p,         # g3, b3, w1, b1, w2, b2
+        p, p,                     # k, v
+        p, p, p, p, p, p,         # q1, attn, x32, partials, counters, out
+        i, i, i, i,               # B, H, T, F
+        f, f, p]                  # scale, eps, stream
+    lib.mas_cross_mlp_block.restype = i
 
 
 def _build(so: pathlib.Path) -> tuple[str, str]:

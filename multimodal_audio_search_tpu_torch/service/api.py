@@ -4,6 +4,7 @@ Counterpart of ``multimodal_audio_search_tpu/service/api.py``:
 
     ingest(file_or_waveform) -> segment records (and index growth)
     search(query, k)         -> (ranked hits, weight_info)
+    search_batch(queries, k) -> [(ranked hits, weight_info)] per query
 
 plus persistence (save/load the index, same on-disk format as the JAX
 package) and stats export. The engine runs on ``device`` ("cuda" unless
@@ -138,6 +139,20 @@ class AudioSearchEngine:
             "search", time.perf_counter() - t0,
             query=query, hits=len(results))
         return results, weight_info
+
+    def search_batch(
+        self, queries: list[str], k: int | None = None
+    ) -> list[tuple[list[dict[str, Any]], dict[str, Any]]]:
+        """Many queries in one pass over the index (one batched embed, one
+        scoring pass for all of them)."""
+        searcher = self._ensure_searcher()
+        t0 = time.perf_counter()
+        out = searcher.search_batch(queries, k)
+        self.stats.pipelines["search_pipeline"].update_batch(
+            time.perf_counter() - t0,
+            sum(len(r) > 0 for r, _ in out),
+            sum(len(r) == 0 for r, _ in out))
+        return out
 
     # --------------------------------------------------------- persistence
     def save_index(self, path) -> None:

@@ -25,6 +25,7 @@ COPIED = [
     "pipelines/validators.py",
     "index/lexicon.py",
     "index/analyzer.py",
+    "utils/roofline.py",
 ]
 MEL_FUNCS = ["hann_window", "_hz_to_mel_slaney", "_mel_to_hz_slaney",
              "_hz_to_mel_htk", "_mel_to_hz_htk", "mel_filterbank",

@@ -1,4 +1,4 @@
-"""K1-K11 on the card, against their plain PyTorch versions.
+"""K1-K14 on the card, against their plain PyTorch versions.
 
 Marked ``requires_cuda``: on a machine without a CUDA card every test
 here skips (the card is looked up inside a fixture, never at import).
@@ -15,7 +15,12 @@ and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
 ragged M and N, float32 and bf16 outputs, with and without a bias; K6 and
 K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel); the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
-output's scale, K9-K11 by the K1 check), at ragged T, with planted faults.
+output's scale, K9-K11 by the K1 check), at ragged T, with planted faults;
+K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
+exactly on the rule rows, with the >= fault; K13 (streaming read) on every
+column, with the 128-column fault; K14 (cross + MLP block) by check_delta
+and, on the attention input, check_rel and check_bits; calibrate() and
+search_batch on the card.
 """
 import pytest
 import torch
@@ -646,3 +651,187 @@ def test_tiny_encoder_variant_engine_on_card(cuda, enc):
     exp = chip_smoke.expected_launches(False, None, steps, disp, ing.asr,
                                        ing.caption, enc)
     assert counts == exp and exp[chip_smoke.encoder_kernel(enc, 2)] > 0
+
+
+# ------------------------------------- K12-K14 (search at scale, B12)
+@pytest.mark.parametrize("n,dtype", [(1, "float32"), (31, "bfloat16"),
+                                     (1027, "float32"), (1027, "bfloat16"),
+                                     (100_000, "float32"),
+                                     (100_000, "bfloat16")])
+def test_k12_matches_plain(cuda, n, dtype):
+    """K12 at odd N (no padding: the stride loop ends at N) in both index
+    dtypes, held by chip_smoke's K12 check; one launch."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import fused_search as FS
+    q, e, ok = chip_smoke.k12_inputs(n, dtype, seed=n)
+    runtime.reset_counts()
+    got = FS.fused_scores_kernel(q, e, ok, 0.6, 0.4)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["fused_scores"] == 1
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    chip_smoke.check_k12(f"K12 N={n} {dtype}", got, q, e, ok, 0.6, 0.4)
+
+
+@pytest.mark.parametrize("d,dtype", [(4, "float32"), (8, "bfloat16"),
+                                     (136, "float32"), (64, "bfloat16")])
+def test_k12_other_widths(cuda, d, dtype):
+    """Index rows of any 16-byte multiple, not only MiniLM's 384."""
+    from multimodal_audio_search_tpu_torch.ops import fused_search as FS
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    e = torch.randn(5000, 2, d, generator=gen, device="cuda")
+    e = (e / e.norm(dim=-1, keepdim=True)).to(getattr(torch, dtype))
+    ok = torch.rand(5000, 2, generator=gen, device="cuda") > 0.3
+    q = e[7, 1].float()
+    chip_smoke.check_k12(f"K12 D={d}", FS.fused_scores_kernel(
+        q, e, ok, 0.3, 0.7), q, e, ok, 0.3, 0.7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k12_rules_and_the_ge_fault(cuda, dtype):
+    """The rule rows come out exactly; a kernel that compared with >=
+    (run here as K12 at the next float32 below the threshold, which gives
+    the same verdicts as >= on these exact values) fails the check."""
+    import numpy as np
+    from multimodal_audio_search_tpu_torch.ops import fused_search as FS
+    q, e, ok, want = chip_smoke.k12_rule_inputs(dtype)
+    thr = chip_smoke.K12_RULE_THRESHOLD
+    chip_smoke.check_k12_rules("K12", FS.fused_scores_kernel(
+        q, e, ok, 0.5, 0.5, threshold=thr), want)
+    below = float(np.nextafter(np.float32(thr), np.float32(0)))
+    with pytest.raises(AssertionError, match="validity rules"):
+        chip_smoke.check_k12_rules("K12 >=", FS.fused_scores_kernel(
+            q, e, ok, 0.5, 0.5, threshold=below), want)
+
+
+@pytest.mark.parametrize("rows,cols,passes", [(1, 8, 1), (1000, 128, 3),
+                                              (4099, 512, 2), (333, 264, 1),
+                                              (70000, 2048, 1)])
+def test_k13_matches_plain(cuda, rows, cols, passes):
+    """K13 at ragged shapes: every column sum within K13_RTOL; one launch;
+    stream_read keeps the first 128 sums, as the TPU kernel does."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import stream_read as SR
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = torch.rand(rows, cols, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    runtime.reset_counts()
+    got = SR.stream_read_sums(x, passes)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["stream_read"] == 1
+    chip_smoke.check_k13(f"K13 {rows}x{cols}", got,
+                         SR.stream_read_sums_plain(x, passes))
+    if cols >= 128:
+        assert SR.stream_read(x, passes).shape == (1, 128)
+
+
+def test_k13_check_sees_128_column_reads(cuda):
+    """A planted fault: sums of the first 128 columns only (what a kernel
+    reading just the columns it returns computes). Its [1, 128] output
+    matches; chip_smoke's check over all columns rejects it."""
+    from multimodal_audio_search_tpu_torch.ops import stream_read as SR
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(4096, 512, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ref = SR.stream_read_sums_plain(x, 2)
+    chip_smoke.check_k13("K13", SR.stream_read_sums(x, 2), ref)
+    faulty = torch.zeros_like(ref)
+    faulty[:128] = SR.stream_read_sums(x[:, :128].contiguous(), 2)
+    chip_smoke.check_k13("K13 first 128", faulty[:128], ref[:128])
+    with pytest.raises(AssertionError, match="column sums"):
+        chip_smoke.check_k13("K13 128 columns read", faulty, ref)
+
+
+@pytest.mark.parametrize("b,t,label", [(1, 1, "tiny"), (3, 77, "base"),
+                                       (5, 1500, "tiny"), (32, 1500, "base")])
+def test_k14_matches_plain(cuda, b, t, label):
+    """K14 at ragged B and T, both widths, on chip_smoke's "block" and
+    "attention" inputs, held by its checks; one launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    _, d, heads, f = next(w for w in chip_smoke.DEC_WIDTHS if w[0] == label)
+    gen = torch.Generator().manual_seed(b * t)
+    for inputs in ("block", "attention"):
+        args = chip_smoke.k14_inputs(gen, b, t, d, f,
+                                     attention_only=inputs == "attention")
+        runtime.reset_counts()
+        got = DB.fused_cross_mlp_block(*args, heads=heads)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["cross_mlp_block"] == 1
+        assert sum(runtime.COUNTS.values()) == 1
+        ref = DB.cross_mlp_block_plain(*args, heads=heads)
+        assert got.dtype == torch.bfloat16 and got.shape == (b, d)
+        if inputs == "block":
+            chip_smoke.check_delta("K14", got, ref, args[0])
+        else:
+            chip_smoke.check_rel("K14", got, ref, chip_smoke.K1_Y_MAX,
+                                 chip_smoke.K1_Y_L2)
+            chip_smoke.check_bits("K14", got, ref)
+
+
+def test_new_wrappers_raise_instead_of_falling_back(cuda):
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    from multimodal_audio_search_tpu_torch.ops import fused_search as FS
+    from multimodal_audio_search_tpu_torch.ops import stream_read as SR
+    q, e, ok = chip_smoke.k12_inputs(100, "float32")
+    with pytest.raises(ValueError):                   # D * 4 not 16-byte
+        FS.fused_scores_kernel(q[:6], e[..., :6].contiguous(), ok, 0.5, 0.5)
+    with pytest.raises(ValueError):                   # success as float
+        FS.fused_scores_kernel(q, e, ok.float(), 0.5, 0.5)
+    with pytest.raises(TypeError):                    # a float32 slab
+        SR.stream_read_sums(torch.ones(8, 128, device="cuda"), 1)
+    with pytest.raises(ValueError):                   # cols % 8 != 0
+        SR.stream_read_sums(torch.ones(8, 12, device="cuda",
+                                       dtype=torch.bfloat16), 1)
+    gen = torch.Generator().manual_seed(0)
+    args = list(chip_smoke.k14_inputs(gen, 2, 10, 384, 1536))
+    with pytest.raises(TypeError):                    # float32 x
+        DB.fused_cross_mlp_block(args[0].float(), *args[1:], heads=6)
+    with pytest.raises(ValueError):                   # head dim 96
+        DB.fused_cross_mlp_block(*args, heads=4)
+
+
+def test_calibrate_rates(cuda):
+    """calibrate() on the card: positive rates, the read rate under the
+    data sheet's 3,350 GB/s (with 5 % for the clock), K13 launched as
+    often as the search tool expects."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.utils import calibrate as CAL
+    runtime.reset_counts()
+    cal = CAL.calibrate("cuda")
+    assert runtime.COUNTS["stream_read"] == CAL.STREAM_READ_LAUNCHES
+    assert set(cal) == {"tflops_bf16", "hbm_gbps", "h2d_mbps"}
+    assert all(v > 0 for v in cal.values()), cal
+    assert cal["hbm_gbps"] < 3350 * 1.05, cal
+
+
+def test_search_batch_on_card_matches_search(cuda):
+    """FusionSearcher on the card with a MiniLM embedder: search_batch
+    gives search's ids and scores per query, with the float32 and the
+    bfloat16 index; a segment's own text finds it first."""
+    import numpy as np
+    from multimodal_audio_search_tpu_torch.config import FusionConfig
+    from multimodal_audio_search_tpu_torch.index.search import (
+        FusionSearcher)
+    from multimodal_audio_search_tpu_torch.index.store import SegmentStore
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.pipelines.embed import (
+        TextEmbedder)
+    emb = TextEmbedder(cfg=PRESETS["test"], device="cuda")
+    store = SegmentStore(embed_dim=64, keep_audio=False)
+    texts = [f"segment number {i} with words" for i in range(40)]
+    vecs = emb(texts)
+    for i, t in enumerate(texts):      # a third without an audio slot
+        store.add({"asr_text": t}, vecs[i], vecs[i] if i % 3 else None)
+    queries = [texts[5], "words", "number 12"]
+    for dt in ("float32", "bfloat16"):
+        s = FusionSearcher(store, emb, cfg=FusionConfig(index_dtype=dt))
+        batch = s.search_batch(queries)
+        for qt, (hits, _) in zip(queries, batch):
+            single, _ = s(qt)
+            assert [h["index"] for h in hits] == [h["index"] for h in single]
+            assert [h["fusion_score"] for h in hits] == pytest.approx(
+                [h["fusion_score"] for h in single], abs=1e-5)
+        top = batch[0][0][0]
+        assert top["index"] == 5 and top["asr_similarity"] > 0.999
+        assert store.device_index(emb.device, s.index_dtype)[0].dtype == \
+            getattr(torch, dt)

@@ -243,7 +243,8 @@ def _check_engine_parity(jeng, teng, rng, tmp_path):
          "decoder_mlp_block_o", "quant_matmul",
          "single_query_attention_int8", "int8_cached_attention",
          "encoder_attention", "encoder_attn_o_residual_int8",
-         "encoder_attn_o_residual_paired", "encoder_attn_o_residual_ab"), 0)
+         "encoder_attn_o_residual_paired", "encoder_attn_o_residual_ab",
+         "fused_scores", "stream_read", "cross_mlp_block"), 0)
     stats = json.loads(teng.export_stats_json())
     assert stats["database"]["total_segments"] == len(tsegs)
 
