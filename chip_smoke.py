@@ -19,7 +19,8 @@ Phases, one line each (``[phase] ...``):
    output (DELTA_MAX); K5 (int8 weights) at the (M, K, N) of a decode
    step's dense layers, the tied logits and the cross K/V projection
    over B*1500 rows (K5_SHAPES), K6 and K7 (int8 K/V) at B=32, T=1500,
-   H=8 and H=6; the encoder variants K8 (per-head attention), K9 (int8
+   H=8 and H=6; the encoder variants K8 (per-head attention on wgmma
+   and TMA, csrc/encoder_attention.cu), K9 (int8
    dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
    three forms of the softmax division at base width, on K1's inputs;
    K12 (fused search scores) at N=1M and N=1027 in float32 and bf16 and
@@ -30,7 +31,11 @@ Phases, one line each (``[phase] ...``):
    Tolerances asserted; median times from CUDA events after a warm-up,
    each beside the card's bound for the same work (bound()) and, for K2
    and K8, one scaled_dot_product_attention call as a yardstick (K13:
-   one torch.sum per pass).
+   one torch.sum per pass). K2 and K8 and their yardsticks also carry
+   ``device_ms`` (torch.profiler's CUDA kernel rows over 20 calls), K2
+   its split count and ``host_us`` (the wrapper's enqueue time a call),
+   and K8's line its mechanism: the wgmma, TMA and mbarrier instructions
+   counted in its SASS (cuobjdump), which must all be there.
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
    config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
@@ -114,12 +119,19 @@ K1_CASES = (("residual", 1.0, True), ("attention", 1.0, False),
 # exp and the order of the float32 sum l move a p8 code across a
 # rounding boundary: at most 0.38 % / 0.012 %. Planted faults in float32
 # emulations at T=1500 read (max / norm; tests/test_torch_encoder_
-# variants.py): K8's 36 zero-padded keys of the last 64-key tile left
+# variants.py): K8's 36 zero-padded keys of the last 128-key tile left
 # unmasked 1.26 % / 1.44 %; K9 with head 0's key scales for every head
 # 383 % / 55 %; K10 pairing each odd head's queries with its partner's
 # keys 89 % / 80 %; K11 without its 1/l over 9000 %.
 # K2: f32 output, f32 softmax and products on the same bf16 inputs in
-#     both -> only the summation order differs.
+#     both -> only the summation order differs. K2 splits T (12 splits of
+#     125 keys at T=1500) and merges the splits' states; a float64
+#     emulation of that arithmetic at B=32, T=1500 reads 1.6e-7, and the
+#     planted split faults (tests/test_torch_k2_split.py) read: the first
+#     key of every split but the first dropped, max |err| 2.3e-2 with 11109
+#     of 16384 elements outside the limit (21.8x it at worst); the last key
+#     of every split but the last counted twice, 5.0e-2, 11299 outside
+#     (47.6x).
 K2_ATOL, K2_RTOL = 1e-3, 1e-3
 # K3 (self block), K3-q, K4 (MLP block), K4-o: kernel and plain version
 # round to bf16 at the same places, and sum in different orders, so a
@@ -303,6 +315,62 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """Device milliseconds a call: torch.profiler's CUDA kernel rows
+    (device_type CUDA only: the op rows repeat the same time) over
+    ``reps`` calls after a warm-up, summed and divided by ``reps``. A
+    profile that comes back without device time (rare, but seen on an
+    H100) is taken again, ``tries`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise AssertionError(f"{tries} profiles held no device time")
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call: the wall time of ``n`` calls issued back
+    to back without a synchronise, after a warm-up (fewer launches than
+    the card's queue holds, so none waits for the device)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def sass_counts(function: str, opcodes=("HGMMA", "UTMALDG", "SYNCS")) -> dict:
+    """How often each SASS opcode occurs in the built kernel library's
+    function whose name contains ``function`` (cuobjdump -sass)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    tool = os.path.join(os.path.dirname(runtime._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", runtime.build_info["library"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts, inside = dict.fromkeys(opcodes, 0), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            for op in opcodes:
+                counts[op] += op in line
+    return counts
+
+
 def wav_bytes(x: np.ndarray, rate: int = SR) -> bytes:
     """Mono 16-bit PCM WAV in memory."""
     payload = (np.clip(x, -1.0, 1.0 - 1.0 / 32768) * 32768.0) \
@@ -366,6 +434,15 @@ def k1_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
         x = torch.zeros(b, t, hd, device=device, dtype=torch.bfloat16)
         bo = torch.zeros(hd, device=device, dtype=torch.bfloat16)
     return q, k, v, x, wo, bo
+
+
+def k2_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
+              device="cuda"):
+    """K2's inputs in bf16 as a decode step hands them over: the query
+    [B, H*64] and merged-head K/V [B, T, H*64], all ~ N(0, 1)."""
+    hd = heads * 64
+    return tuple(torch.randn(*shape, generator=gen).to(device, torch.bfloat16)
+                 for shape in ((b, hd), (b, t, hd), (b, t, hd)))
 
 
 def check_k1(name, got, ref, residual: bool) -> dict:
@@ -675,6 +752,18 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
     return [k5, k6, k7]
 
 
+def k8_mechanism() -> dict:
+    """K8's instructions in the built library: its warpgroup products
+    (HGMMA), TMA tensor loads (UTMALDG) and mbarrier operations (SYNCS).
+    Raises unless it has all three: K8 runs on wgmma and TMA only."""
+    counts = sass_counts("encoder_attention_kernel")
+    if not all(counts.values()):
+        raise AssertionError(f"K8's SASS lacks wgmma/TMA/mbarrier "
+                             f"instructions: {counts}")
+    return {"path": "wgmma.mma_async + cp.async.bulk.tensor + mbarrier",
+            "sass": counts}
+
+
 def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
     """K8, K9 and K10 at B=32, T=1500 and both widths, K11's three forms
     at base width, each against its plain version on K1's inputs
@@ -687,8 +776,9 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
         "multimodal_audio_search_tpu/ops"
     out = {
         "K8": {"name": "encoder_attention", "route": "cuda",
-               "source": f"{pkg}/encoder_block.cu",
-               "replaces": f"{jx}/attention.py:83", "cases": []},
+               "source": f"{pkg}/encoder_attention.cu",
+               "replaces": f"{jx}/attention.py:83",
+               "mechanism": k8_mechanism(), "cases": []},
         "K9": {"name": "encoder_attn_o_residual_int8", "route": "cuda",
                "source": f"{pkg}/encoder_block_int8.cu",
                "replaces": f"{jx}/encoder_block.py:319", "cases": []},
@@ -735,9 +825,13 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                     case["ms"] = time_ms(fused)
                     case["plain_ms"] = time_ms(plain, reps=5)
                     if key == "K8":
-                        case["library_ms"] = time_ms(
-                            lambda: torch.nn.functional.
-                            scaled_dot_product_attention(q, k, v))
+                        sdpa = (lambda: torch.nn.functional.
+                                scaled_dot_product_attention(q, k, v))
+                        case["library_ms"] = time_ms(sdpa)
+                        case["device_ms"] = device_ms(fused)
+                        case["library_device_ms"] = device_ms(sdpa)
+                        case["tflops"] = (4 * b * heads * t * t * 64
+                                          / case["device_ms"] / 1e9)
                         case.update(bound(4 * nbytes(q),
                                           bf16=4 * b * heads * t * t * 64))
                     else:
@@ -757,12 +851,6 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
 def kernel_phase(card: str, gen: torch.Generator):
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
-
-    def rn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
-
     k1 = {"name": "encoder_attn_o_residual", "route": "cuda",
           "source": "multimodal_audio_search_tpu_torch/csrc/encoder_block.cu",
           "replaces": "multimodal_audio_search_tpu/ops/encoder_block.py:425",
@@ -803,30 +891,33 @@ def kernel_phase(card: str, gen: torch.Generator):
                           ("self", 68, 3), ("self", 68, 67)):
         b, heads, d = 32, 8, 64
         hd = heads * d
-        q, k, v = rn(b, hd), rn(b, t, hd), rn(b, t, hd)
+        q, k, v = k2_inputs(gen, b, t, heads)
         got = K2.fused_single_query_attention(q, k, v, heads=heads, pos=pos)
         ref = K2.single_query_attention_plain(q, k, v, heads=heads, pos=pos)
         torch.cuda.synchronize()
         err = check_close(f"K2 {label} pos={pos}", got, ref, K2_ATOL,
                           K2_RTOL)
-        ms = time_ms(lambda: K2.fused_single_query_attention(
-            q, k, v, heads=heads, pos=pos))
-        plain_ms = time_ms(lambda: K2.single_query_attention_plain(
-            q, k, v, heads=heads, pos=pos))
         n = t if pos is None else pos + 1
+        fused = (lambda: K2.fused_single_query_attention(
+            q, k, v, heads=heads, pos=pos))
         # the yardstick: one PyTorch call over the same keys (views)
         qh = q.view(b, 1, heads, d).transpose(1, 2)
         kh, vh = (a[:, :n].view(b, n, heads, d).transpose(1, 2)
                   for a in (k, v))
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh))
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh))
+        splits, chunk = K2.split_plan(n, b * heads)
         case = {"shape": f"{label} B={b} T={t} H={heads} pos={pos}",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "gbps": 2 * b * n * hd * 2 / ms / 1e6,
+                "splits": splits, "keys_per_split": chunk,
+                "max_abs_err": err, "ms": time_ms(fused),
+                "plain_ms": time_ms(lambda: K2.single_query_attention_plain(
+                    q, k, v, heads=heads, pos=pos)),
+                "library_ms": time_ms(sdpa), "device_ms": device_ms(fused),
+                "library_device_ms": device_ms(sdpa),
+                "host_us": host_us(fused), "library_host_us": host_us(sdpa),
                 **bound(nbytes(q, got) + 2 * b * n * hd * 2,
                         bf16=4 * b * n * hd)}
+        case["gbps"] = 2 * b * n * hd * 2 / case["device_ms"] / 1e6
         k2["cases"].append(case)
         phase("kernels", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
               **case)
@@ -1657,6 +1748,9 @@ def main() -> int:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first.get("library_ms"),
+            **{f: first[f] for f in ("device_ms", "library_device_ms")
+               if f in first},
+            **({"mechanism": k["mechanism"]} if "mechanism" in k else {}),
             "shape": first["shape"], "path": path_of[key],
             "cases": k["cases"]})
     print(card, flush=True)

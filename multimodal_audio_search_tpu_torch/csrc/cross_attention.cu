@@ -13,34 +13,71 @@
 //
 // What bounds it on an H100: device-memory bytes. Cross K/V at B=32,
 // T=1500, base width are 49 MB per tensor per layer, read once per decode
-// step for 4 FLOP per byte -- far under the card's balance point.
+// step for 4 FLOP per byte -- far under the card's balance point. With one
+// query row per head the products have M = 1, so the tensor cores would
+// sit idle; the dots are f32 FMAs on the CUDA cores.
 //
-// Design (simple first version): one 256-thread block per (head, batch
-// row). Eight lanes cover one 64-wide head row with one 16-byte load each,
-// so a block streams 32 K and V rows at a time, fully coalesced
-// (128 contiguous bytes per row and tensor). Each 8-lane group keeps an
-// online softmax (running max, sum, 8 output columns in registers); the
-// 32 group states merge through shared memory at the end. The /l division
-// is applied once to the merged output, as the TPU kernel defers it.
-// Later work (ROADMAP): split-T flash-decoding for more blocks in flight
-// at small batch.
-#include "common.cuh"
+// Design: split T (flash-decoding) with asynchronous copies.
+//   * The grid is (H, S, B): split s of (b, h) takes keys s*chunk ..
+//     (s+1)*chunk - 1 below n_valid; the host picks S from n_valid
+//     (ops/cross_attention.py::split_plan: 128 keys a split, S = 12 at
+//     T = 1500, 3072 blocks; S = 1 for the self-attention calls). Heads
+//     vary fastest, so blocks resident together read whole K/V rows.
+//   * A block of 128 threads stages up to 128 keys at a time. Before its
+//     first arithmetic it issues every copy of them (cp.async, 16 bytes a
+//     thread per row and tensor: 8 lanes cover a head's 128-byte slice of
+//     a row, 16 rows a pass, eight passes), so 32 KB are in flight per
+//     block and several blocks per SM. Each thread reads back only the
+//     bytes it copied itself, so no barrier stands between copy and use.
+//   * Each 8-lane group keeps an online softmax (running max, sum, its 8
+//     output columns) over its rows; the four groups of a warp merge by
+//     shuffles, the four warps through shared memory.
+//   * S = 1 divides by l and writes the output. Otherwise each split
+//     writes its (m, l, acc[64]) to a float32 scratch and the last block
+//     to arrive for its (batch, head) (a __threadfence, then an atomic on
+//     the pair's counter) merges the S states and writes the output, so a
+//     call stays one launch; it leaves the counter at zero for the next.
+//     A split or group with no valid key holds m = -inf, l = 0, acc = 0
+//     and contributes nothing.
+// The /l division is applied once to the merged output, as the TPU kernel
+// defers it. Tried on an H100 and not kept: a ring of cp.async stages
+// over longer chunks, TMA boxes in place of cp.async, 256- and 64-thread
+// blocks, 6 to 48 splits at T=1500 -- none read more than a few percent
+// faster than this, and the one-block-per-head kernel this replaced
+// reads at the same rate on the device (PERF.md).
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int D = 64;
-constexpr int NT = 256;
-constexpr int GROUPS = NT / 8;  // K/V rows in flight per block
+using namespace sm90;
 
-__global__ void __launch_bounds__(NT) single_query_attention_kernel(
+constexpr int D = 64;
+constexpr int NT = 128;
+constexpr int GROUPS = NT / 8;          // key rows per pass, 8 lanes a row
+constexpr int PASSES = 8;
+constexpr int CHUNK = GROUPS * PASSES;  // keys staged in shared memory at once
+constexpr int PART = D + 2;             // floats of a split's state: m, l, acc
+
+// Weight of a state with max m in a merge whose max is mx (0 for an empty
+// state, m = -inf, even when mx is -inf too).
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : expf(m - mx);
+}
+
+__global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, float* __restrict__ out, int T, int HD,
-    int n_valid, float scale) {
-  __shared__ float sm_m[GROUPS], sm_l[GROUPS];
-  __shared__ float sm_acc[GROUPS][D];
-  const int h = blockIdx.x, b = blockIdx.y;
+    const bf16* __restrict__ v, float* __restrict__ out, float* part,
+    int* counters, int T, int HD, int n_valid, int chunk, float scale) {
+  __shared__ __align__(16) bf16 sk[CHUNK * D], sv[CHUNK * D];
+  __shared__ float sm_m[NT / 32], sm_l[NT / 32], sm_acc[NT / 32][D];
+  __shared__ int s_last;
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.x, S = gridDim.y;
   const int sub = threadIdx.x & 7, grp = threadIdx.x >> 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col = h * D + sub * 8;
+  const int t0 = split * chunk;
+  const int t1 = min(n_valid, t0 + chunk);  // keys t0 .. t1 - 1, maybe none
 
   float qf[8];
   bf16x8_to_f32(*reinterpret_cast<const uint4*>(q + (long long)b * HD + col),
@@ -50,73 +87,155 @@ __global__ void __launch_bounds__(NT) single_query_attention_kernel(
 
   float m = -INFINITY, l = 0.f, acc[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 
-  // uniform trip count over the block, so every lane reaches the shuffles
-  for (int t0 = 0; t0 < n_valid; t0 += GROUPS) {
-    const int t = t0 + grp;
-    const bool ok = t < n_valid;
-    uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-    if (ok) {
-      kr = *reinterpret_cast<const uint4*>(kb + (long long)t * HD);
-      vr = *reinterpret_cast<const uint4*>(vb + (long long)t * HD);
+  for (int p0 = t0; p0 < t1; p0 += CHUNK) {  // uniform over the block
+    // every copy of this piece first: rows p0 + grp + 16 i, 16 bytes each
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const int r = grp + i * GROUPS;
+      if (p0 + r < t1) {
+        cp_async16(sk + r * D + sub * 8, kb + (long long)(p0 + r) * HD);
+        cp_async16(sv + r * D + sub * 8, vb + (long long)(p0 + r) * HD);
+      }
     }
-    float kf[8];
-    bf16x8_to_f32(kr, kf);
-    float s = 0.f;
+    cp_async_commit();
+    cp_async_wait_all();
+
+    float sc[PASSES];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s = fmaf(qf[i], kf[i], s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
-    if (ok) {
-      s *= scale;
-      const float mn = fmaxf(m, s);
-      const float c = expf(m - mn);  // 0 for the empty first state
-      const float p = expf(s - mn);
-      float vf[8];
-      bf16x8_to_f32(vr, vf);
-      l = l * c + p;
+    for (int i = 0; i < PASSES; ++i) {
+      float kf[8];
+      bf16x8_to_f32(
+          *reinterpret_cast<const uint4*>(sk + (grp + i * GROUPS) * D + sub * 8),
+          kf);
+      float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i] * c);
-      m = mn;
+      for (int e = 0; e < 8; ++e) d = fmaf(qf[e], kf[e], d);
+      sc[i] = d;
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < PASSES; ++i)
+        sc[i] += __shfl_xor_sync(0xffffffffu, sc[i], off);
+    }
+    float mx = m;
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      // a row past t1 holds stale bytes: replaced, never used in arithmetic
+      sc[i] = p0 + grp + i * GROUPS < t1 ? sc[i] * scale : -INFINITY;
+      mx = fmaxf(mx, sc[i]);
+    }
+    if (mx != -INFINITY) {  // the group has seen a key
+      const float c = expf(m - mx);  // 0 for the empty first state
+      l *= c;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] *= c;
+#pragma unroll
+      for (int i = 0; i < PASSES; ++i) {
+        if (sc[i] == -INFINITY) continue;
+        const float p = expf(sc[i] - mx);
+        float vf[8];
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(
+                          sv + (grp + i * GROUPS) * D + sub * 8),
+                      vf);
+        l += p;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
+      }
+      m = mx;
     }
   }
 
+  // the warp's four group states (lanes 8 apart share columns)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) sm_acc[grp][sub * 8 + i] = acc[i];
-  if (sub == 0) {
-    sm_m[grp] = m;
-    sm_l[grp] = l;
+  for (int off = 8; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(m, mo);
+    const float ca = weight(m, mn), cb = weight(mo, mn);
+    l = l * ca + lo * cb;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[e] = acc[e] * ca + __shfl_xor_sync(0xffffffffu, acc[e], off) * cb;
+    m = mn;
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sm_acc[warp][sub * 8 + e] = acc[e];
+    if (lane == 0) {
+      sm_m[warp] = m;
+      sm_l[warp] = l;
+    }
   }
   __syncthreads();
-  if (threadIdx.x < D) {
+  if (threadIdx.x < D) {  // the block's state, one column a thread
     const int d = threadIdx.x;
     float mx = -INFINITY;
-    for (int i = 0; i < GROUPS; ++i) mx = fmaxf(mx, sm_m[i]);
-    float lsum = 0.f, o = 0.f;
-    for (int i = 0; i < GROUPS; ++i) {
-      // groups that saw no key hold m = -inf and contribute 0
-      const float w = expf(sm_m[i] - mx);
-      lsum += sm_l[i] * w;
-      o += sm_acc[i][d] * w;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) mx = fmaxf(mx, sm_m[w]);
+    float ls = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      const float c = weight(sm_m[w], mx);
+      ls += sm_l[w] * c;
+      o += sm_acc[w][d] * c;
     }
-    out[(long long)b * HD + h * D + d] = o / lsum;
+    if (S == 1) {
+      out[(long long)b * HD + h * D + d] = o / ls;
+    } else {
+      float* ps = part + ((long long)(b * H + h) * S + split) * PART;
+      if (d == 0) {
+        ps[0] = mx;
+        ps[1] = ls;
+      }
+      ps[2 + d] = o;
+    }
   }
+  if (S == 1) return;
+
+  // the last split of (b, h) to arrive merges the S states
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(counters + b * H + h, 1) == S - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (threadIdx.x < D) {
+    const int d = threadIdx.x;
+    const float* ps = part + (long long)(b * H + h) * S * PART;
+    float mx = -INFINITY;
+    for (int i = 0; i < S; ++i) mx = fmaxf(mx, __ldcg(ps + i * PART));
+    float ls = 0.f, o = 0.f;
+    for (int i = 0; i < S; ++i) {
+      const float c = weight(__ldcg(ps + i * PART), mx);
+      ls += __ldcg(ps + i * PART + 1) * c;
+      o += __ldcg(ps + i * PART + 2 + d) * c;
+    }
+    out[(long long)b * HD + h * D + d] = o / ls;
+  }
+  if (threadIdx.x == 0) counters[b * H + h] = 0;
 }
 
 }  // namespace
 
 // q: [B, HD] bf16; k, v: [B, T, HD] bf16 contiguous; out: [B, HD] f32.
-// HD = H * 64. Attends keys 0 .. n_valid-1 (1 <= n_valid <= T).
-// Returns cudaGetLastError() after the launch.
+// HD = H * 64. Attends keys 0 .. n_valid-1 (1 <= n_valid <= T) in
+// `splits` splits of `chunk` keys (splits * chunk >= n_valid). With
+// splits > 1, part holds B*H*splits*66 floats and counters B*H zeroed
+// ints, which the call leaves zero. Returns cudaGetLastError() after the
+// launch.
 extern "C" int mas_single_query_attention(const void* q, const void* k,
-                                          const void* v, void* out, int B,
+                                          const void* v, void* out,
+                                          void* part, void* counters, int B,
                                           int H, int T, int HD, int n_valid,
-                                          float scale, void* stream) {
-  dim3 grid(H, B);
+                                          int splits, int chunk, float scale,
+                                          void* stream) {
+  dim3 grid(H, splits, B);
   single_query_attention_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)out, T, HD,
-      n_valid, scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)out,
+      (float*)part, (int*)counters, T, HD, n_valid, chunk, scale);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,379 @@
+// K8: encoder self-attention per (batch, head), on Hopper's warpgroup
+// matrix products (wgmma) fed by TMA tensor copies.
+//
+// Function: softmax(Q K^T / sqrt(64)) V per (batch, head), non-causal, on
+// [B, H, T, 64] bf16 views with a unit last stride (the encoder passes the
+// head-split views of its q/k/v dense outputs); the bf16 output goes into
+// a merged [B, T, H, 64] buffer, the layout the o-projection reads.
+//
+// Replaces multimodal_audio_search_tpu/ops/attention.py::
+// fused_encoder_attention (body _attn_kernel, pallas_call :83), the
+// fused_encoder=False path at T >= 512. Its roundings are kept: scores in
+// float32, p = exp(s - m) rounded to bf16 before the PV product, the row
+// sums l taken over the unrounded p, and a true division of the [rows, 64]
+// output by l before the bf16 store.
+//
+// What bounds it on an H100: tensor-core operations. At B=32, T=1500, H=8
+// the two products are 147 GFLOP against 98 MB of q/k/v/out, about 1500
+// FLOP a byte, five times the card's balance point. With a head dim of 64
+// the softmax weighs as much: one exp2 (the SM's 16-a-clock MUFU unit) per
+// score against 256 FLOP of tensor-core work per score, about equal times.
+//
+// Design.
+//   * A block is 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows and one producer warp, 288 threads. Blocks of
+//     one head are adjacent in the grid, so its K/V stay in L2.
+//   * The producer's one thread issues TMA copies (cp.async.bulk.tensor
+//     over a rank-4 tensor map of each view, box {64, 128} rows, 128-byte
+//     swizzle: a 64-wide bf16 row is exactly one swizzle atom): the Q tile
+//     once, then K/V tiles of 128 keys into a STAGES-deep ring with full
+//     and empty mbarriers, so the next tiles are in flight while the
+//     consumers compute. The maps' T extent is T: TMA writes zeros for
+//     rows past T, and the consumers still set those keys to -inf (a zero
+//     key scores 0, not -inf).
+//   * Each consumer warpgroup: S = Q K^T as four wgmma m64n128k16 with Q
+//     and K in shared memory (K's rows are the K-major B operand); the
+//     online softmax in registers (f32 row max and sum, exp2 with log2(e)
+//     folded into the scale); P re-packed from the S accumulators to bf16
+//     A fragments in registers (the accumulator and A layouts agree per
+//     16-key step), and O += P V as eight wgmma m64n64k16 with V as the
+//     MN-major B operand (the transpose bit).
+//   * Overlap: tile j's scores are issued together with tile j-1's PV
+//     product, so the softmax of tile j (the exp2 work) runs while the
+//     tensor cores finish that product; the first tile is peeled off the
+//     loop, which keeps the wgmma pipeline free of branches (ptxas
+//     serialises the products otherwise). Two named barriers make the
+//     warpgroups take turns issuing their products (ping-pong), so one's
+//     softmax meets the other's products. After its PV product a warp
+//     releases the stage to the producer.
+//   * Host: the three tensor maps are encoded once per view and kept in
+//     a small cache (tensor_map), so a call with views seen before only
+//     launches.
+//   * Registers: S (64) + O (32) + P (32) a thread, ~160 in all, so one
+//     block fills an SM; shared memory holds Q (16 KB) and STAGES x 32 KB
+//     of K/V, above the 48 KB default, so mas_encoder_attention_init
+//     raises the limit once at library load.
+// Tried on an H100 and not kept (PERF.md): 192-key tiles (S of 96
+// registers spills), two stages, no ping-pong, and no overlap, each
+// slower. Later work: a TMA store of the output.
+#include <mutex>
+
+#include "sm90.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int D = 64;
+constexpr int BM = 128;  // query rows per block
+constexpr int BN = 128;  // keys per K/V tile
+constexpr int STAGES = 3;
+constexpr int NT = 288;  // two consumer warpgroups + one producer warp
+constexpr int TILE = BN * D;                        // elements of one tile
+constexpr int TILE_BYTES = TILE * (int)sizeof(bf16);  // 16 KB
+constexpr int SMEM_BYTES =
+    1024 + (BM * D + 2 * STAGES * TILE) * (int)sizeof(bf16) + 128;
+constexpr int NS = BN / 2;  // score accumulators a thread (two rows)
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp2 on the SM's MUFU unit (2 ulp; flushes results below 2^-126 to 0,
+// far below what a bf16 p or an f32 row sum resolves)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers 1 and 2 order the two consumer warpgroups' products
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// S = Q K^T over a tile's BN keys, 16 of the head dim per product.
+__device__ __forceinline__ void issue_scores(float s[NS], uint64_t dq,
+                                             uint64_t dk) {
+  wgmma_m64n128k16_ss<false>(s, dq, dk);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_m64n128k16_ss<true>(s, dq + 2 * kk, dk + 2 * kk);
+}
+
+// O += P V over a tile's BN keys: 16 keys (two 1024-byte row groups of
+// V) per product.
+__device__ __forceinline__ void issue_pv(float o[32], const uint32_t pa[NS / 2],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_m64n64k16_rs_mn(o, &pa[4 * kk], dv + kk * (2048 >> 4));
+}
+
+// One online-softmax step on the tile's scores (keys kv0 ..): keys >= T
+// set to -inf, s -> p = exp2(s * scale_log2 - m_new) in place, the row
+// sums l of the unrounded p updated, c = exp2(m_old - m_new) returned for
+// the output's rescale. Every tile holds a key < T, so the new maxima are
+// finite and exp2(-inf - m) = 0 rescales the empty first state.
+__device__ __forceinline__ void softmax_step(float s[NS], int kv0, int T,
+                                             int t4, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1) {
+  if (kv0 + BN > T) {
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int key = kv0 + jn * 8 + 2 * t4;
+      if (key >= T) s[4 * jn] = s[4 * jn + 2] = -INFINITY;
+      if (key + 1 >= T) s[4 * jn + 1] = s[4 * jn + 3] = -INFINITY;
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * jn], s[4 * jn + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * jn + 2], s[4 * jn + 3]));
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+  const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    s[4 * jn] = ex2(fmaf(s[4 * jn], scale_log2, -m0));
+    s[4 * jn + 1] = ex2(fmaf(s[4 * jn + 1], scale_log2, -m0));
+    s[4 * jn + 2] = ex2(fmaf(s[4 * jn + 2], scale_log2, -m1));
+    s[4 * jn + 3] = ex2(fmaf(s[4 * jn + 3], scale_log2, -m1));
+    rs0 += s[4 * jn] + s[4 * jn + 1];
+    rs1 += s[4 * jn + 2] + s[4 * jn + 3];
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+}
+
+// P in bf16 as wgmma A fragments: keys 16kk .. 16kk + 15 are the score
+// chunks 2kk and 2kk + 1 (the accumulator and A layouts agree).
+__device__ __forceinline__ void pack_p(uint32_t pa[NS / 2], const float s[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    pa[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1) encoder_attention_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int T,
+    int H, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
+  bf16* sQ = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* sK = sQ + BM * D;         // [STAGES][BN][64]
+  bf16* sV = sK + STAGES * TILE;  // [STAGES][BN][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * TILE);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + STAGES;
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BM;
+  const int n_tiles = (T + BN - 1) / BN;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp; one thread issues every copy
+    if (threadIdx.x == 256) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      mbar_expect_tx(q_full, BM * D * (int)sizeof(bf16));
+      tma_load_4d(sQ, &tq, q_full, 0, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&kv_empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s], 2 * TILE_BYTES);
+        tma_load_4d(sK + s * TILE, &tk, &kv_full[s], 0, j * BN, h, b);
+        tma_load_4d(sV + s * TILE, &tv, &kv_full[s], 0, j * BN, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: query rows q0 + 64 wg .. + 63. Tile j's
+  // scores are issued together with tile j-1's PV product, so the softmax
+  // of tile j runs while the tensor cores finish that PV product.
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const uint64_t dq = desc_sw128(sQ + wg * 64 * D, 16, 1024);
+  float o[32], s[NS];
+  uint32_t pa[NS / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
+  if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+
+  mbar_wait(q_full, 0);
+  // tile 0: its scores alone
+  mbar_wait(&kv_full[0], 0);
+  named_sync(1 + wg);
+  wg_fence();
+  issue_scores(s, dq, desc_sw128(sK, 16, 1024));
+  wg_commit();
+  if (wg == 0 || n_tiles > 1) named_arrive(2 - wg);
+  wg_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NS; ++i) reg_fence(s[i]);
+  {
+    float c0, c1;
+    softmax_step(s, 0, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+  }
+  pack_p(pa, s);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    mbar_wait(&kv_full[st], (j / STAGES) & 1);
+    named_sync(1 + wg);
+    wg_fence();
+    issue_scores(s, dq, desc_sw128(sK + st * TILE, 16, 1024));
+    wg_commit();
+    // tile j-1's PV product, P from the last softmax
+    issue_pv(o, pa, desc_sw128(sV + ((j - 1) % STAGES) * TILE, 16, 1024));
+    wg_commit();
+    if (wg == 0 || j + 1 < n_tiles) named_arrive(2 - wg);
+    wg_wait<1>();
+#pragma unroll
+    for (int i = 0; i < NS; ++i) reg_fence(s[i]);
+    float c0, c1;
+    softmax_step(s, j * BN, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[(j - 1) % STAGES]);
+#pragma unroll
+    for (int jd = 0; jd < 8; ++jd) {
+      o[4 * jd] *= c0;
+      o[4 * jd + 1] *= c0;
+      o[4 * jd + 2] *= c1;
+      o[4 * jd + 3] *= c1;
+    }
+    pack_p(pa, s);
+  }
+  // the last tile's PV product
+#pragma unroll
+  for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+  wg_fence();
+  issue_pv(o, pa, desc_sw128(sV + ((n_tiles - 1) % STAGES) * TILE, 16, 1024));
+  wg_commit();
+  wg_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+
+  // o / l, rounded to bf16, into the merged [B, T, H, 64] buffer
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int ra = q0 + wg * 64 + warp * 16 + g, rb = ra + 8;
+#pragma unroll
+  for (int jd = 0; jd < 8; ++jd) {
+    const int col = h * D + jd * 8 + 2 * t4;
+    if (ra < T)
+      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + ra) * H * D +
+                                   col) = pack_bf16(o[4 * jd] / l0,
+                                                    o[4 * jd + 1] / l0);
+    if (rb < T)
+      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + rb) * H * D +
+                                   col) = pack_bf16(o[4 * jd + 2] / l1,
+                                                    o[4 * jd + 3] / l1);
+  }
+}
+
+// The tensor maps of recent views, so a call encodes none for a view it
+// has seen (the encoder's q/k/v buffers recur from batch to batch). A map
+// describes addresses and strides only, so a hit is valid whatever the
+// memory now holds; the ring's oldest entry makes room for a new view.
+struct MapKey {
+  const void* base;
+  int B, H, T, rows;
+  long long sb, sh, st;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && B == o.B && H == o.H && T == o.T &&
+           rows == o.rows && sb == o.sb && sh == o.sh && st == o.st;
+  }
+};
+constexpr int MAP_CACHE = 64;
+MapKey map_keys[MAP_CACHE];
+CUtensorMap map_vals[MAP_CACHE];
+int map_used = 0, map_next = 0;
+std::mutex map_lock;
+
+int tensor_map(CUtensorMap* map, const MapKey& key) {
+  std::lock_guard<std::mutex> guard(map_lock);
+  for (int i = 0; i < map_used; ++i)
+    if (map_keys[i] == key) {
+      *map = map_vals[i];
+      return 0;
+    }
+  const int e = encode_bf16_bhtd(map, key.base, key.B, key.H, key.T, key.sb,
+                                 key.sh, key.st, key.rows);
+  if (e == 0) {
+    map_keys[map_next] = key;
+    map_vals[map_next] = *map;
+    map_next = (map_next + 1) % MAP_CACHE;
+    if (map_used < MAP_CACHE) ++map_used;
+  }
+  return e;
+}
+
+}  // namespace
+
+// Raises K8's dynamic shared-memory limit and looks the driver's tensor-map
+// encoder up. Called once, when the library is loaded.
+extern "C" int mas_encoder_attention_init(void) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  return (int)cudaFuncSetAttribute(encoder_attention_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SMEM_BYTES);
+}
+
+// K8. q/k/v: [B, H, T, 64] bf16 views sharing element strides (sb, sh, st)
+// with unit stride on the last dim, each stride a multiple of 8 and each
+// base 16-byte aligned (TMA's rules); out: [B, T, H, 64] contiguous bf16.
+// Returns a cudaError_t value: a tensor map the driver refuses, or
+// cudaGetLastError() after the launch. Safe to call from several threads.
+extern "C" int mas_encoder_attention(const void* q, const void* k,
+                                     const void* v, long long sb,
+                                     long long sh, long long st, void* out,
+                                     int B, int H, int T, float scale_log2,
+                                     void* stream) {
+  CUtensorMap tq, tk, tv;
+  int e = tensor_map(&tq, {q, B, H, T, BM, sb, sh, st});
+  if (e == 0) e = tensor_map(&tk, {k, B, H, T, BN, sb, sh, st});
+  if (e == 0) e = tensor_map(&tv, {v, B, H, T, BN, sb, sh, st});
+  if (e != 0) return e;
+  dim3 grid((T + BM - 1) / BM, B * H);
+  encoder_attention_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)out, T, H, scale_log2);
+  return (int)cudaGetLastError();
+}

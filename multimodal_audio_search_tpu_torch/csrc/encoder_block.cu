@@ -1,12 +1,9 @@
-// The bf16 encoder attention kernels, one flash-attention loop shared by:
+// The bf16 encoder attention + o-projection kernels, one flash-attention
+// loop shared by:
 //
 // K1  out = x + (softmax(Q K^T / sqrt(D)) V, heads merged) @ Wo + bo.
 //     Replaces multimodal_audio_search_tpu/ops/encoder_block.py::
 //     fused_attention_o_residual (body _attn_o_kernel, pallas_call :425).
-// K8  softmax(Q K^T / sqrt(D)) V per (batch, head), no o-projection.
-//     Replaces multimodal_audio_search_tpu/ops/attention.py::
-//     fused_encoder_attention (body _attn_kernel, pallas_call :83), the
-//     fused_encoder=False path at T >= 512.
 // K10 K1's function over head pairs. Replaces the same wrapper's
 //     pair_heads=True form (body _attn_o_kernel_paired, pallas_call :375).
 // K11 K1 with the softmax division placed three ways. Replaces the A/B
@@ -22,8 +19,8 @@
 // head's K alone is 192 KB at T=1500, which does not fit a block's 227 KB
 // of shared memory beside V and a query tile. So the structure is not
 // carried over: this is a flash-attention loop instead.
-//   * One block = 64 query rows, 4 warps x 16 rows; K1/K10/K11 take every
-//     head of one batch row, K8 one (batch, head).
+//   * One block = 64 query rows, 4 warps x 16 rows, every head of one
+//     batch row.
 //   * For each head: Q fragments stay in registers; 64-key K/V tiles
 //     stream through shared memory; S = Q K^T and O += P V run on
 //     mma.sync m16n8k16 bf16 tensor-core tiles with f32 accumulation;
@@ -34,8 +31,8 @@
 //     p to the V dtype. Where the division by the row sum l goes is the
 //     template's Form: RECIP multiplies the [16, 64] output by 1/l (K1,
 //     K10, and K11's "post": the TPU A/B's x 1/l after the head concat,
-//     the same per-element product); DIV divides it by l (K8, as
-//     _attn_kernel's o / l, and K11's True); NORM divides P by l before
+//     the same per-element product); DIV divides it by l (K11's True);
+//     NORM divides P by l before
 //     the PV product (K11's False, the TPU kernel's default at T=1500),
 //     which needs l first: a first pass over K finds the row max and sum,
 //     a second recomputes S and forms P / l.
@@ -43,8 +40,7 @@
 //     shared-memory tile (the TPU kernel's attn.astype(wo.dtype)); after
 //     the last head the same block computes tile @ Wo + bo + x
 //     (encoder_common.cuh), which keeps the merged attention output out of
-//     device memory. K8 writes its head's bf16 output to a [B, T, H, D]
-//     buffer, the merged layout the o-projection reads.
+//     device memory.
 //   * K10 handles two heads per pass: 32-key tiles of 128 columns (both
 //     heads' 64, 256-byte row slices of the merged q/k/v dense outputs)
 //     and a [16, 2 x 64] output per warp; the two online softmaxes run on
@@ -57,7 +53,9 @@
 // default, so mas_attn_o_residual_init raises the dynamic shared-memory
 // limit once, when the library loads. Rows are padded by 8 bf16 so the
 // fragment reads are free of bank conflicts.
-// Later work (ROADMAP): cp.async/TMA double buffering, wgmma, ldmatrix.
+// K8, the per-head attention without the o-projection, moved onto wgmma
+// and TMA in encoder_attention.cu. Later work (ROADMAP): K1, K10 and K11
+// onto that loop.
 #include "encoder_common.cuh"
 
 namespace {
@@ -303,36 +301,6 @@ __global__ void __launch_bounds__(NT) attn_o_residual_kernel(
   o_proj_residual(sA, sK, x, wo, bo, out, b, q0, T, HD);
 }
 
-// K8: one (batch, head) per blockIdx.y; bf16 output into the merged
-// [B, T, H, 64] buffer.
-__global__ void __launch_bounds__(NT) encoder_attention_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, long long sb, long long sh, long long st,
-    bf16* __restrict__ out, int T, int H, float scale_log2) {
-  __shared__ __align__(16) unsigned char smem_raw[2 * BK * LDS * sizeof(bf16)];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LDS;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int ra = q0 + (threadIdx.x >> 5) * 16 + g, rb = ra + 8;
-  const long long off = b * sb + h * sh;
-  float o[8][4];
-  attend_head<DIV>(o, q + off, k + off, v + off, st, T, ra, rb, scale_log2,
-                   sK, sV);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = h * D + j * 8 + t4 * 2;
-    if (ra < T)
-      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + ra) * H * D +
-                                   col) = pack_bf16(o[j][0], o[j][1]);
-    if (rb < T)
-      *reinterpret_cast<uint32_t*>(out + ((long long)b * T + rb) * H * D +
-                                   col) = pack_bf16(o[j][2], o[j][3]);
-  }
-}
-
 // [32 keys x 128 cols] bf16 tile: cols 0..63 from g0 (head 2p), 64..127
 // from g1 (head 2p+1), both with row stride ld; rows >= nrows zero-filled.
 __device__ __forceinline__ void load_pair_tile(bf16* s, const bf16* g0,
@@ -492,19 +460,5 @@ extern "C" int mas_attn_o_residual_paired(const void* q, const void* k,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st,
       (const bf16*)x, (const bf16*)wo, (const bf16*)bo, (bf16*)out, T, H, HD,
       scale_log2);
-  return (int)cudaGetLastError();
-}
-
-// K8. q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with
-// unit stride on the last dim; out: [B, T, H, 64] contiguous bf16.
-extern "C" int mas_encoder_attention(const void* q, const void* k,
-                                     const void* v, long long sb,
-                                     long long sh, long long st, void* out,
-                                     int B, int H, int T, float scale_log2,
-                                     void* stream) {
-  dim3 grid((T + BQ - 1) / BQ, B * H);
-  encoder_attention_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st, (bf16*)out,
-      T, H, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,241 @@
+// Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
+// copies and their tensor maps, asynchronous copies, and the warpgroup
+// matrix products (wgmma) with their shared-memory descriptors.
+//
+// Operands of wgmma live in shared memory in the layout a TMA copy with
+// CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64 bf16), the
+// 16-byte chunks of row r XOR-swizzled by r % 8, so eight rows make one
+// 1024-byte atom. A tile must start on a 1024-byte boundary.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+
+#include "common.cuh"
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A fresh barrier
+// is in phase 0, so waiting on parity 1 returns at once.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// --------------------------------------------------------------------- TMA
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One box of a rank-4 tensor map (coordinates innermost first) into shared
+// memory; completion is reported to `bar` as transaction bytes. Elements
+// outside the map's extents are written as zeros and still counted.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------ cp.async
+// 16 bytes global -> shared, through L2 only (streamed data).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+// Descriptor of a 128-byte swizzled operand starting at `p`: `sbo` bytes
+// between 8-row groups (1024 for a dense tile), `lbo` bytes between
+// 64-element atoms along M/N of an MN-major operand (unused when the tile
+// is one atom wide). A K-major operand advances 16 bf16 of K by adding 32
+// bytes to the start address (2 in the descriptor's 16-byte units).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties a register to this point of the program, so the compiler neither
+// reads an accumulator before wgmma.wait_group nor writes one early.
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+#define MAS_D8(C, i)                                                    \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]),          \
+      C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define MAS_D32(C) MAS_D8(C, 0), MAS_D8(C, 8), MAS_D8(C, 16), MAS_D8(C, 24)
+#define MAS_D64(C) MAS_D32(C), MAS_D8(C, 32), MAS_D8(C, 40), MAS_D8(C, 48), \
+                   MAS_D8(C, 56)
+#define MAS_R32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31}"
+#define MAS_R64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D[64 x 128] (f32) = A[64 x 16] B[16 x 128], both bf16 K-major operands
+// in shared memory; ACC adds to D, else D is overwritten. The accumulator
+// layout per warp w of the warpgroup and lane (g = lane / 4, t = lane % 4):
+// d[4j + 0..1] = D[16w + g][8j + 2t + 0..1], d[4j + 2..3] = D[16w + g + 8][..].
+template <bool ACC>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float d[64], uint64_t da,
+                                                    uint64_t db) {
+  if (ACC) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAS_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : MAS_D64("+f")
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MAS_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : MAS_D64("=f")
+        : "l"(da), "l"(db), "r"(0));
+  }
+}
+
+// D[64 x 64] (f32) += A[64 x 16] B[16 x 64]: A bf16 from registers (the
+// m16n8k16 A-fragment layout per warp: a[0] rows g, cols 2t..2t+1; a[1]
+// rows g + 8; a[2], a[3] the same at cols + 8), B an MN-major bf16
+// operand in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float d[32],
+                                                      const uint32_t a[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MAS_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MAS_D32("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef MAS_D8
+#undef MAS_D32
+#undef MAS_D64
+#undef MAS_R32
+#undef MAS_R64
+
+// ------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up through the runtime, so
+// the library links without -lcuda. Null if the driver lacks it.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A rank-4 map over a bf16 [B, H, T, 64] view with element strides (sb,
+// sh, st, 1): dimensions innermost first {64, T, H, B}, box {64, rows, 1,
+// 1}, 128-byte swizzle, zeros outside. Returns a cudaError_t value.
+inline int encode_bf16_bhtd(CUtensorMap* map, const void* base, int B, int H,
+                            int T, long long sb, long long sh, long long st,
+                            int rows) {
+  EncodeTiledFn f = encode_tiled();
+  if (f == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                       const_cast<void*>(base), dims, strides, box, unit,
+                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace sm90

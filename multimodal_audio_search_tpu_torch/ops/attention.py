@@ -4,9 +4,10 @@ Counterpart of ``multimodal_audio_search_tpu/ops/attention.py::
 fused_encoder_attention`` (B9), which the JAX encoder runs on a TPU for
 ``fused_encoder=False`` at T >= 512; the o-projection after it stays a
 plain matmul, as JAX leaves it to XLA. On a CUDA tensor the wrapper
-launches ``csrc/encoder_block.cu``'s ``encoder_attention_kernel``; on a
-CPU tensor it runs ``encoder_attention_plain``, the same math in plain
-PyTorch. There is no other route: a launch that fails raises.
+launches ``csrc/encoder_attention.cu``'s ``encoder_attention_kernel``
+(wgmma products on TMA-fed shared-memory tiles); on a CPU tensor it runs
+``encoder_attention_plain``, the same math in plain PyTorch. There is no
+other route: a launch that fails, or a view TMA cannot describe, raises.
 """
 from __future__ import annotations
 
@@ -31,33 +32,42 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (o / l).to(q.dtype)
 
 
+_K8 = None  # the declared ctypes function, read once
+_SCALE_LOG2 = math.log2(math.e) / math.sqrt(64)
+
+
 def _launch(q, k, v) -> torch.Tensor:
     b, h, t, d = q.shape
+    bf = torch.bfloat16
     if d != 64:
         raise ValueError(f"K8 takes head dim 64, got {d}")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"K8 takes bf16 tensors; {name} is {a.dtype}")
-        if a.device != q.device or tuple(a.shape) != (b, h, t, d):
-            raise ValueError(f"K8: {name} {tuple(a.shape)} on {a.device}, "
-                             f"q {tuple(q.shape)} on {q.device}")
-        if a.data_ptr() % 16:
-            raise ValueError(f"K8: {name} is not 16-byte aligned")
-    if q.stride() != k.stride() or q.stride() != v.stride():
+    if q.dtype != bf or k.dtype != bf or v.dtype != bf:
+        raise TypeError(f"K8 takes bf16 tensors; q, k, v are {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    dev = q.device
+    if k.device != dev or v.device != dev or k.shape != q.shape \
+            or v.shape != q.shape:
+        raise ValueError(f"K8: q {tuple(q.shape)} on {dev}, k "
+                         f"{tuple(k.shape)} on {k.device}, v "
+                         f"{tuple(v.shape)} on {v.device}")
+    strides = q.stride()
+    if k.stride() != strides or v.stride() != strides:
         raise ValueError("K8 takes q, k, v views with equal strides")
-    sb, sh, st, sd = q.stride()
-    if sd != 1 or sb % 8 or sh % 8 or st % 8:
+    sb, sh, st, sd = strides
+    if sd != 1 or sb % 8 or sh % 8 or st % 8 \
+            or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError(
-            f"K8 needs a unit last stride and 16-byte aligned rows; "
-            f"strides {q.stride()}")
+            f"K8 needs 16-byte aligned views with a unit last stride and "
+            f"the others multiples of 16 bytes (its TMA tensor maps); "
+            f"strides {strides}")
     # the merged [B, T, H, D] layout the o-projection reads; returned as
     # the [B, H, T, D] view, so merge_heads after it copies nothing
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lib = runtime.kernels()
-    rc = lib.mas_encoder_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st, out.data_ptr(),
-        b, h, t, math.log2(math.e) / math.sqrt(d),
-        runtime.stream_handle(q.device))
+    out = torch.empty((b, t, h, d), dtype=bf, device=dev)
+    global _K8
+    if _K8 is None:
+        _K8 = runtime.kernels().mas_encoder_attention
+    rc = _K8(q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
+             out.data_ptr(), b, h, t, _SCALE_LOG2, runtime.raw_stream(dev))
     runtime.check_launch(rc, "mas_encoder_attention")
     runtime.bump("encoder_attention")
     return out.transpose(1, 2)

@@ -54,28 +54,75 @@ def single_query_attention_plain(q_m, k_m, v_m, *, heads: int, pos=None):
     return torch.einsum("bht,bthd->bhd", p, v).reshape(b, hd)
 
 
-def _launch(q_m, k_m, v_m, heads: int, n_valid: int) -> torch.Tensor:
+# K2 stages CHUNK keys per block and splits T into ceil(n_valid / CHUNK)
+# parts; the splits' (m, l, acc[64]) states go to a float32 scratch of
+# STATES states per device, merged by the last split to arrive.
+CHUNK = 128
+STATES = 16384
+_SCRATCH: dict = {}
+_K2 = None  # the declared ctypes function, read once
+
+
+def split_plan(n_valid: int, pairs: int) -> tuple[int, int]:
+    """K2's (splits, keys per split) for ``n_valid`` keys and ``pairs``
+    (batch, head) pairs: one split per CHUNK keys, as many as the scratch
+    holds, at least one."""
+    s = max(1, min(-(-n_valid // CHUNK), STATES // pairs))
+    return s, -(-n_valid // s)
+
+
+def _scratch(device: torch.device) -> tuple[int, int]:
+    """Pointers of the persistent split scratch (STATES x 66 float32) and
+    the zeroed arrival counters (STATES int32) on ``device``; each launch
+    leaves the counters zero. One set per device: K2 runs on one stream
+    at a time."""
+    ptrs = _SCRATCH.get(device)
+    if ptrs is None:
+        part = torch.empty(STATES * 66, dtype=torch.float32, device=device)
+        cnt = torch.zeros(STATES, dtype=torch.int32, device=device)
+        ptrs = _SCRATCH[device] = (part.data_ptr(), cnt.data_ptr(), part, cnt)
+    return ptrs[0], ptrs[1]
+
+
+def _launch(q_m, k_m, v_m, heads: int, n_valid: int,
+            splits: int | None = None) -> torch.Tensor:
+    """K2 on the card. ``splits`` overrides split_plan (tests reach the
+    split edges and empty splits with it)."""
     b, hd = q_m.shape
     t = k_m.shape[1]
+    bf = torch.bfloat16
     if hd != heads * 64:
         raise ValueError(f"K2 takes head dim 64: H*D={hd}, heads={heads}")
-    if tuple(k_m.shape) != (b, t, hd) or tuple(v_m.shape) != (b, t, hd):
+    if k_m.shape != (b, t, hd) or v_m.shape != (b, t, hd):
         raise ValueError(
             f"K2: q {tuple(q_m.shape)}, k {tuple(k_m.shape)}, "
             f"v {tuple(v_m.shape)}")
-    for name, a in (("q", q_m), ("k", k_m), ("v", v_m)):
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"K2 takes bf16 tensors; {name} is {a.dtype}")
-        if a.device != k_m.device:
-            raise ValueError(f"K2: {name} on {a.device}, k on {k_m.device}")
-        if not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError(f"K2 takes contiguous 16-byte aligned {name}")
-    out = torch.empty((b, hd), dtype=torch.float32, device=k_m.device)
-    lib = runtime.kernels()
-    rc = lib.mas_single_query_attention(
-        q_m.data_ptr(), k_m.data_ptr(), v_m.data_ptr(), out.data_ptr(),
-        b, heads, t, hd, n_valid, 1.0 / math.sqrt(hd // heads),
-        runtime.stream_handle(k_m.device))
+    if q_m.dtype != bf or k_m.dtype != bf or v_m.dtype != bf:
+        raise TypeError(f"K2 takes bf16 tensors; q, k, v are {q_m.dtype}, "
+                        f"{k_m.dtype}, {v_m.dtype}")
+    dev = k_m.device
+    if q_m.device != dev or v_m.device != dev:
+        raise ValueError(f"K2: q on {q_m.device}, k on {dev}, v on "
+                         f"{v_m.device}")
+    if not (q_m.is_contiguous() and k_m.is_contiguous()
+            and v_m.is_contiguous()) \
+            or (q_m.data_ptr() | k_m.data_ptr() | v_m.data_ptr()) % 16:
+        raise ValueError("K2 takes contiguous 16-byte aligned q, k and v")
+    if splits is None:
+        splits, chunk = split_plan(n_valid, b * heads)
+    else:
+        chunk = -(-n_valid // splits)
+    if splits > 1 and b * heads * splits > STATES:
+        raise ValueError(f"K2: {b} x {heads} x {splits} split states exceed "
+                         f"the scratch of {STATES}")
+    part, cnt = _scratch(dev)
+    out = torch.empty((b, hd), dtype=torch.float32, device=dev)
+    global _K2
+    if _K2 is None:
+        _K2 = runtime.kernels().mas_single_query_attention
+    rc = _K2(q_m.data_ptr(), k_m.data_ptr(), v_m.data_ptr(), out.data_ptr(),
+             part, cnt, b, heads, t, hd, n_valid, splits, chunk,
+             1.0 / 8.0, runtime.raw_stream(dev))  # 1 / sqrt(64)
     runtime.check_launch(rc, "mas_single_query_attention")
     runtime.bump("single_query_attention")
     return out

@@ -56,6 +56,11 @@ COUNTS: dict[str, int] = {
     "cross_mlp_block": 0,
 }
 
+# called once when the library loads: the kernels' shared-memory limits
+# and K8's tensor-map encoder
+INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
+        "mas_encoder_attention_init")
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # filled by the first build: {"seconds", "library", "command", "log"}
@@ -128,7 +133,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,               # B, H, T, HD
         f, p]                     # scale * log2(e), stream
     lib.mas_attn_o_residual.restype = i
-    for name in ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init"):
+    for name in INIT:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.mas_attn_o_residual_paired.argtypes = \
@@ -151,8 +156,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, p]                     # scale * log2(e), stream
     lib.mas_encoder_attention.restype = i
     lib.mas_single_query_attention.argtypes = [
-        p, p, p, p,               # q, k, v, out
+        p, p, p, p, p, p,         # q, k, v, out, split scratch, counters
         i, i, i, i, i,            # B, H, T, HD, n_valid
+        i, i,                     # splits, keys per split
         f, p]                     # scale, stream
     lib.mas_single_query_attention.restype = i
     lib.mas_decoder_self_block.argtypes = [
@@ -260,8 +266,7 @@ def kernels() -> ctypes.CDLL:
         cmd, log = _build(so) if not so.exists() else ("", "")
         lib = ctypes.CDLL(str(so))
         _declare(lib)
-        for name in ("mas_attn_o_residual_init",
-                     "mas_attn_o_residual_int8_init"):
+        for name in INIT:
             check_launch(getattr(lib, name)(), name)
         build_info.update(seconds=time.perf_counter() - t0, library=str(so),
                           command=cmd, log=log)
@@ -277,3 +282,9 @@ def check_launch(rc: int, name: str) -> None:
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current stream of a CUDA ``device`` (with its index set, as a
+    tensor's device has) as a plain int, without building a Stream."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

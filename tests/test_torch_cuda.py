@@ -8,14 +8,16 @@ Run them there with ``python -m pytest tests/test_torch_cuda.py -q``.
 Inputs and checks are chip_smoke.py's: K1 on a residual input (bf16
 output, atol 1e-2 + rtol 1.6e-2) and on inputs with x = 0 and bo = 0 that
 isolate the attention term (within 1e-2 of its max and 7e-3 of its
-norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3; K3 and K4
+norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3, across
+its split edges with the arrival counters left zero; K3 and K4
 (both variants) on their block's term out - x (chip_smoke.check_delta)
 and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
 (int8 weights) elementwise (chip_smoke.check_k5) in both tilings, at
 ragged M and N, float32 and bf16 outputs, with and without a bias; K6 and
 K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel); the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
-output's scale, K9-K11 by the K1 check), at ragged T, with planted faults;
+output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
+edges, with planted faults;
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -99,6 +101,37 @@ def test_k2_matches_plain(cuda, t, pos):
     ref = K2.single_query_attention_plain(q, k, v, heads=heads, pos=pos)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+
+
+# (T, n_valid, forced splits or None for split_plan): the plan's edge at
+# 128 keys, empty splits, one split over 1500 keys, 12 splits, chunk edges
+K2_SPLIT_CASES = [(300, 127, None), (300, 128, None), (300, 129, None),
+                  (300, 9, 8), (1500, 1500, 1), (1500, 1500, None),
+                  (300, 100, 3), (300, 101, 3), (1500, 376, 3), (68, 1, None)]
+
+
+@pytest.mark.parametrize("t,n_valid,splits", K2_SPLIT_CASES)
+def test_k2_split_edges(cuda, t, n_valid, splits):
+    """K2 across its split edges, with splits holding no key and with one
+    split: one launch a call, the arrival counters back at zero after it,
+    and the output within chip_smoke's K2 tolerance of the plain one."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    gen = torch.Generator().manual_seed(t + n_valid)
+    b, heads = 3, 6
+    q, k, v = chip_smoke.k2_inputs(gen, b, t, heads)
+    pos = None if n_valid == t else n_valid - 1
+    for _ in range(2):  # a second call finds the counters at zero
+        runtime.reset_counts()
+        got = K2._launch(q, k, v, heads, n_valid, splits)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["single_query_attention"] == 1
+        assert sum(runtime.COUNTS.values()) == 1
+        assert int(K2._SCRATCH[k.device][3].abs().sum()) == 0
+        chip_smoke.check_close(f"K2 n_valid={n_valid} splits={splits}", got,
+                               K2.single_query_attention_plain(
+                                   q, k, v, heads=heads, pos=pos),
+                               chip_smoke.K2_ATOL, chip_smoke.K2_RTOL)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -472,12 +505,17 @@ def test_tiny_int8_engine_on_card(cuda, mode):
 
 # ------------------------------------------ K8-K11 (encoder variants)
 ENC_SHAPES = [(1, 2, 1), (2, 4, 97), (3, 6, 200), (2, 8, 1500)]
+# K8's 128-key tiles and 128-row query blocks: one key short of a tile,
+# a full tile, one key into the next, four tiles and a key, the main T
+K8_TILE_EDGES = [(2, 3, 127), (2, 3, 128), (2, 3, 129), (2, 4, 513),
+                 (1, 8, 1500)]
 
 
-@pytest.mark.parametrize("b,heads,t", ENC_SHAPES)
+@pytest.mark.parametrize("b,heads,t", ENC_SHAPES + K8_TILE_EDGES)
 def test_k8_matches_plain(cuda, b, heads, t):
-    """K8 at ragged T (a partial last 64-key tile, rows past T never
-    stored), its output a [B, H, T, D] view of the merged layout."""
+    """K8 at ragged T (a partial last 128-key tile, rows past T never
+    stored), on head-split views of separate dense outputs, its output a
+    [B, H, T, D] view of the merged layout."""
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import attention as A
     gen = torch.Generator().manual_seed(100 + t)
@@ -492,6 +530,25 @@ def test_k8_matches_plain(cuda, b, heads, t):
         chip_smoke.check_rel(f"K8 {inputs}", got,
                              A.encoder_attention_plain(q, k, v),
                              chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
+
+
+def test_k8_reuses_tensor_maps_only_for_the_same_view(cuda):
+    """K8 keeps the TMA maps of views it has seen: the same buffers with
+    new contents, and a view of the same base with fewer rows, each match
+    the plain version."""
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    gen = torch.Generator().manual_seed(14)
+    q, k, v, *_ = chip_smoke.k1_inputs(gen, 2, 300, 4)
+
+    def check(name, *views):
+        chip_smoke.check_rel(name, A.fused_encoder_attention(*views),
+                             A.encoder_attention_plain(*views),
+                             chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
+    check("first call", q, k, v)
+    for a in (q, k, v):   # new contents at the same addresses
+        a.copy_(torch.randn(a.shape, generator=gen).to(a.device, a.dtype))
+    check("same views, new contents", q, k, v)
+    check("fewer rows, same base", *(a[:, :, :150] for a in (q, k, v)))
 
 
 @pytest.mark.parametrize("b,heads,t", ENC_SHAPES)
@@ -531,9 +588,10 @@ def test_k9_k10_k11_match_plain(cuda, b, heads, t):
 
 
 def test_k8_check_sees_unmasked_pad_keys(cuda):
-    """A planted fault: K8 at T=1536 on keys whose last 36 rows are zero
-    computes what a K8 that left the zero-filled pad of its last 64-key
-    tile unmasked computes at T=1500; chip_smoke's check rejects it."""
+    """A planted fault: K8 at T=1536 (12 tiles of 128 keys) on keys whose
+    last 36 rows are zero computes what a K8 that left the zero-filled pad
+    of its last 128-key tile unmasked computes at T=1500; chip_smoke's
+    check rejects it."""
     from multimodal_audio_search_tpu_torch.ops import attention as A
     gen = torch.Generator().manual_seed(11)
     q, k, v, *_ = chip_smoke.k1_inputs(gen, 2, 1536, 8)

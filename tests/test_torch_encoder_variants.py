@@ -338,7 +338,7 @@ def _card_inputs(heads=2):
 @pytest.mark.parametrize("fault", [None, "pad keys unmasked"])
 def test_k8_card_check_rejects_planted_fault(fault):
     """K8 at T=1500: the kernel's roundings pass chip_smoke's check; a
-    kernel that left the 36 zero-padded keys of its last 64-key tile
+    kernel that left the 36 zero-padded keys of its last 128-key tile
     unmasked fails it."""
     q, k, v, *_ = _card_inputs()
     ref = A.encoder_attention_plain(q, k, v)

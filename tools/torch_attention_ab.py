@@ -1,0 +1,136 @@
+"""K2 and K8 of one checkout of the port, timed at the main path's shapes
+beside one scaled_dot_product_attention call, for A/B runs of two
+checkouts in turns on one card.
+
+    python3 tools/torch_attention_ab.py --root DIR --label NAME \
+        [--out chiprun_out]
+
+DIR is the root of a checkout (its ``multimodal_audio_search_tpu_torch``
+is imported, so run one process per checkout, e.g. parent, change,
+change, parent); the timing helpers are this checkout's chip_smoke.py.
+For each case it prints one JSON line: the card (name and power limit),
+the check against the plain version, and
+
+* ``ms``: median of 20 single calls in a CUDA-event window (the wrapper's
+  host work included, as chip_smoke.py times every kernel);
+* ``device_ms``: torch.profiler's CUDA kernel rows over 20 calls, per call;
+* ``host_us``: wall time of 200 calls issued back to back, per call (the
+  enqueue; fewer launches than the card's queue holds);
+* the same three for the library call, and the bound of the work.
+
+Cases: K8 at B=32, T=1500, H=8 and 6 on head-split views of separate q/k/v
+dense outputs; K2 cross (B=32, T=1500, H=8) and self (B=32, L=68, pos=67)
+on merged-head K/V. Needs a CUDA card; inputs come from a seeded
+torch.Generator.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    """This checkout's chip_smoke.py, by path (DIR may hold another)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rel_err(got, ref) -> dict:
+    got, ref = got.float(), ref.float()
+    err = got - ref
+    return {"rel_max_err": float(err.abs().max() / ref.abs().max()),
+            "rel_l2_err": float(err.norm() / ref.norm()),
+            "max_abs_err": float(err.abs().max())}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--out", default=None,
+                    help="directory for a copy of the JSON lines")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    cs = load_chip_smoke()
+    sys.path.insert(0, os.path.abspath(args.root))
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    runtime.select_device("cuda")
+    t0 = time.perf_counter()
+    runtime.kernels()
+    rows = [{"label": args.label, "card": cs.card_line(),
+             "build_s": time.perf_counter() - t0, "torch": torch.__version__}]
+
+    def timings(fn, lib) -> dict:
+        return {"ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn),
+                "host_us": cs.host_us(fn), "library_ms": cs.time_ms(lib),
+                "library_device_ms": cs.device_ms(lib),
+                "library_host_us": cs.host_us(lib)}
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+    b, t, d = 32, 1500, 64
+    for heads in (8, 6):
+        q, k, v = (rn(b, t, heads * d).view(b, t, heads, d).transpose(1, 2)
+                   for _ in range(3))
+        fn = (lambda: A.fused_encoder_attention(q, k, v))
+        row = {"label": args.label, "kernel": "K8",
+               "shape": f"B={b} T={t} H={heads} D={d}",
+               **rel_err(fn(), A.encoder_attention_plain(q, k, v)),
+               **timings(fn, lambda: sdpa(q, k, v)),
+               **cs.bound(4 * cs.nbytes(q), bf16=4 * b * heads * t * t * d)}
+        row["tflops"] = 4 * b * heads * t * t * d / row["device_ms"] / 1e9
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del q, k, v
+    heads = 8
+    hd = heads * d
+    for label, t, pos in (("cross", 1500, None), ("self", 68, 67)):
+        q, k, v = rn(b, hd), rn(b, t, hd), rn(b, t, hd)
+        n = t if pos is None else pos + 1
+        fn = (lambda: K2.fused_single_query_attention(q, k, v, heads=heads,
+                                                      pos=pos))
+        qh = q.view(b, 1, heads, d).transpose(1, 2)
+        kh, vh = (a[:, :n].view(b, n, heads, d).transpose(1, 2)
+                  for a in (k, v))
+        got = fn()
+        ref = K2.single_query_attention_plain(q, k, v, heads=heads, pos=pos)
+        row = {"label": args.label, "kernel": "K2",
+               "shape": f"{label} B={b} T={t} H={heads} pos={pos}",
+               **({"splits": K2.split_plan(n, b * heads)[0]}
+                  if hasattr(K2, "split_plan") else {}),
+               **rel_err(got, ref), **timings(fn, lambda: sdpa(qh, kh, vh)),
+               "empty_host_us": cs.host_us(lambda: torch.empty(
+                   (b, hd), dtype=torch.float32, device="cuda")),
+               **cs.bound(cs.nbytes(q, got) + 2 * b * n * hd * 2,
+                          bf16=4 * b * n * hd)}
+        row["tbps"] = 2 * b * n * hd * 2 / row["device_ms"] / 1e9
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "attention_ab.jsonl"), "a") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
