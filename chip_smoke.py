@@ -18,7 +18,10 @@ Phases, one line each (``[phase] ...``):
    each at both model widths, on inputs whose block term dominates the
    output (DELTA_MAX); K5 (int8 weights) at the (M, K, N) of a decode
    step's dense layers, the tied logits and the cross K/V projection
-   over B*1500 rows (K5_SHAPES), K6 and K7 (int8 K/V) at B=32, T=1500,
+   over B*1500 rows (K5_SHAPES: its three regimes, each case with its
+   split plan, device ms, host us and one torch._weight_int8pack_mm call
+   as a yardstick where the card's torch runs it on CUDA; K4 and K4-o
+   also carry device ms), K6 and K7 (int8 K/V) at B=32, T=1500,
    H=8 and H=6; the encoder variants K8 (per-head attention on wgmma
    and TMA, csrc/encoder_attention.cu), K9 (int8
    dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
@@ -588,7 +591,10 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
             case = {"shape": f"{label} B={b} D={d} F={f}",
                     **check_delta(f"{key} {label}", got, ref, x),
                     "ms": time_ms(lambda: fused(*args)),
+                    "device_ms": device_ms(lambda: fused(*args)),
+                    "host_us": host_us(lambda: fused(*args)),
                     "plain_ms": time_ms(lambda: plain(*args)),
+                    "plain_device_ms": device_ms(lambda: plain(*args)),
                     **bound(nbytes(*args, got), bf16=4 * b * d * f + (
                         2 * b * d * d if key == "K4-o" else 0))}
             out[key]["cases"].append(case)
@@ -618,6 +624,33 @@ def k5_plain(x, wq, scale, b, out_dtype):
     from multimodal_audio_search_tpu_torch.ops import quant as Q
     y = Q.quant_matmul_plain(x, wq, scale)
     return (y if b is None else y + b.float()).to(out_dtype)
+
+
+def k5_regime(m: int, n: int) -> str:
+    """The regime of a K5 call on the main path: a decode step's dense
+    layer, the tied logits (the vocabulary's N) or the cross K/V
+    projection over the encoder rows."""
+    if m > 64:
+        return "cross_kv"
+    return "logits" if n == 51865 else "decode"
+
+
+def k5_library(x, wq, scale):
+    """One PyTorch call computing K5's product, as a yardstick:
+    torch._weight_int8pack_mm(x, the int8 weight transposed to [N, K],
+    the scales in x's dtype), its transposed copy made here, outside any
+    timed window. Returns (the call, None), or (None, why) where the
+    card's torch runs no CUDA kernel for it. The port never calls it."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch has no _weight_int8pack_mm"
+    wt, sc = wq.t().contiguous(), scale.to(x.dtype)
+    try:
+        fn(x, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, "no CUDA kernel: " + str(e).splitlines()[0][:160]
+    return (lambda: fn(x, wt, sc)), None
 
 
 def check_k5(name, got, ref) -> float:
@@ -683,23 +716,39 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
         out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, wq, scale, b = k5_inputs(gen, m, k, n, bias=bias)
         p = {"wq": wq, "scale": scale, **({"b": b} if bias else {})}
+        regime = k5_regime(m, n)
+        if regime == "logits":  # the table as the model on the card holds it
+            p = Q.logits_table(p)
         got = Q.quant_dense_apply(p, x, out_dtype=out_dtype)
         ref = k5_plain(x, wq, scale, b, out_dtype)
         torch.cuda.synchronize()
-        ms = time_ms(lambda: Q.quant_dense_apply(p, x, out_dtype=out_dtype))
+        fused = (lambda: Q.quant_dense_apply(p, x, out_dtype=out_dtype))
+        ms = time_ms(fused)
+        plan = {"kernel": "table"} if "wq_t" in p else dict(zip(
+            ("kernel", "bn", "splits", "steps"), Q.split_plan(
+                m, k, n, wave=torch.cuda.get_device_properties(
+                    x.device).multi_processor_count)))
         case = {"shape": f"M={m} K={k} N={n} out={dt} bias={bias} "
-                         f"tiling={'small' if m <= Q.SMALL_M else 'large'}",
+                         f"regime={regime}",
+                "plan": plan,
                 "max_abs_err": check_k5(f"K5 {m}x{k}x{n}", got, ref), "ms": ms,
+                "device_ms": device_ms(fused), "host_us": host_us(fused),
                 "plain_ms": time_ms(lambda: k5_plain(x, wq, scale, b,
                                                      out_dtype)),
-                "weight_gbps": k * n / ms / 1e6,
-                "tflops": 2 * m * k * n / ms / 1e9,
                 **bound(nbytes(x, wq, scale, b, got), bf16=2 * m * k * n)}
+        case["weight_gbps"] = k * n / case["device_ms"] / 1e6
+        case["tflops"] = 2 * m * k * n / case["device_ms"] / 1e9
+        lib, why = k5_library(x, wq, scale)
+        case["library_ms"] = time_ms(lib) if lib else None
+        if lib:
+            case["library_device_ms"] = device_ms(lib)
+        else:
+            case["library"] = why
         k5["cases"].append(case)
         phase("kernels", kernel="K5", card=card,
               tol={"atol_of_max": K5_ATOL, "rtol": K5_RTOL_BF16 if dt ==
                    "bf16" else K5_RTOL_F32}, **case)
-        del x, wq, scale, b, p, got, ref
+        del x, wq, scale, b, p, got, ref, lib
     k6 = {"name": "single_query_attention_int8", "route": "cuda",
           "source": f"{pkg}/cross_attention_int8.cu",
           "replaces": f"{jx}/cross_attention.py:329", "cases": []}

@@ -61,6 +61,24 @@ __device__ __forceinline__ void bf16x8_to_f32(uint4 r, float f[8]) {
   }
 }
 
+// sum_{q < S} p[q * stride] added in the order q = 0, 1, ..., S - 1 (a
+// fixed order, as a serial loop would add), with 16 loads in flight at a
+// time; the loads go through L2 only (values another block just wrote).
+// Masked-off loads add a zero, which leaves every sum as it was.
+__device__ __forceinline__ float ordered_sum(const float* p, long long stride,
+                                             int S) {
+  float y = 0.f;
+  for (int q = 0; q < S; q += 16) {
+    float v[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      v[u] = q + u < S ? __ldcg(p + (q + u) * stride) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) y += v[u];
+  }
+  return y;
+}
+
 // Block-wide max / sum of one float per thread, returned to every thread.
 // `sm` holds one float per warp; the calls synchronise before and after,
 // so back-to-back calls may share it.

@@ -31,10 +31,15 @@
 //     adds bias and residual, so the result does not depend on the order
 //     blocks ran in. The arrival counters are left zero for the next
 //     launch; launches of one kernel must not overlap on two streams.
-//   * K4: one block per (128 fc1 columns, 4-row block) -- 128 blocks at
-//     base. Each block computes its slice of u = gelu(fc1(LN x)) and
-//     multiplies it by the matching 128 rows of fc2 into a partial sum;
-//     the last block of the row block sums the partials in slice order.
+//   * K4 (redesigned): a block per 32 fc1 columns (a slice) and all B
+//     rows, in 32-row blocks (64 blocks at base width; a block takes
+//     several slices where F / 32 exceeds what the card holds at once),
+//     so each weight byte leaves device memory once a launch; both
+//     products on the tensor cores (mma.sync m16n8k16, bf16 in, float32
+//     sums) with the slice's fc1/fc2 tiles copied by cp.async; the layer
+//     norm once per row, spread over the grid; two grid-wide barriers
+//     (a cooperative launch) hand h to every block and the partials to
+//     a spread, fixed-order reduction (see mlp_kernel).
 //   * The two variants need a whole row before their extra product (the
 //     cross LN of x_out; the LN after the cross o-projection), which no
 //     one block of the split has. So each runs one more small kernel,
@@ -56,10 +61,10 @@
 // against the row's true maximum; p is summed into l unrounded, rounded
 // to bf16 before PV, and the division by l comes after PV.
 //
-// The products are FMA in float32 on bf16 operands, with 16-byte weight
-// loads coalesced across threads (8 columns a thread); a block reduces
-// its threads' K slices through shared memory in a fixed order. No
-// tensor cores, TMA or pipelining yet (ROADMAP: mma.sync/wgmma tiles).
+// K3's and the extra phases' products are FMA in float32 on bf16
+// operands, with 16-byte weight loads coalesced across threads (8
+// columns a thread); a block reduces its threads' K slices through shared
+// memory in a fixed order (ROADMAP: K3 on mma.sync next).
 //
 // Numerics follow the TPU kernels' roundings (ops/decoder_block.py's
 // plain versions): h, q1, k1, v1, the fresh-row products q1*k1, the
@@ -70,15 +75,16 @@
 // written by the blocks of its head -- so it is counted once. The GELU
 // takes erff where the TPU kernels evaluate Abramowitz-Stegun 7.1.26
 // (|difference| < 1.5e-7).
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int NT = 256;   // threads per block
 constexpr int HDIM = 64;  // head dim of every Whisper preset
 constexpr int RB3 = 2;    // rows per K3 block
-constexpr int RB4 = 4;    // rows per K4 block and per extra-phase block
-constexpr int FC = 128;   // fc1 columns per K4 block
+constexpr int RB4 = 4;    // rows per extra-phase (rowproj) block
 constexpr int PC = 64;    // output columns per extra-phase block
 constexpr int MAX_ROW_BLOCKS = 4096;  // arrival counters per kernel
 constexpr size_t SMEM_MAX = 48 * 1024;
@@ -343,44 +349,301 @@ __global__ void __launch_bounds__(NT) rowproj_kernel(
   });
 }
 
-template <bool HEAD>
-__global__ void __launch_bounds__(NT) mlp_kernel(
+// K4 / K4-o on tensor cores. The F fc1 columns (= fc2 rows) are cut into
+// S = F / MLP_FS slices; block b of a grid of G = min(S, the blocks that
+// fit on the card at once) takes slices b, b + G, ..., each for every
+// 32-row block of the batch (two m16 tiles), so each weight byte leaves
+// device memory once a launch and the grid depends on F alone. D is taken
+// in chunks of MLP_DC: fc1's rows and h's columns, fc2's columns (one
+// chunk at whisper-base width and below, so a slice's weights are staged
+// once and serve every row block). The launch is cooperative, so every
+// block is resident and the grid can meet at two barriers:
+//   1. every block puts its first slice's fc1 and fc2 chunks in flight
+//      into shared memory (cp.async), then block b normalises rows b,
+//      b + G, ... (once per row over the grid, all 256 threads on a row)
+//      into hbuf; barrier;
+//   2. per (slice, row block): h's chunks from hbuf (L2) into shared
+//      memory; u = gelu(h @ W1[:, slice] + b1) on mma.sync (8 warps: 4 n8
+//      fragments x 2 parts of a chunk, each part two chains of products;
+//      chains, parts and chunks added in order), rounded to bf16; the
+//      slice's share of fc2, u @ W2[slice, :], into part[slice] (float32);
+//      barrier;
+//   3. block b sums its 1/G of the [B, D] outputs over the S partials in
+//      slice order and adds bias and residual; the last block out leaves
+//      the barrier counters zero.
+// The results do not depend on G: every sum runs in slice order. ONE is
+// the single pass (one D chunk, one row block, one slice a block: the
+// engine's B <= 32 at whisper-base width and below), where the loops'
+// trip counts are the constant 1: runtime counts cost ~4 us a launch at
+// base width on an H100 (17.4-18.4 against 13.5-13.9).
+constexpr int MLP_NT = 256;
+constexpr int MLP_FS = 32;               // fc1 columns per slice
+constexpr int MLP_LDS = MLP_FS + 8;      // bf16 per staged fc1 / u row
+constexpr int MLP_PARTS = 8 / (MLP_FS / 8);  // fc1's parts of a D chunk
+constexpr int MLP_DC = 512;              // D chunk
+constexpr int MLP_MAX_D = 2048;          // the layer norm's 8 values a thread
+
+inline int mlp_dc(int D) { return D < MLP_DC ? D : MLP_DC; }
+inline size_t mlp_smem(int dc) {
+  return (size_t)(dc * MLP_LDS + (MLP_FS + 32) * (dc + 8) + 32 * MLP_LDS) *
+             2 +
+         (MLP_PARTS - 1) * 32 * MLP_FS * 4;
+}
+
+// Layer norm of one row by the whole block (D <= MLP_MAX_D) into hr[D]
+// bf16, each thread the elements tid, tid + MLP_NT, ...: the same
+// function as ln_rows, its float32 sums over the block (a warp tree, then
+// the warps in order). Every thread of the block calls it.
+template <typename Load>
+__device__ void ln_row_block(Load load, int D, const float* g, const bf16* b,
+                             float eps, bf16* hr, float* sm) {
+  constexpr int E = MLP_MAX_D / MLP_NT;
+  float v[E], gv[E], bv[E];  // every load issued before the first sum
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int k = threadIdx.x + e * MLP_NT;
+    const bool ok = k < D;
+    v[e] = ok ? load(k) : 0.f;
+    gv[e] = ok ? bfr(g[k]) : 0.f;
+    bv[e] = ok ? bf(b[k]) : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) s += v[e];
+  const float mu = block_sum<MLP_NT>(s, sm) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    v[e] = threadIdx.x + e * MLP_NT < D ? v[e] - mu : 0.f;
+    q = fmaf(v[e], v[e], q);
+  }
+  const float rs = 1.f / sqrtf(block_sum<MLP_NT>(q, sm) / D + eps);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int k = threadIdx.x + e * MLP_NT;
+    if (k < D) hr[k] = __float2bfloat16(v[e] * rs * gv[e] + bv[e]);
+  }
+}
+
+// All G blocks meet here (they are co-resident: the launch is
+// cooperative). *c counts arrivals; the waiting thread spins on it
+// without sleeping (a __nanosleep wakes late by a microsecond).
+__device__ __forceinline__ void grid_sync(int* c, int n) {
+  __threadfence();  // this thread's stores, before the arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(c, 1);
+    while (*reinterpret_cast<volatile int*>(c) < n) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <bool HEAD, bool ONE>
+__global__ void __launch_bounds__(MLP_NT, 1) mlp_kernel(
     const bf16* __restrict__ x, const float* __restrict__ x32,
     const float* __restrict__ g, const bf16* __restrict__ bln,
     const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-    const bf16* __restrict__ w2, const bf16* __restrict__ b2, float* part,
-    int* counter, bf16* __restrict__ out, int B, int D, int F, float eps) {
+    const bf16* __restrict__ w2, const bf16* __restrict__ b2, bf16* hbuf,
+    float* part, int* bar, bf16* __restrict__ out, int B, int D, int F,
+    float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* red = reinterpret_cast<float*>(smem_raw);          // NT * 8 * RB4
-  bf16* sH = reinterpret_cast<bf16*>(red + NT * 8 * RB4);  // [RB4][D]
-  bf16* sU = sH + RB4 * D;                                  // [RB4][FC]
-  const int j = blockIdx.x, r0 = blockIdx.y * RB4;
-  const int nrows = min(RB4, B - r0);
+  const int DC = min(D, MLP_DC), LDC = DC + 8;
+  bf16* sW1 = reinterpret_cast<bf16*>(smem_raw);  // [DC][MLP_LDS]
+  bf16* sW2 = sW1 + DC * MLP_LDS;                 // [MLP_FS][LDC]
+  bf16* sH = sW2 + MLP_FS * LDC;                  // [32][LDC]
+  bf16* sU = sH + 32 * LDC;                       // [32][MLP_LDS]
+  float* sRed = reinterpret_cast<float*>(sU + 32 * MLP_LDS);  // [P-1][32][FS]
+  const int G = gridDim.x, S = F / MLP_FS;
+  const int nch = ONE ? 1 : (D + DC - 1) / DC;
+  const int nrb = ONE ? 1 : (B + 31) / 32;
+  const int j1 = ONE ? blockIdx.x + 1 : S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
   auto xin = [&](long long i) { return HEAD ? x32[i] : bf(x[i]); };
-  ln_rows<RB4>([&](int r, int k) { return xin((long long)(r0 + r) * D + k); },
-               nrows, D, g, bln, eps, sH);
-  __syncthreads();
-  // u = gelu(LN(x) @ W1[:, slice] + b1[slice]), rounded to bf16
-  rows_x_w<RB4>(sH, D, w1 + j * FC, F, FC, red, [&](int r, int c, float s) {
-    const float u = s + bf(b1[j * FC + c]);
-    sU[r * FC + c] =
-        __float2bfloat16(0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
-  });
-  // this slice's share of fc2, into part[j]
-  rows_x_w<RB4>(sU, FC, w2 + (long long)j * FC * D, D, D, red,
-                [&](int r, int c, float s) {
-                  if (r < nrows) part[((long long)j * B + r0 + r) * D + c] = s;
-                });
-  if (!last_to_arrive(counter, gridDim.x)) return;
-  for (int i = threadIdx.x; i < nrows * D; i += NT) {
-    const long long row = r0 + i / D;
-    const int c = i % D;
-    float y = 0.f;
-    for (int q = 0; q < (int)gridDim.x; ++q)
-      y += __ldcg(part + (q * B + row) * D + c);
-    out[row * D + c] = __float2bfloat16(xin(row * D + c) + (y + bf(b2[c])));
+
+  // copies of fc1 rows [k0, k0 + DC) x slice j's columns into sW1, of
+  // slice j's fc2 rows x columns [n0, n0 + DC) into sW2, and of h's row
+  // block rb x columns [k0, k0 + DC) into sH (zeros past B)
+  auto stage_w1 = [&](int j, int c) {
+    const int k0 = c * DC, kc = min(DC, D - k0);
+    for (int i = tid; i < kc * (MLP_FS / 8); i += MLP_NT) {
+      const int k = i / (MLP_FS / 8), cc = (i % (MLP_FS / 8)) * 8;
+      cp_async16(sW1 + k * MLP_LDS + cc,
+                 w1 + (long long)(k0 + k) * F + j * MLP_FS + cc);
+    }
+  };
+  auto stage_w2 = [&](int j, int c) {
+    const int n0 = c * DC, cw = min(DC, D - n0) / 8;
+    for (int i = tid; i < MLP_FS * cw; i += MLP_NT) {
+      const int r = i / cw, cc = (i % cw) * 8;
+      cp_async16(sW2 + r * LDC + cc,
+                 w2 + (long long)(j * MLP_FS + r) * D + n0 + cc);
+    }
+  };
+  auto stage_h = [&](int rb, int c) {
+    const int r0 = rb * 32, nrows = min(32, B - r0);
+    const int k0 = c * DC, cw = min(DC, D - k0) / 8;
+    for (int i = tid; i < 32 * cw; i += MLP_NT) {
+      const int r = i / cw, cc = (i % cw) * 8;
+      const bool ok = r < nrows;
+      cp_async16_zfill(
+          sH + r * LDC + cc,
+          ok ? (const void*)(hbuf + (long long)(r0 + r) * D + k0 + cc)
+             : (const void*)hbuf,
+          ok ? 16 : 0);
+    }
+  };
+
+  // 1. the first slice's first chunks, in flight through the layer norm
+  int w1_at = blockIdx.x * nch, w2_at = blockIdx.x * nch;  // slice*nch+chunk
+  stage_w1(blockIdx.x, 0);
+  stage_w2(blockIdx.x, 0);
+  cp_async_commit();
+  __shared__ float sm_ln[MLP_NT / 32];
+  for (int r = blockIdx.x; r < B; r += G) {  // a block per row
+    const long long row = (long long)r * D;
+    ln_row_block([&](int k) { return xin(row + k); }, D, g, bln, eps,
+                 hbuf + row, sm_ln);
   }
-  if (threadIdx.x == 0) counter[blockIdx.y] = 0;
+  grid_sync(bar, G);
+
+  // 2. fc1 + gelu and the slice's share of fc2, per (slice, row block)
+  // warp: n8 fragment nf of the slice in fc1, part kp of a D chunk
+  const int nf = warp % (MLP_FS / 8), kp = warp / (MLP_FS / 8);
+  for (int j = blockIdx.x; j < j1; j += G) {
+    const int f0 = j * MLP_FS;
+    for (int rb = 0; rb < nrb; ++rb) {
+      const int r0 = rb * 32, nrows = min(32, B - r0);
+      // two product chains a fragment, on even and odd k16 steps, added
+      // after the chunks
+      float ac2[2][2][4] = {};
+      for (int c = 0; c < nch; ++c) {
+        __syncthreads();  // sH and sW1 are free
+        if (w1_at != j * nch + c) {
+          stage_w1(j, c);
+          w1_at = j * nch + c;
+        }
+        stage_h(rb, c);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        const int steps = min(DC, D - c * DC) / 16 / MLP_PARTS;  // even
+#pragma unroll 2
+        for (int kk = kp * steps; kk < (kp + 1) * steps; kk += 2) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            uint32_t a0[4], a1[4], bq[2];
+            ldsm_x4(a0, sH + lr * LDC + (kk + q) * 16 + lc);
+            ldsm_x4(a1, sH + (16 + lr) * LDC + (kk + q) * 16 + lc);
+            ldsm_x2_trans(bq, sW1 + ((kk + q) * 16 + (lane & 15)) * MLP_LDS +
+                                  nf * 8);
+            mma_16816(ac2[q][0], a0, bq[0], bq[1]);
+            mma_16816(ac2[q][1], a1, bq[0], bq[1]);
+          }
+        }
+      }
+      float acc[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][e] = ac2[0][a][e] + ac2[1][a][e];
+      // acc[a][e]: row 16a + g8 + 8(e / 2), column 8nf + 2t4 + e % 2
+      if (kp > 0) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sRed[((kp - 1) * 32 + 16 * a + g8 + 8 * (e >> 1)) * MLP_FS +
+                 nf * 8 + 2 * t4 + (e & 1)] = acc[a][e];
+      }
+      __syncthreads();
+      if (kp == 0) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * a + g8 + 8 * (e >> 1);
+            const int c = nf * 8 + 2 * t4 + (e & 1);
+            float u = acc[a][e];
+#pragma unroll
+            for (int q = 1; q < MLP_PARTS; ++q)
+              u += sRed[((q - 1) * 32 + r) * MLP_FS + c];
+            u += bf(b1[f0 + c]);
+            sU[r * MLP_LDS + c] = __float2bfloat16(
+                0.5f * u * (1.f + erff(u * 0.70710678118654752f)));
+          }
+      }
+      __syncthreads();
+      for (int c = 0; c < nch; ++c) {
+        if (w2_at != j * nch + c) {
+          __syncthreads();  // sW2 is free
+          stage_w2(j, c);
+          w2_at = j * nch + c;
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+        }
+        // warp w: columns n0 + w * cw .. of fc2, cw / 8 n8 fragments
+        const int n0 = c * DC, cw = min(DC, D - n0) / 8, nfr = cw / 8;
+        float acc2[2][MLP_DC / 64][4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int f = 0; f < MLP_DC / 64; ++f)
+            acc2[a][f][0] = acc2[a][f][1] = acc2[a][f][2] = acc2[a][f][3] =
+                0.f;
+#pragma unroll
+        for (int kk = 0; kk < MLP_FS / 16; ++kk) {
+          uint32_t a0[4], a1[4];
+          ldsm_x4(a0, sU + lr * MLP_LDS + kk * 16 + lc);
+          ldsm_x4(a1, sU + (16 + lr) * MLP_LDS + kk * 16 + lc);
+#pragma unroll
+          for (int f = 0; f < MLP_DC / 64; ++f) {
+            if (f >= nfr) break;
+            uint32_t bq[2];
+            ldsm_x2_trans(bq, sW2 + (kk * 16 + (lane & 15)) * LDC + warp * cw +
+                                  f * 8);
+            mma_16816(acc2[0][f], a0, bq[0], bq[1]);
+            mma_16816(acc2[1][f], a1, bq[0], bq[1]);
+          }
+        }
+        float* pj = part + ((long long)j * B + r0) * D + n0;
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int f = 0; f < MLP_DC / 64; ++f) {
+            if (f >= nfr) break;
+            const int cc = warp * cw + f * 8 + 2 * t4;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * a + g8 + 8 * h;
+              if (r < nrows)
+                *reinterpret_cast<float2*>(pj + (long long)r * D + cc) =
+                    make_float2(acc2[a][f][2 * h], acc2[a][f][2 * h + 1]);
+            }
+          }
+      }
+    }
+  }
+  grid_sync(bar + 1, G);
+
+  // 3. block b's share of the outputs, the S partials summed in order
+  const long long total = (long long)B * D;
+  const long long chunk = (total + G - 1) / G;
+  const long long i1 = min(total, (blockIdx.x + 1) * chunk);
+  for (long long i = blockIdx.x * chunk + tid; i < i1; i += MLP_NT) {
+    const int c = (int)(i % D);
+    const float y = ordered_sum(part + i, total, S);
+    out[i] = __float2bfloat16(xin(i) + (y + bf(b2[c])));
+  }
+  if (tid == 0 && atomicAdd(bar + 2, 1) == G - 1) {
+    bar[0] = 0;  // every block has passed both barriers
+    bar[1] = 0;
+    bar[2] = 0;
+  }
 }
 
 // K14's attention: one block per (head, batch row), 8 lanes per 64-wide
@@ -506,25 +769,43 @@ extern "C" int mas_decoder_self_block(
   return (int)cudaGetLastError();
 }
 
-// K4 / K4-o. x, out: [B, D] bf16 (D % 64 == 0); g: [D] float32; bln, b2,
-// bco: [D] bf16; w1: [D, F], w2: [F, D], wco: [D, D] bf16 row-major
-// (F % 128 == 0); b1: [F] bf16; attn: [B, D] float32; x32: [B, D]
-// float32 scratch; part: [F / 128, B, D] float32 scratch; counter:
-// >= ceil(B/4) zeroed ints. wco == NULL runs K4 (attn, bco, x32 unused).
-// Returns the first CUDA error of the launches (0 = none).
+// K4's four instances: [HEAD][ONE]
+const void* const MLP_FN[2][2] = {
+    {(const void*)mlp_kernel<false, false>, (const void*)mlp_kernel<false, true>},
+    {(const void*)mlp_kernel<true, false>, (const void*)mlp_kernel<true, true>}};
+
+// Raises K4's dynamic shared-memory limit (every instance). Called once,
+// when the library is loaded.
+extern "C" int mas_decoder_mlp_block_init(void) {
+  for (const auto& row : MLP_FN)
+    for (const void* fn : row) {
+      cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)mlp_smem(MLP_DC));
+      if (e != cudaSuccess) return (int)e;
+    }
+  return 0;
+}
+
+// K4 / K4-o. x, out: [B, D] bf16 (D % 64 == 0, D <= 2048); g: [D]
+// float32; bln, b2, bco: [D] bf16; w1: [D, F], w2: [F, D], wco: [D, D]
+// bf16 row-major (F % 32 == 0); b1: [F] bf16; attn: [B, D] float32; x32:
+// [B, D] float32 scratch; h: [B, D] bf16 scratch; part: [F / 32, B, D]
+// float32 scratch; counter: >= 3 zeroed ints, left zero. wco == NULL runs
+// K4 (attn, bco, x32 unused). sms: the card's multiprocessors; the grid
+// is min(F / 32, sms x the blocks a multiprocessor holds). Returns the
+// first CUDA error of the launches (0 = none).
 extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
                                      const void* bln, const void* w1,
                                      const void* b1, const void* w2,
                                      const void* b2, const void* attn,
                                      const void* wco, const void* bco,
-                                     void* x32, void* part, void* counter,
-                                     void* out, int B, int D, int F,
-                                     float eps, void* stream) {
+                                     void* x32, void* h, void* part,
+                                     void* counter, void* out, int B, int D,
+                                     int F, float eps, int sms,
+                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = rows_grid(F / FC, B, RB4);
-  const size_t smem = (size_t)NT * 8 * RB4 * 4 +
-                      (size_t)(RB4 * D + RB4 * FC) * 2;
-  if (grid.y > MAX_ROW_BLOCKS || smem > SMEM_MAX || D % PC || F % FC)
+  if (B < 1 || D % PC || D > MLP_MAX_D || F % MLP_FS || sms < 1)
     return (int)cudaErrorInvalidValue;
   const bool head = wco != nullptr;
   if (head) {
@@ -535,32 +816,42 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-#define K4_ARGS                                                              \
-  (const bf16*)x, (const float*)x32, (const float*)g, (const bf16*)bln,      \
-      (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,    \
-      (float*)part, (int*)counter, (bf16*)out, B, D, F, eps
-  if (head)
-    mlp_kernel<true><<<grid, NT, smem, s>>>(K4_ARGS);
-  else
-    mlp_kernel<false><<<grid, NT, smem, s>>>(K4_ARGS);
-#undef K4_ARGS
-  return (int)cudaGetLastError();
+  // blocks a multiprocessor holds, per variant and chunk width (read
+  // once; the instances differ only in their loops' trip counts)
+  static int per_sm[2][MLP_DC / 64 + 1];
+  const int dc = mlp_dc(D);
+  int& fit = per_sm[head][dc / 64];
+  if (fit == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, MLP_FN[head][0], MLP_NT, mlp_smem(dc));
+    if (e != cudaSuccess) return (int)e;
+    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int grid = F / MLP_FS < sms * fit ? F / MLP_FS : sms * fit;
+  const bool one = D <= MLP_DC && B <= 32 && grid == F / MLP_FS;
+  const void* fn = MLP_FN[head][one];
+  void* args[] = {(void*)&x,  (void*)&x32, (void*)&g,       (void*)&bln,
+                  (void*)&w1, (void*)&b1,  (void*)&w2,      (void*)&b2,
+                  (void*)&h,  (void*)&part, (void*)&counter, (void*)&out,
+                  (void*)&B,  (void*)&D,   (void*)&F,       (void*)&eps};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MLP_NT), args,
+                                          mlp_smem(dc), s);
 }
 
 // K14. x, out: [B, D] bf16 (D = H * 64); g2, g3: [D] float32 LN scales;
 // b2, bcq, bco, b3, b2m: [D] bf16; wcq, wco: [D, D], w1: [D, F], w2:
-// [F, D] bf16 row-major (F % 128 == 0); b1: [F] bf16; k, v: [B, T, D]
-// bf16 merged-head cross K/V; q1: [B, D] bf16, attn and x32: [B, D]
-// float32, part: [F / 128, B, D] float32 scratch; counter: >= ceil(B/4)
-// zeroed ints. Every pointer 16-byte aligned. Returns the first CUDA
-// error of the launches (0 = none).
+// [F, D] bf16 row-major (F % 32 == 0); b1: [F] bf16; k, v: [B, T, D]
+// bf16 merged-head cross K/V; q1 and h: [B, D] bf16, attn and x32: [B, D]
+// float32, part: [F / 32, B, D] float32 scratch; counter: >= 3 zeroed
+// ints; sms as K4's. Every pointer 16-byte aligned.
+// Returns the first CUDA error of the launches (0 = none).
 extern "C" int mas_cross_mlp_block(
     const void* x, const void* g2, const void* b2, const void* wcq,
     const void* bcq, const void* wco, const void* bco, const void* g3,
     const void* b3, const void* w1, const void* b1, const void* w2,
     const void* b2m, const void* k, const void* v, void* q1, void* attn,
-    void* x32, void* part, void* counter, void* out, int B, int H, int T,
-    int F, float scale, float eps, void* stream) {
+    void* x32, void* h, void* part, void* counter, void* out, int B, int H,
+    int T, int F, float scale, float eps, int sms, void* stream) {
   const int D = H * HDIM;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem_q = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
@@ -580,5 +871,6 @@ extern "C" int mas_cross_mlp_block(
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return mas_decoder_mlp_block(x, g3, b3, w1, b1, w2, b2m, attn, wco, bco,
-                               x32, part, counter, out, B, D, F, eps, stream);
+                               x32, h, part, counter, out, B, D, F, eps,
+                               sms, stream);
 }

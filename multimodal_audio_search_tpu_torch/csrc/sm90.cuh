@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
-// copies and their tensor maps, asynchronous copies, and the warpgroup
-// matrix products (wgmma) with their shared-memory descriptors.
+// copies and their tensor maps, asynchronous copies, ldmatrix, the exact
+// int8 -> bf16 conversion, and the warpgroup matrix products (wgmma) with
+// their shared-memory descriptors.
 //
 // Operands of wgmma live in shared memory in the layout a TMA copy with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64 bf16), the
@@ -88,12 +89,87 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// The same, reading only the first `src_bytes` (0..16) and writing zeros
+// for the rest: no byte past `src + src_bytes` is touched.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One box of a rank-2 tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- ldmatrix
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and register i receives row lane / 4, columns 2 (lane % 4) + 0..1
+// of matrix i (with .trans: of its transpose).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// Two matrices, transposed: lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t r[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// ----------------------------------------------------- int8 -> bf16, exact
+// Four int8 codes (one word, lowest byte first) -> four bf16 in two words.
+// b + 128 (an unsigned byte) goes into the low mantissa bits of 2^23 (one
+// byte permute) and 2^23 + 128 is taken off, exactly; |b| <= 128 fits
+// bf16's 8 significant bits.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float k = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - k;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - k;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - k;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - k;
+  lo = pack_bf16(f0, f1);
+  hi = pack_bf16(f2, f3);
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -182,6 +258,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float d[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] (f32) += A[64 x 16] B[16 x 64]: A a K-major bf16 operand and
+// B an MN-major one (one 64-wide swizzle atom, the transpose bit set),
+// both in shared memory. D's layout is wgmma_m64n128k16_ss's, 8 columns
+// a step of j.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float d[32], uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MAS_R32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : MAS_D32("+f")
+      : "l"(da), "l"(db), "r"(1));
+}
+
 #undef MAS_D8
 #undef MAS_D32
 #undef MAS_D64
@@ -233,6 +323,26 @@ inline int encode_bf16_bhtd(CUtensorMap* map, const void* base, int B, int H,
   const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                        const_cast<void*>(base), dims, strides, box, unit,
                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A rank-2 map over a row-major [rows, cols] matrix of `type` with a row
+// pitch of `pitch` bytes (a multiple of 16): dimensions {cols, rows}, box
+// {box_cols, box_rows}, zeros outside. Returns a cudaError_t value.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, long long rows, long long cols,
+                     long long pitch, int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn f = encode_tiled();
+  if (f == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = f(map, type, 2, const_cast<void*>(base), dims, strides,
+                       box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -154,11 +154,17 @@ def prepare_params(params, dtype: torch.dtype, device: torch.device):
     float32 copy of the tied embedding table for the logits (see
     _tied_logits) -- unless the decoder is quantized, whose logits come
     from the int8 table: a float32 copy would cost more than the mode
-    saves (106 MB at whisper-base)."""
+    saves (106 MB at whisper-base). On the card a quantized decoder's
+    int8 table is replaced by its transposed copy, which K5's table
+    kernel reads (ops/quant.py::logits_table; held once, 26.5 MB at
+    whisper-base)."""
     p = L.cast_floats(params, dtype, device)
-    if "embed_tokens_q" not in p["decoder"]:
-        p["decoder"]["embed_tokens_f32"] = \
-            p["decoder"]["embed_tokens"].float()
+    dec = p["decoder"]
+    if "embed_tokens_q" not in dec:
+        dec["embed_tokens_f32"] = dec["embed_tokens"].float()
+    elif torch.device(device).type == "cuda":
+        from ..ops.quant import logits_table
+        dec["embed_tokens_q"] = logits_table(dec["embed_tokens_q"])
     return p
 
 

@@ -183,27 +183,50 @@ def cross_mlp_block_plain(x, ln2_g, ln2_b, wcq, bcq, wco, bco,
 
 # ------------------------------------------------------------- card side
 _COUNTERS: dict = {}
+_BUFS: dict = {}
+_K4 = None  # the declared ctypes function of K4/K4-o, read once
+_F32 = frozenset(("ln_g", "cross_ln_g", "attn", "ln2_g", "ln3_g"))
+MAX_D = 2048  # K4's widest row: its layer norm holds 8 values a thread
 
 
-def _counters(device: torch.device) -> torch.Tensor:
-    """Zeroed int32 arrival counters for the kernels' last-block
-    epilogues; each launch leaves them zero again. One set per device:
-    the kernels run on one stream at a time."""
+def _counters(device: torch.device) -> tuple[int, int]:
+    """Pointers of the zeroed int32 arrival counters of K3 and of K4 (and
+    K14, which runs K4's body); each launch leaves them zero again. One
+    set per device: the kernels run on one stream at a time."""
     c = _COUNTERS.get(device)
     if c is None:
-        c = _COUNTERS[device] = torch.zeros(2, 4096, dtype=torch.int32,
-                                            device=device)
-    return c
+        t = torch.zeros(2, 4096, dtype=torch.int32, device=device)
+        c = _COUNTERS[device] = (t[0].data_ptr(), t[1].data_ptr(), t)
+    return c[0], c[1]
+
+
+def _buf(device: torch.device, name: str, numel: int,
+         dtype: torch.dtype) -> int:
+    """Pointer of the persistent scratch ``name`` on ``device``, at least
+    ``numel`` elements; a call that needs more replaces it with a larger
+    one (the allocator orders the old one's reuse on the stream)."""
+    t = _BUFS.get((device, name))
+    if t is None or t.numel() < numel:
+        t = _BUFS[(device, name)] = torch.empty(numel, dtype=dtype,
+                                                device=device)
+    return t.data_ptr()
 
 
 def _check(kernel: str, ref: torch.Tensor, **tensors) -> None:
+    """Raise on a tensor the kernel does not take: one combined test on
+    the common path, the culprit named only when it fails."""
+    ok, ptrs = True, 0
+    for name, a in tensors.items():
+        ptrs |= a.data_ptr()
+        ok = ok and a.device == ref.device and a.is_contiguous() and \
+            a.dtype == (torch.float32 if name in _F32 else torch.bfloat16)
+    if ok and not ptrs % 16:
+        return
     for name, a in tensors.items():
         if a.device != ref.device:
             raise ValueError(f"{kernel}: {name} on {a.device}, x on "
                              f"{ref.device}")
-        want = torch.float32 if name in ("ln_g", "cross_ln_g", "attn",
-                                         "ln2_g", "ln3_g") \
-            else torch.bfloat16
+        want = torch.float32 if name in _F32 else torch.bfloat16
         if a.dtype != want:
             raise TypeError(f"{kernel} takes {name} as {want}, got {a.dtype}")
         if not a.is_contiguous() or a.data_ptr() % 16:
@@ -251,7 +274,7 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
-        part.data_ptr(), _counters(dev)[0].data_ptr(), x_out.data_ptr(),
+        part.data_ptr(), _counters(dev)[0], x_out.data_ptr(),
         *(_ptr(a) for a in (*cross, xo32, qc)),
         b, heads, l, int(pos), 1.0 / math.sqrt(64), eps,
         runtime.stream_handle(dev))
@@ -317,9 +340,9 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
     kernel = "K4-o" if head else "K4"
     b, hd = x.shape
     f = w1.shape[1]
-    if hd % 64 or f % 128:
-        raise ValueError(f"{kernel} takes D % 64 == 0 and F % 128 == 0: "
-                         f"D={hd}, F={f}")
+    if hd % 64 or hd > MAX_D or f % 32:
+        raise ValueError(f"{kernel} takes D % 64 == 0, D <= {MAX_D} and "
+                         f"F % 32 == 0: D={hd}, F={f}")
     vecs = dict(ln_g=ln_g, ln_b=ln_b, b2=b2)
     _shape(kernel, b1, (f,), "b1")
     _shape(kernel, w1, (hd, f), "w1")
@@ -336,16 +359,18 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
     _check(kernel, x, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
     out = torch.empty_like(x)
-    part = torch.empty((f // 128, b, hd), dtype=torch.float32, device=dev)
-    x32 = torch.empty((b, hd), dtype=torch.float32, device=dev) \
-        if head else None
-    lib = runtime.kernels()
-    rc = lib.mas_decoder_mlp_block(
+    global _K4
+    if _K4 is None:
+        _K4 = runtime.kernels().mas_decoder_mlp_block
+    rc = _K4(
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        *(_ptr(a) for a in (*(head or (None,) * 3), x32)),
-        part.data_ptr(), _counters(dev)[1].data_ptr(), out.data_ptr(),
-        b, hd, f, eps, runtime.stream_handle(dev))
+        *(_ptr(a) for a in (head or (None,) * 3)),
+        _buf(dev, "x32", b * hd, torch.float32) if head else 0,
+        _buf(dev, "h", b * hd, torch.bfloat16),
+        _buf(dev, "part", f // 32 * b * hd, torch.float32),
+        _counters(dev)[1], out.data_ptr(), b, hd, f, eps,
+        runtime.sm_count(dev), runtime.raw_stream(dev))
     runtime.check_launch(rc, "mas_decoder_mlp_block")
     runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
     return out
@@ -375,9 +400,9 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
                       wm1, bm1, wm2, bm2, k_m, v_m, heads: int, eps: float):
     b, hd = x.shape
     f = wm1.shape[1]
-    if hd != heads * 64 or f % 128:
-        raise ValueError(f"K14 takes head dim 64 and F % 128 == 0: D={hd}, "
-                         f"heads={heads}, F={f}")
+    if hd != heads * 64 or hd > MAX_D or f % 32:
+        raise ValueError(f"K14 takes head dim 64, D <= {MAX_D} and F % 32 "
+                         f"== 0: D={hd}, heads={heads}, F={f}")
     t = k_m.shape[1]
     vecs = dict(ln2_g=ln2_g, ln2_b=ln2_b, bcq=bcq, bco=bco, ln3_g=ln3_g,
                 ln3_b=ln3_b, bm2=bm2)
@@ -393,17 +418,17 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
     _check("K14", x, x=x, wcq=wcq, wco=wco, wm1=wm1, bm1=bm1, wm2=wm2,
            k_m=k_m, v_m=v_m, **vecs)
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = torch.float32
     q1, out = torch.empty_like(x), torch.empty_like(x)
-    attn, x32 = torch.empty((b, hd), **f32), torch.empty((b, hd), **f32)
-    part = torch.empty((f // 128, b, hd), **f32)
     lib = runtime.kernels()
     rc = lib.mas_cross_mlp_block(
         *(a.data_ptr() for a in (x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
-                                 ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, q1,
-                                 attn, x32, part)),
-        _counters(dev)[1].data_ptr(), out.data_ptr(), b, heads, t, f,
-        1.0 / math.sqrt(64), eps, runtime.stream_handle(dev))
+                                 ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, q1)),
+        _buf(dev, "attn", b * hd, f32), _buf(dev, "x32", b * hd, f32),
+        _buf(dev, "h", b * hd, torch.bfloat16),
+        _buf(dev, "part", f // 32 * b * hd, f32), _counters(dev)[1],
+        out.data_ptr(), b, heads, t, f, 1.0 / math.sqrt(64), eps,
+        runtime.sm_count(dev), runtime.stream_handle(dev))
     runtime.check_launch(rc, "mas_cross_mlp_block")
     runtime.bump("cross_mlp_block")
     return out

@@ -16,7 +16,13 @@ Counterpart of ``multimodal_audio_search_tpu/ops/quant.py``:
 On a CUDA tensor K5 launches ``csrc/quant_matmul.cu``, which adds the bias
 and rounds to the output dtype in its epilogue (the same values); on a CPU
 tensor it runs ``quant_matmul_plain``. There is no other route: a launch
-that fails raises.
+that fails raises. ``split_plan`` picks the kernel and its K splits from
+the shape: the skinny kernel for a decode step's layers (split K, partials
+summed in split order), the wgmma kernel for the cross K/V projection over
+the encoder rows. The tied logits (N = 51865) take the table kernel on the
+transposed copy that ``logits_table`` puts in place of the codes when the
+model is placed on the card; any other N % 16 != 0 takes it on a copy
+made for the call.
 
 Where the JAX package differs: on a non-TPU backend its
 ``quant_dense_apply`` multiplies by the dequantized matrix
@@ -30,9 +36,13 @@ import torch
 
 from .. import runtime
 
-# M at or below which K5 takes its 32x32 tiling (decode steps); above it,
-# the 128x128 one (the cross K/V projections over B * 1500 rows)
+# M at or below which K5 takes its skinny kernel (a decode step's
+# layers); above it, with N % 16 == 0, the wgmma one (the cross K/V
+# projections over B * 1500 rows)
 SMALL_M = 64
+# the widest K whose x rows and table rings fit the table kernel's shared
+# memory (one block a SM)
+TABLE_MAX_K = 2048
 
 
 # ---------------------------------------------------------------- quantize
@@ -83,6 +93,31 @@ def quantize_whisper_decoder(params: dict) -> dict:
     return {**params, "decoder": dec}
 
 
+def transposed_table(wq: torch.Tensor) -> torch.Tensor:
+    """int8 [K, N] -> [N, Kp], Kp = K rounded up to 16, the pad zero: the
+    layout K5's table kernel streams in aligned 16-byte words whatever N
+    is."""
+    k, n = wq.shape
+    t = torch.zeros((n, -(-k // 16) * 16), dtype=torch.int8,
+                    device=wq.device)
+    t[:, :k] = wq.t()
+    return t
+
+
+def logits_table(q: dict) -> dict:
+    """The tied logits' leaf as the card holds it: its int8 codes [d, V]
+    replaced by their transposed copy ("wq_t", transposed_table). Made
+    once, when the model is placed on the card (models/whisper.py::
+    prepare_params); the leaf's other entries are kept as they are. A
+    width the table kernel does not take (d > TABLE_MAX_K) keeps its
+    codes, and a leaf that holds its table already is returned as it
+    is."""
+    if "wq" not in q or q["wq"].shape[0] > TABLE_MAX_K:
+        return q
+    t = {k: v for k, v in q.items() if k != "wq"}
+    return {**t, "wq_t": transposed_table(q["wq"])}
+
+
 def is_quantized(params) -> bool:
     """True for a Whisper tree from quantize_whisper_decoder."""
     return "embed_tokens_q" in params["decoder"]
@@ -97,17 +132,80 @@ def quant_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
     return torch.matmul(x.float(), wq.float()) * scale.float()
 
 
-def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
-            small: bool | None = None) -> torch.Tensor:
-    m, k = x.shape
-    if wq.dim() != 2 or wq.shape[0] != k:
-        raise ValueError(f"K5: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
-    n = wq.shape[1]
+# K5's plan (csrc/quant_matmul.cu): N % 16 != 0 takes the table kernel
+# ("table", on the transposed codes); otherwise M > SMALL_M takes the
+# wgmma kernel ("wide") and M <= SMALL_M the skinny kernel, tiles of
+# 32 rows by SB_N columns, K in SB_K steps. K is split, at most MAX_SPLITS
+# ways, until the grid fills one wave of the card -- but only where a
+# block would walk SPLIT_MIN_STEPS steps or more and the tiles fill under
+# a quarter of the wave: a split costs a partial tile's store, a fence,
+# an arrival and the last block's reduction, ~2 us on an H100, more than
+# it saves below that ([2048, 512] splits 8 ways, [512, 2048] not at
+# all). The splits' float32 partial tiles ([tiles, splits, 32, SB_N]) go
+# to a persistent per-device scratch of SCRATCH floats (more when a
+# forced split count needs it), summed in split order by the last block
+# of each tile. The wave is the card's multiprocessor count
+# (runtime.sm_count); WAVE, an H100 SXM's, is the default CPU tests plan
+# for.
+WAVE = 132
+SB_N = 32
+SB_K = 128
+MAX_SPLITS = 8
+SPLIT_MIN_STEPS = 4
+SCRATCH = 1 << 22
+COUNTERS = 4096
+_SCRATCH: dict = {}
+_K5 = _K5T = None  # the declared ctypes functions, read once
+
+
+def split_plan(m: int, k: int, n: int, splits: int | None = None,
+               wave: int = WAVE) -> tuple[str, int, int, int]:
+    """K5's (regime, column tile, K splits, K steps a split) for x [m, k]
+    @ W [k, n] on a card of ``wave`` multiprocessors. ``splits`` forces a
+    split count on the skinny kernel (tests reach the split edges with
+    it); the plan then takes the fewest splits of equal steps that cover
+    K, so no split is empty. The table kernel takes K whole, in steps of
+    16."""
+    if n % 16:
+        if k > TABLE_MAX_K:
+            raise ValueError(f"K5 takes N % 16 == 0, or K <= {TABLE_MAX_K} "
+                             f"for its table kernel: K={k}, N={n}")
+        return "table", 16, 1, -(-k // 16)
+    if m > SMALL_M and splits is None:
+        return "wide", 128, 1, -(-k // 64)
+    nk = -(-k // SB_K)
+    if splits is None:
+        tiles = -(-n // SB_N) * -(-m // 32)
+        splits = 1 if nk < SPLIT_MIN_STEPS or tiles >= wave // 4 else min(
+            nk, -(-wave // tiles), MAX_SPLITS, SCRATCH // (tiles * 32 * SB_N))
+    steps = -(-nk // max(1, min(splits, nk)))
+    return "skinny", SB_N, -(-nk // steps), steps
+
+
+def _scratch(device: torch.device, floats: int) -> tuple[int, int]:
+    """Pointers of the persistent split scratch (at least ``floats``
+    float32, SCRATCH to start with) and the zeroed arrival counters
+    (COUNTERS int32, one a tile) on ``device``; each launch leaves the
+    counters zero. One set per device: K5 runs on one stream at a time."""
+    ptrs = _SCRATCH.get(device)
+    if ptrs is None or ptrs[2].numel() < floats:
+        part = torch.empty(max(SCRATCH, floats), dtype=torch.float32,
+                           device=device)
+        cnt = ptrs[3] if ptrs else torch.zeros(COUNTERS, dtype=torch.int32,
+                                               device=device)
+        ptrs = _SCRATCH[device] = (part.data_ptr(), cnt.data_ptr(), part, cnt)
+    return ptrs[0], ptrs[1]
+
+
+def _check(x, w, scale, bias, out_dtype, n: int) -> None:
+    """Raise on what K5 does not take (w: the codes [K, N] or the table
+    [N, Kp], its shape checked by the caller): one combined test on the
+    common path, the culprit named only when it fails."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"K5 takes bf16 x; got {x.dtype}")
-    if wq.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"K5 takes int8 wq and float32 scale; got "
-                        f"{wq.dtype}, {scale.dtype}")
+    if w.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"K5 takes int8 codes and float32 scale; got "
+                        f"{w.dtype}, {scale.dtype}")
     if bias is not None and bias.dtype != torch.bfloat16:
         raise TypeError(f"K5 takes a bf16 bias; got {bias.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -115,24 +213,68 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
     if tuple(scale.shape) != (n,) or (bias is not None
                                       and tuple(bias.shape) != (n,)):
         raise ValueError(f"K5: N={n}, scale {tuple(scale.shape)}")
-    if k % 8:
-        raise ValueError(f"K5 takes K a multiple of 8 (16-byte rows), K={k}")
-    for name, a in (("x", x), ("wq", wq), ("scale", scale), ("bias", bias)):
-        if a is None:
-            continue
+    if x.shape[1] % 8:
+        raise ValueError(f"K5 takes K a multiple of 8 (16-byte rows), "
+                         f"K={x.shape[1]}")
+    ts = (x, w, scale) if bias is None else (x, w, scale, bias)
+    if all(a.device == x.device and a.is_contiguous() for a in ts) and not (
+            x.data_ptr() | w.data_ptr() | scale.data_ptr()
+            | (0 if bias is None else bias.data_ptr())) % 16:
+        return
+    for name, a in zip(("x", "codes", "scale", "bias"), ts):
         if a.device != x.device:
             raise ValueError(f"K5: {name} on {a.device}, x on {x.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"K5 takes a contiguous 16-byte aligned {name}")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if small is None:
-        small = m <= SMALL_M
-    lib = runtime.kernels()
-    rc = lib.mas_quant_matmul(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        m, k, n, int(out_dtype == torch.bfloat16), int(small),
-        runtime.stream_handle(x.device))
+
+
+def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
+            splits: int | None = None, wq_t=None) -> torch.Tensor:
+    """K5 on the card, on the codes ``wq`` [K, N] or the transposed table
+    ``wq_t`` [N, Kp] of logits_table (the table kernel; ``wq`` may then
+    be None). Where split_plan picks the table kernel for codes, it runs
+    on a copy made here. ``splits`` forces the skinny kernel with that
+    many K splits (tests reach the split edges with it)."""
+    m, k = x.shape
+    dev = x.device
+    if wq_t is None:
+        if wq.dim() != 2 or wq.shape[0] != k:
+            raise ValueError(f"K5: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
+        regime, bn, splits, steps = split_plan(m, k, wq.shape[1], splits,
+                                               runtime.sm_count(dev))
+        if regime == "table":  # on no engine path: the logits hold a table
+            wq_t = transposed_table(wq)
+    if wq_t is not None and (wq_t.dim() != 2 or k > TABLE_MAX_K
+                             or wq_t.shape[1] != -(-k // 16) * 16):
+        raise ValueError(f"K5: x {tuple(x.shape)}, table "
+                         f"{tuple(wq_t.shape)}")
+    w = wq if wq_t is None else wq_t
+    n = w.shape[1] if wq_t is None else w.shape[0]
+    _check(x, w, scale, bias, out_dtype, n)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    global _K5, _K5T
+    if wq_t is not None:
+        if _K5T is None:
+            _K5T = runtime.kernels().mas_quant_matmul_table
+        rc = _K5T(x.data_ptr(), wq_t.data_ptr(), scale.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  m, k, wq_t.shape[1], n, int(out_dtype == torch.bfloat16),
+                  runtime.sm_count(dev), runtime.raw_stream(dev))
+        runtime.check_launch(rc, "mas_quant_matmul_table")
+        runtime.bump("quant_matmul")
+        return out
+    tiles = -(-n // bn) * -(-m // 32)
+    if splits > 1 and tiles > COUNTERS:
+        raise ValueError(f"K5: {splits} splits of [{m}, {n}] take "
+                         f"{tiles} arrival counters, more than {COUNTERS}")
+    part, cnt = _scratch(dev, splits * tiles * 32 * bn if splits > 1 else 0)
+    if _K5 is None:
+        _K5 = runtime.kernels().mas_quant_matmul
+    rc = _K5(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             part, cnt, m, k, n, int(out_dtype == torch.bfloat16),
+             int(regime == "wide"), bn, splits, steps,
+             runtime.raw_stream(dev))
     runtime.check_launch(rc, "mas_quant_matmul")
     runtime.bump("quant_matmul")
     return out
@@ -157,9 +299,11 @@ def quant_dense_apply(p: dict, x: torch.Tensor,
     x2 = x.reshape(-1, x.shape[-1])
     dt = out_dtype or x.dtype
     if x.device.type == "cuda":
-        y = _launch(x2, p["wq"], p["scale"], p.get("b"), dt)
+        y = _launch(x2, p.get("wq"), p["scale"], p.get("b"), dt,
+                    wq_t=p.get("wq_t"))
     elif x.device.type == "cpu":
-        y = quant_matmul_plain(x2, p["wq"], p["scale"])
+        wq = p["wq"] if "wq" in p else p["wq_t"][:, :x2.shape[1]].t()
+        y = quant_matmul_plain(x2, wq, p["scale"])
         if "b" in p:
             y = y + p["b"].float()
         y = y.to(dt)

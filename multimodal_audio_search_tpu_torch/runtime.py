@@ -57,9 +57,10 @@ COUNTS: dict[str, int] = {
 }
 
 # called once when the library loads: the kernels' shared-memory limits
-# and K8's tensor-map encoder
+# and the tensor-map encoder (K8, K5)
 INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
-        "mas_encoder_attention_init")
+        "mas_encoder_attention_init", "mas_quant_matmul_init",
+        "mas_decoder_mlp_block_init")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -171,15 +172,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_decoder_mlp_block.argtypes = [
         p, p, p, p, p, p, p,      # x, g, b, w1, b1, w2, b2
         p, p, p, p,               # attn, wco, bco, x32 (K4-o)
-        p, p, p,                  # partials, counters, out
+        p, p, p, p,               # h, partials, counters, out
         i, i, i,                  # B, D, F
-        f, p]                     # eps, stream
+        f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block.restype = i
     lib.mas_quant_matmul.argtypes = [
         p, p, p, p, p,            # x, wq, scale, bias (or null), out
-        i, i, i, i, i,            # M, K, N, out_bf16, small tiling
+        p, p,                     # split scratch, counters
+        i, i, i, i,               # M, K, N, out_bf16
+        i, i, i, i,               # wide, column tile, splits, steps
         p]                        # stream
     lib.mas_quant_matmul.restype = i
+    lib.mas_quant_matmul_table.argtypes = [
+        p, p, p, p, p,            # x, wt [N, Kp], scale, bias (or null), out
+        i, i, i, i, i,            # M, K, Kp, N, out_bf16
+        i, p]                     # multiprocessors, stream
+    lib.mas_quant_matmul_table.restype = i
     lib.mas_single_query_attention_int8.argtypes = [
         p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
         i, i, i, i,               # B, H, T, n_valid
@@ -204,9 +212,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p,      # x, g2, b2, wcq, bcq, wco, bco
         p, p, p, p, p, p,         # g3, b3, w1, b1, w2, b2
         p, p,                     # k, v
-        p, p, p, p, p, p,         # q1, attn, x32, partials, counters, out
+        p, p, p, p, p, p, p,      # q1, attn, x32, h, partials, counters, out
         i, i, i, i,               # B, H, T, F
-        f, f, p]                  # scale, eps, stream
+        f, f, i, p]               # scale, eps, multiprocessors, stream
     lib.mas_cross_mlp_block.restype = i
 
 
@@ -282,6 +290,20 @@ def check_launch(rc: int, name: str) -> None:
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of a CUDA ``device`` (with its index set, as a
+    tensor's device has), read once: the one place the kernels' launch
+    plans learn the card's size."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def raw_stream(device: torch.device) -> int:

@@ -12,8 +12,9 @@ norm); K2 (f32 output, f32 math on the same bf16 inputs) 1e-3, across
 its split edges with the arrival counters left zero; K3 and K4
 (both variants) on their block's term out - x (chip_smoke.check_delta)
 and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
-(int8 weights) elementwise (chip_smoke.check_k5) in both tilings, at
-ragged M and N, float32 and bf16 outputs, with and without a bias; K6 and
+(int8 weights) elementwise (chip_smoke.check_k5) in both kernels of its
+plan and at forced split counts, at ragged M, N and K, float32 and bf16
+outputs, with and without a bias, and with one K split dropped; K6 and
 K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel); the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
 output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
@@ -220,8 +221,14 @@ def test_k3_matches_plain(cuda, tail, b, heads, l, pos):
 
 @pytest.mark.parametrize("head", [False, True])
 @pytest.mark.parametrize("b,d,f", [(1, 128, 256), (5, 384, 1536),
-                                   (33, 512, 2048)])
+                                   (33, 512, 2048), (32, 512, 2048),
+                                   (32, 384, 1536), (32, 768, 3072),
+                                   (32, 1280, 5120), (7, 1024, 4096),
+                                   (128, 512, 2048), (200, 384, 1536)])
 def test_k4_matches_plain(cuda, head, b, d, f):
+    """K4 and K4-o at ragged batches, every Whisper width (D in 512-column
+    chunks past 512; at 1280, 160 slices on a grid capped by the card)
+    and batches of several 32-row blocks (the ingest batch up to 200)."""
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     gen = torch.Generator().manual_seed(b + d)
@@ -229,12 +236,14 @@ def test_k4_matches_plain(cuda, head, b, d, f):
     args = (x, *hd, *mlp) if head else (x, *mlp)
     fused = DB.fused_mlp_block_o if head else DB.fused_mlp_block
     plain = DB.mlp_block_o_plain if head else DB.mlp_block_plain
-    runtime.reset_counts()
-    got = fused(*args)
-    torch.cuda.synchronize()
-    assert sum(runtime.COUNTS.values()) == 1
-    assert got.dtype == torch.bfloat16 and got.shape == x.shape
-    chip_smoke.check_delta("K4", got, plain(*args), x)
+    for _ in range(2):  # a second call finds the barrier counters at zero
+        runtime.reset_counts()
+        got = fused(*args)
+        torch.cuda.synchronize()
+        assert sum(runtime.COUNTS.values()) == 1
+        assert int(DB._COUNTERS[x.device][2][1].abs().sum()) == 0
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        chip_smoke.check_delta("K4", got, plain(*args), x)
 
 
 def test_k3_check_sees_fresh_row_counted_twice(cuda):
@@ -341,26 +350,35 @@ def test_tiny_fused_engine_on_card(cuda, fused):
 
 
 # ---------------------------------------- K5 / K6 / K7 (int8 memory mode)
-@pytest.mark.parametrize("small", [True, False])
+@pytest.mark.parametrize("splits", [None, 1, 3])
 @pytest.mark.parametrize("m,k,n,dt,bias", [
     (1, 64, 51865, "f32", False), (33, 136, 130, "bf16", True),
-    (130, 512, 515, "f32", True), (8, 2048, 512, "bf16", True)])
-def test_k5_matches_plain(cuda, small, m, k, n, dt, bias):
-    """K5 in both tilings at ragged M (rows past M are never stored), N
-    (odd N takes the byte loads and the last partial column tile) and K
-    (a partial K tile)."""
+    (130, 512, 515, "f32", True), (8, 2048, 512, "bf16", True),
+    (130, 520, 384, "bf16", True), (8, 512, 51865, "f32", False),
+    (9, 256, 336, "bf16", True)])
+def test_k5_matches_plain(cuda, splits, m, k, n, dt, bias):
+    """K5 in every regime of its plan (the wide wgmma kernel at M > 64 and
+    N % 16 == 0 with ``splits`` None; the skinny one otherwise, at the
+    plan's split count or at a forced one; the table kernel, on a copy
+    made for the call, for an N % 16 != 0 whatever ``splits``) at ragged
+    M (rows past M are never stored), N (a partial column tile) and K (a
+    partial K step); one launch a call, the arrival counters left zero."""
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import quant as Q
     out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     gen = torch.Generator().manual_seed(m + n)
     x, wq, scale, b = chip_smoke.k5_inputs(gen, m, k, n, bias=bias)
-    runtime.reset_counts()
-    got = Q._launch(x, wq, scale, b, out_dtype, small=small)
-    torch.cuda.synchronize()
-    assert runtime.COUNTS["quant_matmul"] == 1
-    assert got.dtype == out_dtype and got.shape == (m, n)
-    chip_smoke.check_k5("K5", got, chip_smoke.k5_plain(x, wq, scale, b,
-                                                       out_dtype))
+    for _ in range(2):  # a second call finds the counters at zero
+        runtime.reset_counts()
+        got = Q._launch(x, wq, scale, b, out_dtype, splits=splits)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["quant_matmul"] == 1
+        assert sum(runtime.COUNTS.values()) == 1
+        scratch = Q._SCRATCH.get(x.device)  # made by a skinny launch
+        assert scratch is None or int(scratch[3].abs().sum()) == 0
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        chip_smoke.check_k5("K5", got, chip_smoke.k5_plain(x, wq, scale, b,
+                                                           out_dtype))
 
 
 def test_k5_check_sees_a_dropped_column_tile(cuda):
@@ -376,6 +394,69 @@ def test_k5_check_sees_a_dropped_column_tile(cuda):
     got[:, 51865 // 32 * 32:] = 0
     with pytest.raises(AssertionError, match="outside atol"):
         chip_smoke.check_k5("K5 last tile dropped", got, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 51865), (32, 512, 51865),
+                                   (33, 384, 1027), (5, 48, 100),
+                                   (32, 768, 51865), (32, 1280, 51865),
+                                   (3, 1040, 333), (4, 136, 130)])
+def test_k5_table_matches_plain(cuda, m, k, n):
+    """K5's table kernel (the logits' transposed int8 copy, which takes
+    the codes' place in the leaf) at the vocabulary's odd N, a ragged
+    last column tile and row block, a partial K step, every Whisper width
+    (K in pieces of 512 past 512, a last piece of 16 at 1040) and a row
+    padded to 16 codes (136), against the plain version on the codes."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(m * k)
+    x, wq, scale, _ = chip_smoke.k5_inputs(gen, m, k, n, bias=False)
+    p = Q.logits_table({"wq": wq, "scale": scale})
+    assert "wq" not in p
+    runtime.reset_counts()
+    got = Q.quant_dense_apply(p, x, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["quant_matmul"] == 1
+    chip_smoke.check_k5("K5 table", got, chip_smoke.k5_plain(
+        x, wq, scale, None, torch.float32))
+
+
+def test_k5_unsplit_launches_leave_the_scratch_as_it_was(cuda):
+    """The split scratch is sized for split launches only: the wide
+    kernel over 16,000 rows and an unsplit skinny launch leave it at its
+    size (sized for the wide kernel's tiles, it grew by 98 MB at the
+    engine's 48,000 rows, for nothing)."""
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(12)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, 32, 512, 512)
+    Q._launch(x, wq, scale, b, torch.bfloat16)  # splits: the scratch exists
+    size = Q._SCRATCH[x.device][2].numel()
+    xw, wq, scale, b = chip_smoke.k5_inputs(gen, 16000, 512, 512)
+    assert Q.split_plan(16000, 512, 512)[0] == "wide"
+    Q._launch(xw, wq, scale, b, torch.bfloat16)
+    Q._launch(x, wq, scale, b, torch.bfloat16, splits=1)
+    torch.cuda.synchronize()
+    assert Q._SCRATCH[x.device][2].numel() == size
+
+
+def test_k5_check_sees_a_dropped_split(cuda):
+    """A planted fault: K5 at the main path's [2048, 512] (M = 32, 8
+    splits) on x with the K columns of split 7 zeroed computes what a
+    kernel that left that split out of its reduction computes;
+    chip_smoke's check rejects it and passes the kernel on x."""
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(11)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, 32, 2048, 512)
+    _, _, splits, steps = Q.split_plan(32, 2048, 512)
+    assert splits == 8
+    ref = chip_smoke.k5_plain(x, wq, scale, b, torch.bfloat16)
+    chip_smoke.check_k5("K5", Q._launch(x, wq, scale, b, torch.bfloat16),
+                        ref)
+    k0 = 7 * steps * Q.SB_K
+    xd = x.clone()
+    xd[:, k0:k0 + steps * Q.SB_K] = 0
+    with pytest.raises(AssertionError, match="outside atol"):
+        chip_smoke.check_k5("K5 split 7 dropped", Q._launch(
+            xd, wq, scale, b, torch.bfloat16), ref)
 
 
 @pytest.mark.parametrize("b,t,heads,pos", [(1, 1, 2, None), (3, 97, 6, 50),
@@ -800,13 +881,18 @@ def test_k13_check_sees_128_column_reads(cuda):
 
 
 @pytest.mark.parametrize("b,t,label", [(1, 1, "tiny"), (3, 77, "base"),
-                                       (5, 1500, "tiny"), (32, 1500, "base")])
+                                       (5, 1500, "tiny"), (32, 1500, "base"),
+                                       (3, 100, "small"), (2, 50, "large")])
 def test_k14_matches_plain(cuda, b, t, label):
-    """K14 at ragged B and T, both widths, on chip_smoke's "block" and
-    "attention" inputs, held by its checks; one launch each."""
+    """K14 at ragged B and T, the engine's two widths and whisper-small's
+    and large's, on chip_smoke's "block" and "attention" inputs, held by
+    its checks; one launch each."""
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
-    _, d, heads, f = next(w for w in chip_smoke.DEC_WIDTHS if w[0] == label)
+    widths = {w[0]: w for w in chip_smoke.DEC_WIDTHS}
+    widths.update(small=("small", 768, 12, 3072),
+                  large=("large", 1280, 20, 5120))
+    _, d, heads, f = widths[label]
     gen = torch.Generator().manual_seed(b * t)
     for inputs in ("block", "attention"):
         args = chip_smoke.k14_inputs(gen, b, t, d, f,

@@ -190,7 +190,8 @@ def test_quant_dense_apply_matches_jax(rng, rows, n, tol):
 
 def _k5_emulation(x, wq, scale, b, out_dtype, fault=None):
     """K5 in float64 with the kernel's tiling, and on request a planted
-    fault: "last column tile dropped" (a grid of N // BN column tiles),
+    fault: "last column tile dropped" (a grid of N // BN column tiles, BN
+    the plan's),
     or "scale by row" (scale[m] in place of scale[n])."""
     m, n = x.shape[0], wq.shape[1]
     acc = x.double() @ wq.double()
@@ -199,7 +200,7 @@ def _k5_emulation(x, wq, scale, b, out_dtype, fault=None):
     if b is not None:
         y = y + b.double()
     if fault == "last column tile dropped":
-        bn = 32 if m <= Q.SMALL_M else 128
+        bn = Q.split_plan(m, x.shape[1], n)[1]
         assert n % bn
         y[:, n // bn * bn:] = 0.0
     return y.to(out_dtype)
