@@ -20,9 +20,10 @@ Phases, one line each (``[phase] ...``):
    step's dense layers, the tied logits and the cross K/V projection
    over B*1500 rows (K5_SHAPES: its three regimes, each case with its
    split plan, device ms, host us and one torch._weight_int8pack_mm call
-   as a yardstick where the card's torch runs it on CUDA; K4 and K4-o
-   also carry device ms), K6 and K7 (int8 K/V) at B=32, T=1500,
-   H=8 and H=6; the encoder variants K8 (per-head attention on wgmma
+   as a yardstick where the card's torch runs it on CUDA; K3, K3-q, K4
+   and K4-o also carry device ms and host us), K6 and K7 (int8 K/V) at
+   B=32, T=1500, H=8 and H=6 (K7 with its cluster plan, device ms and
+   host us); the encoder variants K8 (per-head attention on wgmma
    and TMA, csrc/encoder_attention.cu), K9 (int8
    dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
    three forms of the softmax division at base width, on K1's inputs;
@@ -535,6 +536,18 @@ def check_k3(name, got, ref, x) -> dict:
     return out
 
 
+def k3_bound(args, got, pos: int) -> dict:
+    """bound() of K3's function (K3-q's with its tail's 4 more inputs):
+    its inputs and outputs, the cache rows 0..pos-1 read and row pos
+    written; the [D, D] projections (q/k/v/o, and K3-q's cross q) and
+    the attention's two products over pos + 1 keys."""
+    b, d = args[0].shape
+    tail = len(args) > 10
+    return bound(nbytes(*args, *got) + 2 * b * (pos + 1) * d * 2,
+                 bf16=2 * b * d * d * (5 if tail else 4)
+                 + 4 * b * (pos + 1) * d)
+
+
 def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
     """K3, K3-q, K4 and K4-o against their plain versions at B=32 and both
     model widths (K3 at every pos of K3_POS, cache L=68)."""
@@ -567,16 +580,13 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                                  f"pos={pos}",
                         **check_k3(f"{key} {label} pos={pos}", got, ref, x)}
                 if pos == K3_POS[-1]:
-                    case["ms"] = time_ms(
-                        lambda: fused(*args, kc, vc, pos, heads=heads))
-                    case["plain_ms"] = time_ms(
-                        lambda: plain(*args, kc, vc, pos, heads=heads))
-                    # cache rows 0..pos-1 read, row pos written; the
-                    # [D, D] projections (q/k/v/o, and K3-q's cross q)
-                    case.update(bound(
-                        nbytes(*args, *got) + 2 * b * (pos + 1) * d * 2,
-                        bf16=2 * b * d * d * (5 if extra else 4)
-                        + 4 * b * (pos + 1) * d))
+                    fn = (lambda: fused(*args, kc, vc, pos, heads=heads))
+                    case.update(
+                        ms=time_ms(fn), device_ms=device_ms(fn),
+                        host_us=host_us(fn),
+                        plain_ms=time_ms(
+                            lambda: plain(*args, kc, vc, pos, heads=heads)),
+                        **k3_bound(args, got, pos))
                 out[key]["cases"].append(case)
                 phase("kernels", kernel=key, card=card,
                       tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2,
@@ -785,13 +795,17 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
         got = CA.int8_cached_attention(*args)
         ref = CA.int8_cached_attention_plain(*args)
         torch.cuda.synchronize()
+        fn = (lambda: CA.int8_cached_attention(*args))
         case = {"shape": f"{label} B={b} T={t} H={heads}",
+                "plan": CA.cluster_plan(t, None, b * heads,
+                                        CA._fit(args[0].device)),
                 **check_rel(f"K7 {label}", got, ref, INT8_ATT_MAX,
                             INT8_ATT_L2),
-                "ms": time_ms(lambda: CA.int8_cached_attention(*args)),
+                "ms": time_ms(fn), "device_ms": device_ms(fn),
+                "host_us": host_us(fn),
                 "plain_ms": time_ms(
                     lambda: CA.int8_cached_attention_plain(*args))}
-        case["gbps"] = 2 * b * t * heads * 64 / case["ms"] / 1e6
+        case["gbps"] = nbytes(*args) / case["device_ms"] / 1e6
         case.update(bound(nbytes(*args, got), int8=4 * b * t * heads * 64))
         k7["cases"].append(case)
         phase("kernels", kernel="K7", card=card,

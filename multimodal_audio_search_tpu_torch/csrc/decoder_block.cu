@@ -22,15 +22,29 @@
 // TPU kernels run on 4 grid steps of 8 rows (BC=8); 4 blocks on 132 SMs
 // would leave the card's bandwidth unused. So both kernels split the
 // WEIGHTS across blocks:
-//   * K3: one block per (head, 2-row block) -- 128 blocks at base, B=32.
-//     Each block projects its rows onto its head's 64 columns of Wq/Wk/
-//     Wv, attends its head over the cache, multiplies the head's output
-//     by its 64 rows of Wo, and writes that partial sum. The last block
-//     of a row block to arrive (an arrival counter, as in CUDA's
-//     threadFenceReduction sample) sums the H partials in head order and
-//     adds bias and residual, so the result does not depend on the order
-//     blocks ran in. The arrival counters are left zero for the next
-//     launch; launches of one kernel must not overlap on two streams.
+//   * K3 (redesigned): a thread-block cluster of CS = min(H, 16) blocks
+//     (ops/decoder_block.py::self_block_plan), rank r taking heads
+//     [r H / CS, (r + 1) H / CS), for each tile of up to 16 batch rows,
+//     launched with cudaLaunchKernelEx and a cluster dimension (a refused
+//     launch raises). Each block streams its heads' 64 columns of Wq/Wk/
+//     Wv and 64 rows of Wo once per row tile through a ring of 8 KB
+//     tiles, each one TMA copy (128-byte swizzle) on an mbarrier, which a
+//     producer warp keeps full from the first instruction on (an SM
+//     pulls ~30 GB/s, so its link must never idle; the tiles are as
+//     many as the card holds clusters at once); q/k/v and the
+//     o-projection run on mma.sync m16n8k16 (bf16 in, float32 sums), one
+//     n8 fragment a warp;
+//     the attention's logits take a (row, key) pair a thread, its softmax
+//     a warp a row, and its p . V splits the keys over the 8 warps, whose
+//     partials add in warp order. Each block keeps its heads' o-projection
+//     partials [rows, D] in shared memory; after a cluster barrier rank r
+//     sums the CS partials of its heads' columns in rank order (so the
+//     heads in order) through distributed shared memory and adds bias and
+//     residual. No global partials, no arrival counters, nothing
+//     allocated per call. K3-q continues in the same launch: the cross
+//     layer norm's row sums go round the cluster the same way, each rank
+//     gathers the whole h2 rows and projects its columns onto Wcq, whose
+//     tiles close the same stream.
 //   * K4 (redesigned): a block per 32 fc1 columns (a slice) and all B
 //     rows, in 32-row blocks (64 blocks at base width; a block takes
 //     several slices where F / 32 exceeds what the card holds at once),
@@ -40,12 +54,11 @@
 //     norm once per row, spread over the grid; two grid-wide barriers
 //     (a cooperative launch) hand h to every block and the partials to
 //     a spread, fixed-order reduction (see mlp_kernel).
-//   * The two variants need a whole row before their extra product (the
-//     cross LN of x_out; the LN after the cross o-projection), which no
-//     one block of the split has. So each runs one more small kernel,
-//     one block per (64 columns, 4 rows), launched from the same C call:
-//     after K3-q, LN2 + Wcq; before K4-o, attn @ Wco + bco + x into a
-//     float32 buffer that K4-o's blocks read as their x.
+//   * K4-o needs a whole row before its extra product (the LN after the
+//     cross o-projection), which no one block of the split has. So it
+//     runs one more small kernel, one block per (64 columns, 4 rows),
+//     launched from the same C call: attn @ Wco + bco + x into a float32
+//     buffer that K4-o's blocks read as their x.
 // K14, decoder cross + MLP block (one C call, three stages):
 //   q1 = LN2(x) @ Wcq + bcq             (rowproj_kernel<true, bf16>)
 //   attn = single-query attention of q1 over merged cross K/V [B, T, D]
@@ -61,10 +74,10 @@
 // against the row's true maximum; p is summed into l unrounded, rounded
 // to bf16 before PV, and the division by l comes after PV.
 //
-// K3's and the extra phases' products are FMA in float32 on bf16
+// The extra phases' products (rowproj_kernel) are FMA in float32 on bf16
 // operands, with 16-byte weight loads coalesced across threads (8
 // columns a thread); a block reduces its threads' K slices through shared
-// memory in a fixed order (ROADMAP: K3 on mma.sync next).
+// memory in a fixed order.
 //
 // Numerics follow the TPU kernels' roundings (ops/decoder_block.py's
 // plain versions): h, q1, k1, v1, the fresh-row products q1*k1, the
@@ -75,7 +88,13 @@
 // written by the blocks of its head -- so it is counted once. The GELU
 // takes erff where the TPU kernels evaluate Abramowitz-Stegun 7.1.26
 // (|difference| < 1.5e-7).
+#include <cooperative_groups.h>
+
+#include <mutex>
+
 #include "sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -83,10 +102,8 @@ using namespace sm90;
 
 constexpr int NT = 256;   // threads per block
 constexpr int HDIM = 64;  // head dim of every Whisper preset
-constexpr int RB3 = 2;    // rows per K3 block
 constexpr int RB4 = 4;    // rows per extra-phase (rowproj) block
 constexpr int PC = 64;    // output columns per extra-phase block
-constexpr int MAX_ROW_BLOCKS = 4096;  // arrival counters per kernel
 constexpr size_t SMEM_MAX = 48 * 1024;
 
 __device__ __forceinline__ float bfr(float v) {
@@ -106,16 +123,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Layer norm of the block's rows into sH [RB][D] bf16, one warp per row:
+// Layer norm of the block's rows into sH [RB][ld] bf16, one warp per row:
 // float32 mean and variance, (x - mu) / sqrt(var + eps) * g + b with g
 // and b rounded to bf16, the result rounded to bf16. Rows >= nrows (the
 // ragged edge of the batch) are zero.
 template <int RB, typename Load>
 __device__ void ln_rows(Load load, int nrows, int D, const float* g,
-                        const bf16* b, float eps, bf16* sH) {
+                        const bf16* b, float eps, bf16* sH, int ld) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < RB; r += NT / 32) {
-    bf16* hr = sH + r * D;
+    bf16* hr = sH + r * ld;
     if (r >= nrows) {
       for (int k = lane; k < D; k += 32) hr[k] = __float2bfloat16(0.f);
       continue;
@@ -180,91 +197,322 @@ __device__ void rows_x_w(const bf16* sIn, int K, const bf16* __restrict__ W,
   __syncthreads();
 }
 
-// Arrival of this block at its row block's counter; true in the last
-// block to arrive, which then resets the counter for the next launch.
-__device__ bool last_to_arrive(int* counter, int expected) {
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(counter + blockIdx.y, 1) == expected - 1;
-  __syncthreads();
-  if (s_last) __threadfence();
-  return s_last;
+// K3 / K3-q's cluster kernel (see the file's head). Shared memory of a
+// block, in order: the weight ring [S][64 x 64] bf16 (on a 1024-byte
+// boundary: each tile lands by TMA with the 128-byte swizzle, its 16-byte
+// chunks XOR-ed by row, so ldmatrix.trans reads without bank conflicts),
+// then for the tile's rt rows: the o-projection partials [rt][D + 4]
+// float32 (read by the cluster), h [rt + 1][D + 8] bf16 (row rt zero:
+// the m16 fragments' rows past rt read it), q1 / k1 / v1 [rt][68]
+// float32, the fresh-row weights [16], the logits and p [rt][L] (then the
+// warps' PV partials [8][rt][64]) and the attention output [16][72] bf16.
+constexpr int K3_NT = NT + 32;      // 8 compute warps and a producer warp
+constexpr int K3_RT = 16;           // rows of a tile: one m16 fragment
+constexpr int K3_TILE = 64 * 64;    // bf16 of a streamed weight tile
+constexpr int K3_MAX_STAGES = 24;   // ring slots
+constexpr int K3_MIN_STAGES = 6;    // a q/k/v group of 3 and 3 ahead
+constexpr int K3_MAX_CS = 16;       // an H100's largest cluster
+constexpr int K3_QS = HDIM + 4;     // float stride of q1 / k1 / v1 rows
+constexpr int K3_AS = HDIM + 8;     // bf16 stride of attention rows
+constexpr int K3_LN_CH = 8;         // 16-byte chunks a lane: D <= 2048
+// an H100 block's shared memory, less 1 KB for the static arrays
+constexpr size_t K3_SMEM_MAX = 232448 - 1024;
+
+// floats of the logits / PV-partials region of a tile of rt rows
+__host__ __device__ inline int k3_scores(int rt, int L) {
+  const int n = rt * L > 8 * rt * HDIM ? rt * L : 8 * rt * HDIM;
+  return (n + 3) / 4 * 4;
+}
+inline size_t k3_smem(int D, int L, int stages, int rt) {
+  return 1024 + (size_t)stages * K3_TILE * 2 + (size_t)rt * (D + 4) * 4 +
+         (size_t)(rt + 1) * (D + 8) * 2 + (size_t)3 * rt * K3_QS * 4 +
+         K3_RT * 4 + (size_t)k3_scores(rt, L) * 4 + (size_t)K3_RT * K3_AS * 2;
+}
+
+// Layer norm of x's rows [0, nrows) into sH [rows][ld] bf16 (rows past
+// nrows zero; nrows <= 16), a warp a row, lane l the 16-byte chunks l,
+// l + 32, ...; every load of a warp's two rows is issued before the first
+// sum. The arithmetic is ln_rows's (float32 sums in another order).
+__device__ void ln_tile(const bf16* __restrict__ x, int nrows, int rows,
+                        int D, const float* __restrict__ g,
+                        const bf16* __restrict__ b, float eps, bf16* sH,
+                        int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nch = D / 8;
+  uint4 v[2][K3_LN_CH];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = min(warp + 8 * q, nrows - 1);
+#pragma unroll
+    for (int j = 0; j < K3_LN_CH; ++j)
+      v[q][j] = __ldg(reinterpret_cast<const uint4*>(x + (long long)r * D) +
+                      min(lane + 32 * j, nch - 1));
+  }
+  for (int r = max(nrows, 0) + warp; r < rows; r += 8)  // zero rows
+    for (int c = lane; c < nch; c += 32)
+      *reinterpret_cast<uint4*>(sH + r * ld + c * 8) = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = warp + 8 * q;
+    bf16* hr = sH + r * ld;
+    if (r >= nrows) continue;
+    float f[K3_LN_CH][8];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < K3_LN_CH; ++j) {
+      bf16x8_to_f32(v[q][j], f[j]);
+      if (lane + 32 * j < nch)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += f[j][e];
+    }
+    const float mu = warp_sum(s) / D;
+    float var = 0.f;
+#pragma unroll
+    for (int j = 0; j < K3_LN_CH; ++j)
+      if (lane + 32 * j < nch)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = f[j][e] - mu;
+          var = fmaf(d, d, var);
+        }
+    const float rs = 1.f / sqrtf(warp_sum(var) / D + eps);
+#pragma unroll
+    for (int j = 0; j < K3_LN_CH; ++j) {
+      const int c = lane + 32 * j;
+      if (c >= nch) break;
+      const float4 g0 = __ldg(reinterpret_cast<const float4*>(g) + 2 * c);
+      const float4 g1 = __ldg(reinterpret_cast<const float4*>(g) + 2 * c + 1);
+      float bb[8];
+      bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(b) + c), bb);
+      const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = pack_bf16((f[j][2 * e] - mu) * rs * bfr(gg[2 * e]) + bb[2 * e],
+                         (f[j][2 * e + 1] - mu) * rs * bfr(gg[2 * e + 1]) +
+                             bb[2 * e + 1]);
+      *reinterpret_cast<uint4*>(hr + c * 8) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// the compute warps' barrier (barrier 1): the producer warp does not take
+// part in it
+__device__ __forceinline__ void k3_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
 template <bool TAIL>
-__global__ void __launch_bounds__(NT) self_block_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ g1,
-    const bf16* __restrict__ b1, const bf16* __restrict__ wq,
-    const bf16* __restrict__ bq, const bf16* __restrict__ wk,
-    const bf16* __restrict__ wv, const bf16* __restrict__ bv,
-    const bf16* __restrict__ wo, const bf16* __restrict__ bo, bf16* kc,
-    bf16* vc, float* part, int* counter, bf16* __restrict__ xout,
-    float* __restrict__ xo32, int B, int H, int L, int pos, float scale,
-    float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int D = H * HDIM;
-  float* red = reinterpret_cast<float*>(smem_raw);  // NT * 8 * RB3
-  float* sQ = red + NT * 8 * RB3;                    // [RB3][64] q1
-  float* sK = sQ + RB3 * HDIM;                       // k1
-  float* sV = sK + RB3 * HDIM;                       // v1
-  float* sP = sV + RB3 * HDIM;                       // [RB3][L] logits, p
-  bf16* sH = reinterpret_cast<bf16*>(sP + RB3 * L);  // [RB3][D]
-  bf16* sA = sH + RB3 * D;                           // [RB3][64] attention
-  const int h = blockIdx.x, r0 = blockIdx.y * RB3;
-  const int nrows = min(RB3, B - r0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = h * HDIM;
+__global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv,
+    const __grid_constant__ CUtensorMap mo,
+    const __grid_constant__ CUtensorMap mcq, const bf16* __restrict__ x,
+    const float* __restrict__ g1, const bf16* __restrict__ b1,
+    const bf16* __restrict__ bq, const bf16* __restrict__ bv,
+    const bf16* __restrict__ bo, const float* __restrict__ g2,
+    const bf16* __restrict__ b2, const bf16* __restrict__ bcq, bf16* kc,
+    bf16* vc, bf16* __restrict__ xout, bf16* __restrict__ qcross, int B,
+    int H, int L, int pos, int rt, int S, float scale, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[K3_MAX_STAGES], empty[K3_MAX_STAGES];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int D = H * HDIM, LDH = D + 8, LDP = D + 4, nkc = D / 64;
+  const int rank = blockIdx.x, CS = gridDim.x;  // a cluster spans x
+  // the rank's heads: [h0, h0 + G), H / CS of them rounded down or up
+  const int h0 = rank * H / CS, G = (rank + 1) * H / CS - h0;
+  const int r0 = blockIdx.y * rt, nrows = min(rt, B - r0);
+  bf16* ring = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  float* sPart = reinterpret_cast<float*>(ring + (size_t)S * K3_TILE);
+  bf16* sH = reinterpret_cast<bf16*>(sPart + rt * LDP);
+  float* sQ = reinterpret_cast<float*>(sH + (rt + 1) * LDH);
+  float* sK = sQ + rt * K3_QS;
+  float* sV = sK + rt * K3_QS;
+  float* sPn = sV + rt * K3_QS;
+  float* sS = sPn + K3_RT;
+  bf16* sA = reinterpret_cast<bf16*>(sS + k3_scores(rt, L));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  const bf16* hA = sH + min(lr, rt) * LDH + lc;  // this lane's A row of h
+  const bf16* kcr = kc + (long long)r0 * L * D;  // the tile's cache rows
+  const bf16* vcr = vc + (long long)r0 * L * D;
 
-  ln_rows<RB3>([&](int r, int k) { return bf(x[(long long)(r0 + r) * D + k]); },
-               nrows, D, g1, b1, eps, sH);
-  __syncthreads();
-  rows_x_w<RB3>(sH, D, wq + c0, D, HDIM, red, [&](int r, int c, float s) {
-    sQ[r * HDIM + c] = bfr(s + bf(bq[c0 + c]));
-  });
-  rows_x_w<RB3>(sH, D, wk + c0, D, HDIM, red, [&](int r, int c, float s) {
-    sK[r * HDIM + c] = bfr(s);
-  });
-  rows_x_w<RB3>(sH, D, wv + c0, D, HDIM, red, [&](int r, int c, float s) {
-    sV[r * HDIM + c] = bfr(s + bf(bv[c0 + c]));
-  });
-  // this step's k1/v1 into cache row pos (read by later steps only)
-  for (int i = threadIdx.x; i < nrows * HDIM; i += NT) {
-    const long long off =
-        ((long long)(r0 + i / HDIM) * L + pos) * D + c0 + i % HDIM;
-    kc[off] = __float2bfloat16(sK[i]);
-    vc[off] = __float2bfloat16(sV[i]);
+  // The weight stream, tile u into ring slot u % S on barrier u % S: for
+  // each head of the rank, its 3 nkc q/k/v tiles (rows 64kc.. of Wq, Wk,
+  // Wv and the head's 64 columns; kc outer) and its nkc Wo tiles (the
+  // head's 64 rows, columns 64c..); with TAIL then the G nkc Wcq tiles of
+  // the rank's G * 64 output columns (column tile outer). A producer warp
+  // (warp 8) puts tile u in flight as soon as the 8 compute warps have
+  // released tile u - S (empty[u % S]), from the kernel's first
+  // instruction on: an SM's copies share one ~30 GB/s link, which the
+  // ring keeps busy while the warps compute.
+  const int per_head = 4 * nkc, nheads = G * per_head;
+  const int ntiles = nheads + (TAIL ? G * nkc : 0);
+  auto issue = [&](int u) {
+    if (u >= ntiles) return;
+    const int j = u % per_head, c0 = (h0 + u / per_head) * HDIM;
+    uint64_t* bar = &full[u % S];
+    bf16* dst = ring + (size_t)(u % S) * K3_TILE;
+    mbar_expect_tx(bar, K3_TILE * 2);
+    if (u >= nheads)
+      tma_load_2d(dst, &mcq, bar, (h0 + (u - nheads) / nkc) * HDIM,
+                  (u - nheads) % nkc * 64);
+    else if (j < 3 * nkc)
+      tma_load_2d(dst, j % 3 == 0 ? &mq : j % 3 == 1 ? &mk : &mv, bar, c0,
+                  (j / 3) * 64);
+    else
+      tma_load_2d(dst, &mo, bar, (j - 3 * nkc) * 64, c0);
+  };
+  // tiles i .. i + k - 1 have landed / this warp is done with them
+  auto acquire = [&](int i, int k) {
+    for (int u = i; u < i + k; ++u) mbar_wait(&full[u % S], (u / S) & 1);
+  };
+  auto release = [&](int i, int k) {
+    __syncwarp();
+    if (lane == 0)
+      for (int u = i; u < i + k; ++u) mbar_arrive(&empty[u % S]);
+  };
+  auto tile = [&](int u) { return ring + (size_t)(u % S) * K3_TILE; };
+  // the B fragment (k16 step kk, n8 fragment nf) of a swizzled tile
+  auto ldb = [&](uint32_t b[2], const bf16* t, int kk, int nf) {
+    const int row = kk * 16 + (lane & 15);
+    ldsm_x2_trans(b, t + row * 64 + ((nf ^ (row & 7)) << 3));
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NT / 32);
+    }
+    fence_mbar_init();
   }
-  // attention of head h, one warp per row
-  if (warp < RB3) {
-    const int r = warp;
-    float a0 = 0.f, a1 = 0.f;
-    if (r < nrows) {
-      const float* q = sQ + r * HDIM;
-      float* p = sP + r * L;
-      const long long base = (long long)(r0 + r) * L * D + c0;
-      float mx = -INFINITY;
-      for (int t = lane; t < pos; t += 32) {  // stale rows t < pos
-        const uint4* kr = reinterpret_cast<const uint4*>(kc + base +
-                                                         (long long)t * D);
+  __syncthreads();  // the only barrier the producer takes part in
+  if (warp == NT / 32) {
+    // the producer: tiles u0 .. u1 - 1, each once its slot is released
+    auto put = [&](int u0, int u1) {
+      if (lane == 0)
+        for (int u = u0; u < u1; ++u) {
+          if (u >= S) mbar_wait(&empty[u % S], (u / S - 1) & 1);
+          issue(u);
+        }
+      __syncwarp();
+    };
+    if (lane == 0) {
+      prefetch_map(&mq);
+      prefetch_map(&mk);
+      prefetch_map(&mv);
+      prefetch_map(&mo);
+      if (TAIL) prefetch_map(&mcq);
+    }
+    // the heads' tiles are all released before the compute warps meet
+    // at step 6's cluster barrier; the Wcq tiles past the first S only
+    // after the tail's three barriers: the producer meets each barrier
+    // between the tiles it needs
+    put(0, nheads);
+    cluster.sync();
+    if (TAIL) {
+      put(nheads, min(ntiles, nheads + S));
+      for (int k = 0; k < 3; ++k) cluster.sync();
+      put(nheads + S, ntiles);
+    }
+    cluster.sync();
+    return;
+  }
+  // 0. the layer norm, the ring already in flight
+  ln_tile(x + (long long)r0 * D, nrows, rt + 1, D, g1, b1, eps, sH, LDH);
+  k3_sync();
+  int ti = 0;
+  const int kw = min(4, S / 2);  // Wo tiles a group
+  for (int g = 0; g < G; ++g) {
+    const int c0 = (h0 + g) * HDIM;
+    // 1. q1, k1, v1 of the head: warp w the n8 fragment w of each, a
+    // k-chunk's three tiles a step
+    float acc[3][4] = {};
+    for (int kc_ = 0; kc_ < nkc; ++kc_, ti += 3) {
+      acquire(ti, 3);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, hA + kc_ * 64 + kk * 16);
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          uint32_t b[2];
+          ldb(b, tile(ti + m), kk, warp);
+          mma_16816(acc[m], a, b[0], b[1]);
+        }
+      }
+      release(ti, 3);
+    }
+    // rounded where rows_x_w's epilogues rounded; k1 / v1 into row pos
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = g8 + 8 * hf, c = warp * 8 + 2 * t4;
+      float q2[2], k2[2], v2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        q2[e] = bfr(acc[0][2 * hf + e] + bf(bq[c0 + c + e]));
+        k2[e] = bfr(acc[1][2 * hf + e]);
+        v2[e] = bfr(acc[2][2 * hf + e] + bf(bv[c0 + c + e]));
+        if (r < rt) {
+          sQ[r * K3_QS + c + e] = q2[e];
+          sK[r * K3_QS + c + e] = k2[e];
+          sV[r * K3_QS + c + e] = v2[e];
+        }
+      }
+      if (r < nrows) {
+        const long long off = ((long long)(r0 + r) * L + pos) * D + c0 + c;
+        *reinterpret_cast<uint32_t*>(kc + off) = pack_bf16(k2[0], k2[1]);
+        *reinterpret_cast<uint32_t*>(vc + off) = pack_bf16(v2[0], v2[1]);
+      }
+    }
+    k3_sync();
+    // 2. logits of the cache rows t < pos, a (row, key) pair a thread,
+    // two pairs' loads in flight at once
+    const int npair = nrows * pos;
+    for (int i0 = tid; i0 < npair; i0 += 2 * NT) {
+      uint4 kw8[2][8];
+      int rr[2], tt[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = min(i0 + u * NT, npair - 1);
+        rr[u] = i / pos;
+        tt[u] = i - rr[u] * pos;
+        const uint4* kr = reinterpret_cast<const uint4*>(
+            kcr + ((long long)rr[u] * L + tt[u]) * D + c0);
+#pragma unroll
+        for (int w = 0; w < 8; ++w) kw8[u][w] = __ldg(kr + w);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (i0 + u * NT >= npair) break;
+        const float* q = sQ + rr[u] * K3_QS;
         float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < HDIM / 8; ++i) {
+        for (int w = 0; w < 8; ++w) {
           float kf[8];
-          bf16x8_to_f32(kr[i], kf);
+          bf16x8_to_f32(kw8[u][w], kf);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) s = fmaf(q[i * 8 + j], kf[j], s);
+          for (int j = 0; j < 8; ++j) s = fmaf(q[w * 8 + j], kf[j], s);
         }
-        s *= scale;
-        p[t] = s;
-        mx = fmaxf(mx, s);
+        sS[rr[u] * L + tt[u]] = s * scale;
       }
-      // fresh row: per-head sum of the bf16-rounded products q1 * k1
-      const float* k1 = sK + r * HDIM;
-      const float l_new =
-          warp_sum(bfr(q[lane] * k1[lane]) + bfr(q[lane + 32] * k1[lane + 32])) *
-          scale;
+    }
+    k3_sync();
+    // 3. softmax with the fresh row in closed form, a warp a row
+    for (int r = warp; r < nrows; r += NT / 32) {
+      float* p = sS + r * L;
+      const float* q = sQ + r * K3_QS;
+      const float* k1 = sK + r * K3_QS;
+      float mx = -INFINITY;
+      for (int t = lane; t < pos; t += 32) mx = fmaxf(mx, p[t]);
+      // the fresh row: per-head sum of the bf16-rounded products q1 * k1
+      const float l_new = warp_sum(bfr(q[lane] * k1[lane]) +
+                                   bfr(q[lane + 32] * k1[lane + 32])) *
+                          scale;
       mx = fmaxf(warp_max(mx), l_new);
       float sum = 0.f;
       for (int t = lane; t < pos; t += 32) {
@@ -273,37 +521,210 @@ __global__ void __launch_bounds__(NT) self_block_kernel(
         sum += e;
       }
       const float denom = warp_sum(sum) + expf(l_new - mx);
-      const float pn = bfr(expf(l_new - mx) / denom);
-      __syncwarp();
-      const bf16* vb = vc + base + 2 * lane;
-      for (int t = 0; t < pos; ++t) {
-        const float pt = bfr(p[t] / denom);
-        const float2 vv = unpack_bf16(ld32(vb + (long long)t * D));
-        a0 = fmaf(pt, vv.x, a0);
-        a1 = fmaf(pt, vv.y, a1);
-      }
-      a0 += pn * sV[r * HDIM + 2 * lane];
-      a1 += pn * sV[r * HDIM + 2 * lane + 1];
+      for (int t = lane; t < pos; t += 32) p[t] = bfr(p[t] / denom);
+      if (lane == 0) sPn[r] = bfr(expf(l_new - mx) / denom);
     }
-    *reinterpret_cast<uint32_t*>(sA + r * HDIM + 2 * lane) = pack_bf16(a0, a1);
+    k3_sync();
+    // 4. p . V: warp w the keys [w kpw, (w + 1) kpw) of every row, eight
+    // keys' loads in flight at once, lane l the columns 2l, 2l + 1; the
+    // warps' partials added in warp order, then the fresh row's pn * v1
+    const int kpw = (pos + 7) / 8, ta = warp * kpw;
+    const int tb = min(pos, ta + kpw);
+    float a[K3_RT][2];
+#pragma unroll
+    for (int r = 0; r < K3_RT; ++r) {
+      a[r][0] = a[r][1] = 0.f;
+      if (r >= nrows) continue;
+      const bf16* vr = vcr + (long long)r * L * D + c0 + 2 * lane;
+      const float* pr = sS + r * L;
+      for (int t = ta; t < tb; t += 8) {
+        unsigned w8[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          w8[u] = __ldg(reinterpret_cast<const unsigned*>(
+              vr + (long long)min(t + u, tb - 1) * D));
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float p = t + u < tb ? pr[t + u] : 0.f;
+          const float2 v = unpack_bf16(w8[u]);
+          a[r][0] = fmaf(p, v.x, a[r][0]);
+          a[r][1] = fmaf(p, v.y, a[r][1]);
+        }
+      }
+    }
+    k3_sync();  // every warp is done with the logits
+    float* red = sS;
+#pragma unroll
+    for (int r = 0; r < K3_RT; ++r)
+      if (r < rt)
+        *reinterpret_cast<float2*>(red + (warp * rt + r) * HDIM + 2 * lane) =
+            make_float2(a[r][0], a[r][1]);
+    k3_sync();
+    for (int i = tid; i < K3_RT * HDIM; i += NT) {
+      const int r = i / HDIM, d = i % HDIM;
+      float o = 0.f;
+      if (r < nrows) {
+#pragma unroll
+        for (int w = 0; w < NT / 32; ++w) o += red[(w * rt + r) * HDIM + d];
+        o += sPn[r] * sV[r * K3_QS + d];
+      }
+      sA[r * K3_AS + d] = __float2bfloat16(o);
+    }
+    k3_sync();  // sA is whole
+    // 5. the head's share of the o-projection into sPart (the rank's
+    // heads added in order), kw Wo tiles a step
+    uint32_t af[4][4];
+    for (int c = 0; c < nkc; c += kw) {
+      const int k = min(kw, nkc - c);
+      acquire(ti, k);
+      if (c == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldsm_x4(af[kk], sA + lr * K3_AS + kk * 16 + lc);
+      }
+      float o[4][4] = {};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u >= k) break;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t b[2];
+          ldb(b, tile(ti + u), kk, warp);
+          mma_16816(o[u], af[kk], b[0], b[1]);
+        }
+      }
+      release(ti, k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u >= k) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (g8 + 8 * (e >> 1) >= rt) continue;
+          float* dst = sPart + (g8 + 8 * (e >> 1)) * LDP + (c + u) * 64 +
+                       warp * 8 + 2 * t4 + (e & 1);
+          *dst = g == 0 ? o[u][e] : *dst + o[u][e];
+        }
+      }
+      ti += k;
+    }
   }
-  __syncthreads();
-  // this head's share of the o-projection, into part[h]
-  rows_x_w<RB3>(sA, HDIM, wo + (long long)c0 * D, D, D, red,
-                [&](int r, int c, float s) {
-                  if (r < nrows) part[((long long)h * B + r0 + r) * D + c] = s;
-                });
-  if (!last_to_arrive(counter, H)) return;
-  for (int i = threadIdx.x; i < nrows * D; i += NT) {
-    const long long row = r0 + i / D;
-    const int c = i % D;
-    float o = 0.f;
-    for (int hh = 0; hh < H; ++hh) o += __ldcg(part + (hh * B + row) * D + c);
-    const float xo = bf(x[row * D + c]) + (o + bf(bo[c]));
-    xout[row * D + c] = __float2bfloat16(xo);
-    if (TAIL) xo32[row * D + c] = xo;
+  // 6. the head sum through distributed shared memory: rank r adds the
+  // ranks' partials of its G * 64 columns in rank order (so the heads in
+  // order), 4 columns a thread with every rank's load in flight, then
+  // bias and residual. Every rank stays until all have read.
+  cluster.sync();
+  const int cw = G * HDIM, nq = cw / 4;
+  float* sX = sS;  // TAIL: the rank's x_out columns [16][cw], float32
+  for (int i = tid; i < nrows * nq; i += NT) {
+    const int r = i / nq, c = h0 * HDIM + (i % nq) * 4;
+    float4 pv[K3_MAX_CS];
+#pragma unroll
+    for (int k = 0; k < K3_MAX_CS; ++k)
+      pv[k] = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(sPart, k < CS ? k : 0) + r * LDP + c);
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < K3_MAX_CS; ++k)
+      if (k < CS) {
+        o[0] += pv[k].x;
+        o[1] += pv[k].y;
+        o[2] += pv[k].z;
+        o[3] += pv[k].w;
+      }
+    const long long gi = (long long)(r0 + r) * D + c;
+    const uint2 xw = *reinterpret_cast<const uint2*>(x + gi);
+    const uint2 bw = *reinterpret_cast<const uint2*>(bo + c);
+    const float2 x01 = unpack_bf16(xw.x), x23 = unpack_bf16(xw.y);
+    const float2 b01 = unpack_bf16(bw.x), b23 = unpack_bf16(bw.y);
+    const float4 xo = make_float4(
+        x01.x + (o[0] + b01.x), x01.y + (o[1] + b01.y),
+        x23.x + (o[2] + b23.x), x23.y + (o[3] + b23.y));
+    *reinterpret_cast<uint2*>(xout + gi) =
+        make_uint2(pack_bf16(xo.x, xo.y), pack_bf16(xo.z, xo.w));
+    if (TAIL)
+      *reinterpret_cast<float4*>(sX + r * cw + (i % nq) * 4) = xo;
   }
-  if (threadIdx.x == 0) counter[blockIdx.y] = 0;
+  if (TAIL) {
+    // 7. K3-q's tail: the cross layer norm of the float32 x_out rows,
+    // whose columns the ranks hold in turn: each rank's row sums, then
+    // its sums of squared deviations, added over the ranks in rank
+    // order; h2 = LN2(x_out) into the rank's columns of sH, gathered
+    // from every rank; then the rank's G * 64 columns of h2 @ Wcq + bcq
+    // on mma.sync from the stream's last tiles.
+    __shared__ float stat[2][K3_RT];
+    __shared__ float row_mu[K3_RT], row_rs[K3_RT];
+    k3_sync();
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int r = warp; r < K3_RT; r += NT / 32) {
+        float v = 0.f;
+        if (r < nrows)
+          for (int c = lane; c < cw; c += 32) {
+            const float e = sX[r * cw + c] - (pass ? row_mu[r] : 0.f);
+            v = pass ? fmaf(e, e, v) : v + e;
+          }
+        v = warp_sum(v);
+        if (lane == 0) stat[pass][r] = v;
+      }
+      cluster.sync();
+      if (tid < K3_RT) {
+        float t = 0.f;
+        for (int k = 0; k < CS; ++k)
+          t += cluster.map_shared_rank(&stat[pass][0], k)[tid];
+        if (pass == 0)
+          row_mu[tid] = t / D;
+        else
+          row_rs[tid] = 1.f / sqrtf(t / D + eps);
+      }
+      k3_sync();
+    }
+    for (int i = tid; i < rt * cw; i += NT) {
+      const int r = i / cw, c = h0 * HDIM + i % cw;
+      sH[r * LDH + c] = __float2bfloat16(
+          r < nrows ? (sX[i] - row_mu[r]) * row_rs[r] * bfr(g2[c]) + bf(b2[c])
+                    : 0.f);
+    }
+    cluster.sync();  // every rank's h2 columns are in place
+    for (int i = tid; i < rt * (D / 8); i += NT) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      int k = 0;  // the rank holding head c8 / 8
+      while ((k + 1) * H / CS <= c8 / 8) ++k;
+      if (k != rank)
+        *reinterpret_cast<uint4*>(sH + r * LDH + c8 * 8) =
+            *reinterpret_cast<const uint4*>(
+                cluster.map_shared_rank(sH, k) + r * LDH + c8 * 8);
+    }
+    k3_sync();  // the gathered h2 is whole
+    for (int cc = 0; cc < G; ++cc) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < nkc; k0 += kw) {
+        const int k = min(kw, nkc - k0);
+        acquire(ti, k);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u >= k) break;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t a[4], b[2];
+            ldsm_x4(a, hA + (k0 + u) * 64 + kk * 16);
+            ldb(b, tile(ti + u), kk, warp);
+            mma_16816(acc, a, b[0], b[1]);
+          }
+        }
+        release(ti, k);
+        ti += k;
+      }
+      const int c = (h0 + cc) * HDIM + warp * 8 + 2 * t4;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = g8 + 8 * hf;
+        if (r < nrows)
+          *reinterpret_cast<uint32_t*>(qcross + (long long)(r0 + r) * D + c) =
+              pack_bf16(acc[2 * hf] + bf(bcq[c]), acc[2 * hf + 1] +
+                                                     bf(bcq[c + 1]));
+      }
+    }
+  }
+  cluster.sync();
 }
 
 __device__ __forceinline__ float ldf(const float* p, long long i) {
@@ -332,7 +753,7 @@ __global__ void __launch_bounds__(NT) rowproj_kernel(
     return ldf(in, (long long)(r0 + r) * D + k);
   };
   if (LN) {
-    ln_rows<RB4>(load, nrows, D, g, bln, eps, sH);
+    ln_rows<RB4>(load, nrows, D, g, bln, eps, sH, D);
   } else {
     for (int i = threadIdx.x; i < RB4 * D; i += NT)
       sH[i] = __float2bfloat16(i / D < nrows ? load(i / D, i % D) : 0.f);
@@ -726,47 +1147,115 @@ inline dim3 rows_grid(int cols, int B, int rb) {
   return dim3(cols, (B + rb - 1) / rb);
 }
 
+// K3's weight maps: a [D, D] bf16 row-major matrix in 64 x 64 boxes with
+// the 128-byte swizzle. Encoding one is host work of about a microsecond,
+// so the maps are kept per (matrix, D) in a ring (a decoder's 4 matrices
+// a layer; the oldest entry makes room).
+constexpr int K3_MAPS = 128;
+struct WeightMap {
+  const void* base;
+  int D;
+  CUtensorMap map;
+};
+WeightMap k3_maps[K3_MAPS];
+int k3_maps_used = 0, k3_maps_next = 0;
+std::mutex k3_maps_lock;
+
+int weight_map(CUtensorMap* map, const void* base, int D) {
+  std::lock_guard<std::mutex> guard(k3_maps_lock);
+  for (int i = 0; i < k3_maps_used; ++i)
+    if (k3_maps[i].base == base && k3_maps[i].D == D) {
+      *map = k3_maps[i].map;
+      return 0;
+    }
+  const int e = encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, D, D,
+                          (long long)D * 2, 64, 64,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == 0) {
+    k3_maps[k3_maps_next] = {base, D, *map};
+    k3_maps_next = (k3_maps_next + 1) % K3_MAPS;
+    if (k3_maps_used < K3_MAPS) ++k3_maps_used;
+  }
+  return e;
+}
+
 }  // namespace
+
+// Raises K3's dynamic shared-memory limit and allows its clusters of up
+// to 16 blocks (both instances), and looks the driver's tensor-map
+// encoder up. Called once, when the library is
+// loaded.
+extern "C" int mas_decoder_self_block_init(void) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  for (const void* fn : {(const void*)self_block_kernel<false>,
+                         (const void*)self_block_kernel<true>}) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K3_SMEM_MAX);
+    if (e == cudaSuccess)  // clusters of more than 8 blocks (H = 12, 20)
+      e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The clusters of cs K3 blocks of smem bytes the card holds at once (a
+// cluster's blocks share a GPC: an H100 holds 15 clusters of 8 blocks of
+// 225 KB, not 132 / 8). Returns a cudaError_t value.
+extern "C" int mas_decoder_self_block_fit(int cs, int smem, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(K3_NT);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (const void*)self_block_kernel<true>, &cfg);
+}
 
 // K3 / K3-q. x, x_out, q_cross: [B, D] bf16 (D = H * 64); g1, g2: [D]
 // float32 LN scales; b1, b2, bq, bv, bo, bcq: [D] bf16; wq, wk, wv, wo,
 // wcq: [D, D] bf16 row-major ([in, out]); kc, vc: [B, L, D] bf16 caches,
-// row pos written; part: [H, B, D] float32 scratch; counter: >= ceil(B/2)
-// zeroed ints; xo32: [B, D] float32 scratch. wcq == NULL runs K3 (g2, b2,
-// bcq, xo32, q_cross unused). Every pointer 16-byte aligned. Returns the
-// first CUDA error of the launches (0 = none).
+// row pos written. wcq == NULL runs K3 (g2, b2, bcq, q_cross unused). One
+// launch either way. The plan (ops/decoder_block.py::
+// self_block_plan): CS <= min(H, 16) blocks a cluster, rt <= 16 rows a
+// tile, S ring stages. Every pointer 16-byte aligned. Returns a
+// cudaError_t value: a weight map the driver refuses, or a launch the
+// card refuses.
 extern "C" int mas_decoder_self_block(
     const void* x, const void* g1, const void* b1, const void* wq,
     const void* bq, const void* wk, const void* wv, const void* bv,
-    const void* wo, const void* bo, void* kc, void* vc, void* part,
-    void* counter, void* x_out, const void* g2, const void* b2,
-    const void* wcq, const void* bcq, void* xo32, void* q_cross, int B, int H,
-    int L, int pos, float scale, float eps, void* stream) {
+    const void* wo, const void* bo, void* kc, void* vc, void* x_out,
+    const void* g2, const void* b2, const void* wcq, const void* bcq,
+    void* q_cross, int B, int H, int L, int pos, int CS, int rt, int S,
+    float scale, float eps, void* stream) {
   const int D = H * HDIM;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = rows_grid(H, B, RB3);
-  const size_t smem = (size_t)(NT * 8 * RB3 + 3 * RB3 * HDIM + RB3 * L) * 4 +
-                      (size_t)(RB3 * D + RB3 * HDIM) * 2;
-  if (grid.y > MAX_ROW_BLOCKS || smem > SMEM_MAX || pos < 0 || pos >= L)
+  if (B < 1 || H < 1 || D > 32 * K3_LN_CH * 8 || CS < 1 || CS > H ||
+      CS > K3_MAX_CS || rt < 1 || rt > K3_RT || S < K3_MIN_STAGES ||
+      S > K3_MAX_STAGES || pos < 0 || pos >= L ||
+      k3_smem(D, L, S, rt) > K3_SMEM_MAX || (B + rt - 1) / rt > 65535)
     return (int)cudaErrorInvalidValue;
   const bool tail = wcq != nullptr;
-#define K3_ARGS                                                              \
-  (const bf16*)x, (const float*)g1, (const bf16*)b1, (const bf16*)wq,        \
-      (const bf16*)bq, (const bf16*)wk, (const bf16*)wv, (const bf16*)bv,    \
-      (const bf16*)wo, (const bf16*)bo, (bf16*)kc, (bf16*)vc, (float*)part, \
-      (int*)counter, (bf16*)x_out, (float*)xo32, B, H, L, pos, scale, eps
-  if (tail)
-    self_block_kernel<true><<<grid, NT, smem, s>>>(K3_ARGS);
-  else
-    self_block_kernel<false><<<grid, NT, smem, s>>>(K3_ARGS);
-#undef K3_ARGS
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !tail) return (int)e;
-  const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
-  rowproj_kernel<true, float><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
-      (const float*)xo32, (const float*)g2, (const bf16*)b2,
-      (const bf16*)wcq, (const bf16*)bcq, nullptr, q_cross, B, D, eps);
-  return (int)cudaGetLastError();
+  CUtensorMap mq, mk, mv, mo, mcq;
+  int e = weight_map(&mq, wq, D);
+  if (e == 0) e = weight_map(&mk, wk, D);
+  if (e == 0) e = weight_map(&mv, wv, D);
+  if (e == 0) e = weight_map(&mo, wo, D);
+  if (e == 0) e = weight_map(&mcq, tail ? wcq : wq, D);  // K3: unread
+  if (e != 0) return e;
+  auto* kernel = tail ? &self_block_kernel<true> : &self_block_kernel<false>;
+  return launch_cluster(
+      kernel, dim3(CS, (B + rt - 1) / rt), CS, K3_NT, k3_smem(D, L, S, rt),
+      (cudaStream_t)stream, mq, mk, mv, mo, mcq, (const bf16*)x,
+      (const float*)g1, (const bf16*)b1, (const bf16*)bq, (const bf16*)bv,
+      (const bf16*)bo, (const float*)g2, (const bf16*)b2, (const bf16*)bcq,
+      (bf16*)kc, (bf16*)vc, (bf16*)x_out, (bf16*)q_cross, B, H, L, pos, rt,
+      S, scale, eps);
 }
 
 // K4's four instances: [HEAD][ONE]

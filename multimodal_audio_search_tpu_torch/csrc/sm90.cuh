@@ -113,6 +113,18 @@ __device__ __forceinline__ void cp_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous global memory into this
+// block's shared memory (both 16-byte aligned) as one bulk copy, its
+// completion reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One box of a rank-2 tensor map (coordinates innermost first).
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
@@ -346,6 +358,28 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Launches `kernel` as clusters of `cluster` blocks along x (gridDim.x a
+// multiple of it). A launch the card refuses (too large a cluster for the
+// shared memory each block asks) returns its error; nothing falls back.
+template <typename... Params, typename... Args>
+inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
+                          int threads, size_t smem, cudaStream_t stream,
+                          Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 }  // namespace sm90

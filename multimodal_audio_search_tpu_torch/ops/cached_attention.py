@@ -17,6 +17,7 @@ does not round them; its engine takes that twin off the TPU.)
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -78,7 +79,61 @@ def int8_cached_attention_plain(q, k8, ks, v8, vs) -> torch.Tensor:
     return torch.einsum("bht,bhtd->bhd", pw, v8.float())
 
 
-def _launch(q, k8, ks, v8, vs) -> torch.Tensor:
+# K7's split-T plan: at most MAX_CLUSTER blocks a (b, h) (the portable
+# cluster size), about KEYS_PER_BLOCK keys a block or more; T up to MAX_T
+# (the one-block kernel's 48 KB of logits, kept), at most MAX_T /
+# MAX_CLUSTER keys a block (its buffer of K, then V, and its logits:
+# 102 KB).
+MAX_CLUSTER, KEYS_PER_BLOCK, MAX_T = 8, 128, 12288
+_FIT: dict = {}
+
+
+def cluster_plan(t: int, cluster: int | None = None, rows: int = 1,
+                 fit=None) -> tuple[int, int]:
+    """(blocks a (b, h), keys a block) of K7's cluster for T = t keys and
+    ``rows`` (b, h) rows: rank r takes keys [r * chunk, min(t, (r + 1) *
+    chunk)), so the ranks cover every key once and a rank past the end
+    holds none. An SM pulls ~30 GB/s and holds about 8 blocks of a
+    cluster launch (PERF.md), so the clusters are as large as they can be
+    while every row's cluster is resident at once: ``fit(c, chunk)`` is
+    the clusters of c blocks of chunk keys the card holds (None: no
+    limit); where none fits them all, 8 blocks. ``cluster`` forces the
+    block count (the card tests use it to reach empty ranks)."""
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"K7 takes 1 <= T <= {MAX_T}, got {t}")
+    cs = cluster
+    if cs is None:
+        sizes = [c for c in range(min(MAX_CLUSTER, -(-t // KEYS_PER_BLOCK)),
+                                  0, -1)
+                 if -(-t // c) <= MAX_T // MAX_CLUSTER]
+        cs = next((c for c in sizes
+                   if fit is None or fit(c, -(-t // c)) >= rows), sizes[0])
+    if not 1 <= cs <= MAX_CLUSTER:
+        raise ValueError(f"K7 clusters hold 1..{MAX_CLUSTER} blocks, got {cs}")
+    chunk = -(-t // cs)
+    if chunk > MAX_T // MAX_CLUSTER:
+        raise ValueError(f"K7 blocks hold {MAX_T // MAX_CLUSTER} keys: T={t} "
+                         f"over {cs} blocks")
+    return cs, chunk
+
+
+def _fit(dev: torch.device):
+    """fit() for cluster_plan on ``dev``: the clusters of c K7 blocks of
+    chunk keys the card holds at once, asked of it once per shape."""
+    def fit(c: int, chunk: int) -> int:
+        key = (dev, c, chunk)
+        if key not in _FIT:
+            out = ctypes.c_int(0)
+            runtime.check_launch(
+                runtime.kernels().mas_int8_cached_attention_fit(
+                    c, chunk, ctypes.byref(out)),
+                "mas_int8_cached_attention_fit")
+            _FIT[key] = out.value
+        return _FIT[key]
+    return fit
+
+
+def _launch(q, k8, ks, v8, vs, cluster: int | None = None) -> torch.Tensor:
     b, h, d = q.shape
     t = k8.shape[2]
     if d != 64:
@@ -88,8 +143,7 @@ def _launch(q, k8, ks, v8, vs) -> torch.Tensor:
         raise ValueError(
             f"K7: q {tuple(q.shape)}, k8 {tuple(k8.shape)}, v8 "
             f"{tuple(v8.shape)}, ks {tuple(ks.shape)}, vs {tuple(vs.shape)}")
-    if t * 4 > 48 * 1024:
-        raise ValueError(f"K7 keeps T={t} logits in 48 KB of shared memory")
+    cs, chunk = cluster_plan(t, cluster, b * h, _fit(k8.device))
     for name, a, dt in (("q", q, torch.bfloat16), ("k8", k8, torch.int8),
                         ("ks", ks, torch.float32), ("v8", v8, torch.int8),
                         ("vs", vs, torch.float32)):
@@ -103,7 +157,8 @@ def _launch(q, k8, ks, v8, vs) -> torch.Tensor:
     lib = runtime.kernels()
     rc = lib.mas_int8_cached_attention(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), b, h, t, 1.0 / math.sqrt(d),
+        vs.data_ptr(), out.data_ptr(), b, h, t, cs, chunk,
+        1.0 / math.sqrt(d),
         runtime.stream_handle(k8.device))
     runtime.check_launch(rc, "mas_int8_cached_attention")
     runtime.bump("int8_cached_attention")

@@ -42,6 +42,7 @@ are not carried over.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -189,15 +190,15 @@ _F32 = frozenset(("ln_g", "cross_ln_g", "attn", "ln2_g", "ln3_g"))
 MAX_D = 2048  # K4's widest row: its layer norm holds 8 values a thread
 
 
-def _counters(device: torch.device) -> tuple[int, int]:
-    """Pointers of the zeroed int32 arrival counters of K3 and of K4 (and
-    K14, which runs K4's body); each launch leaves them zero again. One
-    set per device: the kernels run on one stream at a time."""
+def _counters(device: torch.device) -> int:
+    """Pointer of the zeroed int32 barrier counters of K4 (and K14, which
+    runs K4's body); each launch leaves them zero again. One set per
+    device: the kernels run on one stream at a time."""
     c = _COUNTERS.get(device)
     if c is None:
-        t = torch.zeros(2, 4096, dtype=torch.int32, device=device)
-        c = _COUNTERS[device] = (t[0].data_ptr(), t[1].data_ptr(), t)
-    return c[0], c[1]
+        t = torch.zeros(4, dtype=torch.int32, device=device)
+        c = _COUNTERS[device] = (t.data_ptr(), t)
+    return c[0]
 
 
 def _buf(device: torch.device, name: str, numel: int,
@@ -240,8 +241,80 @@ def _shape(kernel: str, a: torch.Tensor, want: tuple, name: str) -> None:
                          f"{want}")
 
 
+# K3's cluster plan. The figures mirror csrc/decoder_block.cu's k3_smem.
+K3_MAX_CLUSTER = 16       # blocks a cluster: an H100's limit (> 8:
+                          # a non-portable size the kernel allows)
+K3_ROWS = 16              # batch rows a tile: one m16 fragment
+K3_MAX_STAGES = 24        # weight-ring slots of 8 KB
+K3_MIN_STAGES = 6         # a q/k/v group of three tiles and three ahead
+K3_SMEM = 232448 - 1024   # an H100 block's, less the static arrays'
+K3_CLUSTERS = 15          # clusters of 8 such blocks an H100 holds at once
+_FIT: dict = {}
+
+
+def k3_smem(d: int, l: int, stages: int, rows: int) -> int:
+    """Bytes of shared memory a K3 block takes at width d, cache length l,
+    ``stages`` ring slots and ``rows`` rows a tile: 1 KB to align the
+    ring, the ring, the o-projection partials [rows, d + 4] float32, h
+    [rows + 1, d + 8] bf16 (a zero row), q1/k1/v1 [rows, 68] float32, the
+    fresh-row weights, the logits [rows, l] (or the warps' PV partials
+    [8, rows, 64], the larger) and the attention output [16, 72] bf16."""
+    scores = -(-max(rows * l, 8 * rows * 64) // 4) * 4
+    return (1024 + stages * 64 * 64 * 2 + rows * (d + 4) * 4
+            + (rows + 1) * (d + 8) * 2 + 3 * rows * 68 * 4 + K3_ROWS * 4
+            + scores * 4 + K3_ROWS * 72 * 2)
+
+
+def self_block_plan(b: int, heads: int, l: int, rows: int | None = None,
+                    clusters: int = K3_CLUSTERS
+                    ) -> tuple[int, int, int, int, int]:
+    """(most heads a block, blocks a cluster, rows a tile, tiles, ring
+    stages) of K3 at batch b and cache length l, on a card that holds
+    ``clusters`` such clusters at once. The cluster holds CS = min(H,
+    K3_MAX_CLUSTER) blocks, rank r the heads [r H / CS, (r + 1) H / CS)
+    (whisper-tiny, -base and -small: one head a block; -large: 20 heads
+    over 16 blocks, one or two each), and sums those heads' columns of the
+    output. An SM pulls ~30 GB/s whatever the
+    copy (PERF.md), and a block reads its heads' weights whole once a
+    tile, so there are as many tiles as the card holds clusters: the
+    fewest rows a tile (up to K3_ROWS) that keep the tiles within
+    ``clusters`` (B=32 at base width on an H100: 3 rows, 11 tiles).
+    ``rows`` overrides that. The ring takes what shared memory is left,
+    at least K3_MIN_STAGES slots (at 16 rows, D <= 1344 at L <= 512:
+    every Whisper width)."""
+    d = heads * 64
+    cs = min(heads, K3_MAX_CLUSTER)
+    if rows is None:
+        rows = min(K3_ROWS, max(1, -(-b // clusters)))
+    if not 1 <= rows <= K3_ROWS:
+        raise ValueError(f"K3 tiles hold 1..{K3_ROWS} rows, got {rows}")
+    stages = min(K3_MAX_STAGES,
+                 (K3_SMEM - k3_smem(d, l, 0, rows)) // (64 * 64 * 2))
+    if stages < K3_MIN_STAGES:
+        raise ValueError(f"K3 does not fit D={d}, L={l}, {rows} rows a "
+                         f"tile in shared memory")
+    return -(-heads // cs), cs, rows, -(-b // rows), stages
+
+
+def _fit(dev: torch.device, cs: int, smem: int) -> int:
+    """The clusters of cs K3 blocks of ``smem`` bytes ``dev`` holds at
+    once, asked of the card once per shape."""
+    key = (dev, cs, smem)
+    n = _FIT.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        runtime.check_launch(runtime.kernels().mas_decoder_self_block_fit(
+            cs, smem, ctypes.byref(out)), "mas_decoder_self_block_fit")
+        if out.value < 1:
+            raise RuntimeError(f"K3: the card holds no cluster of {cs} "
+                               f"blocks of {smem} bytes")
+        n = _FIT[key] = out.value
+    return n
+
+
 def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
-                 v_cache, pos: int, heads: int, eps: float, tail=None):
+                 v_cache, pos: int, heads: int, eps: float, tail=None,
+                 rows: int | None = None):
     kernel = "K3-q" if tail else "K3"
     b, hd = x.shape
     if hd != heads * 64:
@@ -262,21 +335,21 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     if not 0 <= pos < l:
         raise ValueError(f"{kernel}: pos {pos} outside [0, {l})")
     dev = x.device
+    # the clusters the card holds, asked at the largest tile's size
+    _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS)
+    _, _, rt, _, stages = self_block_plan(
+        b, heads, l, rows, _fit(dev, cs, k3_smem(hd, l, st, K3_ROWS)))
     x_out = torch.empty_like(x)
-    part = torch.empty((heads, b, hd), dtype=torch.float32, device=dev)
     qc = torch.empty_like(x) if tail else None
-    xo32 = torch.empty((b, hd), dtype=torch.float32, device=dev) \
-        if tail else None
     cross = tail or (None,) * 4
     lib = runtime.kernels()
     rc = lib.mas_decoder_self_block(
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(),
-        part.data_ptr(), _counters(dev)[0], x_out.data_ptr(),
-        *(_ptr(a) for a in (*cross, xo32, qc)),
-        b, heads, l, int(pos), 1.0 / math.sqrt(64), eps,
+        k_cache.data_ptr(), v_cache.data_ptr(), x_out.data_ptr(),
+        *(_ptr(a) for a in (*cross, qc)),
+        b, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64), eps,
         runtime.stream_handle(dev))
     runtime.check_launch(rc, "mas_decoder_self_block")
     runtime.bump("decoder_self_block_q" if tail else "decoder_self_block")
@@ -369,7 +442,7 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
         _buf(dev, "x32", b * hd, torch.float32) if head else 0,
         _buf(dev, "h", b * hd, torch.bfloat16),
         _buf(dev, "part", f // 32 * b * hd, torch.float32),
-        _counters(dev)[1], out.data_ptr(), b, hd, f, eps,
+        _counters(dev), out.data_ptr(), b, hd, f, eps,
         runtime.sm_count(dev), runtime.raw_stream(dev))
     runtime.check_launch(rc, "mas_decoder_mlp_block")
     runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
@@ -426,7 +499,7 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
                                  ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, q1)),
         _buf(dev, "attn", b * hd, f32), _buf(dev, "x32", b * hd, f32),
         _buf(dev, "h", b * hd, torch.bfloat16),
-        _buf(dev, "part", f // 32 * b * hd, f32), _counters(dev)[1],
+        _buf(dev, "part", f // 32 * b * hd, f32), _counters(dev),
         out.data_ptr(), b, heads, t, f, 1.0 / math.sqrt(64), eps,
         runtime.sm_count(dev), runtime.stream_handle(dev))
     runtime.check_launch(rc, "mas_cross_mlp_block")

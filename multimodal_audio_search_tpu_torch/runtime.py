@@ -60,7 +60,8 @@ COUNTS: dict[str, int] = {
 # and the tensor-map encoder (K8, K5)
 INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
         "mas_encoder_attention_init", "mas_quant_matmul_init",
-        "mas_decoder_mlp_block_init")
+        "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
+        "mas_decoder_self_block_init")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -164,11 +165,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_single_query_attention.restype = i
     lib.mas_decoder_self_block.argtypes = [
         p, p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo, bo
-        p, p, p, p, p,            # k/v caches, partials, counters, x_out
-        p, p, p, p, p, p,         # g2, b2, wcq, bcq, xo32, q_cross (K3-q)
+        p, p, p,                  # k/v caches, x_out
+        p, p, p, p, p,            # g2, b2, wcq, bcq, q_cross (K3-q)
         i, i, i, i,               # B, H, L, pos
+        i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block.restype = i
+    for name in ("mas_decoder_self_block_fit",
+                 "mas_int8_cached_attention_fit"):
+        getattr(lib, name).argtypes = [i, i, p]  # cluster, smem, out
+        getattr(lib, name).restype = i
     lib.mas_decoder_mlp_block.argtypes = [
         p, p, p, p, p, p, p,      # x, g, b, w1, b1, w2, b2
         p, p, p, p,               # attn, wco, bco, x32 (K4-o)
@@ -195,7 +201,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_single_query_attention_int8.restype = i
     lib.mas_int8_cached_attention.argtypes = [
         p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
-        i, i, i,                  # B, H, T
+        i, i, i, i, i,            # B, H, T, cluster blocks, keys a block
         f, p]                     # scale, stream
     lib.mas_int8_cached_attention.restype = i
     lib.mas_fused_scores.argtypes = [

@@ -219,6 +219,69 @@ def test_k3_matches_plain(cuda, tail, b, heads, l, pos):
     assert torch.equal(vg[:, pos + 1:], vc[:, pos + 1:])
 
 
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("heads", [12, 20])
+@pytest.mark.parametrize("b", [1, 33, 128])
+@pytest.mark.parametrize("pos", [0, 67])
+def test_k3_cluster_at_small_and_large_width(cuda, tail, heads, b, pos):
+    """K3 and K3-q at whisper-small's and -large's widths (clusters of 12
+    blocks of one head, and of 16 of one or two heads: K3-q's Wcq tiles
+    then outnumber the ring, so the producer warp meets the tail's
+    cluster barriers between them), one row, a ragged last tile and
+    several tiles, pos 0 and L - 1, held by chip_smoke's check; one
+    launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(heads * 1000 + b + pos)
+    l = 68
+    x, selfw, tl, kc, vc = chip_smoke.k3_inputs(gen, b, l, heads * 64)
+    extra = tl if tail else []
+    fused = DB.fused_self_block_q if tail else DB.fused_self_block
+    plain = DB.self_block_q_plain if tail else DB.self_block_plain
+    ref = plain(x, *selfw, *extra, kc, vc, pos, heads=heads)
+    kg, vg = kc.clone(), vc.clone()
+    runtime.reset_counts()
+    got = fused(x, *selfw, *extra, kg, vg, pos, heads=heads)
+    torch.cuda.synchronize()
+    assert sum(runtime.COUNTS.values()) == 1
+    chip_smoke.check_k3(f"K3 H={heads} B={b} pos={pos}", got, ref, x)
+    assert torch.equal(kg[:, pos], got[1]) and torch.equal(vg[:, pos], got[2])
+
+
+@pytest.mark.parametrize("rows", [4, 8, 16])
+def test_k3_row_tiles(cuda, rows):
+    """K3 at base width with 4, 8 and 16 rows a tile (the plan's rows):
+    the same check at B=33."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(rows)
+    x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 33, 68, 512)
+    ref = DB.self_block_plain(x, *selfw, kc, vc, 40, heads=8)
+    got = DB._launch_self(x, *selfw, kc.clone(), vc.clone(), 40, 8, 1e-5,
+                          rows=rows)
+    chip_smoke.check_k3(f"K3 rows={rows}", got, ref, x)
+
+
+def test_k3_check_sees_a_dropped_rank(cuda):
+    """A planted fault: K3 at base width (B=32, pos 67) run with rank 1's
+    rows of Wo (head 1's: the rank's share of the o-projection) zeroed
+    computes what a cluster sum that left rank 1's partial out computes;
+    chip_smoke's check rejects it and passes the kernel on the true Wo."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(13)
+    x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 32, 68, 512)
+    g, cs, _, _, _ = DB.self_block_plan(32, 8, 68)
+    assert (g, cs) == (1, 8)
+    ref = DB.self_block_plain(x, *selfw, kc, vc, 67, heads=8)
+    chip_smoke.check_k3("K3", DB.fused_self_block(
+        x, *selfw, kc.clone(), vc.clone(), 67, heads=8), ref, x)
+    dropped = list(selfw)
+    dropped[7] = selfw[7].clone()
+    dropped[7][64:128] = 0
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_k3("K3 rank 1 dropped", DB.fused_self_block(
+            x, *dropped, kc.clone(), vc.clone(), 67, heads=8), ref, x)
+
+
 @pytest.mark.parametrize("head", [False, True])
 @pytest.mark.parametrize("b,d,f", [(1, 128, 256), (5, 384, 1536),
                                    (33, 512, 2048), (32, 512, 2048),
@@ -241,7 +304,7 @@ def test_k4_matches_plain(cuda, head, b, d, f):
         got = fused(*args)
         torch.cuda.synchronize()
         assert sum(runtime.COUNTS.values()) == 1
-        assert int(DB._COUNTERS[x.device][2][1].abs().sum()) == 0
+        assert int(DB._COUNTERS[x.device][1].abs().sum()) == 0
         assert got.dtype == torch.bfloat16 and got.shape == x.shape
         chip_smoke.check_delta("K4", got, plain(*args), x)
 
@@ -507,6 +570,47 @@ def test_k7_matches_plain(cuda, b, t, heads):
     assert got.dtype == torch.float32 and got.shape == (b, heads, 64)
     chip_smoke.check_rel("K7", got, CA.int8_cached_attention_plain(*args),
                          chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
+@pytest.mark.parametrize("t,cluster", [(1, None), (1, 8), (7, 8),
+                                       (1501, None), (12288, None),
+                                       (300, 8)])
+def test_k7_cluster_edges(cuda, t, cluster):
+    """K7 at T = 1 and 7 with 8 blocks forced (ranks without a key), a
+    ragged T (1501), T = 12288 (1536 keys a block) and T = 300 over 8
+    blocks."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    gen = torch.Generator().manual_seed(t)
+    args = chip_smoke.k7_inputs(gen, 3, t, 2)
+    runtime.reset_counts()
+    got = CA._launch(*args, cluster=cluster)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["int8_cached_attention"] == 1
+    chip_smoke.check_rel(f"K7 T={t}", got,
+                         CA.int8_cached_attention_plain(*args),
+                         chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
+def test_k7_check_sees_a_dropped_rank(cuda):
+    """A planted fault: K7 at B=32, T=1500, H=8 run with the V codes of
+    rank 1's keys zeroed computes what a cluster that left rank 1's
+    partial out of rank 0's sum computes; chip_smoke's check rejects it
+    and passes the kernel on the true V."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    gen = torch.Generator().manual_seed(14)
+    q, k8, ks, v8, vs = chip_smoke.k7_inputs(gen, 32, 1500, 8)
+    cs, chunk = CA.cluster_plan(1500, None, 32 * 8, CA._fit(q.device))
+    assert cs > 1
+    ref = CA.int8_cached_attention_plain(q, k8, ks, v8, vs)
+    chip_smoke.check_rel("K7", CA.int8_cached_attention(q, k8, ks, v8, vs),
+                         ref, chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+    vd = v8.clone()
+    vd[:, :, chunk:2 * chunk] = 0
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_rel("K7 rank 1 dropped", CA.int8_cached_attention(
+            q, k8, ks, vd, vs), ref, chip_smoke.INT8_ATT_MAX,
+            chip_smoke.INT8_ATT_L2)
 
 
 def test_int8_wrappers_raise_instead_of_falling_back(cuda):

@@ -1,9 +1,10 @@
-"""K5 (int8 dense layer), K4 / K4-o (decoder MLP block) and K14 of one
-checkout of the port, timed at the main path's shapes, for A/B runs of
-two checkouts in turns on one card.
+"""The decode step's kernels of one checkout of the port -- K3 / K3-q
+(decoder self block), K4 / K4-o (decoder MLP block), K5 (int8 dense
+layer), K6 and K7 (int8 K/V attention) and K14 -- timed at the main
+path's shapes, for A/B runs of two checkouts in turns on one card.
 
     python3 tools/torch_decode_kernel_ab.py --root DIR --label NAME \
-        [--out chiprun_out]
+        [--kernels K3,K3-q,K7] [--out chiprun_out]
 
 DIR is the root of a checkout (its ``multimodal_audio_search_tpu_torch``
 is imported, so run one process per checkout, e.g. parent, change,
@@ -19,13 +20,16 @@ checkout's chip_smoke.py. For each case it prints one JSON line: the card
   one torch._weight_int8pack_mm call (``library_*``) where the card's
   torch runs it on CUDA.
 
-Cases: K5 at every chip_smoke.K5_SHAPES entry (a decode step's layers,
+Cases: K3 and K3-q at B=32, L=68, pos 67 and both chip_smoke.DEC_WIDTHS;
+K3 at whisper-small's (D=768, H=12) and large's (D=1280, H=20) widths
+and at base width with B=128; K6 and K7 at B=32, T=1500, H=8 and H=6 (K6
+over every key); K5 at every chip_smoke.K5_SHAPES entry (a decode step's layers,
 the tied logits, the cross K/V projection over 48,000 rows, both
 widths; where the checkout has a logits table, the logits on it and
 again on the codes, ``logits_skinny`` or ``logits_copy`` as the plan
 runs them); K4, K4-o and K14 at B=32 and both chip_smoke.DEC_WIDTHS;
 K4 and K4-o at whisper-small's and large's widths (B=32) and at base
-width with B=128.
+width with B=128. ``--kernels`` keeps the named kernels' cases only.
 Needs a CUDA card; inputs come from a seeded torch.Generator.
 """
 from __future__ import annotations
@@ -57,7 +61,13 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None,
                     help="directory for a copy of the JSON lines")
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
+    only = set(args.kernels.split(",")) if args.kernels else None
+
+    def want(*keys) -> bool:
+        return only is None or bool(only.intersection(keys))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs = load_chip_smoke()
@@ -107,7 +117,66 @@ def main() -> int:
         return row
 
     gen = torch.Generator().manual_seed(0)
-    for m, k, n, dt, bias in cs.K5_SHAPES:
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    # K3 / K3-q: the engine's widths, then K3 past them
+    l, pos = 68, 67
+    k3_cases = [(label, 32, d, heads, key) for label, d, heads, _
+                in cs.DEC_WIDTHS for key in ("K3", "K3-q")]
+    k3_cases += [("small", 32, 768, 12, "K3"), ("large", 32, 1280, 20, "K3"),
+                 ("base", 128, 512, 8, "K3")]
+    for label, b, d, heads, key in k3_cases:
+        if not want(key):
+            continue
+        x, selfw, tail, kc, vc = cs.k3_inputs(gen, b, l, d)
+        fused, plain = ((DB.fused_self_block_q, DB.self_block_q_plain)
+                        if key == "K3-q" else
+                        (DB.fused_self_block, DB.self_block_plain))
+        a = (x, *selfw, *(tail if key == "K3-q" else []))
+        got = fused(*a, kc.clone(), vc.clone(), pos, heads=heads)
+        emit({"label": args.label, "kernel": key,
+              "shape": f"{label} B={b} D={d} H={heads} L={l} pos={pos}",
+              **cs.check_k3(f"{key} {label}", got,
+                            plain(*a, kc, vc, pos, heads=heads), x),
+              **timings(lambda: fused(*a, kc, vc, pos, heads=heads),
+                        lambda: plain(*a, kc, vc, pos, heads=heads)),
+              **cs.k3_bound(a, got, pos)})
+        del x, selfw, tail, kc, vc, a, got
+    b, t = 32, 1500
+    for label, heads in (("base", 8), ("tiny", 6)):
+        if want("K6"):
+            a = cs.k6_inputs(gen, b, t, heads)
+            fn = (lambda: CX.fused_single_query_attention_int8(
+                *a, heads=heads))
+            row = {"label": args.label, "kernel": "K6",
+                   "shape": f"{label} B={b} T={t} H={heads} pos=None",
+                   **cs.check_rel(
+                       f"K6 {label}", fn(),
+                       CX.single_query_attention_int8_plain(*a, heads=heads),
+                       cs.INT8_ATT_MAX, cs.INT8_ATT_L2),
+                   **timings(fn, lambda: CX.single_query_attention_int8_plain(
+                       *a, heads=heads)),
+                   **cs.bound(cs.nbytes(*a) + b * heads * 64 * 4,
+                              int8=4 * b * t * heads * 64)}
+            row["gbps"] = cs.nbytes(*a) / row["device_ms"] / 1e6
+            emit(row)
+            del a
+        if want("K7"):
+            a = cs.k7_inputs(gen, b, t, heads)
+            fn = (lambda: CA.int8_cached_attention(*a))
+            row = {"label": args.label, "kernel": "K7",
+                   "shape": f"{label} B={b} T={t} H={heads}",
+                   **cs.check_rel(f"K7 {label}", fn(),
+                                  CA.int8_cached_attention_plain(*a),
+                                  cs.INT8_ATT_MAX, cs.INT8_ATT_L2),
+                   **timings(fn, lambda: CA.int8_cached_attention_plain(*a)),
+                   **cs.bound(cs.nbytes(*a) + b * heads * 64 * 4,
+                              int8=4 * b * t * heads * 64)}
+            row["gbps"] = cs.nbytes(*a) / row["device_ms"] / 1e6
+            emit(row)
+            del a
+    torch.cuda.empty_cache()
+    for m, k, n, dt, bias in cs.K5_SHAPES if want("K5") else ():
         out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         x, wq, scale, b = cs.k5_inputs(gen, m, k, n, bias=bias)
         leaf = {"wq": wq, "scale": scale, **({"b": b} if bias else {})}
@@ -127,7 +196,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     b = 32
-    for label, d, heads, f in cs.DEC_WIDTHS:
+    for label, d, heads, f in cs.DEC_WIDTHS if want("K4", "K4-o", "K14") \
+            else ():
         x, mlp, head = cs.k4_inputs(gen, b, d, f)
         for key, fused, plain, a in (
                 ("K4", DB.fused_mlp_block, DB.mlp_block_plain, (x, *mlp)),
@@ -155,7 +225,8 @@ def main() -> int:
     # K4 / K4-o past the engine's shapes: whisper-small's and large's
     # widths, and base width at an ingest batch of 128
     for label, b, d, f in (("small", 32, 768, 3072), ("large", 32, 1280, 5120),
-                           ("base", 128, 512, 2048)):
+                           ("base", 128, 512, 2048)) \
+            if want("K4", "K4-o") else ():
         x, mlp, head = cs.k4_inputs(gen, b, d, f)
         for key, fused, plain, a in (
                 ("K4", DB.fused_mlp_block, DB.mlp_block_plain, (x, *mlp)),

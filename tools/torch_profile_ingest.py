@@ -3,6 +3,7 @@
     python3 tools/torch_profile_ingest.py [--paths default,fast_lossless,v2,
                                            int8_fused,int8]
                                           [--seconds 320] [--out DIR]
+                                          [--root CHECKOUT]
 
 Builds one engine per path (chip_smoke.ENGINE_PATHS: the default config,
 ``apply_profile(..., "fast_lossless")``, that profile with
@@ -12,10 +13,14 @@ warms each up with
 one ingest. Then ingests ``--seconds`` of audio (320 s = one full batch
 of 32 segments) with each path in turns (A B C C B A), timing the host
 wall and the host trace, and once more per path under torch.profiler
-for the device's busy time and idle share. Prints one JSON line per run
+for the device's busy time and idle share, and the device memory an
+ingest holds at its peak (``peak_bytes``, every engine resident) and
+above what it holds before (``extra_bytes``). Prints one JSON line per run
 and a last line with each path's median wall and audio-s/s; with
 ``--out`` the full kernel tables go to ``DIR/profile_ingest.json``.
-Needs one CUDA card.
+``--root`` imports the package from another checkout (e.g. the parent
+commit unpacked by ``git archive``), with this checkout's engine
+configurations, for A/B runs in one call. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -53,10 +58,13 @@ def main() -> int:
     ap.add_argument("--seconds", type=int, default=320)
     ap.add_argument("--out", default=None,
                     help="directory for the full kernel tables")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose package is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(1, ROOT)
     from chip_smoke import (ENGINE_PATHS, card_line, engine_config,
                             make_audio, wav_bytes)
     from multimodal_audio_search_tpu_torch import AudioSearchEngine
@@ -98,9 +106,13 @@ def main() -> int:
             "host_trace_ms": trace}), flush=True)
     tables = {}
     for label in labels:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall_ms, trace, steps = run(label)
+        peak = torch.cuda.max_memory_allocated()
         rows = kernel_rows(prof)
         busy_ms = sum(r["device_ms"] for r in rows)
         tables[label] = rows
@@ -110,6 +122,7 @@ def main() -> int:
             "device_busy_ms": busy_ms if rows else "not measured",
             "device_idle_share": 1 - busy_ms / wall_ms if rows
             else "not measured",
+            "peak_bytes": peak, "extra_bytes": peak - held,
             "host_trace_ms": trace, "top": rows[:10]}), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
