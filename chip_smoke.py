@@ -776,10 +776,18 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
             torch.cuda.synchronize()
             n = t if pos is None else pos + 1
             case = {"shape": f"{label} B={b} T={t} H={heads} pos={pos}",
+                    "plan": CX.int8_plan(n, heads, b,
+                                         CX._fit_int8(got.device)),
                     **check_rel(f"K6 {label} pos={pos}", got, ref,
                                 INT8_ATT_MAX, INT8_ATT_L2),
                     "ms": time_ms(lambda: CX.fused_single_query_attention_int8(
                         *args, heads=heads, pos=pos)),
+                    "device_ms": device_ms(
+                        lambda: CX.fused_single_query_attention_int8(
+                            *args, heads=heads, pos=pos)),
+                    "host_us": host_us(
+                        lambda: CX.fused_single_query_attention_int8(
+                            *args, heads=heads, pos=pos)),
                     "plain_ms": time_ms(
                         lambda: CX.single_query_attention_int8_plain(
                             *args, heads=heads, pos=pos))}
@@ -789,6 +797,18 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                               + 2 * b * n * heads * (64 + 4),
                               int8=4 * b * n * heads * 64))
             k6["cases"].append(case)
+            phase("kernels", kernel="K6", card=card,
+                  tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
+        # a forced cluster of 8 over 4 keys: ranks 1-7 hold none
+        for group in (heads, 1):
+            got = CX._launch_int8(*args, heads, 4, group=group, cluster=8)
+            ref = CX.single_query_attention_int8_plain(*args, heads=heads,
+                                                       pos=3)
+            torch.cuda.synchronize()
+            case = {"shape": f"{label} B={b} T={t} H={heads} pos=3 "
+                             f"G={group} cluster=8 (empty ranks)",
+                    **check_rel(f"K6 {label} empty ranks G={group}", got,
+                                ref, INT8_ATT_MAX, INT8_ATT_L2)}
             phase("kernels", kernel="K6", card=card,
                   tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
         args = k7_inputs(gen, b, t, heads)
@@ -815,13 +835,14 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
     return [k5, k6, k7]
 
 
-def k8_mechanism() -> dict:
-    """K8's instructions in the built library: its warpgroup products
-    (HGMMA), TMA tensor loads (UTMALDG) and mbarrier operations (SYNCS).
-    Raises unless it has all three: K8 runs on wgmma and TMA only."""
-    counts = sass_counts("encoder_attention_kernel")
+def wgmma_mechanism(name: str, function: str, mma: str = "HGMMA") -> dict:
+    """A kernel's instructions in the built library: its warpgroup
+    products (HGMMA for floats, IGMMA for int8), TMA tensor loads (UTMALDG)
+    and mbarrier operations (SYNCS). Raises unless it has all three: K8
+    and K9 run their products on wgmma fed by TMA only."""
+    counts = sass_counts(function, (mma, "UTMALDG", "SYNCS"))
     if not all(counts.values()):
-        raise AssertionError(f"K8's SASS lacks wgmma/TMA/mbarrier "
+        raise AssertionError(f"{name}'s SASS lacks wgmma/TMA/mbarrier "
                              f"instructions: {counts}")
     return {"path": "wgmma.mma_async + cp.async.bulk.tensor + mbarrier",
             "sass": counts}
@@ -841,10 +862,14 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
         "K8": {"name": "encoder_attention", "route": "cuda",
                "source": f"{pkg}/encoder_attention.cu",
                "replaces": f"{jx}/attention.py:83",
-               "mechanism": k8_mechanism(), "cases": []},
+               "mechanism": wgmma_mechanism("K8", "encoder_attention_kernel"),
+               "cases": []},
         "K9": {"name": "encoder_attn_o_residual_int8", "route": "cuda",
                "source": f"{pkg}/encoder_block_int8.cu",
-               "replaces": f"{jx}/encoder_block.py:319", "cases": []},
+               "replaces": f"{jx}/encoder_block.py:319",
+               "mechanism": wgmma_mechanism(
+                   "K9", "attn_o_residual_int8_kernel", "IGMMA"),
+               "cases": []},
         "K10": {"name": "encoder_attn_o_residual_paired", "route": "cuda",
                 "source": f"{pkg}/encoder_block.cu",
                 "replaces": f"{jx}/encoder_block.py:375", "cases": []},
@@ -908,6 +933,22 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                 del got, ref
             del q, k, v, x, wo, bo, args, kv, args9, runs
             torch.cuda.empty_cache()
+    # K9 at a ragged T: a last 64-row block of one row, a last 128-key
+    # tile of 92 keys
+    for inputs, q_scale, residual in K1_CASES:
+        q, k, v, x, wo, bo = k1_inputs(gen, 4, 1501, 8, q_scale=q_scale,
+                                       residual=residual)
+        args9 = (q, *quantize_kv(k, v), x, wo, bo)
+        got = EB.attention_o_residual_int8(*args9)
+        ref = EB.attention_o_residual_int8_plain(*args9)
+        torch.cuda.synchronize()
+        case = {"shape": "base B=4 T=1501 H=8 D=64", "inputs": inputs,
+                **check_k1(f"K9 T=1501 {inputs}", got, ref, residual)}
+        out["K9"]["cases"].append(case)
+        phase("kernels", kernel="K9", card=card,
+              tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2} if not residual
+              else [K1_ATOL, K1_RTOL], **case)
+        del q, k, v, x, wo, bo, args9, got, ref
     return list(out.values())
 
 

@@ -47,8 +47,8 @@
 //     softmax meets the other's products. After its PV product a warp
 //     releases the stage to the producer.
 //   * Host: the three tensor maps are encoded once per view and kept in
-//     a small cache (tensor_map), so a call with views seen before only
-//     launches.
+//     a small cache (sm90::MapCache), so a call with views seen before
+//     only launches.
 //   * Registers: S (64) + O (32) + P (32) a thread, ~160 in all, so one
 //     block fills an SM; shared memory holds Q (16 KB) and STAGES x 32 KB
 //     of K/V, above the 48 KB default, so mas_encoder_attention_init
@@ -56,8 +56,6 @@
 // Tried on an H100 and not kept (PERF.md): 192-key tiles (S of 96
 // registers spills), two stages, no ping-pong, and no overlap, each
 // slower. Later work: a TMA store of the output.
-#include <mutex>
-
 #include "sm90.cuh"
 
 namespace {
@@ -309,41 +307,20 @@ __global__ void __launch_bounds__(NT, 1) encoder_attention_kernel(
   }
 }
 
-// The tensor maps of recent views, so a call encodes none for a view it
-// has seen (the encoder's q/k/v buffers recur from batch to batch). A map
-// describes addresses and strides only, so a hit is valid whatever the
-// memory now holds; the ring's oldest entry makes room for a new view.
-struct MapKey {
-  const void* base;
-  int B, H, T, rows;
-  long long sb, sh, st;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && B == o.B && H == o.H && T == o.T &&
-           rows == o.rows && sb == o.sb && sh == o.sh && st == o.st;
-  }
-};
-constexpr int MAP_CACHE = 64;
-MapKey map_keys[MAP_CACHE];
-CUtensorMap map_vals[MAP_CACHE];
-int map_used = 0, map_next = 0;
-std::mutex map_lock;
+// The maps of recent views (the encoder's q/k/v buffers recur from batch
+// to batch): a rank-4 map over a bf16 [B, H, T, 64] view with element
+// strides (sb, sh, st, 1), box {64, rows}, 128-byte swizzle.
+MapCache<64> maps;
 
-int tensor_map(CUtensorMap* map, const MapKey& key) {
-  std::lock_guard<std::mutex> guard(map_lock);
-  for (int i = 0; i < map_used; ++i)
-    if (map_keys[i] == key) {
-      *map = map_vals[i];
-      return 0;
-    }
-  const int e = encode_bf16_bhtd(map, key.base, key.B, key.H, key.T, key.sb,
-                                 key.sh, key.st, key.rows);
-  if (e == 0) {
-    map_keys[map_next] = key;
-    map_vals[map_next] = *map;
-    map_next = (map_next + 1) % MAP_CACHE;
-    if (map_used < MAP_CACHE) ++map_used;
-  }
-  return e;
+int bhtd_map(CUtensorMap* map, const void* base, int B, int H, int T,
+             int rows, long long sb, long long sh, long long st) {
+  return maps.get(map, map_spec(base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                {64u, (cuuint64_t)T, (cuuint64_t)H,
+                                 (cuuint64_t)B},
+                                {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2},
+                                {64u, (cuuint32_t)rows, 1u, 1u},
+                                CU_TENSOR_MAP_SWIZZLE_128B));
 }
 
 }  // namespace
@@ -368,9 +345,9 @@ extern "C" int mas_encoder_attention(const void* q, const void* k,
                                      int B, int H, int T, float scale_log2,
                                      void* stream) {
   CUtensorMap tq, tk, tv;
-  int e = tensor_map(&tq, {q, B, H, T, BM, sb, sh, st});
-  if (e == 0) e = tensor_map(&tk, {k, B, H, T, BN, sb, sh, st});
-  if (e == 0) e = tensor_map(&tv, {v, B, H, T, BN, sb, sh, st});
+  int e = bhtd_map(&tq, q, B, H, T, BM, sb, sh, st);
+  if (e == 0) e = bhtd_map(&tk, k, B, H, T, BN, sb, sh, st);
+  if (e == 0) e = bhtd_map(&tv, v, B, H, T, BN, sb, sh, st);
   if (e != 0) return e;
   dim3 grid((T + BM - 1) / BM, B * H);
   encoder_attention_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(

@@ -10,147 +10,372 @@
 // then x + (out_h, heads merged, in bf16) @ Wo + bo, as K1 ends. k8/v8
 // and their per-position scales ks/vs come from quantize_kv outside the
 // kernel, as the TPU wrapper quantizes them in XLA. Rounding is rint (half
-// to even, as jnp.round), every division a true one and exp is expf, so
-// the codes are the TPU kernel's wherever the float32 sum l agrees.
+// to even, as jnp.round) and every division gives a true division's bits
+// (div_row), so the codes are the TPU kernel's wherever exp and the
+// float32 sum l agree.
 //
 // Replaces multimodal_audio_search_tpu/ops/encoder_block.py::
 // fused_attention_o_residual with qk_int8=True (body _attn_o_kernel_int8
 // :183, pallas_call :319).
 //
-// What bounds it on an H100: tensor-core work, half of it at the int8
-// rate. At B=32, T=1500, H=8 the two attention dots are ~147 G integer
-// ops (1,979 TOP/s) and the o-projection ~25 GFLOP bf16 (989 TFLOP/s),
-// against ~0.15 GB of q/x/out (bf16) and k8/v8 (int8) traffic.
+// What bounds it on an H100. Tensor-core work: at B=32, T=1500, H=8 the
+// two attention dots are ~147 G integer ops (1,979 TOP/s, 0.074 ms) and
+// the o-projection ~25 GFLOP bf16 (989 TFLOP/s); three passes over K make
+// the QK^T work three times that. With a head dim of 64 the per-score
+// work on the CUDA cores weighs more: as the TPU kernel rounds it, each
+// score takes three exp and three true divisions (p / l twice, pw / ps
+// once), ~6 MUFU operations with expf and IEEE divisions, so 576 M scores
+// are ~3.5 G MUFU operations, 0.8-1 ms on 132 SMs at 1.7-2 GHz. This
+// kernel takes exp as one FFMA and the MUFU exp2 (as K8) and each
+// division as a row reciprocal with a correction step that gives the
+// true division's bits (div_row): three MUFU operations a score and ~37
+// instructions over the three passes, ~0.7 ms of issue on 132 SMs.
 //
-// Design (simple first version). One block = 64 query rows of one batch
-// row, 4 warps x 16 rows, every head in turn, as K1:
-//   * q is quantized per row in registers (a quad max over the 64
-//     columns) into m16n8k32 A fragments.
-//   * The per-row p quantization needs the whole softmax row (ps is a max
-//     over all T of the normalised p), which an online softmax does not
-//     have. So QK^T is recomputed over three passes of 64-key int8 K
-//     tiles: (1) the row max m and sum l, online; (2) pw with the final m
-//     and l, and its row max -> ps; (3) p8 and the PV product. Keeping a
-//     [16, T] float32 score strip per warp would need 4 x 96 KB at
-//     T=1500, more than a block's shared memory.
-//   * Both dots are mma.sync m16n8k32 s8 x s8 -> s32. For QK^T, k8 rows
-//     (D contiguous) are the "col" B operand as stored. For PV the key
-//     axis is the contraction: the thread's p8 codes sit where the S
-//     accumulators put them (keys 2t, 2t+1 of each 8-key column tile),
-//     not where the A fragment wants them (keys 4t..4t+3), so the
-//     contraction order is permuted -- the same permutation in A and B,
-//     which leaves the integer sum unchanged: A position 4t+i holds key
-//     {2t, 2t+1, 8+2t, 9+2t}[i] (and +16 for the upper half), and B reads
-//     the V bytes of those keys with four byte loads from the untransposed
-//     V tile.
-//   * Integer sums are exact; (float)pv rounds as the TPU's int32 ->
-//     float32 conversion does (|pv| <= T * 127^2 exceeds 2^24 at T=1500).
-//   * Each head's bf16 output goes to the merged [64, H*D] tile; the
-//     o-projection + residual epilogue is K1's (encoder_common.cuh).
-// Shared memory: K/V tiles 2 x 64x80 bytes, their scales, and the
-// 64 x (H*D+8) bf16 tile = 77 KB at base width; the limit is raised when
-// the library loads (mas_attn_o_residual_int8_init).
-// Later work (ROADMAP): keep the score strip for fewer passes at T <= 512,
-// cp.async double buffering, transposed V tiles for word loads.
+// Design, on K8's skeleton (encoder_attention.cu, sm90.cuh):
+//   * A block is 64 query rows of one batch row: NWG consumer warpgroups
+//     on the same 64 rows taking heads in turn (warpgroup w the heads w,
+//     w + NWG, ...), so the merged [64, H*64] bf16 tile is shared and an
+//     SM holds 4 NWG computing warps, and a producer warpgroup (lane w of
+//     its first warp feeds warpgroup w's ring). NWG is 4, or 3 where H is
+//     a multiple of 3 and not of 4 (H = 6: two heads each, where 4 would
+//     leave two warpgroups one head). The consumers take the producers'
+//     registers with setmaxnreg: 112 each at NWG = 4 (a block of 640
+//     threads otherwise gets 96, and spilled), 160 at 3.
+//   * A producer lane keeps its warpgroup's ring of STAGES slots full by
+//     TMA: a 64-key int8 K tile (rank-3 map over [B*H, T, 64], 64-byte
+//     swizzle), its 64 ks and vs (rank-2 maps over [B*H, Ts] scales; a
+//     map's row pitch is a multiple of 16 bytes, so for T % 4 != 0 the
+//     wrapper pads the rows to Ts = T rounded up to 4, and a 1-D bulk
+//     copy, which wants 16-byte aligned rows too, could not take them)
+//     and, in the third pass, the V tile (no swizzle). Rows past T arrive
+//     as zeros; the consumers set those keys' scores to -inf. Consumers
+//     release a slot per warp.
+//   * QK^T is wgmma.mma_async m64n64k32 .s32.s8.s8: q8 forms the A
+//     fragments in registers (m16n8k32 layout per warp), the K tile is the
+//     K-major B operand (two k-steps of 32 bytes). 64-key tiles keep the
+//     scores in 32 registers, which is what lets four warpgroups fit.
+//   * The per-row p quantization needs the whole row's max of pw, which an
+//     online softmax does not have, so each head takes three passes over
+//     its K tiles, each from the ring: (1) the row max m and sum l, online;
+//     (2) pw with the final m and l, and its row max -> ps; (3) p8 and PV.
+//   * PV: 8-bit wgmma takes K-major operands only (PTX has no transpose
+//     bit for them), so V must sit in shared memory as [64 d-rows x 64
+//     keys]. The consumers transpose each V tile once it lands (4 x 4 byte
+//     blocks with __byte_perm) into a 64-byte-swizzled buffer, in the
+//     contraction order the S accumulators give the p8 codes: A position
+//     16 * half + 4t + i of a 32-key step holds key 16 * half + 2t + (i &
+//     1) + 8 (i >> 1) (the thread's keys 2t, 2t + 1 of each 8-key column
+//     tile), the same permutation in A and B, which leaves the integer sum
+//     unchanged. p8 then goes from the S accumulators straight into A
+//     fragments, and O += P8 V is two wgmma m64n64k32 .s32.s8.s8. The
+//     other way, a v8 written by the wrapper as [B, H, 64, T padded], costs
+//     an extra pass over 24.6 MB a layer at base width (PERF.md: that copy
+//     alone takes longer than the in-kernel transposes).
+//   * Integer sums are exact; (float) of an int32 sum rounds as the TPU's
+//     int32 -> float32 conversion does (|pv| <= T * 127^2 exceeds 2^24 at
+//     T=1500).
+//   * Each head's bf16 output goes to the merged tile; then x + tile @ Wo
+//     + bo on mma.sync (K1's epilogue arithmetic), the warpgroups taking
+//     64-column chunks of the output in turn, each 64 x 64 Wo tile brought
+//     into the warpgroup's ring by its producer (TMA, 128-byte swizzle)
+//     while the last head's pass 3 runs.
+// Shared memory: NWG x STAGES x 9 KB of ring, NWG x 4 KB of transposed V
+// and the 64 x (H*64 + 8) bf16 tile: STAGES is 4 at base width and falls
+// to 1 at H*64 = 1280 (the limit: the tile alone is 161 KB there).
 #include "encoder_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace enc;
+using namespace sm90;
 
-constexpr int LDB = D + 16;  // padded row stride (bytes) of the int8 tiles
+constexpr int BN = 64;              // keys a K/V tile
+constexpr int KT_BYTES = BN * D;    // an int8 K or V tile
+// K, V, ks, vs; 1024-byte aligned (a Wo tile, 8 KB, lands in a slot too)
+constexpr int SLOT = 9216;
+static_assert(SLOT >= 2 * KT_BYTES + 2 * BN * 4 && SLOT % 1024 == 0, "");
+constexpr int WO_BYTES = 64 * 64 * 2;  // a 64 x 64 bf16 Wo tile
+constexpr int VT_BYTES = D * BN;    // a transposed V tile
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_WG = 4;
+constexpr int SMEM_OPTIN = 232448;  // an H100 block's shared-memory limit
+constexpr int BARS = 2 * MAX_WG * MAX_STAGES * 8;
+// registers a consumer thread: a block of 128 (NWG + 1) threads is given
+// 65,536 / its size each (96 at NWG = 4, 128 at 3), and the producer
+// warpgroup hands all but PRODUCER_REGS of its own to the consumers
+// (setmaxnreg.inc waits for the block's own freed registers, so asking
+// more than the block holds hangs)
+constexpr int PRODUCER_REGS = 32;
+template <int NWG>
+__host__ __device__ constexpr int consumer_regs() {
+  return (65536 / (128 * (NWG + 1)) / 8 * 8 * (NWG + 1) - PRODUCER_REGS) /
+         NWG / 8 * 8;
+}
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// consumer warpgroups: 4, or 3 where H is a multiple of 3 and not of 4
+// (H = 6: two heads each)
+inline int warpgroups(int H) { return H % 4 != 0 && H % 3 == 0 ? 3 : 4; }
+__host__ __device__ inline int tile_bytes(int HD) { return BQ * (HD + 8) * 2; }
+inline int stages_for(int HD, int nwg) {
+  const int s = (SMEM_OPTIN - 1024 - nwg * VT_BYTES - tile_bytes(HD) - BARS) /
+                (nwg * SLOT);
+  return s < MAX_STAGES ? s : MAX_STAGES;
+}
+inline int smem_bytes(int HD, int nwg, int stages) {
+  return 1024 + nwg * stages * SLOT + nwg * VT_BYTES + tile_bytes(HD) + BARS;
 }
 
 __device__ __forceinline__ float code8(float v, float s) {
   return fminf(fmaxf(rintf(v / s), -127.f), 127.f);
 }
 
+// x / d rounded to nearest, as a true division gives it, from r = 1 / d
+// (itself a true division, once a row): q = x r, then one correction
+// step with the exact residual x - q d (an FMA), q + (x - q d) r
+// (Markstein). The row's divisors l and ps are fixed, so a score pays
+// three FMA-pipe operations, with no branch, in place of a division's
+// reciprocal, refinement and range check (a call with a branch, which
+// kept ptxas from interleaving the scores' chains: the stamps in
+// PERF.md). mas_k9_division_check holds it to the true division on the
+// card (tests/test_torch_cuda.py: 1.6e7 quotients x / l with x in
+// [2^-100, 1], l in [1, 12288], and pw / ps). Below x = 2^-100 the
+// quotient can leave the normal range and miss by an ulp there; such a
+// key's pw is under 2^-100 vs, which moves no code and no max unless its
+// V row's scale is ~2^90 times the scale of the row that sets ps.
+__device__ __forceinline__ float div_row(float x, float d, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), r, q);
+}
+
+// p8 = clip(rint(pw / ps)) for 0 <= pw <= max pw = 127 ps (1 + 2^-24 at
+// most, from ps's rounding): the quotient rounds into [0, 127], so the clip
+// is the identity and one conversion (round to nearest even) does rint
+__device__ __forceinline__ int code8_row(float v, float s, float r) {
+  return __float2int_rn(div_row(v, s, r));
+}
+
 // four codes (lowest index in the lowest byte)
-__device__ __forceinline__ uint32_t pack_s8(float a, float b, float c,
-                                            float d) {
-  return ((uint32_t)(int)a & 0xffu) | (((uint32_t)(int)b & 0xffu) << 8) |
-         (((uint32_t)(int)c & 0xffu) << 16) | (((uint32_t)(int)d & 0xffu) << 24);
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return ((uint32_t)a & 0xffu) | (((uint32_t)b & 0xffu) << 8) |
+         (((uint32_t)c & 0xffu) << 16) | (((uint32_t)d & 0xffu) << 24);
 }
 
-// [64 keys x 64] int8 tile (global rows of 64 bytes) + its 64 scales;
-// keys >= nrows are zero-filled.
-__device__ __forceinline__ void load_tile_s8(int8_t* s, float* ss,
-                                             const int8_t* g, const float* gs,
-                                             int nrows) {
-  for (int i = threadIdx.x; i < 64 * 4; i += NT) {
-    const int r = i >> 2, c = (i & 3) * 16;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) v = *reinterpret_cast<const uint4*>(g + r * D + c);
-    *reinterpret_cast<uint4*>(s + r * LDB + c) = v;
-  }
-  const int i = threadIdx.x;
-  if (i < 64) ss[i] = i < nrows ? gs[i] : 0.f;
+constexpr float L2E = 1.4426950408889634f;  // log2(e)
+
+// exp(s - m) as 2^(s log2(e) - m log2(e)): one FFMA and the SM's MUFU
+// exp2 (2 ulp; results below 2^-126 flush to 0, far below any code or
+// sum that matters), as K8 takes it; expf spent 8 instructions a score
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float exp_m(float s, float mL) {
+  return ex2(fmaf(s, L2E, -mL));
 }
 
-// s = ((float)(q8 . k8) * qs) * ks for the warp's 16 rows x 64 keys of
-// the K tile, keys >= T set to -inf.
-__device__ __forceinline__ void scores_s8(float s[8][4], const uint32_t qa[2][4],
-                                          const int8_t* sK, const float* sks,
-                                          int kv0, int T, float qs0, float qs1,
-                                          int g, int t4) {
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// named barriers: 1 + w the 128 threads of consumer warpgroup w, NWG + 1
+// every consumer
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// bf16 element (k, n) of a 64 x 64 Wo tile as TMA wrote it with the
+// 128-byte swizzle (rows of 128 bytes, 16-byte chunk c of row k at c ^ (k
+// % 8)): the B operand of the o-projection, read without bank conflicts
+__device__ __forceinline__ uint32_t ldw(const uint8_t* w, int k, int n) {
+  return *reinterpret_cast<const uint16_t*>(
+      w + k * 128 + (((n >> 3) ^ (k & 7)) << 4) + ((n & 7) << 1));
+}
+
+// S = q8 . K^T over a tile's 64 keys (two 32-byte k-steps). The warp is
+// reconverged first: wgmma's .aligned forms need every lane together, and
+// the mbarrier spin before a call may leave them apart.
+__device__ __forceinline__ void issue_scores(int c[32], const uint32_t qa[2][4],
+                                             const int8_t* sK) {
+  const uint64_t dk = desc_sw64(sK);
+  __syncwarp();
+  wg_fence();
+  wgmma_m64n64k32_s8_rs<false>(c, qa[0], dk);
+  wgmma_m64n64k32_s8_rs<true>(c, qa[1], dk + 2);
+  wg_commit();
+  wg_wait<0>();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int c[4] = {0, 0, 0, 0};
-    const int8_t* kr = sK + (j * 8 + g) * LDB + t4 * 4;
+  for (int i = 0; i < 32; ++i) reg_fence(c[i]);
+}
+
+// c -> s = ((float)c * qs) * ks in place (the float's bits in c), for rows
+// g, g + 8 of the warp, keys kv0 + 8jn + 2t + 0..1; keys >= T set to -inf
+// (only the last tile has any). One array of 32 registers holds the
+// products, the scores and the codes.
+__device__ __forceinline__ void scores(int c[32], const float* sks, int kv0,
+                                       int T, float qs0, float qs1, int t4) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-      mma_s8(c, qa[kk], *reinterpret_cast<const uint32_t*>(kr + kk * 32),
-             *reinterpret_cast<const uint32_t*>(kr + kk * 32 + 16));
-    const int kl = j * 8 + t4 * 2;
-    const bool v0 = kv0 + kl < T, v1 = kv0 + kl + 1 < T;
-    s[j][0] = v0 ? ((float)c[0] * qs0) * sks[kl] : -INFINITY;
-    s[j][1] = v1 ? ((float)c[1] * qs0) * sks[kl + 1] : -INFINITY;
-    s[j][2] = v0 ? ((float)c[2] * qs1) * sks[kl] : -INFINITY;
-    s[j][3] = v1 ? ((float)c[3] * qs1) * sks[kl + 1] : -INFINITY;
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    const int kl = jn * 8 + t4 * 2;
+    const float2 k2 = *reinterpret_cast<const float2*>(sks + kl);
+    c[4 * jn] = __float_as_int(((float)c[4 * jn] * qs0) * k2.x);
+    c[4 * jn + 1] = __float_as_int(((float)c[4 * jn + 1] * qs0) * k2.y);
+    c[4 * jn + 2] = __float_as_int(((float)c[4 * jn + 2] * qs1) * k2.x);
+    c[4 * jn + 3] = __float_as_int(((float)c[4 * jn + 3] * qs1) * k2.y);
+  }
+  if (kv0 + BN > T) {
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int key = kv0 + jn * 8 + t4 * 2;
+      if (key >= T) c[4 * jn] = c[4 * jn + 2] = __float_as_int(-INFINITY);
+      if (key + 1 >= T)
+        c[4 * jn + 1] = c[4 * jn + 3] = __float_as_int(-INFINITY);
+    }
+  }
+}
+#define S(i) __int_as_float(c[i])
+
+// The V tile [64 keys][64] (rows of 64 bytes) -> Vt [64 d][64 keys],
+// 64-byte swizzled (16-byte chunk c of row d at c ^ ((d / 2) % 4)), keys in
+// the contraction order above. Thread tid of the warpgroup: columns 4 (tid
+// / 2 % 16) .. + 3 of the 16-key chunk tid / 32, its words 2 (tid % 2)
+// and 2 (tid % 2) + 1; word w of a chunk holds keys 2w, 2w + 1, 2w + 8,
+// 2w + 9 of it.
+__device__ __forceinline__ void transpose_v(uint8_t* vt, const int8_t* v,
+                                            int tid) {
+  const int wh = tid & 1, d0 = (tid >> 1 & 15) * 4, c = tid >> 5;
+  const int base = c * 16;
+  uint32_t o[4][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int w = 2 * wh + i;
+    const int r = base + 2 * w;
+    const uint32_t x0 = *reinterpret_cast<const uint32_t*>(v + r * D + d0);
+    const uint32_t x1 = *reinterpret_cast<const uint32_t*>(v + (r + 1) * D + d0);
+    const uint32_t x2 = *reinterpret_cast<const uint32_t*>(v + (r + 8) * D + d0);
+    const uint32_t x3 = *reinterpret_cast<const uint32_t*>(v + (r + 9) * D + d0);
+    const uint32_t lo01 = __byte_perm(x0, x1, 0x5140);
+    const uint32_t hi01 = __byte_perm(x0, x1, 0x7362);
+    const uint32_t lo23 = __byte_perm(x2, x3, 0x5140);
+    const uint32_t hi23 = __byte_perm(x2, x3, 0x7362);
+    o[0][i] = __byte_perm(lo01, lo23, 0x5410);
+    o[1][i] = __byte_perm(lo01, lo23, 0x7632);
+    o[2][i] = __byte_perm(hi01, hi23, 0x5410);
+    o[3][i] = __byte_perm(hi01, hi23, 0x7632);
+  }
+#pragma unroll
+  for (int dd = 0; dd < 4; ++dd) {
+    const int d = d0 + dd;
+    *reinterpret_cast<uint2*>(vt + d * BN + ((c ^ ((d >> 1) & 3)) << 4) +
+                              8 * wh) = make_uint2(o[dd][0], o[dd][1]);
   }
 }
 
-__global__ void __launch_bounds__(NT) attn_o_residual_int8_kernel(
-    const bf16* __restrict__ q, long long sb, long long sh, long long st,
-    const int8_t* __restrict__ k8, const float* __restrict__ ks,
-    const int8_t* __restrict__ v8, const float* __restrict__ vs,
-    const bf16* __restrict__ x, const bf16* __restrict__ wo,
-    const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
-    int HD, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sK = reinterpret_cast<int8_t*>(smem_raw);  // [64][LDB]
-  int8_t* sV = sK + 64 * LDB;                        // [64][LDB]
-  float* sks = reinterpret_cast<float*>(sV + 64 * LDB);
-  float* svs = sks + 64;
-  bf16* sA = reinterpret_cast<bf16*>(svs + 64);  // [BQ][HD + 8]
+template <int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+    attn_o_residual_int8_kernel(
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tks,
+        const __grid_constant__ CUtensorMap tvs,
+        const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ q,
+        long long sb, long long sh, long long st, const bf16* __restrict__ x,
+        const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
+        int HD, int stages, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries
+  uint8_t* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = base;                              // [NWG][stages][SLOT]
+  uint8_t* vts = ring + NWG * stages * SLOT;         // [NWG][VT_BYTES]
+  bf16* sA = reinterpret_cast<bf16*>(vts + NWG * VT_BYTES);  // [BQ][HD + 8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(sA) + tile_bytes(HD));  // [NWG][MAX_STAGES]
+  uint64_t* empty = full + NWG * MAX_STAGES;
+
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (T + BN - 1) / BN;
+  const int n_chunks = HD / 64;
+  const int warp_id = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NWG * MAX_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp_id >= NWG * 4) {  // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int wg = threadIdx.x - NWG * 128;  // lane w of its first warp
+    if (wg < NWG) {                          // feeds ring w
+      if (wg == 0) {
+        prefetch_map(&tk);
+        prefetch_map(&tv);
+        prefetch_map(&tks);
+        prefetch_map(&tvs);
+        prefetch_map(&tw);
+      }
+      int it = 0;
+      for (int h = wg; h < H; h += NWG) {
+        const int row = b * H + h;
+        for (int pass = 0; pass < 3; ++pass)
+          for (int j = 0; j < n_tiles; ++j, ++it) {
+            const int s = it % stages;
+            uint8_t* slot = ring + (wg * stages + s) * SLOT;
+            uint64_t* bar = &full[wg * MAX_STAGES + s];
+            mbar_wait(&empty[wg * MAX_STAGES + s], ((it / stages) & 1) ^ 1);
+            mbar_expect_tx(bar, KT_BYTES + 2 * BN * 4 +
+                                    (pass == 2 ? KT_BYTES : 0));
+            tma_load_3d(slot, &tk, bar, 0, j * BN, row);
+            tma_load_2d(slot + 2 * KT_BYTES, &tks, bar, j * BN, row);
+            tma_load_2d(slot + 2 * KT_BYTES + BN * 4, &tvs, bar, j * BN, row);
+            if (pass == 2) tma_load_3d(slot + KT_BYTES, &tv, bar, 0, j * BN, row);
+          }
+      }
+      // then the Wo tiles of the warpgroup's output columns
+      for (int nc = wg; nc < n_chunks; nc += NWG)
+        for (int kc = 0; kc < n_chunks; ++kc, ++it) {
+          const int s = it % stages;
+          uint64_t* bar = &full[wg * MAX_STAGES + s];
+          mbar_wait(&empty[wg * MAX_STAGES + s], ((it / stages) & 1) ^ 1);
+          mbar_expect_tx(bar, WO_BYTES);
+          tma_load_2d(ring + (wg * stages + s) * SLOT, &tw, bar, nc * 64,
+                      kc * 64);
+        }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: rows q0 .. q0 + 63, heads wg, wg + NWG, ...
+  setmaxnreg_inc<consumer_regs<NWG>()>();
+  const int wg = warp_id >> 2, warp = warp_id & 3;
+  const int tid = threadIdx.x & 127, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const int n_tiles = (T + BK - 1) / BK;
+  uint8_t* vt = vts + wg * VT_BYTES;
+  uint64_t* wfull = full + wg * MAX_STAGES;
+  uint64_t* wempty = empty + wg * MAX_STAGES;
+  int it = 0;
 
-  for (int h = 0; h < H; ++h) {
+  for (int h = wg; h < H; h += NWG) {
     // ---- q8 and qs for rows ra, rb: columns 4t..4t+3 (+16, +32, +48)
     const bf16* qh = q + b * sb + h * sh;
     float qf[2][16];
     float amax0 = 0.f, amax1 = 0.f;
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) {
-      const int c = c4 * 16 + t4 * 4;
+      const int cc = c4 * 16 + t4 * 4;
 #pragma unroll
       for (int hw = 0; hw < 2; ++hw) {
-        const float2 va = ra < T ? unpack_bf16(ld32(qh + ra * st + c + 2 * hw))
+        const float2 va = ra < T ? unpack_bf16(ld32(qh + ra * st + cc + 2 * hw))
                                  : make_float2(0.f, 0.f);
-        const float2 vb = rb < T ? unpack_bf16(ld32(qh + rb * st + c + 2 * hw))
+        const float2 vb = rb < T ? unpack_bf16(ld32(qh + rb * st + cc + 2 * hw))
                                  : make_float2(0.f, 0.f);
         qf[0][c4 * 4 + 2 * hw] = va.x * scale;
         qf[0][c4 * 4 + 2 * hw + 1] = va.y * scale;
@@ -163,12 +388,8 @@ __global__ void __launch_bounds__(NT) attn_o_residual_int8_kernel(
       amax0 = fmaxf(amax0, fabsf(qf[0][i]));
       amax1 = fmaxf(amax1, fabsf(qf[1][i]));
     }
-    amax0 = fmaxf(amax0, __shfl_xor_sync(0xffffffffu, amax0, 1));
-    amax0 = fmaxf(amax0, __shfl_xor_sync(0xffffffffu, amax0, 2));
-    amax1 = fmaxf(amax1, __shfl_xor_sync(0xffffffffu, amax1, 1));
-    amax1 = fmaxf(amax1, __shfl_xor_sync(0xffffffffu, amax1, 2));
-    const float qs0 = fmaxf(amax0, 1e-12f) / 127.f;
-    const float qs1 = fmaxf(amax1, 1e-12f) / 127.f;
+    const float qs0 = fmaxf(quad_max(amax0), 1e-12f) / 127.f;
+    const float qs1 = fmaxf(quad_max(amax1), 1e-12f) / 127.f;
     // A fragments: k-step kk covers columns kk*32 ..; a0/a2 row g, a1/a3
     // row g + 8; a0/a1 columns 4t.., a2/a3 columns 16 + 4t..
     uint32_t qa[2][4];
@@ -177,47 +398,44 @@ __global__ void __launch_bounds__(NT) attn_o_residual_int8_kernel(
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = (kk * 2 + half) * 4;
-        qa[kk][half * 2] =
-            pack_s8(code8(qf[0][i], qs0), code8(qf[0][i + 1], qs0),
-                    code8(qf[0][i + 2], qs0), code8(qf[0][i + 3], qs0));
-        qa[kk][half * 2 + 1] =
-            pack_s8(code8(qf[1][i], qs1), code8(qf[1][i + 1], qs1),
-                    code8(qf[1][i + 2], qs1), code8(qf[1][i + 3], qs1));
+        qa[kk][half * 2] = pack_s8(
+            (int)code8(qf[0][i], qs0), (int)code8(qf[0][i + 1], qs0),
+            (int)code8(qf[0][i + 2], qs0), (int)code8(qf[0][i + 3], qs0));
+        qa[kk][half * 2 + 1] = pack_s8(
+            (int)code8(qf[1][i], qs1), (int)code8(qf[1][i + 1], qs1),
+            (int)code8(qf[1][i + 2], qs1), (int)code8(qf[1][i + 3], qs1));
       }
     }
-    const long long kvoff = ((long long)b * H + h) * T;
-    const int8_t* kh = k8 + kvoff * D;
-    const int8_t* vh = v8 + kvoff * D;
-    const float* ksh = ks + kvoff;
-    const float* vsh = vs + kvoff;
 
+    int c[32];
     // ---- pass 1: row max m and sum l (online)
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv0 = kt * BK;
-      __syncthreads();
-      load_tile_s8(sK, sks, kh + (long long)kv0 * D, ksh + kv0, T - kv0);
-      __syncthreads();
-      float s[8][4];
-      scores_s8(s, qa, sK, sks, kv0, T, qs0, qs1, g, t4);
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int si = it % stages;
+      const uint8_t* slot = ring + (wg * stages + si) * SLOT;
+      mbar_wait(&wfull[si], (it / stages) & 1);
+      issue_scores(c, qa, reinterpret_cast<const int8_t*>(slot));
+      scores(c, reinterpret_cast<const float*>(slot + 2 * KT_BYTES), j * BN,
+             T, qs0, qs1, t4);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&wempty[si]);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        mx0 = fmaxf(mx0, fmaxf(S(4 * jn), S(4 * jn + 1)));
+        mx1 = fmaxf(mx1, fmaxf(S(4 * jn + 2), S(4 * jn + 3)));
       }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float mL0 = mx0 * L2E, mL1 = mx1 * L2E;
       float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        rs0 += expf(s[j][0] - mx0) + expf(s[j][1] - mx0);
-        rs1 += expf(s[j][2] - mx1) + expf(s[j][3] - mx1);
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        rs0 += exp_m(S(4 * jn), mL0) + exp_m(S(4 * jn + 1), mL0);
+        rs1 += exp_m(S(4 * jn + 2), mL1) + exp_m(S(4 * jn + 3), mL1);
       }
-      l0 = l0 * expf(m0 - mx0) + rs0;
-      l1 = l1 * expf(m1 - mx1) + rs1;
+      l0 = l0 * ex2((m0 - mx0) * L2E) + rs0;
+      l1 = l1 * ex2((m1 - mx1) * L2E) + rs1;
       m0 = mx0;
       m1 = mx1;
     }
@@ -225,125 +443,244 @@ __global__ void __launch_bounds__(NT) attn_o_residual_int8_kernel(
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float rl0 = 1.f / l0, rl1 = 1.f / l1;
+    const float mL0 = m0 * L2E, mL1 = m1 * L2E;
 
     // ---- pass 2: pw = (exp(s - m) / l) * vs and its row max -> ps
     float pm0 = 0.f, pm1 = 0.f;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv0 = kt * BK;
-      __syncthreads();
-      load_tile_s8(sK, sks, kh + (long long)kv0 * D, ksh + kv0, T - kv0);
-      const int i = threadIdx.x;
-      if (i < 64) svs[i] = kv0 + i < T ? vsh[kv0 + i] : 0.f;
-      __syncthreads();
-      float s[8][4];
-      scores_s8(s, qa, sK, sks, kv0, T, qs0, qs1, g, t4);
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int si = it % stages;
+      const uint8_t* slot = ring + (wg * stages + si) * SLOT;
+      mbar_wait(&wfull[si], (it / stages) & 1);
+      issue_scores(c, qa, reinterpret_cast<const int8_t*>(slot));
+      const float* sks = reinterpret_cast<const float*>(slot + 2 * KT_BYTES);
+      scores(c, sks, j * BN, T, qs0, qs1, t4);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kl = j * 8 + t4 * 2;
-        pm0 = fmaxf(pm0, fmaxf((expf(s[j][0] - m0) / l0) * svs[kl],
-                               (expf(s[j][1] - m0) / l0) * svs[kl + 1]));
-        pm1 = fmaxf(pm1, fmaxf((expf(s[j][2] - m1) / l1) * svs[kl],
-                               (expf(s[j][3] - m1) / l1) * svs[kl + 1]));
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const float2 v2 =
+            *reinterpret_cast<const float2*>(sks + BN + jn * 8 + t4 * 2);
+        pm0 = fmaxf(pm0,
+                    fmaxf(div_row(exp_m(S(4 * jn), mL0), l0, rl0) * v2.x,
+                          div_row(exp_m(S(4 * jn + 1), mL0), l0, rl0) * v2.y));
+        pm1 = fmaxf(pm1,
+                    fmaxf(div_row(exp_m(S(4 * jn + 2), mL1), l1, rl1) * v2.x,
+                          div_row(exp_m(S(4 * jn + 3), mL1), l1, rl1) * v2.y));
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&wempty[si]);
     }
-    pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 1));
-    pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 2));
-    pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 1));
-    pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 2));
-    const float ps0 = fmaxf(pm0, 1e-30f) / 127.f;
-    const float ps1 = fmaxf(pm1, 1e-30f) / 127.f;
+    const float ps0 = fmaxf(quad_max(pm0), 1e-30f) / 127.f;
+    const float ps1 = fmaxf(quad_max(pm1), 1e-30f) / 127.f;
+    const float rps0 = 1.f / ps0, rps1 = 1.f / ps1;
 
     // ---- pass 3: p8 and the PV product
-    int acc[8][4];
+    int o[32];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv0 = kt * BK;
-      __syncthreads();
-      load_tile_s8(sK, sks, kh + (long long)kv0 * D, ksh + kv0, T - kv0);
-      load_tile_s8(sV, svs, vh + (long long)kv0 * D, vsh + kv0, T - kv0);
-      __syncthreads();
-      float s[8][4];
-      scores_s8(s, qa, sK, sks, kv0, T, qs0, qs1, g, t4);
-      // p8 codes, in place of the scores
+    for (int i = 0; i < 32; ++i) o[i] = 0;
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int si = it % stages;
+      const uint8_t* slot = ring + (wg * stages + si) * SLOT;
+      mbar_wait(&wfull[si], (it / stages) & 1);
+      // also waits for the last tile's PV product, which read vt
+      issue_scores(c, qa, reinterpret_cast<const int8_t*>(slot));
+      const float* sks = reinterpret_cast<const float*>(slot + 2 * KT_BYTES);
+      scores(c, sks, j * BN, T, qs0, qs1, t4);
+      // the p8 codes as ints, in place
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kl = j * 8 + t4 * 2;
-        s[j][0] = code8((expf(s[j][0] - m0) / l0) * svs[kl], ps0);
-        s[j][1] = code8((expf(s[j][1] - m0) / l0) * svs[kl + 1], ps0);
-        s[j][2] = code8((expf(s[j][2] - m1) / l1) * svs[kl], ps1);
-        s[j][3] = code8((expf(s[j][3] - m1) / l1) * svs[kl + 1], ps1);
+      for (int jn = 0; jn < BN / 8; ++jn) {
+        const float2 v2 =
+            *reinterpret_cast<const float2*>(sks + BN + jn * 8 + t4 * 2);
+        c[4 * jn] = code8_row(
+            div_row(exp_m(S(4 * jn), mL0), l0, rl0) * v2.x, ps0, rps0);
+        c[4 * jn + 1] = code8_row(
+            div_row(exp_m(S(4 * jn + 1), mL0), l0, rl0) * v2.y, ps0, rps0);
+        c[4 * jn + 2] = code8_row(
+            div_row(exp_m(S(4 * jn + 2), mL1), l1, rl1) * v2.x, ps1, rps1);
+        c[4 * jn + 3] = code8_row(
+            div_row(exp_m(S(4 * jn + 3), mL1), l1, rl1) * v2.y, ps1, rps1);
       }
+      transpose_v(vt, reinterpret_cast<const int8_t*>(slot + KT_BYTES), tid);
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);  // vt written, the slot read by every warp
+      if (lane == 0) mbar_arrive(&wempty[si]);
+      uint32_t pa[2][4];
 #pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {  // 32 keys per k-step
-        const int j0 = kc * 4;
-        uint32_t pa[4];
-        pa[0] = pack_s8(s[j0][0], s[j0][1], s[j0 + 1][0], s[j0 + 1][1]);
-        pa[1] = pack_s8(s[j0][2], s[j0][3], s[j0 + 1][2], s[j0 + 1][3]);
-        pa[2] = pack_s8(s[j0 + 2][0], s[j0 + 2][1], s[j0 + 3][0],
-                        s[j0 + 3][1]);
-        pa[3] = pack_s8(s[j0 + 2][2], s[j0 + 2][3], s[j0 + 3][2],
-                        s[j0 + 3][3]);
-        // B rows (keys) in the same order: {2t, 2t+1, 8+2t, 9+2t} (+16)
-        const unsigned char* vr = reinterpret_cast<const unsigned char*>(
-            sV + (kc * 32 + t4 * 2) * LDB + g);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const unsigned char* p = vr + j * 8;
-          const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[LDB] << 8) |
-                              ((uint32_t)p[8 * LDB] << 16) |
-                              ((uint32_t)p[9 * LDB] << 24);
-          const uint32_t b1 = (uint32_t)p[16 * LDB] |
-                              ((uint32_t)p[17 * LDB] << 8) |
-                              ((uint32_t)p[24 * LDB] << 16) |
-                              ((uint32_t)p[25 * LDB] << 24);
-          mma_s8(acc[j], pa, b0, b1);
-        }
+      for (int kc = 0; kc < 2; ++kc) {  // 32 keys a k-step
+        const int* e = c + 16 * kc;
+        pa[kc][0] = pack_s8(e[0], e[1], e[4], e[5]);
+        pa[kc][1] = pack_s8(e[2], e[3], e[6], e[7]);
+        pa[kc][2] = pack_s8(e[8], e[9], e[12], e[13]);
+        pa[kc][3] = pack_s8(e[10], e[11], e[14], e[15]);
       }
+      const uint64_t dv = desc_sw64(vt);
+      __syncwarp();
+      wg_fence();
+      wgmma_m64n64k32_s8_rs<true>(o, pa[0], dv);
+      wgmma_m64n64k32_s8_rs<true>(o, pa[1], dv + 2);
+      wg_commit();
     }
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(o[i]);
     // ---- out_h = (float)pv * ps, rounded to bf16 into the merged tile
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = h * D + j * 8 + t4 * 2;
+    for (int jd = 0; jd < 8; ++jd) {
+      const int col = h * D + jd * 8 + t4 * 2;
       *reinterpret_cast<uint32_t*>(sA + (warp * 16 + g) * (HD + 8) + col) =
-          pack_bf16((float)acc[j][0] * ps0, (float)acc[j][1] * ps0);
+          pack_bf16((float)o[4 * jd] * ps0, (float)o[4 * jd + 1] * ps0);
       *reinterpret_cast<uint32_t*>(sA + (warp * 16 + g + 8) * (HD + 8) + col) =
-          pack_bf16((float)acc[j][2] * ps1, (float)acc[j][3] * ps1);
+          pack_bf16((float)o[4 * jd + 2] * ps1, (float)o[4 * jd + 3] * ps1);
     }
   }
-  // the two 64x80-byte int8 tiles together hold the 64x72 bf16 Wo tile
-  o_proj_residual(sA, reinterpret_cast<bf16*>(sK), x, wo, bo, out, b, q0, T,
-                  HD);
+#undef S
+  bar_sync(NWG + 1, NWG * 128);  // every head's output is in the merged tile
+
+  // ---- out = x + sA @ Wo + bo, 64 output columns a chunk: warpgroup wg
+  // the chunks wg, wg + NWG, ..., each of its 64 x 64 Wo tiles from its ring
+  const int HDP = HD + 8;
+  for (int nc = wg; nc < n_chunks; nc += NWG) {
+    float y[8][4];
+#pragma unroll
+    for (int jd = 0; jd < 8; ++jd) y[jd][0] = y[jd][1] = y[jd][2] = y[jd][3] = 0.f;
+    for (int kc = 0; kc < n_chunks; ++kc, ++it) {
+      const int si = it % stages;
+      const uint8_t* w = ring + (wg * stages + si) * SLOT;
+      mbar_wait(&wfull[si], (it / stages) & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const bf16* ar = sA + (warp * 16 + g) * HDP + kc * 64 + kk * 16 + t4 * 2;
+        uint32_t a[4];
+        a[0] = ld32(ar);
+        a[1] = ld32(ar + 8 * HDP);
+        a[2] = ld32(ar + 8);
+        a[3] = ld32(ar + 8 * HDP + 8);
+        const int k = kk * 16 + t4 * 2;
+#pragma unroll
+        for (int jd = 0; jd < 8; ++jd) {
+          const int n = jd * 8 + g;
+          mma_16816(y[jd], a, ldw(w, k, n) | ldw(w, k + 1, n) << 16,
+                    ldw(w, k + 8, n) | ldw(w, k + 9, n) << 16);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&wempty[si]);
+    }
+#pragma unroll
+    for (int jd = 0; jd < 8; ++jd) {
+      const int col = nc * 64 + jd * 8 + t4 * 2;
+      const float2 bv = unpack_bf16(ld32(bo + col));
+      if (ra < T) {
+        const long long i = ((long long)b * T + ra) * HD + col;
+        const float2 xv = unpack_bf16(ld32(x + i));
+        *reinterpret_cast<uint32_t*>(out + i) =
+            pack_bf16(xv.x + y[jd][0] + bv.x, xv.y + y[jd][1] + bv.y);
+      }
+      if (rb < T) {
+        const long long i = ((long long)b * T + rb) * HD + col;
+        const float2 xv = unpack_bf16(ld32(x + i));
+        *reinterpret_cast<uint32_t*>(out + i) =
+            pack_bf16(xv.x + y[jd][2] + bv.x, xv.y + y[jd][3] + bv.y);
+      }
+    }
+  }
 }
 
-int smem_bytes(int HD) {
-  return 2 * 64 * LDB + 2 * 64 * (int)sizeof(float) +
-         BQ * (HD + 8) * (int)sizeof(bf16);
+MapCache<64> maps;
+
+// div_row against the true division: counts the n quotients x[i] / d[i]
+// where they differ in any bit.
+__global__ void division_check_kernel(const float* __restrict__ x,
+                                      const float* __restrict__ d,
+                                      unsigned long long* bad, long long n) {
+  unsigned long long k = 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float r = 1.f / d[i];
+    k += __float_as_uint(div_row(x[i], d[i], r)) !=
+         __float_as_uint(x[i] / d[i]);
+  }
+  if (k) atomicAdd(bad, k);
 }
 
 }  // namespace
 
 // Raises the kernel's dynamic shared-memory limit to the card's opt-in
-// maximum per block. Called once, when the library is loaded.
+// maximum per block and looks the tensor-map encoder up. Called once,
+// when the library is loaded.
 extern "C" int mas_attn_o_residual_int8_init(void) {
-  return (int)allow_max_smem(attn_o_residual_int8_kernel);
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  const cudaError_t e = allow_max_smem(attn_o_residual_int8_kernel<3>);
+  return (int)(e != cudaSuccess ? e
+                                : allow_max_smem(attn_o_residual_int8_kernel<4>));
 }
 
 // q: [B, H, T, 64] bf16 view (strides sb, sh, st; unit last stride);
-// k8, v8: [B, H, T, 64] int8 contiguous; ks, vs: [B, H, T] float32
-// contiguous; x/out: [B, T, HD] contiguous bf16; wo: [HD, HD] bf16 ([in,
-// out]); bo: [HD] bf16; HD = H * 64. scale = 1/sqrt(64). Returns
+// k8, v8: [B, H, T, 64] int8 contiguous; ks, vs: [B, H, Ts] float32
+// contiguous (Ts >= T a multiple of 4; entries past T are not read);
+// x/out: [B, T, HD] contiguous bf16; wo: [HD, HD] bf16 ([in, out]); bo:
+// [HD] bf16; HD = H * 64 <= 1280; every base 16-byte aligned. scale =
+// 1/sqrt(64). Returns a cudaError_t value: a tensor map
+// cuTensorMapEncodeTiled refuses, a width past 1280, or
 // cudaGetLastError() after the launch.
 extern "C" int mas_attn_o_residual_int8(
     const void* q, long long sb, long long sh, long long st, const void* k8,
     const void* ks, const void* v8, const void* vs, const void* x,
-    const void* wo, const void* bo, void* out, int B, int H, int T, int HD,
-    float scale, void* stream) {
+    const void* wo, const void* bo, void* out, int B, int H, int T, int Ts,
+    int HD, float scale, void* stream) {
+  const int nwg = warpgroups(H);
+  const int stages = stages_for(HD, nwg);
+  if (stages < 1 || HD != H * D || T < 1 || Ts < T || Ts % 4)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t rows = (cuuint64_t)B * H;
+  CUtensorMap tk, tv, tks, tvs, tw;
+  int e = maps.get(&tk, map_spec(k8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                                 {(cuuint64_t)D, (cuuint64_t)T, rows},
+                                 {(cuuint64_t)D, (cuuint64_t)T * D},
+                                 {(cuuint32_t)D, (cuuint32_t)BN, 1u},
+                                 CU_TENSOR_MAP_SWIZZLE_64B));
+  if (e == 0)
+    e = maps.get(&tv, map_spec(v8, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                               {(cuuint64_t)D, (cuuint64_t)T, rows},
+                               {(cuuint64_t)D, (cuuint64_t)T * D},
+                               {(cuuint32_t)D, (cuuint32_t)BN, 1u},
+                               CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (e == 0)
+    e = maps.get(&tks, map_spec(ks, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                                {(cuuint64_t)Ts, rows}, {(cuuint64_t)Ts * 4},
+                                {(cuuint32_t)BN, 1u},
+                                CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (e == 0)
+    e = maps.get(&tvs, map_spec(vs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                                {(cuuint64_t)Ts, rows}, {(cuuint64_t)Ts * 4},
+                                {(cuuint32_t)BN, 1u},
+                                CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (e == 0)
+    e = maps.get(&tw, map_spec(wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                               {(cuuint64_t)HD, (cuuint64_t)HD},
+                               {(cuuint64_t)HD * 2}, {64u, 64u},
+                               CU_TENSOR_MAP_SWIZZLE_128B));
+  if (e != 0) return e;
   dim3 grid((T + BQ - 1) / BQ, B);
-  attn_o_residual_int8_kernel<<<grid, NT, smem_bytes(HD),
-                                (cudaStream_t)stream>>>(
-      (const bf16*)q, sb, sh, st, (const int8_t*)k8, (const float*)ks,
-      (const int8_t*)v8, (const float*)vs, (const bf16*)x, (const bf16*)wo,
-      (const bf16*)bo, (bf16*)out, T, H, HD, scale);
+  const size_t smem = smem_bytes(HD, nwg, stages);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nwg == 3)
+    attn_o_residual_int8_kernel<3><<<grid, 4 * 128, smem, s>>>(
+        tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
+        (const bf16*)bo, (bf16*)out, T, H, HD, stages, scale);
+  else
+    attn_o_residual_int8_kernel<4><<<grid, 5 * 128, smem, s>>>(
+        tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
+        (const bf16*)bo, (bf16*)out, T, H, HD, stages, scale);
+  return (int)cudaGetLastError();
+}
+
+// The count of x[i] / d[i] (i < n, float32 on the card) where K9's
+// division by a row's reciprocal differs from the true division, added
+// to *bad (a zeroed unsigned 64-bit counter on the card). Returns
+// cudaGetLastError() after the launch.
+extern "C" int mas_k9_division_check(const void* x, const void* d, void* bad,
+                                     long long n, void* stream) {
+  division_check_kernel<<<264, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)d, (unsigned long long*)bad, n);
   return (int)cudaGetLastError();
 }

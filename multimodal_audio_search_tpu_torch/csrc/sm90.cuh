@@ -10,6 +10,10 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <string.h>
+
+#include <initializer_list>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -125,6 +129,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// One box of a rank-3 tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a rank-2 tensor map (coordinates innermost first).
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
@@ -184,6 +200,17 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
   hi = pack_bf16(f2, f3);
 }
 
+// Moves registers between warpgroups (every warp of the warpgroup runs
+// it): a producer gives its registers back, the consumers take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ------------------------------------------------------------------ wgmma
 // Descriptor of a 128-byte swizzled operand starting at `p`: `sbo` bytes
 // between 8-row groups (1024 for a dense tile), `lbo` bytes between
@@ -195,6 +222,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The same for a 64-byte swizzled K-major operand (rows of 64 bytes, the
+// 16-byte chunks of row r XOR-swizzled by (r / 2) % 4, as TMA's
+// CU_TENSOR_MAP_SWIZZLE_64B writes them; 8 rows make one 512-byte atom, so
+// a tile starts on a 512-byte boundary). 32 bytes of K are one step.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -284,6 +321,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float d[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// Integer products: D (s32) [+]= A (s8) B (s8), 32 of K a step; A from
+// registers in the m16n8k32 A-fragment layout per warp (a[0] row g, K
+// 4t..4t+3; a[1] row g + 8; a[2], a[3] the same at K + 16), B a K-major
+// operand in shared memory. D's layout is the f32 products' (d[4j + 0..1]
+// = row g, columns 8j + 2t + 0..1; d[4j + 2..3] = row g + 8). ACC adds to
+// D, else D is overwritten. 8-bit operands are K-major only: PTX has no
+// transpose bit for them.
+template <bool ACC>
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int d[32],
+                                                      const uint32_t a[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MAS_R32
+      ", {%32, %33, %34, %35}, %37, p;\n}\n"
+      : MAS_D32("+r")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(ACC ? 1 : 0),
+        "l"(db));
+}
+
+__device__ __forceinline__ void reg_fence(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
 #undef MAS_D8
 #undef MAS_D32
 #undef MAS_D64
@@ -318,23 +379,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A rank-4 map over a bf16 [B, H, T, 64] view with element strides (sb,
-// sh, st, 1): dimensions innermost first {64, T, H, B}, box {64, rows, 1,
-// 1}, 128-byte swizzle, zeros outside. Returns a cudaError_t value.
-inline int encode_bf16_bhtd(CUtensorMap* map, const void* base, int B, int H,
-                            int T, long long sb, long long sh, long long st,
-                            int rows) {
+// A tensor map of any rank (1-5) over `base`: dims and box innermost first,
+// strides in bytes for dims 1.., zeros outside the extents. Returns a
+// cudaError_t value.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   EncodeTiledFn f = encode_tiled();
   if (f == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)T, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = f(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                       const_cast<void*>(base), dims, strides, box, unit,
-                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = f(map, type, rank, const_cast<void*>(base), dims, strides,
+                       box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -347,17 +403,69 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
                      const void* base, long long rows, long long cols,
                      long long pitch, int box_cols, int box_rows,
                      CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn f = encode_tiled();
-  if (f == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)pitch};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = f(map, type, 2, const_cast<void*>(base), dims, strides,
-                       box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, type, 2, base, dims, strides, box, swizzle);
+}
+
+// The maps of recent calls, keyed by everything a map describes, so a call
+// on buffers seen before encodes none (a map holds addresses and strides
+// only, so a hit is valid whatever the memory now holds). Each kernel
+// keeps its own cache; the oldest entry makes room for a new one.
+struct MapSpec {
+  const void* base;
+  int type, rank, swizzle;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+};
+
+template <int N>
+struct MapCache {
+  MapSpec keys[N];
+  CUtensorMap vals[N];
+  int used = 0, next = 0;
+  std::mutex lock;
+
+  int get(CUtensorMap* map, const MapSpec& k) {
+    std::lock_guard<std::mutex> guard(lock);
+    for (int i = 0; i < used; ++i)
+      if (memcmp(&keys[i], &k, sizeof(MapSpec)) == 0) {
+        *map = vals[i];
+        return 0;
+      }
+    const int e = encode_map(map, (CUtensorMapDataType)k.type, k.rank, k.base,
+                             k.dims, k.strides, k.box,
+                             (CUtensorMapSwizzle)k.swizzle);
+    if (e == 0) {
+      memcpy(&keys[next], &k, sizeof(MapSpec));  // padding bytes too
+      vals[next] = *map;
+      next = (next + 1) % N;
+      if (used < N) ++used;
+    }
+    return e;
+  }
+};
+
+// A MapSpec with every unused entry zero (the cache compares bytes).
+inline MapSpec map_spec(const void* base, CUtensorMapDataType type, int rank,
+                        std::initializer_list<cuuint64_t> dims,
+                        std::initializer_list<cuuint64_t> strides,
+                        std::initializer_list<cuuint32_t> box,
+                        CUtensorMapSwizzle swizzle) {
+  MapSpec k;
+  memset(&k, 0, sizeof(k));
+  k.base = base;
+  k.type = (int)type;
+  k.rank = rank;
+  k.swizzle = (int)swizzle;
+  int i = 0;
+  for (cuuint64_t v : dims) k.dims[i++] = v;
+  i = 0;
+  for (cuuint64_t v : strides) k.strides[i++] = v;
+  i = 0;
+  for (cuuint32_t v : box) k.box[i++] = v;
+  return k;
 }
 
 // Launches `kernel` as clusters of `cluster` blocks along x (gridDim.x a

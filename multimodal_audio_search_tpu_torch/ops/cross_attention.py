@@ -21,6 +21,7 @@ int8_fused numbers off the TPU are not the kernel's).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -194,8 +195,92 @@ def single_query_attention_int8_plain(q_m, k8, ks, v8, vs, *, heads: int,
     return (oi * (spw / l)[..., None]).reshape(b, hd)
 
 
-def _launch_int8(q_m, k8, ks, v8, vs, heads: int,
-                 n_valid: int) -> torch.Tensor:
+# K6's split-T plan: a block takes G heads of one batch row (G = 2 where H
+# is even, else 1: the H100 sweep in PERF.md), a cluster of up to
+# MAX_CLUSTER blocks one (b, G heads) row, at least KEYS_PER_BLOCK keys a
+# block where there are enough; n_valid up to MAX_T. A block asks at most
+# SMEM_LIMIT bytes (csrc/cross_attention_int8.cu's smem_bytes, mirrored
+# in int8_smem_bytes). K7's cluster_plan does not serve: K6 also picks G,
+# its blocks' shared memory and residency depend on G, and it takes
+# clusters of up to 16.
+MAX_CLUSTER, KEYS_PER_BLOCK, MAX_T = 16, 64, 12288
+SMEM_LIMIT, NT = 200 * 1024, 256
+_FIT: dict = {}
+_PLAN: dict = {}   # int8_plan by (device, n_valid, H, B), asked once
+
+
+def _align128(x: int) -> int:
+    return (x + 127) // 128 * 128
+
+
+def int8_smem_bytes(g: int, chunk: int) -> int:
+    """The dynamic shared memory of a K6 block of g heads and chunk keys
+    (csrc/cross_attention_int8.cu's smem_bytes): its V rows in whole TMA
+    boxes (later the p . V partials), the scales then logits (later its
+    oi), vs then the pw8 codes, and the query codes."""
+    nbox = -(-chunk // 256)
+    r = -(-chunk // nbox)
+    r += r % 2
+    v = max(-(-chunk // r) * r * g * 64, 4 * max(4 * NT, 64 * g))
+    p = _align128(4 * g * max(chunk, 64))
+    return _align128(v) + 2 * p + g * 64
+
+
+def int8_plan(n_valid: int, heads: int, b: int = 1, fit=None,
+              group: int | None = None,
+              cluster: int | None = None) -> tuple[int, int, int]:
+    """(G heads a block, blocks a cluster, keys a block) of K6 for n_valid
+    keys, H = heads and B = b rows: rank r takes keys [r * chunk, min(
+    n_valid, (r + 1) * chunk)), so the ranks cover every key once and a
+    rank past the end holds none. An SM pulls ~30 GB/s and holds about 8
+    blocks of a cluster launch (PERF.md), so the plan takes the largest
+    cluster whose b * heads / G clusters are all resident at once:
+    ``fit(g, c, chunk)`` is the clusters the card holds (None: no limit);
+    where none is, the most blocks that fit in shared memory. G is 2
+    where H is even (each key's 2 x 64 bytes of K and V and its two
+    scales together; G = 1 reads 4 of every 32 bytes of the [B, T, H]
+    scales, G = H is held to a cluster the card does not place at once:
+    the sweep in PERF.md), else 1. ``group`` and ``cluster`` force G and
+    the block count (the card tests and the sweep use them)."""
+    if not 1 <= n_valid <= MAX_T:
+        raise ValueError(f"K6 takes 1 <= n_valid <= {MAX_T}, got {n_valid}")
+    g = group or (2 if heads % 2 == 0 else 1)
+    if heads % g or g > 32:
+        raise ValueError(f"K6 takes G | H heads a block, G <= 32: H={heads}, "
+                         f"G={g}")
+    if cluster is not None and not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"K6 clusters hold 1..{MAX_CLUSTER} blocks, got "
+                         f"{cluster}")
+    top = min(MAX_CLUSTER, -(-n_valid // KEYS_PER_BLOCK))
+    sizes = [c for c in ([cluster] if cluster else range(top, 0, -1))
+             if int8_smem_bytes(g, -(-n_valid // c)) <= SMEM_LIMIT]
+    if not sizes:
+        raise ValueError(f"K6: no block of G={g} heads holds n_valid="
+                         f"{n_valid} keys over {cluster or MAX_CLUSTER} "
+                         f"blocks in {SMEM_LIMIT} bytes")
+    cs = next((c for c in sizes if fit is None
+               or fit(g, c, -(-n_valid // c)) >= b * heads // g), sizes[0])
+    return g, cs, -(-n_valid // cs)
+
+
+def _fit_int8(dev: torch.device):
+    """fit() for int8_plan on ``dev``, asked of the card once per shape."""
+    def fit(g: int, c: int, chunk: int) -> int:
+        key = (dev, g, c, chunk)
+        if key not in _FIT:
+            out = ctypes.c_int(0)
+            runtime.check_launch(
+                runtime.kernels().mas_single_query_attention_int8_fit(
+                    g, c, chunk, ctypes.byref(out)),
+                "mas_single_query_attention_int8_fit")
+            _FIT[key] = out.value
+        return _FIT[key]
+    return fit
+
+
+def _launch_int8(q_m, k8, ks, v8, vs, heads: int, n_valid: int,
+                 group: int | None = None,
+                 cluster: int | None = None) -> torch.Tensor:
     b, hd = q_m.shape
     t = k8.shape[1]
     if hd != heads * 64:
@@ -206,9 +291,6 @@ def _launch_int8(q_m, k8, ks, v8, vs, heads: int,
         raise ValueError(
             f"K6: q {tuple(q_m.shape)}, k8 {tuple(k8.shape)}, v8 "
             f"{tuple(v8.shape)}, ks {tuple(ks.shape)}, vs {tuple(vs.shape)}")
-    if n_valid * 4 > 48 * 1024:
-        raise ValueError(f"K6 keeps {n_valid} logits in 48 KB of shared "
-                         f"memory")
     for name, a, dt in (("q", q_m, torch.bfloat16), ("k8", k8, torch.int8),
                         ("ks", ks, torch.float32), ("v8", v8, torch.int8),
                         ("vs", vs, torch.float32)):
@@ -218,11 +300,19 @@ def _launch_int8(q_m, k8, ks, v8, vs, heads: int,
             raise ValueError(f"K6: {name} on {a.device}, k8 on {k8.device}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"K6 takes a contiguous 16-byte aligned {name}")
+    if group is None and cluster is None:   # the engine's calls: one lookup
+        key = (k8.device, n_valid, heads, b)
+        if key not in _PLAN:
+            _PLAN[key] = int8_plan(n_valid, heads, b, _fit_int8(k8.device))
+        g, cs, chunk = _PLAN[key]
+    else:
+        g, cs, chunk = int8_plan(n_valid, heads, b, _fit_int8(k8.device),
+                                 group, cluster)
     out = torch.empty((b, hd), dtype=torch.float32, device=k8.device)
     lib = runtime.kernels()
     rc = lib.mas_single_query_attention_int8(
         q_m.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), b, heads, t, n_valid,
+        vs.data_ptr(), out.data_ptr(), b, heads, t, n_valid, g, cs, chunk,
         1.0 / math.sqrt(hd // heads), runtime.stream_handle(k8.device))
     runtime.check_launch(rc, "mas_single_query_attention_int8")
     runtime.bump("single_query_attention_int8")

@@ -244,13 +244,17 @@ def _launch_int8(q, k8, ks, v8, vs, x, wo, bo):
     if q.data_ptr() % 16:
         raise ValueError("K9: q is not 16-byte aligned")
     sb, sh, st = q.stride()[:3]
+    # the kernel's TMA maps of the scales want rows of a multiple of 16
+    # bytes: a ragged T pads them (the padding is never read)
+    if t % 4:
+        ks, vs = (torch.nn.functional.pad(a, (0, 4 - t % 4)) for a in (ks, vs))
     out = torch.empty_like(x)
     lib = runtime.kernels()
     rc = lib.mas_attn_o_residual_int8(
         q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
         v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
-        bo.data_ptr(), out.data_ptr(), b, h, t, hd, 1.0 / math.sqrt(d),
-        runtime.stream_handle(x.device))
+        bo.data_ptr(), out.data_ptr(), b, h, t, ks.shape[-1], hd,
+        1.0 / math.sqrt(d), runtime.stream_handle(x.device))
     runtime.check_launch(rc, "mas_attn_o_residual_int8")
     runtime.bump("encoder_attn_o_residual_int8")
     return out

@@ -61,7 +61,8 @@ COUNTS: dict[str, int] = {
 INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
         "mas_encoder_attention_init", "mas_quant_matmul_init",
         "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
-        "mas_decoder_self_block_init")
+        "mas_decoder_self_block_init",
+        "mas_single_query_attention_int8_init")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -148,9 +149,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, ll, ll, ll,            # q and its strides
         p, p, p, p,               # k8, ks, v8, vs
         p, p, p, p,               # x, wo, bo, out
-        i, i, i, i,               # B, H, T, HD
+        i, i, i, i, i,            # B, H, T, the scales' row length, HD
         f, p]                     # scale, stream
     lib.mas_attn_o_residual_int8.restype = i
+    lib.mas_k9_division_check.argtypes = [p, p, p, ll, p]  # x, d, bad, n
+    lib.mas_k9_division_check.restype = i
     lib.mas_encoder_attention.argtypes = [
         p, p, p, ll, ll, ll,      # q, k, v and their shared strides
         p,                        # out [B, T, H, 64]
@@ -197,8 +200,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mas_single_query_attention_int8.argtypes = [
         p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
         i, i, i, i,               # B, H, T, n_valid
+        i, i, i,                  # heads a block, cluster blocks, keys a block
         f, p]                     # scale, stream
     lib.mas_single_query_attention_int8.restype = i
+    lib.mas_single_query_attention_int8_fit.argtypes = [i, i, i, p]
+    lib.mas_single_query_attention_int8_fit.restype = i
     lib.mas_int8_cached_attention.argtypes = [
         p, p, p, p, p, p,         # q, k8, ks, v8, vs, out
         i, i, i, i, i,            # B, H, T, cluster blocks, keys a block

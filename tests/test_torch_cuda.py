@@ -15,10 +15,12 @@ and k1/v1/q_cross elementwise, each with a planted fault it rejects; K5
 (int8 weights) elementwise (chip_smoke.check_k5) in both kernels of its
 plan and at forced split counts, at ragged M, N and K, float32 and bf16
 outputs, with and without a bias, and with one K split dropped; K6 and
-K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel); the
+K7 (int8 K/V) relative to the output's scale (chip_smoke.check_rel), K6
+at forced head layouts and cluster sizes with empty ranks and a dropped
+rank; the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
 output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
-edges, with planted faults;
+edges, K9 at D = 384-1280, with planted faults;
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -613,6 +615,54 @@ def test_k7_check_sees_a_dropped_rank(cuda):
             chip_smoke.INT8_ATT_L2)
 
 
+@pytest.mark.parametrize("heads", [6, 8, 12])
+@pytest.mark.parametrize("group,cluster", [(None, None), (1, 2), (2, 4),
+                                           (1, 16), ("H", 8), (2, 16)])
+@pytest.mark.parametrize("t,pos", [(1500, None), (1500, 999), (7, None),
+                                   (1501, 3)])
+def test_k6_cluster_layouts(cuda, heads, group, cluster, t, pos):
+    """K6's split-T cluster at H = 6, 8, 12 with forced head layouts and
+    cluster sizes (16 blocks over 7 or 4 keys leave ranks without keys),
+    against the plain version; one launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(t + heads)
+    args = chip_smoke.k6_inputs(gen, 3, t, heads)
+    n = t if pos is None else pos + 1
+    runtime.reset_counts()
+    got = CX._launch_int8(*args, heads, n,
+                          heads if group == "H" else group, cluster)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["single_query_attention_int8"] == 1
+    chip_smoke.check_rel(f"K6 G={group} cs={cluster}", got,
+                         CX.single_query_attention_int8_plain(
+                             *args, heads=heads, pos=pos),
+                         chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
+def test_k6_check_sees_a_dropped_rank(cuda):
+    """A planted fault: K6 at B=32, T=1500, H=8 with the plan's cluster,
+    run with the V codes of rank 1's keys zeroed, computes what a cluster
+    that left rank 1's partial out of rank 0's sum computes; chip_smoke's
+    check rejects it and passes the kernel on the true V."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(15)
+    q, k8, ks, v8, vs = chip_smoke.k6_inputs(gen, 32, 1500, 8)
+    g, cs, chunk = CX.int8_plan(1500, 8, 32, CX._fit_int8(q.device))
+    assert cs > 1
+    ref = CX.single_query_attention_int8_plain(q, k8, ks, v8, vs, heads=8)
+    chip_smoke.check_rel("K6", CX.fused_single_query_attention_int8(
+        q, k8, ks, v8, vs, heads=8), ref, chip_smoke.INT8_ATT_MAX,
+        chip_smoke.INT8_ATT_L2)
+    vd = v8.clone()
+    vd[:, chunk:2 * chunk] = 0
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_rel("K6 rank 1 dropped",
+                             CX.fused_single_query_attention_int8(
+                                 q, k8, ks, vd, vs, heads=8), ref,
+                             chip_smoke.INT8_ATT_MAX, chip_smoke.INT8_ATT_L2)
+
+
 def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
     from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
@@ -632,6 +682,10 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                   # head dim 32
         CX.fused_single_query_attention_int8(q, k8, ks.repeat(1, 1, 2), v8,
                                              vs.repeat(1, 1, 2), heads=4)
+    with pytest.raises(ValueError):                   # 3 heads a block, H=2
+        CX._launch_int8(q, k8, ks, v8, vs, 2, 16, group=3)
+    with pytest.raises(ValueError):                   # 17 blocks a cluster
+        CX._launch_int8(q, k8, ks, v8, vs, 2, 16, cluster=17)
     q, k8, ks, v8, vs = chip_smoke.k7_inputs(gen, 2, 16, 2)
     with pytest.raises(ValueError):                   # non-contiguous K
         CA.int8_cached_attention(q, k8.transpose(2, 3), ks, v8, vs)
@@ -770,6 +824,56 @@ def test_k9_k10_k11_match_plain(cuda, b, heads, t):
             assert runtime.COUNTS[key] == 1 and sum(runtime.COUNTS.values()) == 1
             assert got.dtype == torch.bfloat16 and got.shape == x.shape
             chip_smoke.check_k1(f"{name} {inputs}", got, plain(), residual)
+
+
+@pytest.mark.parametrize("heads", [6, 8, 12, 20])
+@pytest.mark.parametrize("t", [129, 1500, 1501])
+def test_k9_widths_and_ragged_t(cuda, heads, t):
+    """K9 at D = 384, 512, 768 and 1280 (the widest, one ring stage a
+    warpgroup) and at T = 129 and 1501 (a last 128-key tile of one key, a
+    last 64-row block of one row), on every K1 input; one launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(300 + t + heads)
+    for inputs, q_scale, residual in chip_smoke.K1_CASES:
+        q, k, v, x, wo, bo = chip_smoke.k1_inputs(
+            gen, 2, t, heads, q_scale=q_scale, residual=residual)
+        args9 = (q, *quantize_kv(k, v), x, wo, bo)
+        runtime.reset_counts()
+        got = EB.attention_o_residual_int8(*args9)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["encoder_attn_o_residual_int8"] == 1
+        chip_smoke.check_k1(f"K9 D={heads * 64} T={t} {inputs}", got,
+                            EB.attention_o_residual_int8_plain(*args9),
+                            residual)
+
+
+@pytest.mark.parametrize("case", ["p / l", "pw / ps"])
+def test_k9_row_division_is_the_true_division(cuda, case):
+    """K9 divides by a row's reciprocal with one correction step; over
+    1.6e7 random quotients in the ranges it divides (exp(s - m) in
+    [1e-30, 1] by a row sum l in [1, 12288]; pw in [0, 127 ps] by ps down
+    to 1e-30 / 127) every bit matches the true division (below 2^-100 the
+    quotient may leave float32's normal range, where the kernel's note
+    says why no code can move)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = 1 << 24
+    u = torch.rand(n, generator=gen, device="cuda")
+    if case == "p / l":
+        x = torch.exp(-69.0 * u)                # down to 1e-30 > 2^-100
+        d = 1.0 + 12287.0 * torch.rand(n, generator=gen, device="cuda")
+    else:
+        d = torch.exp(-69.0 * torch.rand(n, generator=gen, device="cuda")) \
+            / 127.0                             # ps in [1e-30 / 127, 1 / 127]
+        x = u * 127.0 * d
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    runtime.check_launch(runtime.kernels().mas_k9_division_check(
+        x.data_ptr(), d.data_ptr(), bad.data_ptr(), n,
+        runtime.stream_handle(x.device)), "mas_k9_division_check")
+    assert int(bad.item()) == 0
 
 
 def test_k8_check_sees_unmasked_pad_keys(cuda):

@@ -1,6 +1,6 @@
-"""K2 and K8 of one checkout of the port, timed at the main path's shapes
-beside one scaled_dot_product_attention call, for A/B runs of two
-checkouts in turns on one card.
+"""K2, K8, K1 and K9 of one checkout of the port, timed at the main path's
+shapes (K2 and K8 beside one scaled_dot_product_attention call), for A/B
+runs of two checkouts in turns on one card.
 
     python3 tools/torch_attention_ab.py --root DIR --label NAME \
         [--out chiprun_out]
@@ -16,11 +16,13 @@ the check against the plain version, and
 * ``device_ms``: torch.profiler's CUDA kernel rows over 20 calls, per call;
 * ``host_us``: wall time of 200 calls issued back to back, per call (the
   enqueue; fewer launches than the card's queue holds);
-* the same three for the library call, and the bound of the work.
+* the same three for the library call (K2, K8), and the bound of the work.
 
 Cases: K8 at B=32, T=1500, H=8 and 6 on head-split views of separate q/k/v
 dense outputs; K2 cross (B=32, T=1500, H=8) and self (B=32, L=68, pos=67)
-on merged-head K/V. Needs a CUDA card; inputs come from a seeded
+on merged-head K/V; K1 and K9 (the encoder block, bf16 and int8 dots) at
+B=32, T=1500 and D = 384, 512, 768, 1280 on chip_smoke's residual input,
+K9 on quantize_kv's codes (``--kernels`` keeps the named kernels). Needs a CUDA card; inputs come from a seeded
 torch.Generator.
 """
 from __future__ import annotations
@@ -60,7 +62,10 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None,
                     help="directory for a copy of the JSON lines")
+    ap.add_argument("--kernels", default="K8,K2,K1,K9",
+                    help="comma-separated kernels to time")
     args = ap.parse_args()
+    only = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs = load_chip_smoke()
@@ -68,6 +73,9 @@ def main() -> int:
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import attention as A
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
     runtime.select_device("cuda")
     t0 = time.perf_counter()
     runtime.kernels()
@@ -87,7 +95,7 @@ def main() -> int:
         return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
 
     b, t, d = 32, 1500, 64
-    for heads in (8, 6):
+    for heads in (8, 6) if "K8" in only else ():
         q, k, v = (rn(b, t, heads * d).view(b, t, heads, d).transpose(1, 2)
                    for _ in range(3))
         fn = (lambda: A.fused_encoder_attention(q, k, v))
@@ -102,7 +110,8 @@ def main() -> int:
         del q, k, v
     heads = 8
     hd = heads * d
-    for label, t, pos in (("cross", 1500, None), ("self", 68, 67)):
+    for label, t, pos in (("cross", 1500, None), ("self", 68, 67)) \
+            if "K2" in only else ():
         q, k, v = rn(b, hd), rn(b, t, hd), rn(b, t, hd)
         n = t if pos is None else pos + 1
         fn = (lambda: K2.fused_single_query_attention(q, k, v, heads=heads,
@@ -124,6 +133,42 @@ def main() -> int:
         row["tbps"] = 2 * b * n * hd * 2 / row["device_ms"] / 1e9
         rows.append(row)
         print(json.dumps(row), flush=True)
+    t = 1500
+    for heads in (8, 6, 12, 20):
+        a = cs.k1_inputs(gen, b, t, heads)
+        a9 = (a[0], *quantize_kv(a[1], a[2]), *a[3:])
+        for key, fn, plain in (
+                ("K1", lambda: EB.fused_attention_o_residual(*a),
+                 lambda: EB.attention_o_residual_plain(*a)),
+                ("K9", lambda: EB.attention_o_residual_int8(*a9),
+                 lambda: EB.attention_o_residual_int8_plain(*a9))):
+            if key not in only:
+                continue
+            row = {"label": args.label, "kernel": key,
+                   "shape": f"B={b} T={t} H={heads} D={heads * d}",
+                   **cs.check_k1(f"{key} H={heads}", fn(), plain(), True),
+                   "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn),
+                   "host_us": cs.host_us(fn, n=20),
+                   **cs.attn_o_bound(b, t, heads, int8=key == "K9")}
+            if key == "K9":
+                # the other layout for PV's K-major V: the wrapper writing
+                # v8 as [B, H, 64, T] with each 32-key step in the kernel's
+                # contraction order, one gather and one transposed copy
+                # (its extra pass over v8, timed alone)
+                perm = torch.tensor([k // 32 * 32 + k % 32 // 16 * 16
+                                     + k % 16 // 4 * 2 + k % 2
+                                     + 8 * (k % 4 // 2)
+                                     for k in range(t // 32 * 32)]
+                                    + list(range(t // 32 * 32, t)),
+                                    device="cuda")
+                v8 = a9[3]
+                row["v_transposed_copy_ms"] = cs.time_ms(
+                    lambda: v8.index_select(2, perm).transpose(2, 3)
+                    .contiguous())
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del a, a9
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "attention_ab.jsonl"), "a") as f:

@@ -23,8 +23,9 @@ checkout's chip_smoke.py. For each case it prints one JSON line: the card
 Cases: K3 and K3-q at B=32, L=68, pos 67 and both chip_smoke.DEC_WIDTHS;
 K3 at whisper-small's (D=768, H=12) and large's (D=1280, H=20) widths
 and at base width with B=128; K6 and K7 at B=32, T=1500, H=8 and H=6 (K6
-over every key); K5 at every chip_smoke.K5_SHAPES entry (a decode step's layers,
-the tied logits, the cross K/V projection over 48,000 rows, both
+over every key and over keys 0..chip_smoke.K6_POS); K5 at every
+chip_smoke.K5_SHAPES entry (a decode step's layers, the tied logits,
+the cross K/V projection over 48,000 rows, both
 widths; where the checkout has a logits table, the logits on it and
 again on the codes, ``logits_skinny`` or ``logits_copy`` as the plan
 runs them); K4, K4-o and K14 at B=32 and both chip_smoke.DEC_WIDTHS;
@@ -146,20 +147,24 @@ def main() -> int:
     for label, heads in (("base", 8), ("tiny", 6)):
         if want("K6"):
             a = cs.k6_inputs(gen, b, t, heads)
-            fn = (lambda: CX.fused_single_query_attention_int8(
-                *a, heads=heads))
-            row = {"label": args.label, "kernel": "K6",
-                   "shape": f"{label} B={b} T={t} H={heads} pos=None",
-                   **cs.check_rel(
-                       f"K6 {label}", fn(),
-                       CX.single_query_attention_int8_plain(*a, heads=heads),
-                       cs.INT8_ATT_MAX, cs.INT8_ATT_L2),
-                   **timings(fn, lambda: CX.single_query_attention_int8_plain(
-                       *a, heads=heads)),
-                   **cs.bound(cs.nbytes(*a) + b * heads * 64 * 4,
-                              int8=4 * b * t * heads * 64)}
-            row["gbps"] = cs.nbytes(*a) / row["device_ms"] / 1e6
-            emit(row)
+            for pos in (None, cs.K6_POS):
+                n = t if pos is None else pos + 1
+                fn = (lambda: CX.fused_single_query_attention_int8(
+                    *a, heads=heads, pos=pos))
+                plain = (lambda: CX.single_query_attention_int8_plain(
+                    *a, heads=heads, pos=pos))
+                row = {"label": args.label, "kernel": "K6",
+                       "shape": f"{label} B={b} T={t} H={heads} pos={pos}",
+                       **({"plan": CX.int8_plan(n, heads, b, CX._fit_int8(
+                           a[0].device))} if hasattr(CX, "int8_plan") else {}),
+                       **cs.check_rel(f"K6 {label} pos={pos}", fn(), plain(),
+                                      cs.INT8_ATT_MAX, cs.INT8_ATT_L2),
+                       **timings(fn, plain),
+                       **cs.bound(cs.nbytes(a[0]) + 2 * b * n * heads * 68
+                                  + b * heads * 64 * 4,
+                                  int8=4 * b * n * heads * 64)}
+                row["gbps"] = 2 * b * n * heads * 68 / row["device_ms"] / 1e6
+                emit(row)
             del a
         if want("K7"):
             a = cs.k7_inputs(gen, b, t, heads)
