@@ -10,9 +10,11 @@ Phases, one line each (``[phase] ...``):
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
    seconds and ptxas resource lines.
 3. kernels against their plain PyTorch versions on the card, at the
-   shapes the main paths give them: K1 at B=32, T=1500, (H, D) = (8, 64)
-   (whisper-base) and (6, 64) (whisper-tiny), each on a residual input
-   and on two inputs that isolate the attention term (K1_CASES); K2
+   shapes the main paths give them: K1 (the encoder block on wgmma + TMA,
+   a thread-block cluster over the heads, csrc/encoder_block_wgmma.cu) at
+   B=32, T=1500, (H, D) = (8, 64) (whisper-base) and (6, 64)
+   (whisper-tiny), each on a residual input and on two inputs that
+   isolate the attention term (K1_CASES), with its cluster plan; K2
    cross at B=32, T=1500, H=8 and K2 self at B=32, L=68, pos in {0, 3,
    67}; K3 and K3-q at B=32, L=68, pos in K3_POS, K4 and K4-o at B=32,
    each at both model widths, on inputs whose block term dominates the
@@ -25,7 +27,8 @@ Phases, one line each (``[phase] ...``):
    B=32, T=1500, H=8 and H=6 (K7 with its cluster plan, device ms and
    host us); the encoder variants K8 (per-head attention on wgmma
    and TMA, csrc/encoder_attention.cu), K9 (int8
-   dots) and K10 (head pairs) at B=32, T=1500 and both widths, and K11's
+   dots) and K10 (head pairs, K1's cluster kernel with one TMA fetch a
+   pair) at B=32, T=1500 and both widths, and K11's
    three forms of the softmax division at base width, on K1's inputs;
    K12 (fused search scores) at N=1M and N=1027 in float32 and bf16 and
    on the validity-rule rows, K13 (streaming read) on a 64 MiB slab and
@@ -38,8 +41,9 @@ Phases, one line each (``[phase] ...``):
    one torch.sum per pass). K2 and K8 and their yardsticks also carry
    ``device_ms`` (torch.profiler's CUDA kernel rows over 20 calls), K2
    its split count and ``host_us`` (the wrapper's enqueue time a call),
-   and K8's line its mechanism: the wgmma, TMA and mbarrier instructions
-   counted in its SASS (cuobjdump), which must all be there.
+   and the lines of K1, K8, K9 and K10 their mechanism: the wgmma, TMA
+   and mbarrier instructions counted in their SASS (cuobjdump), which must
+   all be there.
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
    config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
@@ -103,11 +107,14 @@ SR = 16000
 #   same with q scaled by 3): out is y alone, held to the plain y relative
 #   to its own scale: max |err| <= K1_Y_MAX * max |y_ref| and
 #   ||err|| <= K1_Y_L2 * ||y_ref||. A float32 emulation of the kernel's
-#   roundings at T=1500 reads 0.44 % and 0.33 %; the 36 zero-padded keys
-#   of the last 64-key tile left unmasked read 1.75 % and 1.47 % on the
-#   "attention" input, and a missing 1/l reads over 300 %
-#   (tests/test_torch_kernels.py and tests/test_torch_cuda.py plant these
-#   faults and show the check rejects them).
+#   roundings (its 128-key tiles and cluster, tests/test_torch_k1_wgmma.py)
+#   at T=1500 reads 0.46 % and 0.32 %; the 36 zero-padded keys of the
+#   last 128-key tile left unmasked read 1.37 % and 1.47 % on the
+#   "attention" input, a rank's heads missing from the merged tile or
+#   read before the cluster barrier over 70 %, and a missing 1/l over
+#   300 % (tests/test_torch_kernels.py, tests/test_torch_k1_wgmma.py and
+#   tests/test_torch_cuda.py plant these faults and show the check
+#   rejects them).
 K1_ATOL, K1_RTOL = 1e-2, 1.6e-2
 K1_Y_MAX, K1_Y_L2 = 1e-2, 7e-3
 # (label, q scale, residual)
@@ -835,11 +842,20 @@ def int8_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
     return [k5, k6, k7]
 
 
+def cluster_case(b: int, t: int, heads: int, pair: bool = False) -> dict:
+    """K1's (K10's) cluster plan at this shape: blocks a cluster, the
+    heads of each rank, and how many such clusters the card holds."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    cs = EB._card_plan(heads, b, t, pair)
+    return {"cluster": cs, "clusters_held": EB.cluster_fit(cs, pair),
+            "rank_heads": EB.cluster_ranks(heads, cs, pair)}
+
+
 def wgmma_mechanism(name: str, function: str, mma: str = "HGMMA") -> dict:
     """A kernel's instructions in the built library: its warpgroup
     products (HGMMA for floats, IGMMA for int8), TMA tensor loads (UTMALDG)
-    and mbarrier operations (SYNCS). Raises unless it has all three: K8
-    and K9 run their products on wgmma fed by TMA only."""
+    and mbarrier operations (SYNCS). Raises unless it has all three: K1,
+    K8, K9 and K10 run their products on wgmma fed by TMA only."""
     counts = sass_counts(function, (mma, "UTMALDG", "SYNCS"))
     if not all(counts.values()):
         raise AssertionError(f"{name}'s SASS lacks wgmma/TMA/mbarrier "
@@ -871,8 +887,11 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                    "K9", "attn_o_residual_int8_kernel", "IGMMA"),
                "cases": []},
         "K10": {"name": "encoder_attn_o_residual_paired", "route": "cuda",
-                "source": f"{pkg}/encoder_block.cu",
-                "replaces": f"{jx}/encoder_block.py:375", "cases": []},
+                "source": f"{pkg}/encoder_block_wgmma.cu",
+                "replaces": f"{jx}/encoder_block.py:375",
+                "mechanism": wgmma_mechanism("K10",
+                                             "encoder_block_paired_kernel"),
+                "cases": []},
         "K11": {"name": "encoder_attn_o_residual_ab", "route": "cuda",
                 "source": f"{pkg}/encoder_block.cu",
                 "replaces": "tools/profile_encoder_kernel_ab.py:118",
@@ -909,6 +928,8 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                         "inputs": inputs, **err}
                 if name.startswith("K11"):
                     case["defer_div"] = name.split()[1]
+                if key == "K10":
+                    case.update(cluster_case(b, t, heads, True))
                 if residual:
                     case["ms"] = time_ms(fused)
                     case["plain_ms"] = time_ms(plain, reps=5)
@@ -956,8 +977,10 @@ def kernel_phase(card: str, gen: torch.Generator):
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
     k1 = {"name": "encoder_attn_o_residual", "route": "cuda",
-          "source": "multimodal_audio_search_tpu_torch/csrc/encoder_block.cu",
+          "source": "multimodal_audio_search_tpu_torch/csrc/"
+                    "encoder_block_wgmma.cu",
           "replaces": "multimodal_audio_search_tpu/ops/encoder_block.py:425",
+          "mechanism": wgmma_mechanism("K1", "encoder_block_kernel"),
           "cases": []}
     for heads, label in ((8, "base"), (6, "tiny")):
         b, t, d = 32, 1500, 64
@@ -968,7 +991,7 @@ def kernel_phase(card: str, gen: torch.Generator):
             ref = K1.attention_o_residual_plain(*args)
             torch.cuda.synchronize()
             case = {"shape": f"{label} B={b} T={t} H={heads} D={d}",
-                    "inputs": inputs,
+                    "inputs": inputs, **cluster_case(b, t, heads),
                     **check_k1(f"K1 {label} {inputs}", got, ref, residual)}
             if residual:
                 ms = time_ms(lambda: K1.fused_attention_o_residual(*args))

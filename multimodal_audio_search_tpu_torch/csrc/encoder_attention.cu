@@ -61,116 +61,14 @@
 namespace {
 
 using namespace sm90;
+using namespace sm90::fa;  // D, BM, BN, NS and the loop's pieces
 
-constexpr int D = 64;
-constexpr int BM = 128;  // query rows per block
-constexpr int BN = 128;  // keys per K/V tile
 constexpr int STAGES = 3;
 constexpr int NT = 288;  // two consumer warpgroups + one producer warp
 constexpr int TILE = BN * D;                        // elements of one tile
 constexpr int TILE_BYTES = TILE * (int)sizeof(bf16);  // 16 KB
 constexpr int SMEM_BYTES =
     1024 + (BM * D + 2 * STAGES * TILE) * (int)sizeof(bf16) + 128;
-constexpr int NS = BN / 2;  // score accumulators a thread (two rows)
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// exp2 on the SM's MUFU unit (2 ulp; flushes results below 2^-126 to 0,
-// far below what a bf16 p or an f32 row sum resolves)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// named barriers 1 and 2 order the two consumer warpgroups' products
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// S = Q K^T over a tile's BN keys, 16 of the head dim per product.
-__device__ __forceinline__ void issue_scores(float s[NS], uint64_t dq,
-                                             uint64_t dk) {
-  wgmma_m64n128k16_ss<false>(s, dq, dk);
-#pragma unroll
-  for (int kk = 1; kk < 4; ++kk)
-    wgmma_m64n128k16_ss<true>(s, dq + 2 * kk, dk + 2 * kk);
-}
-
-// O += P V over a tile's BN keys: 16 keys (two 1024-byte row groups of
-// V) per product.
-__device__ __forceinline__ void issue_pv(float o[32], const uint32_t pa[NS / 2],
-                                         uint64_t dv) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_m64n64k16_rs_mn(o, &pa[4 * kk], dv + kk * (2048 >> 4));
-}
-
-// One online-softmax step on the tile's scores (keys kv0 ..): keys >= T
-// set to -inf, s -> p = exp2(s * scale_log2 - m_new) in place, the row
-// sums l of the unrounded p updated, c = exp2(m_old - m_new) returned for
-// the output's rescale. Every tile holds a key < T, so the new maxima are
-// finite and exp2(-inf - m) = 0 rescales the empty first state.
-__device__ __forceinline__ void softmax_step(float s[NS], int kv0, int T,
-                                             int t4, float scale_log2,
-                                             float& m0, float& m1, float& l0,
-                                             float& l1, float& c0, float& c1) {
-  if (kv0 + BN > T) {
-#pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn) {
-      const int key = kv0 + jn * 8 + 2 * t4;
-      if (key >= T) s[4 * jn] = s[4 * jn + 2] = -INFINITY;
-      if (key + 1 >= T) s[4 * jn + 1] = s[4 * jn + 3] = -INFINITY;
-    }
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int jn = 0; jn < BN / 8; ++jn) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * jn], s[4 * jn + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * jn + 2], s[4 * jn + 3]));
-  }
-  const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
-  const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
-  c0 = ex2(m0 - mn0);
-  c1 = ex2(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int jn = 0; jn < BN / 8; ++jn) {
-    s[4 * jn] = ex2(fmaf(s[4 * jn], scale_log2, -m0));
-    s[4 * jn + 1] = ex2(fmaf(s[4 * jn + 1], scale_log2, -m0));
-    s[4 * jn + 2] = ex2(fmaf(s[4 * jn + 2], scale_log2, -m1));
-    s[4 * jn + 3] = ex2(fmaf(s[4 * jn + 3], scale_log2, -m1));
-    rs0 += s[4 * jn] + s[4 * jn + 1];
-    rs1 += s[4 * jn + 2] + s[4 * jn + 3];
-  }
-  l0 = l0 * c0 + rs0;
-  l1 = l1 * c1 + rs1;
-}
-
-// P in bf16 as wgmma A fragments: keys 16kk .. 16kk + 15 are the score
-// chunks 2kk and 2kk + 1 (the accumulator and A layouts agree).
-__device__ __forceinline__ void pack_p(uint32_t pa[NS / 2], const float s[NS]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    pa[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
 
 __global__ void __launch_bounds__(NT, 1) encoder_attention_kernel(
     const __grid_constant__ CUtensorMap tq,

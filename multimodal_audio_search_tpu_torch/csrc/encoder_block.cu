@@ -1,16 +1,17 @@
-// The bf16 encoder attention + o-projection kernels, one flash-attention
-// loop shared by:
+// K11: the encoder attention + o-projection with the softmax division
+// placed three ways, on a flash loop of mma.sync tiles. Replaces the A/B
+// copy tools/profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2 :48,
+// pallas_call :118).
 //
-// K1  out = x + (softmax(Q K^T / sqrt(D)) V, heads merged) @ Wo + bo.
-//     Replaces multimodal_audio_search_tpu/ops/encoder_block.py::
-//     fused_attention_o_residual (body _attn_o_kernel, pallas_call :425).
-// K10 K1's function over head pairs. Replaces the same wrapper's
-//     pair_heads=True form (body _attn_o_kernel_paired, pallas_call :375).
-// K11 K1 with the softmax division placed three ways. Replaces the A/B
-//     copy tools/profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2
-//     :48, pallas_call :118).
+// K1 (the default encoder block) and K10 (its head-paired form) ran on
+// this loop too; they moved to encoder_block_wgmma.cu (wgmma fed by TMA,
+// a thread-block cluster over the heads). K11 is the next kernel to move
+// onto that loop.
 //
-// What bounds them on an H100: tensor-core work. At the main-path shape
+// Function: out = x + (softmax(Q K^T / sqrt(D)) V, heads merged) @ Wo +
+// bo, with the softmax division as the form says.
+//
+// What bounds it on an H100: tensor-core work. At the main-path shape
 // (B=32, T=1500, H=8, D=64) attention is ~147 GFLOP and the o-projection
 // ~25 GFLOP, against ~0.15-0.2 GB of q/k/v/x/out traffic, far above the
 // card's ~295 FLOP/byte balance point.
@@ -29,33 +30,21 @@
 //     computed on zero queries and never stored.
 //   * P is rounded to bf16 before the PV product, as the TPU kernels cast
 //     p to the V dtype. Where the division by the row sum l goes is the
-//     template's Form: RECIP multiplies the [16, 64] output by 1/l (K1,
-//     K10, and K11's "post": the TPU A/B's x 1/l after the head concat,
-//     the same per-element product); DIV divides it by l (K11's True);
-//     NORM divides P by l before
-//     the PV product (K11's False, the TPU kernel's default at T=1500),
-//     which needs l first: a first pass over K finds the row max and sum,
-//     a second recomputes S and forms P / l.
-//   * K1/K10/K11 round each head's output to bf16 into a [64, H*D]
-//     shared-memory tile (the TPU kernel's attn.astype(wo.dtype)); after
-//     the last head the same block computes tile @ Wo + bo + x
-//     (encoder_common.cuh), which keeps the merged attention output out of
-//     device memory.
-//   * K10 handles two heads per pass: 32-key tiles of 128 columns (both
-//     heads' 64, 256-byte row slices of the merged q/k/v dense outputs)
-//     and a [16, 2 x 64] output per warp; the two online softmaxes run on
-//     the two halves of each [16, 2 x 32] score tile. The TPU's reason
-//     for pairing -- filling the MXU's 128-deep contraction -- has no
-//     counterpart in mma.sync, which contracts 16 at a time; the
-//     block-diagonal zeros of the TPU wrapper's packing are never formed.
-// Shared memory: 2 x 64x72 bf16 K/V tiles (K10: 2 x 32x136) + the
-// 64 x (H*D+8) bf16 tile = 83 KB at base width (H*D=512), above the 48 KB
-// default, so mas_attn_o_residual_init raises the dynamic shared-memory
-// limit once, when the library loads. Rows are padded by 8 bf16 so the
-// fragment reads are free of bank conflicts.
-// K8, the per-head attention without the o-projection, moved onto wgmma
-// and TMA in encoder_attention.cu. Later work (ROADMAP): K1, K10 and K11
-// onto that loop.
+//     template's Form: RECIP multiplies the [16, 64] output by 1/l (the
+//     TPU A/B's "post": x 1/l after the head concat, the same
+//     per-element product); DIV divides it by l (the A/B's True); NORM
+//     divides P by l before the PV product (the A/B's False, the TPU
+//     kernel's default at T=1500), which needs l first: a first pass over
+//     K finds the row max and sum, a second recomputes S and forms P / l.
+//   * Each head's output is rounded to bf16 into a [64, H*D] shared-memory
+//     tile (the TPU kernel's attn.astype(wo.dtype)); after the last head
+//     the same block computes tile @ Wo + bo + x (encoder_common.cuh),
+//     which keeps the merged attention output out of device memory.
+// Shared memory: 2 x 64x72 bf16 K/V tiles + the 64 x (H*D+8) bf16 tile =
+// 83 KB at base width (H*D=512), above the 48 KB default, so
+// mas_attn_o_residual_init raises the dynamic shared-memory limit once,
+// when the library loads. Rows are padded by 8 bf16 so the fragment reads
+// are free of bank conflicts.
 #include "encoder_common.cuh"
 
 namespace {
@@ -63,9 +52,6 @@ namespace {
 using namespace enc;
 
 enum Form { RECIP = 0, DIV = 1, NORM = 2 };
-
-constexpr int PBK = 32;         // keys per K10 tile
-constexpr int PLD = 2 * D + 8;  // padded row stride of K10's 128-wide tiles
 
 // Q fragments (A operand, 16 rows x 64) of one head for this warp's rows
 // ra and rb = ra + 8; zero past T.
@@ -275,7 +261,7 @@ __device__ __forceinline__ void store_head(bf16* sA, int HDP, int col0,
   }
 }
 
-// K1 (FORM = RECIP) and K11 (all three forms).
+// K11, each of its three forms.
 template <int FORM>
 __global__ void __launch_bounds__(NT) attn_o_residual_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -301,86 +287,6 @@ __global__ void __launch_bounds__(NT) attn_o_residual_kernel(
   o_proj_residual(sA, sK, x, wo, bo, out, b, q0, T, HD);
 }
 
-// [32 keys x 128 cols] bf16 tile: cols 0..63 from g0 (head 2p), 64..127
-// from g1 (head 2p+1), both with row stride ld; rows >= nrows zero-filled.
-__device__ __forceinline__ void load_pair_tile(bf16* s, const bf16* g0,
-                                               const bf16* g1, long long ld,
-                                               int nrows) {
-  for (int i = threadIdx.x; i < PBK * 16; i += NT) {
-    const int r = i >> 4, c = (i & 15) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      v = *reinterpret_cast<const uint4*>((c < D ? g0 : g1) + r * ld +
-                                          (c & (D - 1)));
-    *reinterpret_cast<uint4*>(s + r * PLD + c) = v;
-  }
-}
-
-// K10: heads 2p and 2p+1 per pass, K1's roundings (RECIP).
-__global__ void __launch_bounds__(NT) attn_o_residual_paired_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, long long sb, long long sh, long long st,
-    const bf16* __restrict__ x, const bf16* __restrict__ wo,
-    const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
-    int HD, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [PBK][PLD]
-  bf16* sV = sK + PBK * PLD;                     // [PBK][PLD]
-  bf16* sA = sV + PBK * PLD;                     // [BQ][HD + 8]
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int ra = q0 + (threadIdx.x >> 5) * 16 + g, rb = ra + 8;
-  const int n_tiles = (T + PBK - 1) / PBK;
-  for (int p = 0; p < H / 2; ++p) {
-    const long long off0 = b * sb + (2 * p) * sh, off1 = off0 + sh;
-    uint32_t qa[2][4][4];
-    load_q(qa[0], q + off0, st, T, ra, rb, t4);
-    load_q(qa[1], q + off1, st, T, ra, rb, t4);
-    float o[2][8][4];
-    float m[2][2], l[2][2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        o[e][j][0] = o[e][j][1] = o[e][j][2] = o[e][j][3] = 0.f;
-      m[e][0] = m[e][1] = -INFINITY;
-      l[e][0] = l[e][1] = 0.f;
-    }
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int kv0 = kt * PBK;
-      __syncthreads();
-      load_pair_tile(sK, k + off0 + kv0 * st, k + off1 + kv0 * st, st,
-                     T - kv0);
-      load_pair_tile(sV, v + off0 + kv0 * st, v + off1 + kv0 * st, st,
-                     T - kv0);
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {  // the two halves of the score tile
-        float s[4][4];
-        scores<4>(s, qa[e], sK + e * D, PLD, kv0, T, scale_log2, g, t4);
-        online_step<4>(s, o[e], m[e][0], m[e][1], l[e][0], l[e][1]);
-        pv<4>(o[e], s, sV + e * D, PLD, g, t4);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float i0 = 1.f / quad_sum(l[e][0]), i1 = 1.f / quad_sum(l[e][1]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[e][j][0] *= i0;
-        o[e][j][1] *= i0;
-        o[e][j][2] *= i1;
-        o[e][j][3] *= i1;
-      }
-      store_head(sA, HD + 8, (2 * p + e) * D, o[e]);
-    }
-  }
-  // the 32x136 K and V tiles together hold the 64x72 Wo tile
-  o_proj_residual(sA, sK, x, wo, bo, out, b, q0, T, HD);
-}
-
 template <int FORM>
 int launch_attn_o(const void* q, const void* k, const void* v, long long sb,
                   long long sh, long long st, const void* x, const void* wo,
@@ -397,33 +303,22 @@ int launch_attn_o(const void* q, const void* k, const void* v, long long sb,
 
 }  // namespace
 
-// Raises the kernels' dynamic shared-memory limit to the current card's
-// opt-in maximum per block. Called once, when the library is loaded.
+// Raises K11's dynamic shared-memory limit to the current card's opt-in
+// maximum per block. Called once, when the library is loaded.
 extern "C" int mas_attn_o_residual_init(void) {
   cudaError_t e = allow_max_smem(attn_o_residual_kernel<RECIP>);
   if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_kernel<DIV>);
   if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_kernel<NORM>);
-  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_paired_kernel);
   return (int)e;
 }
 
-// K1. q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with
+// K11. q/k/v: [B, H, T, 64] bf16 views sharing strides (sb, sh, st) with
 // unit stride on the last dim; x/out: [B, T, HD] contiguous bf16; wo:
 // [HD, HD] row-major bf16 ([in, out]); bo: [HD] bf16. HD = H * 64, a
-// multiple of 64. Returns cudaGetLastError() after the launch; a width
-// whose shared memory exceeds the card's per-block limit fails the launch.
-extern "C" int mas_attn_o_residual(const void* q, const void* k,
-                                   const void* v, long long sb, long long sh,
-                                   long long st, const void* x,
-                                   const void* wo, const void* bo, void* out,
-                                   int B, int H, int T, int HD,
-                                   float scale_log2, void* stream) {
-  return launch_attn_o<RECIP>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
-                              HD, scale_log2, stream);
-}
-
-// K11: K1's arguments plus the form of the softmax division: 0 = x 1/l
-// after PV ("post"), 1 = / l after PV (True), 2 = P / l before PV (False).
+// multiple of 64. form: the softmax division, 0 = x 1/l after PV
+// ("post"), 1 = / l after PV (True), 2 = P / l before PV (False). Returns
+// cudaGetLastError() after the launch; a width whose shared memory
+// exceeds the card's per-block limit fails the launch.
 extern "C" int mas_attn_o_residual_ab(const void* q, const void* k,
                                       const void* v, long long sb,
                                       long long sh, long long st,
@@ -444,21 +339,4 @@ extern "C" int mas_attn_o_residual_ab(const void* q, const void* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// K10: K1's arguments; H even.
-extern "C" int mas_attn_o_residual_paired(const void* q, const void* k,
-                                          const void* v, long long sb,
-                                          long long sh, long long st,
-                                          const void* x, const void* wo,
-                                          const void* bo, void* out, int B,
-                                          int H, int T, int HD,
-                                          float scale_log2, void* stream) {
-  const int smem = (2 * PBK * PLD + BQ * (HD + 8)) * (int)sizeof(bf16);
-  dim3 grid((T + BQ - 1) / BQ, B);
-  attn_o_residual_paired_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, sb, sh, st,
-      (const bf16*)x, (const bf16*)wo, (const bf16*)bo, (bf16*)out, T, H, HD,
-      scale_log2);
-  return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Shared pieces of the encoder attention kernels (K1, K8-K11): the 64-row
-// tiling, the bf16 tile loader and the o-projection + residual epilogue
-// that K1, K10 and K11 end with (K9 has its own, its Wo tiles fed by TMA).
+// Shared pieces of the encoder attention kernels on mma.sync (K9, K11):
+// the 64-row tiling, the bf16 tile loader and the o-projection + residual
+// epilogue that K11 ends with (K9 has its own, its Wo tiles fed by TMA).
 #pragma once
 
 #include "common.cuh"

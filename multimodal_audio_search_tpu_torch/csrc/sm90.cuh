@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
 // copies and their tensor maps, asynchronous copies, ldmatrix, the exact
-// int8 -> bf16 conversion, and the warpgroup matrix products (wgmma) with
-// their shared-memory descriptors.
+// int8 -> bf16 conversion, the warpgroup matrix products (wgmma) with
+// their shared-memory descriptors, and the flash-attention loop's pieces
+// on them (namespace fa).
 //
 // Operands of wgmma live in shared memory in the layout a TMA copy with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes (64 bf16), the
@@ -152,10 +153,50 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a rank-3 tensor map from shared memory (a TMA store: parts
+// of the box outside the map's extents are not written); the copy joins
+// this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The two halves of a thread-block cluster barrier (every thread of every
+// block of the cluster arrives; the wait returns once all have): arrive
+// releases this thread's earlier memory operations to the cluster, wait
+// acquires the others'. Each is executed by all threads of a warp
+// together.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Closes this thread's bulk group, then waits until every bulk copy it
+// committed has read its shared memory (which may then be reused or
+// released).
+__device__ __forceinline__ void bulk_commit_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Makes this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma operands, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Makes this thread's ordinary global-memory stores visible to the async
+// proxy, so a TMA load issued after a barrier that orders it behind them
+// (a cluster barrier, for a peer block's loads) reads what they wrote.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- ldmatrix
@@ -351,6 +392,124 @@ __device__ __forceinline__ void reg_fence(int& r) {
 #undef MAS_R32
 #undef MAS_R64
 
+// ----------------------------------------- flash attention on wgmma (fa)
+// The pieces of the encoder's attention loop on Hopper (K8 in
+// encoder_attention.cu; K1 and K10 in encoder_block_wgmma.cu): a consumer
+// warpgroup holds 64 query rows of one head, Q and 128-key K/V tiles
+// arrive in shared memory by TMA with the 128-byte swizzle, S = Q K^T is
+// four wgmma m64n128k16 from shared memory, the online softmax runs in
+// registers in the log2 domain, and P goes back into the tensor cores as
+// register A fragments for O += P V (V as the MN-major B operand).
+namespace fa {
+
+constexpr int D = 64;       // head dim
+constexpr int BM = 128;     // query rows a block (two warpgroups of 64)
+constexpr int BN = 128;     // keys a K/V tile
+constexpr int NS = BN / 2;  // score accumulators a thread (two rows)
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp2 on the SM's MUFU unit (2 ulp; flushes results below 2^-126 to 0,
+// far below what a bf16 p or an f32 row sum resolves)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers 1 and 2 order the two consumer warpgroups' products
+// (ping-pong: a warpgroup syncs on 1 + wg before it issues and arrives on
+// 2 - wg after, so one's softmax meets the other's products)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// S = Q K^T over a tile's BN keys, 16 of the head dim per product.
+__device__ __forceinline__ void issue_scores(float s[NS], uint64_t dq,
+                                             uint64_t dk) {
+  wgmma_m64n128k16_ss<false>(s, dq, dk);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    wgmma_m64n128k16_ss<true>(s, dq + 2 * kk, dk + 2 * kk);
+}
+
+// O += P V over a tile's BN keys: 16 keys (two 1024-byte row groups of
+// V) per product.
+__device__ __forceinline__ void issue_pv(float o[32], const uint32_t pa[NS / 2],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_m64n64k16_rs_mn(o, &pa[4 * kk], dv + kk * (2048 >> 4));
+}
+
+// One online-softmax step on the tile's scores (keys kv0 ..): keys >= T
+// set to -inf, s -> p = exp2(s * scale_log2 - m_new) in place, the row
+// sums l of the unrounded p updated, c = exp2(m_old - m_new) returned for
+// the output's rescale. Every tile holds a key < T, so the new maxima are
+// finite and exp2(-inf - m) = 0 rescales the empty first state.
+__device__ __forceinline__ void softmax_step(float s[NS], int kv0, int T,
+                                             int t4, float scale_log2,
+                                             float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1) {
+  if (kv0 + BN > T) {
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int key = kv0 + jn * 8 + 2 * t4;
+      if (key >= T) s[4 * jn] = s[4 * jn + 2] = -INFINITY;
+      if (key + 1 >= T) s[4 * jn + 1] = s[4 * jn + 3] = -INFINITY;
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * jn], s[4 * jn + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * jn + 2], s[4 * jn + 3]));
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+  const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    s[4 * jn] = ex2(fmaf(s[4 * jn], scale_log2, -m0));
+    s[4 * jn + 1] = ex2(fmaf(s[4 * jn + 1], scale_log2, -m0));
+    s[4 * jn + 2] = ex2(fmaf(s[4 * jn + 2], scale_log2, -m1));
+    s[4 * jn + 3] = ex2(fmaf(s[4 * jn + 3], scale_log2, -m1));
+    rs0 += s[4 * jn] + s[4 * jn + 1];
+    rs1 += s[4 * jn + 2] + s[4 * jn + 3];
+  }
+  l0 = l0 * c0 + rs0;
+  l1 = l1 * c1 + rs1;
+}
+
+// P in bf16 as wgmma A fragments: keys 16kk .. 16kk + 15 are the score
+// chunks 2kk and 2kk + 1 (the accumulator and A layouts agree).
+__device__ __forceinline__ void pack_p(uint32_t pa[NS / 2], const float s[NS]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    pa[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+}  // namespace fa
+
 // ------------------------------------------------------------- host side
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
@@ -470,7 +629,9 @@ inline MapSpec map_spec(const void* base, CUtensorMapDataType type, int rank,
 
 // Launches `kernel` as clusters of `cluster` blocks along x (gridDim.x a
 // multiple of it). A launch the card refuses (too large a cluster for the
-// shared memory each block asks) returns its error; nothing falls back.
+// shared memory each block asks, or more blocks than it allows) returns
+// its error, which is then taken off the thread's last error so the next
+// launch's cudaGetLastError() does not report it; nothing falls back.
 template <typename... Params, typename... Args>
 inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
                           int threads, size_t smem, cudaStream_t stream,
@@ -487,7 +648,10 @@ inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (e != cudaSuccess) (void)cudaGetLastError();
+  return (int)e;
 }
 
 }  // namespace sm90

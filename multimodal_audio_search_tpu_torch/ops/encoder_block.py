@@ -7,13 +7,17 @@ fused_attention_o_residual``: its default bf16 body (K1), its
 ``pair_heads=True`` body (K10, ``fused_encoder="paired"``); and of the A/B
 copy ``tools/profile_encoder_kernel_ab.py::fused_v2`` (K11), which places
 the softmax division three ways. On a CUDA tensor each wrapper launches
-its hand-written kernel (``csrc/encoder_block.cu``,
-``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
-PyTorch version beside it, the same math. There is no other route: a
-launch that fails raises.
+its hand-written kernel (K1 and K10 ``csrc/encoder_block_wgmma.cu``: a
+thread-block cluster over the heads of a 128-row tile, sized by
+``cluster_plan``; K9 ``csrc/encoder_block_int8.cu``; K11
+``csrc/encoder_block.cu``); on a CPU tensor it runs the plain PyTorch
+version beside it, the same math. There is no other route: a launch that
+fails, or a cluster the card cannot place, raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -66,6 +70,75 @@ def attention_o_residual_paired_plain(q, k, v, x, wo, bo) -> torch.Tensor:
     o2 = torch.matmul(p2, vb)                                    # [B,P,T,2D]
     attn = torch.stack([o2[..., :d], o2[..., d:]], dim=2)        # [B,P,2,T,D]
     return _merge_o_residual(attn.reshape(b, h, t, d), x, wo, bo)
+
+
+# K1's and K10's clusters: at most 16 blocks (an H100's non-portable
+# limit), each attending one to BLOCK_HEADS heads (K10: whole pairs) and
+# projecting their 64-column output chunks
+MAX_CLUSTER = 16
+BLOCK_HEADS = 4
+# a block's o-projection, barriers and epilogue, in units of one head's
+# attention over a 128-row tile (~7 of ~17 us on an H100, PERF.md)
+BLOCK_OVERHEAD = 0.45
+ROWS = 128  # query rows a cluster
+
+
+def cluster_plan(heads: int, batch: int, t: int, fit,
+                 pair_heads: bool = False) -> int:
+    """Blocks of K1's (or K10's) thread-block cluster over the heads of
+    one (batch, 128-row) tile. ``fit(cs)`` is how many clusters of ``cs``
+    blocks the card holds at once (cluster_fit). Each size that leaves no
+    block more than BLOCK_HEADS heads (K10: two pairs) is costed as waves
+    of clusters x (heads a block + BLOCK_OVERHEAD), and the cheapest, then
+    the smallest, is taken: on an H100 at B=32, T=1500 that is 2 blocks
+    at whisper-tiny and -base (clusters of 2 fill all 132 multiprocessors,
+    larger ones 102-120), 3 at -small, 4 at -medium and 5 at -large.
+    Raises past 64 heads, or on an odd head count for K10."""
+    g = 2 if pair_heads else 1
+    if heads % g:
+        raise ValueError(f"K10 pairs heads; H={heads} is odd")
+    units = heads // g
+    tiles = batch * -(-t // ROWS)
+    best = None
+    for cs in range(1, min(units, MAX_CLUSTER) + 1):
+        per_block = -(-units // cs) * g
+        held = fit(cs) * cs
+        if per_block > BLOCK_HEADS or held < 1:
+            continue
+        cost = -(-tiles * cs // held) * (per_block + BLOCK_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, cs)
+    if best is None:
+        raise ValueError(f"K1/K10 take 1 to {BLOCK_HEADS * MAX_CLUSTER} "
+                         f"heads; H={heads}")
+    return best[1]
+
+
+def cluster_ranks(heads: int, cs: int,
+                  pair_heads: bool = False) -> list[list[int]]:
+    """The heads each rank of a cluster of ``cs`` blocks attends and whose
+    64 output columns it projects, as the kernel splits them: rank r takes
+    the units [r U / cs, (r + 1) U / cs) (U = H heads, or H / 2 pairs)."""
+    g = 2 if pair_heads else 1
+    units = heads // g
+    return [[h for u in range(r * units // cs, (r + 1) * units // cs)
+             for h in range(u * g, u * g + g)] for r in range(cs)]
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_fit(cs: int, pair_heads: bool = False) -> int:
+    """The clusters of ``cs`` K1 (K10) blocks the current card holds at
+    once (cudaOccupancyMaxActiveClusters), asked once per size."""
+    n = ctypes.c_int(0)
+    runtime.check_launch(runtime.kernels().mas_encoder_block_fit(
+        int(pair_heads), cs, ctypes.byref(n)), "mas_encoder_block_fit")
+    return n.value
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(heads: int, batch: int, t: int, pair_heads: bool) -> int:
+    return cluster_plan(heads, batch, t,
+                        lambda cs: cluster_fit(cs, pair_heads), pair_heads)
 
 
 # K11's forms of the softmax division (TPU A/B tool: defer_div), by the
@@ -192,13 +265,18 @@ def _check_q_strides(name, q):
             f"strides {q.stride()}")
 
 
-def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None):
-    """K1, or K10 (pair_heads), or K11 (form, a key of AB_FORMS)."""
+def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
+            cluster=None):
+    """K1, or K10 (pair_heads), on clusters of ``cluster`` blocks (default:
+    the plan for this shape on this card); or K11 (form, a key of
+    AB_FORMS)."""
     name = "K10" if pair_heads else "K11" if form is not None else "K1"
     sb, sh, st = _check_block_args(name, q, k, v, x, wo, bo)
     b, h, t, d = q.shape
     if pair_heads and h % 2:
         raise ValueError(f"K10 pairs heads; H={h} is odd")
+    if form is None and cluster is None:
+        cluster = _card_plan(h, b, t, pair_heads)
     out = torch.empty_like(x)
     lib = runtime.kernels()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
@@ -206,14 +284,15 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None):
             b, h, t, x.shape[-1], math.log2(math.e) / math.sqrt(d))
     stream = runtime.stream_handle(x.device)
     if pair_heads:
-        rc, fn, key = lib.mas_attn_o_residual_paired(*args, stream), \
+        rc, fn, key = lib.mas_attn_o_residual_paired(*args, cluster,
+                                                     stream), \
             "mas_attn_o_residual_paired", "encoder_attn_o_residual_paired"
     elif form is not None:
         rc, fn, key = lib.mas_attn_o_residual_ab(*args, AB_FORMS[form],
                                                  stream), \
             "mas_attn_o_residual_ab", "encoder_attn_o_residual_ab"
     else:
-        rc, fn, key = lib.mas_attn_o_residual(*args, stream), \
+        rc, fn, key = lib.mas_attn_o_residual(*args, cluster, stream), \
             "mas_attn_o_residual", "encoder_attn_o_residual"
     runtime.check_launch(rc, fn)
     runtime.bump(key)

@@ -59,7 +59,8 @@ COUNTS: dict[str, int] = {
 # called once when the library loads: the kernels' shared-memory limits
 # and the tensor-map encoder (K8, K5)
 INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
-        "mas_encoder_attention_init", "mas_quant_matmul_init",
+        "mas_encoder_attention_init", "mas_encoder_block_init",
+        "mas_quant_matmul_init",
         "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
         "mas_decoder_self_block_init",
         "mas_single_query_attention_int8_init")
@@ -130,20 +131,19 @@ def _source_key() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
-    lib.mas_attn_o_residual.argtypes = [
-        p, p, p, ll, ll, ll,      # q, k, v and their shared strides
-        p, p, p, p,               # x, wo, bo, out
-        i, i, i, i,               # B, H, T, HD
-        f, p]                     # scale * log2(e), stream
-    lib.mas_attn_o_residual.restype = i
+    block = [p, p, p, ll, ll, ll,  # q, k, v and their shared strides
+             p, p, p, p,           # x, wo, bo, out
+             i, i, i, i,           # B, H, T, HD
+             f]                    # scale * log2(e)
+    for name in ("mas_attn_o_residual", "mas_attn_o_residual_paired"):
+        getattr(lib, name).argtypes = [*block, i, p]  # cluster, stream
+        getattr(lib, name).restype = i
     for name in INIT:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    lib.mas_attn_o_residual_paired.argtypes = \
-        lib.mas_attn_o_residual.argtypes
-    lib.mas_attn_o_residual_paired.restype = i
-    lib.mas_attn_o_residual_ab.argtypes = [
-        *lib.mas_attn_o_residual.argtypes[:-1], i, p]  # ..., form, stream
+    lib.mas_encoder_block_fit.argtypes = [i, i, p]  # paired, cluster, out
+    lib.mas_encoder_block_fit.restype = i
+    lib.mas_attn_o_residual_ab.argtypes = [*block, i, p]  # form, stream
     lib.mas_attn_o_residual_ab.restype = i
     lib.mas_attn_o_residual_int8.argtypes = [
         p, ll, ll, ll,            # q and its strides

@@ -20,7 +20,8 @@ at forced head layouts and cluster sizes with empty ranks and a dropped
 rank; the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
 output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
-edges, K9 at D = 384-1280, with planted faults;
+edges, K9, K1 and K10 at D = 384-1280, K1 and K10 on every cluster size
+they take, with planted faults and a cluster the card refuses;
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -848,6 +849,79 @@ def test_k9_widths_and_ragged_t(cuda, heads, t):
         chip_smoke.check_k1(f"K9 D={heads * 64} T={t} {inputs}", got,
                             EB.attention_o_residual_int8_plain(*args9),
                             residual)
+
+
+@pytest.mark.parametrize("heads", [12, 16, 20])
+@pytest.mark.parametrize("t", [129, 1500, 1501])
+def test_k1_k10_widths_and_ragged_t(cuda, heads, t):
+    """K1 and K10 at D = 768, 1024 and 1280 on their plans' clusters and at
+    T = 129 and 1501 (a last 128-key tile of one key, a last 128-row tile
+    of one row), on every K1 input, held by chip_smoke's K1 check; one
+    launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(400 + t + heads)
+    for inputs, q_scale, residual in chip_smoke.K1_CASES:
+        args = chip_smoke.k1_inputs(gen, 2, t, heads, q_scale=q_scale,
+                                    residual=residual)
+        for name, key, pair, plain in (
+                ("K1", "encoder_attn_o_residual", False,
+                 EB.attention_o_residual_plain),
+                ("K10", "encoder_attn_o_residual_paired", True,
+                 EB.attention_o_residual_paired_plain)):
+            runtime.reset_counts()
+            got = EB.fused_attention_o_residual(*args, pair_heads=pair)
+            torch.cuda.synchronize()
+            assert runtime.COUNTS[key] == 1
+            chip_smoke.check_k1(f"{name} D={heads * 64} T={t} {inputs}", got,
+                                plain(*args), residual)
+
+
+@pytest.mark.parametrize("heads,t,pair", [(8, 300, False), (6, 129, False),
+                                          (6, 129, True), (8, 1501, True),
+                                          (20, 257, False)])
+def test_k1_k10_every_cluster_size(cuda, heads, t, pair):
+    """K1 and K10 on every cluster size the kernel takes at a shape (one
+    to four heads a block, even and uneven splits, K10 one or two pairs),
+    each held by chip_smoke's K1 check on the attention input."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(500 + t + heads)
+    args = chip_smoke.k1_inputs(gen, 2, t, heads, residual=False)
+    plain = (EB.attention_o_residual_paired_plain if pair
+             else EB.attention_o_residual_plain)(*args)
+    units = heads // 2 if pair else heads
+    g = 2 if pair else 1
+    sizes = [c for c in range(1, min(units, EB.MAX_CLUSTER) + 1)
+             if -(-units // c) * g <= EB.BLOCK_HEADS]
+    assert sizes
+    for c in sizes:
+        chip_smoke.check_k1(f"cluster {c}", EB._launch(
+            *args, pair_heads=pair, cluster=c), plain, residual=False)
+
+
+def test_k1_raises_on_a_cluster_the_card_refuses(cuda):
+    """A cluster the card cannot place (17 blocks, past its 16) and a plan
+    outside the kernel's rules (five heads a block) both raise from the
+    wrapper; neither counts a launch, and nothing falls back to the plain
+    version."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(15)
+    args = chip_smoke.k1_inputs(gen, 1, 200, 20)
+    for cluster in (17, 4):
+        runtime.reset_counts()
+        with pytest.raises(RuntimeError, match="mas_attn_o_residual"):
+            EB._launch(*args, cluster=cluster)
+        assert sum(runtime.COUNTS.values()) == 0
+    with pytest.raises(RuntimeError, match="mas_attn_o_residual_paired"):
+        EB._launch(*args, pair_heads=True, cluster=17)
+    # the refused launches left no error behind for the next kernel's
+    # cudaGetLastError() (K8's wrapper reads it)
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    A.fused_encoder_attention(*args[:3])
+    torch.cuda.synchronize()
+    chip_smoke.check_k1("after", EB.fused_attention_o_residual(*args),
+                        EB.attention_o_residual_plain(*args), True)
 
 
 @pytest.mark.parametrize("case", ["p / l", "pw / ps"])

@@ -20,10 +20,14 @@ the check against the plain version, and
 
 Cases: K8 at B=32, T=1500, H=8 and 6 on head-split views of separate q/k/v
 dense outputs; K2 cross (B=32, T=1500, H=8) and self (B=32, L=68, pos=67)
-on merged-head K/V; K1 and K9 (the encoder block, bf16 and int8 dots) at
-B=32, T=1500 and D = 384, 512, 768, 1280 on chip_smoke's residual input,
-K9 on quantize_kv's codes (``--kernels`` keeps the named kernels). Needs a CUDA card; inputs come from a seeded
-torch.Generator.
+on merged-head K/V; K1, K10 and K9 (the encoder block: bf16, head pairs,
+int8 dots) at B=32, T=1500 and D = 384, 512, 768, 1024, 1280 on
+chip_smoke's residual input (K10 at even head counts, K9 on quantize_kv's
+codes), each K1/K10 row with its cluster plan where the checkout has one;
+with K1, the unfused route at D = 384 and 512 on the same inputs (K8,
+one torch.addmm for the o-projection, the residual add: the yardstick K1
+should be at or under). ``--kernels`` keeps the named kernels. Needs a
+CUDA card; inputs come from a seeded torch.Generator.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--out", default=None,
                     help="directory for a copy of the JSON lines")
-    ap.add_argument("--kernels", default="K8,K2,K1,K9",
+    ap.add_argument("--kernels", default="K8,K2,K1,K10,K9",
                     help="comma-separated kernels to time")
     args = ap.parse_args()
     only = set(args.kernels.split(","))
@@ -134,15 +138,19 @@ def main() -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
     t = 1500
-    for heads in (8, 6, 12, 20):
+    plan = getattr(EB, "_card_plan", None)  # the checkout's cluster plan
+    for heads in (8, 6, 12, 16, 20):
         a = cs.k1_inputs(gen, b, t, heads)
         a9 = (a[0], *quantize_kv(a[1], a[2]), *a[3:])
         for key, fn, plain in (
                 ("K1", lambda: EB.fused_attention_o_residual(*a),
                  lambda: EB.attention_o_residual_plain(*a)),
+                ("K10", lambda: EB.fused_attention_o_residual(
+                    *a, pair_heads=True),
+                 lambda: EB.attention_o_residual_paired_plain(*a)),
                 ("K9", lambda: EB.attention_o_residual_int8(*a9),
                  lambda: EB.attention_o_residual_int8_plain(*a9))):
-            if key not in only:
+            if key not in only or (key == "K10" and heads % 2):
                 continue
             row = {"label": args.label, "kernel": key,
                    "shape": f"B={b} T={t} H={heads} D={heads * d}",
@@ -150,6 +158,8 @@ def main() -> int:
                    "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn),
                    "host_us": cs.host_us(fn, n=20),
                    **cs.attn_o_bound(b, t, heads, int8=key == "K9")}
+            if plan is not None and key != "K9":
+                row["cluster"] = plan(heads, b, t, key == "K10")
             if key == "K9":
                 # the other layout for PV's K-major V: the wrapper writing
                 # v8 as [B, H, 64, T] with each 32-key step in the kernel's
@@ -165,6 +175,26 @@ def main() -> int:
                 row["v_transposed_copy_ms"] = cs.time_ms(
                     lambda: v8.index_select(2, perm).transpose(2, 3)
                     .contiguous())
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        if "K1" in only and heads in (8, 6):
+            q, k, v, x, wo, bo = a
+            hd = heads * d
+
+            def unfused():
+                att = A.fused_encoder_attention(q, k, v)  # [B, T, H, D]
+                y = torch.addmm(bo, att.transpose(1, 2).reshape(b * t, hd),
+                                wo)
+                return x + y.view(b, t, hd)
+            row = {"label": args.label, "kernel": "unfused K8+addmm+add",
+                   "shape": f"B={b} T={t} H={heads} D={hd}",
+                   **cs.check_k1(f"unfused H={heads}", unfused(),
+                                 EB.attention_o_residual_plain(*a), True),
+                   "ms": cs.time_ms(unfused),
+                   "device_ms": cs.device_ms(unfused),
+                   "k8_device_ms": cs.device_ms(
+                       lambda: A.fused_encoder_attention(q, k, v)),
+                   **cs.attn_o_bound(b, t, heads)}
             rows.append(row)
             print(json.dumps(row), flush=True)
         del a, a9
