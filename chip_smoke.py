@@ -29,21 +29,24 @@ Phases, one line each (``[phase] ...``):
    and TMA, csrc/encoder_attention.cu), K9 (int8
    dots) and K10 (head pairs, K1's cluster kernel with one TMA fetch a
    pair) at B=32, T=1500 and both widths, and K11's
-   three forms of the softmax division at base width, on K1's inputs;
+   three forms of the softmax division (K1's cluster kernel, each form a
+   template instance) at base width, on K1's inputs;
    K12 (fused search scores) at N=1M and N=1027 in float32 and bf16 and
    on the validity-rule rows, K13 (streaming read) on a 64 MiB slab and
-   at the calibration's 4 GiB x 8 passes, K14 (cross + MLP block) at
-   B=32, T=1500 and both widths -- K14's own path: its launches are
-   counted over this phase, since no decode step calls it.
+   at the calibration's 4 GiB x 8 passes, K14 (cross + MLP block, its
+   attention split over the keys of a thread-block cluster) at B=32,
+   T=1500 and both widths -- K14's own path: its launches are counted
+   over this phase, since no decode step calls it.
    Tolerances asserted; median times from CUDA events after a warm-up,
    each beside the card's bound for the same work (bound()) and, for K2
    and K8, one scaled_dot_product_attention call as a yardstick (K13:
    one torch.sum per pass). K2 and K8 and their yardsticks also carry
    ``device_ms`` (torch.profiler's CUDA kernel rows over 20 calls), K2
    its split count and ``host_us`` (the wrapper's enqueue time a call),
-   and the lines of K1, K8, K9 and K10 their mechanism: the wgmma, TMA
-   and mbarrier instructions counted in their SASS (cuobjdump), which must
-   all be there.
+   and the lines of K1, K8, K9, K10 and K11 their mechanism: the wgmma,
+   TMA and mbarrier instructions counted in their SASS (cuobjdump), which
+   must all be there; K14's line its TMA loads, mbarrier operations and
+   cluster barriers; K1, K10, K11 and K14 also their cluster plans.
 4. the engines (ENGINE_PATHS), each an AudioSearchEngine on cuda (random
    init from a seed, bf16) built from its config alone: the default
    config, ``apply_profile(EngineConfig(), "fast_lossless")``, and the
@@ -251,9 +254,12 @@ K14_T = 1500
 # by l after PV, so only the order of float32 sums differs, and an output
 # element's bf16 rounding flips where that moves it across a rounding
 # boundary. A float64 emulation of the kernel at B=8, T=1500 matches on
-# more than 99 % of the elements; dividing by l before PV, or leaving p
-# unrounded, moves attention values by up to 2^-9 relative and matches on
-# far fewer (tests/test_torch_cross_mlp.py).
+# more than 99 % of the elements (its split-T cluster too: 0.9988 and 1.0
+# at 1, 2 and 12 ranks, seeds 0 and 1, where the ranks exchange the
+# global max before any p is rounded); dividing by l before PV, or
+# leaving p unrounded, moves attention values by up to 2^-9 relative and
+# matches on far fewer, and so does K2's split merge, p rounded against
+# each split's own max: 0.50-0.58 (tests/test_torch_cross_mlp.py).
 K14_EQUAL_MIN = 0.99
 
 
@@ -851,11 +857,24 @@ def cluster_case(b: int, t: int, heads: int, pair: bool = False) -> dict:
             "rank_heads": EB.cluster_ranks(heads, cs, pair)}
 
 
+def cluster_mechanism(name: str, function: str) -> dict:
+    """A split-T cluster kernel's instructions in the built library: TMA
+    tensor loads (UTMALDG), mbarrier operations (SYNCS) and cluster
+    barriers (UCGABAR_ARV / UCGABAR_WAIT). Raises unless it has all
+    three."""
+    counts = sass_counts(function, ("UTMALDG", "SYNCS", "UCGABAR"))
+    if not all(counts.values()):
+        raise AssertionError(f"{name}'s SASS lacks TMA/mbarrier/cluster "
+                             f"barrier instructions: {counts}")
+    return {"path": "cp.async.bulk.tensor + mbarrier + barrier.cluster",
+            "sass": counts}
+
+
 def wgmma_mechanism(name: str, function: str, mma: str = "HGMMA") -> dict:
     """A kernel's instructions in the built library: its warpgroup
     products (HGMMA for floats, IGMMA for int8), TMA tensor loads (UTMALDG)
     and mbarrier operations (SYNCS). Raises unless it has all three: K1,
-    K8, K9 and K10 run their products on wgmma fed by TMA only."""
+    K8, K9, K10 and K11 run their products on wgmma fed by TMA only."""
     counts = sass_counts(function, (mma, "UTMALDG", "SYNCS"))
     if not all(counts.values()):
         raise AssertionError(f"{name}'s SASS lacks wgmma/TMA/mbarrier "
@@ -893,8 +912,11 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                                              "encoder_block_paired_kernel"),
                 "cases": []},
         "K11": {"name": "encoder_attn_o_residual_ab", "route": "cuda",
-                "source": f"{pkg}/encoder_block.cu",
+                "source": f"{pkg}/encoder_block_wgmma.cu",
                 "replaces": "tools/profile_encoder_kernel_ab.py:118",
+                # True and False; "post" is K1's kernel (its own line)
+                "mechanism": wgmma_mechanism("K11",
+                                             "encoder_block_ab_kernel"),
                 "cases": []}}
     b, t = 32, 1500
     for label, heads in (("base", 8), ("tiny", 6)):
@@ -928,6 +950,7 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                         "inputs": inputs, **err}
                 if name.startswith("K11"):
                     case["defer_div"] = name.split()[1]
+                    case.update(cluster_case(b, t, heads))
                 if key == "K10":
                     case.update(cluster_case(b, t, heads, True))
                 if residual:
@@ -1285,6 +1308,8 @@ def cross_mlp_phase(card: str, gen: torch.Generator) -> tuple[dict, dict]:
            "source": "multimodal_audio_search_tpu_torch/csrc/"
                      "decoder_block.cu",
            "replaces": "multimodal_audio_search_tpu/ops/decoder_block.py:515",
+           "mechanism": cluster_mechanism("K14",
+                                          "cross_attention_split_kernel"),
            "cases": []}
     calls = 0
 
@@ -1306,8 +1331,11 @@ def cross_mlp_phase(card: str, gen: torch.Generator) -> tuple[dict, dict]:
             err = check_delta(tag, got, ref, args[0]) if inputs == "block" \
                 else {**check_rel(tag, got, ref, K1_Y_MAX, K1_Y_L2),
                       **check_bits(tag, got, ref)}
+            dev = args[0].device
+            cs, chunk = DB.cross_plan(t, heads, b, DB._fit_cross(dev))
             case = {"shape": f"{label} B={b} T={t} D={d} H={heads} F={f}",
-                    "inputs": inputs, **err}
+                    "inputs": inputs, "cluster": cs, "keys_a_block": chunk,
+                    "clusters_held": DB._fit_cross(dev)(cs, chunk), **err}
             if inputs == "block":
                 case["ms"] = time_ms(lambda: fused(args, heads))
                 case["plain_ms"] = time_ms(

@@ -62,17 +62,24 @@
 // K14, decoder cross + MLP block (one C call, three stages):
 //   q1 = LN2(x) @ Wcq + bcq             (rowproj_kernel<true, bf16>)
 //   attn = single-query attention of q1 over merged cross K/V [B, T, D]
-//                                       (cross_mlp_attention_kernel)
+//                                       (cross_attention_split_kernel)
 //   out = K4-o on (x, attn)             (rowproj_kernel<false> + mlp_kernel)
 // Replaces fused_cross_mlp_block (body _cross_mlp_kernel :389,
 // pallas_call at :515), which the JAX package keeps unwired (it measured
 // slower than the unfused block on the TPU); K14 is not wired into the
 // decode step either. Bounded by the cross K/V bytes (98 MB at B=32,
-// T=1500, whisper-base width) against 5 MB of weights. Its attention
-// rounds where the TPU kernel rounds, not where K2 does: the logits of
-// all T keys are kept in shared memory so p = exp(logit - max) is taken
-// against the row's true maximum; p is summed into l unrounded, rounded
-// to bf16 before PV, and the division by l comes after PV.
+// T=1500, whisper-base width) against 5 MB of weights, so its attention
+// is split over the keys, a thread-block cluster a (batch row, head)
+// streaming K and then V with every cluster resident (see
+// cross_attention_split_kernel), and launched as a programmatic dependent
+// of the q-projection so its first copies overlap it: computing q1 in
+// each block instead would read a head's 64 columns of Wcq (64 KB at base
+// width) once per block, 512 times a call, 32 MB through the
+// multiprocessors' links beside the 98 MB of K/V. It rounds where the
+// TPU kernel rounds, not where K2 does: p = exp(logit - max) is taken
+// against the row's global maximum (the ranks exchange theirs first); p
+// is summed into l unrounded, rounded to bf16 before PV, and the
+// division by l comes after PV.
 //
 // The extra phases' products (rowproj_kernel) are FMA in float32 on bf16
 // operands, with 16-byte weight loads coalesced across threads (8
@@ -104,7 +111,7 @@ constexpr int NT = 256;   // threads per block
 constexpr int HDIM = 64;  // head dim of every Whisper preset
 constexpr int RB4 = 4;    // rows per extra-phase (rowproj) block
 constexpr int PC = 64;    // output columns per extra-phase block
-constexpr size_t SMEM_MAX = 48 * 1024;
+constexpr size_t SMEM_MAX = 48 * 1024;  // rowproj_kernel's
 
 __device__ __forceinline__ float bfr(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -744,6 +751,10 @@ __global__ void __launch_bounds__(NT) rowproj_kernel(
     const bf16* __restrict__ bln, const bf16* __restrict__ W,
     const bf16* __restrict__ bias, const bf16* __restrict__ xres, void* out,
     int B, int D, float eps) {
+  // K14's attention, launched as a programmatic dependent of its
+  // q-projection, may start now (it waits for q1 before reading it); no
+  // other launch after this kernel asks to start early
+  launch_dependents();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* red = reinterpret_cast<float*>(smem_raw);    // NT * 8 * RB4
   bf16* sH = reinterpret_cast<bf16*>(red + NT * 8 * RB4);  // [RB4][D]
@@ -1067,80 +1078,224 @@ __global__ void __launch_bounds__(MLP_NT, 1) mlp_kernel(
   }
 }
 
-// K14's attention: one block per (head, batch row), 8 lanes per 64-wide
-// key row (one 16-byte load each), 32 rows in flight. Pass 1 writes the
-// scaled logits of all T keys to shared memory and takes their maximum;
-// pass 2 forms p = exp(logit - max), sums it into l, and accumulates
-// bf16(p) * V; the 32 row groups merge in a fixed order and the merged
-// output is divided by l. Output [B, H*64] float32, not rounded (K4-o's
-// head rounds it into the o-projection).
-constexpr int AG = NT / 8;  // key rows in flight per block
+// K14's attention: split-T over a thread-block cluster (K6's form, on
+// bf16 K/V). A cluster of cs blocks takes one (batch row, head); rank r
+// the keys [r chunk, (r + 1) chunk) below T (a rank may hold none). The
+// plan (ops/decoder_block.py::cross_plan) makes every cluster resident at
+// once where the card holds them, so the keys stream in one wave:
+//   * at entry one thread puts the first X_PREFIX of the rank's V rows in
+//     flight by TMA (a rank-4 map over {64, H, T, B}, boxes of {64, 1,
+//     R <= 256 rows, 1}): they land while the q-projection runs (this
+//     kernel is launched early, as its programmatic dependent) and while
+//     K streams. Shared memory holds no more of V: the whole of it at
+//     once would not fit the card (49 MB at B=32, T=1500, base width),
+//     and blocks that each held their chunk ran in two waves, the K
+//     stream of every block sharing its multiprocessor's link with its V
+//     (phase stamps in PERF.md);
+//   * every thread streams K through registers, 8 lanes a 128-byte key
+//     row (one 16-byte load each), X_AG rows a pass and X_PASSES passes
+//     of loads in flight, into the logits in shared memory; the first
+//     passes are issued before griddepcontrol.wait, the only wait on the
+//     q-projection;
+//   * p must be rounded against the row's global max (B12 rounds
+//     exp(logit - max) to bf16), so the ranks exchange their max through
+//     distributed shared memory before any p is formed; each rank then
+//     forms p = exp(logit - m) once a key, sums the unrounded p into l
+//     and accumulates bf16(p) * V, its prefix from shared memory and the
+//     rest streamed through registers as K was (its row groups added in
+//     a fixed order);
+//   * rank 0 adds the ranks' l and [64] partials in rank order and
+//     divides by l once.
+// Output [B, H*64] float32, not rounded (K4-o's head rounds it into the
+// o-projection).
+constexpr int X_NT = 256;          // threads an attention block
+constexpr int X_AG = X_NT / 8;     // key rows a pass
+constexpr int X_PASSES = 4;        // passes of loads in flight at once
+constexpr int X_PREFIX = 320;      // V rows a block takes by TMA (40 KB)
+constexpr int X_MAX_CS = 16;       // blocks a cluster (non-portable above 8)
+constexpr int X_SMEM_LIMIT = 200 * 1024;
 
-__global__ void __launch_bounds__(NT) cross_mlp_attention_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, float* __restrict__ out, int T, int HD,
-    float scale) {
+__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
+// V rows a TMA box: the prefix in as few boxes of at most 256 rows (TMA's
+// limit a box dimension) as it takes
+__host__ __device__ inline int x_box_rows(int chunk) {
+  const int p = chunk < X_PREFIX ? chunk : X_PREFIX;
+  const int nbox = (p + 255) / 256;
+  return (p + nbox - 1) / nbox;
+}
+// the V prefix in whole boxes (later the row groups' p . V partials),
+// then the logits (later the row groups' l); 128 bytes to align the
+// prefix
+__host__ __device__ inline int x_v_bytes(int chunk) {
+  const int p = chunk < X_PREFIX ? chunk : X_PREFIX;
+  const int r = x_box_rows(chunk);
+  const int v = (p + r - 1) / r * r * HDIM * 2;
+  return align128(v > X_AG * HDIM * 4 ? v : X_AG * HDIM * 4);
+}
+__host__ __device__ inline int x_smem_bytes(int chunk) {
+  return 128 + x_v_bytes(chunk) +
+         align128(4 * (chunk > X_AG ? chunk : X_AG));
+}
+
+// A pass group's rows i0 + u X_AG + grp (u < X_PASSES), 16 bytes of each
+// at base (row stride HD); rows >= n read as zeros.
+__device__ __forceinline__ void load_rows(uint4 (&kr)[X_PASSES],
+                                          const bf16* base, int i0, int grp,
+                                          int n, int HD) {
+#pragma unroll
+  for (int u = 0; u < X_PASSES; ++u) {
+    const int i = i0 + u * X_AG + grp;
+    kr[u] = i < n ? __ldg(reinterpret_cast<const uint4*>(
+                        base + (long long)i * HD))
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// acc += bf16(p) * V row (eight columns as one 16-byte word), l += p,
+// p = exp(logit - m)
+__device__ __forceinline__ void pv_row(float acc[8], float& l, float logit,
+                                       float m, uint4 vw) {
+  const float p = expf(logit - m);
+  l += p;
+  const float pb = bfr(p);
+  float vf[8];
+  bf16x8_to_f32(vw, vf);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = fmaf(pb, vf[e], acc[e]);
+}
+
+__global__ void __launch_bounds__(X_NT, 4) cross_attention_split_kernel(
+    const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v,
+    float* __restrict__ out, int T, int H, int chunk, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sS = reinterpret_cast<float*>(smem_raw);  // [T] logits
-  __shared__ float sm_acc[AG][HDIM];
-  __shared__ float sm_l[AG];
-  __shared__ float sm_red[NT / 32];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int sub = threadIdx.x & 7, grp = threadIdx.x >> 3;
-  const int col = h * HDIM + sub * 8;
-  float qf[8];
-  bf16x8_to_f32(*reinterpret_cast<const uint4*>(q + (long long)b * HD + col),
-                qf);
-  const bf16* kb = k + (long long)b * T * HD + col;
-  const bf16* vb = v + (long long)b * T * HD + col;
+  // TMA writes boxes to 128-byte aligned shared memory
+  unsigned char* base = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  bf16* sV = reinterpret_cast<bf16*>(base);  // [prefix rows][64]
+  float* sS = reinterpret_cast<float*>(base + x_v_bytes(chunk));
+  __shared__ uint64_t vbar;  // the V prefix landed
+  __shared__ float s_red[X_NT / 32];
+  __shared__ float s_m, s_gm, s_l;  // this rank's max, the cluster's, l
+  __shared__ float s_o[HDIM];       // this rank's p . V
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int t0 = rank * chunk;
+  const int n = max(0, min(chunk, T - t0));
+  const int np = min(n, X_PREFIX);  // rows of the prefix
+  const int tid = threadIdx.x, sub = tid & 7, grp = tid >> 3;
+  const int HD = H * HDIM;
+  const int R = x_box_rows(chunk);
+  const int nbox = (np + R - 1) / R;
+
+  if (tid == 0) {
+    prefetch_map(&tv);
+    mbar_init(&vbar, 1);
+    fence_mbar_init();
+    mbar_expect_tx(&vbar, (uint32_t)(nbox * R * HDIM * 2));
+    for (int i = 0; i < nbox; ++i)
+      tma_load_4d(sV + i * R * HDIM, &tv, &vbar, 0, h, t0 + i * R, b);
+  }
+  // 1. logits of the rank's keys
+  const long long off = ((long long)b * T + t0) * HD + h * HDIM + sub * 8;
+  const bf16* kb = k + off;
+  constexpr int STEP = X_PASSES * X_AG;
+  uint4 ka[X_PASSES];
+  load_rows(ka, kb, 0, grp, n, HD);
+  grid_dependency_wait();  // q1: the q-projection has finished
+  float qf[8];
+  bf16x8_to_f32(
+      *reinterpret_cast<const uint4*>(q + (long long)b * HD + h * HDIM +
+                                      sub * 8),
+      qf);
   float mx = -INFINITY;
   // uniform trip count over the block, so every lane reaches the shuffles
-  for (int t0 = 0; t0 < T; t0 += AG) {
-    const int t = t0 + grp;
-    uint4 kr = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) kr = *reinterpret_cast<const uint4*>(kb + (long long)t * HD);
-    float kf[8];
-    bf16x8_to_f32(kr, kf);
-    float s = 0.f;
+  for (int i0 = 0; i0 < n; i0 += STEP) {
+    uint4 kn[X_PASSES];
+    load_rows(kn, kb, i0 + STEP, grp, n, HD);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s = fmaf(qf[i], kf[i], s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    s += __shfl_xor_sync(0xffffffffu, s, 4);
-    if (t < T) {
-      s *= scale;
-      if (sub == 0) sS[t] = s;
-      mx = fmaxf(mx, s);
+    for (int u = 0; u < X_PASSES; ++u) {
+      float kf[8];
+      bf16x8_to_f32(ka[u], kf);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = fmaf(qf[e], kf[e], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      const int i = i0 + u * X_AG + grp;
+      if (i < n) {
+        s *= scale;
+        if (sub == 0) sS[i] = s;
+        mx = fmaxf(mx, s);
+      }
+      ka[u] = kn[u];
     }
   }
-  mx = block_max<NT>(mx, sm_red);  // its barriers publish sS too
-
+  // 2. the cluster's max (its barriers publish sS too)
+  mx = block_max<X_NT>(mx, s_red);
+  if (tid == 0) s_m = mx;
+  cluster.sync();
+  if (tid < 32) {
+    const float v0 =
+        tid < cs ? *cluster.map_shared_rank(&s_m, tid) : -INFINITY;
+    const float m = warp_max(v0);
+    if (tid == 0) s_gm = m;
+  }
+  __syncthreads();
+  // 3. p = exp(logit - m), l over the unrounded p, bf16(p) . V: the
+  // rows past the prefix streamed (their first loads in flight while the
+  // prefix is summed), then the prefix from shared memory
+  const float m = s_gm;
   float l = 0.f, acc[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int t = grp; t < T; t += AG) {
-    const float p = expf(sS[t] - mx);
-    l += p;
-    const float pb = bfr(p);
-    float vf[8];
-    bf16x8_to_f32(*reinterpret_cast<const uint4*>(vb + (long long)t * HD),
-                  vf);
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  const bf16* vb = v + off;
+  uint4 va[X_PASSES];
+  load_rows(va, vb, np, grp, n, HD);
+  mbar_wait(&vbar, 0);
+  for (int i = grp; i < np; i += X_AG)
+    pv_row(acc, l, sS[i], m,
+           *reinterpret_cast<const uint4*>(sV + i * HDIM + sub * 8));
+  for (int i0 = np; i0 < n; i0 += STEP) {
+    uint4 vn[X_PASSES];
+    load_rows(vn, vb, i0 + STEP, grp, n, HD);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = fmaf(pb, vf[i], acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) sm_acc[grp][sub * 8 + i] = acc[i];
-  if (sub == 0) sm_l[grp] = l;
-  __syncthreads();
-  if (threadIdx.x < HDIM) {
-    float o = 0.f, ls = 0.f;
-    for (int g = 0; g < AG; ++g) {
-      o += sm_acc[g][threadIdx.x];
-      ls += sm_l[g];
+    for (int u = 0; u < X_PASSES; ++u) {
+      const int i = i0 + u * X_AG + grp;
+      if (i < n) pv_row(acc, l, sS[i], m, va[u]);
+      va[u] = vn[u];
     }
-    out[(long long)b * HD + h * HDIM + threadIdx.x] = o / ls;
   }
+  __syncthreads();  // the prefix and the logits are read: they take sums
+  float* s_part = reinterpret_cast<float*>(sV);  // [X_AG][64]
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s_part[grp * HDIM + sub * 8 + e] = acc[e];
+  if (sub == 0) sS[grp] = l;
+  __syncthreads();
+  if (tid < HDIM) {
+    float o = 0.f;
+    for (int g = 0; g < X_AG; ++g) o += s_part[g * HDIM + tid];
+    s_o[tid] = o;
+  } else if (tid == HDIM) {
+    float ls = 0.f;
+    for (int g = 0; g < X_AG; ++g) ls += sS[g];
+    s_l = ls;
+  }
+  // 4. rank 0 adds the ranks' partials and l in rank order; every rank
+  // stays until rank 0 has read them
+  cluster.sync();
+  if (rank == 0 && tid < HDIM) {
+    float o = 0.f, ls = 0.f;
+    for (int r = 0; r < cs; ++r) {
+      o += cluster.map_shared_rank(s_o, r)[tid];
+      ls += *cluster.map_shared_rank(&s_l, r);
+    }
+    out[(long long)b * HD + h * HDIM + tid] = o / ls;
+  }
+  cluster.sync();
 }
 
 inline dim3 rows_grid(int cols, int B, int rb) {
@@ -1178,6 +1333,9 @@ int weight_map(CUtensorMap* map, const void* base, int D) {
   }
   return e;
 }
+
+// K14's V maps (a rank-4 map over the merged cross V of one call's shape)
+MapCache<64> x_maps;
 
 }  // namespace
 
@@ -1327,38 +1485,99 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
                                           mlp_smem(dc), s);
 }
 
+// Raises K14's attention's dynamic shared-memory limit and allows its
+// clusters of up to 16 blocks; asks the whole shared-memory carveout for
+// it and for its q-projection, so an SM that runs a q-projection block
+// also takes attention blocks (launched early, they start beside it:
+// otherwise most wait for the q-projection to end, phase stamps in
+// PERF.md); and looks the tensor-map encoder up. Called once, when the
+// library is loaded.
+extern "C" int mas_cross_mlp_block_init(void) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  cudaError_t e = cudaFuncSetAttribute(
+      cross_attention_split_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, X_SMEM_LIMIT);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(cross_attention_split_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  for (const void* fn : {(const void*)cross_attention_split_kernel,
+                         (const void*)rowproj_kernel<true, bf16>})
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return (int)e;
+}
+
+// The clusters of cs K14 attention blocks of chunk keys the card holds at
+// once (0 where a block would ask more shared memory than it may).
+// Returns a cudaError_t value.
+extern "C" int mas_cross_mlp_attention_fit(int cs, int chunk, int* out) {
+  *out = 0;
+  if (cs < 1 || cs > X_MAX_CS || chunk < 1 ||
+      x_smem_bytes(chunk) > X_SMEM_LIMIT)
+    return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(X_NT);
+  cfg.dynamicSmemBytes = x_smem_bytes(chunk);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (const void*)cross_attention_split_kernel, &cfg);
+}
+
 // K14. x, out: [B, D] bf16 (D = H * 64); g2, g3: [D] float32 LN scales;
 // b2, bcq, bco, b3, b2m: [D] bf16; wcq, wco: [D, D], w1: [D, F], w2:
 // [F, D] bf16 row-major (F % 32 == 0); b1: [F] bf16; k, v: [B, T, D]
 // bf16 merged-head cross K/V; q1 and h: [B, D] bf16, attn and x32: [B, D]
 // float32, part: [F / 32, B, D] float32 scratch; counter: >= 3 zeroed
-// ints; sms as K4's. Every pointer 16-byte aligned.
-// Returns the first CUDA error of the launches (0 = none).
+// ints; sms as K4's. The attention's plan (ops/decoder_block.py::
+// cross_plan): cs blocks a cluster (1..16), chunk keys a block (cs chunk
+// >= T). Every pointer 16-byte aligned. Returns the first CUDA error of
+// the launches (0 = none): a shape outside these limits, a tensor map
+// the driver refuses, or a launch the card refuses.
 extern "C" int mas_cross_mlp_block(
     const void* x, const void* g2, const void* b2, const void* wcq,
     const void* bcq, const void* wco, const void* bco, const void* g3,
     const void* b3, const void* w1, const void* b1, const void* w2,
     const void* b2m, const void* k, const void* v, void* q1, void* attn,
     void* x32, void* h, void* part, void* counter, void* out, int B, int H,
-    int T, int F, float scale, float eps, int sms, void* stream) {
+    int T, int F, int cs, int chunk, float scale, float eps, int sms,
+    void* stream) {
   const int D = H * HDIM;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem_q = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
-  // dynamic logits + the kernel's static arrays
-  const size_t smem_a = (size_t)T * 4;
-  const size_t static_a = (AG * HDIM + AG + NT / 32) * 4;
-  if (T < 1 || smem_q > SMEM_MAX || smem_a + static_a > SMEM_MAX)
+  if (T < 1 || smem_q > SMEM_MAX || cs < 1 || cs > X_MAX_CS || chunk < 1 ||
+      (long long)cs * chunk < T || x_smem_bytes(chunk) > X_SMEM_LIMIT ||
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap tv;
+  int e = x_maps.get(
+      &tv, map_spec(v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    {(cuuint64_t)HDIM, (cuuint64_t)H, (cuuint64_t)T,
+                     (cuuint64_t)B},
+                    {(cuuint64_t)HDIM * 2, (cuuint64_t)D * 2,
+                     (cuuint64_t)T * D * 2},
+                    {(cuuint32_t)HDIM, 1u, (cuuint32_t)x_box_rows(chunk), 1u},
+                    CU_TENSOR_MAP_SWIZZLE_NONE));
+  if (e != 0) return e;
   rowproj_kernel<true, bf16><<<rows_grid(D / PC, B, RB4), NT, smem_q, s>>>(
       (const bf16*)x, (const float*)g2, (const bf16*)b2, (const bf16*)wcq,
       (const bf16*)bcq, nullptr, q1, B, D, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  cross_mlp_attention_kernel<<<dim3(H, B), NT, smem_a, s>>>(
-      (const bf16*)q1, (const bf16*)k, (const bf16*)v, (float*)attn, T, D,
-      scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  e = launch_cluster_ex(true, cross_attention_split_kernel, dim3(cs, B * H),
+                        cs, X_NT, x_smem_bytes(chunk), s, tv,
+                        (const bf16*)q1, (const bf16*)k, (const bf16*)v,
+                        (float*)attn, T, H, chunk, scale);
+  if (e != 0) return e;
   return mas_decoder_mlp_block(x, g3, b3, w1, b1, w2, b2m, attn, wco, bco,
                                x32, h, part, counter, out, B, D, F, eps,
                                sms, stream);

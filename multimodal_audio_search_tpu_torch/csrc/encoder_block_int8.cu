@@ -130,24 +130,6 @@ __device__ __forceinline__ float code8(float v, float s) {
   return fminf(fmaxf(rintf(v / s), -127.f), 127.f);
 }
 
-// x / d rounded to nearest, as a true division gives it, from r = 1 / d
-// (itself a true division, once a row): q = x r, then one correction
-// step with the exact residual x - q d (an FMA), q + (x - q d) r
-// (Markstein). The row's divisors l and ps are fixed, so a score pays
-// three FMA-pipe operations, with no branch, in place of a division's
-// reciprocal, refinement and range check (a call with a branch, which
-// kept ptxas from interleaving the scores' chains: the stamps in
-// PERF.md). mas_k9_division_check holds it to the true division on the
-// card (tests/test_torch_cuda.py: 1.6e7 quotients x / l with x in
-// [2^-100, 1], l in [1, 12288], and pw / ps). Below x = 2^-100 the
-// quotient can leave the normal range and miss by an ulp there; such a
-// key's pw is under 2^-100 vs, which moves no code and no max unless its
-// V row's scale is ~2^90 times the scale of the row that sets ps.
-__device__ __forceinline__ float div_row(float x, float d, float r) {
-  const float q = __fmul_rn(x, r);
-  return __fmaf_rn(__fmaf_rn(-q, d, x), r, q);
-}
-
 // p8 = clip(rint(pw / ps)) for 0 <= pw <= max pw = 127 ps (1 + 2^-24 at
 // most, from ps's rounding): the quotient rounds into [0, 127], so the clip
 // is the identity and one conversion (round to nearest even) does rint

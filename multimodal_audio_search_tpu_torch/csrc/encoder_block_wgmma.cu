@@ -1,4 +1,4 @@
-// K1 and K10: the encoder block's attention over every head, its
+// K1, K10 and K11: the encoder block's attention over every head, its
 // o-projection and the residual, in one launch, on Hopper's warpgroup
 // products (wgmma) fed by TMA tensor copies.
 //
@@ -8,13 +8,28 @@
 // K10 the same function with the heads taken two at a time. Replaces the
 //     same wrapper's pair_heads=True form (body _attn_o_kernel_paired,
 //     pallas_call :375).
+// K11 K1's function with the softmax division placed three ways (the
+//     template's Form), the A/B of the TPU tool: replaces tools/
+//     profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2 :48,
+//     pallas_call :118). POST ("post") is K1 itself; DIV (True) divides
+//     each head's output by l in place of x 1/l; NORM (False) divides p
+//     by l before the PV product, so it needs l first: per head the
+//     producer streams the head's K tiles alone into the ring, the
+//     consumers take each row's max and sum over them (tile j + 1's
+//     scores issued while tile j's max and sum are taken, no PV), then
+//     K and V stream as in K1 and the consumers recompute S, form p =
+//     exp2(s c - m) / l, round it to bf16 and run PV with no rescale; Q
+//     stays resident across both passes. Every division is a row
+//     reciprocal with one correction step (sm90.cuh div_row), which gives
+//     the true quotient with no division call a score.
 //
 // Roundings: scores and the softmax in float32; p = exp(s - m) rounded to
-// bf16 before the PV product (the TPU kernel casts p to V's dtype), the
-// row sums l taken over the unrounded p; each head's [rows, 64] output
-// multiplied by 1/l after the PV product and rounded to bf16 before the
-// o-projection (attn.astype(wo.dtype)); the o-projection summed in
-// float32, then + bo, + x, and the sum rounded to bf16.
+// bf16 before the PV product (the TPU kernel casts p to V's dtype; K11's
+// NORM rounds p / l), the row sums l taken over the unrounded p; each
+// head's [rows, 64] output multiplied by 1/l after the PV product (K11:
+// as its form says) and rounded to bf16 before the o-projection
+// (attn.astype(wo.dtype)); the o-projection summed in float32, then + bo,
+// + x, and the sum rounded to bf16.
 //
 // What bounds it on an H100: tensor-core operations. At B=32, T=1500,
 // H=8 the attention is 147 GFLOP and the o-projection 25 GFLOP against
@@ -87,6 +102,11 @@ constexpr int TILE_BYTES = BN * D * 2;  // 16 KB: 128 rows of one head
 constexpr int W_BYTES = 64 * D * 2;     // 8 KB: one [64 in, 64 out] Wo tile
 constexpr int MAX_COLS = 4;  // heads (64-column output chunks) a block
 
+// where the softmax division sits (K11's forms, by the code the wrapper
+// passes: ops/encoder_block.py::AB_FORMS): x 1/l after PV (K1, "post"),
+// / l after PV (True), p / l before PV (False)
+enum Form { POST = 0, DIV = 1, NORM = 2 };
+
 // K1 (PAIR false) and K10 (true): heads a unit, ring stages, Q slots and
 // bytes, bytes a stage (K tiles, then V tiles), shared memory.
 // K10 holds two heads' outputs beside the scores: its consumers take 232
@@ -149,35 +169,130 @@ __device__ __forceinline__ void rescale(float o[32], float c0, float c1) {
   }
 }
 
+// Tile i's scores S = Q K^T into s, issued in this warpgroup's turn (K
+// at the stage's start).
+template <int STAGES, int SLOT>
+__device__ __forceinline__ void issue_tile(float s[NS], uint64_t dq,
+                                           const uint8_t* ring,
+                                           uint64_t* full, int i, int wg) {
+  wait_full<STAGES>(full, i);
+  named_sync(1 + wg);
+  wg_fence();
+  issue_scores(s, dq, desc(stage<STAGES, SLOT>(ring, i)));
+  wg_commit();
+  named_arrive(2 - wg);
+}
+
+// NORM's first pass, a tile whose scores have landed: its stage is
+// released and its keys join the row max m and sum l (softmax_step's
+// online form; the p it forms are not used).
+template <int STAGES>
+__device__ __forceinline__ void stats_tile(float s[NS], uint64_t* empty,
+                                           int i, int kv0, int T,
+                                           float scale_log2, int lane,
+                                           int t4, float& m0, float& m1,
+                                           float& l0, float& l1) {
+#pragma unroll
+  for (int k = 0; k < NS; ++k) reg_fence(s[k]);
+  warp_arrive(&empty[i % STAGES], lane);
+  float c0, c1;
+  softmax_step(s, kv0, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+}
+
+// NORM's first pass over the head's K tiles it .. it + n_tiles - 1 (K
+// alone in each stage): each row's max m (log2 domain) and sum l, summed
+// over its quad. Two score buffers: tile j + 1's scores are issued before
+// tile j's max and sum are taken. The loop takes two tiles a round with
+// no branch around its products; the last one or two tiles follow it.
+template <int STAGES, int SLOT>
+__device__ __forceinline__ void row_stats(uint64_t dq, const uint8_t* ring,
+                                          uint64_t* full, uint64_t* empty,
+                                          int it, int n_tiles, int T,
+                                          float scale_log2, int wg, int lane,
+                                          int t4, float& m0, float& m1,
+                                          float& l0, float& l1) {
+  float sa[NS], sb[NS];
+  m0 = m1 = -INFINITY;
+  l0 = l1 = 0.f;
+  issue_tile<STAGES, SLOT>(sa, dq, ring, full, it, wg);
+  int j = 0;
+  for (; j + 2 < n_tiles; j += 2) {
+    issue_tile<STAGES, SLOT>(sb, dq, ring, full, it + j + 1, wg);
+    wg_wait<1>();
+    stats_tile<STAGES>(sa, empty, it + j, j * BN, T, scale_log2, lane, t4,
+                       m0, m1, l0, l1);
+    issue_tile<STAGES, SLOT>(sa, dq, ring, full, it + j + 2, wg);
+    wg_wait<1>();
+    stats_tile<STAGES>(sb, empty, it + j + 1, (j + 1) * BN, T, scale_log2,
+                       lane, t4, m0, m1, l0, l1);
+  }
+  if (j + 1 < n_tiles) {
+    issue_tile<STAGES, SLOT>(sb, dq, ring, full, it + j + 1, wg);
+    wg_wait<1>();
+    stats_tile<STAGES>(sa, empty, it + j, j * BN, T, scale_log2, lane, t4,
+                       m0, m1, l0, l1);
+    wg_wait<0>();
+    stats_tile<STAGES>(sb, empty, it + j + 1, (j + 1) * BN, T, scale_log2,
+                       lane, t4, m0, m1, l0, l1);
+  } else {
+    wg_wait<0>();
+    stats_tile<STAGES>(sa, empty, it + j, j * BN, T, scale_log2, lane, t4,
+                       m0, m1, l0, l1);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+}
+
+// NORM's second pass on a tile's scores: p = exp2(s c - m) / l with the
+// row's final m and l (r = 1 / l), keys >= T at 0.
+__device__ __forceinline__ void norm_step(float s[NS], int kv0, int T, int t4,
+                                          float scale_log2, float m0,
+                                          float m1, float l0, float l1,
+                                          float r0, float r1) {
+  mask_tail(s, kv0, T, t4);
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    s[4 * jn] = div_row(ex2(fmaf(s[4 * jn], scale_log2, -m0)), l0, r0);
+    s[4 * jn + 1] = div_row(ex2(fmaf(s[4 * jn + 1], scale_log2, -m0)), l0, r0);
+    s[4 * jn + 2] = div_row(ex2(fmaf(s[4 * jn + 2], scale_log2, -m1)), l1, r1);
+    s[4 * jn + 3] = div_row(ex2(fmaf(s[4 * jn + 3], scale_log2, -m1)), l1, r1);
+  }
+}
+
 // One head's attention for a consumer warpgroup's 64 rows (K8's loop):
 // Q at dq, the head's K/V tiles it .. it + n_tiles - 1 of the ring (K at
-// the stage's start, V at its half). Returns o and the thread's partial
-// row sums l0, l1; arrives on q_free once no product reads Q any more
-// and on each stage's empty barrier once its tile is consumed.
-template <int STAGES, int SLOT>
+// the stage's start, V at its half; NORM: its K tiles alone first, then
+// the K/V tiles from it + n_tiles). Returns o and the thread's partial
+// row sums l0, l1 (NORM: o already divided, l0 and l1 the rows' sums);
+// arrives on q_free once no product reads Q any more and on each stage's
+// empty barrier once its tile is consumed.
+template <int FORM, int STAGES, int SLOT>
 __device__ __forceinline__ void attend_head(
     uint64_t dq, const uint8_t* ring, uint64_t* full, uint64_t* empty,
     uint64_t* q_free, int it, int n_tiles, int T, float scale_log2, int wg,
     int lane, int t4, float o[32], float& l0, float& l1) {
   float s[NS];
   uint32_t pa[NS / 2];
-  zero32(o);
-  float m0 = -INFINITY, m1 = -INFINITY;
+  float m0 = -INFINITY, m1 = -INFINITY, r0 = 0.f, r1 = 0.f;
   l0 = l1 = 0.f;
+  if constexpr (FORM == NORM) {
+    row_stats<STAGES, SLOT>(dq, ring, full, empty, it, n_tiles, T,
+                            scale_log2, wg, lane, t4, m0, m1, l0, l1);
+    r0 = 1.f / l0;
+    r1 = 1.f / l1;
+    it += n_tiles;
+  }
+  zero32(o);
+  float c0, c1;
   // tile 0: its scores alone
-  wait_full<STAGES>(full, it);
-  named_sync(1 + wg);
-  wg_fence();
-  issue_scores(s, dq, desc(stage<STAGES, SLOT>(ring, it)));
-  wg_commit();
-  named_arrive(2 - wg);
+  issue_tile<STAGES, SLOT>(s, dq, ring, full, it, wg);
   wg_wait<0>();
 #pragma unroll
   for (int i = 0; i < NS; ++i) reg_fence(s[i]);
-  {
-    float c0, c1;
+  if constexpr (FORM == NORM)
+    norm_step(s, 0, T, t4, scale_log2, m0, m1, l0, l1, r0, r1);
+  else
     softmax_step(s, 0, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
-  }
   pack_p(pa, s);
   for (int j = 1; j < n_tiles; ++j) {
     const int i = it + j;
@@ -193,12 +308,14 @@ __device__ __forceinline__ void attend_head(
     wg_wait<1>();
 #pragma unroll
     for (int k = 0; k < NS; ++k) reg_fence(s[k]);
-    float c0, c1;
-    softmax_step(s, j * BN, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
+    if constexpr (FORM == NORM)
+      norm_step(s, j * BN, T, t4, scale_log2, m0, m1, l0, l1, r0, r1);
+    else
+      softmax_step(s, j * BN, T, t4, scale_log2, m0, m1, l0, l1, c0, c1);
     wg_wait<0>();
     fence32(o);
     warp_arrive(&empty[(i - 1) % STAGES], lane);
-    rescale(o, c0, c1);
+    if constexpr (FORM != NORM) rescale(o, c0, c1);
     pack_p(pa, s);
   }
   warp_arrive(q_free, lane);  // every score product on Q is done
@@ -313,23 +430,38 @@ __device__ __forceinline__ void attend_pair(
   warp_arrive(&empty[last % STAGES], lane);
 }
 
-// A head's [64 rows, 64] output x 1/l, rounded to bf16, into out's
+// A head's [64 rows, 64] output, divided as FORM says (POST x 1/l, DIV
+// / l, NORM as it is: attend_head divided p), rounded to bf16, into out's
 // columns col0 .. col0 + 63 (rows ra, rb of this thread; rows >= T are
-// not stored).
+// not stored). l0, l1: the thread's partial row sums (POST, DIV).
+template <int FORM>
 __device__ __forceinline__ void store_head(bf16* out, const float o[32],
                                            float l0, float l1, long long r0,
                                            int ra, int rb, int T, int HD,
                                            int col0, int t4) {
-  const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+  float y[32];
+  if constexpr (FORM == NORM) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = o[i];
+  } else {
+    const float L0 = quad_sum(l0), L1 = quad_sum(l1);
+    const float i0 = 1.f / L0, i1 = 1.f / L1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = i & 2;  // rows rb: o[4 jd + 2 ..]
+      y[i] = FORM == POST ? o[i] * (hi ? i1 : i0)
+                          : div_row(o[i], hi ? L1 : L0, hi ? i1 : i0);
+    }
+  }
 #pragma unroll
   for (int jd = 0; jd < 8; ++jd) {
     const int col = col0 + jd * 8 + 2 * t4;
     if (ra < T)
       *reinterpret_cast<uint32_t*>(out + (r0 + ra) * HD + col) =
-          pack_bf16(o[4 * jd] * i0, o[4 * jd + 1] * i0);
+          pack_bf16(y[4 * jd], y[4 * jd + 1]);
     if (rb < T)
       *reinterpret_cast<uint32_t*>(out + (r0 + rb) * HD + col) =
-          pack_bf16(o[4 * jd + 2] * i1, o[4 * jd + 3] * i1);
+          pack_bf16(y[4 * jd + 2], y[4 * jd + 3]);
   }
 }
 
@@ -391,12 +523,13 @@ __device__ __forceinline__ void o_group(
 
 // The block of rank blockIdx.x of the cluster over (batch blockIdx.z,
 // rows blockIdx.y * 128 ..); see the file's head.
-template <bool PAIR>
+template <bool PAIR, int FORM>
 __device__ __forceinline__ void block_body(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
     const CUtensorMap* ta, const CUtensorMap* tw, const CUtensorMap* tx,
     const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
     float scale_log2) {
+  static_assert(!PAIR || FORM == POST, "K10 takes the division after PV");
   using C = Cfg<PAIR>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
@@ -451,6 +584,13 @@ __device__ __forceinline__ void block_body(
         if (use > 0) mbar_wait(&q_empty[slot], (use - 1) & 1);
         mbar_expect_tx(&q_full[slot], C::Q_BYTES);
         tma_load_4d(sQ + slot * C::Q_BYTES, tq, &q_full[slot], 0, q0, h, b);
+        if constexpr (FORM == NORM)  // the K tiles alone, for the row stats
+          for (int j = 0; j < n_tiles; ++j, ++it) {
+            const int s = it % C::STAGES;
+            mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], TILE_BYTES);
+            tma_load_4d(ring + s * C::SLOT, tk, &full[s], 0, j * BN, h, b);
+          }
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int s = it % C::STAGES;
           mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
@@ -514,7 +654,8 @@ __device__ __forceinline__ void block_body(
   // issue round then lets the other warpgroup go, so one arrival on
   // barrier 1 is left over at the end
   if (wg == 1) named_arrive(1);
-  for (int u = u0; u < u1; ++u, it += n_tiles) {
+  const int head_tiles = FORM == NORM ? 2 * n_tiles : n_tiles;
+  for (int u = u0; u < u1; ++u, it += head_tiles) {
     const int n = u - u0, slot = n % C::Q_SLOTS, use = n / C::Q_SLOTS;
     const uint8_t* q = sQ + slot * C::Q_BYTES + wg * 64 * 128;
     mbar_wait(&q_full[slot], use & 1);
@@ -524,14 +665,15 @@ __device__ __forceinline__ void block_body(
           desc(q), desc(q + TILE_BYTES), ring, full, empty, &q_empty[slot],
           it, n_tiles, T, scale_log2, wg, lane, t4, o0, o1, l00, l01, l10,
           l11);
-      store_head(out, o0, l00, l01, r0, ra, rb, T, HD, 2 * u * D, t4);
-      store_head(out, o1, l10, l11, r0, ra, rb, T, HD, (2 * u + 1) * D, t4);
+      store_head<POST>(out, o0, l00, l01, r0, ra, rb, T, HD, 2 * u * D, t4);
+      store_head<POST>(out, o1, l10, l11, r0, ra, rb, T, HD, (2 * u + 1) * D,
+                       t4);
     } else {
       float o[32], l0, l1;
-      attend_head<C::STAGES, C::SLOT>(desc(q), ring, full, empty,
-                                      &q_empty[slot], it, n_tiles, T,
-                                      scale_log2, wg, lane, t4, o, l0, l1);
-      store_head(out, o, l0, l1, r0, ra, rb, T, HD, u * D, t4);
+      attend_head<FORM, C::STAGES, C::SLOT>(
+          desc(q), ring, full, empty, &q_empty[slot], it, n_tiles, T,
+          scale_log2, wg, lane, t4, o, l0, l1);
+      store_head<FORM>(out, o, l0, l1, r0, ra, rb, T, HD, u * D, t4);
     }
   }
   fence_proxy_async_global();  // the peers' TMA loads read these stores
@@ -566,7 +708,8 @@ __global__ void __launch_bounds__(Cfg<false>::NT, 1) encoder_block_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const bf16* __restrict__ bo,
     bf16* __restrict__ out, int T, int H, float scale_log2) {
-  block_body<false>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H, scale_log2);
+  block_body<false, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
+                          scale_log2);
 }
 
 __global__ void __launch_bounds__(Cfg<true>::NT, 1)
@@ -579,7 +722,22 @@ __global__ void __launch_bounds__(Cfg<true>::NT, 1)
                                 const bf16* __restrict__ bo,
                                 bf16* __restrict__ out, int T, int H,
                                 float scale_log2) {
-  block_body<true>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H, scale_log2);
+  block_body<true, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
+                         scale_log2);
+}
+
+// K11's DIV and NORM forms (its POST form is K1's kernel).
+template <int FORM>
+__global__ void __launch_bounds__(Cfg<false>::NT, 1) encoder_block_ab_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tx, const bf16* __restrict__ bo,
+    bf16* __restrict__ out, int T, int H, float scale_log2) {
+  block_body<false, FORM>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
+                          scale_log2);
 }
 
 // The maps of recent calls (the encoder's buffers recur from batch to
@@ -609,7 +767,18 @@ int btd_map(CUtensorMap* map, const void* base, int B, int T, int HD) {
                                 CU_TENSOR_MAP_SWIZZLE_128B));
 }
 
-template <bool PAIR>
+// The kernel of K10 (PAIR), K1 (POST) or a K11 form.
+template <bool PAIR, int FORM>
+inline auto kernel_of() {
+  if constexpr (PAIR)
+    return encoder_block_paired_kernel;
+  else if constexpr (FORM == POST)
+    return encoder_block_kernel;
+  else
+    return encoder_block_ab_kernel<FORM>;
+}
+
+template <bool PAIR, int FORM = POST>
 int launch(const void* q, const void* k, const void* v, long long sb,
            long long sh, long long st, const void* x, const void* wo,
            const void* bo, void* out, int B, int H, int T, int HD,
@@ -633,23 +802,25 @@ int launch(const void* q, const void* k, const void* v, long long sb,
   if (e == 0) e = btd_map(&tx, x, B, T, HD);
   if (e != 0) return e;
   const dim3 grid(cs, (T + BM - 1) / BM, B);
-  return launch_cluster(
-      PAIR ? encoder_block_paired_kernel : encoder_block_kernel, grid, cs,
-      C::NT, C::SMEM, (cudaStream_t)stream, tq, tk, tv, ta, tw, tx,
-      (const bf16*)bo, (bf16*)out, T, H, scale_log2);
+  return launch_cluster(kernel_of<PAIR, FORM>(), grid, cs, C::NT, C::SMEM,
+                        (cudaStream_t)stream, tq, tk, tv, ta, tw, tx,
+                        (const bf16*)bo, (bf16*)out, T, H, scale_log2);
 }
 
 }  // namespace
 
-// Raises K1's and K10's dynamic shared-memory limits, allows their
+// Raises K1's, K10's and K11's dynamic shared-memory limits, allows their
 // clusters of up to 16 blocks and looks the driver's tensor-map encoder
 // up. Called once, when the library is loaded.
 extern "C" int mas_encoder_block_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const void* fns[2] = {(const void*)encoder_block_kernel,
-                        (const void*)encoder_block_paired_kernel};
-  const int smem[2] = {Cfg<false>::SMEM, Cfg<true>::SMEM};
-  for (int i = 0; i < 2; ++i) {
+  const void* fns[4] = {(const void*)encoder_block_kernel,
+                        (const void*)encoder_block_paired_kernel,
+                        (const void*)encoder_block_ab_kernel<DIV>,
+                        (const void*)encoder_block_ab_kernel<NORM>};
+  const int smem[4] = {Cfg<false>::SMEM, Cfg<true>::SMEM, Cfg<false>::SMEM,
+                       Cfg<false>::SMEM};
+  for (int i = 0; i < 4; ++i) {
     cudaError_t e = cudaFuncSetAttribute(
         fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
     if (e == cudaSuccess)
@@ -660,8 +831,8 @@ extern "C" int mas_encoder_block_init(void) {
   return 0;
 }
 
-// The clusters of cs K1 (paired = 0) or K10 (1) blocks the card holds at
-// once, into *out. Returns a cudaError_t value.
+// The clusters of cs K1 (paired = 0; K11's blocks are K1's) or K10 (1)
+// blocks the card holds at once, into *out. Returns a cudaError_t value.
 extern "C" int mas_encoder_block_fit(int paired, int cs, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
@@ -685,7 +856,7 @@ extern "C" int mas_encoder_block_fit(int paired, int cs, int* out) {
 // with unit stride on the last dim, each stride a multiple of 8 and each
 // base 16-byte aligned (TMA's rules); x/out: [B, T, HD] contiguous bf16;
 // wo: [HD, HD] row-major bf16 ([in, out]); bo: [HD] bf16; HD = H * 64;
-// cs blocks a cluster, each rank taking one or two heads (H <= 2 cs, cs
+// cs blocks a cluster, each rank taking one to four heads (H <= 4 cs, cs
 // <= H). Returns a cudaError_t value: a plan outside those rules, a
 // tensor map the driver refuses, or a launch the card refuses (a cluster
 // it cannot place). Safe to call from several threads.
@@ -706,4 +877,31 @@ extern "C" int mas_attn_o_residual_paired(
     int B, int H, int T, int HD, float scale_log2, int cs, void* stream) {
   return launch<true>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T, HD,
                       scale_log2, cs, stream);
+}
+
+// K11: K1's arguments, and form, the softmax division (0 = x 1/l after PV,
+// "post", K1 itself; 1 = / l after PV, True; 2 = p / l before PV,
+// False). The same plans as K1 (cs blocks a cluster). Returns a
+// cudaError_t value: a plan or form outside the rules, a tensor map the
+// driver refuses, or a launch the card refuses.
+extern "C" int mas_attn_o_residual_ab(const void* q, const void* k,
+                                      const void* v, long long sb,
+                                      long long sh, long long st,
+                                      const void* x, const void* wo,
+                                      const void* bo, void* out, int B, int H,
+                                      int T, int HD, float scale_log2, int cs,
+                                      int form, void* stream) {
+  switch (form) {
+    case POST:
+      return launch<false, POST>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                                 HD, scale_log2, cs, stream);
+    case DIV:
+      return launch<false, DIV>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                                HD, scale_log2, cs, stream);
+    case NORM:
+      return launch<false, NORM>(q, k, v, sb, sh, st, x, wo, bo, out, B, H, T,
+                                 HD, scale_log2, cs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

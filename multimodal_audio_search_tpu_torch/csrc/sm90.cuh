@@ -392,6 +392,25 @@ __device__ __forceinline__ void reg_fence(int& r) {
 #undef MAS_R32
 #undef MAS_R64
 
+// ---------------------------------------------------------- row division
+// x / d rounded to nearest, as a true division gives it, from r = 1 / d
+// (itself a true division, once a row): q = x r, then one correction
+// step with the exact residual x - q d (an FMA), q + (x - q d) r
+// (Markstein). A row's divisor is fixed, so a quotient pays three
+// FMA-pipe operations, with no branch, in place of a division's
+// reciprocal, refinement and range check (a call with a branch, which
+// kept ptxas from interleaving K9's score chains: the stamps in PERF.md).
+// K9 divides p / l and pw / ps with it, K11 o / l and p / l; the card
+// tests hold it to the true division (mas_k9_division_check: 1.6e7
+// quotients x / l with x in [2^-100, 1], l in [1, 12288], pw / ps, and
+// K11's o / l with |o| <= 16 l). Below x = 2^-100 the quotient can leave
+// the normal range and miss by an ulp there; such a key's weight is
+// under 2^-100 and moves no bf16 p and no int8 code.
+__device__ __forceinline__ float div_row(float x, float d, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), r, q);
+}
+
 // ----------------------------------------- flash attention on wgmma (fa)
 // The pieces of the encoder's attention loop on Hopper (K8 in
 // encoder_attention.cu; K1 and K10 in encoder_block_wgmma.cu): a consumer
@@ -453,6 +472,20 @@ __device__ __forceinline__ void issue_pv(float o[32], const uint32_t pa[NS / 2],
     wgmma_m64n64k16_rs_mn(o, &pa[4 * kk], dv + kk * (2048 >> 4));
 }
 
+// The tile's scores of keys >= T (keys kv0 ..) set to -inf: TMA fills the
+// rows past T with zeros, which would otherwise score 0.
+__device__ __forceinline__ void mask_tail(float s[NS], int kv0, int T,
+                                          int t4) {
+  if (kv0 + BN > T) {
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int key = kv0 + jn * 8 + 2 * t4;
+      if (key >= T) s[4 * jn] = s[4 * jn + 2] = -INFINITY;
+      if (key + 1 >= T) s[4 * jn + 1] = s[4 * jn + 3] = -INFINITY;
+    }
+  }
+}
+
 // One online-softmax step on the tile's scores (keys kv0 ..): keys >= T
 // set to -inf, s -> p = exp2(s * scale_log2 - m_new) in place, the row
 // sums l of the unrounded p updated, c = exp2(m_old - m_new) returned for
@@ -462,14 +495,7 @@ __device__ __forceinline__ void softmax_step(float s[NS], int kv0, int T,
                                              int t4, float scale_log2,
                                              float& m0, float& m1, float& l0,
                                              float& l1, float& c0, float& c1) {
-  if (kv0 + BN > T) {
-#pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn) {
-      const int key = kv0 + jn * 8 + 2 * t4;
-      if (key >= T) s[4 * jn] = s[4 * jn + 2] = -INFINITY;
-      if (key + 1 >= T) s[4 * jn + 1] = s[4 * jn + 3] = -INFINITY;
-    }
-  }
+  mask_tail(s, kv0, T, t4);
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int jn = 0; jn < BN / 8; ++jn) {
@@ -628,30 +654,54 @@ inline MapSpec map_spec(const void* base, CUtensorMapDataType type, int rank,
 }
 
 // Launches `kernel` as clusters of `cluster` blocks along x (gridDim.x a
-// multiple of it). A launch the card refuses (too large a cluster for the
+// multiple of it). With `early`, the launch is a programmatic dependent of
+// the stream's previous kernel: its blocks may start once that kernel's
+// blocks have all run griddepcontrol.launch_dependents (or exited), and
+// must run griddepcontrol.wait (grid_dependency_wait) before they read
+// what it writes. A launch the card refuses (too large a cluster for the
 // shared memory each block asks, or more blocks than it allows) returns
 // its error, which is then taken off the thread's last error so the next
 // launch's cudaGetLastError() does not report it; nothing falls back.
 template <typename... Params, typename... Args>
-inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
-                          int threads, size_t smem, cudaStream_t stream,
-                          Args... args) {
+inline int launch_cluster_ex(bool early, void (*kernel)(Params...), dim3 grid,
+                             int cluster, int threads, size_t smem,
+                             cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = early ? 2 : 1;
   const cudaError_t e =
       cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
   if (e != cudaSuccess) (void)cudaGetLastError();
   return (int)e;
+}
+
+template <typename... Params, typename... Args>
+inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster,
+                          int threads, size_t smem, cudaStream_t stream,
+                          Args... args) {
+  return launch_cluster_ex(false, kernel, grid, cluster, threads, smem,
+                           stream, args...);
+}
+
+// Programmatic dependent launch, device side: a kernel lets the stream's
+// next kernel (launched early) start, and the next kernel waits until
+// this one has finished and its writes are visible.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace sm90

@@ -469,8 +469,85 @@ def fused_mlp_block_o(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
                              eps=eps)
 
 
+# K14's attention: split-T over a thread-block cluster of up to
+# X_MAX_CLUSTER blocks a (batch row, head), at least X_KEYS_PER_BLOCK keys
+# a block where there are enough; a block holds the first X_PREFIX of its
+# V rows in shared memory and asks at most X_SMEM_LIMIT bytes
+# (csrc/decoder_block.cu's x_smem_bytes, mirrored in cross_smem_bytes).
+X_MAX_CLUSTER, X_KEYS_PER_BLOCK, X_SMEM_LIMIT = 16, 64, 200 * 1024
+X_PREFIX = 320
+X_ROWS = 32   # key rows a pass of the block's 256 threads
+_X_FIT: dict = {}
+_X_PLAN: dict = {}   # cross_plan by (device, T, H, B), asked once
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def cross_smem_bytes(chunk: int) -> int:
+    """The dynamic shared memory of a K14 attention block of ``chunk``
+    keys: 128 bytes to align, the first X_PREFIX of its V rows (128 bytes
+    each) in whole TMA boxes of at most 256 rows, later its row groups'
+    p . V partials, then the logits, later the row groups' sums."""
+    p = min(chunk, X_PREFIX)
+    nbox = -(-p // 256)
+    r = -(-p // nbox)
+    v = max(-(-p // r) * r * 128, X_ROWS * 64 * 4)
+    return 128 + _align128(v) + _align128(4 * max(chunk, X_ROWS))
+
+
+def cross_plan(t: int, heads: int, b: int = 1, fit=None,
+               cluster: int | None = None) -> tuple[int, int]:
+    """(blocks a cluster, keys a block) of K14's attention over t keys
+    for b x heads (batch row, head) rows: rank r takes the keys [r chunk,
+    min(t, (r + 1) chunk)), so the ranks cover every key once. ``fit(cs,
+    chunk)`` is how many clusters of cs blocks the card holds at once
+    (None: no limit). As K6's and K7's plans, the largest cluster whose
+    b x heads clusters are all resident at once (at most X_MAX_CLUSTER,
+    at least X_KEYS_PER_BLOCK keys a block where there are enough), so the
+    keys stream in one wave and every multiprocessor's link is kept busy
+    by several blocks (on an H100 at B=32, T=1500: 2 blocks of 750 keys
+    at both Whisper widths, four blocks an SM); where none is, the
+    smallest, whose blocks each stream the most keys. ``cluster`` forces
+    the size (the card tests use it)."""
+    if t < 1:
+        raise ValueError(f"K14 attends at least one key, got T={t}")
+    if cluster is not None and not 1 <= cluster <= X_MAX_CLUSTER:
+        raise ValueError(f"K14 clusters hold 1..{X_MAX_CLUSTER} blocks, "
+                         f"got {cluster}")
+    top = min(X_MAX_CLUSTER, -(-t // X_KEYS_PER_BLOCK))
+    sizes = [c for c in ([cluster] if cluster else range(top, 0, -1))
+             if cross_smem_bytes(-(-t // c)) <= X_SMEM_LIMIT
+             and (fit is None or fit(c, -(-t // c)) >= 1)]
+    if not sizes:
+        raise ValueError(f"K14: no cluster of {cluster or X_MAX_CLUSTER} "
+                         f"blocks the card places holds T={t} keys in "
+                         f"{X_SMEM_LIMIT} bytes a block")
+    cs = next((c for c in sizes if fit is None
+               or fit(c, -(-t // c)) >= b * heads), sizes[-1])
+    return cs, -(-t // cs)
+
+
+def _fit_cross(dev: torch.device):
+    """fit() for cross_plan on ``dev``, asked of the card once per shape."""
+    def fit(cs: int, chunk: int) -> int:
+        key = (dev, cs, chunk)
+        if key not in _X_FIT:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                runtime.check_launch(
+                    runtime.kernels().mas_cross_mlp_attention_fit(
+                        cs, chunk, ctypes.byref(out)),
+                    "mas_cross_mlp_attention_fit")
+            _X_FIT[key] = out.value
+        return _X_FIT[key]
+    return fit
+
+
 def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
-                      wm1, bm1, wm2, bm2, k_m, v_m, heads: int, eps: float):
+                      wm1, bm1, wm2, bm2, k_m, v_m, heads: int, eps: float,
+                      cluster: int | None = None):
     b, hd = x.shape
     f = wm1.shape[1]
     if hd != heads * 64 or hd > MAX_D or f % 32:
@@ -491,6 +568,13 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
     _check("K14", x, x=x, wcq=wcq, wco=wco, wm1=wm1, bm1=bm1, wm2=wm2,
            k_m=k_m, v_m=v_m, **vecs)
     dev = x.device
+    if cluster is None:   # one lookup a shape and card
+        key = (dev, t, heads, b)
+        if key not in _X_PLAN:
+            _X_PLAN[key] = cross_plan(t, heads, b, _fit_cross(dev))
+        cs, chunk = _X_PLAN[key]
+    else:
+        cs, chunk = cross_plan(t, heads, b, _fit_cross(dev), cluster)
     f32 = torch.float32
     q1, out = torch.empty_like(x), torch.empty_like(x)
     lib = runtime.kernels()
@@ -500,7 +584,7 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
         _buf(dev, "attn", b * hd, f32), _buf(dev, "x32", b * hd, f32),
         _buf(dev, "h", b * hd, torch.bfloat16),
         _buf(dev, "part", f // 32 * b * hd, f32), _counters(dev),
-        out.data_ptr(), b, heads, t, f, 1.0 / math.sqrt(64), eps,
+        out.data_ptr(), b, heads, t, f, cs, chunk, 1.0 / math.sqrt(64), eps,
         runtime.sm_count(dev), runtime.stream_handle(dev))
     runtime.check_launch(rc, "mas_cross_mlp_block")
     runtime.bump("cross_mlp_block")
@@ -512,9 +596,10 @@ def fused_cross_mlp_block(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
                           eps: float = 1e-5):
     """B12: x -> x1 = x + cross attention of LN2(x) over k_m/v_m [B, T, D]
     @ Wco + bco -> x1 + fc2(gelu(fc1(LN3 x1))), [B, D]. CUDA tensors
-    launch K14 (one C call: K3-q's LN + row projection, B12's attention,
-    K4-o's o-projection + MLP; bf16, float32 LN scales), CPU tensors the
-    plain version."""
+    launch K14 (one C call: the LN + row projection, B12's attention split
+    over the keys of a thread-block cluster by cross_plan, K4-o's
+    o-projection + MLP; bf16, float32 LN scales), CPU tensors the plain
+    version."""
     if _device(x) == "cuda":
         return _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
                                  ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, heads,

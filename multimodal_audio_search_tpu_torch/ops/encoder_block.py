@@ -7,12 +7,12 @@ fused_attention_o_residual``: its default bf16 body (K1), its
 ``pair_heads=True`` body (K10, ``fused_encoder="paired"``); and of the A/B
 copy ``tools/profile_encoder_kernel_ab.py::fused_v2`` (K11), which places
 the softmax division three ways. On a CUDA tensor each wrapper launches
-its hand-written kernel (K1 and K10 ``csrc/encoder_block_wgmma.cu``: a
-thread-block cluster over the heads of a 128-row tile, sized by
-``cluster_plan``; K9 ``csrc/encoder_block_int8.cu``; K11
-``csrc/encoder_block.cu``); on a CPU tensor it runs the plain PyTorch
-version beside it, the same math. There is no other route: a launch that
-fails, or a cluster the card cannot place, raises.
+its hand-written kernel (K1, K10 and K11 ``csrc/encoder_block_wgmma.cu``:
+a thread-block cluster over the heads of a 128-row tile, sized by
+``cluster_plan`` for the card it runs on; K11's "post" form is K1 itself;
+K9 ``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
+PyTorch version beside it, the same math. There is no other route: a
+launch that fails, or a cluster the card cannot place, raises.
 """
 from __future__ import annotations
 
@@ -125,20 +125,43 @@ def cluster_ranks(heads: int, cs: int,
              for h in range(u * g, u * g + g)] for r in range(cs)]
 
 
+def _card(device) -> torch.device:
+    """``device`` as a CUDA device with its index (None: the current one)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @functools.lru_cache(maxsize=None)
-def cluster_fit(cs: int, pair_heads: bool = False) -> int:
-    """The clusters of ``cs`` K1 (K10) blocks the current card holds at
-    once (cudaOccupancyMaxActiveClusters), asked once per size."""
+def _fit(cs: int, pair_heads: bool, device: torch.device) -> int:
     n = ctypes.c_int(0)
-    runtime.check_launch(runtime.kernels().mas_encoder_block_fit(
-        int(pair_heads), cs, ctypes.byref(n)), "mas_encoder_block_fit")
+    with torch.cuda.device(device):
+        runtime.check_launch(runtime.kernels().mas_encoder_block_fit(
+            int(pair_heads), cs, ctypes.byref(n)), "mas_encoder_block_fit")
     return n.value
 
 
+def cluster_fit(cs: int, pair_heads: bool = False, device=None) -> int:
+    """The clusters of ``cs`` K1 (K10; K11's blocks are K1's) blocks the
+    card ``device`` (None: the current one) holds at once
+    (cudaOccupancyMaxActiveClusters), asked once per size and card."""
+    return _fit(cs, pair_heads, _card(device))
+
+
 @functools.lru_cache(maxsize=256)
-def _card_plan(heads: int, batch: int, t: int, pair_heads: bool) -> int:
-    return cluster_plan(heads, batch, t,
-                        lambda cs: cluster_fit(cs, pair_heads), pair_heads)
+def _plan(heads: int, batch: int, t: int, pair_heads: bool,
+          device: torch.device) -> int:
+    return cluster_plan(
+        heads, batch, t, lambda cs: cluster_fit(cs, pair_heads, device),
+        pair_heads)
+
+
+def _card_plan(heads: int, batch: int, t: int, pair_heads: bool = False,
+               device=None) -> int:
+    """cluster_plan on the card ``device`` (None: the current one), kept
+    per shape and card: two cards of a process do not share a plan."""
+    return _plan(heads, batch, t, pair_heads, _card(device))
 
 
 # K11's forms of the softmax division (TPU A/B tool: defer_div), by the
@@ -267,16 +290,16 @@ def _check_q_strides(name, q):
 
 def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
             cluster=None):
-    """K1, or K10 (pair_heads), on clusters of ``cluster`` blocks (default:
-    the plan for this shape on this card); or K11 (form, a key of
-    AB_FORMS)."""
+    """K1, or K10 (pair_heads), or K11 (form, a key of AB_FORMS), on
+    clusters of ``cluster`` blocks (default: the plan for this shape on
+    this card)."""
     name = "K10" if pair_heads else "K11" if form is not None else "K1"
     sb, sh, st = _check_block_args(name, q, k, v, x, wo, bo)
     b, h, t, d = q.shape
     if pair_heads and h % 2:
         raise ValueError(f"K10 pairs heads; H={h} is odd")
-    if form is None and cluster is None:
-        cluster = _card_plan(h, b, t, pair_heads)
+    if cluster is None:
+        cluster = _card_plan(h, b, t, pair_heads, x.device)
     out = torch.empty_like(x)
     lib = runtime.kernels()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
@@ -288,8 +311,8 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
                                                      stream), \
             "mas_attn_o_residual_paired", "encoder_attn_o_residual_paired"
     elif form is not None:
-        rc, fn, key = lib.mas_attn_o_residual_ab(*args, AB_FORMS[form],
-                                                 stream), \
+        rc, fn, key = lib.mas_attn_o_residual_ab(*args, cluster,
+                                                 AB_FORMS[form], stream), \
             "mas_attn_o_residual_ab", "encoder_attn_o_residual_ab"
     else:
         rc, fn, key = lib.mas_attn_o_residual(*args, cluster, stream), \

@@ -58,12 +58,12 @@ COUNTS: dict[str, int] = {
 
 # called once when the library loads: the kernels' shared-memory limits
 # and the tensor-map encoder (K8, K5)
-INIT = ("mas_attn_o_residual_init", "mas_attn_o_residual_int8_init",
+INIT = ("mas_attn_o_residual_int8_init",
         "mas_encoder_attention_init", "mas_encoder_block_init",
         "mas_quant_matmul_init",
         "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
         "mas_decoder_self_block_init",
-        "mas_single_query_attention_int8_init")
+        "mas_single_query_attention_int8_init", "mas_cross_mlp_block_init")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -143,7 +143,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
     lib.mas_encoder_block_fit.argtypes = [i, i, p]  # paired, cluster, out
     lib.mas_encoder_block_fit.restype = i
-    lib.mas_attn_o_residual_ab.argtypes = [*block, i, p]  # form, stream
+    # cluster, the division's form, stream
+    lib.mas_attn_o_residual_ab.argtypes = [*block, i, i, p]
     lib.mas_attn_o_residual_ab.restype = i
     lib.mas_attn_o_residual_int8.argtypes = [
         p, ll, ll, ll,            # q and its strides
@@ -226,8 +227,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,                     # k, v
         p, p, p, p, p, p, p,      # q1, attn, x32, h, partials, counters, out
         i, i, i, i,               # B, H, T, F
+        i, i,                     # cluster blocks, keys a block
         f, f, i, p]               # scale, eps, multiprocessors, stream
     lib.mas_cross_mlp_block.restype = i
+    lib.mas_cross_mlp_attention_fit.argtypes = [i, i, p]  # cluster, keys, out
+    lib.mas_cross_mlp_attention_fit.restype = i
 
 
 def _build(so: pathlib.Path) -> tuple[str, str]:

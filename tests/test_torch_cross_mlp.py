@@ -94,11 +94,17 @@ def _attention_args(seed=0, b=8, t=20, d=32, f=64):
     return [a.float().numpy() for a in args]
 
 
-def _emulate(args, heads, fault=None):
+def _emulate(args, heads, fault=None, cs=1):
     """K14's arithmetic in float64 with the twin's bf16 roundings (so only
-    the order and precision of the sums differ from the twin), and on
-    request a planted fault: "divide before PV" (p / l rounded to bf16,
-    then PV) or "p unrounded" (PV on unrounded p)."""
+    the order and precision of the sums differ from the twin): its
+    attention split over the keys of a cluster of ``cs`` blocks (rank r
+    the keys [r chunk, (r + 1) chunk)), p = exp(logit - m) with the
+    global max m the ranks exchange, and each rank's sum of p and p . V
+    added in rank order, then divided by l once. On request a planted
+    fault: "divide before PV" (p / l rounded to bf16, then PV), "p
+    unrounded" (PV on unrounded p), or "split max" (K2's split-T merge:
+    each rank rounds p against its own max and rescales its sums by
+    exp(m_r - m) afterwards)."""
     def r(a):
         return a.to(torch.bfloat16).double()
 
@@ -115,14 +121,24 @@ def _emulate(args, heads, fault=None):
     q1 = r(r(ln(xf, g2, b2)) @ r(wcq) + r(bcq)).reshape(b, heads, d)
     kh, vh = (r(a).reshape(b, t, heads, d) for a in (k, v))
     logits = torch.einsum("bhd,bthd->bht", q1, kh) / math.sqrt(d)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True)
     if fault == "divide before PV":
         of = torch.einsum("bht,bthd->bhd", r(p / l), vh)
     elif fault == "p unrounded":
         of = torch.einsum("bht,bthd->bhd", p, vh) / l
     else:
-        of = torch.einsum("bht,bthd->bhd", r(p), vh) / l
+        chunk = -(-t // cs)
+        of, l = 0, 0
+        for r0 in range(0, t, chunk):   # the ranks in order
+            lg = logits[..., r0:r0 + chunk]
+            mr = lg.amax(-1, keepdim=True) if fault == "split max" else m
+            pr, w = torch.exp(lg - mr), torch.exp(mr - m)
+            l = l + pr.sum(-1, keepdim=True) * w
+            of = of + torch.einsum("bht,bthd->bhd", r(pr),
+                                   vh[:, r0:r0 + chunk]) * w
+        of = of / l
     x1 = xf + r(of.reshape(b, hd)) @ r(wco) + r(bco)
     u = r(ln(x1, g3, b3)) @ r(w1) + r(b1)
     u = r(0.5 * u * (1 + torch.erf(u / math.sqrt(2))))
@@ -178,3 +194,68 @@ def test_k14_card_checks_reject_planted_faults():
     faulty = DB.cross_mlp_block_plain(*blk[:13], k0, blk[14], heads=heads)
     with pytest.raises(AssertionError, match="off its plain version"):
         chip_smoke.check_delta("K14 head 0's keys", faulty, ref, blk[0])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k14_cluster_arithmetic_and_split_max_fault(seed):
+    """chip_smoke's bit check on its "attention" input at base width (B=8,
+    T=1500): the emulation of K14's split-T cluster (the global max
+    exchanged before any p is rounded, the ranks' sums in rank order)
+    passes at 125- and 750-key splits (cs 12 and 2) and on one block; K2's
+    split-T merge, p rounded against each split's own max and rescaled
+    afterwards, fails it. Readings (equal share, limit K14_EQUAL_MIN =
+    0.99): the cluster 0.9988 (seed 0) and 1.0 (seed 1) at every cs; the
+    split-max merge 0.502-0.509 at cs 12 and 0.567-0.577 at cs 2."""
+    gen = torch.Generator().manual_seed(seed)
+    b, t, d, heads, f = 8, 1500, 512, 8, 2048
+    att = chip_smoke.k14_inputs(gen, b, t, d, f, attention_only=True,
+                                device="cpu")
+    ref = DB.cross_mlp_block_plain(*att, heads=heads)
+    arr = [a.float().numpy() for a in att]
+    for cs in (1, 2, 12):
+        chip_smoke.check_bits(f"K14 cs={cs}", _emulate(arr, heads, cs=cs),
+                              ref)
+    for cs in (2, 12):
+        with pytest.raises(AssertionError, match="bit for bit"):
+            chip_smoke.check_bits(f"K14 split max cs={cs}",
+                                  _emulate(arr, heads, "split max", cs), ref)
+
+
+# clusters of cs K14 attention blocks an H100 80GB HBM3 holds at once at
+# T=1500 (mas_cross_mlp_attention_fit through ops/decoder_block.py::
+# _fit_cross, PERF.md)
+H100_X_FIT = {1: 528, 2: 264, 3: 163, 4: 124, 5: 94, 6: 79, 7: 69, 8: 62,
+              9: 51, 10: 44, 11: 37, 12: 37, 13: 30, 14: 30, 15: 28, 16: 28}
+
+
+@pytest.mark.parametrize("b,heads,t", [
+    (32, 8, 1500), (32, 6, 1500), (1, 8, 1500), (3, 6, 77), (5, 6, 1),
+    (128, 8, 1500), (2, 20, 12288)])
+def test_k14_cross_plan(b, heads, t):
+    """K14's attention plan on the H100's recorded cluster occupancy: the
+    ranks cover every key once (the last may hold none), a block fits its
+    shared memory, and the size is the largest whose b x heads clusters
+    are all resident (2 blocks of 750 keys at both Whisper widths, B=32,
+    T=1500); past what the card holds at once (B=128), one block a row."""
+    fit = (lambda cs, chunk: H100_X_FIT[cs])
+    cs, chunk = DB.cross_plan(t, heads, b, fit)
+    assert cs * chunk >= t and chunk == -(-t // cs)
+    assert DB.cross_smem_bytes(chunk) <= DB.X_SMEM_LIMIT
+    resident = [c for c in range(1, DB.X_MAX_CLUSTER + 1)
+                if H100_X_FIT[c] >= b * heads
+                and c <= max(1, -(-t // DB.X_KEYS_PER_BLOCK))]
+    assert cs == (max(resident) if resident else 1)
+    if (b, t) == (32, 1500):
+        assert (cs, chunk) == (2, 750)
+
+
+def test_k14_cross_plan_refusals():
+    """A cluster past 16 blocks, no key, and a card that places no
+    cluster each raise; a forced size is kept."""
+    with pytest.raises(ValueError):
+        DB.cross_plan(1500, 8, 32, cluster=17)
+    with pytest.raises(ValueError):
+        DB.cross_plan(0, 8, 32)
+    with pytest.raises(ValueError):
+        DB.cross_plan(1500, 8, 32, lambda cs, chunk: 0)
+    assert DB.cross_plan(1500, 8, 32, cluster=5) == (5, 300)

@@ -20,12 +20,14 @@ at forced head layouts and cluster sizes with empty ranks and a dropped
 rank; the
 encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
 output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
-edges, K9, K1 and K10 at D = 384-1280, K1 and K10 on every cluster size
-they take, with planted faults and a cluster the card refuses;
+edges, K9, K1 and K10 at D = 384-1280, K1, K10 and K11's three forms on
+every cluster size they take, with planted faults and a cluster the card
+refuses, and the row division K9 and K11 share held to the true one;
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
-and, on the attention input, check_rel and check_bits; calibrate() and
+and, on the attention input, check_rel and check_bits, on every cluster
+size of its attention, with the plans it refuses; calibrate() and
 search_batch on the card.
 """
 import pytest
@@ -924,14 +926,64 @@ def test_k1_raises_on_a_cluster_the_card_refuses(cuda):
                         EB.attention_o_residual_plain(*args), True)
 
 
-@pytest.mark.parametrize("case", ["p / l", "pw / ps"])
+@pytest.mark.parametrize("heads,t", [(8, 300), (6, 129), (20, 257),
+                                     (8, 1501)])
+def test_k11_every_form_and_cluster_size(cuda, heads, t):
+    """K11's three forms on every cluster size the kernel takes at a shape
+    (one to four heads a block, even and uneven splits; at T = 129 and
+    1501 a last 128-key tile of one key), each held by chip_smoke's K1
+    check on the attention input and one launch each; on the plan's size
+    also on the residual and peaked inputs."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(600 + t + heads)
+    sizes = [c for c in range(1, min(heads, EB.MAX_CLUSTER) + 1)
+             if -(-heads // c) <= EB.BLOCK_HEADS]
+    plan = EB._card_plan(heads, 2, t)
+    assert plan in sizes
+    for inputs, q_scale, residual in chip_smoke.K1_CASES:
+        args = chip_smoke.k1_inputs(gen, 2, t, heads, q_scale=q_scale,
+                                    residual=residual)
+        for form in (False, True, "post"):
+            plain = EB.attention_o_residual_ab_plain(*args, form)
+            for c in sizes if inputs == "attention" else [plan]:
+                runtime.reset_counts()
+                got = EB._launch(*args, form=form, cluster=c)
+                torch.cuda.synchronize()
+                assert runtime.COUNTS["encoder_attn_o_residual_ab"] == 1
+                assert sum(runtime.COUNTS.values()) == 1
+                chip_smoke.check_k1(f"K11 {form} cluster {c} {inputs}", got,
+                                    plain, residual)
+
+
+def test_k11_raises_on_a_cluster_the_card_refuses(cuda):
+    """K11 on a cluster the card cannot place (17 blocks, past its 16) and
+    on a plan outside the kernel's rules (five heads a block) raises from
+    the wrapper in every form, counting no launch; the next kernel's
+    launch check finds no error left behind."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(16)
+    args = chip_smoke.k1_inputs(gen, 1, 200, 20)
+    for form in (False, True, "post"):
+        for cluster in (17, 4):
+            runtime.reset_counts()
+            with pytest.raises(RuntimeError, match="mas_attn_o_residual_ab"):
+                EB._launch(*args, form=form, cluster=cluster)
+            assert sum(runtime.COUNTS.values()) == 0
+    chip_smoke.check_k1("after", EB.attention_o_residual_ab(*args, False),
+                        EB.attention_o_residual_ab_plain(*args, False), True)
+
+
+@pytest.mark.parametrize("case", ["p / l", "pw / ps", "o / l"])
 def test_k9_row_division_is_the_true_division(cuda, case):
-    """K9 divides by a row's reciprocal with one correction step; over
-    1.6e7 random quotients in the ranges it divides (exp(s - m) in
-    [1e-30, 1] by a row sum l in [1, 12288]; pw in [0, 127 ps] by ps down
-    to 1e-30 / 127) every bit matches the true division (below 2^-100 the
-    quotient may leave float32's normal range, where the kernel's note
-    says why no code can move)."""
+    """K9 and K11 divide by a row's reciprocal with one correction step
+    (sm90.cuh div_row); over 1.6e7 random quotients in the ranges they
+    divide (exp(s - m) in [1e-30, 1] by a row sum l in [1, 12288]; pw in
+    [0, 127 ps] by ps down to 1e-30 / 127; K11's True form: a head's PV
+    output o, |o| <= 16 l, by l) every bit matches the true division
+    (below 2^-100 the quotient may leave float32's normal range, where
+    div_row's note says why no code or bf16 p can move)."""
     from multimodal_audio_search_tpu_torch import runtime
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = 1 << 24
@@ -939,6 +991,9 @@ def test_k9_row_division_is_the_true_division(cuda, case):
     if case == "p / l":
         x = torch.exp(-69.0 * u)                # down to 1e-30 > 2^-100
         d = 1.0 + 12287.0 * torch.rand(n, generator=gen, device="cuda")
+    elif case == "o / l":
+        d = 1.0 + 12287.0 * torch.rand(n, generator=gen, device="cuda")
+        x = (2.0 * u - 1.0) * 16.0 * d
     else:
         d = torch.exp(-69.0 * torch.rand(n, generator=gen, device="cuda")) \
             / 127.0                             # ps in [1e-30 / 127, 1 / 127]
@@ -1192,6 +1247,53 @@ def test_k14_matches_plain(cuda, b, t, label):
             chip_smoke.check_rel("K14", got, ref, chip_smoke.K1_Y_MAX,
                                  chip_smoke.K1_Y_L2)
             chip_smoke.check_bits("K14", got, ref)
+
+
+@pytest.mark.parametrize("b,t,label", [(3, 77, "base"), (2, 1501, "tiny"),
+                                       (1, 129, "large")])
+def test_k14_every_cluster_size(cuda, b, t, label):
+    """K14's attention on every cluster size (1 to 16 blocks: at T=77 and
+    129 the last ranks hold no key), on the "attention" input, held by
+    chip_smoke's bit check and check_rel; one launch each."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    widths = {w[0]: w for w in chip_smoke.DEC_WIDTHS}
+    widths.update(large=("large", 1280, 20, 5120))
+    _, d, heads, f = widths[label]
+    gen = torch.Generator().manual_seed(700 + t)
+    args = chip_smoke.k14_inputs(gen, b, t, d, f, attention_only=True)
+    ref = DB.cross_mlp_block_plain(*args, heads=heads)
+    for c in range(1, DB.X_MAX_CLUSTER + 1):
+        runtime.reset_counts()
+        got = DB._launch_cross_mlp(*args, heads, 1e-5, cluster=c)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["cross_mlp_block"] == 1
+        assert sum(runtime.COUNTS.values()) == 1
+        chip_smoke.check_rel(f"K14 cluster {c}", got, ref,
+                             chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
+        chip_smoke.check_bits(f"K14 cluster {c}", got, ref)
+
+
+def test_k14_raises_on_a_plan_the_card_or_kernel_refuses(cuda, monkeypatch):
+    """No fallback for K14's attention: a cluster past 16 blocks, a block
+    past its shared memory (the card's fit is 0 there, and a plan with no
+    size the card places raises), and a plan outside the kernel's rules
+    (ranks that leave keys uncovered) each raise, counting no launch."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(17)
+    args = chip_smoke.k14_inputs(gen, 2, 77, 384, 1536)
+    fit = DB._fit_cross(args[0].device)
+    assert fit(1, 50000) == 0 and fit(2, 39) > 0   # 200 KB of logits
+    with pytest.raises(ValueError):
+        DB._launch_cross_mlp(*args, 6, 1e-5, cluster=17)
+    with pytest.raises(ValueError):
+        DB.cross_plan(77, 6, 2, lambda cs, chunk: 0)
+    monkeypatch.setattr(DB, "cross_plan", lambda *a, **k: (2, 30))
+    runtime.reset_counts()
+    with pytest.raises(RuntimeError, match="mas_cross_mlp_block"):
+        DB._launch_cross_mlp(*args, 6, 1e-5, cluster=2)
+    assert sum(runtime.COUNTS.values()) == 0
 
 
 def test_new_wrappers_raise_instead_of_falling_back(cuda):

@@ -105,6 +105,48 @@ def test_generate_fused_layer_tokens_identical(rng, fused, penalty, ngram):
                                   np.asarray(ref.lengths))
 
 
+@pytest.mark.parametrize("fused,b", [(False, 5), (True, 8), ("v2", 8)])
+@pytest.mark.parametrize("penalty,ngram", [(1.0, 0), (1.3, 2)])
+def test_generate_early_eos_tokens_identical(fused, b, penalty, ngram):
+    """Rows that end early: the test preset's EOS embedding row scaled by
+    1, 3, 6 and 10 (the logits are tied, so EOS wins more often) over two
+    seeds, unfused at B=5 and with fused_layer True and "v2" at B=8. The
+    tokens (the pad after each row's EOS included) and the lengths equal
+    JAX's in every decode; across the decodes some rows stop early and
+    some batches mix lengths (2, 4 and 10 tokens here)."""
+    cfg = JW.PRESETS["test"]
+    kw = dict(max_new_tokens=10, repetition_penalty=penalty,
+              no_repeat_ngram_size=ngram,
+              **({"fused_layer": fused} if fused else {}))
+    prefix = np.tile(np.asarray(JW.forced_prefix(cfg), np.int32), (b, 1))
+    lengths = []
+    for seed in (0, 1):
+        base = _np(JW.init_params(jax.random.PRNGKey(seed), cfg))
+        enc = np.random.default_rng(seed).normal(
+            size=(b, 100, cfg.d_model)).astype(np.float32)
+        for scale in (1, 3, 6, 10):
+            emb = np.array(base["decoder"]["embed_tokens"])
+            emb[cfg.eos_token_id] *= scale
+            jp = dict(base, decoder=dict(base["decoder"], embed_tokens=emb))
+            tp = W.prepare_params(weights.whisper_params(jp), torch.float32,
+                                  CPU)
+            ref = JG.generate(jax.tree.map(jnp.asarray, jp),
+                              jnp.asarray(enc), jnp.asarray(prefix), cfg=cfg,
+                              decode=jcfg.DecodeConfig(**kw), prefix_len=4,
+                              max_new_tokens=10)
+            out = G.generate(tp, torch.from_numpy(enc),
+                             torch.from_numpy(prefix), cfg=W.PRESETS["test"],
+                             decode=tcfg.DecodeConfig(**kw),
+                             max_new_tokens=10)
+            np.testing.assert_array_equal(out.tokens.numpy(),
+                                          np.asarray(ref.tokens))
+            np.testing.assert_array_equal(out.lengths.numpy(),
+                                          np.asarray(ref.lengths))
+            lengths.append(out.lengths.tolist())
+    assert any(min(row) < 10 for row in lengths)
+    assert any(len(set(row)) > 1 for row in lengths)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3])
 def test_logits_processors_match(rng, n):
     logits = rng.normal(size=(4, 50)).astype(np.float32)

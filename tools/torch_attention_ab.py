@@ -26,8 +26,12 @@ chip_smoke's residual input (K10 at even head counts, K9 on quantize_kv's
 codes), each K1/K10 row with its cluster plan where the checkout has one;
 with K1, the unfused route at D = 384 and 512 on the same inputs (K8,
 one torch.addmm for the o-projection, the residual add: the yardstick K1
-should be at or under). ``--kernels`` keeps the named kernels. Needs a
-CUDA card; inputs come from a seeded torch.Generator.
+should be at or under); K11 (the division A/B) in each of its three forms
+at whisper-base width (H=8) at B=32, T=1500 and at the A/B tool's B=64,
+T=500 and 1500, on the residual input against its plain forms, with the
+cluster plan where the checkout runs K11 on K1's clusters.
+``--kernels`` keeps the named kernels (K11 is not in the default
+list). Needs a CUDA card; inputs come from a seeded torch.Generator.
 """
 from __future__ import annotations
 
@@ -139,7 +143,7 @@ def main() -> int:
         print(json.dumps(row), flush=True)
     t = 1500
     plan = getattr(EB, "_card_plan", None)  # the checkout's cluster plan
-    for heads in (8, 6, 12, 16, 20):
+    for heads in (8, 6, 12, 16, 20) if only & {"K1", "K10", "K9"} else ():
         a = cs.k1_inputs(gen, b, t, heads)
         a9 = (a[0], *quantize_kv(a[1], a[2]), *a[3:])
         for key, fn, plain in (
@@ -198,6 +202,31 @@ def main() -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
         del a, a9
+        torch.cuda.empty_cache()
+    # K11 runs on K1's clusters where the checkout has no mma.sync copy
+    k11_clusters = not os.path.exists(os.path.join(
+        args.root, "multimodal_audio_search_tpu_torch", "csrc",
+        "encoder_block.cu"))
+    for b, t in ((32, 1500), (64, 500), (64, 1500)) if "K11" in only else ():
+        heads = 8
+        a = cs.k1_inputs(gen, b, t, heads)
+        for form in (False, True, "post"):
+            def fn(form=form):
+                return EB.attention_o_residual_ab(*a, form)
+            row = {"label": args.label, "kernel": "K11",
+                   "shape": f"B={b} T={t} H={heads} D={heads * d}",
+                   "defer_div": str(form),
+                   **cs.check_k1(f"K11 {form} B={b} T={t}", fn(),
+                                 EB.attention_o_residual_ab_plain(*a, form),
+                                 True),
+                   "ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn),
+                   "host_us": cs.host_us(fn, n=20),
+                   **cs.attn_o_bound(b, t, heads)}
+            if k11_clusters:
+                row["cluster"] = plan(heads, b, t, False)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del a
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -18,7 +18,21 @@ checkout's chip_smoke.py. For each case it prints one JSON line: the card
 * ``host_us``: wall time of 200 calls issued back to back, per call;
 * the plain version's ms and device ms, the bound of the work, and for K5
   one torch._weight_int8pack_mm call (``library_*``) where the card's
-  torch runs it on CUDA.
+  torch runs it on CUDA;
+* for K14, ``stages_device_ms``: the profiler's kernel rows a call by
+  stage -- the q-projection (rowproj_kernel<true>), the attention, K4-o's
+  o-projection head (rowproj_kernel<false>) and its MLP (mlp_kernel);
+  ``span_device_ms``: from the start of a call's first kernel to the end
+  of its last, on the device's clock; ``attention_after_q_ms``: from the
+  end of the q-projection to the end of the attention; ``queued_ms``: the
+  device's milliseconds a call between two CUDA events around 20 calls
+  queued behind a sleep kernel (so no gap the host makes between
+  launches is counted; median of 3); and its attention's cluster plan
+  where the checkout has one. The profiled calls are queued the same
+  way. The attention may start before the q-projection ends (it is
+  launched early and waits for q1 inside), so the stages can add up to
+  more than the span, and then ``device_ms`` (the rows' sum) counts the
+  overlap twice.
 
 Cases: K3 and K3-q at B=32, L=68, pos 67 and both chip_smoke.DEC_WIDTHS;
 K3 at whisper-small's (D=768, H=12) and large's (D=1280, H=20) widths
@@ -54,6 +68,78 @@ def load_chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# K14's kernels by stage: a substring of the profiler's kernel name
+K14_STAGES = (("q_projection", "rowproj_kernel<true"),
+              ("attention", "attention"),
+              ("o_projection", "rowproj_kernel<false"),
+              ("mlp", "mlp_kernel"))
+
+
+# cycles of the sleep kernel that holds the stream while calls are queued
+# behind it (~10 ms at the H100's clocks)
+SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, n: int = 20, tries: int = 3) -> float:
+    """Device milliseconds a call of ``n`` calls queued back to back: a
+    sleep kernel holds the stream while the host enqueues them, and two
+    CUDA events bracket the calls; median of ``tries``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(tries):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[len(times) // 2]
+
+
+def stage_ms(fn, reps: int = 20) -> dict:
+    """K14's stages on the device: torch.profiler's CUDA kernels over
+    ``reps`` calls queued behind a sleep kernel after a warm-up, by name
+    -- each stage's milliseconds a call, a call's span (first kernel's
+    start to last kernel's end), the attention's end after the
+    q-projection's, and queued_ms."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    stages = dict.fromkeys((s for s, _ in K14_STAGES), 0.0)
+    calls = []   # per call: stage -> (start, end), microseconds
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        stage = next((s for s, key in K14_STAGES if key in e.name), None)
+        if stage is None:   # the sleep kernel
+            continue
+        stages[stage] += e.time_range.elapsed_us() / reps / 1e3
+        if stage == "q_projection":
+            calls.append({})
+        if calls:
+            calls[-1][stage] = (e.time_range.start, e.time_range.end)
+    calls = [c for c in calls if len(c) == len(K14_STAGES)]
+    return {"stages_device_ms": stages,
+            "span_device_ms": sum(max(b for _, b in c.values())
+                                  - min(a for a, _ in c.values())
+                                  for c in calls) / len(calls) / 1e3,
+            "attention_after_q_ms": sum(
+                c["attention"][1] - c["q_projection"][1]
+                for c in calls) / len(calls) / 1e3,
+            "calls_profiled": len(calls), "queued_ms": queued_ms(fn)}
 
 
 def main() -> int:
@@ -208,25 +294,37 @@ def main() -> int:
                 ("K4", DB.fused_mlp_block, DB.mlp_block_plain, (x, *mlp)),
                 ("K4-o", DB.fused_mlp_block_o, DB.mlp_block_o_plain,
                  (x, *head, *mlp))):
+            if not want(key):
+                continue
             emit({"label": args.label, "kernel": key,
                   "shape": f"{label} B={b} D={d} F={f}",
                   **cs.check_delta(f"{key} {label}", fused(*a), plain(*a), x),
                   **timings(lambda: fused(*a), lambda: plain(*a)),
                   **cs.bound(cs.nbytes(*a, x), bf16=4 * b * d * f + (
                       2 * b * d * d if key == "K4-o" else 0))})
+        del x, mlp, head
+        if not want("K14"):
+            continue
         a = cs.k14_inputs(gen, b, cs.K14_T, d, f)
         t = cs.K14_T
-        emit({"label": args.label, "kernel": "K14",
-              "shape": f"{label} B={b} T={t} D={d} H={heads} F={f}",
-              **cs.check_delta(f"K14 {label}",
-                               DB.fused_cross_mlp_block(*a, heads=heads),
-                               DB.cross_mlp_block_plain(*a, heads=heads),
-                               a[0]),
-              **timings(lambda: DB.fused_cross_mlp_block(*a, heads=heads),
-                        lambda: DB.cross_mlp_block_plain(*a, heads=heads)),
-              **cs.bound(cs.nbytes(*a, a[0]), bf16=4 * b * d * d
-                         + 4 * b * t * d + 4 * b * d * f)})
-        del x, mlp, head, a
+
+        def k14(a=a, heads=heads):
+            return DB.fused_cross_mlp_block(*a, heads=heads)
+        row = {"label": args.label, "kernel": "K14",
+               "shape": f"{label} B={b} T={t} D={d} H={heads} F={f}",
+               **cs.check_delta(f"K14 {label}", k14(),
+                                DB.cross_mlp_block_plain(*a, heads=heads),
+                                a[0]),
+               **timings(k14,
+                         lambda: DB.cross_mlp_block_plain(*a, heads=heads)),
+               **stage_ms(k14),
+               **cs.bound(cs.nbytes(*a, a[0]), bf16=4 * b * d * d
+                          + 4 * b * t * d + 4 * b * d * f)}
+        if hasattr(DB, "cross_plan"):
+            row["plan"] = DB.cross_plan(t, heads, b,
+                                        DB._fit_cross(a[0].device))
+        emit(row)
+        del a
     # K4 / K4-o past the engine's shapes: whisper-small's and large's
     # widths, and base width at an ingest batch of 128
     for label, b, d, f in (("small", 32, 768, 3072), ("large", 32, 1280, 5120),
