@@ -76,6 +76,24 @@ Phases, one line each (``[phase] ...``):
    segments x float32 / bfloat16: scoring, sort, top-k, GB/s and share
    of the calibrated and published read rates, query p50 through the
    MiniLM embedder, the < 50 ms verdict at 1M float32), launches counted.
+7. the service (``[service]``, run after the engines, before 5 and 6):
+   ``service/server.py::serve`` over a default-config engine on cuda
+   (warm-up on), its accept loop on a daemon thread, every request over
+   HTTP with its own deadline: ingest of the 320 s WAV and an async job
+   of the 25 s one (K1/K2 launches as expected_launches), search (own
+   segment first, four ?q= = four singles, compare_all, the three
+   combined modes), a 45 s stream in uneven int16 chunks (its windows =
+   ingest_waveform's; the texts' agreement printed), transcribe_long on
+   120 s (the ASR model's launches alone), delete (no row of the source
+   after it; a row behind the deleted ones found at its new index),
+   save / reset / load and a streaming save_incremental, /metrics,
+   metrics.csv, stats and a profile trace, reconfigure to whisper-small
+   (K1 at D=768, 12 heads, own segment first) and a refused mulaw8,
+   20 ingest/delete cycles (VmRSS slope over cycles 6-20 <=
+   RSS_SLOPE_MAX_MB), then the CLI (``python -m
+   multimodal_audio_search_tpu_torch`` ingest, search, search
+   --strategy, delete, stats) as subprocesses on one --index. Request
+   wall times are printed beside the card.
 
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
@@ -1837,6 +1855,488 @@ def ab_phase(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- service
+SERVICE_SOAK_CYCLES = 20
+# least-squares slope of VmRSS over the soak's cycles 6-20, MB a cycle
+RSS_SLOPE_MAX_MB = 1.0
+# each request's deadline on the host clock (the first ingest builds
+# nothing: the server's warm-up has run by then)
+REQUEST_TIMEOUT_S = 300
+
+
+def request(base: str, path: str, data: bytes | None = None,
+            raw: bool = False, headers=None):
+    """(status, body, wall seconds) of one request to the service, with
+    its own deadline; the body parsed as JSON unless ``raw``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, data=data, headers=headers or {},
+        method="POST" if data is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=REQUEST_TIMEOUT_S) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    dt = time.perf_counter() - t0
+    return status, (body if raw else json.loads(body)), dt
+
+
+def expect(name: str, status: int, body, want: int = 200) -> None:
+    if status != want:
+        raise AssertionError(f"service {name}: status {status} != {want}: "
+                             f"{str(body)[:500]}")
+
+
+def vm_rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise AssertionError("no VmRSS in /proc/self/status")
+
+
+def own_segment(meta, rows) -> int:
+    """A row of ``rows`` whose ASR text no other row of ``meta`` has, else
+    the first of them with a text (then a search for it must rank first a
+    row with that text)."""
+    texts = [m["asr_text"] for m in meta]
+    rows = [i for i in rows if texts[i]]
+    return next((i for i in rows if texts.count(texts[i]) == 1), rows[0])
+
+
+def check_own_first(name: str, meta, own: int, hits) -> None:
+    """The search for row ``own``'s ASR text (``meta``: the index's rows
+    now) ranks it first, or, where other rows share that text, one of
+    them."""
+    text = meta[own]["asr_text"]
+    same = [i for i, m in enumerate(meta) if m["asr_text"] == text]
+    if not hits or hits[0]["asr_text"] != text or (
+            hits[0]["index"] != own if len(same) == 1
+            else hits[0]["index"] not in same):
+        raise AssertionError(
+            f"service {name}: row {own} not first: "
+            f"{[(h['index'], h['asr_text']) for h in hits[:3]]}")
+
+
+def service_phase(card: str, rng: np.random.Generator) -> None:
+    """The port's service surface on the card at the default config's
+    published widths: ``serve(engine, port=0, warmup=True)`` with its
+    accept loop on a daemon thread, every request over HTTP with its own
+    deadline. Ingest (sync 320 s, async 25 s; launch counts as
+    expected_launches), search (own segment first, four ?q= = four
+    singles, compare_all, search_combined's modes), a stream's windows
+    against ingest_waveform's, transcribe_long's launches, delete (no
+    row of the source after it, the own-segment check on a row the
+    delete moved), save / reset / load and save_incremental, the metrics
+    routes and a profile, reconfigure to whisper-small (K1 at D=768, 12
+    heads) and a refused mulaw8, 20 ingest/delete cycles (VmRSS slope),
+    and the CLI as subprocesses on one --index directory."""
+    import csv
+    import io
+    import shutil
+    import tempfile
+    import threading
+    import urllib.parse
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.index.store import SegmentStore
+    from multimodal_audio_search_tpu_torch.index.strategies import STRATEGIES
+    from multimodal_audio_search_tpu_torch.pipelines.longform import (
+        chunk_windows)
+    from multimodal_audio_search_tpu_torch.pipelines.streaming import (
+        StreamingIngest)
+    from multimodal_audio_search_tpu_torch.service.server import serve
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="mas_service_")
+    t0 = time.perf_counter()
+    eng = AudioSearchEngine(cfg=engine_config(None, False), device="cuda",
+                            seed=0)
+    srv = serve(eng, host="127.0.0.1", port=0, block=False, warmup=True,
+                data_root=tmp)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    lock = srv.RequestHandlerClass.lock
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    q = urllib.parse.quote
+    try:
+        torch.cuda.synchronize()
+        phase("service", step="serving", card=card,
+              build_and_warmup_s=time.perf_counter() - t0,
+              asr=eng.ingest_pipeline.asr.cfg.d_model,
+              caption=eng.ingest_pipeline.caption.cfg.d_model)
+
+        # ---- 1. ingest: sync 320 s, async 25 s, launches counted
+        ing = eng.ingest_pipeline
+        asr, cap = ing.asr, ing.caption
+        long_x, short_x = make_audio(320, rng), make_audio(25, rng)
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        st, body, ingest_s = request(base, "/api/ingest?name=long.wav",
+                                     wav_bytes(long_x))
+        expect("ingest", st, body)
+        n_long = len(body["segments"])
+        st, job, _ = request(base, "/api/ingest?name=short.wav&async=1",
+                             wav_bytes(short_x))
+        expect("async ingest", st, job, 202)
+        deadline = time.perf_counter() + REQUEST_TIMEOUT_S
+        while True:
+            st, rec, _ = request(base, f"/api/jobs/{job['job']}")
+            expect("job", st, rec)
+            if rec["state"] in ("done", "failed"):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"service: job never finished: {rec}")
+            time.sleep(0.05)
+        if rec["state"] != "done":
+            raise AssertionError(f"service: async job failed: {rec}")
+        counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if counts != exp or not counts["K1"] or not counts["K2"]:
+            raise AssertionError(f"service ingest: launches {counts} != "
+                                 f"expected {exp}")
+        phase("service", step="ingest", card=card,
+              http_ingest_320s_wall_s=ingest_s, segments=n_long,
+              async_segments=rec["n_segments"], total=rec["total"],
+              launches=counts, expected=exp,
+              decode_steps={"asr": steps[0], "caption": steps[1]},
+              dispatches={"asr": disp[0], "caption": disp[1]})
+
+        # ---- 2. search
+        st, seg, _ = request(base, "/api/segments")
+        meta = seg["segments"]
+        own = own_segment(meta, range(n_long))
+        texts = [m["asr_text"] for m in meta]
+        st, out, _ = request(base, f"/api/search?q={q(texts[own])}")
+        expect("search", st, out)
+        check_own_first("search", meta, own, out["results"])
+        queries = [texts[own], "upbeat music with drums",
+                   "someone speaking clearly",
+                   "rain and birds in the background"]
+        st, batch, _ = request(base, "/api/search?" + "&".join(
+            f"q={q(x)}" for x in queries))
+        expect("batched search", st, batch)
+        for x, b in zip(queries, batch["batch"]):
+            single = request(base, f"/api/search?q={q(x)}")[1]["results"]
+            got = [(h["index"], h["fusion_score"]) for h in b["results"]]
+            ref = [(h["index"], h["fusion_score"]) for h in single]
+            if [i for i, _ in got] != [i for i, _ in ref] or any(
+                    abs(a - c) > K12_ATOL for (_, a), (_, c) in zip(got, ref)):
+                raise AssertionError(f"service: batched {x!r} differs from "
+                                     f"single: {got} vs {ref}")
+        st, cmp_all, _ = request(
+            base, f"/api/search?q={q(queries[1])}&strategy=compare_all")
+        expect("compare_all", st, cmp_all)
+        if set(cmp_all["weight_info"]["per_strategy"]) != set(STRATEGIES):
+            raise AssertionError("service: compare_all strategies "
+                                 f"{cmp_all['weight_info']['per_strategy']}")
+        combined = {}
+        with lock:
+            for mode, slot in (("combined", None), ("asr", "asr_success"),
+                               ("caption", "audio_success")):
+                rows = eng.search_combined(queries[0], mode, 10)
+                n_ok = len(eng.store) if slot is None else sum(
+                    m[slot] for m in eng.store.meta)
+                if len(rows) != min(10, n_ok):
+                    raise AssertionError(f"service: search_combined {mode} "
+                                         f"gave {len(rows)} rows")
+                combined[mode] = len(rows)
+        lat = []
+        for i in range(20):
+            st, out, dt = request(
+                base, f"/api/search?q={q(queries[i % 4] + f' {i}')}")
+            expect("search", st, out)
+            lat.append(dt * 1e3)
+        phase("service", step="search", card=card, own_segment=own,
+              batched=len(queries), strategies=sorted(STRATEGIES),
+              combined_rows=combined, http_search_ms=lat,
+              http_search_p50_ms=float(np.median(lat)))
+
+        # ---- 3. streaming: uneven int16 chunks against one shot
+        wave = make_audio(45, rng)
+        pcm = (np.clip(wave, -1.0, 1.0) * 32767).astype(np.int16)
+        st, opened, _ = request(base, "/api/stream/open?name=stream.wav", b"")
+        expect("stream open", st, opened)
+        sid = opened["session"]
+        cuts = [0, int(1.7 * SR), int(10.8 * SR), int(24.1 * SR),
+                int(30.3 * SR), int(41.9 * SR), len(pcm)]
+        streamed, commit_s = [], []
+        for lo, hi in zip(cuts, cuts[1:]):
+            st, out, dt = request(base, f"/api/stream/{sid}/chunk?rate={SR}",
+                                  pcm[lo:hi].tobytes())
+            expect("stream chunk", st, out)
+            streamed += out["segments"]
+            if out["segments"]:
+                commit_s.append(dt)
+        st, out, dt = request(base, f"/api/stream/{sid}/close", b"")
+        expect("stream close", st, out)
+        streamed += out["segments"]
+        commit_s.append(dt)
+        with lock:
+            shot = eng.ingest_waveform(pcm.astype(np.float32) / 32767.0, SR,
+                                       "oneshot.wav")
+            eng.delete_source("oneshot.wav")
+        windows = [(s["start_time"], s["end_time"]) for s in streamed]
+        one_shot = [(s["start_time"], s["end_time"]) for s in shot]
+        if windows != one_shot:
+            raise AssertionError(f"service: stream windows {windows} != "
+                                 f"one-shot {one_shot}")
+        agree = sum(a["asr_text"] == b["asr_text"]
+                    for a, b in zip(streamed, shot)) / max(1, len(shot))
+        phase("service", step="stream", card=card, windows=len(windows),
+              chunks=len(cuts) - 1, commit_wall_s=commit_s,
+              asr_text_agreement=agree)
+
+        # ---- 4. long form: the ASR model alone
+        long_form = make_audio(120, rng)
+        with lock:
+            runtime.reset_counts()
+            s0, d0 = asr.total_steps, (asr.dispatches, cap.dispatches)
+            t1 = time.perf_counter()
+            text = eng.transcribe_long(wav_bytes(long_form))
+            torch.cuda.synchronize()
+            long_s = time.perf_counter() - t1
+            counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+            disp = (asr.dispatches - d0[0], cap.dispatches - d0[1])
+            exp = expected_launches(False, None, (asr.total_steps - s0, 0),
+                                    disp, asr, cap)
+        n_win = len(chunk_windows(len(long_form), SR))
+        if disp != (1, 0) or counts != exp or not isinstance(text, str):
+            raise AssertionError(f"service transcribe_long: dispatches "
+                                 f"{disp}, launches {counts} != {exp}")
+        phase("service", step="transcribe_long", card=card, windows=n_win,
+              transcribe_long_wall_s=long_s, launches=counts, expected=exp,
+              chars=len(text))
+
+        # ---- 5. delete: no row of the source, rows behind it moved
+        st, seg, _ = request(base, "/api/segments")
+        meta = seg["segments"]
+        n_short = sum(m["source"] == "short.wav" for m in meta)
+        last = max(i for i, m in enumerate(meta)
+                   if m["source"] == "short.wav")
+        moved = own_segment(meta, range(last + 1, len(meta)))
+        moved_text = meta[moved]["asr_text"]
+        st, out, _ = request(base, "/api/delete?source=short.wav", b"")
+        expect("delete", st, out)
+        if out["removed"] != n_short or out["total"] != len(meta) - n_short:
+            raise AssertionError(f"service delete: {out}, {n_short} rows "
+                                 f"of short.wav in {len(meta)}")
+        seen = []
+        for x in [*queries, moved_text]:
+            hits = request(base, f"/api/search?q={q(x)}")[1]["results"]
+            seen += hits
+            if any(h["source"] == "short.wav" for h in hits):
+                raise AssertionError("service: a deleted row was returned")
+        # a stale device index would score the old rows against the
+        # compacted meta: the row behind the deleted ones would not come
+        # back at its new index with its own text
+        now = request(base, "/api/segments")[1]["segments"]
+        if now[moved - n_short]["segment_id"] != meta[moved]["segment_id"]:
+            raise AssertionError("service: the delete did not compact")
+        top = request(base, f"/api/search?q={q(texts[own])}")[1]["results"]
+        check_own_first("delete", now, own, top)
+        after = request(base, f"/api/search?q={q(moved_text)}")[1]["results"]
+        check_own_first("delete", now, moved - n_short, after)
+        with lock:     # the device index those searches scored
+            view = eng.store._device_view
+            emb, ok = eng.store.device_index(eng.ingest_pipeline.device)
+            n = len(eng.store)
+            if view is None or emb is not view[1] or not torch.equal(
+                    emb[:n].cpu(), torch.from_numpy(eng.store.embeddings)) \
+                    or int(ok[n:].sum()):
+                raise AssertionError("service: the device index after the "
+                                     "delete is not the compacted store")
+        phase("service", step="delete", card=card, removed=n_short,
+              total=out["total"], moved_row=[moved, after[0]["index"]],
+              searched_hits=len(seen))
+
+        # ---- 6. persistence
+        st, out, _ = request(base, "/api/save?path=idx", b"")
+        expect("save", st, out)
+        before = request(base, "/api/segments")[1]
+        top_q = f"/api/search?q={q(queries[1])}"
+        top10 = request(base, top_q)[1]["results"]
+        for path in ("/api/reset", "/api/load?path=idx"):
+            st, out, _ = request(base, path, b"")
+            expect(path, st, out)
+        again = request(base, top_q)[1]["results"]
+        if request(base, "/api/segments")[1] != before or \
+                [h["index"] for h in again] != [h["index"] for h in top10] \
+                or any(abs(a["fusion_score"] - b["fusion_score"]) > K12_ATOL
+                       for a, b in zip(again, top10)):
+            raise AssertionError("service: save/reset/load changed the "
+                                 "segments or the top-10")
+        inc = os.path.join(tmp, "incremental")
+        with lock:
+            live = StreamingIngest(eng.ingest_pipeline, eng.store, eng.cfg,
+                                   source_name="autosave.wav",
+                                   autosave_path=inc, autosave_every=1)
+            live.feed(short_x[: 13 * SR], SR)
+            live.feed(short_x[13 * SR:], SR)
+            live.flush()
+            back = SegmentStore.load(inc)
+            if back.meta != eng.store.meta or not np.array_equal(
+                    back.embeddings, eng.store.embeddings):
+                raise AssertionError("service: save_incremental rows differ")
+            shards = json.load(open(os.path.join(inc, "manifest.json")))
+        phase("service", step="persistence", card=card,
+              segments=before["total"], incremental_rows=len(back),
+              shards=shards["shards"])
+
+        # ---- 7. metrics, stats, a profile
+        st, prom, _ = request(base, "/metrics", raw=True)
+        expect("metrics", st, prom)
+        samples = {}
+        for line in prom.decode().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+        total = request(base, "/api/segments")[1]["total"]
+        if samples.get("mas_index_segments") != total:
+            raise AssertionError(f"service /metrics: mas_index_segments "
+                                 f"{samples.get('mas_index_segments')} != "
+                                 f"{total}")
+        st, csv_body, _ = request(base, "/api/metrics.csv", raw=True)
+        rows = list(csv.reader(io.StringIO(csv_body.decode())))
+        st2, stats, _ = request(base, "/api/stats")
+        if st != 200 or st2 != 200 or rows[0][:2] != ["timestamp",
+                                                      "operation"] \
+                or stats["database"]["total_segments"] != total:
+            raise AssertionError("service: metrics.csv or stats malformed")
+        st, prof, prof_s = request(base, f"/api/profile?q={q(queries[2])}",
+                                   b"")
+        expect("profile", st, prof)
+        trace = os.path.join(prof["trace_dir"], "trace.json")
+        if not os.path.getsize(trace):
+            raise AssertionError(f"service: empty trace {trace}")
+        kernels_in_trace = sum(ev.get("cat") == "kernel" for ev in
+                               json.load(open(trace))["traceEvents"])
+        phase("service", step="metrics", card=card, samples=len(samples),
+              csv_rows=len(rows) - 1, trace_bytes=os.path.getsize(trace),
+              trace_kernels=kernels_in_trace, profile_wall_s=prof_s)
+
+        # ---- 8. reconfigure: whisper-small ASR, then a refused mulaw8
+        st, cfg_out, rebuild_s = request(
+            base, "/api/config", json.dumps({"asr_preset": "small"}).encode(),
+            headers={"Content-Type": "application/json"})
+        expect("config small", st, cfg_out)
+        ing = eng.ingest_pipeline
+        asr, cap = ing.asr, ing.caption
+        if (asr.cfg.d_model, asr.cfg.heads) != (768, 12) or \
+                request(base, "/api/segments")[1]["total"] != 0:
+            raise AssertionError(f"service: reconfigure gave {cfg_out}")
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        st, body, small_s = request(base, "/api/ingest?name=short.wav",
+                                    wav_bytes(short_x))
+        expect("ingest small", st, body)
+        counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if counts != exp or disp[0] < 1:
+            raise AssertionError(f"service small: launches {counts} != "
+                                 f"{exp}")
+        meta = request(base, "/api/segments")[1]["segments"]
+        mine = own_segment(meta, range(len(meta)))
+        hits = request(base, f"/api/search?q={q(meta[mine]['asr_text'])}"
+                       )[1]["results"]
+        check_own_first("whisper-small", meta, mine, hits)
+        st, refused, _ = request(
+            base, "/api/config", json.dumps(
+                {"transfer_dtype": "mulaw8"}).encode(),
+            headers={"Content-Type": "application/json"})
+        cfg_now = request(base, "/api/config")[1]
+        st2, still, _ = request(base, f"/api/search?q={q(queries[1])}")
+        if st == 200 or "error" not in refused or st2 != 200 or \
+                not still["results"] or cfg_now["transfer_dtype"] != "int16" \
+                or cfg_now["asr_preset"] != "small":
+            raise AssertionError(f"service mulaw8: {st} {refused}, then "
+                                 f"{st2}, config {cfg_now}")
+        phase("service", step="reconfigure", card=card,
+              reconfigure_small_wall_s=rebuild_s,
+              asr=f"whisper-small d={asr.cfg.d_model} H={asr.cfg.heads}",
+              ingest_wall_s=small_s, launches=counts, expected=exp,
+              own_segment=mine, mulaw8_status=st,
+              mulaw8_error=refused["error"])
+        st, cfg_out, base_s = request(
+            base, "/api/config", json.dumps({"asr_preset": "base"}).encode(),
+            headers={"Content-Type": "application/json"})
+        expect("config base", st, cfg_out)
+
+        # ---- 9. memory: ingest/delete cycles
+        data = wav_bytes(short_x)
+        rss = []
+        for _ in range(SERVICE_SOAK_CYCLES):
+            st, body, _ = request(base, "/api/ingest?name=cycle.wav", data)
+            expect("cycle ingest", st, body)
+            st, out, _ = request(base, "/api/delete?source=cycle.wav", b"")
+            if st != 200 or out["removed"] != len(body["segments"]):
+                raise AssertionError(f"service cycle delete: {out}")
+            rss.append(vm_rss_mb())
+        slope = float(np.polyfit(np.arange(5, SERVICE_SOAK_CYCLES),
+                                 rss[5:], 1)[0])
+        phase("service", step="memory", card=card, vm_rss_mb=rss,
+              slope_mb_per_cycle=slope, limit=RSS_SLOPE_MAX_MB)
+        if slope > RSS_SLOPE_MAX_MB:
+            raise AssertionError(f"service: VmRSS grows {slope:.3f} MB a "
+                                 f"cycle > {RSS_SLOPE_MAX_MB}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.RequestHandlerClass.jobs_q.put(None)
+
+    # ---- 10. the CLI, one process a subcommand, on one --index
+    idx = os.path.join(tmp, "cli_index")
+    files = []
+    for name, x in (("a.wav", short_x), ("b.wav", make_audio(15, rng))):
+        files.append(os.path.join(tmp, name))
+        with open(files[-1], "wb") as f:
+            f.write(wav_bytes(x))
+
+    def cli(*args):
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "multimodal_audio_search_tpu_torch",
+             "--index", idx, *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=REQUEST_TIMEOUT_S)
+        if res.returncode != 0:
+            raise AssertionError(f"service CLI {args}: rc {res.returncode}"
+                                 f"\n{res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t1
+
+    out, cli_s = cli("ingest", *files)
+    n = len(SegmentStore.load(idx))
+    if f"2 file(s): {n} segments (index total {n})" not in out:
+        raise AssertionError(f"service CLI ingest: {out!r}, {n} stored")
+    res = json.loads(cli("search", "upbeat music with drums")[0])
+    strat = json.loads(cli("search", "upbeat music with drums",
+                           "--strategy", "fixed_5050")[0])
+    removed = sum(m["source"] == files[0]
+                  for m in SegmentStore.load(idx).meta)
+    out_del = cli("delete", files[0])[0]
+    stats = json.loads(cli("stats")[0])
+    left = SegmentStore.load(idx)
+    if not res["results"] or strat["weight_info"]["strategy"] != \
+            "fixed_5050" or \
+            f"removed {removed} segment(s) (index total {n - removed})" \
+            not in out_del or stats["database"]["total_segments"] != \
+            n - removed or len(left) != n - removed or any(
+                m["source"] == files[0] for m in left.meta):
+        raise AssertionError(f"service CLI: {res['results'][:1]}, "
+                             f"{strat['weight_info']}, {out_del!r}, "
+                             f"{stats['database']}")
+    phase("service", step="cli", card=card, segments=n, removed=removed,
+          left=len(left), ingest_process_wall_s=cli_s)
+    shutil.rmtree(tmp, ignore_errors=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -1883,6 +2383,7 @@ def main() -> int:
         "share_of_default": {k: m[key] / mems["default"][key]
                              for k, m in mems.items()}}
         for key in mems["default"]})
+    service_phase(card, rng)
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)
     # each kernel's launches from the path that runs it

@@ -10,9 +10,22 @@ Public surface:
 
     from multimodal_audio_search_tpu_torch import AudioSearchEngine
     engine = AudioSearchEngine(device="cuda")
+    engine.load_all_models(warmup=True)
     segments = engine.ingest("clip.wav")
+    engine.ingest_many(["a.wav", "b.wav"])
     hits, weights = engine.search("upbeat music with drums", k=10)
     batch = engine.search_batch(["rain on a roof", "a guitar solo"])
+    hits, info = engine.search_strategy("rain", "compare_all")
+    rows = engine.search_combined("rain", mode="asr")
+    text = engine.transcribe_long("lecture.wav")
+    engine.delete_source("a.wav")
+    engine.save_index("idx")          # or store.save_incremental("idx")
+    engine.reconfigure(asr_preset="small")
+
+The HTTP service and UI (``service/server.py``) and the CLI
+(``python -m multimodal_audio_search_tpu_torch ingest|search|delete|serve|
+stats``) run the same engine; ``pipelines/streaming.py`` commits live
+audio as it arrives.
 
 This package imports torch and never jax.
 """

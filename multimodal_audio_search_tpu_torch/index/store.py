@@ -12,8 +12,9 @@ other:
 
 Persistence is a directory: ``embeddings.npz`` + ``meta.jsonl`` (+ optional
 ``audio.npz``), or raw ``emb.npy``/``success.npy`` with ``mmap=True``.
-``load`` also reads the JAX package's append-only sharded layout; writing
-it (``save_incremental``, used by streaming ingest) is not ported yet.
+``save_incremental`` writes the append-only sharded layout (the rows added
+since the last call, then the manifest), which streaming ingest's
+autosave uses; ``delete_where``/``delete_source`` compact the index.
 """
 from __future__ import annotations
 
@@ -44,6 +45,13 @@ class SegmentStore:
         self._success = np.zeros((self._cap, 2), bool)
         self._audio: list[np.ndarray | None] = []
         self._device_view: tuple[Any, Any, Any] | None = None  # (key, emb, ok)
+        # monotonic mutation counter: a delete+ingest of equal size shifts
+        # row ids without changing the count
+        self.version = 0
+        # bumped on every compaction; save_incremental records it in the
+        # manifest so a deleted-then-regrown store can't silently append
+        # to a stale on-disk prefix
+        self._compactions = 0
 
     def __len__(self) -> int:
         return len(self.meta)
@@ -76,6 +84,7 @@ class SegmentStore:
                 None if audio_data is None
                 else np.asarray(audio_data, np.float32))
         self._device_view = None
+        self.version += 1
         return i
 
     def extend(self, records: Sequence[dict[str, Any]]) -> list[int]:
@@ -92,6 +101,43 @@ class SegmentStore:
             for r in records
         ]
 
+    # ------------------------------------------------------------- delete
+    def delete_where(self, pred) -> int:
+        """Remove every segment whose meta row satisfies ``pred`` and
+        compact the index (row order of survivors is preserved, so search
+        result indices stay consistent with ``meta``). Returns the number
+        of rows removed.
+
+        Capability beyond the reference, which can only clear the whole
+        database (audio_search.py:115 keeps a session-state list; the only
+        mutation is append/reset)."""
+        n = len(self.meta)
+        keep = [i for i in range(n) if not pred(self.meta[i])]
+        removed = n - len(keep)
+        if removed == 0:
+            return 0
+        idx = np.asarray(keep, np.int64)
+        self._emb[: len(keep)] = self._emb[idx]
+        self._emb[len(keep): n] = 0.0
+        self._success[: len(keep)] = self._success[idx]
+        self._success[len(keep): n] = False
+        self.meta = [self.meta[i] for i in keep]
+        if self.keep_audio:
+            self._audio = [self._audio[i] for i in keep
+                           if i < len(self._audio)]
+        # the cached device index keys on the capacity, which a delete
+        # leaves as it was: drop it, or a search scores the old rows
+        self._device_view = None
+        self.version += 1
+        self._compactions += 1
+        return removed
+
+    def delete_source(self, source_name: str) -> int:
+        """Remove every segment ingested from ``source_name`` (the
+        ``source`` field stamped by pipelines/ingest.py)."""
+        return self.delete_where(
+            lambda row: row.get("source") == source_name)
+
     def _grow(self, new_cap: int) -> None:
         emb = np.zeros((new_cap, 2, self.embed_dim), np.float32)
         ok = np.zeros((new_cap, 2), bool)
@@ -99,6 +145,7 @@ class SegmentStore:
         ok[: self._cap] = self._success
         self._emb, self._success, self._cap = emb, ok, new_cap
         self._device_view = None
+        self.version += 1
 
     # ---------------------------------------------------------------- views
     @property
@@ -173,15 +220,118 @@ class SegmentStore:
                 [0 if a is None else len(a) for a in self._audio], np.int64)
             np.savez_compressed(p / "audio.npz", flat=flat, lens=lens)
         else:
-            # no waveforms (keep_audio off): a stale audio.npz from a
+            # no waveforms any more (keep_audio off, or delete_where
+            # removed every row that had audio): a stale audio.npz from a
             # previous save would attach wrong waveforms to the new rows
             (p / "audio.npz").unlink(missing_ok=True)
+
+    def save_incremental(self, path: str | pathlib.Path) -> int:
+        """Append-only sharded persistence: write ONLY the rows added
+        since the last save to ``emb.shard-K.npy``/``success.shard-K.npy``
+        (+ ``audio.shard-K.npz``), append their meta lines, and update
+        ``manifest.json`` last (write-tmp + atomic rename), so a crash
+        mid-save leaves the previous manifest consistent. O(new rows) per
+        call where ``save()`` rewrites the whole store — the right
+        persistence for streaming ingest's periodic commits
+        (pipelines/streaming.py). Returns rows written.
+
+        A directory previously written by ``save()`` is not extendable —
+        call on a fresh directory (load() accepts either layout)."""
+        p = pathlib.Path(path)
+        p.mkdir(parents=True, exist_ok=True)
+        manifest = p / "manifest.json"
+        if not manifest.exists() and (p / "meta.jsonl").exists():
+            raise ValueError(
+                f"{p} holds a full-save layout; incremental save needs "
+                "a fresh directory (or keep using save())")
+        state = {"rows": 0, "shards": 0, "embed_dim": self.embed_dim,
+                 "keep_audio": self.keep_audio,
+                 "compactions": self._compactions}
+        if manifest.exists():
+            state = json.loads(manifest.read_text())
+            if state["embed_dim"] != self.embed_dim:
+                raise ValueError("manifest embed_dim mismatch")
+            if state.get("compactions", 0) != self._compactions:
+                # rows were deleted since the last save: the on-disk
+                # prefix no longer matches this store's rows 0..lo, so
+                # appending would corrupt; caller must full-save
+                raise ValueError(
+                    "store was compacted since the last incremental "
+                    "save; use save() to rewrite")
+        lo, n = state["rows"], len(self.meta)
+        if lo > n:
+            raise ValueError(
+                f"directory already holds {lo} rows > store's {n}; "
+                "incremental save can only append")
+        if lo == n:
+            return 0
+        # A crash between the meta append and the manifest rename leaves
+        # orphan meta lines past the committed row count. They must be
+        # dropped BEFORE appending: _load_shards takes meta[:rows], so
+        # orphans would otherwise shadow the newly committed rows with
+        # stale metadata. The manifest records the committed byte length
+        # (meta_bytes) so the truncate is O(1); legacy manifests without
+        # it fall back to a one-time line-count rewrite.
+        meta_path = p / "meta.jsonl"
+        if meta_path.exists():
+            committed = state.get("meta_bytes")
+            if committed is not None:
+                size = meta_path.stat().st_size
+                if size > committed:
+                    # only ever SHRINK: truncate(committed) on a file
+                    # shorter than committed would extend it with NUL
+                    # bytes and corrupt every later json.loads
+                    with open(meta_path, "r+b") as f:
+                        f.truncate(committed)
+                elif size < committed:
+                    # the manifest rename reached disk but the meta data
+                    # blocks did not (nothing is fsynced): committed rows
+                    # are unrecoverable here — refuse, caller full-saves
+                    raise ValueError(
+                        f"meta.jsonl is {size} bytes < manifest's "
+                        f"committed {committed}; directory lost data — "
+                        "rewrite with save()")
+            else:
+                lines = meta_path.read_text().splitlines(keepends=True)
+                if len(lines) < lo:
+                    # same data-loss condition the meta_bytes path refuses:
+                    # appending after a gap would leave _load_shards'
+                    # meta[:rows] silently misaligned with rows (ADVICE r3)
+                    raise ValueError(
+                        f"meta.jsonl has {len(lines)} lines < manifest's "
+                        f"committed {lo} rows; directory lost data — "
+                        "rewrite with save()")
+                if len(lines) > lo:
+                    meta_path.write_text("".join(lines[:lo]))
+        k = state["shards"]
+        np.save(p / f"emb.shard-{k:05d}.npy", self._emb[lo:n])
+        np.save(p / f"success.shard-{k:05d}.npy", self._success[lo:n])
+        if self.keep_audio:
+            chunk = self._audio[lo:n]
+            flat = np.concatenate(
+                [a if a is not None else np.zeros(0, np.float32)
+                 for a in chunk]) if chunk else np.zeros(0, np.float32)
+            lens = np.array([0 if a is None else len(a) for a in chunk],
+                            np.int64)
+            np.savez_compressed(p / f"audio.shard-{k:05d}.npz",
+                                flat=flat, lens=lens)
+        with open(p / "meta.jsonl", "a") as f:
+            for row in self.meta[lo:n]:
+                f.write(json.dumps(row) + "\n")
+        state.update(rows=n, shards=k + 1,
+                     compactions=self._compactions,
+                     meta_bytes=meta_path.stat().st_size)
+        tmp = p / "manifest.json.tmp"
+        tmp.write_text(json.dumps(state))
+        tmp.replace(manifest)
+        return n - lo
 
     @classmethod
     def _load_shards(cls, p: pathlib.Path) -> "SegmentStore":
         state = json.loads((p / "manifest.json").read_text())
         st = cls(embed_dim=int(state["embed_dim"]),
                  keep_audio=bool(state.get("keep_audio", True)))
+        st._compactions = int(state.get("compactions", 0))
         n = int(state["rows"])
         st._cap = _next_pow2(max(n, 1))
         st._emb = np.zeros((st._cap, 2, st.embed_dim), np.float32)

@@ -11,12 +11,16 @@ Unlike the reference's str()-based "JSON" export (a latent bug,
 audio_search.py:1022-1027), ``export_json`` is real json.dumps.
 
 Counterpart of ``multimodal_audio_search_tpu/service/stats.py``; the
-system snapshot reads torch.cuda instead of jax.devices(), and the JAX
-profiler wrapper (ProfilerSession) is not ported.
+system snapshot reads torch.cuda instead of jax.devices(), and
+``ProfilerSession`` records a torch.profiler Chrome trace where the JAX
+package records a jax.profiler one.
 """
 from __future__ import annotations
 
+import csv
+import io
 import json
+import pathlib
 import platform
 import time
 from dataclasses import asdict, dataclass, field
@@ -130,6 +134,51 @@ class MetricsLog:
             s["avg_s"] = s["total_s"] / max(s["count"], 1)
         return out
 
+    def export_csv(self) -> str:
+        buf = io.StringIO()
+        w = csv.writer(buf)
+        w.writerow(["timestamp", "operation", "duration_s", "details"])
+        for e in self.events:
+            w.writerow([e.ts, e.operation, e.duration_s,
+                        json.dumps(e.details)])
+        return buf.getvalue()
+
+
+class ProfilerSession:
+    """torch.profiler trace capture around any engine operation.
+
+    Usage::
+
+        with ProfilerSession("/tmp/trace"):
+            engine.ingest("clip.wav")
+
+    Writes ``trace.json`` (Chrome trace format: chrome://tracing,
+    Perfetto) into ``log_dir``, with the card's kernels when a CUDA
+    device is present (the reference's telemetry is wall-clock-only;
+    this exposes true device timelines, SURVEY.md §5).
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self._prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
+        path = pathlib.Path(self.log_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        self._prof.export_chrome_trace(str(path / "trace.json"))
+        return False
+
 
 class StatsRegistry:
     """The engine's stats registry (audio_search.py:103-108 equivalent)."""
@@ -160,3 +209,47 @@ class StatsRegistry:
         if extra:
             payload.update(extra)
         return json.dumps(payload, indent=2)
+
+    def export_prometheus(self, extra: dict[str, float] | None = None
+                          ) -> str:
+        """Prometheus text exposition of the same counters (production
+        scrape surface; the reference only renders stats in its UI,
+        audio_search.py:881-1027)."""
+        self.system.update()
+        lines = []
+
+        def emit(name, mtype, help_, samples):
+            lines.append(f"# HELP mas_{name} {help_}")
+            lines.append(f"# TYPE mas_{name} {mtype}")
+            for labels, value in samples:
+                lab = ("{" + ",".join(
+                    f'{k}="{v}"' for k, v in labels.items()) + "}"
+                    if labels else "")
+                lines.append(f"mas_{name}{lab} {value:.6g}")
+
+        per_pipe = [
+            ("calls_total", "counter", "jitted program dispatches",
+             "total_calls"),
+            ("items_total", "counter", "items processed", "total_items"),
+            ("processing_seconds_total", "counter",
+             "time spent in pipeline", "total_processing_time"),
+            ("failures_total", "counter", "failed extractions",
+             "failed_extractions"),
+            ("success_rate", "gauge", "rolling success rate",
+             "success_rate"),
+        ]
+        for name, mtype, help_, attr in per_pipe:
+            emit(name, mtype, help_,
+                 [({"pipeline": key}, getattr(p, attr))
+                  for key, p in self.pipelines.items()])
+        emit("cpu_percent", "gauge", "host CPU percent",
+             [({}, self.system.cpu_percent)])
+        emit("memory_used_gb", "gauge", "host memory used",
+             [({}, self.system.memory_used_gb)])
+        emit("hbm_used_mb", "gauge", "device HBM used",
+             [({}, self.system.hbm_used_mb)])
+        emit("device_count", "gauge", "accelerator count",
+             [({}, self.system.device_count)])
+        for k, v in (extra or {}).items():
+            emit(k, "gauge", k, [({}, float(v))])
+        return "\n".join(lines) + "\n"

@@ -706,6 +706,10 @@ def test_port_runs_without_jax():
             DualPipelineIngest)
         from multimodal_audio_search_tpu_torch.pipelines.whisper_pipeline \\
             import WhisperTextPipeline
+        from multimodal_audio_search_tpu_torch import cli
+        from multimodal_audio_search_tpu_torch.pipelines import (
+            longform, streaming)
+        from multimodal_audio_search_tpu_torch.service import server
         mel = MelConfig(padded_seconds=2.0)
         w = W.PRESETS["test"]
         d = DecodeConfig(max_new_tokens=4, fused_encoder="int8")
@@ -721,6 +725,12 @@ def test_port_runs_without_jax():
         x = np.random.default_rng(0).normal(size=16000 * 12) * 0.3
         segs = eng.ingest_waveform(x.astype(np.float32), 16000, "x")
         hits, _ = eng.search(segs[0]["asr_text"])
+        live = streaming.StreamingIngest(eng.ingest_pipeline, eng.store,
+                                         cfg, source_name="live")
+        live.feed(x[: 16000 * 10].astype(np.float32), 16000)
+        assert isinstance(longform.transcribe_long(asr, x[: 16000 * 5]),
+                          str)
+        assert server.serve and cli.main and len(eng.store) >= 1
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("OK", len(segs), len(hits))
