@@ -76,6 +76,22 @@ Phases, one line each (``[phase] ...``):
    segments x float32 / bfloat16: scoring, sort, top-k, GB/s and share
    of the calibrated and published read rates, query p50 through the
    MiniLM embedder, the < 50 ms verdict at 1M float32), launches counted.
+8. the reference-parity decodes (``[parity]``, run after the engines,
+   before 7): PARITY_PATHS, two engines whose captioner decodes with
+   ``caption_parity_decode()`` (whisper-tiny, beam-2 over 64 rows a
+   32-segment batch, 100 tokens, penalty 1.3, n-gram 3) and whose ASR
+   model samples (``asr_parity_decode()`` with method="sample":
+   whisper-base, temperature 0.2, penalty 1.05, n-gram 2, 224 tokens),
+   the second under ``fast_lossless`` (K3/K4 over the beam rows), ingest
+   both WAVs and answer the 4 queries with their launches counted and
+   checked as the engine phases' are, own segment first; then, on the
+   first engine's pipelines, the invariants that need no oracle
+   (parity_invariants: beam with one beam is greedy, cold sampling is
+   greedy where the noise cannot reach, one seed reproduces and two
+   differ, the self cache keeps its addresses), a 32-segment batch of
+   each decode timed beside greedy on the same encoder output, K2 at 64
+   rows beside 32 (device ms), and both engines' peak memory and ingest
+   rate beside the default engine's.
 7. the service (``[service]``, run after the engines, before 5 and 6):
    ``service/server.py::serve`` over a default-config engine on cuda
    (warm-up on), its accept loop on a daemon thread, every request over
@@ -1535,28 +1551,33 @@ def expected_launches(fused, int8, steps, disp, asr, cap, enc=None) -> dict:
 
 
 def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
-                 fused, int8, enc, clips, ref_texts=None):
-    """Build the engine of one ENGINE_PATHS entry on cuda, ingest
-    ``clips`` and answer the queries with every launch count set to 0
-    just before and read just after; check the counts and self-retrieval.
-    Returns (launch counts, {(source, start): ASR text}, device memory:
-    the peak from the build to the last query, and decode_extra_bytes)."""
+                 fused, int8, enc, clips, ref_texts=None, cfg=None,
+                 tag: str = "engine", check=None):
+    """Build the engine of one ENGINE_PATHS entry (or of ``cfg``) on cuda,
+    ingest ``clips`` and answer the queries with every launch count set
+    to 0 just before and read just after; check the counts and
+    self-retrieval; then ``check(eng)``, if given. Lines print under
+    ``[tag]``. Returns (launch counts, {(source, start): ASR text}, device
+    memory: the peak from the build to the last query, and
+    decode_extra_bytes, ingest audio-seconds a second)."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = AudioSearchEngine(cfg=engine_config(profile, fused, int8, enc),
-                            device="cuda", seed=0)
+    eng = AudioSearchEngine(
+        cfg=cfg or engine_config(profile, fused, int8, enc), device="cuda",
+        seed=0)
     eng.load_all_models()
     ing = eng.ingest_pipeline
     asr, cap = ing.asr, ing.caption
     torch.cuda.synchronize()
-    phase("engine", path=label, step="built",
+    phase(tag, path=label, step="built",
           seconds=time.perf_counter() - t0,
           asr=f"whisper-base d={asr.cfg.d_model} L={asr.cfg.enc_layers}",
           caption=f"whisper-tiny d={cap.cfg.d_model}",
           dtype=str(asr.dtype), batch=eng.cfg.ingest_batch,
+          method=[asr.decode.method, cap.decode.method],
           fused_layer=[asr.decode.fused_layer, cap.decode.fused_layer],
           quantize_decoder=[asr.quantized, cap.quantized],
           cross_attn=[asr.decode.cross_attn, cap.decode.cross_attn],
@@ -1628,7 +1649,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
             by_seg[k] == ref_texts[k] for k in common) / max(1, len(common))}
     mem = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
            "asr_decode_extra_bytes": decode_extra_bytes(asr, rng)}
-    phase("engine", path=label, step="ingest and queries", card=card, **mem,
+    phase(tag, path=label, step="ingest and queries", card=card, **mem,
           segments=n_segs, audio_seconds=audio_s, ingest_seconds=ingest_s,
           ingest_audio_s_per_s=audio_s / ingest_s,
           query_ms=lat, query_p50_ms=float(np.median(lat)),
@@ -1650,9 +1671,11 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
         int8_reference_check(asr, rng, int8)
     if enc is not None:
         encoder_reference_check(asr, rng, enc)
+    if check is not None:
+        check(eng)
     del eng, ing, asr, cap
     torch.cuda.empty_cache()
-    return counts, by_seg, mem
+    return counts, by_seg, mem, audio_s / ingest_s
 
 
 def decode_extra_bytes(pipe, rng: np.random.Generator) -> int:
@@ -1832,6 +1855,246 @@ def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
             f"{mode}: first step {rel:.3e} of the logits' span (limit "
             f"{INT8_SPAN_MAX}), argmax agreement {agree} (limit "
             f"{INT8_AGREE_MIN}) against bf16 cross K/V")
+
+
+# the reference-parity decode engines ([parity]): (label, profile, fused).
+# The captioner on caption_parity_decode() (whisper-tiny, beam-2, 100
+# tokens, penalty 1.3, n-gram 3: 64 decode rows for a 32-segment batch),
+# the ASR model on asr_parity_decode() with method="sample" (whisper-base,
+# temperature 0.2, penalty 1.05, n-gram 2, 224 tokens);
+# "parity_fast_lossless" under fast_lossless, so K3/K4 take the beam rows.
+PARITY_PATHS = (("parity", None, False),
+                ("parity_fast_lossless", "fast_lossless", True))
+# The Gumbel noise lies in [-log(-log(tiny)), -log(-log(1 - 2^-24))] =
+# [-4.47, 16.63] (u in [finfo(float32).tiny, 1 - 2^-24]): a sample at
+# temperature t is the argmax wherever the top two processed logits lie
+# more than GUMBEL_SPREAD x t apart, so a cold sample may leave greedy
+# only at a step whose top-two gap is below that.
+GUMBEL_SPREAD = 21.1
+PARITY_COLD_T, PARITY_HOT_T = 1e-4, 2.0
+# the invariants' decodes: 8 segments, 24 tokens
+PARITY_CHECK_ROWS, PARITY_CHECK_TOKENS = 8, 24
+
+
+def parity_config(profile=None):
+    """EngineConfig of a PARITY_PATHS entry: the reference's decode knobs
+    on both Whisper slots (sampling for ASR, beam-2 for captions), then
+    the profile."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch.config import (
+        EngineConfig, apply_profile, asr_parity_decode,
+        caption_parity_decode)
+    cfg = EngineConfig().replace(
+        asr_decode=dataclasses.replace(asr_parity_decode(), method="sample"),
+        caption_decode=caption_parity_decode())
+    return apply_profile(cfg, profile) if profile else cfg
+
+
+def _encode_batch(pipe, x: np.ndarray) -> torch.Tensor:
+    """The encoder output of the segments ``x`` [B, samples] on the card."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    w = torch.nn.functional.pad(torch.as_tensor(x, device=pipe.device),
+                                (0, pipe.mel_cfg.n_samples - x.shape[1]))
+    mel = log_mel_spectrogram(w, pipe.mel_cfg).to(pipe.dtype)
+    return W.encode(pipe.params, mel, pipe.cfg,
+                    fused_blocks=pipe.fused_encoder_resolved)
+
+
+def _prefix(pipe, b: int) -> torch.Tensor:
+    return torch.tensor([pipe.prefix_ids] * b, device=pipe.device)
+
+
+def parity_invariants(card: str, eng, rng: np.random.Generator) -> None:
+    """What holds on the card without an oracle, on a parity engine's
+    pipelines (PARITY_CHECK_ROWS segments, PARITY_CHECK_TOKENS tokens):
+    beam-2's decode with num_beams=1 is greedy's, token for token (the
+    repetition penalty at 1.0: it acts on logits in greedy and on
+    log-probabilities in beam); sampling at PARITY_COLD_T is greedy
+    except where the noise can reach (GUMBEL_SPREAD); one seed twice is
+    the same decode, two seeds at PARITY_HOT_T differ; the self cache
+    keeps its addresses through a beam decode. Then one 32-segment batch
+    of each decode, timed against greedy on the same encoder output."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch.models import beam as BM
+    from multimodal_audio_search_tpu_torch.models import generate as G
+    ing = eng.ingest_pipeline
+    asr, cap = ing.asr, ing.caption
+    n, new = PARITY_CHECK_ROWS, PARITY_CHECK_TOKENS
+    x = make_audio(10 * 32, rng).reshape(32, -1)
+    out = {}
+    with torch.inference_mode():
+        enc_c, enc_a = _encode_batch(cap, x), _encode_batch(asr, x)
+        # beam with one beam = greedy
+        dec = dataclasses.replace(cap.decode, repetition_penalty=1.0,
+                                  max_new_tokens=new)
+        g = G.generate(cap.params, enc_c[:n], _prefix(cap, n), cfg=cap.cfg,
+                       decode=dataclasses.replace(dec, method="greedy"),
+                       max_new_tokens=new)
+        bm = BM.beam_generate(cap.params, enc_c[:n], _prefix(cap, n),
+                              cfg=cap.cfg, decode=dec, max_new_tokens=new,
+                              num_beams=1)
+        out["beam1_equals_greedy"] = bool(
+            torch.equal(bm.tokens, g.tokens)
+            and torch.equal(bm.lengths, g.lengths))
+        # cold sampling = greedy, but where the noise reaches
+        gaps, real = [], G._select_next
+
+        def spy(logits, *a):
+            top = logits.topk(2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+            return real(logits, *a)
+        dec = dataclasses.replace(asr.decode, max_new_tokens=new)
+        G._select_next = spy
+        try:
+            g = G.generate(asr.params, enc_a[:n], _prefix(asr, n),
+                           cfg=asr.cfg,
+                           decode=dataclasses.replace(dec, method="greedy"),
+                           max_new_tokens=new)
+        finally:
+            G._select_next = real
+        gaps = torch.stack(gaps).float().cpu()          # [steps, n]
+
+        def sample(t, seed):
+            return G.generate(
+                asr.params, enc_a[:n], _prefix(asr, n), cfg=asr.cfg,
+                decode=dataclasses.replace(dec, temperature=t),
+                max_new_tokens=new,
+                rng=torch.Generator(device=asr.device).manual_seed(seed))
+        cold = sample(PARITY_COLD_T, 1)
+        p = len(asr.prefix_ids)
+        left = []                   # (row, step, greedy top-two gap)
+        for r in range(n):
+            diff = (cold.tokens[r] != g.tokens[r]).nonzero()
+            if len(diff):
+                j = int(diff[0])
+                left.append((r, j - 1, float(gaps[j - 1, r])))
+        out["cold_rows_left_greedy"] = left
+        out["cold_ok"] = all(gap < GUMBEL_SPREAD * PARITY_COLD_T
+                             for _, _, gap in left)
+        gen_gaps = gaps[p - 1:, :]
+        out["greedy_min_top2_gap"] = float(gen_gaps.min())
+        hot = [sample(PARITY_HOT_T, s) for s in (7, 7, 8)]
+        out["same_seed_equal"] = bool(torch.equal(hot[0].tokens,
+                                                  hot[1].tokens))
+        out["seeds_differ"] = not torch.equal(hot[0].tokens, hot[2].tokens)
+        # the self cache keeps its addresses through a beam decode
+        ptrs, step = [], BM.decode_step
+
+        def spy_step(params, tok, pos, cache, *a, **k):
+            ptrs.append([(c["k"].data_ptr(), c["v"].data_ptr())
+                         for c in cache])
+            return step(params, tok, pos, cache, *a, **k)
+        BM.decode_step = spy_step
+        try:
+            bm = BM.beam_generate(
+                cap.params, enc_c[:n], _prefix(cap, n), cfg=cap.cfg,
+                decode=dataclasses.replace(cap.decode, max_new_tokens=new),
+                max_new_tokens=new, num_beams=cap.decode.num_beams)
+        finally:
+            BM.decode_step = step
+        out["cache_addresses_kept"] = bool(
+            len(ptrs) == bm.steps and all(q == ptrs[0] for q in ptrs))
+        # one 32-segment batch of each decode, and greedy on the same
+        # encoder output, in turns (decode, greedy, greedy, decode), from
+        # CUDA-synchronised host walls
+        walls = {}
+        for name, pipe, enc_out in (("beam", cap, enc_c),
+                                    ("sample", asr, enc_a)):
+            m = pipe.decode.method
+            for method in (m, "greedy", "greedy", m):
+                d = dataclasses.replace(pipe.decode, method=method)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if method == "beam":
+                    o = BM.beam_generate(
+                        pipe.params, enc_out, _prefix(pipe, 32),
+                        cfg=pipe.cfg, decode=d,
+                        max_new_tokens=d.max_new_tokens,
+                        num_beams=d.num_beams)
+                else:
+                    o = G.generate(
+                        pipe.params, enc_out, _prefix(pipe, 32),
+                        cfg=pipe.cfg, decode=d,
+                        max_new_tokens=d.max_new_tokens,
+                        rng=torch.Generator(device=pipe.device)
+                        .manual_seed(1))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                w = walls.setdefault(f"{name}:{method}", {
+                    "model": f"d={pipe.cfg.d_model}",
+                    "rows": 32 * (d.num_beams if method == "beam" else 1),
+                    "steps": o.steps, "wall_s": [], "ms_per_step": []})
+                w["wall_s"].append(wall)
+                w["ms_per_step"].append(wall * 1e3 / o.steps)
+        out["decode_32_segments"] = walls
+    phase("parity", step="invariants", card=card, **out)
+    if not (out["beam1_equals_greedy"] and out["cold_ok"]
+            and out["same_seed_equal"] and out["seeds_differ"]
+            and out["cache_addresses_kept"]):
+        raise AssertionError(f"parity invariants failed: {out}")
+
+
+def parity_k2(card: str, k2: dict) -> None:
+    """K2's time a call over T=1500 cross keys at the beam path's 64 rows
+    (whisper-tiny's 6 heads, and 8 at base width) beside 32 rows, next to
+    the kernel phase's 32-row base row: the profiler's device ms, and the
+    mean of 20 calls queued behind a sleep kernel between two CUDA
+    events (tools/torch_decode_kernel_ab.py::queued_ms), for K2 and for
+    one scaled_dot_product_attention call on the same inputs."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    for b, heads in ((32, 8), (32, 6), (64, 6), (64, 8)):
+        q, k, v = k2_inputs(gen, b, 1500, heads)
+        got = K2.fused_single_query_attention(q, k, v, heads=heads)
+        ref = K2.single_query_attention_plain(q, k, v, heads=heads)
+        torch.cuda.synchronize()
+        err = check_close(f"K2 B={b} H={heads}", got, ref, K2_ATOL, K2_RTOL)
+        fused = (lambda: K2.fused_single_query_attention(
+            q, k, v, heads=heads))
+        qh = q.view(b, 1, heads, 64).transpose(1, 2)
+        kh, vh = (a.view(b, 1500, heads, 64).transpose(1, 2) for a in (k, v))
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh))
+        rows.append({"shape": f"cross B={b} T=1500 H={heads}",
+                     "max_abs_err": err, "device_ms": device_ms(fused),
+                     "queued_ms": queued_ms(fused),
+                     "library_queued_ms": queued_ms(sdpa),
+                     **bound(nbytes(q, got) + 2 * b * 1500 * heads * 64 * 2,
+                             bf16=4 * b * 1500 * heads * 64)})
+        del q, k, v, got, ref, qh, kh, vh
+    first = k2["cases"][0]
+    phase("parity", step="K2 rows", card=card, rows=rows,
+          kernel_phase_row={k: first[k] for k in ("shape", "ms",
+                                                  "device_ms")})
+
+
+def parity_phase(card: str, rng: np.random.Generator, clips, mems: dict,
+                 rates: dict, k2: dict) -> dict:
+    """The reference-parity decode path (PARITY_PATHS) through the
+    engine: each engine ingests ``clips`` and answers the queries with
+    its launches counted and checked (expected_launches: K2 twice a
+    decoder layer and step, or once beside K3 and K4 under fast_lossless,
+    where they take the 64 beam rows), its own segment first; the first
+    engine's pipelines then hold the invariants (parity_invariants); K2 at
+    64 rows (parity_k2). Memory and ingest rate are printed beside the
+    default engine's. Returns each path's launch counts."""
+    counts = {}
+    for label, profile, fused in PARITY_PATHS:
+        counts[label], _, mems[label], rates[label] = engine_phase(
+            card, rng, label, profile, fused, None, None, clips,
+            cfg=parity_config(profile), tag="parity",
+            check=(lambda eng: parity_invariants(card, eng, rng))
+            if label == "parity" else None)
+    parity_k2(card, k2)
+    phase("parity", step="summary", card=card,
+          launches=counts, ingest_audio_s_per_s={
+              k: rates[k] for k in ("default", "fast_lossless", *counts)},
+          peak_allocated_bytes={k: mems[k]["peak_allocated_bytes"] for k in
+                                ("default", "fast_lossless", *counts)})
+    return counts
 
 
 def ab_phase(card: str) -> dict:
@@ -2366,18 +2629,19 @@ def main() -> int:
     int8k = int8_kernel_phase(card, gen)
     encv = encoder_variant_phase(card, gen)
     k12, k13 = search_kernel_phase(card)
-    counts, mems, ref_texts = {}, {}, None
+    counts, mems, rates, ref_texts = {}, {}, {}, None
     k14, counts["kernels"] = cross_mlp_phase(card, gen)
     clips = [("long.wav", make_audio(320, rng)),
              ("short.wav", make_audio(25, rng))]
     for label, profile, fused, int8, enc in ENGINE_PATHS:
         # v2 and the encoder variants take the 320 s clip only (time)
-        c, texts, mems[label] = engine_phase(
+        c, texts, mems[label], rates[label] = engine_phase(
             card, rng, label, profile, fused, int8, enc,
             clips[:1] if fused == "v2" or enc is not None else clips,
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
+    counts.update(parity_phase(card, rng, clips, mems, rates, k2))
     phase("memory", card=card, **{key: {
         "bytes": {k: m[key] for k, m in mems.items()},
         "share_of_default": {k: m[key] / mems["default"][key]

@@ -1,18 +1,25 @@
-"""Greedy KV-cached generation for Whisper.
+"""KV-cached generation for Whisper: greedy and sampling.
 
 Counterpart of ``multimodal_audio_search_tpu/models/generate.py::generate``
-(greedy path) with its HF-semantics logits processors. The JAX
-``lax.while_loop`` becomes a Python loop; its early exit (every row has
-emitted EOS) is checked on the host once per step -- one device sync per
-step. ``pos`` is a host int handed to the kernels as an argument.
+with its HF-semantics logits processors. The JAX ``lax.while_loop``
+becomes a Python loop; its early exit (every row has emitted EOS) is
+checked on the host once per step -- one device sync per step. ``pos`` is
+a host int handed to the kernels as an argument. Beam search is
+``models/beam.py``.
+
+Sampling (``method="sample"``) draws the next token as
+``jax.random.categorical`` does, ``argmax(logits / t + gumbel)``, with the
+Gumbel noise from an explicit ``torch.Generator`` on the logits' device
+(``_gumbel``). The noise is drawn on every step, the forced-prefix steps
+included, as JAX splits its key on every step; the stream is the
+generator's, not JAX's (ROADMAP, deliberate differences).
 
 ``decode.fused_layer`` passes through to ``decode_step`` (the fused
 sub-block kernels K3/K4, ops/decoder_block.py); ``decode.cross_attn`` and
 ``decode.int8_cross_kv`` pick the cross K/V format (bf16 merged for K2,
 int8 merged for K6, int8 [B, H, T, D] for K7, or the einsum format).
 
-Not ported (ROADMAP A4): ``method="sample"``, beam search,
-``scan_layers``.
+Not ported: ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -96,15 +103,18 @@ def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
     raise ValueError(f"unknown cross_attn {mode!r}")
 
 
+METHODS = ("greedy", "sample", "beam")
+
+
 def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
-    """Raise on decode options this port does not run yet, on an unknown
-    ``fused_encoder``, and on ``fused_layer`` over a ``quantized`` (int8)
-    decoder, which the JAX package cannot run either (models/whisper.py,
-    module docstring)."""
-    if decode.method != "greedy":
-        raise NotImplementedError(
-            f"method={decode.method!r} is not ported; greedy only "
-            f"(ROADMAP A4)")
+    """Raise on an unknown decode ``method`` (ValueError), on decode
+    options this port does not run yet, on an unknown ``fused_encoder``,
+    and on ``fused_layer`` over a ``quantized`` (int8) decoder, which the
+    JAX package cannot run either (models/whisper.py, module
+    docstring)."""
+    if decode.method not in METHODS:
+        raise ValueError(
+            f"method={decode.method!r}: one of {', '.join(METHODS)}")
     if decode.scan_layers:
         raise NotImplementedError("scan_layers is not ported (ROADMAP)")
     fe = decode.fused_encoder
@@ -124,16 +134,44 @@ class DecodeOut(NamedTuple):
     tokens: torch.Tensor    # [B, prefix+max_new] int64 (pad after EOS)
     lengths: torch.Tensor   # [B] int64, generated length incl. EOS
     steps: int              # decode steps run (each = one decode_step)
+    scores: torch.Tensor    # [B] f32 summed logprob (0 unless with_scores)
+
+
+def _gumbel(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform in
+    [finfo(float32).tiny, 1) as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=gen, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min_(torch.finfo(
+        torch.float32).tiny)))
+
+
+def _select_next(logits, method: str, temperature: float, noise):
+    """The next token: ``argmax(logits / max(t, 1e-6) + noise)`` for
+    "sample" (``jax.random.categorical`` on the same noise), argmax of
+    the logits otherwise."""
+    if method == "sample":
+        return (logits / max(temperature, 1e-6) + noise).argmax(dim=-1)
+    return logits.argmax(dim=-1)
 
 
 @torch.inference_mode()
 def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
              cfg: WhisperConfig, decode: DecodeConfig,
-             max_new_tokens: int) -> DecodeOut:
-    """Batched KV-cached greedy generation. ``prefix`` [B, P] is the
-    forced decoder prompt; the loop stops when every row has emitted EOS
-    or the buffer is full."""
+             max_new_tokens: int, rng: torch.Generator | None = None,
+             with_scores: bool = False) -> DecodeOut:
+    """Batched KV-cached generation, greedy or sampling
+    (``decode.method``; beam search is models/beam.py). ``prefix`` [B, P]
+    is the forced decoder prompt; the loop stops when every row has
+    emitted EOS or the buffer is full. ``rng``: the sampling generator,
+    on ``enc_out``'s device; None = one seeded with 0, as JAX's
+    ``PRNGKey(0)`` default. ``with_scores`` sums the log-softmax of the
+    processed logits at each generated token (prefix and finished steps
+    left out) into ``DecodeOut.scores``."""
     check_supported(decode)
+    if decode.method == "beam":
+        raise ValueError("method='beam' decodes with models/beam.py::"
+                         "beam_generate")
     b = enc_out.shape[0]
     prefix_len = prefix.shape[1]
     total = prefix_len + max_new_tokens
@@ -144,6 +182,10 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
                         device=dev)
     tokens[:, :prefix_len] = prefix.to(device=dev, dtype=torch.long)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    scores = torch.zeros(b, dtype=torch.float32, device=dev)
+    sample = decode.method == "sample"
+    if sample and rng is None:
+        rng = torch.Generator(device=dev).manual_seed(0)
     ar = torch.arange(total, device=dev)
     pos = 0
     while pos < total - 1:
@@ -155,12 +197,18 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
         logits = ban_repeated_ngrams(
             logits, tokens, torch.full((b,), pos + 1, device=dev),
             decode.no_repeat_ngram_size)
-        nxt = logits.argmax(dim=-1)
+        # a draw on every step, the prefix's too, as JAX splits its key
+        noise = _gumbel(rng, logits.shape, dev) if sample else None
+        nxt = _select_next(logits, decode.method, decode.temperature, noise)
         in_prefix = pos + 1 < prefix_len
         if in_prefix:  # the forced prompt overrides the model's choice
             nxt = tokens[:, pos + 1]
         nxt = torch.where(finished, torch.full_like(nxt, cfg.pad_token_id),
                           nxt)
+        if with_scores and not in_prefix:
+            logprob = torch.log_softmax(logits, dim=-1).gather(
+                1, nxt[:, None])[:, 0]
+            scores += torch.where(finished, 0.0, logprob)
         tokens[:, pos + 1] = nxt
         if not in_prefix:
             finished = finished | (nxt == cfg.eos_token_id)
@@ -173,4 +221,5 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     first_eos = is_eos.int().argmax(dim=1)
     lengths = torch.where(any_eos, first_eos + 1,
                           torch.full_like(first_eos, max_new_tokens))
-    return DecodeOut(tokens=tokens, lengths=lengths.long(), steps=pos)
+    return DecodeOut(tokens=tokens, lengths=lengths.long(), steps=pos,
+                     scores=scores)

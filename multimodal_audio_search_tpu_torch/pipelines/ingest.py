@@ -319,20 +319,22 @@ def make_default_ingest(
     dtype: torch.dtype | None = None,
     device: torch.device | str = "cuda",
 ) -> DualPipelineIngest:
-    """Build the reference-configured dual pipeline with random-init
-    weights from ``seed`` (whisper-base ASR with the en/transcribe prompt,
-    whisper-tiny captioner with a bare <sot> prompt, MiniLM-L6)."""
+    """Build the reference-configured dual pipeline (whisper-base ASR with
+    the en/transcribe prompt, whisper-tiny captioner with a bare <sot>
+    prompt, MiniLM-L6): random-init weights from ``seed``, unless a
+    ``ModelSpec.weights_path`` names a local HF checkpoint directory,
+    which is converted (models/convert.py) as the JAX package loads it;
+    its tokenizer assets are used where the directory has them."""
     from ..config import MelConfig
     from ..models import whisper as W
+    from ..models.convert import (convert_bert, convert_whisper,
+                                  load_state_dict_from_dir)
     from ..models.generate import check_supported
     from ..models.minilm import PRESETS as MLM_PRESETS
+    from ..models.tokenizer import load_tokenizer
     from ..ops.quant import quantize_whisper_decoder
+    from ..weights import minilm_params, whisper_params
     cfg = cfg or EngineConfig()
-    for spec in (cfg.asr_model, cfg.caption_model, cfg.text_embedder):
-        if spec.weights_path:
-            raise NotImplementedError(
-                "loading converted checkpoints is not ported yet "
-                "(ROADMAP A17); weights come from the seed")
     if cfg.text_embedder.family != "minilm":
         raise NotImplementedError(
             f"embedder family {cfg.text_embedder.family!r} is not ported "
@@ -350,14 +352,23 @@ def make_default_ingest(
     def load_whisper(spec, decode, name, prefix):
         wcfg = W.PRESETS[spec.preset]
         params = None
+        if spec.weights_path:
+            params = whisper_params(convert_whisper(
+                load_state_dict_from_dir(spec.weights_path), wcfg))
         if spec.quantize_decoder:       # int8 decoder weights (K5-K7)
             check_supported(decode, quantized=True)
-            params = quantize_whisper_decoder(W.init_params(
-                torch.Generator().manual_seed(seed), wcfg))
+            if params is None:
+                params = W.init_params(torch.Generator().manual_seed(seed),
+                                       wcfg)
+            params = quantize_whisper_decoder(params)
+        tokenizer = load_tokenizer(
+            spec.weights_path, vocab_size=wcfg.vocab_size,
+            add_cls_sep=False, pad_id=wcfg.pad_token_id,
+            eos_id=wcfg.eos_token_id) if spec.weights_path else None
         return WhisperTextPipeline(
             params=params, cfg=wcfg, decode=decode, dtype=dtype,
             seed=seed, name=name, prefix_ids=prefix, mel_cfg=mel_cfg,
-            device=device)
+            tokenizer=tokenizer, device=device)
 
     asr_prefix = W.forced_prefix(
         W.PRESETS[cfg.asr_model.preset], task=cfg.asr_task,
@@ -366,7 +377,13 @@ def make_default_ingest(
     cap_cfg = W.PRESETS[cfg.caption_model.preset]
     caption = load_whisper(cfg.caption_model, cfg.caption_decode,
                            "caption", [cap_cfg.bos_token_id])
+    mcfg = MLM_PRESETS[cfg.text_embedder.preset]
+    emb_path = cfg.text_embedder.weights_path
     embedder = TextEmbedder(
-        cfg=MLM_PRESETS[cfg.text_embedder.preset], seed=seed,
+        params=minilm_params(convert_bert(load_state_dict_from_dir(
+            emb_path), mcfg)) if emb_path else None,
+        cfg=mcfg, seed=seed,
+        tokenizer=load_tokenizer(emb_path, vocab_size=mcfg.vocab_size)
+        if emb_path else None,
         stats=stats_reg.pipelines["text_embedder"], device=device)
     return DualPipelineIngest(asr, caption, embedder, cfg, stats_reg)

@@ -1,10 +1,17 @@
 """Audio -> text extraction pipeline (shared by ASR and captioning).
 
 Counterpart of ``multimodal_audio_search_tpu/pipelines/whisper_pipeline.py``:
-log-mel -> encoder -> KV-cached greedy generation for a whole segment
-batch; the ASR and caption instances differ only in weights, decode
-config and decoder prompt. Batches pad up to power-of-two buckets, as
-the JAX package pads them for its compiled programs.
+log-mel -> encoder -> KV-cached generation for a whole segment batch;
+the ASR and caption instances differ only in weights, decode config and
+decoder prompt. Batches pad up to power-of-two buckets, as the JAX
+package pads them for its compiled programs.
+
+The decode follows ``decode.method``: greedy and "sample" through
+``generate`` (a dispatch's sampling generator is seeded with the
+dispatch's number, 1, 2, ..., as JAX keys it with ``PRNGKey(self._step)``),
+"beam" through ``beam_generate`` with ``decode.num_beams``. The JAX
+pipeline always calls ``generate``, whose argmax makes its "beam" greedy
+(ROADMAP, known faults in the reference); the port does not copy that.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch
 
 from ..config import DecodeConfig, MelConfig
 from ..models import whisper as W
+from ..models.beam import beam_generate
 from ..models.generate import check_supported, generate
 from ..models.tokenizer import load_tokenizer
 from ..ops.mel import log_mel_spectrogram
@@ -75,7 +83,8 @@ class WhisperTextPipeline:
         fused = self.decode.fused_encoder
         self.fused_encoder_resolved = True if fused is None else fused
         # decode steps of the most recent dispatch (a step runs each
-        # decoder layer's two attentions once), and running totals
+        # decoder layer's two attentions once, over B * num_beams rows
+        # under beam search), and running totals
         self.last_steps = 0
         self.total_steps = 0
         self.dispatches = 0
@@ -85,18 +94,24 @@ class WhisperTextPipeline:
 
     @torch.inference_mode()
     def dispatch_mel(self, mel: torch.Tensor):
-        """Encode + generate on device-resident mel [B, n_mels, frames]
-        (float32). Returns (tokens, lengths) device tensors; kernels are
-        queued on the current stream, the host syncs once per decode
-        step for the early exit."""
+        """Encode + decode on device-resident mel [B, n_mels, frames]
+        (float32) by ``decode.method`` (module docstring). Returns
+        (tokens, lengths) device tensors; kernels are queued on the
+        current stream, the host syncs once per decode step for the
+        early exit."""
         b = mel.shape[0]
         prefix = torch.tensor(self.prefix_ids, dtype=torch.long,
                               device=self.device).expand(b, -1)
         enc = W.encode(self.params, mel.to(self.dtype), self.cfg,
                        fused_blocks=self.fused_encoder_resolved)
-        out = generate(self.params, enc, prefix, cfg=self.cfg,
-                       decode=self.decode,
-                       max_new_tokens=self.decode.max_new_tokens)
+        kw = dict(cfg=self.cfg, decode=self.decode,
+                  max_new_tokens=self.decode.max_new_tokens)
+        if self.decode.method == "beam":
+            out = beam_generate(self.params, enc, prefix,
+                                num_beams=self.decode.num_beams, **kw)
+        else:
+            out = generate(self.params, enc, prefix, rng=torch.Generator(
+                device=self.device).manual_seed(self.dispatches + 1), **kw)
         self.last_steps = out.steps
         self.total_steps += out.steps
         self.dispatches += 1

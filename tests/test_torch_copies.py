@@ -22,6 +22,7 @@ COPIED = [
     "audio/resample.py",
     "audio/segment.py",
     "models/tokenizer.py",
+    "models/convert.py",
     "pipelines/validators.py",
     "index/lexicon.py",
     "index/analyzer.py",

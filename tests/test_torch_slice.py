@@ -669,11 +669,10 @@ def test_device_policy():
 
 @pytest.mark.parametrize("change", [
     dict(transfer_dtype="mulaw8"),
-    dict(asr_decode=tcfg.DecodeConfig(method="beam")),
     dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
                                   quantize_decoder=True),
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
-    dict(asr_decode=tcfg.DecodeConfig(method="sample")),
+    dict(text_embedder=tcfg.ModelSpec(family="mpnet", preset="test")),
     dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
     dict(data_parallel=2),
