@@ -89,8 +89,13 @@ Phases, one line each (``[phase] ...``):
    (parity_invariants: beam with one beam is greedy, cold sampling is
    greedy where the noise cannot reach, one seed reproduces and two
    differ, the self cache keeps its addresses), a 32-segment batch of
-   each decode timed beside greedy on the same encoder output, K2 at 64
-   rows beside 32 (device ms), and both engines' peak memory and ingest
+   each decode timed beside greedy on the same encoder output; each
+   decode kernel of this path against its plain version at the shapes
+   the path gives it (parity_kernel_phase: K2 over T=1500 cross keys and
+   over the self cache, K3 and K4, at the captioner's 64 beam rows with
+   its L=101 cache and the sampled ASR's 32 rows with its L=228 cache,
+   at DELTA_MAX / KV_ATOL / K2_ATOL, each case added to its kernel's
+   cases in the kernels line), and both engines' peak memory and ingest
    rate beside the default engine's.
 7. the service (``[service]``, run after the engines, before 5 and 6):
    ``service/server.py::serve`` over a default-config engine on cuda
@@ -1551,15 +1556,13 @@ def expected_launches(fused, int8, steps, disp, asr, cap, enc=None) -> dict:
 
 
 def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
-                 fused, int8, enc, clips, ref_texts=None, cfg=None,
-                 tag: str = "engine", check=None):
+                 fused, int8, enc, clips, ref_texts=None, cfg=None):
     """Build the engine of one ENGINE_PATHS entry (or of ``cfg``) on cuda,
     ingest ``clips`` and answer the queries with every launch count set
     to 0 just before and read just after; check the counts and
-    self-retrieval; then ``check(eng)``, if given. Lines print under
-    ``[tag]``. Returns (launch counts, {(source, start): ASR text}, device
-    memory: the peak from the build to the last query, and
-    decode_extra_bytes, ingest audio-seconds a second)."""
+    self-retrieval. Returns (launch counts, {(source, start): ASR text},
+    {device memory: the peak from the build to the last query, and
+    decode_extra_bytes; ingest audio-seconds a second})."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
 
     torch.cuda.empty_cache()
@@ -1572,7 +1575,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     ing = eng.ingest_pipeline
     asr, cap = ing.asr, ing.caption
     torch.cuda.synchronize()
-    phase(tag, path=label, step="built",
+    phase("engine", path=label, step="built",
           seconds=time.perf_counter() - t0,
           asr=f"whisper-base d={asr.cfg.d_model} L={asr.cfg.enc_layers}",
           caption=f"whisper-tiny d={cap.cfg.d_model}",
@@ -1648,10 +1651,10 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
         same = {"segments": len(common), "share_equal": sum(
             by_seg[k] == ref_texts[k] for k in common) / max(1, len(common))}
     mem = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "asr_decode_extra_bytes": decode_extra_bytes(asr, rng)}
-    phase(tag, path=label, step="ingest and queries", card=card, **mem,
+           "asr_decode_extra_bytes": decode_extra_bytes(asr, rng),
+           "ingest_audio_s_per_s": audio_s / ingest_s}
+    phase("engine", path=label, step="ingest and queries", card=card, **mem,
           segments=n_segs, audio_seconds=audio_s, ingest_seconds=ingest_s,
-          ingest_audio_s_per_s=audio_s / ingest_s,
           query_ms=lat, query_p50_ms=float(np.median(lat)),
           decode_steps={"asr": steps[0], "caption": steps[1]},
           dispatches={"asr": disp[0], "caption": disp[1]},
@@ -1671,11 +1674,9 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
         int8_reference_check(asr, rng, int8)
     if enc is not None:
         encoder_reference_check(asr, rng, enc)
-    if check is not None:
-        check(eng)
     del eng, ing, asr, cap
     torch.cuda.empty_cache()
-    return counts, by_seg, mem, audio_s / ingest_s
+    return counts, by_seg, mem
 
 
 def decode_extra_bytes(pipe, rng: np.random.Generator) -> int:
@@ -1905,9 +1906,10 @@ def _prefix(pipe, b: int) -> torch.Tensor:
     return torch.tensor([pipe.prefix_ids] * b, device=pipe.device)
 
 
-def parity_invariants(card: str, eng, rng: np.random.Generator) -> None:
-    """What holds on the card without an oracle, on a parity engine's
-    pipelines (PARITY_CHECK_ROWS segments, PARITY_CHECK_TOKENS tokens):
+def parity_invariants(card: str, ing, rng: np.random.Generator) -> None:
+    """What holds on the card without an oracle, on a parity ingest
+    pipeline's Whisper pipelines (PARITY_CHECK_ROWS segments,
+    PARITY_CHECK_TOKENS tokens):
     beam-2's decode with num_beams=1 is greedy's, token for token (the
     repetition penalty at 1.0: it acts on logits in greedy and on
     log-probabilities in beam); sampling at PARITY_COLD_T is greedy
@@ -1918,7 +1920,6 @@ def parity_invariants(card: str, eng, rng: np.random.Generator) -> None:
     import dataclasses
     from multimodal_audio_search_tpu_torch.models import beam as BM
     from multimodal_audio_search_tpu_torch.models import generate as G
-    ing = eng.ingest_pipeline
     asr, cap = ing.asr, ing.caption
     n, new = PARITY_CHECK_ROWS, PARITY_CHECK_TOKENS
     x = make_audio(10 * 32, rng).reshape(32, -1)
@@ -2035,65 +2036,158 @@ def parity_invariants(card: str, eng, rng: np.random.Generator) -> None:
         raise AssertionError(f"parity invariants failed: {out}")
 
 
-def parity_k2(card: str, k2: dict) -> None:
-    """K2's time a call over T=1500 cross keys at the beam path's 64 rows
-    (whisper-tiny's 6 heads, and 8 at base width) beside 32 rows, next to
-    the kernel phase's 32-row base row: the profiler's device ms, and the
-    mean of 20 calls queued behind a sleep kernel between two CUDA
-    events (tools/torch_decode_kernel_ab.py::queued_ms), for K2 and for
-    one scaled_dot_product_attention call on the same inputs."""
+def parity_shapes(ing) -> list[tuple]:
+    """(model, rows, L, D, H, F, positions) of each Whisper pipeline's
+    decode on the [parity] path: rows = a full batch's bucket
+    (ingest_batch, at least batch_floor) x num_beams under beam search;
+    the self cache L = prefix + max_new_tokens; the positions held there:
+    0, K3_POS's last (the kernel phase's edge) and the cache's last two
+    rows."""
+    from multimodal_audio_search_tpu_torch.utils.batching import bucket_pow2
+    out = []
+    for pipe in (ing.caption, ing.asr):
+        c, dec = pipe.cfg, pipe.decode
+        rows = bucket_pow2(ing.cfg.ingest_batch, pipe.batch_floor()) * (
+            dec.num_beams if dec.method == "beam" else 1)
+        l = len(pipe.prefix_ids) + dec.max_new_tokens
+        out.append((f"d={c.d_model} {dec.method}", rows, l, c.d_model,
+                    c.heads, c.ffn, sorted({p for p in (0, K3_POS[-1], l - 2,
+                                                        l - 1) if p < l})))
+    return out
+
+
+def parity_kernel_phase(card: str, ing, k2: dict, dec: list) -> None:
+    """The decode kernels of the [parity] path against their plain
+    versions on the card, at the shapes that path gives them
+    (parity_shapes): K2 over T=1500 cross keys and over the self cache at
+    each position, K3 (fused_layer=True) at each position, K4; at K2_ATOL,
+    DELTA_MAX and KV_ATOL, as the kernel phases hold them. Each case joins
+    its kernel's cases in the kernels line. The last position of each
+    shape, K4 and the cross rows carry the bound, the profiler's device
+    ms and the mean of 20 calls queued behind a sleep kernel between two
+    CUDA events (tools/torch_decode_kernel_ab.py::queued_ms); the cross
+    rows also one scaled_dot_product_attention call's, beside the kernel
+    phase's 32-row base row."""
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
+    by_name = {k["name"]: k for k in dec}
+    k3, k4 = by_name["decoder_self_block"], by_name["decoder_mlp_block"]
     gen = torch.Generator().manual_seed(1)
-    rows = []
-    for b, heads in ((32, 8), (32, 6), (64, 6), (64, 8)):
+    for model, b, l, d, heads, f, positions in parity_shapes(ing):
+        # K2 cross over the encoder's 1500 keys
         q, k, v = k2_inputs(gen, b, 1500, heads)
         got = K2.fused_single_query_attention(q, k, v, heads=heads)
         ref = K2.single_query_attention_plain(q, k, v, heads=heads)
         torch.cuda.synchronize()
-        err = check_close(f"K2 B={b} H={heads}", got, ref, K2_ATOL, K2_RTOL)
+        err = check_close(f"K2 {model} B={b} cross", got, ref, K2_ATOL,
+                          K2_RTOL)
         fused = (lambda: K2.fused_single_query_attention(
             q, k, v, heads=heads))
         qh = q.view(b, 1, heads, 64).transpose(1, 2)
         kh, vh = (a.view(b, 1500, heads, 64).transpose(1, 2) for a in (k, v))
         sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh))
-        rows.append({"shape": f"cross B={b} T=1500 H={heads}",
-                     "max_abs_err": err, "device_ms": device_ms(fused),
-                     "queued_ms": queued_ms(fused),
-                     "library_queued_ms": queued_ms(sdpa),
-                     **bound(nbytes(q, got) + 2 * b * 1500 * heads * 64 * 2,
-                             bf16=4 * b * 1500 * heads * 64)})
+        case = {"shape": f"parity {model} cross B={b} T=1500 H={heads}",
+                "max_abs_err": err, "device_ms": device_ms(fused),
+                "queued_ms": queued_ms(fused),
+                "library_queued_ms": queued_ms(sdpa),
+                **bound(nbytes(q, got) + 2 * b * 1500 * d * 2,
+                        bf16=4 * b * 1500 * d)}
+        k2["cases"].append(case)
+        phase("parity", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
+              **case)
         del q, k, v, got, ref, qh, kh, vh
+        # K2 self over the cache, and K3, at each position
+        x, selfw, _, kc, vc = k3_inputs(gen, b, l, d)
+        q = torch.randn(b, d, generator=gen).to(x.device, torch.bfloat16)
+        for pos in positions:
+            last = pos == positions[-1]
+            got = K2.fused_single_query_attention(q, kc, vc, heads=heads,
+                                                  pos=pos)
+            ref = K2.single_query_attention_plain(q, kc, vc, heads=heads,
+                                                  pos=pos)
+            torch.cuda.synchronize()
+            case = {"shape": f"parity {model} self B={b} L={l} H={heads} "
+                             f"pos={pos}",
+                    "max_abs_err": check_close(
+                        f"K2 {model} B={b} L={l} pos={pos}", got, ref,
+                        K2_ATOL, K2_RTOL)}
+            if last:
+                fn = (lambda: K2.fused_single_query_attention(
+                    q, kc, vc, heads=heads, pos=pos))
+                case.update(device_ms=device_ms(fn), queued_ms=queued_ms(fn),
+                            **bound(nbytes(q, got) + 2 * b * (pos + 1) * d * 2,
+                                    bf16=4 * b * (pos + 1) * d))
+            k2["cases"].append(case)
+            phase("parity", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
+                  **case)
+            args = (x, *selfw)
+            ref = DB.self_block_plain(*args, kc, vc, pos, heads=heads)
+            got = DB.fused_self_block(*args, kc.clone(), vc.clone(), pos,
+                                      heads=heads)
+            torch.cuda.synchronize()
+            case = {"shape": f"parity {model} B={b} D={d} H={heads} L={l} "
+                             f"pos={pos}",
+                    **check_k3(f"K3 {model} B={b} L={l} pos={pos}", got,
+                               ref, x)}
+            if last:
+                fn = (lambda: DB.fused_self_block(*args, kc, vc, pos,
+                                                  heads=heads))
+                case.update(device_ms=device_ms(fn), queued_ms=queued_ms(fn),
+                            **k3_bound(args, got, pos))
+            k3["cases"].append(case)
+            phase("parity", kernel="K3", card=card,
+                  tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2,
+                       "kv": [KV_ATOL, KV_RTOL]}, **case)
+        del x, selfw, kc, vc, q, got, ref
+        # K4 at the path's rows
+        x, mlp, _ = k4_inputs(gen, b, d, f)
+        got, ref = DB.fused_mlp_block(x, *mlp), DB.mlp_block_plain(x, *mlp)
+        torch.cuda.synchronize()
+        case = {"shape": f"parity {model} B={b} D={d} F={f}",
+                **check_delta(f"K4 {model} B={b}", got, ref, x),
+                "device_ms": device_ms(lambda: DB.fused_mlp_block(x, *mlp)),
+                "queued_ms": queued_ms(lambda: DB.fused_mlp_block(x, *mlp)),
+                **bound(nbytes(x, *mlp, got), bf16=4 * b * d * f)}
+        k4["cases"].append(case)
+        phase("parity", kernel="K4", card=card,
+              tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}, **case)
+        del x, mlp, got, ref
     first = k2["cases"][0]
-    phase("parity", step="K2 rows", card=card, rows=rows,
+    phase("parity", step="K2 beside the kernel phase", card=card,
           kernel_phase_row={k: first[k] for k in ("shape", "ms",
                                                   "device_ms")})
 
 
 def parity_phase(card: str, rng: np.random.Generator, clips, mems: dict,
-                 rates: dict, k2: dict) -> dict:
+                 k2: dict, dec: list) -> dict:
     """The reference-parity decode path (PARITY_PATHS) through the
     engine: each engine ingests ``clips`` and answers the queries with
     its launches counted and checked (expected_launches: K2 twice a
     decoder layer and step, or once beside K3 and K4 under fast_lossless,
-    where they take the 64 beam rows), its own segment first; the first
-    engine's pipelines then hold the invariants (parity_invariants); K2 at
-    64 rows (parity_k2). Memory and ingest rate are printed beside the
-    default engine's. Returns each path's launch counts."""
+    where they take the 64 beam rows), its own segment first. The first
+    path's ingest pipeline, built again from its config, then holds the
+    invariants (parity_invariants) and gives the decode kernels the
+    shapes they are checked at (parity_kernel_phase). Memory and ingest
+    rate are printed beside the default engine's. Returns each path's
+    launch counts."""
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        make_default_ingest)
     counts = {}
     for label, profile, fused in PARITY_PATHS:
-        counts[label], _, mems[label], rates[label] = engine_phase(
+        counts[label], _, mems[label] = engine_phase(
             card, rng, label, profile, fused, None, None, clips,
-            cfg=parity_config(profile), tag="parity",
-            check=(lambda eng: parity_invariants(card, eng, rng))
-            if label == "parity" else None)
-    parity_k2(card, k2)
-    phase("parity", step="summary", card=card,
-          launches=counts, ingest_audio_s_per_s={
-              k: rates[k] for k in ("default", "fast_lossless", *counts)},
-          peak_allocated_bytes={k: mems[k]["peak_allocated_bytes"] for k in
-                                ("default", "fast_lossless", *counts)})
+            cfg=parity_config(profile))
+    ing = make_default_ingest(parity_config(), seed=0, device="cuda")
+    parity_invariants(card, ing, rng)
+    parity_kernel_phase(card, ing, k2, dec)
+    del ing
+    torch.cuda.empty_cache()
+    paths = ("default", "fast_lossless", *counts)
+    phase("parity", step="summary", card=card, launches=counts,
+          **{key: {k: mems[k][key] for k in paths}
+             for key in ("ingest_audio_s_per_s", "peak_allocated_bytes")})
     return counts
 
 
@@ -2629,24 +2723,24 @@ def main() -> int:
     int8k = int8_kernel_phase(card, gen)
     encv = encoder_variant_phase(card, gen)
     k12, k13 = search_kernel_phase(card)
-    counts, mems, rates, ref_texts = {}, {}, {}, None
+    counts, mems, ref_texts = {}, {}, None
     k14, counts["kernels"] = cross_mlp_phase(card, gen)
     clips = [("long.wav", make_audio(320, rng)),
              ("short.wav", make_audio(25, rng))]
     for label, profile, fused, int8, enc in ENGINE_PATHS:
         # v2 and the encoder variants take the 320 s clip only (time)
-        c, texts, mems[label], rates[label] = engine_phase(
+        c, texts, mems[label] = engine_phase(
             card, rng, label, profile, fused, int8, enc,
             clips[:1] if fused == "v2" or enc is not None else clips,
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
-    counts.update(parity_phase(card, rng, clips, mems, rates, k2))
+    counts.update(parity_phase(card, rng, clips, mems, k2, dec))
     phase("memory", card=card, **{key: {
         "bytes": {k: m[key] for k, m in mems.items()},
         "share_of_default": {k: m[key] / mems["default"][key]
                              for k, m in mems.items()}}
-        for key in mems["default"]})
+        for key in mems["default"] if key.endswith("_bytes")})
     service_phase(card, rng)
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)

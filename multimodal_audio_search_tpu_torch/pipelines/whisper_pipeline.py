@@ -110,8 +110,10 @@ class WhisperTextPipeline:
             out = beam_generate(self.params, enc, prefix,
                                 num_beams=self.decode.num_beams, **kw)
         else:
-            out = generate(self.params, enc, prefix, rng=torch.Generator(
-                device=self.device).manual_seed(self.dispatches + 1), **kw)
+            rng = torch.Generator(device=self.device).manual_seed(
+                self.dispatches + 1) if self.decode.method == "sample" \
+                else None
+            out = generate(self.params, enc, prefix, rng=rng, **kw)
         self.last_steps = out.steps
         self.total_steps += out.steps
         self.dispatches += 1

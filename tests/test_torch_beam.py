@@ -548,10 +548,94 @@ def test_chip_smoke_parity_invariants_on_cpu(monkeypatch, rng):
     monkeypatch.setattr(chip_smoke, "phase",
                         lambda name, **kv: printed.append((name, kv)))
     eng = AudioSearchEngine(cfg=_parity_engine_cfg(), device="cpu")
-    chip_smoke.parity_invariants("cpu", eng, rng)
+    chip_smoke.parity_invariants("cpu", eng.ingest_pipeline, rng)
     (name, out), = printed
     assert name == "parity" and out["beam1_equals_greedy"]
     assert out["cache_addresses_kept"] and out["seeds_differ"]
     assert set(out["decode_32_segments"]) == {
         "beam:beam", "beam:greedy", "sample:sample", "sample:greedy"}
     assert out["decode_32_segments"]["beam:beam"]["rows"] == 64
+
+
+@pytest.mark.parametrize("profile", [None, "fast_lossless"])
+def test_chip_smoke_parity_shapes_are_the_paths(monkeypatch, rng, profile):
+    """chip_smoke.parity_shapes names the shapes the [parity] path gives
+    its decode kernels, counted here on a toy engine's full batches: K2
+    over the self cache (unfused) or K3 (fused) at (rows, L) of a shape
+    and a position no later than its last; K4 at a shape's rows; and
+    the shape's positions reach the last position decoded."""
+    import chip_smoke
+    import test_torch_slice as S
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    from multimodal_audio_search_tpu_torch.ops import (
+        cross_attention, decoder_block)
+    seen = {"self": set(), "mlp": set()}
+    k2, k3 = (cross_attention.fused_single_query_attention,
+              decoder_block.fused_self_block)
+    k4 = decoder_block.fused_mlp_block
+
+    def self_k2(q, k, v, *, heads, pos=None):
+        if pos is not None:
+            seen["self"].add((q.shape[0], k.shape[1], pos))
+        return k2(q, k, v, heads=heads, pos=pos)
+
+    def self_k3(*a, **k):
+        seen["self"].add((a[0].shape[0], a[-3].shape[1], a[-1]))
+        return k3(*a, **k)
+
+    def mlp_k4(x, *a, **k):
+        seen["mlp"].add(x.shape[0])
+        return k4(x, *a, **k)
+    monkeypatch.setattr(cross_attention, "fused_single_query_attention",
+                        self_k2)
+    monkeypatch.setattr(decoder_block, "fused_self_block", self_k3)
+    monkeypatch.setattr(decoder_block, "fused_mlp_block", mlp_k4)
+    eng = AudioSearchEngine(cfg=_parity_engine_cfg(profile), device="cpu")
+    eng.ingest_waveform(S._pieces(rng, 16), S.SR, "x")  # two full batches
+    shapes = chip_smoke.parity_shapes(eng.ingest_pipeline)
+    assert [s[1] for s in shapes] == [16, 8]   # 8 segments x 2 beams, 8
+    by_rows = {s[1]: s for s in shapes}
+    assert {r for r, _, _ in seen["self"]} == set(by_rows)
+    for rows, l, pos in seen["self"]:
+        assert l == by_rows[rows][2] and pos <= by_rows[rows][6][-1]
+    for _, rows, l, _, _, _, positions in shapes:
+        reached = max(p for r, _, p in seen["self"] if r == rows)
+        assert reached in positions and positions[-1] == l - 1
+    assert seen["mlp"] == (set(by_rows) if profile else set())
+
+
+def test_chip_smoke_parity_kernel_phase_on_cpu(monkeypatch, rng):
+    """chip_smoke.parity_kernel_phase's own logic on a toy CPU engine's
+    shapes (inputs on the CPU, where each wrapper is its plain version;
+    the card's timers and synchronise made no-ops): every shape's cross,
+    self and MLP cases are checked and join their kernels' cases."""
+    import functools
+    import types
+    import chip_smoke
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "phase", lambda name, **kv: None)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn: 0.0)
+    monkeypatch.setattr(chip_smoke, "load_tool", lambda name:
+                        types.SimpleNamespace(queued_ms=lambda fn: 0.0))
+    for name in ("k2_inputs", "k3_inputs", "k4_inputs"):
+        monkeypatch.setattr(chip_smoke, name, functools.partial(
+            getattr(chip_smoke, name), device="cpu"))
+    eng = AudioSearchEngine(cfg=_parity_engine_cfg(), device="cpu")
+    ing = eng.ingest_pipeline
+    k2 = {"name": "single_query_attention",
+          "cases": [{"shape": "kernel phase", "ms": 1.0, "device_ms": 1.0}]}
+    dec = [{"name": n, "cases": []} for n in (
+        "decoder_self_block", "decoder_self_block_q", "decoder_mlp_block",
+        "decoder_mlp_block_o")]
+    chip_smoke.parity_kernel_phase("cpu", ing, k2, dec)
+    shapes = chip_smoke.parity_shapes(ing)
+    n_pos = sum(len(s[6]) for s in shapes)
+    assert len(k2["cases"]) == 1 + len(shapes) + n_pos
+    assert [len(k["cases"]) for k in dec] == [n_pos, 0, len(shapes), 0]
+    for k in (k2, *dec):
+        for case in k["cases"][1 if k is k2 else 0:]:
+            assert case["shape"].startswith("parity ")
+            assert case["max_abs_err"] == 0.0
+    assert all(c["bound_ms"] > 0 for c in k2["cases"][1:]
+               if "device_ms" in c)
