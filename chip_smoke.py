@@ -9,6 +9,18 @@ Phases, one line each (``[phase] ...``):
 2. build: K1-K14 compiled from ``multimodal_audio_search_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel); build
    seconds and ptxas resource lines.
+2b. the audio front door (``[audio]``): the native libraries built from
+   native/*.cc with the host's g++ into the port's _build/ (seconds
+   each; the WAV/FLAC/resample/quantize library and the MP3 decoder must
+   be available, and whether g++ finds the FFmpeg headers is printed), a
+   44.1 kHz stereo WAV through the native decoder and resampler equal to
+   the numpy path, a FLAC (tests/flac_fixture.py) equal to its PCM, the
+   committed MP3 vector against its fingerprint (and libmpg123 where the
+   host has it), M4A and OGG decoded where FFmpeg built, else refused
+   with the ValueError naming it; host decode ms of each; the native
+   quantizers (mu-law, int16, int12) bit-equal to their numpy forms and
+   the native mel16/12/8 encoder within MEL_CODE_MAX_DIFF codes, on a
+   32-segment batch, each timed.
 3. kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them: K1 (the encoder block on wgmma + TMA,
    a thread-block cluster over the heads, csrc/encoder_block_wgmma.cu) at
@@ -69,6 +81,16 @@ Phases, one line each (``[phase] ...``):
    encoder variant's encoder against the plain encoder (ENC_MEAN_ERR_MAX).
    The default engine also answers its queries with search_batch, equal
    to search, with the float32 index and with index_dtype="bfloat16".
+4b. the transfer codecs (``[codecs]``, after the engines): CODEC_PATHS
+   (``fast`` = mulaw8 + short_context + bf16 index, ``fast`` with mel8,
+   ``fast_lossless`` with mel16 and with mel12, the default with int12),
+   each an engine phase as in 4 over both WAVs, with launch counts, own
+   segment first, transfer bytes a segment, host encode ms a batch,
+   ingest rate, peak memory and ASR texts beside the default engine's;
+   the short-context paths run the encoder at SHORT_T = 500 positions and
+   K2 over 500 cross keys, so K1 (base and tiny, every K1_CASES input)
+   and K2 cross (H = 8 and 6) are then held against their plain versions
+   at B=32, T=500, each case added to its kernel's cases.
 5. the A/B path of K11: tools/torch_profile_encoder_kernel_ab.py's run()
    (B=64, T=500 and 1500, each form), launches counted.
 6. search at scale, the path of K12 and K13: tools/torch_bench_search_
@@ -108,8 +130,11 @@ Phases, one line each (``[phase] ...``):
    120 s (the ASR model's launches alone), delete (no row of the source
    after it; a row behind the deleted ones found at its new index),
    save / reset / load and a streaming save_incremental, /metrics,
-   metrics.csv, stats and a profile trace, reconfigure to whisper-small
-   (K1 at D=768, 12 heads, own segment first) and a refused mulaw8,
+   metrics.csv, stats and a profile trace, uploads of the MP3 vector
+   and a FLAC (segments equal to ingest_waveform's on the decoded audio,
+   own segment first), reconfigure to whisper-small (K1 at D=768, 12
+   heads, own segment first), a refused A11 embedder (mpnet) and a
+   mulaw8 reconfigure at whisper-base that ingests (own segment first),
    20 ingest/delete cycles (VmRSS slope over cycles 6-20 <=
    RSS_SLOPE_MAX_MB), then the CLI (``python -m
    multimodal_audio_search_tpu_torch`` ingest, search, search
@@ -125,6 +150,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -1653,7 +1679,22 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     mem = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
            "asr_decode_extra_bytes": decode_extra_bytes(asr, rng),
            "ingest_audio_s_per_s": audio_s / ingest_s}
+    # the transfer: one segment's code bytes, and the host encode of the
+    # first clip's batches
+    from multimodal_audio_search_tpu_torch.audio.segment import (
+        segment_windows)
+    seg_len = min(int(eng.cfg.segment.segment_seconds * SR),
+                  asr.mel_cfg.n_samples)
+    code = ing._encode_transfer([np.zeros(seg_len, np.float32)], 1, seg_len,
+                                np.float32(1.0), ing.last_transfer_resolved)
+    batches = -(-len(segment_windows(len(clips[0][1]), SR, eng.cfg.segment))
+                // eng.cfg.ingest_batch)
+    codec = {"transfer_dtype": ing.last_transfer_resolved,
+             "transfer_bytes_per_segment": code.numel() * code.element_size(),
+             "quantize_ms_per_batch": traces[0]["quantize"] * 1e3 / batches,
+             "encoder_positions": asr.mel_cfg.n_frames // 2}
     phase("engine", path=label, step="ingest and queries", card=card, **mem,
+          **codec,
           segments=n_segs, audio_seconds=audio_s, ingest_seconds=ingest_s,
           query_ms=lat, query_p50_ms=float(np.median(lat)),
           decode_steps={"asr": steps[0], "caption": steps[1]},
@@ -1667,6 +1708,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
           top_hit=top["index"], top_score=top["fusion_score"],
           trace_ms=[{k: round(v * 1e3, 3) for k, v in tr.items()}
                     for tr in traces])
+    mem.update(codec, asr_text_vs_default=same)
     if label == "default":
         query_entry_check(card, eng, queries, texts, own, bool(unique))
         reference_check(asr, rng)
@@ -2212,6 +2254,369 @@ def ab_phase(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------- audio, codecs
+# the committed MP3 vector and its fingerprint (tests/make_mp3_vector.py)
+MP3_VECTOR = os.path.join("tests", "data", "vector_16k_mono.mp3")
+MP3_FINGERPRINT = os.path.join("tests", "data", "vector_16k_mono.json")
+# each 1024-sample block's RMS of the vector's decode against the
+# fingerprint JAX's native decoder gave (float rounding only)
+MP3_RMS_ATOL = 1e-5
+# the in-tree MP3 decoder against libmpg123, where the card's host has
+# it (tests/test_mp3_native.py's bar)
+MP3_LIB_ATOL = 3e-6
+# native mel codes against the numpy codes: the FFT's summation order
+# may move a code by one (ops/mel.py::_native_mel_codes)
+MEL_CODE_MAX_DIFF = 1
+# (label, profile, fused_layer, transfer): bench.py's codec modes
+CODEC_PATHS = (("fast", "fast", True, None),
+               ("fast_mel8", "fast", True, "mel8"),
+               ("fast_lossless_mel16", "fast_lossless", True, "mel16"),
+               ("fast_lossless_mel12", "fast_lossless", True, "mel12"),
+               ("int12", None, False, "int12"))
+# encoder positions of a short_context (10 s) engine
+SHORT_T = 500
+
+
+def host_ms(fn, n: int = 3) -> float:
+    """Median wall milliseconds of ``n`` calls on the host clock."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def libav_headers() -> bool:
+    """Whether g++ finds the libavformat/libavcodec headers that
+    native/ffdecode.cc includes."""
+    src = "#include <libavformat/avformat.h>\n" \
+          "#include <libavcodec/avcodec.h>\n"
+    res = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                         input=src, capture_output=True, text=True)
+    return res.returncode == 0
+
+
+def audio_phase(card: str, rng: np.random.Generator) -> dict:
+    """The ingest front door on the card's host: the three native
+    libraries built from native/*.cc with the host's g++ (seconds each;
+    the WAV/FLAC/resample/quantize library and the MP3 decoder must be
+    available), each container decoded and checked, and the native
+    quantizers and mel encoder against their numpy forms on a
+    32-segment batch. Returns the upload bodies for ``[service]``."""
+    import tempfile
+    from multimodal_audio_search_tpu_torch.audio import (
+        ffdecode, mp3, mp3_native, native)
+    from multimodal_audio_search_tpu_torch.audio.decode import (
+        load_audio, sniff_format)
+    from multimodal_audio_search_tpu_torch.audio.resample import resample
+    from multimodal_audio_search_tpu_torch.audio.wav import (
+        read_wav, to_mono, write_wav)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from flac_fixture import encode_flac
+    from make_mp3_vector import fingerprint
+
+    build = {}
+    for name, mod in (("audio_kernels", native), ("mp3_decode", mp3_native),
+                      ("ffdecode", ffdecode)):
+        t0 = time.perf_counter()
+        lib = mod.get_lib()
+        build[name] = {"seconds": time.perf_counter() - t0,
+                       "available": lib is not None,
+                       "library": os.path.basename(lib._name) if lib
+                       else None}
+    headers = libav_headers()
+    phase("audio", step="build", card=card, gxx=shutil.which("g++"),
+          libav_headers=headers, **build)
+    if not (native.available() and mp3_native.available()):
+        raise AssertionError(f"audio: native libraries missing: {build}")
+    out = {"build": build, "decode_ms": {}}
+    tmp = tempfile.mkdtemp(prefix="mas_audio_")
+
+    # WAV, 44.1 kHz stereo: native decode + native resample against the
+    # numpy reader and resampler
+    t = np.arange(44100 * 10) / 44100
+    x = np.stack([0.3 * np.sin(2 * np.pi * f * t)
+                  + rng.normal(size=t.size) * 0.02 for f in (220.0, 330.0)],
+                 axis=1).astype(np.float32)
+    path = os.path.join(tmp, "s.wav")
+    write_wav(path, x, 44100)
+    data = open(path, "rb").read()
+    got, sr = load_audio(data, SR)
+    y, r = read_wav(data)
+    ref = resample(to_mono(y).astype(np.float32), r, SR)
+    if native.wav_decode_mono(data) is None or sr != SR or \
+            not np.array_equal(got, ref):
+        raise AssertionError("audio: native WAV decode + resample differs "
+                             "from the numpy path")
+    out["decode_ms"]["wav_44k1_stereo_10s"] = host_ms(
+        lambda: load_audio(data, SR))
+
+    # FLAC (tests/flac_fixture.py), mono 16 kHz: the source PCM exactly
+    pcm = (np.clip(make_audio(6, rng), -1.0, 1.0) * 32767).astype(np.int16)
+    flac = encode_flac(pcm, rate=SR, mode="fixed2")
+    got, sr = load_audio(flac, SR)
+    if sniff_format(flac) != "flac" or \
+            not np.array_equal(got, pcm.astype(np.float32) / 32768.0):
+        raise AssertionError("audio: FLAC decode differs from its PCM")
+    out["decode_ms"]["flac_16k_mono_6s"] = host_ms(
+        lambda: load_audio(flac, SR))
+
+    # the committed MP3 vector against its fingerprint (and libmpg123)
+    mp3_bytes = open(os.path.join(ROOT, MP3_VECTOR), "rb").read()
+    want = json.load(open(os.path.join(ROOT, MP3_FINGERPRINT)))
+    dec, rate = mp3_native.decode_mp3_native(mp3_bytes)
+    fp = fingerprint(dec, rate)
+    rms_err = float(np.max(np.abs(np.subtract(fp["rms"], want["rms"]))))
+    if (fp["samples"], fp["rate"]) != (want["samples"], want["rate"]) or \
+            rms_err > MP3_RMS_ATOL:
+        raise AssertionError(f"audio: MP3 vector {fp['samples']} samples at "
+                             f"{fp['rate']} Hz, RMS err {rms_err}")
+    lib_err = None
+    if mp3.available():
+        ref, _ = mp3.decode_mp3(mp3_bytes)
+        lib_err = float(np.max(np.abs(ref - dec)))
+        if ref.shape != dec.shape or lib_err > MP3_LIB_ATOL:
+            raise AssertionError(f"audio: MP3 vs libmpg123 {lib_err}")
+    out["decode_ms"]["mp3_16k_mono_14s"] = host_ms(
+        lambda: load_audio(mp3_bytes, SR))
+
+    # M4A and OGG where the FFmpeg libraries built; else the named refusal
+    containers = {}
+    tone = (0.5 * np.sin(2 * np.pi * 440.0 * np.arange(44100 * 2) / 44100)
+            ).astype(np.float32)
+    for ext in ("m4a", "ogg"):
+        path = os.path.join(tmp, f"tone.{ext}")
+        if ffdecode.available():
+            ffdecode.encode_file(tone, 44100, path)
+            body = open(path, "rb").read()
+            got, sr = load_audio(body, SR)
+            mid = got[4000:-4000]
+            spec = np.abs(np.fft.rfft(mid))
+            dom = float(np.fft.rfftfreq(len(mid), 1 / SR)[np.argmax(spec)])
+            if sniff_format(body) != ext or abs(len(got) - 2 * SR) > 2000 \
+                    or not np.isfinite(got).all() or abs(dom - 440.0) > 5:
+                raise AssertionError(f"audio: {ext} decoded {len(got)} "
+                                     f"samples, peak at {dom} Hz")
+            out["decode_ms"][f"{ext}_44k1_mono_2s"] = host_ms(
+                lambda: load_audio(body, SR))
+            containers[ext] = {"samples": len(got), "peak_hz": dom}
+        else:
+            head = b"\x00\x00\x00\x1cftypM4A " if ext == "m4a" else b"OggS"
+            try:
+                load_audio(head + bytes(256), SR)
+                raise AssertionError(f"audio: {ext} without FFmpeg decoded")
+            except ValueError as e:
+                if "libavformat" not in str(e):
+                    raise
+                containers[ext] = {"refused": str(e)}
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase("audio", step="containers", card=card,
+          wav="native decode + resample == numpy",
+          flac="== source PCM", mp3={"samples": fp["samples"],
+                                     "rate": fp["rate"],
+                                     "rms_max_err": rms_err,
+                                     "vs_libmpg123": lib_err},
+          containers=containers, decode_ms=out["decode_ms"])
+
+    # the native quantizers and mel encoder on a 32-segment batch
+    out["quantize_ms"] = quantize_check(card, make_audio(320, rng)
+                                        .reshape(32, -1))
+    out["uploads"] = {"vector.mp3": mp3_bytes, "tone.flac": flac}
+    return out
+
+
+def quantize_check(card: str, batch: np.ndarray) -> dict:
+    """Native against numpy, each timed on the host over the batch: the
+    mu-law, int16 and int12 quantizers bit for bit, the mel16/12/8
+    encoder within MEL_CODE_MAX_DIFF codes (their gmax tails bit for
+    bit)."""
+    from multimodal_audio_search_tpu_torch.audio import native
+    from multimodal_audio_search_tpu_torch.config import MelConfig
+    from multimodal_audio_search_tpu_torch.ops import mel as M
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        _mulaw_lut, _pack_int12)
+    b, n = batch.shape
+    scale = np.float32(0.9)
+    lut = _mulaw_lut()
+
+    def nat(kind):
+        w = 3 * ((n + 1) // 2) if kind == "int12" else n
+        q = np.zeros((b, w), {"mulaw8": np.int8, "int16": np.int16,
+                              "int12": np.uint8}[kind])
+        for i in range(b):
+            ok = {"mulaw8": lambda: native.quantize_mulaw(
+                      batch[i], float(scale), lut, q[i]),
+                  "int16": lambda: native.quantize_int16(
+                      batch[i], float(scale), q[i]),
+                  "int12": lambda: native.quantize_int12(
+                      batch[i], float(scale), q[i])}[kind]()
+            if not ok:
+                raise AssertionError(f"audio: native {kind} refused")
+        return q
+
+    def numpy_form(kind):
+        wn = batch * scale
+        if kind == "mulaw8":
+            return lut[np.clip(np.rint(wn * 32767.5 + 32767.5), 0.0,
+                               65535.0).astype(np.uint16)]
+        if kind == "int16":
+            return (np.clip(wn, -1.0, 1.0) * 32767.0).astype(np.int16)
+        return np.stack([_pack_int12(r) for r in wn])
+
+    res = {}
+    for kind in ("mulaw8", "int16", "int12"):
+        a, c = nat(kind), numpy_form(kind)
+        if not np.array_equal(a, c):
+            raise AssertionError(f"audio: native {kind} codes differ from "
+                                 f"numpy's in {int((a != c).sum())} places")
+        res[kind] = {"native_ms": host_ms(lambda: nat(kind)),
+                     "numpy_ms": host_ms(lambda: numpy_form(kind))}
+    cfg = MelConfig()
+    t_seg = M.mel_seg_frames(n, cfg)
+    for kind, enc in (("mel16", M.encode_mel16), ("mel12", M.encode_mel12),
+                      ("mel8", M.encode_mel8)):
+        if M._native_mel_codes(batch[:1], cfg, t_seg,
+                               int(kind[3:])) is None:
+            raise AssertionError(f"audio: native {kind} encoder refused")
+        t0 = time.perf_counter()
+        a = enc(batch, cfg, t_seg)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        os.environ["MAS_NO_NATIVE_MEL"] = "1"
+        try:
+            t0 = time.perf_counter()
+            c = enc(batch, cfg, t_seg)
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            del os.environ["MAS_NO_NATIVE_MEL"]
+        if kind == "mel12":
+            ca, cc = (mel12_codes(v) for v in (a, c))
+        else:
+            ca, cc = (v[:, :-4] if kind == "mel8" else v for v in (a, c))
+        diff = int(np.abs(ca.astype(np.int32) - cc.astype(np.int32)).max())
+        if a.shape != c.shape or diff > MEL_CODE_MAX_DIFF or (
+                kind != "mel16" and not np.array_equal(a[:, -4:],
+                                                       c[:, -4:])):
+            raise AssertionError(f"audio: native {kind} codes differ from "
+                                 f"numpy's by {diff}")
+        res[kind] = {"native_ms": native_ms, "numpy_ms": numpy_ms,
+                     "max_code_diff": diff,
+                     "bytes_per_segment": a[0].nbytes}
+    phase("audio", step="quantize", card=card, segments=b,
+          samples_per_segment=n, tol={"waveform": "bit-equal",
+                                      "mel_codes": MEL_CODE_MAX_DIFF},
+          **res)
+    return res
+
+
+def mel12_codes(packed: np.ndarray) -> np.ndarray:
+    """The 12-bit codes of mel12 rows (without their 4-byte tail)."""
+    u = packed[:, :-4].astype(np.int32).reshape(packed.shape[0], -1, 3)
+    return np.stack([u[..., 0] | ((u[..., 1] & 0xF) << 8),
+                     (u[..., 1] >> 4) | (u[..., 2] << 4)], -1)
+
+
+def codec_config(profile, transfer):
+    """EngineConfig of one entry of CODEC_PATHS."""
+    from multimodal_audio_search_tpu_torch.config import (
+        EngineConfig, apply_profile)
+    cfg = EngineConfig()
+    if profile:
+        cfg = apply_profile(cfg, profile)
+    return cfg.replace(transfer_dtype=transfer) if transfer else cfg
+
+
+def codec_phase(card: str, rng: np.random.Generator, clips, mems: dict,
+                ref_texts, k1: dict, k2: dict,
+                gen: torch.Generator) -> dict:
+    """The transfer codecs through the engine: each CODEC_PATHS engine
+    ingests ``clips`` and answers the queries with its launches counted
+    and checked (engine_phase); the short_context paths run the encoder
+    at SHORT_T positions, so K1 and K2's cross attention run over
+    SHORT_T keys. Then K1 and K2 at SHORT_T against their plain
+    versions, each case added to its kernel's cases. Returns each path's
+    launch counts."""
+    counts = {}
+    for label, profile, fused, transfer in CODEC_PATHS:
+        cfg = codec_config(profile, transfer)
+        counts[label], _, mems[label] = engine_phase(
+            card, rng, label, profile, fused, None, None, clips, ref_texts,
+            cfg=cfg)
+        if cfg.short_context and mems[label]["encoder_positions"] != SHORT_T:
+            raise AssertionError(f"{label}: encoder at "
+                                 f"{mems[label]['encoder_positions']}")
+    paths = ("default", *counts)
+    phase("codecs", step="summary", card=card, launches=counts,
+          **{key: {k: mems[k][key] for k in paths}
+             for key in ("transfer_dtype", "transfer_bytes_per_segment",
+                         "quantize_ms_per_batch", "encoder_positions",
+                         "ingest_audio_s_per_s", "peak_allocated_bytes",
+                         "asr_text_vs_default")})
+    short_context_kernels(card, gen, k1, k2)
+    return counts
+
+
+def short_context_kernels(card: str, gen: torch.Generator, k1: dict,
+                          k2: dict) -> None:
+    """K1 (base and tiny, every K1_CASES input) and K2's cross attention
+    (H = 8 and 6) at B=32, T=SHORT_T against their plain versions, with
+    the tolerances of their T=1500 cases; the residual K1 case and each
+    K2 case timed beside the bound."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
+    b, t, d = 32, SHORT_T, 64
+    for heads, label in ((8, "base"), (6, "tiny")):
+        for inputs, q_scale, residual in K1_CASES:
+            args = k1_inputs(gen, b, t, heads, q_scale=q_scale,
+                             residual=residual)
+            got = K1.fused_attention_o_residual(*args)
+            ref = K1.attention_o_residual_plain(*args)
+            torch.cuda.synchronize()
+            case = {"shape": f"{label} B={b} T={t} H={heads} D={d}",
+                    "inputs": inputs, "path": "short_context",
+                    **cluster_case(b, t, heads),
+                    **check_k1(f"K1 {label} T={t} {inputs}", got, ref,
+                               residual)}
+            if residual:
+                case.update(
+                    ms=time_ms(lambda: K1.fused_attention_o_residual(*args)),
+                    plain_ms=time_ms(
+                        lambda: K1.attention_o_residual_plain(*args), reps=5),
+                    **attn_o_bound(b, t, heads))
+            k1["cases"].append(case)
+            phase("codecs", kernel="K1", card=card,
+                  tol=[K1_ATOL, K1_RTOL] if residual
+                  else {"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}, **case)
+            del args, got, ref
+    for heads in (8, 6):
+        hd = heads * d
+        q, k, v = k2_inputs(gen, b, t, heads)
+        got = K2.fused_single_query_attention(q, k, v, heads=heads)
+        ref = K2.single_query_attention_plain(q, k, v, heads=heads)
+        torch.cuda.synchronize()
+        err = check_close(f"K2 cross T={t} H={heads}", got, ref, K2_ATOL,
+                          K2_RTOL)
+        qh = q.view(b, 1, heads, d).transpose(1, 2)
+        kh, vh = (a.view(b, t, heads, d).transpose(1, 2) for a in (k, v))
+        splits, chunk = K2.split_plan(t, b * heads)
+        case = {"shape": f"cross B={b} T={t} H={heads} pos=None",
+                "path": "short_context", "splits": splits,
+                "keys_per_split": chunk, "max_abs_err": err,
+                "ms": time_ms(lambda: K2.fused_single_query_attention(
+                    q, k, v, heads=heads)),
+                "plain_ms": time_ms(lambda: K2.single_query_attention_plain(
+                    q, k, v, heads=heads)),
+                "library_ms": time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh)),
+                **bound(nbytes(q, got) + 2 * b * t * hd * 2,
+                        bf16=4 * b * t * hd)}
+        k2["cases"].append(case)
+        phase("codecs", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
+              **case)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- service
 SERVICE_SOAK_CYCLES = 20
 # least-squares slope of VmRSS over the soak's cycles 6-20, MB a cycle
@@ -2277,7 +2682,8 @@ def check_own_first(name: str, meta, own: int, hits) -> None:
             f"{[(h['index'], h['asr_text']) for h in hits[:3]]}")
 
 
-def service_phase(card: str, rng: np.random.Generator) -> None:
+def service_phase(card: str, rng: np.random.Generator,
+                  uploads: dict) -> None:
     """The port's service surface on the card at the default config's
     published widths: ``serve(engine, port=0, warmup=True)`` with its
     accept loop on a daemon thread, every request over HTTP with its own
@@ -2287,9 +2693,12 @@ def service_phase(card: str, rng: np.random.Generator) -> None:
     against ingest_waveform's, transcribe_long's launches, delete (no
     row of the source after it, the own-segment check on a row the
     delete moved), save / reset / load and save_incremental, the metrics
-    routes and a profile, reconfigure to whisper-small (K1 at D=768, 12
-    heads) and a refused mulaw8, 20 ingest/delete cycles (VmRSS slope),
-    and the CLI as subprocesses on one --index directory."""
+    routes and a profile, ``uploads`` (name -> bytes: the MP3 vector and
+    a FLAC) each equal to ingest_waveform on its decoded audio, own
+    segment first, reconfigure to whisper-small (K1 at D=768, 12 heads),
+    a refused A11 embedder and a mulaw8 reconfigure that ingests, 20
+    ingest/delete cycles (VmRSS slope), and the CLI as subprocesses on
+    one --index directory."""
     import csv
     import io
     import shutil
@@ -2575,7 +2984,36 @@ def service_phase(card: str, rng: np.random.Generator) -> None:
               csv_rows=len(rows) - 1, trace_bytes=os.path.getsize(trace),
               trace_kernels=kernels_in_trace, profile_wall_s=prof_s)
 
-        # ---- 8. reconfigure: whisper-small ASR, then a refused mulaw8
+        # ---- 7b. uploads: the MP3 vector and a FLAC, each as
+        # ingest_waveform would ingest its decoded audio
+        from multimodal_audio_search_tpu_torch.audio.decode import (
+            load_audio)
+        up = {}
+        for name, data in uploads.items():
+            n0 = request(base, "/api/segments")[1]["total"]
+            st, body, wall = request(base, f"/api/ingest?name={name}", data)
+            expect(f"upload {name}", st, body)
+            x, sr = load_audio(data, SR)
+            with lock:
+                ref = eng.ingest_pipeline.process_waveform(x, sr, name)
+            key = ("start_time", "end_time", "asr_text", "audio_description")
+            got = [tuple(sg[k] for k in key) for sg in body["segments"]]
+            want = [tuple(sg[k] for k in key) for sg in ref]
+            if not got or got != want:
+                raise AssertionError(f"service upload {name}: {got} != "
+                                     f"ingest_waveform's {want}")
+            meta = request(base, "/api/segments")[1]["segments"]
+            mine = own_segment(meta, range(n0, n0 + len(got)))
+            hits = request(base, f"/api/search?q={q(meta[mine]['asr_text'])}"
+                           )[1]["results"]
+            check_own_first(f"upload {name}", meta, mine, hits)
+            up[name] = {"bytes": len(data), "audio_s": len(x) / SR,
+                        "segments": len(got), "wall_s": wall,
+                        "own_segment": mine}
+        phase("service", step="uploads", card=card, **up)
+
+        # ---- 8. reconfigure: whisper-small ASR, a refused A11 embedder,
+        # then mulaw8 at whisper-base
         st, cfg_out, rebuild_s = request(
             base, "/api/config", json.dumps({"asr_preset": "small"}).encode(),
             headers={"Content-Type": "application/json"})
@@ -2605,25 +3043,58 @@ def service_phase(card: str, rng: np.random.Generator) -> None:
         check_own_first("whisper-small", meta, mine, hits)
         st, refused, _ = request(
             base, "/api/config", json.dumps(
-                {"transfer_dtype": "mulaw8"}).encode(),
+                {"embedder": "all-mpnet-base-v2"}).encode(),
             headers={"Content-Type": "application/json"})
         cfg_now = request(base, "/api/config")[1]
         st2, still, _ = request(base, f"/api/search?q={q(queries[1])}")
         if st == 200 or "error" not in refused or st2 != 200 or \
-                not still["results"] or cfg_now["transfer_dtype"] != "int16" \
-                or cfg_now["asr_preset"] != "small":
-            raise AssertionError(f"service mulaw8: {st} {refused}, then "
+                not still["results"] or cfg_now["asr_preset"] != "small" \
+                or cfg_now["embed_dim"] != 384:
+            raise AssertionError(f"service mpnet: {st} {refused}, then "
                                  f"{st2}, config {cfg_now}")
-        phase("service", step="reconfigure", card=card,
-              reconfigure_small_wall_s=rebuild_s,
-              asr=f"whisper-small d={asr.cfg.d_model} H={asr.cfg.heads}",
-              ingest_wall_s=small_s, launches=counts, expected=exp,
-              own_segment=mine, mulaw8_status=st,
-              mulaw8_error=refused["error"])
-        st, cfg_out, base_s = request(
-            base, "/api/config", json.dumps({"asr_preset": "base"}).encode(),
+        small = {"reconfigure_small_wall_s": rebuild_s,
+                 "asr": f"whisper-small d={asr.cfg.d_model} "
+                        f"H={asr.cfg.heads}",
+                 "ingest_wall_s": small_s, "launches": counts,
+                 "expected": exp, "own_segment": mine,
+                 "mpnet_status": st, "mpnet_error": refused["error"]}
+        st, cfg_out, mulaw_s = request(
+            base, "/api/config", json.dumps(
+                {"asr_preset": "base", "transfer_dtype": "mulaw8"}).encode(),
             headers={"Content-Type": "application/json"})
-        expect("config base", st, cfg_out)
+        expect("config mulaw8", st, cfg_out)
+        ing = eng.ingest_pipeline
+        asr, cap = ing.asr, ing.caption
+        if cfg_out["transfer_dtype"] != "mulaw8" or asr.cfg.d_model != 512:
+            raise AssertionError(f"service: reconfigure gave {cfg_out}")
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        st, body, mulaw_ingest_s = request(
+            base, "/api/ingest?name=short.wav", wav_bytes(short_x))
+        expect("ingest mulaw8", st, body)
+        counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if counts != exp or disp[0] < 1 or \
+                ing.last_transfer_resolved != "mulaw8":
+            raise AssertionError(f"service mulaw8: launches {counts} != "
+                                 f"{exp}")
+        meta = request(base, "/api/segments")[1]["segments"]
+        mine = own_segment(meta, range(len(meta)))
+        hits = request(base, f"/api/search?q={q(meta[mine]['asr_text'])}"
+                       )[1]["results"]
+        check_own_first("mulaw8", meta, mine, hits)
+        phase("service", step="reconfigure", card=card, **small,
+              reconfigure_mulaw8_wall_s=mulaw_s,
+              mulaw8_ingest_wall_s=mulaw_ingest_s, mulaw8_launches=counts,
+              mulaw8_expected=exp, mulaw8_own_segment=mine)
+        st, cfg_out, base_s = request(
+            base, "/api/config", json.dumps(
+                {"transfer_dtype": "int16"}).encode(),
+            headers={"Content-Type": "application/json"})
+        expect("config int16", st, cfg_out)
 
         # ---- 9. memory: ingest/delete cycles
         data = wav_bytes(short_x)
@@ -2718,6 +3189,11 @@ def main() -> int:
           ptxas=ptxas)
     gen = torch.Generator().manual_seed(0)
     rng = np.random.default_rng(0)
+    clips = [("long.wav", make_audio(320, rng)),
+             ("short.wav", make_audio(25, rng))]
+    # the phases this slice added draw from their own generators, so the
+    # other phases see the inputs they saw before
+    audio = audio_phase(card, np.random.default_rng(1))
     k1, k2 = kernel_phase(card, gen)
     dec = decoder_kernel_phase(card, gen)
     int8k = int8_kernel_phase(card, gen)
@@ -2725,8 +3201,6 @@ def main() -> int:
     k12, k13 = search_kernel_phase(card)
     counts, mems, ref_texts = {}, {}, None
     k14, counts["kernels"] = cross_mlp_phase(card, gen)
-    clips = [("long.wav", make_audio(320, rng)),
-             ("short.wav", make_audio(25, rng))]
     for label, profile, fused, int8, enc in ENGINE_PATHS:
         # v2 and the encoder variants take the 320 s clip only (time)
         c, texts, mems[label] = engine_phase(
@@ -2735,13 +3209,15 @@ def main() -> int:
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
+    counts.update(codec_phase(card, np.random.default_rng(2), clips, mems,
+                              ref_texts, k1, k2, gen))
     counts.update(parity_phase(card, rng, clips, mems, k2, dec))
     phase("memory", card=card, **{key: {
         "bytes": {k: m[key] for k, m in mems.items()},
         "share_of_default": {k: m[key] / mems["default"][key]
                              for k, m in mems.items()}}
         for key in mems["default"] if key.endswith("_bytes")})
-    service_phase(card, rng)
+    service_phase(card, rng, audio["uploads"])
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)
     # each kernel's launches from the path that runs it

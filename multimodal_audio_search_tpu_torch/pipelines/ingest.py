@@ -6,20 +6,31 @@ conditional normalization -> 10 s windows (drop < 3 s) -> per segment run
 ASR and captioning -> validate texts -> embed valid texts -> keep the
 segment iff at least one pipeline produced text.
 
-Per batch of segments the waveform crosses to the device ONCE, from a
-pinned host buffer with a non-blocking copy, at the true segment length:
-as int16 codes (``transfer_dtype="int16"``, the default), as their
-first differences with int16 wraparound (``"int16d"``; the device undoes
-them with a cumsum, bit-identical to the int16 codes), or float32.
-``"auto"`` times the two lossless codecs on a slice of the payload and
-takes the faster, again after every ``AUTO_REPROBE_MB`` shipped. The
-device dequantizes, zero-pads to the mel context and computes the
-log-mel that both Whisper models share, then runs ASR and captioning.
-Every surviving text of the waveform embeds in one MiniLM batch.
+Per batch of segments the audio crosses to the device ONCE, from a
+pinned host buffer with a non-blocking copy, at the true segment length,
+in one of the JAX package's transfer codecs (``transfer_dtype``):
+
+  * ``"int16"`` (the default) codes, or their first differences with
+    int16 wraparound (``"int16d"``; the device undoes them with a
+    cumsum, bit-identical to the int16 codes), or ``"float32"``;
+  * ``"int12"``: 12-bit codes, two samples in 3 bytes; ``"mulaw8"``:
+    8-bit mu-law (mu = 255) through ``_mulaw_lut``;
+  * ``"mel16"`` / ``"mel12"`` / ``"mel8"``: the log-mel computed on the
+    host in float64 (ops/mel.py) as 16-bit absolute codes, or 12- or
+    8-bit codes relative to the row's maximum with a float32 tail; the
+    device only decodes them, no STFT;
+  * ``"auto"`` times the two lossless codecs (int16, int16d) on a slice
+    of the payload and takes the faster, again after every
+    ``AUTO_REPROBE_MB`` shipped.
+
+The host encoders are the C++ quantizers and mel encoder of
+audio/native.py where that library built, else their numpy forms, which
+give the same codes. The device expands the waveform codes, zero-pads
+to the mel context and computes the log-mel that both Whisper models
+share, then runs ASR and captioning. Every surviving text of the
+waveform embeds in one MiniLM batch.
 
 Differences from the JAX package:
-  * the int12, mulaw8 and mel transfer codecs are not ported (ROADMAP
-    A10);
   * the two Whisper pipelines must share one mel config (the JAX
     package's separate-mel branch has no caller in the port);
   * a failing batch raises instead of being retried and then degraded to
@@ -40,12 +51,58 @@ import torch.nn.functional as F
 
 from ..audio.decode import load_audio
 from ..config import EngineConfig
+from ..ops.cached_attention import div_exact
 from ..service.stats import StatsRegistry
 from .embed import TextEmbedder
 from .validators import validate_asr_text, validate_audio_description
 from .whisper_pipeline import WhisperTextPipeline
 
-TRANSFER_DTYPES = ("int16", "int16d", "float32", "auto")
+# every transfer_dtype the engine takes (service/api.py offers the
+# same nine)
+TRANSFER_DTYPES = ("int16", "int16d", "int12", "auto", "mel16",
+                   "mel12", "mel8", "mulaw8", "float32")
+# the pinned host buffer's dtype for each codec's codes
+_CODE_DTYPE = {"int16": torch.int16, "int16d": torch.int16,
+               "int12": torch.uint8, "mulaw8": torch.int8,
+               "mel16": torch.uint16, "mel12": torch.uint8,
+               "mel8": torch.uint8, "float32": torch.float32}
+
+_MULAW_LUT: np.ndarray | None = None
+
+
+def _mulaw_lut() -> np.ndarray:
+    """int16-grid -> 8-bit mu-law code table (mu=255). Index i encodes the
+    waveform value (i - 32767.5) / 32767.5; the table is the definition of
+    the transfer encoding (the device-side expansion in _mel16 inverts
+    it), quantized identically to the closed form to within the int16
+    grid's resolution."""
+    global _MULAW_LUT
+    if _MULAW_LUT is None:
+        x = (np.arange(65536, dtype=np.float64) - 32767.5) / 32767.5
+        y = np.sign(x) * np.log1p(255.0 * np.abs(x)) / np.log(256.0)
+        _MULAW_LUT = np.round(y * 127.0).astype(np.int8)
+    return _MULAW_LUT
+
+
+def _pack_int12(wn: np.ndarray) -> np.ndarray:
+    """Closed-form int12 packed transfer encode of one f32 window: round
+    onto the signed 12-bit grid, store two's-complement codes two-per-3-
+    bytes (little-endian nibbles; the numpy fallback for the fused C
+    kernel mas_quantize_int12, bit-identical — see
+    native/audio_kernels.cc). All-zero bytes decode to silence, so batch
+    row padding needs no special casing; an odd tail pairs with an
+    implicit zero sample."""
+    t = np.clip(np.rint(np.nan_to_num(wn) * np.float32(2047.0)),
+                -2048.0, 2047.0)
+    q = t.astype(np.int32) & 0xFFF
+    if len(q) % 2:
+        q = np.concatenate([q, np.zeros(1, np.int32)])
+    q = q.reshape(-1, 2)
+    out = np.empty((len(q), 3), np.uint8)
+    out[:, 0] = q[:, 0] & 0xFF
+    out[:, 1] = (q[:, 0] >> 8) | ((q[:, 1] & 0xF) << 4)
+    out[:, 2] = q[:, 1] >> 4
+    return out.reshape(-1)
 
 
 def delta_encode_int16(q: np.ndarray) -> None:
@@ -62,6 +119,29 @@ def delta_decode_int16(d: torch.Tensor) -> torch.Tensor:
     return torch.remainder(c + 32768, 65536) - 32768
 
 
+def expand_waveform(qd: torch.Tensor, mode: str,
+                    seg_len: int) -> torch.Tensor:
+    """Device side of the waveform codecs: codes -> float32 [B, seg_len]
+    samples (the JAX package's expansions in its jitted mel step)."""
+    if mode == "mulaw8":
+        # mu-law expansion (mu = 255)
+        y = div_exact(qd.float(), 127.0)
+        return div_exact(torch.sign(y) * (torch.pow(256.0, y.abs()) - 1.0),
+                         255.0)
+    if mode == "int12":
+        # 3 bytes -> two 12-bit two's-complement codes (the layout of
+        # _pack_int12); the odd tail's implicit zero is sliced off
+        u = qd.to(torch.int32).reshape(qd.shape[0], -1, 3)
+        q0 = u[..., 0] | ((u[..., 1] & 0xF) << 8)
+        q1 = (u[..., 1] >> 4) | (u[..., 2] << 4)
+        q = torch.stack([q0, q1], -1).reshape(qd.shape[0], -1)[:, :seg_len]
+        q = torch.where(q >= 2048, q - 4096, q)
+        return div_exact(q.float(), 2047.0)
+    if mode == "int16d":
+        qd = delta_decode_int16(qd)
+    return qd.float() / 32767.0 if mode != "float32" else qd.float()
+
+
 class DualPipelineIngest:
     def __init__(
         self,
@@ -76,9 +156,9 @@ class DualPipelineIngest:
         self.embedder = embedder
         self.cfg = cfg or EngineConfig()
         if self.cfg.transfer_dtype not in TRANSFER_DTYPES:
-            raise NotImplementedError(
-                f"transfer_dtype={self.cfg.transfer_dtype!r} is not ported; "
-                f"options {TRANSFER_DTYPES} (ROADMAP A10)")
+            raise ValueError(
+                f"unknown transfer_dtype={self.cfg.transfer_dtype!r}; "
+                f"options {TRANSFER_DTYPES}")
         if asr.mel_cfg != caption.mel_cfg or asr.device != caption.device:
             raise ValueError(
                 "the ASR and caption pipelines must share one mel config "
@@ -147,38 +227,88 @@ class DualPipelineIngest:
 
     def _encode_transfer(self, chunk, b: int, seg_len: int,
                          scale: np.float32, mode: str) -> torch.Tensor:
-        """Host side: [b, seg_len] int16 codes (``mode`` "int16"), their
-        wraparound differences ("int16d") or float32, the deferred
-        normalization scale applied, in a pinned buffer on CUDA."""
-        int16 = mode in ("int16", "int16d")
+        """Host side: the codes of ``mode`` for ``chunk`` (rows past
+        len(chunk) up to ``b`` are silence), the deferred normalization
+        scale applied first, in a pinned buffer on CUDA. The fused C++
+        quantizers write the waveform codecs' rows where the library
+        built; the numpy forms below give the same codes."""
+        from ..audio import native
+        have_native = native.available()
         pin = self.device.type == "cuda"
-        buf = torch.zeros((b, seg_len),
-                          dtype=torch.int16 if int16 else torch.float32,
+        if mode in ("mel16", "mel12", "mel8"):
+            # the host log-mel (float64, ops/mel.py), quantized: no STFT
+            # on the device. The scale applies to the waveform first.
+            from ..ops.mel import (encode_mel8, encode_mel12, encode_mel16,
+                                   mel_seg_frames)
+            t_seg = mel_seg_frames(seg_len, self.asr.mel_cfg)
+            w = np.zeros((b, seg_len), np.float32)
+            for i, src in enumerate(chunk):
+                m = min(len(src), seg_len)
+                w[i, :m] = np.nan_to_num(
+                    src[:m] * scale if scale != 1.0 else src[:m])
+            enc = {"mel16": encode_mel16, "mel12": encode_mel12,
+                   "mel8": encode_mel8}[mode]
+            codes = enc(w, self.asr.mel_cfg, t_seg)
+            buf = torch.empty(codes.shape, dtype=_CODE_DTYPE[mode],
+                              pin_memory=pin)
+            buf.numpy()[...] = codes
+            return buf
+        width = 3 * ((seg_len + 1) // 2) if mode == "int12" else seg_len
+        buf = torch.zeros((b, width), dtype=_CODE_DTYPE[mode],
                           pin_memory=pin)
         q = buf.numpy()
+        lut = _mulaw_lut() if mode == "mulaw8" else None
         for i, w in enumerate(chunk):
             m = min(len(w), seg_len)
-            wn = w[:m] * scale if scale != 1.0 else w[:m]
-            if int16:
+            if mode == "mulaw8":
+                if have_native and native.quantize_mulaw(
+                        w[:m], float(scale), lut, q[i, :m]):
+                    continue
+                wn = w[:m] * scale if scale != 1.0 else w[:m]
+                # rint before the uint16 cast (flooring would bias
+                # boundary samples one grid code low); nan_to_num keeps
+                # NaN from indexing an undefined entry
+                idx = np.clip(np.rint(np.nan_to_num(wn) * 32767.5 + 32767.5),
+                              0.0, 65535.0).astype(np.uint16)
+                q[i, :m] = lut[idx]
+            elif mode == "int12":
+                if have_native and native.quantize_int12(
+                        w[:m], float(scale), q[i]):
+                    continue
+                wn = w[:m] * scale if scale != 1.0 else w[:m]
+                pk = _pack_int12(wn)
+                q[i, : len(pk)] = pk
+            elif mode in ("int16", "int16d"):
+                if have_native and native.quantize_int16(
+                        w[:m], float(scale), q[i, :m]):
+                    continue
+                wn = w[:m] * scale if scale != 1.0 else w[:m]
                 # nan_to_num: NaN -> 0 (clip(NaN) would cast an undefined
                 # int16 code); the assignment truncates toward zero
                 q[i, :m] = np.clip(np.nan_to_num(wn), -1.0, 1.0) * 32767.0
             else:
-                q[i, :m] = np.nan_to_num(wn)
+                q[i, :m] = np.nan_to_num(
+                    w[:m] * scale if scale != 1.0 else w[:m])
         if mode == "int16d":
             delta_encode_int16(q)
         return buf
 
-    def _device_mel(self, qd: torch.Tensor, mode: str) -> torch.Tensor:
-        """Device side: dequantize, zero-pad to the mel context, log-mel
-        (float32 [B, n_mels, frames])."""
-        from ..ops.mel import log_mel_spectrogram
+    def _device_mel(self, qd: torch.Tensor, mode: str,
+                    seg_len: int) -> torch.Tensor:
+        """Device side: the codes of ``mode`` -> log-mel (float32 [B,
+        n_mels, frames]). The mel codecs decode straight to features;
+        the waveform codecs expand (expand_waveform), zero-pad to the
+        mel context and go through the STFT."""
+        from ..ops import mel as M
         mel_cfg = self.asr.mel_cfg
-        if mode == "int16d":
-            qd = delta_decode_int16(qd)
-        w = qd.float() / 32767.0 if mode != "float32" else qd.float()
+        if mode == "mel16":
+            return M.decode_mel16(qd, mel_cfg)
+        if mode in ("mel12", "mel8"):
+            dec = M.decode_mel12 if mode == "mel12" else M.decode_mel8
+            return dec(qd, mel_cfg, M.mel_seg_frames(seg_len, mel_cfg))
+        w = expand_waveform(qd, mode, seg_len)
         w = F.pad(w, (0, mel_cfg.n_samples - w.shape[1]))
-        return log_mel_spectrogram(w, mel_cfg)
+        return M.log_mel_spectrogram(w, mel_cfg)
 
     @torch.inference_mode()
     def process_waveform(
@@ -238,7 +368,7 @@ class DualPipelineIngest:
             self._bytes_since_probe += q.numel() * q.element_size()
             td = time.perf_counter()
             tr["put"] += td - tp
-            mel = self._device_mel(qd, transfer)
+            mel = self._device_mel(qd, transfer, seg_len)
             a_tok, a_len = self.asr.dispatch_mel(mel)
             c_tok, c_len = self.caption.dispatch_mel(mel)
             tw = time.perf_counter()
@@ -335,9 +465,10 @@ def make_default_ingest(
     from ..ops.quant import quantize_whisper_decoder
     from ..weights import minilm_params, whisper_params
     cfg = cfg or EngineConfig()
-    if cfg.text_embedder.family != "minilm":
+    emb = cfg.text_embedder
+    if emb.family != "minilm" or emb.preset not in MLM_PRESETS:
         raise NotImplementedError(
-            f"embedder family {cfg.text_embedder.family!r} is not ported "
+            f"embedder {emb.family}/{emb.preset} is not ported "
             f"(ROADMAP A11)")
     if cfg.data_parallel * cfg.model_parallel != 1:
         raise NotImplementedError(

@@ -15,8 +15,9 @@ is no silent move to the CPU).
 
 Not ported: meshes (ROADMAP A13) and IVF (A12; with nothing to prewarm,
 ``_prewarm_searcher``, which the server calls, does nothing).
-``reconfigure`` raises NotImplementedError for the embedders of A11 and
-the transfers of A10, before any engine state changes.
+``reconfigure`` builds every transfer of TRANSFER_CHOICES and raises
+NotImplementedError for the embedders of A11, before any engine state
+changes.
 """
 from __future__ import annotations
 
@@ -52,19 +53,14 @@ MODEL_INFO = {
 
 
 def _check_ported(cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for a configuration whose embedder or
-    transfer the port cannot build yet (ROADMAP A11, A10)."""
+    """Raise NotImplementedError for a configuration whose embedder the
+    port cannot build yet (ROADMAP A11)."""
     from ..models.minilm import PRESETS as MLM_PRESETS
-    from ..pipelines.ingest import TRANSFER_DTYPES
     emb = cfg.text_embedder
     if emb.family != "minilm" or emb.preset not in MLM_PRESETS:
         raise NotImplementedError(
             f"embedder {emb.family}/{emb.preset} is not ported "
             f"(ROADMAP A11)")
-    if cfg.transfer_dtype not in TRANSFER_DTYPES:
-        raise NotImplementedError(
-            f"transfer_dtype={cfg.transfer_dtype!r} is not ported; "
-            f"options {TRANSFER_DTYPES} (ROADMAP A10)")
 
 
 class AudioSearchEngine:
@@ -348,9 +344,9 @@ class AudioSearchEngine:
         model-comparison semantics of streamlit_app_backup.py:1419-1433:
         embeddings from different models/segmentations don't mix).
 
-        The embedders and transfers the port does not run yet are listed
-        all the same (describe_config equals the JAX package's); choosing
-        one raises NotImplementedError before anything is built."""
+        The embedders the port does not run yet are listed all the same
+        (describe_config equals the JAX package's); choosing one raises
+        NotImplementedError before anything is built."""
         import dataclasses
         from ..models import whisper as W
         cfg = self.cfg

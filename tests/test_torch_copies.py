@@ -34,10 +34,33 @@ COPIED = [
     "pipelines/longform.py",
     "pipelines/streaming.py",
     "__main__.py",
+    "audio/mp3.py",
+]
+# the native loaders' build step: the port builds into its own _build/
+# under a per-process temporary name (os.replace into place), after
+# asking for g++; the flags, sources and source hash stay JAX's
+_BUILD_STEP = [
+    ('_BUILD = _REPO / "native" / "build"',
+     '_BUILD = pathlib.Path(__file__).resolve().parents[1] / "_build"'),
+    ("        _BUILD.mkdir(parents=True, exist_ok=True)\n",
+     '        if shutil.which("g++") is None:\n'
+     "            _failed = True\n"
+     "            return None\n"
+     "        _BUILD.mkdir(parents=True, exist_ok=True)\n"),
+    ('tmp = so.with_suffix(".so.tmp")',
+     'tmp = so.with_suffix(f".so.tmp{os.getpid()}")'),
 ]
 # near-copies: (original, port) source substitutions that name each
 # deliberate difference; after them the two must be the same tree
 NEAR_COPIES = {
+    "audio/native.py": _BUILD_STEP,
+    "audio/mp3_native.py": _BUILD_STEP,
+    "audio/ffdecode.py": _BUILD_STEP,
+    # the package a user registers decoders with
+    "audio/decode.py": [
+        ('f"multimodal_audio_search_tpu.audio.decode.register_decoder")',
+         'f"multimodal_audio_search_tpu_torch.audio.decode.'
+         'register_decoder")')],
     "cli.py": [('prog="multimodal_audio_search_tpu"',
                 'prog="multimodal_audio_search_tpu_torch"')],
     "service/server.py": [
@@ -54,7 +77,16 @@ NEAR_COPIES = {
 }
 MEL_FUNCS = ["hann_window", "_hz_to_mel_slaney", "_mel_to_hz_slaney",
              "_hz_to_mel_htk", "_mel_to_hz_htk", "mel_filterbank",
-             "_dft_mel_weights"]
+             "_dft_mel_weights",
+             # the mel transfer codecs' host half
+             "mel_seg_frames", "_host_mel_fb", "_host_mel_padded",
+             "host_log_mel", "_native_mel_codes", "encode_mel16",
+             "_relative_codes", "encode_mel12", "encode_mel8"]
+# the host-half constants those functions read
+MEL_CONSTANTS = ["MEL_LOG_LO", "_MEL_CODE_SCALE", "MEL_REL_RANGE",
+                 "_MEL12_SCALE", "_MEL8_SCALE"]
+# the waveform codecs' host encoders in pipelines/ingest.py
+INGEST_FUNCS = ["_mulaw_lut", "_pack_int12"]
 
 
 class _StripImports(ast.NodeTransformer):
@@ -101,8 +133,9 @@ def test_near_copy_differs_only_where_named(rel):
     """The port's cli.py and service/server.py are the JAX modules but for
     the program name, the UI's version entry, the compilation cache and
     a path in serve()'s docstring (the /api/profile route is the same
-    code over the port's ProfilerSession; comments and the module
-    docstring may differ)."""
+    code over the port's ProfilerSession); the native audio loaders but
+    for their build step; audio/decode.py but for the package its error
+    message names. Comments and the module docstring may differ."""
     orig, port = _near_copy_pair(rel)
     assert port == orig, rel
 
@@ -118,14 +151,38 @@ def test_near_copy_catches_a_change():
     assert port != orig
 
 
+def _top_level(p: pathlib.Path, name: str) -> str:
+    """The function ``name`` of module ``p``, or the assignment that
+    binds it, as a syntax tree."""
+    for node in _parse(p).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.dump(node, include_attributes=False)
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names = [n.id for t in targets for n in ast.walk(t)
+                     if isinstance(n, ast.Name)]
+            if name in names:
+                return ast.dump(node, include_attributes=False)
+    raise AssertionError(f"{name} missing from {p}")
+
+
 @pytest.mark.parametrize("name", MEL_FUNCS)
 def test_mel_numpy_half_matches_original(name):
-    def fn(p):
-        for node in _parse(p).body:
-            if isinstance(node, ast.FunctionDef) and node.name == name:
-                return ast.dump(node, include_attributes=False)
-        raise AssertionError(f"{name} missing from {p}")
-    assert fn(PORT_PKG / "ops/mel.py") == fn(JAX_PKG / "ops/mel.py")
+    assert _top_level(PORT_PKG / "ops/mel.py", name) == \
+        _top_level(JAX_PKG / "ops/mel.py", name)
+
+
+@pytest.mark.parametrize("name", MEL_CONSTANTS)
+def test_mel_constants_match_original(name):
+    assert _top_level(PORT_PKG / "ops/mel.py", name) == \
+        _top_level(JAX_PKG / "ops/mel.py", name)
+
+
+@pytest.mark.parametrize("name", INGEST_FUNCS + ["_MULAW_LUT"])
+def test_ingest_encoders_match_original(name):
+    rel = "pipelines/ingest.py"
+    assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
 
 
 def test_strip_catches_a_change(tmp_path):

@@ -209,13 +209,20 @@ def test_reconfigure_and_describe_config(rng):
     assert teng.describe_config() == jeng.describe_config()
     wave = (rng.normal(size=SR * 4) * 0.3).astype(np.float32)
     assert len(teng.ingest_waveform(wave, SR, "w")) == 2
-    # the unported choices raise before any engine state changes
+    # every transfer builds and ingests with it (the two engines' random
+    # weights differ, so their texts do; their segments do not)
+    for t in ("int12", "mel16", "mel12", "mel8", "mulaw8"):
+        got = teng.reconfigure(transfer_dtype=t)
+        assert got == jeng.reconfigure(transfer_dtype=t)
+        assert got["transfer_dtype"] == t and len(teng.store) == 0
+        tsegs = teng.ingest_waveform(wave, SR, "w")
+        jsegs = jeng.ingest_waveform(wave, SR, "w")
+        assert [s["start_time"] for s in tsegs] == \
+            [s["start_time"] for s in jsegs] and len(tsegs) == 2
+        assert teng.ingest_pipeline.last_transfer_resolved == t
+        assert len(teng.store) == 2 and teng.search("tok")[0]
+    # the unported embedders raise before any engine state changes
     state = (teng.cfg, teng._ingest, teng.store, len(teng.store))
-    for change in (dict(transfer_dtype=t) for t in
-                   ("int12", "mel16", "mel12", "mel8", "mulaw8")):
-        with pytest.raises(NotImplementedError, match="A10"):
-            teng.reconfigure(**change)
-        assert (teng.cfg, teng._ingest, teng.store, len(teng.store)) == state
     for name in ("all-mpnet-base-v2", "clip-ViT-B-32-multilingual-v1"):
         with pytest.raises(NotImplementedError, match="A11"):
             teng.reconfigure(embedder=name, segment_seconds=1.5)

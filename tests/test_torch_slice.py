@@ -173,13 +173,13 @@ EMB = dict(vocab_size=2048, hidden=64, layers=1, heads=2, intermediate=128)
 
 
 def _make_engines(profile=None, quantize=False, cross_attn="auto",
-                  fused_encoder=None):
+                  fused_encoder=None, transfer=None):
     """A JAX and a PyTorch engine on the same toy weights; ``profile``
-    ("fast_lossless") is applied to both configs, and its decode options
-    reach both pipelines. ``quantize`` gives both Whisper models the JAX
-    package's int8 decoder (the port takes the JAX tree through
+    ("fast_lossless", "fast") is applied to both configs, and its decode
+    options reach both pipelines. ``quantize`` gives both Whisper models
+    the JAX package's int8 decoder (the port takes the JAX tree through
     weights.py); ``cross_attn`` and ``fused_encoder`` go to both decode
-    configs."""
+    configs, ``transfer`` (not None) replaces both transfer_dtypes."""
     from multimodal_audio_search_tpu.ops.quant import (
         quantize_whisper_decoder)
     wcfg = JW.PRESETS["test"]
@@ -197,6 +197,8 @@ def _make_engines(profile=None, quantize=False, cross_attn="auto",
         cfg = mod.EngineConfig(ingest_batch=4, embed_dim=64)
         if profile:
             cfg = mod.apply_profile(cfg, profile)
+        if transfer:
+            cfg = cfg.replace(transfer_dtype=transfer)
         dec = dataclasses.replace(cfg.asr_decode, max_new_tokens=6,
                                   cross_attn=cross_attn,
                                   fused_encoder=fused_encoder)
@@ -650,7 +652,7 @@ def test_wav_decode_and_resample(rng, tmp_path):
     write_wav(str(tmp_path / "a.wav"), x, 8000)
     y, sr = load_audio(str(tmp_path / "a.wav"), 16000)
     assert sr == 16000 and y.shape == (16000,) and y.dtype == np.float32
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="FLAC decode failed"):
         load_audio(b"fLaC" + bytes(64))
     with pytest.raises(ValueError):
         load_audio(b"not audio at all")
@@ -668,7 +670,7 @@ def test_device_policy():
 
 
 @pytest.mark.parametrize("change", [
-    dict(transfer_dtype="mulaw8"),
+    dict(text_embedder=tcfg.ModelSpec(family="minilm", preset="base768")),
     dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
                                   quantize_decoder=True),
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
