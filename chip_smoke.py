@@ -141,6 +141,25 @@ Phases, one line each (``[phase] ...``):
    --strategy, delete, stats) as subprocesses on one --index. Request
    wall times are printed beside the card.
 
+9. beyond-memory search (``[ann]``, after 6): tools/torch_bench_ivf.py's
+   run() at 1M segments of MiniLM width (D=384), which runs no kernel
+   (every launch count stays 0): IVF's build stages, exact and IVF query
+   p50 at n_probe 4-64 with recall@10, the host index written in float32
+   / bfloat16 / int8 to a temporary directory (~5.4 GB) and streamed
+   through the card (first-query and p50 ms, GB/s beside the pinned copy
+   rate), ``search_ivf`` p50, recall and bytes shipped; with its checks:
+   a full probe = exact at 100k segments (float32 and bfloat16), two
+   builds identical, the streamed search = the in-memory one for each
+   storage dtype (and at 65,536-row chunks), the bytes shipped = the
+   candidate rows' and < 5 % of the index at n_probe 8. Then an engine
+   of the default config with ``fusion.ann="ivf"`` ingests both WAVs
+   through ``ingest_many`` (K1/K2 launches as expected_launches, the
+   layout built on the write path, no ``ivf_prewarm_failed``) and
+   answers the 4 queries singly and by ``search_batch``, each with its
+   ``weight_info["ann"]`` (a full probe at this size), own segment
+   first, equal to the exact search on the same store
+   (ann_engine_check).
+
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
@@ -1452,6 +1471,118 @@ def search_scale_phase(card: str) -> dict:
     if counts != exp:
         raise AssertionError(f"search at scale: launches {counts} != {exp}")
     return counts
+
+
+def ann_phase(card: str, clips) -> dict:
+    """The beyond-memory path: tools/torch_bench_ivf.py's run() (no kernel
+    may launch), then an ann="ivf" engine through ann_engine_check with
+    its K1/K2 launches counted. Returns the engine's launch counts."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.config import EngineConfig
+    tool = load_tool("torch_bench_ivf")
+    runtime.reset_counts()
+    res = tool.run(emit=lambda line: None)
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    phase("ann", card=card, step="data", rows=tool.ROWS,
+          seconds=res["data_s"])
+    phase("ann", card=card, step="full probe = exact", **res["full_probe"])
+    phase("ann", card=card, step="in memory", **res["in_memory"])
+    for row in res["host_index"].values():
+        phase("ann", card=card, step="host index", **row)
+    if any(counts.values()):
+        raise AssertionError(f"[ann] the IVF tool launched kernels: {counts}")
+    torch.cuda.empty_cache()
+    cfg = EngineConfig()
+    eng = AudioSearchEngine(cfg=cfg.replace(fusion=dataclasses.replace(
+        cfg.fusion, ann="ivf")), device="cuda", seed=0)
+    eng.load_all_models()
+    asr, cap = eng.ingest_pipeline.asr, eng.ingest_pipeline.caption
+    runtime.reset_counts()
+    steps0 = (asr.total_steps, cap.total_steps)
+    disp0 = (asr.dispatches, cap.dispatches)
+    out = ann_engine_check(eng, clips)
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+    disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+    exp = expected_launches(False, None, steps, disp, asr, cap)
+    phase("ann", card=card, step="engine", launches=counts, expected=exp,
+          **out)
+    if counts != exp or not all(counts[k] > 0 for k in exp if exp[k]):
+        raise AssertionError(f"[ann] engine: launches {counts} != {exp}")
+    del eng, asr, cap
+    torch.cuda.empty_cache()
+    return counts
+
+
+ANN_QUERIES = ("upbeat music with drums", "someone speaking clearly",
+               "rain and birds in the background")
+
+
+def ann_engine_check(eng, clips) -> dict:
+    """An engine with fusion.ann="ivf" ingests ``clips`` through
+    ingest_many, which must build the IVF layout once on the write path
+    (no ivf_prewarm_failed); the own-segment query and ANN_QUERIES, singly
+    and by search_batch, each carry weight_info["ann"] with a full probe
+    and equal an exact engine's answers on the same store (torch_bench_
+    ivf.same_topk: scores within K12_ATOL, ids equal except inside a near
+    tie; random decoders give many segments one text), own segment
+    first."""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    same_topk = load_tool("torch_bench_ivf").same_topk
+    k = eng.cfg.fusion.top_k
+
+    def cols(rows):
+        return [h["fusion_score"] for h in rows], [h["index"] for h in rows]
+    n_events = len(eng.stats.log.events)
+    t0 = time.perf_counter()
+    eng.ingest_many([wav_bytes(x) for _, x in clips],
+                    [name for name, _ in clips], on_error="raise")
+    ingest_s = time.perf_counter() - t0
+    searcher = eng._searcher
+    layout = searcher._ivf if searcher is not None else None
+    if layout is None or searcher._ivf_key != eng.store.version:
+        raise AssertionError("[ann] engine: no IVF layout of the store's "
+                             "rows after ingest_many")
+    events = eng.stats.log.events[n_events:]
+    ops = [e.operation for e in events]
+    if "ivf_prewarm_failed" in ops:
+        raise AssertionError(f"[ann] engine: ivf_prewarm_failed in {ops}")
+    meta = eng.store.meta
+    own = own_segment(meta, range(len(meta)))
+    queries = [meta[own]["asr_text"], *ANN_QUERIES]
+    t0 = time.perf_counter()
+    singles = [eng.search(q) for q in queries]
+    query_s = time.perf_counter() - t0
+    batch = eng.search_batch(queries)
+    if searcher._ivf is not layout:
+        raise AssertionError("[ann] engine: a query rebuilt the layout")
+    exact = AudioSearchEngine(
+        cfg=eng.cfg.replace(fusion=dataclasses.replace(eng.cfg.fusion,
+                                                       ann="none")),
+        ingest_pipeline=eng.ingest_pipeline, store=eng.store)
+    for q, (hits, info), (bhits, binfo) in zip(queries, singles, batch):
+        ref, rinfo = exact.search(q, k + 1)
+        for name, got, inf in (("search", hits, info),
+                               ("search_batch", bhits, binfo)):
+            ann = inf.get("ann", {})
+            if ann.get("mode") != "ivf" or \
+                    ann.get("n_probe") != layout.n_clusters:
+                raise AssertionError(f"[ann] {name} {q[:40]!r}: weight_"
+                                     f"info ann {ann} is not a full probe")
+            same_topk(f"[ann] {name} {q[:40]!r}", *cols(got), *cols(ref),
+                      k=k, tol=K12_ATOL)
+        if "ann" in rinfo:
+            raise AssertionError("[ann] the exact engine searched by IVF")
+    check_own_first("[ann]", meta, own, singles[0][0])
+    return {"segments": len(meta), "ingest_seconds": ingest_s,
+            "ivf_prewarm_s": [e.duration_s for e in events
+                              if e.operation == "ivf_prewarm"],
+            "build_s": layout.build_s, "n_clusters": layout.n_clusters,
+            "spill": int(layout.spill.shape[0]),
+            "query_ms_mean": 1e3 * query_s / len(queries),
+            "top_hit": singles[0][0][0]["index"], "own": own}
 
 
 def query_entry_check(card: str, eng, queries, texts, own: int,
@@ -3220,6 +3351,7 @@ def main() -> int:
     service_phase(card, rng, audio["uploads"])
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)
+    counts["ann"] = ann_phase(card, clips)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",

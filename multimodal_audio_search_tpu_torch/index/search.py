@@ -8,8 +8,12 @@ embedding stays on the device between the embedder and the scoring.
 ``search_batch`` embeds many queries at once and scores them all in one
 pass over the index. ``FusionConfig.index_dtype`` "float32" (default,
 exact top-k parity) or "bfloat16" sets the device index's dtype.
+``enable_ivf`` (or ``FusionConfig.ann="ivf"`` through the engine) narrows
+the candidates to the probed clusters of ``index/ivf.py``, with the
+fusion math exact on each; the layout is built on the embedder's device
+from the store's host rows and rebuilt when the store mutates.
 
-Not ported (ROADMAP A12/A13): IVF, sharded search over a mesh.
+Not ported (ROADMAP A13): sharded search over a mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from ..config import FusionConfig
 from ..pipelines.embed import TextEmbedder
 from .analyzer import KeywordAnalyzer, WeightAnalysis
 from .fusion import NEG_INF, fused_topk
+from .ivf import IVFIndex, build_ivf
 from .store import SegmentStore
 
 # FusionConfig.index_dtype -> the device index's dtype
@@ -42,9 +47,6 @@ class FusionSearcher:
         self.store = store
         self.embedder = embedder
         self.cfg = cfg or FusionConfig()
-        if self.cfg.ann != "none":
-            raise NotImplementedError(
-                f"ann={self.cfg.ann!r} is not ported (ROADMAP A12)")
         if self.cfg.index_dtype not in INDEX_DTYPES:
             raise NotImplementedError(
                 f"index_dtype={self.cfg.index_dtype!r} is not ported; "
@@ -52,6 +54,65 @@ class FusionSearcher:
         self.index_dtype = INDEX_DTYPES[self.cfg.index_dtype]
         self.analyzer = analyzer or KeywordAnalyzer(self.cfg)
         self.device = embedder.device
+        self._ivf_cfg: tuple | None = None
+        self._ivf: IVFIndex | None = None
+
+    # ------------------------------------------------------------ IVF (ANN)
+    def enable_ivf(self, n_probe: int = 8, n_clusters: int | None = None,
+                   rebuild_growth: float = 0.2) -> None:
+        """Opt-in sublinear search for very large indexes (index/ivf.py).
+
+        The fusion math on every scored candidate stays exact; only the
+        candidate set narrows (n_probe of ~sqrt(2N) clusters + the spill
+        tail). The layout rebuilds lazily whenever the store mutates,
+        reusing centroids (assignment + repack only) while the row count
+        is within ``rebuild_growth`` of the built size, full k-means
+        beyond that. Default exact search is untouched unless this is
+        called."""
+        self._ivf_cfg = (n_probe, n_clusters, rebuild_growth)
+        self._ivf = None
+
+    def disable_ivf(self) -> None:
+        self._ivf_cfg = None
+        self._ivf = None
+
+    def prewarm(self) -> None:
+        """Build/refresh the IVF layout for the store's CURRENT contents
+        (no-op without enable_ivf or on an up-to-date layout). Called
+        after ingest (service/api.py) so the k-means/packing cost lands
+        on the write path, not on the first query after growth."""
+        if self._ivf_cfg is not None and len(self.store) > 0:
+            self._ensure_ivf_layout()
+
+    def _ensure_ivf_layout(self):
+        """(Re)build the IVF layout if the store mutated; returns the
+        store's device index."""
+        _, n_clusters, growth = self._ivf_cfg
+        n = len(self.store)
+        # keyed on the store's mutation counter, NOT len(): a delete +
+        # ingest of equal size shifts row ids without changing the count
+        ver = self.store.version
+        if self._ivf is None or self._ivf_key != ver:
+            cent = None
+            if self._ivf is not None and \
+                    abs(n - self._ivf.n_rows) <= growth * self._ivf.n_rows:
+                cent = self._ivf.centroids
+            h_emb, h_suc = self.store.host_index()
+            self._ivf = build_ivf(h_emb, h_suc, n_clusters=n_clusters,
+                                  centroids=cent, device=self.device)
+            self._ivf_key = ver
+            self._ivf_spill = int(self._ivf.spill.shape[0])
+        return self.store.device_index(self.device, self.index_dtype)
+
+    def _ivf_out(self, query: str, wa, k: int):
+        n_probe = self._ivf_cfg[0]   # rebuild policy lives in
+        n = len(self.store)          # _ensure_ivf_layout
+        emb, ok = self._ensure_ivf_layout()
+        q = self.embedder.embed_device([query])[0]   # unit-norm
+        run = self._ivf.search_fn(
+            k=min(k, n), n_probe=n_probe,
+            threshold=self.cfg.relevance_threshold)
+        return run(q, wa.asr_weight, wa.audio_weight, emb, ok)
 
     def _rows(self, out, wa) -> list[dict[str, Any]]:
         results: list[dict[str, Any]] = []
@@ -86,6 +147,21 @@ class FusionSearcher:
         k = k or self.cfg.top_k
         t0 = time.perf_counter()
         wa = self.analyzer(query)
+        if self._ivf_cfg is not None:
+            out = {kk: v.cpu().numpy()
+                   for kk, v in self._ivf_out(query, wa, k).items()}
+            return self._rows(out, wa), {
+                "asr_weight": wa.asr_weight,
+                "audio_weight": wa.audio_weight,
+                "analysis": wa.analysis, "query": query,
+                "ann": {"mode": "ivf",
+                        "n_clusters": self._ivf.n_clusters,
+                        "n_probe": min(self._ivf_cfg[0],
+                                       self._ivf.n_clusters),
+                        "sharded": False,
+                        "spill": self._ivf_spill},
+                "latency_s": time.perf_counter() - t0,
+            }
         emb, ok = self.store.device_index(self.device, self.index_dtype)
         q = self.embedder.embed_device([query])[0]   # unit-norm
         out = fused_topk(q, emb, ok, wa.asr_weight,
@@ -112,6 +188,11 @@ class FusionSearcher:
         if len(self.store) == 0 or not queries:
             return [([], {}) for _ in queries]
         k = k or self.cfg.top_k
+        if self._ivf_cfg is not None:
+            # IVF candidate generation is per query (each probes its own
+            # buckets): run the sublinear search per query rather than
+            # silently falling back to the exact O(N) scan
+            return [self(q, k) for q in queries]
         was = [self.analyzer(q) for q in queries]
         emb, ok = self.store.device_index(self.device, self.index_dtype)
         t0 = time.perf_counter()

@@ -13,11 +13,13 @@ index, same on-disk format as the JAX package) and stats export. The
 engine runs on ``device`` ("cuda" unless the caller names the CPU; there
 is no silent move to the CPU).
 
-Not ported: meshes (ROADMAP A13) and IVF (A12; with nothing to prewarm,
-``_prewarm_searcher``, which the server calls, does nothing).
-``reconfigure`` builds every transfer of TRANSFER_CHOICES and raises
-NotImplementedError for the embedders of A11, before any engine state
-changes.
+``FusionConfig.ann="ivf"`` (``MAS_ANN=ivf``) opts the searcher into IVF
+candidate generation (index/ivf.py); its layout is rebuilt on the write
+path after each ingest (``_prewarm_searcher``, once at the end of an
+``ingest_many`` or of the server's async job queue). Not ported: meshes
+(ROADMAP A13). ``reconfigure`` builds every transfer of TRANSFER_CHOICES
+and raises NotImplementedError for the embedders of A11, before any
+engine state changes.
 """
 from __future__ import annotations
 
@@ -138,10 +140,27 @@ class AudioSearchEngine:
 
     # -------------------------------------------------------------- ingest
     def _prewarm_searcher(self) -> None:
-        """The JAX engine rebuilds its IVF layout here, on the write path.
-        The port has no ANN layout (FusionSearcher refuses ann="ivf",
-        ROADMAP A12), so there is nothing to rebuild; the server's ingest
-        worker calls this as it calls the JAX engine's."""
+        """Move the IVF layout rebuild to the write path (FusionSearcher
+        .prewarm) so the first query after growth does not stall on
+        k-means/packing. Strictly an optimization: failures are logged
+        and swallowed (the query path rebuilds lazily), it runs AFTER
+        the ingest metric is logged (ingest_* and ivf_prewarm stay
+        disjoint), and bulk flows (ingest_many, a non-empty async job
+        queue) defer it to one build at drain end instead of one per
+        file."""
+        wants_ivf = self.cfg.fusion.ann == "ivf" or (
+            self._searcher is not None
+            and self._searcher._ivf_cfg is not None)
+        if not wants_ivf or self._defer_prewarm:
+            return
+        try:
+            t0 = time.perf_counter()
+            self._ensure_searcher().prewarm()
+            dt = time.perf_counter() - t0
+            if dt > 0.01:
+                self.stats.log.log("ivf_prewarm", dt)
+        except Exception as e:  # noqa: BLE001 -- optimization only
+            self.stats.log.log("ivf_prewarm_failed", 0.0, error=str(e))
 
     def ingest(self, src, source_name: str = "upload") -> list[dict]:
         """file path/bytes/stream -> processed segments appended to index."""
@@ -151,6 +170,7 @@ class AudioSearchEngine:
         self.stats.log.log(
             "ingest_file", time.perf_counter() - t0,
             segments=len(segments), source=source_name)
+        self._prewarm_searcher()
         return segments
 
     def ingest_many(
@@ -182,14 +202,19 @@ class AudioSearchEngine:
                     yield name, None, 0, last
 
         out: list[dict] = []
-        for name, wave, sr, err in PrefetchLoader(decoded(), depth=2):
-            if err is not None:
-                self.stats.log.log("ingest_error", 0.0,
-                                   source=name, error=str(err))
-                if on_error == "raise":
-                    raise err
-                continue
-            out.extend(self.ingest_waveform(wave, sr, name))
+        self._defer_prewarm = True
+        try:
+            for name, wave, sr, err in PrefetchLoader(decoded(), depth=2):
+                if err is not None:
+                    self.stats.log.log("ingest_error", 0.0,
+                                       source=name, error=str(err))
+                    if on_error == "raise":
+                        raise err
+                    continue
+                out.extend(self.ingest_waveform(wave, sr, name))
+        finally:
+            self._defer_prewarm = False
+        self._prewarm_searcher()        # ONE rebuild for the whole batch
         return out
 
     def ingest_waveform(
@@ -202,6 +227,7 @@ class AudioSearchEngine:
         self.stats.log.log(
             "ingest_waveform", time.perf_counter() - t0,
             segments=len(segments), source=source_name)
+        self._prewarm_searcher()
         return segments
 
     # -------------------------------------------------------------- search
@@ -212,6 +238,11 @@ class AudioSearchEngine:
                 cfg=self.cfg.fusion)
             self._searcher = FusionSearcher(
                 self.store, self.embedder, analyzer, self.cfg.fusion)
+            # FusionConfig.ann="ivf" (MAS_ANN=ivf) opts the production
+            # searcher into sublinear candidate generation (index/ivf.py)
+            if self.cfg.fusion.ann == "ivf":
+                self._searcher.enable_ivf(
+                    n_probe=self.cfg.fusion.ann_nprobe)
         return self._searcher
 
     def search(

@@ -87,6 +87,8 @@ MEL_CONSTANTS = ["MEL_LOG_LO", "_MEL_CODE_SCALE", "MEL_REL_RANGE",
                  "_MEL12_SCALE", "_MEL8_SCALE"]
 # the waveform codecs' host encoders in pipelines/ingest.py
 INGEST_FUNCS = ["_mulaw_lut", "_pack_int12"]
+# the IVF bucket packing in index/ivf.py (numpy)
+IVF_FUNCS = ["pack_buckets"]
 
 
 class _StripImports(ast.NodeTransformer):
@@ -185,6 +187,12 @@ def test_ingest_encoders_match_original(name):
     assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
 
 
+@pytest.mark.parametrize("name", IVF_FUNCS)
+def test_ivf_host_functions_match_original(name):
+    rel = "index/ivf.py"
+    assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
+
+
 def test_strip_catches_a_change(tmp_path):
     """The comparison is not vacuous: a one-token edit is caught."""
     src = (JAX_PKG / "utils/batching.py").read_text()
@@ -194,18 +202,44 @@ def test_strip_catches_a_change(tmp_path):
         _normalized(_parse(JAX_PKG / "utils/batching.py"))
 
 
+def _port_sources() -> list[pathlib.Path]:
+    """The port's modules, its card script and its tools."""
+    return [*PORT_PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+            *sorted((ROOT / "tools").glob("torch_*.py"))]
+
+
+def _forbidden_imports(p: pathlib.Path) -> list[str]:
+    """The imports of ``p`` that name jax, jaxlib, ml_dtypes (which comes
+    with jax; the card's machine has none) or the JAX package."""
+    bad = []
+    for node in ast.walk(_parse(p)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")
+                or n.split(".")[0] == "multimodal_audio_search_tpu"]
+    return bad
+
+
 def test_port_sources_never_import_jax():
-    """No module of the port names jax in an import (test (g) below
-    checks the transitive closure by running with jax blocked)."""
-    for p in PORT_PKG.rglob("*.py"):
-        for node in ast.walk(_parse(p)):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib") and \
-                    not n.startswith("multimodal_audio_search_tpu.") and \
-                    n != "multimodal_audio_search_tpu", (p, n)
+    """No module of the port, nor chip_smoke.py or tools/torch_*.py, names
+    jax, ml_dtypes or the JAX package in an import (test (g) below checks
+    the transitive closure by running with jax blocked)."""
+    srcs = _port_sources()
+    assert ROOT / "tools" / "torch_bench_ivf.py" in srcs
+    for p in srcs:
+        assert _forbidden_imports(p) == [], p
+
+
+def test_import_scan_catches_ml_dtypes(tmp_path):
+    """The scan is not vacuous: an import of ml_dtypes, inside a function
+    too, and one from the JAX package are caught."""
+    p = tmp_path / "m.py"
+    p.write_text("def f():\n    import ml_dtypes\n"
+                 "from multimodal_audio_search_tpu.index import ivf\n")
+    assert sorted(_forbidden_imports(p)) == [
+        "ml_dtypes", "multimodal_audio_search_tpu.index"]
