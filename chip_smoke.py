@@ -43,8 +43,9 @@ Phases, one line each (``[phase] ...``):
    pair) at B=32, T=1500 and both widths, and K11's
    three forms of the softmax division (K1's cluster kernel, each form a
    template instance) at base width, on K1's inputs;
-   K12 (fused search scores) at N=1M and N=1027 in float32 and bf16 and
-   on the validity-rule rows, K13 (streaming read) on a 64 MiB slab and
+   K12 (fused search scores) at N=1M and N=1027 in float32 and bf16, at
+   N=1M and D=768 (the mpnet / CLIP-text index width) in both, and on
+   the validity-rule rows, K13 (streaming read) on a 64 MiB slab and
    at the calibration's 4 GiB x 8 passes, K14 (cross + MLP block, its
    attention split over the keys of a thread-block cluster) at B=32,
    T=1500 and both widths -- K14's own path: its launches are counted
@@ -133,8 +134,10 @@ Phases, one line each (``[phase] ...``):
    metrics.csv, stats and a profile trace, uploads of the MP3 vector
    and a FLAC (segments equal to ingest_waveform's on the decoded audio,
    own segment first), reconfigure to whisper-small (K1 at D=768, 12
-   heads, own segment first), a refused A11 embedder (mpnet) and a
-   mulaw8 reconfigure at whisper-base that ingests (own segment first),
+   heads, own segment first), the mpnet embedder (200, embed_dim 768,
+   an empty index, then short.wav ingested with K1/K2 counted and its
+   own text first) and a mulaw8 reconfigure at whisper-base back at
+   MiniLM-L6 (384-D) that ingests (own segment first),
    20 ingest/delete cycles (VmRSS slope over cycles 6-20 <=
    RSS_SLOPE_MAX_MB), then the CLI (``python -m
    multimodal_audio_search_tpu_torch`` ingest, search, search
@@ -159,6 +162,22 @@ Phases, one line each (``[phase] ...``):
    ``weight_info["ann"]`` (a full probe at this size), own segment
    first, equal to the exact search on the same store
    (ann_engine_check).
+
+10. the secondary models (``[embedders]`` and ``[clap]``, after
+   ``[parity]``, before 7; no kernel of their own -- the JAX package runs
+   them in XLA): embedders_phase reconfigures a default engine to
+   all-mpnet-base-v2, clip-ViT-B-32-multilingual-v1 and back to
+   all-MiniLM-L6-v2 at published widths (embed_dim 768 / 768 / 384, the
+   previous pipelines freed, the 25 s clip ingested under each and the
+   320 s one under mpnet with K1/K2 as expected_launches, own text
+   first, query embeddings card vs CPU within EMBED_ATOL, rebuild wall,
+   embed ms, query p50 beside L6's, peak memory); clap_phase runs
+   ClapSearch at its default ClapConfig over the 320 s clip (32 rows,
+   the >= 1 s keep rule, top-10 = a plain scoring of the store's rows,
+   card vs CPU) and the HTSAT-Swin / RoBERTa towers at laion's defaults
+   (32 chunks at 48 kHz, B=32 audio-s/s and peak memory, a fused pair
+   with one row over 10 s, the text tower's ms; card vs CPU within
+   CLAP_ATOL / EMBED_ATOL).
 
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
@@ -204,6 +223,11 @@ SR = 16000
 #   rejects them).
 K1_ATOL, K1_RTOL = 1e-2, 1.6e-2
 K1_Y_MAX, K1_Y_L2 = 1e-2, 7e-3
+# K9's launches a case beyond the first, each held bit-equal to it: K9
+# sums in a fixed order, so a launch that differs shows a race (its Wo
+# stages were once refilled under loads still in flight, in ~1 % of
+# launches; tools/torch_kernel_repeat.py takes 2000 a width)
+K9_REPEATS = 16
 # (label, q scale, residual)
 K1_CASES = (("residual", 1.0, True), ("attention", 1.0, False),
             ("peaked", 3.0, False))
@@ -319,6 +343,9 @@ K12_ATOL = 1e-5
 K12_SHAPES = ((1_000_000, "float32"), (1_000_000, "bfloat16"),
               (1027, "float32"), (1027, "bfloat16"))
 K12_RULE_THRESHOLD = 0.125
+# K12 at the 768-D index of the mpnet / CLIP-text embedders (A11)
+K12_WIDE = ((1_000_000, "float32"), (1_000_000, "bfloat16"))
+K12_WIDE_D = 768
 # K13 (streaming read): every column sum of a random 64 MiB bf16 slab
 # (uniform in [0, 1), so no sum cancels) within K13_RTOL of the plain
 # float32 sums, over all `cols` columns: a kernel that read only the 128
@@ -564,6 +591,18 @@ def check_k1(name, got, ref, residual: bool) -> dict:
             f"{rel_l2:.3e} of ||y|| (limit {K1_Y_L2})")
     return {"max_abs_err": float(err.abs().max()), "rel_max_err": rel_max,
             "rel_l2_err": rel_l2}
+
+
+def check_repeats(name, fn, first, n: int) -> int:
+    """``n`` more launches of a kernel on the inputs that gave ``first``,
+    each bit-equal to it; raises on the first that differs, returns n."""
+    for i in range(n):
+        again = fn()
+        if not torch.equal(again, first):
+            raise AssertionError(
+                f"{name}: launch {i + 2} on the same inputs differs from "
+                f"the first in {int((again != first).sum())} elements")
+    return n
 
 
 def _rand(gen: torch.Generator, device, dtype=torch.bfloat16):
@@ -1032,6 +1071,9 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
                        if key == "K8" else check_k1(tag, got, ref, residual))
                 case = {"shape": f"{label} B={b} T={t} H={heads} D=64",
                         "inputs": inputs, **err}
+                if key == "K9":
+                    case["repeats_equal"] = check_repeats(
+                        tag, fused, got, K9_REPEATS)
                 if name.startswith("K11"):
                     case["defer_div"] = name.split()[1]
                     case.update(cluster_case(b, t, heads))
@@ -1071,7 +1113,11 @@ def encoder_variant_phase(card: str, gen: torch.Generator) -> list[dict]:
         ref = EB.attention_o_residual_int8_plain(*args9)
         torch.cuda.synchronize()
         case = {"shape": "base B=4 T=1501 H=8 D=64", "inputs": inputs,
-                **check_k1(f"K9 T=1501 {inputs}", got, ref, residual)}
+                **check_k1(f"K9 T=1501 {inputs}", got, ref, residual),
+                "repeats_equal": check_repeats(
+                    f"K9 T=1501 {inputs}",
+                    lambda: EB.attention_o_residual_int8(*args9), got,
+                    K9_REPEATS)}
         out["K9"]["cases"].append(case)
         phase("kernels", kernel="K9", card=card,
               tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2} if not residual
@@ -1174,6 +1220,19 @@ def k12_inputs(n: int, dtype: str, *, device="cuda", seed: int = 0):
     generated on ``device``); the query is row 123's ASR embedding."""
     e, ok = load_tool("torch_bench_search_scale").make_index(
         n, getattr(torch, dtype), device, seed)
+    return e[min(123, n - 1), 0].float(), e, ok
+
+
+def k12_wide_inputs(n: int, dtype: str, *, d: int = K12_WIDE_D,
+                    device="cuda", seed: int = 2):
+    """k12_inputs at width ``d``: n unit rows [n, 2, d] made on
+    ``device``, success = uniform > 0.2, the query row 123's ASR
+    embedding."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e = torch.randn((n, 2, d), generator=gen, device=device)
+    e /= e.norm(dim=-1, keepdim=True)
+    ok = torch.rand((n, 2), generator=gen, device=device) > 0.2
+    e = e.to(getattr(torch, dtype))
     return e[min(123, n - 1), 0].float(), e, ok
 
 
@@ -1322,6 +1381,23 @@ def search_kernel_phase(card: str) -> tuple[dict, dict]:
         phase("kernels", kernel="K12", card=card, tol=K12_ATOL, **case)
         del q, e, ok, got
     torch.cuda.empty_cache()
+    for n, dtype in K12_WIDE:
+        q, e, ok = k12_wide_inputs(n, dtype)
+        got = FS.fused_scores_kernel(q, e, ok, wa, wb)
+        torch.cuda.synchronize()
+        case = {"shape": f"N={n} D={K12_WIDE_D} {dtype}",
+                **check_k12(f"K12 N={n} D={K12_WIDE_D} {dtype}", got, q, e,
+                            ok, wa, wb),
+                "ms": time_ms(lambda: FS.fused_scores_kernel(
+                    q, e, ok, wa, wb)),
+                "plain_ms": time_ms(lambda: FS.fused_scores_plain(
+                    q, e, ok, wa, wb))}
+        case["gbps"] = nbytes(e) / case["ms"] / 1e6
+        case.update(bound(nbytes(q, e, ok, got), f32=4 * n * K12_WIDE_D))
+        k12["cases"].append(case)
+        phase("kernels", kernel="K12", card=card, tol=K12_ATOL, **case)
+        del q, e, ok, got
+        torch.cuda.empty_cache()
 
     k13 = {"name": "stream_read", "route": "cuda",
            "source": f"{pkg}/stream_read.cu", "replaces": "bench.py:206",
@@ -2827,8 +2903,10 @@ def service_phase(card: str, rng: np.random.Generator,
     routes and a profile, ``uploads`` (name -> bytes: the MP3 vector and
     a FLAC) each equal to ingest_waveform on its decoded audio, own
     segment first, reconfigure to whisper-small (K1 at D=768, 12 heads),
-    a refused A11 embedder and a mulaw8 reconfigure that ingests, 20
-    ingest/delete cycles (VmRSS slope), and the CLI as subprocesses on
+    the mpnet embedder (200, 768-D, an ingest with K1/K2 counted and its
+    own text first) and a mulaw8 reconfigure back at MiniLM-L6 that
+    ingests, 20 ingest/delete cycles (VmRSS slope), and the CLI as
+    subprocesses on
     one --index directory."""
     import csv
     import io
@@ -3143,8 +3221,8 @@ def service_phase(card: str, rng: np.random.Generator,
                         "own_segment": mine}
         phase("service", step="uploads", card=card, **up)
 
-        # ---- 8. reconfigure: whisper-small ASR, a refused A11 embedder,
-        # then mulaw8 at whisper-base
+        # ---- 8. reconfigure: whisper-small ASR, the mpnet embedder,
+        # then mulaw8 at whisper-base with MiniLM-L6
         st, cfg_out, rebuild_s = request(
             base, "/api/config", json.dumps({"asr_preset": "small"}).encode(),
             headers={"Content-Type": "application/json"})
@@ -3172,31 +3250,58 @@ def service_phase(card: str, rng: np.random.Generator,
         hits = request(base, f"/api/search?q={q(meta[mine]['asr_text'])}"
                        )[1]["results"]
         check_own_first("whisper-small", meta, mine, hits)
-        st, refused, _ = request(
-            base, "/api/config", json.dumps(
-                {"embedder": "all-mpnet-base-v2"}).encode(),
-            headers={"Content-Type": "application/json"})
-        cfg_now = request(base, "/api/config")[1]
-        st2, still, _ = request(base, f"/api/search?q={q(queries[1])}")
-        if st == 200 or "error" not in refused or st2 != 200 or \
-                not still["results"] or cfg_now["asr_preset"] != "small" \
-                or cfg_now["embed_dim"] != 384:
-            raise AssertionError(f"service mpnet: {st} {refused}, then "
-                                 f"{st2}, config {cfg_now}")
         small = {"reconfigure_small_wall_s": rebuild_s,
                  "asr": f"whisper-small d={asr.cfg.d_model} "
                         f"H={asr.cfg.heads}",
                  "ingest_wall_s": small_s, "launches": counts,
-                 "expected": exp, "own_segment": mine,
-                 "mpnet_status": st, "mpnet_error": refused["error"]}
+                 "expected": exp, "own_segment": mine}
+        # the mpnet embedder (A11): 200, 768-D, an empty index that then
+        # ingests and answers its own text first
+        st, cfg_out, mpnet_s = request(
+            base, "/api/config", json.dumps(
+                {"embedder": "all-mpnet-base-v2"}).encode(),
+            headers={"Content-Type": "application/json"})
+        expect("config mpnet", st, cfg_out)
+        ing = eng.ingest_pipeline
+        asr, cap = ing.asr, ing.caption
+        if cfg_out["embed_dim"] != 768 or cfg_out["asr_preset"] != "small" \
+                or request(base, "/api/segments")[1]["total"] != 0 or \
+                not ing.embedder.model.__name__.endswith(".mpnet"):
+            raise AssertionError(f"service: mpnet reconfigure gave "
+                                 f"{cfg_out}")
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        st, body, mpnet_ingest_s = request(
+            base, "/api/ingest?name=short.wav", wav_bytes(short_x))
+        expect("ingest mpnet", st, body)
+        counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if counts != exp or disp[0] < 1:
+            raise AssertionError(f"service mpnet: launches {counts} != "
+                                 f"{exp}")
+        meta = request(base, "/api/segments")[1]["segments"]
+        mine = own_segment(meta, range(len(meta)))
+        hits = request(base, f"/api/search?q={q(meta[mine]['asr_text'])}"
+                       )[1]["results"]
+        check_own_first("mpnet", meta, mine, hits)
+        small.update(mpnet_status=st, reconfigure_mpnet_wall_s=mpnet_s,
+                     mpnet_embed_dim=cfg_out["embed_dim"],
+                     mpnet_ingest_wall_s=mpnet_ingest_s,
+                     mpnet_launches=counts, mpnet_own_segment=mine)
+        # back to MiniLM-L6 with the mulaw8 transfer at whisper-base
         st, cfg_out, mulaw_s = request(
             base, "/api/config", json.dumps(
-                {"asr_preset": "base", "transfer_dtype": "mulaw8"}).encode(),
+                {"asr_preset": "base", "transfer_dtype": "mulaw8",
+                 "embedder": "all-MiniLM-L6-v2"}).encode(),
             headers={"Content-Type": "application/json"})
         expect("config mulaw8", st, cfg_out)
         ing = eng.ingest_pipeline
         asr, cap = ing.asr, ing.caption
-        if cfg_out["transfer_dtype"] != "mulaw8" or asr.cfg.d_model != 512:
+        if cfg_out["transfer_dtype"] != "mulaw8" or asr.cfg.d_model != 512 \
+                or cfg_out["embed_dim"] != 384:
             raise AssertionError(f"service: reconfigure gave {cfg_out}")
         runtime.reset_counts()
         steps0 = (asr.total_steps, cap.total_steps)
@@ -3296,6 +3401,347 @@ def service_phase(card: str, rng: np.random.Generator,
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- the secondary models (A11)
+# the default engine reconfigured to each embedder choice, in this order,
+# with the embed_dim each must give
+EMBEDDER_STEPS = (("all-mpnet-base-v2", 768),
+                  ("clip-ViT-B-32-multilingual-v1", 768),
+                  ("all-MiniLM-L6-v2", 384))
+EMBED_QUERIES = ("upbeat music with drums", "someone speaking clearly",
+                 "rain and birds in the background")
+# card against CPU, the same float32 weights and inputs (TF32 off on the
+# card): a text tower's unit-norm embeddings within EMBED_ATOL (the CPU
+# tests' bar against JAX); an audio tower's, whose features the card
+# computes itself (the STFT + mel of ClapSearch, the bicubic resize and
+# the patch im2col of HTSAT) in another summation order, within CLAP_ATOL
+EMBED_ATOL = 5e-5
+CLAP_ATOL = 1e-4
+# after a reconfigure, the allocation may move by the two embedders'
+# parameter bytes and this much more: a kept old embedder (>= 91 MB at
+# MiniLM-L6) or old Whisper pair would exceed it
+EMBED_FREE_SLACK = 64 << 20
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors in a param tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def embedders_phase(card: str, clips, device: str = "cuda") -> dict:
+    """The engine's three embedder choices at published widths on a
+    default engine (whisper-base ASR, whisper-tiny captions; random init,
+    seed 0): reconfigure to all-mpnet-base-v2 (MPNet 12 x 768, vocab
+    30527), clip-ViT-B-32-multilingual-v1 (the 6 x 768 DistilBERT text
+    tower, vocab 119,547), then back to all-MiniLM-L6-v2. After each: the
+    rebuild wall, embed_dim, the previous pipelines freed (the allocation
+    moves by the embedders' parameter bytes), the 25 s clip ingested (and
+    the 320 s clip under mpnet, for an ingest rate) with K1/K2 launches
+    as expected_launches, each text's segment first, the card's query
+    embeddings within EMBED_ATOL of the same embedder's on the CPU, one
+    query's and a 32-text batch's embed ms, query p50 over 4 queries, peak
+    memory. Returns {embedder: launch counts}. (``device`` "cpu" is for
+    rehearsing the phase at test widths.)"""
+    import gc
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.models.layers import cast_floats
+    from multimodal_audio_search_tpu_torch.pipelines.embed import (
+        TextEmbedder)
+    (long_name, long_x), (short_name, short_x) = clips
+    torch.cuda.empty_cache()
+    eng = AudioSearchEngine(cfg=engine_config(None, False), device=device,
+                            seed=0)
+    eng.load_all_models()
+    cpu = torch.device("cpu")
+    out, p50 = {}, {}
+    for name, dim in EMBEDDER_STEPS:
+        gc.collect()
+        torch.cuda.synchronize()
+        old_bytes = tree_bytes(eng.embedder.params)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg_out = eng.reconfigure(embedder=name)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        gc.collect()
+        emb = eng.embedder
+        moved = torch.cuda.memory_allocated() - before
+        params_moved = tree_bytes(emb.params) - old_bytes
+        if cfg_out["embedder"] != name or cfg_out["embed_dim"] != dim or \
+                emb.dim != dim or len(eng.store) != 0:
+            raise AssertionError(f"embedders {name}: reconfigure gave "
+                                 f"{cfg_out}, dim {emb.dim}")
+        if abs(moved - params_moved) > EMBED_FREE_SLACK:
+            raise AssertionError(
+                f"embedders {name}: the allocation moved {moved} bytes, the "
+                f"embedders' params {params_moved}: the previous pipelines "
+                f"were not freed")
+        ing = eng.ingest_pipeline
+        asr, cap = ing.asr, ing.caption
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        runs = [(short_name, short_x)]
+        if name == EMBEDDER_STEPS[0][0]:
+            runs.append((long_name, long_x))
+        rates = {}
+        for nm, x in runs:
+            t0 = time.perf_counter()
+            eng.ingest(wav_bytes(x), source_name=nm)
+            torch.cuda.synchronize()
+            rates[nm] = len(x) / SR / (time.perf_counter() - t0)
+        counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if counts != exp or disp[0] < 1:
+            raise AssertionError(f"embedders {name}: launches {counts} != "
+                                 f"{exp}")
+        meta = eng.store.meta
+        own = own_segment(meta, range(len(meta)))
+        queries = [meta[own]["asr_text"], *EMBED_QUERIES]
+        lat = []
+        for qi, qt in enumerate(queries):
+            tq = time.perf_counter()
+            hits, _ = eng.search(qt)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - tq) * 1e3)
+            if qi == 0:
+                check_own_first(f"embedders {name}", meta, own, hits)
+        # the same embedder on the CPU: its weights copied, float32
+        ref = TextEmbedder(params=cast_floats(emb.params, torch.float32, cpu),
+                           cfg=emb.cfg, model=emb.model,
+                           tokenizer=emb.tokenizer,
+                           max_tokens=emb.max_tokens, device="cpu")
+        err = float(np.abs(emb(queries) - ref(queries)).max())
+        if not err <= EMBED_ATOL:
+            raise AssertionError(f"embedders {name}: card vs CPU max |err| "
+                                 f"{err:.3e} > {EMBED_ATOL}")
+        del ref
+        texts = [m["asr_text"] or m["audio_description"] for m in meta]
+        batch = [texts[i % len(texts)] for i in range(32)]
+        one_ms = host_ms(lambda: emb(queries[:1]), n=10)
+        batch_ms = host_ms(lambda: emb(batch), n=5)
+        p50[name] = float(np.median(lat))
+        out[name] = counts
+        phase("embedders", embedder=name, card=card,
+              model=emb.model.__name__.rsplit(".", 1)[-1],
+              width=emb.cfg.hidden, layers=emb.cfg.layers,
+              vocab=emb.cfg.vocab_size, embed_dim=cfg_out["embed_dim"],
+              rebuild_wall_s=rebuild_s, allocated_moved_bytes=moved,
+              params_moved_bytes=params_moved,
+              embedder_param_bytes=tree_bytes(emb.params),
+              peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+              segments=len(meta), ingest_audio_s_per_s=rates,
+              launches=counts, expected=exp, own_segment=own,
+              card_vs_cpu_max_abs_err=err, tol=EMBED_ATOL,
+              embed_one_query_ms=one_ms, embed_32_texts_ms=batch_ms,
+              query_ms=lat, query_p50_ms=p50[name])
+        # hold nothing of this embedder's engine into the next step's
+        # allocation check
+        del ing, asr, cap, emb
+    phase("embedders", step="query p50 beside MiniLM-L6", card=card,
+          query_p50_ms=p50)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def clap_topk_check(cs, query: str, k: int = 10) -> dict:
+    """ClapSearch.search's top-k against a plain scoring of the store's
+    rows (numpy dot of the AUDIO slot with the card's query embedding, a
+    stable descending sort): the same row at every rank whose plain score
+    is more than K12_ATOL from its neighbours, scores within K12_ATOL."""
+    hits = cs.search(query, k=k)
+    q = cs.embed_query(query).cpu().numpy()
+    scores = cs.store.embeddings[:, 1] @ q
+    order = np.argsort(-scores, kind="stable")
+    if len(hits) != min(k, len(scores)):
+        raise AssertionError(f"clap {query!r}: {len(hits)} hits")
+    ref = scores[order]
+    for i, h in enumerate(hits):
+        if abs(h["similarity"] - scores[h["index"]]) > K12_ATOL:
+            raise AssertionError(f"clap {query!r}: rank {i} scores "
+                                 f"{h['similarity']} vs {scores[h['index']]}")
+        clear = (i + 1 >= len(ref) or ref[i] - ref[i + 1] > K12_ATOL) and (
+            i == 0 or ref[i - 1] - ref[i] > K12_ATOL)
+        if clear and h["index"] != order[i]:
+            raise AssertionError(f"clap {query!r}: rank {i} is {h['index']},"
+                                 f" the plain scoring's {order[i]}")
+    return {"top": [h["index"] for h in hits[:3]],
+            "top_score": hits[0]["similarity"]}
+
+
+def clap_phase(card: str, clips, device: str = "cuda",
+               htsat=None, roberta=None) -> dict:
+    """The CLAP search path on the card, random init from seed 0.
+
+    1. ClapSearch at its default ClapConfig (80 mels, d_model 256, 4
+       layers, 512-D; MiniLM-L6 text tower) ingests the 320 s clip (32
+       rows), the 25 s clip (3: the 5 s tail kept) and its first 20.5 s
+       (2: the 0.5 s tail dropped); each query's top-10 equals a plain
+       scoring of the store's rows; 2 chunks' embeddings and the queries'
+       on the card within CLAP_ATOL / EMBED_ATOL of the CPU's.
+    2. The HTSAT-Swin and RoBERTa towers at laion's defaults
+       (HTSATConfig(), RobertaConfig()): 32 chunks of the 320 s clip at
+       48 kHz through clap_features, one B=32 audio_embed timed (audio-s/s,
+       peak memory), 2 rows against the CPU; the fused tower
+       (enable_fusion) on a row longer than 10 s and one shorter against
+       the CPU; the text tower's ms for one query and the 4 queries
+       against the CPU.
+    (``device`` "cpu" and smaller ``htsat`` / ``roberta`` configs are for
+    rehearsing the phase.)"""
+    import dataclasses
+    from multimodal_audio_search_tpu_torch.audio import clap_features as CF
+    from multimodal_audio_search_tpu_torch.audio.resample import (
+        resample_best)
+    from multimodal_audio_search_tpu_torch.models import clap_htsat as CH
+    from multimodal_audio_search_tpu_torch.models.layers import cast_floats
+    from multimodal_audio_search_tpu_torch.models.tokenizer import (
+        load_tokenizer)
+    from multimodal_audio_search_tpu_torch.pipelines.clap_ingest import (
+        ClapSearch)
+    cpu, cuda, f32 = torch.device("cpu"), torch.device(device), torch.float32
+    (_, long_x), (_, short_x) = clips
+    queries = ["upbeat music with drums", *EMBED_QUERIES[1:], "a dog barks"]
+
+    # ---- 1. ClapSearch (the v1 tower)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cs = ClapSearch(device=device, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = cs.ingest_waveform(long_x, SR, "long.wav")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    n25 = len(cs.ingest_waveform(short_x, SR, "short.wav"))
+    n205 = len(cs.ingest_waveform(short_x[: int(20.5 * SR)], SR,
+                                  "short_20.5s.wav"))
+    ends = [m["end_time"] for m in cs.store.meta[32:35]]
+    if len(rows) != 32 or (n25, n205) != (3, 2) or ends != [10.0, 20.0, 25.0]:
+        raise AssertionError(f"clap: rows {len(rows)}, 25 s -> {n25}, "
+                             f"20.5 s -> {n205}, ends {ends}")
+    tops = {qt: clap_topk_check(cs, qt) for qt in queries}
+    lat = []
+    for qt in queries:
+        tq = time.perf_counter()
+        cs.search(qt)
+        lat.append((time.perf_counter() - tq) * 1e3)
+    ref = ClapSearch(audio_params=cast_floats(cs.audio_params, f32, cpu),
+                     text_params=cast_floats(cs.text_params, f32, cpu),
+                     proj_params=cast_floats(cs.proj_params, f32, cpu),
+                     acfg=cs.acfg, tcfg=cs.tcfg, tokenizer=cs.tokenizer,
+                     device="cpu")
+    n = cs.mel_cfg.n_samples
+    two = np.stack([long_x[:n], long_x[n: 2 * n]]).astype(np.float32)
+    audio_err = float(np.abs(cs.embed_batch(two).cpu().numpy()
+                             - ref.embed_batch(two).numpy()).max())
+    text_err = max(float((cs.embed_query(qt).cpu()
+                          - ref.embed_query(qt)).abs().max())
+                   for qt in queries)
+    if not (audio_err <= CLAP_ATOL and text_err <= EMBED_ATOL):
+        raise AssertionError(f"clap: card vs CPU audio {audio_err:.3e} "
+                             f"(tol {CLAP_ATOL}), text {text_err:.3e} "
+                             f"(tol {EMBED_ATOL})")
+    phase("clap", step="ClapSearch", card=card, config=str(cs.acfg),
+          build_s=build_s, rows=len(rows), rows_25s=n25, rows_20_5s=n205,
+          ingest_audio_s_per_s=len(long_x) / SR / ingest_s,
+          search_ms=lat, search_p50_ms=float(np.median(lat)), top=tops,
+          card_vs_cpu_audio_max_abs_err=audio_err, audio_tol=CLAP_ATOL,
+          card_vs_cpu_text_max_abs_err=text_err, text_tol=EMBED_ATOL,
+          peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    del cs, ref
+
+    # ---- 2. HTSAT-Swin + RoBERTa at laion's defaults
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acfg, tcfg = htsat or CH.HTSATConfig(), roberta or CH.RobertaConfig()
+    gen = torch.Generator().manual_seed(0)
+    ap_cpu = CH.init_audio_params(gen, acfg)
+    tp_cpu = CH.init_text_params(gen, tcfg)
+    ap, tp = (cast_floats(t, f32, cuda) for t in (ap_cpu, tp_cpu))
+    t0 = time.perf_counter()
+    x48 = resample_best(long_x, SR, CF.SAMPLE_RATE)
+    chunk = CF.MAX_SAMPLES
+    feats = np.concatenate([CF.clap_input_features(x48[i * chunk:
+                                                       (i + 1) * chunk])
+                            for i in range(32)])          # [32, 1, 1001, 64]
+    features_s = time.perf_counter() - t0
+    xf = torch.from_numpy(feats).to(cuda)
+    with torch.inference_mode():
+        def tower():
+            z = CH.audio_embed(ap, xf, acfg)
+            torch.cuda.synchronize()
+            return z
+        z = tower()
+        tower_ms = host_ms(tower, n=3)
+        zr = CH.audio_embed(ap_cpu, torch.from_numpy(feats[:2]), acfg)
+    norms = z.norm(dim=-1)
+    if tuple(z.shape) != (32, acfg.projection_dim) or \
+            not torch.isfinite(z).all() or \
+            float((norms - 1).abs().max()) > 1e-5:
+        raise AssertionError(f"clap htsat: {tuple(z.shape)}, norms "
+                             f"{norms.min()}-{norms.max()}")
+    htsat_err = float((z[:2].cpu() - zr).abs().max())
+    peak_htsat = torch.cuda.max_memory_allocated()
+    # the fused tower: a row longer than 10 s, a row shorter
+    fcfg = dataclasses.replace(acfg, enable_fusion=True)
+    fp_cpu = CH.init_audio_params(gen, fcfg)
+    fp = cast_floats(fp_cpu, f32, cuda)
+    ff, longer = CF.clap_fusion_batch(
+        [x48[: 15 * CF.SAMPLE_RATE],
+         x48[15 * CF.SAMPLE_RATE: 20 * CF.SAMPLE_RATE]])
+    with torch.inference_mode():
+        zf = CH.audio_embed(fp, torch.from_numpy(ff).to(cuda), fcfg,
+                            is_longer=torch.from_numpy(longer).to(cuda))
+        zfr = CH.audio_embed(fp_cpu, torch.from_numpy(ff), fcfg,
+                             is_longer=longer)
+    fused_err = float((zf.cpu() - zfr).abs().max())
+    # the text tower
+    tok = load_tokenizer(vocab_size=tcfg.vocab_size)
+    ids, mask = tok.encode(queries, 64)
+    ids_t = torch.as_tensor(ids, dtype=torch.long)
+    mask_t = torch.as_tensor(mask)
+    with torch.inference_mode():
+        zt = CH.text_embed(tp, ids_t.to(cuda), mask_t.to(cuda), tcfg)
+        ztr = CH.text_embed(tp_cpu, ids_t, mask_t, tcfg)
+
+        def one_query():
+            CH.text_embed(tp, ids_t[:1].to(cuda), mask_t[:1].to(cuda), tcfg)
+            torch.cuda.synchronize()
+        one_query()
+        text_ms = host_ms(one_query, n=10)
+    roberta_err = float((zt.cpu() - ztr).abs().max())
+    if not (htsat_err <= CLAP_ATOL and fused_err <= CLAP_ATOL
+            and roberta_err <= EMBED_ATOL and list(longer) == [True, False]
+            and torch.isfinite(zf).all()):
+        raise AssertionError(
+            f"clap towers: card vs CPU htsat {htsat_err:.3e}, fused "
+            f"{fused_err:.3e} (tol {CLAP_ATOL}, is_longer {list(longer)}), "
+            f"roberta {roberta_err:.3e} (tol {EMBED_ATOL})")
+    phase("clap", step="HTSAT + RoBERTa (laion defaults)", card=card,
+          htsat=str(acfg), roberta=str(tcfg),
+          audio_param_bytes=tree_bytes(ap), text_param_bytes=tree_bytes(tp),
+          host_features_s=features_s, batch=32, tower_ms=tower_ms,
+          tower_audio_s_per_s=32 * CF.MAX_LENGTH_S / (tower_ms / 1e3),
+          peak_allocated_bytes=peak_htsat,
+          card_vs_cpu_htsat_max_abs_err=htsat_err,
+          card_vs_cpu_fused_max_abs_err=fused_err,
+          fused_is_longer=[bool(v) for v in longer],
+          card_vs_cpu_roberta_max_abs_err=roberta_err,
+          audio_tol=CLAP_ATOL, text_tol=EMBED_ATOL,
+          text_one_query_ms=text_ms)
+    del ap, tp, fp, xf
+    torch.cuda.empty_cache()
+    return {"htsat_tower_ms": tower_ms, "text_ms": text_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -3348,6 +3794,8 @@ def main() -> int:
         "share_of_default": {k: m[key] / mems["default"][key]
                              for k, m in mems.items()}}
         for key in mems["default"] if key.endswith("_bytes")})
+    counts["embedders"] = embedders_phase(card, clips)
+    clap_phase(card, clips)
     service_phase(card, rng, audio["uploads"])
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)

@@ -49,7 +49,7 @@
 //     copy, which wants 16-byte aligned rows too, could not take them)
 //     and, in the third pass, the V tile (no swizzle). Rows past T arrive
 //     as zeros; the consumers set those keys' scores to -inf. Consumers
-//     release a slot per warp.
+//     release a slot per warp, after a proxy fence (release_slot).
 //   * QK^T is wgmma.mma_async m64n64k32 .s32.s8.s8: q8 forms the A
 //     fragments in registers (m16n8k32 layout per warp), the K tile is the
 //     K-major B operand (two k-steps of 32 bytes). 64-key tiles keep the
@@ -160,6 +160,17 @@ __device__ __forceinline__ float exp_m(float s, float mL) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// A warp's release of a ring slot it read with plain loads (scales, Wo):
+// the slot's next TMA write is an async-proxy access, which the arrival
+// alone does not order after those loads (a Wo tile's last loads were
+// still in flight at the arrival and, in about 1 % of launches, read the
+// next tile's data); the proxy fence does.
+__device__ __forceinline__ void release_slot(uint64_t* bar, int lane) {
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
 // named barriers: 1 + w the 128 threads of consumer warpgroup w, NWG + 1
@@ -399,8 +410,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
       issue_scores(c, qa, reinterpret_cast<const int8_t*>(slot));
       scores(c, reinterpret_cast<const float*>(slot + 2 * KT_BYTES), j * BN,
              T, qs0, qs1, t4);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&wempty[si]);
+      release_slot(&wempty[si], lane);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int jn = 0; jn < BN / 8; ++jn) {
@@ -448,8 +458,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
                     fmaxf(div_row(exp_m(S(4 * jn + 2), mL1), l1, rl1) * v2.x,
                           div_row(exp_m(S(4 * jn + 3), mL1), l1, rl1) * v2.y));
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&wempty[si]);
+      release_slot(&wempty[si], lane);
     }
     const float ps0 = fmaxf(quad_max(pm0), 1e-30f) / 127.f;
     const float ps1 = fmaxf(quad_max(pm1), 1e-30f) / 127.f;
@@ -463,7 +472,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
       const int si = it % stages;
       const uint8_t* slot = ring + (wg * stages + si) * SLOT;
       mbar_wait(&wfull[si], (it / stages) & 1);
-      // also waits for the last tile's PV product, which read vt
+      // also waits for this warp's share of the last tile's PV product,
+      // which read vt (the other warps' shares: the barrier below)
       issue_scores(c, qa, reinterpret_cast<const int8_t*>(slot));
       const float* sks = reinterpret_cast<const float*>(slot + 2 * KT_BYTES);
       scores(c, sks, j * BN, T, qs0, qs1, t4);
@@ -481,8 +491,12 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
         c[4 * jn + 3] = code8_row(
             div_row(exp_m(S(4 * jn + 3), mL1), l1, rl1) * v2.y, ps1, rps1);
       }
+      // each warp's wgmma share reads the whole of vt, and a warp's
+      // wait_group covers the groups its own threads committed: vt is
+      // rewritten once every warp has waited for the last tile's product
+      bar_sync(1 + wg, 128);
       transpose_v(vt, reinterpret_cast<const int8_t*>(slot + KT_BYTES), tid);
-      fence_proxy_async();
+      fence_proxy_async();  // vt for wgmma; the slot's loads before its TMA
       bar_sync(1 + wg, 128);  // vt written, the slot read by every warp
       if (lane == 0) mbar_arrive(&wempty[si]);
       uint32_t pa[2][4];
@@ -544,8 +558,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
                     ldw(w, k + 8, n) | ldw(w, k + 9, n) << 16);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&wempty[si]);
+      release_slot(&wempty[si], lane);
     }
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd) {

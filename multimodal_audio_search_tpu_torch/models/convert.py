@@ -4,7 +4,8 @@ A copy of ``multimodal_audio_search_tpu/models/convert.py`` (numpy only),
 whose config imports resolve to the port's dataclasses of the same
 fields; ``tests/test_torch_copies.py`` holds it to the original. The
 trees it makes are numpy; ``weights.whisper_params`` /
-``weights.minilm_params`` turn them into the port's torch trees.
+``weights.minilm_params`` / ``weights.mpnet_params`` turn them into the
+port's torch trees.
 
 The reference downloads its three models from the Hub at runtime
 (audio_search.py:153,178,200). This image has no egress, so conversion is a
@@ -14,8 +15,6 @@ the numerical parity tests), or a safetensors file.
 
 Conventions: torch Linear stores [out, in]; our dense is y = x @ W + b with
 W [in, out], so linear weights transpose. Conv1d [out, in, k] -> [k, in, out].
-``mpnet_config_from_hf`` / ``convert_mpnet`` need the MPNet model, which
-the port does not have yet (ROADMAP A11).
 """
 from __future__ import annotations
 

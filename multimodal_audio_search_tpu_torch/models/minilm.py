@@ -3,7 +3,9 @@
 Counterpart of ``multimodal_audio_search_tpu/models/minilm.py``: a
 post-layernorm BERT encoder (LN eps 1e-12, learned absolute positions,
 token-type embeddings, erf-GELU) -> attention-masked mean pooling -> L2
-normalisation. Same param keys and layouts.
+normalisation. Same param keys and layouts; ``mean_pool`` and
+``sentence_projection`` (the sentence-transformers Dense head) as in
+JAX.
 """
 from __future__ import annotations
 
@@ -27,7 +29,17 @@ class MiniLMConfig:
 
 
 PRESETS = {
+    # all-MiniLM-L6-v2 (the reference's default embedder)
     "L6": MiniLMConfig(),
+    # the JAX package's all-mpnet-base-v2-shaped BERT stand-in
+    "base768": MiniLMConfig(hidden=768, layers=12, heads=12,
+                            intermediate=3072),
+    # clip-ViT-B-32-multilingual-v1's text tower: a 6-layer multilingual
+    # DistilBERT (no token-type embeddings); the engine serves its
+    # mean-pooled 768-D output, as the JAX engine does (the upstream
+    # model's 768->512 projection is ``sentence_projection``)
+    "clip512_text": MiniLMConfig(vocab_size=119_547, hidden=768, layers=6,
+                                 heads=12, intermediate=3072, type_vocab=0),
     "test": MiniLMConfig(vocab_size=512, hidden=64, layers=2, heads=4,
                          intermediate=128),
 }
@@ -80,3 +92,20 @@ def sentence_embed(params, input_ids: torch.Tensor,
     m = attention_mask.float()[:, :, None]
     pooled = (h * m).sum(dim=1) / m.sum(dim=1).clamp(min=1e-9)
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def sentence_projection(params, pooled: torch.Tensor,
+                        tanh: bool = False) -> torch.Tensor:
+    """sentence-transformers Dense head (e.g. the 768->512 CLIP projection
+    of clip-ViT-B-32-multilingual-v1): linear (+optional tanh) + L2 norm.
+    ``params`` is a models.layers dense tree ({"w","b"})."""
+    z = L.dense(params, pooled).float()
+    if tanh:
+        z = torch.tanh(z)
+    return z / z.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def mean_pool(h: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Attention-masked mean pooling ([B,T,H], [B,T]) -> [B,H] float32."""
+    m = attention_mask.float()[:, :, None]
+    return (h.float() * m).sum(dim=1) / m.sum(dim=1).clamp(min=1e-9)

@@ -1,8 +1,10 @@
-"""Text -> 384D embedding pipeline.
+"""Text -> sentence embedding pipeline (384-D MiniLM by default).
 
-Counterpart of ``multimodal_audio_search_tpu/pipelines/embed.py``: MiniLM
-with tokenization and power-of-two batch buckets. Runs in float32 on
-either device, as the JAX package's embedder does (its default dtype).
+Counterpart of ``multimodal_audio_search_tpu/pipelines/embed.py``: a
+sentence encoder module (``models.minilm`` by default, ``models.mpnet``
+for all-mpnet-base-v2) with tokenization and power-of-two batch buckets.
+Runs in float32 on either device, as the JAX package's embedder does
+(its default dtype).
 """
 from __future__ import annotations
 
@@ -32,19 +34,29 @@ class TextEmbedder:
         seed: int = 0,
         stats: PipelineStats | None = None,
         device: torch.device | str = "cuda",
+        model=None,
     ):
+        """``model`` is the encoder module (default models.minilm); any
+        module exposing init_params(gen, cfg) and sentence_embed(params,
+        ids, mask, cfg) works, e.g. models.mpnet. Its default ``cfg`` is
+        MiniLMConfig() for minilm and the module's PRESETS["base"] else."""
         from .. import runtime
         self.device = runtime.select_device(device)
-        self.cfg = cfg or minilm.MiniLMConfig()
+        model = model or minilm
+        if cfg is None:
+            cfg = minilm.MiniLMConfig() if model is minilm \
+                else model.PRESETS["base"]
+        self.cfg = cfg
+        self.model = model
         if params is None:
-            params = minilm.init_params(
+            params = model.init_params(
                 torch.Generator().manual_seed(seed), self.cfg)
         self.params = cast_floats(params, dtype, self.device)
         self.tokenizer = tokenizer or load_tokenizer(
             vocab_size=self.cfg.vocab_size)
         self.max_tokens = max_tokens
         self.stats = stats if stats is not None else PipelineStats(
-            "Text Embedder", "minilm-torch")
+            "Text Embedder", f"{model.__name__.rsplit('.', 1)[-1]}-torch")
         self.stats.embedding_dim = self.cfg.hidden
 
     @property
@@ -63,8 +75,8 @@ class TextEmbedder:
             mask[len(texts):, 0] = 1  # avoid 0/0 in mean pooling
         ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
-        return minilm.sentence_embed(self.params, ids, mask,
-                                     self.cfg)[: len(texts)]
+        return self.model.sentence_embed(self.params, ids, mask,
+                                         self.cfg)[: len(texts)]
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         if len(texts) == 0:

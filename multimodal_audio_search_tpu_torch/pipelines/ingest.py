@@ -451,25 +451,21 @@ def make_default_ingest(
 ) -> DualPipelineIngest:
     """Build the reference-configured dual pipeline (whisper-base ASR with
     the en/transcribe prompt, whisper-tiny captioner with a bare <sot>
-    prompt, MiniLM-L6): random-init weights from ``seed``, unless a
-    ``ModelSpec.weights_path`` names a local HF checkpoint directory,
-    which is converted (models/convert.py) as the JAX package loads it;
-    its tokenizer assets are used where the directory has them."""
+    prompt, and the text embedder of ``cfg.text_embedder``: a minilm
+    preset, L6 by default, or family "mpnet"): random-init weights from
+    ``seed``, unless a ``ModelSpec.weights_path`` names a local HF
+    checkpoint directory, which is converted (models/convert.py:
+    convert_whisper, convert_bert for minilm, convert_mpnet) as the JAX
+    package loads it; its tokenizer assets are used where the directory
+    has them."""
+    from .. import weights
     from ..config import MelConfig
     from ..models import whisper as W
-    from ..models.convert import (convert_bert, convert_whisper,
-                                  load_state_dict_from_dir)
+    from ..models.convert import (convert_whisper, load_state_dict_from_dir)
     from ..models.generate import check_supported
-    from ..models.minilm import PRESETS as MLM_PRESETS
     from ..models.tokenizer import load_tokenizer
     from ..ops.quant import quantize_whisper_decoder
-    from ..weights import minilm_params, whisper_params
     cfg = cfg or EngineConfig()
-    emb = cfg.text_embedder
-    if emb.family != "minilm" or emb.preset not in MLM_PRESETS:
-        raise NotImplementedError(
-            f"embedder {emb.family}/{emb.preset} is not ported "
-            f"(ROADMAP A11)")
     if cfg.data_parallel * cfg.model_parallel != 1:
         raise NotImplementedError(
             "meshes (data_parallel/model_parallel) are not ported "
@@ -484,7 +480,7 @@ def make_default_ingest(
         wcfg = W.PRESETS[spec.preset]
         params = None
         if spec.weights_path:
-            params = whisper_params(convert_whisper(
+            params = weights.whisper_params(convert_whisper(
                 load_state_dict_from_dir(spec.weights_path), wcfg))
         if spec.quantize_decoder:       # int8 decoder weights (K5-K7)
             check_supported(decode, quantized=True)
@@ -508,13 +504,23 @@ def make_default_ingest(
     cap_cfg = W.PRESETS[cfg.caption_model.preset]
     caption = load_whisper(cfg.caption_model, cfg.caption_decode,
                            "caption", [cap_cfg.bos_token_id])
-    mcfg = MLM_PRESETS[cfg.text_embedder.preset]
+    if cfg.text_embedder.family == "mpnet":
+        # all-mpnet-base-v2: relative position bias + RoBERTa position ids
+        from ..models import mpnet as emb_model
+        from ..models.convert import convert_mpnet as emb_convert
+        carry = weights.mpnet_params
+    else:
+        from ..models import minilm as emb_model
+        from ..models.convert import convert_bert as emb_convert
+        carry = weights.minilm_params
+    mcfg = emb_model.PRESETS[cfg.text_embedder.preset]
     emb_path = cfg.text_embedder.weights_path
     embedder = TextEmbedder(
-        params=minilm_params(convert_bert(load_state_dict_from_dir(
-            emb_path), mcfg)) if emb_path else None,
+        params=carry(emb_convert(load_state_dict_from_dir(emb_path), mcfg))
+        if emb_path else None,
         cfg=mcfg, seed=seed,
         tokenizer=load_tokenizer(emb_path, vocab_size=mcfg.vocab_size)
         if emb_path else None,
-        stats=stats_reg.pipelines["text_embedder"], device=device)
+        model=emb_model, stats=stats_reg.pipelines["text_embedder"],
+        device=device)
     return DualPipelineIngest(asr, caption, embedder, cfg, stats_reg)

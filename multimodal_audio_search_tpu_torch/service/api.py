@@ -18,8 +18,8 @@ candidate generation (index/ivf.py); its layout is rebuilt on the write
 path after each ingest (``_prewarm_searcher``, once at the end of an
 ``ingest_many`` or of the server's async job queue). Not ported: meshes
 (ROADMAP A13). ``reconfigure`` builds every transfer of TRANSFER_CHOICES
-and raises NotImplementedError for the embedders of A11, before any
-engine state changes.
+and every embedder of EMBEDDER_CHOICES (MiniLM-L6, all-mpnet-base-v2,
+the clip-ViT-B-32-multilingual-v1 text tower).
 """
 from __future__ import annotations
 
@@ -52,17 +52,6 @@ MODEL_INFO = {
         "dimensions": "Audio → Description",
         "description": "Audio content description for non-speech"},
 }
-
-
-def _check_ported(cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for a configuration whose embedder the
-    port cannot build yet (ROADMAP A11)."""
-    from ..models.minilm import PRESETS as MLM_PRESETS
-    emb = cfg.text_embedder
-    if emb.family != "minilm" or emb.preset not in MLM_PRESETS:
-        raise NotImplementedError(
-            f"embedder {emb.family}/{emb.preset} is not ported "
-            f"(ROADMAP A11)")
 
 
 class AudioSearchEngine:
@@ -373,11 +362,9 @@ class AudioSearchEngine:
         (clean_audio_search.py:32-47): a new EngineConfig, fresh
         pipelines on the engine's device, and an index reset (the
         model-comparison semantics of streamlit_app_backup.py:1419-1433:
-        embeddings from different models/segmentations don't mix).
-
-        The embedders the port does not run yet are listed all the same
-        (describe_config equals the JAX package's); choosing one raises
-        NotImplementedError before anything is built."""
+        embeddings from different models/segmentations don't mix). The
+        new pipelines are built before anything is committed: a build
+        that raises leaves the engine as it was."""
         import dataclasses
         from ..models import whisper as W
         cfg = self.cfg
@@ -412,7 +399,6 @@ class AudioSearchEngine:
                     f"unknown transfer_dtype {transfer_dtype!r}; "
                     f"options: {list(self.TRANSFER_CHOICES)}")
             cfg = cfg.replace(transfer_dtype=transfer_dtype)
-        _check_ported(cfg)
         # Build the new pipelines BEFORE touching engine state: a failed
         # rebuild (bad weights path, OOM on a big preset) must leave the
         # engine exactly as it was — committing cfg first would pair the

@@ -14,6 +14,12 @@ A Whisper tree from the JAX ``ops/quant.py::quantize_whisper_decoder``
 comes over as it is: int8 leaves stay int8, the bf16 table becomes
 float32 holding the same values. Quantized leaves anywhere else (the
 encoder, MiniLM) are refused: the JAX package makes none.
+
+The secondary models' trees (MPNet, the CLAP towers of
+``models/clap_htsat.py`` and ``models/clap.py``, the bridge) hold float
+leaves only -- BN running statistics and relative-bias tables included,
+carried as float32 -- and ``None`` where a Swin stage has no
+downsampling; any other leaf is refused.
 """
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ import torch
 
 _WHISPER_TOP = {"encoder", "decoder"}
 _MINILM_TOP = {"embeddings", "blocks"}
+_MPNET_TOP = {"embeddings", "rel_bias", "blocks"}
+_HTSAT_TOP = {"batch_norm", "patch_embed", "norm", "proj", "stages"}
+_ROBERTA_TOP = {"embeddings", "blocks", "pooler", "proj"}
+_CLAP_TOWER_TOP = {"patch", "positions", "blocks", "ln", "pool_q", "proj"}
+_BRIDGE_TOP = {"layers", "feat_mean", "feat_std"}
 
 
 def tree_to_torch(tree):
@@ -32,6 +43,8 @@ def tree_to_torch(tree):
         return {k: tree_to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_to_torch(v) for v in tree]
+    if tree is None:
+        return None
     a = np.asarray(tree)
     if np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
@@ -73,3 +86,54 @@ def minilm_params(tree):
     torch tree, ready for ``TextEmbedder(params=...)``."""
     _check(tree, _MINILM_TOP, "MiniLM")
     return tree_to_torch(tree)
+
+
+def _float_params(tree, top: set[str], what: str):
+    """Check the top-level keys and that every leaf is a float array (or
+    None); -> the float32 torch tree."""
+    _check(tree, top, what)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+        elif t is not None:
+            dt = np.asarray(t).dtype
+            if not (np.issubdtype(dt, np.floating) or dt.name == "bfloat16"):
+                raise ValueError(f"{what} param tree: unexpected {dt} leaf "
+                                 f"at {path}")
+    walk(tree, "")
+    return tree_to_torch(tree)
+
+
+def mpnet_params(tree):
+    """A JAX MPNet tree (models/mpnet.py; numpy leaves) -> the port's
+    float32 torch tree, ready for ``TextEmbedder(model=mpnet)``."""
+    return _float_params(tree, _MPNET_TOP, "MPNet")
+
+
+def htsat_params(tree):
+    """A JAX HTSAT-Swin audio tower tree (models/clap_htsat.py) -> the
+    port's float32 torch tree."""
+    return _float_params(tree, _HTSAT_TOP, "HTSAT")
+
+
+def roberta_params(tree):
+    """A JAX CLAP RoBERTa text tower tree (models/clap_htsat.py) -> the
+    port's float32 torch tree."""
+    return _float_params(tree, _ROBERTA_TOP, "RoBERTa")
+
+
+def clap_tower_params(tree):
+    """A JAX v1 CLAP audio tower tree (models/clap.py) -> the port's
+    float32 torch tree."""
+    return _float_params(tree, _CLAP_TOWER_TOP, "CLAP audio tower")
+
+
+def bridge_params(tree):
+    """A JAX bridge MLP tree (models/bridge.py) -> the port's float32
+    torch tree."""
+    return _float_params(tree, _BRIDGE_TOP, "bridge")

@@ -35,6 +35,7 @@ COPIED = [
     "pipelines/streaming.py",
     "__main__.py",
     "audio/mp3.py",
+    "audio/clap_features.py",
 ]
 # the native loaders' build step: the port builds into its own _build/
 # under a per-process temporary name (os.replace into place), after
@@ -89,6 +90,28 @@ MEL_CONSTANTS = ["MEL_LOG_LO", "_MEL_CODE_SCALE", "MEL_REL_RANGE",
 INGEST_FUNCS = ["_mulaw_lut", "_pack_int12"]
 # the IVF bucket packing in index/ivf.py (numpy)
 IVF_FUNCS = ["pack_buckets"]
+# the secondary models' numpy halves and configs, by module: the CLAP
+# towers' configs, bicubic resize, static Swin geometry and HF
+# converters; the MFCC's DCT; the embedders' and towers' configs
+MODEL_DEFS = [
+    *(("models/clap_htsat.py", n) for n in (
+        "HTSATConfig", "RobertaConfig", "_cubic_weights", "bicubic_matrix",
+        "_relative_position_index", "_shift_mask", "_np", "_lin", "_ln",
+        "htsat_config_from_hf", "roberta_config_from_hf",
+        "convert_clap_audio", "convert_clap_text", "load_from_dir")),
+    ("ops/audio_features.py", "_dct_ortho"),
+    ("ops/audio_features.py", "FEATURE_DIM"),
+    ("models/mpnet.py", "MPNetConfig"),
+    ("models/mpnet.py", "PRESETS"),
+    ("models/minilm.py", "MiniLMConfig"),
+    ("models/minilm.py", "PRESETS"),
+    ("models/clap.py", "ClapConfig"),
+    ("models/bridge.py", "BridgeConfig"),
+]
+# the modules of ROADMAP A11, which the import scan must reach
+A11_MODULES = ["models/mpnet.py", "models/clap.py", "models/clap_htsat.py",
+               "models/bridge.py", "audio/clap_features.py",
+               "ops/audio_features.py", "pipelines/clap_ingest.py"]
 
 
 class _StripImports(ast.NodeTransformer):
@@ -157,7 +180,8 @@ def _top_level(p: pathlib.Path, name: str) -> str:
     """The function ``name`` of module ``p``, or the assignment that
     binds it, as a syntax tree."""
     for node in _parse(p).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and \
+                node.name == name:
             return ast.dump(node, include_attributes=False)
         if isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = node.targets if isinstance(node, ast.Assign) \
@@ -190,6 +214,11 @@ def test_ingest_encoders_match_original(name):
 @pytest.mark.parametrize("name", IVF_FUNCS)
 def test_ivf_host_functions_match_original(name):
     rel = "index/ivf.py"
+    assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
+
+
+@pytest.mark.parametrize("rel,name", MODEL_DEFS)
+def test_model_numpy_halves_match_original(rel, name):
     assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
 
 
@@ -231,6 +260,7 @@ def test_port_sources_never_import_jax():
     the transitive closure by running with jax blocked)."""
     srcs = _port_sources()
     assert ROOT / "tools" / "torch_bench_ivf.py" in srcs
+    assert {PORT_PKG / rel for rel in A11_MODULES} <= set(srcs)
     for p in srcs:
         assert _forbidden_imports(p) == [], p
 

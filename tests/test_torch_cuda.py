@@ -22,7 +22,8 @@ encoder variants K8-K11 as chip_smoke holds them (K8 relative to its
 output's scale, K9-K11 by the K1 check), at ragged T and K8's tile
 edges, K9, K1 and K10 at D = 384-1280, K1, K10 and K11's three forms on
 every cluster size they take, with planted faults and a cluster the card
-refuses, and the row division K9 and K11 share held to the true one;
+refuses, the row division K9 and K11 share held to the true one, and
+K9's launches on the same inputs bit-equal to each other;
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -851,6 +852,24 @@ def test_k9_widths_and_ragged_t(cuda, heads, t):
         chip_smoke.check_k1(f"K9 D={heads * 64} T={t} {inputs}", got,
                             EB.attention_o_residual_int8_plain(*args9),
                             residual)
+
+
+@pytest.mark.parametrize("heads", [6, 8])
+def test_k9_launches_repeat_bit_for_bit(cuda, heads):
+    """K9 at B=32, T=1500 on the attention input, 400 more launches on the
+    same inputs each bit-equal to the first (chip_smoke.check_repeats):
+    without the proxy fence before a stage's release, about 1 % of
+    launches read a refilled Wo stage in one warp's 16 rows."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    q, k, v, x, wo, bo = chip_smoke.k1_inputs(
+        torch.Generator().manual_seed(0), 32, 1500, heads, residual=False)
+    args9 = (q, *quantize_kv(k, v), x, wo, bo)
+    first = EB.attention_o_residual_int8(*args9)
+    assert chip_smoke.check_repeats(
+        f"K9 H={heads}", lambda: EB.attention_o_residual_int8(*args9),
+        first, 400) == 400
 
 
 @pytest.mark.parametrize("heads", [12, 16, 20])

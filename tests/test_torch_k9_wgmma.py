@@ -154,7 +154,9 @@ def emulate_k9(q, k8, ks, v8, vs, x, wo, bo, *, fault=None):
     (exp_m(s, m) / l) * vs (a true division's bits, as div_row gives), PV
     over the transposed tiles in the permuted
     order (``fault`` "mis-permuted V": the tile read in key order while
-    the codes stay permuted). Returns (out, p8 codes [B, H, T, T])."""
+    the codes stay permuted; "stale Wo tile": rows 16..31, columns 0..63
+    of the o-projection take the next Wo tile in place of the first).
+    Returns (out, p8 codes [B, H, T, T])."""
     f32 = torch.float32
     b, h, t, d = q.shape
     nt = -(-t // BN)
@@ -196,7 +198,16 @@ def emulate_k9(q, k8, ks, v8, vs, x, wo, bo, *, fault=None):
     vb = vp if fault == "mis-permuted V" else vp[:, :, perm]
     pv = (p8.double()[..., perm] @ vb).to(f32)
     out_h = (pv * ps).to(wo.dtype)            # into the merged bf16 tile
-    return EB._merge_o_residual(out_h.float(), x, wo, bo), p8[..., :t]
+    y = EB._merge_o_residual(out_h.float(), x, wo, bo)
+    if fault == "stale Wo tile":
+        # warp 1's rows (16..31) of the first query block, output columns
+        # 0..63: the stage of Wo tile [0:64, 0:64] refilled with the next
+        # tile [64:128, 0:64] under the warp's loads
+        wf = wo.clone()
+        wf[:BN, :BN] = wo[BN:2 * BN, :BN]
+        y[:, 16:32, :BN] = EB._merge_o_residual(out_h.float(), x, wf,
+                                                bo)[:, 16:32, :BN]
+    return y, p8[..., :t]
 
 
 def _inputs(rng, b, heads, t, d=64):
@@ -267,12 +278,15 @@ def test_k9_emulation_matches_plain_and_pallas(rng, b, heads, t):
                       <= TOL * np.abs(ref).max() + dy)
 
 
-@pytest.mark.parametrize("fault", [None, "mis-permuted V", "unmasked tail"])
+@pytest.mark.parametrize("fault", [None, "mis-permuted V", "unmasked tail",
+                                   "stale Wo tile"])
 def test_k1_check_rejects_k9_layout_faults(fault):
     """chip_smoke.check_k1 (K9's card check) at the main path's T=1500 on
     the attention input (B=2, H=8): the kernel's arithmetic passes; a V
-    tile read in key order against permuted codes, or the 36 zero-filled
-    keys of the last 64-key tile left unmasked, fails."""
+    tile read in key order against permuted codes, the 36 zero-filled
+    keys of the last 64-key tile left unmasked, or one warp's 16 rows x 64
+    columns of the o-projection over a Wo stage refilled whole with the
+    next tile, fails."""
     gen = torch.Generator().manual_seed(12)
     q, k, v, x, wo, bo = chip_smoke.k1_inputs(gen, 2, 1500, 8,
                                               residual=False, device="cpu")
@@ -284,3 +298,25 @@ def test_k1_check_rejects_k9_layout_faults(fault):
     else:
         with pytest.raises(AssertionError, match="attention term"):
             chip_smoke.check_k1(f"K9 {fault}", got, ref, residual=False)
+
+
+def test_repeat_check_rejects_a_launch_that_differs():
+    """The race a proxy fence before each stage's release closes: a Wo
+    stage refilled by TMA while a warp's last loads of it were in flight,
+    in one launch of many and over as many loads as were late, so
+    check_k1 sees only the larger cases. chip_smoke.check_repeats holds
+    every further launch on the same inputs bit-equal to the first: it
+    passes a deterministic kernel and rejects the one launch that raced."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, x, wo, bo = chip_smoke.k1_inputs(gen, 1, 300, 2,
+                                              residual=False, device="cpu")
+    kv = quantize_kv(k, v)
+    clean, _ = emulate_k9(q, *kv, x, wo, bo)
+    raced, _ = emulate_k9(q, *kv, x, wo, bo, fault="stale Wo tile")
+    assert not torch.equal(clean, raced)
+    assert chip_smoke.check_repeats("K9", lambda: clean.clone(), clean,
+                                    chip_smoke.K9_REPEATS) \
+        == chip_smoke.K9_REPEATS
+    outs = iter([clean, raced, clean])
+    with pytest.raises(AssertionError, match="launch 3 .* differs"):
+        chip_smoke.check_repeats("K9", lambda: next(outs), clean, 3)

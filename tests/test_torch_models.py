@@ -147,3 +147,81 @@ def test_random_init_is_seeded():
     torch.testing.assert_close(a["decoder"]["embed_tokens"],
                                b["decoder"]["embed_tokens"])
     assert tuple(a["encoder"]["conv1"]["w"].shape) == (3, 80, 64)
+
+
+def test_minilm_presets_match_jax():
+    """The port's MiniLM presets are JAX's, base768 and clip512_text
+    (the engine's clip-ViT-B-32-multilingual-v1 choice) included."""
+    assert sorted(M.PRESETS) == sorted(JM.PRESETS)
+    for name, cfg in JM.PRESETS.items():
+        assert M.PRESETS[name].__dict__ == cfg.__dict__, name
+    assert M.PRESETS["clip512_text"].type_vocab == 0
+    assert M.PRESETS["clip512_text"].vocab_size == 119_547
+
+
+@pytest.mark.parametrize("preset", ["base768", "clip512_text"])
+def test_wide_presets_match_jax(rng, preset):
+    """The 768-wide presets at their published geometry (12 layers, and
+    the 6-layer multilingual tower without token types) on JAX's init,
+    with a padded row."""
+    jcfg = JM.PRESETS[preset]
+    jp = JM.init_params(jax.random.PRNGKey(4), jcfg)
+    tp = weights.minilm_params(_np_tree(jp))
+    ids = rng.integers(0, jcfg.vocab_size, size=(2, 10)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, 6:] = 0
+    ref = JM.sentence_embed(jp, jnp.asarray(ids), jnp.asarray(mask), jcfg)
+    got = M.sentence_embed(tp, torch.from_numpy(ids).long(),
+                           torch.from_numpy(mask), M.PRESETS[preset])
+    assert got.shape == (2, 768)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5)
+
+
+def test_distilbert_mean_pool_and_projection(rng):
+    """clip-ViT-B-32-multilingual-v1's shape: a random-init HF
+    DistilBertModel converted by the port's convert_distilbert (no token
+    types) against HF and JAX; mean_pool and sentence_projection (plain
+    and tanh) against JAX's on the same projection."""
+    from transformers import DistilBertConfig, DistilBertModel
+
+    from multimodal_audio_search_tpu.models.convert import (
+        convert_distilbert as j_convert)
+    from multimodal_audio_search_tpu_torch.models.convert import (
+        convert_distilbert, distilbert_config_from_hf)
+    hf_cfg = DistilBertConfig(vocab_size=200, dim=48, n_layers=2, n_heads=4,
+                              hidden_dim=96, max_position_embeddings=40)
+    torch.manual_seed(0)
+    model = DistilBertModel(hf_cfg).eval()
+    cfg = distilbert_config_from_hf(hf_cfg)
+    assert cfg.type_vocab == 0
+    sd = model.state_dict()
+    tp = weights.minilm_params(convert_distilbert(sd, cfg))
+    jcfg = JM.MiniLMConfig(**cfg.__dict__)
+    jp = j_convert(sd, jcfg)
+    ids = rng.integers(0, 200, size=(3, 11))
+    mask = np.ones((3, 11), np.int64)
+    mask[1, 7:] = 0
+    with torch.inference_mode():
+        want = model(torch.from_numpy(ids),
+                     torch.from_numpy(mask)).last_hidden_state.numpy()
+        got = M.encode_tokens(tp, torch.from_numpy(ids),
+                              torch.from_numpy(mask), cfg).numpy()
+    jx = np.asarray(JM.encode_tokens(jp, jnp.asarray(ids),
+                                     jnp.asarray(mask), jcfg))
+    keep = mask.astype(bool)
+    np.testing.assert_allclose(got[keep], want[keep], atol=3e-5)
+    np.testing.assert_allclose(got[keep], jx[keep], atol=5e-5)
+
+    pooled = M.mean_pool(torch.from_numpy(got), torch.from_numpy(mask))
+    jpooled = JM.mean_pool(jnp.asarray(got), jnp.asarray(mask))
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(jpooled),
+                               atol=5e-5)
+    jproj = JL.init_dense(jax.random.PRNGKey(1), cfg.hidden, 16)
+    proj = weights.tree_to_torch(_np_tree(jproj))
+    for tanh in (False, True):
+        z = M.sentence_projection(proj, pooled, tanh=tanh).numpy()
+        jz = np.asarray(JM.sentence_projection(jproj, jpooled, tanh=tanh))
+        assert z.shape == (3, 16)
+        np.testing.assert_allclose(z, jz, atol=5e-5)
+        np.testing.assert_allclose(np.linalg.norm(z, axis=-1), 1.0,
+                                   atol=1e-5)

@@ -10,7 +10,9 @@ data root, a missing token while one is set, a full queue). Status codes
 must be identical, and the JSON bodies the same once timing fields, ids
 and data-root paths are taken out: texts identical, top-10 indices
 identical (rows with the same texts may trade places), scores within
-2e-5; an error's message is only required to be there."""
+2e-5; an error's message is only required to be there. POST /api/config
+with each embedder choice answers 200 on both servers, which then
+ingest and search alike."""
 import csv
 import io
 import json
@@ -27,6 +29,7 @@ from multimodal_audio_search_tpu.service import server as jserver
 from multimodal_audio_search_tpu_torch.audio.wav import write_wav
 from multimodal_audio_search_tpu_torch.index.strategies import STRATEGIES
 from multimodal_audio_search_tpu_torch.service import server as tserver
+from tests.test_torch_service_engine import EMBEDDERS, _cfg, carry_inits
 from tests.test_torch_slice import SR, _make_engines, _pieces
 
 torch.set_num_threads(1)
@@ -43,8 +46,8 @@ MESSAGES = {"error"}
 class Pair:
     """One JAX and one port server; ``call`` sends a request to both."""
 
-    def __init__(self, tmp_path_factory):
-        self.engines = _make_engines()
+    def __init__(self, tmp_path_factory, engines=None):
+        self.engines = engines or _make_engines()
         self.servers, self.roots = [], []
         for mod, eng in zip((jserver, tserver), self.engines):
             root = tmp_path_factory.mktemp("root")
@@ -304,3 +307,38 @@ def test_metrics_stats_and_profile(pair):
     assert str(trace).startswith(str(pair.roots[1].resolve()))
     assert any(f.name == "trace.json" and f.stat().st_size for f in files)
     assert out["hits"] >= 1
+
+
+@pytest.mark.parametrize("name", EMBEDDERS[:2])
+def test_config_embedder_over_http(tmp_path_factory, tmp_path, monkeypatch,
+                                   name):
+    """POST /api/config {"embedder": ...} rebuilds both engines (200, the
+    new embed_dim, an empty index); an upload and searches then agree,
+    each text's query ranking a row with that text first; then back to
+    MiniLM-L6."""
+    from multimodal_audio_search_tpu import AudioSearchEngine as JEngine
+    from multimodal_audio_search_tpu import config as jcfg
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    from multimodal_audio_search_tpu_torch import config as tcfg
+    carry_inits(monkeypatch)
+    p = Pair(tmp_path_factory, (JEngine(cfg=_cfg(jcfg)),
+                                AudioSearchEngine(cfg=_cfg(tcfg),
+                                                  device="cpu")))
+    try:
+        body = p.same("/api/config", json.dumps({"embedder": name}).encode(),
+                      headers={"Content-Type": "application/json"})
+        assert body["embedder"] == name
+        assert body["embed_dim"] == p.engines[1].embedder.dim != 64
+        assert p.same("/api/segments")["total"] == 0
+        segs = p.same("/api/ingest?name=e.wav", _wav(tmp_path, 25, 4))
+        texts = [s["asr_text"] for s in segs["segments"]]
+        assert len(set(texts)) > 1
+        for t in set(texts):         # a row with the queried text first
+            hits = p.same(f"/api/search?q={_q(t)}")["results"]
+            assert hits[0]["asr_text"] == t
+        p.same("/api/search?q=upbeat%20music%20with%20drums")
+        body = p.same("/api/config", json.dumps(
+            {"embedder": EMBEDDERS[2]}).encode())
+        assert body["embed_dim"] == 384
+    finally:
+        p.shutdown()

@@ -2,8 +2,12 @@
 on the CPU at toy widths and the same weights (tests/test_torch_slice.py
 ::_make_engines): ingest_many with a broken file, transcribe_long,
 search_strategy, search_combined, delete_source (and a delete followed by
-an ingest of equal size), reconfigure/describe_config and the refusal of
-the unported choices, load_all_models(warmup=True)."""
+an ingest of equal size), reconfigure/describe_config under every
+transfer and every embedder choice (MiniLM-L6, all-mpnet-base-v2 and the
+clip-ViT-B-32-multilingual-v1 text tower, at small widths put into both
+packages' presets; engines built from their configs alone hold the same
+weights through carry_inits), load_all_models(warmup=True)."""
+import jax
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,65 @@ from tests.test_torch_slice import SR, _make_engines, _pieces
 
 torch.set_num_threads(1)
 QUERIES = ["upbeat music with drums", "someone speaking clearly"]
+EMBEDDERS = ["all-mpnet-base-v2", "clip-ViT-B-32-multilingual-v1",
+             "all-MiniLM-L6-v2"]
+# the embedder choices' presets at test width (max_positions above the
+# 64 tokens + 1 the hash tokenizer's id-0 padding reaches in MPNet)
+SMALL_MPNET = dict(vocab_size=512, hidden=32, layers=2, heads=4,
+                   intermediate=128, max_positions=80)
+SMALL_CLIP = dict(vocab_size=600, hidden=48, layers=2, heads=4,
+                  intermediate=96, type_vocab=0)
+
+
+def small_embedder_presets(monkeypatch):
+    """mpnet "base" and minilm "clip512_text" at test width, in both
+    packages' PRESETS (the engine's EMBEDDER_CHOICES name them)."""
+    from multimodal_audio_search_tpu.models import minilm as jml
+    from multimodal_audio_search_tpu.models import mpnet as jmp
+    from multimodal_audio_search_tpu_torch.models import minilm as tml
+    from multimodal_audio_search_tpu_torch.models import mpnet as tmp
+    for mod in (jmp, tmp):
+        monkeypatch.setitem(mod.PRESETS, "base",
+                            mod.MPNetConfig(**SMALL_MPNET))
+    for mod in (jml, tml):
+        monkeypatch.setitem(mod.PRESETS, "clip512_text",
+                            mod.MiniLMConfig(**SMALL_CLIP))
+
+
+def carry_inits(monkeypatch):
+    """small_embedder_presets, and the port's random inits (Whisper,
+    MiniLM, MPNet) replaced by the JAX package's from the same seed,
+    carried by weights.py; Whisper's matrices scaled by 3 in both (at the
+    stock 0.02 the toy decoders give every segment one text). Engines
+    built from their configs alone then hold the same weights."""
+    from multimodal_audio_search_tpu.models import minilm as jml
+    from multimodal_audio_search_tpu.models import mpnet as jmp
+    from multimodal_audio_search_tpu.models import whisper as jw
+    from multimodal_audio_search_tpu_torch import weights
+    from multimodal_audio_search_tpu_torch.models import minilm as tml
+    from multimodal_audio_search_tpu_torch.models import mpnet as tmp
+    from multimodal_audio_search_tpu_torch.models import whisper as tw
+    small_embedder_presets(monkeypatch)
+    jw_init = jw.init_params
+
+    def jw_scaled(key, cfg):
+        return jax.tree.map(lambda a: a * 3.0 if a.ndim == 2 else a,
+                            jw_init(key, cfg))
+
+    def carried(jinit, jcfg, carry):
+        def init(gen, cfg):
+            tree = jinit(jax.random.PRNGKey(gen.initial_seed()),
+                         jcfg(**cfg.__dict__))
+            return carry(jax.tree.map(np.asarray, tree))
+        return init
+
+    monkeypatch.setattr(jw, "init_params", jw_scaled)
+    monkeypatch.setattr(tw, "init_params", carried(
+        jw_scaled, jw.WhisperConfig, weights.whisper_params))
+    monkeypatch.setattr(tml, "init_params", carried(
+        jml.init_params, jml.MiniLMConfig, weights.minilm_params))
+    monkeypatch.setattr(tmp, "init_params", carried(
+        jmp.init_params, jmp.MPNetConfig, weights.mpnet_params))
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +266,8 @@ def _cfg(mod):
         caption_decode=mod.DecodeConfig(max_new_tokens=3))
 
 
-def test_reconfigure_and_describe_config(rng):
+def test_reconfigure_and_describe_config(rng, monkeypatch):
+    small_embedder_presets(monkeypatch)
     jeng = JEngine(cfg=_cfg(jcfg), keep_audio=False)
     teng = AudioSearchEngine(cfg=_cfg(tcfg), keep_audio=False, device="cpu")
     assert teng.describe_config() == jeng.describe_config()
@@ -221,12 +285,31 @@ def test_reconfigure_and_describe_config(rng):
             [s["start_time"] for s in jsegs] and len(tsegs) == 2
         assert teng.ingest_pipeline.last_transfer_resolved == t
         assert len(teng.store) == 2 and teng.search("tok")[0]
-    # the unported embedders raise before any engine state changes
+    # every embedder choice builds, as in JAX: the index resets to its
+    # width, and the new engine ingests
+    for name in EMBEDDERS[:2]:
+        old = teng._ingest
+        got = teng.reconfigure(embedder=name, segment_seconds=1.5)
+        assert got == jeng.reconfigure(embedder=name, segment_seconds=1.5)
+        assert got["embedder"] == name and len(teng.store) == 0
+        assert got["embed_dim"] == teng.embedder.dim == \
+            teng.store.embed_dim and teng._ingest is not old
+        assert [s["start_time"] for s in teng.ingest_waveform(
+            wave, SR, "w")] == [s["start_time"] for s in
+                                jeng.ingest_waveform(wave, SR, "w")]
+    # an embedder that fails to build raises, and the engine keeps its
+    # state (the build comes before the commit)
+    from multimodal_audio_search_tpu_torch.models import mpnet as tmp
+
+    def broken(gen, cfg):
+        raise RuntimeError("no memory for this embedder")
+    monkeypatch.setattr(tmp, "init_params", broken)
+    teng.reconfigure(embedder=EMBEDDERS[1])
     state = (teng.cfg, teng._ingest, teng.store, len(teng.store))
-    for name in ("all-mpnet-base-v2", "clip-ViT-B-32-multilingual-v1"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            teng.reconfigure(embedder=name, segment_seconds=1.5)
-        assert (teng.cfg, teng._ingest, teng.store, len(teng.store)) == state
+    with pytest.raises(RuntimeError, match="no memory"):
+        teng.reconfigure(embedder=EMBEDDERS[0], segment_seconds=1.5)
+    assert (teng.cfg, teng._ingest, teng.store, len(teng.store)) == state
+    jeng.reconfigure(embedder=EMBEDDERS[1])
     # values outside the choices are a ValueError, as in JAX
     for bad in (dict(segment_seconds=99), dict(asr_preset="nope"),
                 dict(transfer_dtype="int9"), dict(embedder="x")):
@@ -242,6 +325,28 @@ def test_reconfigure_and_describe_config(rng):
         assert len(teng.store) == 0 and teng._ingest is not state[1]
     assert teng.describe_config()["embed_dim"] == 384
     assert teng.cfg.segment.segment_seconds == 1.5
+
+
+@pytest.mark.parametrize("name", EMBEDDERS)
+def test_reconfigured_embedder_engine_matches_jax(monkeypatch, tmp_path,
+                                                  name):
+    """Each embedder choice, reached by reconfigure from a default-built
+    engine: the same describe_config and embed_dim as JAX, and after an
+    ingest identical segments and texts and the same top-10 for each
+    query (MPNet's position ids count the hash tokenizer's id-0 padding
+    as tokens, as JAX's do)."""
+    carry_inits(monkeypatch)
+    jeng = JEngine(cfg=_cfg(jcfg), keep_audio=False)
+    teng = AudioSearchEngine(cfg=_cfg(tcfg), keep_audio=False, device="cpu")
+    got = teng.reconfigure(embedder=name)
+    assert got == jeng.reconfigure(embedder=name) == teng.describe_config()
+    assert got["embedder"] == name and len(teng.store) == 0
+    assert got["embed_dim"] == jeng.embedder.dim == teng.embedder.dim
+    segs = _ingest_both(jeng, teng, _wav(tmp_path, "e.wav", 25, 4), "e.wav")
+    assert len(segs) == len(teng.store) == len(jeng.store) > 1
+    assert len({s["asr_text"] for s in segs}) > 1
+    for q in _queries(teng):
+        _same_hits(teng.search(q)[0], jeng.search(q)[0])
 
 
 def test_load_all_models_warmup(rng):

@@ -670,11 +670,9 @@ def test_device_policy():
 
 
 @pytest.mark.parametrize("change", [
-    dict(text_embedder=tcfg.ModelSpec(family="minilm", preset="base768")),
     dict(asr_model=tcfg.ModelSpec(family="whisper", preset="test",
                                   quantize_decoder=True),
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
-    dict(text_embedder=tcfg.ModelSpec(family="mpnet", preset="test")),
     dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
     dict(data_parallel=2),
@@ -732,6 +730,35 @@ def test_port_runs_without_jax():
         assert isinstance(longform.transcribe_long(asr, x[: 16000 * 5]),
                           str)
         assert server.serve and cli.main and len(eng.store) >= 1
+        # the secondary models (ROADMAP A11) at toy widths
+        from multimodal_audio_search_tpu_torch.audio import clap_features
+        from multimodal_audio_search_tpu_torch.models import (
+            bridge, clap, clap_htsat, mpnet)
+        from multimodal_audio_search_tpu_torch.ops import audio_features
+        from multimodal_audio_search_tpu_torch.pipelines import clap_ingest
+        m = mpnet.MPNetConfig(vocab_size=300, hidden=32, layers=1, heads=2,
+                              intermediate=64, max_positions=80)
+        e = TextEmbedder(cfg=m, model=mpnet, device="cpu")(["a b", "c"])
+        cs = clap_ingest.ClapSearch(
+            acfg=clap.ClapConfig(embed_dim=16, d_model=16, layers=1,
+                                 heads=2, ffn=32),
+            tcfg=PRESETS["test"], chunk_seconds=2.0, device="cpu")
+        cs.ingest_waveform(x[: 16000 * 5].astype(np.float32), 16000)
+        ac = clap_htsat.HTSATConfig(
+            num_mel_bins=16, spec_size=64, patch_embed_dim=16, depths=(2, 2),
+            num_heads=(2, 4), window_size=4, hidden_size=32,
+            projection_dim=24)
+        za = clap_htsat.audio_embed(
+            clap_htsat.init_audio_params(torch.Generator(), ac),
+            torch.zeros(1, 1, 100, 16), ac)
+        fm = clap_features.clap_log_mel(x[:48000])
+        f = audio_features.audio_feature_vector(
+            torch.from_numpy(x[: 16000 * 2].astype(np.float32))[None],
+            MelConfig(padded_seconds=2.0))
+        zb = bridge.apply(bridge.init_params(torch.Generator()), f)
+        assert e.shape == (2, 32) and len(cs.search("a")) == 3
+        assert za.shape == (1, 24) and fm.shape == (1001, 64)
+        assert zb.shape == (1, 384)
         assert "jax" not in {m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None}
         print("OK", len(segs), len(hits))

@@ -1,0 +1,53 @@
+"""Run chosen phases of chip_smoke.py alone on one CUDA card.
+
+    python3 tools/torch_smoke_phases.py search,embedders,clap,service
+
+Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
+and runs, in this order, each named phase: ``search`` (K12 and K13
+against their plain versions, K12 also at D=768), ``embedders`` and
+``clap`` (the secondary models at published widths) and ``service`` (the
+HTTP surface, after the ``[audio]`` phase that makes its uploads). Each
+phase prints its lines as in chip_smoke.py and raises on a failed check;
+the wall seconds of each phase follow it.
+"""
+import os
+import sys
+import time
+
+import numpy as np
+
+PHASES = ("search", "embedders", "clap", "service")
+
+
+def main(names: list[str]) -> int:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as C
+    from multimodal_audio_search_tpu_torch import runtime
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; "
+                         f"choose from {PHASES}")
+    card = C.card_line()
+    print(card, flush=True)
+    runtime.select_device("cuda")
+    runtime.kernels()
+    rng = np.random.default_rng(0)
+    clips = [("long.wav", C.make_audio(320, rng)),
+             ("short.wav", C.make_audio(25, rng))]
+    run = {"search": lambda: C.search_kernel_phase(card),
+           "embedders": lambda: C.embedders_phase(card, clips),
+           "clap": lambda: C.clap_phase(card, clips),
+           "service": lambda: C.service_phase(card, rng, C.audio_phase(
+               card, np.random.default_rng(1))["uploads"])}
+    for name in PHASES:
+        if name in names:
+            t0 = time.time()
+            run[name]()
+            print(f"== {name} {time.time() - t0:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1].split(",") if len(sys.argv) > 1
+                  else list(PHASES)))
