@@ -28,7 +28,9 @@ Phases, one line each (``[phase] ...``):
    (whisper-tiny), each on a residual input and on two inputs that
    isolate the attention term (K1_CASES), with its cluster plan; K2
    cross at B=32, T=1500, H=8 and K2 self at B=32, L=68, pos in {0, 3,
-   67}; K3 and K3-q at B=32, L=68, pos in K3_POS, K4 and K4-o at B=32,
+   67}; K3 and K3-q at B=32, L=68, pos in K3_POS (each case launched
+   K3_REPEATS more times, every launch bit-equal to the first), K4 and
+   K4-o at B=32,
    each at both model widths, on inputs whose block term dominates the
    output (DELTA_MAX); K5 (int8 weights) at the (M, K, N) of a decode
    step's dense layers, the tied logits and the cross K/V projection
@@ -179,6 +181,23 @@ Phases, one line each (``[phase] ...``):
    with one row over 10 s, the text tower's ms; card vs CPU within
    CLAP_ATOL / EMBED_ATOL).
 
+11. the mesh's data and DCN axes (``[mesh]``, after 9; no kernel of its
+   own: the sharded search scores in plain torch, as the JAX package's
+   does): mesh_search_check on the [ann] data (1M segments, D=384,
+   float32) over MESH_DP shards, the card named MESH_DP times -- the
+   exact sharded search = the unsharded scan (ids, valid, num_valid;
+   scores within K12_ATOL) with both p50s, the sharded IVF (full probe
+   = exact, recall@10 at n_probe MESH_PROBE, build seconds), and in an
+   NCCL group of one process (a FileStore) the two-stage hierarchical
+   top-k and IVF = the flat results; then mesh_ingest_check: the
+   default config through make_default_ingest(cfg, mesh=...) over
+   MESH_INGEST_DP chunks on the 25 s clip against the same config
+   without a mesh (K1/K2 as expected_launches of the chunks, the same
+   segments, the encoder within ENC_MEAN_ERR_MAX, tokens equal except on
+   rows within the logits' margin, counted; top-10 of the sharded and
+   the unsharded searcher identical), and the device indices the
+   kernel library was set up on.
+
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
@@ -228,6 +247,10 @@ K1_Y_MAX, K1_Y_L2 = 1e-2, 7e-3
 # stages were once refilled under loads still in flight, in ~1 % of
 # launches; tools/torch_kernel_repeat.py takes 2000 a width)
 K9_REPEATS = 16
+# K3's and K3-q's launches a case beyond the first, held so too: their
+# warps read the weight ring's tiles with ldmatrix and hand a slot back
+# to TMA, the pattern that raced in K9 before its proxy fence
+K3_REPEATS = 16
 # (label, q scale, residual)
 K1_CASES = (("residual", 1.0, True), ("attention", 1.0, False),
             ("peaked", 3.0, False))
@@ -715,6 +738,13 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
                 case = {"shape": f"{label} B={b} D={d} H={heads} L={l} "
                                  f"pos={pos}",
                         **check_k3(f"{key} {label} pos={pos}", got, ref, x)}
+
+                def flat(outs):
+                    return torch.cat([t.reshape(-1).float() for t in outs])
+                case["repeats_equal"] = check_repeats(
+                    f"{key} {label} pos={pos}",
+                    lambda: flat(fused(*args, kc.clone(), vc.clone(), pos,
+                                       heads=heads)), flat(got), K3_REPEATS)
                 if pos == K3_POS[-1]:
                     fn = (lambda: fused(*args, kc, vc, pos, heads=heads))
                     case.update(
@@ -3742,6 +3772,331 @@ def clap_phase(card: str, clips, device: str = "cuda",
     return {"htsat_tower_ms": tower_ms, "text_ms": text_ms}
 
 
+# ------------------------------------------------------------------ [mesh]
+# the data axis of the [mesh] phase's searches, and its ingest's
+MESH_DP, MESH_INGEST_DP = 4, 2
+MESH_QUERIES = 16
+MESH_PROBE = 8
+
+
+def _wall_ms(fn, dev) -> tuple[float, object]:
+    """(host milliseconds of one call, the device synchronized after it;
+    its result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _same_out(name, got: dict, ref: dict, tol: float = K12_ATOL) -> float:
+    """A sharded search's result dict against the unsharded one's: the
+    same indices, valid flags and num_valid, scores within ``tol``.
+    Returns max |score err|."""
+    for key in ("indices", "valid", "num_valid"):
+        if not torch.equal(got[key].cpu(), ref[key].cpu()):
+            raise AssertionError(f"{name}: {key} {got[key].tolist()} != "
+                                 f"{ref[key].tolist()}")
+    err = float((got["scores"].cpu() - ref["scores"].cpu()).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |score err| {err:.3e} > {tol}")
+    return err
+
+
+def mesh_search_check(card: str, emb, success, qs, devices) -> dict:
+    """The sharded search paths on one data shard a device of ``devices``
+    (one card named several times, several cards, or the CPU) against the
+    unsharded exact scan of the same index on ``devices[0]``, for every
+    query of ``qs``: the exact sharded search (indices, valid, num_valid
+    identical, scores within K12_ATOL), the sharded IVF (a full probe
+    equal to exact; recall@10 at n_probe MESH_PROBE and the build's
+    seconds), then, inside a one-process group (NCCL on the card, Gloo
+    on the CPU; a FileStore in a temporary directory), the two-stage
+    hierarchical top-k and IVF over a (dcn 1, data len(devices)) mesh
+    equal to the flat results. Prints one line a step; raises on a
+    failed check."""
+    import tempfile
+    import torch.distributed as dist
+    from multimodal_audio_search_tpu_torch.index.fusion import fused_topk
+    from multimodal_audio_search_tpu_torch.index.ivf import (
+        build_ivf_sharded, sharded_ivf_search_impl)
+    from multimodal_audio_search_tpu_torch.parallel import distributed as D
+    from multimodal_audio_search_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_audio_search_tpu_torch.parallel.sharding import (
+        shard_index, sharded_fused_search_impl)
+    recall = load_tool("torch_bench_ivf").recall
+    w = (0.6, 0.4)
+    k = 10
+    dev, dp = torch.device(devices[0]), len(devices)
+    mesh = make_mesh(dp, devices=devices)
+    e_full = torch.from_numpy(emb).to(dev)
+    ok_full = torch.from_numpy(success).to(dev)
+    e_sh, ok_sh = shard_index(mesh, emb, success)
+    q_d = torch.from_numpy(qs).to(dev)
+    sharded = sharded_fused_search_impl(mesh, k=k)
+    flat_ms, sh_ms, refs, errs = [], [], [], []
+    for qi, q in enumerate(q_d):
+        t, ref = _wall_ms(lambda: fused_topk(q, e_full, ok_full, *w, k=k),
+                          dev)
+        flat_ms.append(t)
+        t, got = _wall_ms(lambda: sharded(q, e_sh, ok_sh, *w), dev)
+        sh_ms.append(t)
+        errs.append(_same_out(f"[mesh] exact q{qi}", got, ref))
+        refs.append(ref)
+    out = {"rows": len(emb), "dim": emb.shape[-1], "dp": dp,
+           "queries": len(qs), "exact_max_score_err": max(errs),
+           "exact_p50_ms": float(np.median(flat_ms[1:])),
+           "sharded_p50_ms": float(np.median(sh_ms[1:]))}
+    phase("mesh", card=card, step="exact sharded = exact", **out)
+    # ---- sharded IVF over the same shards
+    t0 = time.perf_counter()
+    layout = build_ivf_sharded(emb, success, dp, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    placed = layout.place(mesh.data_devices())
+    full = sharded_ivf_search_impl(mesh, layout, k=k,
+                                   n_probe=layout.n_clusters)
+    probe = sharded_ivf_search_impl(mesh, layout, k=k, n_probe=MESH_PROBE)
+    rec, ivf_ms = [], []
+    for qi, (q, ref) in enumerate(zip(q_d, refs)):
+        got = full(q, *placed, e_sh, ok_sh, *w)
+        keep = ref["scores"] > -1e29
+        if not torch.equal(got["indices"][keep].cpu(),
+                           ref["indices"][keep].cpu()) or float(
+                (got["scores"][keep] - ref["scores"][keep]).abs().max()
+                if keep.any() else 0.0) > K12_ATOL:
+            raise AssertionError(f"[mesh] IVF full probe q{qi}: "
+                                 f"{got['indices'].tolist()} != "
+                                 f"{ref['indices'].tolist()}")
+        t, got = _wall_ms(lambda: probe(q, *placed, e_sh, ok_sh, *w), dev)
+        ivf_ms.append(t)
+        rec.append(recall(got["indices"].cpu().numpy(),
+                          got["scores"].cpu().numpy(),
+                          ref["indices"].cpu().numpy(),
+                          ref["scores"].cpu().numpy(), k))
+    ivf = {"build_s": build_s, "n_clusters": layout.n_clusters,
+           "spill_per_shard": [int((s >= 0).sum()) for s in layout.spill],
+           "n_probe": MESH_PROBE, "recall_at_10": float(np.mean(rec)),
+           "p50_ms": float(np.median(ivf_ms[1:]))}
+    phase("mesh", card=card, step="sharded IVF", **ivf)
+    # ---- the two stages, the second over a process group
+    hier = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        D.initialize(init_method=f"file://{tmp}/pg", world_size=1, rank=0,
+                     device=dev)
+        try:
+            dmesh = D.make_dcn_mesh(dcn=1, ici_data=dp, devices=devices)
+            de, dok = D.shard_index_dcn(dmesh, emb, success)
+            topk = D.hierarchical_sharded_topk(dmesh, k=k)
+            hivf = D.hierarchical_sharded_ivf(dmesh, layout, k=k,
+                                              n_probe=layout.n_clusters)
+            for qi, (q, ref) in enumerate(zip(q_d, refs)):
+                keep = ref["scores"] > -1e29
+                for name, (s, i) in (("top-k", topk(q, de, dok, *w)), (
+                        "IVF", hivf(q, *placed, de, dok, *w))):
+                    if not torch.equal(i[keep].cpu(),
+                                       ref["indices"][keep].cpu()) or \
+                            float((s[keep] - ref["scores"][keep]).abs()
+                                  .max()) > K12_ATOL:
+                        raise AssertionError(
+                            f"[mesh] hierarchical {name} q{qi}: "
+                            f"{i.tolist()} != {ref['indices'].tolist()}")
+            hier = {"backend": dist.get_backend(),
+                    "world": dist.get_world_size(),
+                    "mesh": dmesh.shape, "queries": len(qs)}
+        finally:
+            dist.destroy_process_group()
+    phase("mesh", card=card, step="hierarchical = flat", **hier)
+    return {"exact": out, "ivf": ivf, "hierarchical": hier}
+
+
+def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """Replay a greedy decode's own tokens through the decoder (the
+    pipeline's decode config and logits rules) and return, a row, the
+    smallest top-2 margin of the processed logits over the steps that
+    chose a token, less LOGITS_ERR_REL of that step's largest |logit|: a
+    row whose value is <= 0 had a step where a rounding of the kernels'
+    size could flip the greedy choice."""
+    from multimodal_audio_search_tpu_torch.models import generate as G
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    cfg, dev = pipe.cfg, enc.device
+    b, total = tokens.shape
+    p = len(pipe.prefix_ids)
+    ckv = G._select_cross_kv(pipe.params, enc, cfg, pipe.decode)
+    cache = W.init_cache(cfg, b, total, enc.dtype, dev)
+    ar = torch.arange(total, device=dev)
+    worst = torch.full((b,), float("inf"), device=dev)
+    last = p - 1 + int(lengths.max())
+    for pos in range(min(total - 1, last)):
+        logits = W.decode_step(pipe.params, tokens[:, pos], pos, cache, ckv,
+                               cfg, fused_layer=pipe.decode.fused_layer)
+        if pos < p - 1:
+            continue
+        seen = tokens.masked_fill(ar[None, :] > pos, cfg.pad_token_id)
+        logits = G.apply_repetition_penalty(
+            logits, seen, (ar <= pos)[None, :].expand(b, total),
+            pipe.decode.repetition_penalty)
+        logits = G.ban_repeated_ngrams(
+            logits, seen, torch.full((b,), pos + 1, device=dev),
+            pipe.decode.no_repeat_ngram_size)
+        top2 = logits.float().topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1] - LOGITS_ERR_REL * \
+            logits.float().abs().max(dim=-1).values
+        live = pos - (p - 1) < lengths
+        worst = torch.where(live, torch.minimum(worst, margin), worst)
+    return worst
+
+
+def _ingest_batch(ing, wave: np.ndarray):
+    """The first batch process_waveform makes of ``wave`` (at 16 kHz):
+    (its segments' count, the batch's codes in a host tensor, the
+    transfer, the segment length)."""
+    from multimodal_audio_search_tpu_torch.audio.segment import (
+        peak_scale, segment_windows)
+    from multimodal_audio_search_tpu_torch.utils.batching import bucket_pow2
+    cfg = ing.cfg
+    scale = np.float32(peak_scale(wave, cfg.audio))
+    wins = segment_windows(len(wave), SR, cfg.segment)[: cfg.ingest_batch]
+    waves = [wave[w.start_sample: w.start_sample + w.length] for w in wins]
+    seg_len = min(int(cfg.segment.segment_seconds * SR),
+                  ing.asr.mel_cfg.n_samples)
+    b = bucket_pow2(len(waves), ing.asr.batch_floor())
+    transfer = ing.last_transfer_resolved or cfg.transfer_dtype
+    q = ing._encode_transfer(waves, b, seg_len, scale, transfer)
+    return len(waves), q, transfer, seg_len
+
+
+def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices) -> dict:
+    """The data-parallel ingest: make_default_ingest(cfg, mesh=m) over
+    ``devices`` (one card named twice on the card) against the same
+    config without a mesh on devices[0], both ingesting ``wave``. The
+    split engine's K1/K2 launches equal expected_launches for its chunks
+    (its dispatches count one a chunk); its segments (ids, times) equal
+    the unsplit one's; on the first batch, the chunks' encoder outputs
+    are within ENC_MEAN_ERR_MAX of the whole batch's (mean |err|) and, in
+    both Whisper models, a row's tokens differ only where the unsplit
+    decode had a step with a top-2 margin within LOGITS_ERR_REL of its
+    logits (decode_margins; such rows are counted, and the texts follow
+    the tokens); the own-segment query and ANN_QUERIES give identical
+    top-10 ids from a sharded and an unsharded searcher over the split
+    engine's store."""
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.index.search import FusionSearcher
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        make_default_ingest)
+    dev = torch.device(devices[0])
+    mesh = make_mesh(len(devices), devices=devices)
+    engines, counts = {}, {}
+    for label, m in (("split", mesh), ("whole", None)):
+        ing = make_default_ingest(cfg, seed=0, device=dev, mesh=m)
+        eng = AudioSearchEngine(cfg=cfg, ingest_pipeline=ing, device=dev)
+        asr, cap = ing.asr, ing.caption
+        runtime.reset_counts()
+        steps0 = (asr.total_steps, cap.total_steps)
+        disp0 = (asr.dispatches, cap.dispatches)
+        segs = eng.ingest_waveform(wave, SR, "mesh.wav")
+        counts[label] = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+        disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+        exp = expected_launches(False, None, steps, disp, asr, cap)
+        if dev.type == "cuda" and (counts[label] != exp or not all(
+                counts[label][k] > 0 for k in exp if exp[k])):
+            raise AssertionError(f"[mesh] {label} ingest: launches "
+                                 f"{counts[label]} != {exp}")
+        engines[label] = (eng, segs, disp, exp)
+    (eng, segs, disp, exp), (eng1, segs1, _, _) = engines["split"], \
+        engines["whole"]
+    keys = ("segment_id", "start_time", "end_time", "duration")
+    if [[s[k] for k in keys] for s in segs] != \
+            [[s[k] for k in keys] for s in segs1]:
+        raise AssertionError("[mesh] split ingest: segments differ")
+    # ---- the first batch, decoded whole and split
+    ing, ing1 = eng.ingest_pipeline, eng1.ingest_pipeline
+    n, q, transfer, seg_len = _ingest_batch(ing1, wave)
+    chunks = torch.chunk(q, len(devices))
+    rows = {}
+    with torch.inference_mode():
+        mel1 = ing1._device_mel(q.to(dev), transfer, seg_len)
+        mels = [ing._device_mel(c.to(d), transfer, seg_len)
+                for c, d in zip(chunks, mesh.data_devices())]
+        for name in ("asr", "caption"):
+            p1, p2 = getattr(ing1, name), getattr(ing, name)
+            enc1 = W.encode(p1.params, mel1.to(p1.dtype), p1.cfg,
+                            fused_blocks=p1.fused_encoder_resolved)
+            enc2 = torch.cat([W.encode(r, m.to(p2.dtype), p2.cfg,
+                                       fused_blocks=p2.fused_encoder_resolved)
+                              .to(dev) for r, m in zip(p2._replicas, mels)])
+            enc_err = float((enc1.float() - enc2.float()).abs().mean())
+            t1, l1 = p1.dispatch_mel(mel1)
+            t2, l2 = p2.dispatch_mel(mels)
+            margin = decode_margins(p1, enc1, t1, l1)[:n]
+            close = margin <= 0
+            differ = (t1[:n] != t2[:n]).any(dim=1) | (l1[:n] != l2[:n])
+            if enc_err > ENC_MEAN_ERR_MAX or bool((differ & ~close).any()):
+                raise AssertionError(
+                    f"[mesh] {name}: encoder mean |err| {enc_err:.3e} "
+                    f"(limit {ENC_MEAN_ERR_MAX}); rows whose tokens differ "
+                    f"{differ.tolist()}, rows within the margin "
+                    f"{close.tolist()}")
+            rows[name] = {"encoder_mean_abs_err": enc_err,
+                          "rows": n, "rows_within_margin": int(close.sum()),
+                          "rows_differing": int(differ.sum()),
+                          "min_margin": float(margin.min())}
+    texts_equal = sum(a["asr_text"] == b["asr_text"] and
+                      a["audio_description"] == b["audio_description"]
+                      for a, b in zip(segs, segs1))
+    # ---- sharded and unsharded searchers over the split engine's store
+    meta = eng.store.meta
+    queries = [meta[own_segment(meta, range(len(meta)))]["asr_text"],
+               *ANN_QUERIES]
+    tops = []
+    for qt in queries:
+        hits = [[h["index"] for h in FusionSearcher(
+            eng.store, ing.embedder, cfg=cfg.fusion, mesh=m)(qt)[0]]
+            for m in (mesh, None)]
+        if hits[0] != hits[1]:
+            raise AssertionError(f"[mesh] searcher {qt!r}: sharded "
+                                 f"{hits[0]} != unsharded {hits[1]}")
+        tops.append(hits[0])
+    out = {"dp": len(devices), "segments": len(segs),
+           "texts_equal": texts_equal, "decode": rows,
+           "dispatches": {"asr": disp[0], "caption": disp[1]},
+           "launches": counts["split"], "expected": exp,
+           "launches_unsplit": counts["whole"], "top10": tops}
+    phase("mesh", card=card, step="data-parallel ingest", **out)
+    return out
+
+
+def mesh_phase(card: str, clips) -> dict:
+    """[mesh]: mesh_search_check at the [ann] data (1M segments of MiniLM
+    width, tools/torch_bench_ivf.make_data, MESH_QUERIES queries) over
+    MESH_DP shards of the card, then mesh_ingest_check of the default
+    config over MESH_INGEST_DP chunks on the 25 s clip, and the device
+    indices the kernel library was set up on. Returns the split ingest's
+    launch counts."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.config import EngineConfig
+    tool = load_tool("torch_bench_ivf")
+    cuda = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    emb, success, qs = tool.make_data(tool.ROWS, queries=MESH_QUERIES)
+    phase("mesh", card=card, step="data", rows=len(emb),
+          seconds=time.perf_counter() - t0)
+    mesh_search_check(card, emb, success, qs, [cuda] * MESH_DP)
+    del emb, success
+    torch.cuda.empty_cache()
+    out = mesh_ingest_check(card, dict(clips)["short.wav"], EngineConfig(),
+                            [cuda] * MESH_INGEST_DP)
+    phase("mesh", card=card, step="runtime",
+          kernels_ready_on=runtime.ready_devices())
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -3800,6 +4155,7 @@ def main() -> int:
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)
     counts["ann"] = ann_phase(card, clips)
+    counts["mesh"] = mesh_phase(card, clips)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",

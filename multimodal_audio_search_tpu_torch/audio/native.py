@@ -13,7 +13,11 @@ temporary name moved into place with ``os.replace``, so processes that
 build at once never load each other's half-written file. Without g++ or
 the sources ``available()`` is False and every caller takes its numpy
 path, which gives the same bits (wav.py, resample.py, the numpy
-quantizers in pipelines/ingest.py and ops/mel.py).
+quantizers in pipelines/ingest.py and ops/mel.py). The arrays go to C as
+``ctypes.cast(a.ctypes.data, POINTER(...))`` where the JAX package calls
+``a.ctypes.data_as(POINTER(...))``: data_as leaves a reference cycle
+behind each call (two objects only the garbage collector frees), which
+showed as traced heap growth over repeated ingests.
 """
 from __future__ import annotations
 
@@ -150,7 +154,7 @@ def wav_decode_mono(data: bytes) -> tuple[np.ndarray, int] | None:
     payload = data[off.value: off.value + dlen.value]
     rc = lib.mas_wav_decode_mono(
         payload, dlen.value, tag.value, ch.value, bits.value,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), frames)
+        ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_float)), frames)
     if rc != 0:
         return None
     return out, rate.value
@@ -167,10 +171,10 @@ def resample_poly(
     hd = np.ascontiguousarray(h, np.float64)
     y = np.empty(n_out, np.float32)
     lib.mas_resample_poly(
-        xf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(xf),
-        hd.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(hd),
+        ctypes.cast(xf.ctypes.data, ctypes.POINTER(ctypes.c_float)), len(xf),
+        ctypes.cast(hd.ctypes.data, ctypes.POINTER(ctypes.c_double)), len(hd),
         up, down, start,
-        y.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n_out)
+        ctypes.cast(y.ctypes.data, ctypes.POINTER(ctypes.c_float)), n_out)
     return y
 
 
@@ -202,7 +206,7 @@ def flac_decode_mono(data: bytes) -> tuple[np.ndarray, int] | None:
         out = np.empty(cap, np.float32)
         n = lib.mas_flac_decode_mono(
             data, len(data),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), cap)
+            ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_float)), cap)
         if n < 0:
             return None
         if known or n < cap:
@@ -221,10 +225,10 @@ def quantize_mulaw(
         return False
     w = np.ascontiguousarray(w, np.float32)  # ctypes reads raw memory
     lib.mas_quantize_mulaw(
-        w.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(w),
+        ctypes.cast(w.ctypes.data, ctypes.POINTER(ctypes.c_float)), len(w),
         ctypes.c_float(scale),
-        lut.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        ctypes.cast(lut.ctypes.data, ctypes.POINTER(ctypes.c_int8)),
+        ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_int8)))
     return True
 
 
@@ -235,9 +239,9 @@ def quantize_int16(w: np.ndarray, scale: float, out: np.ndarray) -> bool:
         return False
     w = np.ascontiguousarray(w, np.float32)  # ctypes reads raw memory
     lib.mas_quantize_int16(
-        w.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(w),
+        ctypes.cast(w.ctypes.data, ctypes.POINTER(ctypes.c_float)), len(w),
         ctypes.c_float(scale),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))
+        ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_int16)))
     return True
 
 
@@ -253,9 +257,9 @@ def quantize_int12(w: np.ndarray, scale: float, out: np.ndarray) -> bool:
         return False
     w = np.ascontiguousarray(w, np.float32)  # ctypes reads raw memory
     lib.mas_quantize_int12(
-        w.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(w),
+        ctypes.cast(w.ctypes.data, ctypes.POINTER(ctypes.c_float)), len(w),
         ctypes.c_float(scale),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_uint8)))
     return True
 
 
@@ -292,12 +296,13 @@ def mel_encode(x: np.ndarray, win: np.ndarray, melw: np.ndarray,
         row_bytes = out.shape[1]
     dp = ctypes.POINTER(ctypes.c_double)
     rc = lib.mas_mel_encode(
-        x.ctypes.data_as(dp), b, x.shape[1],
-        win.ctypes.data_as(dp), melw.ctypes.data_as(dp),
+        ctypes.cast(x.ctypes.data, dp), b, x.shape[1],
+        ctypes.cast(win.ctypes.data, dp), ctypes.cast(melw.ctypes.data, dp),
         n_fft, hop, melw.shape[0], n_mels, n_frames, bits,
         ctypes.c_double(log_lo), ctypes.c_double(code_scale),
         1 if relative else 0,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), row_bytes)
+        ctypes.cast(out.ctypes.data, ctypes.POINTER(ctypes.c_uint8)),
+        row_bytes)
     return out if rc == 0 else None
 
 

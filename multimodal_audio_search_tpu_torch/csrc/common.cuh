@@ -19,6 +19,10 @@
 
 typedef __nv_bfloat16 bf16;
 
+// the device indices a host-side cache of per-device values (an
+// occupancy, an attribute) holds
+constexpr int MAX_DEVICES = 64;
+
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -374,11 +374,15 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     else
       tma_load_2d(dst, &mo, bar, (j - 3 * nkc) * 64, c0);
   };
-  // tiles i .. i + k - 1 have landed / this warp is done with them
+  // tiles i .. i + k - 1 have landed / this warp is done with them. The
+  // warps read a tile with plain loads (ldmatrix) and the slot's next
+  // TMA write is an async-proxy access, which the arrival alone does not
+  // order after those loads: the proxy fence does (as K9's release_slot)
   auto acquire = [&](int i, int k) {
     for (int u = i; u < i + k; ++u) mbar_wait(&full[u % S], (u / S) & 1);
   };
   auto release = [&](int i, int k) {
+    fence_proxy_async();
     __syncwarp();
     if (lane == 0)
       for (int u = i; u < i + k; ++u) mbar_arrive(&empty[u % S]);
@@ -1463,11 +1467,14 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  // blocks a multiprocessor holds, per variant and chunk width (read
-  // once; the instances differ only in their loops' trip counts)
-  static int per_sm[2][MLP_DC / 64 + 1];
+  // blocks a multiprocessor holds, per device, variant and chunk width
+  // (read once; the instances differ only in their loops' trip counts)
+  static int per_sm[MAX_DEVICES][2][MLP_DC / 64 + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
   const int dc = mlp_dc(D);
-  int& fit = per_sm[head][dc / 64];
+  int& fit = per_sm[dev][head][dc / 64];
   if (fit == 0) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &fit, MLP_FN[head][0], MLP_NT, mlp_smem(dc));

@@ -688,13 +688,15 @@ extern "C" int mas_quant_matmul_table(const void* x, const void* wt,
                                       int out_bf16, int sms, void* stream) {
   if (Kp % 16 || K > Kp || Kp - K >= 16 || Kp > T_MAX_K || sms < 1)
     return (int)cudaErrorInvalidValue;
-  static int optin = 0;  // the opt-in shared memory a block, read once
+  // the opt-in shared memory a block, read once per device
+  static int optin_of[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  int& optin = optin_of[dev];
   if (optin == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaError_t e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e != cudaSuccess) return (int)e;
   }
   const int nch = (N + 15) / 16;

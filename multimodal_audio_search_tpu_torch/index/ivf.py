@@ -33,7 +33,12 @@ float atomics add in a different order on every run; so two builds on
 one card give the same centroids and the same buckets. TF32 stays off
 (``runtime.select_device``).
 
-Not here: the sharded layout and its query over a mesh (ROADMAP A13).
+Over a mesh (parallel/mesh.py), ``build_ivf_sharded`` builds one layout
+per contiguous row block of the store's sharded view (k-means with seed
++ s on block s) and stacks them to uniform shapes with -1 padding;
+``sharded_ivf_search_impl`` probes each shard's own buckets on its
+device with ``local_candidate_scores`` and merges the k candidates of
+every shard as parallel/sharding.py merges them.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import runtime
+from ..parallel.sharding import local_topk, merge_topk
 from .fusion import NEG_INF, _weights, fused_topk, normalize
 
 
@@ -331,3 +337,138 @@ def pack_buckets(rows_ok: np.ndarray, assign: np.ndarray,
     in_cap = pos < cap
     members[c_s[in_cap], pos[in_cap]] = r_s[in_cap]
     return members, np.unique(r_s[~in_cap]).astype(np.int32)
+
+
+@dataclasses.dataclass
+class ShardedIVF:
+    """Per-shard IVF layouts stacked on a leading shard axis: centroids
+    [dp, C, D], members [dp, C, cap], spill [dp, S] (-1 padded). Member
+    ids are shard-local; the query makes them global, as
+    parallel/sharding.py does."""
+    centroids: torch.Tensor
+    members: torch.Tensor
+    spill: torch.Tensor
+    n_rows: int                   # global rows covered (padding included)
+    shard_rows: int               # rows a shard
+    build_s: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_clusters(self) -> int:
+        return int(self.centroids.shape[1])
+
+    def place(self, devices, first: int = 0) -> tuple[list, list, list]:
+        """(centroids, members, spill) of shards first.. as one entry a
+        shard, each on its device in ``devices``."""
+        return tuple([a[first + s].to(d) for s, d in enumerate(devices)]
+                     for a in (self.centroids, self.members, self.spill))
+
+
+def build_ivf_sharded(
+    emb,                          # [N, 2, D] (N divisible by n_shards)
+    success,                      # [N, 2]
+    n_shards: int,
+    n_clusters: int | None = None,
+    cap_factor: float = 4.0,
+    iters: int = 10,
+    seed: int = 0,
+    centroids=None,               # [n_shards, C, D] to reuse
+    device: torch.device | str = "cuda",
+) -> ShardedIVF:
+    """One IVF layout per contiguous row block (the store's sharded view's
+    blocks), built on ``device`` and stacked to uniform shapes: padding
+    centroids have no members, so the query's live-cluster mask ranks
+    them below every real cluster, and -1 member / spill padding is
+    masked too. Pass ``centroids`` (a previous layout's stack) to skip
+    each block's k-means and only re-assign / re-pack."""
+    t0 = time.perf_counter()
+    emb_np = _host(emb, np.float32)
+    suc_np = _host(success, bool)
+    n = len(emb_np)
+    if n % n_shards:
+        raise ValueError(f"{n} rows do not divide into {n_shards} shards")
+    if centroids is not None and centroids.shape[0] != n_shards:
+        centroids = None        # shard count changed: full rebuild
+    blk = n // n_shards
+    parts = [build_ivf(emb_np[s * blk:(s + 1) * blk],
+                       suc_np[s * blk:(s + 1) * blk],
+                       n_clusters=n_clusters, cap_factor=cap_factor,
+                       iters=iters, seed=seed + s,
+                       centroids=None if centroids is None else centroids[s],
+                       device=device)
+             for s in range(n_shards)]
+    dev = parts[0].centroids.device
+    c_max = max(p.n_clusters for p in parts)
+    cap_max = max(int(p.members.shape[1]) for p in parts)
+    s_max = max(int(p.spill.shape[0]) for p in parts)
+    cents = torch.zeros((n_shards, c_max, emb_np.shape[-1]),
+                        dtype=torch.float32, device=dev)
+    membs = torch.full((n_shards, c_max, cap_max), -1, dtype=torch.int32,
+                       device=dev)
+    spills = torch.full((n_shards, max(s_max, 1)), -1, dtype=torch.int32,
+                        device=dev)
+    for s, p in enumerate(parts):
+        cents[s, : p.n_clusters] = p.centroids
+        membs[s, : p.n_clusters, : p.members.shape[1]] = p.members
+        spills[s, : p.spill.shape[0]] = p.spill
+    return ShardedIVF(centroids=cents, members=membs, spill=spills,
+                      n_rows=n, shard_rows=blk,
+                      build_s={"seconds": time.perf_counter() - t0,
+                               "shards": [p.build_s for p in parts]})
+
+
+def ivf_shard_tops(query, cent: list, members: list, spill: list,
+                   emb: list, success: list, w_asr, w_audio, *, k: int,
+                   n_probe: int, threshold: float,
+                   first: int = 0) -> list[tuple]:
+    """Probe each shard's own buckets on its device, rescore exactly and
+    keep the top k: one (query on the shard's device, deduped candidate
+    scores, scores [k], local rows [k] (0 on a miss), global ids [k] (-1
+    on a miss)) a shard. ``first``: the global index of the first
+    shard."""
+    out = []
+    for s, e in enumerate(emb):
+        q = query.to(e.device).float()
+        score_s, rows_s = local_candidate_scores(
+            q, cent[s], members[s], spill[s], e, success[s],
+            w_asr, w_audio, n_probe=n_probe, threshold=threshold)
+        top_s, top_i = local_topk(score_s, k)
+        hit = top_s > NEG_INF / 2
+        li = torch.where(hit, rows_s[top_i], torch.zeros_like(top_i))
+        out.append((q, score_s, top_s, li,
+                    torch.where(hit, li + (first + s) * e.shape[0],
+                                torch.full_like(li, -1))))
+    return out
+
+
+def sharded_ivf_search_impl(mesh, layout: ShardedIVF, k: int = 10,
+                            n_probe: int = 8, threshold: float = 0.1):
+    """IVF search over ``mesh``'s data devices: fn(query, cent, members,
+    spill, emb, success, w_asr, w_audio), every index-shaped argument a
+    list of one entry a shard (``ShardedIVF.place``, the store's sharded
+    view), returns the fused_topk-shaped dict with GLOBAL indices on the
+    first data device. Each shard probes its own buckets; only k
+    candidates a shard and their payloads move."""
+    n_probe_ = min(n_probe, layout.n_clusters)
+    dev0 = mesh.data_devices()[0]
+
+    def fn(query, cent, members, spill, emb, success, w_asr, w_audio):
+        tops = ivf_shard_tops(query, cent, members, spill, emb, success,
+                              w_asr, w_audio, k=k, n_probe=n_probe_,
+                              threshold=threshold)
+        sims = [torch.einsum("kpd,d->kp", e[t[3]].float(), t[0])
+                for t, e in zip(tops, emb)]
+        succ = [ok[t[3]].float() for t, ok in zip(tops, success)]
+        hits = [t[2] > NEG_INF / 2 for t in tops]
+        sc, i, h, sim, su = merge_topk(
+            [t[2] for t in tops], [[t[4] for t in tops], hits, sims, succ],
+            tops[0][2].shape[-1], dev0)
+        w = _weights(w_asr, w_audio, dev0)
+        eff = w * su
+        eff = eff / eff.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        # counted per row (deduped), then summed over the shards
+        return {"indices": i, "scores": sc, "valid": h, "sims": sim,
+                "effective_weights": eff,
+                "num_valid": sum((t[1] > NEG_INF / 2).sum().to(dev0)
+                                 for t in tops)}
+
+    return fn

@@ -170,18 +170,29 @@ class SegmentStore:
         n = len(self.meta)
         return self._emb[:n], self._success[:n]
 
-    def device_index(self, device, dtype=torch.float32) \
-            -> tuple[torch.Tensor, torch.Tensor]:
+    def device_index(self, device, dtype=torch.float32, mesh=None):
         """(emb[cap,2,D], success[cap,2]) on ``device``, padded to the
         capacity bucket; padding rows have success=False so the fused
-        scoring marks them invalid. Cached until the store mutates or the
-        requested device/dtype changes. float32 keeps exact top-k parity
-        with the reference; bfloat16 (rounded to nearest even, as
-        jnp.asarray rounds) halves the bytes a query reads."""
-        key = (self._cap, str(dtype), str(device))
+        scoring marks them invalid. With ``mesh`` (parallel/mesh.py), the
+        same rows as dp contiguous blocks, one on each data device: (emb
+        shards, success shards); the capacity is a power of two >= 1024,
+        so every dp <= 1024 divides it. Cached until the store mutates or
+        the requested device/dtype/mesh changes. float32 keeps exact
+        top-k parity with the reference; bfloat16 (rounded to nearest
+        even, as jnp.asarray rounds) halves the bytes a query reads."""
+        # the key holds the Mesh object itself (hashed by identity), not
+        # id(mesh): a collected mesh's id can be reused by a new one
+        key = (self._cap, str(dtype), str(device), mesh)
         if self._device_view is None or self._device_view[0] != key:
-            emb = torch.as_tensor(self._emb).to(device=device, dtype=dtype)
-            ok = torch.as_tensor(self._success).to(device=device)
+            if mesh is not None:
+                from ..parallel.mesh import data_sharded
+                emb = [e.to(dtype=dtype)
+                       for e in data_sharded(mesh, self._emb)]
+                ok = data_sharded(mesh, self._success)
+            else:
+                emb = torch.as_tensor(self._emb).to(device=device,
+                                                    dtype=dtype)
+                ok = torch.as_tensor(self._success).to(device=device)
             self._device_view = (key, emb, ok)
         return self._device_view[1], self._device_view[2]
 

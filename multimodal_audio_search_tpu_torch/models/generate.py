@@ -159,7 +159,8 @@ def _select_next(logits, method: str, temperature: float, noise):
 def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
              cfg: WhisperConfig, decode: DecodeConfig,
              max_new_tokens: int, rng: torch.Generator | None = None,
-             with_scores: bool = False) -> DecodeOut:
+             with_scores: bool = False,
+             noise_rows: tuple[int, int] | None = None) -> DecodeOut:
     """Batched KV-cached generation, greedy or sampling
     (``decode.method``; beam search is models/beam.py). ``prefix`` [B, P]
     is the forced decoder prompt; the loop stops when every row has
@@ -167,7 +168,10 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     on ``enc_out``'s device; None = one seeded with 0, as JAX's
     ``PRNGKey(0)`` default. ``with_scores`` sums the log-softmax of the
     processed logits at each generated token (prefix and finished steps
-    left out) into ``DecodeOut.scores``."""
+    left out) into ``DecodeOut.scores``. ``noise_rows`` (first, total):
+    these B rows are rows first.. of a batch of ``total`` rows split over
+    a mesh; each step draws the whole batch's noise and takes theirs, so
+    they sample as they would in the whole batch."""
     check_supported(decode)
     if decode.method == "beam":
         raise ValueError("method='beam' decodes with models/beam.py::"
@@ -198,7 +202,10 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
             logits, tokens, torch.full((b,), pos + 1, device=dev),
             decode.no_repeat_ngram_size)
         # a draw on every step, the prefix's too, as JAX splits its key
-        noise = _gumbel(rng, logits.shape, dev) if sample else None
+        noise = None
+        if sample:
+            lo, rows = noise_rows or (0, b)
+            noise = _gumbel(rng, (rows, logits.shape[1]), dev)[lo: lo + b]
         nxt = _select_next(logits, decode.method, decode.temperature, noise)
         in_prefix = pos + 1 < prefix_len
         if in_prefix:  # the forced prompt overrides the model's choice

@@ -32,7 +32,6 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return (o / l).to(q.dtype)
 
 
-_K8 = None  # the declared ctypes function, read once
 _SCALE_LOG2 = math.log2(math.e) / math.sqrt(64)
 
 
@@ -63,12 +62,9 @@ def _launch(q, k, v) -> torch.Tensor:
     # the merged [B, T, H, D] layout the o-projection reads; returned as
     # the [B, H, T, D] view, so merge_heads after it copies nothing
     out = torch.empty((b, t, h, d), dtype=bf, device=dev)
-    global _K8
-    if _K8 is None:
-        _K8 = runtime.kernels().mas_encoder_attention
-    rc = _K8(q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
-             out.data_ptr(), b, h, t, _SCALE_LOG2, runtime.raw_stream(dev))
-    runtime.check_launch(rc, "mas_encoder_attention")
+    runtime.launch("mas_encoder_attention", dev, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), sb, sh, st, out.data_ptr(),
+                   b, h, t, _SCALE_LOG2, runtime.raw_stream(dev))
     runtime.bump("encoder_attention")
     return out.transpose(1, 2)
 

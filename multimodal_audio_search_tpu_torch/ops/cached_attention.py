@@ -124,10 +124,8 @@ def _fit(dev: torch.device):
         key = (dev, c, chunk)
         if key not in _FIT:
             out = ctypes.c_int(0)
-            runtime.check_launch(
-                runtime.kernels().mas_int8_cached_attention_fit(
-                    c, chunk, ctypes.byref(out)),
-                "mas_int8_cached_attention_fit")
+            runtime.launch("mas_int8_cached_attention_fit", dev, c, chunk,
+                           ctypes.byref(out))
             _FIT[key] = out.value
         return _FIT[key]
     return fit
@@ -154,13 +152,11 @@ def _launch(q, k8, ks, v8, vs, cluster: int | None = None) -> torch.Tensor:
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"K7 takes a contiguous 16-byte aligned {name}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=k8.device)
-    lib = runtime.kernels()
-    rc = lib.mas_int8_cached_attention(
+    runtime.launch(
+        "mas_int8_cached_attention", k8.device,
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), out.data_ptr(), b, h, t, cs, chunk,
-        1.0 / math.sqrt(d),
-        runtime.stream_handle(k8.device))
-    runtime.check_launch(rc, "mas_int8_cached_attention")
+        1.0 / math.sqrt(d), runtime.stream_handle(k8.device))
     runtime.bump("int8_cached_attention")
     return out
 

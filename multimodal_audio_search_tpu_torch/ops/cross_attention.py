@@ -61,7 +61,6 @@ def single_query_attention_plain(q_m, k_m, v_m, *, heads: int, pos=None):
 CHUNK = 128
 STATES = 16384
 _SCRATCH: dict = {}
-_K2 = None  # the declared ctypes function, read once
 
 
 def split_plan(n_valid: int, pairs: int) -> tuple[int, int]:
@@ -118,13 +117,10 @@ def _launch(q_m, k_m, v_m, heads: int, n_valid: int,
                          f"the scratch of {STATES}")
     part, cnt = _scratch(dev)
     out = torch.empty((b, hd), dtype=torch.float32, device=dev)
-    global _K2
-    if _K2 is None:
-        _K2 = runtime.kernels().mas_single_query_attention
-    rc = _K2(q_m.data_ptr(), k_m.data_ptr(), v_m.data_ptr(), out.data_ptr(),
-             part, cnt, b, heads, t, hd, n_valid, splits, chunk,
-             1.0 / 8.0, runtime.raw_stream(dev))  # 1 / sqrt(64)
-    runtime.check_launch(rc, "mas_single_query_attention")
+    runtime.launch("mas_single_query_attention", dev, q_m.data_ptr(),
+                   k_m.data_ptr(), v_m.data_ptr(), out.data_ptr(), part, cnt,
+                   b, heads, t, hd, n_valid, splits, chunk,
+                   1.0 / 8.0, runtime.raw_stream(dev))  # 1 / sqrt(64)
     runtime.bump("single_query_attention")
     return out
 
@@ -269,10 +265,8 @@ def _fit_int8(dev: torch.device):
         key = (dev, g, c, chunk)
         if key not in _FIT:
             out = ctypes.c_int(0)
-            runtime.check_launch(
-                runtime.kernels().mas_single_query_attention_int8_fit(
-                    g, c, chunk, ctypes.byref(out)),
-                "mas_single_query_attention_int8_fit")
+            runtime.launch("mas_single_query_attention_int8_fit", dev,
+                           g, c, chunk, ctypes.byref(out))
             _FIT[key] = out.value
         return _FIT[key]
     return fit
@@ -309,12 +303,11 @@ def _launch_int8(q_m, k8, ks, v8, vs, heads: int, n_valid: int,
         g, cs, chunk = int8_plan(n_valid, heads, b, _fit_int8(k8.device),
                                  group, cluster)
     out = torch.empty((b, hd), dtype=torch.float32, device=k8.device)
-    lib = runtime.kernels()
-    rc = lib.mas_single_query_attention_int8(
+    runtime.launch(
+        "mas_single_query_attention_int8", k8.device,
         q_m.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), out.data_ptr(), b, heads, t, n_valid, g, cs, chunk,
         1.0 / math.sqrt(hd // heads), runtime.stream_handle(k8.device))
-    runtime.check_launch(rc, "mas_single_query_attention_int8")
     runtime.bump("single_query_attention_int8")
     return out
 

@@ -185,7 +185,6 @@ def cross_mlp_block_plain(x, ln2_g, ln2_b, wcq, bcq, wco, bco,
 # ------------------------------------------------------------- card side
 _COUNTERS: dict = {}
 _BUFS: dict = {}
-_K4 = None  # the declared ctypes function of K4/K4-o, read once
 _F32 = frozenset(("ln_g", "cross_ln_g", "attn", "ln2_g", "ln3_g"))
 MAX_D = 2048  # K4's widest row: its layer norm holds 8 values a thread
 
@@ -303,8 +302,8 @@ def _fit(dev: torch.device, cs: int, smem: int) -> int:
     n = _FIT.get(key)
     if n is None:
         out = ctypes.c_int(0)
-        runtime.check_launch(runtime.kernels().mas_decoder_self_block_fit(
-            cs, smem, ctypes.byref(out)), "mas_decoder_self_block_fit")
+        runtime.launch("mas_decoder_self_block_fit", dev, cs, smem,
+                       ctypes.byref(out))
         if out.value < 1:
             raise RuntimeError(f"K3: the card holds no cluster of {cs} "
                                f"blocks of {smem} bytes")
@@ -342,8 +341,8 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     x_out = torch.empty_like(x)
     qc = torch.empty_like(x) if tail else None
     cross = tail or (None,) * 4
-    lib = runtime.kernels()
-    rc = lib.mas_decoder_self_block(
+    runtime.launch(
+        "mas_decoder_self_block", dev,
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
@@ -351,7 +350,6 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
         *(_ptr(a) for a in (*cross, qc)),
         b, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64), eps,
         runtime.stream_handle(dev))
-    runtime.check_launch(rc, "mas_decoder_self_block")
     runtime.bump("decoder_self_block_q" if tail else "decoder_self_block")
     k1, v1 = k_cache[:, pos], v_cache[:, pos]
     return (x_out, k1, v1, qc) if tail else (x_out, k1, v1)
@@ -432,10 +430,8 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
     _check(kernel, x, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
     out = torch.empty_like(x)
-    global _K4
-    if _K4 is None:
-        _K4 = runtime.kernels().mas_decoder_mlp_block
-    rc = _K4(
+    runtime.launch(
+        "mas_decoder_mlp_block", dev,
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         *(_ptr(a) for a in (head or (None,) * 3)),
@@ -444,7 +440,6 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
         _buf(dev, "part", f // 32 * b * hd, torch.float32),
         _counters(dev), out.data_ptr(), b, hd, f, eps,
         runtime.sm_count(dev), runtime.raw_stream(dev))
-    runtime.check_launch(rc, "mas_decoder_mlp_block")
     runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
     return out
 
@@ -535,11 +530,8 @@ def _fit_cross(dev: torch.device):
         key = (dev, cs, chunk)
         if key not in _X_FIT:
             out = ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                runtime.check_launch(
-                    runtime.kernels().mas_cross_mlp_attention_fit(
-                        cs, chunk, ctypes.byref(out)),
-                    "mas_cross_mlp_attention_fit")
+            runtime.launch("mas_cross_mlp_attention_fit", dev, cs, chunk,
+                           ctypes.byref(out))
             _X_FIT[key] = out.value
         return _X_FIT[key]
     return fit
@@ -577,8 +569,8 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
         cs, chunk = cross_plan(t, heads, b, _fit_cross(dev), cluster)
     f32 = torch.float32
     q1, out = torch.empty_like(x), torch.empty_like(x)
-    lib = runtime.kernels()
-    rc = lib.mas_cross_mlp_block(
+    runtime.launch(
+        "mas_cross_mlp_block", dev,
         *(a.data_ptr() for a in (x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
                                  ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, q1)),
         _buf(dev, "attn", b * hd, f32), _buf(dev, "x32", b * hd, f32),
@@ -586,7 +578,6 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
         _buf(dev, "part", f // 32 * b * hd, f32), _counters(dev),
         out.data_ptr(), b, heads, t, f, cs, chunk, 1.0 / math.sqrt(64), eps,
         runtime.sm_count(dev), runtime.stream_handle(dev))
-    runtime.check_launch(rc, "mas_cross_mlp_block")
     runtime.bump("cross_mlp_block")
     return out
 

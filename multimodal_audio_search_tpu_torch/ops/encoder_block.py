@@ -136,9 +136,8 @@ def _card(device) -> torch.device:
 @functools.lru_cache(maxsize=None)
 def _fit(cs: int, pair_heads: bool, device: torch.device) -> int:
     n = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        runtime.check_launch(runtime.kernels().mas_encoder_block_fit(
-            int(pair_heads), cs, ctypes.byref(n)), "mas_encoder_block_fit")
+    runtime.launch("mas_encoder_block_fit", device, int(pair_heads), cs,
+                   ctypes.byref(n))
     return n.value
 
 
@@ -301,24 +300,22 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
     if cluster is None:
         cluster = _card_plan(h, b, t, pair_heads, x.device)
     out = torch.empty_like(x)
-    lib = runtime.kernels()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, st,
             x.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
             b, h, t, x.shape[-1], math.log2(math.e) / math.sqrt(d))
     stream = runtime.stream_handle(x.device)
     if pair_heads:
-        rc, fn, key = lib.mas_attn_o_residual_paired(*args, cluster,
-                                                     stream), \
-            "mas_attn_o_residual_paired", "encoder_attn_o_residual_paired"
+        runtime.launch("mas_attn_o_residual_paired", x.device, *args,
+                       cluster, stream)
+        runtime.bump("encoder_attn_o_residual_paired")
     elif form is not None:
-        rc, fn, key = lib.mas_attn_o_residual_ab(*args, cluster,
-                                                 AB_FORMS[form], stream), \
-            "mas_attn_o_residual_ab", "encoder_attn_o_residual_ab"
+        runtime.launch("mas_attn_o_residual_ab", x.device, *args, cluster,
+                       AB_FORMS[form], stream)
+        runtime.bump("encoder_attn_o_residual_ab")
     else:
-        rc, fn, key = lib.mas_attn_o_residual(*args, cluster, stream), \
-            "mas_attn_o_residual", "encoder_attn_o_residual"
-    runtime.check_launch(rc, fn)
-    runtime.bump(key)
+        runtime.launch("mas_attn_o_residual", x.device, *args, cluster,
+                       stream)
+        runtime.bump("encoder_attn_o_residual")
     return out
 
 
@@ -351,13 +348,12 @@ def _launch_int8(q, k8, ks, v8, vs, x, wo, bo):
     if t % 4:
         ks, vs = (torch.nn.functional.pad(a, (0, 4 - t % 4)) for a in (ks, vs))
     out = torch.empty_like(x)
-    lib = runtime.kernels()
-    rc = lib.mas_attn_o_residual_int8(
+    runtime.launch(
+        "mas_attn_o_residual_int8", x.device,
         q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
         v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
         bo.data_ptr(), out.data_ptr(), b, h, t, ks.shape[-1], hd,
         1.0 / math.sqrt(d), runtime.stream_handle(x.device))
-    runtime.check_launch(rc, "mas_attn_o_residual_int8")
     runtime.bump("encoder_attn_o_residual_int8")
     return out
 

@@ -56,11 +56,11 @@ def _launch(query, emb, success, asr_weight, audio_weight, threshold):
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    rc = runtime.kernels().mas_fused_scores(
-        q.data_ptr(), emb.data_ptr(), success.data_ptr(), float(asr_weight),
-        float(audio_weight), float(threshold), out.data_ptr(), n, d,
-        int(emb.dtype == torch.bfloat16), runtime.stream_handle(dev))
-    runtime.check_launch(rc, "mas_fused_scores")
+    runtime.launch("mas_fused_scores", dev, q.data_ptr(), emb.data_ptr(),
+                   success.data_ptr(), float(asr_weight),
+                   float(audio_weight), float(threshold), out.data_ptr(), n,
+                   d, int(emb.dtype == torch.bfloat16),
+                   runtime.stream_handle(dev))
     runtime.bump("fused_scores")
     return out
 

@@ -155,7 +155,6 @@ SPLIT_MIN_STEPS = 4
 SCRATCH = 1 << 22
 COUNTERS = 4096
 _SCRATCH: dict = {}
-_K5 = _K5T = None  # the declared ctypes functions, read once
 
 
 def split_plan(m: int, k: int, n: int, splits: int | None = None,
@@ -252,15 +251,13 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
     n = w.shape[1] if wq_t is None else w.shape[0]
     _check(x, w, scale, bias, out_dtype, n)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    global _K5, _K5T
     if wq_t is not None:
-        if _K5T is None:
-            _K5T = runtime.kernels().mas_quant_matmul_table
-        rc = _K5T(x.data_ptr(), wq_t.data_ptr(), scale.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  m, k, wq_t.shape[1], n, int(out_dtype == torch.bfloat16),
-                  runtime.sm_count(dev), runtime.raw_stream(dev))
-        runtime.check_launch(rc, "mas_quant_matmul_table")
+        runtime.launch("mas_quant_matmul_table", dev, x.data_ptr(),
+                       wq_t.data_ptr(), scale.data_ptr(),
+                       None if bias is None else bias.data_ptr(),
+                       out.data_ptr(), m, k, wq_t.shape[1], n,
+                       int(out_dtype == torch.bfloat16),
+                       runtime.sm_count(dev), runtime.raw_stream(dev))
         runtime.bump("quant_matmul")
         return out
     tiles = -(-n // bn) * -(-m // 32)
@@ -268,14 +265,12 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
         raise ValueError(f"K5: {splits} splits of [{m}, {n}] take "
                          f"{tiles} arrival counters, more than {COUNTERS}")
     part, cnt = _scratch(dev, splits * tiles * 32 * bn if splits > 1 else 0)
-    if _K5 is None:
-        _K5 = runtime.kernels().mas_quant_matmul
-    rc = _K5(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(),
-             part, cnt, m, k, n, int(out_dtype == torch.bfloat16),
-             int(regime == "wide"), bn, splits, steps,
-             runtime.raw_stream(dev))
-    runtime.check_launch(rc, "mas_quant_matmul")
+    runtime.launch("mas_quant_matmul", dev, x.data_ptr(), wq.data_ptr(),
+                   scale.data_ptr(),
+                   None if bias is None else bias.data_ptr(),
+                   out.data_ptr(), part, cnt, m, k, n,
+                   int(out_dtype == torch.bfloat16), int(regime == "wide"),
+                   bn, splits, steps, runtime.raw_stream(dev))
     runtime.bump("quant_matmul")
     return out
 

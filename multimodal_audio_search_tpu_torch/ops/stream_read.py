@@ -44,10 +44,9 @@ def _launch(x: torch.Tensor, passes: int) -> torch.Tensor:
                          f"cols % 8 == 0, 8 <= cols <= 2048, rows >= 1 and "
                          f"passes >= 1: {tuple(x.shape)}, passes={passes}")
     sums = torch.zeros(cols, dtype=torch.float32, device=x.device)
-    rc = runtime.kernels().mas_stream_read(
-        x.data_ptr(), sums.data_ptr(), rows, cols, int(passes),
-        runtime.stream_handle(x.device))
-    runtime.check_launch(rc, "mas_stream_read")
+    runtime.launch("mas_stream_read", x.device, x.data_ptr(),
+                   sums.data_ptr(), rows, cols, int(passes),
+                   runtime.stream_handle(x.device))
     runtime.bump("stream_read")
     return sums
 

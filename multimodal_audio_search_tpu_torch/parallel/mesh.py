@@ -1,0 +1,219 @@
+"""Device mesh construction and placement.
+
+Counterpart of ``multimodal_audio_search_tpu/parallel/mesh.py``. JAX's
+mesh is single-controller within a host: one process drives every device
+of it. So is this one: a ``Mesh`` is a grid of ``torch.device`` entries
+with named axes, and the sharded paths (parallel/sharding.py, the
+pipelines' ``use_mesh``, index/store.py's sharded view) loop over its
+data-axis devices from one process, as FAISS's ``IndexShards`` does. It
+is not ``torch.distributed.DeviceMesh``, which takes one process per
+device. The axes:
+
+  * ``data`` shards ingest batches and the index's N axis, in contiguous
+    blocks (``data_sharded``); replicas of the parameters sit on each
+    data device (``replicated``);
+  * ``model`` (Megatron tensor parallelism over attention heads and FFN
+    width): ``whisper_param_spec`` and ``shard_params`` give the rule and
+    each device's shards, but no model runs over it yet -- ``use_mesh``
+    and ``mesh_from_config`` refuse ``model > 1`` (ROADMAP A13b);
+  * ``dcn`` (parallel/distributed.py): the process rank.
+
+On the CPU a mesh holds n virtual entries of the CPU (the counterpart of
+the JAX tests' 8 virtual XLA CPU devices). A caller may name one card
+more than once (``devices=[cuda:0] * 4``), which runs every sharded path
+on that card; without ``devices=`` a mesh never repeats a card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the virtual CPU entries a CPU mesh holds by default (the JAX test rig's
+# device count)
+CPU_DEVICES = 8
+
+
+class Mesh:
+    """A grid of devices with named axes.
+
+    ``devices``: an object array of ``torch.device``; ``axis_names``: one
+    name per grid axis; ``shape``: {name: size}. ``process_index`` is this
+    process's position on a "dcn" axis (0 without one) and ``world`` the
+    process group's size when the mesh was built inside one (None: the
+    whole mesh lives in this process). Hashed and compared by identity,
+    so a cache keyed on a mesh holds the mesh itself."""
+
+    def __init__(self, devices, axis_names, process_index: int = 0,
+                 world: int | None = None):
+        grid = np.array(devices, dtype=object)
+        for pos in np.ndindex(grid.shape):
+            grid[pos] = torch.device(grid[pos])
+        if grid.ndim != len(axis_names):
+            raise ValueError(f"a {grid.ndim}-D device grid takes "
+                             f"{grid.ndim} axis names, got {axis_names}")
+        self.devices = grid
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, grid.shape))
+        self.process_index = process_index
+        self.world = world
+
+    def data_devices(self) -> list[torch.device]:
+        """This process's data-axis devices, in shard order (the model
+        axis at index 0): the device of each index block and batch chunk.
+        With a "dcn" axis and no process group, every slice's devices
+        (dcn-major); inside a group, this process's slice."""
+        grid = self.devices
+        if "model" in self.axis_names:
+            grid = np.take(grid, 0, axis=self.axis_names.index("model"))
+        if "dcn" in self.axis_names and self.world is not None:
+            grid = grid[self.process_index]
+        return list(grid.reshape(-1))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {[str(d) for d in self.data_devices()]})"
+
+
+def _devices(n: int | None, device) -> list[torch.device]:
+    """n devices of type ``device``: every visible card (refusing more
+    than there are), or ``CPU_DEVICES`` virtual CPU entries."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [dev] * (n or CPU_DEVICES)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    have = torch.cuda.device_count()
+    n = n or have
+    if n > have:
+        raise ValueError(f"asked for {n} devices, have {have} CUDA "
+                         f"devices (pass devices= to name them)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
+              devices=None, device="cuda") -> Mesh:
+    """A ("data", "model") mesh of ``n_devices``: ``devices`` as given
+    (entries may repeat), else every visible card of ``device`` (at most
+    the cards there are) or, for "cpu", that many virtual CPU entries."""
+    devs = list(devices) if devices is not None \
+        else _devices(n_devices, device)
+    n = n_devices or len(devs)
+    if n > len(devs):
+        raise ValueError(f"asked for {n} devices, have {len(devs)}")
+    if n % model_parallel:
+        raise ValueError("n_devices must divide by model_parallel")
+    grid = np.empty(n, dtype=object)
+    grid[:] = [torch.device(d) for d in devs[:n]]
+    return Mesh(grid.reshape(n // model_parallel, model_parallel),
+                ("data", "model"))
+
+
+_POW2 = ("sharded batch and index buckets are powers of two, so dp must "
+         "be one of 1, 2, 4, 8, ...")
+
+
+def validate_data_axis(mesh: Mesh) -> None:
+    """Reject a mesh whose 'data' axis is not a power of two, with the
+    error ``mesh_from_config`` raises: batch buckets double from a floor
+    of max(8, dp) and the index capacity is a power of two, so a dp like
+    6 would fail later at the first split."""
+    dp = mesh.shape.get("data", 1)
+    if dp & (dp - 1):
+        raise ValueError(f"mesh 'data' axis = {dp} is not a power of "
+                         f"two; {_POW2}")
+
+
+def refuse_model_axis(mp: int) -> None:
+    """The model axis is not ported: tensor parallelism needs the fused
+    kernels' residuals split into x/mp + partial sums (ROADMAP A13b)."""
+    if mp > 1:
+        raise NotImplementedError(
+            f"model_parallel={mp}: the mesh's model axis (tensor "
+            f"parallelism) is not ported (ROADMAP A13b)")
+
+
+def mesh_from_config(cfg, device="cuda") -> Mesh | None:
+    """Engine knob -> mesh: ``EngineConfig.data_parallel`` data devices
+    of ``device`` (never one card twice: more than the visible cards
+    raise); 1 x 1 returns None, single-device execution.
+    ``data_parallel`` must be a power of two; ``model_parallel > 1``
+    raises NotImplementedError (ROADMAP A13b)."""
+    dp = getattr(cfg, "data_parallel", 1) or 1
+    mp = getattr(cfg, "model_parallel", 1) or 1
+    if dp & (dp - 1):
+        raise ValueError(f"data_parallel={dp} is not a power of two; "
+                         f"{_POW2}")
+    refuse_model_axis(mp)
+    if dp <= 1:
+        return None
+    return make_mesh(dp, device=device)
+
+
+def _tree_map(fn, tree, path=()):
+    """fn(path, leaf) over nested dicts/lists/tuples; path holds the dict
+    keys and list indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def replicated(mesh: Mesh, tree) -> list:
+    """One copy of ``tree`` (a tensor or a tree of them) on each data
+    device; a copy on the device the tensor already lies on is the tensor
+    itself."""
+    return [_tree_map(lambda _, x: x.to(d) if torch.is_tensor(x) else x,
+                      tree) for d in mesh.data_devices()]
+
+
+def data_sharded(mesh: Mesh, x) -> list[torch.Tensor]:
+    """``x`` (a tensor or array) split on axis 0 into one contiguous block
+    per data device, each on its device."""
+    devs = mesh.data_devices()
+    x = torch.as_tensor(x)
+    if x.shape[0] % len(devs):
+        raise ValueError(f"{tuple(x.shape)} does not divide into "
+                         f"{len(devs)} data shards on axis 0")
+    return [c.to(d) for c, d in zip(torch.chunk(x, len(devs)), devs)]
+
+
+# ----------------------------------------------------- TP param shardings
+def whisper_param_spec(path: tuple, leaf) -> tuple:
+    """The Megatron TP rule for the Whisper/MiniLM param trees, as the
+    JAX PartitionSpec's entries: column-parallel (the output dim on
+    'model': (None, "model")) for attention q/k/v and mlp_in,
+    row-parallel (("model", None)) for attention o and mlp_out, weights
+    only; everything else replicated (()). ``path``: the dict keys and
+    list indices down to the leaf."""
+    if "w" in path:
+        if any(k in path for k in ("q", "k", "v", "mlp_in")):
+            return (None, "model")
+        if any(k in path for k in ("o", "mlp_out")):
+            return ("model", None)
+    return ()
+
+
+def shard_params(params, mesh: Mesh) -> np.ndarray:
+    """Apply the TP rule: an object array over the mesh's grid whose
+    entry at each device is the param tree that device holds, each leaf
+    its block of the model axis (by the device's index on it) on that
+    device; a leaf whose dim does not divide falls back to a replica."""
+    axes = mesh.axis_names
+    mp = mesh.shape.get("model", 1)
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(out.shape):
+        dev = mesh.devices[pos]
+        j = pos[axes.index("model")] if "model" in axes else 0
+
+        def place(path, leaf, dev=dev, j=j):
+            if not torch.is_tensor(leaf):
+                return leaf
+            spec = whisper_param_spec(path, leaf)
+            if spec:
+                axis = 0 if spec[0] == "model" else 1
+                if leaf.dim() >= 2 and leaf.shape[axis] % mp == 0:
+                    leaf = torch.chunk(leaf, mp, axis)[j]
+            return leaf.to(dev)
+        out[pos] = _tree_map(place, params)
+    return out

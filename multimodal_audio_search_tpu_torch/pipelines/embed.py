@@ -4,7 +4,9 @@ Counterpart of ``multimodal_audio_search_tpu/pipelines/embed.py``: a
 sentence encoder module (``models.minilm`` by default, ``models.mpnet``
 for all-mpnet-base-v2) with tokenization and power-of-two batch buckets.
 Runs in float32 on either device, as the JAX package's embedder does
-(its default dtype).
+(its default dtype). ``use_mesh`` replicates the parameters on a mesh's
+data devices and splits each batch bucket (at least max(8, dp) rows)
+over them, as the JAX package shards its embed batches.
 """
 from __future__ import annotations
 
@@ -58,6 +60,20 @@ class TextEmbedder:
         self.stats = stats if stats is not None else PipelineStats(
             "Text Embedder", f"{model.__name__.rsplit('.', 1)[-1]}-torch")
         self.stats.embedding_dim = self.cfg.hidden
+        self.mesh = None
+        self._replicas = None
+
+    def use_mesh(self, mesh) -> None:
+        """Replicate the parameters on ``mesh``'s data devices and split
+        embed batches over them. A data axis that is not a power of two
+        raises ValueError, a model axis > 1 NotImplementedError (ROADMAP
+        A13b)."""
+        from ..parallel.mesh import (refuse_model_axis, replicated,
+                                     validate_data_axis)
+        validate_data_axis(mesh)
+        refuse_model_axis(mesh.shape.get("model", 1))
+        self.mesh = mesh
+        self._replicas = replicated(mesh, self.params)
 
     @property
     def dim(self) -> int:
@@ -65,18 +81,25 @@ class TextEmbedder:
 
     @torch.inference_mode()
     def embed_device(self, texts: Sequence[str]) -> torch.Tensor:
-        """[n, hidden] float32 embeddings left on the device."""
+        """[n, hidden] float32 embeddings left on the device (with a mesh,
+        gathered to its first data device)."""
         ids, mask = self.tokenizer.encode(list(texts), self.max_tokens)
-        b = _bucket(len(texts), 8)
+        devs = [self.device] if self.mesh is None \
+            else self.mesh.data_devices()
+        b = _bucket(len(texts), max(8, len(devs)))
         if b > len(texts):  # pad rows (masked out; results sliced away)
             pad = b - len(texts)
             ids = np.pad(ids, ((0, pad), (0, 0)))
             mask = np.pad(mask, ((0, pad), (0, 0)))
             mask[len(texts):, 0] = 1  # avoid 0/0 in mean pooling
-        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        mask = torch.as_tensor(mask, device=self.device)
-        return self.model.sentence_embed(self.params, ids, mask,
-                                         self.cfg)[: len(texts)]
+        # one contiguous block of rows a data device
+        outs = [self.model.sentence_embed(p, i.to(d, torch.long), m.to(d),
+                                          self.cfg)
+                for p, i, m, d in zip(
+                    self._replicas or [self.params],
+                    torch.chunk(torch.as_tensor(ids), len(devs)),
+                    torch.chunk(torch.as_tensor(mask), len(devs)), devs)]
+        return torch.cat([o.to(devs[0]) for o in outs])[: len(texts)]
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         if len(texts) == 0:

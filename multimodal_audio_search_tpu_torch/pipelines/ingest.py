@@ -30,6 +30,14 @@ to the mel context and computes the log-mel that both Whisper models
 share, then runs ASR and captioning. Every surviving text of the
 waveform embeds in one MiniLM batch.
 
+``use_mesh`` runs ingest over a mesh's data axis (parallel/mesh.py): the
+batch's codes are split by rows into one contiguous block a data device
+and each block is put on its device, decoded there (every codec, the
+mel codecs' per-row tails included, is row-local) and handed to both
+Whisper pipelines as one chunk each; the embedder splits its batch the
+same way. ``make_default_ingest`` builds the mesh of ``data_parallel``
+and refuses ``model_parallel > 1`` (ROADMAP A13b).
+
 Differences from the JAX package:
   * the two Whisper pipelines must share one mel config (the JAX
     package's separate-mel branch has no caller in the port);
@@ -173,6 +181,17 @@ class DualPipelineIngest:
         self.last_transfer_resolved: str | None = None
         self._auto_transfer_choice: str | None = None
         self._bytes_since_probe = 0.0
+        self.mesh = None
+
+    def use_mesh(self, mesh) -> None:
+        """Run ingest over ``mesh``: segment batches split over its data
+        devices, both Whisper pipelines and the embedder with a parameter
+        replica on each (their use_mesh); search takes the same mesh
+        through FusionSearcher(mesh=...)."""
+        self.asr.use_mesh(mesh)
+        self.caption.use_mesh(mesh)
+        self.embedder.use_mesh(mesh)
+        self.mesh = mesh
 
     # the lossless codecs "auto" chooses between: both give the device
     # the same int16 codes
@@ -364,11 +383,15 @@ class DualPipelineIngest:
                                       transfer)
             tp = time.perf_counter()
             tr["quantize"] += tp - t0
-            qd = q.to(self.device, non_blocking=True)
+            # one block of rows a data device, each put on its own
+            devs = [self.device] if self.mesh is None \
+                else self.mesh.data_devices()
+            qd = [c.to(d, non_blocking=True)
+                  for c, d in zip(torch.chunk(q, len(devs)), devs)]
             self._bytes_since_probe += q.numel() * q.element_size()
             td = time.perf_counter()
             tr["put"] += td - tp
-            mel = self._device_mel(qd, transfer, seg_len)
+            mel = [self._device_mel(c, transfer, seg_len) for c in qd]
             a_tok, a_len = self.asr.dispatch_mel(mel)
             c_tok, c_len = self.caption.dispatch_mel(mel)
             tw = time.perf_counter()
@@ -448,6 +471,7 @@ def make_default_ingest(
     seed: int = 0,
     dtype: torch.dtype | None = None,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> DualPipelineIngest:
     """Build the reference-configured dual pipeline (whisper-base ASR with
     the en/transcribe prompt, whisper-tiny captioner with a bare <sot>
@@ -457,7 +481,10 @@ def make_default_ingest(
     checkpoint directory, which is converted (models/convert.py:
     convert_whisper, convert_bert for minilm, convert_mpnet) as the JAX
     package loads it; its tokenizer assets are used where the directory
-    has them."""
+    has them. ``mesh`` (default: the mesh of ``cfg.data_parallel`` on
+    ``device``, parallel/mesh.py::mesh_from_config) runs the pipelines
+    over its data axis; ``model_parallel > 1`` raises NotImplementedError
+    (ROADMAP A13b)."""
     from .. import weights
     from ..config import MelConfig
     from ..models import whisper as W
@@ -465,11 +492,11 @@ def make_default_ingest(
     from ..models.generate import check_supported
     from ..models.tokenizer import load_tokenizer
     from ..ops.quant import quantize_whisper_decoder
+    from ..parallel.mesh import mesh_from_config, refuse_model_axis
     cfg = cfg or EngineConfig()
-    if cfg.data_parallel * cfg.model_parallel != 1:
-        raise NotImplementedError(
-            "meshes (data_parallel/model_parallel) are not ported "
-            "(ROADMAP A13)")
+    refuse_model_axis(cfg.model_parallel)
+    if mesh is None:
+        mesh = mesh_from_config(cfg, device)
     stats_reg = stats or StatsRegistry()
     mel_cfg = MelConfig(
         padded_seconds=cfg.segment.segment_seconds,
@@ -523,4 +550,7 @@ def make_default_ingest(
         if emb_path else None,
         model=emb_model, stats=stats_reg.pipelines["text_embedder"],
         device=device)
-    return DualPipelineIngest(asr, caption, embedder, cfg, stats_reg)
+    ing = DualPipelineIngest(asr, caption, embedder, cfg, stats_reg)
+    if mesh is not None:
+        ing.use_mesh(mesh)
+    return ing

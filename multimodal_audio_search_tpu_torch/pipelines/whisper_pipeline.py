@@ -12,6 +12,15 @@ dispatch's number, 1, 2, ..., as JAX keys it with ``PRNGKey(self._step)``),
 "beam" through ``beam_generate`` with ``decode.num_beams``. The JAX
 pipeline always calls ``generate``, whose argmax makes its "beam" greedy
 (ROADMAP, known faults in the reference); the port does not copy that.
+
+``use_mesh`` runs the pipeline over a mesh's data axis
+(parallel/mesh.py): a replica of the parameters on each data device, the
+batch bucket (at least max(8, dp) rows) cut into dp contiguous chunks,
+each encoded and decoded on its own device. Every chunk's encoder is
+queued before any decode starts; the decode loops then run one after
+another, since each syncs the host once a step. Sampling draws each
+chunk's Gumbel rows out of the whole batch's noise, so a chunk's rows
+get the noise they get without a mesh.
 """
 from __future__ import annotations
 
@@ -82,42 +91,82 @@ class WhisperTextPipeline:
         # value (False: K8 on the card at T >= 512, plain mha elsewhere)
         fused = self.decode.fused_encoder
         self.fused_encoder_resolved = True if fused is None else fused
-        # decode steps of the most recent dispatch (a step runs each
+        # decode steps of the most recent dispatch_mel (a step runs each
         # decoder layer's two attentions once, over B * num_beams rows
-        # under beam search), and running totals
+        # under beam search; summed over a mesh's chunks), and running
+        # totals; ``dispatches`` counts encoder runs (one per chunk under
+        # a mesh), ``calls`` the dispatch_mel calls, which seed sampling
         self.last_steps = 0
         self.total_steps = 0
         self.dispatches = 0
+        self.calls = 0
+        self.mesh = None
+        self._replicas = None
+
+    def use_mesh(self, mesh) -> None:
+        """Run this pipeline over ``mesh``'s data devices: the parameters
+        replicated on each, batches split over them. A data axis that is
+        not a power of two raises ValueError, a model axis > 1
+        NotImplementedError (ROADMAP A13b)."""
+        from ..parallel.mesh import (refuse_model_axis, replicated,
+                                     validate_data_axis)
+        validate_data_axis(mesh)
+        refuse_model_axis(mesh.shape.get("model", 1))
+        self.mesh = mesh
+        self._replicas = replicated(mesh, self.params)
 
     def batch_floor(self) -> int:
-        return 8
+        """The smallest batch bucket: the data chunks must divide it."""
+        return 8 if self.mesh is None else \
+            max(8, len(self.mesh.data_devices()))
+
+    def _decode(self, params, enc, prefix, noise_rows):
+        """Decode one batch (or chunk) of encoder output on its device."""
+        kw = dict(cfg=self.cfg, decode=self.decode,
+                  max_new_tokens=self.decode.max_new_tokens)
+        if self.decode.method == "beam":
+            return beam_generate(params, enc, prefix,
+                                 num_beams=self.decode.num_beams, **kw)
+        rng = torch.Generator(device=enc.device).manual_seed(self.calls) \
+            if self.decode.method == "sample" else None
+        return generate(params, enc, prefix, rng=rng, noise_rows=noise_rows,
+                        **kw)
 
     @torch.inference_mode()
-    def dispatch_mel(self, mel: torch.Tensor):
+    def dispatch_mel(self, mel):
         """Encode + decode on device-resident mel [B, n_mels, frames]
         (float32) by ``decode.method`` (module docstring). Returns
         (tokens, lengths) device tensors; kernels are queued on the
         current stream, the host syncs once per decode step for the
-        early exit."""
-        b = mel.shape[0]
-        prefix = torch.tensor(self.prefix_ids, dtype=torch.long,
-                              device=self.device).expand(b, -1)
-        enc = W.encode(self.params, mel.to(self.dtype), self.cfg,
-                       fused_blocks=self.fused_encoder_resolved)
-        kw = dict(cfg=self.cfg, decode=self.decode,
-                  max_new_tokens=self.decode.max_new_tokens)
-        if self.decode.method == "beam":
-            out = beam_generate(self.params, enc, prefix,
-                                num_beams=self.decode.num_beams, **kw)
+        early exit. With a mesh, ``mel`` is a list of one chunk a data
+        device (or one batch, which is split); every chunk's encoder is
+        queued first, and the chunks' tokens and lengths are gathered in
+        order to the first data device."""
+        self.calls += 1
+        replicas = self._replicas or [self.params]
+        if isinstance(mel, (list, tuple)):
+            chunks = list(mel)
         else:
-            rng = torch.Generator(device=self.device).manual_seed(
-                self.dispatches + 1) if self.decode.method == "sample" \
-                else None
-            out = generate(self.params, enc, prefix, rng=rng, **kw)
-        self.last_steps = out.steps
-        self.total_steps += out.steps
-        self.dispatches += 1
-        return out.tokens, out.lengths
+            chunks = list(torch.chunk(mel, len(replicas)))
+        if len(chunks) != len(replicas):
+            raise ValueError(f"{len(chunks)} chunks of mel for "
+                             f"{len(replicas)} data devices")
+        b = sum(m.shape[0] for m in chunks)
+        encs, lo = [], 0
+        for params, m in zip(replicas, chunks):
+            prefix = torch.tensor(self.prefix_ids, dtype=torch.long,
+                                  device=m.device).expand(m.shape[0], -1)
+            enc = W.encode(params, m.to(self.dtype), self.cfg,
+                           fused_blocks=self.fused_encoder_resolved)
+            encs.append((params, enc, prefix, (lo, b)))
+            lo += m.shape[0]
+        outs = [self._decode(*e) for e in encs]
+        self.last_steps = sum(o.steps for o in outs)
+        self.total_steps += self.last_steps
+        self.dispatches += len(outs)
+        dev = outs[0].tokens.device
+        return (torch.cat([o.tokens.to(dev) for o in outs]),
+                torch.cat([o.lengths.to(dev) for o in outs]))
 
     def transcribe_batch(self, waves: np.ndarray) -> list[str]:
         """waves: [B, mel_cfg.n_samples] float32 (already padded)."""
@@ -126,11 +175,13 @@ class WhisperTextPipeline:
         b = _bucket(n, self.batch_floor())
         if b > n:
             waves = np.pad(waves, ((0, b - n), (0, 0)))
+        devs = [self.device] if self.mesh is None \
+            else self.mesh.data_devices()
         with torch.inference_mode():
-            w = torch.as_tensor(np.asarray(waves, np.float32),
-                                device=self.device)
-            tokens, lengths = self.dispatch_mel(
-                log_mel_spectrogram(w, self.mel_cfg))
+            w = torch.from_numpy(np.asarray(waves, np.float32))
+            tokens, lengths = self.dispatch_mel([
+                log_mel_spectrogram(c.to(d), self.mel_cfg)
+                for c, d in zip(torch.chunk(w, len(devs)), devs)])
         texts = self.texts_from_tokens(
             tokens.cpu().numpy(), lengths.cpu().numpy(), n)
         self.stats.update(time.perf_counter() - t0, success=True, n=n)

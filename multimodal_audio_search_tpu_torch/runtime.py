@@ -56,8 +56,9 @@ COUNTS: dict[str, int] = {
     "cross_mlp_block": 0,
 }
 
-# called once when the library loads: the kernels' shared-memory limits
-# and the tensor-map encoder (K8, K5)
+# called once for each device, the first time a kernel is asked for on it:
+# the kernels' shared-memory limits and cluster sizes (attributes CUDA
+# keeps per device) and the tensor-map encoder (K8, K5)
 INIT = ("mas_attn_o_residual_int8_init",
         "mas_encoder_attention_init", "mas_encoder_block_init",
         "mas_quant_matmul_init",
@@ -67,6 +68,8 @@ INIT = ("mas_attn_o_residual_int8_init",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# the device indices INIT has run on
+_ready: set[int] = set()
 # filled by the first build: {"seconds", "library", "command", "log"}
 build_info: dict = {}
 
@@ -267,35 +270,72 @@ def _build(so: pathlib.Path) -> tuple[str, str]:
     return "\n".join(" ".join(c) for c in [*cmds, link]), log
 
 
-def kernels() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library.
+def _index(device) -> int:
+    """The index of a CUDA ``device`` (None or an index-less device: the
+    current one)."""
+    if isinstance(device, int):
+        return device
+    if device is not None and torch.device(device).index is not None:
+        return torch.device(device).index
+    return torch.cuda.current_device()
 
-    Called by the wrappers on their CUDA path only; importing this module
-    builds nothing. Raises if the card is not an sm_90 part or nvcc
-    fails."""
+
+def kernels(device=None) -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library, and set
+    ``device`` up for it (once per device index): the sm_90 check and the
+    INIT functions, run with ``device`` current. ``device`` None is the
+    current device.
+
+    Called through ``launch`` by the wrappers on their CUDA path only;
+    importing this module builds nothing. Raises if the card is not an
+    sm_90 part or nvcc fails."""
     global _lib
-    if _lib is not None:
+    idx = _index(device)
+    if idx in _ready:
         return _lib
     with _lock:
-        if _lib is not None:
+        if idx in _ready:
             return _lib
-        cap = torch.cuda.get_device_capability()
+        cap = torch.cuda.get_device_capability(idx)
         if cap != (9, 0):
             raise RuntimeError(
-                f"kernels are built for sm_90a (Hopper); this card is "
+                f"kernels are built for sm_90a (Hopper); card {idx} is "
                 f"sm_{cap[0]}{cap[1]}")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libmas_kernels_{_source_key()}.so"
-        t0 = time.perf_counter()
-        cmd, log = _build(so) if not so.exists() else ("", "")
-        lib = ctypes.CDLL(str(so))
-        _declare(lib)
-        for name in INIT:
-            check_launch(getattr(lib, name)(), name)
-        build_info.update(seconds=time.perf_counter() - t0, library=str(so),
-                          command=cmd, log=log)
+        if _lib is None:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            so = BUILD_DIR / f"libmas_kernels_{_source_key()}.so"
+            t0 = time.perf_counter()
+            cmd, log = _build(so) if not so.exists() else ("", "")
+            lib = ctypes.CDLL(str(so))
+            _declare(lib)
+            build_info.update(seconds=time.perf_counter() - t0,
+                              library=str(so), command=cmd, log=log)
+        else:
+            lib = _lib
+        with torch.cuda.device(idx):
+            for name in INIT:
+                check_launch(getattr(lib, name)(), name)
         _lib = lib
+        _ready.add(idx)
         return lib
+
+
+def ready_devices() -> list[int]:
+    """The device indices the library has been set up on."""
+    return sorted(_ready)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the library's ``name`` (a kernel's launch or a plan's
+    occupancy query) with ``args`` on ``device``, the device of the
+    tensors it reads: the library set up for that device, the call made
+    with it current (a launch runs on the current device, and the
+    per-device attributes and occupancy queries read it), and a non-zero
+    return raised. Every wrapper goes through here."""
+    lib = kernels(device)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args)
+    check_launch(rc, name)
 
 
 def check_launch(rc: int, name: str) -> None:

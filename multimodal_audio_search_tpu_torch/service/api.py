@@ -16,10 +16,15 @@ is no silent move to the CPU).
 ``FusionConfig.ann="ivf"`` (``MAS_ANN=ivf``) opts the searcher into IVF
 candidate generation (index/ivf.py); its layout is rebuilt on the write
 path after each ingest (``_prewarm_searcher``, once at the end of an
-``ingest_many`` or of the server's async job queue). Not ported: meshes
-(ROADMAP A13). ``reconfigure`` builds every transfer of TRANSFER_CHOICES
-and every embedder of EMBEDDER_CHOICES (MiniLM-L6, all-mpnet-base-v2,
-the clip-ViT-B-32-multilingual-v1 text tower).
+``ingest_many`` or of the server's async job queue).
+``EngineConfig.data_parallel`` (a power of two) builds the engine's mesh
+(parallel/mesh.py::mesh_from_config on the engine's device): ingest
+batches split over its data devices and the index sharded on N over them
+(the searcher, its warm-up and its IVF layout); ``model_parallel > 1``
+raises NotImplementedError (ROADMAP A13b). ``reconfigure`` builds every
+transfer of TRANSFER_CHOICES and every embedder of EMBEDDER_CHOICES
+(MiniLM-L6, all-mpnet-base-v2, the clip-ViT-B-32-multilingual-v1 text
+tower), over the engine's mesh.
 """
 from __future__ import annotations
 
@@ -82,6 +87,14 @@ class AudioSearchEngine:
         self._combined_searcher = None
         # read and set by the server's ingest worker, as on the JAX engine
         self._defer_prewarm = False
+        # the mesh every engine path runs over (ingest batches and the
+        # index split over its data devices); None = one device, the
+        # reference's execution model
+        from ..parallel.mesh import mesh_from_config
+        self.mesh = mesh_from_config(self.cfg, self.device)
+        if self.mesh is not None and ingest_pipeline is not None \
+                and ingest_pipeline.mesh is None:
+            ingest_pipeline.use_mesh(self.mesh)
 
     # -------------------------------------------------------------- models
     def load_all_models(self, warmup: bool = False) -> bool:
@@ -93,7 +106,8 @@ class AudioSearchEngine:
         if self._ingest is None:
             t0 = time.perf_counter()
             self._ingest = make_default_ingest(
-                self.cfg, self.stats, seed=self._seed, device=self.device)
+                self.cfg, self.stats, seed=self._seed, device=self.device,
+                mesh=self.mesh)
             self.stats.pipelines["text_embedder"].load_time = \
                 time.perf_counter() - t0
         if warmup:
@@ -112,8 +126,8 @@ class AudioSearchEngine:
                                    keep_audio=False)
                 tmp.add({"segment_id": "w"},
                         np.ones(self.cfg.embed_dim, np.float32), None)
-                FusionSearcher(tmp, self.embedder,
-                               cfg=self.cfg.fusion)("warmup query")
+                FusionSearcher(tmp, self.embedder, cfg=self.cfg.fusion,
+                               mesh=self.mesh)("warmup query")
             self.stats.log.log("warmup", time.perf_counter() - t0)
         return True
 
@@ -226,9 +240,11 @@ class AudioSearchEngine:
                 self.cfg.analyzer, embed_fn=self.embedder,
                 cfg=self.cfg.fusion)
             self._searcher = FusionSearcher(
-                self.store, self.embedder, analyzer, self.cfg.fusion)
+                self.store, self.embedder, analyzer, self.cfg.fusion,
+                mesh=self.mesh)
             # FusionConfig.ann="ivf" (MAS_ANN=ivf) opts the production
-            # searcher into sublinear candidate generation (index/ivf.py)
+            # searcher into sublinear candidate generation (index/ivf.py;
+            # with a mesh, per-shard buckets and a merge of the candidates)
             if self.cfg.fusion.ann == "ivf":
                 self._searcher.enable_ivf(
                     n_probe=self.cfg.fusion.ann_nprobe)
@@ -406,7 +422,8 @@ class AudioSearchEngine:
         # next lazy rebuild.
         t0 = time.perf_counter()
         new_ingest = make_default_ingest(
-            cfg, self.stats, seed=self._seed, device=self.device)
+            cfg, self.stats, seed=self._seed, device=self.device,
+            mesh=self.mesh)
         self.stats.pipelines["text_embedder"].load_time = \
             time.perf_counter() - t0
         # commit point: everything below is in-memory assignment only

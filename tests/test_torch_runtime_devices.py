@@ -1,0 +1,228 @@
+"""Every kernel launch on its tensor's device, on the CPU.
+
+The kernel library is replaced by a fake whose every function records
+the device ``torch.cuda.device`` last entered (the guard, replaced by a
+recorder); the wrappers' launch paths are called with tensors on the
+``meta`` device, so an entered device can only have come from the
+tensors. Checked:
+
+* ``runtime.kernels`` runs the INIT functions and the sm_90 check once
+  per device index, with that device current, builds the library once,
+  and refuses a card that is not sm_90;
+* every wrapper's launch and every plan query (``*_fit``) runs under its
+  tensor's device, through ``runtime.launch``, the only module that
+  calls the library.
+"""
+import ast
+import ctypes
+import pathlib
+
+import pytest
+import torch
+
+from multimodal_audio_search_tpu_torch import runtime
+from multimodal_audio_search_tpu_torch.ops import (attention, cached_attention,
+                                                   cross_attention,
+                                                   decoder_block,
+                                                   encoder_block,
+                                                   fused_search, quant,
+                                                   stream_read)
+
+PKG = pathlib.Path(runtime.__file__).resolve().parent
+META = torch.device("meta")
+
+
+class Guard:
+    """Stands in for torch.cuda.device: records the entered devices."""
+    stack: list = []
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        d = self.device
+        Guard.stack.append(d if isinstance(d, int) else torch.device(d))
+
+    def __exit__(self, *exc):
+        Guard.stack.pop()
+
+
+class FakeLib:
+    """Any mas_* function: records (name, the device current at the call)
+    and answers a plan query's out-parameter with 2 blocks."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mas_"):
+            raise AttributeError(name)
+
+        def fn(*args):
+            self.calls.append((name, Guard.stack[-1] if Guard.stack
+                               else None))
+            for a in args:
+                if type(a).__name__ == "CArgObject":
+                    a._obj.value = 2
+            return 0
+        return fn
+
+
+@pytest.fixture
+def fake(monkeypatch, tmp_path):
+    lib = FakeLib()
+    Guard.stack = []
+    caps = []
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda i: caps.append(i) or ((8, 0) if i == 7
+                                                     else (9, 0)))
+    monkeypatch.setattr(runtime, "_lib", lib)
+    monkeypatch.setattr(runtime, "_ready", set())
+    monkeypatch.setattr(runtime, "COUNTS", dict.fromkeys(runtime.COUNTS, 0))
+    monkeypatch.setattr(runtime, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(runtime, "raw_stream", lambda dev: 0)
+    monkeypatch.setattr(runtime, "sm_count", lambda dev: 132)
+    # plan and scratch caches keyed by device: fresh, so no meta entry
+    # outlives the test
+    for mod, names in ((cross_attention, ("_SCRATCH", "_FIT", "_PLAN")),
+                       (cached_attention, ("_FIT",)),
+                       (quant, ("_SCRATCH",)),
+                       (decoder_block, ("_FIT", "_X_FIT", "_X_PLAN",
+                                        "_COUNTERS", "_BUFS"))):
+        for n in names:
+            monkeypatch.setattr(mod, n, {})
+    encoder_block._fit.cache_clear()
+    encoder_block._plan.cache_clear()
+    yield lib, caps
+    encoder_block._fit.cache_clear()
+    encoder_block._plan.cache_clear()
+
+
+def test_init_runs_once_per_device_index(fake, monkeypatch, tmp_path):
+    lib, caps = fake
+    # the first call builds (here: loads the fake) and sets device 0 up
+    monkeypatch.setattr(runtime, "_lib", None)
+    monkeypatch.setattr(runtime, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(runtime, "_build", lambda so: ("nvcc ...", "log"))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: lib)
+    monkeypatch.setattr(runtime, "_declare", lambda lib: None)
+    for d in (torch.device("cuda", 0), torch.device("cuda", 1),
+              torch.device("cuda", 1), 1, None, torch.device("cuda", 0)):
+        assert runtime.kernels(d) is lib
+    init = [c for c in lib.calls if c[0] in runtime.INIT]
+    assert init == [(n, 0) for n in runtime.INIT] + \
+        [(n, 1) for n in runtime.INIT]
+    assert caps == [0, 1] and runtime.ready_devices() == [0, 1]
+    assert runtime.build_info["command"] == "nvcc ..."
+    with pytest.raises(RuntimeError, match="card 7 is sm_80"):
+        runtime.kernels(torch.device("cuda", 7))
+    assert runtime.ready_devices() == [0, 1]
+
+
+def _m(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _launches():
+    """One call of every wrapper's launch path (and so of every plan
+    query) on meta tensors."""
+    f32, i8 = torch.float32, torch.int8
+    b, h, t, d = 2, 2, 8, 64
+    hd = h * d
+    q = _m(b, h, t, d)
+    x3, wo, bo = _m(b, t, hd), _m(hd, hd), _m(hd)
+    yield "K8", lambda: attention._launch(q, _m(b, h, t, d), _m(b, h, t, d))
+    yield "K1", lambda: encoder_block._launch(q, q, q, x3, wo, bo,
+                                              cluster=1)
+    yield "K10", lambda: encoder_block._launch(q, q, q, x3, wo, bo,
+                                               pair_heads=True, cluster=1)
+    yield "K11", lambda: encoder_block._launch(q, q, q, x3, wo, bo,
+                                               form="post", cluster=1)
+    yield "K9", lambda: encoder_block._launch_int8(
+        q, _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
+        _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32), x3, wo, bo)
+    qm = _m(b, hd)
+    yield "K2", lambda: cross_attention._launch(qm, _m(b, t, hd),
+                                                _m(b, t, hd), h, t)
+    yield "K6", lambda: cross_attention._launch_int8(
+        qm, _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32),
+        _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32), h, t)
+    yield "K7", lambda: cached_attention._launch(
+        _m(b, h, d), _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
+        _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32))
+    b16, f = 16, 256
+    x, vf, vb, w = _m(b16, hd), _m(hd, dtype=f32), _m(hd), _m(hd, hd)
+    selfw = (x, vf, vb, w, vb, w, w, vb, w, vb)
+    cache = _m(b16, t, hd)
+    yield "K3", lambda: decoder_block._launch_self(
+        *selfw, cache, cache, 3, h, 1e-5)
+    yield "K3-q", lambda: decoder_block._launch_self(
+        *selfw, cache, cache, 3, h, 1e-5, tail=(vf, vb, w, vb))
+    mlp = (x, vf, vb, _m(hd, f), _m(f), _m(f, hd), vb)
+    yield "K4", lambda: decoder_block._launch_mlp(*mlp, 1e-5)
+    yield "K4-o", lambda: decoder_block._launch_mlp(
+        *mlp, 1e-5, head=(_m(b16, hd, dtype=f32), w, vb))
+    yield "K14", lambda: decoder_block._launch_cross_mlp(
+        x, vf, vb, w, vb, w, vb, vf, vb, _m(hd, f), _m(f), _m(f, hd), vb,
+        cache, cache, h, 1e-5)
+    xq = _m(4, 64)
+    yield "K5", lambda: quant._launch(xq, _m(64, 32, dtype=i8),
+                                      _m(32, dtype=f32), _m(32), f32)
+    yield "K5 table", lambda: quant._launch(
+        xq, None, _m(40, dtype=f32), None, f32, wq_t=_m(40, 64, dtype=i8))
+    yield "K12", lambda: fused_search._launch(
+        _m(32, dtype=f32), _m(10, 2, 32, dtype=f32),
+        _m(10, 2, dtype=torch.bool), 0.6, 0.4, 0.1)
+    yield "K13", lambda: stream_read._launch(_m(16, 64), 1)
+
+
+def test_every_launch_enters_its_tensors_device(fake):
+    lib, _ = fake
+    called = set()
+    for kernel, call in _launches():
+        lib.calls.clear()
+        call()
+        mine = [c for c in lib.calls if c[0] not in runtime.INIT]
+        assert mine, kernel
+        for name, dev in mine:
+            assert dev == META, (kernel, name, dev)
+            called.add(name)
+    # the encoder's plan query, on the device it is asked for
+    lib.calls.clear()
+    encoder_block.cluster_fit(2, device=torch.device("cuda", 1))
+    assert [c for c in lib.calls if c[0] not in runtime.INIT] == \
+        [("mas_encoder_block_fit", torch.device("cuda", 1))]
+    assert runtime.ready_devices() == [0, 1]
+    called.add("mas_encoder_block_fit")
+    assert called == {
+        "mas_encoder_attention", "mas_attn_o_residual",
+        "mas_attn_o_residual_paired", "mas_attn_o_residual_ab",
+        "mas_attn_o_residual_int8", "mas_single_query_attention",
+        "mas_single_query_attention_int8",
+        "mas_single_query_attention_int8_fit", "mas_int8_cached_attention",
+        "mas_int8_cached_attention_fit", "mas_decoder_self_block",
+        "mas_decoder_self_block_fit", "mas_decoder_mlp_block",
+        "mas_cross_mlp_block", "mas_cross_mlp_attention_fit",
+        "mas_quant_matmul", "mas_quant_matmul_table", "mas_fused_scores",
+        "mas_stream_read", "mas_encoder_block_fit"}
+    assert all(runtime.COUNTS[k] for k in (
+        "encoder_attention", "single_query_attention", "decoder_self_block",
+        "decoder_self_block_q", "decoder_mlp_block", "decoder_mlp_block_o",
+        "cross_mlp_block", "quant_matmul", "fused_scores", "stream_read"))
+
+
+def test_only_runtime_calls_the_library():
+    """No module but runtime.py reaches the library itself: every other
+    call goes through runtime.launch, which enters the device."""
+    for path in sorted(PKG.rglob("*.py")):
+        if path.name == "runtime.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and isinstance(
+                    node.func, ast.Attribute) and node.func.attr in (
+                        "kernels", "check_launch"):
+                raise AssertionError(f"{path.relative_to(PKG)}:"
+                                     f"{node.lineno} calls "
+                                     f"{node.func.attr}()")

@@ -675,7 +675,7 @@ def test_device_policy():
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
     dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
-    dict(data_parallel=2),
+    dict(model_parallel=2),
 ])
 def test_unported_modes_raise(change):
     cfg = tcfg.EngineConfig().replace(
@@ -709,6 +709,8 @@ def test_port_runs_without_jax():
         from multimodal_audio_search_tpu_torch.pipelines import (
             longform, streaming)
         from multimodal_audio_search_tpu_torch.service import server
+        from multimodal_audio_search_tpu_torch.parallel import (
+            distributed, mesh, sharding)
         mel = MelConfig(padded_seconds=2.0)
         w = W.PRESETS["test"]
         d = DecodeConfig(max_new_tokens=4, fused_encoder="int8")
@@ -730,6 +732,8 @@ def test_port_runs_without_jax():
         assert isinstance(longform.transcribe_long(asr, x[: 16000 * 5]),
                           str)
         assert server.serve and cli.main and len(eng.store) >= 1
+        assert mesh.make_mesh and sharding.shard_index and \
+            distributed.make_dcn_mesh
         # the secondary models (ROADMAP A11) at toy widths
         from multimodal_audio_search_tpu_torch.audio import clap_features
         from multimodal_audio_search_tpu_torch.models import (

@@ -1,6 +1,7 @@
 """Run chosen phases of chip_smoke.py alone on one CUDA card.
 
     python3 tools/torch_smoke_phases.py search,embedders,clap,service
+    python3 tools/torch_smoke_phases.py decoder,mesh
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -8,15 +9,19 @@ against their plain versions, K12 also at D=768), ``embedders`` and
 ``clap`` (the secondary models at published widths) and ``service`` (the
 HTTP surface, after the ``[audio]`` phase that makes its uploads). Each
 phase prints its lines as in chip_smoke.py and raises on a failed check;
-the wall seconds of each phase follow it.
+the wall seconds of each phase follow it. ``decoder`` is K3, K3-q, K4
+and K4-o against their plain versions (K3 and K3-q with their repeats),
+``mesh`` the mesh's data and DCN axes (search at 1M segments, the
+data-parallel ingest).
 """
 import os
 import sys
 import time
 
 import numpy as np
+import torch
 
-PHASES = ("search", "embedders", "clap", "service")
+PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh")
 
 
 def main(names: list[str]) -> int:
@@ -35,11 +40,14 @@ def main(names: list[str]) -> int:
     rng = np.random.default_rng(0)
     clips = [("long.wav", C.make_audio(320, rng)),
              ("short.wav", C.make_audio(25, rng))]
-    run = {"search": lambda: C.search_kernel_phase(card),
+    run = {"decoder": lambda: C.decoder_kernel_phase(
+               card, torch.Generator().manual_seed(0)),
+           "search": lambda: C.search_kernel_phase(card),
            "embedders": lambda: C.embedders_phase(card, clips),
            "clap": lambda: C.clap_phase(card, clips),
            "service": lambda: C.service_phase(card, rng, C.audio_phase(
-               card, np.random.default_rng(1))["uploads"])}
+               card, np.random.default_rng(1))["uploads"]),
+           "mesh": lambda: C.mesh_phase(card, clips)}
     for name in PHASES:
         if name in names:
             t0 = time.time()
