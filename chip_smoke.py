@@ -198,6 +198,26 @@ Phases, one line each (``[phase] ...``):
    the unsharded searcher identical), and the device indices the
    kernel library was set up on.
 
+12. the mesh's model axis (``[tp]``, after 11; Megatron tensor
+   parallelism over TP_MP ranks, the card named once a rank):
+   tp_kernel_phase holds the kernels' partial forms at a rank's shard to
+   their plain twins -- K1p at B=32, T=1500 on whisper-base's, -tiny's
+   and -large-v3's H / 2 heads with the layer's Wo rows (the attention
+   term, K1_Y_MAX / K1_Y_L2; 16 repeats bit-equal), K2 on 4 and 3 heads
+   (cross T=1500, self L=68), K3p (B=32, L=68, pos=67) and K4p (F / 2)
+   at base width (DELTA_MAX, KV_ATOL; 16 repeats each) -- each timed
+   (CUDA events and the profiler's device ms) beside its square form,
+   and the ranks' partials through model_sum against the square K1 / K3
+   / K4 on the whole layer; then mesh_ingest_check with a model axis of
+   TP_MP at (dp, mp) = (1, 2) and (2, 2) under the default config and
+   fast_lossless on the 25 s clip, against the unsplit engine: every
+   launch once a rank (K1 = 2 x the unsplit 10; K2, K3, K4 = 2 x the
+   unsplit counts a decode step, every chunk at least 8 rows under
+   fused_layer, so K3 and K4 run at (2, 2) too), the same segments, the
+   encoder within ENC_MEAN_ERR_MAX, tokens equal outside the logits'
+   margin, top-10 identical to the sharded and the unsplit engines'
+   searchers; each split and unsplit dispatch's wall ms beside.
+
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
@@ -2326,7 +2346,7 @@ def parity_shapes(ing) -> list[tuple]:
     out = []
     for pipe in (ing.caption, ing.asr):
         c, dec = pipe.cfg, pipe.decode
-        rows = bucket_pow2(ing.cfg.ingest_batch, pipe.batch_floor()) * (
+        rows = bucket_pow2(ing.cfg.ingest_batch, ing.batch_floor()) * (
             dec.num_beams if dec.method == "beam" else 1)
         l = len(pipe.prefix_ids) + dec.max_new_tokens
         out.append((f"d={c.d_model} {dec.method}", rows, l, c.d_model,
@@ -3962,90 +3982,145 @@ def _ingest_batch(ing, wave: np.ndarray):
     waves = [wave[w.start_sample: w.start_sample + w.length] for w in wins]
     seg_len = min(int(cfg.segment.segment_seconds * SR),
                   ing.asr.mel_cfg.n_samples)
-    b = bucket_pow2(len(waves), ing.asr.batch_floor())
+    b = bucket_pow2(len(waves), ing.batch_floor())
     transfer = ing.last_transfer_resolved or cfg.transfer_dtype
     q = ing._encode_transfer(waves, b, seg_len, scale, transfer)
     return len(waves), q, transfer, seg_len
 
 
-def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices) -> dict:
-    """The data-parallel ingest: make_default_ingest(cfg, mesh=m) over
-    ``devices`` (one card named twice on the card) against the same
-    config without a mesh on devices[0], both ingesting ``wave``. The
-    split engine's K1/K2 launches equal expected_launches for its chunks
-    (its dispatches count one a chunk); its segments (ids, times) equal
-    the unsplit one's; on the first batch, the chunks' encoder outputs
-    are within ENC_MEAN_ERR_MAX of the whole batch's (mean |err|) and, in
-    both Whisper models, a row's tokens differ only where the unsplit
-    decode had a step with a top-2 margin within LOGITS_ERR_REL of its
-    logits (decode_margins; such rows are counted, and the texts follow
-    the tokens); the own-segment query and ANN_QUERIES give identical
-    top-10 ids from a sharded and an unsharded searcher over the split
-    engine's store."""
+def split_expected(fused, steps, disp, asr, cap) -> dict:
+    """expected_launches of a run whose Whisper pipelines each run over
+    their ``model_parallel`` ranks (1 without a model axis): every launch
+    of a model once a rank."""
+    a = expected_launches(fused, None, (steps[0], 0), (disp[0], 0), asr, cap)
+    c = expected_launches(fused, None, (0, steps[1]), (0, disp[1]), asr, cap)
+    return {k: a[k] * asr.model_parallel + c[k] * cap.model_parallel
+            for k in a}
+
+
+def split_encode(pipe, mels) -> list:
+    """A split pipeline's encoder output on each data row's chunk of
+    ``mels``: its replicas', or its head shards' (encode_tp, the first
+    rank's copy)."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    if pipe._shards is not None:
+        return [W.encode_tp(list(row), m.to(pipe.dtype), pipe.cfg,
+                            fused_blocks=pipe.fused_encoder_resolved)[0]
+                for row, m in zip(pipe._shards, mels)]
+    return [W.encode(r, m.to(pipe.dtype), pipe.cfg,
+                     fused_blocks=pipe.fused_encoder_resolved)
+            for r, m in zip(pipe._replicas, mels)]
+
+
+def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
+                      mp: int = 1, whole=None) -> dict:
+    """The split ingest: make_default_ingest(cfg, mesh=m) over
+    ``devices`` (one card named twice on the card), a (len / mp, mp)
+    mesh, against the same config without a mesh on devices[0] (or the
+    ``whole`` result of an earlier call, reused), both ingesting
+    ``wave``. The split engine's launches equal split_expected for its
+    chunks (its dispatches count one a chunk; with a model axis, every
+    launch once a rank); its segments (ids, times) equal the unsplit
+    one's; on the first batch, the chunks' encoder outputs are within
+    ENC_MEAN_ERR_MAX of the whole batch's (mean |err|) and, in both
+    Whisper models, a row's tokens differ only where the unsplit decode
+    had a step with a top-2 margin within LOGITS_ERR_REL of its logits
+    (decode_margins; such rows are counted, and the texts follow the
+    tokens); the own-segment query and ANN_QUERIES give identical top-10
+    ids from a sharded and an unsharded searcher over the split engine's
+    store, and with a model axis (phase ``[tp]``) from the unsplit
+    engine's searcher where every text is equal."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
     from multimodal_audio_search_tpu_torch.index.search import FusionSearcher
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.parallel.mesh import make_mesh
     from multimodal_audio_search_tpu_torch.pipelines.ingest import (
         make_default_ingest)
+    tag = "[tp]" if mp > 1 else "[mesh]"
     dev = torch.device(devices[0])
-    mesh = make_mesh(len(devices), devices=devices)
+    mesh = make_mesh(len(devices), model_parallel=mp, devices=devices)
+    fused = cfg.asr_decode.fused_layer
     engines, counts = {}, {}
+    if whole is not None:
+        engines["whole"] = whole["engine"]
+        counts["whole"] = whole["launches_unsplit"]
     for label, m in (("split", mesh), ("whole", None)):
+        if label in engines:
+            continue
+        t0 = time.perf_counter()
         ing = make_default_ingest(cfg, seed=0, device=dev, mesh=m)
         eng = AudioSearchEngine(cfg=cfg, ingest_pipeline=ing, device=dev)
         asr, cap = ing.asr, ing.caption
         runtime.reset_counts()
         steps0 = (asr.total_steps, cap.total_steps)
         disp0 = (asr.dispatches, cap.dispatches)
+        t1 = time.perf_counter()
         segs = eng.ingest_waveform(wave, SR, "mesh.wav")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
         counts[label] = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
         steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
         disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
-        exp = expected_launches(False, None, steps, disp, asr, cap)
+        exp = split_expected(fused, steps, disp, asr, cap)
         if dev.type == "cuda" and (counts[label] != exp or not all(
                 counts[label][k] > 0 for k in exp if exp[k])):
-            raise AssertionError(f"[mesh] {label} ingest: launches "
+            raise AssertionError(f"{tag} {label} ingest: launches "
                                  f"{counts[label]} != {exp}")
-        engines[label] = (eng, segs, disp, exp)
-    (eng, segs, disp, exp), (eng1, segs1, _, _) = engines["split"], \
-        engines["whole"]
+        engines[label] = (eng, segs, disp, exp, {
+            "build_s": t1 - t0, "ingest_s": t2 - t1, "steps": steps})
+    (eng, segs, disp, exp, wall), (eng1, segs1, _, _, wall1) = \
+        engines["split"], engines["whole"]
+    # with one data row the split run's launches are mp x the unsplit
+    # run's wherever both decoded the same number of steps
+    mp_x_unsplit = counts["split"] == {k: mp * v
+                                       for k, v in counts["whole"].items()}
+    if dev.type == "cuda" and len(mesh.data_devices()) == 1 and \
+            wall["steps"] == wall1["steps"] and not mp_x_unsplit:
+        raise AssertionError(f"{tag} split ingest: launches "
+                             f"{counts['split']} != {mp} x the unsplit "
+                             f"{counts['whole']}")
     keys = ("segment_id", "start_time", "end_time", "duration")
     if [[s[k] for k in keys] for s in segs] != \
             [[s[k] for k in keys] for s in segs1]:
-        raise AssertionError("[mesh] split ingest: segments differ")
+        raise AssertionError(f"{tag} split ingest: segments differ")
     # ---- the first batch, decoded whole and split
     ing, ing1 = eng.ingest_pipeline, eng1.ingest_pipeline
+    # each engine's own bucket: the split one's may hold more rows (its
+    # floor keeps every chunk at the fused gate's 8 under fused_layer)
     n, q, transfer, seg_len = _ingest_batch(ing1, wave)
-    chunks = torch.chunk(q, len(devices))
+    _, q2, transfer2, _ = _ingest_batch(ing, wave)
+    chunks = torch.chunk(q2, len(mesh.data_devices()))
     rows = {}
     with torch.inference_mode():
         mel1 = ing1._device_mel(q.to(dev), transfer, seg_len)
-        mels = [ing._device_mel(c.to(d), transfer, seg_len)
+        mels = [ing._device_mel(c.to(d), transfer2, seg_len)
                 for c, d in zip(chunks, mesh.data_devices())]
         for name in ("asr", "caption"):
             p1, p2 = getattr(ing1, name), getattr(ing, name)
             enc1 = W.encode(p1.params, mel1.to(p1.dtype), p1.cfg,
                             fused_blocks=p1.fused_encoder_resolved)
-            enc2 = torch.cat([W.encode(r, m.to(p2.dtype), p2.cfg,
-                                       fused_blocks=p2.fused_encoder_resolved)
-                              .to(dev) for r, m in zip(p2._replicas, mels)])
+            enc2 = torch.cat([e.to(dev) for e in split_encode(p2, mels)])
+            enc2 = enc2[: enc1.shape[0]]
             enc_err = float((enc1.float() - enc2.float()).abs().mean())
-            t1, l1 = p1.dispatch_mel(mel1)
-            t2, l2 = p2.dispatch_mel(mels)
+            ms1, (t1, l1) = _wall_ms(lambda: p1.dispatch_mel(mel1), dev)
+            ms2, (t2, l2) = _wall_ms(lambda: p2.dispatch_mel(mels), dev)
             margin = decode_margins(p1, enc1, t1, l1)[:n]
             close = margin <= 0
             differ = (t1[:n] != t2[:n]).any(dim=1) | (l1[:n] != l2[:n])
             if enc_err > ENC_MEAN_ERR_MAX or bool((differ & ~close).any()):
                 raise AssertionError(
-                    f"[mesh] {name}: encoder mean |err| {enc_err:.3e} "
+                    f"{tag} {name}: encoder mean |err| {enc_err:.3e} "
                     f"(limit {ENC_MEAN_ERR_MAX}); rows whose tokens differ "
                     f"{differ.tolist()}, rows within the margin "
                     f"{close.tolist()}")
             rows[name] = {"encoder_mean_abs_err": enc_err,
                           "rows": n, "rows_within_margin": int(close.sum()),
                           "rows_differing": int(differ.sum()),
-                          "min_margin": float(margin.min())}
+                          "min_margin": float(margin.min()),
+                          "model_parallel": p2.model_parallel,
+                          "dispatch_ms": ms2, "dispatch_ms_unsplit": ms1,
+                          "steps": p2.last_steps}
     texts_equal = sum(a["asr_text"] == b["asr_text"] and
                       a["audio_description"] == b["audio_description"]
                       for a, b in zip(segs, segs1))
@@ -4059,15 +4134,28 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices) -> dict:
             eng.store, ing.embedder, cfg=cfg.fusion, mesh=m)(qt)[0]]
             for m in (mesh, None)]
         if hits[0] != hits[1]:
-            raise AssertionError(f"[mesh] searcher {qt!r}: sharded "
+            raise AssertionError(f"{tag} searcher {qt!r}: sharded "
                                  f"{hits[0]} != unsharded {hits[1]}")
+        if mp > 1 and texts_equal == len(segs):
+            whole_hits = [h["index"] for h in eng1.search(qt)[0]]
+            if whole_hits != hits[0]:
+                raise AssertionError(f"{tag} {qt!r}: top-10 {hits[0]} != "
+                                     f"the unsplit engine's {whole_hits}")
         tops.append(hits[0])
-    out = {"dp": len(devices), "segments": len(segs),
+    out = {"dp": len(mesh.data_devices()), "mp": mp, "segments": len(segs),
            "texts_equal": texts_equal, "decode": rows,
            "dispatches": {"asr": disp[0], "caption": disp[1]},
            "launches": counts["split"], "expected": exp,
-           "launches_unsplit": counts["whole"], "top10": tops}
-    phase("mesh", card=card, step="data-parallel ingest", **out)
+           "launches_unsplit": counts["whole"],
+           "launches_mp_x_unsplit": mp_x_unsplit, "top10": tops,
+           "top10_equal_unsplit": mp > 1 and texts_equal == len(segs),
+           "wall": wall, "wall_unsplit": wall1}
+    if mp > 1:
+        phase("tp", card=card, step=f"(dp, mp) = ({out['dp']}, {mp}) "
+                                    f"ingest", **out)
+    else:
+        phase("mesh", card=card, step="data-parallel ingest", **out)
+    out["engine"] = engines["whole"]
     return out
 
 
@@ -4095,6 +4183,242 @@ def mesh_phase(card: str, clips) -> dict:
           kernels_ready_on=runtime.ready_devices())
     torch.cuda.empty_cache()
     return out["launches"]
+
+# [tp]: the mesh's model axis (Megatron tensor parallelism) over TP_MP
+# ranks, the card named once a rank. The kernels' partial forms (K1p,
+# K3p, K4p) at a rank's shard of each width: (label, heads, D) for K1p
+# (B=32, T=1500, H / TP_MP heads, Wo [H / TP_MP * 64, D]), whisper-base
+# for K3p (B=32, L=68, pos=67) and K4p (F / TP_MP = 1024). Each is held
+# to its plain twin as its square form is (K1p: the attention term alone,
+# K1_Y_MAX / K1_Y_L2; K3p, K4p: the block term, DELTA_MAX / DELTA_L2, and
+# K3p's cache row at KV_ATOL / KV_RTOL) and, summed over the ranks by
+# model_sum, to the square kernel on the whole layer.
+TP_MP = 2
+TP_K1_WIDTHS = (("base", 8, 512), ("tiny", 6, 384), ("large-v3", 20, 1280))
+TP_PATHS = (("default", None), ("fast_lossless", "fast_lossless"))
+
+
+def k1p_bound(b: int, t: int, hl: int, hdo: int) -> dict:
+    """bound() of K1p: q/k/v of the rank's hl heads, its Wo rows and the
+    float32 output; the two attention products and the o-projection."""
+    hd = hl * 64
+    return bound(3 * b * t * hd * 2 + hd * hdo * 2 + b * t * hdo * 4,
+                 bf16=4 * b * hl * t * t * 64 + 2 * b * t * hd * hdo)
+
+
+def tp_shard_rows(a: torch.Tensor, j: int, axis: int) -> torch.Tensor:
+    """Rank j's contiguous block of ``a`` on ``axis`` (TP_MP ranks)."""
+    return torch.chunk(a, TP_MP, axis)[j].contiguous()
+
+
+def tp_kernel_phase(card: str, gen: torch.Generator, k1: dict, k2: dict,
+                    dec: list, device: str = "cuda", b: int = 32,
+                    t: int = 1500) -> None:
+    """K1p, K2 on head shards, K3p and K4p against their plain twins at a
+    rank's shard, each timed beside its square form; the ranks' K1p, K3p
+    and K4p partials through model_sum against the square kernel on the
+    whole layer. Appends each case to its kernel's cases. ``device``,
+    ``b`` and ``t`` let the tests rehearse the checks on the CPU at a
+    small size (their twins then stand in for the kernels)."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
+    from multimodal_audio_search_tpu_torch.parallel.mesh import model_sum
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+    for label, heads, hdo in TP_K1_WIDTHS:
+        hl = heads // TP_MP
+        q, k, v, _, _, _ = k1_inputs(gen, b, t, hl, residual=False,
+                                     device=device)
+        wo = (torch.randn(hl * 64, hdo, generator=gen) / math.sqrt(hdo)).to(
+            device, q.dtype)
+        fn = (lambda: K1.fused_attention_o_residual(q, k, v, None, wo, None,
+                                                    partial=True))
+        got = fn()
+        ref = K1.attention_o_residual_plain(q, k, v, None, wo, None,
+                                            partial=True)
+        sync()
+        sq = k1_inputs(gen, b, t, heads, device=device)
+        case = {"shape": f"TP {label} rank of {TP_MP}: B={b} T={t} H={hl} "
+                         f"Wo [{hl * 64}, {hdo}] (partial)",
+                "inputs": "attention",
+                **(cluster_case(b, t, hl) if device == "cuda" else {}),
+                **check_k1(f"K1p {label}", got, ref, False),
+                "repeats_equal": check_repeats(f"K1p {label}", fn, got,
+                                               K3_REPEATS),
+                "ms": time_ms(fn),
+                "plain_ms": time_ms(lambda: K1.attention_o_residual_plain(
+                    q, k, v, None, wo, None, partial=True), reps=5),
+                "square_ms": time_ms(
+                    lambda: K1.fused_attention_o_residual(*sq)),
+                "square_shape": f"B={b} T={t} H={heads}",
+                **k1p_bound(b, t, hl, hdo)}
+        if device == "cuda":
+            case.update(device_ms=device_ms(fn), square_device_ms=device_ms(
+                lambda: K1.fused_attention_o_residual(*sq)))
+        k1["cases"].append(case)
+        phase("tp", kernel="K1", card=card,
+              tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}, **case)
+        del q, k, v, wo, got, ref, sq
+        torch.cuda.empty_cache()
+    # the ranks' partials summed = the square K1 on the whole layer
+    for inputs, _, residual in K1_CASES[:2]:
+        q, k, v, x, wo, bo = k1_inputs(gen, b, t, 8, residual=residual,
+                                     device=device)
+        hl = 8 // TP_MP
+        parts = [K1.fused_attention_o_residual(
+            q[:, j * hl:(j + 1) * hl], k[:, j * hl:(j + 1) * hl],
+            v[:, j * hl:(j + 1) * hl], None, tp_shard_rows(wo, j, 0), None,
+            partial=True) for j in range(TP_MP)]
+        got = model_sum(parts, bo, x)[0]
+        ref = K1.fused_attention_o_residual(q, k, v, x, wo, bo)
+        sync()
+        case = {"shape": f"TP base: model_sum of {TP_MP} K1p ranks vs "
+                         f"square K1, B={b} T={t} H=8", "inputs": inputs,
+                **check_k1(f"K1p sum {inputs}", got, ref, residual)}
+        k1["cases"].append(case)
+        phase("tp", kernel="K1", card=card, tol=[K1_ATOL, K1_RTOL]
+              if residual else {"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}, **case)
+        del q, k, v, x, wo, bo, parts, got, ref
+        torch.cuda.empty_cache()
+    # K2 on the head shards of whisper-base and -tiny
+    for hl in (8 // TP_MP, 6 // TP_MP):
+        for kind, tk, pos in (("cross", 1500, None), ("self", 68, 67)):
+            qq, kk, vv = k2_inputs(gen, b, tk, hl, device=device)
+            fn = (lambda: K2.fused_single_query_attention(
+                qq, kk, vv, heads=hl, pos=pos))
+            got = fn()
+            ref = K2.single_query_attention_plain(qq, kk, vv, heads=hl,
+                                                  pos=pos)
+            sync()
+            n = tk if pos is None else pos + 1
+            case = {"shape": f"TP {kind} head shard B={b} T={tk} H={hl} "
+                             f"pos={pos}",
+                    "max_abs_err": check_close(f"K2 TP H={hl} {kind}", got,
+                                               ref, K2_ATOL, K2_RTOL),
+                    "ms": time_ms(fn),
+                    "plain_ms": time_ms(
+                        lambda: K2.single_query_attention_plain(
+                            qq, kk, vv, heads=hl, pos=pos)),
+                    **bound(nbytes(qq, got) + 2 * b * n * hl * 64 * 2,
+                            bf16=4 * b * n * hl * 64)}
+            k2["cases"].append(case)
+            phase("tp", kernel="K2", card=card, tol=[K2_ATOL, K2_RTOL],
+                  **case)
+    # K3p and K4p at whisper-base width, a rank's 4 heads / 1024 columns
+    by_name = {k["name"]: k for k in dec}
+    _, d, heads, f = DEC_WIDTHS[0]
+    hl, l, pos = heads // TP_MP, 68, K3_POS[-1]
+    x, selfw, _, kc, vc = k3_inputs(gen, b, l, d, device=device)
+    g1, b1, wq, bq, wk, wv, bv, wo, bo = selfw
+    ranks = [(g1, b1, tp_shard_rows(wq, j, 1), tp_shard_rows(bq, j, 0),
+              tp_shard_rows(wk, j, 1), tp_shard_rows(wv, j, 1),
+              tp_shard_rows(bv, j, 0), tp_shard_rows(wo, j, 0), bo)
+             for j in range(TP_MP)]
+    caches = [(tp_shard_rows(kc, j, 2), tp_shard_rows(vc, j, 2))
+              for j in range(TP_MP)]
+    zero = torch.zeros(b, d, device=device)
+
+    def k3p(j):
+        return DB.fused_self_block(x, *ranks[j], caches[j][0].clone(),
+                                   caches[j][1].clone(), pos, heads=hl,
+                                   partial=True)
+
+    def flat(outs):
+        return torch.cat([a.reshape(-1).float() for a in outs])
+    got = k3p(0)
+    ref = DB.self_block_plain(x, *ranks[0], *caches[0], pos, heads=hl,
+                              partial=True)
+    sync()
+    args = (x, *ranks[0][:-1])
+    case = {"shape": f"TP base rank of {TP_MP}: B={b} D={d} H={hl} L={l} "
+                     f"pos={pos} (partial)",
+            **check_k3(f"K3p base pos={pos}", got, ref, zero),
+            "repeats_equal": check_repeats(
+                f"K3p base pos={pos}", lambda: flat(k3p(0)), flat(got),
+                K3_REPEATS),
+            "ms": time_ms(lambda: DB.fused_self_block(
+                x, *ranks[0], *caches[0], pos, heads=hl, partial=True)),
+            "plain_ms": time_ms(lambda: DB.self_block_plain(
+                x, *ranks[0], *caches[0], pos, heads=hl, partial=True)),
+            "square_ms": time_ms(lambda: DB.fused_self_block(
+                x, *selfw, kc, vc, pos, heads=heads)),
+            **bound(nbytes(*args, *got) + 2 * b * pos * hl * 64 * 2,
+                    bf16=2 * b * d * hl * 64 * 4
+                    + 4 * b * (pos + 1) * hl * 64)}
+    if device == "cuda":
+        case.update(device_ms=device_ms(lambda: DB.fused_self_block(
+            x, *ranks[0], *caches[0], pos, heads=hl, partial=True)),
+            square_device_ms=device_ms(lambda: DB.fused_self_block(
+                x, *selfw, kc, vc, pos, heads=heads)))
+    parts = [k3p(j)[0] for j in range(TP_MP)]
+    whole = DB.fused_self_block(x, *selfw, kc.clone(), vc.clone(), pos,
+                                heads=heads)[0]
+    case["sum_vs_square"] = check_delta(
+        "K3p sum vs K3", model_sum(parts, bo, x)[0], whole, x)
+    by_name["decoder_self_block"]["cases"].append(case)
+    phase("tp", kernel="K3", card=card,
+          tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2,
+               "kv": [KV_ATOL, KV_RTOL]}, **case)
+    x, mlp, _ = k4_inputs(gen, b, d, f, device=device)
+    g, bl, w1, b1f, w2, b2 = mlp
+    ranks = [(g, bl, tp_shard_rows(w1, j, 1), tp_shard_rows(b1f, j, 0),
+              tp_shard_rows(w2, j, 0), b2) for j in range(TP_MP)]
+
+    def k4p(j):
+        return DB.fused_mlp_block(x, *ranks[j], partial=True)
+    got = k4p(0)
+    ref = DB.mlp_block_plain(x, *ranks[0], partial=True)
+    sync()
+    case = {"shape": f"TP base rank of {TP_MP}: B={b} D={d} "
+                     f"F={f // TP_MP} (partial)",
+            **check_delta("K4p base", got, ref, zero),
+            "repeats_equal": check_repeats("K4p base", lambda: k4p(0), got,
+                                           K3_REPEATS),
+            "ms": time_ms(lambda: k4p(0)),
+            "plain_ms": time_ms(lambda: DB.mlp_block_plain(
+                x, *ranks[0], partial=True)),
+            "square_ms": time_ms(lambda: DB.fused_mlp_block(x, *mlp)),
+            **bound(nbytes(x, *ranks[0][:-1], got),
+                    bf16=4 * b * d * f // TP_MP)}
+    if device == "cuda":
+        case.update(device_ms=device_ms(lambda: k4p(0)),
+                    square_device_ms=device_ms(
+                        lambda: DB.fused_mlp_block(x, *mlp)))
+    case["sum_vs_square"] = check_delta(
+        "K4p sum vs K4", model_sum([k4p(j) for j in range(TP_MP)], b2,
+                                   x)[0], DB.fused_mlp_block(x, *mlp), x)
+    by_name["decoder_mlp_block"]["cases"].append(case)
+    phase("tp", kernel="K4", card=card,
+          tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}, **case)
+
+
+def tp_phase(card: str, clips, k1: dict, k2: dict, dec: list) -> dict:
+    """[tp]: tp_kernel_phase, then mesh_ingest_check with a model axis
+    of TP_MP over the card named TP_MP times (dp, mp) = (1, TP_MP) and
+    2 x TP_MP times (2, TP_MP), under each TP_PATHS config, on the 25 s
+    clip, against the unsplit engine of that config (built once a
+    config). Returns each split ingest's launch counts."""
+    from multimodal_audio_search_tpu_torch import runtime
+    t0 = time.perf_counter()
+    tp_kernel_phase(card, torch.Generator().manual_seed(18), k1, k2, dec)
+    cuda = torch.device("cuda", 0)
+    out = {}
+    for label, profile in TP_PATHS:
+        cfg = engine_config(profile, bool(profile))
+        whole = None
+        for dp in (1, 2):
+            whole = mesh_ingest_check(card, dict(clips)["short.wav"], cfg,
+                                      [cuda] * (dp * TP_MP), mp=TP_MP,
+                                      whole=whole)
+            out[f"{label} ({dp}, {TP_MP})"] = whole["launches"]
+        del whole
+        torch.cuda.empty_cache()
+    phase("tp", card=card, step="summary", launches=out,
+          kernels_ready_on=runtime.ready_devices(),
+          seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -4156,6 +4480,7 @@ def main() -> int:
     counts["search_scale"] = search_scale_phase(card)
     counts["ann"] = ann_phase(card, clips)
     counts["mesh"] = mesh_phase(card, clips)
+    counts["tp"] = tp_phase(card, clips, k1, k2, dec)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",

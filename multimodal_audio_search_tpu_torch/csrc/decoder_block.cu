@@ -310,7 +310,12 @@ __device__ __forceinline__ void k3_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
-template <bool TAIL>
+// D is the model width (x, the layer norm, the rows of Wq/Wk/Wv, the
+// columns of Wo); H * 64 the width of the block's heads (the columns of
+// Wq/Wk/Wv, the rows of Wo, the caches' rows): K3 and K3-q have D = H *
+// 64, K3p (PARTIAL) a rank's head shard of the mesh's model axis, which
+// writes the float32 o-projection sum to xout32 without x and bo.
+template <bool TAIL, bool PARTIAL = false>
 __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mk,
@@ -321,15 +326,20 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     const bf16* __restrict__ bq, const bf16* __restrict__ bv,
     const bf16* __restrict__ bo, const float* __restrict__ g2,
     const bf16* __restrict__ b2, const bf16* __restrict__ bcq, bf16* kc,
-    bf16* vc, bf16* __restrict__ xout, bf16* __restrict__ qcross, int B,
-    int H, int L, int pos, int rt, int S, float scale, float eps) {
+    bf16* vc, bf16* __restrict__ xout, float* __restrict__ xout32,
+    bf16* __restrict__ qcross, int B, int D, int H, int L, int pos, int rt,
+    int S, float scale, float eps) {
+  static_assert(!(TAIL && PARTIAL), "K3p has no tail");
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[K3_MAX_STAGES], empty[K3_MAX_STAGES];
   cg::cluster_group cluster = cg::this_cluster();
-  const int D = H * HDIM, LDH = D + 8, LDP = D + 4, nkc = D / 64;
+  const int LDH = D + 8, LDP = D + 4, nkc = D / 64, HL = H * HDIM;
   const int rank = blockIdx.x, CS = gridDim.x;  // a cluster spans x
   // the rank's heads: [h0, h0 + G), H / CS of them rounded down or up
   const int h0 = rank * H / CS, G = (rank + 1) * H / CS - h0;
+  // the rank's output chunks of the head sum: [oc0, oc0 + ocn) of the nkc
+  // (K3, K3-q: its heads' columns, the same split)
+  const int oc0 = rank * nkc / CS, ocn = (rank + 1) * nkc / CS - oc0;
   const int r0 = blockIdx.y * rt, nrows = min(rt, B - r0);
   bf16* ring = reinterpret_cast<bf16*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -345,8 +355,8 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
   const int g8 = lane >> 2, t4 = lane & 3;
   const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
   const bf16* hA = sH + min(lr, rt) * LDH + lc;  // this lane's A row of h
-  const bf16* kcr = kc + (long long)r0 * L * D;  // the tile's cache rows
-  const bf16* vcr = vc + (long long)r0 * L * D;
+  const bf16* kcr = kc + (long long)r0 * L * HL;  // the tile's cache rows
+  const bf16* vcr = vc + (long long)r0 * L * HL;
 
   // The weight stream, tile u into ring slot u % S on barrier u % S: for
   // each head of the rank, its 3 nkc q/k/v tiles (rows 64kc.. of Wq, Wk,
@@ -475,7 +485,7 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
         }
       }
       if (r < nrows) {
-        const long long off = ((long long)(r0 + r) * L + pos) * D + c0 + c;
+        const long long off = ((long long)(r0 + r) * L + pos) * HL + c0 + c;
         *reinterpret_cast<uint32_t*>(kc + off) = pack_bf16(k2[0], k2[1]);
         *reinterpret_cast<uint32_t*>(vc + off) = pack_bf16(v2[0], v2[1]);
       }
@@ -493,7 +503,7 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
         rr[u] = i / pos;
         tt[u] = i - rr[u] * pos;
         const uint4* kr = reinterpret_cast<const uint4*>(
-            kcr + ((long long)rr[u] * L + tt[u]) * D + c0);
+            kcr + ((long long)rr[u] * L + tt[u]) * HL + c0);
 #pragma unroll
         for (int w = 0; w < 8; ++w) kw8[u][w] = __ldg(kr + w);
       }
@@ -546,14 +556,14 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     for (int r = 0; r < K3_RT; ++r) {
       a[r][0] = a[r][1] = 0.f;
       if (r >= nrows) continue;
-      const bf16* vr = vcr + (long long)r * L * D + c0 + 2 * lane;
+      const bf16* vr = vcr + (long long)r * L * HL + c0 + 2 * lane;
       const float* pr = sS + r * L;
       for (int t = ta; t < tb; t += 8) {
         unsigned w8[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u)
           w8[u] = __ldg(reinterpret_cast<const unsigned*>(
-              vr + (long long)min(t + u, tb - 1) * D));
+              vr + (long long)min(t + u, tb - 1) * HL));
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           const float p = t + u < tb ? pr[t + u] : 0.f;
@@ -620,14 +630,15 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     }
   }
   // 6. the head sum through distributed shared memory: rank r adds the
-  // ranks' partials of its G * 64 columns in rank order (so the heads in
-  // order), 4 columns a thread with every rank's load in flight, then
-  // bias and residual. Every rank stays until all have read.
+  // ranks' partials of its ocn * 64 columns in rank order (so the heads
+  // in order), 4 columns a thread with every rank's load in flight, then
+  // bias and residual (K3p: the sum alone, in float32). Every rank stays
+  // until all have read.
   cluster.sync();
-  const int cw = G * HDIM, nq = cw / 4;
+  const int cw = ocn * HDIM, nq = cw / 4;
   float* sX = sS;  // TAIL: the rank's x_out columns [16][cw], float32
   for (int i = tid; i < nrows * nq; i += NT) {
-    const int r = i / nq, c = h0 * HDIM + (i % nq) * 4;
+    const int r = i / nq, c = oc0 * HDIM + (i % nq) * 4;
     float4 pv[K3_MAX_CS];
 #pragma unroll
     for (int k = 0; k < K3_MAX_CS; ++k)
@@ -643,6 +654,11 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
         o[3] += pv[k].w;
       }
     const long long gi = (long long)(r0 + r) * D + c;
+    if (PARTIAL) {
+      *reinterpret_cast<float4*>(xout32 + gi) =
+          make_float4(o[0], o[1], o[2], o[3]);
+      continue;
+    }
     const uint2 xw = *reinterpret_cast<const uint2*>(x + gi);
     const uint2 bw = *reinterpret_cast<const uint2*>(bo + c);
     const float2 x01 = unpack_bf16(xw.x), x23 = unpack_bf16(xw.y);
@@ -689,7 +705,7 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
       k3_sync();
     }
     for (int i = tid; i < rt * cw; i += NT) {
-      const int r = i / cw, c = h0 * HDIM + i % cw;
+      const int r = i / cw, c = oc0 * HDIM + i % cw;
       sH[r * LDH + c] = __float2bfloat16(
           r < nrows ? (sX[i] - row_mu[r]) * row_rs[r] * bfr(g2[c]) + bf(b2[c])
                     : 0.f);
@@ -697,8 +713,8 @@ __global__ void __launch_bounds__(K3_NT, 1) self_block_kernel(
     cluster.sync();  // every rank's h2 columns are in place
     for (int i = tid; i < rt * (D / 8); i += NT) {
       const int r = i / (D / 8), c8 = i % (D / 8);
-      int k = 0;  // the rank holding head c8 / 8
-      while ((k + 1) * H / CS <= c8 / 8) ++k;
+      int k = 0;  // the rank holding chunk c8 / 8
+      while ((k + 1) * nkc / CS <= c8 / 8) ++k;
       if (k != rank)
         *reinterpret_cast<uint4*>(sH + r * LDH + c8 * 8) =
             *reinterpret_cast<const uint4*>(
@@ -811,7 +827,10 @@ __global__ void __launch_bounds__(NT) rowproj_kernel(
 // the single pass (one D chunk, one row block, one slice a block: the
 // engine's B <= 32 at whisper-base width and below), where the loops'
 // trip counts are the constant 1: runtime counts cost ~4 us a launch at
-// base width on an H100 (17.4-18.4 against 13.5-13.9).
+// base width on an H100 (17.4-18.4 against 13.5-13.9). PARTIAL is K4p,
+// one rank of the mesh's model axis: F is the rank's shard of fc1's
+// columns (fc2's rows), step 3 writes the float32 sum alone to out32,
+// with neither x nor b2 (parallel/mesh.py::model_sum adds them once).
 constexpr int MLP_NT = 256;
 constexpr int MLP_FS = 32;               // fc1 columns per slice
 constexpr int MLP_LDS = MLP_FS + 8;      // bf16 per staged fc1 / u row
@@ -876,14 +895,15 @@ __device__ __forceinline__ void grid_sync(int* c, int n) {
   __syncthreads();
 }
 
-template <bool HEAD, bool ONE>
+template <bool HEAD, bool ONE, bool PARTIAL = false>
 __global__ void __launch_bounds__(MLP_NT, 1) mlp_kernel(
     const bf16* __restrict__ x, const float* __restrict__ x32,
     const float* __restrict__ g, const bf16* __restrict__ bln,
     const bf16* __restrict__ w1, const bf16* __restrict__ b1,
     const bf16* __restrict__ w2, const bf16* __restrict__ b2, bf16* hbuf,
-    float* part, int* bar, bf16* __restrict__ out, int B, int D, int F,
-    float eps) {
+    float* part, int* bar, bf16* __restrict__ out, float* __restrict__ out32,
+    int B, int D, int F, float eps) {
+  static_assert(!(HEAD && PARTIAL), "K4p has no head");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int DC = min(D, MLP_DC), LDC = DC + 8;
   bf16* sW1 = reinterpret_cast<bf16*>(smem_raw);  // [DC][MLP_LDS]
@@ -1073,7 +1093,10 @@ __global__ void __launch_bounds__(MLP_NT, 1) mlp_kernel(
   for (long long i = blockIdx.x * chunk + tid; i < i1; i += MLP_NT) {
     const int c = (int)(i % D);
     const float y = ordered_sum(part + i, total, S);
-    out[i] = __float2bfloat16(xin(i) + (y + bf(b2[c])));
+    if (PARTIAL)
+      out32[i] = y;
+    else
+      out[i] = __float2bfloat16(xin(i) + (y + bf(b2[c])));
   }
   if (tid == 0 && atomicAdd(bar + 2, 1) == G - 1) {
     bar[0] = 0;  // every block has passed both barriers
@@ -1306,32 +1329,33 @@ inline dim3 rows_grid(int cols, int B, int rb) {
   return dim3(cols, (B + rb - 1) / rb);
 }
 
-// K3's weight maps: a [D, D] bf16 row-major matrix in 64 x 64 boxes with
-// the 128-byte swizzle. Encoding one is host work of about a microsecond,
-// so the maps are kept per (matrix, D) in a ring (a decoder's 4 matrices
-// a layer; the oldest entry makes room).
+// K3's weight maps: a [rows, cols] bf16 row-major matrix in 64 x 64 boxes
+// with the 128-byte swizzle. Encoding one is host work of about a
+// microsecond, so the maps are kept per (matrix, shape) in a ring (a
+// decoder's 4 matrices a layer; the oldest entry makes room).
 constexpr int K3_MAPS = 128;
 struct WeightMap {
   const void* base;
-  int D;
+  int rows, cols;
   CUtensorMap map;
 };
 WeightMap k3_maps[K3_MAPS];
 int k3_maps_used = 0, k3_maps_next = 0;
 std::mutex k3_maps_lock;
 
-int weight_map(CUtensorMap* map, const void* base, int D) {
+int weight_map(CUtensorMap* map, const void* base, int rows, int cols) {
   std::lock_guard<std::mutex> guard(k3_maps_lock);
   for (int i = 0; i < k3_maps_used; ++i)
-    if (k3_maps[i].base == base && k3_maps[i].D == D) {
+    if (k3_maps[i].base == base && k3_maps[i].rows == rows &&
+        k3_maps[i].cols == cols) {
       *map = k3_maps[i].map;
       return 0;
     }
-  const int e = encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, D, D,
-                          (long long)D * 2, 64, 64,
+  const int e = encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows,
+                          cols, (long long)cols * 2, 64, 64,
                           CU_TENSOR_MAP_SWIZZLE_128B);
   if (e == 0) {
-    k3_maps[k3_maps_next] = {base, D, *map};
+    k3_maps[k3_maps_next] = {base, rows, cols, *map};
     k3_maps_next = (k3_maps_next + 1) % K3_MAPS;
     if (k3_maps_used < K3_MAPS) ++k3_maps_used;
   }
@@ -1341,16 +1365,108 @@ int weight_map(CUtensorMap* map, const void* base, int D) {
 // K14's V maps (a rank-4 map over the merged cross V of one call's shape)
 MapCache<64> x_maps;
 
+// K3 / K3-q (wcq != NULL) and K3p (xout32 != NULL) at model width D and
+// the block's H heads (see mas_decoder_self_block and
+// mas_decoder_self_block_partial).
+int launch_self(const void* x, const void* g1, const void* b1, const void* wq,
+                const void* bq, const void* wk, const void* wv,
+                const void* bv, const void* wo, const void* bo, void* kc,
+                void* vc, void* x_out, float* xout32, const void* g2,
+                const void* b2, const void* wcq, const void* bcq,
+                void* q_cross, int B, int D, int H, int L, int pos, int CS,
+                int rt, int S, float scale, float eps, void* stream) {
+  const int HL = H * HDIM;
+  const bool tail = wcq != nullptr, partial = xout32 != nullptr;
+  if (B < 1 || H < 1 || D < 64 || D % 64 || D > 32 * K3_LN_CH * 8 ||
+      CS < 1 || CS > H || CS > D / 64 || CS > K3_MAX_CS || rt < 1 ||
+      rt > K3_RT || S < K3_MIN_STAGES || S > K3_MAX_STAGES || pos < 0 ||
+      pos >= L || k3_smem(D, L, S, rt) > K3_SMEM_MAX ||
+      (B + rt - 1) / rt > 65535 || (tail && (partial || D != HL)) ||
+      (!partial && D != HL))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo, mcq;
+  int e = weight_map(&mq, wq, D, HL);
+  if (e == 0) e = weight_map(&mk, wk, D, HL);
+  if (e == 0) e = weight_map(&mv, wv, D, HL);
+  if (e == 0) e = weight_map(&mo, wo, HL, D);
+  if (e == 0) e = weight_map(&mcq, tail ? wcq : wq, D, HL);  // K3: unread
+  if (e != 0) return e;
+  auto* kernel = tail      ? &self_block_kernel<true>
+                 : partial ? &self_block_kernel<false, true>
+                           : &self_block_kernel<false>;
+  return launch_cluster(
+      kernel, dim3(CS, (B + rt - 1) / rt), CS, K3_NT, k3_smem(D, L, S, rt),
+      (cudaStream_t)stream, mq, mk, mv, mo, mcq, (const bf16*)x,
+      (const float*)g1, (const bf16*)b1, (const bf16*)bq, (const bf16*)bv,
+      (const bf16*)bo, (const float*)g2, (const bf16*)b2, (const bf16*)bcq,
+      (bf16*)kc, (bf16*)vc, (bf16*)x_out, xout32, (bf16*)q_cross, B, D, H, L,
+      pos, rt, S, scale, eps);
+}
+
+// K4's six instances: [K4, K4-o, K4p][ONE]
+const void* const MLP_FN[3][2] = {
+    {(const void*)mlp_kernel<false, false>, (const void*)mlp_kernel<false, true>},
+    {(const void*)mlp_kernel<true, false>, (const void*)mlp_kernel<true, true>},
+    {(const void*)mlp_kernel<false, false, true>,
+     (const void*)mlp_kernel<false, true, true>}};
+
+// K4 / K4-o (wco != NULL) and K4p (out32 != NULL): see
+// mas_decoder_mlp_block and mas_decoder_mlp_block_partial.
+int launch_mlp(const void* x, const void* g, const void* bln, const void* w1,
+               const void* b1, const void* w2, const void* b2,
+               const void* attn, const void* wco, const void* bco, void* x32,
+               void* h, void* part, void* counter, void* out, float* out32,
+               int B, int D, int F, float eps, int sms, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || D % PC || D > MLP_MAX_D || F % MLP_FS || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool head = wco != nullptr, partial = out32 != nullptr;
+  if (head && partial) return (int)cudaErrorInvalidValue;
+  if (head) {
+    const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
+    rowproj_kernel<false, float><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
+        (const float*)attn, nullptr, nullptr, (const bf16*)wco,
+        (const bf16*)bco, (const bf16*)x, x32, B, D, 0.f);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  // blocks a multiprocessor holds, per device, variant and chunk width
+  // (read once; the instances differ only in their loops' trip counts)
+  static int per_sm[MAX_DEVICES][3][MLP_DC / 64 + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  const int dc = mlp_dc(D);
+  const int kind = partial ? 2 : head;
+  int& fit = per_sm[dev][kind][dc / 64];
+  if (fit == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, MLP_FN[kind][0], MLP_NT, mlp_smem(dc));
+    if (e != cudaSuccess) return (int)e;
+    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int grid = F / MLP_FS < sms * fit ? F / MLP_FS : sms * fit;
+  const bool one = D <= MLP_DC && B <= 32 && grid == F / MLP_FS;
+  const void* fn = MLP_FN[kind][one];
+  void* args[] = {(void*)&x,   (void*)&x32,  (void*)&g,       (void*)&bln,
+                  (void*)&w1,  (void*)&b1,   (void*)&w2,      (void*)&b2,
+                  (void*)&h,   (void*)&part, (void*)&counter, (void*)&out,
+                  (void*)&out32, (void*)&B,  (void*)&D,       (void*)&F,
+                  (void*)&eps};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MLP_NT), args,
+                                          mlp_smem(dc), s);
+}
+
 }  // namespace
 
 // Raises K3's dynamic shared-memory limit and allows its clusters of up
-// to 16 blocks (both instances), and looks the driver's tensor-map
-// encoder up. Called once, when the library is
-// loaded.
+// to 16 blocks (every instance), and looks up cuTensorMapEncodeTiled.
+// Called once, when the library is loaded.
 extern "C" int mas_decoder_self_block_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   for (const void* fn : {(const void*)self_block_kernel<false>,
-                         (const void*)self_block_kernel<true>}) {
+                         (const void*)self_block_kernel<true>,
+                         (const void*)self_block_kernel<false, true>}) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K3_SMEM_MAX);
     if (e == cudaSuccess)  // clusters of more than 8 blocks (H = 12, 20)
@@ -1396,34 +1512,29 @@ extern "C" int mas_decoder_self_block(
     const void* g2, const void* b2, const void* wcq, const void* bcq,
     void* q_cross, int B, int H, int L, int pos, int CS, int rt, int S,
     float scale, float eps, void* stream) {
-  const int D = H * HDIM;
-  if (B < 1 || H < 1 || D > 32 * K3_LN_CH * 8 || CS < 1 || CS > H ||
-      CS > K3_MAX_CS || rt < 1 || rt > K3_RT || S < K3_MIN_STAGES ||
-      S > K3_MAX_STAGES || pos < 0 || pos >= L ||
-      k3_smem(D, L, S, rt) > K3_SMEM_MAX || (B + rt - 1) / rt > 65535)
-    return (int)cudaErrorInvalidValue;
-  const bool tail = wcq != nullptr;
-  CUtensorMap mq, mk, mv, mo, mcq;
-  int e = weight_map(&mq, wq, D);
-  if (e == 0) e = weight_map(&mk, wk, D);
-  if (e == 0) e = weight_map(&mv, wv, D);
-  if (e == 0) e = weight_map(&mo, wo, D);
-  if (e == 0) e = weight_map(&mcq, tail ? wcq : wq, D);  // K3: unread
-  if (e != 0) return e;
-  auto* kernel = tail ? &self_block_kernel<true> : &self_block_kernel<false>;
-  return launch_cluster(
-      kernel, dim3(CS, (B + rt - 1) / rt), CS, K3_NT, k3_smem(D, L, S, rt),
-      (cudaStream_t)stream, mq, mk, mv, mo, mcq, (const bf16*)x,
-      (const float*)g1, (const bf16*)b1, (const bf16*)bq, (const bf16*)bv,
-      (const bf16*)bo, (const float*)g2, (const bf16*)b2, (const bf16*)bcq,
-      (bf16*)kc, (bf16*)vc, (bf16*)x_out, (bf16*)q_cross, B, H, L, pos, rt,
-      S, scale, eps);
+  return launch_self(x, g1, b1, wq, bq, wk, wv, bv, wo, bo, kc, vc, x_out,
+                     nullptr, g2, b2, wcq, bcq, q_cross, B, H * HDIM, H, L,
+                     pos, CS, rt, S, scale, eps, stream);
 }
 
-// K4's four instances: [HEAD][ONE]
-const void* const MLP_FN[2][2] = {
-    {(const void*)mlp_kernel<false, false>, (const void*)mlp_kernel<false, true>},
-    {(const void*)mlp_kernel<true, false>, (const void*)mlp_kernel<true, true>}};
+// K3p, K3's partial form on one rank of the mesh's model axis: out =
+// (K3's attention over the rank's H heads, merged) @ wo in float32,
+// without x and bo. x: [B, D] bf16 (the whole row, read by the layer
+// norm); g1: [D] float32; b1: [D] bf16; wq, wk, wv: [D, H * 64] and wo:
+// [H * 64, D] bf16 row-major (the rank's column and row shards); bq, bv:
+// [H * 64] bf16; kc, vc: [B, L, H * 64] bf16 caches of the rank's heads,
+// row pos written; out: [B, D] float32. D % 64 == 0, D <= 2048; CS <=
+// min(H, D / 64, 16). Returns a cudaError_t value, as
+// mas_decoder_self_block.
+extern "C" int mas_decoder_self_block_partial(
+    const void* x, const void* g1, const void* b1, const void* wq,
+    const void* bq, const void* wk, const void* wv, const void* bv,
+    const void* wo, void* kc, void* vc, void* out, int B, int D, int H, int L,
+    int pos, int CS, int rt, int S, float scale, float eps, void* stream) {
+  return launch_self(x, g1, b1, wq, bq, wk, wv, bv, wo, bv, kc, vc, nullptr,
+                     (float*)out, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     B, D, H, L, pos, CS, rt, S, scale, eps, stream);
+}
 
 // Raises K4's dynamic shared-memory limit (every instance). Called once,
 // when the library is loaded.
@@ -1455,41 +1566,24 @@ extern "C" int mas_decoder_mlp_block(const void* x, const void* g,
                                      void* counter, void* out, int B, int D,
                                      int F, float eps, int sms,
                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || D % PC || D > MLP_MAX_D || F % MLP_FS || sms < 1)
-    return (int)cudaErrorInvalidValue;
-  const bool head = wco != nullptr;
-  if (head) {
-    const size_t smem2 = (size_t)NT * 8 * RB4 * 4 + (size_t)RB4 * D * 2;
-    rowproj_kernel<false, float><<<rows_grid(D / PC, B, RB4), NT, smem2, s>>>(
-        (const float*)attn, nullptr, nullptr, (const bf16*)wco,
-        (const bf16*)bco, (const bf16*)x, x32, B, D, 0.f);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  // blocks a multiprocessor holds, per device, variant and chunk width
-  // (read once; the instances differ only in their loops' trip counts)
-  static int per_sm[MAX_DEVICES][2][MLP_DC / 64 + 1];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
-  const int dc = mlp_dc(D);
-  int& fit = per_sm[dev][head][dc / 64];
-  if (fit == 0) {
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &fit, MLP_FN[head][0], MLP_NT, mlp_smem(dc));
-    if (e != cudaSuccess) return (int)e;
-    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  const int grid = F / MLP_FS < sms * fit ? F / MLP_FS : sms * fit;
-  const bool one = D <= MLP_DC && B <= 32 && grid == F / MLP_FS;
-  const void* fn = MLP_FN[head][one];
-  void* args[] = {(void*)&x,  (void*)&x32, (void*)&g,       (void*)&bln,
-                  (void*)&w1, (void*)&b1,  (void*)&w2,      (void*)&b2,
-                  (void*)&h,  (void*)&part, (void*)&counter, (void*)&out,
-                  (void*)&B,  (void*)&D,   (void*)&F,       (void*)&eps};
-  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MLP_NT), args,
-                                          mlp_smem(dc), s);
+  return launch_mlp(x, g, bln, w1, b1, w2, b2, attn, wco, bco, x32, h, part,
+                    counter, out, nullptr, B, D, F, eps, sms, stream);
+}
+
+// K4p, K4's partial form on one rank of the mesh's model axis: out =
+// gelu(LN(x) @ w1 + b1) @ w2 in float32, without x and b2. x: [B, D]
+// bf16 (the whole row, read by the layer norm); g: [D] float32; bln: [D]
+// bf16; w1: [D, F] and w2: [F, D] bf16 row-major (the rank's column and
+// row shards of fc1 and fc2, F % 32 == 0); b1: [F] bf16; h, part,
+// counter: K4's scratch; out: [B, D] float32. Returns a cudaError_t
+// value, as mas_decoder_mlp_block.
+extern "C" int mas_decoder_mlp_block_partial(
+    const void* x, const void* g, const void* bln, const void* w1,
+    const void* b1, const void* w2, void* h, void* part, void* counter,
+    void* out, int B, int D, int F, float eps, int sms, void* stream) {
+  return launch_mlp(x, g, bln, w1, b1, w2, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, h, part, counter, nullptr, (float*)out, B, D, F,
+                    eps, sms, stream);
 }
 
 // Raises K14's attention's dynamic shared-memory limit and allows its

@@ -8,6 +8,14 @@
 // K10 the same function with the heads taken two at a time. Replaces the
 //     same wrapper's pair_heads=True form (body _attn_o_kernel_paired,
 //     pallas_call :375).
+// K1p K1's partial form, one rank of the mesh's model axis (tensor
+//     parallelism): out = (softmax(Q K^T / sqrt(64)) V over the rank's
+//     H heads, merged) @ Wo_rows in float32, with Wo_rows the [H*64,
+//     HD_out] row shard of the layer's o-projection; no x, no bo (the
+//     ranks' partials are summed, bias and residual added once, by
+//     parallel/mesh.py::model_sum). The head shard of the JAX kernel's
+//     non-square Wo (tests/test_production_geometry_mesh.py runs it under
+//     shard_map with a psum over "model").
 // K11 K1's function with the softmax division placed three ways (the
 //     template's Form), the A/B of the TPU tool: replaces tools/
 //     profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2 :48,
@@ -79,6 +87,13 @@
 //     out, waited on after the epilogue): no rank overwrites `out` while
 //     a peer may read it; then one thread stores the block's columns by
 //     TMA (rows past T are not written).
+// K1p's cluster decouples the two splits: rank r attends the heads [rH/CS,
+// (r+1)H/CS) as K1's ranks do, but projects the output chunks [rN/CS,
+// (r+1)N/CS) of N = HD_out/64 chunks (K1: N = H, the same split), each
+// over all H 64-row chunks of the merged tile, which lies in a scratch
+// [B, T, H*64] bf16 buffer of the wrapper's; the float32 sums go from
+// the accumulators straight to `out` (rows past T are not written), so
+// x's tile, bo and the TMA store are left out.
 // Why the merged tile goes through L2 and not through the peers' shared
 // memory: every rank reads the whole tile, half of it from its peer at
 // base width, over the SM-to-SM network as element loads that no ring
@@ -472,11 +487,15 @@ __device__ __forceinline__ void store_head(bf16* out, const float o[32],
 // tile of these columns (by TMA at sXg, chunk j at j * TILE_BYTES)
 // becomes x + (y + bo) in bf16, in place. The last group arrives on the
 // second cluster barrier once its products have read the last chunk.
-template <int NC, int STAGES, int SLOT>
+// K1p (PARTIAL) writes the float32 sums to out32's rows (b, q0 ..) at
+// columns cg * 64 .. of its HDO, rows >= T left out, and reads neither x
+// nor bo.
+template <int NC, int STAGES, int SLOT, bool PARTIAL>
 __device__ __forceinline__ void o_group(
     const uint8_t* ring, uint64_t* full, uint64_t* empty, uint8_t* sXg,
     uint64_t* x_full, int it, int H, int wg, int lane, int t4, int cg,
-    bool last, const bf16* __restrict__ bo) {
+    bool last, const bf16* __restrict__ bo, float* __restrict__ out32,
+    long long row0, int q0, int T, int HDO) {
   float d[NC][32];
 #pragma unroll
   for (int j = 0; j < NC; ++j) zero32(d[j]);
@@ -503,6 +522,20 @@ __device__ __forceinline__ void o_group(
   // x + (y + bo) into x's swizzled tile: row r's 16-byte chunk c sits at
   // chunk c ^ (r % 8); this thread's rows r, r + 8 share r % 8 = lane / 4
   const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  if constexpr (PARTIAL) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (q0 + r + 8 * h >= T) continue;
+      float* row = out32 + (row0 + q0 + r + 8 * h) * HDO + cg * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int jd = 0; jd < 8; ++jd)
+          *reinterpret_cast<float2*>(row + j * D + jd * 8) =
+              make_float2(d[j][4 * jd + 2 * h], d[j][4 * jd + 2 * h + 1]);
+    }
+    return;
+  }
   mbar_wait(x_full, 0);
 #pragma unroll
   for (int j = 0; j < NC; ++j)
@@ -523,13 +556,18 @@ __device__ __forceinline__ void o_group(
 
 // The block of rank blockIdx.x of the cluster over (batch blockIdx.z,
 // rows blockIdx.y * 128 ..); see the file's head.
-template <bool PAIR, int FORM>
+// `merged` is the [B, T, H*64] tile the heads are stored to (K1, K10,
+// K11: out itself); K1p (PARTIAL) writes its float32 result to out32
+// [B, T, HDO], K1's HDO is H * 64.
+template <bool PAIR, int FORM, bool PARTIAL = false>
 __device__ __forceinline__ void block_body(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
     const CUtensorMap* ta, const CUtensorMap* tw, const CUtensorMap* tx,
-    const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
-    float scale_log2) {
+    const bf16* __restrict__ bo, bf16* __restrict__ merged,
+    float* __restrict__ out32, int T, int H, int HDO, float scale_log2) {
   static_assert(!PAIR || FORM == POST, "K10 takes the division after PV");
+  static_assert(!PARTIAL || (!PAIR && FORM == POST),
+                "K1p is K1's partial form");
   using C = Cfg<PAIR>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
@@ -547,8 +585,11 @@ __device__ __forceinline__ void block_body(
   const int units = PAIR ? H / 2 : H;
   const int u0 = rank * units / cs, u1 = (rank + 1) * units / cs;
   const int n_units = u1 - u0;
-  const int c0 = u0 * C::HEADS;  // the rank's first output chunk
-  const int nc = n_units * C::HEADS;
+  // the rank's output chunks: its heads' (K10), or its share of the
+  // HDO / 64 chunks (K1, K11: the same as its heads'; K1p)
+  const int nch = HDO / D;
+  const int c0 = PAIR ? u0 * C::HEADS : rank * nch / cs;
+  const int nc = PAIR ? n_units * C::HEADS : (rank + 1) * nch / cs - c0;
   const int n_tiles = (T + BN - 1) / BN;
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
 
@@ -599,7 +640,7 @@ __device__ __forceinline__ void block_body(
           tma_load_4d(ring + s * C::SLOT + C::SLOT / 2, tv, &full[s], 0,
                       j * BN, h, b);
         }
-        if (u == u0) {  // x's tile of the rank's columns, for the epilogue
+        if (!PARTIAL && u == u0) {  // x's tile of the rank's columns
           mbar_expect_tx(x_full, nc * TILE_BYTES);
           for (int j = 0; j < nc; ++j)
             tma_load_3d(sX + j * TILE_BYTES, tx, x_full, (c0 + j) * D, q0, b);
@@ -665,15 +706,16 @@ __device__ __forceinline__ void block_body(
           desc(q), desc(q + TILE_BYTES), ring, full, empty, &q_empty[slot],
           it, n_tiles, T, scale_log2, wg, lane, t4, o0, o1, l00, l01, l10,
           l11);
-      store_head<POST>(out, o0, l00, l01, r0, ra, rb, T, HD, 2 * u * D, t4);
-      store_head<POST>(out, o1, l10, l11, r0, ra, rb, T, HD, (2 * u + 1) * D,
+      store_head<POST>(merged, o0, l00, l01, r0, ra, rb, T, HD, 2 * u * D,
                        t4);
+      store_head<POST>(merged, o1, l10, l11, r0, ra, rb, T, HD,
+                       (2 * u + 1) * D, t4);
     } else {
       float o[32], l0, l1;
       attend_head<FORM, C::STAGES, C::SLOT>(
           desc(q), ring, full, empty, &q_empty[slot], it, n_tiles, T,
           scale_log2, wg, lane, t4, o, l0, l1);
-      store_head<FORM>(out, o, l0, l1, r0, ra, rb, T, HD, u * D, t4);
+      store_head<FORM>(merged, o, l0, l1, r0, ra, rb, T, HD, u * D, t4);
     }
   }
   fence_proxy_async_global();  // the peers' TMA loads read these stores
@@ -682,13 +724,17 @@ __device__ __forceinline__ void block_body(
   for (int g0 = 0; g0 < nc; g0 += 2, it += H) {
     const bool last = g0 + 2 >= nc;
     if (nc - g0 >= 2)
-      o_group<2, C::STAGES, C::SLOT>(ring, full, empty, sX + g0 * TILE_BYTES,
-                                     x_full, it, H, wg, lane, t4, c0 + g0,
-                                     last, bo);
+      o_group<2, C::STAGES, C::SLOT, PARTIAL>(
+          ring, full, empty, sX + g0 * TILE_BYTES, x_full, it, H, wg, lane,
+          t4, c0 + g0, last, bo, out32, r0, q0, T, HDO);
     else
-      o_group<1, C::STAGES, C::SLOT>(ring, full, empty, sX + g0 * TILE_BYTES,
-                                     x_full, it, H, wg, lane, t4, c0 + g0,
-                                     last, bo);
+      o_group<1, C::STAGES, C::SLOT, PARTIAL>(
+          ring, full, empty, sX + g0 * TILE_BYTES, x_full, it, H, wg, lane,
+          t4, c0 + g0, last, bo, out32, r0, q0, T, HDO);
+  }
+  if constexpr (PARTIAL) {
+    cluster_wait();  // 2
+    return;
   }
   fence_proxy_async();  // the TMA store reads the tile's shared memory
   named_sync(3);        // every consumer's part of the tile is in place
@@ -708,8 +754,23 @@ __global__ void __launch_bounds__(Cfg<false>::NT, 1) encoder_block_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const bf16* __restrict__ bo,
     bf16* __restrict__ out, int T, int H, float scale_log2) {
-  block_body<false, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
-                          scale_log2);
+  block_body<false, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, nullptr, T,
+                          H, H * D, scale_log2);
+}
+
+// K1p: ta maps the merged scratch, tx is unread (ta again).
+__global__ void __launch_bounds__(Cfg<false>::NT, 1)
+    encoder_block_partial_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap ta,
+                                 const __grid_constant__ CUtensorMap tw,
+                                 const __grid_constant__ CUtensorMap tx,
+                                 bf16* __restrict__ merged,
+                                 float* __restrict__ out, int T, int H,
+                                 int HDO, float scale_log2) {
+  block_body<false, POST, true>(&tq, &tk, &tv, &ta, &tw, &tx, nullptr,
+                                merged, out, T, H, HDO, scale_log2);
 }
 
 __global__ void __launch_bounds__(Cfg<true>::NT, 1)
@@ -722,8 +783,8 @@ __global__ void __launch_bounds__(Cfg<true>::NT, 1)
                                 const bf16* __restrict__ bo,
                                 bf16* __restrict__ out, int T, int H,
                                 float scale_log2) {
-  block_body<true, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
-                         scale_log2);
+  block_body<true, POST>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, nullptr, T,
+                         H, H * D, scale_log2);
 }
 
 // K11's DIV and NORM forms (its POST form is K1's kernel).
@@ -736,8 +797,8 @@ __global__ void __launch_bounds__(Cfg<false>::NT, 1) encoder_block_ab_kernel(
     const __grid_constant__ CUtensorMap tw,
     const __grid_constant__ CUtensorMap tx, const bf16* __restrict__ bo,
     bf16* __restrict__ out, int T, int H, float scale_log2) {
-  block_body<false, FORM>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, T, H,
-                          scale_log2);
+  block_body<false, FORM>(&tq, &tk, &tv, &ta, &tw, &tx, bo, out, nullptr, T,
+                          H, H * D, scale_log2);
 }
 
 // The maps of recent calls (the encoder's buffers recur from batch to
@@ -778,6 +839,27 @@ inline auto kernel_of() {
     return encoder_block_ab_kernel<FORM>;
 }
 
+// q/k/v's maps, the merged tile's (`merged`, [B, T, H*64]) and Wo's
+// ([H*64, HDO]); x's for K1, K10, K11 (x == NULL: K1p, which reads none).
+int block_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+               CUtensorMap* ta, CUtensorMap* tw, CUtensorMap* tx,
+               const void* q, const void* k, const void* v, long long sb,
+               long long sh, long long st, const void* x, const void* wo,
+               void* merged, int B, int H, int T, int HDO, int heads) {
+  const int HD = H * D;
+  int e = bhtd_map(tq, q, B, H, T, heads, sb, sh, st);
+  if (e == 0) e = bhtd_map(tk, k, B, H, T, heads, sb, sh, st);
+  if (e == 0) e = bhtd_map(tv, v, B, H, T, heads, sb, sh, st);
+  if (e == 0) e = btd_map(ta, merged, B, T, HD);
+  if (e == 0)
+    e = maps.get(tw, map_spec(wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              {(cuuint64_t)HDO, (cuuint64_t)HD},
+                              {(cuuint64_t)HDO * 2}, {64u, 64u},
+                              CU_TENSOR_MAP_SWIZZLE_128B));
+  if (e == 0) e = x ? btd_map(tx, x, B, T, HD) : btd_map(tx, merged, B, T, HD);
+  return e;
+}
+
 template <bool PAIR, int FORM = POST>
 int launch(const void* q, const void* k, const void* v, long long sb,
            long long sh, long long st, const void* x, const void* wo,
@@ -790,16 +872,8 @@ int launch(const void* q, const void* k, const void* v, long long sb,
       cs < 1 || cs > units || (units + cs - 1) / cs * C::HEADS > MAX_COLS)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, ta, tw, tx;
-  int e = bhtd_map(&tq, q, B, H, T, C::HEADS, sb, sh, st);
-  if (e == 0) e = bhtd_map(&tk, k, B, H, T, C::HEADS, sb, sh, st);
-  if (e == 0) e = bhtd_map(&tv, v, B, H, T, C::HEADS, sb, sh, st);
-  if (e == 0) e = btd_map(&ta, out, B, T, HD);
-  if (e == 0)
-    e = maps.get(&tw, map_spec(wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                               {(cuuint64_t)HD, (cuuint64_t)HD},
-                               {(cuuint64_t)HD * 2}, {64u, 64u},
-                               CU_TENSOR_MAP_SWIZZLE_128B));
-  if (e == 0) e = btd_map(&tx, x, B, T, HD);
+  const int e = block_maps(&tq, &tk, &tv, &ta, &tw, &tx, q, k, v, sb, sh, st,
+                           x, wo, out, B, H, T, HD, C::HEADS);
   if (e != 0) return e;
   const dim3 grid(cs, (T + BM - 1) / BM, B);
   return launch_cluster(kernel_of<PAIR, FORM>(), grid, cs, C::NT, C::SMEM,
@@ -807,20 +881,39 @@ int launch(const void* q, const void* k, const void* v, long long sb,
                         (const bf16*)bo, (bf16*)out, T, H, scale_log2);
 }
 
+int launch_partial(const void* q, const void* k, const void* v, long long sb,
+                   long long sh, long long st, void* merged, const void* wo,
+                   void* out, int B, int H, int T, int HDO, float scale_log2,
+                   int cs, void* stream) {
+  using C = Cfg<false>;
+  if (B < 1 || T < 1 || H < 1 || HDO < D || HDO % D != 0 || cs < 1 ||
+      cs > H || cs > HDO / D || (H + cs - 1) / cs > MAX_COLS)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, ta, tw, tx;
+  const int e = block_maps(&tq, &tk, &tv, &ta, &tw, &tx, q, k, v, sb, sh, st,
+                           nullptr, wo, merged, B, H, T, HDO, 1);
+  if (e != 0) return e;
+  const dim3 grid(cs, (T + BM - 1) / BM, B);
+  return launch_cluster(encoder_block_partial_kernel, grid, cs, C::NT,
+                        C::SMEM, (cudaStream_t)stream, tq, tk, tv, ta, tw, tx,
+                        (bf16*)merged, (float*)out, T, H, HDO, scale_log2);
+}
+
 }  // namespace
 
-// Raises K1's, K10's and K11's dynamic shared-memory limits, allows their
-// clusters of up to 16 blocks and looks the driver's tensor-map encoder
-// up. Called once, when the library is loaded.
+// Raises K1's, K1p's, K10's and K11's dynamic shared-memory limits,
+// allows their clusters of up to 16 blocks and looks up
+// cuTensorMapEncodeTiled. Called once, when the library is loaded.
 extern "C" int mas_encoder_block_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const void* fns[4] = {(const void*)encoder_block_kernel,
+  const void* fns[5] = {(const void*)encoder_block_kernel,
                         (const void*)encoder_block_paired_kernel,
                         (const void*)encoder_block_ab_kernel<DIV>,
-                        (const void*)encoder_block_ab_kernel<NORM>};
-  const int smem[4] = {Cfg<false>::SMEM, Cfg<true>::SMEM, Cfg<false>::SMEM,
-                       Cfg<false>::SMEM};
-  for (int i = 0; i < 4; ++i) {
+                        (const void*)encoder_block_ab_kernel<NORM>,
+                        (const void*)encoder_block_partial_kernel};
+  const int smem[5] = {Cfg<false>::SMEM, Cfg<true>::SMEM, Cfg<false>::SMEM,
+                       Cfg<false>::SMEM, Cfg<false>::SMEM};
+  for (int i = 0; i < 5; ++i) {
     cudaError_t e = cudaFuncSetAttribute(
         fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
     if (e == cudaSuccess)
@@ -831,8 +924,9 @@ extern "C" int mas_encoder_block_init(void) {
   return 0;
 }
 
-// The clusters of cs K1 (paired = 0; K11's blocks are K1's) or K10 (1)
-// blocks the card holds at once, into *out. Returns a cudaError_t value.
+// The clusters of cs K1 (paired = 0; K1p's and K11's blocks are K1's) or
+// K10 (1) blocks the card holds at once, into *out. Returns a cudaError_t
+// value.
 extern "C" int mas_encoder_block_fit(int paired, int cs, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
@@ -904,4 +998,19 @@ extern "C" int mas_attn_o_residual_ab(const void* q, const void* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K1p, K1's partial form on one rank of the model axis: out = (attention
+// over the H heads of q/k/v, merged) @ wo in float32. q/k/v as K1's; wo:
+// [H * 64, HDO] row-major bf16 (a row shard of the layer's o-projection),
+// HDO % 64 == 0 and HDO / 64 >= cs; merged: [B, T, H * 64] bf16 scratch,
+// written and read back (16-byte aligned); out: [B, T, HDO] float32,
+// rows by 8-byte stores. K1's plans (cs blocks a cluster, one to four
+// heads a rank). Returns a cudaError_t value, as mas_attn_o_residual.
+extern "C" int mas_attn_o_residual_partial(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long st, void* merged, const void* wo, void* out, int B, int H,
+    int T, int HDO, float scale_log2, int cs, void* stream) {
+  return launch_partial(q, k, v, sb, sh, st, merged, wo, out, B, H, T, HDO,
+                        scale_log2, cs, stream);
 }

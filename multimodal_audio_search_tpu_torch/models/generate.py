@@ -19,6 +19,12 @@ sub-block kernels K3/K4, ops/decoder_block.py); ``decode.cross_attn`` and
 ``decode.int8_cross_kv`` pick the cross K/V format (bf16 merged for K2,
 int8 merged for K6, int8 [B, H, T, D] for K7, or the einsum format).
 
+``generate_tp`` is the greedy loop over one data row's model axis
+(models/whisper.py::decode_step_tp, each rank's heads on its device);
+``check_supported(..., model_parallel=mp)`` refuses the decode options
+the axis does not run yet (parallel/mesh.py::refuse_model_axis, ROADMAP
+A13c).
+
 Not ported: ``scan_layers``.
 """
 from __future__ import annotations
@@ -29,8 +35,9 @@ import torch
 
 from ..config import DecodeConfig
 from .whisper import (WhisperConfig, cross_kv, cross_kv_merged,
-                      cross_kv_merged_int8, cross_kv_quantized, decode_step,
-                      init_cache)
+                      cross_kv_merged_int8, cross_kv_merged_tp,
+                      cross_kv_quantized, cross_kv_tp, decode_step,
+                      decode_step_tp, init_cache, init_cache_tp)
 
 NEG_INF = -1e9
 
@@ -106,12 +113,15 @@ def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
 METHODS = ("greedy", "sample", "beam")
 
 
-def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
+def check_supported(decode: DecodeConfig, quantized: bool = False,
+                    model_parallel: int = 1) -> None:
     """Raise on an unknown decode ``method`` (ValueError), on decode
     options this port does not run yet, on an unknown ``fused_encoder``,
-    and on ``fused_layer`` over a ``quantized`` (int8) decoder, which the
+    on ``fused_layer`` over a ``quantized`` (int8) decoder, which the
     JAX package cannot run either (models/whisper.py, module
-    docstring)."""
+    docstring), and, at ``model_parallel > 1``, on what the mesh's model
+    axis does not run yet (parallel/mesh.py::refuse_model_axis)."""
+    from ..parallel.mesh import refuse_model_axis
     if decode.method not in METHODS:
         raise ValueError(
             f"method={decode.method!r}: one of {', '.join(METHODS)}")
@@ -128,6 +138,7 @@ def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
             f"fused_layer={decode.fused_layer!r} with quantize_decoder: "
             f"the fused sub-block kernels take bf16 weights, and the JAX "
             f"package has no int8 form of them; set fused_layer=False")
+    refuse_model_axis(model_parallel, decode, quantized)
 
 
 class DecodeOut(NamedTuple):
@@ -176,12 +187,54 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     if decode.method == "beam":
         raise ValueError("method='beam' decodes with models/beam.py::"
                          "beam_generate")
-    b = enc_out.shape[0]
+    total = prefix.shape[1] + max_new_tokens
+    ckv = _select_cross_kv(params, enc_out, cfg, decode)
+    cache = init_cache(cfg, enc_out.shape[0], total, enc_out.dtype,
+                       enc_out.device)
+
+    def step(token, pos):
+        return decode_step(params, token, pos, cache, ckv, cfg,
+                           fused_layer=decode.fused_layer)
+    return _decode_loop(step, enc_out.shape[0], enc_out.device, prefix,
+                        cfg=cfg, decode=decode,
+                        max_new_tokens=max_new_tokens, rng=rng,
+                        with_scores=with_scores, noise_rows=noise_rows)
+
+
+@torch.inference_mode()
+def generate_tp(trees, encs: list, prefix: torch.Tensor, *,
+                cfg: WhisperConfig, decode: DecodeConfig,
+                max_new_tokens: int, with_scores: bool = False) -> DecodeOut:
+    """Greedy ``generate`` over one data row's model axis: ``trees`` the
+    ranks' head shards (parallel/mesh.py::shard_heads), ``encs`` the
+    encoder output on each rank's device (models/whisper.py::encode_tp);
+    each step is decode_step_tp, whose logits, tokens and every rule of
+    the loop stay on the first rank's device. Sampling, beam and the int8
+    cross K/V formats raise (ROADMAP A13c)."""
+    check_supported(decode, model_parallel=len(trees))
+    total = prefix.shape[1] + max_new_tokens
+    enc0 = encs[0]
+    ckvs = cross_kv_tp(trees, encs, cfg) if decode.cross_attn == "einsum" \
+        else cross_kv_merged_tp(trees, encs, cfg)
+    caches = init_cache_tp(trees, cfg, enc0.shape[0], total, enc0.dtype)
+
+    def step(token, pos):
+        return decode_step_tp(trees, token, pos, caches, ckvs, cfg,
+                              fused_layer=decode.fused_layer)
+    return _decode_loop(step, enc0.shape[0], enc0.device, prefix, cfg=cfg,
+                        decode=decode, max_new_tokens=max_new_tokens,
+                        with_scores=with_scores)
+
+
+def _decode_loop(step, b: int, dev, prefix: torch.Tensor, *,
+                 cfg: WhisperConfig, decode: DecodeConfig,
+                 max_new_tokens: int, rng: torch.Generator | None = None,
+                 with_scores: bool = False,
+                 noise_rows: tuple[int, int] | None = None) -> DecodeOut:
+    """generate's loop on ``dev`` over ``step(token [B], pos)`` -> logits
+    [B, vocab] (generate's docstring)."""
     prefix_len = prefix.shape[1]
     total = prefix_len + max_new_tokens
-    dev = enc_out.device
-    ckv = _select_cross_kv(params, enc_out, cfg, decode)
-    cache = init_cache(cfg, b, total, enc_out.dtype, dev)
     tokens = torch.full((b, total), cfg.pad_token_id, dtype=torch.long,
                         device=dev)
     tokens[:, :prefix_len] = prefix.to(device=dev, dtype=torch.long)
@@ -193,8 +246,7 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     ar = torch.arange(total, device=dev)
     pos = 0
     while pos < total - 1:
-        logits = decode_step(params, tokens[:, pos], pos, cache, ckv, cfg,
-                             fused_layer=decode.fused_layer)
+        logits = step(tokens[:, pos], pos)
         logits = apply_repetition_penalty(
             logits, tokens, (ar <= pos)[None, :].expand(b, total),
             decode.repetition_penalty)

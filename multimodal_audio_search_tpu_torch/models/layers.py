@@ -79,6 +79,28 @@ def mha(params, x_q, x_kv, n_heads: int, bias=None) -> torch.Tensor:
     return dense(params["o"], out)
 
 
+def dense_partial(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x @ W in float32 without a bias: a row-parallel layer's share on
+    one rank of the mesh's model axis (W its rows of the layer's weight),
+    x's values multiplied and summed in float32 (TF32 off on the card).
+    The ranks' shares meet in parallel/mesh.py::model_sum, which adds the
+    bias once."""
+    return torch.matmul(x.float(), w.float())
+
+
+def mha_partial(params, x_q, x_kv, n_heads: int, bias=None) -> torch.Tensor:
+    """One rank's share of ``mha`` on the mesh's model axis: ``params``
+    holds its head shard (q/k/v columns and biases of ``n_heads`` heads,
+    the matching rows of o), ``bias`` the additive bias of those heads
+    (or one that broadcasts over them); returns the float32 partial
+    o-projection, without o's bias (dense_partial)."""
+    q = split_heads(dense(params["q"], x_q), n_heads)
+    k = split_heads(dense(params["k"], x_kv), n_heads)
+    v = split_heads(dense(params["v"], x_kv), n_heads)
+    out = merge_heads(attention_scores(q, k, v, bias))
+    return dense_partial(params["o"]["w"], out)
+
+
 def padding_bias(mask: torch.Tensor) -> torch.Tensor:
     """[B, T] {0,1} key mask -> additive [B, 1, 1, T] bias."""
     return (1.0 - mask.float())[:, None, None, :] * -1e9

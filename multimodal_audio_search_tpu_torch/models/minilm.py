@@ -5,7 +5,9 @@ post-layernorm BERT encoder (LN eps 1e-12, learned absolute positions,
 token-type embeddings, erf-GELU) -> attention-masked mean pooling -> L2
 normalisation. Same param keys and layouts; ``mean_pool`` and
 ``sentence_projection`` (the sentence-transformers Dense head) as in
-JAX.
+JAX. ``sentence_embed_tp`` runs the encoder over one data row's model
+axis (parallel/mesh.py): each rank's head shard and F/mp of the MLP on
+its device, every row-parallel product ending in ``model_sum``.
 """
 from __future__ import annotations
 
@@ -88,10 +90,61 @@ def sentence_embed(params, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor,
                    cfg: MiniLMConfig = MiniLMConfig()) -> torch.Tensor:
     """[B, T] -> [B, H] unit-norm sentence embeddings (mean pool + L2)."""
-    h = encode_tokens(params, input_ids, attention_mask, cfg).float()
-    m = attention_mask.float()[:, :, None]
-    pooled = (h * m).sum(dim=1) / m.sum(dim=1).clamp(min=1e-9)
+    return unit_mean_pool(encode_tokens(params, input_ids, attention_mask,
+                                        cfg), attention_mask)
+
+
+def unit_mean_pool(h: torch.Tensor, attention_mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """mean_pool, then L2-normalised: the sentence embedding of the
+    encoder's hidden states."""
+    pooled = mean_pool(h, attention_mask)
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def encode_layers_tp(trees, x: torch.Tensor, biases: list, heads: int,
+                     eps: float) -> torch.Tensor:
+    """The post-LN layer stack over one data row's model axis: ``trees``
+    the ranks' head shards (parallel/mesh.py::shard_heads) with their
+    ``blocks``, ``x`` the embedded rows on the first rank's device,
+    ``biases`` each rank's additive attention bias on its device. Each
+    rank attends its heads (layers.mha_partial) and runs its F/mp MLP
+    columns; the partials meet in model_sum and each rank normalises its
+    copy. Returns the hidden states on the first rank's device."""
+    from ..parallel.mesh import model_sum
+    mp = len(trees)
+    if heads % mp:
+        raise ValueError(f"{heads} heads do not split into {mp} ranks")
+    xs = [x.to(b.device) for b in biases]
+    for i, blk0 in enumerate(trees[0]["blocks"]):
+        parts = [L.mha_partial(t["blocks"][i]["attn"], xj, xj, heads // mp,
+                               bj) for t, xj, bj in zip(trees, xs, biases)]
+        xs = [L.layer_norm(t["blocks"][i]["attn_ln"], xj, eps) for t, xj in
+              zip(trees, model_sum(parts, blk0["attn"]["o"]["b"], xs))]
+        parts = [L.dense_partial(t["blocks"][i]["mlp_out"]["w"], L.gelu(
+            L.dense(t["blocks"][i]["mlp_in"], xj)))
+            for t, xj in zip(trees, xs)]
+        xs = [L.layer_norm(t["blocks"][i]["mlp_ln"], xj, eps) for t, xj in
+              zip(trees, model_sum(parts, blk0["mlp_out"]["b"], xs))]
+    return xs[0]
+
+
+def sentence_embed_tp(trees, input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor,
+                      cfg: MiniLMConfig = MiniLMConfig()) -> torch.Tensor:
+    """sentence_embed over one data row's model axis (encode_layers_tp):
+    ``trees`` the ranks' head shards, ids and mask on the first rank's
+    device; the embeddings on that device."""
+    emb = trees[0]["embeddings"]
+    t = input_ids.shape[1]
+    x = emb["word"][input_ids] + emb["position"][:t][None]
+    if cfg.type_vocab:
+        x = x + emb["token_type"][0][None, None]
+    x = L.layer_norm(emb["ln"], x, cfg.ln_eps)
+    bias = L.padding_bias(attention_mask)
+    biases = [bias.to(tr["embeddings"]["word"].device) for tr in trees]
+    return unit_mean_pool(encode_layers_tp(trees, x, biases, cfg.heads,
+                                           cfg.ln_eps), attention_mask)
 
 
 def sentence_projection(params, pooled: torch.Tensor,

@@ -9,6 +9,10 @@ shared ``[rel_buckets, heads]`` table, bucketed bidirectionally with
 param keys and layouts; weights convert from any HF ``MPNetModel`` with
 ``models/convert.py::convert_mpnet``.
 
+``sentence_embed_tp`` runs the encoder over one data row's model axis
+(minilm.encode_layers_tp), each rank with its heads' columns of the
+position bias table.
+
 The bucket table of a length T is computed once on the CPU in float32
 and cached, then moved to the params' device: the buckets are integers
 that JAX and HF compute with a float32 log, and the card's division by a
@@ -23,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from . import layers as L
+from .minilm import encode_layers_tp, unit_mean_pool
 
 
 @dataclass(frozen=True)
@@ -133,7 +138,25 @@ def sentence_embed(params, input_ids: torch.Tensor,
                    cfg: MPNetConfig = MPNetConfig()) -> torch.Tensor:
     """[B, T] -> [B, H] unit-norm sentence embeddings (mean pool + L2),
     the sentence-transformers all-mpnet-base-v2 head."""
-    h = encode_tokens(params, input_ids, attention_mask, cfg).float()
-    m = attention_mask.float()[:, :, None]
-    pooled = (h * m).sum(dim=1) / m.sum(dim=1).clamp(min=1e-9)
-    return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    return unit_mean_pool(encode_tokens(params, input_ids, attention_mask,
+                                        cfg), attention_mask)
+
+
+def sentence_embed_tp(trees, input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor,
+                      cfg: MPNetConfig = MPNetConfig()) -> torch.Tensor:
+    """sentence_embed over one data row's model axis: ``trees`` the
+    ranks' head shards (parallel/mesh.py::shard_heads, which splits the
+    [buckets, heads] bias table by head), ids and mask on the first
+    rank's device; the embeddings on that device."""
+    emb = trees[0]["embeddings"]
+    t = input_ids.shape[1]
+    pos_ids = _position_ids(input_ids, cfg.pad_token_id)
+    x = emb["word"][input_ids] + emb["position"][pos_ids]
+    x = L.layer_norm(emb["ln"], x, cfg.ln_eps)
+    pad = L.padding_bias(attention_mask)
+    biases = [pad.to(tr["rel_bias"].device)
+              + position_bias(tr["rel_bias"], t, cfg).float()
+              for tr in trees]
+    return unit_mean_pool(encode_layers_tp(trees, x, biases, cfg.heads,
+                                           cfg.ln_eps), attention_mask)

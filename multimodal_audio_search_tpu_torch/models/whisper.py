@@ -39,7 +39,19 @@ fused path reads ``a["q"]["w"]``, which quantization removed, and fails
 with ``KeyError: 'w'``; the port refuses ``fused_layer`` on a quantized
 decoder with a clear error (there is no fused int8 path to match).
 
-Not ported (ROADMAP A13): ``scan_layers``, tensor-parallel meshes.
+Tensor parallelism (the mesh's model axis, parallel/mesh.py): the
+``*_tp`` functions take the per-rank param trees of one data row
+(parallel/mesh.py::shard_heads, each tree on its rank's device) and run
+each rank's H/mp heads and F/mp of the MLP on its device from this one
+process. Every row-parallel product (self-attention o, cross-attention
+o, mlp_out) ends in ``model_sum``: the ranks' float32 partials from K1's,
+K3's or K4's partial form on the card (K1p, K3p, K4p) or from the plain
+partials (layers.dense_partial), summed in rank order, + bias + residual,
+rounded once. K2 runs each rank's heads unchanged. The logits are
+computed on the first rank only; the chosen tokens go to every rank for
+the next embedding lookup. The single-device functions are unchanged.
+
+Not ported (ROADMAP A13): ``scan_layers``.
 """
 from __future__ import annotations
 
@@ -282,6 +294,14 @@ def _cross_attend(blk, h, ckv_entry, cfg: WhisperConfig):
     in the JAX function: (k, v) 3-D merged -> K2; (k8, ks, v8, vs) 3-D
     merged -> K6; (k8, ks, v8, vs) 4-D [B, H, T, D] -> K7; (k, v) 4-D ->
     einsum."""
+    return L.dense(blk["cross_attn"]["o"],
+                   _cross_attention(blk, h, ckv_entry, cfg.heads))
+
+
+def _cross_attention(blk, h, ckv_entry, heads: int) -> torch.Tensor:
+    """_cross_attend's merged attention output [B, 1, heads*64] in h's
+    dtype, before the o-projection (``heads``: the block's, or a rank's
+    head shard)."""
     from ..ops.cached_attention import int8_cached_attention
     from ..ops.cross_attention import (fused_single_query_attention,
                                        fused_single_query_attention_int8)
@@ -292,20 +312,17 @@ def _cross_attend(blk, h, ckv_entry, cfg: WhisperConfig):
                          "single-query (decode steps); use cross_kv()")
     if merged and len(ckv_entry) == 4:
         o = fused_single_query_attention_int8(q[:, 0], *ckv_entry,
-                                              heads=cfg.heads)
-        attn = o[:, None, :].to(h.dtype)
-    elif merged:
-        o = fused_single_query_attention(q[:, 0], *ckv_entry,
-                                         heads=cfg.heads)
-        attn = o[:, None, :].to(h.dtype)
-    elif len(ckv_entry) == 4:
-        o = int8_cached_attention(L.split_heads(q, cfg.heads)[:, :, 0],
+                                              heads=heads)
+        return o[:, None, :].to(h.dtype)
+    if merged:
+        o = fused_single_query_attention(q[:, 0], *ckv_entry, heads=heads)
+        return o[:, None, :].to(h.dtype)
+    if len(ckv_entry) == 4:
+        o = int8_cached_attention(L.split_heads(q, heads)[:, :, 0],
                                   *ckv_entry)
-        attn = L.merge_heads(o[:, :, None, :].to(h.dtype))
-    else:
-        attn = L.merge_heads(L.attention_scores(
-            L.split_heads(q, cfg.heads), *ckv_entry))
-    return L.dense(blk["cross_attn"]["o"], attn)
+        return L.merge_heads(o[:, :, None, :].to(h.dtype))
+    return L.merge_heads(L.attention_scores(L.split_heads(q, heads),
+                                            *ckv_entry))
 
 
 def _tied_logits(dec, x: torch.Tensor) -> torch.Tensor:
@@ -330,11 +347,13 @@ def _self_attend_cached(q1, k, v, pos: int, cfg: WhisperConfig):
 
 
 def init_cache(cfg: WhisperConfig, batch: int, max_len: int, dtype,
-               device):
-    """Merged-head self-attention KV cache: [B, max_len, d_model]."""
-    return [{"k": torch.zeros(batch, max_len, cfg.d_model, dtype=dtype,
+               device, width: int | None = None):
+    """Merged-head self-attention KV cache: [B, max_len, d_model]
+    (``width``: a rank's head shard's, H/mp * 64)."""
+    width = width or cfg.d_model
+    return [{"k": torch.zeros(batch, max_len, width, dtype=dtype,
                               device=device),
-             "v": torch.zeros(batch, max_len, cfg.d_model, dtype=dtype,
+             "v": torch.zeros(batch, max_len, width, dtype=dtype,
                               device=device)}
             for _ in range(cfg.dec_layers)]
 
@@ -416,6 +435,171 @@ def decode_step(params, token: torch.Tensor, pos: int, cache, ckv,
                             L.gelu(L.dense(blk["mlp_in"], h)))
     x = L.layer_norm(dec["ln"], x, cfg.ln_eps)
     return _tied_logits(dec, x[:, 0, :])
+
+
+# ------------------------------------------------- tensor parallelism (TP)
+def _tp_devices(trees) -> list[torch.device]:
+    """Each rank's device: where its tree's token table lies."""
+    return [t["decoder"]["embed_tokens"].device for t in trees]
+
+
+def _tp_heads(trees, cfg: WhisperConfig) -> int:
+    """The heads of a rank's shard (H / mp)."""
+    if cfg.heads % len(trees):
+        raise ValueError(f"{cfg.heads} heads do not split into "
+                         f"{len(trees)} ranks")
+    return cfg.heads // len(trees)
+
+
+def encode_tp(trees, mel: torch.Tensor, cfg: WhisperConfig,
+              fused_attention: bool | None = None,
+              fused_blocks: bool | str = False) -> list[torch.Tensor]:
+    """``encode`` over one data row's model axis: ``trees`` the ranks'
+    head shards (parallel/mesh.py::shard_heads), ``mel`` on the first
+    rank's device. The conv stem runs on the first rank; each layer's
+    attention runs each rank's heads on its device -- K1p (``fused_blocks``
+    True), K8 and a plain partial o-projection (``fused_attention``), or
+    the plain partial -- and the MLP each rank's F/mp columns, each ending
+    in model_sum. Returns the encoder output on every rank's device
+    (rank order). The int8 and paired encoder kernels raise (ROADMAP
+    A13c)."""
+    from ..ops.attention import fused_encoder_attention
+    from ..ops.encoder_block import fused_attention_o_residual
+    from ..parallel.mesh import model_sum
+    if fused_blocks in ("int8", "paired"):
+        raise NotImplementedError(
+            f"fused_blocks={fused_blocks!r} over the mesh's model axis is "
+            f"not ported (ROADMAP A13c)")
+    devs, hl = _tp_devices(trees), _tp_heads(trees, cfg)
+    enc0 = trees[0]["encoder"]
+    x = mel.transpose(1, 2)
+    x = L.gelu(_conv1d(enc0["conv1"], x, 1))
+    x = L.gelu(_conv1d(enc0["conv2"], x, 2))
+    x = x + enc0["positions"][: x.shape[1]][None].to(x.dtype)
+    if fused_attention is None:
+        fused_attention = bool(fused_blocks) or use_fused_attention(
+            x.shape[1], x.device)
+    xs = [x.to(d) for d in devs]
+    for i, blk0 in enumerate(enc0["blocks"]):
+        parts = []
+        for t, xj in zip(trees, xs):
+            blk = t["encoder"]["blocks"][i]
+            h = L.layer_norm(blk["self_ln"], xj, cfg.ln_eps)
+            a = blk["self_attn"]
+            if fused_blocks or fused_attention:
+                q, k, v = (L.split_heads(L.dense(a[n], h), hl)
+                           for n in ("q", "k", "v"))
+            if fused_blocks:
+                parts.append(fused_attention_o_residual(
+                    q, k, v, None, a["o"]["w"], None, partial=True))
+            elif fused_attention:
+                parts.append(L.dense_partial(a["o"]["w"], L.merge_heads(
+                    fused_encoder_attention(q, k, v))))
+            else:
+                parts.append(L.mha_partial(a, h, h, hl))
+        xs = model_sum(parts, blk0["self_attn"]["o"]["b"], xs)
+        parts = []
+        for t, xj in zip(trees, xs):
+            blk = t["encoder"]["blocks"][i]
+            h = L.layer_norm(blk["mlp_ln"], xj, cfg.ln_eps)
+            parts.append(L.dense_partial(
+                blk["mlp_out"]["w"], L.gelu(L.dense(blk["mlp_in"], h))))
+        xs = model_sum(parts, blk0["mlp_out"]["b"], xs)
+    out = L.layer_norm(enc0["ln"], xs[0], cfg.ln_eps)
+    return [out.to(d) for d in devs]
+
+
+def cross_kv_merged_tp(trees, encs: list, cfg: WhisperConfig) -> list:
+    """Each rank's cross_kv_merged over its heads: [B, T, H/mp * 64]
+    cross K/V a layer, on its device (column-parallel k/v projections)."""
+    return [cross_kv_merged(t, e, cfg) for t, e in zip(trees, encs)]
+
+
+def cross_kv_tp(trees, encs: list, cfg: WhisperConfig) -> list:
+    """Each rank's cross_kv (the [B, H/mp, T, 64] einsum format)."""
+    local = dataclasses.replace(cfg, heads=_tp_heads(trees, cfg))
+    return [cross_kv(t, e, local) for t, e in zip(trees, encs)]
+
+
+def init_cache_tp(trees, cfg: WhisperConfig, batch: int, max_len: int,
+                  dtype) -> list:
+    """Each rank's self-attention cache, [B, max_len, d_model / mp] (its
+    H/mp heads) a layer, on its device."""
+    _tp_heads(trees, cfg)
+    return [init_cache(cfg, batch, max_len, dtype, d,
+                       cfg.d_model // len(trees))
+            for d in _tp_devices(trees)]
+
+
+def decode_step_tp(trees, token: torch.Tensor, pos: int, caches: list,
+                   ckvs: list, cfg: WhisperConfig,
+                   fused_layer: bool | str = False) -> torch.Tensor:
+    """``decode_step`` over one data row's model axis: ``caches`` and
+    ``ckvs`` a rank's each (init_cache_tp, cross_kv_merged_tp or
+    cross_kv_tp), written in place at row ``pos``; ``token`` [B] on the
+    first rank's device, copied to every rank for its embedding lookup.
+    Each sub-block runs each rank's heads (or F/mp MLP columns) on its
+    device and ends in model_sum: ``fused_layer`` True (B % 8 == 0) takes
+    K3p for the self sub-block and K4p for the MLP, with K2 for the cross
+    attention; otherwise K2 for both attentions and plain partials.
+    Returns the logits [B, vocab] float32 on the first rank's device.
+    ``fused_layer="v2"`` raises (ROADMAP A13c)."""
+    from ..ops import decoder_block as DB
+    from ..ops.cross_attention import fused_single_query_attention
+    from ..parallel.mesh import model_sum
+    if fused_layer == "v2":
+        raise NotImplementedError("fused_layer='v2' over the mesh's model "
+                                  "axis is not ported (ROADMAP A13c)")
+    devs, hl = _tp_devices(trees), _tp_heads(trees, cfg)
+    dtype = caches[0][0]["k"].dtype
+    xs = []
+    for t, d in zip(trees, devs):
+        dec = t["decoder"]
+        xs.append((dec["embed_tokens"][token.to(d)][:, None, :].float()
+                   + dec["positions"][pos][None, None, :].float()).to(dtype))
+    fused = bool(fused_layer) and xs[0].shape[0] % 8 == 0
+    for i, blk0 in enumerate(trees[0]["decoder"]["blocks"]):
+        parts = []
+        for t, xj, cache in zip(trees, xs, caches):
+            blk, lc = t["decoder"]["blocks"][i], cache[i]
+            if fused:
+                parts.append(DB.fused_self_block(
+                    xj[:, 0], *_self_args(blk), lc["k"], lc["v"], pos,
+                    heads=hl, eps=cfg.ln_eps, partial=True)[0][:, None])
+                continue
+            a = blk["self_attn"]
+            h = L.layer_norm(blk["self_ln"], xj, cfg.ln_eps)
+            lc["k"][:, pos] = L.dense(a["k"], h)[:, 0]
+            lc["v"][:, pos] = L.dense(a["v"], h)[:, 0]
+            attn = fused_single_query_attention(
+                L.dense(a["q"], h)[:, 0, :], lc["k"], lc["v"], heads=hl,
+                pos=pos)
+            parts.append(L.dense_partial(a["o"]["w"],
+                                         attn[:, None, :].to(dtype)))
+        xs = model_sum(parts, blk0["self_attn"]["o"]["b"], xs)
+        parts = []
+        for t, xj, ckv in zip(trees, xs, ckvs):
+            blk = t["decoder"]["blocks"][i]
+            h = L.layer_norm(blk["cross_ln"], xj, cfg.ln_eps)
+            parts.append(L.dense_partial(
+                blk["cross_attn"]["o"]["w"],
+                _cross_attention(blk, h, ckv[i], hl)))
+        xs = model_sum(parts, blk0["cross_attn"]["o"]["b"], xs)
+        parts = []
+        for t, xj in zip(trees, xs):
+            blk = t["decoder"]["blocks"][i]
+            if fused:
+                parts.append(DB.fused_mlp_block(
+                    xj[:, 0], *_mlp_args(blk), eps=cfg.ln_eps,
+                    partial=True)[:, None])
+                continue
+            h = L.layer_norm(blk["mlp_ln"], xj, cfg.ln_eps)
+            parts.append(L.dense_partial(
+                blk["mlp_out"]["w"], L.gelu(L.dense(blk["mlp_in"], h))))
+        xs = model_sum(parts, blk0["mlp_out"]["b"], xs)
+    dec0 = trees[0]["decoder"]
+    x = L.layer_norm(dec0["ln"], xs[0], cfg.ln_eps)
+    return _tied_logits(dec0, x[:, 0, :])
 
 
 _WHISPER_LANG_CODES: tuple[str, ...] | None = None

@@ -17,6 +17,14 @@ On a CUDA tensor each wrapper launches ``csrc/decoder_block.cu``; on a CPU
 tensor it runs the ``*_plain`` version of the same math. There is no
 other route: a launch that fails raises.
 
+``partial=True`` (K3p, K4p) is a block's form on one rank of the mesh's
+model axis (tensor parallelism): the rank holds H/mp heads (the [D,
+H/mp * 64] columns of Wq/Wk/Wv, the [H/mp * 64, D] rows of Wo, a cache
+of H/mp * 64 columns) or F/mp of the MLP's width, still reads the whole
+x for the layer norm, and returns the float32 o-projection (K3p) or fc2
+(K4p) sum without x and without bo / b2, which parallel/mesh.py::
+model_sum adds once to the ranks' sum.
+
 The ``*_plain`` functions have the JAX kernels' signatures and return
 tuples, and round where they round, in the working dtype (x's): h after
 the layer norm, q1/k1/v1 after the projections, the fresh-row products
@@ -84,10 +92,14 @@ def gelu_as(u: torch.Tensor) -> torch.Tensor:
 
 
 def _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
-                     k_cache, v_cache, pos: int, heads: int, eps: float):
-    """x_out before its rounding (f32 [B, D]), and k1, v1 in x's dtype."""
+                     k_cache, v_cache, pos: int, heads: int, eps: float,
+                     partial: bool = False):
+    """x_out before its rounding (f32 [B, D]; ``partial``: the float32
+    o-projection alone), and k1, v1 in x's dtype. The heads' width hd is
+    Wq's column count (D, or a rank's shard of it)."""
     dt = x.dtype
-    b, hd = x.shape
+    b = x.shape[0]
+    hd = wq.shape[1]
     d = hd // heads
     scale = 1.0 / math.sqrt(d)
     xf = x.float()
@@ -110,19 +122,25 @@ def _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     row = torch.einsum("bht,bthd->bhd", p, vc)
     attn = _r((row + pn[..., None] * v1.reshape(b, heads, d))
               .reshape(b, hd), dt)
-    xo = xf + _proj(attn, wo, bo, dt)
-    return xo, k1.to(dt), v1.to(dt)
+    y = _proj(attn, wo, None, dt)
+    if partial:
+        return y, k1.to(dt), v1.to(dt)
+    return xf + (y + _r(bo, dt)), k1.to(dt), v1.to(dt)
 
 
 def self_block_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
                      k_cache, v_cache, pos: int, *, heads: int,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, partial: bool = False):
     """B3 in plain PyTorch. x [B, D]; k_cache/v_cache [B, L, D] hold the
     rows t < pos (row pos and later are not read). Returns (x_out, k1,
-    v1), all [B, D] in x's dtype; the caches are not written."""
+    v1), all [B, D] in x's dtype; the caches are not written.
+    ``partial`` (K3p's function): wq/wk/wv [D, heads*64], wo [heads*64,
+    D], caches [B, L, heads*64]; the first output is the float32
+    o-projection without x and bo (bo is not read), k1/v1 [B, heads*64]."""
     xo, k1, v1 = _self_block_math(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
-                                  bo, k_cache, v_cache, int(pos), heads, eps)
-    return xo.to(x.dtype), k1, v1
+                                  bo, k_cache, v_cache, int(pos), heads, eps,
+                                  partial)
+    return (xo if partial else xo.to(x.dtype)), k1, v1
 
 
 def self_block_q_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
@@ -139,15 +157,21 @@ def self_block_q_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     return xo.to(dt), k1, v1, qc.to(dt)
 
 
-def _mlp_math(xf, ln_g, ln_b, w1, b1, w2, b2, dt, eps):
+def _mlp_math(xf, ln_g, ln_b, w1, b1, w2, b2, dt, eps, partial=False):
     h = _r(_ln(xf, ln_g, ln_b, dt, eps), dt)
     u = _r(gelu_as(_proj(h, w1, b1, dt)), dt)
+    if partial:
+        return _proj(u, w2, None, dt)
     return (xf + _proj(u, w2, b2, dt)).to(dt)
 
 
-def mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
-    """B4 in plain PyTorch: x + fc2(gelu(fc1(LN x))), [B, D] in x's dtype."""
-    return _mlp_math(x.float(), ln_g, ln_b, w1, b1, w2, b2, x.dtype, eps)
+def mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5,
+                    partial: bool = False):
+    """B4 in plain PyTorch: x + fc2(gelu(fc1(LN x))), [B, D] in x's dtype.
+    ``partial`` (K4p's function): w1 [D, F'], w2 [F', D] a rank's shard;
+    the float32 fc2 sum alone, without x and b2 (b2 is not read)."""
+    return _mlp_math(x.float(), ln_g, ln_b, w1, b1, w2, b2, x.dtype, eps,
+                     partial)
 
 
 def mlp_block_o_plain(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
@@ -265,7 +289,7 @@ def k3_smem(d: int, l: int, stages: int, rows: int) -> int:
 
 
 def self_block_plan(b: int, heads: int, l: int, rows: int | None = None,
-                    clusters: int = K3_CLUSTERS
+                    clusters: int = K3_CLUSTERS, d: int | None = None
                     ) -> tuple[int, int, int, int, int]:
     """(most heads a block, blocks a cluster, rows a tile, tiles, ring
     stages) of K3 at batch b and cache length l, on a card that holds
@@ -280,8 +304,9 @@ def self_block_plan(b: int, heads: int, l: int, rows: int | None = None,
     ``clusters`` (B=32 at base width on an H100: 3 rows, 11 tiles).
     ``rows`` overrides that. The ring takes what shared memory is left,
     at least K3_MIN_STAGES slots (at 16 rows, D <= 1344 at L <= 512:
-    every Whisper width)."""
-    d = heads * 64
+    every Whisper width). ``d``: the model width where it is not heads *
+    64 (K3p: a rank's heads of a wider model)."""
+    d = d or heads * 64
     cs = min(heads, K3_MAX_CLUSTER)
     if rows is None:
         rows = min(K3_ROWS, max(1, -(-b // clusters)))
@@ -313,31 +338,49 @@ def _fit(dev: torch.device, cs: int, smem: int) -> int:
 
 def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
                  v_cache, pos: int, heads: int, eps: float, tail=None,
-                 rows: int | None = None):
-    kernel = "K3-q" if tail else "K3"
-    b, hd = x.shape
-    if hd != heads * 64:
-        raise ValueError(f"{kernel} takes head dim 64: D={hd}, heads={heads}")
+                 rows: int | None = None, partial: bool = False):
+    kernel = "K3-q" if tail else "K3p" if partial else "K3"
+    b, d = x.shape
+    hd = heads * 64
+    if (d != hd and not partial) or d % 64 or (tail and partial):
+        raise ValueError(f"{kernel} takes head dim 64: D={d}, heads={heads}")
     l = k_cache.shape[1]
-    vecs = dict(ln_g=ln_g, ln_b=ln_b, bq=bq, bv=bv, bo=bo)
-    mats = dict(wq=wq, wk=wk, wv=wv, wo=wo)
+    vecs = dict(ln_g=ln_g, ln_b=ln_b)
+    heads_vecs = dict(bq=bq, bv=bv)
+    mats = dict(wq=wq, wk=wk, wv=wv)
+    if not partial:
+        vecs["bo"] = bo
     if tail:
         vecs.update(cross_ln_g=tail[0], cross_ln_b=tail[1], bcq=tail[3])
         mats["wcq"] = tail[2]
     for name, a in vecs.items():
+        _shape(kernel, a, (d,), name)
+    for name, a in heads_vecs.items():
         _shape(kernel, a, (hd,), name)
     for name, a in mats.items():
-        _shape(kernel, a, (hd, hd), name)
+        _shape(kernel, a, (d, hd), name)
+    _shape(kernel, wo, (hd, d), "wo")
     _shape(kernel, v_cache, (b, l, hd), "v_cache")
     _shape(kernel, k_cache, (b, l, hd), "k_cache")
-    _check(kernel, x, x=x, k_cache=k_cache, v_cache=v_cache, **vecs, **mats)
+    _check(kernel, x, x=x, k_cache=k_cache, v_cache=v_cache, wo=wo, **vecs,
+           **heads_vecs, **mats)
     if not 0 <= pos < l:
         raise ValueError(f"{kernel}: pos {pos} outside [0, {l})")
     dev = x.device
     # the clusters the card holds, asked at the largest tile's size
-    _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS)
+    _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS, d=d)
     _, _, rt, _, stages = self_block_plan(
-        b, heads, l, rows, _fit(dev, cs, k3_smem(hd, l, st, K3_ROWS)))
+        b, heads, l, rows, _fit(dev, cs, k3_smem(d, l, st, K3_ROWS)), d=d)
+    if partial:
+        out = torch.empty(b, d, dtype=torch.float32, device=dev)
+        runtime.launch(
+            "mas_decoder_self_block_partial", dev,
+            *(a.data_ptr() for a in (x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
+                                     k_cache, v_cache, out)),
+            b, d, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64),
+            eps, runtime.stream_handle(dev))
+        runtime.bump("decoder_self_block")
+        return out, k_cache[:, pos], v_cache[:, pos]
     x_out = torch.empty_like(x)
     qc = torch.empty_like(x) if tail else None
     cross = tail or (None,) * 4
@@ -374,17 +417,21 @@ def _device(x: torch.Tensor) -> str:
 
 def fused_self_block(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
                      k_cache, v_cache, pos: int, *, heads: int,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, partial: bool = False):
     """B3: returns (x_out, k1, v1) [B, D] and writes k1/v1 into row
     ``pos`` of the caches (k1/v1 are views of that row). ``pos`` is a
-    host int. CUDA tensors launch K3, CPU tensors take the plain version.
-    On the card every tensor is bf16 except the float32 LN scale."""
+    host int. CUDA tensors launch K3 (``partial``: K3p, whose first output
+    is the float32 o-projection of the rank's heads, module docstring),
+    CPU tensors take the plain version. On the card every tensor is bf16
+    except the float32 LN scale."""
     pos = int(pos)
     if _device(x) == "cuda":
         return _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
-                            k_cache, v_cache, pos, heads, eps)
+                            k_cache, v_cache, pos, heads, eps,
+                            partial=partial)
     xo, k1, v1 = self_block_plain(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
-                                  k_cache, v_cache, pos, heads=heads, eps=eps)
+                                  k_cache, v_cache, pos, heads=heads, eps=eps,
+                                  partial=partial)
     return (xo, *_store_row(k_cache, v_cache, pos, k1, v1))
 
 
@@ -407,14 +454,16 @@ def fused_self_block_q(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     return (xo, *_store_row(k_cache, v_cache, pos, k1, v1), qc)
 
 
-def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
-    kernel = "K4-o" if head else "K4"
+def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
+                partial: bool = False):
+    kernel = "K4-o" if head else "K4p" if partial else "K4"
     b, hd = x.shape
     f = w1.shape[1]
-    if hd % 64 or hd > MAX_D or f % 32:
+    if hd % 64 or hd > MAX_D or f % 32 or (head and partial):
         raise ValueError(f"{kernel} takes D % 64 == 0, D <= {MAX_D} and "
                          f"F % 32 == 0: D={hd}, F={f}")
-    vecs = dict(ln_g=ln_g, ln_b=ln_b, b2=b2)
+    vecs = dict(ln_g=ln_g, ln_b=ln_b) if partial else \
+        dict(ln_g=ln_g, ln_b=ln_b, b2=b2)
     _shape(kernel, b1, (f,), "b1")
     _shape(kernel, w1, (hd, f), "w1")
     _shape(kernel, w2, (f, hd), "w2")
@@ -429,6 +478,17 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
         _shape(kernel, a, (hd,), name)
     _check(kernel, x, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
+    if partial:
+        out = torch.empty(b, hd, dtype=torch.float32, device=dev)
+        runtime.launch(
+            "mas_decoder_mlp_block_partial", dev,
+            *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2)),
+            _buf(dev, "h", b * hd, torch.bfloat16),
+            _buf(dev, "part", f // 32 * b * hd, torch.float32),
+            _counters(dev), out.data_ptr(), b, hd, f, eps,
+            runtime.sm_count(dev), runtime.raw_stream(dev))
+        runtime.bump("decoder_mlp_block")
+        return out
     out = torch.empty_like(x)
     runtime.launch(
         "mas_decoder_mlp_block", dev,
@@ -444,12 +504,17 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None):
     return out
 
 
-def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5):
+def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5,
+                    partial: bool = False):
     """B4: x + fc2(gelu(fc1(LN x))), [B, D]. CUDA tensors launch K4 (which
-    takes erff for the erf of the GELU), CPU tensors the plain version."""
+    takes erff for the erf of the GELU; ``partial``: K4p, the float32 fc2
+    sum of a rank's F/mp columns alone, module docstring), CPU tensors the
+    plain version."""
     if _device(x) == "cuda":
-        return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps)
-    return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps=eps)
+        return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,
+                           partial=partial)
+    return mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps=eps,
+                           partial=partial)
 
 
 def fused_mlp_block_o(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,

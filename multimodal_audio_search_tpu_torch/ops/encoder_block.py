@@ -6,7 +6,12 @@ fused_attention_o_residual``: its default bf16 body (K1), its
 ``qk_int8=True`` body (K9, ``fused_encoder="int8"``) and its
 ``pair_heads=True`` body (K10, ``fused_encoder="paired"``); and of the A/B
 copy ``tools/profile_encoder_kernel_ab.py::fused_v2`` (K11), which places
-the softmax division three ways. On a CUDA tensor each wrapper launches
+the softmax division three ways. ``partial=True`` is K1's form on one
+rank of the mesh's model axis (K1p): the rank's H/mp heads and the
+[H/mp * 64, HD_out] row shard of Wo give the float32 partial
+``attn_local @ Wo_rows``, without x and bo, which
+parallel/mesh.py::model_sum adds once to the ranks' sum (the head shard
+of the JAX kernel's non-square Wo). On a CUDA tensor each wrapper launches
 its hand-written kernel (K1, K10 and K11 ``csrc/encoder_block_wgmma.cu``:
 a thread-block cluster over the heads of a 128-row tile, sized by
 ``cluster_plan`` for the card it runs on; K11's "post" form is K1 itself;
@@ -26,29 +31,41 @@ from .. import runtime
 from .cached_attention import div_exact, quantize_kv
 
 
+def _merge_partial(attn, wo):
+    """attn @ Wo in float32 from the [B, H, T, D] float32 attention
+    output, merged and rounded to Wo's dtype before the o-projection."""
+    b, h, t, d = attn.shape
+    a = attn.transpose(1, 2).reshape(b, t, h * d).to(wo.dtype)
+    return torch.matmul(a.float(), wo.float())
+
+
 def _merge_o_residual(attn, x, wo, bo):
     """x + attn @ Wo + bo from the [B, H, T, D] float32 attention output:
     merged and rounded to Wo's dtype before the o-projection, the sum to
     x's dtype, as the TPU kernels round."""
-    b, h, t, d = attn.shape
-    a = attn.transpose(1, 2).reshape(b, t, h * d).to(wo.dtype)
-    y = torch.matmul(a.float(), wo.float()) + bo.float()
+    y = _merge_partial(attn, wo) + bo.float()
     return (x.float() + y).to(x.dtype)
 
 
 def attention_o_residual_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,  # [B, H, T, D]
-    x: torch.Tensor,                                     # [B, T, H*D]
-    wo: torch.Tensor, bo: torch.Tensor,                 # [H*D, H*D], [H*D]
+    x: torch.Tensor | None,                              # [B, T, HD_out]
+    wo: torch.Tensor, bo: torch.Tensor | None,  # [H*D, HD_out], [HD_out]
+    partial: bool = False,
 ) -> torch.Tensor:
     """x + (softmax(QK^T/sqrt(D)) V, heads merged) @ Wo + bo in plain
     PyTorch: f32 scores, softmax and products on the given inputs; the
     merged attention output is rounded to Wo's dtype before the
-    o-projection and the sum to x's dtype, as the TPU kernel rounds."""
+    o-projection and the sum to x's dtype, as the TPU kernel rounds.
+    ``partial``: the float32 ``(...) @ Wo`` alone (K1p's function; x and
+    bo are not read and may be None)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         / math.sqrt(q.shape[-1])
     p = torch.softmax(s, dim=-1)
-    return _merge_o_residual(torch.matmul(p, v.float()), x, wo, bo)
+    attn = torch.matmul(p, v.float())
+    if partial:
+        return _merge_partial(attn, wo)
+    return _merge_o_residual(attn, x, wo, bo)
 
 
 def attention_o_residual_paired_plain(q, k, v, x, wo, bo) -> torch.Tensor:
@@ -123,6 +140,16 @@ def cluster_ranks(heads: int, cs: int,
     units = heads // g
     return [[h for u in range(r * units // cs, (r + 1) * units // cs)
              for h in range(u * g, u * g + g)] for r in range(cs)]
+
+
+def output_chunks(chunks: int, cs: int) -> list[list[int]]:
+    """The 64-column output chunks each rank of a cluster of ``cs`` blocks
+    projects, as the kernel splits them: rank r the chunks [r N / cs,
+    (r + 1) N / cs) of N = ``chunks`` (HD_out / 64). K1's square form has
+    N = H, so each rank projects its own heads' chunks (cluster_ranks);
+    K1p's N is the layer's width, not the rank's heads'."""
+    return [list(range(r * chunks // cs, (r + 1) * chunks // cs))
+            for r in range(cs)]
 
 
 def _card(device) -> torch.device:
@@ -279,6 +306,43 @@ def _check_block_args(name, q, k, v, x, wo, bo):
     return q.stride()[:3]
 
 
+def _launch_partial(q, k, v, wo, cluster=None):
+    """K1p on clusters of ``cluster`` blocks (default: K1's plan for the
+    rank's heads on this card); returns [B, T, HD_out] float32."""
+    b, h, t, d = q.shape
+    hdo = wo.shape[-1]
+    if d != 64:
+        raise ValueError(f"K1p takes head dim 64, got {d}")
+    if wo.dim() != 2 or wo.shape[0] != h * d or hdo % 64 or hdo < 64:
+        raise ValueError(f"K1p takes Wo [H*64, HD_out] with HD_out % 64 == "
+                         f"0: q {tuple(q.shape)}, wo {tuple(wo.shape)}")
+    for n, a in (("q", q), ("k", k), ("v", v), ("wo", wo)):
+        if a.dtype != torch.bfloat16:
+            raise TypeError(f"K1p takes bf16 tensors; {n} is {a.dtype}")
+        if a.device != q.device:
+            raise ValueError(f"K1p: {n} on {a.device}, q on {q.device}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"K1p: {n} is not 16-byte aligned")
+    if q.stride() != k.stride() or q.stride() != v.stride():
+        raise ValueError("K1p takes q, k, v views with equal strides")
+    _check_q_strides("K1p", q)
+    if not wo.is_contiguous():
+        raise ValueError("K1p takes a contiguous wo")
+    dev = q.device
+    if cluster is None:
+        cluster = _card_plan(h, b, t, False, dev)
+    merged = torch.empty(b, t, h * d, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(b, t, hdo, dtype=torch.float32, device=dev)
+    sb, sh, st = q.stride()[:3]
+    runtime.launch("mas_attn_o_residual_partial", dev, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), sb, sh, st, merged.data_ptr(),
+                   wo.data_ptr(), out.data_ptr(), b, h, t, hdo,
+                   math.log2(math.e) / math.sqrt(d), cluster,
+                   runtime.stream_handle(dev))
+    runtime.bump("encoder_attn_o_residual")
+    return out
+
+
 def _check_q_strides(name, q):
     sb, sh, st, sd = q.stride()
     if sd != 1 or sb % 8 or sh % 8 or st % 8:
@@ -366,8 +430,8 @@ def _device(x: torch.Tensor) -> str:
 
 def fused_attention_o_residual(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    x: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
-    pair_heads: bool = False, qk_int8: bool = False,
+    x: torch.Tensor | None, wo: torch.Tensor, bo: torch.Tensor | None,
+    pair_heads: bool = False, qk_int8: bool = False, partial: bool = False,
 ) -> torch.Tensor:
     """x + (softmax(QK^T/sqrt(D)) V merged over heads) @ Wo + bo.
 
@@ -377,9 +441,20 @@ def fused_attention_o_residual(
     dtype. CUDA tensors launch K1, or K9 with ``qk_int8`` (k/v quantized
     first by quantize_kv, as the TPU wrapper does; both attention dots
     int8 x int8 -> int32), or K10 with ``pair_heads`` (H even); CPU
-    tensors take the plain versions."""
+    tensors take the plain versions. ``partial``: one rank's float32
+    partial ``(...) @ Wo`` over the rank's heads, Wo [H*D, HD_out], x and
+    bo unread (K1p on the card; module docstring)."""
     if qk_int8 and pair_heads:
         raise ValueError("qk_int8 and pair_heads exclude each other")
+    if partial:
+        if qk_int8 or pair_heads:
+            raise NotImplementedError(
+                "the partial (tensor-parallel) form of the int8 and paired "
+                "encoder kernels is not ported (ROADMAP A13c)")
+        if _device(q) == "cuda":
+            return _launch_partial(q, k, v, wo)
+        return attention_o_residual_plain(q, k, v, None, wo, None,
+                                          partial=True)
     dev = _device(x)
     if qk_int8:
         return attention_o_residual_int8(q, *quantize_kv(k, v), x, wo, bo)

@@ -13,7 +13,10 @@ over ``torch.distributed``:
   * ``make_dcn_mesh(dcn, ici_data, model)``: the "dcn" axis is the
     process rank; each process holds its own data x model devices (its
     row of the grid). With one process it is a reshape of the device
-    list, as in JAX: every slice then lives in this process.
+    list, as in JAX: every slice then lives in this process. Its model
+    axis runs tensor parallelism inside the process over each data
+    row's ``Mesh.model_devices`` (the pipelines' use_mesh), as JAX's
+    "model" rides ICI inside a slice.
   * ``hierarchical_sharded_topk`` / ``hierarchical_sharded_ivf`` shard
     the index over both data axes and merge candidates in two stages:
     stage 1 merges the local data shards inside the process (k finalists

@@ -13,9 +13,16 @@ device. The axes:
     blocks (``data_sharded``); replicas of the parameters sit on each
     data device (``replicated``);
   * ``model`` (Megatron tensor parallelism over attention heads and FFN
-    width): ``whisper_param_spec`` and ``shard_params`` give the rule and
-    each device's shards, but no model runs over it yet -- ``use_mesh``
-    and ``mesh_from_config`` refuse ``model > 1`` (ROADMAP A13b);
+    width): ``whisper_param_spec`` and ``shard_params`` give JAX's rule
+    and each device's shards; ``shard_heads`` is the rule the port
+    executes (whole heads, biases of the row-parallel layers kept whole),
+    and the models' TP forms (models/whisper.py, minilm.py, mpnet.py) run
+    each data row's ranks on its ``model_devices`` from this one process,
+    ending each row-parallel product in ``model_sum`` -- the port's psum
+    over "model". A model whose head count does not divide the axis runs
+    unsharded on the row's first model device (JAX's GSPMD splits a head
+    there; ROADMAP, deliberate differences). ``refuse_model_axis`` names
+    the decode options not ported to the axis yet (ROADMAP A13c);
   * ``dcn`` (parallel/distributed.py): the process rank.
 
 On the CPU a mesh holds n virtual entries of the CPU (the counterpart of
@@ -57,17 +64,31 @@ class Mesh:
         self.process_index = process_index
         self.world = world
 
+    def _rows(self) -> np.ndarray:
+        """This process's devices as [data rows, model]: with a "dcn"
+        axis and no process group, every slice's rows (dcn-major); inside
+        a group, this process's slice."""
+        grid = self.devices
+        if "model" in self.axis_names:
+            grid = np.moveaxis(grid, self.axis_names.index("model"), -1)
+        else:
+            grid = grid[..., None]
+        if "dcn" in self.axis_names and self.world is not None:
+            grid = grid[self.process_index]
+        return grid.reshape(-1, grid.shape[-1])
+
     def data_devices(self) -> list[torch.device]:
         """This process's data-axis devices, in shard order (the model
         axis at index 0): the device of each index block and batch chunk.
         With a "dcn" axis and no process group, every slice's devices
         (dcn-major); inside a group, this process's slice."""
-        grid = self.devices
-        if "model" in self.axis_names:
-            grid = np.take(grid, 0, axis=self.axis_names.index("model"))
-        if "dcn" in self.axis_names and self.world is not None:
-            grid = grid[self.process_index]
-        return list(grid.reshape(-1))
+        return list(self._rows()[:, 0])
+
+    def model_devices(self, row: int) -> list[torch.device]:
+        """The model-axis devices of data row ``row`` (an index into
+        data_devices(), whose device is the first of them), in rank
+        order."""
+        return list(self._rows()[row])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.data_devices()]})"
@@ -122,30 +143,49 @@ def validate_data_axis(mesh: Mesh) -> None:
                          f"two; {_POW2}")
 
 
-def refuse_model_axis(mp: int) -> None:
-    """The model axis is not ported: tensor parallelism needs the fused
-    kernels' residuals split into x/mp + partial sums (ROADMAP A13b)."""
-    if mp > 1:
+def refuse_model_axis(mp: int, decode=None, quantized: bool = False) -> None:
+    """Raise NotImplementedError naming ROADMAP A13c for what the model
+    axis does not run yet (``mp > 1``): sampling and beam decoding (the
+    parity decoders), ``fused_layer="v2"`` (K3-q, K4-o), an int8 decoder
+    (``quantized``: K5) or int8 cross K/V (K6, K7), and the int8 or paired
+    encoder kernels (K9, K10). ``decode``: a DecodeConfig (None: only
+    ``quantized`` is asked about). Nothing of these falls back to an
+    unsharded run."""
+    if mp <= 1:
+        return
+    what = []
+    if quantized:
+        what.append("quantize_decoder")
+    if decode is not None:
+        if decode.method in ("sample", "beam"):
+            what.append(f"method={decode.method!r}")
+        if decode.fused_layer == "v2":
+            what.append("fused_layer='v2'")
+        if decode.fused_encoder in ("int8", "paired"):
+            what.append(f"fused_encoder={decode.fused_encoder!r}")
+        if decode.int8_cross_kv or decode.cross_attn in ("int8",
+                                                         "int8_fused"):
+            what.append(f"cross_attn={decode.cross_attn!r} / int8_cross_kv")
+    if what:
         raise NotImplementedError(
-            f"model_parallel={mp}: the mesh's model axis (tensor "
-            f"parallelism) is not ported (ROADMAP A13b)")
+            f"model_parallel={mp} with {', '.join(what)}: not ported to "
+            f"the mesh's model axis (ROADMAP A13c)")
 
 
 def mesh_from_config(cfg, device="cuda") -> Mesh | None:
-    """Engine knob -> mesh: ``EngineConfig.data_parallel`` data devices
-    of ``device`` (never one card twice: more than the visible cards
-    raise); 1 x 1 returns None, single-device execution.
-    ``data_parallel`` must be a power of two; ``model_parallel > 1``
-    raises NotImplementedError (ROADMAP A13b)."""
+    """Engine knob -> mesh: ``EngineConfig.data_parallel`` x
+    ``model_parallel`` devices of ``device`` (never one card twice: more
+    than the visible cards raise) as a ("data", "model") grid; 1 x 1
+    returns None, single-device execution. ``data_parallel`` must be a
+    power of two."""
     dp = getattr(cfg, "data_parallel", 1) or 1
     mp = getattr(cfg, "model_parallel", 1) or 1
     if dp & (dp - 1):
         raise ValueError(f"data_parallel={dp} is not a power of two; "
                          f"{_POW2}")
-    refuse_model_axis(mp)
-    if dp <= 1:
+    if dp * mp <= 1:
         return None
-    return make_mesh(dp, device=device)
+    return make_mesh(dp * mp, model_parallel=mp, device=device)
 
 
 def _tree_map(fn, tree, path=()):
@@ -217,3 +257,77 @@ def shard_params(params, mesh: Mesh) -> np.ndarray:
             return leaf.to(dev)
         out[pos] = _tree_map(place, params)
     return out
+
+
+# ------------------------------------------------ TP execution (model axis)
+def _head_split(path: tuple) -> int | None:
+    """The axis ``shard_heads`` splits a leaf on (None: whole): columns of
+    attention q/k/v and mlp_in weights, their biases, rows of attention o
+    and mlp_out weights, and MPNet's [buckets, heads] position bias by
+    head."""
+    key = path[-1] if path else None
+    if "rel_bias" in path:
+        return 1
+    if any(k in path for k in ("q", "k", "v", "mlp_in")):
+        return 1 if key == "w" else 0 if key == "b" else None
+    if any(k in path for k in ("o", "mlp_out")) and key == "w":
+        return 0
+    return None
+
+
+def model_axis_fits(cfg, mp: int) -> bool:
+    """Whether a model of ``cfg`` (its ``heads`` and its MLP width,
+    ``ffn`` or ``intermediate``) splits into ``mp`` head shards: whole
+    heads and an equal share of the MLP a rank."""
+    width = getattr(cfg, "ffn", None) or getattr(cfg, "intermediate")
+    return cfg.heads % mp == 0 and width % mp == 0
+
+
+def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
+    """The head-aligned TP placement the port executes: an object array
+    over the mesh's [data rows, model] (``Mesh._rows``) whose entry is the
+    param tree that device holds, each split leaf its contiguous block of
+    the model axis (attention q/k/v columns and biases by whole heads,
+    mlp_in columns and bias, attention o and mlp_out rows; o's and
+    mlp_out's biases whole, added once by ``model_sum``), every other leaf
+    whole, all on that device. Raises unless ``heads`` divides the model
+    axis (the caller runs such a model unsharded)."""
+    rows = mesh._rows()
+    mp = rows.shape[1]
+    if heads % mp:
+        raise ValueError(f"{heads} heads do not split into {mp} model "
+                         f"shards")
+    out = np.empty(rows.shape, dtype=object)
+    for (i, j), dev in np.ndenumerate(rows):
+        def place(path, leaf, dev=dev, j=j):
+            if not torch.is_tensor(leaf):
+                return leaf
+            axis = _head_split(path)
+            if axis is not None:
+                if leaf.shape[axis] % mp:
+                    raise ValueError(f"{path}: {tuple(leaf.shape)} does not "
+                                     f"split into {mp} on axis {axis}")
+                leaf = torch.chunk(leaf, mp, axis)[j].contiguous()
+            return leaf.to(dev)
+        out[i, j] = _tree_map(place, params)
+    return out
+
+
+def model_sum(partials: list, bias, residual) -> list:
+    """The port's psum over "model": the ranks' float32 partials (each on
+    its rank's device, in rank order) summed in that order on the first
+    rank's device, then ``residual + (sum + bias)`` in float32 (bias None:
+    none), rounded once to the residual's dtype; the result copied to
+    every rank's device (a list in rank order; on a device named twice
+    the same tensor). ``residual``: a tensor, or the list of its replicas
+    (the first is read)."""
+    if isinstance(residual, (list, tuple)):
+        residual = residual[0]
+    dev = partials[0].device
+    y = partials[0].float()
+    for p in partials[1:]:
+        y = y + p.to(dev).float()
+    if bias is not None:
+        y = y + bias.to(dev).float()
+    out = (residual.to(dev).float() + y).to(residual.dtype)
+    return [out.to(p.device) for p in partials]

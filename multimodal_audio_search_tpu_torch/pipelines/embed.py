@@ -6,7 +6,11 @@ for all-mpnet-base-v2) with tokenization and power-of-two batch buckets.
 Runs in float32 on either device, as the JAX package's embedder does
 (its default dtype). ``use_mesh`` replicates the parameters on a mesh's
 data devices and splits each batch bucket (at least max(8, dp) rows)
-over them, as the JAX package shards its embed batches.
+over them, as the JAX package shards its embed batches; with a model
+axis, each data row's chunk runs over that row's model devices, the
+parameters sharded by heads (parallel/mesh.py::shard_heads, the
+module's ``sentence_embed_tp``), or replicated where the heads or the
+MLP width do not divide the axis.
 """
 from __future__ import annotations
 
@@ -62,18 +66,23 @@ class TextEmbedder:
         self.stats.embedding_dim = self.cfg.hidden
         self.mesh = None
         self._replicas = None
+        self._shards = None
 
     def use_mesh(self, mesh) -> None:
-        """Replicate the parameters on ``mesh``'s data devices and split
-        embed batches over them. A data axis that is not a power of two
-        raises ValueError, a model axis > 1 NotImplementedError (ROADMAP
-        A13b)."""
-        from ..parallel.mesh import (refuse_model_axis, replicated,
-                                     validate_data_axis)
+        """Split embed batches over ``mesh``'s data devices, the
+        parameters replicated on each or, with a model axis, sharded by
+        heads over each data row's model devices (module docstring). A
+        data axis that is not a power of two raises ValueError."""
+        from ..parallel.mesh import (model_axis_fits, replicated,
+                                     shard_heads, validate_data_axis)
         validate_data_axis(mesh)
-        refuse_model_axis(mesh.shape.get("model", 1))
+        mp = mesh.shape.get("model", 1)
         self.mesh = mesh
-        self._replicas = replicated(mesh, self.params)
+        self._replicas = self._shards = None
+        if mp > 1 and model_axis_fits(self.cfg, mp):
+            self._shards = shard_heads(self.params, mesh, self.cfg.heads)
+        else:
+            self._replicas = replicated(mesh, self.params)
 
     @property
     def dim(self) -> int:
@@ -92,11 +101,15 @@ class TextEmbedder:
             ids = np.pad(ids, ((0, pad), (0, 0)))
             mask = np.pad(mask, ((0, pad), (0, 0)))
             mask[len(texts):, 0] = 1  # avoid 0/0 in mean pooling
-        # one contiguous block of rows a data device
-        outs = [self.model.sentence_embed(p, i.to(d, torch.long), m.to(d),
-                                          self.cfg)
+        # one contiguous block of rows a data device (or data row)
+        embed = self.model.sentence_embed
+        params = self._replicas or [self.params]
+        if self._shards is not None:
+            embed = self.model.sentence_embed_tp
+            params = [list(row) for row in self._shards]
+        outs = [embed(p, i.to(d, torch.long), m.to(d), self.cfg)
                 for p, i, m, d in zip(
-                    self._replicas or [self.params],
+                    params,
                     torch.chunk(torch.as_tensor(ids), len(devs)),
                     torch.chunk(torch.as_tensor(mask), len(devs)), devs)]
         return torch.cat([o.to(devs[0]) for o in outs])[: len(texts)]

@@ -36,7 +36,10 @@ and each block is put on its device, decoded there (every codec, the
 mel codecs' per-row tails included, is row-local) and handed to both
 Whisper pipelines as one chunk each; the embedder splits its batch the
 same way. ``make_default_ingest`` builds the mesh of ``data_parallel``
-and refuses ``model_parallel > 1`` (ROADMAP A13b).
+x ``model_parallel``: over a model axis each data row's chunk runs over
+that row's model devices (Megatron tensor parallelism, the pipelines'
+use_mesh); the decode options the axis does not run yet raise
+(parallel/mesh.py::refuse_model_axis, ROADMAP A13c).
 
 Differences from the JAX package:
   * the two Whisper pipelines must share one mel config (the JAX
@@ -186,12 +189,19 @@ class DualPipelineIngest:
     def use_mesh(self, mesh) -> None:
         """Run ingest over ``mesh``: segment batches split over its data
         devices, both Whisper pipelines and the embedder with a parameter
-        replica on each (their use_mesh); search takes the same mesh
-        through FusionSearcher(mesh=...)."""
+        replica on each, or their head shards over each data row's model
+        devices (their use_mesh); search takes the same mesh through
+        FusionSearcher(mesh=...), its index split over the data axis
+        only."""
         self.asr.use_mesh(mesh)
         self.caption.use_mesh(mesh)
         self.embedder.use_mesh(mesh)
         self.mesh = mesh
+
+    def batch_floor(self) -> int:
+        """The smallest batch bucket: the larger of the two Whisper
+        pipelines' (both decode the same chunks)."""
+        return max(self.asr.batch_floor(), self.caption.batch_floor())
 
     # the lossless codecs "auto" chooses between: both give the device
     # the same int16 codes
@@ -378,7 +388,7 @@ class DualPipelineIngest:
             hi = min(lo + cfg.ingest_batch, len(wins))
             n = hi - lo
             t0 = time.perf_counter()
-            b = _bucket(n, self.asr.batch_floor())
+            b = _bucket(n, self.batch_floor())
             q = self._encode_transfer(waves[lo:hi], b, seg_len, scale,
                                       transfer)
             tp = time.perf_counter()
@@ -481,10 +491,11 @@ def make_default_ingest(
     checkpoint directory, which is converted (models/convert.py:
     convert_whisper, convert_bert for minilm, convert_mpnet) as the JAX
     package loads it; its tokenizer assets are used where the directory
-    has them. ``mesh`` (default: the mesh of ``cfg.data_parallel`` on
-    ``device``, parallel/mesh.py::mesh_from_config) runs the pipelines
-    over its data axis; ``model_parallel > 1`` raises NotImplementedError
-    (ROADMAP A13b)."""
+    has them. ``mesh`` (default: the mesh of ``cfg.data_parallel`` x
+    ``cfg.model_parallel`` on ``device``, parallel/mesh.py::
+    mesh_from_config) runs the pipelines over its data and model axes; a
+    decode option the model axis does not run raises NotImplementedError
+    (ROADMAP A13c) before any model is built."""
     from .. import weights
     from ..config import MelConfig
     from ..models import whisper as W
@@ -494,9 +505,12 @@ def make_default_ingest(
     from ..ops.quant import quantize_whisper_decoder
     from ..parallel.mesh import mesh_from_config, refuse_model_axis
     cfg = cfg or EngineConfig()
-    refuse_model_axis(cfg.model_parallel)
     if mesh is None:
         mesh = mesh_from_config(cfg, device)
+    mp = 1 if mesh is None else mesh.shape.get("model", 1)
+    for spec, decode in ((cfg.asr_model, cfg.asr_decode),
+                         (cfg.caption_model, cfg.caption_decode)):
+        refuse_model_axis(mp, decode, spec.quantize_decoder)
     stats_reg = stats or StatsRegistry()
     mel_cfg = MelConfig(
         padded_seconds=cfg.segment.segment_seconds,

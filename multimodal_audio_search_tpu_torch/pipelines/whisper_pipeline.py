@@ -21,6 +21,15 @@ queued before any decode starts; the decode loops then run one after
 another, since each syncs the host once a step. Sampling draws each
 chunk's Gumbel rows out of the whole batch's noise, so a chunk's rows
 get the noise they get without a mesh.
+
+With a model axis (``model_parallel > 1``) each data row's chunk runs
+over that row's model devices: the parameters placed by the head-aligned
+TP rule (parallel/mesh.py::shard_heads), the encoder and the greedy
+decode loop by models/whisper.py::encode_tp and models/generate.py::
+generate_tp. A model whose head count (or MLP width) does not divide the
+axis keeps a whole replica on each row's first model device, as without
+a model axis. The decode options the axis does not run raise at
+``use_mesh`` (ROADMAP A13c).
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ import torch
 from ..config import DecodeConfig, MelConfig
 from ..models import whisper as W
 from ..models.beam import beam_generate
-from ..models.generate import check_supported, generate
+from ..models.generate import check_supported, generate, generate_tp
 from ..models.tokenizer import load_tokenizer
 from ..ops.mel import log_mel_spectrogram
 from ..ops.quant import is_quantized
@@ -102,28 +111,52 @@ class WhisperTextPipeline:
         self.calls = 0
         self.mesh = None
         self._replicas = None
+        self._shards = None
 
     def use_mesh(self, mesh) -> None:
-        """Run this pipeline over ``mesh``'s data devices: the parameters
-        replicated on each, batches split over them. A data axis that is
-        not a power of two raises ValueError, a model axis > 1
-        NotImplementedError (ROADMAP A13b)."""
-        from ..parallel.mesh import (refuse_model_axis, replicated,
+        """Run this pipeline over ``mesh``: batches split over its data
+        devices, the parameters replicated on each, or with a model axis
+        sharded by heads over each data row's model devices (module
+        docstring). A data axis that is not a power of two raises
+        ValueError; a decode option the model axis does not run,
+        NotImplementedError (ROADMAP A13c)."""
+        from ..parallel.mesh import (model_axis_fits, refuse_model_axis,
+                                     replicated, shard_heads,
                                      validate_data_axis)
         validate_data_axis(mesh)
-        refuse_model_axis(mesh.shape.get("model", 1))
+        mp = mesh.shape.get("model", 1)
+        refuse_model_axis(mp, self.decode, self.quantized)
         self.mesh = mesh
-        self._replicas = replicated(mesh, self.params)
+        self._replicas = self._shards = None
+        if mp > 1 and model_axis_fits(self.cfg, mp):
+            self._shards = shard_heads(self.params, mesh, self.cfg.heads)
+        else:
+            self._replicas = replicated(mesh, self.params)
+
+    @property
+    def model_parallel(self) -> int:
+        """The ranks a data row's chunk runs over (1: a whole replica)."""
+        return 1 if self._shards is None else self._shards.shape[1]
 
     def batch_floor(self) -> int:
-        """The smallest batch bucket: the data chunks must divide it."""
-        return 8 if self.mesh is None else \
-            max(8, len(self.mesh.data_devices()))
+        """The smallest batch bucket: the data chunks must divide it and,
+        under ``decode.fused_layer``, each chunk keeps a multiple of 8
+        rows, decode_step's gate for the fused sub-blocks (JAX gates on
+        the whole batch), so a split batch takes K3/K4 as the whole one
+        does."""
+        if self.mesh is None:
+            return 8
+        dp = len(self.mesh.data_devices())
+        return 8 * dp if self.decode.fused_layer else max(8, dp)
 
     def _decode(self, params, enc, prefix, noise_rows):
-        """Decode one batch (or chunk) of encoder output on its device."""
+        """Decode one batch (or chunk) of encoder output on its device
+        (``params`` a row's list of rank trees and ``enc`` its list of
+        per-rank outputs under a model axis)."""
         kw = dict(cfg=self.cfg, decode=self.decode,
                   max_new_tokens=self.decode.max_new_tokens)
+        if self._shards is not None:
+            return generate_tp(params, enc, prefix, **kw)
         if self.decode.method == "beam":
             return beam_generate(params, enc, prefix,
                                  num_beams=self.decode.num_beams, **kw)
@@ -144,6 +177,8 @@ class WhisperTextPipeline:
         order to the first data device."""
         self.calls += 1
         replicas = self._replicas or [self.params]
+        if self._shards is not None:   # one list of rank trees a data row
+            replicas = [list(row) for row in self._shards]
         if isinstance(mel, (list, tuple)):
             chunks = list(mel)
         else:
@@ -156,8 +191,9 @@ class WhisperTextPipeline:
         for params, m in zip(replicas, chunks):
             prefix = torch.tensor(self.prefix_ids, dtype=torch.long,
                                   device=m.device).expand(m.shape[0], -1)
-            enc = W.encode(params, m.to(self.dtype), self.cfg,
-                           fused_blocks=self.fused_encoder_resolved)
+            encode = W.encode_tp if self._shards is not None else W.encode
+            enc = encode(params, m.to(self.dtype), self.cfg,
+                         fused_blocks=self.fused_encoder_resolved)
             encs.append((params, enc, prefix, (lo, b)))
             lo += m.shape[0]
         outs = [self._decode(*e) for e in encs]

@@ -149,6 +149,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cluster, the division's form, stream
     lib.mas_attn_o_residual_ab.argtypes = [*block, i, i, p]
     lib.mas_attn_o_residual_ab.restype = i
+    lib.mas_attn_o_residual_partial.argtypes = [
+        p, p, p, ll, ll, ll,      # q, k, v and their shared strides
+        p, p, p,                  # merged scratch, wo rows, out (float32)
+        i, i, i, i,               # B, H, T, HD_out
+        f, i, p]                  # scale * log2(e), cluster, stream
+    lib.mas_attn_o_residual_partial.restype = i
     lib.mas_attn_o_residual_int8.argtypes = [
         p, ll, ll, ll,            # q and its strides
         p, p, p, p,               # k8, ks, v8, vs
@@ -178,6 +184,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block.restype = i
+    lib.mas_decoder_self_block_partial.argtypes = [
+        p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo
+        p, p, p,                  # k/v caches, out (float32)
+        i, i, i, i, i,            # B, D, H, L, pos
+        i, i, i,                  # cluster blocks, rows a tile, ring stages
+        f, f, p]                  # scale, eps, stream
+    lib.mas_decoder_self_block_partial.restype = i
     for name in ("mas_decoder_self_block_fit",
                  "mas_int8_cached_attention_fit"):
         getattr(lib, name).argtypes = [i, i, p]  # cluster, smem, out
@@ -189,6 +202,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block.restype = i
+    lib.mas_decoder_mlp_block_partial.argtypes = [
+        p, p, p, p, p, p,         # x, g, b, w1, b1, w2
+        p, p, p, p,               # h, partials, counters, out (float32)
+        i, i, i,                  # B, D, F
+        f, i, p]                  # eps, multiprocessors, stream
+    lib.mas_decoder_mlp_block_partial.restype = i
     lib.mas_quant_matmul.argtypes = [
         p, p, p, p, p,            # x, wq, scale, bias (or null), out
         p, p,                     # split scratch, counters

@@ -20,11 +20,14 @@ path after each ingest (``_prewarm_searcher``, once at the end of an
 ``EngineConfig.data_parallel`` (a power of two) builds the engine's mesh
 (parallel/mesh.py::mesh_from_config on the engine's device): ingest
 batches split over its data devices and the index sharded on N over them
-(the searcher, its warm-up and its IVF layout); ``model_parallel > 1``
-raises NotImplementedError (ROADMAP A13b). ``reconfigure`` builds every
-transfer of TRANSFER_CHOICES and every embedder of EMBEDDER_CHOICES
-(MiniLM-L6, all-mpnet-base-v2, the clip-ViT-B-32-multilingual-v1 text
-tower), over the engine's mesh.
+(the searcher, its warm-up and its IVF layout); ``model_parallel``
+shards the Whisper models and the embedder by heads over each data
+row's model devices (tensor parallelism; the index stays split over the
+data axis only, as in the JAX package), and the decode options it does
+not run yet raise NotImplementedError (ROADMAP A13c). ``reconfigure``
+builds every transfer of TRANSFER_CHOICES and every embedder of
+EMBEDDER_CHOICES (MiniLM-L6, all-mpnet-base-v2, the
+clip-ViT-B-32-multilingual-v1 text tower), over the engine's mesh.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ entries), at the test preset and the same weights.
 * sampled decoding split over the data axis = the whole batch's;
 * the mesh IVF searcher (per-shard buckets) at a full probe = the exact
   mesh searcher, rebuilt when the store changes;
-* the refusals: a data axis of 6, and model_parallel=2 (ROADMAP A13b);
+* the refusals: a data axis of 6, and what the model axis does not run
+  yet (ROADMAP A13c);
 * chip_smoke.py's [mesh] checks rehearsed on the CPU, and failing on a
   planted fault.
 """
@@ -255,20 +256,33 @@ def test_use_mesh_rejects_non_power_of_two_data_axis():
 
 
 def test_model_parallel_refused_naming_a13b():
+    """The model axis (ROADMAP A13b) builds at (dp, 2) under the default
+    config; what it does not run yet is refused by name (A13c) by
+    make_default_ingest, the engine and a pipeline's use_mesh, before
+    any model is split."""
     cfg = tcfg.EngineConfig(
         asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
         caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
         text_embedder=tcfg.ModelSpec(family="minilm", preset="test"),
         embed_dim=64)
+    sample = dataclasses.replace(cfg.asr_decode, method="sample")
     for dp in (1, 2):
         c = cfg.replace(data_parallel=dp, model_parallel=2)
-        with pytest.raises(NotImplementedError, match="A13b"):
+        ing = make_default_ingest(c, device="cpu")
+        assert ing.mesh.shape == {"data": dp, "model": 2}
+        assert ing.asr.model_parallel == ing.caption.model_parallel == 2
+        c = c.replace(asr_decode=sample)
+        with pytest.raises(NotImplementedError, match="A13c"):
             make_default_ingest(c, device="cpu")
-        with pytest.raises(NotImplementedError, match="A13b"):
-            AudioSearchEngine(cfg=c, device="cpu")
+        with pytest.raises(NotImplementedError, match="A13c"):
+            AudioSearchEngine(cfg=c, device="cpu").load_all_models()
+    pipe = WhisperTextPipeline(cfg=W.PRESETS["test"], device="cpu",
+                               decode=tcfg.DecodeConfig(fused_layer="v2"))
+    with pytest.raises(NotImplementedError, match="A13c"):
+        pipe.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
     emb = TextEmbedder(cfg=M.PRESETS["test"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        emb.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
+    emb.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
+    assert emb._shards.shape == (4, 2)
 
 
 def test_chip_smoke_mesh_checks_on_cpu(params, wave):

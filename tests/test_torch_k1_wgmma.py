@@ -19,7 +19,11 @@ faults a cluster can make (a dropped rank's heads, a peer tile read
 before the barrier, the pad keys of the last tile left unmasked, K10's
 odd head scored against its partner's keys); and the gap between K1's
 division form (x 1/l after PV) and the Pallas kernel's at T=1500 (P / l
-before PV) is measured on bf16 inputs.
+before PV) is measured on bf16 inputs. K1p, K1's partial form on a rank
+of the mesh's model axis, is emulated the same way: the rank's heads
+attended, then the HD_out / 64 output chunks (not the rank's heads')
+split over the plan's ranks, against the plain twin and Pallas on a
+non-square Wo, and its card check rejects a chunk that no rank writes.
 """
 import math
 
@@ -230,6 +234,107 @@ def test_k1_check_rejects_cluster_faults(fault):
     else:
         with pytest.raises(AssertionError, match="attention term"):
             chip_smoke.check_k1(f"K1 {fault}", got, ref, residual=False)
+
+
+def emulate_partial(q, k, v, wo, *, cs, rounding=True, fault=None):
+    """K1p on a cluster of ``cs`` blocks, float32: the heads attended as
+    emulate's ranks attend them into the merged tile, then each rank's
+    output chunks (EB.output_chunks over HD_out / 64, not its heads)
+    projected over every chunk of the merged tile in order, written in
+    float32 without x and bo. ``fault="chunk left out"``: each rank
+    projects its own heads' chunks (the square form's rule), so the
+    chunks past H are never written (zeros)."""
+    q, k, v, wo = (a.float() for a in (q, k, v, wo))
+    b, h, t, _ = q.shape
+    hdo = wo.shape[1]
+    merged = torch.zeros(b, t, h * D)
+    for hh in range(h):
+        o, l = _head(q[:, hh], k[:, hh], v[:, hh], t, rounding=rounding)
+        oh = o * (1.0 / l)[..., None]
+        merged[..., hh * D:(hh + 1) * D] = _bf16(oh) if rounding else oh
+    plan = EB.cluster_ranks(h, cs) if fault == "chunk left out" \
+        else EB.output_chunks(hdo // D, cs)
+    y = torch.zeros(b, t, hdo)
+    for own in plan:
+        for c in own:
+            cols = slice(c * D, (c + 1) * D)
+            acc = torch.zeros(b, t, D)
+            for kc in range(h):
+                acc = acc + merged[..., kc * D:(kc + 1) * D] @ \
+                    wo[kc * D:(kc + 1) * D, cols]
+            y[..., cols] = acc
+    return y
+
+
+# (label, a rank's heads, HD_out / 64): whisper-base, -tiny and
+# -large-v3 at mp = 2
+TP_WIDTHS = [("base", 4, 8), ("tiny", 3, 6), ("large-v3", 10, 20)]
+
+
+@pytest.mark.parametrize("label,hl,nch", TP_WIDTHS)
+@pytest.mark.parametrize("b,t", [(1, 7), (2, 129)])
+def test_partial_emulation_matches_plain_and_pallas(rng, label, hl, nch, b,
+                                                    t):
+    """K1p's arithmetic (a rank's H/mp heads attended as K1 attends them,
+    the HD_out / 64 output chunks, H/mp != HD_out / 64, split over the
+    plan's ranks) against the plain partial twin and the Pallas kernel in
+    interpret mode on the non-square Wo with x = 0, bo = 0, within TOL
+    of the output's scale."""
+    q, k, v = (rng.normal(size=(b, hl, t, D)).astype(np.float32)
+               for _ in range(3))
+    wo = (rng.normal(size=(hl * D, nch * D)) / np.sqrt(nch * D)).astype(
+        np.float32)
+    ta = [torch.from_numpy(a) for a in (q, k, v, wo)]
+    cs = EB.cluster_plan(hl, b, t, H100_FIT.get)
+    assert all(EB.output_chunks(nch, cs))        # every rank projects
+    got = emulate_partial(*ta, cs=cs, rounding=False)
+    plain = EB.attention_o_residual_plain(*ta[:3], None, ta[3], None,
+                                          partial=True)
+    zero_x = np.zeros((b, t, nch * D), np.float32)
+    pallas = np.array(JEB.fused_attention_o_residual(
+        *(jnp.asarray(a) for a in (q, k, v, zero_x, wo)),
+        jnp.zeros(nch * D), interpret=True))
+    for ref in (plain.numpy(), pallas):
+        err = float(np.abs(got.numpy() - ref).max() / np.abs(ref).max())
+        assert err < TOL, (label, err)
+
+
+@pytest.mark.parametrize("label,hl,nch", TP_WIDTHS)
+@pytest.mark.parametrize("b", [32, 1])
+def test_output_chunks_cover_every_chunk_once(label, hl, nch, b):
+    """At every width's rank the plan's ranks project every output chunk
+    exactly once and in order, each rank at least one, where the square
+    form's rule (a rank its heads' chunks) leaves HD_out / 64 - H/mp of
+    them to no rank."""
+    cs = EB.cluster_plan(hl, b, 1500, H100_FIT.get)
+    chunks = EB.output_chunks(nch, cs)
+    assert [c for r in chunks for c in r] == list(range(nch))
+    assert all(chunks) and cs <= min(hl, nch)
+    heads = [c for r in EB.cluster_ranks(hl, cs) for c in r]
+    assert len(set(range(nch)) - set(heads)) == nch - hl
+    # the square form: the two rules agree
+    assert EB.output_chunks(hl, cs) == EB.cluster_ranks(hl, cs)
+
+
+@pytest.mark.parametrize("fault", [None, "chunk left out"])
+def test_k1p_check_rejects_a_chunk_left_out(fault):
+    """chip_smoke.check_k1 on K1p's attention term at the main path's
+    T=1500 (B=1, a whisper-base rank's 4 heads, Wo [256, 512], the plan's
+    2 blocks): the kernel's arithmetic passes; the square form's chunk
+    rule, which leaves chunks 4-7 to no rank, fails."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, _, _, _ = chip_smoke.k1_inputs(gen, 1, 1500, 4,
+                                            residual=False, device="cpu")
+    wo = (torch.randn(256, 512, generator=gen) / math.sqrt(512)).to(
+        torch.bfloat16)
+    ref = EB.attention_o_residual_plain(q, k, v, None, wo, None,
+                                        partial=True)
+    got = emulate_partial(q, k, v, wo, cs=2, fault=fault)
+    if fault is None:
+        chip_smoke.check_k1("K1p", got, ref, residual=False)
+    else:
+        with pytest.raises(AssertionError, match="attention term"):
+            chip_smoke.check_k1(f"K1p {fault}", got, ref, residual=False)
 
 
 def test_k1_division_form_gap_to_pallas(rng):

@@ -19,7 +19,11 @@ kernel's roundings) and is held to the plain twins and to the JAX Pallas
 kernels in interpret mode at B = 1, 3, 33 (a ragged tile), H = 2, 3, 4
 and pos 0, 1 and L - 1; the plan is held at every Whisper width; and
 chip_smoke.py's K3 check rejects a cluster that drops one rank's
-partial.
+partial. K3p, K3's partial form on a rank of the mesh's model axis, is
+emulated with its two widths (the model's D for the layer norm and the
+head sum, the rank's heads for the attention and the caches) and held
+to the partial twin, and summed over the ranks to the square twin and
+the Pallas kernel.
 """
 import math
 
@@ -40,11 +44,16 @@ EPS = 1e-5
 
 
 def emulate_k3(x, selfw, kc, vc, pos: int, heads: int, *, tail=None,
-               rows: int | None = None, rd=torch.float32, fault=None):
+               rows: int | None = None, rd=torch.float32, fault=None,
+               partial: bool = False):
     """K3 (K3-q with ``tail``) as the cluster computes it, in float32,
     values rounded to ``rd`` where the kernel rounds them. Returns (x_out,
     k1, v1[, q_cross]) in rd. ``fault="rank dropped"`` leaves rank 1's
-    partial out of the cluster sum."""
+    partial out of the cluster sum. ``partial`` is K3p: the block's
+    ``heads`` are a rank's shard of a wider model (Wq/Wk/Wv [D, heads *
+    64], Wo [heads * 64, D], caches of heads * 64 columns), the layer
+    norm and the head sum run at the model width D, and x_out is the
+    float32 head sum alone (no x, no bo)."""
     f32 = torch.float32
 
     def r(a):
@@ -52,10 +61,12 @@ def emulate_k3(x, selfw, kc, vc, pos: int, heads: int, *, tail=None,
 
     g1, b1, wq, bq, wk, wv, bv, wo, bo = (a.to(f32) for a in selfw)
     b, d = x.shape
+    hl = wq.shape[1]
     l = kc.shape[1]
-    _, cs, rt, tiles, _ = DB.self_block_plan(b, heads, l, rows)
+    _, cs, rt, tiles, _ = DB.self_block_plan(b, heads, l, rows, d=d)
     scale = 1.0 / math.sqrt(64)
-    xo, k1o, v1o = (torch.empty(b, d, dtype=f32) for _ in range(3))
+    xo = torch.empty(b, d, dtype=f32)
+    k1o, v1o = (torch.empty(b, hl, dtype=f32) for _ in range(2))
     for tile in range(tiles):
         tr = slice(tile * rt, min(b, (tile + 1) * rt))
         xt = x[tr].to(f32)
@@ -101,7 +112,9 @@ def emulate_k3(x, selfw, kc, vc, pos: int, heads: int, *, tail=None,
         for rank, part in enumerate(parts):          # the ranks, in order
             if not (fault == "rank dropped" and rank == 1):
                 o = o + part
-        xo[tr] = xt + (o + r(bo))
+        xo[tr] = o if partial else xt + (o + r(bo))
+    if partial:
+        return xo, k1o.to(rd), v1o.to(rd)
     out = (xo.to(rd), k1o.to(rd), v1o.to(rd))
     if tail is None:
         return out
@@ -169,6 +182,46 @@ def test_cluster_emulation_matches_plain_and_pallas(rng, tail, heads, b, pos):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.numpy(), p.numpy(), atol=TOL, rtol=TOL)
         np.testing.assert_allclose(g.numpy(), j, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("heads,mp", [(4, 2), (6, 2), (8, 2), (8, 4)])
+@pytest.mark.parametrize("b", [1, 3, 33])
+@pytest.mark.parametrize("pos", [0, 1, L - 1])
+def test_partial_two_width_head_sum(rng, heads, mp, b, pos):
+    """K3p's cluster on a rank's heads of a wider model: the layer norm,
+    the q/k/v k-chunks and the head sum at the model width D = heads * 64,
+    the attention and the caches at the rank's heads * 64 / mp columns.
+    Each rank's emulation = the plain partial twin (and its cache row);
+    the ranks' partials through model_sum = the square twin on the whole
+    layer and the JAX kernel in interpret mode, within TOL."""
+    from multimodal_audio_search_tpu_torch.parallel.mesh import model_sum
+    x, selfw, _, kc, vc = _inputs(rng, b, heads)
+    t = [torch.from_numpy(a) for a in (x, *selfw)]
+    tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+    g1, b1, wq, bq, wk, wv, bv, wo, bo = t[1:]
+    hl = heads // mp
+
+    def cut(a, j, axis):
+        return torch.chunk(a, mp, axis)[j].contiguous()
+    parts = []
+    for j in range(mp):
+        rank = [g1, b1, cut(wq, j, 1), cut(bq, j, 0), cut(wk, j, 1),
+                cut(wv, j, 1), cut(bv, j, 0), cut(wo, j, 0), bo]
+        kcj, vcj = cut(tk, j, 2), cut(tv, j, 2)
+        got = emulate_k3(t[0], rank, kcj, vcj, pos, hl, partial=True)
+        plain = DB.self_block_plain(t[0], *rank, kcj, vcj, pos, heads=hl,
+                                    partial=True)
+        assert got[0].shape == (b, heads * 64) and got[1].shape == (b, hl * 64)
+        for g, p in zip(got, plain):
+            np.testing.assert_allclose(g.numpy(), p.numpy(), atol=TOL,
+                                       rtol=TOL)
+        parts.append(got[0])
+    whole = model_sum(parts, bo, t[0])[0]
+    square = DB.self_block_plain(*t, tk, tv, pos, heads=heads)[0]
+    pallas = _pallas(x, selfw, None, kc, vc, pos, heads)[0]
+    np.testing.assert_allclose(whole.numpy(), square.numpy(), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(whole.numpy(), pallas, atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("heads,want", [(6, (1, 6)), (8, (1, 8)),

@@ -111,9 +111,15 @@ def test_mesh_from_config():
     assert M.mesh_from_config(EngineConfig(), "cpu") is None
     m = M.mesh_from_config(EngineConfig(data_parallel=4), "cpu")
     assert m.shape == {"data": 4, "model": 1}
-    with pytest.raises(NotImplementedError, match="A13b"):
-        M.mesh_from_config(EngineConfig(data_parallel=2, model_parallel=2),
-                           "cpu")
+    # the model axis: a (dp, mp) grid of dp * mp devices, as JAX builds it
+    for dp, mp in ((2, 2), (1, 2), (4, 2), (2, 4)):
+        m = M.mesh_from_config(EngineConfig(data_parallel=dp,
+                                            model_parallel=mp), "cpu")
+        jm_ = jmesh.mesh_from_config(JEngineConfig(data_parallel=dp,
+                                                   model_parallel=mp))
+        assert m.shape == {"data": dp, "model": mp} == dict(jm_.shape)
+        assert len(m.data_devices()) == dp
+        assert [len(m.model_devices(i)) for i in range(dp)] == [mp] * dp
 
 
 def test_placement_helpers(rng):

@@ -675,7 +675,14 @@ def test_device_policy():
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
     dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
-    dict(model_parallel=2),
+    # what the mesh's model axis does not run yet (ROADMAP A13c)
+    dict(model_parallel=2, asr_decode=tcfg.DecodeConfig(fused_layer="v2")),
+    dict(model_parallel=2,
+         asr_model=tcfg.ModelSpec(family="whisper", preset="test",
+                                  quantize_decoder=True)),
+    dict(model_parallel=2,
+         caption_decode=tcfg.DecodeConfig(fused_encoder="int8")),
+    dict(model_parallel=2, asr_decode=tcfg.DecodeConfig(method="sample")),
 ])
 def test_unported_modes_raise(change):
     cfg = tcfg.EngineConfig().replace(
@@ -683,7 +690,8 @@ def test_unported_modes_raise(change):
         caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
         text_embedder=tcfg.ModelSpec(family="minilm", preset="test"))
     cfg = cfg.replace(**change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="A13c" if "model_parallel" in change else None):
         make_default_ingest(cfg, device="cpu")
 
 

@@ -2,6 +2,7 @@
 
     python3 tools/torch_mesh_cards.py                 # every visible card
     python3 tools/torch_mesh_cards.py --device cpu --cards 4 --procs 4
+    python3 tools/torch_mesh_cards.py --parts tp      # the model axis only
 
 chip_smoke.py's ``[mesh]`` phase names one card several times; this tool
 puts each data shard on a card of its own (run it on a host with several
@@ -18,7 +19,17 @@ cards, e.g. four):
 2. ``--procs`` processes, each holding cards / procs of the cards (its
    own in a FileStore group: NCCL, Gloo for CPU entries): the two-stage
    hierarchical top-k and IVF over (dcn procs, data cards / procs) =
-   the flat exact scan on each process's first card, for every query.
+   the flat exact scan on each process's first card, for every query;
+3. the mesh's model axis (tensor parallelism) across cards, in one
+   process: chip_smoke.mesh_ingest_check with a model axis of 2 over the
+   first two cards, (dp, mp) = (1, 2), and over four, (2, 2), under each
+   of chip_smoke.TP_PATHS (the default config, fast_lossless), against
+   the unsplit engine on the first card: model_sum's copies go from card
+   to card, the launch counts are every launch once a rank, the texts
+   equal outside the logits' margin and the top-10 identical; the kernel
+   library must have been set up on every card.
+
+``--parts`` picks parts by name (data, procs, tp; all by default).
 
 On CPU entries (``--device cpu``: a rehearsal) the ingest check runs the
 test presets, as tests/test_torch_engine_mesh.py does. Prints one JSON
@@ -98,6 +109,35 @@ def one_process(args, card: str) -> None:
     if args.device == "cuda" and ready != list(range(args.cards)):
         raise AssertionError(f"the kernel library was set up on {ready}, "
                              f"not on every one of {args.cards} cards")
+
+
+def tensor_parallel(args, card: str) -> None:
+    """Part 3: the model axis across the cards, in this process."""
+    import chip_smoke as C
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.config import apply_profile
+    devs = devices_of(args.device, args.cards)
+    wave = C.make_audio(25, np.random.default_rng(0))
+    for label, profile in C.TP_PATHS:
+        cfg = ingest_config(args.device)
+        if profile:
+            cfg = apply_profile(cfg, profile)
+        whole = None
+        for n in (2, 4):
+            if n > len(devs):
+                break
+            t0 = time.perf_counter()
+            whole = C.mesh_ingest_check(card, wave, cfg, devs[:n], mp=2,
+                                        whole=whole)
+            emit(step="tensor parallel", config=label, cards=n,
+                 mesh={"data": n // 2, "model": 2},
+                 seconds=time.perf_counter() - t0,
+                 launches=whole["launches"])
+    ready = runtime.ready_devices()
+    emit(step="kernel library set up on", devices=ready)
+    if args.device == "cuda" and ready != list(range(min(4, args.cards))):
+        raise AssertionError(f"the kernel library was set up on {ready}, "
+                             f"not on every card of the meshes")
 
 
 def rank_main(args) -> None:
@@ -195,6 +235,8 @@ def main() -> int:
                     help="index rows of part 2 (default: 262144 on "
                          "cards, 4096 on CPU)")
     ap.add_argument("--timeout", type=int, default=600)
+    ap.add_argument("--parts", default="data,procs,tp",
+                    help="comma-separated: data, procs, tp")
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--store", default=None)
@@ -218,9 +260,14 @@ def main() -> int:
     card_lines = cards() if cuda else ["cpu"]
     for line in card_lines:
         print(line, flush=True)
-    one_process(args, card_lines[0])
-    processes(args)
-    emit(ok=True, cards=args.cards, procs=args.procs)
+    parts = args.parts.split(",")
+    if "data" in parts:
+        one_process(args, card_lines[0])
+    if "procs" in parts:
+        processes(args)
+    if "tp" in parts:
+        tensor_parallel(args, card_lines[0])
+    emit(ok=True, cards=args.cards, procs=args.procs, parts=parts)
     return 0
 
 

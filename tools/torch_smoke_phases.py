@@ -2,6 +2,7 @@
 
     python3 tools/torch_smoke_phases.py search,embedders,clap,service
     python3 tools/torch_smoke_phases.py decoder,mesh
+    python3 tools/torch_smoke_phases.py decoder,tp
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -12,7 +13,9 @@ phase prints its lines as in chip_smoke.py and raises on a failed check;
 the wall seconds of each phase follow it. ``decoder`` is K3, K3-q, K4
 and K4-o against their plain versions (K3 and K3-q with their repeats),
 ``mesh`` the mesh's data and DCN axes (search at 1M segments, the
-data-parallel ingest).
+data-parallel ingest), ``tp`` the mesh's model axis (the partial
+kernels K1p, K3p and K4p, K2 on head shards, the (1, 2) and (2, 2)
+engines).
 """
 import os
 import sys
@@ -21,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh")
+PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh",
+          "tp")
 
 
 def main(names: list[str]) -> int:
@@ -40,6 +44,9 @@ def main(names: list[str]) -> int:
     rng = np.random.default_rng(0)
     clips = [("long.wav", C.make_audio(320, rng)),
              ("short.wav", C.make_audio(25, rng))]
+    tp_args = {"k1": {"cases": []}, "k2": {"cases": []},
+               "dec": [{"name": n, "cases": []} for n in (
+                   "decoder_self_block", "decoder_mlp_block")]}
     run = {"decoder": lambda: C.decoder_kernel_phase(
                card, torch.Generator().manual_seed(0)),
            "search": lambda: C.search_kernel_phase(card),
@@ -47,7 +54,8 @@ def main(names: list[str]) -> int:
            "clap": lambda: C.clap_phase(card, clips),
            "service": lambda: C.service_phase(card, rng, C.audio_phase(
                card, np.random.default_rng(1))["uploads"]),
-           "mesh": lambda: C.mesh_phase(card, clips)}
+           "mesh": lambda: C.mesh_phase(card, clips),
+           "tp": lambda: C.tp_phase(card, clips, **tp_args)}
     for name in PHASES:
         if name in names:
             t0 = time.time()
