@@ -218,6 +218,26 @@ Phases, one line each (``[phase] ...``):
    margin, top-10 identical to the sharded and the unsplit engines'
    searchers; each split and unsplit dispatch's wall ms beside.
 
+13. training (``[train]``, after 12; ROADMAP A14): no kernel in a
+   training step (each part's launch counts over its steps must be 0),
+   then the trained captioner through K1 and K2. train_synth_check:
+   whisper-tiny trained on synthetic clips (training/synth.py: 1 s
+   clips, 2 s mel, B=16, warmup_cosine, float32) for TRAIN_STEPS steps,
+   its loss falling more than 2x, steps/s and peak memory; 16 held-out
+   clips transcribed through the serving pipeline with fused_encoder
+   None (K1 + K2, counted) and False (the plain encoder, K2), every text
+   from the grammar, the routes agreeing on TRAIN_AGREE_MIN;
+   train_production_check: the shipped geometry (10 s clips, 30 s mel,
+   T=1500, B=16) for TRAIN_PROD_STEPS timed steps (step ms, audio-s
+   trained a second, TF32 off and printed), one B=2 step against the
+   CPU's at fresh and trained parameters; train_split_check: the (2, 1)
+   data-axis step against the unsplit one; train_checkpoint_check: save
+   at k, resume, continue to 2k = an uninterrupted run (deterministic
+   algorithms on), a bf16 tree round-tripped; train_clap_check: CLAP at
+   ClapConfig() + MiniLM L6, B=32, TRAIN_CLAP_STEPS steps on 32 fixed
+   pairs, the in-batch accuracy rising; train_bridge_check: train_bridge
+   on TRAIN_BRIDGE_N features for 50 epochs, the loss falling.
+
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
@@ -4421,6 +4441,432 @@ def tp_phase(card: str, clips, k1: dict, k2: dict, dec: list) -> dict:
     return out
 
 
+# [train] (ROADMAP A14): training on the card. A training step runs plain
+# PyTorch under autograd and launches no kernel (the counts over every
+# part's steps must stay 0; a kernel wrapper refuses an input that
+# requires grad); the trained synthetic captioner is then transcribed
+# through the serving pipeline, whose K1 and K2 it runs.
+TRAIN_PRESET = "tiny"      # whisper-tiny, the shipped captioner's width
+TRAIN_STEPS = 600          # the synthetic captioner's step budget
+TRAIN_B = 16
+TRAIN_HELD_OUT = 16
+TRAIN_AGREE_MIN = 15       # of 16 held-out clips: the K1 route = plain
+TRAIN_PROD_STEPS = 10      # production geometry (30 s mel, T=1500), timed
+TRAIN_CPU_LOSS_RTOL = 1e-5   # the card's B=2 step against the CPU's
+TRAIN_CPU_GRAD_REL = 1e-4    # a gradient leaf, of its largest |value|
+# after training, a leaf whose largest gradient is under this share of
+# the tree's largest (cross-attention q, its LN: 2e-7-3e-6 of it after 10
+# steps) is held at TRAIN_CPU_GRAD_REL of this share of the tree's
+# largest instead of its own: its gradient is a residue of cancelling
+# terms, whose float32 rounding alone (the CPU's 1 thread against 8)
+# reaches 1e-4 of it (tools/torch_train_noise.py)
+TRAIN_LEAF_FLOOR = 1e-4
+TRAIN_SPLIT_REL = 1e-5     # the (2, 1) step against the unsplit one
+# the same on the trained captioner, whose loss is ~0.04: its gradients
+# are residues of cancelling terms and the split's summation order moves
+# them by up to ~2e-5 of a leaf (tools/torch_train_noise.py)
+TRAIN_SPLIT_TRAINED_REL = 1e-4
+TRAIN_CKPT_K = 5           # save at k, resume, continue to 2k
+TRAIN_CKPT_REL = 1e-6      # resumed against uninterrupted, of each leaf
+TRAIN_CLAP_STEPS = 30
+TRAIN_CLAP_B = 32
+TRAIN_CLAP_LR = 1e-3
+TRAIN_BRIDGE_N = 4096
+
+
+def _flat(tree) -> dict:
+    from multimodal_audio_search_tpu_torch.utils.tree import (
+        path_str, tree_leaves_with_path)
+    return {path_str(p): x for p, x in tree_leaves_with_path(tree)}
+
+
+def leaves_rel_err(got, want, floor: float = 0.0) -> tuple[float, int]:
+    """The largest, over the leaves of ``want``, of max |got - want| over
+    the leaf's max |want| or, with ``floor``, over max(the leaf's max,
+    floor x the tree's largest |want|). Returns it and the count of
+    leaves held at the floor."""
+    g_, w_ = _flat(got), _flat(want)
+    w_top = max(float(w.float().abs().max()) for w in w_.values())
+    worst, floored = 0.0, 0
+    for k, w in w_.items():
+        d = (g_[k].float().to(w.device) - w.float()).abs()
+        scale = float(w.float().abs().max())
+        if scale < floor * w_top:
+            scale, floored = floor * w_top, floored + 1
+        worst = max(worst, float(d.max()) / max(scale, 1e-30))
+    return worst, floored
+
+
+def _launched() -> dict:
+    from multimodal_audio_search_tpu_torch import runtime
+    return {k: v for k, v in runtime.COUNTS.items() if v}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device) -> int | None:
+    return torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else None
+
+
+def _tf32() -> dict:
+    return {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+
+
+def train_synth_check(card: str, device="cuda"):
+    """Part 1: the synthetic captioner at whisper-tiny width (1 s clips,
+    2 s mel context, B=16, warmup_cosine, float32) for TRAIN_STEPS steps;
+    its loss must fall more than 2x (first 10 steps' mean against the
+    last 10's). Then 16 held-out clips transcribed through the serving
+    pipeline with fused_encoder=None (K1 + K2) and False (the plain
+    encoder at T=100, K2): every text from the grammar, the routes
+    agreeing on TRAIN_AGREE_MIN clips."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.training import synth as S
+    runtime.reset_counts()
+    _reset_peak(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    m = S.train_synth_captioner(steps=TRAIN_STEPS, batch=TRAIN_B,
+                                clip_seconds=1.0, mel_seconds=2.0,
+                                preset=TRAIN_PRESET, seed=0, device=device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launched = _launched()
+    first, last = float(np.mean(m.losses[:10])), float(np.mean(m.losses[-10:]))
+    phase("train", card=card, step="synth", preset=TRAIN_PRESET, batch=TRAIN_B,
+          steps=TRAIN_STEPS, clip_seconds=1.0, mel_seconds=2.0,
+          schedule="warmup_cosine", dtype="float32", tf32=_tf32(),
+          seconds=secs, steps_per_s=TRAIN_STEPS / secs,
+          peak_bytes=_peak(device),
+          loss_first10=first, loss_last10=last, fall=first / last,
+          losses_every_50=m.losses[::50], launches=launched)
+    assert not launched, f"a training step launched kernels: {launched}"
+    assert first > 2 * last, (
+        f"whisper-tiny did not learn the grammar in {TRAIN_STEPS} steps: "
+        f"loss {first:.4f} -> {last:.4f} (fall {first / last:.2f}x)")
+    rng = np.random.default_rng(99)
+    waves, truth = zip(*(S.make_clip(rng) for _ in range(TRAIN_HELD_OUT)))
+    waves = np.stack(waves)
+    routes = {}
+    for label, fused in (("k1", None), ("plain", False)):
+        runtime.reset_counts()
+        routes[label] = (S.transcribe(m, waves, fused_encoder=fused),
+                         _launched())
+    (k1, k1_n), (plain, plain_n) = routes["k1"], routes["plain"]
+    words = set(S.SynthVocab.WORDS)
+    outside = [t for t in k1 + plain if not set(t.split()) <= words]
+    agree = sum(a == b for a, b in zip(k1, plain))
+    phase("train", card=card, step="transcribe", clips=TRAIN_HELD_OUT,
+          dtype=str(runtime.default_dtype(torch.device(device))),
+          launches_k1_route=k1_n,
+          launches_plain_route=plain_n, agree=agree,
+          exact_k1=sum(a == b for a, b in zip(k1, truth)),
+          exact_plain=sum(a == b for a, b in zip(plain, truth)),
+          outside_grammar=len(outside), empty=sum(not t for t in k1),
+          texts=list(zip(truth, k1))[:6])
+    if torch.device(device).type == "cuda":      # the CPU runs the twins
+        assert k1_n.get(KEYS["K1"], 0) > 0 and \
+            k1_n.get(KEYS["K2"], 0) > 0, k1_n
+        assert plain_n.get(KEYS["K1"], 0) == 0 and \
+            plain_n.get(KEYS["K2"], 0) > 0, plain_n
+    assert not outside, f"transcripts outside the grammar: {outside[:4]}"
+    assert any(k1), "every transcript empty"
+    assert agree >= TRAIN_AGREE_MIN, (agree, list(zip(k1, plain)))
+    return m
+
+
+def _synth_batches(n: int, b: int, clip_s: float, mel_s: float, events,
+                   seed: int, device="cuda") -> list[dict]:
+    """``n`` synthetic batches of ``b`` clips with their log-mel made on
+    the card and brought to the host (as a data loader hands them over)."""
+    from multimodal_audio_search_tpu_torch.config import MelConfig
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    from multimodal_audio_search_tpu_torch.training import synth as S
+    cfg = W.PRESETS[TRAIN_PRESET]
+    mel_cfg = MelConfig(padded_seconds=mel_s)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        waves, tokens, mask = S.synth_batch(rng, b, cfg, S.SynthVocab(cfg),
+                                            clip_s, mel_cfg.n_samples,
+                                            events)
+        with torch.no_grad():
+            mel = log_mel_spectrogram(torch.as_tensor(waves).to(device),
+                                      mel_cfg)
+        out.append({"mel": mel.cpu().numpy(), "tokens": tokens,
+                    "loss_mask": mask})
+    return out
+
+
+def train_production_check(card: str, device="cuda") -> None:
+    """Part 2: whisper-tiny at the shipped geometry (10 s clips of 2-6
+    events, 30 s mel, T=1500), B=16: TRAIN_PROD_STEPS steps timed (step
+    ms, audio-seconds trained a second); one step at B=2 held to the same
+    step on the CPU (TF32 off) at the initial parameters (every leaf at
+    TRAIN_CPU_GRAD_REL of its max) and at the trained ones (the same, a
+    leaf under TRAIN_LEAF_FLOOR of the tree's largest held at the
+    floor)."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.training import finetune as FT
+    from multimodal_audio_search_tpu_torch import runtime
+    cfg = W.PRESETS[TRAIN_PRESET]
+    host = W.init_params(torch.Generator().manual_seed(0), cfg)
+    params = _to(host, device)
+    step, opt = FT.make_train_step(cfg, FT.TrainConfig(
+        learning_rate=3e-4, schedule="warmup_cosine", warmup_steps=2,
+        total_steps=TRAIN_PROD_STEPS, weight_decay=0.0))
+    state = opt.init(params)
+    batches = _synth_batches(TRAIN_PROD_STEPS, TRAIN_B, 10.0, 30.0, (2, 6),
+                             7, device)
+    runtime.reset_counts()
+    _reset_peak(device)
+    times, losses = [], []
+    for b in batches:
+        _sync(device)
+        t = time.perf_counter()
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t)
+    launched = _launched()
+    step_s = float(np.median(times[1:]))
+    b2 = _synth_batches(1, 2, 10.0, 30.0, (2, 6), 8, device)[0]
+    cpu = {}
+    for label, tree, floor in (("init", host, 0.0),
+                               ("trained", params, TRAIN_LEAF_FLOOR)):
+        lc, gc = FT.loss_and_grads(_to(tree, device), b2, cfg)
+        lh, gh = FT.loss_and_grads(_to(tree, "cpu"), b2, cfg)
+        gc = _to(gc, "cpu")
+        floored, n_floored = leaves_rel_err(gc, gh, floor=floor)
+        # at the floor a leaf's own rounding hides under the tree's
+        # scale: the trained check is a sanity check, not parity
+        cpu[label] = {
+            "check": "sanity" if n_floored else "parity",
+            "loss_rel": abs(float(lc) - float(lh)) / abs(float(lh)),
+            "grad_rel": leaves_rel_err(gc, gh)[0],
+            "grad_rel_floored": floored, "leaves_at_floor": n_floored,
+            "leaves": len(_flat(gh))}
+    phase("train", card=card, step="production", preset=TRAIN_PRESET,
+          batch=TRAIN_B, clip_seconds=10.0, mel_seconds=30.0,
+          encoder_T=1500, steps=TRAIN_PROD_STEPS, tf32=_tf32(),
+          step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3,
+          audio_s_per_s=TRAIN_B * 10.0 / step_s,
+          peak_bytes=_peak(device), losses=losses,
+          launches=launched, cpu_check_batch=2, cpu_check=cpu)
+    assert not launched, f"a training step launched kernels: {launched}"
+    for label, c in cpu.items():
+        assert c["loss_rel"] <= TRAIN_CPU_LOSS_RTOL, (label, c)
+        assert c["grad_rel_floored"] <= TRAIN_CPU_GRAD_REL, (label, c)
+
+
+def _to(tree, device):
+    from multimodal_audio_search_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def train_split_check(card: str, trained, device="cuda") -> None:
+    """Part 3: the data axis, the card named twice: the (2, 1) step (each
+    chunk's sum of nll over the whole batch's mask count, the chunks'
+    gradients summed in rank order) against the unsplit step on a B=16
+    batch of the 2 s geometry (the halves' mask counts differ): the loss
+    and every gradient leaf within TRAIN_SPLIT_REL of each leaf's max at
+    fresh parameters, and within TRAIN_SPLIT_TRAINED_REL at the trained
+    captioner's ``trained``. (The optimizer then runs on the first device
+    alone, the same code either way; after one AdamW step from a fresh
+    state each entry moves by lr x g / (|g| + eps), about its sign, so
+    the parameters would repeat this comparison but for entries whose
+    sign lies within rounding.)"""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_audio_search_tpu_torch.training import finetune as FT
+    from multimodal_audio_search_tpu_torch import runtime
+    cfg = W.PRESETS[TRAIN_PRESET]
+    cuda = torch.device(device)
+    b = _synth_batches(1, TRAIN_B, 1.0, 2.0, (1, 3), 9, device)[0]
+    fresh = _to(W.init_params(torch.Generator().manual_seed(2), cfg), device)
+    runtime.reset_counts()
+    out = {}
+    for label, params, bar in (("fresh", fresh, TRAIN_SPLIT_REL),
+                               ("trained", trained, TRAIN_SPLIT_TRAINED_REL)):
+        l1, g1 = FT.loss_and_grads(params, b, cfg)
+        l2, g2 = FT.loss_and_grads(params, b, cfg,
+                                   mesh=make_mesh(2, devices=[cuda] * 2))
+        out[label] = {"bar": bar, "loss": float(l1),
+                      "loss_rel": abs(float(l2) - float(l1)) / abs(float(l1)),
+                      "grad_rel": leaves_rel_err(g2, g1)[0]}
+    launched = _launched()
+    half = TRAIN_B // 2
+    phase("train", card=card, step="data_axis", mesh=(2, 1),
+          mask_counts=[float(b["loss_mask"][:half].sum()),
+                       float(b["loss_mask"][half:].sum())],
+          checks=out, launches=launched)
+    assert not launched, launched
+    for label, c in out.items():
+        for name in ("loss_rel", "grad_rel"):
+            assert c[name] <= c["bar"], (label, name, c)
+
+
+def train_checkpoint_check(card: str, device="cuda") -> None:
+    """Part 4: finetune_captioner saves at step k, a second run resumes
+    from it and continues to 2k on the same batches, against an
+    uninterrupted run of 2k steps (torch.use_deterministic_algorithms on,
+    warn_only: cuBLAS on one stream): losses and parameters within
+    TRAIN_CKPT_REL of each leaf's max; then a bfloat16 tree round-trips
+    through save_pytree / load_pytree as bfloat16."""
+    import tempfile
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.training import finetune as FT
+    from multimodal_audio_search_tpu_torch.training.loop import (
+        finetune_captioner)
+    from multimodal_audio_search_tpu_torch.utils.checkpoint import (
+        load_pytree, save_pytree)
+    cfg = W.PRESETS[TRAIN_PRESET]
+    k = TRAIN_CKPT_K
+    batches = _synth_batches(2 * k, TRAIN_B, 1.0, 2.0, (1, 3), 10,
+                             device)
+    init = W.init_params(torch.Generator().manual_seed(1), cfg)
+    tcfg = FT.TrainConfig(learning_rate=3e-4)
+    kw = dict(init_params=init, n_devices=1, device=device,
+              log_fn=lambda s: None)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            whole = finetune_captioner(batches, cfg, tcfg, **kw)
+            finetune_captioner(batches[:k], cfg, tcfg,
+                               checkpoint_dir=f"{d}/b", **kw)
+            logs = []
+            resumed = finetune_captioner(batches[k:], cfg, tcfg,
+                                         checkpoint_dir=f"{d}/b",
+                                         **{**kw, "log_fn": logs.append})
+            ckpt_bytes = sum(os.path.getsize(os.path.join(f"{d}/b", f))
+                             for f in os.listdir(f"{d}/b"))
+            bf = _to(whole.params, torch.bfloat16)
+            save_pytree(bf, f"{d}/bf16.npz")
+            back = load_pytree(bf, f"{d}/bf16.npz")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    rel, _ = leaves_rel_err(resumed.params, whole.params)
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        _flat(resumed.params).values(), _flat(whole.params).values()))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(resumed.losses, whole.losses[k:]))
+    bf_ok = all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                for a, b in zip(_flat(back).values(), _flat(bf).values()))
+    phase("train", card=card, step="checkpoint", k=k, steps=2 * k,
+          resumed_log=logs[:1], deterministic="use_deterministic_algorithms"
+          "(True, warn_only=True)", param_rel=rel, bitwise_equal=bitwise,
+          loss_rel=loss_rel, checkpoint_bytes=ckpt_bytes,
+          bf16_round_trip=bf_ok)
+    assert logs[:1] == [f"resumed from step {k}"], logs
+    assert resumed.steps == whole.steps == 2 * k
+    assert rel <= TRAIN_CKPT_REL and loss_rel <= TRAIN_CKPT_REL, \
+        (rel, loss_rel)
+    assert bf_ok
+
+
+def train_clap_check(card: str, device="cuda") -> None:
+    """Part 5: the CLAP recipe at published widths (ClapConfig(), MiniLM
+    L6), B=32, TRAIN_CLAP_STEPS steps on 32 fixed pairs (10 s mels,
+    16-token captions): the in-batch accuracy must rise; step ms."""
+    from multimodal_audio_search_tpu_torch.models.clap import ClapConfig
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.training import clap as TC
+    acfg, tcfg = ClapConfig(), PRESETS["L6"]
+    rng = np.random.default_rng(11)
+    batch = {"mel": rng.normal(size=(TRAIN_CLAP_B, acfg.n_mels, 1000))
+             .astype(np.float32),
+             "input_ids": rng.integers(100, tcfg.vocab_size,
+                                       size=(TRAIN_CLAP_B, 16)),
+             "attention_mask": np.ones((TRAIN_CLAP_B, 16), np.int64)}
+    params = _to(TC.init_clap_params(torch.Generator().manual_seed(0), acfg,
+                                     tcfg), device)
+    step, opt = TC.make_clap_train_step(
+        acfg, tcfg, TC.ClapTrainConfig(learning_rate=TRAIN_CLAP_LR))
+    state = opt.init(params)
+    from multimodal_audio_search_tpu_torch import runtime
+    runtime.reset_counts()
+    _reset_peak(device)
+    accs, losses, times = [], [], []
+    for _ in range(TRAIN_CLAP_STEPS):
+        _sync(device)
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+        accs.append(float(m["in_batch_acc"]))
+    launched = _launched()
+    phase("train", card=card, step="clap", audio="ClapConfig()",
+          text="MiniLM L6", batch=TRAIN_CLAP_B, steps=TRAIN_CLAP_STEPS,
+          lr=TRAIN_CLAP_LR, step_ms=float(np.median(times[1:])) * 1e3,
+          peak_bytes=_peak(device),
+          acc_first=accs[0], acc_last=accs[-1], loss_first=losses[0],
+          loss_last=losses[-1], temperature=float(m["temperature"]),
+          launches=launched)
+    assert not launched, launched
+    assert accs[-1] > accs[0], (accs, losses)
+
+
+def train_bridge_check(card: str, device="cuda") -> None:
+    """Part 6: train_bridge on TRAIN_BRIDGE_N features of 128 dimensions
+    whose targets are a fixed random map of them into 384-D unit vectors,
+    for the reference's 50 epochs (batch 64, Adam 1e-3, dropout 0.2):
+    the loss must fall; seconds."""
+    from multimodal_audio_search_tpu_torch.training import bridge as TB
+    rng = np.random.default_rng(12)
+    feats = (rng.normal(size=(TRAIN_BRIDGE_N, 128)) * 2 + 0.5) \
+        .astype(np.float32)
+    tgt = np.tanh(feats @ rng.normal(size=(128, 384)) / np.sqrt(128))
+    tgt = (tgt / np.linalg.norm(tgt, axis=-1, keepdims=True)) \
+        .astype(np.float32)
+    from multimodal_audio_search_tpu_torch import runtime
+    runtime.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    _, losses = TB.train_bridge(feats, tgt, epochs=50, seed=0,
+                                device=device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launched = _launched()
+    phase("train", card=card, step="bridge", n=TRAIN_BRIDGE_N, epochs=50,
+          seconds=secs, steps=50 * TRAIN_BRIDGE_N // 64,
+          loss_first=losses[0], loss_last=losses[-1], launches=launched)
+    assert not launched, launched
+    assert losses[-1] < losses[0], losses
+
+
+def train_phase(card: str, device="cuda") -> None:
+    """[train]: the six parts above, in order, the seconds of each."""
+    t0 = time.perf_counter()
+    marks = {}
+    m = train_synth_check(card, device)
+    marks["synth"] = time.perf_counter() - t0
+    train_production_check(card, device)
+    marks["production"] = time.perf_counter() - t0
+    train_split_check(card, m.params, device)
+    marks["data_axis"] = time.perf_counter() - t0
+    del m
+    train_checkpoint_check(card, device)
+    marks["checkpoint"] = time.perf_counter() - t0
+    train_clap_check(card, device)
+    marks["clap"] = time.perf_counter() - t0
+    train_bridge_check(card, device)
+    marks["bridge"] = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    phase("train", card=card, step="summary", seconds_after=marks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -4481,6 +4927,7 @@ def main() -> int:
     counts["ann"] = ann_phase(card, clips)
     counts["mesh"] = mesh_phase(card, clips)
     counts["tp"] = tp_phase(card, clips, k1, k2, dec)
+    train_phase(card)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",

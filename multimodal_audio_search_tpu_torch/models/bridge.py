@@ -5,7 +5,7 @@ mapping 128-D classic DSP features (``ops/audio_features.py``) into the
 384-D MiniLM text-embedding space, 128 -> 256 -> 512 -> 384 with ReLU +
 dropout and a Tanh output, L2-normalised; Xavier-scaled init and a
 fitted-then-fixed feature standardisation. Same param keys and layouts.
-The forward pass is here; the training loop is ROADMAP A14.
+The forward pass is here; the training loop is training/bridge.py.
 """
 from __future__ import annotations
 

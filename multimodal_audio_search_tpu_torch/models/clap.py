@@ -12,7 +12,7 @@ searches with (weight parity with laion's checkpoints is
     linear projection;
   * both L2-normalised into one space. ``contrastive_loss`` is the
     symmetric InfoNCE the JAX training loop minimises; autograd gives its
-    gradient (the loops themselves are ROADMAP A14).
+    gradient (the training loop: training/clap.py).
 
 Same param keys and layouts as the JAX tree.
 """

@@ -106,6 +106,15 @@ def padding_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - mask.float())[:, None, None, :] * -1e9
 
 
+def causal_bias(t_q: int, t_k: int, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """Additive [1, 1, t_q, t_k] float32 causal mask; query i attends keys
+    <= i + offset (offset = number of cached positions)."""
+    qi = torch.arange(t_q, device=device)[:, None] + offset
+    ki = torch.arange(t_k, device=device)[None, :]
+    return torch.where(ki <= qi, 0.0, -1e9)[None, None]
+
+
 # ------------------------------------------------------------------ init
 def init_dense(gen: torch.Generator, d_in: int, d_out: int,
                bias: bool = True, std: float = 0.02):

@@ -21,6 +21,10 @@ package's paths:
     whose tail emits the cross query, K2 on that query, and K4-o, whose
     head applies the cross o-projection -- three launches per layer.
 
+  * ``decode_train``: the teacher-forced full-sequence decode that
+    training differentiates (training/finetune.py), plain PyTorch with
+    the [B, H, T, D] cross K/V; no kernel.
+
   * the int8 memory mode: a decoder from ops/quant.py::
     quantize_whisper_decoder runs every dense layer and the tied logits
     through K5; ``cross_kv_merged_int8`` (K6, ``cross_attn="int8_fused"``)
@@ -325,17 +329,49 @@ def _cross_attention(blk, h, ckv_entry, heads: int) -> torch.Tensor:
                                             *ckv_entry))
 
 
+def decode_train(params, enc_out: torch.Tensor, tokens: torch.Tensor,
+                 cfg: WhisperConfig) -> torch.Tensor:
+    """Teacher-forced full-sequence decode -> [B, T, vocab] float32
+    logits: causal self-attention over the whole prefix (JAX's
+    ``causal_bias``) and cross-attention over ``cross_kv``, all in plain
+    PyTorch, so autograd differentiates it (no kernel is launched)."""
+    dec = params["decoder"]
+    t = tokens.shape[1]
+    x = dec["embed_tokens"][tokens.long()] + dec["positions"][:t][None]
+    x = x.to(enc_out.dtype)
+    bias = L.causal_bias(t, t, device=x.device)
+    for blk, ckv_entry in zip(dec["blocks"], cross_kv(params, enc_out, cfg)):
+        a = blk["self_attn"]
+        # pre-norm: self q/k/v from the layer-normed hidden
+        h = L.layer_norm(blk["self_ln"], x, cfg.ln_eps)
+        q, k, v = (L.split_heads(L.dense(a[n], h), cfg.heads)
+                   for n in ("q", "k", "v"))
+        x = x + L.dense(a["o"], L.merge_heads(
+            L.attention_scores(q, k, v, bias)))
+        h = L.layer_norm(blk["cross_ln"], x, cfg.ln_eps)
+        x = x + _cross_attend(blk, h, ckv_entry, cfg)
+        h = L.layer_norm(blk["mlp_ln"], x, cfg.ln_eps)
+        x = x + L.dense(blk["mlp_out"], L.gelu(L.dense(blk["mlp_in"], h)))
+    x = L.layer_norm(dec["ln"], x, cfg.ln_eps)
+    return _tied_logits(dec, x)
+
+
 def _tied_logits(dec, x: torch.Tensor) -> torch.Tensor:
-    """h @ E^T -> [B, vocab] float32. The JAX package multiplies bf16
+    """h @ E^T -> [..., vocab] float32. The JAX package multiplies bf16
     operands with float32 accumulation and a float32 result; the port
     multiplies the same bf16 values upcast to float32 (exact products,
     float32 sums, TF32 off), so the logits are not rounded to bf16
-    before the argmax. A quantized decoder takes K5 on the int8 table."""
+    before the argmax. A quantized decoder takes K5 on the int8 table. A
+    tree that prepare_params did not place (training) has no float32
+    table: its table is rounded to x's dtype and upcast here."""
     if "embed_tokens_q" in dec:
         from ..ops.quant import quant_dense_apply
         return quant_dense_apply(dec["embed_tokens_q"], x,
                                  out_dtype=torch.float32)
-    return torch.matmul(x.float(), dec["embed_tokens_f32"].t())
+    table = dec.get("embed_tokens_f32")
+    if table is None:
+        table = dec["embed_tokens"].to(x.dtype).float()
+    return torch.matmul(x.float(), table.t())
 
 
 # ----------------------------------------------------------- cached decode

@@ -75,6 +75,7 @@ def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor,
     [B, H, T, D] in q's dtype. CUDA tensors (bf16, head dim 64, any strides
     with a unit last one, e.g. the head-split views of the q/k/v dense
     outputs) launch K8, CPU tensors take the plain version."""
+    runtime.refuse_grad("K8", q, k, v)
     if q.device.type == "cuda":
         return _launch(q, k, v)
     if q.device.type == "cpu":

@@ -170,6 +170,7 @@ def int8_cached_attention(
 ) -> torch.Tensor:         # [B, H, D] f32
     """Single-query attention over every key of an int8 K/V cache. CUDA
     tensors launch K7 (q in bf16), CPU tensors take the plain version."""
+    runtime.refuse_grad("K7", q, k8, ks, v8, vs)
     if k8.device.type == "cuda":
         return _launch(q, k8, ks, v8, vs)
     if k8.device.type == "cpu":

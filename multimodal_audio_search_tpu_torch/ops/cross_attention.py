@@ -136,6 +136,7 @@ def fused_single_query_attention(
     """One single-query attention over a merged-head K/V buffer. ``pos``
     is a host int (the decode loop's step), passed to the kernel as an
     argument. CUDA tensors launch K2, CPU tensors take the plain twin."""
+    runtime.refuse_grad("K2", q_m, k_m, v_m)
     t = k_m.shape[1]
     if pos is not None and not 0 <= int(pos) < t:
         raise ValueError(f"pos {pos} outside [0, {t})")
@@ -324,6 +325,7 @@ def fused_single_query_attention_int8(
 ) -> torch.Tensor:            # [B, H*D] f32
     """Single-query attention over merged int8 K/V. CUDA tensors launch
     K6 (q in bf16), CPU tensors take the plain version."""
+    runtime.refuse_grad("K6", q_m, k8, ks, v8, vs)
     t = k8.shape[1]
     if pos is not None and not 0 <= int(pos) < t:
         raise ValueError(f"pos {pos} outside [0, {t})")

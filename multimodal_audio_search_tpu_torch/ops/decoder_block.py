@@ -424,6 +424,8 @@ def fused_self_block(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     is the float32 o-projection of the rank's heads, module docstring),
     CPU tensors take the plain version. On the card every tensor is bf16
     except the float32 LN scale."""
+    runtime.refuse_grad("K3", x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                        k_cache, v_cache)
     pos = int(pos)
     if _device(x) == "cuda":
         return _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
@@ -443,6 +445,8 @@ def fused_self_block_q(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     output. Returns (x_out, k1, v1, q_cross); the cache row is written as
     in fused_self_block. CUDA tensors launch K3-q (the K3 kernel's tail
     variant), CPU tensors take the plain version."""
+    runtime.refuse_grad("K3-q", x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
+                        cross_ln_g, cross_ln_b, wcq, bcq, k_cache, v_cache)
     pos = int(pos)
     if _device(x) == "cuda":
         return _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
@@ -510,6 +514,7 @@ def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5,
     takes erff for the erf of the GELU; ``partial``: K4p, the float32 fc2
     sum of a rank's F/mp columns alone, module docstring), CPU tensors the
     plain version."""
+    runtime.refuse_grad("K4", x, ln_g, ln_b, w1, b1, w2, b2)
     if _device(x) == "cuda":
         return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,
                            partial=partial)
@@ -522,6 +527,8 @@ def fused_mlp_block_o(x, attn, wco, bco, ln_g, ln_b, w1, b1, w2, b2, *,
     """B5b: the cross o-projection + residual, then B4. ``attn`` is the
     cross attention's float32 output [B, D]. CUDA tensors launch K4-o
     (the K4 kernel's head variant), CPU tensors the plain version."""
+    runtime.refuse_grad("K4-o", x, attn, wco, bco, ln_g, ln_b, w1, b1, w2,
+                        b2)
     if _device(x) == "cuda":
         return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,
                            head=(attn, wco, bco))
@@ -656,6 +663,8 @@ def fused_cross_mlp_block(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
     over the keys of a thread-block cluster by cross_plan, K4-o's
     o-projection + MLP; bf16, float32 LN scales), CPU tensors the plain
     version."""
+    runtime.refuse_grad("K14", x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
+                        ln3_b, wm1, bm1, wm2, bm2, k_m, v_m)
     if _device(x) == "cuda":
         return _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g,
                                  ln3_b, wm1, bm1, wm2, bm2, k_m, v_m, heads,

@@ -444,6 +444,8 @@ def fused_attention_o_residual(
     tensors take the plain versions. ``partial``: one rank's float32
     partial ``(...) @ Wo`` over the rank's heads, Wo [H*D, HD_out], x and
     bo unread (K1p on the card; module docstring)."""
+    runtime.refuse_grad("K1" if not (qk_int8 or pair_heads) else
+                        "K9" if qk_int8 else "K10", q, k, v, x, wo, bo)
     if qk_int8 and pair_heads:
         raise ValueError("qk_int8 and pair_heads exclude each other")
     if partial:
@@ -471,6 +473,7 @@ def attention_o_residual_int8(q, k8, ks, v8, vs, x, wo,
                               bo) -> torch.Tensor:
     """K9 on K/V that quantize_kv already quantized: CUDA tensors launch
     the kernel, CPU tensors take attention_o_residual_int8_plain."""
+    runtime.refuse_grad("K9", q, k8, ks, v8, vs, x, wo, bo)
     if _device(x) == "cuda":
         return _launch_int8(q, k8, ks, v8, vs, x, wo, bo)
     return attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo)
@@ -482,6 +485,7 @@ def attention_o_residual_ab(q, k, v, x, wo, bo,
     places it (``defer_div`` False, True or "post";
     attention_o_residual_ab_plain). CUDA tensors launch K11, CPU tensors
     take the plain version."""
+    runtime.refuse_grad("K11", q, k, v, x, wo, bo)
     _check_form(defer_div)
     if _device(x) == "cuda":
         return _launch(q, k, v, x, wo, bo, form=defer_div)

@@ -279,6 +279,7 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ dequant(wq [K, N] int8, scale [N]) -> [M, N] float32.
     CUDA tensors launch K5, CPU tensors take the plain version."""
+    runtime.refuse_grad("K5", x, wq, scale)
     if x.device.type == "cuda":
         return _launch(x, wq, scale, None, torch.float32)
     if x.device.type == "cpu":
@@ -290,6 +291,7 @@ def quant_dense_apply(p: dict, x: torch.Tensor,
                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Dense layer with int8 weights; x [..., K] -> [..., N] in
     ``out_dtype`` or x's dtype."""
+    runtime.refuse_grad("K5", x, p.get("scale"), p.get("b"))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     dt = out_dtype or x.dtype

@@ -35,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tree import tree_map, tree_map_with_path
+
 # the virtual CPU entries a CPU mesh holds by default (the JAX test rig's
 # device count)
 CPU_DEVICES = 8
@@ -143,16 +145,25 @@ def validate_data_axis(mesh: Mesh) -> None:
                          f"two; {_POW2}")
 
 
-def refuse_model_axis(mp: int, decode=None, quantized: bool = False) -> None:
+def refuse_model_axis(mp: int, decode=None, quantized: bool = False,
+                      training: str | None = None) -> None:
     """Raise NotImplementedError naming ROADMAP A13c for what the model
     axis does not run yet (``mp > 1``): sampling and beam decoding (the
     parity decoders), ``fused_layer="v2"`` (K3-q, K4-o), an int8 decoder
     (``quantized``: K5) or int8 cross K/V (K6, K7), and the int8 or paired
     encoder kernels (K9, K10). ``decode``: a DecodeConfig (None: only
-    ``quantized`` is asked about). Nothing of these falls back to an
-    unsharded run."""
+    ``quantized`` is asked about). ``training``: the training entry point
+    asking (training/loop.py, training/clap.py), refused with ValueError
+    naming ROADMAP A14b: the model axis's partial kernels have no
+    backward, and training over it is not ported. Nothing of these falls
+    back to an unsharded run."""
     if mp <= 1:
         return
+    if training:
+        raise ValueError(
+            f"{training} with model_parallel={mp}: training over the "
+            f"mesh's model axis is not ported (ROADMAP A14b); train over "
+            f"the data axis (model_parallel=1)")
     what = []
     if quantized:
         what.append("quantize_decoder")
@@ -188,23 +199,12 @@ def mesh_from_config(cfg, device="cuda") -> Mesh | None:
     return make_mesh(dp * mp, model_parallel=mp, device=device)
 
 
-def _tree_map(fn, tree, path=()):
-    """fn(path, leaf) over nested dicts/lists/tuples; path holds the dict
-    keys and list indices down to the leaf."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
-
-
 def replicated(mesh: Mesh, tree) -> list:
     """One copy of ``tree`` (a tensor or a tree of them) on each data
     device; a copy on the device the tensor already lies on is the tensor
     itself."""
-    return [_tree_map(lambda _, x: x.to(d) if torch.is_tensor(x) else x,
-                      tree) for d in mesh.data_devices()]
+    return [tree_map(lambda x: x.to(d) if torch.is_tensor(x) else x, tree)
+            for d in mesh.data_devices()]
 
 
 def data_sharded(mesh: Mesh, x) -> list[torch.Tensor]:
@@ -225,7 +225,7 @@ def whisper_param_spec(path: tuple, leaf) -> tuple:
     'model': (None, "model")) for attention q/k/v and mlp_in,
     row-parallel (("model", None)) for attention o and mlp_out, weights
     only; everything else replicated (()). ``path``: the dict keys and
-    list indices down to the leaf."""
+    list indices (as strings, utils/tree.py) down to the leaf."""
     if "w" in path:
         if any(k in path for k in ("q", "k", "v", "mlp_in")):
             return (None, "model")
@@ -255,7 +255,7 @@ def shard_params(params, mesh: Mesh) -> np.ndarray:
                 if leaf.dim() >= 2 and leaf.shape[axis] % mp == 0:
                     leaf = torch.chunk(leaf, mp, axis)[j]
             return leaf.to(dev)
-        out[pos] = _tree_map(place, params)
+        out[pos] = tree_map_with_path(place, params)
     return out
 
 
@@ -309,7 +309,7 @@ def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
                                      f"split into {mp} on axis {axis}")
                 leaf = torch.chunk(leaf, mp, axis)[j].contiguous()
             return leaf.to(dev)
-        out[i, j] = _tree_map(place, params)
+        out[i, j] = tree_map_with_path(place, params)
     return out
 
 

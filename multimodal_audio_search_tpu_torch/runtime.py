@@ -107,6 +107,23 @@ def bump(name: str) -> None:
     COUNTS[name] += 1
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ValueError where autograd would record a call of ``kernel``:
+    grad enabled and an input that requires grad. A kernel's output has
+    no ``grad_fn`` (the launch goes through ctypes), so under autograd it
+    would cut the graph and its inputs would train with no gradient,
+    silently; the JAX kernels have no VJP either. Every wrapper of an
+    encoder or decoder kernel asks this first, on every device, so the
+    CPU twins refuse what the card would."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel} has no backward: an input requires grad, and the "
+            f"kernel's output would not carry it. Train through the plain "
+            f"path (encode(fused_attention=False), decode_train), or call "
+            f"the kernel under torch.no_grad()")
+
+
 def _nvcc() -> str:
     cands = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
     for c in cands:

@@ -20,6 +20,13 @@ The secondary models' trees (MPNet, the CLAP towers of
 leaves only -- BN running statistics and relative-bias tables included,
 carried as float32 -- and ``None`` where a Swin stage has no
 downsampling; any other leaf is refused.
+
+The training trees come over too: ``clap_train_params`` (the CLAP
+recipe's {audio, text_backbone, text_proj, log_temp},
+training/clap.py) and ``opt_state`` (an optax state -- its NamedTuples
+named ``EmptyState``, ``ScaleByAdamState``, ``ScaleByScheduleState``,
+``MaskedState`` -- as the port's state of the same names,
+training/finetune.py; counts stay int32 on the CPU).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ _HTSAT_TOP = {"batch_norm", "patch_embed", "norm", "proj", "stages"}
 _ROBERTA_TOP = {"embeddings", "blocks", "pooler", "proj"}
 _CLAP_TOWER_TOP = {"patch", "positions", "blocks", "ln", "pool_q", "proj"}
 _BRIDGE_TOP = {"layers", "feat_mean", "feat_std"}
+_CLAP_TRAIN_TOP = {"audio", "text_backbone", "text_proj", "log_temp"}
 
 
 def tree_to_torch(tree):
@@ -48,7 +56,8 @@ def tree_to_torch(tree):
     a = np.asarray(tree)
     if np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray makes a 0-dim array 1-dim: keep the shape
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
 
 
 def _check(tree, top: set[str], what: str, quantized_ok: str = "") -> None:
@@ -137,3 +146,45 @@ def bridge_params(tree):
     """A JAX bridge MLP tree (models/bridge.py) -> the port's float32
     torch tree."""
     return _float_params(tree, _BRIDGE_TOP, "bridge")
+
+
+def clap_train_params(tree):
+    """A JAX CLAP training tree (training/clap.py::init_clap_params:
+    the v1 audio tower, the MiniLM backbone, the text projection and the
+    0-dim ``log_temp``) -> the port's float32 torch tree."""
+    if not isinstance(tree, dict) or set(tree) != _CLAP_TRAIN_TOP:
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"not a CLAP training tree: top-level keys {got}")
+    return {"audio": clap_tower_params(tree["audio"]),
+            "text_backbone": minilm_params(tree["text_backbone"]),
+            "text_proj": _float_params(tree["text_proj"], {"w", "b"},
+                                       "text projection"),
+            "log_temp": tree_to_torch(tree["log_temp"])}
+
+
+def opt_state(tree):
+    """A JAX optax state (numpy leaves; optax's NamedTuples and the
+    chain's tuples) -> the port's optimizer state of the same structure
+    (training/finetune.py): float leaves float32, counts int32, all on
+    the CPU (the optimizer moves the moments to the parameters'
+    device)."""
+    from .training import finetune as FT
+    from .utils.tree import is_state
+    states = {c.__name__: c for c in (FT.EmptyState, FT.ScaleByAdamState,
+                                      FT.ScaleByScheduleState,
+                                      FT.MaskedState)}
+
+    def walk(t):
+        if is_state(t):
+            cls = states.get(type(t).__name__)
+            if cls is None or tuple(cls._fields) != tuple(t._fields):
+                raise ValueError(f"optimizer state {type(t).__name__} "
+                                 f"{t._fields} has no counterpart in the "
+                                 f"port")
+            return cls(*(walk(getattr(t, f)) for f in t._fields))
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return tree_to_torch(t)
+    return walk(tree)

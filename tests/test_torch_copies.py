@@ -114,6 +114,15 @@ MODEL_DEFS = [
     ("models/clap.py", "ClapConfig"),
     ("models/bridge.py", "BridgeConfig"),
 ]
+# the synthetic captioner's numpy half (training/synth.py): the clip
+# generator and the word vocabulary, so one seed gives both packages the
+# same clips and token ids
+SYNTH_FUNCS = ["SAMPLE_RATE", "_TONES", "_tone", "_noise", "_sweep",
+               "EVENTS", "render_event", "make_clip", "SynthVocab"]
+# the modules of ROADMAP A14, which the import scan must reach
+A14_MODULES = ["training/__init__.py", "training/finetune.py",
+               "training/loop.py", "training/synth.py", "training/bridge.py",
+               "training/clap.py", "utils/checkpoint.py", "utils/tree.py"]
 # the modules of ROADMAP A11, which the import scan must reach
 A11_MODULES = ["models/mpnet.py", "models/clap.py", "models/clap_htsat.py",
                "models/bridge.py", "audio/clap_features.py",
@@ -227,6 +236,12 @@ def test_ivf_host_functions_match_original(name):
     assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
 
 
+@pytest.mark.parametrize("name", SYNTH_FUNCS)
+def test_synth_numpy_half_matches_original(name):
+    rel = "training/synth.py"
+    assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
+
+
 @pytest.mark.parametrize("rel,name", MODEL_DEFS)
 def test_model_numpy_halves_match_original(rel, name):
     assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
@@ -270,7 +285,7 @@ def test_port_sources_never_import_jax():
     the transitive closure by running with jax blocked)."""
     srcs = _port_sources()
     assert ROOT / "tools" / "torch_bench_ivf.py" in srcs
-    assert {PORT_PKG / rel for rel in A11_MODULES} <= set(srcs)
+    assert {PORT_PKG / rel for rel in A11_MODULES + A14_MODULES} <= set(srcs)
     for p in srcs:
         assert _forbidden_imports(p) == [], p
 

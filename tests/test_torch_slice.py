@@ -683,8 +683,22 @@ def test_device_policy():
     dict(model_parallel=2,
          caption_decode=tcfg.DecodeConfig(fused_encoder="int8")),
     dict(model_parallel=2, asr_decode=tcfg.DecodeConfig(method="sample")),
+    # training over the model axis (ROADMAP A14b): the training entry
+    # points refuse it with ValueError
+    dict(model_parallel=2, training="finetune_captioner"),
+    dict(model_parallel=2, training="train_clap"),
 ])
 def test_unported_modes_raise(change):
+    if "training" in change:
+        from multimodal_audio_search_tpu_torch.training import clap, loop
+        entry = {"finetune_captioner": lambda: loop.finetune_captioner(
+                     [], W.PRESETS["test"], model_parallel=2, n_devices=4,
+                     device="cpu"),
+                 "train_clap": lambda: clap.train_clap(
+                     [], model_parallel=2, n_devices=4, device="cpu")}
+        with pytest.raises(ValueError, match="A14b"):
+            entry[change["training"]]()
+        return
     cfg = tcfg.EngineConfig().replace(
         asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
         caption_model=tcfg.ModelSpec(family="whisper", preset="test"),

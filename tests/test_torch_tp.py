@@ -48,6 +48,7 @@ from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
 from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
 from multimodal_audio_search_tpu_torch.parallel import mesh as M
 from multimodal_audio_search_tpu_torch.pipelines.embed import TextEmbedder
+from multimodal_audio_search_tpu_torch.utils.tree import tree_map
 
 torch.set_num_threads(1)
 L = 12
@@ -336,8 +337,7 @@ def test_dcn_mesh_model_axis_runs_the_embedder():
 def whisper_case():
     cfg = W.PRESETS["test"]
     params = W.init_params(torch.Generator().manual_seed(4), cfg)
-    params = M._tree_map(lambda _, a: a * 3.0 if a.dim() == 2 else a,
-                         params)
+    params = tree_map(lambda a: a * 3.0 if a.dim() == 2 else a, params)
     prepared = W.prepare_params(params, torch.float32, torch.device("cpu"))
     mel = torch.randn(3, cfg.n_mels, 200, generator=torch.Generator()
                       .manual_seed(5))

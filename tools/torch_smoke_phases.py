@@ -3,6 +3,7 @@
     python3 tools/torch_smoke_phases.py search,embedders,clap,service
     python3 tools/torch_smoke_phases.py decoder,mesh
     python3 tools/torch_smoke_phases.py decoder,tp
+    python3 tools/torch_smoke_phases.py train
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -15,7 +16,9 @@ and K4-o against their plain versions (K3 and K3-q with their repeats),
 ``mesh`` the mesh's data and DCN axes (search at 1M segments, the
 data-parallel ingest), ``tp`` the mesh's model axis (the partial
 kernels K1p, K3p and K4p, K2 on head shards, the (1, 2) and (2, 2)
-engines).
+engines), ``train`` the training subsystem (the synthetic captioner
+trained and transcribed through K1 and K2, the production geometry, the
+data axis, checkpoints, CLAP and the bridge).
 """
 import os
 import sys
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh",
-          "tp")
+          "tp", "train")
 
 
 def main(names: list[str]) -> int:
@@ -55,7 +58,8 @@ def main(names: list[str]) -> int:
            "service": lambda: C.service_phase(card, rng, C.audio_phase(
                card, np.random.default_rng(1))["uploads"]),
            "mesh": lambda: C.mesh_phase(card, clips),
-           "tp": lambda: C.tp_phase(card, clips, **tp_args)}
+           "tp": lambda: C.tp_phase(card, clips, **tp_args),
+           "train": lambda: C.train_phase(card)}
     for name in PHASES:
         if name in names:
             t0 = time.time()
