@@ -208,15 +208,26 @@ Phases, one line each (``[phase] ...``):
    at base width (DELTA_MAX, KV_ATOL; 16 repeats each) -- each timed
    (CUDA events and the profiler's device ms) beside its square form,
    and the ranks' partials through model_sum against the square K1 / K3
-   / K4 on the whole layer; then mesh_ingest_check with a model axis of
-   TP_MP at (dp, mp) = (1, 2) and (2, 2) under the default config and
-   fast_lossless on the 25 s clip, against the unsplit engine: every
-   launch once a rank (K1 = 2 x the unsplit 10; K2, K3, K4 = 2 x the
-   unsplit counts a decode step, every chunk at least 8 rows under
-   fused_layer, so K3 and K4 run at (2, 2) too), the same segments, the
-   encoder within ENC_MEAN_ERR_MAX, tokens equal outside the logits'
-   margin, top-10 identical to the sharded and the unsplit engines'
-   searchers; each split and unsplit dispatch's wall ms beside.
+   / K4 on the whole layer; the encoder variants' partial forms the
+   same way (tp_variant_kernels: K9p on 4 and 3 heads, K10p on 4, 16
+   repeats bit-equal, summed against square K9 / K10), K5 at the column
+   and row shard shapes of whisper-base's decoder (TP_K5_SHAPES), K6 and
+   K7 on 4 and 3 heads at cross T=1500, each beside its square form;
+   then mesh_ingest_check with a model axis of TP_MP under each of
+   TP_PATHS on the 25 s clip -- the default config and fast_lossless at
+   (dp, mp) = (1, 2) and (2, 2); parity (sampled ASR, beam-2 captions),
+   "v2" (the True form over the axis: K3p, K2, K4p), int8_fused (K5 +
+   K6), int8 (K5 + K7), enc_int8 (K9p) and enc_paired (K10p at base, K1p
+   at tiny's 3 heads a rank) at (1, 2) -- against the unsplit engine:
+   every launch once a rank (split_expected: the int8 decoder's logits
+   once; K1 = 2 x the unsplit 10 on the default config; every chunk at
+   least 8 rows under fused_layer, so K3 and K4 run at (2, 2) too), the
+   same segments, the encoder within ENC_MEAN_ERR_MAX, tokens equal
+   outside the logits' margin (sampling: the margin of logits / t + the
+   same noise; beam: of the 2k + 1 best candidates), top-10 identical to
+   the sharded and the unsplit engines' searchers; each split and
+   unsplit dispatch's wall ms beside, and [tp]'s seconds after each
+   path.
 
 13. training (``[train]``, after 12; ROADMAP A14): no kernel in a
    training step (each part's launch counts over its steps must be 0),
@@ -239,7 +250,7 @@ Phases, one line each (``[phase] ...``):
    on TRAIN_BRIDGE_N features for 50 epochs, the loss falling.
 
 The line before the last two is the card (nvidia-smi), then the kernels
-JSON object (K1-K14), the last line ``{"ok": true, "device": {...}}``.
+JSON object (K1-K14, then K9p and K10p), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
 """
 from __future__ import annotations
@@ -1793,15 +1804,16 @@ KEYS = {"K1": "encoder_attn_o_residual", "K2": "single_query_attention",
 K5_PER_LAYER_STEP = 8
 
 
-def engine_config(profile, fused, int8=None, enc=None):
-    """EngineConfig for one entry of ENGINE_PATHS; "v2" is fast_lossless
-    with fused_layer="v2" on both models; ``int8`` sets quantize_decoder
-    on both Whisper slots and that cross_attn on both decode configs;
-    ``enc`` (not None) sets fused_encoder on both decode configs."""
+def engine_config(profile, fused, int8=None, enc=None, base=None):
+    """EngineConfig for one entry of ENGINE_PATHS (on ``base``, default
+    EngineConfig()); "v2" is fast_lossless with fused_layer="v2" on both
+    models; ``int8`` sets quantize_decoder on both Whisper slots and that
+    cross_attn on both decode configs; ``enc`` (not None) sets
+    fused_encoder on both decode configs."""
     import dataclasses
     from multimodal_audio_search_tpu_torch.config import (
         EngineConfig, apply_profile)
-    cfg = EngineConfig()
+    cfg = base or EngineConfig()
     if profile:
         cfg = apply_profile(cfg, profile)
     dec = {}
@@ -1819,8 +1831,10 @@ def engine_config(profile, fused, int8=None, enc=None):
 
 
 def encoder_kernel(enc, heads: int) -> str:
-    """The kernel one encoder layer of a model with ``heads`` heads
-    launches at T >= 512 on the card under fused_encoder ``enc``."""
+    """The kernel one encoder layer of a model with ``heads`` heads (a
+    rank's, over the mesh's model axis) launches at T >= 512 on the card
+    under fused_encoder ``enc``: over the axis each is its partial form
+    (K1p, K9p, K10p), counted as the square form."""
     if enc is False:
         return "K8"
     if enc == "int8":
@@ -1841,7 +1855,8 @@ def expected_launches(fused, int8, steps, disp, asr, cap, enc=None) -> dict:
     per_step = steps[0] * asr.cfg.dec_layers + steps[1] * cap.cfg.dec_layers
     exp = {k: 0 for k in KEYS}
     for n, pipe in zip(disp, (asr, cap)):
-        exp[encoder_kernel(enc, pipe.cfg.heads)] += n * pipe.cfg.enc_layers
+        exp[encoder_kernel(enc, pipe.cfg.heads // pipe.model_parallel)] += \
+            n * pipe.cfg.enc_layers
     if int8:
         exp["K2"] = per_step
         exp["K6" if int8 == "int8_fused" else "K7"] = per_step
@@ -2196,17 +2211,22 @@ PARITY_COLD_T, PARITY_HOT_T = 1e-4, 2.0
 PARITY_CHECK_ROWS, PARITY_CHECK_TOKENS = 8, 24
 
 
-def parity_config(profile=None):
-    """EngineConfig of a PARITY_PATHS entry: the reference's decode knobs
-    on both Whisper slots (sampling for ASR, beam-2 for captions), then
-    the profile."""
+def parity_config(profile=None, base=None):
+    """EngineConfig of a PARITY_PATHS entry (on ``base``, default
+    EngineConfig()): the reference's decode knobs on both Whisper slots
+    (sampling for ASR, beam-2 for captions), then the profile."""
     import dataclasses
     from multimodal_audio_search_tpu_torch.config import (
         EngineConfig, apply_profile, asr_parity_decode,
         caption_parity_decode)
-    cfg = EngineConfig().replace(
-        asr_decode=dataclasses.replace(asr_parity_decode(), method="sample"),
-        caption_decode=caption_parity_decode())
+    cfg = base or EngineConfig()
+    asr, cap = asr_parity_decode(), caption_parity_decode()
+    if base is not None:        # the base's decode lengths (test presets)
+        asr, cap = (dataclasses.replace(d, max_new_tokens=b.max_new_tokens)
+                    for d, b in ((asr, base.asr_decode),
+                                 (cap, base.caption_decode)))
+    cfg = cfg.replace(asr_decode=dataclasses.replace(asr, method="sample"),
+                      caption_decode=cap)
     return apply_profile(cfg, profile) if profile else cfg
 
 
@@ -3952,13 +3972,18 @@ def mesh_search_check(card: str, emb, success, qs, devices) -> dict:
 
 
 def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
+                   lengths: torch.Tensor, seed: int | None = None
+                   ) -> torch.Tensor:
     """Replay a greedy decode's own tokens through the decoder (the
     pipeline's decode config and logits rules) and return, a row, the
     smallest top-2 margin of the processed logits over the steps that
     chose a token, less LOGITS_ERR_REL of that step's largest |logit|: a
     row whose value is <= 0 had a step where a rounding of the kernels'
-    size could flip the greedy choice."""
+    size could flip the greedy choice (the largest |logit| before the
+    rules, whose bans put -1e9 in). A sampled decode (``seed``: the
+    dispatch's generator seed) is replayed with its noise drawn again as
+    generate draws it, one draw a step: the margin is then that of
+    logits / t + noise, less LOGITS_ERR_REL of the largest |logit| / t."""
     from multimodal_audio_search_tpu_torch.models import generate as G
     from multimodal_audio_search_tpu_torch.models import whisper as W
     cfg, dev = pipe.cfg, enc.device
@@ -3969,9 +3994,14 @@ def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
     ar = torch.arange(total, device=dev)
     worst = torch.full((b,), float("inf"), device=dev)
     last = p - 1 + int(lengths.max())
+    sample = pipe.decode.method == "sample"
+    t = max(pipe.decode.temperature, 1e-6) if sample else 1.0
+    rng = torch.Generator(device=dev).manual_seed(seed) if sample else None
     for pos in range(min(total - 1, last)):
         logits = W.decode_step(pipe.params, tokens[:, pos], pos, cache, ckv,
                                cfg, fused_layer=pipe.decode.fused_layer)
+        noise = G._gumbel(rng, logits.shape, dev) if sample else 0.0
+        scale = logits.float().abs().max(dim=-1).values
         if pos < p - 1:
             continue
         seen = tokens.masked_fill(ar[None, :] > pos, cfg.pad_token_id)
@@ -3981,9 +4011,8 @@ def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
         logits = G.ban_repeated_ngrams(
             logits, seen, torch.full((b,), pos + 1, device=dev),
             pipe.decode.no_repeat_ngram_size)
-        top2 = logits.float().topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1] - LOGITS_ERR_REL * \
-            logits.float().abs().max(dim=-1).values
+        top2 = (logits.float() / t + noise).topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1] - LOGITS_ERR_REL * scale / t
         live = pos - (p - 1) < lengths
         worst = torch.where(live, torch.minimum(worst, margin), worst)
     return worst
@@ -4008,14 +4037,69 @@ def _ingest_batch(ing, wave: np.ndarray):
     return len(waves), q, transfer, seg_len
 
 
-def split_expected(fused, steps, disp, asr, cap) -> dict:
+def beam_margins(pipe, mel) -> tuple:
+    """A beam dispatch of ``pipe`` on ``mel`` with each step watched: a
+    step's logits may be off by LOGITS_ERR_REL of their largest |value|
+    a row (over its k beams), its log-probabilities by twice that, and a
+    candidate's cumulative score by the sum of that over the steps so
+    far; for every row, the smallest gap between neighbours among the 2k
+    + 1 best candidates (the finite ones) less that sum, over the steps.
+    A row whose value is <= 0 had a step where a rounding of the
+    kernels' size could reorder its candidates. Returns ((tokens,
+    lengths), margins)."""
+    from multimodal_audio_search_tpu_torch.models import beam as BM
+    k = pipe.decode.num_beams
+    worst, err = [], []
+    top_k, step = BM.top_k_stable, BM.decode_step
+
+    def stepped(*a, **kw):
+        logits = step(*a, **kw)
+        scale = logits.float().abs().amax(dim=-1).reshape(-1, k).amax(1)
+        err.append((err[-1] if err else 0.0)
+                   + 2 * LOGITS_ERR_REL * scale)
+        return logits
+
+    def watched(x, n):
+        v = torch.sort(x, dim=1, descending=True, stable=True)[0][:, :2 * k
+                                                                  + 1]
+        fin = v > BM.NEG_INF / 2
+        gap = torch.where(fin[:, :-1] & fin[:, 1:], v[:, :-1] - v[:, 1:],
+                          torch.full_like(v[:, 1:], float("inf")))
+        worst.append(gap.min(dim=1).values - err[-1])
+        return top_k(x, n)
+    BM.top_k_stable, BM.decode_step = watched, stepped
+    try:
+        out = pipe.dispatch_mel(mel)
+    finally:
+        BM.top_k_stable, BM.decode_step = top_k, step
+    margins = torch.stack(worst).min(dim=0).values if worst else \
+        torch.full((out[0].shape[0],), float("inf"))
+    return out, margins.to(out[0].device)
+
+
+def split_expected(fused, steps, disp, asr, cap, int8=None,
+                   enc=None) -> dict:
     """expected_launches of a run whose Whisper pipelines each run over
     their ``model_parallel`` ranks (1 without a model axis): every launch
-    of a model once a rank."""
-    a = expected_launches(fused, None, (steps[0], 0), (disp[0], 0), asr, cap)
-    c = expected_launches(fused, None, (0, steps[1]), (0, disp[1]), asr, cap)
-    return {k: a[k] * asr.model_parallel + c[k] * cap.model_parallel
-            for k in a}
+    of a model once a rank, but the logits' K5 (an int8 decoder's, once a
+    step) on the first rank only; "v2" runs the True form (K3, K4) over
+    the axis; each encoder layer its rank's kernel (encoder_kernel of
+    the rank's heads)."""
+    out = {}
+    for i, pipe in enumerate((asr, cap)):
+        mp = pipe.model_parallel
+        f = True if fused == "v2" and mp > 1 else fused
+        st = (steps[0], 0) if i == 0 else (0, steps[1])
+        dp = (disp[0], 0) if i == 0 else (0, disp[1])
+        e = expected_launches(f, int8, st, dp, asr, cap, enc)
+        if int8:       # the logits, once a step, on the first rank only
+            e["K5"] = mp * (e["K5"] - steps[i]) + steps[i]
+            mp_k5 = 1
+        else:
+            mp_k5 = mp
+        for key, n in e.items():
+            out[key] = out.get(key, 0) + n * (mp_k5 if key == "K5" else mp)
+    return out
 
 
 def split_encode(pipe, mels) -> list:
@@ -4040,12 +4124,14 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
     ``whole`` result of an earlier call, reused), both ingesting
     ``wave``. The split engine's launches equal split_expected for its
     chunks (its dispatches count one a chunk; with a model axis, every
-    launch once a rank); its segments (ids, times) equal the unsplit
-    one's; on the first batch, the chunks' encoder outputs are within
-    ENC_MEAN_ERR_MAX of the whole batch's (mean |err|) and, in both
-    Whisper models, a row's tokens differ only where the unsplit decode
-    had a step with a top-2 margin within LOGITS_ERR_REL of its logits
-    (decode_margins; such rows are counted, and the texts follow the
+    launch once a rank, the int8 decoder's logits once); its segments
+    (ids, times) equal the unsplit one's; on the first batch, the
+    chunks' encoder outputs are within ENC_MEAN_ERR_MAX of the whole
+    batch's (mean |err|) and, in both Whisper models, a row's tokens
+    differ only where the unsplit decode had a step with a top-2 margin
+    within LOGITS_ERR_REL of its logits (decode_margins, with the
+    sampling noise of the same seed under sampling; beam_margins under
+    beam search; such rows are counted, and the texts follow the
     tokens); the own-segment query and ANN_QUERIES give identical top-10
     ids from a sharded and an unsharded searcher over the split engine's
     store, and with a model axis (phase ``[tp]``) from the unsplit
@@ -4060,6 +4146,10 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
     dev = torch.device(devices[0])
     mesh = make_mesh(len(devices), model_parallel=mp, devices=devices)
     fused = cfg.asr_decode.fused_layer
+    fe = cfg.asr_decode.fused_encoder
+    int8 = cfg.asr_decode.cross_attn if cfg.asr_model.quantize_decoder \
+        else None
+    enc = fe if fe is False or fe in ("int8", "paired") else None
     engines, counts = {}, {}
     if whole is not None:
         engines["whole"] = whole["engine"]
@@ -4082,7 +4172,7 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
         counts[label] = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
         steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
         disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
-        exp = split_expected(fused, steps, disp, asr, cap)
+        exp = split_expected(fused, steps, disp, asr, cap, int8, enc)
         if dev.type == "cuda" and (counts[label] != exp or not all(
                 counts[label][k] > 0 for k in exp if exp[k])):
             raise AssertionError(f"{tag} {label} ingest: launches "
@@ -4092,11 +4182,15 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
     (eng, segs, disp, exp, wall), (eng1, segs1, _, _, wall1) = \
         engines["split"], engines["whole"]
     # with one data row the split run's launches are mp x the unsplit
-    # run's wherever both decoded the same number of steps
+    # run's wherever both decoded the same number of steps (where every
+    # kernel runs its partial form once a rank: not for the int8
+    # decoder's logits, "v2", or the encoder variants, whose forms
+    # differ between a rank and the whole layer)
     mp_x_unsplit = counts["split"] == {k: mp * v
                                        for k, v in counts["whole"].items()}
-    if dev.type == "cuda" and len(mesh.data_devices()) == 1 and \
-            wall["steps"] == wall1["steps"] and not mp_x_unsplit:
+    mirrored = int8 is None and enc is None and fused != "v2"
+    if dev.type == "cuda" and len(mesh.data_devices()) == 1 and mirrored \
+            and wall["steps"] == wall1["steps"] and not mp_x_unsplit:
         raise AssertionError(f"{tag} split ingest: launches "
                              f"{counts['split']} != {mp} x the unsplit "
                              f"{counts['whole']}")
@@ -4123,9 +4217,17 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
             enc2 = torch.cat([e.to(dev) for e in split_encode(p2, mels)])
             enc2 = enc2[: enc1.shape[0]]
             enc_err = float((enc1.float() - enc2.float()).abs().mean())
-            ms1, (t1, l1) = _wall_ms(lambda: p1.dispatch_mel(mel1), dev)
+            # one sampling seed for both (a reused unsplit engine has
+            # dispatched more often)
+            p1.calls = p2.calls = max(p1.calls, p2.calls)
+            if p1.decode.method == "beam":
+                ms1, ((t1, l1), margin) = _wall_ms(
+                    lambda: beam_margins(p1, mel1), dev)
+            else:
+                ms1, (t1, l1) = _wall_ms(lambda: p1.dispatch_mel(mel1), dev)
+                margin = decode_margins(p1, enc1, t1, l1, seed=p1.calls)
+            margin = margin[:n]
             ms2, (t2, l2) = _wall_ms(lambda: p2.dispatch_mel(mels), dev)
-            margin = decode_margins(p1, enc1, t1, l1)[:n]
             close = margin <= 0
             differ = (t1[:n] != t2[:n]).any(dim=1) | (l1[:n] != l2[:n])
             if enc_err > ENC_MEAN_ERR_MAX or bool((differ & ~close).any()):
@@ -4139,6 +4241,7 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
                           "rows_differing": int(differ.sum()),
                           "min_margin": float(margin.min()),
                           "model_parallel": p2.model_parallel,
+                          "method": p2.decode.method,
                           "dispatch_ms": ms2, "dispatch_ms_unsplit": ms1,
                           "steps": p2.last_steps}
     texts_equal = sum(a["asr_text"] == b["asr_text"] and
@@ -4167,7 +4270,8 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
            "dispatches": {"asr": disp[0], "caption": disp[1]},
            "launches": counts["split"], "expected": exp,
            "launches_unsplit": counts["whole"],
-           "launches_mp_x_unsplit": mp_x_unsplit, "top10": tops,
+           "launches_mp_x_unsplit": mp_x_unsplit if mirrored else None,
+           "top10": tops,
            "top10_equal_unsplit": mp > 1 and texts_equal == len(segs),
            "wall": wall, "wall_unsplit": wall1}
     if mp > 1:
@@ -4212,10 +4316,53 @@ def mesh_phase(card: str, clips) -> dict:
 # to its plain twin as its square form is (K1p: the attention term alone,
 # K1_Y_MAX / K1_Y_L2; K3p, K4p: the block term, DELTA_MAX / DELTA_L2, and
 # K3p's cache row at KV_ATOL / KV_RTOL) and, summed over the ranks by
-# model_sum, to the square kernel on the whole layer.
+# model_sum, to the square kernel on the whole layer. The encoder
+# variants' partial forms (K9p at whisper-base's and -tiny's rank widths,
+# K10p at -base's: -tiny's 3 heads a rank take K1p) the same way, K9p
+# repeated K9_REPEATS times bit-equal as K9 is; K5 at the column and row
+# shards of whisper-base's decoder (TP_K5_SHAPES, each beside its square
+# shape), K6 and K7 on 4 and 3 heads at cross T=1500.
 TP_MP = 2
 TP_K1_WIDTHS = (("base", 8, 512), ("tiny", 6, 384), ("large-v3", 20, 1280))
-TP_PATHS = (("default", None), ("fast_lossless", "fast_lossless"))
+TP_ENC_WIDTHS = (("base", 8, 512), ("tiny", 6, 384))
+# (label, M, K, N, out, bias, the square shape's (K, N)): a rank's share
+# at B=32 rows of whisper-base's decoder and its cross K/V projection
+TP_K5_SHAPES = (("q/k/v column", 32, 512, 256, "bf16", True, (512, 512)),
+                ("mlp_in column", 32, 512, 1024, "bf16", True, (512, 2048)),
+                ("o row", 32, 256, 512, "f32", False, (512, 512)),
+                ("mlp_out row", 32, 1024, 512, "f32", False, (2048, 512)),
+                ("cross k/v column", 48000, 512, 256, "bf16", True,
+                 (512, 512)))
+# each path of the model axis: (label, profile, fused_layer, int8 cross
+# attention, fused_encoder, the data axes it runs at): the default config
+# and fast_lossless at (1, TP_MP) and (2, TP_MP), the rest at (1, TP_MP);
+# "parity" is parity_config (sampled ASR, beam-2 captions)
+TP_PATHS = (("default", None, False, None, None, (1, 2)),
+            ("fast_lossless", "fast_lossless", True, None, None, (1, 2)),
+            ("parity", None, False, None, None, (1,)),
+            ("v2", "fast_lossless", "v2", None, None, (1,)),
+            ("int8_fused", None, False, "int8_fused", None, (1,)),
+            ("int8", None, False, "int8", None, (1,)),
+            ("enc_int8", None, False, None, "int8", (1,)),
+            ("enc_paired", None, False, None, "paired", (1,)))
+
+
+def tp_config(label, profile, fused, int8, enc, base=None):
+    """The EngineConfig of a TP_PATHS entry, on ``base`` (default:
+    EngineConfig())."""
+    if label == "parity":
+        return parity_config(profile, base)
+    return engine_config(profile, fused, int8, enc, base)
+
+
+def k9p_bound(b: int, t: int, hl: int, hdo: int) -> dict:
+    """bound() of K9p: q of the rank's hl heads, its int8 K/V with their
+    float32 scales, its Wo rows and the float32 output; the two int8
+    attention products and the bf16 o-projection."""
+    hd = hl * 64
+    return bound(b * t * hd * 2 + 2 * b * t * hd + 8 * b * hl * t
+                 + hd * hdo * 2 + b * t * hdo * 4,
+                 int8=4 * b * hl * t * t * 64, bf16=2 * b * t * hd * hdo)
 
 
 def k1p_bound(b: int, t: int, hl: int, hdo: int) -> dict:
@@ -4233,13 +4380,17 @@ def tp_shard_rows(a: torch.Tensor, j: int, axis: int) -> torch.Tensor:
 
 def tp_kernel_phase(card: str, gen: torch.Generator, k1: dict, k2: dict,
                     dec: list, device: str = "cuda", b: int = 32,
-                    t: int = 1500) -> None:
+                    t: int = 1500, int8k: list | None = None
+                    ) -> list[dict]:
     """K1p, K2 on head shards, K3p and K4p against their plain twins at a
     rank's shard, each timed beside its square form; the ranks' K1p, K3p
     and K4p partials through model_sum against the square kernel on the
-    whole layer. Appends each case to its kernel's cases. ``device``,
-    ``b`` and ``t`` let the tests rehearse the checks on the CPU at a
-    small size (their twins then stand in for the kernels)."""
+    whole layer. Appends each case to its kernel's cases. With ``int8k``
+    (int8_kernel_phase's K5, K6, K7), also tp_variant_kernels: K9p and
+    K10p, returned as their own entries of the kernels line, and K5 / K6
+    / K7 at shard shapes, appended to int8k's. ``device``, ``b`` and
+    ``t`` let the tests rehearse the checks on the CPU at a small size
+    (their twins then stand in for the kernels)."""
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
@@ -4412,33 +4563,239 @@ def tp_kernel_phase(card: str, gen: torch.Generator, k1: dict, k2: dict,
     by_name["decoder_mlp_block"]["cases"].append(case)
     phase("tp", kernel="K4", card=card,
           tol={"delta_max": DELTA_MAX, "delta_l2": DELTA_L2}, **case)
+    if int8k is None:
+        return []
+    return tp_variant_kernels(card, gen, int8k, device, b, t)
 
 
-def tp_phase(card: str, clips, k1: dict, k2: dict, dec: list) -> dict:
-    """[tp]: tp_kernel_phase, then mesh_ingest_check with a model axis
-    of TP_MP over the card named TP_MP times (dp, mp) = (1, TP_MP) and
+def tp_variant_kernels(card: str, gen: torch.Generator, int8k: list,
+                       device: str = "cuda", b: int = 32,
+                       t: int = 1500) -> list[dict]:
+    """K9p (TP_ENC_WIDTHS) and K10p (the widths whose rank holds an even
+    head count) against their plain twins, K9_REPEATS launches bit-equal
+    to the first, each timed beside its square form; the ranks' partials
+    through model_sum against square K9 / K10 on the whole layer (K1's
+    tolerance, on K1_CASES' residual inputs). K5 at TP_K5_SHAPES, K6 and
+    K7 on the rank's heads at cross T (whisper-base's 4 and -tiny's 3),
+    each against its plain version and beside its square form; appended
+    to ``int8k``'s cases. Returns the kernels line's K9p and K10p
+    entries."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    from multimodal_audio_search_tpu_torch.parallel.mesh import model_sum
+    cuda = device == "cuda"
+    pkg, jx = "multimodal_audio_search_tpu_torch/csrc", \
+        "multimodal_audio_search_tpu/ops"
+    k9p = {"name": "encoder_attn_o_residual_int8_partial", "route": "cuda",
+           "source": f"{pkg}/encoder_block_int8.cu",
+           "replaces": f"{jx}/encoder_block.py:319", "cases": []}
+    k10p = {"name": "encoder_attn_o_residual_paired_partial",
+            "route": "cuda", "source": f"{pkg}/encoder_block_wgmma.cu",
+            "replaces": f"{jx}/encoder_block.py:375", "cases": []}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(case, fn, plain, square):
+        case.update(ms=time_ms(fn), plain_ms=time_ms(plain, reps=5),
+                    square_ms=time_ms(square))
+        if cuda:
+            case.update(device_ms=device_ms(fn),
+                        square_device_ms=device_ms(square))
+
+    for label, heads, hdo in TP_ENC_WIDTHS:
+        hl = heads // TP_MP
+        q, k, v, _, _, _ = k1_inputs(gen, b, t, hl, residual=False,
+                                     device=device)
+        wo = (torch.randn(hl * 64, hdo, generator=gen) / math.sqrt(hdo)).to(
+            device, q.dtype)
+        kv = EB.quantize_kv(k, v)
+        sq = k1_inputs(gen, b, t, heads, device=device)
+        sq9 = (sq[0], *EB.quantize_kv(sq[1], sq[2]), *sq[3:])
+        runs = [("K9p", k9p,
+                 lambda: EB.attention_o_residual_int8(
+                     q, *kv, None, wo, None, partial=True),
+                 lambda: EB.attention_o_residual_int8_plain(
+                     q, *kv, None, wo, None, partial=True),
+                 lambda: EB.attention_o_residual_int8(*sq9))]
+        if hl % 2 == 0:
+            runs.append((
+                "K10p", k10p,
+                lambda: EB.fused_attention_o_residual(
+                    q, k, v, None, wo, None, pair_heads=True, partial=True),
+                lambda: EB.attention_o_residual_paired_plain(
+                    q, k, v, None, wo, None, partial=True),
+                lambda: EB.fused_attention_o_residual(*sq, pair_heads=True)))
+        for name, entry, fn, plain, square in runs:
+            got, ref = fn(), plain()
+            sync()
+            case = {"shape": f"TP {label} rank of {TP_MP}: B={b} T={t} "
+                             f"H={hl} Wo [{hl * 64}, {hdo}] (partial)",
+                    "inputs": "attention",
+                    **(cluster_case(b, t, hl, True)
+                       if cuda and name == "K10p" else {}),
+                    **check_k1(f"{name} {label}", got, ref, False),
+                    "repeats_equal": check_repeats(f"{name} {label}", fn,
+                                                   got, K9_REPEATS),
+                    "square_shape": f"B={b} T={t} H={heads}"}
+            timed(case, fn, plain, square)
+            case.update(k9p_bound(b, t, hl, hdo) if name == "K9p"
+                        else k1p_bound(b, t, hl, hdo))
+            entry["cases"].append(case)
+            phase("tp", kernel=name, card=card,
+                  tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}, **case)
+            del got, ref
+        del q, k, v, wo, kv, sq, sq9, runs
+        if cuda:
+            torch.cuda.empty_cache()
+        # the ranks' partials summed = the square kernel on the whole layer
+        q, k, v, x, wo, bo = k1_inputs(gen, b, t, heads, device=device)
+        kv = EB.quantize_kv(k, v)
+
+        def rank(a, j, axis=1):
+            return torch.chunk(a, TP_MP, axis)[j]
+        sums = [("K9p", k9p, lambda j: EB.attention_o_residual_int8(
+                    rank(q, j), *(rank(a, j).contiguous() for a in kv), None,
+                    tp_shard_rows(wo, j, 0), None, partial=True),
+                 lambda: EB.attention_o_residual_int8(q, *kv, x, wo, bo))]
+        if hl % 2 == 0:
+            sums.append(("K10p", k10p, lambda j: EB.fused_attention_o_residual(
+                rank(q, j), rank(k, j), rank(v, j), None,
+                tp_shard_rows(wo, j, 0), None, pair_heads=True, partial=True),
+                lambda: EB.fused_attention_o_residual(q, k, v, x, wo, bo,
+                                                      pair_heads=True)))
+        for name, entry, part, whole in sums:
+            got = model_sum([part(j) for j in range(TP_MP)], bo, x)[0]
+            ref = whole()
+            sync()
+            case = {"shape": f"TP {label}: model_sum of {TP_MP} {name} "
+                             f"ranks vs square {name[:-1]}, B={b} T={t} "
+                             f"H={heads}", "inputs": "residual",
+                    **check_k1(f"{name} sum {label}", got, ref, True)}
+            entry["cases"].append(case)
+            phase("tp", kernel=name, card=card, tol=[K1_ATOL, K1_RTOL],
+                  **case)
+            del got, ref
+        del q, k, v, x, wo, bo, kv, sums
+        if cuda:
+            torch.cuda.empty_cache()
+    k5, k6, k7 = int8k
+    for label, m, kk, n, dt, bias, (sk, sn) in TP_K5_SHAPES:
+        m = m if m <= 64 else b * t
+        out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x, wq, scale, bb = k5_inputs(gen, m, kk, n, bias=bias, device=device)
+        p = {"wq": wq, "scale": scale, **({"b": bb} if bias else {})}
+        sx, swq, ss, sbb = k5_inputs(gen, m, sk, sn, bias=bias,
+                                     device=device)
+        sp = {"wq": swq, "scale": ss, **({"b": sbb} if bias else {})}
+        fn = (lambda: Q.quant_dense_apply(p, x, out_dtype=out_dtype))
+        got = fn()
+        ref = k5_plain(x, wq, scale, bb, out_dtype)
+        sync()
+        case = {"shape": f"TP base {label} rank of {TP_MP}: M={m} K={kk} "
+                         f"N={n} out={dt} bias={bias}",
+                "square_shape": f"M={m} K={sk} N={sn}",
+                "plan": dict(zip(("kernel", "bn", "splits", "steps"),
+                                 Q.split_plan(m, kk, n, wave=(
+                                     torch.cuda.get_device_properties(
+                                         x.device).multi_processor_count
+                                     if cuda else Q.WAVE)))),
+                "max_abs_err": check_k5(f"K5 TP {label}", got, ref),
+                **bound(nbytes(x, wq, scale, bb, got), bf16=2 * m * kk * n)}
+        timed(case, fn, lambda: k5_plain(x, wq, scale, bb, out_dtype),
+              lambda: Q.quant_dense_apply(sp, sx, out_dtype=out_dtype))
+        if cuda:
+            lib, why = k5_library(x, wq, scale)
+            case["library_ms"] = time_ms(lib) if lib else None
+            if not lib:
+                case["library"] = why
+        k5["cases"].append(case)
+        phase("tp", kernel="K5", card=card,
+              tol={"atol_of_max": K5_ATOL, "rtol": K5_RTOL_BF16 if dt ==
+                   "bf16" else K5_RTOL_F32}, **case)
+        del x, wq, scale, bb, p, sx, swq, ss, sbb, sp, got, ref
+    for label, heads in (("base", 8), ("tiny", 6)):
+        hl = heads // TP_MP
+        args = k6_inputs(gen, b, t, hl, device=device)
+        sq = k6_inputs(gen, b, t, heads, device=device)
+        fn = (lambda: CX.fused_single_query_attention_int8(*args, heads=hl))
+        got = fn()
+        ref = CX.single_query_attention_int8_plain(*args, heads=hl)
+        sync()
+        case = {"shape": f"TP {label} head shard B={b} T={t} H={hl}",
+                "square_shape": f"B={b} T={t} H={heads}",
+                **({"plan": CX.int8_plan(t, hl, b, CX._fit_int8(got.device))}
+                   if cuda else {}),
+                **check_rel(f"K6 TP {label}", got, ref, INT8_ATT_MAX,
+                            INT8_ATT_L2),
+                **bound(nbytes(args[0], got) + 2 * b * t * hl * (64 + 4),
+                        int8=4 * b * t * hl * 64)}
+        timed(case, fn, lambda: CX.single_query_attention_int8_plain(
+            *args, heads=hl), lambda: CX.fused_single_query_attention_int8(
+            *sq, heads=heads))
+        k6["cases"].append(case)
+        phase("tp", kernel="K6", card=card,
+              tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
+        args = k7_inputs(gen, b, t, hl, device=device)
+        sq = k7_inputs(gen, b, t, heads, device=device)
+        fn = (lambda: CA.int8_cached_attention(*args))
+        got = fn()
+        ref = CA.int8_cached_attention_plain(*args)
+        sync()
+        case = {"shape": f"TP {label} head shard B={b} T={t} H={hl}",
+                "square_shape": f"B={b} T={t} H={heads}",
+                **({"plan": CA.cluster_plan(t, None, b * hl,
+                                            CA._fit(got.device))}
+                   if cuda else {}),
+                **check_rel(f"K7 TP {label}", got, ref, INT8_ATT_MAX,
+                            INT8_ATT_L2),
+                **bound(nbytes(*args, got), int8=4 * b * t * hl * 64)}
+        timed(case, fn, lambda: CA.int8_cached_attention_plain(*args),
+              lambda: CA.int8_cached_attention(*sq))
+        k7["cases"].append(case)
+        phase("tp", kernel="K7", card=card,
+              tol={"max": INT8_ATT_MAX, "l2": INT8_ATT_L2}, **case)
+        del args, sq, got, ref
+    if cuda:
+        torch.cuda.empty_cache()
+    return [k9p, k10p]
+
+
+def tp_phase(card: str, clips, k1: dict, k2: dict, dec: list,
+             int8k: list | None = None) -> tuple[dict, list]:
+    """[tp]: tp_kernel_phase (with ``int8k``, the encoder variants'
+    partial forms and K5 / K6 / K7 at shard shapes too), then
+    mesh_ingest_check with a model axis of TP_MP over the card named
+    TP_MP times (dp, mp) = (1, TP_MP) and, for the paths that name it,
     2 x TP_MP times (2, TP_MP), under each TP_PATHS config, on the 25 s
     clip, against the unsplit engine of that config (built once a
-    config). Returns each split ingest's launch counts."""
+    config). Returns each split ingest's launch counts and the K9p /
+    K10p entries of the kernels line."""
     from multimodal_audio_search_tpu_torch import runtime
     t0 = time.perf_counter()
-    tp_kernel_phase(card, torch.Generator().manual_seed(18), k1, k2, dec)
+    parts = tp_kernel_phase(card, torch.Generator().manual_seed(18), k1, k2,
+                            dec, int8k=int8k)
+    marks = {"kernels": time.perf_counter() - t0}
     cuda = torch.device("cuda", 0)
     out = {}
-    for label, profile in TP_PATHS:
-        cfg = engine_config(profile, bool(profile))
+    for label, profile, fused, int8, enc, dps in TP_PATHS:
+        cfg = tp_config(label, profile, fused, int8, enc)
         whole = None
-        for dp in (1, 2):
+        for dp in dps:
             whole = mesh_ingest_check(card, dict(clips)["short.wav"], cfg,
                                       [cuda] * (dp * TP_MP), mp=TP_MP,
                                       whole=whole)
             out[f"{label} ({dp}, {TP_MP})"] = whole["launches"]
         del whole
         torch.cuda.empty_cache()
+        marks[label] = time.perf_counter() - t0
     phase("tp", card=card, step="summary", launches=out,
-          kernels_ready_on=runtime.ready_devices(),
+          kernels_ready_on=runtime.ready_devices(), seconds_after=marks,
           seconds=time.perf_counter() - t0)
-    return out
+    return out, parts
 
 
 # [train] (ROADMAP A14): training on the card. A training step runs plain
@@ -4926,7 +5283,7 @@ def main() -> int:
     counts["search_scale"] = search_scale_phase(card)
     counts["ann"] = ann_phase(card, clips)
     counts["mesh"] = mesh_phase(card, clips)
-    counts["tp"] = tp_phase(card, clips, k1, k2, dec)
+    counts["tp"], tp_kern = tp_phase(card, clips, k1, k2, dec, int8k)
     train_phase(card)
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
@@ -4950,6 +5307,22 @@ def main() -> int:
                if f in first},
             **({"mechanism": k["mechanism"]} if "mechanism" in k else {}),
             "shape": first["shape"], "path": path_of[key],
+            "cases": k["cases"]})
+    # the encoder variants' partial forms, from the model axis's paths
+    # (their launches count as K9's and K10's, which these paths run only
+    # in the partial form)
+    for key, k, path in (("K9", tp_kern[0], f"enc_int8 (1, {TP_MP})"),
+                         ("K10", tp_kern[1], f"enc_paired (1, {TP_MP})")):
+        first = next(c for c in k["cases"] if "ms" in c)
+        kern.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": counts["tp"][path][key],
+            "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "device_ms": first["device_ms"],
+            "shape": first["shape"], "path": f"tp {path}",
             "cases": k["cases"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kern}), flush=True)

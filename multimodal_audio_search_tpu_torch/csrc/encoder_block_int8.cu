@@ -18,6 +18,16 @@
 // fused_attention_o_residual with qk_int8=True (body _attn_o_kernel_int8
 // :183, pallas_call :319).
 //
+// K9p, K9's partial form on one rank of the mesh's model axis (tensor
+// parallelism): q/k8/v8/ks/vs of the rank's H heads (the per-(b, h, t)
+// scales of a head shard are the whole layer's, bit for bit) and the
+// rank's [H * 64, HDO] row shard of Wo; out32 = (out_h, heads merged, in
+// bf16) @ Wo_rows in float32, without x and bo, which parallel/mesh.py::
+// model_sum adds once to the ranks' sum (as K1p, encoder_block_wgmma.cu).
+// The head shard of the JAX kernel's non-square Wo. The attention is K9's
+// loop unchanged; the o-projection's warpgroups take the HDO / 64 output
+// chunks in turn, each over the rank's H 64-row chunks of Wo.
+//
 // What bounds it on an H100. Tensor-core work: at B=32, T=1500, H=8 the
 // two attention dots are ~147 G integer ops (1,979 TOP/s, 0.074 ms) and
 // the o-projection ~25 GFLOP bf16 (989 TFLOP/s); three passes over K make
@@ -266,7 +276,9 @@ __device__ __forceinline__ void transpose_v(uint8_t* vt, const int8_t* v,
   }
 }
 
-template <int NWG>
+// K9 (PARTIAL false): out = x + tile @ Wo + bo, HDO = HD. K9p (true):
+// out32 = tile @ Wo_rows in float32, Wo_rows [HD, HDO]; x, bo, out unread.
+template <int NWG, bool PARTIAL>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     attn_o_residual_int8_kernel(
         const __grid_constant__ CUtensorMap tk,
@@ -275,8 +287,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
         const __grid_constant__ CUtensorMap tvs,
         const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ q,
         long long sb, long long sh, long long st, const bf16* __restrict__ x,
-        const bf16* __restrict__ bo, bf16* __restrict__ out, int T, int H,
-        int HD, int stages, float scale) {
+        const bf16* __restrict__ bo, bf16* __restrict__ out,
+        float* __restrict__ out32, int T, int H, int HD, int HDO, int stages,
+        float scale) {
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles start on 1024-byte boundaries
   uint8_t* base =
@@ -291,7 +304,8 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int n_tiles = (T + BN - 1) / BN;
-  const int n_chunks = HD / 64;
+  const int n_chunks = HD / 64;   // the merged tile's 64-column chunks
+  const int n_out = HDO / 64;     // the output's
   const int warp_id = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
@@ -332,7 +346,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
           }
       }
       // then the Wo tiles of the warpgroup's output columns
-      for (int nc = wg; nc < n_chunks; nc += NWG)
+      for (int nc = wg; nc < n_out; nc += NWG)
         for (int kc = 0; kc < n_chunks; ++kc, ++it) {
           const int s = it % stages;
           uint64_t* bar = &full[wg * MAX_STAGES + s];
@@ -533,8 +547,9 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 
   // ---- out = x + sA @ Wo + bo, 64 output columns a chunk: warpgroup wg
   // the chunks wg, wg + NWG, ..., each of its 64 x 64 Wo tiles from its ring
+  // (K9p: out32 = sA @ Wo_rows over the HDO / 64 output chunks)
   const int HDP = HD + 8;
-  for (int nc = wg; nc < n_chunks; nc += NWG) {
+  for (int nc = wg; nc < n_out; nc += NWG) {
     float y[8][4];
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd) y[jd][0] = y[jd][1] = y[jd][2] = y[jd][3] = 0.f;
@@ -559,6 +574,19 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
         }
       }
       release_slot(&wempty[si], lane);
+    }
+    if constexpr (PARTIAL) {
+#pragma unroll
+      for (int jd = 0; jd < 8; ++jd) {
+        const int col = nc * 64 + jd * 8 + t4 * 2;
+        if (ra < T)
+          *reinterpret_cast<float2*>(out32 + ((long long)b * T + ra) * HDO +
+                                     col) = make_float2(y[jd][0], y[jd][1]);
+        if (rb < T)
+          *reinterpret_cast<float2*>(out32 + ((long long)b * T + rb) * HDO +
+                                     col) = make_float2(y[jd][2], y[jd][3]);
+      }
+      continue;
     }
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd) {
@@ -604,27 +632,26 @@ __global__ void division_check_kernel(const float* __restrict__ x,
 // when the library is loaded.
 extern "C" int mas_attn_o_residual_int8_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const cudaError_t e = allow_max_smem(attn_o_residual_int8_kernel<3>);
-  return (int)(e != cudaSuccess ? e
-                                : allow_max_smem(attn_o_residual_int8_kernel<4>));
+  cudaError_t e = allow_max_smem(attn_o_residual_int8_kernel<3, false>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<4, false>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<3, true>);
+  if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<4, true>);
+  return (int)e;
 }
 
-// q: [B, H, T, 64] bf16 view (strides sb, sh, st; unit last stride);
-// k8, v8: [B, H, T, 64] int8 contiguous; ks, vs: [B, H, Ts] float32
-// contiguous (Ts >= T a multiple of 4; entries past T are not read);
-// x/out: [B, T, HD] contiguous bf16; wo: [HD, HD] bf16 ([in, out]); bo:
-// [HD] bf16; HD = H * 64 <= 1280; every base 16-byte aligned. scale =
-// 1/sqrt(64). Returns a cudaError_t value: a tensor map
-// cuTensorMapEncodeTiled refuses, a width past 1280, or
-// cudaGetLastError() after the launch.
-extern "C" int mas_attn_o_residual_int8(
-    const void* q, long long sb, long long sh, long long st, const void* k8,
-    const void* ks, const void* v8, const void* vs, const void* x,
-    const void* wo, const void* bo, void* out, int B, int H, int T, int Ts,
-    int HD, float scale, void* stream) {
+namespace {
+
+// K9 (out32 null: out = x + tile @ Wo + bo, HDO = HD) or K9p (x, bo, out
+// null; out32 = tile @ Wo_rows, Wo [HD, HDO]).
+int launch_int8(const void* q, long long sb, long long sh, long long st,
+                const void* k8, const void* ks, const void* v8, const void* vs,
+                const void* x, const void* wo, const void* bo, void* out,
+                void* out32, int B, int H, int T, int Ts, int HD, int HDO,
+                float scale, void* stream) {
   const int nwg = warpgroups(H);
   const int stages = stages_for(HD, nwg);
-  if (stages < 1 || HD != H * D || T < 1 || Ts < T || Ts % 4)
+  if (stages < 1 || HD != H * D || T < 1 || Ts < T || Ts % 4 || HDO < 64 ||
+      HDO % 64 || (out32 == nullptr && HDO != HD))
     return (int)cudaErrorInvalidValue;
   const cuuint64_t rows = (cuuint64_t)B * H;
   CUtensorMap tk, tv, tks, tvs, tw;
@@ -651,22 +678,54 @@ extern "C" int mas_attn_o_residual_int8(
                                 CU_TENSOR_MAP_SWIZZLE_NONE));
   if (e == 0)
     e = maps.get(&tw, map_spec(wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                               {(cuuint64_t)HD, (cuuint64_t)HD},
-                               {(cuuint64_t)HD * 2}, {64u, 64u},
+                               {(cuuint64_t)HDO, (cuuint64_t)HD},
+                               {(cuuint64_t)HDO * 2}, {64u, 64u},
                                CU_TENSOR_MAP_SWIZZLE_128B));
   if (e != 0) return e;
   dim3 grid((T + BQ - 1) / BQ, B);
   const size_t smem = smem_bytes(HD, nwg, stages);
   cudaStream_t s = (cudaStream_t)stream;
-  if (nwg == 3)
-    attn_o_residual_int8_kernel<3><<<grid, 4 * 128, smem, s>>>(
-        tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
-        (const bf16*)bo, (bf16*)out, T, H, HD, stages, scale);
-  else
-    attn_o_residual_int8_kernel<4><<<grid, 5 * 128, smem, s>>>(
-        tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
-        (const bf16*)bo, (bf16*)out, T, H, HD, stages, scale);
+  const bool partial = out32 != nullptr;
+  auto kernel = nwg == 3 ? (partial ? attn_o_residual_int8_kernel<3, true>
+                                    : attn_o_residual_int8_kernel<3, false>)
+                         : (partial ? attn_o_residual_int8_kernel<4, true>
+                                    : attn_o_residual_int8_kernel<4, false>);
+  kernel<<<grid, (nwg + 1) * 128, smem, s>>>(
+      tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
+      (const bf16*)bo, (bf16*)out, (float*)out32, T, H, HD, HDO, stages,
+      scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q: [B, H, T, 64] bf16 view (strides sb, sh, st; unit last stride);
+// k8, v8: [B, H, T, 64] int8 contiguous; ks, vs: [B, H, Ts] float32
+// contiguous (Ts >= T a multiple of 4; entries past T are not read);
+// x/out: [B, T, HD] contiguous bf16; wo: [HD, HD] bf16 ([in, out]); bo:
+// [HD] bf16; HD = H * 64 <= 1280; every base 16-byte aligned. scale =
+// 1/sqrt(64). Returns a cudaError_t value: a tensor map
+// cuTensorMapEncodeTiled refuses, a width past 1280, or
+// cudaGetLastError() after the launch.
+extern "C" int mas_attn_o_residual_int8(
+    const void* q, long long sb, long long sh, long long st, const void* k8,
+    const void* ks, const void* v8, const void* vs, const void* x,
+    const void* wo, const void* bo, void* out, int B, int H, int T, int Ts,
+    int HD, float scale, void* stream) {
+  return launch_int8(q, sb, sh, st, k8, ks, v8, vs, x, wo, bo, out, nullptr,
+                     B, H, T, Ts, HD, HD, scale, stream);
+}
+
+// K9p: K9's q, k8, ks, v8, vs over the rank's H heads (HD = H * 64); wo:
+// [HD, HDO] row-major bf16 (the rank's row shard of the layer's
+// o-projection), HDO % 64 == 0; out: [B, T, HDO] float32, contiguous,
+// 8-byte aligned. Returns a cudaError_t value, as mas_attn_o_residual_int8.
+extern "C" int mas_attn_o_residual_int8_partial(
+    const void* q, long long sb, long long sh, long long st, const void* k8,
+    const void* ks, const void* v8, const void* vs, const void* wo, void* out,
+    int B, int H, int T, int Ts, int HDO, float scale, void* stream) {
+  return launch_int8(q, sb, sh, st, k8, ks, v8, vs, nullptr, wo, nullptr,
+                     nullptr, out, B, H, T, Ts, H * D, HDO, scale, stream);
 }
 
 // The count of x[i] / d[i] (i < n, float32 on the card) where K9's

@@ -16,6 +16,13 @@
 //     parallel/mesh.py::model_sum). The head shard of the JAX kernel's
 //     non-square Wo (tests/test_production_geometry_mesh.py runs it under
 //     shard_map with a psum over "model").
+// K10p K10's partial form, the same on pairs of the rank's heads: a rank
+//     of the model axis with an even head count takes its heads two at a
+//     time as K10 does (pairs (0, 1), (2, 3), ... of the rank's contiguous
+//     block, which are the pairs of the whole layer's K10), and writes the
+//     float32 partial as K1p does. Replaces the head shard of the same
+//     wrapper's pair_heads=True form (pallas_call :375) with a non-square
+//     Wo. A rank with an odd head count takes K1p (ops/encoder_block.py).
 // K11 K1's function with the softmax division placed three ways (the
 //     template's Form), the A/B of the TPU tool: replaces tools/
 //     profile_encoder_kernel_ab.py::fused_v2 (body _kernel_v2 :48,
@@ -87,8 +94,9 @@
 //     out, waited on after the epilogue): no rank overwrites `out` while
 //     a peer may read it; then one thread stores the block's columns by
 //     TMA (rows past T are not written).
-// K1p's cluster decouples the two splits: rank r attends the heads [rH/CS,
-// (r+1)H/CS) as K1's ranks do, but projects the output chunks [rN/CS,
+// K1p's (and K10p's) cluster decouples the two splits: rank r attends the heads [rH/CS,
+// (r+1)H/CS) as K1's ranks do (K10p: the units of pairs, as K10's), but
+// projects the output chunks [rN/CS,
 // (r+1)N/CS) of N = HD_out/64 chunks (K1: N = H, the same split), each
 // over all H 64-row chunks of the merged tile, which lies in a scratch
 // [B, T, H*64] bf16 buffer of the wrapper's; the float32 sums go from
@@ -487,7 +495,7 @@ __device__ __forceinline__ void store_head(bf16* out, const float o[32],
 // tile of these columns (by TMA at sXg, chunk j at j * TILE_BYTES)
 // becomes x + (y + bo) in bf16, in place. The last group arrives on the
 // second cluster barrier once its products have read the last chunk.
-// K1p (PARTIAL) writes the float32 sums to out32's rows (b, q0 ..) at
+// K1p and K10p (PARTIAL) write the float32 sums to out32's rows (b, q0 ..) at
 // columns cg * 64 .. of its HDO, rows >= T left out, and reads neither x
 // nor bo.
 template <int NC, int STAGES, int SLOT, bool PARTIAL>
@@ -557,8 +565,8 @@ __device__ __forceinline__ void o_group(
 // The block of rank blockIdx.x of the cluster over (batch blockIdx.z,
 // rows blockIdx.y * 128 ..); see the file's head.
 // `merged` is the [B, T, H*64] tile the heads are stored to (K1, K10,
-// K11: out itself); K1p (PARTIAL) writes its float32 result to out32
-// [B, T, HDO], K1's HDO is H * 64.
+// K11: out itself); K1p and K10p (PARTIAL) write their float32 result to
+// out32 [B, T, HDO], K1's HDO is H * 64.
 template <bool PAIR, int FORM, bool PARTIAL = false>
 __device__ __forceinline__ void block_body(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
@@ -566,8 +574,8 @@ __device__ __forceinline__ void block_body(
     const bf16* __restrict__ bo, bf16* __restrict__ merged,
     float* __restrict__ out32, int T, int H, int HDO, float scale_log2) {
   static_assert(!PAIR || FORM == POST, "K10 takes the division after PV");
-  static_assert(!PARTIAL || (!PAIR && FORM == POST),
-                "K1p is K1's partial form");
+  static_assert(!PARTIAL || FORM == POST,
+                "K1p and K10p are K1's and K10's partial forms");
   using C = Cfg<PAIR>;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on it
@@ -586,10 +594,11 @@ __device__ __forceinline__ void block_body(
   const int u0 = rank * units / cs, u1 = (rank + 1) * units / cs;
   const int n_units = u1 - u0;
   // the rank's output chunks: its heads' (K10), or its share of the
-  // HDO / 64 chunks (K1, K11: the same as its heads'; K1p)
+  // HDO / 64 chunks (K1, K11: the same as its heads'; K1p, K10p)
   const int nch = HDO / D;
-  const int c0 = PAIR ? u0 * C::HEADS : rank * nch / cs;
-  const int nc = PAIR ? n_units * C::HEADS : (rank + 1) * nch / cs - c0;
+  constexpr bool BY_UNIT = PAIR && !PARTIAL;
+  const int c0 = BY_UNIT ? u0 * C::HEADS : rank * nch / cs;
+  const int nc = BY_UNIT ? n_units * C::HEADS : (rank + 1) * nch / cs - c0;
   const int n_tiles = (T + BN - 1) / BN;
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
 
@@ -773,6 +782,21 @@ __global__ void __launch_bounds__(Cfg<false>::NT, 1)
                                 merged, out, T, H, HDO, scale_log2);
 }
 
+// K10p: K1p's arguments, on K10's blocks.
+__global__ void __launch_bounds__(Cfg<true>::NT, 1)
+    encoder_block_paired_partial_kernel(const __grid_constant__ CUtensorMap tq,
+                                        const __grid_constant__ CUtensorMap tk,
+                                        const __grid_constant__ CUtensorMap tv,
+                                        const __grid_constant__ CUtensorMap ta,
+                                        const __grid_constant__ CUtensorMap tw,
+                                        const __grid_constant__ CUtensorMap tx,
+                                        bf16* __restrict__ merged,
+                                        float* __restrict__ out, int T, int H,
+                                        int HDO, float scale_log2) {
+  block_body<true, POST, true>(&tq, &tk, &tv, &ta, &tw, &tx, nullptr, merged,
+                               out, T, H, HDO, scale_log2);
+}
+
 __global__ void __launch_bounds__(Cfg<true>::NT, 1)
     encoder_block_paired_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
@@ -881,39 +905,47 @@ int launch(const void* q, const void* k, const void* v, long long sb,
                         (const bf16*)bo, (bf16*)out, T, H, scale_log2);
 }
 
+// K1p (PAIR false) or K10p (true): K1's or K10's plan rules, and at least
+// one of the HDO / 64 output chunks a rank.
+template <bool PAIR>
 int launch_partial(const void* q, const void* k, const void* v, long long sb,
                    long long sh, long long st, void* merged, const void* wo,
                    void* out, int B, int H, int T, int HDO, float scale_log2,
                    int cs, void* stream) {
-  using C = Cfg<false>;
-  if (B < 1 || T < 1 || H < 1 || HDO < D || HDO % D != 0 || cs < 1 ||
-      cs > H || cs > HDO / D || (H + cs - 1) / cs > MAX_COLS)
+  using C = Cfg<PAIR>;
+  const int units = PAIR ? H / 2 : H;
+  if (B < 1 || T < 1 || H < 1 || (PAIR && H % 2 != 0) || HDO < D ||
+      HDO % D != 0 || cs < 1 || cs > units || cs > HDO / D ||
+      (units + cs - 1) / cs * C::HEADS > MAX_COLS)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, ta, tw, tx;
   const int e = block_maps(&tq, &tk, &tv, &ta, &tw, &tx, q, k, v, sb, sh, st,
-                           nullptr, wo, merged, B, H, T, HDO, 1);
+                           nullptr, wo, merged, B, H, T, HDO, C::HEADS);
   if (e != 0) return e;
   const dim3 grid(cs, (T + BM - 1) / BM, B);
-  return launch_cluster(encoder_block_partial_kernel, grid, cs, C::NT,
-                        C::SMEM, (cudaStream_t)stream, tq, tk, tv, ta, tw, tx,
-                        (bf16*)merged, (float*)out, T, H, HDO, scale_log2);
+  return launch_cluster(PAIR ? encoder_block_paired_partial_kernel
+                             : encoder_block_partial_kernel,
+                        grid, cs, C::NT, C::SMEM, (cudaStream_t)stream, tq, tk,
+                        tv, ta, tw, tx, (bf16*)merged, (float*)out, T, H, HDO,
+                        scale_log2);
 }
 
 }  // namespace
 
-// Raises K1's, K1p's, K10's and K11's dynamic shared-memory limits,
+// Raises K1's, K1p's, K10's, K10p's and K11's dynamic shared-memory limits,
 // allows their clusters of up to 16 blocks and looks up
 // cuTensorMapEncodeTiled. Called once, when the library is loaded.
 extern "C" int mas_encoder_block_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const void* fns[5] = {(const void*)encoder_block_kernel,
+  const void* fns[6] = {(const void*)encoder_block_kernel,
                         (const void*)encoder_block_paired_kernel,
                         (const void*)encoder_block_ab_kernel<DIV>,
                         (const void*)encoder_block_ab_kernel<NORM>,
-                        (const void*)encoder_block_partial_kernel};
-  const int smem[5] = {Cfg<false>::SMEM, Cfg<true>::SMEM, Cfg<false>::SMEM,
-                       Cfg<false>::SMEM, Cfg<false>::SMEM};
-  for (int i = 0; i < 5; ++i) {
+                        (const void*)encoder_block_partial_kernel,
+                        (const void*)encoder_block_paired_partial_kernel};
+  const int smem[6] = {Cfg<false>::SMEM, Cfg<true>::SMEM, Cfg<false>::SMEM,
+                       Cfg<false>::SMEM, Cfg<false>::SMEM, Cfg<true>::SMEM};
+  for (int i = 0; i < 6; ++i) {
     cudaError_t e = cudaFuncSetAttribute(
         fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
     if (e == cudaSuccess)
@@ -925,7 +957,7 @@ extern "C" int mas_encoder_block_init(void) {
 }
 
 // The clusters of cs K1 (paired = 0; K1p's and K11's blocks are K1's) or
-// K10 (1) blocks the card holds at once, into *out. Returns a cudaError_t
+// K10 (1; K10p's blocks are K10's) blocks the card holds at once, into *out. Returns a cudaError_t
 // value.
 extern "C" int mas_encoder_block_fit(int paired, int cs, int* out) {
   cudaLaunchConfig_t cfg = {};
@@ -1011,6 +1043,16 @@ extern "C" int mas_attn_o_residual_partial(
     const void* q, const void* k, const void* v, long long sb, long long sh,
     long long st, void* merged, const void* wo, void* out, int B, int H,
     int T, int HDO, float scale_log2, int cs, void* stream) {
-  return launch_partial(q, k, v, sb, sh, st, merged, wo, out, B, H, T, HDO,
-                        scale_log2, cs, stream);
+  return launch_partial<false>(q, k, v, sb, sh, st, merged, wo, out, B, H, T,
+                               HDO, scale_log2, cs, stream);
+}
+
+// K10p, K10's partial form: K1p's arguments; H even, K10's plans (cs blocks
+// a cluster over the H / 2 pairs, one or two pairs a rank), HDO / 64 >= cs.
+extern "C" int mas_attn_o_residual_paired_partial(
+    const void* q, const void* k, const void* v, long long sb, long long sh,
+    long long st, void* merged, const void* wo, void* out, int B, int H,
+    int T, int HDO, float scale_log2, int cs, void* stream) {
+  return launch_partial<true>(q, k, v, sb, sh, st, merged, wo, out, B, H, T,
+                              HDO, scale_log2, cs, stream);
 }

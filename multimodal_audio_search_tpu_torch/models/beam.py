@@ -25,6 +25,11 @@ The self-attention cache is reordered by parent beam IN PLACE
 keep their tensor maps by address. ``decode.fused_layer`` passes through
 to ``decode_step`` as in greedy; the JAX function calls the unfused step
 (ROADMAP, deliberate differences).
+
+``beam_generate_tp`` is the same search over one data row's model axis
+(models/whisper.py::decode_step_tp): B*k rows on every rank, the
+scores, tokens and hypotheses on the first rank's device, and each
+rank's cache reordered in place by the parents, copied to its device.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ import torch
 from ..config import DecodeConfig
 from .generate import (_select_cross_kv, apply_repetition_penalty,
                        ban_repeated_ngrams, check_supported)
-from .whisper import WhisperConfig, decode_step, init_cache
+from .whisper import (WhisperConfig, decode_step, decode_step_tp, init_cache,
+                      init_cache_tp)
 
 NEG_INF = -1e9
 
@@ -63,15 +69,54 @@ def beam_generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     ``prefix`` [B, P] (module docstring)."""
     check_supported(decode)
     b, k = enc_out.shape[0], num_beams
-    prefix_len = prefix.shape[1]
-    total = prefix_len + max_new_tokens
-    dev = enc_out.device
-    lp = decode.length_penalty
-    eos, pad = cfg.eos_token_id, cfg.pad_token_id
-
+    total = prefix.shape[1] + max_new_tokens
     ckv = _select_cross_kv(params, enc_out.repeat_interleave(k, dim=0), cfg,
                            decode)
-    cache = init_cache(cfg, b * k, total, enc_out.dtype, dev)
+    cache = init_cache(cfg, b * k, total, enc_out.dtype, enc_out.device)
+
+    def step(token, pos):
+        return decode_step(params, token, pos, cache, ckv, cfg,
+                           fused_layer=decode.fused_layer)
+    return _beam_loop(step, [cache], b, enc_out.device, prefix, cfg=cfg,
+                      decode=decode, max_new_tokens=max_new_tokens,
+                      num_beams=k)
+
+
+@torch.inference_mode()
+def beam_generate_tp(trees, encs: list, prefix: torch.Tensor, *,
+                     cfg: WhisperConfig, decode: DecodeConfig,
+                     max_new_tokens: int, num_beams: int = 2) -> BeamOut:
+    """``beam_generate`` over one data row's model axis: ``trees`` the
+    ranks' head shards, ``encs`` the encoder output on each rank's device
+    (models/whisper.py::encode_tp); each step is decode_step_tp over the
+    B*k rows, and every rank's cache follows the parents (module
+    docstring)."""
+    check_supported(decode)
+    b, k = encs[0].shape[0], num_beams
+    total = prefix.shape[1] + max_new_tokens
+    ckvs = _select_cross_kv(trees, [e.repeat_interleave(k, dim=0)
+                                    for e in encs], cfg, decode, tp=True)
+    caches = init_cache_tp(trees, cfg, b * k, total, encs[0].dtype)
+
+    def step(token, pos):
+        return decode_step_tp(trees, token, pos, caches, ckvs, cfg,
+                              fused_layer=decode.fused_layer)
+    return _beam_loop(step, caches, b, encs[0].device, prefix, cfg=cfg,
+                      decode=decode, max_new_tokens=max_new_tokens,
+                      num_beams=k)
+
+
+def _beam_loop(step, caches: list, b: int, dev, prefix: torch.Tensor, *,
+               cfg: WhisperConfig, decode: DecodeConfig, max_new_tokens: int,
+               num_beams: int) -> BeamOut:
+    """beam_generate's search on ``dev`` over ``step(token [B*k], pos)``
+    -> logits [B*k, vocab]; ``caches`` the self-attention caches (one, or
+    one a rank) that step writes, reordered by parent after each step."""
+    k = num_beams
+    prefix_len = prefix.shape[1]
+    total = prefix_len + max_new_tokens
+    lp = decode.length_penalty
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
     tokens = torch.full((b * k, total), pad, dtype=torch.long, device=dev)
     tokens[:, :prefix_len] = prefix.to(device=dev, dtype=torch.long) \
         .repeat_interleave(k, dim=0)
@@ -89,8 +134,7 @@ def beam_generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
     ar = torch.arange(total, device=dev)
     pos = 0
     while pos < total - 1:
-        logits = decode_step(params, tokens[:, pos], pos, cache, ckv, cfg,
-                             fused_layer=decode.fused_layer)
+        logits = step(tokens[:, pos], pos)
         if pos + 1 < prefix_len:    # forced prompt: the tokens are there
             pos += 1
             continue
@@ -143,11 +187,13 @@ def beam_generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
                                          tok.gather(1, pick)).reshape(-1)
         beam_scores = torch.where(keep, beam_scores.reshape(b, k),
                                   top_s.gather(1, pick)).reshape(-1)
-        # reorder the self-attention cache by parent beam, in place; rows
-        # past pos are not written yet
-        for layer in cache:
-            for c in (layer["k"], layer["v"]):
-                c[:, :pos + 1].copy_(c[:, :pos + 1].index_select(0, parent))
+        # reorder the self-attention cache(s) by parent beam, in place;
+        # rows past pos are not written yet
+        for cache in caches:
+            idx = parent.to(cache[0]["k"].device)
+            for layer in cache:
+                for c in (layer["k"], layer["v"]):
+                    c[:, :pos + 1].copy_(c[:, :pos + 1].index_select(0, idx))
         pos += 1
         if bool((n_hyps >= k).all()):     # the one host sync per step
             break

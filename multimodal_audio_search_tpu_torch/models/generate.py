@@ -19,11 +19,12 @@ sub-block kernels K3/K4, ops/decoder_block.py); ``decode.cross_attn`` and
 ``decode.int8_cross_kv`` pick the cross K/V format (bf16 merged for K2,
 int8 merged for K6, int8 [B, H, T, D] for K7, or the einsum format).
 
-``generate_tp`` is the greedy loop over one data row's model axis
-(models/whisper.py::decode_step_tp, each rank's heads on its device);
-``check_supported(..., model_parallel=mp)`` refuses the decode options
-the axis does not run yet (parallel/mesh.py::refuse_model_axis, ROADMAP
-A13c).
+``generate_tp`` is the same loop over one data row's model axis
+(models/whisper.py::decode_step_tp, each rank's heads on its device),
+greedy or sampling: the logits, the noise and every rule of the loop stay
+on the first rank's device, so a sampled row draws the noise it draws
+without the axis. Beam search over the axis is models/beam.py::
+beam_generate_tp.
 
 Not ported: ``scan_layers``.
 """
@@ -35,8 +36,9 @@ import torch
 
 from ..config import DecodeConfig
 from .whisper import (WhisperConfig, cross_kv, cross_kv_merged,
-                      cross_kv_merged_int8, cross_kv_merged_tp,
-                      cross_kv_quantized, cross_kv_tp, decode_step,
+                      cross_kv_merged_int8, cross_kv_merged_int8_tp,
+                      cross_kv_merged_tp, cross_kv_quantized,
+                      cross_kv_quantized_tp, cross_kv_tp, decode_step,
                       decode_step_tp, init_cache, init_cache_tp)
 
 NEG_INF = -1e9
@@ -92,36 +94,38 @@ def ban_repeated_ngrams(logits, tokens, cur_len: torch.Tensor, n: int):
 
 
 # ----------------------------------------------------------------- decoding
-def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig):
+def _select_cross_kv(params, enc_out, cfg, decode: DecodeConfig,
+                     tp: bool = False):
     """Decode cross K/V format (DecodeConfig.cross_attn), in the JAX
     function's order: "int8_fused" -> merged int8 (K6); "int8" or
     ``int8_cross_kv`` -> int8 [B,H,T,D] (K7); "auto"/"fused" -> the
     merged-head format that K2 reads; "einsum" -> the [B,H,T,D] format
-    of the plain path."""
+    of the plain path. ``tp``: ``params`` a data row's rank trees and
+    ``enc_out`` the encoder output on each rank's device; each rank's
+    K/V over its heads (the ``*_tp`` forms)."""
     mode = decode.cross_attn
     if mode == "int8_fused":
-        return cross_kv_merged_int8(params, enc_out, cfg)
-    if decode.int8_cross_kv or mode == "int8":
-        return cross_kv_quantized(params, enc_out, cfg)
-    if mode in ("auto", "fused"):
-        return cross_kv_merged(params, enc_out, cfg)
-    if mode == "einsum":
-        return cross_kv(params, enc_out, cfg)
-    raise ValueError(f"unknown cross_attn {mode!r}")
+        fns = (cross_kv_merged_int8, cross_kv_merged_int8_tp)
+    elif decode.int8_cross_kv or mode == "int8":
+        fns = (cross_kv_quantized, cross_kv_quantized_tp)
+    elif mode in ("auto", "fused"):
+        fns = (cross_kv_merged, cross_kv_merged_tp)
+    elif mode == "einsum":
+        fns = (cross_kv, cross_kv_tp)
+    else:
+        raise ValueError(f"unknown cross_attn {mode!r}")
+    return fns[tp](params, enc_out, cfg)
 
 
 METHODS = ("greedy", "sample", "beam")
 
 
-def check_supported(decode: DecodeConfig, quantized: bool = False,
-                    model_parallel: int = 1) -> None:
+def check_supported(decode: DecodeConfig, quantized: bool = False) -> None:
     """Raise on an unknown decode ``method`` (ValueError), on decode
     options this port does not run yet, on an unknown ``fused_encoder``,
-    on ``fused_layer`` over a ``quantized`` (int8) decoder, which the
+    and on ``fused_layer`` over a ``quantized`` (int8) decoder, which the
     JAX package cannot run either (models/whisper.py, module
-    docstring), and, at ``model_parallel > 1``, on what the mesh's model
-    axis does not run yet (parallel/mesh.py::refuse_model_axis)."""
-    from ..parallel.mesh import refuse_model_axis
+    docstring). The mesh's model axis runs every option these allow."""
     if decode.method not in METHODS:
         raise ValueError(
             f"method={decode.method!r}: one of {', '.join(METHODS)}")
@@ -138,7 +142,6 @@ def check_supported(decode: DecodeConfig, quantized: bool = False,
             f"fused_layer={decode.fused_layer!r} with quantize_decoder: "
             f"the fused sub-block kernels take bf16 weights, and the JAX "
             f"package has no int8 form of them; set fused_layer=False")
-    refuse_model_axis(model_parallel, decode, quantized)
 
 
 class DecodeOut(NamedTuple):
@@ -204,18 +207,24 @@ def generate(params, enc_out: torch.Tensor, prefix: torch.Tensor, *,
 @torch.inference_mode()
 def generate_tp(trees, encs: list, prefix: torch.Tensor, *,
                 cfg: WhisperConfig, decode: DecodeConfig,
-                max_new_tokens: int, with_scores: bool = False) -> DecodeOut:
-    """Greedy ``generate`` over one data row's model axis: ``trees`` the
-    ranks' head shards (parallel/mesh.py::shard_heads), ``encs`` the
-    encoder output on each rank's device (models/whisper.py::encode_tp);
-    each step is decode_step_tp, whose logits, tokens and every rule of
-    the loop stay on the first rank's device. Sampling, beam and the int8
-    cross K/V formats raise (ROADMAP A13c)."""
-    check_supported(decode, model_parallel=len(trees))
+                max_new_tokens: int, rng: torch.Generator | None = None,
+                with_scores: bool = False,
+                noise_rows: tuple[int, int] | None = None) -> DecodeOut:
+    """``generate`` over one data row's model axis: ``trees`` the ranks'
+    head shards (parallel/mesh.py::shard_heads), ``encs`` the encoder
+    output on each rank's device (models/whisper.py::encode_tp); each
+    step is decode_step_tp, whose logits, tokens and every rule of the
+    loop stay on the first rank's device. Greedy or sampling: ``rng`` (on
+    the first rank's device) draws one noise row set a step, there, as
+    ``generate`` draws it, and ``noise_rows`` as generate's. Every cross
+    K/V format of ``decode`` runs on the ranks' heads."""
+    check_supported(decode)
+    if decode.method == "beam":
+        raise ValueError("method='beam' decodes with models/beam.py::"
+                         "beam_generate_tp")
     total = prefix.shape[1] + max_new_tokens
     enc0 = encs[0]
-    ckvs = cross_kv_tp(trees, encs, cfg) if decode.cross_attn == "einsum" \
-        else cross_kv_merged_tp(trees, encs, cfg)
+    ckvs = _select_cross_kv(trees, encs, cfg, decode, tp=True)
     caches = init_cache_tp(trees, cfg, enc0.shape[0], total, enc0.dtype)
 
     def step(token, pos):
@@ -223,7 +232,8 @@ def generate_tp(trees, encs: list, prefix: torch.Tensor, *,
                               fused_layer=decode.fused_layer)
     return _decode_loop(step, enc0.shape[0], enc0.device, prefix, cfg=cfg,
                         decode=decode, max_new_tokens=max_new_tokens,
-                        with_scores=with_scores)
+                        rng=rng, with_scores=with_scores,
+                        noise_rows=noise_rows)
 
 
 def _decode_loop(step, b: int, dev, prefix: torch.Tensor, *,

@@ -48,12 +48,16 @@ Tensor parallelism (the mesh's model axis, parallel/mesh.py): the
 (parallel/mesh.py::shard_heads, each tree on its rank's device) and run
 each rank's H/mp heads and F/mp of the MLP on its device from this one
 process. Every row-parallel product (self-attention o, cross-attention
-o, mlp_out) ends in ``model_sum``: the ranks' float32 partials from K1's,
-K3's or K4's partial form on the card (K1p, K3p, K4p) or from the plain
-partials (layers.dense_partial), summed in rank order, + bias + residual,
-rounded once. K2 runs each rank's heads unchanged. The logits are
-computed on the first rank only; the chosen tokens go to every rank for
-the next embedding lookup. The single-device functions are unchanged.
+o, mlp_out) ends in ``model_sum``: the ranks' float32 partials from the
+encoder kernels' or K3's or K4's partial form on the card (K1p, K9p,
+K10p, K3p, K4p), from K5 on an int8 decoder's row shards, or from the
+plain partials (layers.dense_partial), summed in rank order, + bias +
+residual, rounded once. K2, K6 and K7 run each rank's heads unchanged,
+and K5 each column shard (bias added, in the model dtype). The logits
+are computed on the first rank only (an int8 decoder's logits table
+lies there alone); the chosen tokens go to every rank for the next
+embedding lookup. ``fused_layer="v2"`` runs the True form over the axis
+(decode_step_tp). The single-device functions are unchanged.
 
 Not ported (ROADMAP A13): ``scan_layers``.
 """
@@ -494,19 +498,18 @@ def encode_tp(trees, mel: torch.Tensor, cfg: WhisperConfig,
     head shards (parallel/mesh.py::shard_heads), ``mel`` on the first
     rank's device. The conv stem runs on the first rank; each layer's
     attention runs each rank's heads on its device -- K1p (``fused_blocks``
-    True), K8 and a plain partial o-projection (``fused_attention``), or
-    the plain partial -- and the MLP each rank's F/mp columns, each ending
-    in model_sum. Returns the encoder output on every rank's device
-    (rank order). The int8 and paired encoder kernels raise (ROADMAP
-    A13c)."""
+    True), K9p ("int8"), K10p ("paired": the rank's heads in pairs, or
+    K1p where a rank holds an odd count, as ``encode`` takes K1 for an odd
+    head count), K8 and a plain partial o-projection
+    (``fused_attention``), or the plain partial -- and the MLP each rank's
+    F/mp columns, each ending in model_sum. Returns the encoder output on
+    every rank's device (rank order)."""
     from ..ops.attention import fused_encoder_attention
     from ..ops.encoder_block import fused_attention_o_residual
     from ..parallel.mesh import model_sum
-    if fused_blocks in ("int8", "paired"):
-        raise NotImplementedError(
-            f"fused_blocks={fused_blocks!r} over the mesh's model axis is "
-            f"not ported (ROADMAP A13c)")
     devs, hl = _tp_devices(trees), _tp_heads(trees, cfg)
+    qk_int8 = fused_blocks == "int8"
+    pair = fused_blocks == "paired" and hl % 2 == 0
     enc0 = trees[0]["encoder"]
     x = mel.transpose(1, 2)
     x = L.gelu(_conv1d(enc0["conv1"], x, 1))
@@ -527,7 +530,8 @@ def encode_tp(trees, mel: torch.Tensor, cfg: WhisperConfig,
                            for n in ("q", "k", "v"))
             if fused_blocks:
                 parts.append(fused_attention_o_residual(
-                    q, k, v, None, a["o"]["w"], None, partial=True))
+                    q, k, v, None, a["o"]["w"], None, pair_heads=pair,
+                    qk_int8=qk_int8, partial=True))
             elif fused_attention:
                 parts.append(L.dense_partial(a["o"]["w"], L.merge_heads(
                     fused_encoder_attention(q, k, v))))
@@ -545,16 +549,36 @@ def encode_tp(trees, mel: torch.Tensor, cfg: WhisperConfig,
     return [out.to(d) for d in devs]
 
 
+def _tp_local(trees, encs: list, cfg: WhisperConfig, fn) -> list:
+    """``fn(tree, enc, cfg)`` on each rank, cfg's heads the rank's
+    H/mp."""
+    local = dataclasses.replace(cfg, heads=_tp_heads(trees, cfg))
+    return [fn(t, e, local) for t, e in zip(trees, encs)]
+
+
 def cross_kv_merged_tp(trees, encs: list, cfg: WhisperConfig) -> list:
     """Each rank's cross_kv_merged over its heads: [B, T, H/mp * 64]
     cross K/V a layer, on its device (column-parallel k/v projections)."""
-    return [cross_kv_merged(t, e, cfg) for t, e in zip(trees, encs)]
+    return _tp_local(trees, encs, cfg, cross_kv_merged)
 
 
 def cross_kv_tp(trees, encs: list, cfg: WhisperConfig) -> list:
     """Each rank's cross_kv (the [B, H/mp, T, 64] einsum format)."""
-    local = dataclasses.replace(cfg, heads=_tp_heads(trees, cfg))
-    return [cross_kv(t, e, local) for t, e in zip(trees, encs)]
+    return _tp_local(trees, encs, cfg, cross_kv)
+
+
+def cross_kv_quantized_tp(trees, encs: list, cfg: WhisperConfig) -> list:
+    """Each rank's cross_kv_quantized (K7's int8 [B, H/mp, T, 64] K/V and
+    [B, H/mp, T] scales): quantized per (b, h, t) row, so a rank's codes
+    and scales are the whole layer's for its heads."""
+    return _tp_local(trees, encs, cfg, cross_kv_quantized)
+
+
+def cross_kv_merged_int8_tp(trees, encs: list, cfg: WhisperConfig) -> list:
+    """Each rank's cross_kv_merged_int8 (K6's int8 [B, T, H/mp * 64] K/V
+    and [B, T, H/mp] scales), quantized per (b, t, head) as the whole
+    layer's."""
+    return _tp_local(trees, encs, cfg, cross_kv_merged_int8)
 
 
 def init_cache_tp(trees, cfg: WhisperConfig, batch: int, max_len: int,
@@ -567,25 +591,47 @@ def init_cache_tp(trees, cfg: WhisperConfig, batch: int, max_len: int,
             for d in _tp_devices(trees)]
 
 
+def _row_partial(p, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel layer's float32 share on one rank, without its
+    bias: K5 on an int8 leaf's row shard of codes (the whole per-column
+    scale), layers.dense_partial on a float one."""
+    if "wq" in p:
+        from ..ops.quant import quant_matmul
+        y = quant_matmul(x.reshape(-1, x.shape[-1]), p["wq"], p["scale"])
+        return y.reshape(*x.shape[:-1], -1)
+    return L.dense_partial(p["w"], x)
+
+
 def decode_step_tp(trees, token: torch.Tensor, pos: int, caches: list,
                    ckvs: list, cfg: WhisperConfig,
                    fused_layer: bool | str = False) -> torch.Tensor:
     """``decode_step`` over one data row's model axis: ``caches`` and
-    ``ckvs`` a rank's each (init_cache_tp, cross_kv_merged_tp or
-    cross_kv_tp), written in place at row ``pos``; ``token`` [B] on the
-    first rank's device, copied to every rank for its embedding lookup.
-    Each sub-block runs each rank's heads (or F/mp MLP columns) on its
-    device and ends in model_sum: ``fused_layer`` True (B % 8 == 0) takes
-    K3p for the self sub-block and K4p for the MLP, with K2 for the cross
-    attention; otherwise K2 for both attentions and plain partials.
-    Returns the logits [B, vocab] float32 on the first rank's device.
-    ``fused_layer="v2"`` raises (ROADMAP A13c)."""
+    ``ckvs`` a rank's each (init_cache_tp, and a ``cross_kv_*_tp``: the
+    cross K/V format picks K2, K6 or K7 on the rank's heads, as
+    _cross_attend does), written in place at row ``pos``; ``token`` [B]
+    on the first rank's device, copied to every rank for its embedding
+    lookup. Each sub-block runs each rank's heads (or F/mp MLP columns)
+    on its device and ends in model_sum: ``fused_layer`` True (B % 8 ==
+    0) takes K3p for the self sub-block and K4p for the MLP, with the
+    cross attention between them; otherwise K2 for the self attention and
+    the plain partials. An int8 decoder runs every dense layer through K5:
+    q/k/v and mlp_in on their column shards (bias added), o and mlp_out
+    on their row shards (float32, no bias, ending in model_sum), and the
+    logits from its table on the first rank; ``fused_layer`` with it
+    raises, as in decode_step. ``fused_layer="v2"`` runs the True form
+    here: K3-q's tail needs the layer norm of the summed x_out, and
+    K4-o's head adds the summed cross o-projection before the MLP's layer
+    norm, and neither sum exists inside one rank's kernel (the JAX
+    decode_step, whose gate turns "v2" into True, computes the same).
+    Returns the logits [B, vocab] float32 on the first rank's device."""
     from ..ops import decoder_block as DB
     from ..ops.cross_attention import fused_single_query_attention
     from ..parallel.mesh import model_sum
-    if fused_layer == "v2":
-        raise NotImplementedError("fused_layer='v2' over the mesh's model "
-                                  "axis is not ported (ROADMAP A13c)")
+    if fused_layer and "embed_tokens_q" in trees[0]["decoder"]:
+        raise NotImplementedError(
+            "fused_layer with an int8-quantized decoder: the fused "
+            "sub-block kernels take bf16 weights (decode_step); use "
+            "fused_layer=False with quantize_decoder")
     devs, hl = _tp_devices(trees), _tp_heads(trees, cfg)
     dtype = caches[0][0]["k"].dtype
     xs = []
@@ -610,16 +656,14 @@ def decode_step_tp(trees, token: torch.Tensor, pos: int, caches: list,
             attn = fused_single_query_attention(
                 L.dense(a["q"], h)[:, 0, :], lc["k"], lc["v"], heads=hl,
                 pos=pos)
-            parts.append(L.dense_partial(a["o"]["w"],
-                                         attn[:, None, :].to(dtype)))
+            parts.append(_row_partial(a["o"], attn[:, None, :].to(dtype)))
         xs = model_sum(parts, blk0["self_attn"]["o"]["b"], xs)
         parts = []
         for t, xj, ckv in zip(trees, xs, ckvs):
             blk = t["decoder"]["blocks"][i]
             h = L.layer_norm(blk["cross_ln"], xj, cfg.ln_eps)
-            parts.append(L.dense_partial(
-                blk["cross_attn"]["o"]["w"],
-                _cross_attention(blk, h, ckv[i], hl)))
+            parts.append(_row_partial(blk["cross_attn"]["o"],
+                                      _cross_attention(blk, h, ckv[i], hl)))
         xs = model_sum(parts, blk0["cross_attn"]["o"]["b"], xs)
         parts = []
         for t, xj in zip(trees, xs):
@@ -630,8 +674,8 @@ def decode_step_tp(trees, token: torch.Tensor, pos: int, caches: list,
                     partial=True)[:, None])
                 continue
             h = L.layer_norm(blk["mlp_ln"], xj, cfg.ln_eps)
-            parts.append(L.dense_partial(
-                blk["mlp_out"]["w"], L.gelu(L.dense(blk["mlp_in"], h))))
+            parts.append(_row_partial(
+                blk["mlp_out"], L.gelu(L.dense(blk["mlp_in"], h))))
         xs = model_sum(parts, blk0["mlp_out"]["b"], xs)
     dec0 = trees[0]["decoder"]
     x = L.layer_norm(dec0["ln"], xs[0], cfg.ln_eps)

@@ -6,18 +6,25 @@ fused_attention_o_residual``: its default bf16 body (K1), its
 ``qk_int8=True`` body (K9, ``fused_encoder="int8"``) and its
 ``pair_heads=True`` body (K10, ``fused_encoder="paired"``); and of the A/B
 copy ``tools/profile_encoder_kernel_ab.py::fused_v2`` (K11), which places
-the softmax division three ways. ``partial=True`` is K1's form on one
-rank of the mesh's model axis (K1p): the rank's H/mp heads and the
-[H/mp * 64, HD_out] row shard of Wo give the float32 partial
+the softmax division three ways. ``partial=True`` is each body's form on
+one rank of the mesh's model axis (K1p, K9p, K10p): the rank's H/mp heads
+and the [H/mp * 64, HD_out] row shard of Wo give the float32 partial
 ``attn_local @ Wo_rows``, without x and bo, which
 parallel/mesh.py::model_sum adds once to the ranks' sum (the head shard
-of the JAX kernel's non-square Wo). On a CUDA tensor each wrapper launches
-its hand-written kernel (K1, K10 and K11 ``csrc/encoder_block_wgmma.cu``:
-a thread-block cluster over the heads of a 128-row tile, sized by
-``cluster_plan`` for the card it runs on; K11's "post" form is K1 itself;
-K9 ``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
+of the JAX kernel's non-square Wo, which the JAX kernel documents for
+every body). K9p's k/v are quantized per (b, h, t) row, so a head shard's
+codes and scales are the whole layer's. K10p pairs the rank's own heads
+(0, 1), (2, 3), ...; ranks split heads in contiguous blocks, so these are
+the whole layer's pairs. A rank with an odd head count takes K1p for
+``pair_heads``, as ``encode`` takes K1 for an odd head count. On a CUDA
+tensor each wrapper launches its hand-written kernel (K1, K1p, K10, K10p
+and K11 ``csrc/encoder_block_wgmma.cu``: a thread-block cluster over the
+heads of a 128-row tile, sized by ``cluster_plan`` for the card it runs
+on; K11's "post" form is K1 itself; K9 and K9p
+``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
 PyTorch version beside it, the same math. There is no other route: a
-launch that fails, or a cluster the card cannot place, raises.
+launch that fails, or a cluster the card cannot place, raises. K1p, K9p
+and K10p count as their square forms' launches (runtime.COUNTS).
 """
 from __future__ import annotations
 
@@ -68,11 +75,13 @@ def attention_o_residual_plain(
     return _merge_o_residual(attn, x, wo, bo)
 
 
-def attention_o_residual_paired_plain(q, k, v, x, wo, bo) -> torch.Tensor:
+def attention_o_residual_paired_plain(q, k, v, x, wo, bo,
+                                      partial: bool = False) -> torch.Tensor:
     """K10's function as the TPU kernel forms it: heads 2p and 2p+1 packed
     into one [T, 2D] query, block-diagonal [2D, 2T] keys and [2T, 2D]
     values, one [T, 2T] score tile whose two halves take their own
-    softmax (f32 throughout, as attention_o_residual_plain). H even."""
+    softmax (f32 throughout, as attention_o_residual_plain). H even.
+    ``partial``: the float32 ``(...) @ Wo`` alone (K10p's function)."""
     b, h, t, d = q.shape
     qp = torch.cat([q[:, 0::2], q[:, 1::2]], dim=-1).float()  # [B,P,T,2D]
     ke, ko = k[:, 0::2].float(), k[:, 1::2].float()             # [B,P,T,D]
@@ -86,7 +95,10 @@ def attention_o_residual_paired_plain(q, k, v, x, wo, bo) -> torch.Tensor:
                     torch.softmax(s2[..., t:], dim=-1)], dim=-1)
     o2 = torch.matmul(p2, vb)                                    # [B,P,T,2D]
     attn = torch.stack([o2[..., :d], o2[..., d:]], dim=2)        # [B,P,2,T,D]
-    return _merge_o_residual(attn.reshape(b, h, t, d), x, wo, bo)
+    attn = attn.reshape(b, h, t, d)
+    if partial:
+        return _merge_partial(attn, wo)
+    return _merge_o_residual(attn, x, wo, bo)
 
 
 # K1's and K10's clusters: at most 16 blocks (an H100's non-portable
@@ -260,13 +272,16 @@ def int8_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return _int8_attention_heads(q, *quantize_kv(k, v))
 
 
-def attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo,
-                                    bo) -> torch.Tensor:
+def attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo,
+                                    partial: bool = False) -> torch.Tensor:
     """K9 in plain PyTorch, on K9's own inputs: q [B, H, T, D], k8/v8
     [B, H, T, D] int8 and ks/vs [B, H, T] float32 from quantize_kv, x, Wo,
-    bo as K1 takes them."""
-    return _merge_o_residual(_int8_attention_heads(q, k8, ks, v8, vs), x, wo,
-                             bo)
+    bo as K1 takes them. ``partial``: the float32 ``(...) @ Wo`` alone
+    (K9p's function; Wo [H*D, HD_out], x and bo unread)."""
+    attn = _int8_attention_heads(q, k8, ks, v8, vs)
+    if partial:
+        return _merge_partial(attn, wo)
+    return _merge_o_residual(attn, x, wo, bo)
 
 
 def _check_widths(name, q, x, wo, bo):
@@ -306,40 +321,53 @@ def _check_block_args(name, q, k, v, x, wo, bo):
     return q.stride()[:3]
 
 
-def _launch_partial(q, k, v, wo, cluster=None):
-    """K1p on clusters of ``cluster`` blocks (default: K1's plan for the
-    rank's heads on this card); returns [B, T, HD_out] float32."""
+def _check_partial_wo(name, q, wo):
+    """Head dim 64 and a row shard Wo [H*64, HD_out], HD_out % 64 == 0."""
+    b, h, t, d = q.shape
+    if d != 64:
+        raise ValueError(f"{name} takes head dim 64, got {d}")
+    if wo.dim() != 2 or wo.shape[0] != h * d or wo.shape[1] % 64 or \
+            wo.shape[1] < 64:
+        raise ValueError(f"{name} takes Wo [H*64, HD_out] with HD_out % 64 "
+                         f"== 0: q {tuple(q.shape)}, wo {tuple(wo.shape)}")
+
+
+def _launch_partial(q, k, v, wo, cluster=None, pair_heads=False):
+    """K1p, or K10p (``pair_heads``, H even), on clusters of ``cluster``
+    blocks (default: K1's or K10's plan for the rank's heads on this
+    card); returns [B, T, HD_out] float32."""
+    name = "K10p" if pair_heads else "K1p"
+    _check_partial_wo(name, q, wo)
     b, h, t, d = q.shape
     hdo = wo.shape[-1]
-    if d != 64:
-        raise ValueError(f"K1p takes head dim 64, got {d}")
-    if wo.dim() != 2 or wo.shape[0] != h * d or hdo % 64 or hdo < 64:
-        raise ValueError(f"K1p takes Wo [H*64, HD_out] with HD_out % 64 == "
-                         f"0: q {tuple(q.shape)}, wo {tuple(wo.shape)}")
+    if pair_heads and h % 2:
+        raise ValueError(f"K10p pairs heads; H={h} is odd")
     for n, a in (("q", q), ("k", k), ("v", v), ("wo", wo)):
         if a.dtype != torch.bfloat16:
-            raise TypeError(f"K1p takes bf16 tensors; {n} is {a.dtype}")
+            raise TypeError(f"{name} takes bf16 tensors; {n} is {a.dtype}")
         if a.device != q.device:
-            raise ValueError(f"K1p: {n} on {a.device}, q on {q.device}")
+            raise ValueError(f"{name}: {n} on {a.device}, q on {q.device}")
         if a.data_ptr() % 16:
-            raise ValueError(f"K1p: {n} is not 16-byte aligned")
+            raise ValueError(f"{name}: {n} is not 16-byte aligned")
     if q.stride() != k.stride() or q.stride() != v.stride():
-        raise ValueError("K1p takes q, k, v views with equal strides")
-    _check_q_strides("K1p", q)
+        raise ValueError(f"{name} takes q, k, v views with equal strides")
+    _check_q_strides(name, q)
     if not wo.is_contiguous():
-        raise ValueError("K1p takes a contiguous wo")
+        raise ValueError(f"{name} takes a contiguous wo")
     dev = q.device
     if cluster is None:
-        cluster = _card_plan(h, b, t, False, dev)
+        cluster = _card_plan(h, b, t, pair_heads, dev)
     merged = torch.empty(b, t, h * d, dtype=torch.bfloat16, device=dev)
     out = torch.empty(b, t, hdo, dtype=torch.float32, device=dev)
     sb, sh, st = q.stride()[:3]
-    runtime.launch("mas_attn_o_residual_partial", dev, q.data_ptr(),
+    runtime.launch("mas_attn_o_residual_paired_partial" if pair_heads
+                   else "mas_attn_o_residual_partial", dev, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), sb, sh, st, merged.data_ptr(),
                    wo.data_ptr(), out.data_ptr(), b, h, t, hdo,
                    math.log2(math.e) / math.sqrt(d), cluster,
                    runtime.stream_handle(dev))
-    runtime.bump("encoder_attn_o_residual")
+    runtime.bump("encoder_attn_o_residual_paired" if pair_heads
+                 else "encoder_attn_o_residual")
     return out
 
 
@@ -383,10 +411,18 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
     return out
 
 
-def _launch_int8(q, k8, ks, v8, vs, x, wo, bo):
-    _check_widths("K9", q, x, wo, bo)
+def _launch_int8(q, k8, ks, v8, vs, x, wo, bo, partial=False):
+    """K9, or K9p (``partial``: x and bo None, Wo [H*64, HD_out]; returns
+    [B, T, HD_out] float32)."""
+    name = "K9p" if partial else "K9"
     b, h, t, d = q.shape
-    hd = x.shape[-1]
+    if partial:
+        _check_partial_wo(name, q, wo)
+        hd, hdo = h * d, wo.shape[1]
+    else:
+        _check_widths(name, q, x, wo, bo)
+        hd = hdo = x.shape[-1]
+    dev = q.device
     for n, a, dt, shape in (
             ("q", q, torch.bfloat16, (b, h, t, d)),
             ("k8", k8, torch.int8, (b, h, t, d)),
@@ -394,30 +430,41 @@ def _launch_int8(q, k8, ks, v8, vs, x, wo, bo):
             ("v8", v8, torch.int8, (b, h, t, d)),
             ("vs", vs, torch.float32, (b, h, t)),
             ("x", x, torch.bfloat16, (b, t, hd)),
-            ("wo", wo, torch.bfloat16, (hd, hd)),
+            ("wo", wo, torch.bfloat16, (hd, hdo)),
             ("bo", bo, torch.bfloat16, (hd,))):
+        if a is None and partial and n in ("x", "bo"):
+            continue
         if a.dtype != dt:
-            raise TypeError(f"K9 takes {dt} {n}; got {a.dtype}")
-        if a.device != x.device or tuple(a.shape) != shape:
-            raise ValueError(f"K9: {n} {tuple(a.shape)} on {a.device}; "
-                             f"expected {shape} on {x.device}")
+            raise TypeError(f"{name} takes {dt} {n}; got {a.dtype}")
+        if a.device != dev or tuple(a.shape) != shape:
+            raise ValueError(f"{name}: {n} {tuple(a.shape)} on {a.device}; "
+                             f"expected {shape} on {dev}")
         if n != "q" and (not a.is_contiguous() or a.data_ptr() % 16):
-            raise ValueError(f"K9 takes a contiguous 16-byte aligned {n}")
-    _check_q_strides("K9", q)
+            raise ValueError(f"{name} takes a contiguous 16-byte aligned {n}")
+    _check_q_strides(name, q)
     if q.data_ptr() % 16:
-        raise ValueError("K9: q is not 16-byte aligned")
+        raise ValueError(f"{name}: q is not 16-byte aligned")
     sb, sh, st = q.stride()[:3]
     # the kernel's TMA maps of the scales want rows of a multiple of 16
     # bytes: a ragged T pads them (the padding is never read)
     if t % 4:
         ks, vs = (torch.nn.functional.pad(a, (0, 4 - t % 4)) for a in (ks, vs))
-    out = torch.empty_like(x)
-    runtime.launch(
-        "mas_attn_o_residual_int8", x.device,
-        q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
-        v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
-        bo.data_ptr(), out.data_ptr(), b, h, t, ks.shape[-1], hd,
-        1.0 / math.sqrt(d), runtime.stream_handle(x.device))
+    stream = runtime.stream_handle(dev)
+    if partial:
+        out = torch.empty(b, t, hdo, dtype=torch.float32, device=dev)
+        runtime.launch(
+            "mas_attn_o_residual_int8_partial", dev,
+            q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
+            v8.data_ptr(), vs.data_ptr(), wo.data_ptr(), out.data_ptr(), b,
+            h, t, ks.shape[-1], hdo, 1.0 / math.sqrt(d), stream)
+    else:
+        out = torch.empty_like(x)
+        runtime.launch(
+            "mas_attn_o_residual_int8", dev,
+            q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
+            v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), out.data_ptr(), b, h, t, ks.shape[-1], hd,
+            1.0 / math.sqrt(d), stream)
     runtime.bump("encoder_attn_o_residual_int8")
     return out
 
@@ -443,18 +490,21 @@ def fused_attention_o_residual(
     int8 x int8 -> int32), or K10 with ``pair_heads`` (H even); CPU
     tensors take the plain versions. ``partial``: one rank's float32
     partial ``(...) @ Wo`` over the rank's heads, Wo [H*D, HD_out], x and
-    bo unread (K1p on the card; module docstring)."""
+    bo unread (K1p, K9p with ``qk_int8``, K10p with ``pair_heads`` on the
+    card; module docstring)."""
     runtime.refuse_grad("K1" if not (qk_int8 or pair_heads) else
                         "K9" if qk_int8 else "K10", q, k, v, x, wo, bo)
     if qk_int8 and pair_heads:
         raise ValueError("qk_int8 and pair_heads exclude each other")
     if partial:
-        if qk_int8 or pair_heads:
-            raise NotImplementedError(
-                "the partial (tensor-parallel) form of the int8 and paired "
-                "encoder kernels is not ported (ROADMAP A13c)")
+        if qk_int8:
+            return attention_o_residual_int8(q, *quantize_kv(k, v), None, wo,
+                                             None, partial=True)
         if _device(q) == "cuda":
-            return _launch_partial(q, k, v, wo)
+            return _launch_partial(q, k, v, wo, pair_heads=pair_heads)
+        if pair_heads:
+            return attention_o_residual_paired_plain(q, k, v, None, wo, None,
+                                                     partial=True)
         return attention_o_residual_plain(q, k, v, None, wo, None,
                                           partial=True)
     dev = _device(x)
@@ -469,14 +519,16 @@ def fused_attention_o_residual(
     return attention_o_residual_plain(q, k, v, x, wo, bo)
 
 
-def attention_o_residual_int8(q, k8, ks, v8, vs, x, wo,
-                              bo) -> torch.Tensor:
-    """K9 on K/V that quantize_kv already quantized: CUDA tensors launch
-    the kernel, CPU tensors take attention_o_residual_int8_plain."""
+def attention_o_residual_int8(q, k8, ks, v8, vs, x, wo, bo,
+                              partial: bool = False) -> torch.Tensor:
+    """K9 (K9p with ``partial``) on K/V that quantize_kv already
+    quantized: CUDA tensors launch the kernel, CPU tensors take
+    attention_o_residual_int8_plain."""
     runtime.refuse_grad("K9", q, k8, ks, v8, vs, x, wo, bo)
-    if _device(x) == "cuda":
-        return _launch_int8(q, k8, ks, v8, vs, x, wo, bo)
-    return attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo)
+    if _device(q) == "cuda":
+        return _launch_int8(q, k8, ks, v8, vs, x, wo, bo, partial)
+    return attention_o_residual_int8_plain(q, k8, ks, v8, vs, x, wo, bo,
+                                           partial)
 
 
 def attention_o_residual_ab(q, k, v, x, wo, bo,

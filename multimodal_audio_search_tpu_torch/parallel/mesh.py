@@ -21,8 +21,8 @@ device. The axes:
     ending each row-parallel product in ``model_sum`` -- the port's psum
     over "model". A model whose head count does not divide the axis runs
     unsharded on the row's first model device (JAX's GSPMD splits a head
-    there; ROADMAP, deliberate differences). ``refuse_model_axis`` names
-    the decode options not ported to the axis yet (ROADMAP A13c);
+    there; ROADMAP, deliberate differences). ``refuse_model_axis`` refuses
+    training over the axis (ROADMAP A14b);
   * ``dcn`` (parallel/distributed.py): the process rank.
 
 On the CPU a mesh holds n virtual entries of the CPU (the counterpart of
@@ -145,42 +145,17 @@ def validate_data_axis(mesh: Mesh) -> None:
                          f"two; {_POW2}")
 
 
-def refuse_model_axis(mp: int, decode=None, quantized: bool = False,
-                      training: str | None = None) -> None:
-    """Raise NotImplementedError naming ROADMAP A13c for what the model
-    axis does not run yet (``mp > 1``): sampling and beam decoding (the
-    parity decoders), ``fused_layer="v2"`` (K3-q, K4-o), an int8 decoder
-    (``quantized``: K5) or int8 cross K/V (K6, K7), and the int8 or paired
-    encoder kernels (K9, K10). ``decode``: a DecodeConfig (None: only
-    ``quantized`` is asked about). ``training``: the training entry point
-    asking (training/loop.py, training/clap.py), refused with ValueError
-    naming ROADMAP A14b: the model axis's partial kernels have no
-    backward, and training over it is not ported. Nothing of these falls
-    back to an unsharded run."""
-    if mp <= 1:
-        return
-    if training:
+def refuse_model_axis(mp: int, training: str) -> None:
+    """Raise ValueError naming ROADMAP A14b where ``training`` (the
+    training entry point asking: training/loop.py, training/clap.py) runs
+    with ``mp > 1``: the model axis's partial kernels have no backward,
+    and training over it is not ported. Every decode option runs over the
+    axis; nothing falls back to an unsharded run."""
+    if mp > 1:
         raise ValueError(
             f"{training} with model_parallel={mp}: training over the "
             f"mesh's model axis is not ported (ROADMAP A14b); train over "
             f"the data axis (model_parallel=1)")
-    what = []
-    if quantized:
-        what.append("quantize_decoder")
-    if decode is not None:
-        if decode.method in ("sample", "beam"):
-            what.append(f"method={decode.method!r}")
-        if decode.fused_layer == "v2":
-            what.append("fused_layer='v2'")
-        if decode.fused_encoder in ("int8", "paired"):
-            what.append(f"fused_encoder={decode.fused_encoder!r}")
-        if decode.int8_cross_kv or decode.cross_attn in ("int8",
-                                                         "int8_fused"):
-            what.append(f"cross_attn={decode.cross_attn!r} / int8_cross_kv")
-    if what:
-        raise NotImplementedError(
-            f"model_parallel={mp} with {', '.join(what)}: not ported to "
-            f"the mesh's model axis (ROADMAP A13c)")
 
 
 def mesh_from_config(cfg, device="cuda") -> Mesh | None:
@@ -264,13 +239,16 @@ def _head_split(path: tuple) -> int | None:
     """The axis ``shard_heads`` splits a leaf on (None: whole): columns of
     attention q/k/v and mlp_in weights, their biases, rows of attention o
     and mlp_out weights, and MPNet's [buckets, heads] position bias by
-    head."""
+    head. An int8 decoder's leaves (ops/quant.py::quantize_whisper_decoder)
+    split the same way: the codes ``wq`` as ``w``, q/k/v's and mlp_in's
+    per-column ``scale`` with their columns; o's and mlp_out's scale stays
+    whole (per output column, which a row shard keeps)."""
     key = path[-1] if path else None
     if "rel_bias" in path:
         return 1
     if any(k in path for k in ("q", "k", "v", "mlp_in")):
-        return 1 if key == "w" else 0 if key == "b" else None
-    if any(k in path for k in ("o", "mlp_out")) and key == "w":
+        return {"w": 1, "wq": 1, "b": 0, "scale": 0}.get(key)
+    if any(k in path for k in ("o", "mlp_out")) and key in ("w", "wq"):
         return 0
     return None
 
@@ -290,8 +268,11 @@ def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
     the model axis (attention q/k/v columns and biases by whole heads,
     mlp_in columns and bias, attention o and mlp_out rows; o's and
     mlp_out's biases whole, added once by ``model_sum``), every other leaf
-    whole, all on that device. Raises unless ``heads`` divides the model
-    axis (the caller runs such a model unsharded)."""
+    whole, all on that device; an int8 decoder's codes and scales by the
+    same rule (_head_split), and its tied logits table
+    (``decoder/embed_tokens_q``, K5's) on the first rank only, which
+    computes the logits. Raises unless ``heads`` divides the model axis
+    (the caller runs such a model unsharded)."""
     rows = mesh._rows()
     mp = rows.shape[1]
     if heads % mp:
@@ -309,7 +290,12 @@ def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
                                      f"split into {mp} on axis {axis}")
                 leaf = torch.chunk(leaf, mp, axis)[j].contiguous()
             return leaf.to(dev)
-        out[i, j] = tree_map_with_path(place, params)
+        tree = params
+        if j and "embed_tokens_q" in params.get("decoder", {}):
+            tree = {**params, "decoder": {
+                k: v for k, v in params["decoder"].items()
+                if k != "embed_tokens_q"}}
+        out[i, j] = tree_map_with_path(place, tree)
     return out
 
 

@@ -38,8 +38,7 @@ Whisper pipelines as one chunk each; the embedder splits its batch the
 same way. ``make_default_ingest`` builds the mesh of ``data_parallel``
 x ``model_parallel``: over a model axis each data row's chunk runs over
 that row's model devices (Megatron tensor parallelism, the pipelines'
-use_mesh); the decode options the axis does not run yet raise
-(parallel/mesh.py::refuse_model_axis, ROADMAP A13c).
+use_mesh), under every decode option.
 
 Differences from the JAX package:
   * the two Whisper pipelines must share one mel config (the JAX
@@ -493,9 +492,7 @@ def make_default_ingest(
     package loads it; its tokenizer assets are used where the directory
     has them. ``mesh`` (default: the mesh of ``cfg.data_parallel`` x
     ``cfg.model_parallel`` on ``device``, parallel/mesh.py::
-    mesh_from_config) runs the pipelines over its data and model axes; a
-    decode option the model axis does not run raises NotImplementedError
-    (ROADMAP A13c) before any model is built."""
+    mesh_from_config) runs the pipelines over its data and model axes."""
     from .. import weights
     from ..config import MelConfig
     from ..models import whisper as W
@@ -503,14 +500,10 @@ def make_default_ingest(
     from ..models.generate import check_supported
     from ..models.tokenizer import load_tokenizer
     from ..ops.quant import quantize_whisper_decoder
-    from ..parallel.mesh import mesh_from_config, refuse_model_axis
+    from ..parallel.mesh import mesh_from_config
     cfg = cfg or EngineConfig()
     if mesh is None:
         mesh = mesh_from_config(cfg, device)
-    mp = 1 if mesh is None else mesh.shape.get("model", 1)
-    for spec, decode in ((cfg.asr_model, cfg.asr_decode),
-                         (cfg.caption_model, cfg.caption_decode)):
-        refuse_model_axis(mp, decode, spec.quantize_decoder)
     stats_reg = stats or StatsRegistry()
     mel_cfg = MelConfig(
         padded_seconds=cfg.segment.segment_seconds,

@@ -24,12 +24,13 @@ get the noise they get without a mesh.
 
 With a model axis (``model_parallel > 1``) each data row's chunk runs
 over that row's model devices: the parameters placed by the head-aligned
-TP rule (parallel/mesh.py::shard_heads), the encoder and the greedy
-decode loop by models/whisper.py::encode_tp and models/generate.py::
-generate_tp. A model whose head count (or MLP width) does not divide the
-axis keeps a whole replica on each row's first model device, as without
-a model axis. The decode options the axis does not run raise at
-``use_mesh`` (ROADMAP A13c).
+TP rule (parallel/mesh.py::shard_heads), the encoder by models/whisper.py
+::encode_tp, and the decode by models/generate.py::generate_tp (greedy
+and sampling, the noise drawn on the row's first model device as without
+the axis) or models/beam.py::beam_generate_tp. Every decode option runs
+there. A model whose head count (or MLP width) does not divide the axis
+keeps a whole replica on each row's first model device, as without a
+model axis.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import torch
 
 from ..config import DecodeConfig, MelConfig
 from ..models import whisper as W
-from ..models.beam import beam_generate
+from ..models.beam import beam_generate, beam_generate_tp
 from ..models.generate import check_supported, generate, generate_tp
 from ..models.tokenizer import load_tokenizer
 from ..ops.mel import log_mel_spectrogram
@@ -118,14 +119,11 @@ class WhisperTextPipeline:
         devices, the parameters replicated on each, or with a model axis
         sharded by heads over each data row's model devices (module
         docstring). A data axis that is not a power of two raises
-        ValueError; a decode option the model axis does not run,
-        NotImplementedError (ROADMAP A13c)."""
-        from ..parallel.mesh import (model_axis_fits, refuse_model_axis,
-                                     replicated, shard_heads,
-                                     validate_data_axis)
+        ValueError."""
+        from ..parallel.mesh import (model_axis_fits, replicated,
+                                     shard_heads, validate_data_axis)
         validate_data_axis(mesh)
         mp = mesh.shape.get("model", 1)
-        refuse_model_axis(mp, self.decode, self.quantized)
         self.mesh = mesh
         self._replicas = self._shards = None
         if mp > 1 and model_axis_fits(self.cfg, mp):
@@ -143,7 +141,8 @@ class WhisperTextPipeline:
         under ``decode.fused_layer``, each chunk keeps a multiple of 8
         rows, decode_step's gate for the fused sub-blocks (JAX gates on
         the whole batch), so a split batch takes K3/K4 as the whole one
-        does."""
+        does. Under beam search a chunk decodes its rows x num_beams,
+        a multiple of 8 whenever the chunk's rows are."""
         if self.mesh is None:
             return 8
         dp = len(self.mesh.data_devices())
@@ -155,15 +154,15 @@ class WhisperTextPipeline:
         per-rank outputs under a model axis)."""
         kw = dict(cfg=self.cfg, decode=self.decode,
                   max_new_tokens=self.decode.max_new_tokens)
-        if self._shards is not None:
-            return generate_tp(params, enc, prefix, **kw)
+        tp = self._shards is not None
         if self.decode.method == "beam":
-            return beam_generate(params, enc, prefix,
-                                 num_beams=self.decode.num_beams, **kw)
-        rng = torch.Generator(device=enc.device).manual_seed(self.calls) \
+            return (beam_generate_tp if tp else beam_generate)(
+                params, enc, prefix, num_beams=self.decode.num_beams, **kw)
+        dev = enc[0].device if tp else enc.device
+        rng = torch.Generator(device=dev).manual_seed(self.calls) \
             if self.decode.method == "sample" else None
-        return generate(params, enc, prefix, rng=rng, noise_rows=noise_rows,
-                        **kw)
+        return (generate_tp if tp else generate)(
+            params, enc, prefix, rng=rng, noise_rows=noise_rows, **kw)
 
     @torch.inference_mode()
     def dispatch_mel(self, mel):

@@ -166,12 +166,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cluster, the division's form, stream
     lib.mas_attn_o_residual_ab.argtypes = [*block, i, i, p]
     lib.mas_attn_o_residual_ab.restype = i
-    lib.mas_attn_o_residual_partial.argtypes = [
-        p, p, p, ll, ll, ll,      # q, k, v and their shared strides
-        p, p, p,                  # merged scratch, wo rows, out (float32)
-        i, i, i, i,               # B, H, T, HD_out
-        f, i, p]                  # scale * log2(e), cluster, stream
-    lib.mas_attn_o_residual_partial.restype = i
+    for name in ("mas_attn_o_residual_partial",
+                 "mas_attn_o_residual_paired_partial"):  # K1p, K10p
+        getattr(lib, name).argtypes = [
+            p, p, p, ll, ll, ll,  # q, k, v and their shared strides
+            p, p, p,              # merged scratch, wo rows, out (float32)
+            i, i, i, i,           # B, H, T, HD_out
+            f, i, p]              # scale * log2(e), cluster, stream
+        getattr(lib, name).restype = i
     lib.mas_attn_o_residual_int8.argtypes = [
         p, ll, ll, ll,            # q and its strides
         p, p, p, p,               # k8, ks, v8, vs
@@ -179,6 +181,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,            # B, H, T, the scales' row length, HD
         f, p]                     # scale, stream
     lib.mas_attn_o_residual_int8.restype = i
+    lib.mas_attn_o_residual_int8_partial.argtypes = [
+        p, ll, ll, ll,            # q and its strides
+        p, p, p, p,               # k8, ks, v8, vs
+        p, p,                     # wo rows, out (float32)
+        i, i, i, i, i,            # B, H, T, the scales' row length, HD_out
+        f, p]                     # scale, stream
+    lib.mas_attn_o_residual_int8_partial.restype = i
     lib.mas_k9_division_check.argtypes = [p, p, p, ll, p]  # x, d, bad, n
     lib.mas_k9_division_check.restype = i
     lib.mas_encoder_attention.argtypes = [

@@ -23,8 +23,9 @@ batches split over its data devices and the index sharded on N over them
 (the searcher, its warm-up and its IVF layout); ``model_parallel``
 shards the Whisper models and the embedder by heads over each data
 row's model devices (tensor parallelism; the index stays split over the
-data axis only, as in the JAX package), and the decode options it does
-not run yet raise NotImplementedError (ROADMAP A13c). ``reconfigure``
+data axis only, as in the JAX package) under every decode option
+(sampling and beam, "v2", the int8 decoder and cross K/V, the int8 and
+paired encoders). ``reconfigure``
 builds every transfer of TRANSFER_CHOICES and every embedder of
 EMBEDDER_CHOICES (MiniLM-L6, all-mpnet-base-v2, the
 clip-ViT-B-32-multilingual-v1 text tower), over the engine's mesh.

@@ -13,8 +13,8 @@ entries), at the test preset and the same weights.
 * sampled decoding split over the data axis = the whole batch's;
 * the mesh IVF searcher (per-shard buckets) at a full probe = the exact
   mesh searcher, rebuilt when the store changes;
-* the refusals: a data axis of 6, and what the model axis does not run
-  yet (ROADMAP A13c);
+* the refusal of a data axis of 6, and the decode options the model
+  axis refused before ROADMAP A13c building at (dp, 2);
 * chip_smoke.py's [mesh] checks rehearsed on the CPU, and failing on a
   planted fault.
 """
@@ -256,10 +256,10 @@ def test_use_mesh_rejects_non_power_of_two_data_axis():
 
 
 def test_model_parallel_refused_naming_a13b():
-    """The model axis (ROADMAP A13b) builds at (dp, 2) under the default
-    config; what it does not run yet is refused by name (A13c) by
-    make_default_ingest, the engine and a pipeline's use_mesh, before
-    any model is split."""
+    """The model axis builds at (dp, 2) under the default config (ROADMAP
+    A13b) and, since A13c, under what it refused before: sampling through
+    make_default_ingest and the engine, "v2" through a pipeline's
+    use_mesh, each model split by heads over every data row."""
     cfg = tcfg.EngineConfig(
         asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
         caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
@@ -272,14 +272,16 @@ def test_model_parallel_refused_naming_a13b():
         assert ing.mesh.shape == {"data": dp, "model": 2}
         assert ing.asr.model_parallel == ing.caption.model_parallel == 2
         c = c.replace(asr_decode=sample)
-        with pytest.raises(NotImplementedError, match="A13c"):
-            make_default_ingest(c, device="cpu")
-        with pytest.raises(NotImplementedError, match="A13c"):
-            AudioSearchEngine(cfg=c, device="cpu").load_all_models()
+        ing = make_default_ingest(c, device="cpu")
+        assert ing.asr.decode.method == "sample"
+        assert ing.asr._shards.shape == (dp, 2)
+        eng = AudioSearchEngine(cfg=c, device="cpu")
+        eng.load_all_models()
+        assert eng.ingest_pipeline.asr.model_parallel == 2
     pipe = WhisperTextPipeline(cfg=W.PRESETS["test"], device="cpu",
                                decode=tcfg.DecodeConfig(fused_layer="v2"))
-    with pytest.raises(NotImplementedError, match="A13c"):
-        pipe.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
+    pipe.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
+    assert pipe._shards.shape == (4, 2) and pipe.model_parallel == 2
     emb = TextEmbedder(cfg=M.PRESETS["test"], device="cpu")
     emb.use_mesh(make_mesh(8, model_parallel=2, device="cpu"))
     assert emb._shards.shape == (4, 2)

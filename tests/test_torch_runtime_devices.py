@@ -143,6 +143,16 @@ def _launches():
     yield "K9", lambda: encoder_block._launch_int8(
         q, _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
         _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32), x3, wo, bo)
+    # the partial forms of the model axis: Wo a [H*64, HD_out] row shard
+    wr = _m(hd, 2 * hd)
+    yield "K1p", lambda: encoder_block._launch_partial(q, q, q, wr,
+                                                       cluster=1)
+    yield "K10p", lambda: encoder_block._launch_partial(
+        q, q, q, wr, cluster=1, pair_heads=True)
+    yield "K9p", lambda: encoder_block._launch_int8(
+        q, _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
+        _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32), None, wr, None,
+        partial=True)
     qm = _m(b, hd)
     yield "K2", lambda: cross_attention._launch(qm, _m(b, t, hd),
                                                 _m(b, t, hd), h, t)
@@ -199,7 +209,9 @@ def test_every_launch_enters_its_tensors_device(fake):
     assert called == {
         "mas_encoder_attention", "mas_attn_o_residual",
         "mas_attn_o_residual_paired", "mas_attn_o_residual_ab",
-        "mas_attn_o_residual_int8", "mas_single_query_attention",
+        "mas_attn_o_residual_int8", "mas_attn_o_residual_partial",
+        "mas_attn_o_residual_paired_partial",
+        "mas_attn_o_residual_int8_partial", "mas_single_query_attention",
         "mas_single_query_attention_int8",
         "mas_single_query_attention_int8_fit", "mas_int8_cached_attention",
         "mas_int8_cached_attention_fit", "mas_decoder_self_block",

@@ -675,7 +675,8 @@ def test_device_policy():
          asr_decode=tcfg.DecodeConfig(fused_layer=True)),
     dict(caption_decode=tcfg.DecodeConfig(fused_encoder="int4")),
     dict(caption_decode=tcfg.DecodeConfig(scan_layers=True)),
-    # what the mesh's model axis does not run yet (ROADMAP A13c)
+    # the mesh's model axis runs these since ROADMAP A13c: each builds at
+    # model_parallel=2 and ingests as the one-device engine does
     dict(model_parallel=2, asr_decode=tcfg.DecodeConfig(fused_layer="v2")),
     dict(model_parallel=2,
          asr_model=tcfg.ModelSpec(family="whisper", preset="test",
@@ -704,9 +705,29 @@ def test_unported_modes_raise(change):
         caption_model=tcfg.ModelSpec(family="whisper", preset="test"),
         text_embedder=tcfg.ModelSpec(family="minilm", preset="test"))
     cfg = cfg.replace(**change)
-    with pytest.raises(NotImplementedError,
-                       match="A13c" if "model_parallel" in change else None):
-        make_default_ingest(cfg, device="cpu")
+    if "model_parallel" not in change:
+        with pytest.raises(NotImplementedError):
+            make_default_ingest(cfg, device="cpu")
+        return
+    # ported (ROADMAP A13c): the split engine = the one-device engine
+    cfg = cfg.replace(
+        embed_dim=64, short_context=True,
+        segment=tcfg.SegmentConfig(segment_seconds=2.0,
+                                   min_segment_seconds=0.5),
+        **{k: dataclasses.replace(getattr(cfg, k), max_new_tokens=6)
+           for k in ("asr_decode", "caption_decode")})
+    wave = _pieces(np.random.default_rng(7), 6)
+    segs = {}
+    for mp in (1, 2):
+        eng = AudioSearchEngine(cfg=cfg.replace(model_parallel=mp),
+                                device="cpu", seed=1)
+        eng.load_all_models()
+        ing = eng.ingest_pipeline
+        assert ing.asr.model_parallel == ing.caption.model_parallel == mp
+        segs[mp] = eng.ingest_waveform(wave, SR, "clip")
+    keys = ("segment_id", "start_time", "asr_text", "audio_description")
+    assert [[s[k] for k in keys] for s in segs[2]] == \
+        [[s[k] for k in keys] for s in segs[1]] and segs[1]
 
 
 # ------------------------------------------------------- jax not needed

@@ -137,11 +137,23 @@ def test_k1_partial_rank_by_rank_matches_jax_shard_map(k1_case):
 
 
 def test_k1_partial_refuses_the_unported_encoders():
-    q = torch.zeros(1, 2, 4, 64)
-    for kw in (dict(pair_heads=True), dict(qk_int8=True)):
-        with pytest.raises(NotImplementedError, match="A13c"):
-            EB.fused_attention_o_residual(q, q, q, None, torch.zeros(128, 128),
-                                          None, partial=True, **kw)
+    """The int8 and paired bodies' partial forms (K9p, K10p; refused
+    before ROADMAP A13c) run on the CPU through their plain twins: a
+    rank's float32 partial, Wo non-square, each the twin's value."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 4, 64, generator=g) for _ in range(3))
+    wo = torch.randn(128, 192, generator=g)
+    runtime.reset_counts()
+    got = EB.fused_attention_o_residual(q, k, v, None, wo, None,
+                                        partial=True, pair_heads=True)
+    assert got.shape == (1, 4, 192) and got.dtype == torch.float32
+    assert torch.equal(got, EB.attention_o_residual_paired_plain(
+        q, k, v, None, wo, None, partial=True))
+    got = EB.fused_attention_o_residual(q, k, v, None, wo, None,
+                                        partial=True, qk_int8=True)
+    assert torch.equal(got, EB.attention_o_residual_int8_plain(
+        q, *EB.quantize_kv(k, v), None, wo, None, partial=True))
+    assert sum(runtime.COUNTS.values()) == 0
 
 
 # ------------------------------------------------------- K3p and K4p
@@ -397,13 +409,33 @@ def test_whisper_tp_forms_match_one_device(whisper_case, mp, fused):
                                     dict(fused_encoder="paired")])
 def test_generate_tp_refuses_what_the_axis_does_not_run(whisper_case,
                                                         change):
+    """What the axis refused before ROADMAP A13c now runs: each option's
+    TP decode (generate_tp, or beam_generate_tp for beam) gives the
+    one-device tokens, and the encoder variant its one-device states
+    (the paired form within 5e-5; the int8 form where no p8 code flips,
+    test_torch_tp_modes.py)."""
+    from multimodal_audio_search_tpu_torch.models import beam as BM
     cfg, params, mel = whisper_case
     trees = list(M.shard_heads(params, M.make_mesh(2, model_parallel=2,
                                                    device="cpu"),
                                cfg.heads)[0])
-    with pytest.raises(NotImplementedError, match="A13c"):
-        G.generate_tp(trees, [mel] * 2, torch.zeros(1, 1, dtype=torch.long),
-                      cfg=cfg, decode=DecodeConfig(**change),
-                      max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        W.encode_tp(trees, mel, cfg, fused_blocks="int8")
+    dec = DecodeConfig(max_new_tokens=4, **change)
+    enc = W.encode(params, mel, cfg, fused_blocks=dec.fused_encoder or True)
+    encs = W.encode_tp(trees, mel, cfg,
+                       fused_blocks=dec.fused_encoder or True)
+    if dec.fused_encoder == "paired":
+        np.testing.assert_allclose(encs[1].numpy(), enc.numpy(), atol=5e-5)
+    enc8, encs8 = enc.repeat(3, 1, 1)[:8], [e.repeat(3, 1, 1)[:8]
+                                            for e in encs]
+    prefix = torch.tensor([[cfg.bos_token_id, cfg.lang_en_id]] * 8)
+    kw = dict(cfg=cfg, decode=dec, max_new_tokens=4)
+    if dec.method == "beam":
+        one = BM.beam_generate(params, enc8, prefix, num_beams=2, **kw)
+        tp = BM.beam_generate_tp(trees, encs8, prefix, num_beams=2, **kw)
+    else:
+        one = G.generate(params, enc8, prefix,
+                         rng=torch.Generator().manual_seed(5), **kw)
+        tp = G.generate_tp(trees, encs8, prefix,
+                           rng=torch.Generator().manual_seed(5), **kw)
+    assert torch.equal(tp.tokens, one.tokens)
+    assert torch.equal(tp.lengths, one.lengths)

@@ -22,8 +22,10 @@ cards, e.g. four):
    the flat exact scan on each process's first card, for every query;
 3. the mesh's model axis (tensor parallelism) across cards, in one
    process: chip_smoke.mesh_ingest_check with a model axis of 2 over the
-   first two cards, (dp, mp) = (1, 2), and over four, (2, 2), under each
-   of chip_smoke.TP_PATHS (the default config, fast_lossless), against
+   first two cards, (dp, mp) = (1, 2), and, where the path names it,
+   over four, (2, 2), under each of chip_smoke.TP_PATHS (the default
+   config and fast_lossless at both; parity, "v2", the int8 decoder with
+   K6 and with K7, the int8 and paired encoders at (1, 2)), against
    the unsplit engine on the first card: model_sum's copies go from card
    to card, the launch counts are every launch once a rank, the texts
    equal outside the logits' margin and the top-10 identical; the kernel
@@ -115,15 +117,13 @@ def tensor_parallel(args, card: str) -> None:
     """Part 3: the model axis across the cards, in this process."""
     import chip_smoke as C
     from multimodal_audio_search_tpu_torch import runtime
-    from multimodal_audio_search_tpu_torch.config import apply_profile
     devs = devices_of(args.device, args.cards)
     wave = C.make_audio(25, np.random.default_rng(0))
-    for label, profile in C.TP_PATHS:
-        cfg = ingest_config(args.device)
-        if profile:
-            cfg = apply_profile(cfg, profile)
+    for label, profile, fused, int8, enc, dps in C.TP_PATHS:
+        cfg = C.tp_config(label, profile, fused, int8, enc,
+                          base=ingest_config(args.device))
         whole = None
-        for n in (2, 4):
+        for n in (2 * dp for dp in dps):
             if n > len(devs):
                 break
             t0 = time.perf_counter()

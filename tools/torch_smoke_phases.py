@@ -15,8 +15,8 @@ the wall seconds of each phase follow it. ``decoder`` is K3, K3-q, K4
 and K4-o against their plain versions (K3 and K3-q with their repeats),
 ``mesh`` the mesh's data and DCN axes (search at 1M segments, the
 data-parallel ingest), ``tp`` the mesh's model axis (the partial
-kernels K1p, K3p and K4p, K2 on head shards, the (1, 2) and (2, 2)
-engines), ``train`` the training subsystem (the synthetic captioner
+kernels K1p, K3p, K4p, K9p and K10p, K2, K5, K6 and K7 on shards, the
+engines of chip_smoke.TP_PATHS at (1, 2) and (2, 2)), ``train`` the training subsystem (the synthetic captioner
 trained and transcribed through K1 and K2, the production geometry, the
 data axis, checkpoints, CLAP and the bridge).
 """
@@ -49,7 +49,10 @@ def main(names: list[str]) -> int:
              ("short.wav", C.make_audio(25, rng))]
     tp_args = {"k1": {"cases": []}, "k2": {"cases": []},
                "dec": [{"name": n, "cases": []} for n in (
-                   "decoder_self_block", "decoder_mlp_block")]}
+                   "decoder_self_block", "decoder_mlp_block")],
+               "int8k": [{"name": n, "cases": []} for n in (
+                   "quant_matmul", "single_query_attention_int8",
+                   "int8_cached_attention")]}
     run = {"decoder": lambda: C.decoder_kernel_phase(
                card, torch.Generator().manual_seed(0)),
            "search": lambda: C.search_kernel_phase(card),
