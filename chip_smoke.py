@@ -242,7 +242,15 @@ Phases, one line each (``[phase] ...``):
    T=1500, B=16) for TRAIN_PROD_STEPS timed steps (step ms, audio-s
    trained a second, TF32 off and printed), one B=2 step against the
    CPU's at fresh and trained parameters; train_split_check: the (2, 1)
-   data-axis step against the unsplit one; train_checkpoint_check: save
+   data-axis step against the unsplit one; train_tp_check (ROADMAP
+   A14b): the model axis on one card named twice (four times for (2,
+   2)): at the shipped geometry a (1, 2) and a (2, 2) step against the
+   unsplit one, timed (1, 2) steps beside unsplit ones with peak memory
+   and each rank's state bytes, the synthetic captioner trained at (1, 2)
+   until its loss falls more than 2x and transcribed through the TP
+   pipeline (K1p and K2 on head shards, counted), a (1, 2) checkpoint
+   resumed = an uninterrupted run and loaded at mp = 1, CLAP at (1, 2);
+   train_checkpoint_check: save
    at k, resume, continue to 2k = an uninterrupted run (deterministic
    algorithms on), a bf16 tree round-tripped; train_clap_check: CLAP at
    ClapConfig() + MiniLM L6, B=32, TRAIN_CLAP_STEPS steps on 32 fixed
@@ -489,8 +497,24 @@ def attn_o_bound(b: int, t: int, heads: int, d: int = 64,
                  **ops)
 
 
+_START = time.perf_counter()
+_LINES: list = []      # (phase name, time.perf_counter()) of every line
+
+
 def phase(name: str, **kv) -> None:
+    _LINES.append((name, time.perf_counter()))
     print(f"[{name}] " + json.dumps(kv, default=str), flush=True)
+
+
+def phase_seconds() -> dict:
+    """Wall seconds a phase: the time from the line before each of its
+    lines to that line, summed over its lines (the build's under
+    [build], the script's start under its first phase)."""
+    out, prev = {}, _START
+    for name, t in _LINES:
+        out[name] = out.get(name, 0.0) + t - prev
+        prev = t
+    return out
 
 
 def card_line() -> str:
@@ -4829,6 +4853,12 @@ TRAIN_CLAP_STEPS = 30
 TRAIN_CLAP_B = 32
 TRAIN_CLAP_LR = 1e-3
 TRAIN_BRIDGE_N = 4096
+# the model axis (ROADMAP A14b), one card named twice (four times for
+# (2, 2)): timed (1, 2) steps at the shipped geometry beside as many
+# unsplit ones, and the synthetic captioner's steps at (1, 2)
+TRAIN_TP_STEPS = 4
+TRAIN_TP_SYNTH_STEPS = 100
+TRAIN_TP_SYNTH_LR = 3e-4     # training/synth.py's default
 
 
 def _flat(tree) -> dict:
@@ -5073,8 +5103,266 @@ def train_split_check(card: str, trained, device="cuda") -> None:
             assert c[name] <= c["bar"], (label, name, c)
 
 
+def _tp_mesh(shape, device):
+    """A (data, model) mesh of ``shape`` naming ``device`` once a
+    position."""
+    from multimodal_audio_search_tpu_torch.parallel.mesh import make_mesh
+    n = shape[0] * shape[1]
+    return make_mesh(n, model_parallel=shape[1],
+                     devices=[torch.device(device)] * n)
+
+
+def _ranks(params, shape, heads: int, device):
+    """The TP training state's parameters: the first data row's rank
+    trees (parallel/mesh.py::shard_heads)."""
+    from multimodal_audio_search_tpu_torch.parallel.mesh import shard_heads
+    return shard_heads(params, _tp_mesh((1, shape[1]), device), heads)[0]
+
+
+def _tp_steps_check(card: str, cfg, device) -> dict:
+    """The shipped geometry (10 s clips of 2-6 events, 30 s mel, T=1500),
+    B=TRAIN_B, float32, TF32 off: one (1, 2) and one (2, 2) step against
+    the unsplit step at the same fresh parameters (the loss and every
+    gradient leaf within TRAIN_SPLIT_REL of the leaf's max), then
+    TRAIN_TP_STEPS timed steps each of the unsplit and the (1, 2) step
+    after one untimed, with the card's peak memory of each and the bytes
+    of parameters and Adam moments each rank holds."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.parallel.mesh import gather_heads
+    from multimodal_audio_search_tpu_torch.training import finetune as FT
+    fresh = _to(W.init_params(torch.Generator().manual_seed(2), cfg), device)
+    batches = _synth_batches(TRAIN_TP_STEPS + 1, TRAIN_B, 10.0, 30.0,
+                             (2, 6), 13, device)
+    l1, g1 = FT.loss_and_grads(fresh, batches[0], cfg)
+    checks = {}
+    for shape in ((1, 2), (2, 2)):
+        l2, g2 = FT.loss_and_grads(_ranks(fresh, shape, cfg.heads, device),
+                                   batches[0], cfg,
+                                   mesh=_tp_mesh(shape, device))
+        checks[str(shape)] = {
+            "loss_rel": abs(float(l2) - float(l1)) / abs(float(l1)),
+            "grad_rel": leaves_rel_err(gather_heads(g2), g1)[0]}
+    del g1, g2
+    tcfg = FT.TrainConfig(learning_rate=3e-4)
+    timed = {}
+    for label, params, mesh in (
+            ("unsplit", fresh, None),
+            ("(1, 2)", _ranks(fresh, (1, 2), cfg.heads, device),
+             _tp_mesh((1, 2), device))):
+        step, opt = FT.make_train_step(cfg, tcfg, mesh=mesh)
+        state = opt.init(params) if mesh is None else opt.init_ranks(params)
+        _reset_peak(device)
+        times = []
+        for b in batches:
+            _sync(device)
+            t = time.perf_counter()
+            params, state, met = step(params, state, b)
+            float(met["loss"])
+            times.append(time.perf_counter() - t)
+        timed[label] = {
+            "step_ms": float(np.median(times[1:])) * 1e3,
+            "steps_ms": [x * 1e3 for x in times], "peak_bytes": _peak(device),
+            "state_bytes_per_rank": [
+                tree_bytes(p) + tree_bytes(s[1][0].mu) + tree_bytes(s[1][0].nu)
+                for p, s in (zip(params, state) if mesh is not None
+                             else [(params, state)])]}
+    return {"checks": checks, "timed": timed}
+
+
+def _tp_synth_check(card: str, device) -> dict:
+    """The synthetic captioner at whisper-tiny width trained at (1, 2)
+    (training/synth.py with ``mesh``: 1 s clips, 2 s mel, B=TRAIN_B,
+    warmup_cosine, lr TRAIN_TP_SYNTH_LR, float32) for TRAIN_TP_SYNTH_STEPS
+    steps, its loss falling more than 2x (the first 10 steps' mean
+    against the last 10's); then TRAIN_HELD_OUT held-out clips
+    transcribed through the TP pipeline (model_parallel=2,
+    fused_encoder=None: K1p and K2 on head shards), its launches equal
+    to split_expected, every text from the grammar, beside the unsplit
+    pipeline's transcripts of the gathered model."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.training import synth as S
+    mesh = _tp_mesh((1, 2), device)
+    runtime.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    m = S.train_synth_captioner(steps=TRAIN_TP_SYNTH_STEPS, batch=TRAIN_B,
+                                clip_seconds=1.0, mel_seconds=2.0,
+                                preset=TRAIN_PRESET, seed=0,
+                                lr=TRAIN_TP_SYNTH_LR, mesh=mesh)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launched = _launched()
+    first, last = float(np.mean(m.losses[:10])), float(np.mean(m.losses[-10:]))
+    rng = np.random.default_rng(99)
+    waves, truth = zip(*(S.make_clip(rng) for _ in range(TRAIN_HELD_OUT)))
+    pipe = S.synth_pipeline(m, fused_encoder=None, mesh=mesh)
+    runtime.reset_counts()
+    texts = pipe.transcribe_batch(S.pad_waves(waves, pipe.mel_cfg.n_samples))
+    tp_n = _launched()
+    want = split_expected(False, (pipe.last_steps, 0), (pipe.dispatches, 0),
+                          pipe, pipe)
+    want = {KEYS[k]: n for k, n in want.items() if n}
+    whole = S.transcribe(m, waves, fused_encoder=None)
+    words = set(S.SynthVocab.WORDS)
+    outside = [t for t in texts if not set(t.split()) <= words]
+    out = {"steps": TRAIN_TP_SYNTH_STEPS, "seconds": secs,
+           "step_ms": secs / TRAIN_TP_SYNTH_STEPS * 1e3,
+           "loss_first10": first, "loss_last10": last, "fall": first / last,
+           "losses_every_10": m.losses[::10], "launches": launched,
+           "model_parallel": pipe.model_parallel,
+           "decode_steps": pipe.last_steps, "launches_tp_pipeline": tp_n,
+           "expected": want, "agree_unsplit": sum(
+               a == b for a, b in zip(texts, whole)),
+           "exact": sum(a == b for a, b in zip(texts, truth)),
+           "outside_grammar": len(outside), "texts": list(zip(truth,
+                                                              texts))[:4]}
+    assert not launched, f"a TP training step launched kernels: {launched}"
+    assert first > 2 * last, (first, last)
+    assert pipe.model_parallel == 2, pipe.model_parallel
+    if torch.device(device).type == "cuda":      # the CPU runs the twins
+        assert tp_n == want, (tp_n, want)
+    assert not outside, f"transcripts outside the grammar: {outside[:4]}"
+    assert any(texts), "every transcript empty"
+    return out
+
+
+def _tp_checkpoint_check(card: str, device) -> dict:
+    """finetune_captioner at (1, 2) saves at step TRAIN_CKPT_K, a second
+    run resumes from it and continues to 2k, against an uninterrupted
+    (1, 2) run of 2k steps (deterministic algorithms on, warn_only): the
+    losses and parameters within TRAIN_CKPT_REL of each leaf's max. The
+    checkpoint holds whole leaves under the unsplit run's keys and loads
+    at mp = 1 equal to the gathered ranks, bit for bit."""
+    import tempfile
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.training import finetune as FT
+    from multimodal_audio_search_tpu_torch.training.loop import (
+        finetune_captioner)
+    from multimodal_audio_search_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer)
+    cfg = W.PRESETS[TRAIN_PRESET]
+    k = TRAIN_CKPT_K
+    batches = _synth_batches(2 * k, TRAIN_B, 1.0, 2.0, (1, 3), 14, device)
+    init = W.init_params(torch.Generator().manual_seed(1), cfg)
+    tcfg = FT.TrainConfig(learning_rate=3e-4)
+    kw = dict(init_params=init, model_parallel=2, log_fn=lambda s: None,
+              devices=[torch.device(device)] * 2)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            whole = finetune_captioner(batches, cfg, tcfg, **kw)
+            finetune_captioner(batches[:k], cfg, tcfg,
+                               checkpoint_dir=f"{d}/b", **kw)
+            logs = []
+            resumed = finetune_captioner(batches[k:], cfg, tcfg,
+                                         checkpoint_dir=f"{d}/b",
+                                         **{**kw, "log_fn": logs.append})
+            template = _to(init, device)
+            _, opt = FT.make_train_step(cfg, tcfg)
+            one, one_state, meta = TrainCheckpointer(f"{d}/b").restore(
+                template, opt.init(template))
+            keys = sorted(np.load(f"{d}/b/step_{2 * k:08d}.opt.npz").files)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    rel, _ = leaves_rel_err(resumed.params, whole.params)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(resumed.losses, whole.losses[k:]))
+    ranks_equal = all(torch.equal(a, b) for a, b in zip(
+        _flat(resumed.params).values(), _flat(one).values()))
+    out = {"k": k, "steps": 2 * k, "resumed_log": logs[:1],
+           "param_rel": rel, "loss_rel": loss_rel,
+           "loads_at_mp1_equal": ranks_equal, "mp1_step": meta["step"],
+           "keys": len(keys), "state_keys_as_unsplit": keys == sorted(
+               _flat(opt.init(template)).keys())}
+    assert logs[:1] == [f"resumed from step {k}"], logs
+    assert resumed.steps == whole.steps == 2 * k
+    assert rel <= TRAIN_CKPT_REL and loss_rel <= TRAIN_CKPT_REL, out
+    assert ranks_equal and out["state_keys_as_unsplit"], out
+    return out
+
+
+def _tp_clap_check(card: str, device) -> dict:
+    """The CLAP recipe at published widths (ClapConfig(), MiniLM L6) at
+    (1, 2), B=TRAIN_CLAP_B, TRAIN_CLAP_STEPS steps on 32 fixed pairs, as
+    train_clap_check: the in-batch accuracy must rise; step ms."""
+    from multimodal_audio_search_tpu_torch.models.clap import ClapConfig
+    from multimodal_audio_search_tpu_torch.models.minilm import PRESETS
+    from multimodal_audio_search_tpu_torch.training import clap as TC
+    from multimodal_audio_search_tpu_torch.training.loop import place_params
+    acfg, tcfg = ClapConfig(), PRESETS["L6"]
+    rng = np.random.default_rng(11)
+    batch = {"mel": rng.normal(size=(TRAIN_CLAP_B, acfg.n_mels, 1000))
+             .astype(np.float32),
+             "input_ids": rng.integers(100, tcfg.vocab_size,
+                                       size=(TRAIN_CLAP_B, 16)),
+             "attention_mask": np.ones((TRAIN_CLAP_B, 16), np.int64)}
+    mesh = _tp_mesh((1, 2), device)
+    params = place_params(TC.init_clap_params(
+        torch.Generator().manual_seed(0), acfg, tcfg), mesh, (acfg, tcfg),
+        print, "train_clap")
+    step, opt = TC.make_clap_train_step(
+        acfg, tcfg, TC.ClapTrainConfig(learning_rate=TRAIN_CLAP_LR),
+        mesh=mesh)
+    state = opt.init_ranks(params)
+    accs, losses, times = [], [], []
+    for _ in range(TRAIN_CLAP_STEPS):
+        _sync(device)
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+        accs.append(float(m["in_batch_acc"]))
+    out = {"ranks": len(params), "step_ms": float(np.median(times[1:])) * 1e3,
+           "acc_first": accs[0], "acc_last": accs[-1],
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    assert accs[-1] > accs[0], (accs, losses)
+    return out
+
+
+def train_tp_check(card: str, device="cuda") -> None:
+    """Part 4: the mesh's model axis (ROADMAP A14b) on one card named
+    twice (four times for (2, 2)): _tp_steps_check (whisper-tiny at the
+    shipped geometry, the (1, 2) and (2, 2) steps against the unsplit one,
+    timed (1, 2) steps beside unsplit ones, peak memory and each rank's
+    state bytes), _tp_synth_check (the synthetic captioner trained at
+    (1, 2) and transcribed through the TP pipeline), _tp_checkpoint_check
+    (save at k, resume, continue to 2k; the checkpoint at mp = 1) and
+    _tp_clap_check (CLAP at published widths at (1, 2)). Every training
+    step of the part launches no kernel."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    cfg = W.PRESETS[TRAIN_PRESET]
+    t0 = time.perf_counter()
+    marks = {}
+    runtime.reset_counts()
+    steps = _tp_steps_check(card, cfg, device)
+    launched = _launched()
+    phase("train", card=card, step="tp_steps", preset=TRAIN_PRESET,
+          batch=TRAIN_B, mel_seconds=30.0, encoder_T=1500, dtype="float32",
+          tf32=_tf32(), bar=TRAIN_SPLIT_REL, launches=launched, **steps)
+    assert not launched, f"a TP training step launched kernels: {launched}"
+    for shape, c in steps["checks"].items():
+        for name in ("loss_rel", "grad_rel"):
+            assert c[name] <= TRAIN_SPLIT_REL, (shape, name, c)
+    marks["steps"] = time.perf_counter() - t0
+    synth = _tp_synth_check(card, device)
+    phase("train", card=card, step="tp_synth", **synth)
+    marks["synth"] = time.perf_counter() - t0
+    runtime.reset_counts()
+    ckpt = _tp_checkpoint_check(card, device)
+    clap = _tp_clap_check(card, device)
+    launched = _launched()
+    phase("train", card=card, step="tp_checkpoint_clap", checkpoint=ckpt,
+          clap=clap, launches=launched)
+    assert not launched, f"a TP training step launched kernels: {launched}"
+    marks["checkpoint_clap"] = time.perf_counter() - t0
+    phase("train", card=card, step="tp_summary", seconds_after=marks,
+          seconds=time.perf_counter() - t0)
+
+
 def train_checkpoint_check(card: str, device="cuda") -> None:
-    """Part 4: finetune_captioner saves at step k, a second run resumes
+    """Part 5: finetune_captioner saves at step k, a second run resumes
     from it and continues to 2k on the same batches, against an
     uninterrupted run of 2k steps (torch.use_deterministic_algorithms on,
     warn_only: cuBLAS on one stream): losses and parameters within
@@ -5133,7 +5421,7 @@ def train_checkpoint_check(card: str, device="cuda") -> None:
 
 
 def train_clap_check(card: str, device="cuda") -> None:
-    """Part 5: the CLAP recipe at published widths (ClapConfig(), MiniLM
+    """Part 6: the CLAP recipe at published widths (ClapConfig(), MiniLM
     L6), B=32, TRAIN_CLAP_STEPS steps on 32 fixed pairs (10 s mels,
     16-token captions): the in-batch accuracy must rise; step ms."""
     from multimodal_audio_search_tpu_torch.models.clap import ClapConfig
@@ -5175,7 +5463,7 @@ def train_clap_check(card: str, device="cuda") -> None:
 
 
 def train_bridge_check(card: str, device="cuda") -> None:
-    """Part 6: train_bridge on TRAIN_BRIDGE_N features of 128 dimensions
+    """Part 7: train_bridge on TRAIN_BRIDGE_N features of 128 dimensions
     whose targets are a fixed random map of them into 384-D unit vectors,
     for the reference's 50 epochs (batch 64, Adam 1e-3, dropout 0.2):
     the loss must fall; seconds."""
@@ -5203,7 +5491,7 @@ def train_bridge_check(card: str, device="cuda") -> None:
 
 
 def train_phase(card: str, device="cuda") -> None:
-    """[train]: the six parts above, in order, the seconds of each."""
+    """[train]: the seven parts above, in order, the seconds of each."""
     t0 = time.perf_counter()
     marks = {}
     m = train_synth_check(card, device)
@@ -5213,6 +5501,8 @@ def train_phase(card: str, device="cuda") -> None:
     train_split_check(card, m.params, device)
     marks["data_axis"] = time.perf_counter() - t0
     del m
+    train_tp_check(card, device)
+    marks["model_axis"] = time.perf_counter() - t0
     train_checkpoint_check(card, device)
     marks["checkpoint"] = time.perf_counter() - t0
     train_clap_check(card, device)
@@ -5285,6 +5575,7 @@ def main() -> int:
     counts["mesh"] = mesh_phase(card, clips)
     counts["tp"], tp_kern = tp_phase(card, clips, k1, k2, dec, int8k)
     train_phase(card)
+    phase("seconds", **phase_seconds())
     # each kernel's launches from the path that runs it
     path_of = {"K1": "default", "K2": "default", "K3": "fast_lossless",
                "K4": "fast_lossless", "K3-q": "v2", "K4-o": "v2",

@@ -5,9 +5,10 @@ post-layernorm BERT encoder (LN eps 1e-12, learned absolute positions,
 token-type embeddings, erf-GELU) -> attention-masked mean pooling -> L2
 normalisation. Same param keys and layouts; ``mean_pool`` and
 ``sentence_projection`` (the sentence-transformers Dense head) as in
-JAX. ``sentence_embed_tp`` runs the encoder over one data row's model
-axis (parallel/mesh.py): each rank's head shard and F/mp of the MLP on
-its device, every row-parallel product ending in ``model_sum``.
+JAX. ``encode_tokens_tp`` / ``sentence_embed_tp`` run the encoder over
+one data row's model axis (parallel/mesh.py): each rank's head shard
+and F/mp of the MLP on its device, every row-parallel product ending in
+``model_sum``.
 """
 from __future__ import annotations
 
@@ -129,12 +130,14 @@ def encode_layers_tp(trees, x: torch.Tensor, biases: list, heads: int,
     return xs[0]
 
 
-def sentence_embed_tp(trees, input_ids: torch.Tensor,
-                      attention_mask: torch.Tensor,
-                      cfg: MiniLMConfig = MiniLMConfig()) -> torch.Tensor:
-    """sentence_embed over one data row's model axis (encode_layers_tp):
+def encode_tokens_tp(trees, input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor,
+                     cfg: MiniLMConfig = MiniLMConfig()) -> torch.Tensor:
+    """encode_tokens over one data row's model axis (encode_layers_tp):
     ``trees`` the ranks' head shards, ids and mask on the first rank's
-    device; the embeddings on that device."""
+    device, where the embedding stem runs; the [B, T, H] hidden states on
+    that device. Plain PyTorch, so autograd differentiates it (the CLAP
+    text tower's training, training/clap.py)."""
     emb = trees[0]["embeddings"]
     t = input_ids.shape[1]
     x = emb["word"][input_ids] + emb["position"][:t][None]
@@ -143,8 +146,16 @@ def sentence_embed_tp(trees, input_ids: torch.Tensor,
     x = L.layer_norm(emb["ln"], x, cfg.ln_eps)
     bias = L.padding_bias(attention_mask)
     biases = [bias.to(tr["embeddings"]["word"].device) for tr in trees]
-    return unit_mean_pool(encode_layers_tp(trees, x, biases, cfg.heads,
-                                           cfg.ln_eps), attention_mask)
+    return encode_layers_tp(trees, x, biases, cfg.heads, cfg.ln_eps)
+
+
+def sentence_embed_tp(trees, input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor,
+                      cfg: MiniLMConfig = MiniLMConfig()) -> torch.Tensor:
+    """sentence_embed over one data row's model axis (encode_tokens_tp):
+    the embeddings on the first rank's device."""
+    return unit_mean_pool(encode_tokens_tp(trees, input_ids, attention_mask,
+                                           cfg), attention_mask)
 
 
 def sentence_projection(params, pooled: torch.Tensor,

@@ -23,7 +23,9 @@ package's paths:
 
   * ``decode_train``: the teacher-forced full-sequence decode that
     training differentiates (training/finetune.py), plain PyTorch with
-    the [B, H, T, D] cross K/V; no kernel.
+    the [B, H, T, D] cross K/V; no kernel. ``decode_train_tp`` is its
+    form over the model axis, and training runs ``encode_tp`` with
+    ``fused_attention=False, fused_blocks=False`` (plain partials).
 
   * the int8 memory mode: a decoder from ops/quant.py::
     quantize_whisper_decoder runs every dense layer and the tied logits
@@ -547,6 +549,49 @@ def encode_tp(trees, mel: torch.Tensor, cfg: WhisperConfig,
         xs = model_sum(parts, blk0["mlp_out"]["b"], xs)
     out = L.layer_norm(enc0["ln"], xs[0], cfg.ln_eps)
     return [out.to(d) for d in devs]
+
+
+def decode_train_tp(trees, encs: list, tokens: torch.Tensor,
+                    cfg: WhisperConfig) -> torch.Tensor:
+    """``decode_train`` over one data row's model axis, plain PyTorch
+    under autograd: ``encs`` the encoder output on every rank's device
+    (encode_tp), ``tokens`` on the first rank's. The token and position
+    embedding run on the first rank; each layer's causal self-attention
+    and cross-attention (over the rank's own ``cross_kv`` heads) run each
+    rank's H/mp heads (layers.mha_partial, the plain partials), the MLP
+    each rank's F/mp columns, each ending in model_sum; the final layer
+    norm and the tied logits run on the first rank. Returns [B, T, vocab]
+    float32 logits there."""
+    from ..parallel.mesh import model_sum
+    devs, hl = _tp_devices(trees), _tp_heads(trees, cfg)
+    dec0 = trees[0]["decoder"]
+    t = tokens.shape[1]
+    x = dec0["embed_tokens"][tokens.long()] + dec0["positions"][:t][None]
+    xs = [x.to(encs[0].dtype).to(d) for d in devs]
+    biases = [L.causal_bias(t, t, device=d) for d in devs]
+    ckvs = cross_kv_tp(trees, encs, cfg)
+    for i, blk0 in enumerate(dec0["blocks"]):
+        blks = [tr["decoder"]["blocks"][i] for tr in trees]
+        parts = []
+        for blk, xj, bias in zip(blks, xs, biases):
+            h = L.layer_norm(blk["self_ln"], xj, cfg.ln_eps)
+            parts.append(L.mha_partial(blk["self_attn"], h, h, hl, bias))
+        xs = model_sum(parts, blk0["self_attn"]["o"]["b"], xs)
+        parts = []
+        for blk, xj, ckv in zip(blks, xs, ckvs):
+            h = L.layer_norm(blk["cross_ln"], xj, cfg.ln_eps)
+            parts.append(L.dense_partial(
+                blk["cross_attn"]["o"]["w"],
+                _cross_attention(blk, h, ckv[i], hl)))
+        xs = model_sum(parts, blk0["cross_attn"]["o"]["b"], xs)
+        parts = []
+        for blk, xj in zip(blks, xs):
+            h = L.layer_norm(blk["mlp_ln"], xj, cfg.ln_eps)
+            parts.append(L.dense_partial(
+                blk["mlp_out"]["w"], L.gelu(L.dense(blk["mlp_in"], h))))
+        xs = model_sum(parts, blk0["mlp_out"]["b"], xs)
+    x = L.layer_norm(dec0["ln"], xs[0], cfg.ln_eps)
+    return _tied_logits(dec0, x)
 
 
 def _tp_local(trees, encs: list, cfg: WhisperConfig, fn) -> list:

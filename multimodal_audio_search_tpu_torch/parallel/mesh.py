@@ -21,8 +21,10 @@ device. The axes:
     ending each row-parallel product in ``model_sum`` -- the port's psum
     over "model". A model whose head count does not divide the axis runs
     unsharded on the row's first model device (JAX's GSPMD splits a head
-    there; ROADMAP, deliberate differences). ``refuse_model_axis`` refuses
-    training over the axis (ROADMAP A14b);
+    there; ROADMAP, deliberate differences). Training keeps each rank's
+    shard of the parameters and of the optimizer's moments on that rank;
+    ``gather_heads`` rebuilds the whole leaves (checkpoints, the serving
+    pipeline), ``shard_like`` splits whole leaves again onto the ranks;
   * ``dcn`` (parallel/distributed.py): the process rank.
 
 On the CPU a mesh holds n virtual entries of the CPU (the counterpart of
@@ -35,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tree import tree_map, tree_map_with_path
+from ..utils.tree import (tree_leaves_with_path, tree_map,
+                          tree_map_with_path)
 
 # the virtual CPU entries a CPU mesh holds by default (the JAX test rig's
 # device count)
@@ -145,19 +148,6 @@ def validate_data_axis(mesh: Mesh) -> None:
                          f"two; {_POW2}")
 
 
-def refuse_model_axis(mp: int, training: str) -> None:
-    """Raise ValueError naming ROADMAP A14b where ``training`` (the
-    training entry point asking: training/loop.py, training/clap.py) runs
-    with ``mp > 1``: the model axis's partial kernels have no backward,
-    and training over it is not ported. Every decode option runs over the
-    axis; nothing falls back to an unsharded run."""
-    if mp > 1:
-        raise ValueError(
-            f"{training} with model_parallel={mp}: training over the "
-            f"mesh's model axis is not ported (ROADMAP A14b); train over "
-            f"the data axis (model_parallel=1)")
-
-
 def mesh_from_config(cfg, device="cuda") -> Mesh | None:
     """Engine knob -> mesh: ``EngineConfig.data_parallel`` x
     ``model_parallel`` devices of ``device`` (never one card twice: more
@@ -261,6 +251,18 @@ def model_axis_fits(cfg, mp: int) -> bool:
     return cfg.heads % mp == 0 and width % mp == 0
 
 
+def _rank_leaf(path: tuple, leaf, j: int, mp: int):
+    """Rank ``j``'s block of ``leaf`` out of ``mp`` (_head_split's axis;
+    the whole leaf where it is not split)."""
+    axis = _head_split(path) if torch.is_tensor(leaf) else None
+    if axis is None:
+        return leaf
+    if leaf.shape[axis] % mp:
+        raise ValueError(f"{path}: {tuple(leaf.shape)} does not split "
+                         f"into {mp} on axis {axis}")
+    return torch.chunk(leaf, mp, axis)[j].contiguous()
+
+
 def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
     """The head-aligned TP placement the port executes: an object array
     over the mesh's [data rows, model] (``Mesh._rows``) whose entry is the
@@ -271,8 +273,10 @@ def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
     whole, all on that device; an int8 decoder's codes and scales by the
     same rule (_head_split), and its tied logits table
     (``decoder/embed_tokens_q``, K5's) on the first rank only, which
-    computes the logits. Raises unless ``heads`` divides the model axis
-    (the caller runs such a model unsharded)."""
+    computes the logits. Any tree whose leaves sit under the parameters'
+    paths splits the same way (an optimizer state's moments). Raises
+    unless ``heads`` divides the model axis (the caller runs such a model
+    unsharded)."""
     rows = mesh._rows()
     mp = rows.shape[1]
     if heads % mp:
@@ -281,22 +285,73 @@ def shard_heads(params, mesh: Mesh, heads: int) -> np.ndarray:
     out = np.empty(rows.shape, dtype=object)
     for (i, j), dev in np.ndenumerate(rows):
         def place(path, leaf, dev=dev, j=j):
-            if not torch.is_tensor(leaf):
-                return leaf
-            axis = _head_split(path)
-            if axis is not None:
-                if leaf.shape[axis] % mp:
-                    raise ValueError(f"{path}: {tuple(leaf.shape)} does not "
-                                     f"split into {mp} on axis {axis}")
-                leaf = torch.chunk(leaf, mp, axis)[j].contiguous()
-            return leaf.to(dev)
+            leaf = _rank_leaf(path, leaf, j, mp)
+            return leaf.to(dev) if torch.is_tensor(leaf) else leaf
         tree = params
-        if j and "embed_tokens_q" in params.get("decoder", {}):
+        if j and isinstance(params, dict) and \
+                "embed_tokens_q" in params.get("decoder", {}):
             tree = {**params, "decoder": {
                 k: v for k, v in params["decoder"].items()
                 if k != "embed_tokens_q"}}
         out[i, j] = tree_map_with_path(place, tree)
     return out
+
+
+def gather_heads(trees):
+    """The inverse of ``shard_heads``: ``trees`` one data row's rank trees
+    (a list, or as_ranks' array), each split leaf's rank blocks
+    concatenated in rank order on _head_split's axis, on the first rank's
+    device; every other leaf rank 0's, where it lies. Returns the whole
+    tree."""
+    trees = list(trees)
+    if len(trees) == 1:
+        return trees[0]
+    others = [dict(tree_leaves_with_path(t)) for t in trees[1:]]
+
+    def whole(path, leaf):
+        axis = _head_split(path) if torch.is_tensor(leaf) else None
+        if axis is None:
+            return leaf
+        return torch.cat([leaf] + [o[path].to(leaf.device) for o in others],
+                         axis)
+    return tree_map_with_path(whole, trees[0])
+
+
+def shard_like(whole, trees) -> np.ndarray:
+    """``whole`` (a tree of whole leaves: a checkpoint's) split as
+    ``trees`` (one data row's rank trees) are: rank j's block of each
+    split leaf, every leaf on the device of ``trees[j]``'s leaf at its
+    path (a host count stays on the host). Returns a 1-D object array."""
+    leaves = dict(tree_leaves_with_path(whole))
+    mp = len(trees)
+
+    def rank(j: int, tree):
+        def place(path, like):
+            leaf = _rank_leaf(path, leaves[path], j, mp)
+            return leaf.to(like.device) if torch.is_tensor(like) else leaf
+        return tree_map_with_path(place, tree)
+    return as_ranks([rank(j, t) for j, t in enumerate(trees)])
+
+
+def as_ranks(trees) -> np.ndarray:
+    """``trees`` (one data row's rank trees, in rank order) as the 1-D
+    object array training carries: its state over the model axis."""
+    out = np.empty(len(trees), dtype=object)
+    for j, tree in enumerate(trees):
+        out[j] = tree
+    return out
+
+
+def is_ranks(x) -> bool:
+    """Whether ``x`` is such an array of rank trees (as_ranks)."""
+    return isinstance(x, np.ndarray) and x.dtype == object
+
+
+def split_leaves(tree) -> list[bool]:
+    """For each leaf of ``tree`` (tree_leaves' order), whether
+    ``shard_heads`` splits it over the model axis."""
+    return [torch.is_tensor(x) and _head_split(p) is not None
+            for p, x in tree_leaves_with_path(tree)]
 
 
 def model_sum(partials: list, bias, residual) -> list:

@@ -14,13 +14,20 @@ gradient is zero, so Adam moves it by nothing, but the decoupled decay
 still shrinks its matrices every step, as optax's ``add_decayed_weights``
 does (``torch.optim`` would skip a parameter whose ``.grad`` is None).
 
-Over a mesh's data axis the batch splits into contiguous chunks, each
-tower runs a chunk on its device with that device's replica, and the
-embeddings are copied, still tracked by autograd, to the first data
-device, where the InfoNCE logits span the WHOLE batch (as JAX's loss over
-a data-sharded batch does); one backward reaches every replica, whose
-gradients are summed in rank order there. ``model_parallel > 1`` raises
-ValueError (ROADMAP A14b).
+Over a mesh the batch splits into contiguous chunks, one a data row,
+each tower runs a chunk on the row's devices, and the embeddings are
+copied, still tracked by autograd, to the first data device, where the
+InfoNCE logits span the WHOLE batch (as JAX's loss over a data-sharded
+batch does); one backward reaches every row. Over the data axis alone
+a row holds a replica (one rank), whose gradients are summed in row
+order there; over the model axis the state is rank trees
+(training/finetune.py: each rank's shard of the towers' split leaves and
+of Adam's moments), the towers run as models/clap.py::audio_embed_tp and
+text_embed_tp, and
+``log_temp``, the patch embedding, the pooling, the projections and the
+layer norms are replicated leaves whose gradient is summed over every
+(row, rank). ``train_text_backbone=False`` detaches each rank's
+backbone shard.
 """
 from __future__ import annotations
 
@@ -32,9 +39,9 @@ import torch
 from ..models import clap as C
 from ..models.minilm import MiniLMConfig, PRESETS as MLM_PRESETS
 from ..models.minilm import init_params as init_minilm
-from ..utils.tree import tree_map, tree_unflatten
-from .finetune import (Optimizer, global_norm, grad_leaves, grads_of,
-                       sum_in_rank_order)
+from ..utils.tree import tree_map
+from .finetune import (Optimizer, accepts_one_tree, batch_rows, grad_rows,
+                       rank_global_norm, row_grads)
 
 
 @dataclass(frozen=True)
@@ -74,61 +81,59 @@ def make_clap_train_step(acfg: C.ClapConfig, tcfg: MiniLMConfig,
     "input_ids" [B, L], "attention_mask" [B, L]} (arrays or tensors) ->
     metrics with loss, in-batch retrieval accuracy (audio->text top-1),
     temperature and the gradients' global norm before clipping.
-    ``mesh``: the step over its data axis (module docstring)."""
+    ``params``: rank trees with their state (``opt.init_ranks``), or one
+    tree with its own; ``mesh``: the step over its rows (module
+    docstring)."""
     tc = train_cfg or ClapTrainConfig()
     opt = clap_optimizer(tc)
 
-    def embeddings(p, mel, ids, mask):
-        az = C.audio_embed(p["audio"], mel, acfg)
-        tb = p["text_backbone"] if tc.train_text_backbone \
-            else tree_map(lambda t: t.detach(), p["text_backbone"])
-        tz = C.text_embed(tb, p["text_proj"], ids, mask, tcfg, acfg)
+    def embeddings(trees, mel, ids, mask):
+        """The row's audio and text embeddings: ``trees`` its rank trees
+        (one without a model axis)."""
+        tbs = [t["text_backbone"] if tc.train_text_backbone
+               else tree_map(lambda x: x.detach(), t["text_backbone"])
+               for t in trees]
+        if len(trees) > 1:
+            az = C.audio_embed_tp([t["audio"] for t in trees], mel, acfg)
+            tz = C.text_embed_tp(tbs, trees[0]["text_proj"], ids, mask,
+                                 tcfg, acfg)
+        else:
+            az = C.audio_embed(trees[0]["audio"], mel, acfg)
+            tz = C.text_embed(tbs[0], trees[0]["text_proj"], ids, mask,
+                              tcfg, acfg)
         return az, tz
 
     def train_step(params, opt_state, batch):
-        dev = params["log_temp"].device
-        dtype = params["audio"]["patch"]["w"].dtype
+        dev = params[0]["log_temp"].device
+        dtype = params[0]["audio"]["patch"]["w"].dtype
         cap = torch.tensor(1.0 / tc.min_temperature, dtype=torch.float32,
                            device=dev)
-        if mesh is None:
-            devs = [dev]
-            cols = {k: [torch.as_tensor(v)] for k, v in batch.items()}
-        else:
-            from ..parallel.mesh import data_sharded
-            devs = mesh.data_devices()
-            cols = {k: data_sharded(mesh, v) for k, v in batch.items()}
+        cols = batch_rows(batch, mesh, dev)
         with torch.inference_mode(False), torch.enable_grad():
-            replicas, azs, tzs = [], [], []
-            for i, d in enumerate(devs):
-                tree, leaves = grad_leaves(
-                    tree_map(lambda x, d=d: x.to(d), params))
-                replicas.append((tree, leaves))
+            rows = grad_rows(params, mesh)
+            azs, tzs = [], []
+            for i, (trees, _) in enumerate(rows):
                 az, tz = embeddings(
-                    tree, cols["mel"][i].to(d, dtype),
-                    cols["input_ids"][i].to(d).long(),
-                    cols["attention_mask"][i].to(d))
+                    trees, cols["mel"][i].to(dtype),
+                    cols["input_ids"][i].long(), cols["attention_mask"][i])
                 azs.append(az.to(dev))
                 tzs.append(tz.to(dev))
             az, tz = torch.cat(azs), torch.cat(tzs)
-            scale = torch.minimum(torch.exp(replicas[0][0]["log_temp"]), cap)
+            scale = torch.minimum(torch.exp(rows[0][0][0]["log_temp"]), cap)
             logits = az @ tz.T * scale
             labels = torch.arange(logits.shape[0], device=dev)
             la = C.optax_softmax_ce(logits, labels)
             lt = C.optax_softmax_ce(logits.T, labels)
             loss = 0.5 * (la + lt)
-            # one backward reaches every replica; each replica's share
-            gs = grads_of(loss, [t for _, lv in replicas for t in lv])
-            n = len(replicas[0][1])
-            parts = [gs[i * n:(i + 1) * n] for i in range(len(replicas))]
-        grads = tree_unflatten(params, sum_in_rank_order(parts, dev))
+            grads = row_grads(loss, params, rows)
         acc = (logits.argmax(dim=-1) == labels).float().mean()
-        gnorm = global_norm(grads)
+        gnorm = rank_global_norm(grads)
         metrics = {"loss": loss.detach(), "in_batch_acc": acc.detach(),
                    "temperature": (1.0 / scale).detach(), "grad_norm": gnorm}
-        params, opt_state = opt.update(grads, opt_state, params, gnorm)
+        params, opt_state = opt.update_ranks(grads, opt_state, params, gnorm)
         return params, opt_state, metrics
 
-    return train_step, opt
+    return accepts_one_tree(train_step), opt
 
 
 def train_clap(
@@ -147,19 +152,20 @@ def train_clap(
     *,
     device: str | torch.device = "cuda",
 ):
-    """Full production loop (data-axis mesh + prefetch + checkpoints),
-    as training/loop.py's; returns (params, steps, losses).
-    ``init_params`` None: init_clap_params from seed 0."""
-    from .loop import run_steps, train_mesh
+    """Full production loop (mesh + prefetch + checkpoints), as
+    training/loop.py's; returns (params, steps, losses), the parameters
+    whole (gathered from the model axis's ranks). ``init_params`` None:
+    init_clap_params from seed 0."""
+    from .loop import place_params, run_steps, train_mesh
     acfg = acfg or C.ClapConfig()
     tcfg = tcfg or MLM_PRESETS["L6"]
-    mesh, dev = train_mesh(n_devices, model_parallel, device, "train_clap")
+    mesh = train_mesh(n_devices, model_parallel, device)
     params = init_params if init_params is not None else \
         init_clap_params(torch.Generator().manual_seed(0), acfg, tcfg)
-    params = tree_map(lambda x: x.to(dev), params)
+    params = place_params(params, mesh, (acfg, tcfg), log_fn, "train_clap")
     train_step, opt = make_clap_train_step(acfg, tcfg, train_cfg, mesh=mesh)
     return run_steps(
-        train_step, params, opt.init(params), batches, checkpoint_dir,
+        train_step, params, opt.init_ranks(params), batches, checkpoint_dir,
         checkpoint_every, resume, log_fn, prefetch, False,
         lambda m: f"acc={float(m['in_batch_acc']):.2f} "
                   f"T={float(m['temperature']):.3f}")

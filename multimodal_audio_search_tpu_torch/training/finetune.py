@@ -22,14 +22,27 @@ the port's trees of tensors (``Optimizer``) rather than ``torch.optim``:
   * a frozen leaf (zero gradient) still takes AdamW's decoupled decay,
     as under optax (training/clap.py's frozen text backbone).
 
-``make_train_step(..., mesh=)`` runs a step over a mesh's data axis
-(parallel/mesh.py): the batch split into contiguous chunks, one replica
-of the parameters a chunk's device, each chunk's ``sum(nll * mask)``
-divided by the WHOLE batch's ``sum(mask)`` (JAX's global masked mean,
-never a mean of chunk means), the chunks' gradients summed in rank order
-on the first data device, where the optimizer runs; the next step
-replicates the updated parameters again. The model axis is not trained
-(ROADMAP A14b: its partial kernels have no backward).
+``make_train_step(..., mesh=)`` runs a step over a mesh (parallel/
+mesh.py): the batch split into contiguous chunks, one a data row, each
+chunk's ``sum(nll * mask)`` divided by the WHOLE batch's ``sum(mask)``
+(JAX's global masked mean, never a mean of chunk means), one backward
+over every row. A step works on rank trees (parallel/mesh.py::as_ranks,
+in ``shard_heads``' layout, on the first data row's model devices): each
+rank holds its shard of every split leaf and a replica of every other,
+in the parameters and in Adam's ``mu`` and ``nu``; without a model axis
+there is one rank, which holds the whole tree on the first data device.
+``loss_and_grads`` and a train step also take one tree, as one rank, and
+hand one tree back. Row i runs its chunk on copies of the rank trees on
+its own model devices (over the model axis models/whisper.py::encode_tp
+with the plain partials and ``decode_train_tp``); a split leaf's
+gradient on rank j is the sum over rows of rank j's, and a leaf that is
+not split gets the sum over every (row, rank), the same sum on every
+rank (JAX's psum of a replicated parameter's gradient: the layer norms,
+the conv stem, the embeddings, the row-parallel biases).
+``rank_global_norm`` counts each split leaf's shards once and each
+replicated leaf once, and the optimizer updates each rank's tree with
+the same norm, count and learning rate (``Optimizer.update_ranks``), so
+the replicas stay bit-equal.
 """
 from __future__ import annotations
 
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 
 from ..models import whisper as W
+from ..parallel.mesh import as_ranks, data_sharded, is_ranks, split_leaves
 from ..utils.tree import (tree_leaves, tree_leaves_with_path, tree_map,
                           tree_unflatten)
 
@@ -151,6 +165,23 @@ def global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
 
 
+def rank_global_norm(grads) -> torch.Tensor:
+    """global_norm of the whole tree that rank trees (as_ranks) hold: each
+    split leaf by its shards, every other leaf once (rank 0's). Each
+    rank's leaf norms are taken on its own device; only those scalars
+    move, to rank 0's device, where they are combined in leaf order (one
+    rank: global_norm's value bit for bit)."""
+    split = split_leaves(grads[0])
+    norms = []
+    for j, g in enumerate(grads):
+        own = [x.float() for x, s in zip(tree_leaves(g), split) if s or not j]
+        norms.append(iter(torch._foreach_norm(own) if own else ()))
+    dev = tree_leaves(grads[0])[0].device
+    return torch.linalg.vector_norm(torch.stack([
+        next(norms[j]).to(dev) for s in split
+        for j in (range(len(grads)) if s else (0,))]))
+
+
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(grad_clip), adamw(lr, b1, b2,
     eps, weight_decay, mask))`` (``grad_clip`` None: no clip;
@@ -159,8 +190,10 @@ class Optimizer:
     ``init(params)`` -> the optax state; ``update(grads, state, params)``
     -> (new params, new state): optax's update and ``apply_updates`` in
     one, under no_grad (``norm``: the gradients' global norm, where the
-    caller has it). ``learning_rate``: a float or a schedule (step ->
-    lr, read at the step's count before it is incremented).
+    caller has it). ``init_ranks`` / ``update_ranks``: the same over rank
+    trees (as_ranks), each rank its own state, every rank the same update
+    with the whole tree's norm. ``learning_rate``: a float or a schedule
+    (step -> lr, read at the step's count before it is incremented).
     ``decay_mask(leaf)`` picks the leaves that take the decay."""
 
     def __init__(self, learning_rate, *, b1: float = 0.9, b2: float = 0.999,
@@ -187,6 +220,14 @@ class Optimizer:
                 else EmptyState()
             inner = (adam, decay, lr_state)
         return inner if self.grad_clip is None else (EmptyState(), inner)
+
+    def init_ranks(self, params) -> np.ndarray:
+        return as_ranks([self.init(p) for p in params])
+
+    def update_ranks(self, grads, state, params, norm) -> tuple:
+        out = [self.update(g, st, p, norm)
+               for g, st, p in zip(grads, state, params)]
+        return as_ranks([o[0] for o in out]), as_ranks([o[1] for o in out])
 
     @torch.no_grad()
     def update(self, grads, state, params, norm=None):
@@ -261,26 +302,108 @@ def grads_of(loss: torch.Tensor, leaves: list) -> list:
             for g, p in zip(gs, leaves)]
 
 
-def sum_in_rank_order(parts: list, device) -> list:
-    """Per-leaf sums of the ranks' gradient lists, in rank order, on
-    ``device`` (the first data device)."""
-    total = [g.to(device) for g in parts[0]]
-    for gs in parts[1:]:
-        total = [a + g.to(device) for a, g in zip(total, gs)]
-    return total
+def grad_rows(params, mesh) -> list:
+    """For each data row of ``mesh`` (one without a mesh), (its trees,
+    their autograd leaves), each a list with one entry a rank: the row's
+    copies of ``params`` on its model devices as fresh autograd leaves
+    (grad_leaves; a copy on the device the parameters lie on shares
+    their storage). ``params``: rank trees (as_ranks); one rank is a
+    replica a row, on the row's first model device."""
+    if mesh is None:
+        devices = [[None] * len(params)]
+    else:
+        devices = [mesh.model_devices(i)[:len(params)]
+                   for i in range(len(mesh.data_devices()))]
+        if len(params) not in (1, len(mesh.model_devices(0))):
+            raise ValueError(f"{len(params)} rank trees for a model axis "
+                             f"of {len(mesh.model_devices(0))}")
+    rows = []
+    for devs in devices:
+        pairs = [grad_leaves(t if d is None else
+                             tree_map(lambda x, d=d: x.to(d), t))
+                 for t, d in zip(params, devs)]
+        rows.append(([t for t, _ in pairs], [lv for _, lv in pairs]))
+    return rows
 
 
-def nll_sum(params, mel: torch.Tensor, tokens: torch.Tensor,
+def sum_rank_grads(params, parts: list) -> np.ndarray:
+    """The gradient of rank trees (as_ranks) from ``parts[i][j]``, row i
+    rank j's gradient leaves: a split leaf's on rank j the sum over rows
+    of rank j's, in row order, on rank j's device; every other leaf the
+    sum over every (row, rank), rows in order and ranks in order within
+    each, the same sum on every rank."""
+    mp = len(params)
+    out = [[None] * len(parts[0][0]) for _ in range(mp)]
+    for k, split in enumerate(split_leaves(params[0])):
+        if split:
+            for j in range(mp):
+                g = parts[0][j][k]
+                for row in parts[1:]:
+                    g = g + row[j][k].to(g.device)
+                out[j][k] = g
+            continue
+        g = parts[0][0][k]
+        for i, row in enumerate(parts):
+            for j in range(mp):
+                if i or j:
+                    g = g + row[j][k].to(g.device)
+        for j in range(mp):
+            out[j][k] = g.to(parts[0][j][k].device)
+    return as_ranks([tree_unflatten(p, gs) for p, gs in zip(params, out)])
+
+
+def row_grads(loss: torch.Tensor, params, rows: list) -> np.ndarray:
+    """d loss / d rank trees ``params`` through every row of grad_rows
+    (one backward), by sum_rank_grads: a replica's gradient (one rank) is
+    the sum over the rows in row order on the first data device."""
+    gs = iter(grads_of(loss, [t for _, lvs in rows for lv in lvs
+                              for t in lv]))
+    parts = [[[next(gs) for _ in lv] for lv in lvs] for _, lvs in rows]
+    return sum_rank_grads(params, parts)
+
+
+def batch_rows(batch: dict, mesh, device) -> dict:
+    """{key: [a chunk a data row]}: the batch's arrays as tensors, one
+    contiguous chunk a data row of ``mesh`` on the row's first model
+    device, or the whole batch on ``device`` without a mesh."""
+    if mesh is None:
+        return {k: [torch.as_tensor(v).to(device)] for k, v in batch.items()}
+    return {k: data_sharded(mesh, torch.as_tensor(v))
+            for k, v in batch.items()}
+
+
+def accepts_one_tree(step: Callable) -> Callable:
+    """``step(params, opt_state, batch)`` over rank trees (as_ranks),
+    taking one tree and its state as well, as one rank, and handing one
+    tree and state back for them."""
+    def train_step(params, opt_state, batch):
+        if is_ranks(params):
+            return step(params, opt_state, batch)
+        params, opt_state, metrics = step(
+            as_ranks([params]), as_ranks([opt_state]), batch)
+        return params[0], opt_state[0], metrics
+    return train_step
+
+
+def nll_sum(trees: list, mel: torch.Tensor, tokens: torch.Tensor,
             loss_mask: torch.Tensor, cfg: W.WhisperConfig,
             label_smoothing: float = 0.0) -> torch.Tensor:
     """sum(nll * loss_mask) of the teacher-forced next-token predictions
-    (caption_loss before its division)."""
-    # fused_attention=False: training differentiates the encoder, and the
-    # kernels have no backward (on the card encode would take K8 at
-    # T >= 512; its wrapper refuses an input that requires grad)
-    enc = W.encode(params, mel, cfg, fused_attention=False)
-    logits = W.decode_train(params, enc, tokens[:, :-1], cfg)   # [B,T-1,V]
-    targets = tokens[:, 1:].long()
+    (caption_loss before its division). ``trees``: one data row's rank
+    trees (one: encode + decode_train; more: encode_tp +
+    decode_train_tp), the inputs on the first rank's device."""
+    # fused_attention=False, fused_blocks=False: training differentiates
+    # the encoder, and the kernels have no backward (on the card encode
+    # would take K8 at T >= 512; its wrapper refuses an input that
+    # requires grad)
+    if len(trees) > 1:
+        encs = W.encode_tp(trees, mel, cfg, fused_attention=False,
+                           fused_blocks=False)
+        logits = W.decode_train_tp(trees, encs, tokens[:, :-1], cfg)
+    else:
+        enc = W.encode(trees[0], mel, cfg, fused_attention=False)
+        logits = W.decode_train(trees[0], enc, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:].long()                              # [B,T-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     if label_smoothing > 0.0:
@@ -301,55 +424,36 @@ def caption_loss(
     mean: sum(nll * m) / max(sum(m), 1); label smoothing mixes in
     -mean(logp) over the vocabulary."""
     m = loss_mask.float()
-    return nll_sum(params, mel, tokens, loss_mask, cfg, label_smoothing) \
+    return nll_sum([params], mel, tokens, loss_mask, cfg, label_smoothing) \
         / torch.clamp(m.sum(), min=1.0)
-
-
-def _batch_on(batch: dict, device, dtype) -> dict:
-    """The batch's arrays as tensors on ``device``, the mel in the
-    parameters' dtype (the conv stem multiplies in the mel's)."""
-    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-    out["mel"] = out["mel"].to(dtype)
-    return out
 
 
 def loss_and_grads(params, batch: dict, cfg: W.WhisperConfig,
                    label_smoothing: float = 0.0, mesh=None):
-    """(caption_loss, its gradient tree) of ``batch`` ({"mel", "tokens",
-    "loss_mask"}, arrays or tensors). ``mesh``: the step over its data
-    axis (module docstring); the loss and gradients on the first data
-    device."""
-    dev = tree_leaves(params)[0].device
-    dtype = params["encoder"]["conv1"]["w"].dtype
+    """(caption_loss, its gradient) of ``batch`` ({"mel", "tokens",
+    "loss_mask"}, arrays or tensors). ``params``: rank trees, or one tree
+    (as one rank; its gradient one tree); ``mesh``: the step over its
+    rows (module docstring). The loss on the first data device, the
+    gradient in the parameters' layout."""
+    if not is_ranks(params):
+        loss, grads = loss_and_grads(as_ranks([params]), batch, cfg,
+                                     label_smoothing, mesh)
+        return loss, grads[0]
+    dev = tree_leaves(params[0])[0].device
+    dtype = params[0]["encoder"]["conv1"]["w"].dtype
     denom = torch.clamp(torch.as_tensor(batch["loss_mask"]).float().sum(),
                         min=1.0)
+    cols = batch_rows(batch, mesh, dev)
     with torch.inference_mode(False), torch.enable_grad():
-        if mesh is None or len(mesh.data_devices()) == 1:
-            b = _batch_on(batch, dev, dtype)
-            tree, leaves = grad_leaves(params)
-            loss = nll_sum(tree, b["mel"], b["tokens"], b["loss_mask"], cfg,
-                           label_smoothing) / denom.to(dev)
-            grads = grads_of(loss, leaves)
-        else:
-            from ..parallel.mesh import data_sharded
-            devs = mesh.data_devices()
-            chunks = {k: data_sharded(mesh, torch.as_tensor(v))
-                      for k, v in batch.items()}
-            losses, parts = [], []
-            for i, d in enumerate(devs):
-                tree, leaves = grad_leaves(
-                    tree_map(lambda x, d=d: x.to(d), params))
-                mel = chunks["mel"][i].to(dtype)
-                s = nll_sum(tree, mel, chunks["tokens"][i],
-                            chunks["loss_mask"][i], cfg,
-                            label_smoothing) / denom.to(d)
-                parts.append(grads_of(s, leaves))
-                losses.append(s.detach())
-            loss = losses[0].to(dev)
-            for s in losses[1:]:
-                loss = loss + s.to(dev)
-            grads = sum_in_rank_order(parts, dev)
-    return loss.detach(), tree_unflatten(params, grads)
+        rows = grad_rows(params, mesh)
+        loss = None
+        for i, (trees, _) in enumerate(rows):
+            s = nll_sum(trees, cols["mel"][i].to(dtype), cols["tokens"][i],
+                        cols["loss_mask"][i], cfg, label_smoothing)
+            s = (s / denom.to(s.device)).to(dev)
+            loss = s if loss is None else loss + s
+        grads = row_grads(loss, params, rows)
+    return loss.detach(), grads
 
 
 def make_train_step(
@@ -361,15 +465,17 @@ def make_train_step(
     -> (params, opt_state, metrics): the new parameters and state (the
     old tensors are left to the caller), metrics {"loss", "grad_norm"} as
     0-dim tensors, ``grad_norm`` the global norm BEFORE clipping.
-    ``mesh``: the step over its data axis (module docstring)."""
+    ``params`` rank trees with their state (``opt.init_ranks``), or one
+    tree with its own; ``mesh``: the step over its rows (module
+    docstring)."""
     tcfg = tcfg or TrainConfig()
     opt = make_optimizer(tcfg)
 
     def train_step(params, opt_state, batch) -> tuple[Any, Any, dict]:
         loss, grads = loss_and_grads(params, batch, cfg,
                                      tcfg.label_smoothing, mesh)
-        gnorm = global_norm(grads)
-        params, opt_state = opt.update(grads, opt_state, params, gnorm)
+        gnorm = rank_global_norm(grads)
+        params, opt_state = opt.update_ranks(grads, opt_state, params, gnorm)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
-    return train_step, opt
+    return accepts_one_tree(train_step), opt

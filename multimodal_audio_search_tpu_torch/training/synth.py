@@ -11,13 +11,17 @@ The clip generator and the vocabulary (``_tone`` ... ``make_clip``,
 ``SynthVocab``) are copies of the JAX module's numpy code, held
 identical by tests/test_torch_copies.py, so one seed gives both packages
 the same clips. ``train_synth_captioner`` runs training/finetune.py's
-step (over a mesh's data axis with ``mesh``) on the card unless the
-caller asks for the CPU; ``transcribe`` decodes through the serving
-pipeline (pipelines/whisper_pipeline.py), whose kernels it therefore
-runs on the card: K1 with ``fused_encoder=None`` (or True), K2 in every
-decode step. It decodes in the device's dtype (bf16 on the card, where
-K1 and K2 take bf16; float32 on the CPU) unless ``dtype`` says
-otherwise; JAX's decodes in float32.
+step (over a mesh with ``mesh``: its data axis, and its model axis with
+the state in rank trees, where JAX replicates over that axis; both
+compute the same function) on the card unless the caller asks for the
+CPU, and hands back the whole tree; ``transcribe`` decodes through the
+serving pipeline (``synth_pipeline``: pipelines/whisper_pipeline.py),
+whose kernels it therefore runs on the card: K1 with
+``fused_encoder=None`` (or True), K2 in every decode step;
+``synth_pipeline`` over a mesh with a model axis, K1p and K2 on head
+shards. It decodes in the device's dtype (bf16 on the card, where K1 and
+K2 take bf16; float32 on the CPU) unless ``dtype`` says otherwise; JAX's
+decodes in float32.
 """
 from __future__ import annotations
 
@@ -179,13 +183,15 @@ def train_synth_captioner(
     function draws them, AdamW under warmup_cosine (warmup min(20,
     max(1, steps // 4)), no decay), as JAX's.
 
-    ``mesh``: a parallel/mesh.py mesh whose data axis the step runs over
-    (parameters replicated, the batch split; its first data device holds
-    the parameters, in place of ``device``). ``dtype`` casts the
-    parameters for training (e.g. torch.bfloat16; layer-norm scales stay
-    float32); the mel is cast to it. ``params_init`` resumes from trained
-    parameters (optimizer and schedule restart). ``save_cb(step, params,
-    losses)`` fires every ``save_every`` steps. ``transfer_int16`` ships
+    ``mesh``: a parallel/mesh.py mesh the step runs over (the batch
+    split over its data rows; the parameters replicated, or, over a model
+    axis the preset splits into, rank trees on the first row's model
+    devices, training/loop.py::place_params; in place of ``device``).
+    ``dtype`` casts the parameters for training (e.g. torch.bfloat16;
+    layer-norm scales stay float32); the mel is cast to it.
+    ``params_init`` resumes from trained parameters (optimizer and
+    schedule restart). ``save_cb(step, params, losses)`` fires every
+    ``save_every`` steps with the whole parameters. ``transfer_int16`` ships
     each step's waveforms as int16 and dequantizes on the device (the
     ingest default's round trip). Production geometry: ``preset="tiny",
     clip_seconds=10, mel_seconds=30, n_events=(2, 6)``."""
@@ -193,7 +199,9 @@ def train_synth_captioner(
     from ..config import MelConfig
     from ..models import layers as L
     from ..ops.mel import log_mel_spectrogram
+    from ..parallel.mesh import gather_heads
     from .finetune import TrainConfig, make_train_step
+    from .loop import place_params
 
     cfg = W.PRESETS[preset]
     if mel_seconds * 50 > cfg.enc_positions:
@@ -208,13 +216,13 @@ def train_synth_captioner(
     mel_cfg = MelConfig(padded_seconds=mel_seconds)
     params = (params_init if params_init is not None
               else W.init_params(torch.Generator().manual_seed(seed), cfg))
-    params = L.cast_floats(params, dtype, dev) if dtype is not None \
-        else L.cast_floats(params, torch.float32, dev)
+    params = place_params(L.cast_floats(params, dtype or torch.float32, dev),
+                          mesh, (cfg,), print, "train_synth_captioner")
     tcfg = TrainConfig(learning_rate=lr, schedule="warmup_cosine",
                        warmup_steps=min(20, max(1, steps // 4)),
                        total_steps=steps, weight_decay=0.0)
     train_step, opt = make_train_step(cfg, tcfg, mesh=mesh)
-    opt_state = opt.init(params)
+    opt_state = opt.init_ranks(params)
 
     rng = np.random.default_rng(seed)
     losses = []
@@ -233,10 +241,56 @@ def train_synth_captioner(
         params, opt_state, metrics = train_step(params, opt_state, b)
         losses.append(float(metrics["loss"]))
         if save_cb is not None and save_every and (step + 1) % save_every == 0:
-            save_cb(step + 1, params, losses)
-    return SynthModel(params=params, cfg=cfg, vocab=vocab,
+            save_cb(step + 1, gather_heads(params), losses)
+    return SynthModel(params=gather_heads(params), cfg=cfg, vocab=vocab,
                       mel_seconds=mel_seconds, losses=losses,
                       n_events=n_events)
+
+
+def synth_pipeline(
+    model: SynthModel,
+    mel_seconds: float | None = None,
+    max_new: int | None = None,
+    dtype=None,
+    fused_encoder: bool | str | None = False,
+    device: str | torch.device | None = None,
+    mesh=None,
+):
+    """The serving pipeline ``transcribe`` decodes through: the PRODUCTION
+    WhisperTextPipeline (the engine's), greedy, prompted by <sot>, at an
+    optionally overridden mel context (the short_context lever), compute
+    dtype (default: the device's, runtime.default_dtype), or encoder path
+    (``fused_encoder`` None or True: K1; False: the plain encoder, or K8
+    on the card at T >= 512). ``device``: where to decode (default: where
+    the model's parameters lie); ``mesh``: decode over it
+    (WhisperTextPipeline.use_mesh: over a model axis each rank's heads,
+    K1p and K2 on head shards)."""
+    from ..config import DecodeConfig, MelConfig
+    from ..pipelines.whisper_pipeline import WhisperTextPipeline
+
+    if device is None:
+        device = model.params["decoder"]["embed_tokens"].device
+    pipe = WhisperTextPipeline(
+        params=model.params, cfg=model.cfg, tokenizer=model.vocab,
+        decode=DecodeConfig(max_new_tokens=model.max_new if max_new is None
+                            else max_new,
+                            fused_encoder=fused_encoder),
+        mel_cfg=MelConfig(
+            padded_seconds=mel_seconds or model.mel_seconds),
+        prefix_ids=[model.cfg.bos_token_id],
+        dtype=dtype, name="synth", device=device)
+    if mesh is not None:
+        pipe.use_mesh(mesh)
+    return pipe
+
+
+def pad_waves(waves, n_samples: int) -> np.ndarray:
+    """Each wave cut or zero-padded to ``n_samples``: [n, n_samples]."""
+    pad = np.zeros((len(waves), n_samples), np.float32)
+    for i, w in enumerate(waves):
+        m = min(len(w), n_samples)
+        pad[i, :m] = w[:m]
+    return pad
 
 
 def transcribe(
@@ -248,31 +302,8 @@ def transcribe(
     fused_encoder: bool | str | None = False,
     device: str | torch.device | None = None,
 ) -> list[str]:
-    """Greedy decode through the PRODUCTION pipeline machinery (the same
-    WhisperTextPipeline the engine uses), at an optionally overridden mel
-    context (the short_context lever), compute dtype (default: the
-    device's, runtime.default_dtype), or encoder path (``fused_encoder``
-    None or True: K1; False: the plain encoder, or K8 on the card at
-    T >= 512). ``device``: where to decode (default: where the model's
-    parameters lie)."""
-    from ..config import DecodeConfig, MelConfig
-    from ..pipelines.whisper_pipeline import WhisperTextPipeline
-
-    if max_new is None:
-        max_new = model.max_new
-    if device is None:
-        device = model.params["decoder"]["embed_tokens"].device
-    pipe = WhisperTextPipeline(
-        params=model.params, cfg=model.cfg, tokenizer=model.vocab,
-        decode=DecodeConfig(max_new_tokens=max_new,
-                            fused_encoder=fused_encoder),
-        mel_cfg=MelConfig(
-            padded_seconds=mel_seconds or model.mel_seconds),
-        prefix_ids=[model.cfg.bos_token_id],
-        dtype=dtype, name="synth", device=device)
-    n = len(waves)
-    pad = np.zeros((n, pipe.mel_cfg.n_samples), np.float32)
-    for i, w in enumerate(waves):
-        m = min(len(w), pad.shape[1])
-        pad[i, :m] = w[:m]
-    return pipe.transcribe_batch(pad)
+    """Greedy transcripts of ``waves`` through synth_pipeline (its
+    arguments; one device)."""
+    pipe = synth_pipeline(model, mel_seconds, max_new, dtype, fused_encoder,
+                          device)
+    return pipe.transcribe_batch(pad_waves(waves, pipe.mel_cfg.n_samples))

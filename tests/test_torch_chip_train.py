@@ -3,7 +3,10 @@
 MiniLM, a small bridge set), and its checks held to planted faults: the
 comparison rules of ``leaves_rel_err``, a resumed run that lost its
 optimizer state, and a split step that averages its chunks' means
-instead of the batch's global masked mean."""
+instead of the batch's global masked mean; and the model axis's part
+(``train_tp_check``) rehearsed whole, held to a step that leaves a
+replicated leaf's gradient as rank 0's share, without the sum over the
+ranks."""
 import dataclasses
 
 import pytest
@@ -13,6 +16,7 @@ import chip_smoke as C
 from multimodal_audio_search_tpu_torch.models import clap as MC
 from multimodal_audio_search_tpu_torch.models import minilm
 from multimodal_audio_search_tpu_torch.models import whisper as W
+from multimodal_audio_search_tpu_torch.parallel import mesh as M
 from multimodal_audio_search_tpu_torch.training import finetune as FT
 from multimodal_audio_search_tpu_torch.utils.checkpoint import (
     TrainCheckpointer)
@@ -35,7 +39,9 @@ def toy(monkeypatch):
     for name, v in (("TRAIN_PRESET", "test"), ("TRAIN_B", 4),
                     ("TRAIN_PROD_STEPS", 3), ("TRAIN_CKPT_K", 2),
                     ("TRAIN_CLAP_B", 4), ("TRAIN_CLAP_STEPS", 3),
-                    ("TRAIN_CLAP_LR", 3e-3), ("TRAIN_BRIDGE_N", 256)):
+                    ("TRAIN_CLAP_LR", 3e-3), ("TRAIN_BRIDGE_N", 256),
+                    ("TRAIN_TP_STEPS", 1), ("TRAIN_TP_SYNTH_STEPS", 60),
+                    ("TRAIN_TP_SYNTH_LR", 3e-3)):
         monkeypatch.setattr(C, name, v)
     monkeypatch.setitem(minilm.PRESETS, "L6", minilm.PRESETS["test"])
     small = dataclasses.replace(MC.ClapConfig(), embed_dim=32, d_model=16,
@@ -92,3 +98,27 @@ def test_split_check_catches_a_mean_of_chunk_means(toy, monkeypatch):
                           W.PRESETS["test"])
     with pytest.raises(AssertionError, match="loss_rel|grad_rel"):
         C.train_split_check(CARD, fresh, "cpu")
+
+
+def test_tp_part_rehearsed_on_cpu(toy):
+    """train_tp_check whole on the CPU: the (1, 2) and (2, 2) steps
+    against the unsplit one, the synthetic captioner trained at (1, 2)
+    and transcribed through the TP pipeline, the checkpoint resumed and
+    loaded at mp = 1, CLAP at (1, 2)."""
+    C.train_tp_check(CARD, "cpu")
+
+
+def test_tp_check_catches_a_replicated_leaf_without_its_sum(toy,
+                                                             monkeypatch):
+    """Each leaf that is not split takes rank 0's share of its gradient
+    alone (the layer norms' scales lose the other ranks' terms): the
+    (1, 2) step's gradients leave the unsplit step's."""
+    def rank0_share(params, parts):
+        split = M.split_leaves(params[0])
+        return orig(params, [[r if j == 0 else [
+            g if s else torch.zeros_like(g) for g, s in zip(r, split)]
+            for j, r in enumerate(row)] for row in parts])
+    orig = FT.sum_rank_grads
+    monkeypatch.setattr(FT, "sum_rank_grads", rank0_share)
+    with pytest.raises(AssertionError, match="grad_rel"):
+        C.train_tp_check(CARD, "cpu")

@@ -684,21 +684,14 @@ def test_device_policy():
     dict(model_parallel=2,
          caption_decode=tcfg.DecodeConfig(fused_encoder="int8")),
     dict(model_parallel=2, asr_decode=tcfg.DecodeConfig(method="sample")),
-    # training over the model axis (ROADMAP A14b): the training entry
-    # points refuse it with ValueError
+    # training over the model axis runs since ROADMAP A14b: each entry
+    # trains at model_parallel=2 as at model_parallel=1
     dict(model_parallel=2, training="finetune_captioner"),
     dict(model_parallel=2, training="train_clap"),
 ])
-def test_unported_modes_raise(change):
+def test_unported_modes_raise(change, tmp_path):
     if "training" in change:
-        from multimodal_audio_search_tpu_torch.training import clap, loop
-        entry = {"finetune_captioner": lambda: loop.finetune_captioner(
-                     [], W.PRESETS["test"], model_parallel=2, n_devices=4,
-                     device="cpu"),
-                 "train_clap": lambda: clap.train_clap(
-                     [], model_parallel=2, n_devices=4, device="cpu")}
-        with pytest.raises(ValueError, match="A14b"):
-            entry[change["training"]]()
+        _trains_over_the_model_axis(change["training"], tmp_path)
         return
     cfg = tcfg.EngineConfig().replace(
         asr_model=tcfg.ModelSpec(family="whisper", preset="test"),
@@ -728,6 +721,104 @@ def test_unported_modes_raise(change):
     keys = ("segment_id", "start_time", "asr_text", "audio_description")
     assert [[s[k] for k in keys] for s in segs[2]] == \
         [[s[k] for k in keys] for s in segs[1]] and segs[1]
+
+
+def _trains_over_the_model_axis(entry: str, tmp_path) -> None:
+    """``entry`` at (2, 2) against (2, 1) over three steps of the same
+    batches: the losses within 1e-5 (relative); the parameters, leaving
+    out the entries whose RMS gradient (sqrt of the (2, 1) run's Adam nu)
+    is under 1e-6 of the tree's largest (tests/test_torch_training.py's
+    rule), no further from the (2, 1) run's, as a share of each leaf's
+    max, than the farther of two reorderings of the (2, 1) run: on
+    permuted parameters (the heads and MLP units reordered: the same
+    function with the sums the model axis splits in another order), and
+    on the batches' rows reversed. Measured: finetune_captioner 2.32e-5
+    (permuted 3.00e-5, reversed 2.11e-5), train_clap 7.86e-6 (6.40e-6,
+    9.82e-6); the captioner's first-step gradients agree within 6.2e-7 of
+    each leaf's max. 3e-6 cannot hold here: Adam turns a gradient's
+    rounding into an update of up to about lr. The (2, 2) run takes the
+    TP forward (decode_train_tp or audio_embed_tp) once a data row of
+    each step, the (2, 1) run never."""
+    from unittest import mock
+
+    from multimodal_audio_search_tpu_torch.models import clap as MC
+    from multimodal_audio_search_tpu_torch.training import clap, loop
+    from multimodal_audio_search_tpu_torch.utils.tree import (
+        path_str, tree_leaves_with_path)
+    from test_torch_training_tp import permuted
+    rng = np.random.default_rng(3)
+    forward = (W, "decode_train_tp") if entry == "finetune_captioner" \
+        else (MC, "audio_embed_tp")
+    if entry == "finetune_captioner":
+        cfg = W.PRESETS["test"]
+        init = W.init_params(torch.Generator().manual_seed(0), cfg)
+        batches = []
+        for _ in range(3):
+            mask = np.ones((4, 7), np.float32)
+            mask[1, 3:] = mask[2, 5:] = 0.0
+            batches.append({
+                "mel": rng.normal(size=(4, 80, 200)).astype(np.float32),
+                "tokens": rng.integers(0, 500, (4, 8)).astype(np.int32),
+                "loss_mask": mask})
+
+        def run(mp, params, name):
+            r = loop.finetune_captioner(
+                batches, cfg, init_params=params, n_devices=2 * mp,
+                model_parallel=mp, device="cpu", log_fn=lambda s: None,
+                checkpoint_dir=str(tmp_path / name))
+            return r.params, r.losses
+    else:
+        acfg = MC.ClapConfig(embed_dim=32, d_model=16, layers=1, heads=2,
+                             ffn=32, n_mels=8, patch_frames=4,
+                             max_patches=16)
+        mcfg = M.MiniLMConfig(vocab_size=64, hidden=16, layers=1, heads=2,
+                              intermediate=32)
+        init = clap.init_clap_params(torch.Generator().manual_seed(0), acfg,
+                                     mcfg)
+        batches = [{"mel": rng.normal(size=(8, 8, 32)).astype(np.float32),
+                    "input_ids": rng.integers(4, 64, (8, 6)),
+                    "attention_mask": np.ones((8, 6), np.int64)}
+                   for _ in range(3)]
+
+        def run(mp, params, name):
+            params, _, losses = clap.train_clap(
+                batches, acfg, mcfg, clap.ClapTrainConfig(learning_rate=3e-3),
+                init_params=params, n_devices=2 * mp, model_parallel=mp,
+                device="cpu", log_fn=lambda s: None,
+                checkpoint_dir=str(tmp_path / name))
+            return params, losses
+
+    def flat(tree):
+        return {path_str(p): x.numpy()
+                for p, x in tree_leaves_with_path(tree)}
+    calls = []
+    for mp, name in ((1, "one"), (2, "tp")):
+        with mock.patch.object(*forward, wraps=getattr(*forward)) as f:
+            calls.append((run(mp, init, name), f.call_count))
+    ((p1, l1), n1), ((p2, l2), n2) = calls
+    assert (n1, n2) == (0, 3 * 2)
+    np.testing.assert_allclose(l2, l1, rtol=1e-5)
+    z = np.load(tmp_path / "one" / "step_00000003.opt.npz")
+    rms = {k[len("1/0/.nu/"):]: np.sqrt(z[k]) for k in z.files
+           if k.startswith("1/0/.nu/")}
+    top = max(float(r.max()) for r in rms.values())
+    want = flat(p1)
+
+    def gap(got):
+        assert got.keys() == want.keys()
+        worst = 0.0
+        for k, w in want.items():
+            err = np.abs(got[k] - w)[rms[k] >= 1e-6 * top]
+            if err.size:
+                worst = max(worst, float(err.max() / np.abs(w).max()))
+        return worst
+    reordered = [flat(permuted(run(1, permuted(init), "perm")[0], True))]
+    batches = [{k: v[::-1].copy() for k, v in b.items()} for b in batches]
+    reordered.append(flat(run(1, init, "reversed")[0]))
+    witness = [gap(r) for r in reordered]
+    print(f"{entry}: (2, 2) {gap(flat(p2)):.3g}, permuted {witness[0]:.3g}, "
+          f"rows reversed {witness[1]:.3g}")
+    assert 0 < gap(flat(p2)) <= max(witness)
 
 
 # ------------------------------------------------------- jax not needed

@@ -18,7 +18,8 @@ data-parallel ingest), ``tp`` the mesh's model axis (the partial
 kernels K1p, K3p, K4p, K9p and K10p, K2, K5, K6 and K7 on shards, the
 engines of chip_smoke.TP_PATHS at (1, 2) and (2, 2)), ``train`` the training subsystem (the synthetic captioner
 trained and transcribed through K1 and K2, the production geometry, the
-data axis, checkpoints, CLAP and the bridge).
+data axis, the model axis on the card named twice, checkpoints, CLAP and
+the bridge).
 """
 import os
 import sys
