@@ -257,6 +257,24 @@ Phases, one line each (``[phase] ...``):
    pairs, the in-batch accuracy rising; train_bridge_check: train_bridge
    on TRAIN_BRIDGE_N features for 50 epochs, the loss falling.
 
+14. drift (``[drift]``, inside 13, after train_split_check; it trains
+   nothing): train_synth_check's captioner measured by
+   tools/torch_synth_drift.py (its ``measure``) on DRIFT_CLIPS held-out
+   clips from their own generator, every default row and the port's
+   extra rows; one line a row with its agreement with the parity row
+   (exact, token F1), its exact rate against the truth, its dtype and
+   the launches it made by kernel. Each lever row must launch its lever's
+   kernels (DRIFT_LEVERS), the float32 parity row none of them (and K2's
+   float32 form), each lever row must agree with the bf16 row on at
+   least DRIFT_LEVER_AGREE of the clips, int16 must give the parity row's
+   texts, every text must be in the grammar. On the card the kernels at
+   the rows' shapes are held against their plain versions
+   (drift_kernel_checks: K2's and K8's float32 forms, K6, K7 and K9 at
+   100 keys / T=100).
+   Then tools/torch_bigindex_drift.py at DRIFT_BIG_N rows (D=384; ~1.5 GB
+   of temporary files, removed): the bf16 and int8 host indexes' recall@10
+   against float32's must meet DRIFT_RECALL_FLOOR.
+
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14, then K9p and K10p), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
@@ -5490,8 +5508,166 @@ def train_bridge_check(card: str, device="cuda") -> None:
     assert losses[-1] < losses[0], losses
 
 
+DRIFT_CLIPS = 64
+DRIFT_SEED = 7             # the held-out clips' own generator
+# each lever row's exact agreement with the row of its dtype (bf16 on the
+# card, where the levers' kernels take bf16; parity on the CPU): a lever
+# kernel that goes wrong at the drift shapes (T=100, 100 cross keys) and
+# still yields texts in the grammar shows here. Every lever read 1.000 on
+# the H100 (PERF.md §6)
+DRIFT_LEVER_AGREE = 0.9
+# K2's and K8's float32 forms against their plain versions: the same
+# float32 products and sums in another order (K2's splits, K8's online
+# softmax) and the kernels' expf against torch's exp
+F32_ATT_ATOL, F32_ATT_RTOL = 2e-5, 2e-5
+DRIFT_BIG_N = 100_000
+DRIFT_BIG_QUERIES = 50
+# recall@10 against the float32 index, below the CPU run's at 20k rows
+# (bf16 0.994, int8 0.986; PERF.md §6)
+DRIFT_RECALL_FLOOR = {"bfloat16": 0.97, "int8": 0.95}
+# the kernels each lever row of tools/torch_synth_drift.py must launch
+DRIFT_LEVERS = {"fused_enc": ("K1",), "int8_enc": ("K9",),
+                "paired": ("K10",), "int8_dec": ("K5",),
+                "int8_fused": ("K5", "K6"), "int8_kv": ("K5", "K7"),
+                "fused_layer": ("K3", "K4"), "v2": ("K3-q", "K4-o")}
+
+
+def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int):
+    """q, k, v ~ N(0, 1) in float32 as the encoder hands them to K8: the
+    head-split [B, H, T, 64] views of [B, T, H*64] buffers."""
+    return tuple(torch.randn(b, t, heads * 64, generator=gen).cuda()
+                 .view(b, t, heads, 64).transpose(1, 2) for _ in range(3))
+
+
+def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
+    """[drift]'s kernels at the shapes its rows give them, each against
+    its plain version: K2's float32 form over ``t`` cross keys and a self
+    cache (the float32 rows), K8's float32 form at T=``t`` and 1500 (the
+    float32 rows of the tool's --production), K6 and K7 over ``t`` keys,
+    K9 at T=``t`` (a 64-key tile and a partial one), B=``b`` clips."""
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    gen = torch.Generator().manual_seed(DRIFT_SEED)
+    hd = heads * 64
+    tol = [F32_ATT_ATOL, F32_ATT_RTOL]
+    for label, n, pos in (("cross", t, None), ("self", 32, 0),
+                          ("self", 32, 31)):
+        q, k, v = (a.float() for a in k2_inputs(gen, b, n, heads))
+        fn = (lambda: CX.fused_single_query_attention(q, k, v, heads=heads,
+                                                      pos=pos))
+        plain = (lambda: CX.single_query_attention_plain(
+            q, k, v, heads=heads, pos=pos))
+        got = fn()
+        err = check_close(f"K2 float32 {label} pos={pos}", got, plain(),
+                          *tol)
+        keys = n if pos is None else pos + 1
+        phase("drift", card=card, kernel="K2 float32", tol=tol,
+              shape=f"{label} B={b} T={n} H={heads} pos={pos}",
+              max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+              **bound(nbytes(q, got) + 2 * b * keys * hd * 4,
+                      f32=4 * b * keys * hd))
+    for n, bb in ((t, b), (1500, 8)):
+        q, k, v = _f32_heads(gen, bb, n, heads)
+        fn = (lambda: A.fused_encoder_attention(q, k, v))
+        plain = (lambda: A.encoder_attention_plain(q, k, v))
+        got = fn()
+        err = check_close(f"K8 float32 T={n}", got, plain(), *tol)
+        phase("drift", card=card, kernel="K8 float32", tol=tol,
+              shape=f"B={bb} T={n} H={heads}", max_abs_err=err,
+              ms=time_ms(fn), plain_ms=time_ms(plain, reps=5),
+              **bound(4 * nbytes(q), f32=4 * bb * heads * n * n * 64))
+    del q, k, v, got
+    args = k6_inputs(gen, b, t, heads)
+    phase("drift", card=card, kernel="K6", shape=f"B={b} T={t} H={heads}",
+          **check_rel("K6 drift", CX.fused_single_query_attention_int8(
+              *args, heads=heads), CX.single_query_attention_int8_plain(
+              *args, heads=heads), INT8_ATT_MAX, INT8_ATT_L2))
+    args = k7_inputs(gen, b, t, heads)
+    phase("drift", card=card, kernel="K7", shape=f"B={b} T={t} H={heads}",
+          **check_rel("K7 drift", CA.int8_cached_attention(*args),
+                      CA.int8_cached_attention_plain(*args), INT8_ATT_MAX,
+                      INT8_ATT_L2))
+    for inputs, q_scale, residual in K1_CASES:
+        q, k, v, x, wo, bo = k1_inputs(gen, b, t, heads, q_scale=q_scale,
+                                       residual=residual)
+        args9 = (q, *CA.quantize_kv(k, v), x, wo, bo)
+        got = EB.attention_o_residual_int8(*args9)
+        phase("drift", card=card, kernel="K9", inputs=inputs,
+              shape=f"B={b} T={t} H={heads}",
+              **check_k1(f"K9 drift {inputs}", got,
+                         EB.attention_o_residual_int8_plain(*args9),
+                         residual),
+              repeats_equal=check_repeats(
+                  f"K9 drift {inputs}",
+                  lambda: EB.attention_o_residual_int8(*args9), got,
+                  K9_REPEATS))
+    del args, args9, got
+    torch.cuda.empty_cache()
+
+
+def drift_phase(card: str, model, device="cuda") -> dict:
+    """[drift]: the trained captioner's rows, then the host index's
+    storage dtypes (module docstring, 14). Returns the rows' modes."""
+    from multimodal_audio_search_tpu_torch.training.synth import SynthVocab
+    tool = load_tool("torch_synth_drift")
+    waves, truths = tool.held_out(np.random.default_rng(DRIFT_SEED),
+                                  DRIFT_CLIPS, 1.0, model.n_events)
+    rows = tool.select_rows(extra=True)
+    short_s = tool.short_context_seconds(1.0, model.mel_seconds)
+    modes, details = tool.measure(model, waves, truths, rows, device,
+                                  short_s)
+    names = {v: k for k, v in KEYS.items()}
+    launched = {r: {names.get(k, k): n for k, n in d["launches"].items()}
+                for r, d in details.items()}
+    words = set(SynthVocab.WORDS)
+    outside = {r: [t for t in d["texts"] if not set(t.split()) <= words]
+               for r, d in details.items()}
+    for r in rows:
+        d = details[r]
+        phase("drift", card=card, row=r, **modes[r], dtype=d["dtype"],
+              device=d["device"], fused_encoder=d["fused_encoder"],
+              seconds=d["seconds"], launches=launched[r],
+              outside_grammar=len(outside[r]))
+    phase("drift", card=card, clips=DRIFT_CLIPS, short_context_s=short_s,
+          sample=list(zip(truths, details["parity"]["texts"]))[:6])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:                                  # the CPU runs the twins
+        for r, kernels in DRIFT_LEVERS.items():
+            missing = [k for k in kernels if not launched[r].get(k)]
+            assert not missing, f"{r} did not launch {missing}: {launched[r]}"
+        levers = {k for ks in DRIFT_LEVERS.values() for k in ks}
+        assert not levers & set(launched["parity"]), launched["parity"]
+        assert launched["parity"].get("K2"), launched["parity"]
+    ref = details["bf16" if on_card else "parity"]["texts"]
+    agree = {r: float(np.mean([a == b for a, b in zip(details[r]["texts"],
+                                                      ref)]))
+             for r in DRIFT_LEVERS}
+    phase("drift", card=card, lever_agree_with="bf16" if on_card
+          else "parity", floor=DRIFT_LEVER_AGREE, agree=agree)
+    low = {r: a for r, a in agree.items() if a < DRIFT_LEVER_AGREE}
+    assert not low, f"lever rows under {DRIFT_LEVER_AGREE}: {low}"
+    assert details["int16"]["texts"] == details["parity"]["texts"], [
+        (a, b) for a, b in zip(details["int16"]["texts"],
+                               details["parity"]["texts"]) if a != b]
+    assert not any(outside.values()), outside
+    if on_card:
+        from multimodal_audio_search_tpu_torch.config import MelConfig
+        t_enc = MelConfig(padded_seconds=model.mel_seconds).n_frames // 2
+        drift_kernel_checks(card, DRIFT_CLIPS, t_enc, model.cfg.heads)
+    big = load_tool("torch_bigindex_drift").run(
+        DRIFT_BIG_N, 384, DRIFT_BIG_QUERIES, device=device)
+    phase("drift", card=card, part="bigindex", **big)
+    for dtype, floor in DRIFT_RECALL_FLOOR.items():
+        got = big["modes"][dtype]["recall@10"]
+        assert got >= floor, f"{dtype} recall@10 {got} under {floor}"
+    return modes
+
+
 def train_phase(card: str, device="cuda") -> None:
-    """[train]: the seven parts above, in order, the seconds of each."""
+    """[train]: the seven parts above, in order, the seconds of each, and
+    [drift] on the synthetic captioner of the first."""
     t0 = time.perf_counter()
     marks = {}
     m = train_synth_check(card, device)
@@ -5500,6 +5676,8 @@ def train_phase(card: str, device="cuda") -> None:
     marks["production"] = time.perf_counter() - t0
     train_split_check(card, m.params, device)
     marks["data_axis"] = time.perf_counter() - t0
+    drift_phase(card, m, device)
+    marks["drift"] = time.perf_counter() - t0
     del m
     train_tp_check(card, device)
     marks["model_axis"] = time.perf_counter() - t0

@@ -5,7 +5,11 @@
 // cache); n_valid = T attends every key (cross attention). Output is
 // [B, H*64] float32: softmax and both products run in f32 on the bf16
 // inputs, and the result is not rounded back to bf16 (the caller rounds
-// it into the o-projection's input dtype right after).
+// it into the o-projection's input dtype right after). A float32 form of
+// the same kernel (mas_single_query_attention_f32) takes float32 q, k and
+// v, as the TPU kernel takes either dtype: a float32 decode on the card
+// runs it; it stages 64 keys at a time, half the rows, so that its
+// shared memory stays that of the bf16 form.
 //
 // Replaces the Pallas kernel multimodal_audio_search_tpu/ops/
 // cross_attention.py::fused_single_query_attention (body _kernel,
@@ -54,9 +58,26 @@ using namespace sm90;
 constexpr int D = 64;
 constexpr int NT = 128;
 constexpr int GROUPS = NT / 8;          // key rows per pass, 8 lanes a row
-constexpr int PASSES = 8;
-constexpr int CHUNK = GROUPS * PASSES;  // keys staged in shared memory at once
 constexpr int PART = D + 2;             // floats of a split's state: m, l, acc
+
+// Eight consecutive elements of a head's slice, as floats.
+__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
+  bf16x8_to_f32(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load8(const float* p, float f[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+// Eight consecutive elements copied to shared memory, asynchronously.
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void copy8(float* dst, const float* src) {
+  cp_async16(dst, src);
+  cp_async16(dst + 4, src + 4);
+}
 
 // Weight of a state with max m in a merge whose max is mx (0 for an empty
 // state, m = -inf, even when mx is -inf too).
@@ -64,11 +85,15 @@ __device__ __forceinline__ float weight(float m, float mx) {
   return m == -INFINITY ? 0.f : expf(m - mx);
 }
 
+// E: the element type of q, k and v; PASSES: the passes of GROUPS rows a
+// block stages before it computes (CHUNK keys).
+template <typename E, int PASSES>
 __global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, float* __restrict__ out, float* part,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, float* __restrict__ out, float* part,
     int* counters, int T, int HD, int n_valid, int chunk, float scale) {
-  __shared__ __align__(16) bf16 sk[CHUNK * D], sv[CHUNK * D];
+  constexpr int CHUNK = GROUPS * PASSES;  // keys staged at once
+  __shared__ __align__(16) E sk[CHUNK * D], sv[CHUNK * D];
   __shared__ float sm_m[NT / 32], sm_l[NT / 32], sm_acc[NT / 32][D];
   __shared__ int s_last;
   const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
@@ -80,23 +105,22 @@ __global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
   const int t1 = min(n_valid, t0 + chunk);  // keys t0 .. t1 - 1, maybe none
 
   float qf[8];
-  bf16x8_to_f32(*reinterpret_cast<const uint4*>(q + (long long)b * HD + col),
-                qf);
-  const bf16* kb = k + (long long)b * T * HD + col;
-  const bf16* vb = v + (long long)b * T * HD + col;
+  load8(q + (long long)b * HD + col, qf);
+  const E* kb = k + (long long)b * T * HD + col;
+  const E* vb = v + (long long)b * T * HD + col;
 
   float m = -INFINITY, l = 0.f, acc[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc[e] = 0.f;
 
   for (int p0 = t0; p0 < t1; p0 += CHUNK) {  // uniform over the block
-    // every copy of this piece first: rows p0 + grp + 16 i, 16 bytes each
+    // every copy of this piece first: rows p0 + grp + 16 i, 8 elements each
 #pragma unroll
     for (int i = 0; i < PASSES; ++i) {
       const int r = grp + i * GROUPS;
       if (p0 + r < t1) {
-        cp_async16(sk + r * D + sub * 8, kb + (long long)(p0 + r) * HD);
-        cp_async16(sv + r * D + sub * 8, vb + (long long)(p0 + r) * HD);
+        copy8(sk + r * D + sub * 8, kb + (long long)(p0 + r) * HD);
+        copy8(sv + r * D + sub * 8, vb + (long long)(p0 + r) * HD);
       }
     }
     cp_async_commit();
@@ -106,9 +130,7 @@ __global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
 #pragma unroll
     for (int i = 0; i < PASSES; ++i) {
       float kf[8];
-      bf16x8_to_f32(
-          *reinterpret_cast<const uint4*>(sk + (grp + i * GROUPS) * D + sub * 8),
-          kf);
+      load8(sk + (grp + i * GROUPS) * D + sub * 8, kf);
       float d = 0.f;
 #pragma unroll
       for (int e = 0; e < 8; ++e) d = fmaf(qf[e], kf[e], d);
@@ -137,9 +159,7 @@ __global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
         if (sc[i] == -INFINITY) continue;
         const float p = expf(sc[i] - mx);
         float vf[8];
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(
-                          sv + (grp + i * GROUPS) * D + sub * 8),
-                      vf);
+        load8(sv + (grp + i * GROUPS) * D + sub * 8, vf);
         l += p;
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
@@ -219,6 +239,19 @@ __global__ void __launch_bounds__(NT, 8) single_query_attention_kernel(
   if (threadIdx.x == 0) counters[b * H + h] = 0;
 }
 
+template <typename E, int PASSES>
+int launch_k2(const void* q, const void* k, const void* v, void* out,
+              void* part, void* counters, int B, int H, int T, int HD,
+              int n_valid, int splits, int chunk, float scale,
+              void* stream) {
+  dim3 grid(H, splits, B);
+  single_query_attention_kernel<E, PASSES>
+      <<<grid, NT, 0, (cudaStream_t)stream>>>(
+          (const E*)q, (const E*)k, (const E*)v, (float*)out, (float*)part,
+          (int*)counters, T, HD, n_valid, chunk, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q: [B, HD] bf16; k, v: [B, T, HD] bf16 contiguous; out: [B, HD] f32.
@@ -233,9 +266,15 @@ extern "C" int mas_single_query_attention(const void* q, const void* k,
                                           int H, int T, int HD, int n_valid,
                                           int splits, int chunk, float scale,
                                           void* stream) {
-  dim3 grid(H, splits, B);
-  single_query_attention_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)out,
-      (float*)part, (int*)counters, T, HD, n_valid, chunk, scale);
-  return (int)cudaGetLastError();
+  return launch_k2<bf16, 8>(q, k, v, out, part, counters, B, H, T, HD,
+                            n_valid, splits, chunk, scale, stream);
+}
+
+// The same on float32 q, k and v (16-byte aligned, as the bf16 form's).
+extern "C" int mas_single_query_attention_f32(
+    const void* q, const void* k, const void* v, void* out, void* part,
+    void* counters, int B, int H, int T, int HD, int n_valid, int splits,
+    int chunk, float scale, void* stream) {
+  return launch_k2<float, 4>(q, k, v, out, part, counters, B, H, T, HD,
+                             n_valid, splits, chunk, scale, stream);
 }

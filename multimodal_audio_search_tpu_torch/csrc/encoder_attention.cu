@@ -56,6 +56,17 @@
 // Tried on an H100 and not kept (PERF.md): 192-key tiles (S of 96
 // registers spills), two stages, no ping-pong, and no overlap, each
 // slower. Later work: a TMA store of the output.
+//
+// The float32 form (mas_encoder_attention_f32), for a float32 encode on
+// the card, as the TPU kernel takes either dtype: Hopper's tensor cores
+// have no float32 product (TF32 rounds the inputs), so it runs on the CUDA
+// cores, one query row a thread. A block is 128 rows of one (batch,
+// head); each thread holds its q row (scaled by 1/8, exact) and its
+// output row in registers; the block stages 32 keys of K and V at a time
+// in shared memory, which every thread reads at the same address (a
+// broadcast); the online softmax runs in float32 with expf, as the plain
+// version's, and the output row is divided by l before the float32 store.
+// A first design, not tuned.
 #include "sm90.cuh"
 
 namespace {
@@ -221,6 +232,73 @@ int bhtd_map(CUtensorMap* map, const void* base, int B, int H, int T,
                                 CU_TENSOR_MAP_SWIZZLE_128B));
 }
 
+constexpr int F32_ROWS = 128;  // query rows a block, one a thread
+constexpr int F32_KEYS = 32;   // keys staged at a time
+
+__global__ void __launch_bounds__(F32_ROWS) encoder_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, long long sb, long long sh, long long st,
+    float* __restrict__ out, int T, int H, float scale) {
+  __shared__ __align__(16) float sk[F32_KEYS][D], sv[F32_KEYS][D];
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int r = blockIdx.x * F32_ROWS + threadIdx.x;
+  const long long base = b * sb + h * sh;
+  float qf[D], acc[D];
+#pragma unroll
+  for (int e = 0; e < D; e += 4) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < T) x = *reinterpret_cast<const float4*>(q + base + r * st + e);
+    qf[e] = x.x * scale, qf[e + 1] = x.y * scale;
+    qf[e + 2] = x.z * scale, qf[e + 3] = x.w * scale;
+    acc[e] = acc[e + 1] = acc[e + 2] = acc[e + 3] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int t0 = 0; t0 < T; t0 += F32_KEYS) {
+    __syncthreads();  // the last tile's readers are done
+    for (int i = threadIdx.x; i < F32_KEYS * D / 4; i += F32_ROWS) {
+      const int kr = i / (D / 4), c = (i % (D / 4)) * 4;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (t0 + kr < T) {
+        kx = *reinterpret_cast<const float4*>(k + base + (t0 + kr) * st + c);
+        vx = *reinterpret_cast<const float4*>(v + base + (t0 + kr) * st + c);
+      }
+      *reinterpret_cast<float4*>(&sk[kr][c]) = kx;
+      *reinterpret_cast<float4*>(&sv[kr][c]) = vx;
+    }
+    __syncthreads();
+    const int n = min(F32_KEYS, T - t0);
+    float s[F32_KEYS];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < D; ++e) d = fmaf(qf[e], sk[j][e], d);
+      s[j] = j < n ? d : -INFINITY;  // keys past T: zeros, never scored
+      mx = fmaxf(mx, s[j]);
+    }
+    const float c = expf(m - mx);  // 0 for the empty first state
+    l *= c;
+#pragma unroll
+    for (int e = 0; e < D; ++e) acc[e] *= c;
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      const float p = expf(s[j] - mx);  // 0 past T
+      l += p;
+#pragma unroll
+      for (int e = 0; e < D; ++e) acc[e] = fmaf(p, sv[j][e], acc[e]);
+    }
+    m = mx;
+  }
+  if (r >= T) return;
+  float* o = out + (((long long)b * T + r) * H + h) * D;
+#pragma unroll
+  for (int e = 0; e < D; e += 4)
+    *reinterpret_cast<float4*>(o + e) =
+        make_float4(acc[e] / l, acc[e + 1] / l, acc[e + 2] / l,
+                    acc[e + 3] / l);
+}
+
 }  // namespace
 
 // Raises K8's dynamic shared-memory limit and looks the driver's tensor-map
@@ -250,5 +328,22 @@ extern "C" int mas_encoder_attention(const void* q, const void* k,
   dim3 grid((T + BM - 1) / BM, B * H);
   encoder_attention_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       tq, tk, tv, (bf16*)out, T, H, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// K8's float32 form. q/k/v: [B, H, T, 64] float32 views sharing element
+// strides (sb, sh, st) with unit stride on the last dim, each stride a
+// multiple of 4 and each base 16-byte aligned; out: [B, T, H, 64]
+// contiguous float32; scale = 1/sqrt(64). Returns cudaGetLastError()
+// after the launch.
+extern "C" int mas_encoder_attention_f32(const void* q, const void* k,
+                                         const void* v, long long sb,
+                                         long long sh, long long st,
+                                         void* out, int B, int H, int T,
+                                         float scale, void* stream) {
+  dim3 grid((T + F32_ROWS - 1) / F32_ROWS, B * H);
+  encoder_attention_f32_kernel<<<grid, F32_ROWS, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, sb, sh, st,
+      (float*)out, T, H, scale);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ fused_encoder_attention`` (B9), which the JAX encoder runs on a TPU for
 ``fused_encoder=False`` at T >= 512; the o-projection after it stays a
 plain matmul, as JAX leaves it to XLA. On a CUDA tensor the wrapper
 launches ``csrc/encoder_attention.cu``'s ``encoder_attention_kernel``
-(wgmma products on TMA-fed shared-memory tiles); on a CPU tensor it runs
+(wgmma products on TMA-fed shared-memory tiles; on float32 tensors its
+float32 form on the CUDA cores); on a CPU tensor it runs
 ``encoder_attention_plain``, the same math in plain PyTorch. There is no
 other route: a launch that fails, or a view TMA cannot describe, raises.
 """
@@ -33,16 +34,21 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 _SCALE_LOG2 = math.log2(math.e) / math.sqrt(64)
+# K8's forms by input dtype (csrc/encoder_attention.cu) and the scale each
+# takes: the float32 one, on the CUDA cores, serves a float32 encode on
+# the card, as the TPU kernel takes either dtype
+_FORMS = {torch.bfloat16: ("mas_encoder_attention", _SCALE_LOG2),
+          torch.float32: ("mas_encoder_attention_f32", 1.0 / math.sqrt(64))}
 
 
 def _launch(q, k, v) -> torch.Tensor:
     b, h, t, d = q.shape
-    bf = torch.bfloat16
+    dt = q.dtype
     if d != 64:
         raise ValueError(f"K8 takes head dim 64, got {d}")
-    if q.dtype != bf or k.dtype != bf or v.dtype != bf:
-        raise TypeError(f"K8 takes bf16 tensors; q, k, v are {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+    if dt not in _FORMS or k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"K8 takes bf16 or float32 tensors of one dtype; "
+                        f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
     dev = q.device
     if k.device != dev or v.device != dev or k.shape != q.shape \
             or v.shape != q.shape:
@@ -53,18 +59,20 @@ def _launch(q, k, v) -> torch.Tensor:
     if k.stride() != strides or v.stride() != strides:
         raise ValueError("K8 takes q, k, v views with equal strides")
     sb, sh, st, sd = strides
-    if sd != 1 or sb % 8 or sh % 8 or st % 8 \
+    per16 = 16 // q.element_size()
+    if sd != 1 or sb % per16 or sh % per16 or st % per16 \
             or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError(
             f"K8 needs 16-byte aligned views with a unit last stride and "
-            f"the others multiples of 16 bytes (its TMA tensor maps); "
-            f"strides {strides}")
+            f"the others multiples of 16 bytes (its TMA tensor maps and "
+            f"vector loads); strides {strides}")
     # the merged [B, T, H, D] layout the o-projection reads; returned as
     # the [B, H, T, D] view, so merge_heads after it copies nothing
-    out = torch.empty((b, t, h, d), dtype=bf, device=dev)
-    runtime.launch("mas_encoder_attention", dev, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), sb, sh, st, out.data_ptr(),
-                   b, h, t, _SCALE_LOG2, runtime.raw_stream(dev))
+    out = torch.empty((b, t, h, d), dtype=dt, device=dev)
+    name, scale = _FORMS[dt]
+    runtime.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   sb, sh, st, out.data_ptr(), b, h, t, scale,
+                   runtime.raw_stream(dev))
     runtime.bump("encoder_attention")
     return out.transpose(1, 2)
 
@@ -72,9 +80,9 @@ def _launch(q, k, v) -> torch.Tensor:
 def fused_encoder_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """softmax(QK^T/sqrt(D))V for [B, H, T, D] inputs, non-causal; returns
-    [B, H, T, D] in q's dtype. CUDA tensors (bf16, head dim 64, any strides
-    with a unit last one, e.g. the head-split views of the q/k/v dense
-    outputs) launch K8, CPU tensors take the plain version."""
+    [B, H, T, D] in q's dtype. CUDA tensors (bf16 or float32, head dim
+    64, any strides with a unit last one, e.g. the head-split views of the
+    q/k/v dense outputs) launch K8, CPU tensors take the plain version."""
     runtime.refuse_grad("K8", q, k, v)
     if q.device.type == "cuda":
         return _launch(q, k, v)

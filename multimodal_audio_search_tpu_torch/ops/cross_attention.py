@@ -84,22 +84,28 @@ def _scratch(device: torch.device) -> tuple[int, int]:
     return ptrs[0], ptrs[1]
 
 
+# K2's forms by input dtype (csrc/cross_attention.cu): the float32 one
+# serves a float32 decode on the card, as the TPU kernel takes either
+_FORMS = {torch.bfloat16: "mas_single_query_attention",
+          torch.float32: "mas_single_query_attention_f32"}
+
+
 def _launch(q_m, k_m, v_m, heads: int, n_valid: int,
             splits: int | None = None) -> torch.Tensor:
     """K2 on the card. ``splits`` overrides split_plan (tests reach the
     split edges and empty splits with it)."""
     b, hd = q_m.shape
     t = k_m.shape[1]
-    bf = torch.bfloat16
     if hd != heads * 64:
         raise ValueError(f"K2 takes head dim 64: H*D={hd}, heads={heads}")
     if k_m.shape != (b, t, hd) or v_m.shape != (b, t, hd):
         raise ValueError(
             f"K2: q {tuple(q_m.shape)}, k {tuple(k_m.shape)}, "
             f"v {tuple(v_m.shape)}")
-    if q_m.dtype != bf or k_m.dtype != bf or v_m.dtype != bf:
-        raise TypeError(f"K2 takes bf16 tensors; q, k, v are {q_m.dtype}, "
-                        f"{k_m.dtype}, {v_m.dtype}")
+    dt = q_m.dtype
+    if dt not in _FORMS or k_m.dtype != dt or v_m.dtype != dt:
+        raise TypeError(f"K2 takes bf16 or float32 tensors of one dtype; "
+                        f"q, k, v are {q_m.dtype}, {k_m.dtype}, {v_m.dtype}")
     dev = k_m.device
     if q_m.device != dev or v_m.device != dev:
         raise ValueError(f"K2: q on {q_m.device}, k on {dev}, v on "
@@ -117,7 +123,7 @@ def _launch(q_m, k_m, v_m, heads: int, n_valid: int,
                          f"the scratch of {STATES}")
     part, cnt = _scratch(dev)
     out = torch.empty((b, hd), dtype=torch.float32, device=dev)
-    runtime.launch("mas_single_query_attention", dev, q_m.data_ptr(),
+    runtime.launch(_FORMS[dt], dev, q_m.data_ptr(),
                    k_m.data_ptr(), v_m.data_ptr(), out.data_ptr(), part, cnt,
                    b, heads, t, hd, n_valid, splits, chunk,
                    1.0 / 8.0, runtime.raw_stream(dev))  # 1 / sqrt(64)
@@ -135,7 +141,8 @@ def fused_single_query_attention(
 ) -> torch.Tensor:            # [B, H*D] f32
     """One single-query attention over a merged-head K/V buffer. ``pos``
     is a host int (the decode loop's step), passed to the kernel as an
-    argument. CUDA tensors launch K2, CPU tensors take the plain twin."""
+    argument. CUDA tensors (bf16 or float32) launch K2, CPU tensors take
+    the plain twin."""
     runtime.refuse_grad("K2", q_m, k_m, v_m)
     t = k_m.shape[1]
     if pos is not None and not 0 <= int(pos) < t:

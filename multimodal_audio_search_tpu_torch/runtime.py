@@ -196,12 +196,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, H, T
         f, p]                     # scale * log2(e), stream
     lib.mas_encoder_attention.restype = i
+    lib.mas_encoder_attention_f32.argtypes = \
+        lib.mas_encoder_attention.argtypes       # scale in place of scale_log2
+    lib.mas_encoder_attention_f32.restype = i
     lib.mas_single_query_attention.argtypes = [
         p, p, p, p, p, p,         # q, k, v, out, split scratch, counters
         i, i, i, i, i,            # B, H, T, HD, n_valid
         i, i,                     # splits, keys per split
         f, p]                     # scale, stream
     lib.mas_single_query_attention.restype = i
+    lib.mas_single_query_attention_f32.argtypes = \
+        lib.mas_single_query_attention.argtypes
+    lib.mas_single_query_attention_f32.restype = i
     lib.mas_decoder_self_block.argtypes = [
         p, p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo, bo
         p, p, p,                  # k/v caches, x_out

@@ -21,7 +21,9 @@ whose kernels it therefore runs on the card: K1 with
 ``synth_pipeline`` over a mesh with a model axis, K1p and K2 on head
 shards. It decodes in the device's dtype (bf16 on the card, where K1 and
 K2 take bf16; float32 on the CPU) unless ``dtype`` says otherwise; JAX's
-decodes in float32.
+decodes in float32. A float32 decode on the card runs K2's float32 form
+and, with ``fused_encoder=False`` at T >= 512, K8's: the float32 rows of
+tools/torch_synth_drift.py.
 """
 from __future__ import annotations
 
@@ -255,16 +257,24 @@ def synth_pipeline(
     fused_encoder: bool | str | None = False,
     device: str | torch.device | None = None,
     mesh=None,
+    *,
+    fused_layer: bool | str = False,
+    cross_attn: str = "auto",
+    int8_cross_kv: bool = False,
 ):
     """The serving pipeline ``transcribe`` decodes through: the PRODUCTION
     WhisperTextPipeline (the engine's), greedy, prompted by <sot>, at an
     optionally overridden mel context (the short_context lever), compute
     dtype (default: the device's, runtime.default_dtype), or encoder path
-    (``fused_encoder`` None or True: K1; False: the plain encoder, or K8
-    on the card at T >= 512). ``device``: where to decode (default: where
-    the model's parameters lie); ``mesh``: decode over it
-    (WhisperTextPipeline.use_mesh: over a model axis each rank's heads,
-    K1p and K2 on head shards)."""
+    (``fused_encoder`` None or True: K1; "int8": K9; "paired": K10;
+    False: the plain encoder, or K8 on the card at T >= 512).
+    ``fused_layer``, ``cross_attn`` and ``int8_cross_kv`` go to the
+    DecodeConfig (True: K3 + K4; "v2": K3-q + K4-o; "int8_fused": K6;
+    "int8": K7; the last two over a decoder from ops/quant.py::
+    quantize_whisper_decoder, whose dense layers take K5). ``device``:
+    where to decode (default: where the model's parameters lie);
+    ``mesh``: decode over it (WhisperTextPipeline.use_mesh: over a model
+    axis each rank's heads, K1p and K2 on head shards)."""
     from ..config import DecodeConfig, MelConfig
     from ..pipelines.whisper_pipeline import WhisperTextPipeline
 
@@ -274,7 +284,9 @@ def synth_pipeline(
         params=model.params, cfg=model.cfg, tokenizer=model.vocab,
         decode=DecodeConfig(max_new_tokens=model.max_new if max_new is None
                             else max_new,
-                            fused_encoder=fused_encoder),
+                            fused_encoder=fused_encoder,
+                            fused_layer=fused_layer, cross_attn=cross_attn,
+                            int8_cross_kv=int8_cross_kv),
         mel_cfg=MelConfig(
             padded_seconds=mel_seconds or model.mel_seconds),
         prefix_ids=[model.cfg.bos_token_id],
@@ -301,9 +313,10 @@ def transcribe(
     dtype=None,
     fused_encoder: bool | str | None = False,
     device: str | torch.device | None = None,
+    **decode,
 ) -> list[str]:
     """Greedy transcripts of ``waves`` through synth_pipeline (its
-    arguments; one device)."""
+    arguments, ``decode`` its keyword-only decode fields; one device)."""
     pipe = synth_pipeline(model, mel_seconds, max_new, dtype, fused_encoder,
-                          device)
+                          device, **decode)
     return pipe.transcribe_batch(pad_waves(waves, pipe.mel_cfg.n_samples))

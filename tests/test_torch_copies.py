@@ -119,6 +119,30 @@ MODEL_DEFS = [
 # same clips and token ids
 SYNTH_FUNCS = ["SAMPLE_RATE", "_TONES", "_tone", "_noise", "_sweep",
                "EVENTS", "render_event", "make_clip", "SynthVocab"]
+# the drift tools' verbatim copies: (JAX tool, port tool, name), each
+# held to its own original (eval_context's token_f1 lowercases,
+# synth_drift's does not)
+TOOL_COPIES = [("synth_drift", "torch_synth_drift", "token_f1"),
+               ("synth_drift", "torch_synth_drift", "int16_roundtrip"),
+               ("eval_context", "torch_eval_context", "token_f1"),
+               ("compare_modes", "torch_compare_modes", "QUERIES")]
+# their near-copies: the function with its imports left out (the round
+# trips import the port's pipelines/ingest.py) after the named
+# substitutions; make_index stores bf16 as its bits without ml_dtypes
+TOOL_NEAR_COPIES = {
+    ("synth_drift", "torch_synth_drift", "mulaw_roundtrip"): [],
+    ("synth_drift", "torch_synth_drift", "int12_roundtrip"): [],
+    ("bigindex_drift", "torch_bigindex_drift", "make_index"): [
+        ("ml_dtypes.bfloat16", "np.uint16"),
+        ("        else:\n            emb[lo:hi] = x.astype(np_dtype)\n",
+         '        elif dtype == "bfloat16":\n'
+         "            emb[lo:hi] = _bf16_bits(x)\n"
+         "        else:\n"
+         "            emb[lo:hi] = x.astype(np_dtype)\n")],
+}
+# the port's drift tools, which the import scan must reach
+DRIFT_TOOLS = ["torch_synth_drift", "torch_bigindex_drift",
+               "torch_compare_modes", "torch_eval_context"]
 # the modules of ROADMAP A14, which the import scan must reach
 A14_MODULES = ["training/__init__.py", "training/finetune.py",
                "training/loop.py", "training/synth.py", "training/bridge.py",
@@ -247,6 +271,49 @@ def test_model_numpy_halves_match_original(rel, name):
     assert _top_level(PORT_PKG / rel, name) == _top_level(JAX_PKG / rel, name)
 
 
+@pytest.mark.parametrize("orig,port,name", TOOL_COPIES)
+def test_drift_tool_copy_matches_original(orig, port, name):
+    tools = ROOT / "tools"
+    assert _top_level(tools / f"{port}.py", name) == \
+        _top_level(tools / f"{orig}.py", name)
+
+
+def _stripped_def(src: str, name: str, subs=()) -> str:
+    """The top-level definition ``name`` of source ``src`` after the
+    substitutions ``subs`` (each must match once), with its imports left
+    out, as a syntax tree."""
+    for node in ast.parse(src).body:
+        if getattr(node, "name", None) == name:
+            text = ast.get_source_segment(src, node)
+            break
+    else:
+        raise AssertionError(f"{name} missing")
+    for a, b in subs:
+        assert text.count(a) == 1, (name, a)
+        text = text.replace(a, b)
+    return _normalized(ast.parse(text))
+
+
+@pytest.mark.parametrize("orig,port,name", sorted(TOOL_NEAR_COPIES))
+def test_drift_tool_near_copy_differs_only_where_named(orig, port, name):
+    tools = ROOT / "tools"
+    want = _stripped_def((tools / f"{orig}.py").read_text(), name,
+                         TOOL_NEAR_COPIES[orig, port, name])
+    assert _stripped_def((tools / f"{port}.py").read_text(), name) == want
+
+
+def test_drift_tool_near_copy_catches_a_change():
+    """The function comparison is not vacuous: one constant changed in
+    make_index is caught."""
+    src = (ROOT / "tools/torch_bigindex_drift.py").read_text()
+    edited = src.replace("0.3 * rng.normal", "0.31 * rng.normal")
+    assert edited != src
+    key = ("bigindex_drift", "torch_bigindex_drift", "make_index")
+    want = _stripped_def((ROOT / "tools/bigindex_drift.py").read_text(),
+                         "make_index", TOOL_NEAR_COPIES[key])
+    assert _stripped_def(edited, "make_index") != want
+
+
 def test_strip_catches_a_change(tmp_path):
     """The comparison is not vacuous: a one-token edit is caught."""
     src = (JAX_PKG / "utils/batching.py").read_text()
@@ -285,6 +352,7 @@ def test_port_sources_never_import_jax():
     the transitive closure by running with jax blocked)."""
     srcs = _port_sources()
     assert ROOT / "tools" / "torch_bench_ivf.py" in srcs
+    assert {ROOT / "tools" / f"{t}.py" for t in DRIFT_TOOLS} <= set(srcs)
     assert {PORT_PKG / rel for rel in A11_MODULES + A14_MODULES} <= set(srcs)
     for p in srcs:
         assert _forbidden_imports(p) == [], p

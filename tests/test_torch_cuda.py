@@ -110,6 +110,25 @@ def test_k2_matches_plain(cuda, t, pos):
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("t,pos", [(100, None), (1500, None), (32, 0),
+                                   (32, 31), (5, None)])
+def test_k2_float32_matches_plain(cuda, t, pos):
+    """K2's float32 form (a float32 decode on the card) over cross keys
+    and a self cache, within chip_smoke's float32 tolerance."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
+    gen = torch.Generator().manual_seed(t)
+    q, k, v = (a.float() for a in chip_smoke.k2_inputs(gen, 3, t, 6))
+    runtime.reset_counts()
+    got = K2.fused_single_query_attention(q, k, v, heads=6, pos=pos)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["single_query_attention"] == 1
+    chip_smoke.check_close(f"K2 float32 T={t} pos={pos}", got,
+                           K2.single_query_attention_plain(
+                               q, k, v, heads=6, pos=pos),
+                           chip_smoke.F32_ATT_ATOL, chip_smoke.F32_ATT_RTOL)
+
+
 # (T, n_valid, forced splits or None for split_plan): the plan's edge at
 # 128 keys, empty splits, one split over 1500 keys, 12 splits, chunk edges
 K2_SPLIT_CASES = [(300, 127, None), (300, 128, None), (300, 129, None),
@@ -144,8 +163,8 @@ def test_k2_split_edges(cuda, t, n_valid, splits):
 def test_wrappers_raise_instead_of_falling_back(cuda):
     from multimodal_audio_search_tpu_torch.ops import cross_attention as K2
     from multimodal_audio_search_tpu_torch.ops import encoder_block as K1
-    q = torch.zeros(2, 128, device="cuda")            # float32: not taken
-    kv = torch.zeros(2, 4, 128, device="cuda")
+    q = torch.zeros(2, 128, device="cuda", dtype=torch.float16)  # not taken
+    kv = torch.zeros(2, 4, 128, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         K2.fused_single_query_attention(q, kv, kv, heads=2)
     x = torch.zeros(1, 4, 96, device="cuda", dtype=torch.bfloat16)
@@ -775,6 +794,28 @@ def test_k8_matches_plain(cuda, b, heads, t):
                              chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
 
 
+@pytest.mark.parametrize("b,heads,t", [(2, 3, 31), (2, 3, 32), (2, 3, 33),
+                                     (3, 6, 100), (2, 6, 1500)])
+def test_k8_float32_matches_plain(cuda, b, heads, t):
+    """K8's float32 form (a float32 encode on the card) at ragged T (a
+    partial last 32-key tile and 128-row block), on head-split views,
+    within chip_smoke's float32 tolerance; its output a float32 view of
+    the merged layout."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    gen = torch.Generator().manual_seed(200 + t)
+    q, k, v = chip_smoke._f32_heads(gen, b, t, heads)
+    runtime.reset_counts()
+    got = A.fused_encoder_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["encoder_attention"] == 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()
+    chip_smoke.check_close(f"K8 float32 T={t}", got,
+                           A.encoder_attention_plain(q, k, v),
+                           chip_smoke.F32_ATT_ATOL, chip_smoke.F32_ATT_RTOL)
+
+
 def test_k8_reuses_tensor_maps_only_for_the_same_view(cuda):
     """K8 keeps the TMA maps of views it has seen: the same buffers with
     new contents, and a view of the same base with fewer rows, each match
@@ -1084,8 +1125,10 @@ def test_encoder_variant_wrappers_raise_instead_of_falling_back(cuda):
         quantize_kv)
     gen = torch.Generator().manual_seed(13)
     q, k, v, x, wo, bo = chip_smoke.k1_inputs(gen, 1, 40, 3)
-    with pytest.raises(TypeError):                    # float32 q
-        A.fused_encoder_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):                    # float16: no form
+        A.fused_encoder_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):                    # float32 q alone
+        A.fused_encoder_attention(q.float(), k, v)
     with pytest.raises(ValueError):                   # head dim 32
         A.fused_encoder_attention(*(a.reshape(1, 6, 40, 32)
                                     for a in (q, k, v)))

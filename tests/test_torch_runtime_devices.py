@@ -134,6 +134,8 @@ def _launches():
     q = _m(b, h, t, d)
     x3, wo, bo = _m(b, t, hd), _m(hd, hd), _m(hd)
     yield "K8", lambda: attention._launch(q, _m(b, h, t, d), _m(b, h, t, d))
+    q32 = _m(b, h, t, d, dtype=f32)
+    yield "K8 float32", lambda: attention._launch(q32, q32, q32)
     yield "K1", lambda: encoder_block._launch(q, q, q, x3, wo, bo,
                                               cluster=1)
     yield "K10", lambda: encoder_block._launch(q, q, q, x3, wo, bo,
@@ -156,6 +158,9 @@ def _launches():
     qm = _m(b, hd)
     yield "K2", lambda: cross_attention._launch(qm, _m(b, t, hd),
                                                 _m(b, t, hd), h, t)
+    kv32 = _m(b, t, hd, dtype=f32)
+    yield "K2 float32", lambda: cross_attention._launch(
+        _m(b, hd, dtype=f32), kv32, kv32, h, t)
     yield "K6", lambda: cross_attention._launch_int8(
         qm, _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32),
         _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32), h, t)
@@ -212,6 +217,7 @@ def test_every_launch_enters_its_tensors_device(fake):
         "mas_attn_o_residual_int8", "mas_attn_o_residual_partial",
         "mas_attn_o_residual_paired_partial",
         "mas_attn_o_residual_int8_partial", "mas_single_query_attention",
+        "mas_single_query_attention_f32", "mas_encoder_attention_f32",
         "mas_single_query_attention_int8",
         "mas_single_query_attention_int8_fit", "mas_int8_cached_attention",
         "mas_int8_cached_attention_fit", "mas_decoder_self_block",
@@ -223,6 +229,35 @@ def test_every_launch_enters_its_tensors_device(fake):
         "encoder_attention", "single_query_attention", "decoder_self_block",
         "decoder_self_block_q", "decoder_mlp_block", "decoder_mlp_block_o",
         "cross_mlp_block", "quant_matmul", "fused_scores", "stream_read"))
+
+
+@pytest.mark.parametrize("dtype,k2,k8", [
+    (torch.bfloat16, "mas_single_query_attention", "mas_encoder_attention"),
+    (torch.float32, "mas_single_query_attention_f32",
+     "mas_encoder_attention_f32"),
+    (torch.float16, None, None)])
+def test_k2_k8_form_by_dtype(fake, dtype, k2, k8):
+    """K2 and K8 launch their bf16 or float32 form by the inputs' dtype
+    and refuse any other dtype, or a mix, before a launch."""
+    lib, _ = fake
+    b, h, t = 2, 2, 8
+    qm, kv = _m(b, h * 64, dtype=dtype), _m(b, t, h * 64, dtype=dtype)
+    q = _m(b, h, t, 64, dtype=dtype)
+    calls = ((k2, lambda: cross_attention._launch(qm, kv, kv, h, t)),
+             (k8, lambda: attention._launch(q, q, q)))
+    for want, call in calls:
+        lib.calls.clear()
+        if want is None:
+            with pytest.raises(TypeError, match="bf16 or float32"):
+                call()
+        else:
+            call()
+        assert [c[0] for c in lib.calls if c[0] not in runtime.INIT] == \
+            ([want] if want else [])
+    mixed = _m(b, t, h * 64, dtype=torch.float32 if dtype != torch.float32
+               else torch.bfloat16)
+    with pytest.raises(TypeError, match="of one dtype"):
+        cross_attention._launch(qm, kv, mixed, h, t)
 
 
 def test_only_runtime_calls_the_library():

@@ -4,6 +4,7 @@
     python3 tools/torch_smoke_phases.py decoder,mesh
     python3 tools/torch_smoke_phases.py decoder,tp
     python3 tools/torch_smoke_phases.py train
+    python3 tools/torch_smoke_phases.py drift
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -19,7 +20,9 @@ kernels K1p, K3p, K4p, K9p and K10p, K2, K5, K6 and K7 on shards, the
 engines of chip_smoke.TP_PATHS at (1, 2) and (2, 2)), ``train`` the training subsystem (the synthetic captioner
 trained and transcribed through K1 and K2, the production geometry, the
 data axis, the model axis on the card named twice, checkpoints, CLAP and
-the bridge).
+the bridge; ``[drift]`` among them), ``drift`` the synthetic captioner
+trained as ``train`` trains it, then ``[drift]`` alone (the drift rows on
+it and the host index's storage dtypes).
 """
 import os
 import sys
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh",
-          "tp", "train")
+          "tp", "train", "drift")
 
 
 def main(names: list[str]) -> int:
@@ -63,7 +66,8 @@ def main(names: list[str]) -> int:
                card, np.random.default_rng(1))["uploads"]),
            "mesh": lambda: C.mesh_phase(card, clips),
            "tp": lambda: C.tp_phase(card, clips, **tp_args),
-           "train": lambda: C.train_phase(card)}
+           "train": lambda: C.train_phase(card),
+           "drift": lambda: C.drift_phase(card, C.train_synth_check(card))}
     for name in PHASES:
         if name in names:
             t0 = time.time()
