@@ -140,7 +140,7 @@ Phases, one line each (``[phase] ...``):
    an empty index, then short.wav ingested with K1/K2 counted and its
    own text first) and a mulaw8 reconfigure at whisper-base back at
    MiniLM-L6 (384-D) that ingests (own segment first),
-   20 ingest/delete cycles (VmRSS slope over cycles 6-20 <=
+   10 ingest/delete cycles (VmRSS slope over cycles 6-10 <=
    RSS_SLOPE_MAX_MB), then the CLI (``python -m
    multimodal_audio_search_tpu_torch`` ingest, search, search
    --strategy, delete, stats) as subprocesses on one --index. Request
@@ -274,6 +274,33 @@ Phases, one line each (``[phase] ...``):
    Then tools/torch_bigindex_drift.py at DRIFT_BIG_N rows (D=384; ~1.5 GB
    of temporary files, removed): the bf16 and int8 host indexes' recall@10
    against float32's must meet DRIFT_RECALL_FLOOR.
+
+15. checkpoint directories (``[weights]``, after 7): weights_phase writes
+   random-init stand-ins of whisper-base, whisper-tiny and MiniLM-L6 at
+   published widths (write_standins: the parameters the engine draws from
+   WEIGHTS_SEED in memory, under HF's key names, config.json +
+   pytorch_model.bin by torch.save, no tokenizer assets); each loads and
+   converts (models/convert.py) back to the tree written, bit for bit;
+   tools/torch_weights_day.py's run(dry_run=True) on the card reports the
+   presets' init parameter counts and the hash tokenizer; an engine
+   built from the directories (EngineConfig weight paths) ingests
+   short.wav with K1 and K2 as expected_launches, ranks its own segment
+   first, and its segments, texts, launches and top-10 equal the
+   in-memory engine's. Write, load and convert seconds and the ingest
+   wall are printed.
+
+16. the service soak (``[soak]``, after 15): tools/torch_soak.py's single
+   pass against the port's server on the card (production defaults, a
+   temporary data root, a SOAK_SECONDS WAV), then its ``_soak_loop`` for
+   SOAK_LOOP_MINUTES: every status 200, the three checks true, the RSS
+   samples' least-squares slope and the launches printed.
+
+17. multi-process DCN (``[dcn]``, after 11): tools/torch_multiprocess_
+   dcn_check.py with two processes in one Gloo group, each naming the card
+   twice, at each of DCN_RUNS (the JAX tool's 512 x 2 x 64, then 1M x 2 x
+   384): the hierarchical sharded top-k and a data-parallel gradient summed
+   across the processes, each against the process's single-device
+   computation; both MPDCN_OK lines and ALL OK required.
 
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14, then K9p and K10p), the last line ``{"ok": true, "device": {...}}``.
@@ -559,12 +586,22 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+# calls of device_ms whose profiles all came back without device time, so
+# that their milliseconds are queued CUDA-event times ([profiler] lines)
+PROFILER_FALLBACKS = []
+
+
 def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
     """Device milliseconds a call: torch.profiler's CUDA kernel rows
     (device_type CUDA only: the op rows repeat the same time) over
     ``reps`` calls after a warm-up, summed and divided by ``reps``. A
-    profile that comes back without device time (rare, but seen on an
-    H100) is taken again, ``tries`` times in all."""
+    profile that comes back without device time is taken again, ``tries``
+    times in all. Late in the script torch.profiler has come back without
+    device time in every try, for SDPA and for the hand kernels alike (on
+    an H100); then the call is timed by CUDA events instead, ``reps``
+    calls queued behind a sleep kernel
+    (tools/torch_decode_kernel_ab.py::queued_ms), and a [profiler] line
+    says so."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -580,7 +617,14 @@ def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / reps / 1e3
-    raise AssertionError(f"{tries} profiles held no device time")
+    ms = load_tool("torch_decode_kernel_ab").queued_ms(fn, n=reps)
+    PROFILER_FALLBACKS.append(ms)
+    # printed outside phase(), so the seconds stay the running phase's
+    print("[profiler] " + json.dumps({
+        "note": f"{tries} profiles held no device time; CUDA events over "
+                f"{reps} queued calls instead", "device_ms": ms,
+        "fallbacks": len(PROFILER_FALLBACKS)}), flush=True)
+    return ms
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -2957,8 +3001,9 @@ def short_context_kernels(card: str, gen: torch.Generator, k1: dict,
 
 
 # ------------------------------------------------------------- service
-SERVICE_SOAK_CYCLES = 20
-# least-squares slope of VmRSS over the soak's cycles 6-20, MB a cycle
+# [soak] watches RSS over a longer loop; these cycles keep a short check
+SERVICE_SOAK_CYCLES = 10
+# least-squares slope of VmRSS over the soak's cycles 6-10, MB a cycle
 RSS_SLOPE_MAX_MB = 1.0
 # each request's deadline on the host clock (the first ingest builds
 # nothing: the server's warm-up has run by then)
@@ -3037,7 +3082,7 @@ def service_phase(card: str, rng: np.random.Generator,
     segment first, reconfigure to whisper-small (K1 at D=768, 12 heads),
     the mpnet embedder (200, 768-D, an ingest with K1/K2 counted and its
     own text first) and a mulaw8 reconfigure back at MiniLM-L6 that
-    ingests, 20 ingest/delete cycles (VmRSS slope), and the CLI as
+    ingests, 10 ingest/delete cycles (VmRSS slope), and the CLI as
     subprocesses on
     one --index directory."""
     import csv
@@ -5544,11 +5589,17 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
     its plain version: K2's float32 form over ``t`` cross keys and a self
     cache (the float32 rows), K8's float32 form at T=``t`` and 1500 (the
     float32 rows of the tool's --production), K6 and K7 over ``t`` keys,
-    K9 at T=``t`` (a 64-key tile and a partial one), B=``b`` clips."""
+    K9 at T=``t`` (a 64-key tile and a partial one), B=``b`` clips. The
+    float32 forms also carry one scaled_dot_product_attention call on the
+    same float32 inputs (``library_ms``), and both their device time as
+    20 calls queued behind a sleep kernel (``queued_ms``)."""
     from multimodal_audio_search_tpu_torch.ops import attention as A
     from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
     from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
     from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    # device time behind a sleep kernel: late in the script torch.profiler
+    # has come back without device time for SDPA on float32
+    queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
     gen = torch.Generator().manual_seed(DRIFT_SEED)
     hd = heads * 64
     tol = [F32_ATT_ATOL, F32_ATT_RTOL]
@@ -5563,9 +5614,17 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
         err = check_close(f"K2 float32 {label} pos={pos}", got, plain(),
                           *tol)
         keys = n if pos is None else pos + 1
+        # the library call: SDPA on float32 over the same keys (views)
+        qh = q.view(b, 1, heads, 64).transpose(1, 2)
+        kh, vh = (a[:, :keys].view(b, keys, heads, 64).transpose(1, 2)
+                  for a in (k, v))
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh))
         phase("drift", card=card, kernel="K2 float32", tol=tol,
               shape=f"{label} B={b} T={n} H={heads} pos={pos}",
               max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+              queued_ms=queued_ms(fn), library_ms=time_ms(sdpa),
+              library_queued_ms=queued_ms(sdpa),
               **bound(nbytes(q, got) + 2 * b * keys * hd * 4,
                       f32=4 * b * keys * hd))
     for n, bb in ((t, b), (1500, 8)):
@@ -5574,9 +5633,13 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
         plain = (lambda: A.encoder_attention_plain(q, k, v))
         got = fn()
         err = check_close(f"K8 float32 T={n}", got, plain(), *tol)
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v))
         phase("drift", card=card, kernel="K8 float32", tol=tol,
               shape=f"B={bb} T={n} H={heads}", max_abs_err=err,
               ms=time_ms(fn), plain_ms=time_ms(plain, reps=5),
+              queued_ms=queued_ms(fn), library_ms=time_ms(sdpa),
+              library_queued_ms=queued_ms(sdpa),
               **bound(4 * nbytes(q), f32=4 * bb * heads * n * n * 64))
     del q, k, v, got
     args = k6_inputs(gen, b, t, heads)
@@ -5692,6 +5755,437 @@ def train_phase(card: str, device="cuda") -> None:
     phase("train", card=card, step="summary", seconds_after=marks)
 
 
+# ---------------------------------------------------------------- [weights]
+WEIGHTS_SEED = 0           # the stand-ins' and the in-memory engine's seed
+# the stand-ins at published widths: (directory, family, preset)
+STANDINS = (("whisper-base", "whisper", "base"),
+            ("whisper-tiny", "whisper", "tiny"),
+            ("all-MiniLM-L6-v2", "minilm", "L6"))
+WEIGHTS_QUERIES = ("upbeat music with drums", "someone speaking clearly",
+                   "rain and birds in the background")
+
+
+def _cpu32(x) -> torch.Tensor:
+    """A leaf as a contiguous float32 CPU tensor."""
+    return torch.as_tensor(np.asarray(x.detach().cpu() if torch.is_tensor(x)
+                                      else x, np.float32)).contiguous()
+
+
+def _hf_linear(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _cpu32(p["w"]).t().contiguous()
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _cpu32(p["b"])
+
+
+def _hf_ln(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _cpu32(p["scale"])
+    sd[f"{prefix}.bias"] = _cpu32(p["bias"])
+
+
+def _hf_attn(sd: dict, prefix: str, p: dict) -> None:
+    for ours, theirs in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                         ("o", "out_proj")):
+        _hf_linear(sd, f"{prefix}.{theirs}", p[ours])
+
+
+def hf_whisper_state_dict(params) -> dict:
+    """The inverse of models/convert.py::convert_whisper: a Whisper param
+    tree (the port's layout; torch or numpy leaves) as the state dict of
+    HF's WhisperForConditionalGeneration, float32 on the CPU, the output
+    projection ``proj_out`` tied to the token table as HF ties it."""
+    sd: dict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    for conv in ("conv1", "conv2"):
+        sd[f"model.encoder.{conv}.weight"] = _cpu32(
+            enc[conv]["w"]).permute(2, 1, 0).contiguous()
+        sd[f"model.encoder.{conv}.bias"] = _cpu32(enc[conv]["b"])
+    sd["model.encoder.embed_positions.weight"] = _cpu32(enc["positions"])
+    for i, blk in enumerate(enc["blocks"]):
+        b = f"model.encoder.layers.{i}"
+        _hf_attn(sd, f"{b}.self_attn", blk["self_attn"])
+        _hf_ln(sd, f"{b}.self_attn_layer_norm", blk["self_ln"])
+        _hf_linear(sd, f"{b}.fc1", blk["mlp_in"])
+        _hf_linear(sd, f"{b}.fc2", blk["mlp_out"])
+        _hf_ln(sd, f"{b}.final_layer_norm", blk["mlp_ln"])
+    _hf_ln(sd, "model.encoder.layer_norm", enc["ln"])
+    sd["model.decoder.embed_tokens.weight"] = _cpu32(dec["embed_tokens"])
+    sd["model.decoder.embed_positions.weight"] = _cpu32(dec["positions"])
+    for i, blk in enumerate(dec["blocks"]):
+        b = f"model.decoder.layers.{i}"
+        _hf_attn(sd, f"{b}.self_attn", blk["self_attn"])
+        _hf_ln(sd, f"{b}.self_attn_layer_norm", blk["self_ln"])
+        _hf_attn(sd, f"{b}.encoder_attn", blk["cross_attn"])
+        _hf_ln(sd, f"{b}.encoder_attn_layer_norm", blk["cross_ln"])
+        _hf_linear(sd, f"{b}.fc1", blk["mlp_in"])
+        _hf_linear(sd, f"{b}.fc2", blk["mlp_out"])
+        _hf_ln(sd, f"{b}.final_layer_norm", blk["mlp_ln"])
+    _hf_ln(sd, "model.decoder.layer_norm", dec["ln"])
+    sd["proj_out.weight"] = sd["model.decoder.embed_tokens.weight"]
+    return sd
+
+
+def hf_whisper_config(cfg) -> dict:
+    """HF's config.json of a WhisperForConditionalGeneration at ``cfg``'s
+    widths (models/convert.py::whisper_config_from_hf reads it back:
+    HF's decoder start token is the port's bos_token_id)."""
+    return {"architectures": ["WhisperForConditionalGeneration"],
+            "model_type": "whisper", "vocab_size": cfg.vocab_size,
+            "num_mel_bins": cfg.n_mels, "d_model": cfg.d_model,
+            "encoder_layers": cfg.enc_layers,
+            "decoder_layers": cfg.dec_layers,
+            "encoder_attention_heads": cfg.heads,
+            "decoder_attention_heads": cfg.heads,
+            "encoder_ffn_dim": cfg.ffn, "decoder_ffn_dim": cfg.ffn,
+            "max_source_positions": cfg.enc_positions,
+            "max_target_positions": cfg.dec_positions,
+            "decoder_start_token_id": cfg.bos_token_id,
+            "bos_token_id": cfg.eos_token_id,
+            "eos_token_id": cfg.eos_token_id,
+            "pad_token_id": cfg.pad_token_id,
+            "activation_function": "gelu", "scale_embedding": False,
+            "torch_dtype": "float32"}
+
+
+def hf_bert_state_dict(params, cfg) -> dict:
+    """The inverse of models/convert.py::convert_bert: a MiniLM param tree
+    as HF's BertModel state dict (float32 on the CPU); the pooler, which
+    the conversion drops, is written as zeros so the directory loads
+    whole."""
+    sd: dict = {}
+    emb = params["embeddings"]
+    e = "embeddings"
+    sd[f"{e}.word_embeddings.weight"] = _cpu32(emb["word"])
+    sd[f"{e}.position_embeddings.weight"] = _cpu32(emb["position"])
+    sd[f"{e}.token_type_embeddings.weight"] = _cpu32(emb["token_type"])
+    _hf_ln(sd, f"{e}.LayerNorm", emb["ln"])
+    for i, blk in enumerate(params["blocks"]):
+        b = f"encoder.layer.{i}"
+        for ours, theirs in (("q", "query"), ("k", "key"), ("v", "value")):
+            _hf_linear(sd, f"{b}.attention.self.{theirs}", blk["attn"][ours])
+        _hf_linear(sd, f"{b}.attention.output.dense", blk["attn"]["o"])
+        _hf_ln(sd, f"{b}.attention.output.LayerNorm", blk["attn_ln"])
+        _hf_linear(sd, f"{b}.intermediate.dense", blk["mlp_in"])
+        _hf_linear(sd, f"{b}.output.dense", blk["mlp_out"])
+        _hf_ln(sd, f"{b}.output.LayerNorm", blk["mlp_ln"])
+    sd["pooler.dense.weight"] = torch.zeros(cfg.hidden, cfg.hidden)
+    sd["pooler.dense.bias"] = torch.zeros(cfg.hidden)
+    return sd
+
+
+def hf_bert_config(cfg) -> dict:
+    """HF's config.json of a BertModel at ``cfg``'s widths
+    (models/convert.py::bert_config_from_hf reads it back)."""
+    return {"architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden,
+            "num_hidden_layers": cfg.layers,
+            "num_attention_heads": cfg.heads,
+            "intermediate_size": cfg.intermediate,
+            "max_position_embeddings": cfg.max_positions,
+            "type_vocab_size": cfg.type_vocab,
+            "layer_norm_eps": cfg.ln_eps, "hidden_act": "gelu",
+            "hidden_dropout_prob": 0.0,
+            "attention_probs_dropout_prob": 0.0, "torch_dtype": "float32"}
+
+
+def write_standin(path: str, state_dict: dict, config: dict) -> None:
+    """A checkpoint directory as HF's save_pretrained lays out a
+    ``pytorch_model.bin`` one: config.json and the state dict saved with
+    torch.save (no tokenizer assets)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
+
+
+def write_standins(root: str, seed: int = WEIGHTS_SEED,
+                   presets=None) -> tuple[dict, dict]:
+    """Random-init stand-ins of the three checkpoints under ``root``: the
+    parameters the engine draws from ``seed`` in memory (each model from
+    its own ``torch.Generator().manual_seed(seed)``), written under HF's
+    key names. ``presets`` replaces STANDINS' (name, family, preset)
+    triples. Returns ({name: directory}, {name: param tree})."""
+    from multimodal_audio_search_tpu_torch.models import minilm as M
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    dirs, trees = {}, {}
+    for name, family, preset in presets or STANDINS:
+        gen = torch.Generator().manual_seed(seed)
+        path = os.path.join(root, name)
+        if family == "whisper":
+            cfg = W.PRESETS[preset]
+            tree = W.init_params(gen, cfg)
+            write_standin(path, hf_whisper_state_dict(tree),
+                          hf_whisper_config(cfg))
+        else:
+            cfg = M.PRESETS[preset]
+            tree = M.init_params(gen, cfg)
+            write_standin(path, hf_bert_state_dict(tree, cfg),
+                          hf_bert_config(cfg))
+        dirs[name], trees[name] = path, tree
+    return dirs, trees
+
+
+def tree_bits_equal(name: str, got, want) -> int:
+    """Every leaf of ``got`` (numpy, from models/convert.py) equal bit for
+    bit to ``want``'s (the tree written), same keys; returns the leaves
+    compared."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return sum(tree_bits_equal(f"{name}/{k}", got[k], want[k])
+                   for k in want)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} != {len(want)} items")
+        return sum(tree_bits_equal(f"{name}/{i}", g, w)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    g = np.asarray(got)
+    w = _cpu32(want).numpy()
+    if g.shape != w.shape or g.dtype != w.dtype or \
+            g.tobytes() != w.tobytes():
+        raise AssertionError(f"{name}: the converted leaf differs from the "
+                             f"written one ({g.shape} {g.dtype} vs "
+                             f"{w.shape} {w.dtype})")
+    return 1
+
+
+def weights_engine_check(card: str, cfg, clip, device="cuda") -> dict:
+    """An engine of ``cfg`` (seed WEIGHTS_SEED) ingesting ``clip`` (name,
+    wave) and answering the own-segment query and WEIGHTS_QUERIES, its
+    launches set to 0 just before and read just after (on the card: equal
+    to expected_launches, K1 and K2 launched). Returns the segments (source,
+    start, end, ASR text, caption), each query's top-10 (index, score),
+    the counts and the walls."""
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    t0 = time.perf_counter()
+    eng = AudioSearchEngine(cfg=cfg, device=device, seed=WEIGHTS_SEED)
+    eng.load_all_models()
+    build_s = time.perf_counter() - t0
+    ing = eng.ingest_pipeline
+    asr, cap = ing.asr, ing.caption
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    runtime.reset_counts()
+    steps0 = (asr.total_steps, cap.total_steps)
+    disp0 = (asr.dispatches, cap.dispatches)
+    t0 = time.perf_counter()
+    segs = eng.ingest(wav_bytes(clip[1]), source_name=clip[0])
+    if on_card:
+        torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    meta = list(eng.store.meta)
+    texts = [m["asr_text"] for m in meta]
+    if not any(texts):
+        raise AssertionError("weights: no segment survived validation")
+    own = own_segment(meta, range(len(meta)))
+    tops = []
+    for qi, q in enumerate((texts[own],) + WEIGHTS_QUERIES):
+        hits, _ = eng.search(q)
+        if qi == 0:
+            check_own_first("weights own segment", meta, own, hits)
+        tops.append([(h["index"], h["fusion_score"]) for h in hits])
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+    disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+    exp = expected_launches(False, None, steps, disp, asr, cap)
+    if on_card and (counts != exp or not counts["K1"] or not counts["K2"]):
+        raise AssertionError(f"weights: launches {counts} != expected {exp}")
+    out = {"segments": [(m["source"], m["start_time"], m["end_time"],
+                         m["asr_text"], m["audio_description"])
+                        for m in meta],
+           "tops": tops, "launches": counts, "expected": exp,
+           "build_s": build_s, "ingest_s": ingest_s, "own": own,
+           "stored": len(segs),
+           "tokenizers": [type(p.tokenizer).__name__
+                          for p in (asr, cap, ing.embedder)]}
+    del eng, ing, asr, cap
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def weights_phase(card: str, clips, device="cuda", presets=None,
+                  run_kw=None) -> dict:
+    """[weights]: the weights-day chain on random-init stand-ins
+    (write_standins: whisper-base, whisper-tiny and MiniLM-L6 under HF's
+    key names, no tokenizer assets). Each directory loaded and converted
+    (timed apart) equals the tree written, bit for bit;
+    tools/torch_weights_day.py's run(dry_run=True) on the card reports
+    the presets' init parameter counts and the hash tokenizer for all
+    three; an engine built from the directories (the tool's
+    smoke_config) ingests short.wav with K1 and K2 as expected_launches
+    and ranks its own segment first, and its segments, texts and top-10
+    equal those of the engine the same seed builds in memory (both take
+    the hash tokenizer: no directory carries assets). ``presets`` and
+    ``run_kw`` (the tool's smoke arguments) narrow it for the CPU
+    rehearsal."""
+    import dataclasses
+    import tempfile
+    from multimodal_audio_search_tpu_torch.models import convert
+    from multimodal_audio_search_tpu_torch.models import minilm as M
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    tool = load_tool("torch_weights_day")
+    presets = presets or STANDINS
+    run_kw = run_kw or {}
+    clip = next(c for c in clips if c[0] == "short.wav")
+    with tempfile.TemporaryDirectory(prefix="standins_") as root:
+        t0 = time.perf_counter()
+        dirs, trees = write_standins(root, WEIGHTS_SEED, presets)
+        write_s = time.perf_counter() - t0
+        load_s, convert_s, leaves, nbytes_ = {}, {}, {}, {}
+        for name, family, preset in presets:
+            nbytes_[name] = os.path.getsize(
+                os.path.join(dirs[name], "pytorch_model.bin"))
+            t0 = time.perf_counter()
+            sd = convert.load_state_dict_from_dir(dirs[name])
+            load_s[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tree = convert.convert_whisper(sd, W.PRESETS[preset]) \
+                if family == "whisper" else \
+                convert.convert_bert(sd, M.PRESETS[preset])
+            convert_s[name] = time.perf_counter() - t0
+            leaves[name] = tree_bits_equal(name, tree, trees[name])
+        asr_d, cap_d, mini_d = (dirs[n] for n, _, _ in presets)
+        presets_kw = {"asr_preset": presets[0][2],
+                      "caption_preset": presets[1][2],
+                      "minilm_preset": presets[2][2], **run_kw}
+        t0 = time.perf_counter()
+        rep = tool.run(asr_d, cap_d, mini_d, dry_run=True,
+                       out=os.path.join(root, "weights_day_report.json"),
+                       device=device, **presets_kw)
+        run_s = time.perf_counter() - t0
+        steps = rep["steps"]
+        want = {key: tool.n_params(trees[n]) for key, (n, _, _) in zip(
+            ("whisper_base", "captioner", "minilm"), presets)}
+        got = {key: steps["convert"][key]["params"] for key in want}
+        if got != want:
+            raise AssertionError(f"weights: converted parameter counts "
+                                 f"{got} != the presets' init {want}")
+        real = {k: v["real"] for k, v in steps["tokenize"].items()}
+        if any(real.values()):
+            raise AssertionError(f"weights: a stand-in without assets took "
+                                 f"a real tokenizer: {real}")
+        if not steps["smoke"]["ok"] or steps["parity"] != \
+                "skipped (--dry-run)":
+            raise AssertionError(f"weights: report {steps}")
+        phase("weights", step="weights_day", card=card, device=device,
+              write_seconds=write_s, load_seconds=load_s,
+              convert_seconds=convert_s, bin_bytes=nbytes_,
+              leaves_bit_equal=leaves, run_seconds=run_s,
+              params=got, tokenize={k: v["class"]
+                                    for k, v in steps["tokenize"].items()},
+              smoke={k: steps["smoke"][k] for k in (
+                  "seconds", "segments", "sample_transcripts", "hits")})
+        cfg = tool.smoke_config(asr_d, cap_d, mini_d, **presets_kw)
+        in_memory = cfg.replace(**{
+            k: dataclasses.replace(getattr(cfg, k), weights_path=None)
+            for k in ("asr_model", "caption_model", "text_embedder")})
+        got_e = weights_engine_check(card, cfg, clip, device)
+    want_e = weights_engine_check(card, in_memory, clip, device)
+    for label, e in (("directories", got_e), ("in memory", want_e)):
+        phase("weights", step=f"engine from {label}", card=card,
+              build_seconds=e["build_s"], ingest_seconds=e["ingest_s"],
+              segments=len(e["segments"]), launches=e["launches"],
+              tokenizers=e["tokenizers"], own_segment=e["own"],
+              top_hit=e["tops"][0][0] if e["tops"][0] else None)
+    if got_e["segments"] != want_e["segments"]:
+        raise AssertionError(
+            f"weights: segments from the directories differ from the "
+            f"in-memory engine's: {got_e['segments']} vs "
+            f"{want_e['segments']}")
+    ids = [[i for i, _ in t] for t in got_e["tops"]]
+    if ids != [[i for i, _ in t] for t in want_e["tops"]]:
+        raise AssertionError(f"weights: top-10 differ: {got_e['tops']} vs "
+                             f"{want_e['tops']}")
+    score_diff = max((abs(a - b) for ga, wa in zip(got_e["tops"],
+                                                    want_e["tops"])
+                      for (_, a), (_, b) in zip(ga, wa)), default=0.0)
+    if score_diff > K12_ATOL:
+        raise AssertionError(f"weights: top-10 scores differ by "
+                             f"{score_diff}")
+    if got_e["launches"] != want_e["launches"]:
+        raise AssertionError(f"weights: launches {got_e['launches']} != "
+                             f"the in-memory engine's {want_e['launches']}")
+    phase("weights", step="directories = memory", card=card,
+          segments=len(got_e["segments"]), texts_equal=True,
+          top10_equal=True, max_score_diff=score_diff,
+          tokenizers=got_e["tokenizers"])
+    return got_e["launches"]
+
+
+# ------------------------------------------------------------------- [soak]
+# the single pass's WAV and the loop's length (tools/torch_soak.py)
+SOAK_SECONDS = 60
+SOAK_LOOP_MINUTES = 0.5
+
+
+def soak_phase(card: str, device="cuda", seconds: float = SOAK_SECONDS,
+               minutes: float = SOAK_LOOP_MINUTES) -> dict:
+    """[soak]: tools/torch_soak.py against the port's server (production
+    defaults, a temporary data root) on ``device``: its single pass, then
+    ``_soak_loop`` for ``minutes``; every status must be 200 and the
+    loop's three checks true. Prints the samples' RSS fit and the
+    launches over the whole run."""
+    from multimodal_audio_search_tpu_torch import runtime
+    tool = load_tool("torch_soak")
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    res = tool.main(["--seconds", str(seconds), "--port", "0",
+                     "--loop-minutes", str(minutes), "--device", device])
+    wall = time.perf_counter() - t0
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()
+              if runtime.COUNTS[v]}
+    loop = res.get("loop", {})
+    phase("soak", card=card, device=device, seconds=wall,
+          statuses={k: v["status"] for k, v in res.items()
+                    if isinstance(v, dict) and "status" in v},
+          ingest={"status": res["ingest"]["status"],
+                  "s": res["ingest"]["s"],
+                  "segments": len(res["ingest"]["segments"] or [])},
+          search=res["search"],
+          search_warm=res["search_warm"], loop=loop,
+          rss_fit=res.get("rss_fit"), launches=counts)
+    bad = {k: v["status"] for k, v in res.items()
+           if isinstance(v, dict) and "status" in v and v["status"] != 200}
+    if not res["ok"] or bad or not loop or not all(loop["checks"].values()):
+        raise AssertionError(f"soak: statuses {bad}, loop {loop}")
+    if torch.device(device).type == "cuda" and not (
+            counts.get("K1") and counts.get("K2")):
+        raise AssertionError(f"soak: the server's ingests launched "
+                             f"{counts}")
+    return counts
+
+
+# -------------------------------------------------------------------- [dcn]
+# (rows, dim) of the multi-process check's runs: the JAX tool's size, then
+# [mesh]'s 1M x 2 x 384
+DCN_RUNS = ((512, 64), (1_000_000, 384))
+
+
+def dcn_phase(card: str, device="cuda", runs=DCN_RUNS) -> None:
+    """[dcn]: tools/torch_multiprocess_dcn_check.py, two processes in one
+    Gloo group on ``device`` (the card, each process naming it twice), at
+    each of ``runs``; both MPDCN_OK lines and ALL OK required."""
+    for rows, dim in runs:
+        cmd = [sys.executable,
+               os.path.join(ROOT, "tools", "torch_multiprocess_dcn_check.py"),
+               "--procs", "2", "--local", "2", "--rows", str(rows),
+               "--dim", str(dim), "--device", device]
+        t0 = time.perf_counter()
+        # past the tool's own deadline for its children
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=660)
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith("MPDCN_OK")]
+        phase("dcn", card=card, rows=rows, dim=dim, procs=2, local=2,
+              seconds=time.perf_counter() - t0, returncode=p.returncode,
+              ok_lines=lines)
+        if p.returncode != 0 or "ALL OK" not in p.stdout or len(lines) != 2:
+            raise AssertionError(f"dcn at {rows} rows failed (rc "
+                                 f"{p.returncode}):\n{p.stdout[-4000:]}"
+                                 f"\n{p.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -5747,10 +6241,13 @@ def main() -> int:
     counts["embedders"] = embedders_phase(card, clips)
     clap_phase(card, clips)
     service_phase(card, rng, audio["uploads"])
+    counts["weights"] = weights_phase(card, clips)
+    counts["soak"] = soak_phase(card)
     counts["ab"] = ab_phase(card)
     counts["search_scale"] = search_scale_phase(card)
     counts["ann"] = ann_phase(card, clips)
     counts["mesh"] = mesh_phase(card, clips)
+    dcn_phase(card)
     counts["tp"], tp_kern = tp_phase(card, clips, k1, k2, dec, int8k)
     train_phase(card)
     phase("seconds", **phase_seconds())

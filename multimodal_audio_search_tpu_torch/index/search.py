@@ -19,12 +19,18 @@ parallel/sharding.py; ``search_batch`` then still reads each shard once
 for the whole batch. With IVF over a mesh, each shard builds its own
 buckets (index/ivf.py::build_ivf_sharded, rebuilt when the store's
 version or capacity changes) and probes them on its device.
+
+``reference_fusion_oracle`` is a copy of the JAX module's numpy
+transcription of the reference's per-segment loop
+(tests/test_torch_copies.py holds it to the original): the parity
+tool's reference-stack ranking (tools/torch_parity_eval.py).
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..config import FusionConfig
@@ -274,3 +280,42 @@ class FusionSearcher:
                   "analysis": wa.analysis, "query": query,
                   "latency_s": dt})
                 for qi, (query, wa) in enumerate(zip(queries, was))]
+
+
+def reference_fusion_oracle(
+    query_emb: np.ndarray,
+    segments: list[dict[str, Any]],
+    asr_weight: float,
+    audio_weight: float,
+    threshold: float = 0.1,
+    k: int = 10,
+) -> list[dict[str, Any]]:
+    """Direct numpy transcription of the reference's per-segment loop
+    (audio_search.py:639-699), used as the parity oracle in tests."""
+    def cos(a, b):
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        return float(a @ b / (na * nb)) if na > 0 and nb > 0 else 0.0
+
+    out = []
+    for i, seg in enumerate(segments):
+        asr_sim = cos(query_emb, seg["asr_embedding"]) \
+            if seg.get("asr_embedding") is not None else 0.0
+        audio_sim = cos(query_emb, seg["audio_embedding"]) \
+            if seg.get("audio_embedding") is not None else 0.0
+        if asr_sim > 0 or audio_sim > 0:
+            ew_asr = asr_weight if seg["asr_success"] else 0.0
+            ew_audio = audio_weight if seg["audio_success"] else 0.0
+            total = ew_asr + ew_audio
+            if total > 0:
+                ew_asr, ew_audio = ew_asr / total, ew_audio / total
+                score = ew_asr * asr_sim + ew_audio * audio_sim
+                if score > threshold:
+                    out.append({
+                        "index": i, "fusion_score": score,
+                        "asr_similarity": asr_sim,
+                        "audio_similarity": audio_sim,
+                        "effective_asr_weight": ew_asr,
+                        "effective_audio_weight": ew_audio,
+                    })
+    out.sort(key=lambda r: r["fusion_score"], reverse=True)
+    return out[:k]

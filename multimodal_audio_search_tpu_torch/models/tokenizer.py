@@ -10,6 +10,14 @@ The reference gets these implicitly from HF hub downloads
     test, and benchmark runnable: stable word -> id hashing for encode and a
     reversible ``tok<id>`` decode. Retrieval semantics (same text -> same
     ids -> same embedding) are preserved; only human readability is not.
+
+A near-copy of ``multimodal_audio_search_tpu/models/tokenizer.py``
+(``tests/test_torch_copies.py`` names the differences): the port imports
+``tokenizers`` only after it has found tokenizer assets, so a directory
+of weights alone takes the hash fallback on a host without the package,
+as ``load_tokenizer`` promises, while a directory with assets still
+raises ModuleNotFoundError there. The original imports it first and
+raises on any checkpoint directory (ROADMAP §3, known faults).
 """
 from __future__ import annotations
 
@@ -143,9 +151,12 @@ def build_from_checkpoint_dir(path: str | pathlib.Path):
     """tokenizer.json > (vocab.json + merges.txt) > vocab.txt, rebuilt
     into a ``tokenizers.Tokenizer``. Raises FileNotFoundError if the dir
     carries no tokenizer assets at all."""
-    from tokenizers import Tokenizer
     p = pathlib.Path(path)
     if (p / "tokenizer.json").exists():
+        # ``tokenizers`` is imported only once there are assets to read:
+        # a directory of weights alone raises FileNotFoundError, and the
+        # hash fallback serves it, on a host without the package
+        from tokenizers import Tokenizer
         return Tokenizer.from_file(str(p / "tokenizer.json"))
     if (p / "vocab.json").exists() and (p / "merges.txt").exists():
         return build_byte_level_bpe(p)
@@ -164,9 +175,9 @@ class HFTokenizerWrapper:
 
     @classmethod
     def from_path(cls, path: str | pathlib.Path) -> "HFTokenizerWrapper":
-        from tokenizers import Tokenizer
         p = pathlib.Path(path)
         if not p.is_dir() and p.suffix == ".json":
+            from tokenizers import Tokenizer
             return cls(Tokenizer.from_file(str(p)))
         return cls(build_from_checkpoint_dir(p))
 

@@ -148,12 +148,13 @@ def validate_data_axis(mesh: Mesh) -> None:
                          f"two; {_POW2}")
 
 
-def mesh_from_config(cfg, device="cuda") -> Mesh | None:
+def mesh_from_config(cfg, device="cuda", devices=None) -> Mesh | None:
     """Engine knob -> mesh: ``EngineConfig.data_parallel`` x
     ``model_parallel`` devices of ``device`` (never one card twice: more
     than the visible cards raise) as a ("data", "model") grid; 1 x 1
     returns None, single-device execution. ``data_parallel`` must be a
-    power of two."""
+    power of two. ``devices`` names the grid's entries instead (they may
+    repeat, e.g. one card named several times)."""
     dp = getattr(cfg, "data_parallel", 1) or 1
     mp = getattr(cfg, "model_parallel", 1) or 1
     if dp & (dp - 1):
@@ -161,7 +162,8 @@ def mesh_from_config(cfg, device="cuda") -> Mesh | None:
                          f"{_POW2}")
     if dp * mp <= 1:
         return None
-    return make_mesh(dp * mp, model_parallel=mp, device=device)
+    return make_mesh(dp * mp, model_parallel=mp, devices=devices,
+                     device=device)
 
 
 def replicated(mesh: Mesh, tree) -> list:

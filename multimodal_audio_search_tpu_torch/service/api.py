@@ -72,7 +72,12 @@ class AudioSearchEngine:
         keep_audio: bool = True,
         seed: int = 0,
         device: torch.device | str = "cuda",
+        devices=None,
     ):
+        """``devices``: the entries of the mesh that ``cfg.data_parallel``
+        x ``cfg.model_parallel`` asks for, in place of that many distinct
+        cards of ``device`` (entries may repeat: one card named several
+        times runs every sharded path on it)."""
         from .. import runtime
         self.cfg = cfg or EngineConfig()
         self.device = runtime.select_device(
@@ -95,7 +100,7 @@ class AudioSearchEngine:
         # index split over its data devices); None = one device, the
         # reference's execution model
         from ..parallel.mesh import mesh_from_config
-        self.mesh = mesh_from_config(self.cfg, self.device)
+        self.mesh = mesh_from_config(self.cfg, self.device, devices)
         if self.mesh is not None and ingest_pipeline is not None \
                 and ingest_pipeline.mesh is None:
             ingest_pipeline.use_mesh(self.mesh)

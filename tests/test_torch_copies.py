@@ -22,7 +22,6 @@ COPIED = [
     "audio/wav.py",
     "audio/resample.py",
     "audio/segment.py",
-    "models/tokenizer.py",
     "models/convert.py",
     "pipelines/validators.py",
     "index/lexicon.py",
@@ -68,6 +67,26 @@ NEAR_COPIES = {
         ('f"multimodal_audio_search_tpu.audio.decode.register_decoder")',
          'f"multimodal_audio_search_tpu_torch.audio.decode.'
          'register_decoder")')],
+    # tokenizers is imported once assets are found: a weights-only
+    # directory takes the hash fallback without the package
+    "models/tokenizer.py": [
+        ("    from tokenizers import Tokenizer\n"
+         "    p = pathlib.Path(path)\n"
+         '    if (p / "tokenizer.json").exists():\n',
+         "    p = pathlib.Path(path)\n"
+         '    if (p / "tokenizer.json").exists():\n'
+         "        # ``tokenizers`` is imported only once there are assets "
+         "to read:\n"
+         "        # a directory of weights alone raises FileNotFoundError, "
+         "and the\n"
+         "        # hash fallback serves it, on a host without the package\n"
+         "        from tokenizers import Tokenizer\n"),
+        ("        from tokenizers import Tokenizer\n"
+         "        p = pathlib.Path(path)\n"
+         '        if not p.is_dir() and p.suffix == ".json":\n',
+         "        p = pathlib.Path(path)\n"
+         '        if not p.is_dir() and p.suffix == ".json":\n'
+         "            from tokenizers import Tokenizer\n")],
     "cli.py": [('prog="multimodal_audio_search_tpu"',
                 'prog="multimodal_audio_search_tpu_torch"')],
     "service/server.py": [
@@ -113,6 +132,8 @@ MODEL_DEFS = [
     ("models/minilm.py", "PRESETS"),
     ("models/clap.py", "ClapConfig"),
     ("models/bridge.py", "BridgeConfig"),
+    # the parity tool's reference-stack ranking (numpy)
+    ("index/search.py", "reference_fusion_oracle"),
 ]
 # the synthetic captioner's numpy half (training/synth.py): the clip
 # generator and the word vocabulary, so one seed gives both packages the
@@ -125,7 +146,11 @@ SYNTH_FUNCS = ["SAMPLE_RATE", "_TONES", "_tone", "_noise", "_sweep",
 TOOL_COPIES = [("synth_drift", "torch_synth_drift", "token_f1"),
                ("synth_drift", "torch_synth_drift", "int16_roundtrip"),
                ("eval_context", "torch_eval_context", "token_f1"),
-               ("compare_modes", "torch_compare_modes", "QUERIES")]
+               ("compare_modes", "torch_compare_modes", "QUERIES"),
+               # the weights-day chain and the soak
+               ("parity_eval", "torch_parity_eval", "token_f1"),
+               ("parity_eval", "torch_parity_eval", "QUERIES"),
+               ("soak", "torch_soak", "make_wav")]
 # their near-copies: the function with its imports left out (the round
 # trips import the port's pipelines/ingest.py) after the named
 # substitutions; make_index stores bf16 as its bits without ml_dtypes
@@ -139,6 +164,7 @@ TOOL_NEAR_COPIES = {
          "            emb[lo:hi] = _bf16_bits(x)\n"
          "        else:\n"
          "            emb[lo:hi] = x.astype(np_dtype)\n")],
+    ("build_tokenizer", "torch_build_tokenizer", "build_dir"): [],
 }
 # the port's drift tools, which the import scan must reach
 DRIFT_TOOLS = ["torch_synth_drift", "torch_bigindex_drift",
@@ -323,10 +349,23 @@ def test_strip_catches_a_change(tmp_path):
         _normalized(_parse(JAX_PKG / "utils/batching.py"))
 
 
+# the weights-day, soak, DCN and example tools and the examples, which
+# the import scan and the blocked-jax import must reach
+LAST_TOOL_SOURCES = ["tools/torch_build_tokenizer.py",
+                "tools/torch_weights_day.py", "tools/torch_parity_eval.py",
+                "tools/torch_soak.py", "tools/torch_multiprocess_dcn_check.py",
+                "tools/torch_run_examples.py",
+                "examples/torch_01_basic_search.py",
+                "examples/torch_02_scale_search.py",
+                "examples/torch_03_multichip.py",
+                "examples/torch_04_training.py", "examples/torch_05_service.py"]
+
+
 def _port_sources() -> list[pathlib.Path]:
-    """The port's modules, its card script and its tools."""
+    """The port's modules, its card script, its tools and examples."""
     return [*PORT_PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-            *sorted((ROOT / "tools").glob("torch_*.py"))]
+            *sorted((ROOT / "tools").glob("torch_*.py")),
+            *sorted((ROOT / "examples").glob("torch_*.py"))]
 
 
 def _forbidden_imports(p: pathlib.Path) -> list[str]:
@@ -354,6 +393,7 @@ def test_port_sources_never_import_jax():
     assert ROOT / "tools" / "torch_bench_ivf.py" in srcs
     assert {ROOT / "tools" / f"{t}.py" for t in DRIFT_TOOLS} <= set(srcs)
     assert {PORT_PKG / rel for rel in A11_MODULES + A14_MODULES} <= set(srcs)
+    assert {ROOT / rel for rel in LAST_TOOL_SOURCES} <= set(srcs)
     for p in srcs:
         assert _forbidden_imports(p) == [], p
 
@@ -366,3 +406,28 @@ def test_import_scan_catches_ml_dtypes(tmp_path):
                  "from multimodal_audio_search_tpu.index import ivf\n")
     assert sorted(_forbidden_imports(p)) == [
         "ml_dtypes", "multimodal_audio_search_tpu.index"]
+
+
+def test_last_tools_and_examples_import_with_jax_blocked():
+    """Each of LAST_TOOL_SOURCES imports (as a module, its main not
+    run) in a process where any import of jax or of the JAX package
+    fails, the module-level imports of the tools it loads included."""
+    import subprocess
+    import sys
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['multimodal_audio_search_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for rel in {LAST_TOOL_SOURCES!r}:\n"
+        f"    p = {str(ROOT)!r} + '/' + rel\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        'm_' + rel.replace('/', '_')[:-3], p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import tools.torch_weights_day, tools.torch_build_tokenizer\n"
+        "import multimodal_audio_search_tpu_torch.service.server\n"
+        "print('imported', len(" + repr(LAST_TOOL_SOURCES) + "))\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert p.stdout.strip() == f"imported {len(LAST_TOOL_SOURCES)}"

@@ -122,6 +122,27 @@ def test_mesh_from_config():
         assert [len(m.model_devices(i)) for i in range(dp)] == [mp] * dp
 
 
+def test_mesh_from_config_names_its_devices():
+    """``devices`` (the engine's, as examples/torch_03_multichip.py passes
+    it) names the grid's entries, one card several times included; too
+    few entries raise, and without them a mesh never repeats a card."""
+    cfg = EngineConfig(data_parallel=2, model_parallel=2)
+    card = torch.device("cuda", 0)
+    m = M.mesh_from_config(cfg, "cuda", devices=[card] * 4)
+    assert m.shape == {"data": 2, "model": 2}
+    assert m.data_devices() == [card, card]
+    assert m.model_devices(1) == [card, card]
+    with pytest.raises(ValueError, match="asked for 4 devices, have 2"):
+        M.mesh_from_config(cfg, "cuda", devices=[card] * 2)
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(ValueError, match="pass devices= to name them"):
+            M.mesh_from_config(cfg, "cuda")
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine
+    eng = AudioSearchEngine(cfg=cfg, device="cpu",
+                            devices=[torch.device("cpu")] * 4)
+    assert eng.mesh.shape == {"data": 2, "model": 2}
+
+
 def test_placement_helpers(rng):
     m = M.make_mesh(4, device="cpu")
     x = rng.normal(size=(8, 3)).astype(np.float32)

@@ -5,6 +5,7 @@
     python3 tools/torch_smoke_phases.py decoder,tp
     python3 tools/torch_smoke_phases.py train
     python3 tools/torch_smoke_phases.py drift
+    python3 tools/torch_smoke_phases.py weights,soak,dcn
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -22,7 +23,11 @@ trained and transcribed through K1 and K2, the production geometry, the
 data axis, the model axis on the card named twice, checkpoints, CLAP and
 the bridge; ``[drift]`` among them), ``drift`` the synthetic captioner
 trained as ``train`` trains it, then ``[drift]`` alone (the drift rows on
-it and the host index's storage dtypes).
+it and the host index's storage dtypes). ``weights`` is the weights-day
+chain on random-init stand-ins (checkpoint directories -> the engine,
+against the in-memory engine), ``soak`` tools/torch_soak.py's single
+pass and loop against the server, ``dcn`` the multi-process DCN check at
+the JAX tool's size and at 1M rows.
 """
 import os
 import sys
@@ -31,8 +36,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("decoder", "search", "embedders", "clap", "service", "mesh",
-          "tp", "train", "drift")
+PHASES = ("decoder", "search", "embedders", "clap", "service", "weights",
+          "soak", "mesh", "dcn", "tp", "train", "drift")
 
 
 def main(names: list[str]) -> int:
@@ -64,7 +69,10 @@ def main(names: list[str]) -> int:
            "clap": lambda: C.clap_phase(card, clips),
            "service": lambda: C.service_phase(card, rng, C.audio_phase(
                card, np.random.default_rng(1))["uploads"]),
+           "weights": lambda: C.weights_phase(card, clips),
+           "soak": lambda: C.soak_phase(card),
            "mesh": lambda: C.mesh_phase(card, clips),
+           "dcn": lambda: C.dcn_phase(card),
            "tp": lambda: C.tp_phase(card, clips, **tp_args),
            "train": lambda: C.train_phase(card),
            "drift": lambda: C.drift_phase(card, C.train_synth_check(card))}
