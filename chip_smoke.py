@@ -84,6 +84,21 @@ Phases, one line each (``[phase] ...``):
    encoder variant's encoder against the plain encoder (ENC_MEAN_ERR_MAX).
    The default engine also answers its queries with search_batch, equal
    to search, with the float32 index and with index_dtype="bfloat16".
+4a. the float32 engine (``[f32]``, after the engines): K1's float32
+   form (csrc/encoder_block_f32.cu, 3xTF32 on mma.sync) at B=32, T=1500,
+   base and tiny widths against its plain version (F32_BLOCK_ATOL /
+   RTOL), F32_REPEATS more launches bit-equal, timed beside the unfused
+   float32 route (K8 f32 + addmm + add); K8's and K2's float32 forms at
+   the same shapes (cross 1500 keys, self 64), each beside one
+   scaled_dot_product_attention call on float32; float32 bounds the
+   lesser of the CUDA cores' float32 rate and 3 TF32 products
+   (f32_bound, ``bound_rate``). Then make_default_ingest(dtype=
+   torch.float32) at EngineConfig()'s defaults ingests the 320 s WAV and
+   answers 4 queries (K1 f32 10 launches a dispatch, K2 f32 counted,
+   both held to expected_launches), one batch's encoder states within
+   F32_ENC_ATOL / RTOL of the plain float32 encoder, then the same engine
+   with fused_encoder=False (K8 f32) whose texts and top-10 must be the
+   first's; both ingest rates printed.
 4b. the transfer codecs (``[codecs]``, after the engines): CODEC_PATHS
    (``fast`` = mulaw8 + short_context + bf16 index, ``fast`` with mel8,
    ``fast_lossless`` with mel16 and with mel12, the default with int12),
@@ -260,13 +275,14 @@ Phases, one line each (``[phase] ...``):
 14. drift (``[drift]``, inside 13, after train_split_check; it trains
    nothing): train_synth_check's captioner measured by
    tools/torch_synth_drift.py (its ``measure``) on DRIFT_CLIPS held-out
-   clips from their own generator, every default row and the port's
-   extra rows; one line a row with its agreement with the parity row
-   (exact, token F1), its exact rate against the truth, its dtype and
-   the launches it made by kernel. Each lever row must launch its lever's
+   clips from their own generator, every row of the tool (its opt-in
+   fused_enc_f32, K1's float32 form, included); one line a row with its
+   agreement with the parity row (exact, token F1), its exact rate
+   against the truth, its dtype and the launches it made by kernel. Each lever row must launch its lever's
    kernels (DRIFT_LEVERS), the float32 parity row none of them (and K2's
-   float32 form), each lever row must agree with the bf16 row on at
-   least DRIFT_LEVER_AGREE of the clips, int16 must give the parity row's
+   float32 form), each lever row must agree with the bf16 row
+   (fused_enc_f32: the float32 parity row) on at least
+   DRIFT_LEVER_AGREE of the clips, int16 must give the parity row's
    texts, every text must be in the grammar. On the card the kernels at
    the rows' shapes are held against their plain versions
    (drift_kernel_checks: K2's and K8's float32 forms, K6, K7 and K9 at
@@ -303,7 +319,8 @@ Phases, one line each (``[phase] ...``):
    computation; both MPDCN_OK lines and ALL OK required.
 
 The line before the last two is the card (nvidia-smi), then the kernels
-JSON object (K1-K14, then K9p and K10p), the last line ``{"ok": true, "device": {...}}``.
+JSON object (K1-K14, then K9p and K10p, then the float32 forms of K1,
+K2 and K8), the last line ``{"ok": true, "device": {...}}``.
 Any failure raises (exit code != 0).
 """
 from __future__ import annotations
@@ -503,9 +520,9 @@ K14_EQUAL_MIN = 0.99
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
 # 700 W limit): tensor-core operations per second by input type (f32:
-# the CUDA cores, outside the tensor cores), and the device memory's
-# bytes per second
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the CUDA cores, outside the tensor cores; tf32: the tensor cores'
+# TF32 rate), and the device memory's bytes per second
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 HBM_BYTES_S = 3.35e12
 
 
@@ -518,6 +535,17 @@ def bound(nbytes: float, **ops: float) -> dict:
     t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def f32_bound(nbytes: float, flops: float) -> dict:
+    """bound() of a float32 kernel's function: the lesser of its float32
+    operations on the CUDA cores and of three TF32 products each on the
+    tensor cores (3xTF32, the float32 forms' arithmetic: csrc/tf32x3.cuh);
+    ``bound_rate`` names the one taken ("f32" or "3xtf32")."""
+    by_rate = {"f32": bound(nbytes, f32=flops),
+               "3xtf32": bound(nbytes, tf32=3 * flops)}
+    rate = min(by_rate, key=lambda r: by_rate[r]["bound_ms"])
+    return {**by_rate[rate], "bound_rate": rate}
 
 
 def nbytes(*tensors) -> int:
@@ -5571,7 +5599,8 @@ DRIFT_BIG_QUERIES = 50
 # (bf16 0.994, int8 0.986; PERF.md §6)
 DRIFT_RECALL_FLOOR = {"bfloat16": 0.97, "int8": 0.95}
 # the kernels each lever row of tools/torch_synth_drift.py must launch
-DRIFT_LEVERS = {"fused_enc": ("K1",), "int8_enc": ("K9",),
+DRIFT_LEVERS = {"fused_enc": ("K1",), "fused_enc_f32": ("K1",),
+                "int8_enc": ("K9",),
                 "paired": ("K10",), "int8_dec": ("K5",),
                 "int8_fused": ("K5", "K6"), "int8_kv": ("K5", "K7"),
                 "fused_layer": ("K3", "K4"), "v2": ("K3-q", "K4-o")}
@@ -5582,6 +5611,249 @@ def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int):
     head-split [B, H, T, 64] views of [B, T, H*64] buffers."""
     return tuple(torch.randn(b, t, heads * 64, generator=gen).cuda()
                  .view(b, t, heads, 64).transpose(1, 2) for _ in range(3))
+
+
+# [f32]: K1's float32 form against its plain version (the same float32
+# products in 3xTF32 and another order, K8's online softmax and expf),
+# and a float32 engine's encoder states (6 layers of it, then the MLPs
+# and layer norms) against the plain float32 encoder on the card
+F32_BLOCK_ATOL, F32_BLOCK_RTOL = 2e-5, 2e-5
+F32_ENC_ATOL, F32_ENC_RTOL = 1e-4, 1e-4
+F32_REPEATS = 16
+# K1 f32's, K2 f32's and K8 f32's cases: the float32 engine's shapes
+# (B=32 segments of 30 s, T=1500; whisper-base and -tiny widths)
+F32_WIDTHS = (("base", 8), ("tiny", 6))
+F32_B, F32_T = 32, 1500
+
+
+def _f32_block(gen: torch.Generator, b: int, t: int, heads: int):
+    """K1's float32 inputs: q, k, v as _f32_heads, x ~ N(0, 1), Wo ~
+    N(0, 1/HD), bo ~ N(0, 0.01)."""
+    hd = heads * 64
+    q, k, v = _f32_heads(gen, b, t, heads)
+    x = torch.randn(b, t, hd, generator=gen).cuda()
+    wo = (torch.randn(hd, hd, generator=gen) / math.sqrt(hd)).cuda()
+    bo = (0.1 * torch.randn(hd, generator=gen)).cuda()
+    return q, k, v, x, wo, bo
+
+
+def f32_kernel_checks(card: str, gen: torch.Generator) -> tuple:
+    """The float32 engine's kernels at its shapes, each against its plain
+    version: K1's float32 form (with 16 repeats bit-equal, and the
+    unfused float32 route K8 f32 + addmm + add beside it), K8's float32
+    form (scaled_dot_product_attention on float32 beside it) and K2's
+    float32 form over 1500 cross keys and a 64-step self cache. Returns
+    the three kernels' entries for the kernels line."""
+    from multimodal_audio_search_tpu_torch.ops import attention as A
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    src = "multimodal_audio_search_tpu_torch/csrc/"
+    k1 = {"name": "encoder_attn_o_residual_f32", "route": "cuda",
+          "source": src + "encoder_block_f32.cu",
+          "replaces": "multimodal_audio_search_tpu/ops/encoder_block.py:425",
+          "cases": []}
+    k8 = {"name": "encoder_attention_f32", "route": "cuda",
+          "source": src + "encoder_attention.cu",
+          "replaces": "multimodal_audio_search_tpu/ops/attention.py:83",
+          "cases": []}
+    k2 = {"name": "single_query_attention_f32", "route": "cuda",
+          "source": src + "cross_attention.cu",
+          "replaces": "multimodal_audio_search_tpu/ops/cross_attention.py:145",
+          "cases": []}
+    b, t = F32_B, F32_T
+    for label, heads in F32_WIDTHS:
+        hd = heads * 64
+        q, k, v, x, wo, bo = args = _f32_block(gen, b, t, heads)
+        fn = (lambda: EB.fused_attention_o_residual(*args))
+        plain = (lambda: EB.attention_o_residual_plain(*args))
+
+        def unfused():
+            a = A.fused_encoder_attention(q, k, v).transpose(1, 2)
+            return x + torch.addmm(bo, a.reshape(-1, hd), wo).view(b, t, hd)
+        got = fn()
+        torch.cuda.synchronize()
+        shape = f"{label} B={b} T={t} H={heads}"
+        case = {"shape": shape, "cluster": EB.f32_cluster(heads),
+                "max_abs_err": check_close(f"K1 float32 {shape}", got,
+                                           plain(), F32_BLOCK_ATOL,
+                                           F32_BLOCK_RTOL),
+                "unfused_max_abs_err": check_close(
+                    f"K8 f32 + addmm {shape}", unfused(), got,
+                    F32_BLOCK_ATOL, F32_BLOCK_RTOL),
+                "repeats_equal": check_repeats(f"K1 float32 {shape}", fn,
+                                               got, F32_REPEATS),
+                "ms": time_ms(fn), "plain_ms": time_ms(plain, reps=3),
+                "unfused_ms": time_ms(unfused), "library_ms": None,
+                **f32_bound(nbytes(*args) + nbytes(got),
+                            4 * b * heads * t * t * 64 + 2 * b * t * hd * hd)}
+        case["vs_unfused"] = case["ms"] / case["unfused_ms"]
+        k1["cases"].append(case)
+        phase("f32", card=card, kernel="K1 float32",
+              tol=[F32_BLOCK_ATOL, F32_BLOCK_RTOL], **case)
+        del got
+        fn = (lambda: A.fused_encoder_attention(q, k, v))
+        plain = (lambda: A.encoder_attention_plain(q, k, v))
+        sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v))
+        got = fn()
+        case = {"shape": shape,
+                "max_abs_err": check_close(f"K8 float32 {shape}", got,
+                                           plain(), F32_ATT_ATOL,
+                                           F32_ATT_RTOL),
+                "ms": time_ms(fn), "plain_ms": time_ms(plain, reps=3),
+                "library_ms": time_ms(sdpa),
+                **f32_bound(4 * nbytes(q), 4 * b * heads * t * t * 64)}
+        case["vs_library"] = case["ms"] / case["library_ms"]
+        k8["cases"].append(case)
+        phase("f32", card=card, kernel="K8 float32",
+              tol=[F32_ATT_ATOL, F32_ATT_RTOL], **case)
+        del args, q, k, v, x, wo, bo, got
+        torch.cuda.empty_cache()
+        for kind, n, pos in (("cross", t, None), ("self", 64, 63)):
+            qm, km, vm = (a.float() for a in k2_inputs(gen, b, n, heads))
+            fn = (lambda: CX.fused_single_query_attention(
+                qm, km, vm, heads=heads, pos=pos))
+            plain = (lambda: CX.single_query_attention_plain(
+                qm, km, vm, heads=heads, pos=pos))
+            keys = n if pos is None else pos + 1
+            qh = qm.view(b, 1, heads, 64).transpose(1, 2)
+            kh, vh = (a[:, :keys].view(b, keys, heads, 64).transpose(1, 2)
+                      for a in (km, vm))
+            sdpa = (lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh))
+            got = fn()
+            case = {"shape": f"{kind} {label} B={b} T={n} H={heads} "
+                             f"pos={pos}",
+                    "max_abs_err": check_close(
+                        f"K2 float32 {kind} {label}", got, plain(),
+                        F32_ATT_ATOL, F32_ATT_RTOL),
+                    "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                    "library_ms": time_ms(sdpa),
+                    **f32_bound(nbytes(qm, got) + 2 * b * keys * hd * 4,
+                                4 * b * keys * hd)}
+            k2["cases"].append(case)
+            phase("f32", card=card, kernel="K2 float32",
+                  tol=[F32_ATT_ATOL, F32_ATT_RTOL], **case)
+    return k1, k2, k8
+
+
+def f32_engine_run(card: str, clip, label: str, enc) -> tuple:
+    """A float32 engine at EngineConfig()'s defaults (``enc``: the decode
+    configs' fused_encoder, None = K1) built by make_default_ingest(...,
+    dtype=torch.float32): the clip ingested and the queries answered with
+    the counts set to 0 just before and read just after, held to
+    expected_launches; then the clip once more under another name, timed
+    warm. Returns (counts, the counted run's dispatches (ASR, captions),
+    texts by segment of both ingests, each query's top-10 indices, the
+    engine's ASR pipeline, the engine, the warm ingest's audio-s/s)."""
+    from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
+    from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+        make_default_ingest)
+    cfg = engine_config(None, False, None, enc)
+    t0 = time.perf_counter()
+    ing = make_default_ingest(cfg, seed=0, dtype=torch.float32,
+                              device="cuda")
+    eng = AudioSearchEngine(cfg=cfg, ingest_pipeline=ing, device="cuda",
+                            seed=0)
+    asr, cap = ing.asr, ing.caption
+    if not (asr.dtype == cap.dtype == torch.float32):
+        raise AssertionError(f"[f32] {label}: dtypes {asr.dtype}, "
+                             f"{cap.dtype}")
+    build_s = time.perf_counter() - t0
+    runtime.reset_counts()
+    steps0 = (asr.total_steps, cap.total_steps)
+    disp0 = (asr.dispatches, cap.dispatches)
+    t0 = time.perf_counter()
+    segs = eng.ingest(wav_bytes(clip[1]), source_name=clip[0])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    texts = [m["asr_text"] for m in eng.store.meta]
+    queries = [next(tx for tx in texts if tx), *ANN_QUERIES[:3]]
+    top10 = []
+    for qtext in queries:
+        hits, _ = eng.search(qtext, k=10)
+        top10.append([h["index"] for h in hits])
+    torch.cuda.synchronize()
+    counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+    steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
+    disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
+    exp = expected_launches(False, None, steps, disp, asr, cap, enc)
+    if counts != exp:
+        raise AssertionError(f"[f32] {label}: launches {counts} != "
+                             f"expected {exp}")
+    rate = len(clip[1]) / SR / ingest_s
+    # the same clip again, the engine warm (the first ingest also pays
+    # the shapes' first launches and allocations)
+    t0 = time.perf_counter()
+    eng.ingest(wav_bytes(clip[1]), source_name=clip[0] + ".again")
+    torch.cuda.synchronize()
+    warm = len(clip[1]) / SR / (time.perf_counter() - t0)
+    phase("f32", path=label, card=card, build_seconds=build_s,
+          fused_encoder=[asr.fused_encoder_resolved,
+                         cap.fused_encoder_resolved],
+          segments=len(segs), ingest_seconds=ingest_s,
+          ingest_audio_s_per_s=rate, warm_ingest_audio_s_per_s=warm,
+          k1_per_dispatch=counts["K1"] / max(1, disp[0]),
+          decode_steps={"asr": steps[0], "caption": steps[1]},
+          dispatches={"asr": disp[0], "caption": disp[1]},
+          launches=counts, expected=exp,
+          distinct_asr_texts=len(set(texts)), top10=top10,
+          peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    by_seg = {(m["source"], m["start_time"]): (m["asr_text"],
+                                               m["audio_description"])
+              for m in eng.store.meta}
+    return counts, disp, by_seg, top10, asr, eng, warm
+
+
+def f32_phase(card: str, clips) -> tuple:
+    """[f32]: the float32 engine on the card (make_default_ingest(dtype=
+    torch.float32) at EngineConfig()'s defaults, full width: whisper-base
+    ASR and whisper-tiny captions, 30 s mel context, B=32 segments of the
+    320 s clip, 64 greedy tokens, MiniLM-L6, exact top-10). Its kernels
+    against their plain versions (f32_kernel_checks); the engine with
+    fused_encoder None (K1's float32 form, 10 launches a dispatch: 6 base
+    and 4 tiny layers) and with fused_encoder=False (K8's float32 form +
+    the plain o-projection), each with its launches held to
+    expected_launches; their texts and top-10 identical; one batch's
+    encoder states of the K1 engine against the plain float32 encoder
+    within F32_ENC_ATOL / F32_ENC_RTOL. Returns (the K1 engine's counts,
+    the K8 engine's counts, the kernels' entries)."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    kern = f32_kernel_checks(card, torch.Generator().manual_seed(24))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts, disp, texts, top10, asr, eng, rate = f32_engine_run(
+        card, clips[0], "f32", None)
+    layers = asr.cfg.enc_layers + eng.ingest_pipeline.caption.cfg.enc_layers
+    if disp != (1, 1) or counts["K1"] != layers:
+        raise AssertionError(f"[f32]: K1 {counts['K1']} over dispatches "
+                             f"{disp}, want {layers} over one")
+    with torch.inference_mode():
+        x = make_audio(20, np.random.default_rng(24)).reshape(2, -1)
+        w = torch.nn.functional.pad(torch.as_tensor(x, device="cuda"),
+                                    (0, asr.mel_cfg.n_samples - x.shape[1]))
+        mel = log_mel_spectrogram(w, asr.mel_cfg).float()
+        got = W.encode(asr.params, mel, asr.cfg, fused_blocks=True)
+        ref = W.encode(asr.params, mel, asr.cfg, fused_attention=False)
+    enc_err = check_close("[f32] encoder vs the plain float32 encoder", got,
+                          ref, F32_ENC_ATOL, F32_ENC_RTOL)
+    del eng, asr, got, ref
+    torch.cuda.empty_cache()
+    counts8, _, texts8, top8, _, eng8, rate8 = f32_engine_run(
+        card, clips[0], "f32 fused_encoder=False", False)
+    del eng8
+    torch.cuda.empty_cache()
+    if texts8 != texts or top8 != top10:
+        diff = [k for k in texts if texts8.get(k) != texts[k]]
+        raise AssertionError(f"[f32]: K1 and K8 engines differ: texts of "
+                             f"{len(diff)} segments, top-10 equal "
+                             f"{top8 == top10}")
+    phase("f32", path="f32", card=card, encoder_max_abs_err=enc_err,
+          tol=[F32_ENC_ATOL, F32_ENC_RTOL], texts_equal_k8_engine=True,
+          top10_equal_k8_engine=True, warm_ingest_audio_s_per_s=rate,
+          k8_engine_warm_ingest_audio_s_per_s=rate8)
+    return counts, counts8, kern
 
 
 def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
@@ -5625,8 +5897,8 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
               max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
               queued_ms=queued_ms(fn), library_ms=time_ms(sdpa),
               library_queued_ms=queued_ms(sdpa),
-              **bound(nbytes(q, got) + 2 * b * keys * hd * 4,
-                      f32=4 * b * keys * hd))
+              **f32_bound(nbytes(q, got) + 2 * b * keys * hd * 4,
+                          4 * b * keys * hd))
     for n, bb in ((t, b), (1500, 8)):
         q, k, v = _f32_heads(gen, bb, n, heads)
         fn = (lambda: A.fused_encoder_attention(q, k, v))
@@ -5640,7 +5912,7 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
               ms=time_ms(fn), plain_ms=time_ms(plain, reps=5),
               queued_ms=queued_ms(fn), library_ms=time_ms(sdpa),
               library_queued_ms=queued_ms(sdpa),
-              **bound(4 * nbytes(q), f32=4 * bb * heads * n * n * 64))
+              **f32_bound(4 * nbytes(q), 4 * bb * heads * n * n * 64))
     del q, k, v, got
     args = k6_inputs(gen, b, t, heads)
     phase("drift", card=card, kernel="K6", shape=f"B={b} T={t} H={heads}",
@@ -5677,7 +5949,7 @@ def drift_phase(card: str, model, device="cuda") -> dict:
     tool = load_tool("torch_synth_drift")
     waves, truths = tool.held_out(np.random.default_rng(DRIFT_SEED),
                                   DRIFT_CLIPS, 1.0, model.n_events)
-    rows = tool.select_rows(extra=True)
+    rows = tool.select_rows([*tool.ROWS, *tool.EXTRA_ROWS])
     short_s = tool.short_context_seconds(1.0, model.mel_seconds)
     modes, details = tool.measure(model, waves, truths, rows, device,
                                   short_s)
@@ -5703,9 +5975,12 @@ def drift_phase(card: str, model, device="cuda") -> dict:
         levers = {k for ks in DRIFT_LEVERS.values() for k in ks}
         assert not levers & set(launched["parity"]), launched["parity"]
         assert launched["parity"].get("K2"), launched["parity"]
-    ref = details["bf16" if on_card else "parity"]["texts"]
+    # each lever row against the row of its dtype: bf16 on the card, where
+    # the levers' kernels take bf16 (fused_enc_f32: float32, parity)
+    ref = {r: details["bf16" if on_card and r != "fused_enc_f32"
+                      else "parity"]["texts"] for r in DRIFT_LEVERS}
     agree = {r: float(np.mean([a == b for a, b in zip(details[r]["texts"],
-                                                      ref)]))
+                                                      ref[r])]))
              for r in DRIFT_LEVERS}
     phase("drift", card=card, lever_agree_with="bf16" if on_card
           else "parity", floor=DRIFT_LEVER_AGREE, agree=agree)
@@ -6230,6 +6505,7 @@ def main() -> int:
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
+    counts["f32"], counts["f32_enc_attn"], f32k = f32_phase(card, clips)
     counts.update(codec_phase(card, np.random.default_rng(2), clips, mems,
                               ref_texts, k1, k2, gen))
     counts.update(parity_phase(card, rng, clips, mems, k2, dec))
@@ -6290,6 +6566,20 @@ def main() -> int:
             "library_ms": None, "device_ms": first["device_ms"],
             "shape": first["shape"], "path": f"tp {path}",
             "cases": k["cases"]})
+    # the float32 forms, from the float32 engines' paths
+    for key, k, path in (("K1", f32k[0], "f32"), ("K2", f32k[1], "f32"),
+                         ("K8", f32k[2], "f32_enc_attn")):
+        first = k["cases"][0]
+        kern.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": counts[path][key],
+            "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bound_rate": first["bound_rate"],
+            "library_ms": first["library_ms"],
+            "shape": first["shape"], "path": path, "cases": k["cases"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kern}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,16 +58,22 @@
 // slower. Later work: a TMA store of the output.
 //
 // The float32 form (mas_encoder_attention_f32), for a float32 encode on
-// the card, as the TPU kernel takes either dtype: Hopper's tensor cores
-// have no float32 product (TF32 rounds the inputs), so it runs on the CUDA
-// cores, one query row a thread. A block is 128 rows of one (batch,
-// head); each thread holds its q row (scaled by 1/8, exact) and its
-// output row in registers; the block stages 32 keys of K and V at a time
-// in shared memory, which every thread reads at the same address (a
-// broadcast); the online softmax runs in float32 with expf, as the plain
-// version's, and the output row is divided by l before the float32 store.
-// A first design, not tuned.
+// the card, as the TPU kernel takes either dtype: the same function on
+// float32 views into a float32 [B, T, H, 64] output, with the plain
+// version's float32 roundings. It runs on the tensor cores in three TF32
+// products an operand pair (3xTF32, tf32x3.cuh): a block is 64 query rows
+// of one (batch, head), four warps of mma.sync m16n8k8 over 64-key K/V
+// tiles double-buffered by cp.async, P fed from the score accumulators
+// into the PV product's A fragments, each tile's P V summed apart and
+// added rounded to nearest. What bounds it: TF32 operations, three a
+// float32 product (at B=8, T=1500, H=6, 83 GFLOP of TF32 for 28 GFLOP of
+// float32 work: 0.17 ms at the H100's 495 TFLOP/s, against 0.41 ms of
+// float32 on the CUDA cores). Kept over wgmma in TF32, which would need a
+// transposed copy of V and the splits in shared memory; the first design
+// of this form, one query row a thread on the CUDA cores, ran 2.5x slower
+// (PERF.md).
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -232,82 +238,37 @@ int bhtd_map(CUtensorMap* map, const void* base, int B, int H, int T,
                                 CU_TENSOR_MAP_SWIZZLE_128B));
 }
 
-constexpr int F32_ROWS = 128;  // query rows a block, one a thread
-constexpr int F32_KEYS = 32;   // keys staged at a time
-
-__global__ void __launch_bounds__(F32_ROWS) encoder_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, long long sb, long long sh, long long st,
-    float* __restrict__ out, int T, int H, float scale) {
-  __shared__ __align__(16) float sk[F32_KEYS][D], sv[F32_KEYS][D];
+// bounds for two blocks an SM, which lets ptxas pass 168 registers a
+// thread: 3-4 % faster than three blocks an SM on an H100 (PERF.md); K1's
+// float32 form, mixed there, keeps three
+__global__ void __launch_bounds__(tf32x3::NT, 2)
+    encoder_attention_f32_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v, long long sb,
+                                 long long sh, long long st,
+                                 float* __restrict__ out, int T, int H,
+                                 float scale) {
+  extern __shared__ __align__(16) float smem_f32[];
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int r = blockIdx.x * F32_ROWS + threadIdx.x;
   const long long base = b * sb + h * sh;
-  float qf[D], acc[D];
-#pragma unroll
-  for (int e = 0; e < D; e += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < T) x = *reinterpret_cast<const float4*>(q + base + r * st + e);
-    qf[e] = x.x * scale, qf[e + 1] = x.y * scale;
-    qf[e + 2] = x.z * scale, qf[e + 3] = x.w * scale;
-    acc[e] = acc[e + 1] = acc[e + 2] = acc[e + 3] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int t0 = 0; t0 < T; t0 += F32_KEYS) {
-    __syncthreads();  // the last tile's readers are done
-    for (int i = threadIdx.x; i < F32_KEYS * D / 4; i += F32_ROWS) {
-      const int kr = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (t0 + kr < T) {
-        kx = *reinterpret_cast<const float4*>(k + base + (t0 + kr) * st + c);
-        vx = *reinterpret_cast<const float4*>(v + base + (t0 + kr) * st + c);
-      }
-      *reinterpret_cast<float4*>(&sk[kr][c]) = kx;
-      *reinterpret_cast<float4*>(&sv[kr][c]) = vx;
-    }
-    __syncthreads();
-    const int n = min(F32_KEYS, T - t0);
-    float s[F32_KEYS];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < D; ++e) d = fmaf(qf[e], sk[j][e], d);
-      s[j] = j < n ? d : -INFINITY;  // keys past T: zeros, never scored
-      mx = fmaxf(mx, s[j]);
-    }
-    const float c = expf(m - mx);  // 0 for the empty first state
-    l *= c;
-#pragma unroll
-    for (int e = 0; e < D; ++e) acc[e] *= c;
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      const float p = expf(s[j] - mx);  // 0 past T
-      l += p;
-#pragma unroll
-      for (int e = 0; e < D; ++e) acc[e] = fmaf(p, sv[j][e], acc[e]);
-    }
-    m = mx;
-  }
-  if (r >= T) return;
-  float* o = out + (((long long)b * T + r) * H + h) * D;
-#pragma unroll
-  for (int e = 0; e < D; e += 4)
-    *reinterpret_cast<float4*>(o + e) =
-        make_float4(acc[e] / l, acc[e + 1] / l, acc[e + 2] / l,
-                    acc[e + 3] / l);
+  tf32x3::attend(q + base, k + base, v + base, st, T,
+                 blockIdx.x * tf32x3::ROWS, scale, smem_f32,
+                 out + ((long long)b * T * H + h) * D, (long long)H * D);
 }
 
 }  // namespace
 
-// Raises K8's dynamic shared-memory limit and looks the driver's tensor-map
-// encoder up. Called once, when the library is loaded.
+// Raises the dynamic shared-memory limits of K8's two forms and looks the
+// driver's tensor-map encoder up. Called once, when the library is loaded.
 extern "C" int mas_encoder_attention_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  return (int)cudaFuncSetAttribute(encoder_attention_kernel,
+  const cudaError_t e = cudaFuncSetAttribute(
+      encoder_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncSetAttribute(encoder_attention_f32_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   SMEM_BYTES);
+                                   tf32x3::SMEM_BYTES);
 }
 
 // K8. q/k/v: [B, H, T, 64] bf16 views sharing element strides (sb, sh, st)
@@ -341,8 +302,9 @@ extern "C" int mas_encoder_attention_f32(const void* q, const void* k,
                                          long long sh, long long st,
                                          void* out, int B, int H, int T,
                                          float scale, void* stream) {
-  dim3 grid((T + F32_ROWS - 1) / F32_ROWS, B * H);
-  encoder_attention_f32_kernel<<<grid, F32_ROWS, 0, (cudaStream_t)stream>>>(
+  dim3 grid((T + tf32x3::ROWS - 1) / tf32x3::ROWS, B * H);
+  encoder_attention_f32_kernel<<<grid, tf32x3::NT, tf32x3::SMEM_BYTES,
+                                 (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, sb, sh, st,
       (float*)out, T, H, scale);
   return (int)cudaGetLastError();

@@ -220,7 +220,8 @@ def encode(params, mel: torch.Tensor, cfg: WhisperConfig,
     Dispatch as the JAX function's (CPU tensors take each kernel's plain
     twin):
       * ``fused_blocks`` True: self-attention + o-proj + residual through
-        K1 (ops/encoder_block.py); "int8" through K9 (int8 dots; it
+        K1 (ops/encoder_block.py; its float32 form for a float32 encode,
+        at every T); "int8" through K9 (int8 dots; it
         outranks "paired"); "paired" through K10, or K1 for an odd head
         count.
       * otherwise ``fused_attention`` routes self-attention through K8

@@ -6,9 +6,11 @@ fused_encoder_attention`` (B9), which the JAX encoder runs on a TPU for
 plain matmul, as JAX leaves it to XLA. On a CUDA tensor the wrapper
 launches ``csrc/encoder_attention.cu``'s ``encoder_attention_kernel``
 (wgmma products on TMA-fed shared-memory tiles; on float32 tensors its
-float32 form on the CUDA cores); on a CPU tensor it runs
-``encoder_attention_plain``, the same math in plain PyTorch. There is no
-other route: a launch that fails, or a view TMA cannot describe, raises.
+float32 form, ``csrc/tf32x3.cuh``'s loop: each float32 product as three
+TF32 products on the tensor cores, float32-class results); on a CPU
+tensor it runs ``encoder_attention_plain``, the same math in plain
+PyTorch. There is no other route: a launch that fails, or a view TMA
+cannot describe, raises.
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ def encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 _SCALE_LOG2 = math.log2(math.e) / math.sqrt(64)
 # K8's forms by input dtype (csrc/encoder_attention.cu) and the scale each
-# takes: the float32 one, on the CUDA cores, serves a float32 encode on
-# the card, as the TPU kernel takes either dtype
+# takes: the float32 one, 3xTF32 on the tensor cores, serves a float32
+# encode on the card, as the TPU kernel takes either dtype
 _FORMS = {torch.bfloat16: ("mas_encoder_attention", _SCALE_LOG2),
           torch.float32: ("mas_encoder_attention_f32", 1.0 / math.sqrt(64))}
 

@@ -20,8 +20,10 @@ the whole layer's pairs. A rank with an odd head count takes K1p for
 tensor each wrapper launches its hand-written kernel (K1, K1p, K10, K10p
 and K11 ``csrc/encoder_block_wgmma.cu``: a thread-block cluster over the
 heads of a 128-row tile, sized by ``cluster_plan`` for the card it runs
-on; K11's "post" form is K1 itself; K9 and K9p
-``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
+on; K11's "post" form is K1 itself; K1 on float32 tensors its float32
+form, ``csrc/encoder_block_f32.cu``: a cluster of ``f32_cluster(H)``
+blocks over a 64-row tile, each float32 product as three TF32 products;
+K9 and K9p ``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
 PyTorch version beside it, the same math. There is no other route: a
 launch that fails, or a cluster the card cannot place, raises. K1p, K9p
 and K10p count as their square forms' launches (runtime.COUNTS).
@@ -298,12 +300,19 @@ def _check_widths(name, q, x, wo, bo):
 
 
 def _check_block_args(name, q, k, v, x, wo, bo):
-    """The argument checks K1, K10 and K11 share; returns q's strides."""
+    """The argument checks K1, K10 and K11 share; returns q's strides.
+    K1 takes bf16 or float32 tensors of one dtype (its two forms); K10
+    and K11 take bf16."""
     _check_widths(name, q, x, wo, bo)
+    # K1's float32 form is csrc/encoder_block_f32.cu
+    dtypes = ((torch.bfloat16, torch.float32) if name == "K1"
+              else (torch.bfloat16,))
     for n, a in (("q", q), ("k", k), ("v", v), ("x", x), ("wo", wo),
                  ("bo", bo)):
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"{name} takes bf16 tensors; {n} is {a.dtype}")
+        if a.dtype not in dtypes or a.dtype != x.dtype:
+            raise TypeError(
+                f"{name} takes {'bf16 or float32' if name == 'K1' else 'bf16'}"
+                f" tensors of one dtype; {n} is {a.dtype}, x {x.dtype}")
         if a.device != x.device:
             raise ValueError(f"{name}: {n} on {a.device}, x on {x.device}")
     if q.stride() != k.stride() or q.stride() != v.stride():
@@ -319,6 +328,20 @@ def _check_block_args(name, q, k, v, x, wo, bo):
         if a.data_ptr() % align:
             raise ValueError(f"{name}: {n} is not {align}-byte aligned")
     return q.stride()[:3]
+
+
+# blocks of the float32 K1's cluster at most (a portable cluster size)
+F32_MAX_CLUSTER = 8
+
+
+def f32_cluster(heads: int) -> int:
+    """Blocks of the float32 K1's cluster over the heads of one (batch,
+    64-row) tile: as few heads a block as eight blocks allow, spread
+    evenly (1 a block up to H = 8; H = 12 -> 6 blocks of 2; H = 20 -> 7
+    blocks of 2-3)."""
+    if heads < 1:
+        raise ValueError(f"K1 takes at least one head; H={heads}")
+    return -(-heads // -(-heads // F32_MAX_CLUSTER))
 
 
 def _check_partial_wo(name, q, wo):
@@ -389,6 +412,8 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
     b, h, t, d = q.shape
     if pair_heads and h % 2:
         raise ValueError(f"K10 pairs heads; H={h} is odd")
+    if x.dtype == torch.float32:
+        return _launch_f32(q, k, v, x, wo, bo, sb, sh, st)
     if cluster is None:
         cluster = _card_plan(h, b, t, pair_heads, x.device)
     out = torch.empty_like(x)
@@ -408,6 +433,23 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
         runtime.launch("mas_attn_o_residual", x.device, *args, cluster,
                        stream)
         runtime.bump("encoder_attn_o_residual")
+    return out
+
+
+def _launch_f32(q, k, v, x, wo, bo, sb, sh, st):
+    """K1's float32 form on clusters of f32_cluster(H) blocks, the merged
+    attention in a [B, T, H*64] float32 scratch."""
+    b, h, t, d = q.shape
+    if bo.data_ptr() % 16:
+        raise ValueError("K1: bo is not 16-byte aligned")
+    out = torch.empty_like(x)
+    merged = torch.empty_like(x)
+    runtime.launch("mas_attn_o_residual_f32", x.device, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), sb, sh, st, x.data_ptr(),
+                   wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, h, t,
+                   x.shape[-1], 1.0 / math.sqrt(d), f32_cluster(h),
+                   merged.data_ptr(), runtime.stream_handle(x.device))
+    runtime.bump("encoder_attn_o_residual")
     return out
 
 
@@ -485,7 +527,8 @@ def fused_attention_o_residual(
     Non-causal; f32 softmax and accumulation. q/k/v are [B, H, T, D]
     (any strides with a unit last one, e.g. the head-split views of the
     q/k/v dense outputs); x is [B, T, H*D]; output [B, T, H*D] in x's
-    dtype. CUDA tensors launch K1, or K9 with ``qk_int8`` (k/v quantized
+    dtype. CUDA tensors launch K1 (bf16, or its float32 form on float32
+    tensors), or K9 with ``qk_int8`` (k/v quantized
     first by quantize_kv, as the TPU wrapper does; both attention dots
     int8 x int8 -> int32), or K10 with ``pair_heads`` (H even); CPU
     tensors take the plain versions. ``partial``: one rank's float32

@@ -61,6 +61,7 @@ COUNTS: dict[str, int] = {
 # keeps per device) and the tensor-map encoder (K8, K5)
 INIT = ("mas_attn_o_residual_int8_init",
         "mas_encoder_attention_init", "mas_encoder_block_init",
+        "mas_encoder_block_f32_init",
         "mas_quant_matmul_init",
         "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
         "mas_decoder_self_block_init",
@@ -158,6 +159,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("mas_attn_o_residual", "mas_attn_o_residual_paired"):
         getattr(lib, name).argtypes = [*block, i, p]  # cluster, stream
         getattr(lib, name).restype = i
+    # K1's float32 form: scale 1/8 in place of scale * log2(e); cluster,
+    # the merged scratch, stream
+    lib.mas_attn_o_residual_f32.argtypes = [*block, i, p, p]
+    lib.mas_attn_o_residual_f32.restype = i
     for name in INIT:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i

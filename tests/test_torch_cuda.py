@@ -794,11 +794,16 @@ def test_k8_matches_plain(cuda, b, heads, t):
                              chip_smoke.K1_Y_MAX, chip_smoke.K1_Y_L2)
 
 
-@pytest.mark.parametrize("b,heads,t", [(2, 3, 31), (2, 3, 32), (2, 3, 33),
-                                     (3, 6, 100), (2, 6, 1500)])
+# the float32 forms' 64-key tiles and 64-row blocks: one key, one short
+# of a tile, a full tile, one into the next, the drift shape, the main T
+F32_TILE_EDGES = [(2, 3, 1), (2, 3, 63), (2, 3, 64), (2, 3, 65),
+                  (3, 6, 100), (2, 6, 1500), (8, 6, 1500)]
+
+
+@pytest.mark.parametrize("b,heads,t", F32_TILE_EDGES)
 def test_k8_float32_matches_plain(cuda, b, heads, t):
-    """K8's float32 form (a float32 encode on the card) at ragged T (a
-    partial last 32-key tile and 128-row block), on head-split views,
+    """K8's float32 form (a float32 encode on the card, 3xTF32) at ragged
+    T (a partial last 64-key tile and 64-row block), on head-split views,
     within chip_smoke's float32 tolerance; its output a float32 view of
     the merged layout."""
     from multimodal_audio_search_tpu_torch import runtime
@@ -814,6 +819,44 @@ def test_k8_float32_matches_plain(cuda, b, heads, t):
     chip_smoke.check_close(f"K8 float32 T={t}", got,
                            A.encoder_attention_plain(q, k, v),
                            chip_smoke.F32_ATT_ATOL, chip_smoke.F32_ATT_RTOL)
+
+
+@pytest.mark.parametrize("b,heads,t", F32_TILE_EDGES + [
+    (32, 8, 1500), (32, 6, 1500), (2, 12, 129), (1, 20, 257), (1, 1, 70)])
+def test_k1_float32_matches_plain(cuda, b, heads, t):
+    """K1's float32 form at the float32 engine's widths (B=32, T=1500,
+    base and tiny), at ragged T and at H = 12 and 20 (clusters of 6 and
+    7 blocks of 2-3 heads), within chip_smoke's float32 block tolerance
+    of attention_o_residual_plain; one launch a call."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    args = chip_smoke._f32_block(torch.Generator().manual_seed(600 + t),
+                                 b, t, heads)
+    runtime.reset_counts()
+    got = EB.fused_attention_o_residual(*args)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["encoder_attn_o_residual"] == 1
+    assert got.dtype == torch.float32 and got.shape == args[3].shape
+    chip_smoke.check_close(f"K1 float32 B={b} H={heads} T={t}", got,
+                           EB.attention_o_residual_plain(*args),
+                           chip_smoke.F32_BLOCK_ATOL,
+                           chip_smoke.F32_BLOCK_RTOL)
+
+
+@pytest.mark.parametrize("heads", [8, 6])
+def test_k1_float32_repeats_bit_equal(cuda, heads):
+    """K1's float32 form, 16 more launches on the same inputs at B=32,
+    T=1500, each bit-equal to the first: every output element is summed
+    in one order by one thread, and the cluster barrier orders the
+    merged tile's stores before any rank reads them."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    args = chip_smoke._f32_block(torch.Generator().manual_seed(heads), 32,
+                                 1500, heads)
+    first = EB.fused_attention_o_residual(*args)
+    assert chip_smoke.check_repeats(
+        f"K1 float32 H={heads}",
+        lambda: EB.fused_attention_o_residual(*args), first,
+        chip_smoke.F32_REPEATS) == chip_smoke.F32_REPEATS
 
 
 def test_k8_reuses_tensor_maps_only_for_the_same_view(cuda):

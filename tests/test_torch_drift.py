@@ -247,7 +247,7 @@ def test_chip_drift_phase_on_cpu(drift, monkeypatch, capsys):
     modes = chip_smoke.drift_phase("cpu", tm, device="cpu")
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("[drift] ")]
-    rows = TD.select_rows(extra=True)
+    rows = TD.select_rows(list(TD.ROWS + TD.EXTRA_ROWS))
     assert list(modes) == rows and len(lines) == len(rows) + 3
     agree = json.loads(lines[len(rows) + 1][8:])
     assert agree["lever_agree_with"] == "parity"
@@ -276,12 +276,26 @@ def test_chip_drift_phase_on_cpu(drift, monkeypatch, capsys):
 
 @pytest.mark.parametrize("modes", [["fused_enc_f32"],
                                    ["parity", "fused_enc_f32", "bf16"]])
-def test_card_refuses_fused_enc_f32(modes):
-    """K1 takes bf16: the card refuses the float32 row, before any work
-    and without moving it to the CPU; the CPU takes it."""
-    with pytest.raises(SystemExit, match="--device cpu"):
-        TD.select_rows(modes, device=torch.device("cuda"))
-    assert "fused_enc_f32" in TD.select_rows(modes, device="cpu")
-    with pytest.raises(ValueError, match="--device cpu"):
-        TD.decode_row("fused_enc_f32", None, None, torch.device("cuda"),
-                      SHORT_S)
+def test_card_refuses_fused_enc_f32(modes, monkeypatch):
+    """Whether the card refuses the float32 fused-encoder row: it does
+    not. The row is selected as on the CPU and decoded on the card in
+    float32 with fused_encoder=True, which encode sends to K1's float32
+    form (the kernel symbol by dtype: tests/test_torch_runtime_devices.py
+    ::test_k1_form_by_dtype); it is not moved to the CPU."""
+    from multimodal_audio_search_tpu_torch.training import synth
+    rows = TD.select_rows(modes)
+    assert "fused_enc_f32" in rows and rows[0] == "parity"
+    seen = {}
+
+    def transcribe(m, waves, **kw):
+        seen.update(kw)
+        return ["t"] * len(waves)
+    monkeypatch.setattr(synth, "transcribe", transcribe)
+    dev = torch.device("cuda")
+    texts, route = TD.decode_row("fused_enc_f32", None, np.zeros((2, 8)),
+                                 dev, SHORT_S)
+    assert texts == ["t", "t"]
+    assert seen["dtype"] == torch.float32 and seen["fused_encoder"] is True
+    assert seen["device"] == dev
+    assert route == {"dtype": str(torch.float32), "device": str(dev),
+                     "fused_encoder": True}

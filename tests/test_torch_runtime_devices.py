@@ -260,6 +260,45 @@ def test_k2_k8_form_by_dtype(fake, dtype, k2, k8):
         cross_attention._launch(qm, kv, mixed, h, t)
 
 
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "mas_attn_o_residual"),
+    (torch.float32, "mas_attn_o_residual_f32"),
+    (torch.float16, None)])
+def test_k1_form_by_dtype(fake, dtype, want):
+    """K1 launches its bf16 or its float32 form by the inputs' dtype (a
+    float32 encode on the card takes the float32 one, on clusters of
+    f32_cluster(H) blocks, the merged attention in a scratch of x's
+    shape), and refuses any other dtype, or a mix, before a launch. K10,
+    K11 and the partial forms K1p and K10p keep to bf16."""
+    lib, _ = fake
+    b, h, t = 2, 2, 8
+    hd = h * 64
+    q, x = _m(b, h, t, 64, dtype=dtype), _m(b, t, hd, dtype=dtype)
+    wo, bo = _m(hd, hd, dtype=dtype), _m(hd, dtype=dtype)
+    launched = lambda: [c[0] for c in lib.calls                # noqa: E731
+                        if c[0] not in runtime.INIT
+                        and not c[0].endswith("_fit")]
+    if want is None:
+        with pytest.raises(TypeError, match="bf16 or float32 tensors"):
+            encoder_block._launch(q, q, q, x, wo, bo)
+    else:
+        out = encoder_block._launch(q, q, q, x, wo, bo)
+        assert out.dtype == dtype and out.shape == x.shape
+        assert runtime.COUNTS["encoder_attn_o_residual"] == 1
+    assert launched() == ([want] if want else [])
+    other = torch.float32 if dtype != torch.float32 else torch.bfloat16
+    with pytest.raises(TypeError, match="of one dtype"):
+        encoder_block._launch(q, q, q, _m(b, t, hd, dtype=other), wo, bo)
+    if dtype == torch.float32:
+        for kw in ({"pair_heads": True}, {"form": "post"}):
+            with pytest.raises(TypeError, match="takes bf16 tensors"):
+                encoder_block._launch(q, q, q, x, wo, bo, **kw)
+        for pair in (False, True):
+            with pytest.raises(TypeError, match="takes bf16 tensors"):
+                encoder_block._launch_partial(q, q, q, wo, pair_heads=pair)
+    assert launched() == ([want] if want else [])
+
+
 def test_only_runtime_calls_the_library():
     """No module but runtime.py reaches the library itself: every other
     call goes through runtime.launch, which enters the device."""

@@ -30,6 +30,14 @@ should be at or under); K11 (the division A/B) in each of its three forms
 at whisper-base width (H=8) at B=32, T=1500 and at the A/B tool's B=64,
 T=500 and 1500, on the residual input against its plain forms, with the
 cluster plan where the checkout runs K11 on K1's clusters.
+The float32 forms (``--kernels K8f,K1f``, not in the default list), on
+float32 inputs made as chip_smoke's [f32] makes them: K8f, K8's float32
+form, at B=8, T=1500, H=6 (the drift tool's --production rows), B=64,
+T=100, H=6 (the drift rows) and B=32, T=1500, H=8 and 6 (a float32
+engine), beside SDPA on float32, each also as ``queued_ms`` (20 calls
+queued behind a sleep kernel); K1f, K1's float32 form, at B=32, T=1500,
+H=8 and 6 beside the unfused float32 route (K8f, one torch.addmm, the
+add). A checkout whose K1 refuses float32 gives a row with the refusal.
 ``--kernels`` keeps the named kernels (K11 is not in the default
 list). Needs a CUDA card; inputs come from a seeded torch.Generator.
 """
@@ -203,6 +211,7 @@ def main() -> int:
             print(json.dumps(row), flush=True)
         del a, a9
         torch.cuda.empty_cache()
+    f32_rows(args.label, only, cs, A, EB, rows)
     # K11 runs on K1's clusters where the checkout has no mma.sync copy
     k11_clusters = not os.path.exists(os.path.join(
         args.root, "multimodal_audio_search_tpu_torch", "csrc",
@@ -234,6 +243,64 @@ def main() -> int:
             for row in rows:
                 f.write(json.dumps(row) + "\n")
     return 0
+
+
+def f32_rows(label, only, cs, A, EB, rows) -> None:
+    """The float32 forms' rows (module docstring), appended to ``rows``
+    and printed."""
+    queued_ms = cs.load_tool("torch_decode_kernel_ab").queued_ms
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(24)
+    for b, t, heads in ((8, 1500, 6), (64, 100, 6), (32, 1500, 8),
+                        (32, 1500, 6)) if "K8f" in only else ():
+        q, k, v = cs._f32_heads(gen, b, t, heads)
+        fn = (lambda: A.fused_encoder_attention(q, k, v))
+        lib = (lambda: sdpa(q, k, v))
+        row = {"label": label, "kernel": "K8f",
+               "shape": f"B={b} T={t} H={heads}",
+               "max_abs_err": cs.check_close(
+                   f"K8f B={b} T={t}", fn(), A.encoder_attention_plain(
+                       q, k, v), cs.F32_ATT_ATOL, cs.F32_ATT_RTOL),
+               "ms": cs.time_ms(fn), "queued_ms": queued_ms(fn),
+               "library_ms": cs.time_ms(lib),
+               "library_queued_ms": queued_ms(lib),
+               **cs.f32_bound(4 * cs.nbytes(q), 4 * b * heads * t * t * 64)}
+        row["vs_library_queued"] = row["queued_ms"] / row["library_queued_ms"]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del q, k, v
+    b, t = 32, 1500
+    for heads in (8, 6) if "K1f" in only else ():
+        q, k, v, x, wo, bo = a = cs._f32_block(gen, b, t, heads)
+        hd = heads * 64
+        fn = (lambda: EB.fused_attention_o_residual(*a))
+
+        def unfused():
+            att = A.fused_encoder_attention(q, k, v).transpose(1, 2)
+            return x + torch.addmm(bo, att.reshape(b * t, hd), wo).view(
+                b, t, hd)
+        row = {"label": label, "kernel": "K1f",
+               "shape": f"B={b} T={t} H={heads}",
+               "unfused_ms": cs.time_ms(unfused),
+               "unfused_queued_ms": queued_ms(unfused),
+               **cs.f32_bound(cs.nbytes(*a, x),
+                              4 * b * heads * t * t * 64
+                              + 2 * b * t * hd * hd)}
+        try:
+            got = fn()
+        except TypeError as e:               # a K1 without a float32 form
+            row["refused"] = str(e)
+        else:
+            row.update(max_abs_err=cs.check_close(
+                f"K1f H={heads}", got, EB.attention_o_residual_plain(*a),
+                cs.F32_BLOCK_ATOL, cs.F32_BLOCK_RTOL),
+                ms=cs.time_ms(fn), queued_ms=queued_ms(fn))
+            row["vs_unfused_queued"] = (row["queued_ms"]
+                                        / row["unfused_queued_ms"])
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del a, q, k, v, x, wo, bo
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

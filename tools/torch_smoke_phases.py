@@ -6,6 +6,7 @@
     python3 tools/torch_smoke_phases.py train
     python3 tools/torch_smoke_phases.py drift
     python3 tools/torch_smoke_phases.py weights,soak,dcn
+    python3 tools/torch_smoke_phases.py f32
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -27,7 +28,10 @@ it and the host index's storage dtypes). ``weights`` is the weights-day
 chain on random-init stand-ins (checkpoint directories -> the engine,
 against the in-memory engine), ``soak`` tools/torch_soak.py's single
 pass and loop against the server, ``dcn`` the multi-process DCN check at
-the JAX tool's size and at 1M rows.
+the JAX tool's size and at 1M rows. ``f32`` is the float32 engine
+(``[f32]``: K1's, K8's and K2's float32 forms at its shapes, then the
+engine at EngineConfig()'s defaults in float32 against the same engine
+with fused_encoder=False).
 """
 import os
 import sys
@@ -36,8 +40,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("decoder", "search", "embedders", "clap", "service", "weights",
-          "soak", "mesh", "dcn", "tp", "train", "drift")
+PHASES = ("f32", "decoder", "search", "embedders", "clap", "service",
+          "weights", "soak", "mesh", "dcn", "tp", "train", "drift")
 
 
 def main(names: list[str]) -> int:
@@ -62,7 +66,8 @@ def main(names: list[str]) -> int:
                "int8k": [{"name": n, "cases": []} for n in (
                    "quant_matmul", "single_query_attention_int8",
                    "int8_cached_attention")]}
-    run = {"decoder": lambda: C.decoder_kernel_phase(
+    run = {"f32": lambda: C.f32_phase(card, clips),
+           "decoder": lambda: C.decoder_kernel_phase(
                card, torch.Generator().manual_seed(0)),
            "search": lambda: C.search_kernel_phase(card),
            "embedders": lambda: C.embedders_phase(card, clips),

@@ -9,7 +9,7 @@ ingest/search/delete/save load of ``_soak_loop`` with its three growth
 checks.
 
     python tools/torch_soak.py [--seconds 60] [--port 8765]
-        [--loop-minutes 15] [--device cpu]
+        [--loop-minutes 15] [--device cpu] [--trim-every N]
 
 It differs from tools/soak.py in three places:
   * the server gets a temporary ``data_root`` (serve(data_root=...)
@@ -20,6 +20,13 @@ It differs from tools/soak.py in three places:
 The engine runs on ``--device`` (the card unless cpu is named). After the
 loop, ``rss_fit`` adds a least-squares slope of the RSS samples; the
 exit code is 1 unless every status was 200 (the loop's 500 included).
+
+To tell allocator retention from a leak, each loop sample on the card
+also carries ``torch.cuda.memory_allocated()`` and ``memory_reserved()``
+(``cuda_alloc_mb``, ``cuda_reserved_mb``); ``--trim-every N`` calls
+glibc's ``malloc_trim(0)`` through ctypes after every N-th iteration and
+records the RSS after it (``rss_trimmed_mb``), and ``rss_fit`` then also
+fits those post-trim readings (``trimmed``).
 """
 from __future__ import annotations
 
@@ -88,6 +95,10 @@ def main(argv=None) -> dict:
                          "search p50, and check bounded growth. Emits "
                          "one timeline sample line per iteration so a "
                          "killed run still leaves evidence.")
+    ap.add_argument("--trim-every", type=int, default=0,
+                    help="call glibc's malloc_trim(0) after every N-th "
+                         "loop iteration and record the RSS after it "
+                         "(0: never)")
     args = ap.parse_args(argv)
 
     import tempfile
@@ -147,8 +158,14 @@ def main(argv=None) -> dict:
 
             if args.loop_minutes > 0:
                 samples: list[dict] = []
-                _soak_loop(req, wav, args.loop_minutes, out, samples)
+                probe = memory_probe(args.device, args.trim_every)
+                _soak_loop(req, wav, args.loop_minutes, out, samples,
+                           **({"probe": probe} if probe else {}))
                 out["rss_fit"] = rss_fit(samples)
+                trimmed = [{"t_s": s["t_s"], "rss_mb": s["rss_trimmed_mb"]}
+                           for s in samples if "rss_trimmed_mb" in s]
+                if trimmed:
+                    out["rss_fit"]["trimmed"] = rss_fit(trimmed)
         finally:
             srv.shutdown()
             srv.server_close()
@@ -159,14 +176,41 @@ def main(argv=None) -> dict:
     return result
 
 
+def memory_probe(device: str, trim_every: int):
+    """The loop's extra readings, or None where there are none (the CPU
+    without trimming): a function of the iteration index returning the
+    card's allocated and reserved bytes (MB) and, after every
+    ``trim_every``-th iteration, the RSS after ``malloc_trim(0)``."""
+    import ctypes
+
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    if not on_card and trim_every <= 0:
+        return None
+    trim = ctypes.CDLL("libc.so.6").malloc_trim if trim_every > 0 else None
+
+    def probe(i: int) -> dict:
+        s = {}
+        if on_card:
+            s["cuda_alloc_mb"] = round(torch.cuda.memory_allocated() / 1e6, 1)
+            s["cuda_reserved_mb"] = round(
+                torch.cuda.memory_reserved() / 1e6, 1)
+        if trim is not None and i % trim_every == trim_every - 1:
+            trim(0)
+            s["rss_trimmed_mb"] = round(rss_bytes() / 1e6, 1)
+        return s
+    return probe
+
+
 def _soak_loop(req, wav: bytes, minutes: float, out: dict,
-               samples: list | None = None) -> None:
+               samples: list | None = None, probe=None) -> None:
     """Mixed ingest/search/delete/save load with resource-growth
     checks: after the warm first third, RSS must plateau (final-third
     median within 10% + 100 MB of the middle-third median), the segment
     store must stay bounded by the delete cadence, and search p50 must
     not degrade >2x between the first and final thirds. ``samples``, if
-    given, receives each iteration's sample."""
+    given, receives each iteration's sample; ``probe(i)``, if given, adds
+    its readings to iteration i's sample (memory_probe)."""
     hdr = {"Content-Type": "application/octet-stream"}
     queries = ["music and tones", "speech sounds", "a dog barking",
                "rain and wind"]
@@ -201,6 +245,8 @@ def _soak_loop(req, wav: bytes, minutes: float, out: dict,
              "p50_ms": round(sorted(lat)[len(lat) // 2] * 1e3, 1)}
         if total is not None:
             s["segments"] = total
+        if probe is not None:
+            s.update(probe(i))
         samples.append(s)
         print(json.dumps({"soak_sample": s}), flush=True)
         i += 1

@@ -15,9 +15,9 @@ and holds each row's transcripts to the parity row's:
   * int8_enc      -- ``fused_encoder="int8"`` (K9 on the card)
   * fused_enc     -- bf16 with ``fused_encoder=True`` (K1)
   * mel16 / mel12 / mel8 -- the host log-mel codecs
-  * fused_enc_f32 (only by ``--modes``, with ``--device cpu``) -- K1's
-    formulation at float32, its plain twin (K1 takes bf16: the card
-    refuses the row)
+  * fused_enc_f32 (only by ``--modes``) -- ``fused_encoder=True`` at
+    float32: K1's float32 form on the card (3xTF32 on the tensor cores),
+    its plain twin on the CPU
   * extra rows (by ``--modes`` or ``--extra``), each a DecodeConfig
     option both packages run: fused_layer (K3 + K4), v2 (K3-q + K4-o),
     int8_fused (K5 + K6), int8_kv (K5 + K7), paired (K10)
@@ -30,11 +30,11 @@ from ``runtime.COUNTS``) goes to stderr as one JSON line, with the
 training's wall seconds.
 
 Dtypes: the float32 rows decode in float32 on every device (on the card
-through K2's float32 form, and K8's at T >= 512, as the TPU kernels take
-float32); ``bf16`` and ``fused_enc`` in bf16; the kernel rows (int8_dec,
-int8_enc and the extra rows) in the device's dtype, float32 on the CPU,
-where the tests hold them to the JAX rows, and bf16 on the card, where
-their kernels take bf16 only.
+through K2's float32 form, K8's at T >= 512 and K1's for fused_enc_f32,
+as the TPU kernels take float32); ``bf16`` and ``fused_enc`` in bf16;
+the kernel rows (int8_dec, int8_enc and the extra rows) in the device's
+dtype, float32 on the CPU, where the tests hold them to the JAX rows,
+and bf16 on the card, where their kernels take bf16 only.
 
     python3 tools/torch_synth_drift.py [--steps 600] [--clips 64] [--out f.json]
     python3 tools/torch_synth_drift.py --production \\
@@ -169,25 +169,15 @@ def short_context_seconds(clip_seconds: float, mel_seconds: float) -> float:
     return clip_seconds if clip_seconds < mel_seconds else mel_seconds / 2
 
 
-# rows the card refuses, and why
-CPU_ONLY = {"fused_enc_f32": "K1 takes bf16; run fused_enc_f32 with "
-                             "--device cpu"}
-
-
-def select_rows(modes=None, extra: bool = False,
-                device="cpu") -> list[str]:
-    """The rows to run on ``device``, parity first: ``modes`` (names) or
+def select_rows(modes=None, extra: bool = False) -> list[str]:
+    """The rows to run, parity first: ``modes`` (names) or
     every row of the JAX tool but its opt-in ones, plus EXTRA_ROWS with
-    ``extra``. Raises SystemExit on an unknown row, or on a CPU_ONLY row
-    on the card."""
+    ``extra``. Raises SystemExit on an unknown row."""
     known = ROWS + EXTRA_ROWS
     unknown = set(modes or ()) - set(known)
     if unknown:
         raise SystemExit(f"unknown modes {sorted(unknown)}; "
                          f"choose from {known}")
-    refused = [CPU_ONLY[r] for r in modes or () if r in CPU_ONLY]
-    if refused and torch.device(device).type == "cuda":
-        raise SystemExit("; ".join(refused))
     want = set(modes) if modes else {r for r in ROWS if r not in OPT_IN}
     if extra:
         want |= set(EXTRA_ROWS)
@@ -226,8 +216,6 @@ def decode_row(name: str, model, waves: np.ndarray, device,
     elif name == "fused_enc":
         dtype, fused = bf16, True
     elif name == "fused_enc_f32":
-        if dev.type == "cuda":
-            raise ValueError(CPU_ONLY[name])
         fused = True
     elif name in ("fused_layer", "v2"):
         dtype, kw["fused_layer"] = kernels, "v2" if name == "v2" else True
@@ -360,7 +348,7 @@ def main(argv=None) -> None:
         load_pytree, save_pytree)
 
     dev = runtime.select_device(args.device)
-    rows = select_rows(args.modes, args.extra, dev)
+    rows = select_rows(args.modes, args.extra)
     n_events = (1 if args.max_events <= 3 else 2, args.max_events)
     wcfg = W.PRESETS[args.preset]
     loaded_params = None
