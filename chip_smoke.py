@@ -98,7 +98,20 @@ Phases, one line each (``[phase] ...``):
    both held to expected_launches), one batch's encoder states within
    F32_ENC_ATOL / RTOL of the plain float32 encoder, then the same engine
    with fused_encoder=False (K8 f32) whose texts and top-10 must be the
-   first's; both ingest rates printed.
+   first's; both ingest rates printed. The decoder blocks' float32 forms
+   (csrc/decoder_block_f32.cu: K3, K3-q, K4, K4-o; f32_decoder_checks)
+   at B=32, L=68 (K3 at every K3_POS) and both widths against their
+   plain versions (F32_BLOCK_ATOL / RTOL, the cache row written and no
+   other, F32_REPEATS more launches bit-equal), each with ms, queued ms,
+   plain ms and its bytes bound; the float32 engine under
+   apply_profile(..., "fast_lossless") (K1 f32 10 a dispatch, K3 f32 and
+   K4 f32 once a decode step and layer, K2 f32 for the cross attention,
+   held to expected_launches), whose texts and top-10 must be the K1
+   engine's except where f32_margin_check finds the plain float32
+   decode's top-2 margin under F32_MARGIN_REL at the first differing
+   step; then the float32 "v2" path on its batch (f32_v2_step_check:
+   the prompt's decode steps under "v2", K3-q f32, K4-o f32 and K2 f32
+   counted, logits within F32_STEP_LOGITS_REL of the unfused steps').
 4b. the transfer codecs (``[codecs]``, after the engines): CODEC_PATHS
    (``fast`` = mulaw8 + short_context + bf16 index, ``fast`` with mel8,
    ``fast_lossless`` with mel16 and with mel12, the default with int12),
@@ -162,10 +175,11 @@ Phases, one line each (``[phase] ...``):
    wall times are printed beside the card.
 
 9. beyond-memory search (``[ann]``, after 6): tools/torch_bench_ivf.py's
-   run() at 1M segments of MiniLM width (D=384), which runs no kernel
+   run() at ANN_ROWS = 500k segments of MiniLM width (D=384; the tool
+   alone runs 1M, and [mesh] and [dcn] search 1M), which runs no kernel
    (every launch count stays 0): IVF's build stages, exact and IVF query
    p50 at n_probe 4-64 with recall@10, the host index written in float32
-   / bfloat16 / int8 to a temporary directory (~5.4 GB) and streamed
+   / bfloat16 / int8 to a temporary directory (~2.7 GB) and streamed
    through the card (first-query and p50 ms, GB/s beside the pinned copy
    rate), ``search_ivf`` p50, recall and bytes shipped; with its checks:
    a full probe = exact at 100k segments (float32 and bfloat16), two
@@ -276,12 +290,13 @@ Phases, one line each (``[phase] ...``):
    nothing): train_synth_check's captioner measured by
    tools/torch_synth_drift.py (its ``measure``) on DRIFT_CLIPS held-out
    clips from their own generator, every row of the tool (its opt-in
-   fused_enc_f32, K1's float32 form, included); one line a row with its
+   fused_enc_f32, fused_layer_f32 and v2_f32, the float32 forms of K1,
+   K3 + K4 and K3-q + K4-o, included); one line a row with its
    agreement with the parity row (exact, token F1), its exact rate
    against the truth, its dtype and the launches it made by kernel. Each lever row must launch its lever's
    kernels (DRIFT_LEVERS), the float32 parity row none of them (and K2's
    float32 form), each lever row must agree with the bf16 row
-   (fused_enc_f32: the float32 parity row) on at least
+   (DRIFT_F32_ROWS: the float32 parity row) on at least
    DRIFT_LEVER_AGREE of the clips, int16 must give the parity row's
    texts, every text must be in the grammar. On the card the kernels at
    the rows' shapes are held against their plain versions
@@ -320,7 +335,9 @@ Phases, one line each (``[phase] ...``):
 
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14, then K9p and K10p, then the float32 forms of K1,
-K2 and K8), the last line ``{"ok": true, "device": {...}}``.
+K2, K8, K3, K3-q, K4 and K4-o), the last line ``{"ok": true, "device":
+{...}}``. ``[seconds]`` prints each phase's wall seconds; [ann] runs at
+ANN_ROWS (half the IVF tool's 1M) to pay for [f32]'s decoder parts.
 Any failure raises (exit code != 0).
 """
 from __future__ import annotations
@@ -801,12 +818,13 @@ def _rand(gen: torch.Generator, device, dtype=torch.bfloat16):
 
 
 def k3_inputs(gen: torch.Generator, b: int, l: int, d: int, *,
-              device="cuda"):
+              device="cuda", dtype=torch.bfloat16):
     """K3/K3-q inputs as the decode step hands them over: x [B, D] bf16 at
     0.01 N(0, 1); the self sub-block's LN (float32 scale), q/k/v/o
     weights [D, D] and biases in bf16; the cross LN, q weight and bias
-    (K3-q's tail); unit-scale caches [B, L, D]."""
-    rn, rf = _rand(gen, device), _rand(gen, device, torch.float32)
+    (K3-q's tail); unit-scale caches [B, L, D]. ``dtype`` float32: the
+    same draws, every tensor float32 (the float32 forms' inputs)."""
+    rn, rf = _rand(gen, device, dtype), _rand(gen, device, torch.float32)
     w = 1 / math.sqrt(d)
     selfw = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
              rn(d, d, scale=w), rn(d, scale=0.1), rn(d, d, scale=w),
@@ -818,12 +836,13 @@ def k3_inputs(gen: torch.Generator, b: int, l: int, d: int, *,
 
 
 def k4_inputs(gen: torch.Generator, b: int, d: int, f: int, *,
-              device="cuda"):
+              device="cuda", dtype=torch.bfloat16):
     """K4/K4-o inputs: x [B, D] bf16 at 0.01 N(0, 1); the MLP's LN (float32
     scale), fc1 [D, F], fc2 [F, D] and biases in bf16 (fc1's bias at
     0.5 N(0, 1), so it moves the GELU); the cross attention output
-    [B, D] float32 and the cross o-projection (K4-o's head)."""
-    rn, rf = _rand(gen, device), _rand(gen, device, torch.float32)
+    [B, D] float32 and the cross o-projection (K4-o's head). ``dtype``
+    float32: the same draws, every tensor float32."""
+    rn, rf = _rand(gen, device, dtype), _rand(gen, device, torch.float32)
     mlp = [rf(d, scale=0.1, shift=1.0), rn(d, scale=0.1),
            rn(d, f, scale=1 / math.sqrt(d)), rn(f, scale=0.5),
            rn(f, d, scale=1 / math.sqrt(f)), rn(d, scale=0.1)]
@@ -1744,6 +1763,12 @@ def search_scale_phase(card: str) -> dict:
     return counts
 
 
+# [ann]'s index rows: half the tool's 1M, which took ~75 s of the
+# script's 1200 s; the streamed host index still spans several chunks
+# of each size
+ANN_ROWS = 500_000
+
+
 def ann_phase(card: str, clips) -> dict:
     """The beyond-memory path: tools/torch_bench_ivf.py's run() (no kernel
     may launch), then an ann="ivf" engine through ann_engine_check with
@@ -1753,9 +1778,9 @@ def ann_phase(card: str, clips) -> dict:
     from multimodal_audio_search_tpu_torch.config import EngineConfig
     tool = load_tool("torch_bench_ivf")
     runtime.reset_counts()
-    res = tool.run(emit=lambda line: None)
+    res = tool.run(emit=lambda line: None, rows=ANN_ROWS)
     counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
-    phase("ann", card=card, step="data", rows=tool.ROWS,
+    phase("ann", card=card, step="data", rows=ANN_ROWS,
           seconds=res["data_s"])
     phase("ann", card=card, step="full probe = exact", **res["full_probe"])
     phase("ann", card=card, step="in memory", **res["in_memory"])
@@ -4087,18 +4112,21 @@ def mesh_search_check(card: str, emb, success, qs, devices) -> dict:
 
 
 def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
-                   lengths: torch.Tensor, seed: int | None = None
-                   ) -> torch.Tensor:
+                   lengths: torch.Tensor, seed: int | None = None,
+                   rel: float = LOGITS_ERR_REL,
+                   at: torch.Tensor | None = None) -> torch.Tensor:
     """Replay a greedy decode's own tokens through the decoder (the
     pipeline's decode config and logits rules) and return, a row, the
     smallest top-2 margin of the processed logits over the steps that
-    chose a token, less LOGITS_ERR_REL of that step's largest |logit|: a
-    row whose value is <= 0 had a step where a rounding of the kernels'
-    size could flip the greedy choice (the largest |logit| before the
-    rules, whose bans put -1e9 in). A sampled decode (``seed``: the
-    dispatch's generator seed) is replayed with its noise drawn again as
-    generate draws it, one draw a step: the margin is then that of
-    logits / t + noise, less LOGITS_ERR_REL of the largest |logit| / t."""
+    chose a token, less ``rel`` of that step's largest |logit|: a row
+    whose value is <= 0 had a step where a rounding of the kernels' size
+    could flip the greedy choice (the largest |logit| before the rules,
+    whose bans put -1e9 in). A sampled decode (``seed``: the dispatch's
+    generator seed) is replayed with its noise drawn again as generate
+    draws it, one draw a step: the margin is then that of logits / t +
+    noise, less ``rel`` of the largest |logit| / t. ``at`` [B]: each
+    row's margin at its step at[row] alone (the step that chose the
+    token at column prompt length + at[row]; inf where no step is)."""
     from multimodal_audio_search_tpu_torch.models import generate as G
     from multimodal_audio_search_tpu_torch.models import whisper as W
     cfg, dev = pipe.cfg, enc.device
@@ -4127,8 +4155,10 @@ def decode_margins(pipe, enc: torch.Tensor, tokens: torch.Tensor,
             logits, seen, torch.full((b,), pos + 1, device=dev),
             pipe.decode.no_repeat_ngram_size)
         top2 = (logits.float() / t + noise).topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1] - LOGITS_ERR_REL * scale / t
+        margin = top2[:, 0] - top2[:, 1] - rel * scale / t
         live = pos - (p - 1) < lengths
+        if at is not None:
+            live = live & (at == pos - (p - 1))
         worst = torch.where(live, torch.minimum(worst, margin), worst)
     return worst
 
@@ -5603,7 +5633,11 @@ DRIFT_LEVERS = {"fused_enc": ("K1",), "fused_enc_f32": ("K1",),
                 "int8_enc": ("K9",),
                 "paired": ("K10",), "int8_dec": ("K5",),
                 "int8_fused": ("K5", "K6"), "int8_kv": ("K5", "K7"),
-                "fused_layer": ("K3", "K4"), "v2": ("K3-q", "K4-o")}
+                "fused_layer": ("K3", "K4"), "v2": ("K3-q", "K4-o"),
+                "fused_layer_f32": ("K3", "K4"),
+                "v2_f32": ("K3-q", "K4-o")}
+# the lever rows in float32 on the card, held to the float32 parity row
+DRIFT_F32_ROWS = ("fused_enc_f32", "fused_layer_f32", "v2_f32")
 
 
 def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int):
@@ -5737,19 +5771,255 @@ def f32_kernel_checks(card: str, gen: torch.Generator) -> tuple:
     return k1, k2, k8
 
 
-def f32_engine_run(card: str, clip, label: str, enc) -> tuple:
-    """A float32 engine at EngineConfig()'s defaults (``enc``: the decode
-    configs' fused_encoder, None = K1) built by make_default_ingest(...,
-    dtype=torch.float32): the clip ingested and the queries answered with
-    the counts set to 0 just before and read just after, held to
-    expected_launches; then the clip once more under another name, timed
-    warm. Returns (counts, the counted run's dispatches (ASR, captions),
-    texts by segment of both ingests, each query's top-10 indices, the
-    engine's ASR pipeline, the engine, the warm ingest's audio-s/s)."""
+# [f32]'s decoder blocks: K3's, K3-q's, K4's and K4-o's float32 forms
+# (csrc/decoder_block_f32.cu) at the float32 engine's decode shapes, B=32
+# segments and a self cache of L=68 rows (64 greedy tokens past the
+# 4-token prompt) at every K3_POS, F = 4 D, at F32_WIDTHS; each held to
+# its plain version elementwise at F32_BLOCK_ATOL / RTOL (the same float32
+# products, summed in another order: x_out, k1 and v1 as written into the
+# cache row, q_cross), the other cache rows unwritten, F32_REPEATS more
+# launches bit-equal.
+F32_DEC_B, F32_DEC_L = 32, 68
+# the fast_lossless float32 engine against the [f32] K1 engine (the same
+# float32 weights, EngineConfig()'s unfused decode): their logits differ
+# by float32 rounding in two summation orders (the CPU test of the fused
+# float32 decode against JAX's reads 6e-7 on logits of unit scale), so a
+# segment's text may differ only where the plain float32 decode's top-2
+# margin, at the first step whose token differs, is under F32_MARGIN_REL
+# of that step's largest |logit| (decode_margins)
+F32_MARGIN_REL = 1e-4
+# the float32 "v2" decode steps against the unfused steps on the same
+# batch: max |err| of the logits within F32_STEP_LOGITS_REL of their
+# largest |value| (float32 rounding through 6 layers, as above)
+F32_STEP_LOGITS_REL = 1e-4
+
+
+def k3_f32_bound(args, got, pos: int) -> dict:
+    """bound() of K3's float32 function (K3-q's with its tail's 4 more
+    inputs): its inputs, the cache rows 0..pos-1 read and row pos written
+    (K and V), x_out (K3-q: and q_cross); the projections' float32
+    operations (4 D x D, K3-q 5) and the attention's two products over
+    pos + 1 keys, at the CUDA cores' float32 rate."""
+    b, d = args[0].shape
+    tail = len(args) > 10
+    outs = (got[0], got[3]) if tail else (got[0],)
+    return {**bound(nbytes(*args, *outs) + 2 * b * (pos + 1) * d * 4,
+                    f32=2 * b * d * d * (5 if tail else 4)
+                    + 4 * b * (pos + 1) * d), "bound_rate": "f32"}
+
+
+def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
+    """K3's, K3-q's, K4's and K4-o's float32 forms against their plain
+    versions at F32_WIDTHS, B=F32_DEC_B (K3 and K3-q at L=F32_DEC_L and
+    every K3_POS), each case with its repeats, ms (CUDA events), queued
+    ms (20 calls behind a sleep kernel), plain ms and bound. Returns the
+    four kernels' entries for the kernels line."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
+    src = "multimodal_audio_search_tpu_torch/csrc/decoder_block_f32.cu"
+    jx = "multimodal_audio_search_tpu/ops/decoder_block.py"
+    specs = {
+        "K3": ("decoder_self_block_f32", f"{jx}:200", DB.fused_self_block,
+               DB.self_block_plain),
+        "K3-q": ("decoder_self_block_q_f32", f"{jx}:272",
+                 DB.fused_self_block_q, DB.self_block_q_plain),
+        "K4": ("decoder_mlp_block_f32", f"{jx}:611", DB.fused_mlp_block,
+               DB.mlp_block_plain),
+        "K4-o": ("decoder_mlp_block_o_f32", f"{jx}:363",
+                 DB.fused_mlp_block_o, DB.mlp_block_o_plain)}
+    out = {k: {"name": n, "route": "cuda", "source": src, "replaces": r,
+               "cases": []} for k, (n, r, _, _) in specs.items()}
+    tol = [F32_BLOCK_ATOL, F32_BLOCK_RTOL]
+    b, l = F32_DEC_B, F32_DEC_L
+
+    def flat(outs):
+        return torch.cat([t.reshape(-1) for t in outs])
+
+    def timed(fn, plain):
+        return {"ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                "plain_ms": time_ms(plain), "library_ms": None}
+    for label, heads in F32_WIDTHS:
+        d = heads * 64
+        f = 4 * d
+        x, selfw, tail, kc, vc = k3_inputs(gen, b, l, d, dtype=torch.float32)
+        for key in ("K3", "K3-q"):
+            _, _, fused, plain = specs[key]
+            args = (x, *selfw, *(tail if key == "K3-q" else []))
+            for pos in K3_POS:
+                name = f"{key} float32 {label} pos={pos}"
+                ref = plain(*args, kc, vc, pos, heads=heads)
+                kg, vg = kc.clone(), vc.clone()
+                got = fused(*args, kg, vg, pos, heads=heads)
+                torch.cuda.synchronize()
+                err = max(check_close(f"{name} {o}", g, r, *tol)
+                          for o, g, r in zip(("x_out", "k1", "v1",
+                                              "q_cross"), got, ref))
+                for c, cg in ((kc, kg), (vc, vg)):
+                    if not (torch.equal(cg[:, :pos], c[:, :pos]) and
+                            torch.equal(cg[:, pos + 1:], c[:, pos + 1:])):
+                        raise AssertionError(f"{name}: a cache row other "
+                                             f"than {pos} was written")
+                fn = (lambda: fused(*args, kg, vg, pos, heads=heads))
+                case = {"shape": f"{label} B={b} D={d} H={heads} L={l} "
+                                 f"pos={pos}", "max_abs_err": err,
+                        "repeats_equal": check_repeats(
+                            name, lambda: flat(fn()), flat(got),
+                            F32_REPEATS),
+                        **timed(fn, lambda: plain(*args, kc, vc, pos,
+                                                  heads=heads)),
+                        **k3_f32_bound(args, got, pos)}
+                out[key]["cases"].append(case)
+                phase("f32", card=card, kernel=f"{key} float32", tol=tol,
+                      **case)
+        x, mlp, head = k4_inputs(gen, b, d, f, dtype=torch.float32)
+        for key in ("K4", "K4-o"):
+            _, _, fused, plain = specs[key]
+            args = (x, *head, *mlp) if key == "K4-o" else (x, *mlp)
+            got = fused(*args)
+            torch.cuda.synchronize()
+            name = f"{key} float32 {label}"
+            case = {"shape": f"{label} B={b} D={d} F={f}",
+                    "max_abs_err": check_close(name, got, plain(*args),
+                                               *tol),
+                    "repeats_equal": check_repeats(
+                        name, lambda: fused(*args), got, F32_REPEATS),
+                    **timed(lambda: fused(*args), lambda: plain(*args)),
+                    **bound(nbytes(*args, got), f32=4 * b * d * f + (
+                        2 * b * d * d if key == "K4-o" else 0)),
+                    "bound_rate": "f32"}
+            out[key]["cases"].append(case)
+            phase("f32", card=card, kernel=f"{key} float32", tol=tol,
+                  **case)
+        del x, selfw, tail, kc, vc, mlp, head, args, got
+    return list(out.values())
+
+
+def f32_margin_check(card: str, eng, clip, texts: dict, ref: dict,
+                     device="cuda") -> dict:
+    """The fast_lossless float32 engine's texts (``texts``, by segment)
+    against the [f32] K1 engine's (``ref``), the clip ingested twice by
+    each: each segment whose ASR text or caption differs must be a row of
+    the clip's first batch (the 320 s clip: every segment) whose fused
+    decode and plain float32 decode (the same pipeline with
+    fused_layer=False) differ in tokens, at a first differing step where
+    the plain decode's top-2 margin is under F32_MARGIN_REL of the
+    step's largest |logit| (decode_margins with ``at``, replayed through
+    the plain decoder). Returns the rows differing and their margins by
+    model. ``device``: the engine's (the CPU rehearses it)."""
+    import dataclasses
+
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    ing = eng.ingest_pipeline
+    n, q, transfer, seg_len = _ingest_batch(ing, clip[1])
+    starts = sorted({k[1] for k in ref})
+    if len(starts) > n:
+        raise AssertionError(f"[f32] {len(starts)} segments, {n} in the "
+                             f"first batch")
+    out = {}
+    with torch.inference_mode():
+        mel = ing._device_mel(q.to(device), transfer, seg_len)
+        for i, name in enumerate(("asr", "caption")):
+            p = getattr(ing, name)
+            enc = W.encode(p.params, mel.to(p.dtype), p.cfg,
+                           fused_blocks=p.fused_encoder_resolved)
+            tf, lf = p.dispatch_mel(mel)
+            own = p.decode
+            p.decode = dataclasses.replace(own, fused_layer=False)
+            try:
+                tp, lp = p.dispatch_mel(mel)
+                at = (tf != tp).int().argmax(dim=1) - len(p.prefix_ids)
+                margin = decode_margins(p, enc, tp, lp, rel=F32_MARGIN_REL,
+                                        at=at)[:n]
+            finally:
+                p.decode = own
+            texts_differ = sorted({starts.index(k[1]) for k in ref
+                                   if texts[k][i] != ref[k][i]})
+            differ = ((tf[:n] != tp[:n]).any(dim=1) | (lf[:n] != lp[:n]))
+            wide = differ & (margin > 0)
+            if bool(wide.any()) or any(not differ[r] for r in
+                                       texts_differ):
+                raise AssertionError(
+                    f"[f32] fast_lossless {name}: rows whose tokens differ "
+                    f"from the plain float32 decode's {differ.tolist()}, "
+                    f"margins at the first differing step "
+                    f"{margin.tolist()} (limit {F32_MARGIN_REL} of the "
+                    f"largest |logit|), rows whose texts differ from the "
+                    f"K1 engine's {texts_differ}")
+            out[name] = {"rows_differing": int(differ.sum()),
+                         "texts_differing": len(texts_differ),
+                         "margins": [float(m) for m in margin[differ]]}
+    return out
+
+
+def f32_v2_step_check(card: str, eng, clip, device="cuda") -> dict:
+    """The float32 "v2" path by the decode steps of the engine's batch:
+    ``eng``'s ASR pipeline (whisper-base, float32), the clip's first batch
+    encoded, its merged cross K/V, and the prompt's steps decoded with
+    fused_layer="v2" (the counts set to 0 just before and read just
+    after: K3-q, K4-o and K2 once a step and layer, nothing else) and
+    unfused on a cache of their own; the logits within
+    F32_STEP_LOGITS_REL of their largest |value| at every step.
+    ``device``: the engine's (the CPU rehearses it: no launch counted)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    ing = eng.ingest_pipeline
+    p = ing.asr
+    _, q, transfer, seg_len = _ingest_batch(ing, clip[1])
+    on_card = torch.device(device).type == "cuda"
+    with torch.inference_mode():
+        mel = ing._device_mel(q.to(device), transfer, seg_len)
+        enc = W.encode(p.params, mel.to(p.dtype), p.cfg,
+                       fused_blocks=p.fused_encoder_resolved)
+        ckv = W.cross_kv_merged(p.params, enc, p.cfg)
+        b, steps = enc.shape[0], len(p.prefix_ids)
+        toks = torch.tensor(p.prefix_ids, device=device)
+        caches = [W.init_cache(p.cfg, b, steps, torch.float32, device)
+                  for _ in range(2)]
+        logits = {}
+        for label, fused, cache in (("v2", "v2", caches[0]),
+                                    ("unfused", False, caches[1])):
+            _sync(device)
+            runtime.reset_counts()
+            logits[label] = [W.decode_step(
+                p.params, toks[pos].expand(b), pos, cache, ckv, p.cfg,
+                fused_layer=fused) for pos in range(steps)]
+            _sync(device)
+            if label == "v2":
+                counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
+        per = steps * p.cfg.dec_layers
+        exp = {k: per if on_card and k in ("K2", "K3-q", "K4-o") else 0
+               for k in KEYS}
+        if counts != exp:
+            raise AssertionError(f"[f32] v2 steps: launches {counts} != "
+                                 f"{exp}")
+        rel = max(float((a - r).abs().max() / r.abs().max())
+                  for a, r in zip(logits["v2"], logits["unfused"]))
+    if not rel <= F32_STEP_LOGITS_REL:
+        raise AssertionError(f"[f32] v2 steps: logits {rel:.3e} of their "
+                             f"largest |value| off the unfused steps' "
+                             f"(limit {F32_STEP_LOGITS_REL})")
+    out = {"batch": b, "steps": steps, "launches": counts,
+           "logits_rel_err": rel, "tol": F32_STEP_LOGITS_REL}
+    phase("f32", path="f32 v2 steps", card=card, **out)
+    return out
+
+
+def f32_engine_run(card: str, clip, label: str, enc, profile=None,
+                   fused=False) -> tuple:
+    """A float32 engine at EngineConfig()'s defaults (``profile`` applied,
+    ``fused``: the decode configs' fused_layer as in engine_config;
+    ``enc``: the decode configs' fused_encoder, None = the profile's, K1)
+    built by make_default_ingest(..., dtype=torch.float32): the clip
+    ingested and the queries answered with the counts set to 0 just
+    before and read just after, held to expected_launches; then the clip
+    once more under another name, timed warm. Returns (counts, the
+    counted run's dispatches (ASR, captions), texts by segment of both
+    ingests, each query's top-10 indices, the engine's ASR pipeline, the
+    engine, the warm ingest's audio-s/s)."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
     from multimodal_audio_search_tpu_torch.pipelines.ingest import (
         make_default_ingest)
-    cfg = engine_config(None, False, None, enc)
+    cfg = engine_config(profile, fused, None, enc)
     t0 = time.perf_counter()
     ing = make_default_ingest(cfg, seed=0, dtype=torch.float32,
                               device="cuda")
@@ -5777,7 +6047,7 @@ def f32_engine_run(card: str, clip, label: str, enc) -> tuple:
     counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
     steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
     disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
-    exp = expected_launches(False, None, steps, disp, asr, cap, enc)
+    exp = expected_launches(fused, None, steps, disp, asr, cap, enc)
     if counts != exp:
         raise AssertionError(f"[f32] {label}: launches {counts} != "
                              f"expected {exp}")
@@ -5810,17 +6080,27 @@ def f32_phase(card: str, clips) -> tuple:
     torch.float32) at EngineConfig()'s defaults, full width: whisper-base
     ASR and whisper-tiny captions, 30 s mel context, B=32 segments of the
     320 s clip, 64 greedy tokens, MiniLM-L6, exact top-10). Its kernels
-    against their plain versions (f32_kernel_checks); the engine with
-    fused_encoder None (K1's float32 form, 10 launches a dispatch: 6 base
-    and 4 tiny layers) and with fused_encoder=False (K8's float32 form +
-    the plain o-projection), each with its launches held to
-    expected_launches; their texts and top-10 identical; one batch's
-    encoder states of the K1 engine against the plain float32 encoder
-    within F32_ENC_ATOL / F32_ENC_RTOL. Returns (the K1 engine's counts,
-    the K8 engine's counts, the kernels' entries)."""
+    against their plain versions (f32_kernel_checks, f32_decoder_checks);
+    the engine with fused_encoder None (K1's float32 form, 10 launches a
+    dispatch: 6 base and 4 tiny layers) and with fused_encoder=False
+    (K8's float32 form + the plain o-projection), each with its launches
+    held to expected_launches; their texts and top-10 identical; one
+    batch's encoder states of the K1 engine against the plain float32
+    encoder within F32_ENC_ATOL / F32_ENC_RTOL. Then the float32 engine
+    under apply_profile(..., "fast_lossless") (K1 f32 10 a dispatch, K3
+    and K4 f32 once a decode step and layer, K2 f32 for the cross
+    attention, held to expected_launches), whose texts and top-10 must be
+    the K1 engine's but where f32_margin_check allows a segment, and the
+    float32 "v2" path on its batch (f32_v2_step_check). Returns (the K1
+    engine's counts, the K8 engine's counts, the fast_lossless engine's
+    counts, the v2 steps' counts, the kernels' entries: K1's, K2's and
+    K8's float32 forms, then K3's, K3-q's, K4's and K4-o's)."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
     kern = f32_kernel_checks(card, torch.Generator().manual_seed(24))
+    torch.cuda.empty_cache()
+    kern = (*kern, *f32_decoder_checks(card,
+                                       torch.Generator().manual_seed(25)))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counts, disp, texts, top10, asr, eng, rate = f32_engine_run(
@@ -5849,11 +6129,27 @@ def f32_phase(card: str, clips) -> tuple:
         raise AssertionError(f"[f32]: K1 and K8 engines differ: texts of "
                              f"{len(diff)} segments, top-10 equal "
                              f"{top8 == top10}")
+    countsf, dispf, textsf, topf, _, engf, ratef = f32_engine_run(
+        card, clips[0], "f32 fast_lossless", None, "fast_lossless", True)
+    if dispf != (1, 1) or countsf["K1"] != layers:
+        raise AssertionError(f"[f32] fast_lossless: K1 {countsf['K1']} "
+                             f"over dispatches {dispf}, want {layers} over "
+                             f"one")
+    same = textsf == texts and topf == top10
+    margins = None if same else f32_margin_check(card, engf, clips[0],
+                                                 textsf, texts)
+    v2 = f32_v2_step_check(card, engf, clips[0])
+    del engf
+    torch.cuda.empty_cache()
     phase("f32", path="f32", card=card, encoder_max_abs_err=enc_err,
           tol=[F32_ENC_ATOL, F32_ENC_RTOL], texts_equal_k8_engine=True,
           top10_equal_k8_engine=True, warm_ingest_audio_s_per_s=rate,
-          k8_engine_warm_ingest_audio_s_per_s=rate8)
-    return counts, counts8, kern
+          k8_engine_warm_ingest_audio_s_per_s=rate8,
+          fast_lossless_texts_equal=textsf == texts,
+          fast_lossless_top10_equal=topf == top10,
+          fast_lossless_margins=margins, margin_rel=F32_MARGIN_REL,
+          fast_lossless_warm_ingest_audio_s_per_s=ratef)
+    return counts, counts8, countsf, v2["launches"], kern
 
 
 def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
@@ -5976,8 +6272,8 @@ def drift_phase(card: str, model, device="cuda") -> dict:
         assert not levers & set(launched["parity"]), launched["parity"]
         assert launched["parity"].get("K2"), launched["parity"]
     # each lever row against the row of its dtype: bf16 on the card, where
-    # the levers' kernels take bf16 (fused_enc_f32: float32, parity)
-    ref = {r: details["bf16" if on_card and r != "fused_enc_f32"
+    # the levers' kernels take bf16 (DRIFT_F32_ROWS: float32, parity)
+    ref = {r: details["bf16" if on_card and r not in DRIFT_F32_ROWS
                       else "parity"]["texts"] for r in DRIFT_LEVERS}
     agree = {r: float(np.mean([a == b for a, b in zip(details[r]["texts"],
                                                       ref[r])]))
@@ -6505,7 +6801,8 @@ def main() -> int:
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
-    counts["f32"], counts["f32_enc_attn"], f32k = f32_phase(card, clips)
+    (counts["f32"], counts["f32_enc_attn"], counts["f32_fast_lossless"],
+     counts["f32_v2"], f32k) = f32_phase(card, clips)
     counts.update(codec_phase(card, np.random.default_rng(2), clips, mems,
                               ref_texts, k1, k2, gen))
     counts.update(parity_phase(card, rng, clips, mems, k2, dec))
@@ -6566,9 +6863,14 @@ def main() -> int:
             "library_ms": None, "device_ms": first["device_ms"],
             "shape": first["shape"], "path": f"tp {path}",
             "cases": k["cases"]})
-    # the float32 forms, from the float32 engines' paths
+    # the float32 forms, from the float32 engines' paths (K3-q's and K4-o's
+    # from the float32 "v2" decode steps)
     for key, k, path in (("K1", f32k[0], "f32"), ("K2", f32k[1], "f32"),
-                         ("K8", f32k[2], "f32_enc_attn")):
+                         ("K8", f32k[2], "f32_enc_attn"),
+                         ("K3", f32k[3], "f32_fast_lossless"),
+                         ("K3-q", f32k[4], "f32_v2"),
+                         ("K4", f32k[5], "f32_fast_lossless"),
+                         ("K4-o", f32k[6], "f32_v2")):
         first = k["cases"][0]
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],

@@ -13,9 +13,16 @@ Counterpart of ``multimodal_audio_search_tpu/ops/decoder_block.py``:
                              merged K/V -> + MLP(LN3(.)); as in the JAX
                              package, no decode step calls it
 
-On a CUDA tensor each wrapper launches ``csrc/decoder_block.cu``; on a CPU
-tensor it runs the ``*_plain`` version of the same math. There is no
-other route: a launch that fails raises.
+On a CUDA tensor each wrapper launches a kernel; on a CPU tensor it runs
+the ``*_plain`` version of the same math. There is no other route: a
+launch that fails raises. The kernel is chosen by x's dtype, as the JAX
+kernels cast every weight to it: bf16 tensors (with float32 layer-norm
+scales, and K4-o's float32 ``attn``) launch ``csrc/decoder_block.cu``;
+float32 tensors launch K3's, K3-q's, K4's and K4-o's float32 forms in
+``csrc/decoder_block_f32.cu`` (FFMA on the CUDA cores, nothing rounded to
+bf16), so a float32 engine runs every ``fused_layer`` setting. K3p, K4p
+and K14 take bf16 only and refuse float32, naming why. A call whose
+tensors mix the two dtypes raises before any launch.
 
 ``partial=True`` (K3p, K4p) is a block's form on one rank of the mesh's
 model axis (tensor parallelism): the rank holds H/mp heads (the [D,
@@ -209,7 +216,13 @@ def cross_mlp_block_plain(x, ln2_g, ln2_b, wcq, bcq, wco, bco,
 # ------------------------------------------------------------- card side
 _COUNTERS: dict = {}
 _BUFS: dict = {}
+# the bf16 forms' float32 inputs: the layer-norm scales and K4-o's attn
 _F32 = frozenset(("ln_g", "cross_ln_g", "attn", "ln2_g", "ln3_g"))
+# the kernels without a float32 form, and why (ROADMAP's float32 queue)
+_BF16_ONLY = {"K3p": "the float32 queue's row Q5 (model_parallel > 1)",
+              "K4p": "the float32 queue's row Q5 (model_parallel > 1)",
+              "K14": "no decode step calls it, so the float32 queue has "
+                     "no row for it"}
 MAX_D = 2048  # K4's widest row: its layer norm holds 8 values a thread
 
 
@@ -236,23 +249,43 @@ def _buf(device: torch.device, name: str, numel: int,
     return t.data_ptr()
 
 
-def _check(kernel: str, ref: torch.Tensor, **tensors) -> None:
-    """Raise on a tensor the kernel does not take: one combined test on
-    the common path, the culprit named only when it fails."""
+def _is_f32(kernel: str, x: torch.Tensor) -> bool:
+    """Whether ``kernel`` runs its float32 form: x float32 (K3, K3-q, K4,
+    K4-o; the kernels of _BF16_ONLY raise), x bf16 its bf16 form; any
+    other dtype raises."""
+    if x.dtype == torch.bfloat16:
+        return False
+    if x.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes bf16 or float32 tensors of one "
+                        f"dtype, x is {x.dtype}")
+    if kernel in _BF16_ONLY:
+        raise TypeError(f"{kernel} takes bf16 tensors (float32 layer-norm "
+                        f"scales), x is float32: it has no float32 form, "
+                        f"{_BF16_ONLY[kernel]}")
+    return True
+
+
+def _check(kernel: str, ref: torch.Tensor, f32: bool, **tensors) -> None:
+    """Raise on a tensor the kernel does not take: every tensor float32
+    (``f32``, the float32 form) or bf16 but the _F32 names; one combined
+    test on the common path, the culprit named only when it fails."""
     ok, ptrs = True, 0
     for name, a in tensors.items():
         ptrs |= a.data_ptr()
         ok = ok and a.device == ref.device and a.is_contiguous() and \
-            a.dtype == (torch.float32 if name in _F32 else torch.bfloat16)
+            a.dtype == (torch.float32 if f32 or name in _F32
+                        else torch.bfloat16)
     if ok and not ptrs % 16:
         return
     for name, a in tensors.items():
         if a.device != ref.device:
             raise ValueError(f"{kernel}: {name} on {a.device}, x on "
                              f"{ref.device}")
-        want = torch.float32 if name in _F32 else torch.bfloat16
+        want = torch.float32 if f32 or name in _F32 else torch.bfloat16
         if a.dtype != want:
-            raise TypeError(f"{kernel} takes {name} as {want}, got {a.dtype}")
+            form = "float32" if f32 else "bf16 (float32 layer-norm scales)"
+            raise TypeError(f"{kernel} takes {form} tensors of one dtype; "
+                            f"{name} is {a.dtype}, x {ref.dtype}")
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{kernel} takes a contiguous 16-byte aligned "
                              f"{name}")
@@ -320,15 +353,66 @@ def self_block_plan(b: int, heads: int, l: int, rows: int | None = None,
     return -(-heads // cs), cs, rows, -(-b // rows), stages
 
 
-def _fit(dev: torch.device, cs: int, smem: int) -> int:
+# K3's float32 form (csrc/decoder_block_f32.cu): rows a tile at most, a
+# streamed weight tile's bytes (64 x 64 float32), ring slots
+K3F_ROWS = 8
+K3F_TILE = 64 * 64 * 4
+K3F_MAX_STAGES, K3F_MIN_STAGES = 8, 4
+
+
+def k3_f32_smem(d: int, l: int, stages: int, rows: int) -> int:
+    """Bytes of shared memory a float32 K3 block takes at width d, cache
+    length l, ``stages`` ring slots and ``rows`` rows a tile (csrc/
+    decoder_block_f32.cu's f3_smem): 128 to align the ring, the ring, the
+    o-projection partials and h [rows, d], q1/k1/v1 and the attention
+    output [rows, 64], the fresh-row weights [8], and the logits [rows,
+    l] (or the warps' p . V partials [8, rows, 64], the larger), all
+    float32."""
+    scores = -(-max(rows * l, 8 * rows * 64) // 4) * 4
+    return 128 + stages * K3F_TILE + 4 * (2 * rows * d + 4 * rows * 64
+                                          + K3F_ROWS + scores)
+
+
+def self_block_f32_plan(b: int, heads: int, l: int, rows: int | None = None,
+                        clusters: int = K3_CLUSTERS
+                        ) -> tuple[int, int, int, int]:
+    """(blocks a cluster, rows a tile, tiles, ring slots) of K3's float32
+    form at batch b and cache length l, on a card that holds ``clusters``
+    such clusters at once. The cluster is K3's: CS = min(H, 16) blocks,
+    rank r the heads [r H / CS, (r + 1) H / CS). A block streams its
+    heads' weights whole once a tile, so, as in self_block_plan, the
+    fewest rows a tile (up to K3F_ROWS) that keep the tiles within
+    ``clusters``; ``rows`` overrides that. The ring takes the shared
+    memory left, up to K3F_MAX_STAGES 16 KB slots; where fewer than
+    K3F_MIN_STAGES fit beside the rest, a ValueError names the limit."""
+    d = heads * 64
+    cs = min(heads, K3_MAX_CLUSTER)
+    if rows is None:
+        rows = min(K3F_ROWS, max(1, -(-b // clusters)))
+    if not 1 <= rows <= K3F_ROWS:
+        raise ValueError(f"K3's float32 tiles hold 1..{K3F_ROWS} rows, got "
+                         f"{rows}")
+    stages = min(K3F_MAX_STAGES,
+                 (K3_SMEM - k3_f32_smem(d, l, 0, rows)) // K3F_TILE)
+    if stages < K3F_MIN_STAGES:
+        raise ValueError(
+            f"K3's float32 form does not fit D={d}, L={l}, {rows} rows a "
+            f"tile: a block's {K3_SMEM} bytes of shared memory hold fewer "
+            f"than {K3F_MIN_STAGES} of its {K3F_TILE}-byte weight tiles "
+            f"beside its {k3_f32_smem(d, l, 0, rows)} bytes of rows")
+    return cs, rows, -(-b // rows), stages
+
+
+def _fit(dev: torch.device, cs: int, smem: int,
+         name: str = "mas_decoder_self_block_fit") -> int:
     """The clusters of cs K3 blocks of ``smem`` bytes ``dev`` holds at
-    once, asked of the card once per shape."""
-    key = (dev, cs, smem)
+    once (``name``: the bf16 or the float32 form's query), asked of the
+    card once per shape."""
+    key = (dev, cs, smem, name)
     n = _FIT.get(key)
     if n is None:
         out = ctypes.c_int(0)
-        runtime.launch("mas_decoder_self_block_fit", dev, cs, smem,
-                       ctypes.byref(out))
+        runtime.launch(name, dev, cs, smem, ctypes.byref(out))
         if out.value < 1:
             raise RuntimeError(f"K3: the card holds no cluster of {cs} "
                                f"blocks of {smem} bytes")
@@ -340,6 +424,7 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
                  v_cache, pos: int, heads: int, eps: float, tail=None,
                  rows: int | None = None, partial: bool = False):
     kernel = "K3-q" if tail else "K3p" if partial else "K3"
+    f32 = _is_f32(kernel, x)
     b, d = x.shape
     hd = heads * 64
     if (d != hd and not partial) or d % 64 or (tail and partial):
@@ -362,15 +447,22 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     _shape(kernel, wo, (hd, d), "wo")
     _shape(kernel, v_cache, (b, l, hd), "v_cache")
     _shape(kernel, k_cache, (b, l, hd), "k_cache")
-    _check(kernel, x, x=x, k_cache=k_cache, v_cache=v_cache, wo=wo, **vecs,
-           **heads_vecs, **mats)
+    _check(kernel, x, f32, x=x, k_cache=k_cache, v_cache=v_cache, wo=wo,
+           **vecs, **heads_vecs, **mats)
     if not 0 <= pos < l:
         raise ValueError(f"{kernel}: pos {pos} outside [0, {l})")
     dev = x.device
     # the clusters the card holds, asked at the largest tile's size
-    _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS, d=d)
-    _, _, rt, _, stages = self_block_plan(
-        b, heads, l, rows, _fit(dev, cs, k3_smem(d, l, st, K3_ROWS)), d=d)
+    if f32:
+        cs, _, _, st = self_block_f32_plan(b, heads, l, K3F_ROWS)
+        fit = _fit(dev, cs, k3_f32_smem(d, l, st, K3F_ROWS),
+                   "mas_decoder_self_block_f32_fit")
+        _, rt, _, stages = self_block_f32_plan(b, heads, l, rows, fit)
+    else:
+        _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS, d=d)
+        _, _, rt, _, stages = self_block_plan(
+            b, heads, l, rows, _fit(dev, cs, k3_smem(d, l, st, K3_ROWS)),
+            d=d)
     if partial:
         out = torch.empty(b, d, dtype=torch.float32, device=dev)
         runtime.launch(
@@ -385,8 +477,8 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     qc = torch.empty_like(x) if tail else None
     cross = tail or (None,) * 4
     runtime.launch(
-        "mas_decoder_self_block", dev,
-        x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+        "mas_decoder_self_block_f32" if f32 else "mas_decoder_self_block",
+        dev, x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), x_out.data_ptr(),
@@ -422,8 +514,9 @@ def fused_self_block(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     ``pos`` of the caches (k1/v1 are views of that row). ``pos`` is a
     host int. CUDA tensors launch K3 (``partial``: K3p, whose first output
     is the float32 o-projection of the rank's heads, module docstring),
-    CPU tensors take the plain version. On the card every tensor is bf16
-    except the float32 LN scale."""
+    CPU tensors take the plain version. On the card the tensors are all
+    bf16 but the float32 LN scale (K3) or all float32 (K3's float32
+    form); K3p takes bf16 only."""
     runtime.refuse_grad("K3", x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
                         k_cache, v_cache)
     pos = int(pos)
@@ -461,6 +554,7 @@ def fused_self_block_q(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
 def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
                 partial: bool = False):
     kernel = "K4-o" if head else "K4p" if partial else "K4"
+    f32 = _is_f32(kernel, x)
     b, hd = x.shape
     f = w1.shape[1]
     if hd % 64 or hd > MAX_D or f % 32 or (head and partial):
@@ -480,7 +574,7 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
         extra = dict(attn=attn, wco=wco)
     for name, a in vecs.items():
         _shape(kernel, a, (hd,), name)
-    _check(kernel, x, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
+    _check(kernel, x, f32, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
     if partial:
         out = torch.empty(b, hd, dtype=torch.float32, device=dev)
@@ -494,14 +588,17 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
         runtime.bump("decoder_mlp_block")
         return out
     out = torch.empty_like(x)
+    # the float32 form: h transposed [D, B rounded up to 32], a partial a
+    # 16 fc1 columns (the bf16 form's: h [B, D] bf16, a partial a 32)
+    h = _buf(dev, "h32", hd * -(-b // 32) * 32, torch.float32) if f32 \
+        else _buf(dev, "h", b * hd, torch.bfloat16)
     runtime.launch(
-        "mas_decoder_mlp_block", dev,
+        "mas_decoder_mlp_block_f32" if f32 else "mas_decoder_mlp_block", dev,
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         *(_ptr(a) for a in (head or (None,) * 3)),
-        _buf(dev, "x32", b * hd, torch.float32) if head else 0,
-        _buf(dev, "h", b * hd, torch.bfloat16),
-        _buf(dev, "part", f // 32 * b * hd, torch.float32),
+        _buf(dev, "x32", b * hd, torch.float32) if head else 0, h,
+        _buf(dev, "part", f // (16 if f32 else 32) * b * hd, torch.float32),
         _counters(dev), out.data_ptr(), b, hd, f, eps,
         runtime.sm_count(dev), runtime.raw_stream(dev))
     runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
@@ -512,8 +609,9 @@ def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5,
                     partial: bool = False):
     """B4: x + fc2(gelu(fc1(LN x))), [B, D]. CUDA tensors launch K4 (which
     takes erff for the erf of the GELU; ``partial``: K4p, the float32 fc2
-    sum of a rank's F/mp columns alone, module docstring), CPU tensors the
-    plain version."""
+    sum of a rank's F/mp columns alone, module docstring), or on float32
+    tensors K4's float32 form (the plain version's erf polynomial), CPU
+    tensors the plain version."""
     runtime.refuse_grad("K4", x, ln_g, ln_b, w1, b1, w2, b2)
     if _device(x) == "cuda":
         return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,
@@ -629,8 +727,8 @@ def _launch_cross_mlp(x, ln2_g, ln2_b, wcq, bcq, wco, bco, ln3_g, ln3_b,
     _shape("K14", wm2, (f, hd), "wm2")
     _shape("K14", k_m, (b, t, hd), "k_m")
     _shape("K14", v_m, (b, t, hd), "v_m")
-    _check("K14", x, x=x, wcq=wcq, wco=wco, wm1=wm1, bm1=bm1, wm2=wm2,
-           k_m=k_m, v_m=v_m, **vecs)
+    _check("K14", x, _is_f32("K14", x), x=x, wcq=wcq, wco=wco, wm1=wm1,
+           bm1=bm1, wm2=wm2, k_m=k_m, v_m=v_m, **vecs)
     dev = x.device
     if cluster is None:   # one lookup a shape and card
         key = (dev, t, heads, b)

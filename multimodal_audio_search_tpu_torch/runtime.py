@@ -64,7 +64,7 @@ INIT = ("mas_attn_o_residual_int8_init",
         "mas_encoder_block_f32_init",
         "mas_quant_matmul_init",
         "mas_decoder_mlp_block_init", "mas_int8_cached_attention_init",
-        "mas_decoder_self_block_init",
+        "mas_decoder_self_block_init", "mas_decoder_block_f32_init",
         "mas_single_query_attention_int8_init", "mas_cross_mlp_block_init")
 
 _lock = threading.Lock()
@@ -221,6 +221,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block.restype = i
+    # K3's float32 form: the same arguments (cluster blocks, rows a tile,
+    # ring slots as its plan gives them)
+    lib.mas_decoder_self_block_f32.argtypes = \
+        lib.mas_decoder_self_block.argtypes
+    lib.mas_decoder_self_block_f32.restype = i
     lib.mas_decoder_self_block_partial.argtypes = [
         p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo
         p, p, p,                  # k/v caches, out (float32)
@@ -229,6 +234,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block_partial.restype = i
     for name in ("mas_decoder_self_block_fit",
+                 "mas_decoder_self_block_f32_fit",
                  "mas_int8_cached_attention_fit"):
         getattr(lib, name).argtypes = [i, i, p]  # cluster, smem, out
         getattr(lib, name).restype = i
@@ -239,6 +245,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block.restype = i
+    # K4's float32 form: the same arguments (h a [D, B rounded up to 32]
+    # float32 scratch, partials [F / 16, B, D])
+    lib.mas_decoder_mlp_block_f32.argtypes = \
+        lib.mas_decoder_mlp_block.argtypes
+    lib.mas_decoder_mlp_block_f32.restype = i
     lib.mas_decoder_mlp_block_partial.argtypes = [
         p, p, p, p, p, p,         # x, g, b, w1, b1, w2
         p, p, p, p,               # h, partials, counters, out (float32)

@@ -24,6 +24,10 @@ edges, K9, K1 and K10 at D = 384-1280, K1, K10 and K11's three forms on
 every cluster size they take, with planted faults and a cluster the card
 refuses, the row division K9 and K11 share held to the true one, and
 K9's launches on the same inputs bit-equal to each other;
+K1's, K2's, K8's, K3's, K3-q's, K4's and K4-o's float32 forms within
+chip_smoke's float32 tolerances of their plain versions, at the float32
+engine's shapes and ragged ones, with their launches repeated bit for bit
+(``-k float32``);
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -370,7 +374,7 @@ def test_decoder_wrappers_raise_instead_of_falling_back(cuda):
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     gen = torch.Generator().manual_seed(5)
     x, selfw, tail, kc, vc = chip_smoke.k3_inputs(gen, 8, 16, 128)
-    with pytest.raises(TypeError):                    # float32 x
+    with pytest.raises(TypeError):                    # float32 x, bf16 w
         DB.fused_self_block(x.float(), *selfw, kc, vc, 2, heads=2)
     with pytest.raises(ValueError):                   # head dim 32
         DB.fused_self_block(x, *selfw, kc, vc, 2, heads=4)
@@ -857,6 +861,137 @@ def test_k1_float32_repeats_bit_equal(cuda, heads):
         f"K1 float32 H={heads}",
         lambda: EB.fused_attention_o_residual(*args), first,
         chip_smoke.F32_REPEATS) == chip_smoke.F32_REPEATS
+
+
+# K3's float32 form: the float32 engine's widths at B=32, L=68 and every
+# pos of chip_smoke.K3_POS, a ragged tile, whisper-small's 12 heads, and
+# whisper-large's 20 over 16 blocks at L=448 (the widest plan)
+K3_F32_CASES = [(32, 8, 68, 0), (32, 8, 68, 3), (32, 8, 68, 67),
+                (32, 6, 68, 0), (32, 6, 68, 3), (32, 6, 68, 67),
+                (5, 2, 41, 6), (33, 12, 68, 40), (9, 20, 448, 447)]
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("b,heads,l,pos", K3_F32_CASES)
+def test_k3_float32_matches_plain(cuda, tail, b, heads, l, pos):
+    """K3's and K3-q's float32 forms (csrc/decoder_block_f32.cu) within
+    chip_smoke's float32 block tolerance of the plain version on x_out,
+    k1, v1 and q_cross; row pos of the caches written with the k1 / v1
+    returned and no other row touched; one launch a call, counted as
+    the bf16 form's."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(2500 + b * 100 + pos)
+    x, selfw, tl, kc, vc = chip_smoke.k3_inputs(gen, b, l, heads * 64,
+                                                dtype=torch.float32)
+    extra = tl if tail else []
+    fused = DB.fused_self_block_q if tail else DB.fused_self_block
+    plain = DB.self_block_q_plain if tail else DB.self_block_plain
+    ref = plain(x, *selfw, *extra, kc, vc, pos, heads=heads)
+    kg, vg = kc.clone(), vc.clone()
+    runtime.reset_counts()
+    got = fused(x, *selfw, *extra, kg, vg, pos, heads=heads)
+    torch.cuda.synchronize()
+    key = "decoder_self_block_q" if tail else "decoder_self_block"
+    assert runtime.COUNTS[key] == 1 and sum(runtime.COUNTS.values()) == 1
+    assert all(g.dtype == torch.float32 for g in got)
+    for label, g, r in zip(("x_out", "k1", "v1", "q_cross"), got, ref):
+        chip_smoke.check_close(f"K3 float32 {label}", g, r,
+                               chip_smoke.F32_BLOCK_ATOL,
+                               chip_smoke.F32_BLOCK_RTOL)
+    assert torch.equal(kg[:, pos], got[1]) and torch.equal(vg[:, pos], got[2])
+    for c, cg in ((kc, kg), (vc, vg)):
+        assert torch.equal(cg[:, :pos], c[:, :pos])
+        assert torch.equal(cg[:, pos + 1:], c[:, pos + 1:])
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("b,d,f", [(32, 512, 2048), (32, 384, 1536),
+                                   (1, 128, 256), (33, 512, 2048),
+                                   (7, 1024, 4096), (64, 768, 3072),
+                                   (32, 1280, 5120), (200, 384, 1536)])
+def test_k4_float32_matches_plain(cuda, head, b, d, f):
+    """K4's and K4-o's float32 forms at the float32 engine's widths (B=32,
+    base and tiny), one row, ragged row blocks and the ingest batch up to
+    200, and every Whisper width (D in 512-column chunks past 512; at
+    1280, 320 slices of 16 fc1 columns on a grid capped by the card),
+    within chip_smoke's float32 block tolerance of the plain version; a
+    second call finds the barrier counters at zero."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(2600 + b + d)
+    x, mlp, hd = chip_smoke.k4_inputs(gen, b, d, f, dtype=torch.float32)
+    args = (x, *hd, *mlp) if head else (x, *mlp)
+    fused = DB.fused_mlp_block_o if head else DB.fused_mlp_block
+    plain = DB.mlp_block_o_plain if head else DB.mlp_block_plain
+    ref = plain(*args)
+    for _ in range(2):
+        runtime.reset_counts()
+        got = fused(*args)
+        torch.cuda.synchronize()
+        assert sum(runtime.COUNTS.values()) == 1
+        assert int(DB._COUNTERS[x.device][1].abs().sum()) == 0
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        chip_smoke.check_close(f"K4 float32 B={b} D={d}", got, ref,
+                               chip_smoke.F32_BLOCK_ATOL,
+                               chip_smoke.F32_BLOCK_RTOL)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K3-q", "K4", "K4-o"])
+@pytest.mark.parametrize("heads", [8, 6])
+def test_decoder_float32_repeats_bit_equal(cuda, kernel, heads):
+    """The decoder blocks' float32 forms at B=32 (K3 and K3-q at L=68,
+    pos 67), 16 more launches on the same inputs each bit-equal to the
+    first: every output element is summed in one fixed order."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(heads)
+    d = heads * 64
+    if kernel.startswith("K3"):
+        x, selfw, tl, kc, vc = chip_smoke.k3_inputs(gen, 32, 68, d,
+                                                    dtype=torch.float32)
+        extra = tl if kernel == "K3-q" else []
+        fused = DB.fused_self_block_q if extra else DB.fused_self_block
+
+        def fn():
+            return torch.cat([t.reshape(-1) for t in fused(
+                x, *selfw, *extra, kc, vc, 67, heads=heads)])
+    else:
+        x, mlp, hd = chip_smoke.k4_inputs(gen, 32, d, 4 * d,
+                                          dtype=torch.float32)
+        args = (x, *hd, *mlp) if kernel == "K4-o" else (x, *mlp)
+        fused = DB.fused_mlp_block_o if kernel == "K4-o" \
+            else DB.fused_mlp_block
+
+        def fn():
+            return fused(*args)
+    first = fn()
+    assert chip_smoke.check_repeats(f"{kernel} float32 H={heads}", fn,
+                                    first, chip_smoke.F32_REPEATS) == \
+        chip_smoke.F32_REPEATS
+
+
+def test_k3_float32_check_sees_a_dropped_rank(cuda):
+    """A planted fault: K3's float32 form at base width (B=32, pos 67) run
+    with rank 1's rows of Wo (head 1's) zeroed computes what a cluster
+    sum that left rank 1's partial out computes; the float32 check
+    rejects it and passes the kernel on the true Wo."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(13)
+    x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 32, 68, 512,
+                                               dtype=torch.float32)
+    assert DB.self_block_f32_plan(32, 8, 68)[0] == 8
+    ref = DB.self_block_plain(x, *selfw, kc, vc, 67, heads=8)[0]
+    tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
+    chip_smoke.check_close("K3 float32", DB.fused_self_block(
+        x, *selfw, kc.clone(), vc.clone(), 67, heads=8)[0], ref, *tol)
+    dropped = list(selfw)
+    dropped[7] = selfw[7].clone()
+    dropped[7][64:128] = 0
+    with pytest.raises(AssertionError, match="K3 float32 rank 1 dropped"):
+        chip_smoke.check_close("K3 float32 rank 1 dropped",
+                               DB.fused_self_block(
+                                   x, *dropped, kc.clone(), vc.clone(), 67,
+                                   heads=8)[0], ref, *tol)
 
 
 def test_k8_reuses_tensor_maps_only_for_the_same_view(cuda):

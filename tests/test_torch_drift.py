@@ -6,9 +6,11 @@ weights.py, and the held-out clips of both tools' stream
 
 * Every float32 row (parity, short_context, mulaw8, int16, int12,
   int8_dec, the mel codecs, fused_enc_f32, and the port's fused_layer,
-  v2 -- JAX's True branch, which JAX turns "v2" into -- and paired) gives
-  JAX's texts clip for clip; int8_enc is held to JAX's row under
-  MAS_ENC_INT8 (its XLA twin of the int8 kernel's arithmetic).
+  v2 -- JAX's True branch, which JAX turns "v2" into -- paired, and the
+  opt-in fused_layer_f32 and v2_f32) gives JAX's texts clip for clip;
+  int8_enc is held to JAX's row under MAS_ENC_INT8 (its XLA twin of the
+  int8 kernel's arithmetic). fused_layer_f32 and v2_f32 give the
+  fused_layer and v2 rows' texts, and on the card decode in float32.
 * bf16 and fused_enc (torch's and XLA's bf16 round differently on the
   CPU) and int8_fused / int8_kv (the port follows its kernels'
   arithmetic, under tests/test_torch_int8_attention.py's guardrail) agree
@@ -48,7 +50,8 @@ CLIPS = 16
 SHORT_S = 1.0     # the test geometry's short context: 1 s clips, 2 s mel
 EXACT_ROWS = ("parity", "short_context", "mulaw8", "int16", "int12",
               "int8_dec", "int8_enc", "mel16", "mel12", "mel8",
-              "fused_enc_f32", "fused_layer", "v2", "paired")
+              "fused_enc_f32", "fused_layer", "v2", "paired",
+              "fused_layer_f32", "v2_f32")
 BOUND_ROWS = ("bf16", "fused_enc", "int8_fused", "int8_kv")
 BOUND_AGREE = 0.875  # of the clips (14 of 16), the port's row = JAX's row
 
@@ -98,7 +101,7 @@ def jax_row(name, jm, waves, monkeypatch):
         return JS.transcribe(jm, waves, fused_encoder=True)
     if name.startswith("mel"):
         return JD.transcribe_hostmel(jm, waves, int(name[3:]))
-    if name in ("fused_layer", "v2"):
+    if name in ("fused_layer", "v2", "fused_layer_f32", "v2_f32"):
         return _jax_transcribe(jm, waves, fused_layer=True)
     if name == "int8_fused":
         return _jax_transcribe(quant, waves, cross_attn="int8_fused")
@@ -148,6 +151,21 @@ def test_float32_row_matches_jax(drift, monkeypatch, name):
     jm, _, waves, _, _, details = drift
     assert details[name]["dtype"] == "torch.float32"
     assert details[name]["texts"] == jax_row(name, jm, waves, monkeypatch)
+
+
+@pytest.mark.parametrize("row,twin", [("fused_layer_f32", "fused_layer"),
+                                      ("v2_f32", "v2")])
+def test_f32_fused_rows_give_their_twins_texts(drift, row, twin):
+    """The opt-in float32 rows of the fused decoder blocks: selected only
+    by name, and on the CPU (where the twins decode at float32 too) the
+    fused_layer / v2 rows' routes and texts, clip for clip."""
+    *_, details = drift
+    assert row not in TD.select_rows() and row not in TD.select_rows(
+        extra=True) and row in TD.select_rows([row])
+    assert details[row]["dtype"] == details[twin]["dtype"] == \
+        "torch.float32"
+    assert details[row]["fused_layer"] == details[twin]["fused_layer"]
+    assert details[row]["texts"] == details[twin]["texts"]
 
 
 @pytest.mark.parametrize("name", BOUND_ROWS)
@@ -272,6 +290,31 @@ def test_chip_drift_phase_on_cpu(drift, monkeypatch, capsys):
         monkeypatch.setattr(TD, "measure", planted)
         with pytest.raises(AssertionError, match=match):
             chip_smoke.drift_phase("cpu", tm, device="cpu")
+
+
+@pytest.mark.parametrize("row,fused", [("fused_layer_f32", True),
+                                       ("v2_f32", "v2")])
+def test_card_decodes_f32_fused_rows_in_float32(row, fused, monkeypatch):
+    """On the card the float32 fused-decoder rows decode in float32 with
+    their fused_layer (the decoder blocks' float32 forms: the symbols by
+    dtype in tests/test_torch_runtime_devices.py::
+    test_k3_k4_form_by_dtype), where fused_layer and v2 take the card's
+    bf16; neither is moved to the CPU."""
+    from multimodal_audio_search_tpu_torch.training import synth
+    seen = {}
+
+    def transcribe(m, waves, **kw):
+        seen.update(kw)
+        return ["t"] * len(waves)
+    monkeypatch.setattr(synth, "transcribe", transcribe)
+    dev = torch.device("cuda")
+    texts, route = TD.decode_row(row, None, np.zeros((2, 8)), dev, SHORT_S)
+    assert texts == ["t", "t"] and seen["device"] == dev
+    assert seen["dtype"] == torch.float32 and seen["fused_layer"] == fused
+    assert route["dtype"] == str(torch.float32)
+    TD.decode_row(row.replace("_f32", ""), None, np.zeros((2, 8)), dev,
+                  SHORT_S)
+    assert seen["dtype"] == torch.bfloat16 and seen["fused_layer"] == fused
 
 
 @pytest.mark.parametrize("modes", [["fused_enc_f32"],

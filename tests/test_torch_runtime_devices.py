@@ -179,6 +179,19 @@ def _launches():
     yield "K4", lambda: decoder_block._launch_mlp(*mlp, 1e-5)
     yield "K4-o", lambda: decoder_block._launch_mlp(
         *mlp, 1e-5, head=(_m(b16, hd, dtype=f32), w, vb))
+    # K3's, K3-q's, K4's and K4-o's float32 forms: every tensor float32
+    x32, w32 = _m(b16, hd, dtype=f32), _m(hd, hd, dtype=f32)
+    self32 = (x32, vf, vf, w32, vf, w32, w32, vf, w32, vf)
+    cache32 = _m(b16, t, hd, dtype=f32)
+    yield "K3 float32", lambda: decoder_block._launch_self(
+        *self32, cache32, cache32, 3, h, 1e-5)
+    yield "K3-q float32", lambda: decoder_block._launch_self(
+        *self32, cache32, cache32, 3, h, 1e-5, tail=(vf, vf, w32, vf))
+    mlp32 = (x32, vf, vf, _m(hd, f, dtype=f32), _m(f, dtype=f32),
+             _m(f, hd, dtype=f32), vf)
+    yield "K4 float32", lambda: decoder_block._launch_mlp(*mlp32, 1e-5)
+    yield "K4-o float32", lambda: decoder_block._launch_mlp(
+        *mlp32, 1e-5, head=(_m(b16, hd, dtype=f32), w32, vf))
     yield "K14", lambda: decoder_block._launch_cross_mlp(
         x, vf, vb, w, vb, w, vb, vf, vb, _m(hd, f), _m(f), _m(f, hd), vb,
         cache, cache, h, 1e-5)
@@ -222,6 +235,8 @@ def test_every_launch_enters_its_tensors_device(fake):
         "mas_single_query_attention_int8_fit", "mas_int8_cached_attention",
         "mas_int8_cached_attention_fit", "mas_decoder_self_block",
         "mas_decoder_self_block_fit", "mas_decoder_mlp_block",
+        "mas_decoder_self_block_f32", "mas_decoder_self_block_f32_fit",
+        "mas_decoder_mlp_block_f32",
         "mas_cross_mlp_block", "mas_cross_mlp_attention_fit",
         "mas_quant_matmul", "mas_quant_matmul_table", "mas_fused_scores",
         "mas_stream_read", "mas_encoder_block_fit"}
@@ -297,6 +312,85 @@ def test_k1_form_by_dtype(fake, dtype, want):
             with pytest.raises(TypeError, match="takes bf16 tensors"):
                 encoder_block._launch_partial(q, q, q, wo, pair_heads=pair)
     assert launched() == ([want] if want else [])
+
+
+@pytest.mark.parametrize("dtype,self_sym,mlp_sym", [
+    (torch.bfloat16, "mas_decoder_self_block", "mas_decoder_mlp_block"),
+    (torch.float32, "mas_decoder_self_block_f32",
+     "mas_decoder_mlp_block_f32"),
+    (torch.float16, None, None)])
+def test_k3_k4_form_by_dtype(fake, dtype, self_sym, mlp_sym):
+    """K3, K3-q, K4 and K4-o launch their bf16 form on bf16 tensors (the
+    layer-norm scales and K4-o's attn float32) and their float32 form
+    (csrc/decoder_block_f32.cu) on float32 tensors, each counted under
+    its kernel's key, and refuse any other dtype, or a mix, before a
+    launch. K3p, K4p and K14 keep to bf16: on float32 they raise, naming
+    why."""
+    lib, _ = fake
+    b, h, t, f = 16, 2, 8, 256
+    hd = h * 64
+    ln = torch.float32 if dtype == torch.bfloat16 else dtype
+    x, vf, vb, w = (_m(b, hd, dtype=dtype), _m(hd, dtype=ln),
+                    _m(hd, dtype=dtype), _m(hd, hd, dtype=dtype))
+    cache = _m(b, t, hd, dtype=dtype)
+    attn = _m(b, hd, dtype=torch.float32 if dtype == torch.bfloat16
+              else dtype)
+    w1, b1, w2 = (_m(hd, f, dtype=dtype), _m(f, dtype=dtype),
+                  _m(f, hd, dtype=dtype))
+
+    def calls(wq=w, fc1=w1):
+        selfw = (x, vf, vb, wq, vb, w, w, vb, w, vb)
+        mlp = (x, vf, vb, fc1, b1, w2, vb)
+        return (
+            ("decoder_self_block", self_sym,
+             lambda: decoder_block._launch_self(*selfw, cache, cache, 3, h,
+                                                1e-5)),
+            ("decoder_self_block_q", self_sym,
+             lambda: decoder_block._launch_self(*selfw, cache, cache, 3, h,
+                                                1e-5, tail=(vf, vb, wq, vb))),
+            ("decoder_mlp_block", mlp_sym,
+             lambda: decoder_block._launch_mlp(*mlp, 1e-5)),
+            ("decoder_mlp_block_o", mlp_sym,
+             lambda: decoder_block._launch_mlp(*mlp, 1e-5,
+                                               head=(attn, wq, vb))))
+    launched = lambda: [c[0] for c in lib.calls                # noqa: E731
+                        if c[0] not in runtime.INIT
+                        and not c[0].endswith("_fit")]
+    for key, want, call in calls():
+        lib.calls.clear()
+        if want is None:
+            with pytest.raises(TypeError, match="bf16 or float32 tensors"):
+                call()
+        else:
+            out = call()
+            out = out[0] if isinstance(out, tuple) else out
+            assert out.dtype == dtype and out.shape == x.shape
+            assert runtime.COUNTS[key] == 1
+        assert launched() == ([want] if want else [])
+    # a weight of the other dtype: refused before any launch
+    other = torch.float32 if dtype != torch.float32 else torch.bfloat16
+    lib.calls.clear()
+    for _, _, call in calls(_m(hd, hd, dtype=other), _m(hd, f, dtype=other)):
+        with pytest.raises(TypeError, match="of one dtype"):
+            call()
+    assert launched() == []
+    if dtype == torch.float32:
+        wr = _m(hd, hd // 2, dtype=dtype)
+        with pytest.raises(TypeError, match="Q5"):      # K3p
+            decoder_block._launch_self(
+                x, vf, vb, wr, _m(hd // 2, dtype=dtype), wr, wr,
+                _m(hd // 2, dtype=dtype), _m(hd // 2, hd, dtype=dtype), vb,
+                _m(b, t, hd // 2, dtype=dtype), _m(b, t, hd // 2,
+                                                   dtype=dtype),
+                3, 1, 1e-5, partial=True)
+        with pytest.raises(TypeError, match="Q5"):      # K4p
+            decoder_block._launch_mlp(x, vf, vb, w1, b1, w2, vb, 1e-5,
+                                      partial=True)
+        with pytest.raises(TypeError, match="no decode step"):   # K14
+            decoder_block._launch_cross_mlp(x, vf, vb, w, vb, w, vb, vf, vb,
+                                            w1, b1, w2, vb, cache, cache, h,
+                                            1e-5)
+        assert launched() == []
 
 
 def test_only_runtime_calls_the_library():

@@ -29,9 +29,10 @@ chain on random-init stand-ins (checkpoint directories -> the engine,
 against the in-memory engine), ``soak`` tools/torch_soak.py's single
 pass and loop against the server, ``dcn`` the multi-process DCN check at
 the JAX tool's size and at 1M rows. ``f32`` is the float32 engine
-(``[f32]``: K1's, K8's and K2's float32 forms at its shapes, then the
-engine at EngineConfig()'s defaults in float32 against the same engine
-with fused_encoder=False).
+(``[f32]``: K1's, K8's and K2's float32 forms, and K3's, K3-q's, K4's and
+K4-o's, at its shapes, then the engine at EngineConfig()'s defaults in
+float32 against the same engine with fused_encoder=False and under
+fast_lossless, and the float32 "v2" decode steps on its batch).
 """
 import os
 import sys

@@ -21,6 +21,9 @@ and holds each row's transcripts to the parity row's:
   * extra rows (by ``--modes`` or ``--extra``), each a DecodeConfig
     option both packages run: fused_layer (K3 + K4), v2 (K3-q + K4-o),
     int8_fused (K5 + K6), int8_kv (K5 + K7), paired (K10)
+  * fused_layer_f32 / v2_f32 (only by ``--modes``) -- fused_layer True /
+    "v2" at float32: K3's and K4's / K3-q's and K4-o's float32 forms on
+    the card, their plain twins on the CPU
 
 Per row: transcript agreement with the parity decode (exact rate, token
 F1) and the exact rate against the generator's captions, as one JSON
@@ -30,11 +33,14 @@ from ``runtime.COUNTS``) goes to stderr as one JSON line, with the
 training's wall seconds.
 
 Dtypes: the float32 rows decode in float32 on every device (on the card
-through K2's float32 form, K8's at T >= 512 and K1's for fused_enc_f32,
-as the TPU kernels take float32); ``bf16`` and ``fused_enc`` in bf16;
-the kernel rows (int8_dec, int8_enc and the extra rows) in the device's
-dtype, float32 on the CPU, where the tests hold them to the JAX rows,
-and bf16 on the card, where their kernels take bf16 only.
+through K2's float32 form, K8's at T >= 512, K1's for fused_enc_f32 and
+the decoder blocks' for fused_layer_f32 and v2_f32, as the TPU kernels
+take float32); ``bf16`` and ``fused_enc`` in bf16; the kernel rows
+(int8_dec, int8_enc and the extra rows) in the device's dtype, float32
+on the CPU, where the tests hold them to the JAX rows, and bf16 on the
+card: there int8_dec, int8_enc, int8_fused, int8_kv and paired take
+kernels that take bf16 only, and fused_layer and v2 run as a bf16 engine
+runs them beside their float32 rows.
 
     python3 tools/torch_synth_drift.py [--steps 600] [--clips 64] [--out f.json]
     python3 tools/torch_synth_drift.py --production \\
@@ -65,9 +71,11 @@ import torch  # noqa: E402
 ROWS = ("parity", "short_context", "mulaw8", "int16", "int12", "bf16",
         "int8_dec", "int8_enc", "fused_enc", "fused_enc_f32", "mel16",
         "mel12", "mel8")
-OPT_IN = ("fused_enc_f32",)
 # the port's rows, each a DecodeConfig option both packages run
-EXTRA_ROWS = ("fused_layer", "v2", "int8_fused", "int8_kv", "paired")
+EXTRA_ROWS = ("fused_layer", "v2", "int8_fused", "int8_kv", "paired",
+              "fused_layer_f32", "v2_f32")
+# rows run only when named (--modes)
+OPT_IN = ("fused_enc_f32", "fused_layer_f32", "v2_f32")
 
 
 def token_f1(a: str, b: str) -> float:
@@ -171,8 +179,9 @@ def short_context_seconds(clip_seconds: float, mel_seconds: float) -> float:
 
 def select_rows(modes=None, extra: bool = False) -> list[str]:
     """The rows to run, parity first: ``modes`` (names) or
-    every row of the JAX tool but its opt-in ones, plus EXTRA_ROWS with
-    ``extra``. Raises SystemExit on an unknown row."""
+    every row of the JAX tool but the opt-in ones, plus EXTRA_ROWS but
+    the opt-in ones with ``extra``. Raises SystemExit on an unknown
+    row."""
     known = ROWS + EXTRA_ROWS
     unknown = set(modes or ()) - set(known)
     if unknown:
@@ -180,7 +189,7 @@ def select_rows(modes=None, extra: bool = False) -> list[str]:
                          f"choose from {known}")
     want = set(modes) if modes else {r for r in ROWS if r not in OPT_IN}
     if extra:
-        want |= set(EXTRA_ROWS)
+        want |= {r for r in EXTRA_ROWS if r not in OPT_IN}
     return ["parity"] + [r for r in known if r in want and r != "parity"]
 
 
@@ -219,6 +228,8 @@ def decode_row(name: str, model, waves: np.ndarray, device,
         fused = True
     elif name in ("fused_layer", "v2"):
         dtype, kw["fused_layer"] = kernels, "v2" if name == "v2" else True
+    elif name in ("fused_layer_f32", "v2_f32"):
+        kw["fused_layer"] = "v2" if name == "v2_f32" else True
     elif name.startswith("mel"):
         texts = transcribe_hostmel(model, waves, int(name[3:]), dev)
         return texts, {"dtype": str(f32), "device": str(dev),
@@ -325,7 +336,8 @@ def main(argv=None) -> None:
                     help="measure only these rows (parity is always "
                          "computed as the baseline)")
     ap.add_argument("--extra", action="store_true",
-                    help="also the port's rows: " + ", ".join(EXTRA_ROWS))
+                    help="also the port's rows: " + ", ".join(
+                        r for r in EXTRA_ROWS if r not in OPT_IN))
     ap.add_argument("--production", action="store_true",
                     help="the production geometry: whisper-tiny preset, "
                          "10 s clips, full 30 s mel context, up to 6 "
