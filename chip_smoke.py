@@ -112,6 +112,17 @@ Phases, one line each (``[phase] ...``):
    step; then the float32 "v2" path on its batch (f32_v2_step_check:
    the prompt's decode steps under "v2", K3-q f32, K4-o f32 and K2 f32
    counted, logits within F32_STEP_LOGITS_REL of the unfused steps').
+   Then the int8 decoder on float32 (f32_int8_kernel_checks): K5's
+   float32 forms at the float32 twins of K5_SHAPES (F32_BLOCK_ATOL /
+   RTOL; every bound at the lesser of FFMA and two TF32 products), K6's
+   and K7's at B=32, T=1500, H=8 and 6 (F32_INT8_ATT_MAX / L2, which a
+   planted q fault must fail), each with F32_REPEATS launches bit-equal,
+   ms, queued ms, plain ms and bound; and the float32 engine with
+   quantize_decoder under "int8_fused" and "int8" (launches =
+   expected_launches, own segment first, texts beside the K1 engine's,
+   warm ingest rate, the first decode step within F32_INT8_STEP_MAX of
+   the same step on the plain versions, which the step with a planted q
+   fault must fail: f32_int8_step_check).
 4b. the transfer codecs (``[codecs]``, after the engines): CODEC_PATHS
    (``fast`` = mulaw8 + short_context + bf16 index, ``fast`` with mel8,
    ``fast_lossless`` with mel16 and with mel12, the default with int12),
@@ -170,13 +181,13 @@ Phases, one line each (``[phase] ...``):
    MiniLM-L6 (384-D) that ingests (own segment first),
    10 ingest/delete cycles (VmRSS slope over cycles 6-10 <=
    RSS_SLOPE_MAX_MB), then the CLI (``python -m
-   multimodal_audio_search_tpu_torch`` ingest, search, search
-   --strategy, delete, stats) as subprocesses on one --index. Request
+   multimodal_audio_search_tpu_torch`` ingest, search --strategy,
+   delete, stats) as subprocesses on one --index. Request
    wall times are printed beside the card.
 
 9. beyond-memory search (``[ann]``, after 6): tools/torch_bench_ivf.py's
    run() at ANN_ROWS = 500k segments of MiniLM width (D=384; the tool
-   alone runs 1M, and [mesh] and [dcn] search 1M), which runs no kernel
+   alone runs 1M, and [mesh] searches 1M), which runs no kernel
    (every launch count stays 0): IVF's build stages, exact and IVF query
    p50 at n_probe 4-64 with recall@10, the host index written in float32
    / bfloat16 / int8 to a temporary directory (~2.7 GB) and streamed
@@ -290,8 +301,9 @@ Phases, one line each (``[phase] ...``):
    nothing): train_synth_check's captioner measured by
    tools/torch_synth_drift.py (its ``measure``) on DRIFT_CLIPS held-out
    clips from their own generator, every row of the tool (its opt-in
-   fused_enc_f32, fused_layer_f32 and v2_f32, the float32 forms of K1,
-   K3 + K4 and K3-q + K4-o, included); one line a row with its
+   fused_enc_f32, fused_layer_f32, v2_f32 and int8_dec_f32 /
+   int8_fused_f32 / int8_kv_f32, the float32 forms of K1, K3 + K4, K3-q
+   + K4-o and K5 (+ K6 / K7), included); one line a row with its
    agreement with the parity row (exact, token F1), its exact rate
    against the truth, its dtype and the launches it made by kernel. Each lever row must launch its lever's
    kernels (DRIFT_LEVERS), the float32 parity row none of them (and K2's
@@ -300,8 +312,8 @@ Phases, one line each (``[phase] ...``):
    DRIFT_LEVER_AGREE of the clips, int16 must give the parity row's
    texts, every text must be in the grammar. On the card the kernels at
    the rows' shapes are held against their plain versions
-   (drift_kernel_checks: K2's and K8's float32 forms, K6, K7 and K9 at
-   100 keys / T=100).
+   (drift_kernel_checks: K2's and K8's float32 forms, K6 and K7 and their
+   float32 forms, and K9 at 100 keys / T=100).
    Then tools/torch_bigindex_drift.py at DRIFT_BIG_N rows (D=384; ~1.5 GB
    of temporary files, removed): the bf16 and int8 host indexes' recall@10
    against float32's must meet DRIFT_RECALL_FLOOR.
@@ -328,20 +340,23 @@ Phases, one line each (``[phase] ...``):
 
 17. multi-process DCN (``[dcn]``, after 11): tools/torch_multiprocess_
    dcn_check.py with two processes in one Gloo group, each naming the card
-   twice, at each of DCN_RUNS (the JAX tool's 512 x 2 x 64, then 1M x 2 x
-   384): the hierarchical sharded top-k and a data-parallel gradient summed
+   twice, at each of DCN_RUNS (the JAX tool's 512 x 2 x 64, then 50k x 2
+   x 384, the engine's width; the script's time pays for no 1M-row run,
+   which the tool alone runs with --rows):
+   the hierarchical sharded top-k and a data-parallel gradient summed
    across the processes, each against the process's single-device
    computation; both MPDCN_OK lines and ALL OK required.
 
 The line before the last two is the card (nvidia-smi), then the kernels
 JSON object (K1-K14, then K9p and K10p, then the float32 forms of K1,
-K2, K8, K3, K3-q, K4 and K4-o), the last line ``{"ok": true, "device":
+K2, K8, K3, K3-q, K4, K4-o, K5, K6 and K7), the last line ``{"ok": true, "device":
 {...}}``. ``[seconds]`` prints each phase's wall seconds; [ann] runs at
 ANN_ROWS (half the IVF tool's 1M) to pay for [f32]'s decoder parts.
 Any failure raises (exit code != 0).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -451,9 +466,12 @@ LOGITS_ERR_REL = 2e-2
 # the steps, relative to their max.
 FUSED_LOGITS_ERR_REL = 2e-2
 # K5 (int8 weights): every product of a bf16 x with an int8 code is exact
-# in float32, so kernel and plain version differ only in the order of
-# their float32 sums: elementwise within K5_ATOL of max |ref| + K5_RTOL
-# relative; a bf16 output may round one bf16 step apart (2^-7 = 7.8e-3).
+# in float32 (8 + 7 significant bits), so kernel and plain version differ
+# only in the order of their float32 sums: elementwise within K5_ATOL of
+# max |ref| + K5_RTOL relative; a bf16 output may round one bf16 step
+# apart (2^-7 = 7.8e-3). (A float32 x's product is not exact, 24 + 7 bits:
+# the float32 form rounds it as the plain version does, in another order;
+# [f32] holds that form at F32_BLOCK_ATOL / RTOL.)
 # Planted faults -- the last, partial column tile of N = 51865 left out,
 # or the scale indexed by row -- are off by 100 % and ~50 % of a value
 # (tests/test_torch_quant.py).
@@ -554,13 +572,15 @@ def bound(nbytes: float, **ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def f32_bound(nbytes: float, flops: float) -> dict:
+def f32_bound(nbytes: float, flops: float, products: int = 3) -> dict:
     """bound() of a float32 kernel's function: the lesser of its float32
-    operations on the CUDA cores and of three TF32 products each on the
-    tensor cores (3xTF32, the float32 forms' arithmetic: csrc/tf32x3.cuh);
-    ``bound_rate`` names the one taken ("f32" or "3xtf32")."""
+    operations on the CUDA cores and of ``products`` TF32 products each on
+    the tensor cores (3xTF32, the float32 forms' arithmetic:
+    csrc/tf32x3.cuh; 2 where one operand is exact in TF32, as K5's int8
+    codes are); ``bound_rate`` names the one taken ("f32", "3xtf32" or
+    "2xtf32")."""
     by_rate = {"f32": bound(nbytes, f32=flops),
-               "3xtf32": bound(nbytes, tf32=3 * flops)}
+               f"{products}xtf32": bound(nbytes, tf32=products * flops)}
     rate = min(by_rate, key=lambda r: by_rate[r]["bound_ms"])
     return {**by_rate[rate], "bound_rate": rate}
 
@@ -964,17 +984,18 @@ def decoder_kernel_phase(card: str, gen: torch.Generator) -> list[dict]:
 
 
 def k5_inputs(gen: torch.Generator, m: int, k: int, n: int, *, bias=True,
-              device="cuda"):
-    """K5's inputs: x [M, K] bf16 ~ N(0, 1); int8 codes [K, N] uniform in
-    [-127, 127]; per-column scales spread over 0.5-1.5 / (127 sqrt(K)),
-    so a scale read from the wrong index shows; a bf16 bias at 0.1 N(0, 1)
-    or None."""
-    x = torch.randn(m, k, generator=gen).to(device, torch.bfloat16)
+              device="cuda", dtype=torch.bfloat16):
+    """K5's inputs: x [M, K] ~ N(0, 1) in ``dtype`` (bf16, or float32 for
+    the float32 form); int8 codes [K, N] uniform in [-127, 127];
+    per-column scales spread over 0.5-1.5 / (127 sqrt(K)), so a scale read
+    from the wrong index shows; a bias in ``dtype`` at 0.1 N(0, 1) or
+    None."""
+    x = torch.randn(m, k, generator=gen).to(device, dtype)
     wq = torch.randint(-127, 128, (k, n), generator=gen,
                        dtype=torch.int8).to(device)
     scale = ((0.5 + torch.rand(n, generator=gen))
              / (127 * math.sqrt(k))).to(device)
-    b = (torch.randn(n, generator=gen) * 0.1).to(device, torch.bfloat16) \
+    b = (torch.randn(n, generator=gen) * 0.1).to(device, dtype) \
         if bias else None
     return x, wq, scale, b
 
@@ -1021,26 +1042,28 @@ def check_k5(name, got, ref) -> float:
 
 
 def k6_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
-              device="cuda"):
+              device="cuda", dtype=torch.bfloat16):
     """K6's inputs as the int8_fused decode step hands them over: the
-    cross query [B, H*64] bf16 ~ N(0, 1), and merged-head K/V ~ N(0, 1)
-    quantized by quantize_kv_merged (int8 [B, T, H*64], scales [B, T, H])."""
+    cross query [B, H*64] ~ N(0, 1) in ``dtype`` (bf16, or float32 for the
+    float32 form), and merged-head K/V ~ N(0, 1) in ``dtype`` quantized
+    by quantize_kv_merged (int8 [B, T, H*64], scales [B, T, H])."""
     from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
     hd = heads * 64
-    q = torch.randn(b, hd, generator=gen).to(device, torch.bfloat16)
-    k, v = (torch.randn(b, t, hd, generator=gen).to(device, torch.bfloat16)
+    q = torch.randn(b, hd, generator=gen).to(device, dtype)
+    k, v = (torch.randn(b, t, hd, generator=gen).to(device, dtype)
             for _ in range(2))
     return (q, *CX.quantize_kv_merged(k, v, heads))
 
 
 def k7_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
-              device="cuda"):
+              device="cuda", dtype=torch.bfloat16):
     """K7's inputs as the int8 decode step hands them over: q [B, H, 64]
-    bf16 ~ N(0, 1), K/V [B, H, T, 64] ~ N(0, 1) quantized by quantize_kv."""
+    ~ N(0, 1) in ``dtype`` (bf16, or float32 for the float32 form), K/V
+    [B, H, T, 64] ~ N(0, 1) in ``dtype`` quantized by quantize_kv."""
     from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
-    q = torch.randn(b, heads, 64, generator=gen).to(device, torch.bfloat16)
-    k, v = (torch.randn(b, heads, t, 64, generator=gen).to(
-        device, torch.bfloat16) for _ in range(2))
+    q = torch.randn(b, heads, 64, generator=gen).to(device, dtype)
+    k, v = (torch.randn(b, heads, t, 64, generator=gen).to(device, dtype)
+            for _ in range(2))
     return (q, *CA.quantize_kv(k, v))
 
 
@@ -2012,6 +2035,37 @@ def expected_launches(fused, int8, steps, disp, asr, cap, enc=None) -> dict:
     return exp
 
 
+def self_query(label: str, texts) -> tuple[int, bool]:
+    """The self-retrieval query of an engine's stored ASR ``texts``: the
+    first segment whose text no other segment has, else the first with a
+    text. Returns (its index, whether its text is unique)."""
+    if not texts:
+        raise AssertionError(f"{label}: no segment survived validation")
+    unique = [i for i, tx in enumerate(texts) if tx and texts.count(tx) == 1]
+    own = unique[0] if unique else next(i for i, tx in enumerate(texts) if tx)
+    return own, bool(unique)
+
+
+def check_self_hit(label: str, hits, texts, own: int, unique: bool):
+    """The self-retrieval query's hits: segment ``own`` first (a segment
+    of its text where no text is unique), at cosine > 0.999. Returns the
+    top hit."""
+    if not hits:
+        raise AssertionError(f"{label}: self-retrieval query returned no hit")
+    top = hits[0]
+    if unique:
+        if top["index"] != own:
+            raise AssertionError(
+                f"{label}: own segment {own} not first: "
+                f"{[h['index'] for h in hits]}")
+    elif top["asr_text"] != texts[own]:
+        raise AssertionError(f"{label}: no unique ASR text, and the top hit "
+                             f"does not even share the query's text")
+    if not top["asr_similarity"] > 0.999:
+        raise AssertionError(f"{label}: self cosine {top['asr_similarity']}")
+    return top
+
+
 def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
                  fused, int8, enc, clips, ref_texts=None, cfg=None):
     """Build the engine of one ENGINE_PATHS entry (or of ``cfg``) on cuda,
@@ -2061,13 +2115,8 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     ingest_s = time.perf_counter() - t0
     queries = []
     texts = [m["asr_text"] for m in eng.store.meta]
-    if not texts:
-        raise AssertionError(f"{label}: no segment survived validation")
-    # the query: the ASR text of an ingested segment, unique if any is
+    own, unique = self_query(label, texts)
     counts_by_text = {tx: texts.count(tx) for tx in texts}
-    unique = [i for i, tx in enumerate(texts) if counts_by_text[tx] == 1
-              and tx]
-    own = unique[0] if unique else next(i for i, tx in enumerate(texts) if tx)
     queries.append(texts[own])
     queries += ["upbeat music with drums", "someone speaking clearly",
                 "rain and birds in the background"]
@@ -2087,19 +2136,7 @@ def engine_phase(card: str, rng: np.random.Generator, label: str, profile,
     if counts != exp or not all(counts[k] > 0 for k in exp if exp[k]):
         raise AssertionError(f"{label}: launches {counts} != expected {exp}")
     # ---- self-retrieval
-    if not hits0:
-        raise AssertionError(f"{label}: self-retrieval query returned no hit")
-    top = hits0[0]
-    if unique:
-        if top["index"] != own:
-            raise AssertionError(
-                f"{label}: own segment {own} not first: "
-                f"{[h['index'] for h in hits0]}")
-    elif top["asr_text"] != texts[own]:
-        raise AssertionError(f"{label}: no unique ASR text, and the top hit "
-                             f"does not even share the query's text")
-    if not top["asr_similarity"] > 0.999:
-        raise AssertionError(f"{label}: self cosine {top['asr_similarity']}")
+    top = check_self_hit(label, hits0, texts, own, unique)
     by_seg = {(m["source"], m["start_time"]): m["asr_text"]
               for m in eng.store.meta}
     same = None
@@ -2285,6 +2322,67 @@ def encoder_reference_check(asr, rng: np.random.Generator, enc) -> None:
             f"and finite values ok: {ok}")
 
 
+def first_decode_steps(asr, rng: np.random.Generator, runs: dict) -> tuple:
+    """``asr``'s model on 8 distinct 10 s segments: the encoder once, then
+    for each of ``runs`` (label: (a context manager's factory, the cross
+    K/V function)) the cross K/V and the first decode step inside that
+    context, with the launches each made. Returns (logits by label,
+    launches by label, the encoder states)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
+    dev, b = asr.device, 8
+    logits, counts = {}, {}
+    with torch.inference_mode():
+        x = make_audio(10 * b, rng).reshape(b, -1)
+        w = torch.nn.functional.pad(
+            torch.as_tensor(x, device=dev),
+            (0, asr.mel_cfg.n_samples - x.shape[1]))
+        enc = W.encode(asr.params, log_mel_spectrogram(w, asr.mel_cfg)
+                       .to(asr.dtype), asr.cfg, fused_blocks=True)
+        tok = torch.full((b,), asr.cfg.bos_token_id, device=dev)
+        for label, (context, ckv_of) in runs.items():
+            _sync(dev)
+            before = dict(runtime.COUNTS)
+            with context():
+                logits[label] = W.decode_step(
+                    asr.params, tok, 0,
+                    W.init_cache(asr.cfg, b, 4, asr.dtype, dev),
+                    ckv_of(asr.params, enc, asr.cfg), asr.cfg)
+            _sync(dev)
+            counts[label] = {k: runtime.COUNTS[v] - before[v]
+                             for k, v in KEYS.items()}
+    return logits, counts, enc
+
+
+def step_reading(got: torch.Tensor, ref: torch.Tensor, vocab: int) -> dict:
+    """A first decode step's logits against a reference step's: max |err|
+    as a share of the reference's span, argmax agreement, and whether
+    ``got`` is [8, vocab] and finite."""
+    span = float(ref.max() - ref.min())
+    return {"first_step_err_of_span": float((got - ref).abs().max()) / span,
+            "logits_span": span,
+            "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1))
+                                      .float().mean()),
+            "shapes_finite_ok": tuple(got.shape) == (8, vocab)
+            and bool(torch.isfinite(got).all())}
+
+
+def check_step(name: str, r: dict, span_max: float, agree_min: float,
+               against: str) -> None:
+    """Raises unless step_reading ``r`` has the right shape and finite
+    values, max |err| under ``span_max`` of the span and argmax agreement
+    at least ``agree_min``."""
+    if not r["shapes_finite_ok"]:
+        raise AssertionError(f"{name}: wrong shape or non-finite values")
+    rel, agree = r["first_step_err_of_span"], r["argmax_agreement"]
+    if not (rel < span_max and agree >= agree_min):
+        raise AssertionError(
+            f"{name}: first step {rel:.3e} of the logits' span (limit "
+            f"{span_max}), argmax agreement {agree} (limit {agree_min}) "
+            f"against {against}")
+
+
 def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
     """An int8 engine's ASR model (quantized decoder) on 8 distinct 10 s
     segments: the first decode step over its int8 cross K/V (K6 or K7)
@@ -2294,41 +2392,22 @@ def int8_reference_check(asr, rng: np.random.Generator, mode: str) -> None:
     take K5 for every dense layer and the logits."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.models.generate import generate
-    from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
-    dev, b = asr.device, 8
+    null = contextlib.nullcontext
+    logits, _, enc = first_decode_steps(asr, rng, {
+        "int8": (null, W.cross_kv_merged_int8 if mode == "int8_fused"
+                 else W.cross_kv_quantized),
+        "bf16": (null, W.cross_kv)})
+    b = enc.shape[0]
     with torch.inference_mode():
-        x = make_audio(10 * b, rng).reshape(b, -1)
-        w = torch.nn.functional.pad(
-            torch.as_tensor(x, device=dev),
-            (0, asr.mel_cfg.n_samples - x.shape[1]))
-        enc = W.encode(asr.params, log_mel_spectrogram(w, asr.mel_cfg)
-                       .to(asr.dtype), asr.cfg, fused_blocks=True)
-        ckv_q = (W.cross_kv_merged_int8 if mode == "int8_fused"
-                 else W.cross_kv_quantized)(asr.params, enc, asr.cfg)
-        ckv_e = W.cross_kv(asr.params, enc, asr.cfg)
-        tok = torch.full((b,), asr.cfg.bos_token_id, device=dev)
-        lq, le = (W.decode_step(asr.params, tok, 0,
-                                W.init_cache(asr.cfg, b, 4, asr.dtype, dev),
-                                ckv, asr.cfg) for ckv in (ckv_q, ckv_e))
-        prefix = torch.tensor([asr.prefix_ids] * b, device=dev)
+        prefix = torch.tensor([asr.prefix_ids] * b, device=asr.device)
         out = generate(asr.params, enc, prefix, cfg=asr.cfg,
                        decode=asr.decode, max_new_tokens=8)
-    span = float(le.max() - le.min())
-    rel = float((lq - le).abs().max()) / span
-    agree = float((lq.argmax(-1) == le.argmax(-1)).float().mean())
-    ok = (tuple(lq.shape) == (b, asr.cfg.vocab_size)
-          and tuple(out.tokens.shape) == (b, len(asr.prefix_ids) + 8)
-          and bool(torch.isfinite(lq).all() and torch.isfinite(enc).all()))
-    phase("engine", path=mode, step="int8 reference",
-          first_step_err_of_span=rel, logits_span=span,
-          argmax_agreement=agree, shapes_finite_ok=ok)
-    if not ok:
-        raise AssertionError(f"{mode}: wrong shape or non-finite values")
-    if not (rel < INT8_SPAN_MAX and agree >= INT8_AGREE_MIN):
-        raise AssertionError(
-            f"{mode}: first step {rel:.3e} of the logits' span (limit "
-            f"{INT8_SPAN_MAX}), argmax agreement {agree} (limit "
-            f"{INT8_AGREE_MIN}) against bf16 cross K/V")
+    r = step_reading(logits["int8"], logits["bf16"], asr.cfg.vocab_size)
+    r["shapes_finite_ok"] = r["shapes_finite_ok"] and (
+        tuple(out.tokens.shape) == (b, len(asr.prefix_ids) + 8)
+        and bool(torch.isfinite(enc).all()))
+    phase("engine", path=mode, step="int8 reference", **r)
+    check_step(mode, r, INT8_SPAN_MAX, INT8_AGREE_MIN, "bf16 cross K/V")
 
 
 # the reference-parity decode engines ([parity]): (label, profile, fused).
@@ -3607,9 +3686,10 @@ def service_phase(card: str, rng: np.random.Generator,
     n = len(SegmentStore.load(idx))
     if f"2 file(s): {n} segments (index total {n})" not in out:
         raise AssertionError(f"service CLI ingest: {out!r}, {n} stored")
-    res = json.loads(cli("search", "upbeat music with drums")[0])
-    strat = json.loads(cli("search", "upbeat music with drums",
-                           "--strategy", "fixed_5050")[0])
+    # one search process, with --strategy (a search without it costs a
+    # process, ~13 s, for no other code: the script's time limit)
+    res = strat = json.loads(cli("search", "upbeat music with drums",
+                                 "--strategy", "fixed_5050")[0])
     removed = sum(m["source"] == files[0]
                   for m in SegmentStore.load(idx).meta)
     out_del = cli("delete", files[0])[0]
@@ -5635,9 +5715,11 @@ DRIFT_LEVERS = {"fused_enc": ("K1",), "fused_enc_f32": ("K1",),
                 "int8_fused": ("K5", "K6"), "int8_kv": ("K5", "K7"),
                 "fused_layer": ("K3", "K4"), "v2": ("K3-q", "K4-o"),
                 "fused_layer_f32": ("K3", "K4"),
-                "v2_f32": ("K3-q", "K4-o")}
+                "v2_f32": ("K3-q", "K4-o"), "int8_dec_f32": ("K5",),
+                "int8_fused_f32": ("K5", "K6"), "int8_kv_f32": ("K5", "K7")}
 # the lever rows in float32 on the card, held to the float32 parity row
-DRIFT_F32_ROWS = ("fused_enc_f32", "fused_layer_f32", "v2_f32")
+DRIFT_F32_ROWS = ("fused_enc_f32", "fused_layer_f32", "v2_f32",
+                  "int8_dec_f32", "int8_fused_f32", "int8_kv_f32")
 
 
 def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int):
@@ -5894,6 +5976,152 @@ def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
     return list(out.values())
 
 
+# [f32]'s int8 decoder kernels: K5's, K6's and K7's float32 forms at the
+# float32 int8 engines' shapes. K5 at the float32 twins of K5_SHAPES (x and
+# bias float32, float32 out, as a float32 engine calls it) is held
+# elementwise at F32_BLOCK_ATOL / RTOL: its products round in float32, as
+# the plain version's do, in another order (the 2xTF32 wide kernel drops
+# 2^-21 of x and sums 64-deep tiles toward zero: at most 5.0e-6 over its
+# 24.6M outputs on an H100).
+# K6 and K7 at B=F32_B, T=F32_T, F32_WIDTHS (K6 also at K6_POS) are held
+# to F32_INT8_ATT_MAX / L2, relative as check_rel reads them. Kernel and
+# plain version read the same float32 q and make the same q codes (K6:
+# B6's true division) or bf16 values (K7: B7's rounding to nearest), then
+# differ in exp and the order of float32 sums, so a weighted probability
+# crosses a rounding boundary of its code (K6) or of bf16 (K7) rarely.
+# Sound readings: on an H100 80GB HBM3 at 700 W at most 2.0e-7 / 7.1e-8
+# (K6) and 3.6e-5 / 2.9e-6 (K7 base: a bf16 crossing); K7's float64
+# emulation at B=8 2.0e-4 / 3.5e-5 (INT8_ATT_MAX's note). The limits are
+# 5x and 3x the largest, a tenth and a twentieth of INT8_ATT_MAX / L2.
+# Planted faults, from the plain versions at the same shapes
+# (fault_reading, each run), read: K6 with q rounded to bf16 before its
+# division (q_bf16_plain_k6) 2.0e-2-2.8e-2 / 1.6e-2-1.8e-2; K7 with q
+# left in float32 (q_f32_plain_k7) 4.2e-3-5.0e-3 / 2.7e-3-2.8e-3, whose
+# max INT8_ATT_MAX passes.
+F32_INT8_ATT_MAX, F32_INT8_ATT_L2 = 1e-3, 1e-4
+# A float32 int8 engine's first decode step against the same step on K5's,
+# K6's and K7's plain versions: max |err| within F32_INT8_STEP_MAX of the
+# plain step's span (sound runs on an H100 80GB HBM3 at 700 W: 1.5e-6-
+# 2.3e-6); the step with the attention's planted q fault must read beyond
+# it (on the CPU test engine, 2 layers of D=128: K6's 1.3e-4, K7's 2.7e-5).
+F32_INT8_STEP_MAX = 1e-5
+
+
+def f32_int8_kernel_checks(card: str, gen: torch.Generator) -> list[dict]:
+    """K5's (every K5_SHAPES case in float32), K6's and K7's float32 forms
+    against their plain versions on the card (K6 / K7 within
+    F32_INT8_ATT_MAX / L2, and their planted q faults' readings beyond
+    them: fault_reading), each with F32_REPEATS more launches bit-equal,
+    ms (CUDA events), queued ms (20 calls behind a sleep kernel), plain
+    ms, bound and the library call's ms (K5: torch._weight_int8pack_mm on
+    float32 where the card's torch runs it). Returns the three kernels'
+    entries for the kernels line."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
+    pkg, jx = "multimodal_audio_search_tpu_torch/csrc", \
+        "multimodal_audio_search_tpu/ops"
+    k5 = {"name": "quant_matmul_f32", "route": "cuda",
+          "source": f"{pkg}/quant_matmul.cu", "replaces": f"{jx}/quant.py:113",
+          "cases": []}
+    k6 = {"name": "single_query_attention_int8_f32", "route": "cuda",
+          "source": f"{pkg}/cross_attention_int8.cu",
+          "replaces": f"{jx}/cross_attention.py:329", "cases": []}
+    k7 = {"name": "int8_cached_attention_f32", "route": "cuda",
+          "source": f"{pkg}/cached_attention.cu",
+          "replaces": f"{jx}/cached_attention.py:90", "cases": []}
+    f32 = torch.float32
+    tol = [F32_BLOCK_ATOL, F32_BLOCK_RTOL]
+    for m, k, n, _, bias in K5_SHAPES:
+        x, wq, scale, b = k5_inputs(gen, m, k, n, bias=bias, dtype=f32)
+        p = {"wq": wq, "scale": scale, **({"b": b} if bias else {})}
+        regime = k5_regime(m, n)
+        if regime == "logits":  # the table as the model on the card holds it
+            p = Q.logits_table(p)
+        fn = (lambda: Q.quant_dense_apply(p, x))
+        plain = (lambda: k5_plain(x, wq, scale, b, f32))
+        got = fn()
+        torch.cuda.synchronize()
+        name = f"K5 float32 {m}x{k}x{n}"
+        plan = {"kernel": "table"} if "wq_t" in p else dict(zip(
+            ("kernel", "bn", "splits", "steps"), Q.split_plan(
+                m, k, n, wave=torch.cuda.get_device_properties(
+                    x.device).multi_processor_count, f32=True)))
+        case = {"shape": f"M={m} K={k} N={n} out=f32 bias={bias} "
+                         f"regime={regime}", "plan": plan,
+                "max_abs_err": check_close(name, got, plain(), *tol),
+                "repeats_equal": check_repeats(name, fn, got, F32_REPEATS),
+                "ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                "plain_ms": time_ms(plain),
+                # every regime at the lesser of FFMA and two TF32
+                # products (the codes are exact in TF32)
+                **f32_bound(nbytes(x, wq, scale, b, got), 2 * m * k * n,
+                            products=2)}
+        case["tflops"] = 2 * m * k * n / case["queued_ms"] / 1e9
+        lib, why = k5_library(x, wq, scale)
+        case["library_ms"] = time_ms(lib) if lib else None
+        if not lib:
+            case["library"] = why
+        k5["cases"].append(case)
+        phase("f32", card=card, kernel="K5 float32", tol=tol, **case)
+        del x, wq, scale, b, p, got, lib
+    torch.cuda.empty_cache()
+    b, t = F32_B, F32_T
+    lim = (F32_INT8_ATT_MAX, F32_INT8_ATT_L2)
+    att_tol = dict(zip(("max", "l2"), lim))
+    for label, heads in F32_WIDTHS:
+        args = k6_inputs(gen, b, t, heads, dtype=f32)
+        for pos in (None, K6_POS):
+            fn = (lambda: CX.fused_single_query_attention_int8(
+                *args, heads=heads, pos=pos))
+            plain = (lambda: CX.single_query_attention_int8_plain(
+                *args, heads=heads, pos=pos))
+            got = fn()
+            torch.cuda.synchronize()
+            name = f"K6 float32 {label} pos={pos}"
+            keys = t if pos is None else pos + 1
+            ref = plain()
+            case = {"shape": f"{label} B={b} T={t} H={heads} pos={pos}",
+                    "plan": CX.int8_plan(keys, heads, b,
+                                         CX._fit_int8(got.device)),
+                    **check_rel(name, got, ref, *lim),
+                    "q_bf16_fault": fault_reading(
+                        name, q_bf16_plain_k6(*args, heads=heads, pos=pos),
+                        ref, *lim),
+                    "repeats_equal": check_repeats(name, fn, got,
+                                                   F32_REPEATS),
+                    "ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                    "plain_ms": time_ms(plain), "library_ms": None,
+                    **bound(nbytes(args[0], got)
+                            + 2 * b * keys * heads * (64 + 4),
+                            int8=4 * b * keys * heads * 64)}
+            k6["cases"].append(case)
+            phase("f32", card=card, kernel="K6 float32", tol=att_tol, **case)
+        args = k7_inputs(gen, b, t, heads, dtype=f32)
+        fn = (lambda: CA.int8_cached_attention(*args))
+        plain = (lambda: CA.int8_cached_attention_plain(*args))
+        got = fn()
+        torch.cuda.synchronize()
+        name = f"K7 float32 {label}"
+        ref = plain()
+        case = {"shape": f"{label} B={b} T={t} H={heads}",
+                "plan": CA.cluster_plan(t, None, b * heads,
+                                        CA._fit(args[0].device)),
+                **check_rel(name, got, ref, *lim),
+                "q_f32_fault": fault_reading(name, q_f32_plain_k7(*args),
+                                             ref, *lim),
+                "repeats_equal": check_repeats(name, fn, got, F32_REPEATS),
+                "ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                "plain_ms": time_ms(plain), "library_ms": None,
+                **bound(nbytes(*args, got), int8=4 * b * t * heads * 64)}
+        k7["cases"].append(case)
+        phase("f32", card=card, kernel="K7 float32", tol=att_tol, **case)
+        del args, got, ref
+    torch.cuda.empty_cache()
+    return [k5, k6, k7]
+
+
 def f32_margin_check(card: str, eng, clip, texts: dict, ref: dict,
                      device="cuda") -> dict:
     """The fast_lossless float32 engine's texts (``texts``, by segment)
@@ -6004,11 +6232,123 @@ def f32_v2_step_check(card: str, eng, clip, device="cuda") -> dict:
     return out
 
 
+def q_bf16_plain_k6(q_m, *args, **kw) -> torch.Tensor:
+    """K6's plain version with a planted fault: q rounded to bf16 before
+    B6's division (the float32 form must quantize the float32 q)."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    return CX.single_query_attention_int8_plain(
+        q_m.to(torch.bfloat16).float(), *args, **kw)
+
+
+def q_f32_plain_k7(q, k8, ks, v8, vs) -> torch.Tensor:
+    """K7's plain version with a planted fault: q left in float32 where B7
+    rounds it to bf16."""
+    logits = torch.einsum("bhd,bhtd->bht", q.float(), k8.float()) \
+        * ks.float() * (1.0 / math.sqrt(q.shape[-1]))
+    p = torch.softmax(logits, dim=-1)
+    pw = (p * vs.float()).to(torch.bfloat16).float()
+    return torch.einsum("bht,bhtd->bhd", pw, v8.float())
+
+
+def fault_reading(name: str, bad, ref, max_lim: float, l2_lim: float) -> dict:
+    """A planted fault's output ``bad`` against the sound plain version
+    ``ref``, as check_rel reads it; raises if check_rel at these limits
+    would pass it."""
+    bad, ref = bad.float(), ref.float()
+    err = bad - ref
+    r = {"rel_max_err": float(err.abs().max() / ref.abs().max()),
+         "rel_l2_err": float(err.norm() / ref.norm())}
+    if r["rel_max_err"] <= max_lim and r["rel_l2_err"] <= l2_lim:
+        raise AssertionError(f"{name}: the check passes a planted fault: "
+                             f"{r} (limits {max_lim}, {l2_lim})")
+    return r
+
+
+@contextlib.contextmanager
+def plain_int8_kernels(q_fault: bool = False):
+    """Within it, K5, K6 and K7 are replaced by their plain versions on
+    the tensors' own device: quant_dense_apply, fused_single_query_
+    attention_int8 and int8_cached_attention as the ops modules'
+    attributes, which the model looks up at each call (so none of the
+    three is launched or counted). ``q_fault``: K6's and K7's by their
+    planted q faults (q_bf16_plain_k6, q_f32_plain_k7)."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    swaps = ((Q, "quant_dense_apply", Q.quant_dense_plain),
+             (CX, "fused_single_query_attention_int8",
+              q_bf16_plain_k6 if q_fault
+              else CX.single_query_attention_int8_plain),
+             (CA, "int8_cached_attention",
+              q_f32_plain_k7 if q_fault else CA.int8_cached_attention_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def f32_int8_step_check(card: str, asr, mode: str,
+                        rng: np.random.Generator) -> dict:
+    """A float32 int8 engine's ASR model (quantized decoder, float32) on 8
+    distinct 10 s segments (first_decode_steps): its cross K/V (K5's
+    2xTF32 projections, then quantized) and first decode step (K5 for
+    every dense layer and the logits, K6 or K7 for the cross attention,
+    K2 for the self attention), launches counted, against the same step
+    with K5 / K6 / K7 replaced by their plain versions on the card
+    (plain_int8_kernels, which launches none of them): logits within
+    F32_INT8_STEP_MAX of the plain step's span, argmax agreement at least
+    INT8_AGREE_MIN. The same step with the attention's planted q fault
+    must read beyond F32_INT8_STEP_MAX. ``asr``'s device: the card, or the
+    CPU in rehearsal (no launch counted)."""
+    from multimodal_audio_search_tpu_torch.models import whisper as W
+    ckv_of = (W.cross_kv_merged_int8 if mode == "int8_fused"
+              else W.cross_kv_quantized)
+    logits, counts, _ = first_decode_steps(asr, rng, {
+        "kernels": (contextlib.nullcontext, ckv_of),
+        "plain": (plain_int8_kernels, ckv_of),
+        "fault": (lambda: plain_int8_kernels(q_fault=True), ckv_of)})
+    lq, lp = logits["kernels"], logits["plain"]
+    layers = asr.cfg.dec_layers
+    on_card = torch.device(asr.device).type == "cuda"
+    att = "K6" if mode == "int8_fused" else "K7"
+    want = {k: 0 for k in KEYS}
+    if on_card:
+        want.update({"K5": (K5_PER_LAYER_STEP + 2) * layers + 1,
+                     att: layers, "K2": layers})
+    plain_want = {k: layers if on_card and k == "K2" else 0 for k in KEYS}
+    r = step_reading(lq, lp, asr.cfg.vocab_size)
+    r["shapes_finite_ok"] = r["shapes_finite_ok"] and \
+        lq.dtype == torch.float32
+    fault = step_reading(logits["fault"], lp, asr.cfg.vocab_size)
+    out = {**r, "planted_q_fault_err_of_span":
+           fault["first_step_err_of_span"], "launches": counts["kernels"],
+           "plain_launches": counts["plain"]}
+    phase("f32", path=f"f32 {mode}", step="first decode step vs plain",
+          card=card, tol=[F32_INT8_STEP_MAX, INT8_AGREE_MIN], **out)
+    if counts["kernels"] != want or counts["plain"] != plain_want:
+        raise AssertionError(f"[f32] {mode}: first step launches "
+                             f"{counts['kernels']} != {want}, plain "
+                             f"{counts['plain']} != {plain_want}")
+    check_step(f"[f32] {mode}", r, F32_INT8_STEP_MAX, INT8_AGREE_MIN,
+               "K5 / K6 / K7's plain versions")
+    if not fault["first_step_err_of_span"] >= F32_INT8_STEP_MAX:
+        raise AssertionError(
+            f"[f32] {mode}: the step check passes {att}'s planted q fault "
+            f"({fault['first_step_err_of_span']:.3e} of the span)")
+    return out
+
+
 def f32_engine_run(card: str, clip, label: str, enc, profile=None,
-                   fused=False) -> tuple:
+                   fused=False, int8=None) -> tuple:
     """A float32 engine at EngineConfig()'s defaults (``profile`` applied,
     ``fused``: the decode configs' fused_layer as in engine_config;
-    ``enc``: the decode configs' fused_encoder, None = the profile's, K1)
+    ``enc``: the decode configs' fused_encoder, None = the profile's, K1;
+    ``int8``: quantize_decoder on both Whisper slots under that
+    cross_attn, whose own segment must then rank first for its text)
     built by make_default_ingest(..., dtype=torch.float32): the clip
     ingested and the queries answered with the counts set to 0 just
     before and read just after, held to expected_launches; then the clip
@@ -6019,7 +6359,7 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
     from multimodal_audio_search_tpu_torch.pipelines.ingest import (
         make_default_ingest)
-    cfg = engine_config(profile, fused, None, enc)
+    cfg = engine_config(profile, fused, int8, enc)
     t0 = time.perf_counter()
     ing = make_default_ingest(cfg, seed=0, dtype=torch.float32,
                               device="cuda")
@@ -6047,10 +6387,15 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
     counts = {k: runtime.COUNTS[v] for k, v in KEYS.items()}
     steps = (asr.total_steps - steps0[0], cap.total_steps - steps0[1])
     disp = (asr.dispatches - disp0[0], cap.dispatches - disp0[1])
-    exp = expected_launches(fused, None, steps, disp, asr, cap, enc)
+    exp = expected_launches(fused, int8, steps, disp, asr, cap, enc)
     if counts != exp:
         raise AssertionError(f"[f32] {label}: launches {counts} != "
                              f"expected {exp}")
+    own = None
+    if int8:
+        own, unique = self_query(f"[f32] {label}", texts)
+        check_self_hit(f"[f32] {label}", eng.search(texts[own])[0], texts,
+                       own, unique)
     rate = len(clip[1]) / SR / ingest_s
     # the same clip again, the engine warm (the first ingest also pays
     # the shapes' first launches and allocations)
@@ -6068,6 +6413,7 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
           dispatches={"asr": disp[0], "caption": disp[1]},
           launches=counts, expected=exp,
           distinct_asr_texts=len(set(texts)), top10=top10,
+          **({"self_query_segment": own} if int8 else {}),
           peak_allocated_bytes=torch.cuda.max_memory_allocated())
     by_seg = {(m["source"], m["start_time"]): (m["asr_text"],
                                                m["audio_description"])
@@ -6091,10 +6437,18 @@ def f32_phase(card: str, clips) -> tuple:
     and K4 f32 once a decode step and layer, K2 f32 for the cross
     attention, held to expected_launches), whose texts and top-10 must be
     the K1 engine's but where f32_margin_check allows a segment, and the
-    float32 "v2" path on its batch (f32_v2_step_check). Returns (the K1
-    engine's counts, the K8 engine's counts, the fast_lossless engine's
-    counts, the v2 steps' counts, the kernels' entries: K1's, K2's and
-    K8's float32 forms, then K3's, K3-q's, K4's and K4-o's)."""
+    float32 "v2" path on its batch (f32_v2_step_check). Then the int8
+    decoder on float32 (f32_int8_kernel_checks: K5's, K6's and K7's
+    float32 forms against their plain versions): the float32 engine with
+    quantize_decoder under cross_attn "int8_fused" (K5 + K6) and "int8"
+    (K5 + K7), each held to expected_launches, its own segment first for
+    its text, its texts' agreement with the K1 engine's and its warm
+    ingest rate printed, and its first decode step held to the same step
+    on the plain versions (f32_int8_step_check). Returns ({path: its
+    counts} for "f32" (the K1 engine), "f32_enc_attn", "f32_fast_lossless",
+    "f32_v2" (the steps), "f32_int8_fused" and "f32_int8"; the kernels'
+    entries: K1's, K2's and K8's float32 forms, then K3's, K3-q's, K4's
+    and K4-o's, then K5's, K6's and K7's)."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
     kern = f32_kernel_checks(card, torch.Generator().manual_seed(24))
@@ -6141,6 +6495,22 @@ def f32_phase(card: str, clips) -> tuple:
     v2 = f32_v2_step_check(card, engf, clips[0])
     del engf
     torch.cuda.empty_cache()
+    kern = (*kern, *f32_int8_kernel_checks(card,
+                                           torch.Generator().manual_seed(26)))
+    counts_i8 = {}
+    for mode in ("int8_fused", "int8"):
+        counts_i8[mode], _, texts_i, _, asr_i, eng_i, rate_i = \
+            f32_engine_run(card, clips[0], f"f32 {mode}", None, int8=mode)
+        step = f32_int8_step_check(card, asr_i, mode,
+                                   np.random.default_rng(26))
+        agree = {name: float(np.mean([texts_i[k][i] == texts[k][i]
+                                      for k in texts]))
+                 for i, name in enumerate(("asr", "caption"))}
+        phase("f32", path=f"f32 {mode}", card=card,
+              warm_ingest_audio_s_per_s=rate_i, texts_agree_k1_engine=agree,
+              first_step_err_of_span=step["first_step_err_of_span"])
+        del eng_i, asr_i
+        torch.cuda.empty_cache()
     phase("f32", path="f32", card=card, encoder_max_abs_err=enc_err,
           tol=[F32_ENC_ATOL, F32_ENC_RTOL], texts_equal_k8_engine=True,
           top10_equal_k8_engine=True, warm_ingest_audio_s_per_s=rate,
@@ -6149,14 +6519,18 @@ def f32_phase(card: str, clips) -> tuple:
           fast_lossless_top10_equal=topf == top10,
           fast_lossless_margins=margins, margin_rel=F32_MARGIN_REL,
           fast_lossless_warm_ingest_audio_s_per_s=ratef)
-    return counts, counts8, countsf, v2["launches"], kern
+    return {"f32": counts, "f32_enc_attn": counts8,
+            "f32_fast_lossless": countsf, "f32_v2": v2["launches"],
+            "f32_int8_fused": counts_i8["int8_fused"],
+            "f32_int8": counts_i8["int8"]}, kern
 
 
 def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
     """[drift]'s kernels at the shapes its rows give them, each against
     its plain version: K2's float32 form over ``t`` cross keys and a self
     cache (the float32 rows), K8's float32 form at T=``t`` and 1500 (the
-    float32 rows of the tool's --production), K6 and K7 over ``t`` keys,
+    float32 rows of the tool's --production), K6 and K7 over ``t`` keys
+    (and their float32 forms, the float32 int8 rows'),
     K9 at T=``t`` (a 64-key tile and a partial one), B=``b`` clips. The
     float32 forms also carry one scaled_dot_product_attention call on the
     same float32 inputs (``library_ms``), and both their device time as
@@ -6220,6 +6594,19 @@ def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
           **check_rel("K7 drift", CA.int8_cached_attention(*args),
                       CA.int8_cached_attention_plain(*args), INT8_ATT_MAX,
                       INT8_ATT_L2))
+    # the float32 int8 rows' attention: K6's and K7's float32 forms
+    args = k6_inputs(gen, b, t, heads, dtype=torch.float32)
+    phase("drift", card=card, kernel="K6 float32",
+          shape=f"B={b} T={t} H={heads}",
+          **check_rel("K6 float32 drift", CX.fused_single_query_attention_int8(
+              *args, heads=heads), CX.single_query_attention_int8_plain(
+              *args, heads=heads), F32_INT8_ATT_MAX, F32_INT8_ATT_L2))
+    args = k7_inputs(gen, b, t, heads, dtype=torch.float32)
+    phase("drift", card=card, kernel="K7 float32",
+          shape=f"B={b} T={t} H={heads}",
+          **check_rel("K7 float32 drift", CA.int8_cached_attention(*args),
+                      CA.int8_cached_attention_plain(*args),
+                      F32_INT8_ATT_MAX, F32_INT8_ATT_L2))
     for inputs, q_scale, residual in K1_CASES:
         q, k, v, x, wo, bo = k1_inputs(gen, b, t, heads, q_scale=q_scale,
                                        residual=residual)
@@ -6730,8 +7117,10 @@ def soak_phase(card: str, device="cuda", seconds: float = SOAK_SECONDS,
 
 # -------------------------------------------------------------------- [dcn]
 # (rows, dim) of the multi-process check's runs: the JAX tool's size, then
-# [mesh]'s 1M x 2 x 384
-DCN_RUNS = ((512, 64), (1_000_000, 384))
+# 50k rows at the engine's width (384) for the top-k and gradient across
+# processes (1M x 2 x 384 took 47 s on an H100, over the script's time;
+# [mesh] searches 1M x 2 x 384 across shards in one process)
+DCN_RUNS = ((512, 64), (50_000, 384))
 
 
 def dcn_phase(card: str, device="cuda", runs=DCN_RUNS) -> None:
@@ -6801,8 +7190,8 @@ def main() -> int:
             ref_texts)
         counts[label] = c
         ref_texts = ref_texts or texts
-    (counts["f32"], counts["f32_enc_attn"], counts["f32_fast_lossless"],
-     counts["f32_v2"], f32k) = f32_phase(card, clips)
+    f32_counts, f32k = f32_phase(card, clips)
+    counts.update(f32_counts)
     counts.update(codec_phase(card, np.random.default_rng(2), clips, mems,
                               ref_texts, k1, k2, gen))
     counts.update(parity_phase(card, rng, clips, mems, k2, dec))
@@ -6870,7 +7259,10 @@ def main() -> int:
                          ("K3", f32k[3], "f32_fast_lossless"),
                          ("K3-q", f32k[4], "f32_v2"),
                          ("K4", f32k[5], "f32_fast_lossless"),
-                         ("K4-o", f32k[6], "f32_v2")):
+                         ("K4-o", f32k[6], "f32_v2"),
+                         ("K5", f32k[7], "f32_int8_fused"),
+                         ("K6", f32k[8], "f32_int8_fused"),
+                         ("K7", f32k[9], "f32_int8")):
         first = k["cases"][0]
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
@@ -6879,7 +7271,7 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "bound_rate": first["bound_rate"],
+            "bound_rate": first.get("bound_rate", "int8"),
             "library_ms": first["library_ms"],
             "shape": first["shape"], "path": path, "cases": k["cases"]})
     print(card, flush=True)

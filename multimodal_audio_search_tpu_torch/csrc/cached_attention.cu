@@ -13,7 +13,10 @@
 // Replaces the Pallas kernel multimodal_audio_search_tpu/ops/
 // cached_attention.py::int8_cached_attention (body _kernel, pallas_call
 // at :90). Its GRP=8 grouping of (b, h) rows is a TPU sublane rule and is
-// not carried over.
+// not carried over. The kernel is a template on q's element type: a
+// float32 q (a float32 engine's decode, mas_int8_cached_attention_f32) is
+// rounded to bf16 (to nearest even) as it is read, where the TPU kernel
+// rounds it (q.astype(bfloat16)); everything after is the same code.
 //
 // What bounds it on an H100: device-memory bytes, as K6: 24.6 MB of int8 K
 // and as much V per layer and decode step at B=32, T=1500, base width,
@@ -77,8 +80,28 @@ __device__ __forceinline__ float i8f(uint32_t w, int e) {
          8388736.f;
 }
 
+// 16 values of q as floats: bf16 widened exactly, or float32 rounded to
+// bf16 first
+__device__ __forceinline__ void load_q16(const bf16* q, float f[16]) {
+  const uint4* p = reinterpret_cast<const uint4*>(q);
+  bf16x8_to_f32(p[0], f);
+  bf16x8_to_f32(p[1], f + 8);
+}
+__device__ __forceinline__ void load_q16(const float* q, float f[16]) {
+  const float4* p = reinterpret_cast<const float4*>(q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = p[i];
+    f[4 * i] = __bfloat162float(__float2bfloat16_rn(v.x));
+    f[4 * i + 1] = __bfloat162float(__float2bfloat16_rn(v.y));
+    f[4 * i + 2] = __bfloat162float(__float2bfloat16_rn(v.z));
+    f[4 * i + 3] = __bfloat162float(__float2bfloat16_rn(v.w));
+  }
+}
+
+template <typename Q>
 __global__ void __launch_bounds__(NT, 4) int8_cached_attention_kernel(
-    const bf16* __restrict__ q, const int8_t* __restrict__ k8,
+    const Q* __restrict__ q, const int8_t* __restrict__ k8,
     const float* __restrict__ ks, const int8_t* __restrict__ v8,
     const float* __restrict__ vs, float* __restrict__ out, int T, int chunk,
     float scale) {
@@ -117,11 +140,7 @@ __global__ void __launch_bounds__(NT, 4) int8_cached_attention_kernel(
   }
   const int sub = tid % LANES, r = tid / LANES;
   float qf[D / LANES];
-  {
-    const uint4* qp = reinterpret_cast<const uint4*>(q + bh * D + sub * 16);
-    bf16x8_to_f32(qp[0], qf);
-    bf16x8_to_f32(qp[1], qf + 8);
-  }
+  load_q16(q + bh * D + sub * 16, qf);
   __syncthreads();  // the barrier's init, the scales
 
   // 1. logits of the rank's keys, four lanes a key row (16 codes each),
@@ -243,14 +262,34 @@ __global__ void __launch_bounds__(NT, 4) int8_cached_attention_kernel(
   cluster.sync();
 }
 
+template <typename Q>
+int launch(const void* q, const void* k8, const void* ks, const void* v8,
+           const void* vs, void* out, int B, int H, int T, int cs, int chunk,
+           float scale, void* stream) {
+  if (T < 1 || cs < 1 || cs > MAX_CS || chunk < 1 ||
+      (long long)cs * chunk < T || smem_bytes(chunk) > SMEM_MAX ||
+      (long long)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster(int8_cached_attention_kernel<Q>, dim3(cs, B * H), cs,
+                        NT, smem_bytes(chunk), (cudaStream_t)stream,
+                        (const Q*)q, (const int8_t*)k8, (const float*)ks,
+                        (const int8_t*)v8, (const float*)vs, (float*)out, T,
+                        chunk, scale);
+}
+
 }  // namespace
 
-// Raises K7's dynamic shared-memory limit. Called once, when the library
-// is loaded.
+// Raises K7's dynamic shared-memory limit, for both forms. Called once,
+// when the library is loaded.
 extern "C" int mas_int8_cached_attention_init(void) {
-  return (int)cudaFuncSetAttribute(int8_cached_attention_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)SMEM_MAX);
+  cudaError_t e = cudaFuncSetAttribute(
+      int8_cached_attention_kernel<bf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(int8_cached_attention_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_MAX);
+  return (int)e;
 }
 
 // q: [B, H, 64] bf16; k8, v8: [B, H, T, 64] int8; ks, vs: [B, H, T]
@@ -263,20 +302,24 @@ extern "C" int mas_int8_cached_attention(const void* q, const void* k8,
                                          const void* vs, void* out, int B,
                                          int H, int T, int cs, int chunk,
                                          float scale, void* stream) {
-  if (T < 1 || cs < 1 || cs > MAX_CS || chunk < 1 ||
-      (long long)cs * chunk < T || smem_bytes(chunk) > SMEM_MAX ||
-      (long long)B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  return launch_cluster(int8_cached_attention_kernel, dim3(cs, B * H), cs,
-                        NT, smem_bytes(chunk), (cudaStream_t)stream,
-                        (const bf16*)q, (const int8_t*)k8, (const float*)ks,
-                        (const int8_t*)v8, (const float*)vs, (float*)out, T,
-                        chunk, scale);
+  return launch<bf16>(q, k8, ks, v8, vs, out, B, H, T, cs, chunk, scale,
+                      stream);
+}
+
+// K7's float32 form: q [B, H, 64] float32, the rest as above.
+extern "C" int mas_int8_cached_attention_f32(const void* q, const void* k8,
+                                             const void* ks, const void* v8,
+                                             const void* vs, void* out, int B,
+                                             int H, int T, int cs, int chunk,
+                                             float scale, void* stream) {
+  return launch<float>(q, k8, ks, v8, vs, out, B, H, T, cs, chunk, scale,
+                       stream);
 }
 
 // The clusters of cs K7 blocks of chunk keys the card holds at once (an
 // H100 holds about 8 blocks of a cluster launch an SM, whatever their
-// size: 124 clusters of 8). Returns a cudaError_t value.
+// size: 124 clusters of 8): the lesser of the two forms' counts, so one
+// plan launches either. Returns a cudaError_t value.
 extern "C" int mas_int8_cached_attention_fit(int cs, int chunk, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
@@ -289,6 +332,12 @@ extern "C" int mas_int8_cached_attention_fit(int cs, int chunk, int* out) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(
-      out, (const void*)int8_cached_attention_kernel, &cfg);
+  int n_bf16 = 0, n_f32 = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &n_bf16, (const void*)int8_cached_attention_kernel<bf16>, &cfg);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(
+        &n_f32, (const void*)int8_cached_attention_kernel<float>, &cfg);
+  *out = n_bf16 < n_f32 ? n_bf16 : n_f32;
+  return (int)e;
 }

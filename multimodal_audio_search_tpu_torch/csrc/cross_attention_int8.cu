@@ -15,7 +15,11 @@
 // Replaces the Pallas kernel multimodal_audio_search_tpu/ops/
 // cross_attention.py::fused_single_query_attention_int8 (body
 // _kernel_int8, pallas_call at :329), including the query quantization
-// its wrapper does before the call (:308-311).
+// its wrapper does before the call (:308-311) on q.astype(float32). The
+// kernel is a template on q's element type: bf16 (the bf16 engine's
+// decode) or float32 (a float32 engine's, mas_single_query_attention_
+// int8_f32), q read as it is and quantized with the same true division;
+// everything after q8 is the same code.
 //
 // What bounds it on an H100: device-memory bytes. At B=32, T=1500, base
 // width the int8 K and V are 24.6 MB each per layer and decode step (half
@@ -105,6 +109,14 @@ __device__ __forceinline__ float code8(float v, float s) {
   return fminf(fmaxf(rintf(v / s), -127.f), 127.f);
 }
 
+// q[0], q[1] as floats (bf16 widened exactly, or float32 as it is)
+__device__ __forceinline__ float2 load_q2(const bf16* q) {
+  return unpack_bf16(ld32(q));
+}
+__device__ __forceinline__ float2 load_q2(const float* q) {
+  return *reinterpret_cast<const float2*>(q);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -116,8 +128,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename Q>
 __global__ void __launch_bounds__(NT) sqa_int8_kernel(
-    const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ q,
+    const __grid_constant__ CUtensorMap tv, const Q* __restrict__ q,
     const int8_t* __restrict__ k8, const float* __restrict__ ks,
     const float* __restrict__ vs, float* __restrict__ out, int T, int H,
     int G, int n_valid, int chunk, float scale) {
@@ -178,8 +191,7 @@ __global__ void __launch_bounds__(NT) sqa_int8_kernel(
   }
   // the query's int8 codes, a warp per head
   for (int g = warp; g < G; g += NW) {
-    const float2 v = unpack_bf16(
-        ld32(q + (long long)b * HD + (h0 + g) * D + 2 * lane));
+    const float2 v = load_q2(q + (long long)b * HD + (h0 + g) * D + 2 * lane);
     const float qs =
         fmaxf(warp_max(fmaxf(fabsf(v.x), fabsf(v.y))), 1e-12f) / 127.f;
     s_q8[g * D + 2 * lane] = (int8_t)code8(v.x, qs);
@@ -371,32 +383,21 @@ __global__ void __launch_bounds__(NT) sqa_int8_kernel(
 
 MapCache<64> maps;
 
-}  // namespace
-
-// Raises K6's dynamic shared-memory limit and allows clusters of up to 16
-// blocks. Called once, when the library is loaded.
-extern "C" int mas_single_query_attention_int8_init(void) {
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+template <typename Q>
+cudaError_t set_limits() {
   cudaError_t e = cudaFuncSetAttribute(
-      sqa_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sqa_int8_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_LIMIT);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(sqa_int8_kernel,
+    e = cudaFuncSetAttribute(sqa_int8_kernel<Q>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return (int)e;
+  return e;
 }
 
-// q: [B, H*64] bf16; k8, v8: [B, T, H*64] int8; ks, vs: [B, T, H] float32,
-// all contiguous and 16-byte aligned; out: [B, H*64] float32. Attends keys
-// 0 .. n_valid-1 (1 <= n_valid <= T). A block takes G heads (G | H), a
-// cluster of cs blocks (1..16) one (b, G heads) row, chunk keys a block
-// (cs * chunk >= n_valid; the plan: ops/cross_attention.py::int8_plan).
-// Returns a cudaError_t value: a tensor map cuTensorMapEncodeTiled refuses, a shape
-// outside these limits, or the launch's error.
-extern "C" int mas_single_query_attention_int8(
-    const void* q, const void* k8, const void* ks, const void* v8,
-    const void* vs, void* out, int B, int H, int T, int n_valid, int G,
-    int cs, int chunk, float scale, void* stream) {
+template <typename Q>
+int launch(const void* q, const void* k8, const void* ks, const void* v8,
+           const void* vs, void* out, int B, int H, int T, int n_valid, int G,
+           int cs, int chunk, float scale, void* stream) {
   if (n_valid < 1 || n_valid > T || G < 1 || G > MAX_G || H % G ||
       cs < 1 || cs > MAX_CS || chunk < 1 || (long long)cs * chunk < n_valid ||
       smem_bytes(G, chunk) > SMEM_LIMIT || (long long)B * (H / G) > 65535)
@@ -411,15 +412,51 @@ extern "C" int mas_single_query_attention_int8(
                      1u},
                     CU_TENSOR_MAP_SWIZZLE_NONE));
   if (e != 0) return e;
-  return launch_cluster(sqa_int8_kernel, dim3(cs, B * (H / G)), cs, NT,
+  return launch_cluster(sqa_int8_kernel<Q>, dim3(cs, B * (H / G)), cs, NT,
                         smem_bytes(G, chunk), (cudaStream_t)stream, tv,
-                        (const bf16*)q, (const int8_t*)k8, (const float*)ks,
+                        (const Q*)q, (const int8_t*)k8, (const float*)ks,
                         (const float*)vs, (float*)out, T, H, G, n_valid, chunk,
                         scale);
 }
 
+}  // namespace
+
+// Raises K6's dynamic shared-memory limit and allows clusters of up to 16
+// blocks, for both forms. Called once, when the library is loaded.
+extern "C" int mas_single_query_attention_int8_init(void) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  cudaError_t e = set_limits<bf16>();
+  if (e == cudaSuccess) e = set_limits<float>();
+  return (int)e;
+}
+
+// q: [B, H*64] bf16; k8, v8: [B, T, H*64] int8; ks, vs: [B, T, H] float32,
+// all contiguous and 16-byte aligned; out: [B, H*64] float32. Attends keys
+// 0 .. n_valid-1 (1 <= n_valid <= T). A block takes G heads (G | H), a
+// cluster of cs blocks (1..16) one (b, G heads) row, chunk keys a block
+// (cs * chunk >= n_valid; the plan: ops/cross_attention.py::int8_plan).
+// Returns a cudaError_t value: a tensor map cuTensorMapEncodeTiled refuses, a shape
+// outside these limits, or the launch's error.
+extern "C" int mas_single_query_attention_int8(
+    const void* q, const void* k8, const void* ks, const void* v8,
+    const void* vs, void* out, int B, int H, int T, int n_valid, int G,
+    int cs, int chunk, float scale, void* stream) {
+  return launch<bf16>(q, k8, ks, v8, vs, out, B, H, T, n_valid, G, cs, chunk,
+                      scale, stream);
+}
+
+// K6's float32 form: q [B, H*64] float32, the rest as above.
+extern "C" int mas_single_query_attention_int8_f32(
+    const void* q, const void* k8, const void* ks, const void* v8,
+    const void* vs, void* out, int B, int H, int T, int n_valid, int G,
+    int cs, int chunk, float scale, void* stream) {
+  return launch<float>(q, k8, ks, v8, vs, out, B, H, T, n_valid, G, cs,
+                       chunk, scale, stream);
+}
+
 // The clusters of cs K6 blocks of G heads and chunk keys the card holds at
-// once (0 where a block would ask more shared memory than K6 allows).
+// once (0 where a block would ask more shared memory than K6 allows): the
+// lesser of the two forms' counts, so one plan launches either.
 // Returns a cudaError_t value.
 extern "C" int mas_single_query_attention_int8_fit(int G, int cs, int chunk,
                                                    int* out) {
@@ -438,6 +475,12 @@ extern "C" int mas_single_query_attention_int8_fit(int G, int cs, int chunk,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(
-      out, (const void*)sqa_int8_kernel, &cfg);
+  int n_bf16 = 0, n_f32 = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &n_bf16, (const void*)sqa_int8_kernel<bf16>, &cfg);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(
+        &n_f32, (const void*)sqa_int8_kernel<float>, &cfg);
+  *out = n_bf16 < n_f32 ? n_bf16 : n_f32;
+  return (int)e;
 }

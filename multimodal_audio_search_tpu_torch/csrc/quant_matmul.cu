@@ -56,17 +56,31 @@
 //     converted tile alternate, so conversion and products overlap.
 //   * Two blocks a SM (105 KB of shared memory each), so one block's
 //     epilogue and conversion meet the other's products.
+// The float32 form (x and bias float32, mas_quant_matmul_f32 and
+// mas_quant_matmul_table_f32): the same plan and regimes, FFMA for the
+// skinny and table kernels, 2xTF32 on mma.sync for the wide one; see the
+// float32 section below.
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace sm90;
 
+__device__ __forceinline__ float bias_at(const bf16* b, int n) {
+  return __bfloat162float(b[n]);
+}
+__device__ __forceinline__ float bias_at(const float* b, int n) { return b[n]; }
+
+// y = acc * scale[n] (+ bias[n]), each rounded to nearest (no FMA), stored
+// as float32 or rounded once to bf16. B: the bias's type, x's (bf16 or
+// float32).
+template <typename B>
 __device__ __forceinline__ void store_out(void* out, const float* scale,
-                                          const bf16* bias, int out_bf16,
+                                          const B* bias, int out_bf16,
                                           long long o, int n, float acc) {
   float y = __fmul_rn(acc, scale[n]);
-  if (bias != nullptr) y = __fadd_rn(y, __bfloat162float(bias[n]));
+  if (bias != nullptr) y = __fadd_rn(y, bias_at(bias, n));
   if (out_bf16)
     static_cast<bf16*>(out)[o] = __float2bfloat16_rn(y);
   else
@@ -95,13 +109,79 @@ constexpr int S_RING = S_STAGES * (SX_BYTES + SW_BYTES);
 constexpr int S_SMEM = S_RING + SB_K * LDB * 2;
 static_assert(8 * SB_M * LDR * 4 <= S_RING, "the warps' tiles fit the ring");
 
+// The end of a skinny block (both forms): its 8 warps' partial tiles are
+// in red [8][32][LDR]; they are added in warp order, so thread t holds the
+// sums of row rq = t / 8, columns c .. c + 3 (c = 4 (t % 8)) of the
+// block's tile. With more than one split, each split's tile goes to its
+// own slot of the tile's contiguous region of the scratch,
+// part[tile][split][32][32], and the last split of the tile to arrive
+// adds the S tiles in split order; then the epilogue, once.
+template <typename B>
+__device__ __forceinline__ void skinny_finish(
+    const float* red, const float* __restrict__ scale, const B* bias,
+    void* __restrict__ out, float* part, int* counters, int M, int N,
+    int out_bf16) {
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * SB_N, split = blockIdx.y, S = gridDim.y;
+  const int m0 = blockIdx.z * SB_M;
+  __syncthreads();
+  const int rq = tid >> 3, c = (tid & 7) * 4, n = n0 + c, m = m0 + rq;
+  float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(red + (w * SB_M + rq) * LDR + c);
+    y.x += v.x;
+    y.y += v.y;
+    y.z += v.z;
+    y.w += v.w;
+  }
+  if (S > 1) {
+    const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+    float* pt = part + (long long)tile * S * SB_M * SB_N;
+    *reinterpret_cast<float4*>(pt + ((long long)split * SB_M + rq) * SB_N +
+                               c) = y;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(counters + tile, 1) == S - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    y = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < S; s0 += RED_U) {  // RED_U loads in flight
+      float4 v[RED_U];
+#pragma unroll
+      for (int u = 0; u < RED_U; ++u)
+        v[u] = s0 + u < S
+                   ? __ldcg(reinterpret_cast<const float4*>(
+                         pt + ((long long)(s0 + u) * SB_M + rq) * SB_N + c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < RED_U; ++u) {
+        y.x += v[u].x;
+        y.y += v[u].y;
+        y.z += v[u].z;
+        y.w += v[u].w;
+      }
+    }
+    if (tid == 0) counters[tile] = 0;
+  }
+  if (m >= M) return;
+  const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (n + e < N)
+      store_out(out, scale, bias, out_bf16, (long long)m * N + n + e, n + e,
+                yv[e]);
+}
+
 __global__ void __launch_bounds__(S_NT) skinny_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ wq,
     const float* __restrict__ scale, const bf16* __restrict__ bias,
     void* __restrict__ out, float* part, int* counters, int M, int K, int N,
     int out_bf16, int steps) {
   extern __shared__ __align__(128) unsigned char s_smem[];
-  __shared__ int s_last;
   auto sX = [&](int st) {
     return reinterpret_cast<bf16*>(s_smem + st * SX_BYTES);
   };
@@ -112,10 +192,9 @@ __global__ void __launch_bounds__(S_NT) skinny_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
-  const int n0 = blockIdx.x * SB_N, split = blockIdx.y, S = gridDim.y;
-  const int m0 = blockIdx.z * SB_M;
+  const int n0 = blockIdx.x * SB_N, m0 = blockIdx.z * SB_M;
   const int nk = (K + SB_K - 1) / SB_K;
-  const int kt0 = split * steps;
+  const int kt0 = blockIdx.y * steps;
   const int nsteps = min(nk, kt0 + steps) - kt0;  // >= 1 (the plan's rule)
 
   // copies of K step kt into ring stage st (N % 16 == 0: row k of W
@@ -189,8 +268,6 @@ __global__ void __launch_bounds__(S_NT) skinny_kernel(
       }
   }
 
-  // the warps' tiles, added in warp order: thread t then holds the sums of
-  // row rq = t / 8, columns c .. c + 3 (c = 4 (t % 8)) of the block's tile
   cp_async_wait_all();
   __syncthreads();  // the ring is idle: it holds the warps' tiles now
   float* red = reinterpret_cast<float*>(s_smem);  // [8][32][LDR]
@@ -204,58 +281,7 @@ __global__ void __launch_bounds__(S_NT) skinny_kernel(
         *reinterpret_cast<float2*>(
             red + (warp * SB_M + a * 16 + g + 8 * h) * LDR + f * 8 + 2 * t4) =
             make_float2(acc[a][f][2 * h], acc[a][f][2 * h + 1]);
-  __syncthreads();
-  const int rq = tid >> 3, c = (tid & 7) * 4, n = n0 + c, m = m0 + rq;
-  float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(red + (w * SB_M + rq) * LDR + c);
-    y.x += v.x;
-    y.y += v.y;
-    y.z += v.z;
-    y.w += v.w;
-  }
-  if (S > 1) {
-    // each split's tile to its own slot of the tile's contiguous region
-    // of the scratch, part[tile][split][32][32]; the last split of the
-    // tile to arrive adds the S tiles in split order
-    const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-    float* pt = part + (long long)tile * S * SB_M * SB_N;
-    *reinterpret_cast<float4*>(pt + ((long long)split * SB_M + rq) * SB_N +
-                               c) = y;
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) s_last = atomicAdd(counters + tile, 1) == S - 1;
-    __syncthreads();
-    if (!s_last) return;
-    __threadfence();
-    y = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s0 = 0; s0 < S; s0 += RED_U) {  // RED_U loads in flight
-      float4 v[RED_U];
-#pragma unroll
-      for (int u = 0; u < RED_U; ++u)
-        v[u] = s0 + u < S
-                   ? __ldcg(reinterpret_cast<const float4*>(
-                         pt + ((long long)(s0 + u) * SB_M + rq) * SB_N + c))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int u = 0; u < RED_U; ++u) {
-        y.x += v[u].x;
-        y.y += v[u].y;
-        y.z += v[u].z;
-        y.w += v[u].w;
-      }
-    }
-    if (tid == 0) counters[tile] = 0;
-  }
-  if (m >= M) return;
-  const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (n + e < N)
-      store_out(out, scale, bias, out_bf16, (long long)m * N + n + e, n + e,
-                yv[e]);
+  skinny_finish(red, scale, bias, out, part, counters, M, N, out_bf16);
 }
 
 // ------------------------------------------- the logits' table, [N, Kp]
@@ -611,28 +637,476 @@ __global__ void __launch_bounds__(W_NT, 2) wide_kernel(
   }
 }
 
+// ================================================================ float32
+// K5's float32 form: x [M, K] float32 and a float32 bias, the same three
+// regimes by the same plan. A code is exact in float32 and in TF32 (|W| <=
+// 127), so W is never split; x times a code is not exact in float32 (24 +
+// 7 bits), so the products round where the plain version's do, in another
+// order. Nothing is rounded to bf16 (but a bf16 output, once).
+
+// int8 code e (byte e of w) as a float, exactly: e + 128 goes into the low
+// mantissa bits of 2^23 (one byte permute) and 2^23 + 128 comes off (the
+// int8 -> float conversion runs at a quarter of the FMA rate)
+__device__ __forceinline__ float i8f(uint32_t w, int e) {
+  return __int_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                    0x7540 | e)) -
+         8388736.f;
+}
+
+// ----------------------------------------------------------- skinny f32
+// The bf16 skinny kernel's grid, plan, ring and split reduction; the
+// products on the CUDA cores (FFMA). Warp w takes rows 16 w .. 16 w + 15
+// of each 128-row K step; lane (rq, cw) = (lane / 8, lane % 8) holds the
+// sums of rows 8 rq .. 8 rq + 7 and columns 4 cw .. 4 cw + 3: per 4 K rows
+// four words of codes (one a row, broadcast to the lanes of a column
+// group), eight float4 of x (broadcast to the lanes of a row group) and
+// 128 FMA. Each sum runs over k in order; the warps' tiles are added in
+// warp order and the splits in split order, as in the bf16 form.
+constexpr int LDXF = SB_K + 4;  // floats per staged x row
+constexpr int SXF_BYTES = SB_M * LDXF * 4;
+constexpr int SF_SMEM = S_STAGES * (SXF_BYTES + SW_BYTES);
+static_assert(8 * SB_M * LDR * 4 <= SF_SMEM, "the warps' tiles fit the ring");
+
+__global__ void __launch_bounds__(S_NT) skinny_f32_kernel(
+    const float* __restrict__ x, const int8_t* __restrict__ wq,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    void* __restrict__ out, float* part, int* counters, int M, int K, int N,
+    int out_bf16, int steps) {
+  extern __shared__ __align__(128) unsigned char s_smem[];
+  auto sX = [&](int st) {
+    return reinterpret_cast<float*>(s_smem + st * SXF_BYTES);
+  };
+  auto sW = [&](int st) {
+    return s_smem + S_STAGES * SXF_BYTES + st * SW_BYTES;
+  };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rq = lane >> 3, cw = lane & 7;
+  const int n0 = blockIdx.x * SB_N, m0 = blockIdx.z * SB_M;
+  const int nk = (K + SB_K - 1) / SB_K;
+  const int kt0 = blockIdx.y * steps;
+  const int nsteps = min(nk, kt0 + steps) - kt0;  // >= 1 (the plan's rule)
+
+  auto load = [&](int kt, int st) {
+    const int k0 = kt * SB_K;
+#pragma unroll
+    for (int i = tid; i < SB_M * SB_K / 4; i += S_NT) {  // x: 32 words a row
+      const int r = i / (SB_K / 4), c = (i % (SB_K / 4)) * 4;
+      const int m = m0 + r, k = k0 + c;
+      const bool ok = m < M && k < K;
+      cp_async16_zfill(sX(st) + r * LDXF + c,
+                       ok ? (const void*)(x + (long long)m * K + k)
+                          : (const void*)x,
+                       ok ? 16 : 0);
+    }
+    for (int q = tid; q < SB_K * (SB_N / 16); q += S_NT) {
+      const int r = q / (SB_N / 16), w = q % (SB_N / 16), k = k0 + r;
+      const bool ok = k < K && n0 + 16 * w < N;
+      cp_async16_zfill(sW(st) + r * RAW + 16 * w,
+                       ok ? (const void*)(wq + (long long)k * N + n0 + 16 * w)
+                          : (const void*)wq,
+                       ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S_STAGES - 1; ++s) {
+    if (s < nsteps) load(kt0 + s, s);
+    cp_async_commit();
+  }
+  for (int j = 0; j < nsteps; ++j) {
+    cp_async_wait_group<S_STAGES - 2>();  // step j has landed
+    __syncthreads();  // ... for every thread; step j-1's products are done
+    if (j + S_STAGES - 1 < nsteps)
+      load(kt0 + j + S_STAGES - 1, (j + S_STAGES - 1) % S_STAGES);
+    cp_async_commit();
+    const int st = j % S_STAGES;
+    const float* xs = sX(st) + 8 * rq * LDXF + warp * 16;
+    const unsigned char* ws = sW(st) + warp * 16 * RAW + 4 * cw;
+#pragma unroll
+    for (int kk = 0; kk < 16; kk += 4) {
+      uint32_t w[4];
+      float4 xv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = *reinterpret_cast<const uint32_t*>(ws + (kk + i) * RAW);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        xv[r] = *reinterpret_cast<const float4*>(xs + r * LDXF + kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float f[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) f[c] = i8f(w[i], c);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float xi = (&xv[r].x)[i];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xi, f[c], acc[r][c]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait_all();
+  __syncthreads();  // the ring is idle: it holds the warps' tiles now
+  float* red = reinterpret_cast<float*>(s_smem);  // [8][32][LDR]
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    *reinterpret_cast<float4*>(red + (warp * SB_M + 8 * rq + r) * LDR +
+                               4 * cw) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  skinny_finish(red, scale, bias, out, part, counters, M, N, out_bf16);
+}
+
+// ------------------------------------------------------------ table f32
+// The tied logits on the transposed table, FFMA. As the bf16 table kernel:
+// one block a SM, each block a contiguous range of chunks, each warp the
+// chunks c, c + warps, ... of it through its own two-stage cp.async ring,
+// x [32, Kp] (float32 here) copied into shared memory once a block. A
+// chunk is T32_ROWS = 32 table rows (output columns), taken in pieces of
+// T32_KP codes a row. Lane (rq, cq) = (lane / 8, lane % 8) holds rows
+// 8 rq .. 8 rq + 7 of x by columns cq + 8 i (i < 4) of the chunk: per 16
+// codes four 16-byte loads of the table (eight consecutive table rows a
+// quarter warp, 144 bytes apart: no bank conflict), 32 float4 of x
+// (broadcast to the lanes of a row group) and 512 FMA. x [32, Kp] float32
+// takes twice the bf16 form's shared memory, so this form holds Kp up to
+// T32_MAX_K = 1280, every Whisper width (ops/quant.py::TABLE_MAX_K_F32).
+constexpr int T32_KP = 128;      // codes of a table row a ring stage holds
+constexpr int T32_ROWS = 32;     // table rows (output columns) a chunk
+constexpr int T32_LDW = T32_KP + 16;
+constexpr int T32_MAX_K = 1280;  // x [32, 1284] float32 and 7 warps a SM
+constexpr int T32_WARP_BYTES = T_STAGES * T32_ROWS * T32_LDW;
+
+__host__ __device__ constexpr int t32_ldx(int Kp) { return Kp + 4; }
+__host__ __device__ inline int table32_x_bytes(int Kp) {
+  return 32 * t32_ldx(Kp) * 4;
+}
+
+__global__ void __launch_bounds__(T_MAX_NT, 1) table_f32_kernel(
+    const float* __restrict__ x, const int8_t* __restrict__ wt,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    void* __restrict__ out, int M, int K, int Kp, int N, int out_bf16) {
+  extern __shared__ __align__(128) unsigned char t_smem[];
+  const int LDX = t32_ldx(Kp);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nw = blockDim.x >> 5, nt = blockDim.x;
+  const int rq = lane >> 3, cq = lane & 7;
+  const int m0 = blockIdx.y * 32;
+  float* sX = reinterpret_cast<float*>(t_smem);
+  unsigned char* ring =
+      t_smem + table32_x_bytes(Kp) + warp * T32_WARP_BYTES;
+  const int nch = (N + T32_ROWS - 1) / T32_ROWS;
+  const int c0 = (int)((long long)blockIdx.x * nch / gridDim.x);
+  const int c1 = (int)((long long)(blockIdx.x + 1) * nch / gridDim.x);
+  const int mine = c1 - c0 > warp ? (c1 - c0 - warp + nw - 1) / nw : 0;
+  const int npc = (Kp + T32_KP - 1) / T32_KP;  // pieces a chunk
+  const int items = mine * npc;  // (chunk, piece), piece fastest
+
+  auto load = [&](int it, int st) {
+    const int i = it / npc, k0 = (it - i * npc) * T32_KP;
+    const int n0 = (c0 + warp + nw * i) * T32_ROWS;
+    const int kw = min(T32_KP, Kp - k0) / 16;
+    unsigned char* dst = ring + st * T32_ROWS * T32_LDW;
+    for (int q = lane; q < T32_ROWS * kw; q += 32) {
+      const int r = q / kw, w = q - r * kw;
+      const bool ok = n0 + r < N;
+      cp_async16_zfill(dst + r * T32_LDW + 16 * w,
+                       ok ? (const void*)(wt + (long long)(n0 + r) * Kp + k0 +
+                                          16 * w)
+                          : (const void*)wt,
+                       ok ? 16 : 0);
+    }
+  };
+
+  for (int q = tid; q < 32 * (Kp / 4); q += nt) {  // x, once; zeros past K
+    const int r = q / (Kp / 4), c = (q - r * (Kp / 4)) * 4;
+    const bool ok = m0 + r < M && c < K;
+    cp_async16_zfill(sX + r * LDX + c,
+                     ok ? (const void*)(x + (long long)(m0 + r) * K + c)
+                        : (const void*)x,
+                     ok ? 16 : 0);
+  }
+  cp_async_commit();
+  if (items > 0) load(0, 0);
+  cp_async_commit();
+  cp_async_wait_group<1>();  // x has landed (item 0 may not have)
+  __syncthreads();
+
+  float acc[8][4];
+  for (int it = 0; it < items; ++it) {
+    if (it + 1 < items) load(it + 1, (it + 1) % T_STAGES);
+    cp_async_commit();
+    cp_async_wait_group<1>();  // item it has landed
+    __syncwarp();
+    const int i = it / npc, p = it - i * npc;
+    const int k0 = p * T32_KP, kw = min(T32_KP, Kp - k0) / 16;
+    const unsigned char* sW =
+        ring + (it % T_STAGES) * T32_ROWS * T32_LDW + cq * T32_LDW;
+    if (p == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    }
+    const float* xr = sX + 8 * rq * LDX + k0;
+    for (int kk = 0; kk < kw; ++kk) {
+      uint4 cw[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        cw[c] = *reinterpret_cast<const uint4*>(sW + 8 * c * T32_LDW +
+                                                16 * kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float4 xv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          xv[r] = *reinterpret_cast<const float4*>(xr + r * LDX + 16 * kk +
+                                                   4 * j);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t w = (&cw[c].x)[j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float f = i8f(w, e);
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              acc[r][c] = fmaf((&xv[r].x)[e], f, acc[r][c]);
+          }
+        }
+      }
+    }
+    if (p == npc - 1) {
+      const int n0 = (c0 + warp + nw * i) * T32_ROWS + cq;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = m0 + 8 * rq + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (m < M && n0 + 8 * c < N)
+            store_out(out, scale, bias, out_bf16,
+                      (long long)m * N + n0 + 8 * c, n0 + 8 * c, acc[r][c]);
+      }
+    }
+    __syncwarp();  // every lane is done with the stage
+  }
+}
+
+// ------------------------------------------------------------- wide f32
+// The cross K/V projection in float32 on the tensor cores: 2xTF32 on
+// mma.sync m16n8k8 (csrc/tf32x3.cuh's products and split). x = hi + lo,
+// hi = x rounded to TF32, lo = x - hi (the tensor cores read its upper 19
+// bits); a code is exact in TF32, so x w = lo w + hi w, two products in
+// place of 3xTF32's three (the dropped part of lo is 2^-21 of x). Each
+// tensor-core sum runs over one 64-deep K tile only (8 k8 steps, 16
+// products) and the tiles' sums are added on the CUDA cores, rounded to
+// nearest: the tensor cores' own sums round toward zero (tf32x3.cuh).
+// tests/test_torch_f32_int8.py emulates this arithmetic on the CPU.
+//   * A block is 128 x 128 of the output, 8 warps of 64 rows x 32 columns
+//     (warp w: rows 64 (w % 2), columns 32 (w / 2)); x [128, 64] float32
+//     and W [64, 128] int8 tiles stream through a 3-stage cp.async ring
+//     (zero-filled past M, K and N), one 64-deep tile a stage.
+//   * k permuted inside each 16 of K: a lane's A fragments of two k8 steps
+//     are one float4 of its row (k = 4t .. 4t + 3: step 0 takes 4t and
+//     4t + 1 as its t and t + 4, step 1 4t + 2 and 4t + 3), and the B
+//     fragments the same four rows of W, so every product still meets its
+//     code. Columns permuted inside each warp's 32: n8 tile j, column g is
+//     column 4 g + j, so one 4-byte load of a W row gives the lane's codes
+//     for all four n8 tiles, and a lane's four tiles' outputs of a row are
+//     four consecutive columns (one float4 store).
+//   * Shared memory layouts against bank conflicts: x row r's 16-byte chunk
+//     c sits at c ^ 4 (r % 2); W row k's chunk c at c ^ 2 ((k / 4) % 4).
+constexpr int W32_NT = 256;
+constexpr int W32_STAGES = 3;
+constexpr int XF_TILE = WB_M * WB_K * 4;  // x tile, float32
+constexpr int W32_SMEM = W32_STAGES * (XF_TILE + RT_BYTES);
+
+__global__ void __launch_bounds__(W32_NT, 1) wide_f32_kernel(
+    const float* __restrict__ x, const int8_t* __restrict__ wq,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    void* __restrict__ out, int M, int K, int N, int out_bf16) {
+  extern __shared__ __align__(128) unsigned char w_smem[];
+  float* sXb = reinterpret_cast<float*>(w_smem);
+  uint8_t* sWb = w_smem + W32_STAGES * XF_TILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int m0 = blockIdx.y * WB_M, n0 = blockIdx.x * WB_N;
+  const int nk = (K + WB_K - 1) / WB_K;
+
+  auto load = [&](int j, int st) {
+    const int k0 = j * WB_K;
+    float* dx = sXb + st * (XF_TILE / 4);
+#pragma unroll
+    for (int u = 0; u < WB_M * 16 / W32_NT; ++u) {
+      const int i = tid + u * W32_NT, r = i >> 4, c = i & 15;
+      const int m = m0 + r, k = k0 + 4 * c;
+      const bool ok = m < M && k < K;
+      cp_async16_zfill(dx + r * WB_K + 4 * (c ^ ((r & 1) << 2)),
+                       ok ? (const void*)(x + (long long)m * K + k)
+                          : (const void*)x,
+                       ok ? 16 : 0);
+    }
+    uint8_t* dw = sWb + st * RT_BYTES;
+#pragma unroll
+    for (int u = 0; u < WB_K * 8 / W32_NT; ++u) {
+      const int i = tid + u * W32_NT, k = i >> 3, c = i & 7;
+      const bool ok = k0 + k < K && n0 + 16 * c < N;
+      cp_async16_zfill(
+          dw + k * WB_N + 16 * (c ^ (((k >> 2) & 3) << 1)),
+          ok ? (const void*)(wq + (long long)(k0 + k) * N + n0 + 16 * c)
+             : (const void*)wq,
+          ok ? 16 : 0);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      acc[mi][jj][0] = acc[mi][jj][1] = acc[mi][jj][2] = acc[mi][jj][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < W32_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  // the lane's word of a W row: columns 4 g .. 4 g + 3 of the warp's 32
+  const int wcol = 4 * (g & 3), wch = 2 * wn + (g >> 2);
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait_group<W32_STAGES - 2>();  // tile j has landed
+    __syncthreads();  // ... for every thread; tile j-1's products are done
+    if (j + W32_STAGES - 1 < nk)
+      load(j + W32_STAGES - 1, (j + W32_STAGES - 1) % W32_STAGES);
+    cp_async_commit();
+    const int st = j % W32_STAGES;
+    const float* sx = sXb + st * (XF_TILE / 4);
+    const uint8_t* sw = sWb + st * RT_BYTES;
+    float tile[4][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        tile[mi][jj][0] = tile[mi][jj][1] = tile[mi][jj][2] =
+            tile[mi][jj][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < WB_K / 16; ++s) {
+      uint32_t bf[4][4];  // [K row 4t + i of the 16][n8 tile]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * s + 4 * t + i;  // (k / 4) % 4 == t
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            sw + k * WB_N + 16 * (wch ^ (2 * t)) + wcol);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) bf[i][jj] = __float_as_uint(i8f(w, jj));
+      }
+      const int ch = 4 * ((4 * s + t) ^ ((g & 1) << 2));
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int r = 64 * wm + 16 * mi + g;
+        const float4 X = *reinterpret_cast<const float4*>(sx + r * WB_K + ch);
+        const float4 Y =
+            *reinterpret_cast<const float4*>(sx + (r + 8) * WB_K + ch);
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+          const float a[4] = {step ? X.z : X.x, step ? Y.z : Y.x,
+                              step ? X.w : X.y, step ? Y.w : Y.y};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) tf32x3::split(a[q], ah[q], al[q]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            tf32x3::mma(tile[mi][jj], al, bf[2 * step][jj],
+                        bf[2 * step + 1][jj]);
+            tf32x3::mma(tile[mi][jj], ah, bf[2 * step][jj],
+                        bf[2 * step + 1][jj]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mi][jj][e] = __fadd_rn(acc[mi][jj][e], tile[mi][jj][e]);
+  }
+  cp_async_wait_all();
+
+  // acc[mi][j][2h + e]: row 64 wm + 16 mi + g + 8 h, column 32 wn + 8 t +
+  // 4 e + j: the four n8 tiles give four consecutive columns
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 64 * wm + 16 * mi + g + 8 * h;
+        const int n = n0 + 32 * wn + 8 * t + 4 * e;
+        if (m >= M || n >= N) continue;  // N % 16 == 0: n + 3 < N too
+        const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+        float y[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          y[jj] = __fmul_rn(acc[mi][jj][2 * h + e], (&sc.x)[jj]);
+        if (bias != nullptr) {
+          const float4 bb = *reinterpret_cast<const float4*>(bias + n);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) y[jj] = __fadd_rn(y[jj], (&bb.x)[jj]);
+        }
+        const long long o = (long long)m * N + n;
+        if (out_bf16)
+          *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o) =
+              make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+        else
+          *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+              make_float4(y[0], y[1], y[2], y[3]);
+      }
+}
+
+// the opt-in shared memory a block of the current device, read once
+inline int optin_smem(int* optin) {
+  static int optin_of[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  if (optin_of[dev] == 0) {
+    cudaError_t e = cudaDeviceGetAttribute(
+        &optin_of[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  *optin = optin_of[dev];
+  return 0;
+}
+
 }  // namespace
 
-// Raises the three kernels' dynamic shared-memory limits (the table
-// kernel's to the device's opt-in maximum) and looks the driver's
-// tensor-map encoder up. Called once, when the library is loaded.
+// Raises the six kernels' dynamic shared-memory limits (the table
+// kernels' to the device's opt-in maximum) and looks
+// cuTensorMapEncodeTiled up. Called once, when the library is loaded.
 extern "C" int mas_quant_matmul_init(void) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(skinny_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             S_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaFuncSetAttribute(
-      wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  int optin = 0;
+  const int rc = optin_smem(&optin);
+  if (rc != 0) return rc;
+  const struct {
+    const void* fn;
+    int bytes;
+  } limits[] = {{(const void*)table_kernel, optin},
+                {(const void*)table_f32_kernel, optin},
+                {(const void*)skinny_kernel, S_SMEM},
+                {(const void*)skinny_f32_kernel, SF_SMEM},
+                {(const void*)wide_kernel, W_SMEM},
+                {(const void*)wide_f32_kernel, W32_SMEM}};
+  for (const auto& l : limits) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // x: [M, K] bf16 contiguous (K % 8 == 0, 16-byte aligned); wq: [K, N] int8
@@ -688,17 +1162,9 @@ extern "C" int mas_quant_matmul_table(const void* x, const void* wt,
                                       int out_bf16, int sms, void* stream) {
   if (Kp % 16 || K > Kp || Kp - K >= 16 || Kp > T_MAX_K || sms < 1)
     return (int)cudaErrorInvalidValue;
-  // the opt-in shared memory a block, read once per device
-  static int optin_of[MAX_DEVICES];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
-  int& optin = optin_of[dev];
-  if (optin == 0) {
-    cudaError_t e = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int optin = 0;
+  const int rc = optin_smem(&optin);
+  if (rc != 0) return rc;
   const int nch = (N + 15) / 16;
   const int fit = (optin - table_x_bytes(Kp)) / table_warp_bytes(Kp);
   const int want = max(4, min(T_MAX_NT / 32,
@@ -710,5 +1176,67 @@ extern "C" int mas_quant_matmul_table(const void* x, const void* wt,
                  (cudaStream_t)stream>>>(
       (const bf16*)x, (const int8_t*)wt, (const float*)scale,
       (const bf16*)bias, out, M, K, Kp, N, out_bf16);
+  return (int)cudaGetLastError();
+}
+
+// K5's float32 form: x [M, K] float32 contiguous (K % 8 == 0, 16-byte
+// aligned), bias [N] float32 or null; the rest as mas_quant_matmul (wide
+// = 1: the 2xTF32 kernel on 128 x 128 tiles; else the skinny FFMA kernel
+// on the same plan). Returns a plan the kernels do not take, or
+// cudaGetLastError() after the launch.
+extern "C" int mas_quant_matmul_f32(const void* x, const void* wq,
+                                    const void* scale, const void* bias,
+                                    void* out, void* part, void* counters,
+                                    int M, int K, int N, int out_bf16,
+                                    int wide, int bn, int splits, int steps,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (N % 16) return (int)cudaErrorInvalidValue;
+  if (wide) {
+    if (bn != WB_N || (M + WB_M - 1) / WB_M > 65535)
+      return (int)cudaErrorInvalidValue;
+    dim3 grid((N + WB_N - 1) / WB_N, (M + WB_M - 1) / WB_M);
+    wide_f32_kernel<<<grid, W32_NT, W32_SMEM, s>>>(
+        (const float*)x, (const int8_t*)wq, (const float*)scale,
+        (const float*)bias, out, M, K, N, out_bf16);
+    return (int)cudaGetLastError();
+  }
+  const int nk = (K + SB_K - 1) / SB_K;
+  if (splits < 1 || steps < 1 || (splits - 1) * steps >= nk ||
+      splits * steps < nk || bn != SB_N)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + SB_N - 1) / SB_N, splits, (M + SB_M - 1) / SB_M);
+  skinny_f32_kernel<<<grid, S_NT, SF_SMEM, s>>>(
+      (const float*)x, (const int8_t*)wq, (const float*)scale,
+      (const float*)bias, out, (float*)part, (int*)counters, M, K, N,
+      out_bf16, steps);
+  return (int)cudaGetLastError();
+}
+
+// K5's float32 form on a transposed table: x [M, K] float32, bias float32
+// or null, Kp <= T32_MAX_K (1280); the rest as mas_quant_matmul_table.
+// Launches as many warps a block as give each about one 32-column chunk,
+// 4 to 16, as far as shared memory allows. Returns cudaGetLastError()
+// after the launch.
+extern "C" int mas_quant_matmul_table_f32(const void* x, const void* wt,
+                                          const void* scale, const void* bias,
+                                          void* out, int M, int K, int Kp,
+                                          int N, int out_bf16, int sms,
+                                          void* stream) {
+  if (Kp % 16 || K > Kp || Kp - K >= 16 || Kp > T32_MAX_K || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  int optin = 0;
+  const int rc = optin_smem(&optin);
+  if (rc != 0) return rc;
+  const int nch = (N + T32_ROWS - 1) / T32_ROWS;
+  const int fit = (optin - table32_x_bytes(Kp)) / T32_WARP_BYTES;
+  const int want = max(4, min(T_MAX_NT / 32, (nch + sms - 1) / sms));
+  const int nw = min(fit, want);
+  if (nw < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(sms, (M + 31) / 32);
+  table_f32_kernel<<<grid, nw * 32, table32_x_bytes(Kp) + nw * T32_WARP_BYTES,
+                     (cudaStream_t)stream>>>(
+      (const float*)x, (const int8_t*)wt, (const float*)scale,
+      (const float*)bias, out, M, K, Kp, N, out_bf16);
   return (int)cudaGetLastError();
 }

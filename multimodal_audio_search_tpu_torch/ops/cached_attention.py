@@ -131,6 +131,12 @@ def _fit(dev: torch.device):
     return fit
 
 
+# K7's forms by q's dtype (csrc/cached_attention.cu): the float32 one
+# rounds q to bf16 as it reads it, where B7 does
+_FORMS = {torch.bfloat16: "mas_int8_cached_attention",
+          torch.float32: "mas_int8_cached_attention_f32"}
+
+
 def _launch(q, k8, ks, v8, vs, cluster: int | None = None) -> torch.Tensor:
     b, h, d = q.shape
     t = k8.shape[2]
@@ -141,8 +147,10 @@ def _launch(q, k8, ks, v8, vs, cluster: int | None = None) -> torch.Tensor:
         raise ValueError(
             f"K7: q {tuple(q.shape)}, k8 {tuple(k8.shape)}, v8 "
             f"{tuple(v8.shape)}, ks {tuple(ks.shape)}, vs {tuple(vs.shape)}")
+    if q.dtype not in _FORMS:
+        raise TypeError(f"K7 takes a bf16 or float32 q; got {q.dtype}")
     cs, chunk = cluster_plan(t, cluster, b * h, _fit(k8.device))
-    for name, a, dt in (("q", q, torch.bfloat16), ("k8", k8, torch.int8),
+    for name, a, dt in (("q", q, q.dtype), ("k8", k8, torch.int8),
                         ("ks", ks, torch.float32), ("v8", v8, torch.int8),
                         ("vs", vs, torch.float32)):
         if a.dtype != dt:
@@ -153,7 +161,7 @@ def _launch(q, k8, ks, v8, vs, cluster: int | None = None) -> torch.Tensor:
             raise ValueError(f"K7 takes a contiguous 16-byte aligned {name}")
     out = torch.empty((b, h, d), dtype=torch.float32, device=k8.device)
     runtime.launch(
-        "mas_int8_cached_attention", k8.device,
+        _FORMS[q.dtype], k8.device,
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), out.data_ptr(), b, h, t, cs, chunk,
         1.0 / math.sqrt(d), runtime.stream_handle(k8.device))
@@ -169,7 +177,8 @@ def int8_cached_attention(
     vs: torch.Tensor,      # [B, H, T] f32
 ) -> torch.Tensor:         # [B, H, D] f32
     """Single-query attention over every key of an int8 K/V cache. CUDA
-    tensors launch K7 (q in bf16), CPU tensors take the plain version."""
+    tensors launch K7 (its bf16 or float32 form by q's dtype; either
+    rounds q to bf16), CPU tensors take the plain version."""
     runtime.refuse_grad("K7", q, k8, ks, v8, vs)
     if k8.device.type == "cuda":
         return _launch(q, k8, ks, v8, vs)

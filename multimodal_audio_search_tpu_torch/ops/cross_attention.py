@@ -280,6 +280,12 @@ def _fit_int8(dev: torch.device):
     return fit
 
 
+# K6's forms by q's dtype (csrc/cross_attention_int8.cu): the float32 one
+# reads a float32 q and quantizes it as B6's wrapper does q_m.astype(f32)
+_FORMS_INT8 = {torch.bfloat16: "mas_single_query_attention_int8",
+               torch.float32: "mas_single_query_attention_int8_f32"}
+
+
 def _launch_int8(q_m, k8, ks, v8, vs, heads: int, n_valid: int,
                  group: int | None = None,
                  cluster: int | None = None) -> torch.Tensor:
@@ -293,7 +299,9 @@ def _launch_int8(q_m, k8, ks, v8, vs, heads: int, n_valid: int,
         raise ValueError(
             f"K6: q {tuple(q_m.shape)}, k8 {tuple(k8.shape)}, v8 "
             f"{tuple(v8.shape)}, ks {tuple(ks.shape)}, vs {tuple(vs.shape)}")
-    for name, a, dt in (("q", q_m, torch.bfloat16), ("k8", k8, torch.int8),
+    if q_m.dtype not in _FORMS_INT8:
+        raise TypeError(f"K6 takes a bf16 or float32 q; got {q_m.dtype}")
+    for name, a, dt in (("q", q_m, q_m.dtype), ("k8", k8, torch.int8),
                         ("ks", ks, torch.float32), ("v8", v8, torch.int8),
                         ("vs", vs, torch.float32)):
         if a.dtype != dt:
@@ -312,7 +320,7 @@ def _launch_int8(q_m, k8, ks, v8, vs, heads: int, n_valid: int,
                                  group, cluster)
     out = torch.empty((b, hd), dtype=torch.float32, device=k8.device)
     runtime.launch(
-        "mas_single_query_attention_int8", k8.device,
+        _FORMS_INT8[q_m.dtype], k8.device,
         q_m.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), out.data_ptr(), b, heads, t, n_valid, g, cs, chunk,
         1.0 / math.sqrt(hd // heads), runtime.stream_handle(k8.device))
@@ -331,7 +339,8 @@ def fused_single_query_attention_int8(
     pos: int | None = None,   # attend to keys [0, pos]; None = all
 ) -> torch.Tensor:            # [B, H*D] f32
     """Single-query attention over merged int8 K/V. CUDA tensors launch
-    K6 (q in bf16), CPU tensors take the plain version."""
+    K6 (its bf16 or float32 form by q's dtype), CPU tensors take the plain
+    version."""
     runtime.refuse_grad("K6", q_m, k8, ks, v8, vs)
     t = k8.shape[1]
     if pos is not None and not 0 <= int(pos) < t:

@@ -16,10 +16,14 @@ Counterpart of ``multimodal_audio_search_tpu/ops/quant.py``:
 On a CUDA tensor K5 launches ``csrc/quant_matmul.cu``, which adds the bias
 and rounds to the output dtype in its epilogue (the same values); on a CPU
 tensor it runs ``quant_matmul_plain``. There is no other route: a launch
-that fails raises. ``split_plan`` picks the kernel and its K splits from
-the shape: the skinny kernel for a decode step's layers (split K, partials
-summed in split order), the wgmma kernel for the cross K/V projection over
-the encoder rows. The tied logits (N = 51865) take the table kernel on the
+that fails raises. x picks the form: bf16 (a bf16 bias) or float32 (a
+float32 bias; ``mas_quant_matmul_f32``: FFMA for the decode layers and the
+logits' table, 2xTF32 on the tensor cores for the cross K/V projection);
+any other dtype, or x and bias of two dtypes, raises before a launch.
+``split_plan`` picks the kernel and its K splits from the shape: the
+skinny kernel for a decode step's layers (split K, partials summed in
+split order), the wgmma kernel for the cross K/V projection over the
+encoder rows. The tied logits (N = 51865) take the table kernel on the
 transposed copy that ``logits_table`` puts in place of the codes when the
 model is placed on the card; any other N % 16 != 0 takes it on a copy
 made for the call.
@@ -41,8 +45,11 @@ from .. import runtime
 # projections over B * 1500 rows)
 SMALL_M = 64
 # the widest K whose x rows and table rings fit the table kernel's shared
-# memory (one block a SM)
+# memory (one block a SM); its float32 form holds x [32, K] in float32,
+# twice the bytes, and takes K up to TABLE_MAX_K_F32, Whisper's widest d
+# (csrc/quant_matmul.cu's T_MAX_K and T32_MAX_K)
 TABLE_MAX_K = 2048
+TABLE_MAX_K_F32 = 1280
 
 
 # ---------------------------------------------------------------- quantize
@@ -127,8 +134,10 @@ def is_quantized(params) -> bool:
 def quant_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """K5 in plain PyTorch: (x @ float(wq)) * scale in float32. Every
-    product of a bf16 or float32 x with an int8 code is exact in float32,
-    so only the order of the sums differs from the kernel."""
+    product of a bf16 x with an int8 code is exact in float32 (8 + 7
+    significant bits), so there only the order of the sums differs from
+    the kernel; a float32 x's product is not (24 + 7 bits): it rounds, in
+    the kernel as here, and the two differ by those roundings too."""
     return torch.matmul(x.float(), wq.float()) * scale.float()
 
 
@@ -157,18 +166,27 @@ COUNTERS = 4096
 _SCRATCH: dict = {}
 
 
+def table_max_k(f32: bool = False) -> int:
+    """The widest K K5's table kernel takes in the bf16 or float32 form."""
+    return TABLE_MAX_K_F32 if f32 else TABLE_MAX_K
+
+
 def split_plan(m: int, k: int, n: int, splits: int | None = None,
-               wave: int = WAVE) -> tuple[str, int, int, int]:
+               wave: int = WAVE, f32: bool = False) -> tuple[str, int, int,
+                                                             int]:
     """K5's (regime, column tile, K splits, K steps a split) for x [m, k]
-    @ W [k, n] on a card of ``wave`` multiprocessors. ``splits`` forces a
-    split count on the skinny kernel (tests reach the split edges with
-    it); the plan then takes the fewest splits of equal steps that cover
-    K, so no split is empty. The table kernel takes K whole, in steps of
-    16."""
+    @ W [k, n] on a card of ``wave`` multiprocessors (``f32``: the float32
+    form, whose table kernel takes K up to TABLE_MAX_K_F32). ``splits``
+    forces a split count on the skinny kernel (tests reach the split edges
+    with it); the plan then takes the fewest splits of equal steps that
+    cover K, so no split is empty. The table kernel takes K whole, in
+    steps of 16."""
     if n % 16:
-        if k > TABLE_MAX_K:
-            raise ValueError(f"K5 takes N % 16 == 0, or K <= {TABLE_MAX_K} "
-                             f"for its table kernel: K={k}, N={n}")
+        if k > table_max_k(f32):
+            raise ValueError(f"K5 takes N % 16 == 0, or K <= "
+                             f"{table_max_k(f32)} for its "
+                             f"{'float32' if f32 else 'bf16'} table kernel: "
+                             f"K={k}, N={n}")
         return "table", 16, 1, -(-k // 16)
     if m > SMALL_M and splits is None:
         return "wide", 128, 1, -(-k // 64)
@@ -196,17 +214,31 @@ def _scratch(device: torch.device, floats: int) -> tuple[int, int]:
     return ptrs[0], ptrs[1]
 
 
+# K5's forms by x's dtype: (the codes' symbol, the table's symbol)
+_FORMS = {torch.bfloat16: ("mas_quant_matmul", "mas_quant_matmul_table"),
+          torch.float32: ("mas_quant_matmul_f32",
+                          "mas_quant_matmul_table_f32")}
+
+
+def _form(x: torch.Tensor, bias) -> tuple[str, str]:
+    """K5's form for x: bf16 or float32, the bias (if any) of x's dtype;
+    any other dtype, or a mix, raises."""
+    if x.dtype not in _FORMS:
+        raise TypeError(f"K5 takes bf16 or float32 x; got {x.dtype}")
+    if bias is not None and bias.dtype != x.dtype:
+        raise TypeError(f"K5 takes x and bias of one dtype (bf16 or "
+                        f"float32); x is {x.dtype}, bias {bias.dtype}")
+    return _FORMS[x.dtype]
+
+
 def _check(x, w, scale, bias, out_dtype, n: int) -> None:
     """Raise on what K5 does not take (w: the codes [K, N] or the table
-    [N, Kp], its shape checked by the caller): one combined test on the
-    common path, the culprit named only when it fails."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"K5 takes bf16 x; got {x.dtype}")
+    [N, Kp], its shape checked by the caller; x's and bias's dtypes by
+    _form): one combined test on the common path, the culprit named only
+    when it fails."""
     if w.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"K5 takes int8 codes and float32 scale; got "
                         f"{w.dtype}, {scale.dtype}")
-    if bias is not None and bias.dtype != torch.bfloat16:
-        raise TypeError(f"K5 takes a bf16 bias; got {bias.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"K5 writes float32 or bf16, not {out_dtype}")
     if tuple(scale.shape) != (n,) or (bias is not None
@@ -236,14 +268,19 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
     many K splits (tests reach the split edges with it)."""
     m, k = x.shape
     dev = x.device
+    sym, sym_table = _form(x, bias)
+    f32 = x.dtype == torch.float32
     if wq_t is None:
         if wq.dim() != 2 or wq.shape[0] != k:
             raise ValueError(f"K5: x {tuple(x.shape)}, wq {tuple(wq.shape)}")
         regime, bn, splits, steps = split_plan(m, k, wq.shape[1], splits,
-                                               runtime.sm_count(dev))
+                                               runtime.sm_count(dev), f32)
         if regime == "table":  # on no engine path: the logits hold a table
             wq_t = transposed_table(wq)
-    if wq_t is not None and (wq_t.dim() != 2 or k > TABLE_MAX_K
+    if wq_t is not None and k > table_max_k(f32):
+        raise ValueError(f"K5's {'float32' if f32 else 'bf16'} table kernel "
+                         f"takes K <= {table_max_k(f32)}, K={k}")
+    if wq_t is not None and (wq_t.dim() != 2
                              or wq_t.shape[1] != -(-k // 16) * 16):
         raise ValueError(f"K5: x {tuple(x.shape)}, table "
                          f"{tuple(wq_t.shape)}")
@@ -252,7 +289,7 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
     _check(x, w, scale, bias, out_dtype, n)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if wq_t is not None:
-        runtime.launch("mas_quant_matmul_table", dev, x.data_ptr(),
+        runtime.launch(sym_table, dev, x.data_ptr(),
                        wq_t.data_ptr(), scale.data_ptr(),
                        None if bias is None else bias.data_ptr(),
                        out.data_ptr(), m, k, wq_t.shape[1], n,
@@ -265,7 +302,7 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
         raise ValueError(f"K5: {splits} splits of [{m}, {n}] take "
                          f"{tiles} arrival counters, more than {COUNTERS}")
     part, cnt = _scratch(dev, splits * tiles * 32 * bn if splits > 1 else 0)
-    runtime.launch("mas_quant_matmul", dev, x.data_ptr(), wq.data_ptr(),
+    runtime.launch(sym, dev, x.data_ptr(), wq.data_ptr(),
                    scale.data_ptr(),
                    None if bias is None else bias.data_ptr(),
                    out.data_ptr(), part, cnt, m, k, n,
@@ -278,7 +315,8 @@ def _launch(x, wq, scale, bias, out_dtype: torch.dtype,
 def quant_matmul(x: torch.Tensor, wq: torch.Tensor,
                  scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ dequant(wq [K, N] int8, scale [N]) -> [M, N] float32.
-    CUDA tensors launch K5, CPU tensors take the plain version."""
+    CUDA tensors launch K5 (its bf16 or float32 form by x's dtype), CPU
+    tensors take the plain version."""
     runtime.refuse_grad("K5", x, wq, scale)
     if x.device.type == "cuda":
         return _launch(x, wq, scale, None, torch.float32)
@@ -292,18 +330,25 @@ def quant_dense_apply(p: dict, x: torch.Tensor,
     """Dense layer with int8 weights; x [..., K] -> [..., N] in
     ``out_dtype`` or x's dtype."""
     runtime.refuse_grad("K5", x, p.get("scale"), p.get("b"))
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    dt = out_dtype or x.dtype
-    if x.device.type == "cuda":
-        y = _launch(x2, p.get("wq"), p["scale"], p.get("b"), dt,
-                    wq_t=p.get("wq_t"))
-    elif x.device.type == "cpu":
-        wq = p["wq"] if "wq" in p else p["wq_t"][:, :x2.shape[1]].t()
-        y = quant_matmul_plain(x2, wq, p["scale"])
-        if "b" in p:
-            y = y + p["b"].float()
-        y = y.to(dt)
-    else:
+    if x.device.type == "cpu":
+        return quant_dense_plain(p, x, out_dtype)
+    if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return y.reshape(*lead, -1)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _launch(x2, p.get("wq"), p["scale"], p.get("b"), out_dtype or x.dtype,
+                wq_t=p.get("wq_t"))
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def quant_dense_plain(p: dict, x: torch.Tensor,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """quant_dense_apply in plain PyTorch on x's device (the CPU path, and
+    the plain version the card checks hold K5 to on a model's leaves): the
+    codes, or a table's transposed back, through quant_matmul_plain, the
+    bias added in float32, the output in ``out_dtype`` or x's dtype."""
+    x2 = x.reshape(-1, x.shape[-1])
+    wq = p["wq"] if "wq" in p else p["wq_t"][:, :x2.shape[1]].t()
+    y = quant_matmul_plain(x2, wq, p["scale"])
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], -1)

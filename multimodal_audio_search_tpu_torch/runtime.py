@@ -281,6 +281,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,            # B, H, T, cluster blocks, keys a block
         f, p]                     # scale, stream
     lib.mas_int8_cached_attention.restype = i
+    # K5's, K6's and K7's float32 forms: x / q float32 (K5's bias float32),
+    # the same arguments
+    for name in ("mas_quant_matmul", "mas_quant_matmul_table",
+                 "mas_single_query_attention_int8",
+                 "mas_int8_cached_attention"):
+        getattr(lib, name + "_f32").argtypes = getattr(lib, name).argtypes
+        getattr(lib, name + "_f32").restype = i
     lib.mas_fused_scores.argtypes = [
         p, p, p,                  # q, emb, success
         f, f, f,                  # asr weight, audio weight, threshold

@@ -24,10 +24,12 @@ edges, K9, K1 and K10 at D = 384-1280, K1, K10 and K11's three forms on
 every cluster size they take, with planted faults and a cluster the card
 refuses, the row division K9 and K11 share held to the true one, and
 K9's launches on the same inputs bit-equal to each other;
-K1's, K2's, K8's, K3's, K3-q's, K4's and K4-o's float32 forms within
-chip_smoke's float32 tolerances of their plain versions, at the float32
-engine's shapes and ragged ones, with their launches repeated bit for bit
-(``-k float32``);
+K1's, K2's, K8's, K3's, K3-q's, K4's, K4-o's, K5's, K6's and K7's
+float32 forms within chip_smoke's float32 tolerances of their plain
+versions (K6's and K7's within the int8 forms' relative bounds), at the
+float32 engine's shapes and ragged ones, K5's in each regime and at its
+split edges, with their launches repeated bit for bit and a dropped
+split, K tile or rank rejected (``-k float32``);
 K12 (search scores) by chip_smoke.check_k12 at odd N and other widths and
 exactly on the rule rows, with the >= fault; K13 (streaming read) on every
 column, with the 128-column fault; K14 (cross + MLP block) by check_delta
@@ -696,15 +698,17 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     from multimodal_audio_search_tpu_torch.ops import quant as Q
     gen = torch.Generator().manual_seed(9)
     x, wq, scale, b = chip_smoke.k5_inputs(gen, 4, 64, 96)
-    with pytest.raises(TypeError):                    # float32 x
-        Q.quant_matmul(x.float(), wq, scale)
+    with pytest.raises(TypeError):                    # float16 x
+        Q.quant_matmul(x.half(), wq, scale)
+    with pytest.raises(TypeError, match="of one dtype"):  # float32 bias
+        Q.quant_dense_apply({"wq": wq, "scale": scale, "b": b.float()}, x)
     with pytest.raises(ValueError):                   # K % 8 != 0
         Q.quant_matmul(x[:, :60].contiguous(), wq[:60].contiguous(), scale)
     with pytest.raises(ValueError):                   # scale on the CPU
         Q.quant_matmul(x, wq, scale.cpu())
     q, k8, ks, v8, vs = chip_smoke.k6_inputs(gen, 2, 16, 2)
-    with pytest.raises(TypeError):                    # float32 q
-        CX.fused_single_query_attention_int8(q.float(), k8, ks, v8, vs,
+    with pytest.raises(TypeError):                    # float16 q
+        CX.fused_single_query_attention_int8(q.half(), k8, ks, v8, vs,
                                              heads=2)
     with pytest.raises(ValueError):                   # head dim 32
         CX.fused_single_query_attention_int8(q, k8, ks.repeat(1, 1, 2), v8,
@@ -716,6 +720,8 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     q, k8, ks, v8, vs = chip_smoke.k7_inputs(gen, 2, 16, 2)
     with pytest.raises(ValueError):                   # non-contiguous K
         CA.int8_cached_attention(q, k8.transpose(2, 3), ks, v8, vs)
+    with pytest.raises(TypeError):                    # float16 q
+        CA.int8_cached_attention(q.half(), k8, ks, v8, vs)
 
 
 @pytest.mark.parametrize("mode", ["int8_fused", "int8"])
@@ -1603,3 +1609,227 @@ def test_search_batch_on_card_matches_search(cuda):
         assert top["index"] == 5 and top["asr_similarity"] > 0.999
         assert store.device_index(emb.device, s.index_dtype)[0].dtype == \
             getattr(torch, dt)
+
+
+# ------------------ K5 / K6 / K7 float32 forms (the float32 int8 engines)
+# (M, K, N, output, bias, splits): the skinny FFMA kernel at the decode
+# layers' shapes of both widths, at forced split counts (1, 3, and 8 over
+# [2048, 512]) and ragged M, N and K; the FFMA table kernel at the
+# vocabulary's odd N at every Whisper width, a ragged last chunk and row
+# block, a partial K piece and a row padded to 16 codes; the 2xTF32 wide
+# kernel at the cross K/V projection's B*1500 rows and at a ragged M, a
+# partial column block, a last K tile of 8 and the smallest shape
+K5_F32_CASES = [
+    (32, 512, 512, "f32", True, None), (32, 512, 2048, "f32", True, None),
+    (32, 2048, 512, "f32", True, None), (32, 384, 1536, "f32", True, None),
+    (32, 1536, 384, "f32", True, 1), (32, 2048, 512, "f32", True, 8),
+    (9, 256, 336, "bf16", True, 3), (33, 136, 48, "f32", False, None),
+    (32, 512, 51865, "f32", False, None), (32, 384, 51865, "f32", False, None),
+    (32, 1280, 51865, "f32", False, None), (1, 64, 51865, "f32", False, None),
+    (33, 1040, 333, "f32", True, None), (4, 136, 130, "bf16", False, None),
+    (48000, 512, 512, "f32", True, None), (48000, 384, 384, "f32", True, None),
+    (130, 520, 400, "f32", True, None), (300, 384, 384, "bf16", True, None),
+    (65, 64, 16, "f32", False, None)]
+
+
+def _check_k5_f32(name, got, ref):
+    """K5's float32 form against its plain version: float32 outputs at
+    [f32]'s F32_BLOCK_ATOL / RTOL, bf16 ones by check_k5 (one bf16 step)."""
+    if got.dtype == torch.bfloat16:
+        return chip_smoke.check_k5(name, got, ref)
+    return chip_smoke.check_close(name, got, ref, chip_smoke.F32_BLOCK_ATOL,
+                                  chip_smoke.F32_BLOCK_RTOL)
+
+
+@pytest.mark.parametrize("m,k,n,dt,bias,splits", K5_F32_CASES)
+def test_k5_float32_matches_plain(cuda, m, k, n, dt, bias, splits):
+    """K5's float32 form (x and bias float32) in each regime of its plan,
+    held to the plain version; one launch of the float32 symbol a call,
+    counted as K5's, the arrival counters left zero; the table kernel on
+    the transposed copy the model holds; 16 more launches bit-equal."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    out_dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator().manual_seed(m + k + n)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, m, k, n, bias=bias,
+                                           dtype=torch.float32)
+    p = {"wq": wq, "scale": scale, **({"b": b} if bias else {})}
+    if n % 16:
+        p = Q.logits_table(p)
+
+    def call():
+        if splits is not None:
+            return Q._launch(x, wq, scale, b, out_dtype, splits=splits)
+        return Q.quant_dense_apply(p, x, out_dtype=out_dtype)
+    runtime.reset_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["quant_matmul"] == 1
+    assert sum(runtime.COUNTS.values()) == 1
+    scratch = Q._SCRATCH.get(x.device)
+    assert scratch is None or int(scratch[3].abs().sum()) == 0
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    _check_k5_f32(f"K5 float32 {m}x{k}x{n}", got,
+                  chip_smoke.k5_plain(x, wq, scale, b, out_dtype))
+    chip_smoke.check_repeats(f"K5 float32 {m}x{k}x{n}", call, got,
+                             chip_smoke.F32_REPEATS)
+
+
+def test_k5_float32_table_limit(cuda):
+    """The float32 table kernel takes K up to TABLE_MAX_K_F32 (1280) and
+    raises a ValueError naming the limit past it, before any launch."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(3)
+    x, wq, scale, _ = chip_smoke.k5_inputs(gen, 2, 1296, 100, bias=False,
+                                           dtype=torch.float32)
+    runtime.reset_counts()
+    with pytest.raises(ValueError, match="K <= 1280"):
+        Q.quant_dense_apply(Q.logits_table({"wq": wq, "scale": scale}), x)
+    assert runtime.COUNTS["quant_matmul"] == 0
+
+
+@pytest.mark.parametrize("fault", ["split", "tile"])
+def test_k5_float32_check_sees_a_dropped_split_or_tile(cuda, fault):
+    """Planted faults: the float32 skinny kernel at [2048, 512] (8 splits)
+    on x with split 7's K columns zeroed, and the 2xTF32 wide kernel at
+    48,000 rows on x with its last 64-deep K tile zeroed, compute what a
+    kernel that left that split or tile out computes; the check rejects
+    both and passes the kernels on x."""
+    from multimodal_audio_search_tpu_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(16)
+    m, k = (32, 2048) if fault == "split" else (48000, 512)
+    x, wq, scale, b = chip_smoke.k5_inputs(gen, m, k, 512,
+                                           dtype=torch.float32)
+    ref = chip_smoke.k5_plain(x, wq, scale, b, torch.float32)
+    _check_k5_f32("K5 float32", Q._launch(x, wq, scale, b, torch.float32),
+                  ref)
+    if fault == "split":
+        _, _, splits, steps = Q.split_plan(m, k, 512, f32=True)
+        assert splits == 8
+        k0, width = 7 * steps * Q.SB_K, steps * Q.SB_K
+    else:
+        assert Q.split_plan(m, k, 512, f32=True)[0] == "wide"
+        k0, width = k - 64, 64
+    xd = x.clone()
+    xd[:, k0:k0 + width] = 0
+    with pytest.raises(AssertionError, match="outside atol"):
+        _check_k5_f32(f"K5 float32 {fault} dropped",
+                      Q._launch(xd, wq, scale, b, torch.float32), ref)
+
+
+@pytest.mark.parametrize("b,t,heads,pos", [(1, 1, 2, None), (3, 97, 6, 50),
+                                           (32, 1500, 8, None),
+                                           (32, 1500, 6, 999),
+                                           (5, 200, 8, 0)])
+def test_k6_float32_matches_plain(cuda, b, t, heads, pos):
+    """K6's float32 form (q float32, quantized in the kernel with B6's
+    true division) against the plain version on the same q; one launch
+    of the float32 symbol, counted as K6's; 16 more bit-equal."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(t + heads)
+    args = chip_smoke.k6_inputs(gen, b, t, heads, dtype=torch.float32)
+    assert args[0].dtype == torch.float32
+
+    def call():
+        return CX.fused_single_query_attention_int8(*args, heads=heads,
+                                                    pos=pos)
+    runtime.reset_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["single_query_attention_int8"] == 1
+    assert sum(runtime.COUNTS.values()) == 1
+    assert got.dtype == torch.float32 and got.shape == (b, heads * 64)
+    chip_smoke.check_rel("K6 float32", got,
+                         CX.single_query_attention_int8_plain(
+                             *args, heads=heads, pos=pos),
+                         chip_smoke.F32_INT8_ATT_MAX,
+                         chip_smoke.F32_INT8_ATT_L2)
+    chip_smoke.check_repeats("K6 float32", call, got, chip_smoke.F32_REPEATS)
+
+
+@pytest.mark.parametrize("group,cluster,t,pos", [
+    (1, 16, 7, None), (2, 4, 1501, 3), ("H", 8, 1500, 999)])
+def test_k6_float32_cluster_layouts(cuda, group, cluster, t, pos):
+    """K6's float32 form at forced head layouts and cluster sizes (ranks
+    without keys), against the plain version."""
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(t)
+    args = chip_smoke.k6_inputs(gen, 3, t, 6, dtype=torch.float32)
+    n = t if pos is None else pos + 1
+    got = CX._launch_int8(*args, 6, n, 6 if group == "H" else group, cluster)
+    chip_smoke.check_rel(f"K6 float32 G={group} cs={cluster}", got,
+                         CX.single_query_attention_int8_plain(
+                             *args, heads=6, pos=pos),
+                         chip_smoke.F32_INT8_ATT_MAX,
+                         chip_smoke.F32_INT8_ATT_L2)
+
+
+@pytest.mark.parametrize("b,t,heads,cluster", [
+    (1, 1, 2, None), (3, 97, 6, None), (32, 1500, 8, None),
+    (32, 1500, 6, None), (3, 7, 2, 8), (3, 1501, 2, None)])
+def test_k7_float32_matches_plain(cuda, b, t, heads, cluster):
+    """K7's float32 form (q float32, rounded to bf16 as it is read, as B7
+    rounds it) against the plain version on the same q; one launch of the
+    float32 symbol, counted as K7's; 16 more bit-equal."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    gen = torch.Generator().manual_seed(t * heads)
+    args = chip_smoke.k7_inputs(gen, b, t, heads, dtype=torch.float32)
+
+    def call():
+        return CA._launch(*args, cluster=cluster)
+    runtime.reset_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["int8_cached_attention"] == 1
+    assert sum(runtime.COUNTS.values()) == 1
+    assert got.dtype == torch.float32 and got.shape == (b, heads, 64)
+    chip_smoke.check_rel("K7 float32", got,
+                         CA.int8_cached_attention_plain(*args),
+                         chip_smoke.F32_INT8_ATT_MAX,
+                         chip_smoke.F32_INT8_ATT_L2)
+    chip_smoke.check_repeats("K7 float32", call, got, chip_smoke.F32_REPEATS)
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_k6_k7_float32_checks_see_a_dropped_rank(cuda, kernel):
+    """A planted fault: K6's and K7's float32 forms at B=32, T=1500, H=8
+    with the plan's cluster, run with the V codes of rank 1's keys
+    zeroed, compute what a cluster that left rank 1's partial out of rank
+    0's sum computes; the check rejects both and passes the kernels on
+    the true V."""
+    from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
+    from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
+    gen = torch.Generator().manual_seed(17)
+    if kernel == "K6":
+        q, k8, ks, v8, vs = chip_smoke.k6_inputs(gen, 32, 1500, 8,
+                                                 dtype=torch.float32)
+        _, cs, chunk = CX.int8_plan(1500, 8, 32, CX._fit_int8(q.device))
+
+        def fn(v):
+            return CX.fused_single_query_attention_int8(q, k8, ks, v, vs,
+                                                        heads=8)
+        ref = CX.single_query_attention_int8_plain(q, k8, ks, v8, vs,
+                                                   heads=8)
+    else:
+        q, k8, ks, v8, vs = chip_smoke.k7_inputs(gen, 32, 1500, 8,
+                                                 dtype=torch.float32)
+        cs, chunk = CA.cluster_plan(1500, None, 32 * 8, CA._fit(q.device))
+
+        def fn(v):
+            return CA.int8_cached_attention(q, k8, ks, v, vs)
+        ref = CA.int8_cached_attention_plain(q, k8, ks, v8, vs)
+    assert cs > 1
+    chip_smoke.check_rel(kernel, fn(v8), ref, chip_smoke.F32_INT8_ATT_MAX,
+                         chip_smoke.F32_INT8_ATT_L2)
+    vd = v8.clone()
+    if kernel == "K6":
+        vd[:, chunk:2 * chunk] = 0
+    else:
+        vd[:, :, chunk:2 * chunk] = 0
+    with pytest.raises(AssertionError, match="off its plain version"):
+        chip_smoke.check_rel(f"{kernel} float32 rank 1 dropped", fn(vd), ref,
+                             chip_smoke.F32_INT8_ATT_MAX,
+                             chip_smoke.F32_INT8_ATT_L2)

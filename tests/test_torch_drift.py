@@ -7,14 +7,16 @@ weights.py, and the held-out clips of both tools' stream
 * Every float32 row (parity, short_context, mulaw8, int16, int12,
   int8_dec, the mel codecs, fused_enc_f32, and the port's fused_layer,
   v2 -- JAX's True branch, which JAX turns "v2" into -- paired, and the
-  opt-in fused_layer_f32 and v2_f32) gives JAX's texts clip for clip;
-  int8_enc is held to JAX's row under MAS_ENC_INT8 (its XLA twin of the
-  int8 kernel's arithmetic). fused_layer_f32 and v2_f32 give the
-  fused_layer and v2 rows' texts, and on the card decode in float32.
+  opt-in fused_layer_f32, v2_f32 and int8_dec_f32) gives JAX's texts
+  clip for clip; int8_enc is held to JAX's row under MAS_ENC_INT8 (its
+  XLA twin of the int8 kernel's arithmetic). fused_layer_f32, v2_f32 and
+  the int8 *_f32 rows give their bf16-named twins' texts on the CPU
+  (both float32 there), and on the card decode in float32.
 * bf16 and fused_enc (torch's and XLA's bf16 round differently on the
-  CPU) and int8_fused / int8_kv (the port follows its kernels'
-  arithmetic, under tests/test_torch_int8_attention.py's guardrail) agree
-  with JAX's row on at least BOUND_AGREE of the clips.
+  CPU) and int8_fused / int8_kv and their opt-in *_f32 rows (the port
+  follows its kernels' arithmetic, under
+  tests/test_torch_int8_attention.py's guardrail) agree with JAX's row
+  on at least BOUND_AGREE of the clips.
 * The roundtrip helpers are bit-equal to JAX's, the JSON line's keys are
   JAX's, checkpoints load across packages, and each drift tool raises
   without a card unless told the CPU.
@@ -51,8 +53,9 @@ SHORT_S = 1.0     # the test geometry's short context: 1 s clips, 2 s mel
 EXACT_ROWS = ("parity", "short_context", "mulaw8", "int16", "int12",
               "int8_dec", "int8_enc", "mel16", "mel12", "mel8",
               "fused_enc_f32", "fused_layer", "v2", "paired",
-              "fused_layer_f32", "v2_f32")
-BOUND_ROWS = ("bf16", "fused_enc", "int8_fused", "int8_kv")
+              "fused_layer_f32", "v2_f32", "int8_dec_f32")
+BOUND_ROWS = ("bf16", "fused_enc", "int8_fused", "int8_kv", "int8_fused_f32",
+              "int8_kv_f32")
 BOUND_AGREE = 0.875  # of the clips (14 of 16), the port's row = JAX's row
 
 
@@ -70,8 +73,9 @@ def _jax_transcribe(jm, waves, **decode):
 def jax_row(name, jm, waves, monkeypatch):
     """JAX's texts for the port's row ``name`` (the JAX tool's code for
     its rows; JAX's pipeline with the same decode option for the port's
-    extra rows)."""
-    if name in ("int8_dec", "int8_fused", "int8_kv"):
+    extra rows; an int8 *_f32 row's float32 twin is the row without it)."""
+    if name in TD.INT8_DEC_ROWS:
+        name = name.removesuffix("_f32")
         quant = dataclasses.replace(jm, params=jquantize(jm.params))
     if name == "parity":
         return JS.transcribe(jm, waves)
@@ -165,6 +169,22 @@ def test_f32_fused_rows_give_their_twins_texts(drift, row, twin):
     assert details[row]["dtype"] == details[twin]["dtype"] == \
         "torch.float32"
     assert details[row]["fused_layer"] == details[twin]["fused_layer"]
+    assert details[row]["texts"] == details[twin]["texts"]
+
+
+@pytest.mark.parametrize("row", ["int8_dec_f32", "int8_fused_f32",
+                                 "int8_kv_f32"])
+def test_int8_f32_rows_give_their_twins_texts(drift, row):
+    """The opt-in float32 rows of the int8 decoder: selected only by name,
+    and on the CPU (where int8_dec, int8_fused and int8_kv decode at
+    float32 too) their twins' routes and texts, clip for clip."""
+    *_, details = drift
+    twin = row.removesuffix("_f32")
+    assert row not in TD.select_rows() and row not in TD.select_rows(
+        extra=True) and row in TD.select_rows([row])
+    assert details[row]["dtype"] == details[twin]["dtype"] == \
+        "torch.float32"
+    assert details[row].get("cross_attn") == details[twin].get("cross_attn")
     assert details[row]["texts"] == details[twin]["texts"]
 
 
@@ -315,6 +335,36 @@ def test_card_decodes_f32_fused_rows_in_float32(row, fused, monkeypatch):
     TD.decode_row(row.replace("_f32", ""), None, np.zeros((2, 8)), dev,
                   SHORT_S)
     assert seen["dtype"] == torch.bfloat16 and seen["fused_layer"] == fused
+
+
+@pytest.mark.parametrize("row,cross", [("int8_dec_f32", None),
+                                       ("int8_fused_f32", "int8_fused"),
+                                       ("int8_kv_f32", "int8")])
+def test_card_decodes_int8_f32_rows_in_float32(row, cross, monkeypatch):
+    """On the card the float32 int8 rows decode the quantized model in
+    float32 under their cross_attn (K5's, K6's and K7's float32 forms: the
+    symbols by dtype in tests/test_torch_runtime_devices.py::
+    test_k5_k6_k7_form_by_dtype), where int8_dec, int8_fused and int8_kv
+    take the card's bf16; neither is moved to the CPU."""
+    from multimodal_audio_search_tpu_torch.training import synth
+    seen = {}
+
+    def transcribe(m, waves, **kw):
+        seen.update(kw, model=m)
+        return ["t"] * len(waves)
+    monkeypatch.setattr(synth, "transcribe", transcribe)
+    dev, quantized = torch.device("cuda"), object()
+    texts, route = TD.decode_row(row, None, np.zeros((2, 8)), dev, SHORT_S,
+                                 quantized)
+    assert texts == ["t", "t"] and seen["device"] == dev
+    assert seen["model"] is quantized and seen["dtype"] == torch.float32
+    assert seen.get("cross_attn") == cross
+    assert route["dtype"] == str(torch.float32)
+    seen.clear()
+    TD.decode_row(row.removesuffix("_f32"), None, np.zeros((2, 8)), dev,
+                  SHORT_S, quantized)
+    assert seen["dtype"] == torch.bfloat16 and seen["model"] is quantized
+    assert seen.get("cross_attn") == cross
 
 
 @pytest.mark.parametrize("modes", [["fused_enc_f32"],

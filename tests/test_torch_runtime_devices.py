@@ -167,6 +167,14 @@ def _launches():
     yield "K7", lambda: cached_attention._launch(
         _m(b, h, d), _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
         _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32))
+    # K6's and K7's float32 forms: a float32 q
+    yield "K6 float32", lambda: cross_attention._launch_int8(
+        _m(b, hd, dtype=f32), _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32),
+        _m(b, t, hd, dtype=i8), _m(b, t, h, dtype=f32), h, t)
+    yield "K7 float32", lambda: cached_attention._launch(
+        _m(b, h, d, dtype=f32), _m(b, h, t, d, dtype=i8),
+        _m(b, h, t, dtype=f32), _m(b, h, t, d, dtype=i8),
+        _m(b, h, t, dtype=f32))
     b16, f = 16, 256
     x, vf, vb, w = _m(b16, hd), _m(hd, dtype=f32), _m(hd), _m(hd, hd)
     selfw = (x, vf, vb, w, vb, w, w, vb, w, vb)
@@ -200,6 +208,12 @@ def _launches():
                                       _m(32, dtype=f32), _m(32), f32)
     yield "K5 table", lambda: quant._launch(
         xq, None, _m(40, dtype=f32), None, f32, wq_t=_m(40, 64, dtype=i8))
+    # K5's float32 form: x and bias float32
+    xq32 = _m(4, 64, dtype=f32)
+    yield "K5 float32", lambda: quant._launch(
+        xq32, _m(64, 32, dtype=i8), _m(32, dtype=f32), _m(32, dtype=f32), f32)
+    yield "K5 table float32", lambda: quant._launch(
+        xq32, None, _m(40, dtype=f32), None, f32, wq_t=_m(40, 64, dtype=i8))
     yield "K12", lambda: fused_search._launch(
         _m(32, dtype=f32), _m(10, 2, 32, dtype=f32),
         _m(10, 2, dtype=torch.bool), 0.6, 0.4, 0.1)
@@ -238,7 +252,9 @@ def test_every_launch_enters_its_tensors_device(fake):
         "mas_decoder_self_block_f32", "mas_decoder_self_block_f32_fit",
         "mas_decoder_mlp_block_f32",
         "mas_cross_mlp_block", "mas_cross_mlp_attention_fit",
-        "mas_quant_matmul", "mas_quant_matmul_table", "mas_fused_scores",
+        "mas_quant_matmul", "mas_quant_matmul_table", "mas_quant_matmul_f32",
+        "mas_quant_matmul_table_f32", "mas_single_query_attention_int8_f32",
+        "mas_int8_cached_attention_f32", "mas_fused_scores",
         "mas_stream_read", "mas_encoder_block_fit"}
     assert all(runtime.COUNTS[k] for k in (
         "encoder_attention", "single_query_attention", "decoder_self_block",
@@ -273,6 +289,62 @@ def test_k2_k8_form_by_dtype(fake, dtype, k2, k8):
                else torch.bfloat16)
     with pytest.raises(TypeError, match="of one dtype"):
         cross_attention._launch(qm, kv, mixed, h, t)
+
+
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.bfloat16, ""), (torch.float32, "_f32"), (torch.float16, None)])
+def test_k5_k6_k7_form_by_dtype(fake, dtype, suffix):
+    """K5 (its skinny, wide and table regimes), K6 and K7 launch their bf16
+    form on bf16 x / q and their float32 form (the symbol + "_f32") on
+    float32, each counted under its kernel's key; float16 raises a
+    TypeError before any launch, and so does a K5 bias of the other float
+    dtype ("of one dtype"). K6's and K7's scales are float32 in both
+    forms, and q is their one float input."""
+    lib, _ = fake
+    f32, i8 = torch.float32, torch.int8
+    b, h, t = 2, 2, 8
+    hd = h * 64
+    bias = _m(32, dtype=dtype)
+    calls = (
+        ("quant_matmul", "mas_quant_matmul", lambda: quant._launch(
+            _m(4, 64, dtype=dtype), _m(64, 32, dtype=i8), _m(32, dtype=f32),
+            bias, dtype)),
+        ("quant_matmul", "mas_quant_matmul", lambda: quant._launch(
+            _m(96, 64, dtype=dtype), _m(64, 32, dtype=i8), _m(32, dtype=f32),
+            bias, dtype)),
+        ("quant_matmul", "mas_quant_matmul_table", lambda: quant._launch(
+            _m(4, 64, dtype=dtype), None, _m(40, dtype=f32), None, dtype,
+            wq_t=_m(40, 64, dtype=i8))),
+        ("single_query_attention_int8", "mas_single_query_attention_int8",
+         lambda: cross_attention._launch_int8(
+             _m(b, hd, dtype=dtype), _m(b, t, hd, dtype=i8),
+             _m(b, t, h, dtype=f32), _m(b, t, hd, dtype=i8),
+             _m(b, t, h, dtype=f32), h, t)),
+        ("int8_cached_attention", "mas_int8_cached_attention",
+         lambda: cached_attention._launch(
+             _m(b, h, 64, dtype=dtype), _m(b, h, t, 64, dtype=i8),
+             _m(b, h, t, dtype=f32), _m(b, h, t, 64, dtype=i8),
+             _m(b, h, t, dtype=f32))))
+    for key, sym, call in calls:
+        lib.calls.clear()
+        runtime.COUNTS[key] = 0
+        if suffix is None:
+            with pytest.raises(TypeError, match="bf16 or float32"):
+                call()
+        else:
+            out = call()
+            assert out.dtype == (dtype if key == "quant_matmul" else f32)
+            assert runtime.COUNTS[key] == 1
+        assert [c[0] for c in lib.calls if c[0] not in runtime.INIT
+                and not c[0].endswith("_fit")] == \
+            ([] if suffix is None else [sym + suffix])
+    if suffix is not None:
+        other = f32 if dtype == torch.bfloat16 else torch.bfloat16
+        lib.calls.clear()
+        with pytest.raises(TypeError, match="of one dtype"):
+            quant._launch(_m(4, 64, dtype=dtype), _m(64, 32, dtype=i8),
+                          _m(32, dtype=f32), _m(32, dtype=other), dtype)
+        assert not [c for c in lib.calls if c[0] not in runtime.INIT]
 
 
 @pytest.mark.parametrize("dtype,want", [

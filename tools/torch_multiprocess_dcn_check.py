@@ -21,8 +21,9 @@ computation (the unsharded fused scores, the whole batch's gradient)
 and prints MPDCN_OK; the parent prints ALL OK and exits 0 when every
 process did. ``--dump DIR`` also writes each rank's scores, ids and
 gradient to DIR/rank<r>.npz. The data are the JAX tool's (``make_data``,
-seed 7); ``--rows`` / ``--dim`` scale the index (the card runs 1M x 2 x
-384, the scale of chip_smoke.py's ``[mesh]``).
+seed 7); ``--rows`` / ``--dim`` scale the index (chip_smoke.py's
+``[dcn]`` runs 512 x 2 x 64 and 50k x 2 x 384; its ``[mesh]`` searches
+1M x 2 x 384 in one process).
 
 Usage:  python tools/torch_multiprocess_dcn_check.py [--procs 2]
             [--local 4] [--rows 512] [--dim 64] [--device cpu]

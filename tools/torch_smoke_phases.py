@@ -28,11 +28,13 @@ it and the host index's storage dtypes). ``weights`` is the weights-day
 chain on random-init stand-ins (checkpoint directories -> the engine,
 against the in-memory engine), ``soak`` tools/torch_soak.py's single
 pass and loop against the server, ``dcn`` the multi-process DCN check at
-the JAX tool's size and at 1M rows. ``f32`` is the float32 engine
+the JAX tool's size and at 50k x 2 x 384. ``f32`` is the float32 engine
 (``[f32]``: K1's, K8's and K2's float32 forms, and K3's, K3-q's, K4's and
 K4-o's, at its shapes, then the engine at EngineConfig()'s defaults in
 float32 against the same engine with fused_encoder=False and under
-fast_lossless, and the float32 "v2" decode steps on its batch).
+fast_lossless, and the float32 "v2" decode steps on its batch; then
+K5's, K6's and K7's float32 forms and the float32 engine with the int8
+decoder under int8_fused and int8).
 """
 import os
 import sys

@@ -24,6 +24,9 @@ and holds each row's transcripts to the parity row's:
   * fused_layer_f32 / v2_f32 (only by ``--modes``) -- fused_layer True /
     "v2" at float32: K3's and K4's / K3-q's and K4-o's float32 forms on
     the card, their plain twins on the CPU
+  * int8_dec_f32 / int8_fused_f32 / int8_kv_f32 (only by ``--modes``) --
+    the int8 decoder rows at float32: K5's float32 forms (with K6's /
+    K7's) on the card, their plain versions on the CPU
 
 Per row: transcript agreement with the parity decode (exact rate, token
 F1) and the exact rate against the generator's captions, as one JSON
@@ -34,13 +37,14 @@ training's wall seconds.
 
 Dtypes: the float32 rows decode in float32 on every device (on the card
 through K2's float32 form, K8's at T >= 512, K1's for fused_enc_f32 and
-the decoder blocks' for fused_layer_f32 and v2_f32, as the TPU kernels
-take float32); ``bf16`` and ``fused_enc`` in bf16; the kernel rows
-(int8_dec, int8_enc and the extra rows) in the device's dtype, float32
-on the CPU, where the tests hold them to the JAX rows, and bf16 on the
-card: there int8_dec, int8_enc, int8_fused, int8_kv and paired take
-kernels that take bf16 only, and fused_layer and v2 run as a bf16 engine
-runs them beside their float32 rows.
+the decoder blocks' for fused_layer_f32 and v2_f32, K5's, K6's and K7's
+for the int8 *_f32 rows, as the TPU kernels take float32); ``bf16`` and
+``fused_enc`` in bf16; the kernel rows (int8_dec, int8_enc and the extra
+rows) in the device's dtype, float32 on the CPU, where the tests hold
+them to the JAX rows, and bf16 on the card: there int8_enc and paired
+take kernels that take bf16 only, and int8_dec, int8_fused, int8_kv,
+fused_layer and v2 run as a bf16 engine runs them beside their float32
+rows.
 
     python3 tools/torch_synth_drift.py [--steps 600] [--clips 64] [--out f.json]
     python3 tools/torch_synth_drift.py --production \\
@@ -73,9 +77,14 @@ ROWS = ("parity", "short_context", "mulaw8", "int16", "int12", "bf16",
         "mel12", "mel8")
 # the port's rows, each a DecodeConfig option both packages run
 EXTRA_ROWS = ("fused_layer", "v2", "int8_fused", "int8_kv", "paired",
-              "fused_layer_f32", "v2_f32")
+              "fused_layer_f32", "v2_f32", "int8_dec_f32", "int8_fused_f32",
+              "int8_kv_f32")
 # rows run only when named (--modes)
-OPT_IN = ("fused_enc_f32", "fused_layer_f32", "v2_f32")
+OPT_IN = ("fused_enc_f32", "fused_layer_f32", "v2_f32", "int8_dec_f32",
+          "int8_fused_f32", "int8_kv_f32")
+# the rows that decode the int8 decoder (ops/quant.py)
+INT8_DEC_ROWS = ("int8_dec", "int8_fused", "int8_kv", "int8_dec_f32",
+                 "int8_fused_f32", "int8_kv_f32")
 
 
 def token_f1(a: str, b: str) -> float:
@@ -215,10 +224,11 @@ def decode_row(name: str, model, waves: np.ndarray, device,
         waves_in = int12_roundtrip(waves)
     elif name == "bf16":
         dtype = bf16
-    elif name in ("int8_dec", "int8_fused", "int8_kv"):
-        dtype, m = kernels, quantized
-        if name != "int8_dec":
-            kw["cross_attn"] = "int8_fused" if name == "int8_fused" \
+    elif name in INT8_DEC_ROWS:
+        base = name.removesuffix("_f32")
+        dtype, m = f32 if name != base else kernels, quantized
+        if base != "int8_dec":
+            kw["cross_attn"] = "int8_fused" if base == "int8_fused" \
                 else "int8"
     elif name in ("int8_enc", "paired"):
         dtype, fused = kernels, "int8" if name == "int8_enc" else "paired"
@@ -269,7 +279,7 @@ def measure(model, waves: np.ndarray, truths, rows, device,
     if dev.type == "cuda":
         runtime.kernels(dev)        # the build outside the rows' seconds
     quantized = None
-    if {"int8_dec", "int8_fused", "int8_kv"} & set(rows):
+    if set(INT8_DEC_ROWS) & set(rows):
         quantized = dataclasses.replace(
             model, params=quantize_whisper_decoder(model.params))
     details = {}
