@@ -767,16 +767,16 @@ def check_close(name, got, ref, atol, rtol) -> float:
 
 def k1_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
               q_scale: float = 1.0, residual: bool = True,
-              device="cuda"):
+              device="cuda", dtype=torch.bfloat16):
     """K1's inputs in bf16 as the encoder hands them over: q/k/v are
     head-split views of [B, T, H*D] dense outputs. Without ``residual``,
-    x and bo are zero, so the output is the attention term alone."""
+    x and bo are zero, so the output is the attention term alone.
+    ``dtype`` float32: the same draws in float32 (the float32 forms')."""
     d = 64
     hd = heads * d
 
     def rn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(
-            device, torch.bfloat16)
+        return (torch.randn(*shape, generator=gen) * scale).to(device, dtype)
 
     q, k, v = (rn(b, t, hd, scale=s).view(b, t, heads, d).transpose(1, 2)
                for s in (q_scale, 1.0, 1.0))
@@ -784,8 +784,8 @@ def k1_inputs(gen: torch.Generator, b: int, t: int, heads: int, *,
     if residual:
         x, bo = rn(b, t, hd), rn(hd, scale=0.1)
     else:
-        x = torch.zeros(b, t, hd, device=device, dtype=torch.bfloat16)
-        bo = torch.zeros(hd, device=device, dtype=torch.bfloat16)
+        x = torch.zeros(b, t, hd, device=device, dtype=dtype)
+        bo = torch.zeros(hd, device=device, dtype=dtype)
     return q, k, v, x, wo, bo
 
 
@@ -1786,10 +1786,10 @@ def search_scale_phase(card: str) -> dict:
     return counts
 
 
-# [ann]'s index rows: half the tool's 1M, which took ~75 s of the
-# script's 1200 s; the streamed host index still spans several chunks
-# of each size
-ANN_ROWS = 500_000
+# [ann]'s index rows: 0.3 of the tool's 1M, which took ~75 s of the
+# script's 1200 s (500k: 37.4 s of [ann]); the streamed host index still
+# spans two of its default 262,144-row chunks and five small ones
+ANN_ROWS = 300_000
 
 
 def ann_phase(card: str, clips) -> dict:
@@ -2293,12 +2293,14 @@ def reference_check(asr, rng: np.random.Generator) -> None:
             f" (limit {FUSED_LOGITS_ERR_REL} of the logits' scale)")
 
 
-def encoder_reference_check(asr, rng: np.random.Generator, enc) -> None:
+def encoder_reference_check(asr, rng: np.random.Generator, enc,
+                            tag: str = "engine") -> None:
     """An encoder variant's engine (fused_encoder ``enc``: K8, K9 or K10)
     against the plain encoder on two 10 s segments: mean |err| within
     ENC_MEAN_ERR_MAX, as K1's encoder is held. The int8 dots add 7e-4 of
     mean |err| at float32 on the CPU (whisper-base and tiny, seed 0), a
-    tenth of the bf16 roundings' 0.0059 on the card."""
+    tenth of the bf16 roundings' 0.0059 on the card. ``tag``: the phase
+    the reading is printed under (a float32 engine's: "f32")."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
     dev = asr.device
@@ -2312,7 +2314,8 @@ def encoder_reference_check(asr, rng: np.random.Generator, enc) -> None:
         ref = W.encode(asr.params, mel, asr.cfg, fused_attention=False)
     err = (got.float() - ref.float()).abs()
     ok = got.shape == ref.shape and bool(torch.isfinite(got).all())
-    phase("engine", path=f"fused_encoder={enc}", step="encoder reference",
+    phase(tag, path=f"fused_encoder={enc}", step="encoder reference",
+          dtype=str(asr.dtype).replace("torch.", ""),
           encoder_mean_abs_err=float(err.mean()),
           encoder_max_abs_err=float(err.max()), shapes_finite_ok=ok)
     if not ok or float(err.mean()) > ENC_MEAN_ERR_MAX:
@@ -3692,18 +3695,19 @@ def service_phase(card: str, rng: np.random.Generator,
                                  "--strategy", "fixed_5050")[0])
     removed = sum(m["source"] == files[0]
                   for m in SegmentStore.load(idx).meta)
+    # the delete, and its index on disk (the stats subcommand, a JSON
+    # export with no device work, runs in tests/test_torch_streaming_cli.py
+    # and costs a process here: the script's time limit)
     out_del = cli("delete", files[0])[0]
-    stats = json.loads(cli("stats")[0])
     left = SegmentStore.load(idx)
     if not res["results"] or strat["weight_info"]["strategy"] != \
             "fixed_5050" or \
             f"removed {removed} segment(s) (index total {n - removed})" \
-            not in out_del or stats["database"]["total_segments"] != \
-            n - removed or len(left) != n - removed or any(
+            not in out_del or len(left) != n - removed or any(
                 m["source"] == files[0] for m in left.meta):
         raise AssertionError(f"service CLI: {res['results'][:1]}, "
                              f"{strat['weight_info']}, {out_del!r}, "
-                             f"{stats['database']}")
+                             f"{len(left)} left")
     phase("service", step="cli", card=card, segments=n, removed=removed,
           left=len(left), ingest_process_wall_s=cli_s)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4342,7 +4346,7 @@ def split_encode(pipe, mels) -> list:
 
 
 def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
-                      mp: int = 1, whole=None) -> dict:
+                      mp: int = 1, whole=None, dtype=None) -> dict:
     """The split ingest: make_default_ingest(cfg, mesh=m) over
     ``devices`` (one card named twice on the card), a (len / mp, mp)
     mesh, against the same config without a mesh on devices[0] (or the
@@ -4360,7 +4364,8 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
     tokens); the own-segment query and ANN_QUERIES give identical top-10
     ids from a sharded and an unsharded searcher over the split engine's
     store, and with a model axis (phase ``[tp]``) from the unsplit
-    engine's searcher where every text is equal."""
+    engine's searcher where every text is equal. ``dtype``: both engines'
+    (make_default_ingest's; None: its default, bf16 on the card)."""
     from multimodal_audio_search_tpu_torch import AudioSearchEngine, runtime
     from multimodal_audio_search_tpu_torch.index.search import FusionSearcher
     from multimodal_audio_search_tpu_torch.models import whisper as W
@@ -4383,7 +4388,8 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
         if label in engines:
             continue
         t0 = time.perf_counter()
-        ing = make_default_ingest(cfg, seed=0, device=dev, mesh=m)
+        ing = make_default_ingest(cfg, seed=0, device=dev, mesh=m,
+                                  **({"dtype": dtype} if dtype else {}))
         eng = AudioSearchEngine(cfg=cfg, ingest_pipeline=ing, device=dev)
         asr, cap = ing.asr, ing.caption
         runtime.reset_counts()
@@ -4491,6 +4497,7 @@ def mesh_ingest_check(card: str, wave: np.ndarray, cfg, devices,
                                      f"the unsplit engine's {whole_hits}")
         tops.append(hits[0])
     out = {"dp": len(mesh.data_devices()), "mp": mp, "segments": len(segs),
+           "dtype": str(ing.asr.dtype).replace("torch.", ""),
            "texts_equal": texts_equal, "decode": rows,
            "dispatches": {"asr": disp[0], "caption": disp[1]},
            "launches": counts["split"], "expected": exp,
@@ -4989,30 +4996,269 @@ def tp_variant_kernels(card: str, gen: torch.Generator, int8k: list,
     return [k9p, k10p]
 
 
+def tp_f32_kernels(card: str, gen: torch.Generator, device: str = "cuda",
+                   b: int = 32, t: int = 1500) -> list[dict]:
+    """The float32 partial forms at the shapes the bf16 ones take in
+    [tp]: K1p f32 on TP_K1_WIDTHS' H / TP_MP heads, K10p f32 where that
+    count is even, K9p f32 on TP_ENC_WIDTHS' (B=``b``, T=``t``, Wo the
+    rank's rows); K3p f32 at whisper-base's rank (B=``b``, L=68, pos=67)
+    and K4p f32 at F / TP_MP. Each against its plain twin (K1p, K10p,
+    K3p, K4p at F32_BLOCK_ATOL / RTOL; K9p by the K9 check on the
+    attention term), F32_REPEATS more launches bit-equal, timed beside
+    its square float32 form; the ranks' partials through model_sum
+    against the square float32 kernel on the whole layer (K9p by the K9
+    check on the residual input, the rest at F32_BLOCK_ATOL / RTOL).
+    ``device``, ``b`` and ``t`` let the tests rehearse it on the CPU.
+    Returns the five kernels' entries for the kernels line."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.parallel.mesh import model_sum
+    cuda = device == "cuda"
+    f32 = torch.float32
+    src = "multimodal_audio_search_tpu_torch/csrc/"
+    jx = "multimodal_audio_search_tpu/ops/"
+    out = {k: {"name": n, "route": "cuda", "source": src + f, "replaces": r,
+               "cases": []} for k, n, f, r in (
+        ("K1p", "encoder_attn_o_residual_partial_f32", "encoder_block_f32.cu",
+         jx + "encoder_block.py:425"),
+        ("K10p", "encoder_attn_o_residual_paired_partial_f32",
+         "encoder_block_f32.cu", jx + "encoder_block.py:375"),
+        ("K9p", "encoder_attn_o_residual_int8_partial_f32",
+         "encoder_block_int8.cu", jx + "encoder_block.py:319"),
+        ("K3p", "decoder_self_block_partial_f32", "decoder_block_f32.cu",
+         jx + "decoder_block.py:200"),
+        ("K4p", "decoder_mlp_block_partial_f32", "decoder_block_f32.cu",
+         jx + "decoder_block.py:611"))}
+    tol = [F32_BLOCK_ATOL, F32_BLOCK_RTOL]
+    queued_ms = (load_tool("torch_decode_kernel_ab").queued_ms if cuda
+                 else (lambda fn: None))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(case, fn, plain, square):
+        case.update(ms=time_ms(fn), queued_ms=queued_ms(fn),
+                    plain_ms=time_ms(plain, reps=3),
+                    square_ms=time_ms(square), square_queued_ms=queued_ms(
+                        square), library_ms=None)
+
+    def rank(a, j, axis=1):
+        return torch.chunk(a, TP_MP, axis)[j]
+    # K1p / K10p / K9p on a rank's heads, then the ranks summed
+    for label, heads, hdo in TP_K1_WIDTHS:
+        hl = heads // TP_MP
+        q, k, v, wo = f32_partial_inputs(gen, b, t, hl, hdo, device)
+        kv = EB.quantize_kv(k, v)
+        sq = k1_inputs(gen, b, t, heads, device=device, dtype=f32)
+        sq9 = (sq[0], *EB.quantize_kv(sq[1], sq[2]), *sq[3:])
+        runs = [("K1p", lambda: EB.fused_attention_o_residual(
+                     q, k, v, None, wo, None, partial=True),
+                 lambda: EB.attention_o_residual_plain(
+                     q, k, v, None, wo, None, partial=True),
+                 lambda: EB.fused_attention_o_residual(*sq))]
+        if hl % 2 == 0 and (label, heads, hdo) in TP_ENC_WIDTHS:
+            runs.append(("K10p", lambda: EB.fused_attention_o_residual(
+                q, k, v, None, wo, None, pair_heads=True, partial=True),
+                lambda: EB.attention_o_residual_paired_plain(
+                    q, k, v, None, wo, None, partial=True),
+                lambda: EB.fused_attention_o_residual(*sq, pair_heads=True)))
+        if (label, heads, hdo) in TP_ENC_WIDTHS:
+            runs.append(("K9p", lambda: EB.attention_o_residual_int8(
+                q, *kv, None, wo, None, partial=True),
+                lambda: EB.attention_o_residual_int8_plain(
+                    q, *kv, None, wo, None, partial=True),
+                lambda: EB.attention_o_residual_int8(*sq9)))
+        for name, fn, plain, square in runs:
+            got = fn()
+            sync()
+            tag = f"{name} float32 {label}"
+            case = {"shape": f"TP {label} rank of {TP_MP}: B={b} T={t} "
+                             f"H={hl} Wo [{hl * 64}, {hdo}] (partial)",
+                    "square_shape": f"B={b} T={t} H={heads}",
+                    **(check_k1(tag, got, plain(), False) if name == "K9p"
+                       else {"max_abs_err": check_close(tag, got, plain(),
+                                                        *tol)}),
+                    "repeats_equal": check_repeats(tag, fn, got,
+                                                   F32_REPEATS)}
+            if name != "K9p":
+                case["cluster"] = EB.f32_cluster(hl, name == "K10p")
+            timed(case, fn, plain, square)
+            hd = hl * 64
+            if name == "K9p":
+                case.update(k9_f32_bound(
+                    nbytes(q, *kv, wo, got), 4 * b * hl * t * t * 64,
+                    2 * b * t * hd * hdo))
+            else:
+                case.update(f32_bound(nbytes(q, k, v, wo, got),
+                                      4 * b * hl * t * t * 64
+                                      + 2 * b * t * hd * hdo))
+            out[name]["cases"].append(case)
+            phase("tp", kernel=f"{name} float32", card=card,
+                  tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}
+                  if name == "K9p" else tol, **case)
+            del got
+        del q, k, v, wo, kv, sq, sq9, runs
+        if cuda:
+            torch.cuda.empty_cache()
+        if (label, heads, hdo) not in TP_ENC_WIDTHS:
+            continue
+        q, k, v, x, wo, bo = k1_inputs(gen, b, t, heads, device=device,
+                                       dtype=f32)
+        kv = EB.quantize_kv(k, v)
+        sums = [("K1p", lambda j: EB.fused_attention_o_residual(
+                    rank(q, j), rank(k, j), rank(v, j), None,
+                    tp_shard_rows(wo, j, 0), None, partial=True),
+                 lambda: EB.fused_attention_o_residual(q, k, v, x, wo, bo)),
+                ("K9p", lambda j: EB.attention_o_residual_int8(
+                    rank(q, j), *(rank(a, j).contiguous() for a in kv), None,
+                    tp_shard_rows(wo, j, 0), None, partial=True),
+                 lambda: EB.attention_o_residual_int8(q, *kv, x, wo, bo))]
+        if hl % 2 == 0:
+            sums.append(("K10p", lambda j: EB.fused_attention_o_residual(
+                rank(q, j), rank(k, j), rank(v, j), None,
+                tp_shard_rows(wo, j, 0), None, pair_heads=True, partial=True),
+                lambda: EB.fused_attention_o_residual(q, k, v, x, wo, bo,
+                                                      pair_heads=True)))
+        for name, part, whole in sums:
+            got = model_sum([part(j) for j in range(TP_MP)], bo, x)[0]
+            ref = whole()
+            sync()
+            tag = f"{name} float32 sum {label}"
+            case = {"shape": f"TP {label}: model_sum of {TP_MP} {name} "
+                             f"float32 ranks vs square {name[:-1]} float32, "
+                             f"B={b} T={t} H={heads}", "inputs": "residual",
+                    **(check_k1(tag, got, ref, True) if name == "K9p"
+                       else {"max_abs_err": check_close(tag, got, ref,
+                                                        *tol)})}
+            out[name]["cases"].append(case)
+            phase("tp", kernel=f"{name} float32", card=card,
+                  tol=[K1_ATOL, K1_RTOL] if name == "K9p" else tol, **case)
+            del got, ref
+        del q, k, v, x, wo, bo, kv, sums
+        if cuda:
+            torch.cuda.empty_cache()
+    # K3p and K4p at whisper-base width, a rank's 4 heads / 1024 columns
+    _, d, heads, f = DEC_WIDTHS[0]
+    hl, l, pos = heads // TP_MP, 68, K3_POS[-1]
+    x, selfw, _, kc, vc = k3_inputs(gen, b, l, d, device=device, dtype=f32)
+    g1, b1, wq, bq, wk, wv, bv, wo, bo = selfw
+    ranks = [(g1, b1, tp_shard_rows(wq, j, 1), tp_shard_rows(bq, j, 0),
+              tp_shard_rows(wk, j, 1), tp_shard_rows(wv, j, 1),
+              tp_shard_rows(bv, j, 0), tp_shard_rows(wo, j, 0), bo)
+             for j in range(TP_MP)]
+    caches = [(tp_shard_rows(kc, j, 2), tp_shard_rows(vc, j, 2))
+              for j in range(TP_MP)]
+
+    def k3p(j):
+        return DB.fused_self_block(x, *ranks[j], caches[j][0].clone(),
+                                   caches[j][1].clone(), pos, heads=hl,
+                                   partial=True)
+
+    def flat(outs):
+        return torch.cat([a.reshape(-1) for a in outs])
+    got = k3p(0)
+    ref = DB.self_block_plain(x, *ranks[0], *caches[0], pos, heads=hl,
+                              partial=True)
+    sync()
+    case = {"shape": f"TP base rank of {TP_MP}: B={b} D={d} H={hl} L={l} "
+                     f"pos={pos} (partial)",
+            "max_abs_err": max(check_close(f"K3p float32 {o}", g, r, *tol)
+                               for o, g, r in zip(("out", "k1", "v1"), got,
+                                                  ref)),
+            "repeats_equal": check_repeats("K3p float32", lambda: flat(
+                k3p(0)), flat(got), F32_REPEATS),
+            # the rank's inputs, its cache rows 0..pos-1 read and row pos
+            # written, the float32 out; its projections and attention
+            **bound(nbytes(x, *ranks[0][:-1], *got)
+                    + 2 * b * pos * hl * 64 * 4,
+                    f32=2 * b * d * hl * 64 * 4 + 4 * b * (pos + 1) * hl * 64),
+            "bound_rate": "f32"}
+    timed(case, lambda: DB.fused_self_block(
+        x, *ranks[0], *caches[0], pos, heads=hl, partial=True),
+        lambda: DB.self_block_plain(x, *ranks[0], *caches[0], pos,
+                                    heads=hl, partial=True),
+        lambda: DB.fused_self_block(x, *selfw, kc, vc, pos, heads=heads))
+    whole = DB.fused_self_block(x, *selfw, kc.clone(), vc.clone(), pos,
+                                heads=heads)[0]
+    case["sum_vs_square_max_abs_err"] = check_close(
+        "K3p float32 sum vs K3 float32",
+        model_sum([k3p(j)[0] for j in range(TP_MP)], bo, x)[0], whole, *tol)
+    out["K3p"]["cases"].append(case)
+    phase("tp", kernel="K3p float32", card=card, tol=tol, **case)
+    x, mlp, _ = k4_inputs(gen, b, d, f, device=device, dtype=f32)
+    g, bl, w1, b1f, w2, b2 = mlp
+    ranks = [(g, bl, tp_shard_rows(w1, j, 1), tp_shard_rows(b1f, j, 0),
+              tp_shard_rows(w2, j, 0), b2) for j in range(TP_MP)]
+
+    def k4p(j):
+        return DB.fused_mlp_block(x, *ranks[j], partial=True)
+    got = k4p(0)
+    sync()
+    case = {"shape": f"TP base rank of {TP_MP}: B={b} D={d} "
+                     f"F={f // TP_MP} (partial)",
+            "max_abs_err": check_close("K4p float32", got, DB.mlp_block_plain(
+                x, *ranks[0], partial=True), *tol),
+            "repeats_equal": check_repeats("K4p float32", lambda: k4p(0),
+                                           got, F32_REPEATS),
+            **bound(nbytes(x, *ranks[0][:-1], got),
+                    f32=4 * b * d * f // TP_MP), "bound_rate": "f32"}
+    timed(case, lambda: k4p(0), lambda: DB.mlp_block_plain(
+        x, *ranks[0], partial=True), lambda: DB.fused_mlp_block(x, *mlp))
+    case["sum_vs_square_max_abs_err"] = check_close(
+        "K4p float32 sum vs K4 float32",
+        model_sum([k4p(j) for j in range(TP_MP)], b2, x)[0],
+        DB.fused_mlp_block(x, *mlp), *tol)
+    out["K4p"]["cases"].append(case)
+    phase("tp", kernel="K4p float32", card=card, tol=tol, **case)
+    del x, selfw, kc, vc, mlp, ranks, caches, got, ref, whole
+    if cuda:
+        torch.cuda.empty_cache()
+    return list(out.values())
+
+
+# the float32 engine over the model axis at (1, TP_MP) against the unsplit
+# float32 engine: (label, profile, fused_layer, int8, fused_encoder, the
+# data axes), the float32 twins of TP_PATHS' fast_lossless (K1p, K3p, K4p,
+# K2 f32), enc_int8 (K9p f32) and enc_paired (K10p f32 at base, K1p f32 at
+# tiny's 3 heads a rank)
+TP_F32_PATHS = (("f32 fast_lossless", "fast_lossless", True, None, None,
+                 (1,)),
+                ("f32 enc_int8", None, False, None, "int8", (1,)),
+                ("f32 enc_paired", None, False, None, "paired", (1,)))
+
+
 def tp_phase(card: str, clips, k1: dict, k2: dict, dec: list,
              int8k: list | None = None) -> tuple[dict, list]:
     """[tp]: tp_kernel_phase (with ``int8k``, the encoder variants'
-    partial forms and K5 / K6 / K7 at shard shapes too), then
-    mesh_ingest_check with a model axis of TP_MP over the card named
-    TP_MP times (dp, mp) = (1, TP_MP) and, for the paths that name it,
-    2 x TP_MP times (2, TP_MP), under each TP_PATHS config, on the 25 s
-    clip, against the unsplit engine of that config (built once a
-    config). Returns each split ingest's launch counts and the K9p /
-    K10p entries of the kernels line."""
+    partial forms and K5 / K6 / K7 at shard shapes too) and
+    tp_f32_kernels (the float32 partial forms), then mesh_ingest_check
+    with a model axis of TP_MP over the card named TP_MP times (dp, mp)
+    = (1, TP_MP) and, for the paths that name it, 2 x TP_MP times (2,
+    TP_MP), under each TP_PATHS config and, at float32, each
+    TP_F32_PATHS one, on the 25 s clip, against the unsplit engine of
+    that config and dtype (built once a config). Returns each split
+    ingest's launch counts and the K9p / K10p entries of the kernels
+    line, then the float32 partial forms' (K1p, K10p, K9p, K3p, K4p)."""
     from multimodal_audio_search_tpu_torch import runtime
     t0 = time.perf_counter()
     parts = tp_kernel_phase(card, torch.Generator().manual_seed(18), k1, k2,
                             dec, int8k=int8k)
     marks = {"kernels": time.perf_counter() - t0}
+    parts = [*parts, *tp_f32_kernels(card, torch.Generator().manual_seed(28))]
+    marks["f32 kernels"] = time.perf_counter() - t0
     cuda = torch.device("cuda", 0)
     out = {}
-    for label, profile, fused, int8, enc, dps in TP_PATHS:
-        cfg = tp_config(label, profile, fused, int8, enc)
+    for label, profile, fused, int8, enc, dps in (*TP_PATHS, *TP_F32_PATHS):
+        f32 = label.startswith("f32 ")
+        cfg = tp_config(label[4:] if f32 else label, profile, fused, int8,
+                        enc)
         whole = None
         for dp in dps:
             whole = mesh_ingest_check(card, dict(clips)["short.wav"], cfg,
                                       [cuda] * (dp * TP_MP), mp=TP_MP,
-                                      whole=whole)
+                                      whole=whole, dtype=torch.float32
+                                      if f32 else None)
             out[f"{label} ({dp}, {TP_MP})"] = whole["launches"]
         del whole
         torch.cuda.empty_cache()
@@ -5722,10 +5968,11 @@ DRIFT_F32_ROWS = ("fused_enc_f32", "fused_layer_f32", "v2_f32",
                   "int8_dec_f32", "int8_fused_f32", "int8_kv_f32")
 
 
-def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int):
+def _f32_heads(gen: torch.Generator, b: int, t: int, heads: int,
+               device="cuda"):
     """q, k, v ~ N(0, 1) in float32 as the encoder hands them to K8: the
     head-split [B, H, T, 64] views of [B, T, H*64] buffers."""
-    return tuple(torch.randn(b, t, heads * 64, generator=gen).cuda()
+    return tuple(torch.randn(b, t, heads * 64, generator=gen).to(device)
                  .view(b, t, heads, 64).transpose(1, 2) for _ in range(3))
 
 
@@ -5742,15 +5989,28 @@ F32_WIDTHS = (("base", 8), ("tiny", 6))
 F32_B, F32_T = 32, 1500
 
 
-def _f32_block(gen: torch.Generator, b: int, t: int, heads: int):
+def _f32_block(gen: torch.Generator, b: int, t: int, heads: int,
+               device="cuda"):
     """K1's float32 inputs: q, k, v as _f32_heads, x ~ N(0, 1), Wo ~
     N(0, 1/HD), bo ~ N(0, 0.01)."""
     hd = heads * 64
-    q, k, v = _f32_heads(gen, b, t, heads)
-    x = torch.randn(b, t, hd, generator=gen).cuda()
-    wo = (torch.randn(hd, hd, generator=gen) / math.sqrt(hd)).cuda()
-    bo = (0.1 * torch.randn(hd, generator=gen)).cuda()
+    q, k, v = _f32_heads(gen, b, t, heads, device)
+    x = torch.randn(b, t, hd, generator=gen).to(device)
+    wo = (torch.randn(hd, hd, generator=gen) / math.sqrt(hd)).to(device)
+    bo = (0.1 * torch.randn(hd, generator=gen)).to(device)
     return q, k, v, x, wo, bo
+
+
+def f32_partial_inputs(gen: torch.Generator, b: int, t: int, hl: int,
+                       hdo: int, device="cuda"):
+    """A rank's float32 inputs of K1p / K10p / K9p: q, k, v of its hl heads
+    as _f32_heads makes them, and its Wo rows [hl * 64, hdo] ~ N(0,
+    1/hdo)."""
+    q, k, v = (torch.randn(b, t, hl * 64, generator=gen).to(device)
+               .view(b, t, hl, 64).transpose(1, 2) for _ in range(3))
+    wo = (torch.randn(hl * 64, hdo, generator=gen) / math.sqrt(hdo)).to(
+        device)
+    return q, k, v, wo
 
 
 def f32_kernel_checks(card: str, gen: torch.Generator) -> tuple:
@@ -5851,6 +6111,140 @@ def f32_kernel_checks(card: str, gen: torch.Generator) -> tuple:
             phase("f32", card=card, kernel="K2 float32",
                   tol=[F32_ATT_ATOL, F32_ATT_RTOL], **case)
     return k1, k2, k8
+
+
+def k9_f32_bound(nb: int, attn: float, proj: float) -> dict:
+    """bound() of K9's (K9p's) float32 function: ``nb`` bytes, the two
+    int8 attention products (``attn`` operations at the int8 rate) and the
+    float32 o-projection (``proj`` FLOP) at the lesser of the CUDA cores'
+    float32 rate and three TF32 products each, as f32_bound takes it."""
+    by_rate = {"int8+f32": bound(nb, int8=attn, f32=proj),
+               "int8+3xtf32": bound(nb, int8=attn, tf32=3 * proj)}
+    rate = min(by_rate, key=lambda r: by_rate[r]["bound_ms"])
+    return {**by_rate[rate], "bound_rate": rate}
+
+
+def k9_f32_bf16_q_plain(q, k8, ks, v8, vs, x, wo, bo, partial=False):
+    """K9's float32 form's plain version with a planted fault: q rounded
+    to bf16 before it is quantized (the bf16 form's input), where the
+    float32 form quantizes the float32 q as it is."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    return EB.attention_o_residual_int8_plain(
+        q.to(torch.bfloat16).float(), k8, ks, v8, vs, x, wo, bo, partial)
+
+
+def f32_variant_checks(card: str, gen: torch.Generator, device="cuda",
+                       b: int = F32_B, t: int = F32_T) -> list[dict]:
+    """[f32]'s encoder variants: K10's and K9's float32 forms at B=F32_B,
+    T=F32_T and F32_WIDTHS, each against its plain version (K10 at
+    F32_BLOCK_ATOL / RTOL, K9 by the bf16 K9's check on K1_CASES'
+    residual and attention inputs in float32), F32_REPEATS more launches
+    bit-equal, ms, queued ms, plain ms and bound; K10 timed beside K1's
+    float32 form, which computes the same function (the largest
+    difference of their outputs printed). The planted fault: K9's plain
+    version with q rounded to bf16 before quantizing
+    (k9_f32_bf16_q_plain), read as check_k1 reads the kernel; on the
+    attention input it must fail the check, on the residual input the
+    reading is printed. ``device``, ``b`` and ``t`` let the tests
+    rehearse it on the CPU. Returns the two entries for the kernels
+    line."""
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    cuda = device == "cuda"
+    queued_ms = (load_tool("torch_decode_kernel_ab").queued_ms if cuda
+                 else (lambda fn: None))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+    src = "multimodal_audio_search_tpu_torch/csrc/"
+    jx = "multimodal_audio_search_tpu/ops/encoder_block.py"
+    k10 = {"name": "encoder_attn_o_residual_paired_f32", "route": "cuda",
+           "source": src + "encoder_block_f32.cu", "replaces": f"{jx}:375",
+           "cases": []}
+    k9 = {"name": "encoder_attn_o_residual_int8_f32", "route": "cuda",
+          "source": src + "encoder_block_int8.cu", "replaces": f"{jx}:319",
+          "cases": []}
+    tol = [F32_BLOCK_ATOL, F32_BLOCK_RTOL]
+    for label, heads in F32_WIDTHS:
+        hd = heads * 64
+        shape = f"{label} B={b} T={t} H={heads}"
+        args = _f32_block(gen, b, t, heads, device)
+        fn = (lambda: EB.fused_attention_o_residual(*args, pair_heads=True))
+        k1f = (lambda: EB.fused_attention_o_residual(*args))
+        plain = (lambda: EB.attention_o_residual_paired_plain(*args))
+        got = fn()
+        sync()
+        k1_out = k1f()
+        case = {"shape": shape, "cluster": EB.f32_cluster(heads, True),
+                "max_abs_err": check_close(f"K10 float32 {shape}", got,
+                                           plain(), *tol),
+                "vs_k1_f32_max_abs_err": check_close(
+                    f"K10 float32 vs K1 float32 {shape}", got, k1_out, *tol),
+                "equal_k1_f32": bool(torch.equal(got, k1_out)),
+                "repeats_equal": check_repeats(f"K10 float32 {shape}", fn,
+                                               got, F32_REPEATS),
+                "ms": time_ms(fn), "queued_ms": queued_ms(fn),
+                "k1_f32_ms": time_ms(k1f), "k1_f32_queued_ms": queued_ms(k1f),
+                "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+                **f32_bound(nbytes(*args) + nbytes(got),
+                            4 * b * heads * t * t * 64 + 2 * b * t * hd * hd)}
+        if cuda:
+            case["vs_k1_f32"] = case["queued_ms"] / case["k1_f32_queued_ms"]
+        k10["cases"].append(case)
+        phase("f32", card=card, kernel="K10 float32", tol=tol, **case)
+        del args, got, k1_out
+        free()
+        for inputs, q_scale, residual in K1_CASES:
+            q, k, v, x, wo, bo = k1_inputs(gen, b, t, heads, q_scale=q_scale,
+                                           residual=residual, device=device,
+                                           dtype=torch.float32)
+            args9 = (q, *quantize_kv(k, v), x, wo, bo)
+            fn = (lambda: EB.attention_o_residual_int8(*args9))
+            plain = (lambda: EB.attention_o_residual_int8_plain(*args9))
+            got, ref = fn(), plain()
+            sync()
+            tag = f"K9 float32 {shape} {inputs}"
+            case = {"shape": shape, "inputs": inputs,
+                    **check_k1(tag, got, ref, residual),
+                    "repeats_equal": check_repeats(tag, fn, got,
+                                                   F32_REPEATS)}
+            if inputs != "peaked":
+                bad = k9_f32_bf16_q_plain(*args9)
+                try:
+                    check_k1(f"{tag}: q rounded to bf16 (planted)", got, bad,
+                             residual)
+                    caught = False
+                except AssertionError:
+                    caught = True
+                e = (bad - ref).float()
+                case["bf16_q_fault"] = {
+                    "caught": caught,
+                    "rel_max_err": float(e.abs().max() / ref.abs().max()),
+                    "rel_l2_err": float(e.norm() / ref.norm()),
+                    "max_abs_err": float(e.abs().max())}
+                if not residual and not caught:
+                    raise AssertionError(f"{tag}: the check passes the bf16 "
+                                         f"q fault: {case['bf16_q_fault']}")
+            if residual:
+                case.update(
+                    ms=time_ms(fn), queued_ms=queued_ms(fn),
+                    plain_ms=time_ms(plain, reps=3), library_ms=None,
+                    **k9_f32_bound(nbytes(*args9, got),
+                                   4 * b * heads * t * t * 64,
+                                   2 * b * t * hd * hd))
+            k9["cases"].append(case)
+            phase("f32", card=card, kernel="K9 float32",
+                  tol={"y_max": K1_Y_MAX, "y_l2": K1_Y_L2}
+                  if not residual else [K1_ATOL, K1_RTOL], **case)
+            del q, k, v, x, wo, bo, args9, got, ref
+            free()
+    return [k9, k10]
 
 
 # [f32]'s decoder blocks: K3's, K3-q's, K4's and K4-o's float32 forms
@@ -6348,7 +6742,8 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
     ``fused``: the decode configs' fused_layer as in engine_config;
     ``enc``: the decode configs' fused_encoder, None = the profile's, K1;
     ``int8``: quantize_decoder on both Whisper slots under that
-    cross_attn, whose own segment must then rank first for its text)
+    cross_attn; with ``int8`` or a lossy encoder variant ("int8",
+    "paired") its own segment must then rank first for its text)
     built by make_default_ingest(..., dtype=torch.float32): the clip
     ingested and the queries answered with the counts set to 0 just
     before and read just after, held to expected_launches; then the clip
@@ -6392,7 +6787,7 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
         raise AssertionError(f"[f32] {label}: launches {counts} != "
                              f"expected {exp}")
     own = None
-    if int8:
+    if int8 or enc in ("int8", "paired"):
         own, unique = self_query(f"[f32] {label}", texts)
         check_self_hit(f"[f32] {label}", eng.search(texts[own])[0], texts,
                        own, unique)
@@ -6413,7 +6808,7 @@ def f32_engine_run(card: str, clip, label: str, enc, profile=None,
           dispatches={"asr": disp[0], "caption": disp[1]},
           launches=counts, expected=exp,
           distinct_asr_texts=len(set(texts)), top10=top10,
-          **({"self_query_segment": own} if int8 else {}),
+          **({"self_query_segment": own} if own is not None else {}),
           peak_allocated_bytes=torch.cuda.max_memory_allocated())
     by_seg = {(m["source"], m["start_time"]): (m["asr_text"],
                                                m["audio_description"])
@@ -6444,17 +6839,28 @@ def f32_phase(card: str, clips) -> tuple:
     (K5 + K7), each held to expected_launches, its own segment first for
     its text, its texts' agreement with the K1 engine's and its warm
     ingest rate printed, and its first decode step held to the same step
-    on the plain versions (f32_int8_step_check). Returns ({path: its
-    counts} for "f32" (the K1 engine), "f32_enc_attn", "f32_fast_lossless",
-    "f32_v2" (the steps), "f32_int8_fused" and "f32_int8"; the kernels'
-    entries: K1's, K2's and K8's float32 forms, then K3's, K3-q's, K4's
-    and K4-o's, then K5's, K6's and K7's)."""
+    on the plain versions (f32_int8_step_check). Then the encoder
+    variants on float32 (f32_variant_checks: K9's and K10's float32 forms
+    against their plain versions, K9's planted bf16 q fault): the float32
+    engine under fused_encoder "int8" (K9 f32) and "paired" (K10 f32),
+    10 launches a dispatch each, held to expected_launches, its own
+    segment first, one batch's encoder states within ENC_MEAN_ERR_MAX of
+    the plain float32 encoder (encoder_reference_check), its texts'
+    agreement with the K1 engine's and its warm ingest rate printed.
+    Returns ({path: its counts} for "f32" (the K1 engine),
+    "f32_enc_attn", "f32_fast_lossless", "f32_v2" (the steps),
+    "f32_int8_fused", "f32_int8", "f32_enc_int8" and "f32_enc_paired";
+    the kernels' entries: K1's, K2's and K8's float32 forms, then K3's,
+    K3-q's, K4's and K4-o's, then K5's, K6's and K7's, then K9's and
+    K10's)."""
     from multimodal_audio_search_tpu_torch.models import whisper as W
     from multimodal_audio_search_tpu_torch.ops.mel import log_mel_spectrogram
     kern = f32_kernel_checks(card, torch.Generator().manual_seed(24))
     torch.cuda.empty_cache()
     kern = (*kern, *f32_decoder_checks(card,
                                        torch.Generator().manual_seed(25)))
+    torch.cuda.empty_cache()
+    variants = f32_variant_checks(card, torch.Generator().manual_seed(27))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counts, disp, texts, top10, asr, eng, rate = f32_engine_run(
@@ -6511,6 +6917,27 @@ def f32_phase(card: str, clips) -> tuple:
               first_step_err_of_span=step["first_step_err_of_span"])
         del eng_i, asr_i
         torch.cuda.empty_cache()
+    # the encoder variants on float32: K9's and K10's float32 forms, 10 a
+    # dispatch each (whisper-tiny's 6 heads pair evenly)
+    counts_enc = {}
+    for enc in ("int8", "paired"):
+        label = f"f32 enc_{enc}"
+        counts_enc[enc], disp_e, texts_e, _, asr_e, eng_e, rate_e = \
+            f32_engine_run(card, clips[0], label, enc)
+        key = "K9" if enc == "int8" else "K10"
+        if disp_e != (1, 1) or counts_enc[enc][key] != layers:
+            raise AssertionError(f"[f32] {label}: {key} "
+                                 f"{counts_enc[enc][key]} over dispatches "
+                                 f"{disp_e}, want {layers} over one")
+        encoder_reference_check(asr_e, np.random.default_rng(27), enc,
+                                tag="f32")
+        agree = {name: float(np.mean([texts_e[k][i] == texts[k][i]
+                                      for k in texts]))
+                 for i, name in enumerate(("asr", "caption"))}
+        phase("f32", path=label, card=card, warm_ingest_audio_s_per_s=rate_e,
+              texts_agree_k1_engine=agree)
+        del eng_e, asr_e
+        torch.cuda.empty_cache()
     phase("f32", path="f32", card=card, encoder_max_abs_err=enc_err,
           tol=[F32_ENC_ATOL, F32_ENC_RTOL], texts_equal_k8_engine=True,
           top10_equal_k8_engine=True, warm_ingest_audio_s_per_s=rate,
@@ -6522,7 +6949,9 @@ def f32_phase(card: str, clips) -> tuple:
     return {"f32": counts, "f32_enc_attn": counts8,
             "f32_fast_lossless": countsf, "f32_v2": v2["launches"],
             "f32_int8_fused": counts_i8["int8_fused"],
-            "f32_int8": counts_i8["int8"]}, kern
+            "f32_int8": counts_i8["int8"],
+            "f32_enc_int8": counts_enc["int8"],
+            "f32_enc_paired": counts_enc["paired"]}, (*kern, *variants)
 
 
 def drift_kernel_checks(card: str, b: int, t: int, heads: int) -> None:
@@ -7252,6 +7681,25 @@ def main() -> int:
             "library_ms": None, "device_ms": first["device_ms"],
             "shape": first["shape"], "path": f"tp {path}",
             "cases": k["cases"]})
+    # the float32 partial forms, from the float32 engine's paths over the
+    # model axis (their launches count as the square forms')
+    for key, k, path in (("K1", tp_kern[2], "f32 fast_lossless"),
+                         ("K10", tp_kern[3], "f32 enc_paired"),
+                         ("K9", tp_kern[4], "f32 enc_int8"),
+                         ("K3", tp_kern[5], "f32 fast_lossless"),
+                         ("K4", tp_kern[6], "f32 fast_lossless")):
+        first = next(c for c in k["cases"] if "ms" in c)
+        path = f"{path} (1, {TP_MP})"
+        kern.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": counts["tp"][path][key],
+            "max_abs_err": max(c["max_abs_err"] for c in k["cases"]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "bound_rate": first["bound_rate"], "library_ms": None,
+            "queued_ms": first["queued_ms"], "shape": first["shape"],
+            "path": f"tp {path}", "cases": k["cases"]})
     # the float32 forms, from the float32 engines' paths (K3-q's and K4-o's
     # from the float32 "v2" decode steps)
     for key, k, path in (("K1", f32k[0], "f32"), ("K2", f32k[1], "f32"),
@@ -7262,7 +7710,9 @@ def main() -> int:
                          ("K4-o", f32k[6], "f32_v2"),
                          ("K5", f32k[7], "f32_int8_fused"),
                          ("K6", f32k[8], "f32_int8_fused"),
-                         ("K7", f32k[9], "f32_int8")):
+                         ("K7", f32k[9], "f32_int8"),
+                         ("K9", f32k[10], "f32_enc_int8"),
+                         ("K10", f32k[11], "f32_enc_paired")):
         first = k["cases"][0]
         kern.append({
             "name": k["name"], "route": k["route"], "source": k["source"],

@@ -12,6 +12,16 @@
 //   K4 (and K4-o): out = x1 + fc2(gelu(fc1(LN(x1)))), x1 = x, or for
 //     K4-o x1 = x + attn @ Wco + bco. Replaces fused_mlp_block (:611)
 //     and fused_mlp_block_o (:363) on float32 inputs.
+//   K3p, K4p (PARTIAL): the forms of K3 and K4 on one rank of the mesh's
+//     model axis (the head shard of fused_self_block, the F / mp column
+//     shard of fused_mlp_block, as decoder_block.cu's K3p and K4p): the
+//     rank's H heads of a model of width D (Wq/Wk/Wv [D, H * 64], Wo
+//     [H * 64, D], caches [B, L, H * 64]) or its F / mp columns of fc1 and
+//     rows of fc2, the whole x for the layer norm, and out = the float32
+//     o-projection (fc2) sum without x and bo (b2), which parallel/
+//     mesh.py::model_sum adds once to the ranks' sum. K3p's cluster sums
+//     the D / 64 output chunks over its CS ranks (rank r the chunks [r N /
+//     CS, (r + 1) N / CS), which for K3 are its heads' columns).
 //
 // Every tensor is float32 and every product is a float32 FFMA on the
 // CUDA cores: nothing is rounded to bf16 (the plain versions' roundings
@@ -193,9 +203,13 @@ inline size_t f3_smem(int D, int L, int S, int rt) {
               f3_scores(rt, L));
 }
 
-// K3 / K3-q, float32. D = H * 64; every weight matrix is [D, D] row-major
-// ([in, out]); caches [B, L, D].
-template <bool TAIL>
+// K3 / K3-q, float32. D is the model width (x, the layer norm, the rows
+// of Wq/Wk/Wv, the columns of Wo) and HL = H * 64 the width of the
+// block's heads (the columns of Wq/Wk/Wv, the rows of Wo, the caches'
+// rows); every weight matrix row-major ([in, out]). K3 and K3-q have D =
+// HL; K3p (PARTIAL) is a rank's head shard of the mesh's model axis and
+// writes the float32 o-projection sum to xout without x and bo.
+template <bool TAIL, bool PARTIAL = false>
 __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g1,
     const float* __restrict__ b1, const float* __restrict__ wq,
@@ -205,14 +219,17 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     const float* __restrict__ g2, const float* __restrict__ b2,
     const float* __restrict__ wcq, const float* __restrict__ bcq, float* kc,
     float* vc, float* __restrict__ xout, float* __restrict__ qcross, int B,
-    int H, int L, int pos, int rt, int S, float scale, float eps) {
+    int D, int H, int L, int pos, int rt, int S, float scale, float eps) {
+  static_assert(!(TAIL && PARTIAL), "K3p has no tail");
   extern __shared__ unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int D = H * HDIM, nkc = H;
+  const int HL = H * HDIM, nkc = D / HDIM;
   const int rank = blockIdx.x, CS = gridDim.x;  // a cluster spans x
-  // the rank's heads [h0, h0 + G), which are also its output chunks of
-  // the head sum
+  // the rank's heads [h0, h0 + G)
   const int h0 = rank * H / CS, G = (rank + 1) * H / CS - h0;
+  // the rank's output chunks of the head sum, [oc0, oc0 + ocn) of the nkc
+  // (K3, K3-q: its heads' columns, the same split)
+  const int oc0 = rank * nkc / CS, ocn = (rank + 1) * nkc / CS - oc0;
   const int r0 = blockIdx.y * rt, nrows = min(rt, B - r0);
   float* ring = reinterpret_cast<float*>(
       smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127));
@@ -227,8 +244,8 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // a product step's thread: tile m of the step (m < 3), its column c
   const int m = tid >> 6, c = tid & 63;
-  const float* kcr = kc + (long long)r0 * L * D;  // the tile's cache rows
-  const float* vcr = vc + (long long)r0 * L * D;
+  const float* kcr = kc + (long long)r0 * L * HL;  // the tile's cache rows
+  const float* vcr = vc + (long long)r0 * L * HL;
 
   // The weight stream, tile u into ring slot u % S: for each head of the
   // rank its nkc q/k/v groups (Wq, Wk, Wv rows 64 kc.. and the head's 64
@@ -243,12 +260,16 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
       const int u = issued;
       if (u < ntiles) {
         const float* src;
+        int ld = HL;  // Wq/Wk/Wv: [D, HL]; Wo: [HL, D]; Wcq: [D, D], D = HL
         if (u < nheads) {
           const int j = u % per_head, c0 = (h0 + u / per_head) * HDIM;
-          src = j < 3 * nkc
-                    ? (j % 3 == 0 ? wq : j % 3 == 1 ? wk : wv) +
-                          (long long)(j / 3) * HDIM * D + c0
-                    : wo + (long long)c0 * D + (j - 3 * nkc) * HDIM;
+          if (j < 3 * nkc) {
+            src = (j % 3 == 0 ? wq : j % 3 == 1 ? wk : wv) +
+                  (long long)(j / 3) * HDIM * HL + c0;
+          } else {
+            src = wo + (long long)c0 * D + (j - 3 * nkc) * HDIM;
+            ld = D;
+          }
         } else {
           const int v = u - nheads;
           src = wcq + (long long)(v % nkc) * HDIM * D +
@@ -257,7 +278,7 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
         float* dst = ring + (size_t)(u % S) * TILE;
         for (int i = tid; i < TILE / 4; i += NT) {
           const int r = i >> 4, q = (i & 15) * 4;
-          cp_async16(dst + r * HDIM + q, src + (long long)r * D + q);
+          cp_async16(dst + r * HDIM + q, src + (long long)r * ld + q);
         }
       }
       cp_async_commit();
@@ -303,7 +324,7 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
         const float v = m == 1 ? acc[r] : acc[r] + bias;
         dst[r * HDIM + c] = v;
         if (m > 0 && r < nrows)
-          (m == 1 ? kc : vc)[((long long)(r0 + r) * L + pos) * D + c0 + c] =
+          (m == 1 ? kc : vc)[((long long)(r0 + r) * L + pos) * HL + c0 + c] =
               v;
       }
     }
@@ -312,7 +333,7 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     const int npair = nrows * pos;
     for (int i = tid; i < npair; i += NT) {
       const int r = i / pos, t = i - r * pos;
-      const float* kr = kcr + ((long long)r * L + t) * D + c0;
+      const float* kr = kcr + ((long long)r * L + t) * HL + c0;
       float4 kv[16];
 #pragma unroll
       for (int w = 0; w < 16; ++w) kv[w] = ldg4(kr + 4 * w);
@@ -360,14 +381,14 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     for (int r = 0; r < F3_RT; ++r) {
       a[r][0] = a[r][1] = 0.f;
       if (r >= nrows) continue;
-      const float* vr = vcr + (long long)r * L * D + c0 + 2 * lane;
+      const float* vr = vcr + (long long)r * L * HL + c0 + 2 * lane;
       const float* pr = sS + r * L;
       for (int t = ta; t < tb; t += 8) {
         float2 w8[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u)
           w8[u] = __ldg(reinterpret_cast<const float2*>(
-              vr + (long long)min(t + u, tb - 1) * D));
+              vr + (long long)min(t + u, tb - 1) * HL));
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           const float p = t + u < tb ? pr[t + u] : 0.f;
@@ -417,14 +438,15 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     }
   }
   // 6. the head sum through distributed shared memory: rank r adds the
-  // ranks' partials of its heads' columns in rank order (so the heads in
+  // ranks' partials of its ocn * 64 columns in rank order (so the heads in
   // order), 4 columns a thread with every rank's load in flight, then
-  // bias and residual. Every rank stays until all have read.
+  // bias and residual (K3p: the sum alone). Every rank stays until all
+  // have read.
   cluster.sync();
-  const int cw = G * HDIM, nq = cw / 4;
+  const int cw = ocn * HDIM, nq = cw / 4;
   float* sX = sS;  // TAIL: the rank's x_out columns [rt][cw]
   for (int i = tid; i < nrows * nq; i += NT) {
-    const int r = i / nq, cc = h0 * HDIM + (i % nq) * 4;
+    const int r = i / nq, cc = oc0 * HDIM + (i % nq) * 4;
     float4 pv[F3_MAX_CS];
 #pragma unroll
     for (int k = 0; k < F3_MAX_CS; ++k)
@@ -440,6 +462,11 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
         o[3] += pv[k].w;
       }
     const long long gi = (long long)(r0 + r) * D + cc;
+    if (PARTIAL) {
+      *reinterpret_cast<float4*>(xout + gi) =
+          make_float4(o[0], o[1], o[2], o[3]);
+      continue;
+    }
     const float4 xx = ldg4(x + gi), bb = ldg4(bo + cc);
     const float4 xo = make_float4(xx.x + (o[0] + bb.x), xx.y + (o[1] + bb.y),
                                   xx.z + (o[2] + bb.z), xx.w + (o[3] + bb.w));
@@ -619,7 +646,9 @@ __device__ __forceinline__ void grid_sync(int* c, int n) {
 
 // x: [B, D] float32 (K4-o: x1 from rowproj_f32_kernel); hT: [D, Bp]
 // scratch, Bp = B rounded up to 32; part: [F / 16, B, D] scratch; bar:
-// three zeroed ints, left zero.
+// three zeroed ints, left zero. PARTIAL (K4p, a rank's F columns of fc1
+// and rows of fc2): out = the float32 fc2 sum without x and b2.
+template <bool PARTIAL = false>
 __global__ void __launch_bounds__(NT, 1) mlp_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g,
     const float* __restrict__ bln, const float* __restrict__ w1,
@@ -789,7 +818,10 @@ __global__ void __launch_bounds__(NT, 1) mlp_f32_kernel(
   const long long i1 = min(total, (blockIdx.x + 1) * chunk);
   for (long long i = blockIdx.x * chunk + tid; i < i1; i += NT) {
     const int cc = (int)(i % D);
-    out[i] = x[i] + (ordered_sum(part + i, total, S) + b2[cc]);
+    if (PARTIAL)
+      out[i] = ordered_sum(part + i, total, S);
+    else
+      out[i] = x[i] + (ordered_sum(part + i, total, S) + b2[cc]);
   }
   if (tid == 0 && atomicAdd(bar + 2, 1) == G - 1) {
     bar[0] = 0;  // every block has passed both barriers
@@ -798,15 +830,95 @@ __global__ void __launch_bounds__(NT, 1) mlp_f32_kernel(
   }
 }
 
+// K3 / K3-q (wcq != NULL) / K3p (PARTIAL) at model width D over the
+// block's H heads (see mas_decoder_self_block_f32 and _partial_f32).
+int launch_self_f32(bool partial, const void* x, const void* g1,
+                    const void* b1, const void* wq, const void* bq,
+                    const void* wk, const void* wv, const void* bv,
+                    const void* wo, const void* bo, void* kc, void* vc,
+                    void* x_out, const void* g2, const void* b2,
+                    const void* wcq, const void* bcq, void* q_cross, int B,
+                    int D, int H, int L, int pos, int CS, int rt, int S,
+                    float scale, float eps, void* stream) {
+  const bool tail = wcq != nullptr;
+  if (B < 1 || H < 1 || D < HDIM || D % HDIM || CS < 1 || CS > H ||
+      CS > D / HDIM || CS > F3_MAX_CS || rt < 1 || rt > F3_RT ||
+      S < F3_MIN_STAGES || S > F3_MAX_STAGES || pos < 0 || pos >= L ||
+      f3_smem(D, L, S, rt) > SMEM_MAX || (B + rt - 1) / rt > 65535 ||
+      (tail && partial) || (!partial && D != H * HDIM))
+    return (int)cudaErrorInvalidValue;
+  auto* kernel = tail      ? &self_block_f32_kernel<true>
+                 : partial ? &self_block_f32_kernel<false, true>
+                           : &self_block_f32_kernel<false>;
+  const int e = launch_cluster(
+      kernel, dim3(CS, (B + rt - 1) / rt), CS, NT, f3_smem(D, L, S, rt),
+      (cudaStream_t)stream, (const float*)x, (const float*)g1,
+      (const float*)b1, (const float*)wq, (const float*)bq, (const float*)wk,
+      (const float*)wv, (const float*)bv, (const float*)wo, (const float*)bo,
+      (const float*)g2, (const float*)b2, (const float*)wcq,
+      (const float*)bcq, (float*)kc, (float*)vc, (float*)x_out,
+      (float*)q_cross, B, D, H, L, pos, rt, S, scale, eps);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
+}
+
+// K4 / K4-o (wco != NULL) / K4p (PARTIAL): see mas_decoder_mlp_block_f32
+// and _partial_f32.
+int launch_mlp_f32(bool partial, const void* x, const void* g,
+                   const void* bln, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const void* attn,
+                   const void* wco, const void* bco, void* x32, void* h,
+                   void* part, void* counter, void* out, int B, int D, int F,
+                   float eps, int sms, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || D < HDIM || D % HDIM || D > F4_MAX_D || F < F4_FS ||
+      F % F4_FS || sms < 1 || (partial && wco != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* xin = x;
+  if (wco != nullptr) {
+    rowproj_f32_kernel<<<dim3(D / P_NC, (B + P_RB - 1) / P_RB), NT,
+                         rowproj_smem(D), s>>>(
+        (const float*)attn, (const float*)wco, (const float*)bco,
+        (const float*)x, (float*)x32, B, D);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    xin = x32;
+  }
+  // blocks a multiprocessor holds, per device, instance and chunk width
+  // (read once)
+  static int per_sm[MAX_DEVICES][2][F4_DC / HDIM + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
+    return (int)cudaErrorInvalidDevice;
+  const int dc = f4_dc(D);
+  const void* fn = partial ? (const void*)mlp_f32_kernel<true>
+                           : (const void*)mlp_f32_kernel<false>;
+  int& fit = per_sm[dev][partial][dc / HDIM];
+  if (fit == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, fn, NT, f4_smem(dc));
+    if (e != cudaSuccess) return (int)e;
+    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int grid = F / F4_FS < sms * fit ? F / F4_FS : sms * fit;
+  void* args[] = {(void*)&xin, (void*)&g,    (void*)&bln,     (void*)&w1,
+                  (void*)&b1,  (void*)&w2,   (void*)&b2,      (void*)&h,
+                  (void*)&part, (void*)&counter, (void*)&out, (void*)&B,
+                  (void*)&D,   (void*)&F,    (void*)&eps};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), args,
+                                          f4_smem(dc), s);
+}
+
 }  // namespace
 
 // Raises the float32 K3's dynamic shared-memory limit and allows its
-// clusters of up to 16 blocks (both instances), and the float32 K4's and
-// its head's limits. Called once a device, when the library is set up
-// on it.
+// clusters of up to 16 blocks (every instance), and the float32 K4's (both
+// instances) and its head's limits. Called once a device, when the
+// library is set up on it.
 extern "C" int mas_decoder_block_f32_init(void) {
   for (const void* fn : {(const void*)self_block_f32_kernel<false>,
-                         (const void*)self_block_f32_kernel<true>}) {
+                         (const void*)self_block_f32_kernel<true>,
+                         (const void*)self_block_f32_kernel<false, true>}) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
     if (e == cudaSuccess)  // clusters of more than 8 blocks (H = 12, 20)
@@ -814,18 +926,20 @@ extern "C" int mas_decoder_block_f32_init(void) {
           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      mlp_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)f4_smem(F4_DC));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(rowproj_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)rowproj_smem(F4_MAX_D));
-  return (int)e;
+  for (const void* fn : {(const void*)mlp_f32_kernel<false>,
+                         (const void*)mlp_f32_kernel<true>}) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f4_smem(F4_DC));
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaFuncSetAttribute(rowproj_f32_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)rowproj_smem(F4_MAX_D));
 }
 
 // The clusters of cs float32 K3 blocks of smem bytes the card holds at
-// once. Returns a cudaError_t value.
+// once (K3p's plan asks it at the rank's shapes). Returns a cudaError_t
+// value.
 extern "C" int mas_decoder_self_block_f32_fit(int cs, int smem, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
@@ -857,24 +971,27 @@ extern "C" int mas_decoder_self_block_f32(
     const void* g2, const void* b2, const void* wcq, const void* bcq,
     void* q_cross, int B, int H, int L, int pos, int CS, int rt, int S,
     float scale, float eps, void* stream) {
-  const int D = H * HDIM;
-  if (B < 1 || H < 1 || CS < 1 || CS > H || CS > F3_MAX_CS || rt < 1 ||
-      rt > F3_RT || S < F3_MIN_STAGES || S > F3_MAX_STAGES || pos < 0 ||
-      pos >= L || f3_smem(D, L, S, rt) > SMEM_MAX ||
-      (B + rt - 1) / rt > 65535)
-    return (int)cudaErrorInvalidValue;
-  auto* kernel = wcq != nullptr ? &self_block_f32_kernel<true>
-                                : &self_block_f32_kernel<false>;
-  const int e = launch_cluster(
-      kernel, dim3(CS, (B + rt - 1) / rt), CS, NT, f3_smem(D, L, S, rt),
-      (cudaStream_t)stream, (const float*)x, (const float*)g1,
-      (const float*)b1, (const float*)wq, (const float*)bq, (const float*)wk,
-      (const float*)wv, (const float*)bv, (const float*)wo, (const float*)bo,
-      (const float*)g2, (const float*)b2, (const float*)wcq,
-      (const float*)bcq, (float*)kc, (float*)vc, (float*)x_out,
-      (float*)q_cross, B, H, L, pos, rt, S, scale, eps);
-  if (e != 0) return e;
-  return (int)cudaGetLastError();
+  return launch_self_f32(false, x, g1, b1, wq, bq, wk, wv, bv, wo, bo, kc,
+                         vc, x_out, g2, b2, wcq, bcq, q_cross, B, H * HDIM,
+                         H, L, pos, CS, rt, S, scale, eps, stream);
+}
+
+// K3p's float32 form, one rank of the mesh's model axis: out = (K3's
+// attention over the rank's H heads, merged) @ wo in float32, without x
+// and bo. x: [B, D] (the whole row, read by the layer norm); g1, b1: [D];
+// wq, wk, wv: [D, H * 64] and wo: [H * 64, D] row-major (the rank's
+// column and row shards); bq, bv: [H * 64]; kc, vc: [B, L, H * 64] caches
+// of the rank's heads, row pos written; out: [B, D]; all float32. D % 64
+// == 0; CS <= min(H, D / 64, 16); the plan is self_block_f32_plan's at
+// width D. Returns a cudaError_t value, as mas_decoder_self_block_f32.
+extern "C" int mas_decoder_self_block_partial_f32(
+    const void* x, const void* g1, const void* b1, const void* wq,
+    const void* bq, const void* wk, const void* wv, const void* bv,
+    const void* wo, void* kc, void* vc, void* out, int B, int D, int H, int L,
+    int pos, int CS, int rt, int S, float scale, float eps, void* stream) {
+  return launch_self_f32(true, x, g1, b1, wq, bq, wk, wv, bv, wo, bv, kc, vc,
+                         out, nullptr, nullptr, nullptr, nullptr, nullptr, B,
+                         D, H, L, pos, CS, rt, S, scale, eps, stream);
 }
 
 // K4 / K4-o, float32. x, out: [B, D] (D % 64 == 0, D <= 2048); g, bln,
@@ -891,39 +1008,22 @@ extern "C" int mas_decoder_mlp_block_f32(
     const void* wco, const void* bco, void* x32, void* h, void* part,
     void* counter, void* out, int B, int D, int F, float eps, int sms,
     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || D < HDIM || D % HDIM || D > F4_MAX_D || F < F4_FS ||
-      F % F4_FS || sms < 1)
-    return (int)cudaErrorInvalidValue;
-  const void* xin = x;
-  if (wco != nullptr) {
-    rowproj_f32_kernel<<<dim3(D / P_NC, (B + P_RB - 1) / P_RB), NT,
-                         rowproj_smem(D), s>>>(
-        (const float*)attn, (const float*)wco, (const float*)bco,
-        (const float*)x, (float*)x32, B, D);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    xin = x32;
-  }
-  // blocks a multiprocessor holds, per device and chunk width (read once)
-  static int per_sm[MAX_DEVICES][F4_DC / HDIM + 1];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
-  const int dc = f4_dc(D);
-  int& fit = per_sm[dev][dc / HDIM];
-  if (fit == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &fit, mlp_f32_kernel, NT, f4_smem(dc));
-    if (e != cudaSuccess) return (int)e;
-    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  const int grid = F / F4_FS < sms * fit ? F / F4_FS : sms * fit;
-  void* args[] = {(void*)&xin, (void*)&g,    (void*)&bln,     (void*)&w1,
-                  (void*)&b1,  (void*)&w2,   (void*)&b2,      (void*)&h,
-                  (void*)&part, (void*)&counter, (void*)&out, (void*)&B,
-                  (void*)&D,   (void*)&F,    (void*)&eps};
-  return (int)cudaLaunchCooperativeKernel((const void*)mlp_f32_kernel,
-                                          dim3(grid), dim3(NT), args,
-                                          f4_smem(dc), s);
+  return launch_mlp_f32(false, x, g, bln, w1, b1, w2, b2, attn, wco, bco,
+                        x32, h, part, counter, out, B, D, F, eps, sms,
+                        stream);
+}
+
+// K4p's float32 form, one rank of the mesh's model axis: out = gelu(LN(x)
+// @ w1 + b1) @ w2 in float32, without x and b2. x: [B, D] (the whole row,
+// read by the layer norm); g, bln: [D]; w1: [D, F] and w2: [F, D]
+// row-major (the rank's column and row shards of fc1 and fc2, F % 16 ==
+// 0); b1: [F]; h, part, counter: K4's float32 scratch; out: [B, D]; all
+// float32. Returns a cudaError_t value, as mas_decoder_mlp_block_f32.
+extern "C" int mas_decoder_mlp_block_partial_f32(
+    const void* x, const void* g, const void* bln, const void* w1,
+    const void* b1, const void* w2, void* h, void* part, void* counter,
+    void* out, int B, int D, int F, float eps, int sms, void* stream) {
+  return launch_mlp_f32(true, x, g, bln, w1, b1, w2, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, h, part, counter, out, B,
+                        D, F, eps, sms, stream);
 }

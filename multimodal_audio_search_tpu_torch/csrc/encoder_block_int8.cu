@@ -28,6 +28,27 @@
 // loop unchanged; the o-projection's warpgroups take the HDO / 64 output
 // chunks in turn, each over the rank's H 64-row chunks of Wo.
 //
+// K9's and K9p's float32 forms (mas_attn_o_residual_int8_f32, _partial_
+// f32): the TPU kernel casts q, Wo and bo to x's dtype, so on float32 q is
+// read as float32 and quantized with no bf16 rounding, and the heads'
+// outputs (float)pv * ps stay float32 (attn.astype(wo.dtype) is no
+// rounding). The merged tile would then not fit where the bf16 one lives:
+// 64 x (H*64 + 8) float32 is 322 KB at H*64 = 1280, past a block's 227
+// KB. So the C entry makes two launches: (1) K9's loop unchanged (the int8
+// dots on wgmma .s32.s8.s8, the same codes) with the F32 flag, which
+// stores each head's float32 output to a [B, T, H*64] float32 scratch of
+// the wrapper's and stops, its ring taking the shared memory the tile
+// left (4 stages at every width); (2) project_f32_kernel, the scratch @
+// Wo in 3xTF32 by tf32x3::project_chunk, the o-projection stage of K1's
+// float32 form (encoder_block_f32.cu), + bo + x (K9p: the float32 partial
+// alone), a block per (64-column output chunk, batch, 64-row tile). A
+// second launch, not the stage inside K9's kernel: K9's warpgroups each
+// hold 28-36 KB of ring, where project_chunk's two stages take 72 KB, and
+// its producer / consumer split would have to be rebuilt around it; as a
+// launch of its own it is the very code K1's float32 form runs (the same
+// sums in the same order), at three blocks an SM, and reads the scratch
+// while L2 still holds most of it.
+//
 // What bounds it on an H100. Tensor-core work: at B=32, T=1500, H=8 the
 // two attention dots are ~147 G integer ops (1,979 TOP/s, 0.074 ms) and
 // the o-projection ~25 GFLOP bf16 (989 TFLOP/s); three passes over K make
@@ -92,8 +113,11 @@
 // Shared memory: NWG x STAGES x 9 KB of ring, NWG x 4 KB of transposed V
 // and the 64 x (H*64 + 8) bf16 tile: STAGES is 4 at base width and falls
 // to 1 at H*64 = 1280 (the limit: the tile alone is 161 KB there).
+#include <type_traits>
+
 #include "encoder_common.cuh"
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -126,14 +150,19 @@ __host__ __device__ constexpr int consumer_regs() {
 // consumer warpgroups: 4, or 3 where H is a multiple of 3 and not of 4
 // (H = 6: two heads each)
 inline int warpgroups(int H) { return H % 4 != 0 && H % 3 == 0 ? 3 : 4; }
-__host__ __device__ inline int tile_bytes(int HD) { return BQ * (HD + 8) * 2; }
-inline int stages_for(int HD, int nwg) {
-  const int s = (SMEM_OPTIN - 1024 - nwg * VT_BYTES - tile_bytes(HD) - BARS) /
-                (nwg * SLOT);
+// the merged bf16 tile (none in the float32 form, whose heads go to a
+// float32 scratch in device memory)
+__host__ __device__ inline int tile_bytes(int HD, bool f32) {
+  return f32 ? 0 : BQ * (HD + 8) * 2;
+}
+inline int stages_for(int HD, int nwg, bool f32) {
+  const int s = (SMEM_OPTIN - 1024 - nwg * VT_BYTES - tile_bytes(HD, f32) -
+                 BARS) / (nwg * SLOT);
   return s < MAX_STAGES ? s : MAX_STAGES;
 }
-inline int smem_bytes(int HD, int nwg, int stages) {
-  return 1024 + nwg * stages * SLOT + nwg * VT_BYTES + tile_bytes(HD) + BARS;
+inline int smem_bytes(int HD, int nwg, int stages, bool f32) {
+  return 1024 + nwg * stages * SLOT + nwg * VT_BYTES + tile_bytes(HD, f32) +
+         BARS;
 }
 
 __device__ __forceinline__ float code8(float v, float s) {
@@ -278,19 +307,24 @@ __device__ __forceinline__ void transpose_v(uint8_t* vt, const int8_t* v,
 
 // K9 (PARTIAL false): out = x + tile @ Wo + bo, HDO = HD. K9p (true):
 // out32 = tile @ Wo_rows in float32, Wo_rows [HD, HDO]; x, bo, out unread.
-template <int NWG, bool PARTIAL>
+// F32 (the float32 forms' first launch): q float32, and each head's
+// float32 output (unrounded) stored to out32, a [B, T, HD] scratch that
+// project_f32_kernel then projects; Wo, x, bo, out unread, PARTIAL unused.
+template <int NWG, bool PARTIAL, bool F32 = false>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     attn_o_residual_int8_kernel(
         const __grid_constant__ CUtensorMap tk,
         const __grid_constant__ CUtensorMap tv,
         const __grid_constant__ CUtensorMap tks,
         const __grid_constant__ CUtensorMap tvs,
-        const __grid_constant__ CUtensorMap tw, const bf16* __restrict__ q,
+        const __grid_constant__ CUtensorMap tw, const void* __restrict__ qv,
         long long sb, long long sh, long long st, const bf16* __restrict__ x,
         const bf16* __restrict__ bo, bf16* __restrict__ out,
         float* __restrict__ out32, int T, int H, int HD, int HDO, int stages,
         float scale) {
   extern __shared__ unsigned char smem_raw[];
+  using QT = std::conditional_t<F32, float, bf16>;
+  const QT* q = static_cast<const QT*>(qv);
   // swizzled tiles start on 1024-byte boundaries
   uint8_t* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -298,14 +332,14 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   uint8_t* vts = ring + NWG * stages * SLOT;         // [NWG][VT_BYTES]
   bf16* sA = reinterpret_cast<bf16*>(vts + NWG * VT_BYTES);  // [BQ][HD + 8]
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      reinterpret_cast<uint8_t*>(sA) + tile_bytes(HD));  // [NWG][MAX_STAGES]
+      reinterpret_cast<uint8_t*>(sA) + tile_bytes(HD, F32));  // [NWG][MAX_STAGES]
   uint64_t* empty = full + NWG * MAX_STAGES;
 
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int n_tiles = (T + BN - 1) / BN;
   const int n_chunks = HD / 64;   // the merged tile's 64-column chunks
-  const int n_out = HDO / 64;     // the output's
+  const int n_out = F32 ? 0 : HDO / 64;  // the output's (F32: none here)
   const int warp_id = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
@@ -372,7 +406,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 
   for (int h = wg; h < H; h += NWG) {
     // ---- q8 and qs for rows ra, rb: columns 4t..4t+3 (+16, +32, +48)
-    const bf16* qh = q + b * sb + h * sh;
+    const QT* qh = q + b * sb + h * sh;
     float qf[2][16];
     float amax0 = 0.f, amax1 = 0.f;
 #pragma unroll
@@ -380,10 +414,16 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
       const int cc = c4 * 16 + t4 * 4;
 #pragma unroll
       for (int hw = 0; hw < 2; ++hw) {
-        const float2 va = ra < T ? unpack_bf16(ld32(qh + ra * st + cc + 2 * hw))
-                                 : make_float2(0.f, 0.f);
-        const float2 vb = rb < T ? unpack_bf16(ld32(qh + rb * st + cc + 2 * hw))
-                                 : make_float2(0.f, 0.f);
+        float2 va = make_float2(0.f, 0.f), vb = va;
+        if constexpr (F32) {  // float32 q, quantized as it is
+          if (ra < T)
+            va = *reinterpret_cast<const float2*>(qh + ra * st + cc + 2 * hw);
+          if (rb < T)
+            vb = *reinterpret_cast<const float2*>(qh + rb * st + cc + 2 * hw);
+        } else {
+          if (ra < T) va = unpack_bf16(ld32(qh + ra * st + cc + 2 * hw));
+          if (rb < T) vb = unpack_bf16(ld32(qh + rb * st + cc + 2 * hw));
+        }
         qf[0][c4 * 4 + 2 * hw] = va.x * scale;
         qf[0][c4 * 4 + 2 * hw + 1] = va.y * scale;
         qf[1][c4 * 4 + 2 * hw] = vb.x * scale;
@@ -532,6 +572,23 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     wg_wait<0>();
 #pragma unroll
     for (int i = 0; i < 32; ++i) reg_fence(o[i]);
+    if constexpr (F32) {
+      // ---- out_h = (float)pv * ps, float32, to the scratch's rows < T
+#pragma unroll
+      for (int jd = 0; jd < 8; ++jd) {
+        const int col = h * D + jd * 8 + t4 * 2;
+        if (ra < T)
+          *reinterpret_cast<float2*>(out32 + ((long long)b * T + ra) * HD +
+                                     col) =
+              make_float2((float)o[4 * jd] * ps0, (float)o[4 * jd + 1] * ps0);
+        if (rb < T)
+          *reinterpret_cast<float2*>(out32 + ((long long)b * T + rb) * HD +
+                                     col) =
+              make_float2((float)o[4 * jd + 2] * ps1,
+                          (float)o[4 * jd + 3] * ps1);
+      }
+      continue;
+    }
     // ---- out_h = (float)pv * ps, rounded to bf16 into the merged tile
 #pragma unroll
     for (int jd = 0; jd < 8; ++jd) {
@@ -543,6 +600,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     }
   }
 #undef S
+  if constexpr (F32) return;  // the heads are in the scratch
   bar_sync(NWG + 1, NWG * 128);  // every head's output is in the merged tile
 
   // ---- out = x + sA @ Wo + bo, 64 output columns a chunk: warpgroup wg
@@ -608,6 +666,25 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   }
 }
 
+// The float32 forms' second launch: one (64-column output chunk, batch,
+// 64-row) tile of merged @ Wo in 3xTF32 (tf32x3::project_chunk, the
+// o-projection of K1's float32 form), merged the [B, T, HD] float32 head
+// outputs; + bo + x into out (PARTIAL: the float32 partial alone).
+template <bool PARTIAL>
+__global__ void __launch_bounds__(tf32x3::NT, 3) project_f32_kernel(
+    const float* __restrict__ merged, const float* __restrict__ wo,
+    const float* __restrict__ x, const float* __restrict__ bo,
+    float* __restrict__ out, int T, int HD, int HDO) {
+  extern __shared__ __align__(16) float psmem[];
+  const int b = blockIdx.z;
+  const long long row0 = (long long)b * T * HDO;
+  tf32x3::project_chunk<PARTIAL>(merged + (long long)b * T * HD, HD, HD / D,
+                                 wo, HDO, blockIdx.x,
+                                 blockIdx.y * tf32x3::ROWS, T,
+                                 PARTIAL ? nullptr : x + row0, bo,
+                                 out + row0, psmem);
+}
+
 MapCache<64> maps;
 
 // div_row against the true division: counts the n quotients x[i] / d[i]
@@ -636,20 +713,35 @@ extern "C" int mas_attn_o_residual_int8_init(void) {
   if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<4, false>);
   if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<3, true>);
   if (e == cudaSuccess) e = allow_max_smem(attn_o_residual_int8_kernel<4, true>);
+  if (e == cudaSuccess)
+    e = allow_max_smem(attn_o_residual_int8_kernel<3, false, true>);
+  if (e == cudaSuccess)
+    e = allow_max_smem(attn_o_residual_int8_kernel<4, false, true>);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(project_f32_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tf32x3::SMEM_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(project_f32_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tf32x3::SMEM_BYTES);
   return (int)e;
 }
 
 namespace {
 
 // K9 (out32 null: out = x + tile @ Wo + bo, HDO = HD) or K9p (x, bo, out
-// null; out32 = tile @ Wo_rows, Wo [HD, HDO]).
+// null; out32 = tile @ Wo_rows, Wo [HD, HDO]). merged non-null: the
+// float32 forms (q, x, wo, bo, out float32; K9p f32: out null, out32 the
+// float32 partial), merged their [B, T, HD] float32 scratch of the heads.
 int launch_int8(const void* q, long long sb, long long sh, long long st,
                 const void* k8, const void* ks, const void* v8, const void* vs,
                 const void* x, const void* wo, const void* bo, void* out,
                 void* out32, int B, int H, int T, int Ts, int HD, int HDO,
-                float scale, void* stream) {
+                float scale, void* merged, void* stream) {
+  const bool f32 = merged != nullptr;
   const int nwg = warpgroups(H);
-  const int stages = stages_for(HD, nwg);
+  const int stages = stages_for(HD, nwg, f32);
   if (stages < 1 || HD != H * D || T < 1 || Ts < T || Ts % 4 || HDO < 64 ||
       HDO % 64 || (out32 == nullptr && HDO != HD))
     return (int)cudaErrorInvalidValue;
@@ -676,22 +768,41 @@ int launch_int8(const void* q, long long sb, long long sh, long long st,
                                 {(cuuint64_t)Ts, rows}, {(cuuint64_t)Ts * 4},
                                 {(cuuint32_t)BN, 1u},
                                 CU_TENSOR_MAP_SWIZZLE_NONE));
-  if (e == 0)
+  if (e == 0 && !f32)  // the float32 forms' Wo is read by project_f32_kernel
     e = maps.get(&tw, map_spec(wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                                {(cuuint64_t)HDO, (cuuint64_t)HD},
                                {(cuuint64_t)HDO * 2}, {64u, 64u},
                                CU_TENSOR_MAP_SWIZZLE_128B));
   if (e != 0) return e;
   dim3 grid((T + BQ - 1) / BQ, B);
-  const size_t smem = smem_bytes(HD, nwg, stages);
+  const size_t smem = smem_bytes(HD, nwg, stages, f32);
   cudaStream_t s = (cudaStream_t)stream;
   const bool partial = out32 != nullptr;
+  if (f32) {
+    // the heads into merged (tk stands in for the unread Wo map), then
+    // merged @ Wo (+ bo + x) in 3xTF32, a block a 64-column output chunk
+    // and (batch, 64-row) tile
+    auto heads = nwg == 3 ? attn_o_residual_int8_kernel<3, false, true>
+                          : attn_o_residual_int8_kernel<4, false, true>;
+    heads<<<grid, (nwg + 1) * 128, smem, s>>>(
+        tk, tv, tks, tvs, tk, q, sb, sh, st, nullptr, nullptr, nullptr,
+        (float*)merged, T, H, HD, HD, stages, scale);
+    const cudaError_t e1 = cudaGetLastError();
+    if (e1 != cudaSuccess) return (int)e1;
+    const dim3 pgrid(HDO / 64, (T + tf32x3::ROWS - 1) / tf32x3::ROWS, B);
+    auto project = partial ? project_f32_kernel<true>
+                           : project_f32_kernel<false>;
+    project<<<pgrid, tf32x3::NT, tf32x3::SMEM_BYTES, s>>>(
+        (const float*)merged, (const float*)wo, (const float*)x,
+        (const float*)bo, partial ? (float*)out32 : (float*)out, T, HD, HDO);
+    return (int)cudaGetLastError();
+  }
   auto kernel = nwg == 3 ? (partial ? attn_o_residual_int8_kernel<3, true>
                                     : attn_o_residual_int8_kernel<3, false>)
                          : (partial ? attn_o_residual_int8_kernel<4, true>
                                     : attn_o_residual_int8_kernel<4, false>);
   kernel<<<grid, (nwg + 1) * 128, smem, s>>>(
-      tk, tv, tks, tvs, tw, (const bf16*)q, sb, sh, st, (const bf16*)x,
+      tk, tv, tks, tvs, tw, q, sb, sh, st, (const bf16*)x,
       (const bf16*)bo, (bf16*)out, (float*)out32, T, H, HD, HDO, stages,
       scale);
   return (int)cudaGetLastError();
@@ -713,7 +824,7 @@ extern "C" int mas_attn_o_residual_int8(
     const void* wo, const void* bo, void* out, int B, int H, int T, int Ts,
     int HD, float scale, void* stream) {
   return launch_int8(q, sb, sh, st, k8, ks, v8, vs, x, wo, bo, out, nullptr,
-                     B, H, T, Ts, HD, HD, scale, stream);
+                     B, H, T, Ts, HD, HD, scale, nullptr, stream);
 }
 
 // K9p: K9's q, k8, ks, v8, vs over the rank's H heads (HD = H * 64); wo:
@@ -725,7 +836,35 @@ extern "C" int mas_attn_o_residual_int8_partial(
     const void* ks, const void* v8, const void* vs, const void* wo, void* out,
     int B, int H, int T, int Ts, int HDO, float scale, void* stream) {
   return launch_int8(q, sb, sh, st, k8, ks, v8, vs, nullptr, wo, nullptr,
-                     nullptr, out, B, H, T, Ts, H * D, HDO, scale, stream);
+                     nullptr, out, B, H, T, Ts, H * D, HDO, scale, nullptr,
+                     stream);
+}
+
+// K9's float32 form: K9's arguments with q, x, wo, bo and out float32
+// (out [B, T, HD], x 8-byte and wo 16-byte aligned, bo 8-byte); merged: a
+// [B, T, HD] float32 scratch (the heads' unrounded outputs, projected by a
+// second launch). Returns a cudaError_t value, as mas_attn_o_residual_int8.
+extern "C" int mas_attn_o_residual_int8_f32(
+    const void* q, long long sb, long long sh, long long st, const void* k8,
+    const void* ks, const void* v8, const void* vs, const void* x,
+    const void* wo, const void* bo, void* out, int B, int H, int T, int Ts,
+    int HD, float scale, void* merged, void* stream) {
+  if (merged == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_int8(q, sb, sh, st, k8, ks, v8, vs, x, wo, bo, out, nullptr,
+                     B, H, T, Ts, HD, HD, scale, merged, stream);
+}
+
+// K9p's float32 form: K9p's arguments with q and wo ([H * 64, HDO])
+// float32; merged as K9's float32 form's. Returns a cudaError_t value.
+extern "C" int mas_attn_o_residual_int8_partial_f32(
+    const void* q, long long sb, long long sh, long long st, const void* k8,
+    const void* ks, const void* v8, const void* vs, const void* wo, void* out,
+    int B, int H, int T, int Ts, int HDO, float scale, void* merged,
+    void* stream) {
+  if (merged == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_int8(q, sb, sh, st, k8, ks, v8, vs, nullptr, wo, nullptr,
+                     nullptr, out, B, H, T, Ts, H * D, HDO, scale, merged,
+                     stream);
 }
 
 // The count of x[i] / d[i] (i < n, float32 on the card) where K9's

@@ -120,6 +120,120 @@ __device__ __forceinline__ void stage_rows(float* dst, int lds,
   }
 }
 
+// One 64-key tile of one head's online softmax for a warp's rows g and g
+// + 8 (of its 16): S = Q K^T from the warp's Q fragments `qf` (x 1/8) and
+// the staged K tile `sk`, the keys at or past T masked, the running max
+// (m0, m1) and sum (l0, l1) updated, the tile's P V (V tile `sv`) into its
+// own accumulator and O = O c + P V (one rounding to nearest a tile). kv0:
+// the tile's first key.
+__device__ __forceinline__ void head_tile(float (&qf)[8][4],
+                                          const float* sk, const float* sv,
+                                          int kv0, int T, float (&o)[8][4],
+                                          float& m0, float& m1, float& l0,
+                                          float& l1) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // S = Q K^T: key n-tile n holds keys 8n + 2t, 8n + 2t + 1
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t qh[4], ql[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      keep(qf[kk][i]);
+      split(qf[kk][i], qh[i], ql[i]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float* kr = sk + (8 * n + g) * LD + 8 * kk + t;
+      mma3(s[n], qh, ql, kr[0], kr[4]);
+    }
+  }
+  if (kv0 + KEYS > T) {  // keys past T: zeros in the tile, never scored
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int key = kv0 + 8 * n + 2 * t;
+      if (key >= T) s[n][0] = s[n][2] = -INFINITY;
+      if (key + 1 >= T) s[n][1] = s[n][3] = -INFINITY;
+    }
+  }
+
+  // online softmax, float32 with expf
+  float x0 = m0, x1 = m1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
+    x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
+  }
+  x0 = quad_max(x0);
+  x1 = quad_max(x1);
+  const float c0 = expf(m0 - x0), c1 = expf(m1 - x1);  // 0 at the start
+  m0 = x0;
+  m1 = x1;
+  l0 *= c0;
+  l1 *= c1;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n][0] = expf(s[n][0] - m0);
+    s[n][1] = expf(s[n][1] - m0);
+    s[n][2] = expf(s[n][2] - m1);
+    s[n][3] = expf(s[n][3] - m1);
+    l0 += s[n][0] + s[n][1];
+    l1 += s[n][2] + s[n][3];
+  }
+
+  // P V of this tile into its own accumulator: key n-tile kk is P's A
+  // fragment (keys 2t -> k t, 2t + 1 -> k t + 4), V's B fragment read at
+  // those keys. Then O = O c + P V, one rounding to nearest a tile.
+  float pv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ph[4], pl[4];
+    split(s[kk][0], ph[0], pl[0]);
+    split(s[kk][2], ph[1], pl[1]);
+    split(s[kk][1], ph[2], pl[2]);
+    split(s[kk][3], ph[3], pl[3]);
+    const float* vr = sv + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mma3(pv[n], ph, pl, vr[8 * n], vr[LD + 8 * n]);
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    o[n][0] = fmaf(o[n][0], c0, pv[n][0]);
+    o[n][1] = fmaf(o[n][1], c0, pv[n][1]);
+    o[n][2] = fmaf(o[n][2], c1, pv[n][2]);
+    o[n][3] = fmaf(o[n][3], c1, pv[n][3]);
+  }
+}
+
+// A warp's output rows ra = q0 + 16 warp + g and ra + 8, o / l (a true
+// division, float32), to dst + r * ld_out for r < T.
+__device__ __forceinline__ void store_heads(const float (&o)[8][4], float l0,
+                                            float l1, int q0, int T,
+                                            float* __restrict__ dst,
+                                            long long ld_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = 8 * n + 2 * t;
+    if (ra < T)
+      *reinterpret_cast<float2*>(dst + ra * ld_out + c) =
+          make_float2(o[n][0] / l0, o[n][1] / l0);
+    if (rb < T)
+      *reinterpret_cast<float2*>(dst + rb * ld_out + c) =
+          make_float2(o[n][2] / l1, o[n][3] / l1);
+  }
+}
+
 // Attention of rows [q0, q0 + 64) of one (batch, head) over its T keys.
 // q, k, v: the head's [T, 64] rows, row stride st floats; scale = 1/8;
 // the output rows (o / l, float32) go to dst + r * ld_out for r < T.
@@ -169,99 +283,185 @@ __device__ __forceinline__ void attend(const float* __restrict__ q,
     cp_async_wait_group<1>();  // tile j has landed for this thread
     __syncthreads();           // ... and for every thread
     const float* sk = smem + (j & 1) * 2 * SLOT;
-    const float* sv = sk + SLOT;
-
-    // S = Q K^T: key n-tile n holds keys 8n + 2t, 8n + 2t + 1
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t qh[4], ql[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        keep(qf[kk][i]);
-        split(qf[kk][i], qh[i], ql[i]);
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float* kr = sk + (8 * n + g) * LD + 8 * kk + t;
-        mma3(s[n], qh, ql, kr[0], kr[4]);
-      }
-    }
-    const int kv0 = j * KEYS;
-    if (kv0 + KEYS > T) {  // keys past T: zeros in the tile, never scored
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int key = kv0 + 8 * n + 2 * t;
-        if (key >= T) s[n][0] = s[n][2] = -INFINITY;
-        if (key + 1 >= T) s[n][1] = s[n][3] = -INFINITY;
-      }
-    }
-
-    // online softmax, float32 with expf
-    float x0 = m0, x1 = m1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
-      x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
-    }
-    x0 = quad_max(x0);
-    x1 = quad_max(x1);
-    const float c0 = expf(m0 - x0), c1 = expf(m1 - x1);  // 0 at the start
-    m0 = x0;
-    m1 = x1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = expf(s[n][0] - m0);
-      s[n][1] = expf(s[n][1] - m0);
-      s[n][2] = expf(s[n][2] - m1);
-      s[n][3] = expf(s[n][3] - m1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
-    }
-
-    // P V of this tile into its own accumulator: key n-tile kk is P's A
-    // fragment (keys 2t -> k t, 2t + 1 -> k t + 4), V's B fragment read at
-    // those keys. Then O = O c + P V, one rounding to nearest a tile.
-    float pv[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t ph[4], pl[4];
-      split(s[kk][0], ph[0], pl[0]);
-      split(s[kk][2], ph[1], pl[1]);
-      split(s[kk][1], ph[2], pl[2]);
-      split(s[kk][3], ph[3], pl[3]);
-      const float* vr = sv + (8 * kk + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        mma3(pv[n], ph, pl, vr[8 * n], vr[LD + 8 * n]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      o[n][0] = fmaf(o[n][0], c0, pv[n][0]);
-      o[n][1] = fmaf(o[n][1], c0, pv[n][1]);
-      o[n][2] = fmaf(o[n][2], c1, pv[n][2]);
-      o[n][3] = fmaf(o[n][3], c1, pv[n][3]);
-    }
+    head_tile(qf, sk, sk + SLOT, j * KEYS, T, o, m0, m1, l0, l1);
     __syncthreads();  // every warp is done with this stage
   }
+  store_heads(o, l0, l1, q0, T, dst, ld_out);
+}
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
+// The pair loop (K10's float32 form): attention of rows [q0, q0 + 64) of
+// two heads a and b of one batch row over their T keys, tile by tile:
+// each stage holds both heads' K and V tiles of one 64-key range (one
+// cp.async group), and each warp takes head a's tile and then head b's,
+// each with its own online softmax (head_tile, the arithmetic of attend),
+// so each head's output is attend's bit for bit. Both heads' Q rows x 1/8
+// wait in shared memory (two [64, LD] tiles) and each warp reads its own
+// rows' fragments a tile at a time; two heads' outputs in registers are
+// as many as one head's Q and O were. q*, k*, v*: the heads' [T, 64] rows
+// (row stride st); dst*: their output columns (row stride ld_out).
+// `smem`: PAIR_SMEM_BYTES. Ends with the block synchronised and its
+// shared memory free.
+constexpr int PAIR_STAGE = 4 * SLOT;                  // Ka, Va, Kb, Vb
+constexpr int PAIR_SMEM_BYTES = (2 * PAIR_STAGE + 2 * 64 * LD) * 4;
+
+__device__ __forceinline__ void attend_pair(
+    const float* __restrict__ qa, const float* __restrict__ ka,
+    const float* __restrict__ va, const float* __restrict__ qb,
+    const float* __restrict__ kb, const float* __restrict__ vb,
+    long long st, int T, int q0, float scale, float* smem,
+    float* __restrict__ dsta, float* __restrict__ dstb, long long ld_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (T + KEYS - 1) / KEYS;
+  float* sq = smem + 2 * PAIR_STAGE;  // [2][64][LD]: Q x 1/8, both heads
+  auto stage = [&](int s, int kv0) {
+    float* d = smem + s * PAIR_STAGE;
+    stage_rows(d, LD, ka, st, kv0, T);
+    stage_rows(d + SLOT, LD, va, st, kv0, T);
+    stage_rows(d + 2 * SLOT, LD, kb, st, kv0, T);
+    stage_rows(d + 3 * SLOT, LD, vb, st, kv0, T);
+  };
+  stage(0, 0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 2 * 64 * 64; i += NT) {
+    const int h = i >> 12, r = (i >> 6) & 63, c = i & 63;
+    const int row = q0 + r;
+    sq[(h * 64 + r) * LD + c] =
+        row < T ? (h ? qb : qa)[row * st + c] * scale : 0.f;
+  }
+  // a warp's Q fragments of head h, as attend holds them
+  auto load_q = [&](float (&qf)[8][4], int h) {
+    const float* r0 = sq + (h * 64 + warp * 16 + g) * LD + t;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      qf[kk][0] = r0[8 * kk];
+      qf[kk][1] = r0[8 * LD + 8 * kk];
+      qf[kk][2] = r0[8 * kk + 4];
+      qf[kk][3] = r0[8 * LD + 8 * kk + 4];
+    }
+  };
+
+  float oa[8][4], ob[8][4];
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (ra < T)
-      *reinterpret_cast<float2*>(dst + ra * ld_out + c) =
-          make_float2(o[n][0] / l0, o[n][1] / l0);
-    if (rb < T)
-      *reinterpret_cast<float2*>(dst + rb * ld_out + c) =
-          make_float2(o[n][2] / l1, o[n][3] / l1);
+    oa[n][0] = oa[n][1] = oa[n][2] = oa[n][3] = 0.f;
+    ob[n][0] = ob[n][1] = ob[n][2] = ob[n][3] = 0.f;
+  }
+  float ma0 = -INFINITY, ma1 = -INFINITY, la0 = 0.f, la1 = 0.f;
+  float mb0 = -INFINITY, mb1 = -INFINITY, lb0 = 0.f, lb1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) stage((j + 1) & 1, (j + 1) * KEYS);
+    cp_async_commit();
+    cp_async_wait_group<1>();  // tile j of both heads has landed
+    __syncthreads();           // ... for every thread (and Q, at j = 0)
+    const float* sk = smem + (j & 1) * PAIR_STAGE;
+    float qf[8][4];
+    load_q(qf, 0);
+    head_tile(qf, sk, sk + SLOT, j * KEYS, T, oa, ma0, ma1, la0, la1);
+    load_q(qf, 1);
+    head_tile(qf, sk + 2 * SLOT, sk + 3 * SLOT, j * KEYS, T, ob, mb0, mb1,
+              lb0, lb1);
+    __syncthreads();  // every warp is done with this stage
+  }
+  store_heads(oa, la0, la1, q0, T, dsta, ld_out);
+  store_heads(ob, lb0, lb1, q0, T, dstb, ld_out);
+}
+
+// The o-projection of K1's, K1p's, K10's, K10p's, K9's and K9p's float32
+// forms, one 64-column output chunk c of one (batch, 64-row) tile: y =
+// A @ W over n_in 64-column input chunks, A the tile's rows [q0, q0 + 64)
+// of the merged float32 attention (`a`: the batch row's [T, n_in * 64]
+// rows, row stride lda), W [n_in * 64, ldw] row-major (the chunk's
+// columns c * 64 ..). The merged chunk and W's [64 in, 64 out] tile
+// stream through two stages by cp.async, in order of the input chunk;
+// 3xTF32 products, each input chunk's into its own float32 accumulator,
+// added to the row's sum rounded to nearest. PARTIAL: out[r * ldw + col]
+// = y (the float32 partial of a rank); else out = x + (y + bo) (x, out:
+// the batch row's [T, ldw] rows). Rows past T are not written. Every
+// thread of the block calls it with the block synchronised and `smem`'s
+// SMEM_BYTES free; it ends so. Each output element is summed in one fixed
+// order by one thread.
+template <bool PARTIAL>
+__device__ __forceinline__ void project_chunk(
+    const float* __restrict__ a, long long lda, int n_in,
+    const float* __restrict__ w, int ldw, int c, int q0, int T,
+    const float* __restrict__ x, const float* __restrict__ bo,
+    float* __restrict__ out, float* smem) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  stage_rows(smem, LD, a, lda, q0, T);
+  stage_rows(smem + SLOT, LDW, w + c * D, ldw, 0, D);
+  cp_async_commit();
+  for (int kc = 0; kc < n_in; ++kc) {
+    if (kc + 1 < n_in) {
+      float* nx = smem + ((kc + 1) & 1) * 2 * SLOT;
+      stage_rows(nx, LD, a + (kc + 1) * D, lda, q0, T);
+      stage_rows(nx + SLOT, LDW, w + (long long)(kc + 1) * D * ldw + c * D,
+                 ldw, 0, D);
+    }
+    cp_async_commit();
+    cp_async_wait_group<1>();
+    __syncthreads();
+    // A: rows warp * 16 + g (+ 8) of the merged chunk; B: W rows (the
+    // chunk's input columns) by 64 output columns
+    const float* sa = smem + (kc & 1) * 2 * SLOT + (warp * 16 + g) * LD + t;
+    const float* sw = smem + (kc & 1) * 2 * SLOT + SLOT + t * LDW + g;
+    // this input chunk's sum in its own accumulator, then added to acc
+    // rounded to nearest
+    float part[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split(sa[8 * kk], ah[0], al[0]);
+      split(sa[8 * LD + 8 * kk], ah[1], al[1]);
+      split(sa[8 * kk + 4], ah[2], al[2]);
+      split(sa[8 * LD + 8 * kk + 4], ah[3], al[3]);
+      const float* wr = sw + 8 * kk * LDW;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        mma3(part[n], ah, al, wr[8 * n], wr[4 * LDW + 8 * n]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = c * D + 8 * n + 2 * t;
+    if (PARTIAL) {
+      if (ra < T)
+        *reinterpret_cast<float2*>(out + (long long)ra * ldw + col) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (rb < T)
+        *reinterpret_cast<float2*>(out + (long long)rb * ldw + col) =
+            make_float2(acc[n][2], acc[n][3]);
+      continue;
+    }
+    // x + (y + bo), float32
+    const float2 bb = *reinterpret_cast<const float2*>(bo + col);
+    if (ra < T) {
+      const long long i = (long long)ra * ldw + col;
+      const float2 xx = *reinterpret_cast<const float2*>(x + i);
+      *reinterpret_cast<float2*>(out + i) =
+          make_float2(xx.x + (acc[n][0] + bb.x), xx.y + (acc[n][1] + bb.y));
+    }
+    if (rb < T) {
+      const long long i = (long long)rb * ldw + col;
+      const float2 xx = *reinterpret_cast<const float2*>(x + i);
+      *reinterpret_cast<float2*>(out + i) =
+          make_float2(xx.x + (acc[n][2] + bb.x), xx.y + (acc[n][3] + bb.y));
+    }
   }
 }
 

@@ -223,7 +223,7 @@ def encode(params, mel: torch.Tensor, cfg: WhisperConfig,
         K1 (ops/encoder_block.py; its float32 form for a float32 encode,
         at every T); "int8" through K9 (int8 dots; it
         outranks "paired"); "paired" through K10, or K1 for an odd head
-        count.
+        count (each, on float32, its float32 form).
       * otherwise ``fused_attention`` routes self-attention through K8
         (ops/attention.py) and a plain o-projection; None means
         ``use_fused_attention`` (a CUDA tensor at T >= 512). False runs

@@ -18,11 +18,12 @@ the ``*_plain`` version of the same math. There is no other route: a
 launch that fails raises. The kernel is chosen by x's dtype, as the JAX
 kernels cast every weight to it: bf16 tensors (with float32 layer-norm
 scales, and K4-o's float32 ``attn``) launch ``csrc/decoder_block.cu``;
-float32 tensors launch K3's, K3-q's, K4's and K4-o's float32 forms in
-``csrc/decoder_block_f32.cu`` (FFMA on the CUDA cores, nothing rounded to
-bf16), so a float32 engine runs every ``fused_layer`` setting. K3p, K4p
-and K14 take bf16 only and refuse float32, naming why. A call whose
-tensors mix the two dtypes raises before any launch.
+float32 tensors launch K3's, K3-q's, K4's, K4-o's, K3p's and K4p's
+float32 forms in ``csrc/decoder_block_f32.cu`` (FFMA on the CUDA cores,
+nothing rounded to bf16), so a float32 engine runs every ``fused_layer``
+setting, on one device and over the mesh's model axis. K14 takes bf16
+only and refuses float32, naming why. A call whose tensors mix the two
+dtypes raises before any launch.
 
 ``partial=True`` (K3p, K4p) is a block's form on one rank of the mesh's
 model axis (tensor parallelism): the rank holds H/mp heads (the [D,
@@ -218,10 +219,8 @@ _COUNTERS: dict = {}
 _BUFS: dict = {}
 # the bf16 forms' float32 inputs: the layer-norm scales and K4-o's attn
 _F32 = frozenset(("ln_g", "cross_ln_g", "attn", "ln2_g", "ln3_g"))
-# the kernels without a float32 form, and why (ROADMAP's float32 queue)
-_BF16_ONLY = {"K3p": "the float32 queue's row Q5 (model_parallel > 1)",
-              "K4p": "the float32 queue's row Q5 (model_parallel > 1)",
-              "K14": "no decode step calls it, so the float32 queue has "
+# the kernels without a float32 form, and why
+_BF16_ONLY = {"K14": "no decode step calls it, so the float32 queue has "
                      "no row for it"}
 MAX_D = 2048  # K4's widest row: its layer norm holds 8 values a thread
 
@@ -251,8 +250,8 @@ def _buf(device: torch.device, name: str, numel: int,
 
 def _is_f32(kernel: str, x: torch.Tensor) -> bool:
     """Whether ``kernel`` runs its float32 form: x float32 (K3, K3-q, K4,
-    K4-o; the kernels of _BF16_ONLY raise), x bf16 its bf16 form; any
-    other dtype raises."""
+    K4-o, K3p, K4p; the kernels of _BF16_ONLY raise), x bf16 its bf16
+    form; any other dtype raises."""
     if x.dtype == torch.bfloat16:
         return False
     if x.dtype != torch.float32:
@@ -374,7 +373,7 @@ def k3_f32_smem(d: int, l: int, stages: int, rows: int) -> int:
 
 
 def self_block_f32_plan(b: int, heads: int, l: int, rows: int | None = None,
-                        clusters: int = K3_CLUSTERS
+                        clusters: int = K3_CLUSTERS, d: int | None = None
                         ) -> tuple[int, int, int, int]:
     """(blocks a cluster, rows a tile, tiles, ring slots) of K3's float32
     form at batch b and cache length l, on a card that holds ``clusters``
@@ -384,8 +383,10 @@ def self_block_f32_plan(b: int, heads: int, l: int, rows: int | None = None,
     fewest rows a tile (up to K3F_ROWS) that keep the tiles within
     ``clusters``; ``rows`` overrides that. The ring takes the shared
     memory left, up to K3F_MAX_STAGES 16 KB slots; where fewer than
-    K3F_MIN_STAGES fit beside the rest, a ValueError names the limit."""
-    d = heads * 64
+    K3F_MIN_STAGES fit beside the rest, a ValueError names the limit.
+    ``d``: the model width where it is not heads * 64 (K3p: a rank's
+    heads of a wider model, whose rows the block holds whole)."""
+    d = d or heads * 64
     cs = min(heads, K3_MAX_CLUSTER)
     if rows is None:
         rows = min(K3F_ROWS, max(1, -(-b // clusters)))
@@ -454,10 +455,10 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     dev = x.device
     # the clusters the card holds, asked at the largest tile's size
     if f32:
-        cs, _, _, st = self_block_f32_plan(b, heads, l, K3F_ROWS)
+        cs, _, _, st = self_block_f32_plan(b, heads, l, K3F_ROWS, d=d)
         fit = _fit(dev, cs, k3_f32_smem(d, l, st, K3F_ROWS),
                    "mas_decoder_self_block_f32_fit")
-        _, rt, _, stages = self_block_f32_plan(b, heads, l, rows, fit)
+        _, rt, _, stages = self_block_f32_plan(b, heads, l, rows, fit, d=d)
     else:
         _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS, d=d)
         _, _, rt, _, stages = self_block_plan(
@@ -466,7 +467,7 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     if partial:
         out = torch.empty(b, d, dtype=torch.float32, device=dev)
         runtime.launch(
-            "mas_decoder_self_block_partial", dev,
+            "mas_decoder_self_block_partial" + ("_f32" if f32 else ""), dev,
             *(a.data_ptr() for a in (x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
                                      k_cache, v_cache, out)),
             b, d, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64),
@@ -515,8 +516,8 @@ def fused_self_block(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
     host int. CUDA tensors launch K3 (``partial``: K3p, whose first output
     is the float32 o-projection of the rank's heads, module docstring),
     CPU tensors take the plain version. On the card the tensors are all
-    bf16 but the float32 LN scale (K3) or all float32 (K3's float32
-    form); K3p takes bf16 only."""
+    bf16 but the float32 LN scale (K3, K3p) or all float32 (their float32
+    forms)."""
     runtime.refuse_grad("K3", x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo,
                         k_cache, v_cache)
     pos = int(pos)
@@ -576,22 +577,22 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
         _shape(kernel, a, (hd,), name)
     _check(kernel, x, f32, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
+    # the float32 forms: h transposed [D, B rounded up to 32], a partial a
+    # 16 fc1 columns (the bf16 forms': h [B, D] bf16, a partial a 32)
+    h = _buf(dev, "h32", hd * -(-b // 32) * 32, torch.float32) if f32 \
+        else _buf(dev, "h", b * hd, torch.bfloat16)
     if partial:
         out = torch.empty(b, hd, dtype=torch.float32, device=dev)
         runtime.launch(
-            "mas_decoder_mlp_block_partial", dev,
-            *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2)),
-            _buf(dev, "h", b * hd, torch.bfloat16),
-            _buf(dev, "part", f // 32 * b * hd, torch.float32),
+            "mas_decoder_mlp_block_partial" + ("_f32" if f32 else ""), dev,
+            *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2)), h,
+            _buf(dev, "part", f // (16 if f32 else 32) * b * hd,
+                 torch.float32),
             _counters(dev), out.data_ptr(), b, hd, f, eps,
             runtime.sm_count(dev), runtime.raw_stream(dev))
         runtime.bump("decoder_mlp_block")
         return out
     out = torch.empty_like(x)
-    # the float32 form: h transposed [D, B rounded up to 32], a partial a
-    # 16 fc1 columns (the bf16 form's: h [B, D] bf16, a partial a 32)
-    h = _buf(dev, "h32", hd * -(-b // 32) * 32, torch.float32) if f32 \
-        else _buf(dev, "h", b * hd, torch.bfloat16)
     runtime.launch(
         "mas_decoder_mlp_block_f32" if f32 else "mas_decoder_mlp_block", dev,
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
@@ -610,8 +611,8 @@ def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-5,
     """B4: x + fc2(gelu(fc1(LN x))), [B, D]. CUDA tensors launch K4 (which
     takes erff for the erf of the GELU; ``partial``: K4p, the float32 fc2
     sum of a rank's F/mp columns alone, module docstring), or on float32
-    tensors K4's float32 form (the plain version's erf polynomial), CPU
-    tensors the plain version."""
+    tensors K4's (K4p's) float32 form (the plain version's erf
+    polynomial), CPU tensors the plain version."""
     runtime.refuse_grad("K4", x, ln_g, ln_b, w1, b1, w2, b2)
     if _device(x) == "cuda":
         return _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps,

@@ -20,13 +20,19 @@ the whole layer's pairs. A rank with an odd head count takes K1p for
 tensor each wrapper launches its hand-written kernel (K1, K1p, K10, K10p
 and K11 ``csrc/encoder_block_wgmma.cu``: a thread-block cluster over the
 heads of a 128-row tile, sized by ``cluster_plan`` for the card it runs
-on; K11's "post" form is K1 itself; K1 on float32 tensors its float32
-form, ``csrc/encoder_block_f32.cu``: a cluster of ``f32_cluster(H)``
-blocks over a 64-row tile, each float32 product as three TF32 products;
-K9 and K9p ``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
-PyTorch version beside it, the same math. There is no other route: a
-launch that fails, or a cluster the card cannot place, raises. K1p, K9p
-and K10p count as their square forms' launches (runtime.COUNTS).
+on; K11's "post" form is K1 itself; K9 and K9p
+``csrc/encoder_block_int8.cu``); on a CPU tensor it runs the plain
+PyTorch version beside it, the same math. The form is chosen by the
+tensors' dtype, as the TPU kernels cast q, Wo and bo to x's: bf16 tensors
+launch the kernels above, float32 tensors their float32 forms (K1, K1p,
+K10, K10p ``csrc/encoder_block_f32.cu``: a cluster of ``f32_cluster(H)``
+blocks over a 64-row tile (K10 whole pairs a block), each float32 product
+as three TF32 products; K9, K9p the int8 loop on a float32 q into a
+float32 scratch, then its 3xTF32 o-projection), any other dtype or a mix
+raises. K11 takes bf16 only: it is the A/B tool's form. There is no other
+route: a launch that fails, or a cluster the card cannot place, raises.
+K1p, K9p and K10p (and every float32 form) count as their square bf16
+forms' launches (runtime.COUNTS).
 """
 from __future__ import annotations
 
@@ -299,20 +305,35 @@ def _check_widths(name, q, x, wo, bo):
             f"x {tuple(x.shape)}, wo {tuple(wo.shape)}, bo {tuple(bo.shape)}")
 
 
+# K11's forms have no float32 counterpart, and why
+K11_BF16_ONLY = ("K11 is the TPU A/B tool's copy of K1 "
+                 "(tools/profile_encoder_kernel_ab.py), bf16 by design")
+
+
+def _check_dtypes(name, ref, **tensors) -> None:
+    """Raise TypeError unless every tensor has ``ref``'s dtype, bf16 or
+    float32 (the kernel's two forms)."""
+    for n, a in tensors.items():
+        if a.dtype not in (torch.bfloat16, torch.float32) or \
+                a.dtype != ref.dtype:
+            raise TypeError(f"{name} takes bf16 or float32 tensors of one "
+                            f"dtype; {n} is {a.dtype}, q {ref.dtype}")
+
+
 def _check_block_args(name, q, k, v, x, wo, bo):
     """The argument checks K1, K10 and K11 share; returns q's strides.
-    K1 takes bf16 or float32 tensors of one dtype (its two forms); K10
-    and K11 take bf16."""
+    K1 and K10 take bf16 or float32 tensors of one dtype (their two
+    forms); K11 takes bf16 (K11_BF16_ONLY)."""
     _check_widths(name, q, x, wo, bo)
-    # K1's float32 form is csrc/encoder_block_f32.cu
-    dtypes = ((torch.bfloat16, torch.float32) if name == "K1"
-              else (torch.bfloat16,))
-    for n, a in (("q", q), ("k", k), ("v", v), ("x", x), ("wo", wo),
-                 ("bo", bo)):
-        if a.dtype not in dtypes or a.dtype != x.dtype:
-            raise TypeError(
-                f"{name} takes {'bf16 or float32' if name == 'K1' else 'bf16'}"
-                f" tensors of one dtype; {n} is {a.dtype}, x {x.dtype}")
+    tensors = dict(q=q, k=k, v=v, x=x, wo=wo, bo=bo)
+    if name == "K11" and any(a.dtype != torch.bfloat16
+                             for a in tensors.values()):
+        n, a = next((n, a) for n, a in tensors.items()
+                    if a.dtype != torch.bfloat16)
+        raise TypeError(f"K11 takes bf16 tensors; {n} is {a.dtype}: it has "
+                        f"no float32 form, {K11_BF16_ONLY}")
+    _check_dtypes(name, q, **tensors)
+    for n, a in tensors.items():
         if a.device != x.device:
             raise ValueError(f"{name}: {n} on {a.device}, x on {x.device}")
     if q.stride() != k.stride() or q.stride() != v.stride():
@@ -334,14 +355,18 @@ def _check_block_args(name, q, k, v, x, wo, bo):
 F32_MAX_CLUSTER = 8
 
 
-def f32_cluster(heads: int) -> int:
-    """Blocks of the float32 K1's cluster over the heads of one (batch,
-    64-row) tile: as few heads a block as eight blocks allow, spread
-    evenly (1 a block up to H = 8; H = 12 -> 6 blocks of 2; H = 20 -> 7
-    blocks of 2-3)."""
+def f32_cluster(heads: int, pair_heads: bool = False) -> int:
+    """Blocks of the float32 K1's (K10's: over the H / 2 pairs) cluster
+    over the heads of one (batch, 64-row) tile: as few units a block as
+    eight blocks allow, spread evenly (1 a block up to 8 units; H = 12 ->
+    6 blocks of 2; H = 20 -> 7 blocks of 2-3; a rank's 10 heads of
+    large-v3 -> 5 blocks of 2; K10 at H = 8 -> 4 blocks of one pair)."""
+    if pair_heads and heads % 2:
+        raise ValueError(f"K10 pairs heads; H={heads} is odd")
     if heads < 1:
         raise ValueError(f"K1 takes at least one head; H={heads}")
-    return -(-heads // -(-heads // F32_MAX_CLUSTER))
+    units = heads // 2 if pair_heads else heads
+    return -(-units // -(-units // F32_MAX_CLUSTER))
 
 
 def _check_partial_wo(name, q, wo):
@@ -365,9 +390,8 @@ def _launch_partial(q, k, v, wo, cluster=None, pair_heads=False):
     hdo = wo.shape[-1]
     if pair_heads and h % 2:
         raise ValueError(f"K10p pairs heads; H={h} is odd")
+    _check_dtypes(name, q, q=q, k=k, v=v, wo=wo)
     for n, a in (("q", q), ("k", k), ("v", v), ("wo", wo)):
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"{name} takes bf16 tensors; {n} is {a.dtype}")
         if a.device != q.device:
             raise ValueError(f"{name}: {n} on {a.device}, q on {q.device}")
         if a.data_ptr() % 16:
@@ -378,16 +402,21 @@ def _launch_partial(q, k, v, wo, cluster=None, pair_heads=False):
     if not wo.is_contiguous():
         raise ValueError(f"{name} takes a contiguous wo")
     dev = q.device
+    f32 = q.dtype == torch.float32
+    # the float32 forms (csrc/encoder_block_f32.cu): f32_cluster's plan,
+    # a float32 scratch, scale 1/8
     if cluster is None:
-        cluster = _card_plan(h, b, t, pair_heads, dev)
-    merged = torch.empty(b, t, h * d, dtype=torch.bfloat16, device=dev)
+        cluster = (f32_cluster(h, pair_heads) if f32
+                   else _card_plan(h, b, t, pair_heads, dev))
+    merged = torch.empty(b, t, h * d, dtype=q.dtype, device=dev)
     out = torch.empty(b, t, hdo, dtype=torch.float32, device=dev)
     sb, sh, st = q.stride()[:3]
-    runtime.launch("mas_attn_o_residual_paired_partial" if pair_heads
-                   else "mas_attn_o_residual_partial", dev, q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), sb, sh, st, merged.data_ptr(),
-                   wo.data_ptr(), out.data_ptr(), b, h, t, hdo,
-                   math.log2(math.e) / math.sqrt(d), cluster,
+    sym = ("mas_attn_o_residual_paired_partial" if pair_heads
+           else "mas_attn_o_residual_partial") + ("_f32" if f32 else "")
+    runtime.launch(sym, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), sb,
+                   sh, st, merged.data_ptr(), wo.data_ptr(), out.data_ptr(),
+                   b, h, t, hdo, 1.0 / math.sqrt(d) if f32
+                   else math.log2(math.e) / math.sqrt(d), cluster,
                    runtime.stream_handle(dev))
     runtime.bump("encoder_attn_o_residual_paired" if pair_heads
                  else "encoder_attn_o_residual")
@@ -413,7 +442,7 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
     if pair_heads and h % 2:
         raise ValueError(f"K10 pairs heads; H={h} is odd")
     if x.dtype == torch.float32:
-        return _launch_f32(q, k, v, x, wo, bo, sb, sh, st)
+        return _launch_f32(q, k, v, x, wo, bo, sb, sh, st, pair_heads)
     if cluster is None:
         cluster = _card_plan(h, b, t, pair_heads, x.device)
     out = torch.empty_like(x)
@@ -436,26 +465,33 @@ def _launch(q, k, v, x, wo, bo, *, pair_heads=False, form=None,
     return out
 
 
-def _launch_f32(q, k, v, x, wo, bo, sb, sh, st):
-    """K1's float32 form on clusters of f32_cluster(H) blocks, the merged
-    attention in a [B, T, H*64] float32 scratch."""
+def _launch_f32(q, k, v, x, wo, bo, sb, sh, st, pair_heads=False):
+    """K1's (K10's with ``pair_heads``) float32 form on clusters of
+    f32_cluster(H) blocks, the merged attention in a [B, T, H*64] float32
+    scratch."""
     b, h, t, d = q.shape
+    name = "K10" if pair_heads else "K1"
     if bo.data_ptr() % 16:
-        raise ValueError("K1: bo is not 16-byte aligned")
+        raise ValueError(f"{name}: bo is not 16-byte aligned")
     out = torch.empty_like(x)
     merged = torch.empty_like(x)
-    runtime.launch("mas_attn_o_residual_f32", x.device, q.data_ptr(),
+    runtime.launch("mas_attn_o_residual_paired_f32" if pair_heads
+                   else "mas_attn_o_residual_f32", x.device, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), sb, sh, st, x.data_ptr(),
                    wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, h, t,
-                   x.shape[-1], 1.0 / math.sqrt(d), f32_cluster(h),
-                   merged.data_ptr(), runtime.stream_handle(x.device))
-    runtime.bump("encoder_attn_o_residual")
+                   x.shape[-1], 1.0 / math.sqrt(d),
+                   f32_cluster(h, pair_heads), merged.data_ptr(),
+                   runtime.stream_handle(x.device))
+    runtime.bump("encoder_attn_o_residual_paired" if pair_heads
+                 else "encoder_attn_o_residual")
     return out
 
 
 def _launch_int8(q, k8, ks, v8, vs, x, wo, bo, partial=False):
     """K9, or K9p (``partial``: x and bo None, Wo [H*64, HD_out]; returns
-    [B, T, HD_out] float32)."""
+    [B, T, HD_out] float32); q, x, wo and bo bf16, or all float32 (the
+    float32 forms: the heads into a float32 scratch, then its 3xTF32
+    o-projection, one C call)."""
     name = "K9p" if partial else "K9"
     b, h, t, d = q.shape
     if partial:
@@ -465,15 +501,18 @@ def _launch_int8(q, k8, ks, v8, vs, x, wo, bo, partial=False):
         _check_widths(name, q, x, wo, bo)
         hd = hdo = x.shape[-1]
     dev = q.device
+    _check_dtypes(name, q, q=q, wo=wo,
+                  **({} if partial else dict(x=x, bo=bo)))
+    f32 = q.dtype == torch.float32
     for n, a, dt, shape in (
-            ("q", q, torch.bfloat16, (b, h, t, d)),
+            ("q", q, q.dtype, (b, h, t, d)),
             ("k8", k8, torch.int8, (b, h, t, d)),
             ("ks", ks, torch.float32, (b, h, t)),
             ("v8", v8, torch.int8, (b, h, t, d)),
             ("vs", vs, torch.float32, (b, h, t)),
-            ("x", x, torch.bfloat16, (b, t, hd)),
-            ("wo", wo, torch.bfloat16, (hd, hdo)),
-            ("bo", bo, torch.bfloat16, (hd,))):
+            ("x", x, q.dtype, (b, t, hd)),
+            ("wo", wo, q.dtype, (hd, hdo)),
+            ("bo", bo, q.dtype, (hd,))):
         if a is None and partial and n in ("x", "bo"):
             continue
         if a.dtype != dt:
@@ -491,22 +530,27 @@ def _launch_int8(q, k8, ks, v8, vs, x, wo, bo, partial=False):
     # bytes: a ragged T pads them (the padding is never read)
     if t % 4:
         ks, vs = (torch.nn.functional.pad(a, (0, 4 - t % 4)) for a in (ks, vs))
+    # the float32 forms: the heads' float32 scratch, before the stream
+    merged = torch.empty(b, t, hd, dtype=torch.float32, device=dev) \
+        if f32 else None
+    tail = (merged.data_ptr(),) if f32 else ()
+    sfx = "_f32" if f32 else ""
     stream = runtime.stream_handle(dev)
     if partial:
         out = torch.empty(b, t, hdo, dtype=torch.float32, device=dev)
         runtime.launch(
-            "mas_attn_o_residual_int8_partial", dev,
+            "mas_attn_o_residual_int8_partial" + sfx, dev,
             q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
             v8.data_ptr(), vs.data_ptr(), wo.data_ptr(), out.data_ptr(), b,
-            h, t, ks.shape[-1], hdo, 1.0 / math.sqrt(d), stream)
+            h, t, ks.shape[-1], hdo, 1.0 / math.sqrt(d), *tail, stream)
     else:
         out = torch.empty_like(x)
         runtime.launch(
-            "mas_attn_o_residual_int8", dev,
+            "mas_attn_o_residual_int8" + sfx, dev,
             q.data_ptr(), sb, sh, st, k8.data_ptr(), ks.data_ptr(),
             v8.data_ptr(), vs.data_ptr(), x.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), out.data_ptr(), b, h, t, ks.shape[-1], hd,
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d), *tail, stream)
     runtime.bump("encoder_attn_o_residual_int8")
     return out
 

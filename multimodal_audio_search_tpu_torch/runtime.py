@@ -159,10 +159,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("mas_attn_o_residual", "mas_attn_o_residual_paired"):
         getattr(lib, name).argtypes = [*block, i, p]  # cluster, stream
         getattr(lib, name).restype = i
-    # K1's float32 form: scale 1/8 in place of scale * log2(e); cluster,
-    # the merged scratch, stream
-    lib.mas_attn_o_residual_f32.argtypes = [*block, i, p, p]
-    lib.mas_attn_o_residual_f32.restype = i
+    # K1's and K10's float32 forms: scale 1/8 in place of scale * log2(e);
+    # cluster, the merged scratch, stream
+    for name in ("mas_attn_o_residual_f32", "mas_attn_o_residual_paired_f32"):
+        getattr(lib, name).argtypes = [*block, i, p, p]
+        getattr(lib, name).restype = i
     for name in INIT:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
@@ -171,8 +172,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cluster, the division's form, stream
     lib.mas_attn_o_residual_ab.argtypes = [*block, i, i, p]
     lib.mas_attn_o_residual_ab.restype = i
+    # K1p, K10p and their float32 forms (scale 1/8, a float32 scratch)
     for name in ("mas_attn_o_residual_partial",
-                 "mas_attn_o_residual_paired_partial"):  # K1p, K10p
+                 "mas_attn_o_residual_paired_partial",
+                 "mas_attn_o_residual_partial_f32",
+                 "mas_attn_o_residual_paired_partial_f32"):
         getattr(lib, name).argtypes = [
             p, p, p, ll, ll, ll,  # q, k, v and their shared strides
             p, p, p,              # merged scratch, wo rows, out (float32)
@@ -193,6 +197,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,            # B, H, T, the scales' row length, HD_out
         f, p]                     # scale, stream
     lib.mas_attn_o_residual_int8_partial.restype = i
+    # K9's and K9p's float32 forms: q, x, wo, bo, out float32, and the
+    # heads' float32 scratch before the stream
+    for name in ("mas_attn_o_residual_int8",
+                 "mas_attn_o_residual_int8_partial"):
+        f32 = getattr(lib, name + "_f32")
+        f32.argtypes = [*getattr(lib, name).argtypes[:-1], p, p]
+        f32.restype = i
     lib.mas_k9_division_check.argtypes = [p, p, p, ll, p]  # x, d, bad, n
     lib.mas_k9_division_check.restype = i
     lib.mas_encoder_attention.argtypes = [
@@ -233,6 +244,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block_partial.restype = i
+    # K3p's float32 form: the same arguments, every tensor float32
+    lib.mas_decoder_self_block_partial_f32.argtypes = \
+        lib.mas_decoder_self_block_partial.argtypes
+    lib.mas_decoder_self_block_partial_f32.restype = i
     for name in ("mas_decoder_self_block_fit",
                  "mas_decoder_self_block_f32_fit",
                  "mas_int8_cached_attention_fit"):
@@ -256,6 +271,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block_partial.restype = i
+    # K4p's float32 form: the same arguments (K4's float32 scratch)
+    lib.mas_decoder_mlp_block_partial_f32.argtypes = \
+        lib.mas_decoder_mlp_block_partial.argtypes
+    lib.mas_decoder_mlp_block_partial_f32.restype = i
     lib.mas_quant_matmul.argtypes = [
         p, p, p, p, p,            # x, wq, scale, bias (or null), out
         p, p,                     # split scratch, counters

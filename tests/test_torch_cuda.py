@@ -1833,3 +1833,222 @@ def test_k6_k7_float32_checks_see_a_dropped_rank(cuda, kernel):
         chip_smoke.check_rel(f"{kernel} float32 rank 1 dropped", fn(vd), ref,
                              chip_smoke.F32_INT8_ATT_MAX,
                              chip_smoke.F32_INT8_ATT_L2)
+
+
+# The float32 forms of K10, K1p, K10p, K9, K9p, K3p and K4p (a float32
+# engine under fused_encoder "paired" / "int8", and over the mesh's model
+# axis). K10's even-head cases of the float32 tile edges and widths
+K10_F32_CASES = [(2, 2, 1), (2, 2, 63), (2, 2, 65), (3, 6, 100),
+                 (2, 6, 1500), (32, 8, 1500), (32, 6, 1500), (2, 12, 129),
+                 (1, 20, 257)]
+
+
+@pytest.mark.parametrize("b,heads,t", K10_F32_CASES)
+def test_k10_float32_matches_plain(cuda, b, heads, t):
+    """K10's float32 form (the pair loop on 3xTF32) within chip_smoke's
+    float32 block tolerance of attention_o_residual_paired_plain, counted
+    under K10's key; and within the same tolerance of K1's float32 form,
+    whose function it computes on float32."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    args = chip_smoke._f32_block(torch.Generator().manual_seed(700 + t),
+                                 b, t, heads)
+    runtime.reset_counts()
+    got = EB.fused_attention_o_residual(*args, pair_heads=True)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["encoder_attn_o_residual_paired"] == 1
+    assert sum(runtime.COUNTS.values()) == 1
+    assert got.dtype == torch.float32 and got.shape == args[3].shape
+    tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
+    chip_smoke.check_close(f"K10 float32 B={b} H={heads} T={t}", got,
+                           EB.attention_o_residual_paired_plain(*args), *tol)
+    chip_smoke.check_close(f"K10 float32 vs K1 float32 H={heads} T={t}",
+                           got, EB.fused_attention_o_residual(*args), *tol)
+
+
+@pytest.mark.parametrize("hl,hdo", [(4, 512), (3, 384), (10, 1280),
+                                    (2, 128)])
+@pytest.mark.parametrize("t", [1500, 65])
+def test_k1p_k10p_float32_match_plain(cuda, hl, hdo, t):
+    """K1p's float32 form on a rank's heads (whisper-base's, -tiny's and
+    -large-v3's H/2, clusters of 4, 3 and 5 blocks) with the rank's Wo
+    rows, and K10p's where the rank's head count is even, each within
+    chip_smoke's float32 block tolerance of its plain version: a float32
+    [B, T, HD_out] partial, counted under the square kernel's key."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    q, k, v, wo = chip_smoke.f32_partial_inputs(
+        torch.Generator().manual_seed(800 + hl + t), 4, t, hl, hdo)
+    tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
+    for pair in (False, True) if hl % 2 == 0 else (False,):
+        key = ("encoder_attn_o_residual_paired" if pair
+               else "encoder_attn_o_residual")
+        runtime.reset_counts()
+        got = EB.fused_attention_o_residual(q, k, v, None, wo, None,
+                                            pair_heads=pair, partial=True)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS[key] == 1 and sum(runtime.COUNTS.values()) == 1
+        assert got.dtype == torch.float32 and got.shape == (4, t, hdo)
+        plain = (EB.attention_o_residual_paired_plain if pair
+                 else EB.attention_o_residual_plain)
+        chip_smoke.check_close(
+            f"{'K10p' if pair else 'K1p'} float32 H={hl} T={t}", got,
+            plain(q, k, v, None, wo, None, partial=True), *tol)
+
+
+@pytest.mark.parametrize("heads", [6, 8, 12, 20])
+@pytest.mark.parametrize("t", [129, 1500, 1501])
+def test_k9_float32_matches_plain(cuda, heads, t):
+    """K9's float32 form (float32 q quantized as it is, the heads into a
+    float32 scratch, its 3xTF32 o-projection) at D = 384-1280 and ragged
+    T, on every K1 input in float32, held by the bf16 K9's check (the
+    int8 codes may differ where exp and the sum l move a p8 code)."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(900 + t + heads)
+    for inputs, q_scale, residual in chip_smoke.K1_CASES:
+        q, k, v, x, wo, bo = chip_smoke.k1_inputs(
+            gen, 2, t, heads, q_scale=q_scale, residual=residual,
+            dtype=torch.float32)
+        args9 = (q, *quantize_kv(k, v), x, wo, bo)
+        runtime.reset_counts()
+        got = EB.attention_o_residual_int8(*args9)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["encoder_attn_o_residual_int8"] == 1
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        chip_smoke.check_k1(f"K9 float32 D={heads * 64} T={t} {inputs}", got,
+                            EB.attention_o_residual_int8_plain(*args9),
+                            residual)
+
+
+@pytest.mark.parametrize("hl,hdo", [(4, 512), (3, 384)])
+def test_k9p_float32_matches_plain(cuda, hl, hdo):
+    """K9p's float32 form on whisper-base's and -tiny's rank heads at
+    B=8, T=1500, held by the K9 check on the attention term."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    q, k, v, wo = chip_smoke.f32_partial_inputs(
+        torch.Generator().manual_seed(950 + hl), 8, 1500, hl, hdo)
+    kv = quantize_kv(k, v)
+    runtime.reset_counts()
+    got = EB.attention_o_residual_int8(q, *kv, None, wo, None, partial=True)
+    torch.cuda.synchronize()
+    assert runtime.COUNTS["encoder_attn_o_residual_int8"] == 1
+    assert got.dtype == torch.float32 and got.shape == (8, 1500, hdo)
+    chip_smoke.check_k1(f"K9p float32 H={hl}", got,
+                        EB.attention_o_residual_int8_plain(
+                            q, *kv, None, wo, None, partial=True), False)
+
+
+@pytest.mark.parametrize("d,heads,pos", [(512, 8, 0), (512, 8, 3),
+                                         (512, 8, 67), (384, 6, 67)])
+def test_k3p_k4p_float32_match_plain(cuda, d, heads, pos):
+    """K3p's and K4p's float32 forms on a rank of two (H/2 heads of a
+    D-wide model at B=32, L=68; F/2 = 2 D MLP columns), each within
+    chip_smoke's float32 block tolerance of its plain version (K3p's
+    cache row too), and the two ranks through model_sum within it of the
+    square float32 kernel on the whole layer."""
+    from multimodal_audio_search_tpu_torch import runtime
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    from multimodal_audio_search_tpu_torch.parallel.mesh import model_sum
+    gen = torch.Generator().manual_seed(1000 + pos + d)
+    tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
+    b, l, hl = 32, 68, heads // 2
+    x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, b, l, d,
+                                               dtype=torch.float32)
+    g1, b1, wq, bq, wk, wv, bv, wo, bo = selfw
+    sh = chip_smoke.tp_shard_rows
+    ranks = [(g1, b1, sh(wq, j, 1), sh(bq, j, 0), sh(wk, j, 1),
+              sh(wv, j, 1), sh(bv, j, 0), sh(wo, j, 0), bo) for j in range(2)]
+    caches = [(sh(kc, j, 2), sh(vc, j, 2)) for j in range(2)]
+    parts = []
+    for j in range(2):
+        ref = DB.self_block_plain(x, *ranks[j], *caches[j], pos, heads=hl,
+                                  partial=True)
+        runtime.reset_counts()
+        got = DB.fused_self_block(x, *ranks[j], caches[j][0].clone(),
+                                  caches[j][1].clone(), pos, heads=hl,
+                                  partial=True)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["decoder_self_block"] == 1
+        assert got[0].dtype == torch.float32 and got[0].shape == (b, d)
+        for name, g, r in zip(("out", "k1", "v1"), got, ref):
+            chip_smoke.check_close(f"K3p float32 rank {j} pos={pos} {name}",
+                                   g, r, *tol)
+        parts.append(got[0])
+    whole = DB.fused_self_block(x, *selfw, kc.clone(), vc.clone(), pos,
+                                heads=heads)[0]
+    chip_smoke.check_close(f"K3p float32 sum pos={pos}",
+                           model_sum(parts, bo, x)[0], whole, *tol)
+    x, mlp, _ = chip_smoke.k4_inputs(gen, b, d, 4 * d, dtype=torch.float32)
+    g, bl, w1, b1f, w2, b2 = mlp
+    ranks = [(g, bl, sh(w1, j, 1), sh(b1f, j, 0), sh(w2, j, 0), b2)
+             for j in range(2)]
+    parts = []
+    for j in range(2):
+        runtime.reset_counts()
+        got = DB.fused_mlp_block(x, *ranks[j], partial=True)
+        torch.cuda.synchronize()
+        assert runtime.COUNTS["decoder_mlp_block"] == 1
+        chip_smoke.check_close(f"K4p float32 rank {j}", got,
+                               DB.mlp_block_plain(x, *ranks[j], partial=True),
+                               *tol)
+        parts.append(got)
+    chip_smoke.check_close("K4p float32 sum", model_sum(parts, b2, x)[0],
+                           DB.fused_mlp_block(x, *mlp), *tol)
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K1p", "K10p", "K9", "K9p",
+                                    "K3p", "K4p"])
+def test_float32_new_forms_repeat_bit_equal(cuda, kernel):
+    """Each new float32 form at its main shape (B=32, T=1500; K3p and K4p
+    at B=32, L=68, pos 67, whisper-base's rank of two), 16 more launches
+    on the same inputs each bit-equal to the first."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    from multimodal_audio_search_tpu_torch.ops import encoder_block as EB
+    from multimodal_audio_search_tpu_torch.ops.cached_attention import (
+        quantize_kv)
+    gen = torch.Generator().manual_seed(11)
+    if kernel in ("K1p", "K10p", "K9p"):
+        q, k, v, wo = chip_smoke.f32_partial_inputs(gen, 32, 1500, 4, 512)
+        if kernel == "K9p":
+            kv = quantize_kv(k, v)
+            fn = (lambda: EB.attention_o_residual_int8(
+                q, *kv, None, wo, None, partial=True))
+        else:
+            fn = (lambda: EB.fused_attention_o_residual(
+                q, k, v, None, wo, None, pair_heads=kernel == "K10p",
+                partial=True))
+    elif kernel in ("K10", "K9"):
+        args = chip_smoke._f32_block(gen, 32, 1500, 8)
+        if kernel == "K9":
+            args9 = (args[0], *quantize_kv(args[1], args[2]), *args[3:])
+            fn = (lambda: EB.attention_o_residual_int8(*args9))
+        else:
+            fn = (lambda: EB.fused_attention_o_residual(*args,
+                                                        pair_heads=True))
+    elif kernel == "K3p":
+        x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 32, 68, 512,
+                                                   dtype=torch.float32)
+        sh = chip_smoke.tp_shard_rows
+        g1, b1, wq, bq, wk, wv, bv, wo, bo = selfw
+        rank = (g1, b1, sh(wq, 0, 1), sh(bq, 0, 0), sh(wk, 0, 1),
+                sh(wv, 0, 1), sh(bv, 0, 0), sh(wo, 0, 0), bo)
+        kr, vr = sh(kc, 0, 2), sh(vc, 0, 2)
+        fn = (lambda: torch.cat([a.reshape(-1) for a in DB.fused_self_block(
+            x, *rank, kr, vr, 67, heads=4, partial=True)]))
+    else:
+        x, mlp, _ = chip_smoke.k4_inputs(gen, 32, 512, 2048,
+                                         dtype=torch.float32)
+        sh = chip_smoke.tp_shard_rows
+        g, bl, w1, b1f, w2, b2 = mlp
+        rank = (g, bl, sh(w1, 0, 1), sh(b1f, 0, 0), sh(w2, 0, 0), b2)
+        fn = (lambda: DB.fused_mlp_block(x, *rank, partial=True))
+    first = fn()
+    assert chip_smoke.check_repeats(f"{kernel} float32", fn, first,
+                                    chip_smoke.F32_REPEATS) == \
+        chip_smoke.F32_REPEATS

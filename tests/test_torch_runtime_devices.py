@@ -155,6 +155,25 @@ def _launches():
         q, _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
         _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32), None, wr, None,
         partial=True)
+    # the float32 forms of K1, K10, K1p, K10p, K9 and K9p: q, x, Wo, bo
+    # float32 (K9's codes and scales as in its bf16 form)
+    x32e, wo32, bo32 = _m(b, t, hd, dtype=f32), _m(hd, hd, dtype=f32), \
+        _m(hd, dtype=f32)
+    wr32 = _m(hd, 2 * hd, dtype=f32)
+    yield "K1 float32", lambda: encoder_block._launch(
+        q32, q32, q32, x32e, wo32, bo32)
+    yield "K10 float32", lambda: encoder_block._launch(
+        q32, q32, q32, x32e, wo32, bo32, pair_heads=True)
+    yield "K1p float32", lambda: encoder_block._launch_partial(
+        q32, q32, q32, wr32)
+    yield "K10p float32", lambda: encoder_block._launch_partial(
+        q32, q32, q32, wr32, pair_heads=True)
+    codes = (_m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32),
+             _m(b, h, t, d, dtype=i8), _m(b, h, t, dtype=f32))
+    yield "K9 float32", lambda: encoder_block._launch_int8(
+        q32, *codes, x32e, wo32, bo32)
+    yield "K9p float32", lambda: encoder_block._launch_int8(
+        q32, *codes, None, wr32, None, partial=True)
     qm = _m(b, hd)
     yield "K2", lambda: cross_attention._launch(qm, _m(b, t, hd),
                                                 _m(b, t, hd), h, t)
@@ -200,6 +219,22 @@ def _launches():
     yield "K4 float32", lambda: decoder_block._launch_mlp(*mlp32, 1e-5)
     yield "K4-o float32", lambda: decoder_block._launch_mlp(
         *mlp32, 1e-5, head=(_m(b16, hd, dtype=f32), w32, vf))
+    # K3p and K4p, bf16 and float32: a rank's one head of two, F / 2
+    for dt in (torch.bfloat16, f32):
+        xr, gr = _m(b16, hd, dtype=dt), _m(hd, dtype=f32)
+        vr, wsh, bsh = _m(hd, dtype=dt), _m(hd, h * 32, dtype=dt), \
+            _m(h * 32, dtype=dt)
+        cr = _m(b16, t, h * 32, dtype=dt)
+        tag = " float32" if dt == f32 else ""
+        yield "K3p" + tag, lambda xr=xr, gr=gr, vr=vr, wsh=wsh, bsh=bsh, \
+            cr=cr, dt=dt: decoder_block._launch_self(
+                xr, gr, vr, wsh, bsh, wsh, wsh, bsh,
+                _m(h * 32, hd, dtype=dt), vr, cr, cr, 3, 1, 1e-5,
+                partial=True)
+        yield "K4p" + tag, lambda xr=xr, gr=gr, vr=vr, dt=dt: \
+            decoder_block._launch_mlp(
+                xr, gr, vr, _m(hd, f // 2, dtype=dt), _m(f // 2, dtype=dt),
+                _m(f // 2, hd, dtype=dt), vr, 1e-5, partial=True)
     yield "K14", lambda: decoder_block._launch_cross_mlp(
         x, vf, vb, w, vb, w, vb, vf, vb, _m(hd, f), _m(f), _m(f, hd), vb,
         cache, cache, h, 1e-5)
@@ -244,6 +279,14 @@ def test_every_launch_enters_its_tensors_device(fake):
         "mas_attn_o_residual_int8", "mas_attn_o_residual_partial",
         "mas_attn_o_residual_paired_partial",
         "mas_attn_o_residual_int8_partial", "mas_single_query_attention",
+        "mas_attn_o_residual_f32", "mas_attn_o_residual_paired_f32",
+        "mas_attn_o_residual_partial_f32",
+        "mas_attn_o_residual_paired_partial_f32",
+        "mas_attn_o_residual_int8_f32",
+        "mas_attn_o_residual_int8_partial_f32",
+        "mas_decoder_self_block_partial",
+        "mas_decoder_self_block_partial_f32",
+        "mas_decoder_mlp_block_partial", "mas_decoder_mlp_block_partial_f32",
         "mas_single_query_attention_f32", "mas_encoder_attention_f32",
         "mas_single_query_attention_int8",
         "mas_single_query_attention_int8_fit", "mas_int8_cached_attention",
@@ -347,43 +390,105 @@ def test_k5_k6_k7_form_by_dtype(fake, dtype, suffix):
         assert not [c for c in lib.calls if c[0] not in runtime.INIT]
 
 
-@pytest.mark.parametrize("dtype,want", [
-    (torch.bfloat16, "mas_attn_o_residual"),
-    (torch.float32, "mas_attn_o_residual_f32"),
-    (torch.float16, None)])
-def test_k1_form_by_dtype(fake, dtype, want):
-    """K1 launches its bf16 or its float32 form by the inputs' dtype (a
-    float32 encode on the card takes the float32 one, on clusters of
-    f32_cluster(H) blocks, the merged attention in a scratch of x's
-    shape), and refuses any other dtype, or a mix, before a launch. K10,
-    K11 and the partial forms K1p and K10p keep to bf16."""
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.bfloat16, ""), (torch.float32, "_f32"), (torch.float16, None)])
+def test_k1_form_by_dtype(fake, dtype, suffix):
+    """K1, K10 and the partial forms K1p and K10p launch their bf16 or
+    their float32 form (the symbol + "_f32": a float32 encode on the
+    card, on one device or a rank of the model axis) by the inputs'
+    dtype, each counted under its square kernel's key, and refuse any
+    other dtype, or a mix, before a launch. K11 takes bf16 only and, on
+    float32, raises naming why (the A/B tool's form)."""
     lib, _ = fake
     b, h, t = 2, 2, 8
     hd = h * 64
     q, x = _m(b, h, t, 64, dtype=dtype), _m(b, t, hd, dtype=dtype)
     wo, bo = _m(hd, hd, dtype=dtype), _m(hd, dtype=dtype)
+    wr = _m(hd, 2 * hd, dtype=dtype)
     launched = lambda: [c[0] for c in lib.calls                # noqa: E731
                         if c[0] not in runtime.INIT
                         and not c[0].endswith("_fit")]
-    if want is None:
-        with pytest.raises(TypeError, match="bf16 or float32 tensors"):
-            encoder_block._launch(q, q, q, x, wo, bo)
-    else:
-        out = encoder_block._launch(q, q, q, x, wo, bo)
-        assert out.dtype == dtype and out.shape == x.shape
-        assert runtime.COUNTS["encoder_attn_o_residual"] == 1
-    assert launched() == ([want] if want else [])
     other = torch.float32 if dtype != torch.float32 else torch.bfloat16
-    with pytest.raises(TypeError, match="of one dtype"):
-        encoder_block._launch(q, q, q, _m(b, t, hd, dtype=other), wo, bo)
+    calls = (
+        ("encoder_attn_o_residual", "mas_attn_o_residual",
+         lambda wo=wo: encoder_block._launch(q, q, q, x, wo, bo)),
+        ("encoder_attn_o_residual_paired", "mas_attn_o_residual_paired",
+         lambda wo=wo: encoder_block._launch(q, q, q, x, wo, bo,
+                                             pair_heads=True)),
+        ("encoder_attn_o_residual", "mas_attn_o_residual_partial",
+         lambda wo=wr: encoder_block._launch_partial(q, q, q, wo)),
+        ("encoder_attn_o_residual_paired",
+         "mas_attn_o_residual_paired_partial",
+         lambda wo=wr: encoder_block._launch_partial(q, q, q, wo,
+                                                     pair_heads=True)))
+    for key, sym, call in calls:
+        lib.calls.clear()
+        runtime.COUNTS[key] = 0
+        if suffix is None:
+            with pytest.raises(TypeError, match="bf16 or float32 tensors"):
+                call()
+        else:
+            out = call()
+            partial = "partial" in sym
+            assert out.dtype == (torch.float32 if partial else dtype)
+            assert out.shape == ((b, t, 2 * hd) if partial else x.shape)
+            assert runtime.COUNTS[key] == 1
+        assert launched() == ([] if suffix is None else [sym + suffix])
+        # a Wo of the other dtype: refused before any launch
+        lib.calls.clear()
+        with pytest.raises(TypeError, match="of one dtype"):
+            call(_m(*(wr if "partial" in sym else wo).shape, dtype=other))
+        assert launched() == []
     if dtype == torch.float32:
-        for kw in ({"pair_heads": True}, {"form": "post"}):
-            with pytest.raises(TypeError, match="takes bf16 tensors"):
-                encoder_block._launch(q, q, q, x, wo, bo, **kw)
-        for pair in (False, True):
-            with pytest.raises(TypeError, match="takes bf16 tensors"):
-                encoder_block._launch_partial(q, q, q, wo, pair_heads=pair)
-    assert launched() == ([want] if want else [])
+        with pytest.raises(TypeError, match="no float32 form.*A/B tool"):
+            encoder_block._launch(q, q, q, x, wo, bo, form="post")
+        assert launched() == []
+
+
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.bfloat16, ""), (torch.float32, "_f32"), (torch.float16, None)])
+def test_k9_form_by_dtype(fake, dtype, suffix):
+    """K9 and K9p launch their bf16 form on bf16 q, x, Wo, bo and their
+    float32 form (the symbol + "_f32", one C call: the heads into a
+    float32 scratch, then its o-projection) on float32 ones, each counted
+    under K9's key; the int8 codes and float32 scales are the same in
+    both. float16, or a float input of the other dtype, raises before any
+    launch."""
+    lib, _ = fake
+    f32, i8 = torch.float32, torch.int8
+    b, h, t = 2, 2, 8
+    hd = h * 64
+    kv = (_m(b, h, t, 64, dtype=i8), _m(b, h, t, dtype=f32),
+          _m(b, h, t, 64, dtype=i8), _m(b, h, t, dtype=f32))
+    q, x = _m(b, h, t, 64, dtype=dtype), _m(b, t, hd, dtype=dtype)
+    wo, bo, wr = (_m(hd, hd, dtype=dtype), _m(hd, dtype=dtype),
+                  _m(hd, 2 * hd, dtype=dtype))
+    launched = lambda: [c[0] for c in lib.calls                # noqa: E731
+                        if c[0] not in runtime.INIT]
+    other = torch.float32 if dtype != torch.float32 else torch.bfloat16
+    for sym, call in (
+            ("mas_attn_o_residual_int8",
+             lambda x=x: encoder_block._launch_int8(q, *kv, x, wo, bo)),
+            ("mas_attn_o_residual_int8_partial",
+             lambda wo=wr: encoder_block._launch_int8(q, *kv, None, wo, None,
+                                                      partial=True))):
+        lib.calls.clear()
+        runtime.COUNTS["encoder_attn_o_residual_int8"] = 0
+        if suffix is None:
+            with pytest.raises(TypeError, match="bf16 or float32 tensors"):
+                call()
+        else:
+            out = call()
+            partial = sym.endswith("partial")
+            assert out.dtype == (f32 if partial else dtype)
+            assert out.shape == ((b, t, 2 * hd) if partial else x.shape)
+            assert runtime.COUNTS["encoder_attn_o_residual_int8"] == 1
+        assert launched() == ([] if suffix is None else [sym + suffix])
+        lib.calls.clear()
+        with pytest.raises(TypeError, match="of one dtype"):
+            call(_m(b, t, hd, dtype=other) if not sym.endswith("partial")
+                 else _m(hd, 2 * hd, dtype=other))
+        assert launched() == []
 
 
 @pytest.mark.parametrize("dtype,self_sym,mlp_sym", [
@@ -396,8 +501,9 @@ def test_k3_k4_form_by_dtype(fake, dtype, self_sym, mlp_sym):
     layer-norm scales and K4-o's attn float32) and their float32 form
     (csrc/decoder_block_f32.cu) on float32 tensors, each counted under
     its kernel's key, and refuse any other dtype, or a mix, before a
-    launch. K3p, K4p and K14 keep to bf16: on float32 they raise, naming
-    why."""
+    launch. So do K3p and K4p, the partial forms of a rank of the model
+    axis (their float32 forms: the symbol + "_partial_f32"). K14 keeps to
+    bf16: on float32 it raises, naming why."""
     lib, _ = fake
     b, h, t, f = 16, 2, 8, 256
     hd = h * 64
@@ -446,18 +552,43 @@ def test_k3_k4_form_by_dtype(fake, dtype, self_sym, mlp_sym):
         with pytest.raises(TypeError, match="of one dtype"):
             call()
     assert launched() == []
+    # K3p and K4p: a rank's one head of two (Wq/Wk/Wv column and Wo row
+    # shards, a cache of its 64 columns) and its F / 2 MLP columns; the
+    # float32 partial out; a weight of the other dtype refused
+    hr = hd // 2
+    wr, br, wor = (_m(hd, hr, dtype=dtype), _m(hr, dtype=dtype),
+                   _m(hr, hd, dtype=dtype))
+    cr = _m(b, t, hr, dtype=dtype)
+    part_calls = (
+        ("decoder_self_block", self_sym and self_sym.replace(
+            "self_block", "self_block_partial"),
+         lambda wq=wr: decoder_block._launch_self(
+             x, vf, vb, wq, br, wr, wr, br, wor, vb, cr, cr, 3, 1, 1e-5,
+             partial=True)),
+        ("decoder_mlp_block", mlp_sym and mlp_sym.replace(
+            "mlp_block", "mlp_block_partial"),
+         lambda w1=_m(hd, f // 2, dtype=dtype): decoder_block._launch_mlp(
+             x, vf, vb, w1, _m(f // 2, dtype=dtype),
+             _m(f // 2, hd, dtype=dtype), vb, 1e-5, partial=True)))
+    for key, want, call in part_calls:
+        lib.calls.clear()
+        runtime.COUNTS[key] = 0
+        if want is None:
+            with pytest.raises(TypeError, match="bf16 or float32 tensors"):
+                call()
+        else:
+            out = call()
+            out = out[0] if isinstance(out, tuple) else out
+            assert out.dtype == torch.float32 and out.shape == x.shape
+            assert runtime.COUNTS[key] == 1
+        assert launched() == ([want] if want else [])
+    lib.calls.clear()
+    with pytest.raises(TypeError, match="of one dtype"):
+        part_calls[0][2](_m(hd, hr, dtype=other))
+    with pytest.raises(TypeError, match="of one dtype"):
+        part_calls[1][2](_m(hd, f // 2, dtype=other))
+    assert launched() == []
     if dtype == torch.float32:
-        wr = _m(hd, hd // 2, dtype=dtype)
-        with pytest.raises(TypeError, match="Q5"):      # K3p
-            decoder_block._launch_self(
-                x, vf, vb, wr, _m(hd // 2, dtype=dtype), wr, wr,
-                _m(hd // 2, dtype=dtype), _m(hd // 2, hd, dtype=dtype), vb,
-                _m(b, t, hd // 2, dtype=dtype), _m(b, t, hd // 2,
-                                                   dtype=dtype),
-                3, 1, 1e-5, partial=True)
-        with pytest.raises(TypeError, match="Q5"):      # K4p
-            decoder_block._launch_mlp(x, vf, vb, w1, b1, w2, vb, 1e-5,
-                                      partial=True)
         with pytest.raises(TypeError, match="no decode step"):   # K14
             decoder_block._launch_cross_mlp(x, vf, vb, w, vb, w, vb, vf, vb,
                                             w1, b1, w2, vb, cache, cache, h,

@@ -1,4 +1,5 @@
-"""The 3xTF32 arithmetic of K8's and K1's float32 forms, emulated on the CPU.
+"""The 3xTF32 arithmetic of K8's, K1's, K10's and K9's float32 forms (and
+their partial forms), emulated on the CPU.
 
 ``csrc/tf32x3.cuh`` runs every float32 product of the two kernels on the
 tensor cores as three TF32 products: each operand x split into hi = x
@@ -17,7 +18,11 @@ to the plain versions (``encoder_attention_plain``,
 T = 1500 and at a partial tile; one TF32 pass, in the same loop, misses
 that tolerance, so the split is what makes the kernels float32-class;
 and a P V sum run over all keys in one accumulator drifts several times
-further than the tiles' sums.
+further than the tiles' sums. The orders the later forms add: K10's pair
+loop (both heads' tiles of a key range, the heads' steps alternating)
+gives K1's per-head arithmetic bit for bit; K1p's and K10p's projection
+over a rank's Wo rows, and K9's int8 heads projected from a float32
+scratch, each within the same tolerance of its plain version.
 """
 import math
 
@@ -82,45 +87,82 @@ def matmul_tf32(c, a, b, passes: int = 3):
     return c
 
 
+def tile_step(state, qs, kt, vt, passes: int = 3, tile_sums: bool = True):
+    """One 64-key tile of K8's float32 loop (tf32x3::head_tile) for the
+    heads of ``state`` = (m, l, o): S = Q K^T, the running max and its
+    rescale of l and O, p = exp(s - max), l + the tile's sum, O c + the
+    tile's P V (``tile_sums`` False: P V added into O's accumulator)."""
+    m, l, o = state
+    s = matmul_tf32(torch.zeros(*qs.shape[:-1], kt.shape[-2]), qs,
+                    kt.transpose(-1, -2), passes)
+    mx = torch.maximum(m, s.amax(-1, keepdim=True))
+    c = torch.exp(m - mx)
+    p = torch.exp(s - mx)
+    l = l * c + p.sum(-1, keepdim=True)
+    if tile_sums:
+        o = torch.addcmul(matmul_tf32(torch.zeros_like(o), p, vt, passes),
+                          o, c)
+    else:
+        o = matmul_tf32(o * c, p, vt, passes)
+    return mx, l, o
+
+
 def attention_tf32(q, k, v, passes: int = 3, tile_sums: bool = True):
-    """K8's float32 loop: q x 1/8, then per 64-key tile S = Q K^T, the
-    running max and its rescale of l and O, p = exp(s - max), l + the
-    tile's sum, O c + the tile's P V (``tile_sums`` False: P V added into
-    O's accumulator); O / l at the end. [B, H, T, 64] float32."""
+    """K8's float32 loop: q x 1/8, then tile_step per 64-key tile, every
+    head at once; O / l at the end. [B, H, T, 64] float32."""
     b, h, t, d = q.shape
     qs = q * 0.125
-    m = torch.full((b, h, t, 1), -math.inf)
-    l = torch.zeros(b, h, t, 1)
-    o = torch.zeros(b, h, t, d)
+    state = (torch.full((b, h, t, 1), -math.inf), torch.zeros(b, h, t, 1),
+             torch.zeros(b, h, t, d))
     for j0 in range(0, t, KEYS):
-        kt, vt = k[..., j0:j0 + KEYS, :], v[..., j0:j0 + KEYS, :]
-        s = matmul_tf32(torch.zeros(b, h, t, kt.shape[-2]), qs,
-                        kt.transpose(-1, -2), passes)
-        mx = torch.maximum(m, s.amax(-1, keepdim=True))
-        c = torch.exp(m - mx)
-        p = torch.exp(s - mx)
-        l = l * c + p.sum(-1, keepdim=True)
-        if tile_sums:
-            o = torch.addcmul(matmul_tf32(torch.zeros_like(o), p, vt,
-                                          passes), o, c)
-        else:
-            o = matmul_tf32(o * c, p, vt, passes)
-        m = mx
-    return o / l
+        state = tile_step(state, qs, k[..., j0:j0 + KEYS, :],
+                          v[..., j0:j0 + KEYS, :], passes, tile_sums)
+    return state[2] / state[1]
 
 
-def block_tf32(q, k, v, x, wo, bo, passes: int = 3):
-    """K1's float32 form: the merged attention (float32, unrounded) times
-    Wo in the same split products, 64 inputs a sum, the sums added in
-    input order; then x + (y + bo)."""
+def paired_attention_tf32(q, k, v):
+    """K10's float32 pair loop (tf32x3::attend_pair): for each pair of
+    heads (2p, 2p + 1) and each 64-key tile staged for both, head 2p's
+    tile_step and then head 2p + 1's, each head with its own state."""
     b, h, t, d = q.shape
-    merged = attention_tf32(q, k, v, passes).transpose(1, 2).reshape(
-        b, t, h * d)
+    qs = q * 0.125
+    out = torch.empty(b, h, t, d)
+    for p in range(h // 2):
+        states = [(torch.full((b, t, 1), -math.inf), torch.zeros(b, t, 1),
+                   torch.zeros(b, t, d)) for _ in range(2)]
+        for j0 in range(0, t, KEYS):
+            for i, hh in enumerate((2 * p, 2 * p + 1)):
+                states[i] = tile_step(states[i], qs[:, hh],
+                                      k[:, hh, j0:j0 + KEYS],
+                                      v[:, hh, j0:j0 + KEYS])
+        for i, (_, l, o) in enumerate(states):
+            out[:, 2 * p + i] = o / l
+    return out
+
+
+def project_tf32(merged, wo, passes: int = 3):
+    """The float32 forms' o-projection (tf32x3::project_chunk, K1's, K10's
+    and K9's float32 forms and their partial forms): merged [B, T, n*64]
+    times Wo [n*64, N] in the split products, 64 inputs a sum, the sums
+    added in input order."""
+    b, t, _ = merged.shape
     y = torch.zeros(b, t, wo.shape[1])
     for k0 in range(0, wo.shape[0], KEYS):
         y = y + matmul_tf32(torch.zeros_like(y), merged[..., k0:k0 + KEYS],
                             wo[k0:k0 + KEYS], passes)
-    return x + (y + bo)
+    return y
+
+
+def _merge(attn):
+    b, h, t, d = attn.shape
+    return attn.transpose(1, 2).reshape(b, t, h * d)
+
+
+def block_tf32(q, k, v, x, wo, bo, passes: int = 3):
+    """K1's float32 form: the merged attention (float32, unrounded) times
+    Wo by project_tf32; then x + (y + bo)."""
+    return x + (project_tf32(_merge(attention_tf32(q, k, v, passes)), wo,
+                             passes) + bo)
 
 
 def _heads(rng, b, h, t):
@@ -238,3 +280,61 @@ def test_f32_bound_takes_the_lesser_rate():
     small = chip_smoke.f32_bound(3.35e9, 1.0)
     assert small["bound_by"] == "bytes"
     assert small["bound_ms"] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 4, 130), (2, 2, 65)])
+def test_k10_float32_pair_loop_is_k1s_per_head(b, h, t):
+    """K10's float32 form: the pair loop (both heads' tiles of a key range
+    staged together, the two heads' steps alternating) gives each head
+    the arithmetic of K1's loop bit for bit, and with the same o-
+    projection its block lies within 2e-5 / 2e-5 of
+    attention_o_residual_paired_plain on float32."""
+    args = _block_inputs(np.random.default_rng(50 + t), b, h, t)
+    q, k, v, x, wo, bo = args
+    pair = paired_attention_tf32(q, k, v)
+    assert torch.equal(pair, attention_tf32(q, k, v))
+    got = x + (project_tf32(_merge(pair), wo) + bo)
+    ref = EB.attention_o_residual_paired_plain(*args)
+    assert _err(got, ref) <= 0, float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("h,hdo,t", [(2, 256, 300), (3, 384, 65),
+                                     (4, 128, 100)])
+def test_k1p_k10p_float32_emulation_matches_plain(h, hdo, t):
+    """K1p's and K10p's float32 forms on a rank's h heads: the merged
+    attention times the rank's Wo rows [h*64, HD_out] in project_tf32's
+    order, no x and bo, within 2e-5 / 2e-5 of the plain partial."""
+    rng = np.random.default_rng(60 + h + t)
+    q, k, v = _heads(rng, 1, h, t)
+    wo = torch.from_numpy(rng.standard_normal((h * 64, hdo), dtype=np.float32)
+                          / math.sqrt(hdo))
+    ref = EB.attention_o_residual_plain(q, k, v, None, wo, None,
+                                        partial=True)
+    got = project_tf32(_merge(attention_tf32(q, k, v)), wo)
+    assert _err(got, ref) <= 0, float((got - ref).abs().max())
+    if h % 2 == 0:
+        got = project_tf32(_merge(paired_attention_tf32(q, k, v)), wo)
+        ref = EB.attention_o_residual_paired_plain(q, k, v, None, wo, None,
+                                                   partial=True)
+        assert _err(got, ref) <= 0, float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 2, 300), (2, 3, 65)])
+def test_k9_float32_emulation_matches_plain(b, h, t):
+    """K9's float32 form computes its int8 heads as the plain version
+    does (the same codes from a float32 q) into a float32 scratch, then
+    projects it in project_tf32's order: within 2e-5 / 2e-5 of
+    attention_o_residual_int8_plain (x + (y + bo)), and K9p's partial
+    over a rank's Wo rows of the plain partial."""
+    args = _block_inputs(np.random.default_rng(70 + t), b, h, t)
+    q, k, v, x, wo, bo = args
+    kv = EB.quantize_kv(k, v)
+    heads = EB._int8_attention_heads(q, *kv)
+    got = x + (project_tf32(_merge(heads), wo) + bo)
+    ref = EB.attention_o_residual_int8_plain(q, *kv, x, wo, bo)
+    assert _err(got, ref) <= 0, float((got - ref).abs().max())
+    wr = wo[:, : wo.shape[1] // 2].contiguous()
+    got = project_tf32(_merge(heads), wr)
+    ref = EB.attention_o_residual_int8_plain(q, *kv, None, wr, None,
+                                             partial=True)
+    assert _err(got, ref) <= 0, float((got - ref).abs().max())

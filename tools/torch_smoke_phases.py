@@ -7,6 +7,7 @@
     python3 tools/torch_smoke_phases.py drift
     python3 tools/torch_smoke_phases.py weights,soak,dcn
     python3 tools/torch_smoke_phases.py f32
+    python3 tools/torch_smoke_phases.py f32,tp,ann
 
 Builds the kernels, makes chip_smoke's two WAVs (320 s and 25 s, seed 0)
 and runs, in this order, each named phase: ``search`` (K12 and K13
@@ -34,7 +35,12 @@ K4-o's, at its shapes, then the engine at EngineConfig()'s defaults in
 float32 against the same engine with fused_encoder=False and under
 fast_lossless, and the float32 "v2" decode steps on its batch; then
 K5's, K6's and K7's float32 forms and the float32 engine with the int8
-decoder under int8_fused and int8).
+decoder under int8_fused and int8; then K9's and K10's float32 forms and
+the float32 engine under fused_encoder "int8" and "paired"); ``tp`` also
+runs the float32 partial forms and the float32 engine over the model
+axis (chip_smoke.TP_F32_PATHS). ``ann`` is the beyond-memory path
+(tools/torch_bench_ivf.py at chip_smoke.ANN_ROWS, then an ann="ivf"
+engine).
 """
 import os
 import sys
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 PHASES = ("f32", "decoder", "search", "embedders", "clap", "service",
-          "weights", "soak", "mesh", "dcn", "tp", "train", "drift")
+          "weights", "soak", "ann", "mesh", "dcn", "tp", "train", "drift")
 
 
 def main(names: list[str]) -> int:
@@ -79,6 +85,7 @@ def main(names: list[str]) -> int:
                card, np.random.default_rng(1))["uploads"]),
            "weights": lambda: C.weights_phase(card, clips),
            "soak": lambda: C.soak_phase(card),
+           "ann": lambda: C.ann_phase(card, clips),
            "mesh": lambda: C.mesh_phase(card, clips),
            "dcn": lambda: C.dcn_phase(card),
            "tp": lambda: C.tp_phase(card, clips, **tp_args),
