@@ -5174,6 +5174,8 @@ def tp_f32_kernels(card: str, gen: torch.Generator, device: str = "cuda",
                     + 2 * b * pos * hl * 64 * 4,
                     f32=2 * b * d * hl * 64 * 4 + 4 * b * (pos + 1) * hl * 64),
             "bound_rate": "f32"}
+    if cuda:
+        case["plan"] = f32_plan(x.device, "K3p", b, d, hl, l)
     timed(case, lambda: DB.fused_self_block(
         x, *ranks[0], *caches[0], pos, heads=hl, partial=True),
         lambda: DB.self_block_plain(x, *ranks[0], *caches[0], pos,
@@ -5203,6 +5205,8 @@ def tp_f32_kernels(card: str, gen: torch.Generator, device: str = "cuda",
                                            got, F32_REPEATS),
             **bound(nbytes(x, *ranks[0][:-1], got),
                     f32=4 * b * d * f // TP_MP), "bound_rate": "f32"}
+    if cuda:
+        case["plan"] = f32_plan(x.device, "K4p", b, d, f=f // TP_MP)
     timed(case, lambda: k4p(0), lambda: DB.mlp_block_plain(
         x, *ranks[0], partial=True), lambda: DB.fused_mlp_block(x, *mlp))
     case["sum_vs_square_max_abs_err"] = check_close(
@@ -6284,12 +6288,29 @@ def k3_f32_bound(args, got, pos: int) -> dict:
                     + 4 * b * (pos + 1) * d), "bound_rate": "f32"}
 
 
+def f32_plan(dev, kernel: str, b: int, d: int, heads: int = 0,
+             l: int = 0, f: int = 0) -> dict:
+    """The float32 decoder block's launch plan on ``dev`` as the wrapper
+    takes it: K3 (K3-q, K3p): blocks, clusters of two, ring stages, rows
+    a pass, passes; K4 (K4p) the same on clusters of eight, K4-o also its
+    row projection's."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    if kernel in ("K3", "K3-q", "K3p"):
+        return DB.self_block_f32_plan(b, heads, l, DB._fit(
+            dev, DB.K3F_CS, DB.F32_SMEM, "mas_decoder_self_block_f32_fit"),
+            d=d)._asdict()
+    plan, proj = DB.mlp_f32_plans(dev, b, d, f, kernel == "K4-o")
+    return {**plan._asdict(), **({"row_projection": proj._asdict()}
+                                 if proj else {})}
+
+
 def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
     """K3's, K3-q's, K4's and K4-o's float32 forms against their plain
     versions at F32_WIDTHS, B=F32_DEC_B (K3 and K3-q at L=F32_DEC_L and
     every K3_POS), each case with its repeats, ms (CUDA events), queued
-    ms (20 calls behind a sleep kernel), plain ms and bound. Returns the
-    four kernels' entries for the kernels line."""
+    ms (20 calls behind a sleep kernel), plain ms, bound and launch plan
+    (f32_plan: blocks, clusters, stages, rows a pass). Returns the four
+    kernels' entries for the kernels line."""
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     queued_ms = load_tool("torch_decode_kernel_ab").queued_ms
     src = "multimodal_audio_search_tpu_torch/csrc/decoder_block_f32.cu"
@@ -6314,6 +6335,7 @@ def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
     def timed(fn, plain):
         return {"ms": time_ms(fn), "queued_ms": queued_ms(fn),
                 "plain_ms": time_ms(plain), "library_ms": None}
+    dev = torch.device("cuda", torch.cuda.current_device())
     for label, heads in F32_WIDTHS:
         d = heads * 64
         f = 4 * d
@@ -6343,7 +6365,8 @@ def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
                             F32_REPEATS),
                         **timed(fn, lambda: plain(*args, kc, vc, pos,
                                                   heads=heads)),
-                        **k3_f32_bound(args, got, pos)}
+                        **k3_f32_bound(args, got, pos),
+                        "plan": f32_plan(dev, "K3", b, d, heads, l)}
                 out[key]["cases"].append(case)
                 phase("f32", card=card, kernel=f"{key} float32", tol=tol,
                       **case)
@@ -6362,7 +6385,8 @@ def f32_decoder_checks(card: str, gen: torch.Generator) -> list[dict]:
                     **timed(lambda: fused(*args), lambda: plain(*args)),
                     **bound(nbytes(*args, got), f32=4 * b * d * f + (
                         2 * b * d * d if key == "K4-o" else 0)),
-                    "bound_rate": "f32"}
+                    "bound_rate": "f32",
+                    "plan": f32_plan(dev, key, b, d, f=f)}
             out[key]["cases"].append(case)
             phase("f32", card=card, kernel=f"{key} float32", tol=tol,
                   **case)

@@ -19,80 +19,101 @@
 //     [H * 64, D], caches [B, L, H * 64]) or its F / mp columns of fc1 and
 //     rows of fc2, the whole x for the layer norm, and out = the float32
 //     o-projection (fc2) sum without x and bo (b2), which parallel/
-//     mesh.py::model_sum adds once to the ranks' sum. K3p's cluster sums
-//     the D / 64 output chunks over its CS ranks (rank r the chunks [r N /
-//     CS, (r + 1) N / CS), which for K3 are its heads' columns).
+//     mesh.py::model_sum adds once to the ranks' sum.
 //
 // Every tensor is float32 and every product is a float32 FFMA on the
 // CUDA cores: nothing is rounded to bf16 (the plain versions' roundings
-// are no-ops at float32) and no product goes through TF32. The erf of
+// are no-ops at float32) and no product goes through TF32 (3xTF32 on the
+// tensor cores would round its sums toward zero, tf32x3.cuh). The erf of
 // the GELU is the TPU kernels' Abramowitz-Stegun 7.1.26 polynomial, as in
 // the plain version.
 //
-// What bounds them on an H100: weight bytes. At B=32 and whisper-base
-// width one layer's K3 reads 4.19 MB of Wq/Wk/Wv/Wo and up to 8.78 MB of
-// cache rows (pos 67), ~3.9 us at 3.35 TB/s against ~1.1 us of FFMA work
-// at 67 TFLOP/s; K4 reads 8.39 MB of fc1/fc2, ~2.5 us against ~2.0 us of
-// FFMA work. Exact float32 FFMA costs nothing against that, where 3xTF32
-// on the tensor cores would round its sums toward zero (tf32x3.cuh).
-// One multiprocessor pulls ~30 GB/s, so both kernels split the weights
-// over many blocks, as the bf16 forms do:
-//   * K3: a thread-block cluster of CS = min(H, 16) blocks
-//     (ops/decoder_block.py::self_block_f32_plan) over a tile of up to 8
-//     batch rows, rank r taking heads [r H / CS, (r + 1) H / CS). Each
-//     block streams its heads' 64 columns of Wq/Wk/Wv and 64 rows of Wo
-//     (and with TAIL its heads' 64 columns of Wcq) through a ring of
-//     16 KB tiles in shared memory, filled by cp.async from the first
-//     instruction on, S - 3 to S tiles ahead of the compute (S <= 8
-//     slots). A tile's products take a thread a column and every row of
-//     the tile, so no product needs a reduction across threads: q/k/v
-//     three tiles at a time (one each), the o-projection three 64-column
-//     output chunks at a time. The attention reads the cache rows from
-//     device memory: logits a (row, key) pair a thread, the softmax a
-//     warp a row, p . V the keys split over the 8 warps, added in warp
-//     order. Each block keeps its heads' o-projection partials [rows, D];
-//     after a cluster barrier rank r adds the CS partials of its heads'
-//     columns in rank order through distributed shared memory, then bias
-//     and residual. K3-q's tail: the cross layer norm's row sums go round
-//     the cluster, each rank gathers the whole h2 rows and projects its
-//     heads' columns onto Wcq, three 64-row chunks at a time, the chunks'
-//     three partials added in order.
-//   * K4: a block per 16 fc1 columns (a slice) and every row, in 32-row
-//     blocks, D in 512-column chunks, under a cooperative launch of
-//     min(F / 16, what the card holds) blocks (whisper-base: 128): the
-//     layer norm once a row over the grid into a transposed float32 h;
-//     a grid barrier; per (slice, row block) the slice's fc1 columns and
-//     fc2 rows and h by cp.async, fc1 as 4 x 4 register tiles over 8 k
-//     slices (a warp each, added in warp order), + b1, GELU, then the
-//     slice's share of fc2 as 4 x 8 tiles into partials [S, B, D]; a
-//     second grid barrier; each block sums its share of the outputs over
-//     the S partials in slice order and adds b2 and the residual.
+// What bounds them on an H100: bytes, and the latency of each step. At
+// B=32 and whisper-base width one layer's K3 reads 4.19 MB of Wq/Wk/Wv/Wo
+// and up to 8.78 MB of cache rows (pos 67), ~3.9 us at 3.35 TB/s against
+// ~1.1 us of FFMA work at 67 TFLOP/s; K4 reads 8.39 MB of fc1/fc2, ~2.5
+// us against ~2.0 us of FFMA work. A multiprocessor pulls ~30 GB/s (its
+// plain 16-byte loads; cp.async's copies of the short weight rows here
+// came at 3-7 GB/s, PERF.md), so the weights are split over every
+// multiprocessor, each byte read by one block once a launch, and each
+// block covers every row of the batch:
+//
+//   * Every block streams its share of the weights -- [rows x 8-column
+//     groups] rectangles of the [in, out] matrices, cut into tiles of up
+//     to 8 KB -- through a ring of STAGES slots filled by cp.async behind
+//     the loads of its input rows, ahead across the kernel's phases. A
+//     tile's products run over all the rows held in the input window (the
+//     block's K columns of every batch row, layer-normed where the
+//     function says, in shared memory): a thread a micro-tile of 4 rows x
+//     8 columns in registers, the tile's k split over up to 16 thread
+//     groups whose partials are added in group order.
+//   * K3 runs on a grid of clusters of two blocks, one block a
+//     multiprocessor (66 clusters on an H100: all 132), under a
+//     cooperative launch, in phases parted by grid barriers: (1) the
+//     q/k/v projections, cluster c taking 8-column groups [c n / NC, (c
+//     + 1) n / NC) of the 3 H * 64 columns, rank r the rows [r D / 2, (r
+//     + 1) D / 2) of Wq/Wk/Wv; the layer norm's row sums of each half
+//     (from registers) added over the pair in rank order, the pair's two
+//     partial products added in rank order through distributed shared
+//     memory; q to a scratch, k1 / v1 into row pos of the caches; (2) the
+//     attention, the B x H (row, head) items split over the blocks:
+//     logits a (item, key) pair a thread (its key row in flight while q
+//     is staged), the softmax a warp an item, p . V the keys split over
+//     the 8 warps added in warp order, + pn v1, into a scratch; (3) the
+//     o-projection from that scratch, split as (1) over the D columns and
+//     the H * 64 rows of Wo, + bo + x (K3p: the sum alone); with TAIL (4)
+//     LN2 of x_out and the Wcq projection, split as (1).
+//   * K4 runs on a grid of clusters of eight blocks (15 on an H100) under
+//     a cooperative launch. Cluster c takes the 8-column groups [c n / NC,
+//     (c + 1) n / NC) of fc1's F columns, its ranks a share each; a block
+//     layer-norms every row itself (h staged once a block), projects its
+//     fc1 columns (+ b1, GELU) into its shared memory, and after a cluster
+//     barrier each rank gathers the cluster's whole u through distributed
+//     shared memory (rank order = F order) and projects it onto its D / 8
+//     columns of fc2's rows of the cluster: the cluster's fc2 sum, one
+//     FFMA chain an element, into a global partial [NC, B, D] (0.98 MB at
+//     whisper-base, B=32). One grid barrier, then every block adds the NC
+//     partials of its share of the outputs in cluster order, + b2 + x1.
 //   * K4-o first runs rowproj_f32_kernel from the same C call: x1 = x +
-//     (attn @ Wco + bco) into a float32 buffer that K4-o reads as its x,
-//     a block per (32 output columns, 4 rows), k split over 64 thread
-//     slices added in order.
-// Every output element is summed in one fixed order, so a launch repeats
-// bit for bit. A launch the card refuses returns its error; nothing
-// falls back.
+//     (attn @ Wco + bco) into a float32 buffer that K4 reads as its x, on
+//     clusters of two split as K3's o-projection (Wco read once).
+// Where the rows do not fit beside the weights' micro-tiles (K4 at B x
+// D/8 > 16384), K4 walks the batch in passes, each streaming the block's
+// tiles again. Every output element is summed in one fixed order, so a
+// launch repeats bit for bit. A launch the card refuses returns its
+// error; nothing falls back.
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
+// Phase stamps: empty here; tools/torch_decoder_f32_stamps.py defines it
+// in a copy it builds, to record each block's %globaltimer at the marks.
+#ifndef F32_STAMP
+#define F32_STAMP(i)
+#endif
+
 namespace {
 
 using namespace sm90;
 
-constexpr int NT = 256;            // threads a block (8 warps)
-constexpr int HDIM = 64;           // head dim of every Whisper preset
-constexpr int TILE = HDIM * HDIM;  // floats of a streamed weight tile
-constexpr int F3_RT = 8;           // rows of a K3 tile at most
-constexpr int F3_MAX_STAGES = 8;   // ring slots
-constexpr int F3_MIN_STAGES = 4;   // a group of three tiles and one ahead
-constexpr int F3_MAX_CS = 16;      // an H100's largest cluster
-// an H100 block's shared memory, less 1 KB for the static arrays
-constexpr size_t SMEM_MAX = 232448 - 1024;
+constexpr int NT = 256;        // threads a block (8 warps)
+constexpr int HDIM = 64;       // head dim of every Whisper preset
+constexpr int F3_CS = 2;       // K3's and the row projection's cluster
+constexpr int F4_CS = 8;       // K4's cluster
+constexpr int SLOT = 2048;     // floats a ring slot (8 KB)
+constexpr int STAGES = 11;     // ring slots
+constexpr int HBUF = 16896;    // floats of the input window
+constexpr int RED = 16384;     // floats of the partials / the logits
+constexpr int MAXB = 256;      // batch rows at most
+constexpr int MAXMT = 2;       // 4 x 8 micro-tiles a thread at most
+constexpr int IB = 8;          // attention items a batch at most
+constexpr int F4_MAX_D = 2048;
+// dynamic shared memory of every kernel here: 128 bytes to align, the
+// ring, the window, the partials and five row-statistics arrays
+constexpr size_t SMEM =
+    128 + 4 * ((size_t)STAGES * SLOT + HBUF + RED + 5 * MAXB);
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -107,6 +128,15 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+// a float4 of shared memory (glb false) or, through L2 only, of global
+// memory another block may just have written
+__device__ __forceinline__ float4 ld4(const float* p, bool glb) {
+  return glb ? __ldcg(reinterpret_cast<const float4*>(p))
+             : *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // erf-GELU with erf from Abramowitz-Stegun 7.1.26, as gelu_as computes it
@@ -123,84 +153,620 @@ __device__ __forceinline__ float gelu_as(float u) {
   return 0.5f * u * (1.f + erf);
 }
 
-// Layer norm of one row xr[D] by one warp (D % 4 == 0): float32 mean and
-// variance, (x - mu) / sqrt(var + eps) * g + b into out[k * os].
-__device__ void ln_row_warp(const float* xr, int D, const float* g,
-                            const float* b, float eps, float* out, int os) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int k = lane * 4; k < D; k += 128) {
-    const float4 v = ldg4(xr + k);
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  const float mu = warp_sum(s) / D;
-  float q = 0.f;
-  for (int k = lane * 4; k < D; k += 128) {
-    const float4 v = ldg4(xr + k);
-    q = fmaf(v.x - mu, v.x - mu, q);
-    q = fmaf(v.y - mu, v.y - mu, q);
-    q = fmaf(v.z - mu, v.z - mu, q);
-    q = fmaf(v.w - mu, v.w - mu, q);
-  }
-  const float rs = 1.f / sqrtf(warp_sum(q) / D + eps);
-  for (int k = lane * 4; k < D; k += 128) {
-    const float4 v = ldg4(xr + k), gg = ldg4(g + k), bb = ldg4(b + k);
-    out[k * os] = (v.x - mu) * rs * gg.x + bb.x;
-    out[(k + 1) * os] = (v.y - mu) * rs * gg.y + bb.y;
-    out[(k + 2) * os] = (v.z - mu) * rs * gg.z + bb.z;
-    out[(k + 3) * os] = (v.w - mu) * rs * gg.w + bb.w;
-  }
+// Rows a weight tile of nc columns holds when the input window holds rb
+// rows (mirrored by ops/decoder_block.py::f32_tile_rows): what a slot
+// takes, and no more than a window row of the rb rows, in multiples of 32
+// (of 8 below 32). 0: nc does not fit a slot.
+__host__ __device__ inline int tile_rows(int nc, int rb) {
+  int t = SLOT / nc;
+  const int h = HBUF / rb - 4;
+  if (h < t) t = h;
+  return t >= 32 ? t / 32 * 32 : t / 8 * 8;
+}
+// Columns of the input a window holds (a multiple of tr, at most the
+// segment's nk rounded up to tr), so that rb rows of ceil32(kw) + 4
+// floats fit HBUF.
+__device__ __forceinline__ int window_cols(int tr, int rb, int nk) {
+  const int cap = (HBUF / rb - 4) / 32 * 32;
+  const int kw = cap >= tr ? cap / tr * tr : tr;
+  const int full = (nk + tr - 1) / tr * tr;
+  return kw < full ? kw : full;
+}
+// Whether a segment of `groups` 8-column groups split over `parts` blocks
+// fits a slot and a thread's MAXMT micro-tiles at rb rows.
+__host__ __device__ inline bool seg_fits(int groups, int parts, int rb) {
+  const int nc = 8 * ((groups + parts - 1) / parts);
+  return tile_rows(nc, rb) >= 8 && rb * nc <= MAXMT * NT * 32;
 }
 
-// acc[r] += sum_{k < 64} in[r * ld + k] * w[k * 64] for the rows r < rt:
-// one column of a 64 x 64 tile (w: its first row's element) against the
-// rows' 64 input values, in order of k.
-__device__ __forceinline__ void rows_tile(float acc[F3_RT], const float* w,
-                                          const float* in, int ld, int rt) {
-#pragma unroll 4
-  for (int k = 0; k < HDIM; k += 4) {
-    const float w0 = w[k * HDIM], w1 = w[(k + 1) * HDIM];
-    const float w2 = w[(k + 2) * HDIM], w3 = w[(k + 3) * HDIM];
-#pragma unroll
-    for (int r = 0; r < F3_RT; ++r)
-      if (r < rt) {
-        const float4 h = *reinterpret_cast<const float4*>(in + r * ld + k);
-        acc[r] = fmaf(h.x, w0, acc[r]);
-        acc[r] = fmaf(h.y, w1, acc[r]);
-        acc[r] = fmaf(h.z, w2, acc[r]);
-        acc[r] = fmaf(h.w, w3, acc[r]);
+// A block's share of a product's weights: its rows [k0, k0 + nk) of the
+// [in, out] matrices and its 8-column groups [g0, g0 + ng) of their
+// concatenated columns (group g: matrix m[g / per], columns (g % per) * 8
+// ..), streamed in tiles of tr rows ([rows][8 ng] floats in a slot). The
+// thread's copy plan, resolved once: the 16-byte chunk jc of every row
+// it copies (rows r0, r0 + rstep, ..; none where r0 >= rstep), whose
+// source at row k0 is src.
+struct Seg {
+  const float* src;
+  int ldw, g0, ng, k0, nk, tr, jc, r0, rstep;
+};
+__device__ __forceinline__ int seg_tiles(const Seg& s) {
+  return s.ng > 0 && s.nk > 0 ? (s.nk + s.tr - 1) / s.tr : 0;
+}
+__device__ __forceinline__ Seg make_seg(const float* m0, const float* m1,
+                                        const float* m2, int per, int ldw,
+                                        int groups, int part, int parts,
+                                        int g_off, int k0, int nk, int rb) {
+  Seg s;
+  s.ldw = ldw;
+  s.g0 = part * groups / parts;
+  s.ng = (part + 1) * groups / parts - s.g0;
+  s.g0 += g_off;
+  s.k0 = k0;
+  s.nk = nk;
+  s.tr = s.ng > 0 ? tile_rows(8 * s.ng, rb) : 8;
+  const int cpr = 2 * (s.ng > 0 ? s.ng : 1), t = threadIdx.x;
+  s.rstep = NT / cpr;
+  s.jc = t % cpr;
+  s.r0 = t / cpr;
+  const int g = s.g0 + s.jc / 2, mi = g / per;
+  s.src = (mi == 0 ? m0 : mi == 1 ? m1 : m2) + (long long)k0 * ldw +
+          (g - mi * per) * 8 + (s.jc & 1) * 4;
+  return s;
+}
+
+// tile t of segment s into a slot: the thread's 16-byte chunks
+__device__ __forceinline__ void copy_tile(const Seg& s, int t, float* dst) {
+  const int r0 = t * s.tr, rows = min(s.tr, s.nk - r0), nc = 8 * s.ng;
+  const float* src = s.src + (long long)r0 * s.ldw;
+  for (int r = s.r0; r < rows; r += s.rstep)
+    cp_async16(dst + r * nc + 4 * s.jc, src + (long long)r * s.ldw);
+}
+
+// The block's weight stream: its segments' tiles in order, `cycles` times
+// (K4's passes over the batch), tile u into slot u % STAGES, one commit
+// group a tile (an empty one past the end).
+struct Stream {
+  Seg s0, s1, s2;
+  int n0, n1, cyc, total, issued;
+  float* ring;
+  __device__ void init(int nseg, int cycles, float* r) {
+    n0 = seg_tiles(s0);
+    n1 = nseg > 1 ? seg_tiles(s1) : 0;
+    cyc = n0 + n1 + (nseg > 2 ? seg_tiles(s2) : 0);
+    total = cyc * cycles;
+    issued = 0;
+    ring = r;
+  }
+  __device__ void fill(int upto) {
+    for (; issued < upto; ++issued) {
+      if (issued < total) {
+        const int j = issued % cyc;
+        float* dst = ring + (size_t)(issued % STAGES) * SLOT;
+        if (j < n0)
+          copy_tile(s0, j, dst);
+        else if (j < n0 + n1)
+          copy_tile(s1, j - n0, dst);
+        else
+          copy_tile(s2, j - n0 - n1, dst);
       }
+      cp_async_commit();
+    }
+  }
+  // tile u has landed, in every thread's view (the slots of tiles before
+  // u are free: every caller meets __syncthreads() after its products)
+  __device__ const float* acquire(int u) {
+    fill(u + STAGES);
+    cp_async_wait_group<STAGES - 1>();
+    __syncthreads();
+    return ring + (size_t)(u % STAGES) * SLOT;
+  }
+};
+
+// A thread's share of a product over rb rows and ng column groups: the
+// micro-tiles (rows rq + a rb / 4 for a < 4, columns 8 cg ..) and, where
+// the block has more threads than micro-tiles, its k group ks of KS (up
+// to 16).
+struct Roles {
+  int KS, ks, rq[MAXMT], cg[MAXMT];
+  bool act[MAXMT];
+};
+__device__ __forceinline__ Roles roles(int rb, int ng) {
+  Roles o;
+  const int nrq = rb / 4, U = nrq * ng, t = threadIdx.x;
+  if (U <= NT) {
+    const int k = NT / U;
+    o.KS = k >= 16 ? 16 : k >= 8 ? 8 : k >= 4 ? 4 : k >= 2 ? 2 : 1;
+    o.ks = t / U;
+    const int mt = t - o.ks * U;
+    o.act[0] = o.ks < o.KS;
+    o.rq[0] = mt % nrq;
+    o.cg[0] = mt / nrq;
+    o.act[1] = false;
+    o.rq[1] = o.cg[1] = 0;
+  } else {
+    o.KS = 1;
+    o.ks = 0;
+#pragma unroll
+    for (int j = 0; j < MAXMT; ++j) {
+      const int mt = t + j * NT;
+      o.act[j] = mt < U;
+      o.rq[j] = mt % nrq;
+      o.cg[j] = mt / nrq;
+    }
+  }
+  return o;
+}
+
+// acc += the tile's products: rows (from the window, row stride ldh) x
+// the tile's nc columns over its `rows` k, k quads ks, ks + KS, .. in
+// order
+__device__ __forceinline__ void tile_fma(float (&acc)[MAXMT][4][8],
+                                         const Roles& ro, const float* w,
+                                         int nc, const float* h, int ldh,
+                                         int nrq, int rows) {
+  const int nq = rows >> 2;
+#pragma unroll
+  for (int j = 0; j < MAXMT; ++j) {
+    if (!ro.act[j]) continue;
+    const float* hp = h + ro.rq[j] * ldh;
+    const float* wp = w + 8 * ro.cg[j];
+    for (int q = ro.ks; q < nq; q += ro.KS) {
+      float4 hv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        hv[a] = *reinterpret_cast<const float4*>(hp + a * nrq * ldh + 4 * q);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 wa =
+            *reinterpret_cast<const float4*>(wp + (4 * q + kk) * nc);
+        const float4 wb =
+            *reinterpret_cast<const float4*>(wp + (4 * q + kk) * nc + 4);
+        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float hk = comp(hv[a], kk);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[j][a][e] = fmaf(hk, wv[e], acc[j][a][e]);
+        }
+      }
+    }
   }
 }
 
-// cp.async.wait_group with a run-time count (0 .. F3_MAX_STAGES - 1)
-__device__ __forceinline__ void wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait_group<0>(); break;
-    case 1: cp_async_wait_group<1>(); break;
-    case 2: cp_async_wait_group<2>(); break;
-    case 3: cp_async_wait_group<3>(); break;
-    case 4: cp_async_wait_group<4>(); break;
-    case 5: cp_async_wait_group<5>(); break;
-    case 6: cp_async_wait_group<6>(); break;
-    default: cp_async_wait_group<7>(); break;
+// Where a product's input window lies: kw columns a window (a multiple
+// of the tile rows), ldh floats a row (ldh % 32 == 4), and whether the
+// window already holds all the segment's columns (full, as ln_rows can
+// leave it).
+struct Win {
+  int kw, ldh;
+  bool full;
+};
+__device__ __forceinline__ Win window_of(const Seg& s, int rb) {
+  Win w;
+  w.kw = window_cols(s.tr, rb, s.nk);
+  w.ldh = (w.kw + 31) / 32 * 32 + 4;
+  w.full = false;
+  return w;
+}
+
+// The block's product over segment s (stream tiles u ..): for rows [0,
+// rb) of the window and the segment's 8 ng columns, the sum over its nk
+// rows in tile order, left in red[0 .. rb * 8 ng) ([rb][8 ng]). Unless
+// wi.full, load(w0, kn, ldh) fills the window with the input's columns
+// [w0, w0 + kn) of the segment's rows and meets __syncthreads(); pre()
+// runs before red is written (K4: a cluster barrier, so the ranks have
+// read the partners' u). With ng == 0 the block has nothing to add.
+template <class Load, class Pre>
+__device__ void seg_product(Stream& st, int& u, const Seg& s, int rb,
+                            const Win& wi, float* hbuf, float* red,
+                            Load load, Pre pre) {
+  if (s.ng == 0) {
+    pre();
+    return;
+  }
+  const int nc = 8 * s.ng, nrq = rb / 4;
+  const Roles ro = roles(rb, s.ng);
+  float acc[MAXMT][4][8];
+#pragma unroll
+  for (int j = 0; j < MAXMT; ++j)
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[j][a][e] = 0.f;
+  const int kw = wi.full ? s.nk : wi.kw;
+  for (int w0 = 0; w0 < s.nk; w0 += kw) {
+    const int kn = min(kw, s.nk - w0);
+    if (!wi.full) load(w0, kn, wi.ldh);
+    for (int t0 = w0; t0 < w0 + kn; t0 += s.tr, ++u) {
+      const float* w = st.acquire(u);
+      F32_STAMP(14)
+      tile_fma(acc, ro, w, nc, hbuf + (t0 - w0), wi.ldh, nrq,
+               min(s.tr, s.nk - t0));
+      __syncthreads();
+    }
+  }
+  F32_STAMP(15)
+  pre();
+  // the k groups' partials, then added in group order into red[0]
+#pragma unroll
+  for (int j = 0; j < MAXMT; ++j) {
+    if (!ro.act[j]) continue;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float* d = red + (size_t)(ro.ks * rb + ro.rq[j] + a * nrq) * nc +
+                 8 * ro.cg[j];
+      *reinterpret_cast<float4*>(d) =
+          make_float4(acc[j][a][0], acc[j][a][1], acc[j][a][2], acc[j][a][3]);
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(acc[j][a][4], acc[j][a][5], acc[j][a][6], acc[j][a][7]);
+    }
+  }
+  __syncthreads();
+  if (ro.KS > 1) {
+    const int n4 = rb * nc / 4;
+    for (int i = threadIdx.x; i < n4; i += NT) {
+      float4 v = reinterpret_cast<const float4*>(red)[i];
+      for (int k = 1; k < ro.KS; ++k) {
+        const float4 p =
+            reinterpret_cast<const float4*>(red + (size_t)k * rb * nc)[i];
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+      reinterpret_cast<float4*>(red)[i] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// hbuf[r * ldh + j] = src[r * ld + j] for r < rb, j < kn (rows >= nrows:
+// 0), through L2, eight 16-byte loads in flight a thread
+__device__ void load_rows(float* hbuf, int ldh, const float* src,
+                          long long ld, int nrows, int rb, int kn) {
+  const int q4 = kn / 4, n = rb * q4;
+  if (n == 0) return;
+  // the thread's float4 i = (r, c), stepped by NT without a division
+  const int dr = NT / q4, dc = NT - dr * q4;
+  int r = threadIdx.x / q4, c = threadIdx.x - r * q4;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 8 * NT) {
+    float4 v[8];
+    int at[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const bool in = i0 + k * NT < n;
+      at[k] = r * ldh + 4 * c;
+      v[k] = in && r < nrows
+                 ? __ldcg(reinterpret_cast<const float4*>(src + r * ld) + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      r += dr;
+      c += dc;
+      if (c >= q4) {
+        c -= q4;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (i0 + k * NT < n) *reinterpret_cast<float4*>(hbuf + at[k]) = v[k];
   }
 }
 
-// floats of the logits / p . V partials / tail scratch region of a K3
-// tile of rt rows
-__host__ __device__ inline int f3_scores(int rt, int L) {
-  const int n = rt * L > 8 * rt * HDIM ? rt * L : 8 * rt * HDIM;
-  return (n + 3) / 4 * 4;
+// The layer norm of the window's rows r < nrows in place, columns [0,
+// kn) of a row: (v - mu[r]) * rs[r] * g[j] + b[j] (g, b: the window's
+// first column's)
+__device__ void ln_apply(float* hbuf, int ldh, int nrows, int kn,
+                         const float* g, const float* b, const float* mu,
+                         const float* rs) {
+  const int q4 = kn / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nrows * q4; i += NT) {
+    const int r = i / q4, c = 4 * (i - r * q4);
+    float4* p = reinterpret_cast<float4*>(hbuf + r * ldh + c);
+    const float4 v = *p, gg = ldg4(g + c), bb = ldg4(b + c);
+    const float m = mu[r], s = rs[r];
+    *p = make_float4((v.x - m) * s * gg.x + bb.x, (v.y - m) * s * gg.y + bb.y,
+                     (v.z - m) * s * gg.z + bb.z, (v.w - m) * s * gg.w + bb.w);
+  }
 }
-// K3's float32 form's shared memory (mirrored by ops/decoder_block.py::
-// k3_f32_smem): 128 bytes to align the ring, S ring slots, the o-
-// projection partials and h [rt][D], q1 / k1 / v1 / the attention output
-// [rt][64], the fresh-row weights [8], the scores region.
-inline size_t f3_smem(int D, int L, int S, int rt) {
-  return 128 + (size_t)S * TILE * 4 +
-         4 * ((size_t)2 * rt * D + (size_t)4 * rt * HDIM + F3_RT +
-              f3_scores(rt, L));
+
+// sum over the cluster's ranks k < csk of their p[r], in rank order:
+// every rank's value loaded at once (a remote load takes ~1 us on an H100
+// when the partner's shared memory is busy), then added
+__device__ __forceinline__ float xch_sum(cg::cluster_group& cl, int csk,
+                                         float* p, int r) {
+  const int me = csk > 1 ? (int)cl.block_rank() : 0;
+  float v[F3_CS];
+#pragma unroll
+  for (int k = 0; k < F3_CS; ++k)
+    v[k] = k < csk ? (k == me ? p : cl.map_shared_rank(p, k))[r] : 0.f;
+  float t = v[0];
+#pragma unroll
+  for (int k = 1; k < F3_CS; ++k)
+    if (k < csk) t += v[k];
+  return t;
+}
+
+// Row statistics of a layer norm over D columns, for rows r < rb (rows >=
+// nrows: 0): the block holds nk columns of row r at base + r * ld (shared
+// memory, or global memory through L2 when glb), and the cluster's ranks
+// k < csk hold the row's D between them. A row's nk columns are cut in P
+// = NT / rb interleaved pieces (at most 16; piece p the float4s p, p + P,
+// ..), a thread a piece, the pieces' sums added in order, then the ranks'
+// in rank order. st: the pieces' sums, the row sums of the two passes,
+// mu and 1 / sqrt(var + eps), MAXB floats each.
+__device__ void ln_stats(cg::cluster_group& cl, int csk, const float* base,
+                         long long ld, bool glb, int rb, int nrows, int nk,
+                         int D, float eps, float* st) {
+  float* ps = st;
+  float* mu = st + 3 * MAXB;
+  float* rs = st + 4 * MAXB;
+  int P = NT / rb;
+  P = P >= 16 ? 16 : P >= 8 ? 8 : P >= 4 ? 4 : P >= 2 ? 2 : 1;
+  for (int pass = 0; pass < 2; ++pass) {
+    float* rp = st + (1 + pass) * MAXB;
+    for (int i = threadIdx.x; i < rb * P; i += NT) {
+      const int r = i / P;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < nrows) {
+        const float* p = base + r * ld;
+        const float m = pass ? mu[r] : 0.f;
+#pragma unroll 4
+        for (int k = 4 * (i - r * P); k < nk; k += 4 * P) {
+          const float4 x = ld4(p + k, glb);
+          if (pass) {
+            v[0] = fmaf(x.x - m, x.x - m, v[0]);
+            v[1] = fmaf(x.y - m, x.y - m, v[1]);
+            v[2] = fmaf(x.z - m, x.z - m, v[2]);
+            v[3] = fmaf(x.w - m, x.w - m, v[3]);
+          } else {
+            v[0] += x.x;
+            v[1] += x.y;
+            v[2] += x.z;
+            v[3] += x.w;
+          }
+        }
+      }
+      ps[i] = (v[0] + v[1]) + (v[2] + v[3]);
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < rb; r += NT) {
+      float t = 0.f;
+      for (int k = 0; k < P; ++k) t += ps[r * P + k];
+      rp[r] = t;
+    }
+    if (csk > 1)
+      cl.sync();
+    else
+      __syncthreads();
+    for (int r = threadIdx.x; r < rb; r += NT) {
+      const float t = xch_sum(cl, csk, rp, r);
+      if (pass)
+        rs[r] = 1.f / sqrtf(t / D + eps);
+      else
+        mu[r] = t / D;
+    }
+    __syncthreads();
+  }
+}
+
+// The input of a layer-normed product of segment s at rows [0, rb) of src
+// ([*, ld], its first column at src; nrows real rows of D columns, the
+// cluster's ranks k < csk holding its columns between them), the columns
+// normed by
+// (g, beta): where the segment's columns of the rb rows fit one window
+// they are read once (in registers, ln_regs, up to 32 rows of 512
+// columns; else into the window, the statistics taken in shared memory)
+// and normed in place (Win.full); else the statistics are read through
+// L2 and each window normed as it is loaded (LnIn). The ring is filled
+// ahead behind the rows' loads. Returns the window.
+struct LnIn {
+  const float *src, *g, *beta, *mu, *rs;
+  long long ld;
+  int nrows, rb, k0;
+  float* hbuf;
+  __device__ void operator()(int w0, int kn, int ldh) const {
+    load_rows(hbuf, ldh, src + k0 + w0, ld, nrows, rb, kn);
+    __syncthreads();
+    ln_apply(hbuf, ldh, nrows, kn, g + k0 + w0, beta + k0 + w0, mu, rs);
+    __syncthreads();
+  }
+};
+// The layer norm in registers, for rb <= 32 rows and nk <= 512 columns
+// (LN_R rows a warp: w, w + 8, ..; LN_C float4s a lane: l, l + 32, ..):
+// the rows read once, the sums taken from registers (each row's lanes
+// in order, then a warp's xor tree, then the ranks k < csk in order),
+// and the normed rows written to the window (rows >= nrows: 0). The ring
+// is filled to tile `fill` behind the rows' loads.
+constexpr int LN_R = 4, LN_C = 4;
+__device__ void ln_regs(cg::cluster_group& cl, int csk, Stream& st, int fill,
+                        const float* src, long long ld, int k0, int nk,
+                        int rb, int nrows, int D, const float* g,
+                        const float* beta, float eps, float* hbuf, int ldh,
+                        float* stat) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4 v[LN_R][LN_C];
+#pragma unroll
+  for (int j = 0; j < LN_R; ++j)
+#pragma unroll
+    for (int m = 0; m < LN_C; ++m) {
+      const int r = warp + 8 * j, c = 4 * (lane + 32 * m);
+      v[j][m] = r < nrows && c < nk
+                    ? __ldcg(reinterpret_cast<const float4*>(
+                          src + r * ld + k0 + c))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  st.fill(fill);
+  float mu[LN_R], rs[LN_R];
+  for (int pass = 0; pass < 2; ++pass) {
+    float* rp = stat + (1 + pass) * MAXB;
+#pragma unroll
+    for (int j = 0; j < LN_R; ++j) {
+      float t = 0.f;
+#pragma unroll
+      for (int m = 0; m < LN_C; ++m) {
+        const float4 x = v[j][m];
+        if (4 * (lane + 32 * m) >= nk) continue;
+        if (pass) {
+          const float a = x.x - mu[j], b = x.y - mu[j];
+          const float c = x.z - mu[j], d = x.w - mu[j];
+          t = fmaf(a, a, t);
+          t = fmaf(b, b, t);
+          t = fmaf(c, c, t);
+          t = fmaf(d, d, t);
+        } else {
+          t += (x.x + x.y) + (x.z + x.w);
+        }
+      }
+      t = warp_sum(t);
+      const int r = warp + 8 * j;
+      if (lane == 0 && r < rb) rp[r] = t;
+    }
+    if (csk > 1)
+      cl.sync();
+    else
+      __syncthreads();
+    float* ms = stat + (3 + pass) * MAXB;  // mu, then 1 / sqrt(var + eps)
+    for (int r = threadIdx.x; r < rb; r += NT) {
+      const float t = xch_sum(cl, csk, rp, r);
+      ms[r] = pass ? 1.f / sqrtf(t / D + eps) : t / D;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < LN_R; ++j) {
+      const int r = min(warp + 8 * j, rb - 1);
+      if (pass)
+        rs[j] = ms[r];
+      else
+        mu[j] = ms[r];
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < LN_C; ++m) {
+    const int c = 4 * (lane + 32 * m);
+    if (c >= nk) continue;
+    const float4 gg = ldg4(g + k0 + c), bb = ldg4(beta + k0 + c);
+#pragma unroll
+    for (int j = 0; j < LN_R; ++j) {
+      const int r = warp + 8 * j;
+      if (r >= rb) continue;
+      const float4 x = v[j][m];
+      const float mm = mu[j], ss = rs[j];
+      *reinterpret_cast<float4*>(hbuf + r * ldh + c) =
+          r < nrows ? make_float4((x.x - mm) * ss * gg.x + bb.x,
+                                  (x.y - mm) * ss * gg.y + bb.y,
+                                  (x.z - mm) * ss * gg.z + bb.z,
+                                  (x.w - mm) * ss * gg.w + bb.w)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ Win ln_rows(cg::cluster_group& cl, int csk, Stream& st, int u,
+                       const Seg& s, const float* src, long long ld, int rb,
+                       int nrows, int D, const float* g, const float* beta,
+                       float eps, float* hbuf, float* stat, LnIn& in) {
+  in = LnIn{src, g, beta, stat + 3 * MAXB, stat + 4 * MAXB, ld, nrows, rb,
+            s.k0, hbuf};
+  Win wi = window_of(s, rb);
+  const int fill = u + STAGES;
+  if (wi.kw >= s.nk && rb <= 8 * LN_R && s.nk <= 128 * LN_C) {
+    wi.full = true;
+    F32_STAMP(12)
+    ln_regs(cl, csk, st, fill, src, ld, s.k0, s.nk, rb, nrows, D, g, beta,
+            eps, hbuf, wi.ldh, stat);
+    F32_STAMP(13)
+  } else if (wi.kw >= s.nk) {
+    wi.full = true;
+    load_rows(hbuf, wi.ldh, src + s.k0, ld, nrows, rb, s.nk);
+    __syncthreads();
+    F32_STAMP(12)
+    ln_stats(cl, csk, hbuf, wi.ldh, false, rb, nrows, s.nk, D, eps, stat);
+    F32_STAMP(13)
+    st.fill(fill);
+    ln_apply(hbuf, wi.ldh, nrows, s.nk, g + s.k0, beta + s.k0, in.mu,
+             in.rs);
+    __syncthreads();
+  } else {
+    F32_STAMP(12)
+    ln_stats(cl, csk, src + s.k0, ld, true, rb, nrows, s.nk, D, eps, stat);
+    F32_STAMP(13)
+    st.fill(fill);
+  }
+  return wi;
+}
+
+// The plain product of segment s at rows [0, rb) of src ([*, ld], the
+// rows' first column at src; nrows real rows).
+__device__ void plain_product(Stream& st, int& u, const Seg& s,
+                              const float* src, long long ld, int rb,
+                              int nrows, float* hbuf, float* red) {
+  seg_product(
+      st, u, s, rb, window_of(s, rb), hbuf, red,
+      [&](int w0, int kn, int lh) {
+        load_rows(hbuf, lh, src + s.k0 + w0, ld, nrows, rb, kn);
+        __syncthreads();
+      },
+      [] {});
+}
+
+// The pair's two partials of a [B][nc] product added in rank order, then
+// out(row, column, values) four columns at a time, the B * nc / 4 float4s
+// split over the two ranks (nc % 8 == 0).
+template <class Out>
+__device__ void pair_out(cg::cluster_group& cl, float* red, int B, int nc,
+                         Out out) {
+  cl.sync();
+  if (nc == 0) return;
+  const int rank = (int)cl.block_rank(), n = B * nc / 4, q4 = nc / 4;
+  const float4* own = reinterpret_cast<const float4*>(red);
+  const float4* peer =
+      reinterpret_cast<const float4*>(cl.map_shared_rank(red, rank ^ 1));
+  for (int i = rank * n / 2 + threadIdx.x; i < (rank + 1) * n / 2; i += NT) {
+    const float4 a = own[i], b = peer[i];
+    const float4 v =
+        rank == 0 ? make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w)
+                  : make_float4(b.x + a.x, b.y + a.y, b.z + a.z, b.w + a.w);
+    out(i / q4, 4 * (i % q4), v);
+  }
+}
+
+// All G blocks meet here (they are co-resident: the launch is
+// cooperative). *c counts arrivals: one thread a block arrives with
+// release semantics at GPU scope (after the block's barrier, so its
+// threads' stores go first) and spins on acquiring loads.
+__device__ __forceinline__ void grid_sync(int* c, int n) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(c)
+                 : "memory");
+    int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(c)
+                   : "memory");
+    } while (v < n);
+  }
+  __syncthreads();
+}
+
+// The last block out leaves the counters bar[0..3] zero: every block has
+// passed every barrier when it takes its ticket (bar[3]).
+__device__ __forceinline__ void leave(int* bar, int G) {
+  if (threadIdx.x == 0 && atomicAdd(bar + 3, 1) == G - 1) {
+    bar[0] = 0;
+    bar[1] = 0;
+    bar[2] = 0;
+    bar[3] = 0;
+  }
+}
+
+__device__ __forceinline__ float* smem_base(unsigned char* raw) {
+  return reinterpret_cast<float*>(raw + ((128 - (smem_u32(raw) & 127)) & 127));
 }
 
 // K3 / K3-q, float32. D is the model width (x, the layer norm, the rows
@@ -208,7 +774,9 @@ inline size_t f3_smem(int D, int L, int S, int rt) {
 // block's heads (the columns of Wq/Wk/Wv, the rows of Wo, the caches'
 // rows); every weight matrix row-major ([in, out]). K3 and K3-q have D =
 // HL; K3p (PARTIAL) is a rank's head shard of the mesh's model axis and
-// writes the float32 o-projection sum to xout without x and bo.
+// writes the float32 o-projection sum to xout without x and bo. qa:
+// scratch [2, B, HL] (q, then the attention output); bar: four zeroed
+// ints, left zero.
 template <bool TAIL, bool PARTIAL = false>
 __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g1,
@@ -218,646 +786,424 @@ __global__ void __launch_bounds__(NT, 1) self_block_f32_kernel(
     const float* __restrict__ wo, const float* __restrict__ bo,
     const float* __restrict__ g2, const float* __restrict__ b2,
     const float* __restrict__ wcq, const float* __restrict__ bcq, float* kc,
-    float* vc, float* __restrict__ xout, float* __restrict__ qcross, int B,
-    int D, int H, int L, int pos, int rt, int S, float scale, float eps) {
+    float* vc, float* xout, float* __restrict__ qcross, float* qa, int* bar,
+    int B, int D, int H, int L, int pos, float scale, float eps) {
   static_assert(!(TAIL && PARTIAL), "K3p has no tail");
   extern __shared__ unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int HL = H * HDIM, nkc = D / HDIM;
-  const int rank = blockIdx.x, CS = gridDim.x;  // a cluster spans x
-  // the rank's heads [h0, h0 + G)
-  const int h0 = rank * H / CS, G = (rank + 1) * H / CS - h0;
-  // the rank's output chunks of the head sum, [oc0, oc0 + ocn) of the nkc
-  // (K3, K3-q: its heads' columns, the same split)
-  const int oc0 = rank * nkc / CS, ocn = (rank + 1) * nkc / CS - oc0;
-  const int r0 = blockIdx.y * rt, nrows = min(rt, B - r0);
-  float* ring = reinterpret_cast<float*>(
-      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127));
-  float* sPart = ring + (size_t)S * TILE;  // [rt][D]
-  float* sH = sPart + rt * D;              // [rt][D]
-  float* sQ = sH + rt * D;                 // [rt][64], and sK, sV, sA
-  float* sK = sQ + rt * HDIM;
-  float* sV = sK + rt * HDIM;
-  float* sA = sV + rt * HDIM;
-  float* sPn = sA + rt * HDIM;  // [F3_RT]
-  float* sS = sPn + F3_RT;      // logits, then the warps' p . V partials
+  cg::cluster_group cl = cg::this_cluster();
+  const int HL = H * HDIM, G = gridDim.x, bid = blockIdx.x;
+  const int rank = (int)cl.block_rank(), c = bid / F3_CS, NC = G / F3_CS;
+  const int Bp = (B + 3) / 4 * 4;
+  float* ring = smem_base(smem_raw);
+  float* hbuf = ring + (size_t)STAGES * SLOT;
+  float* red = hbuf + HBUF;
+  float* stat = red + RED;
+  float* qs = qa;
+  float* as = qa + (size_t)B * HL;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // a product step's thread: tile m of the step (m < 3), its column c
-  const int m = tid >> 6, c = tid & 63;
-  const float* kcr = kc + (long long)r0 * L * HL;  // the tile's cache rows
-  const float* vcr = vc + (long long)r0 * L * HL;
 
-  // The weight stream, tile u into ring slot u % S: for each head of the
-  // rank its nkc q/k/v groups (Wq, Wk, Wv rows 64 kc.. and the head's 64
-  // columns) and its nkc Wo tiles (the head's 64 rows, columns 64 n..);
-  // with TAIL then, for each head, the nkc Wcq tiles of its 64 columns.
-  // One commit group a tile (an empty one past the end).
-  const int per_head = 4 * nkc, nheads = G * per_head;
-  const int ntiles = nheads + (TAIL ? G * nkc : 0);
-  int issued = 0;
-  auto fill = [&](int upto) {
-    for (; issued < upto; ++issued) {
-      const int u = issued;
-      if (u < ntiles) {
-        const float* src;
-        int ld = HL;  // Wq/Wk/Wv: [D, HL]; Wo: [HL, D]; Wcq: [D, D], D = HL
-        if (u < nheads) {
-          const int j = u % per_head, c0 = (h0 + u / per_head) * HDIM;
-          if (j < 3 * nkc) {
-            src = (j % 3 == 0 ? wq : j % 3 == 1 ? wk : wv) +
-                  (long long)(j / 3) * HDIM * HL + c0;
-          } else {
-            src = wo + (long long)c0 * D + (j - 3 * nkc) * HDIM;
-            ld = D;
-          }
-        } else {
-          const int v = u - nheads;
-          src = wcq + (long long)(v % nkc) * HDIM * D +
-                (h0 + v / nkc) * HDIM;
-        }
-        float* dst = ring + (size_t)(u % S) * TILE;
-        for (int i = tid; i < TILE / 4; i += NT) {
-          const int r = i >> 4, q = (i & 15) * 4;
-          cp_async16(dst + r * HDIM + q, src + (long long)r * ld + q);
-        }
-      }
-      cp_async_commit();
-    }
-  };
-  // tiles u0 .. u0 + n - 1 have landed (the slots of tiles before u0
-  // are free: every caller meets __syncthreads() after its products)
-  auto acquire = [&](int u0, int n) {
-    fill(u0 + S);
-    wait_pending(S - n);
-    __syncthreads();
-  };
-  auto tile = [&](int u) { return ring + (size_t)(u % S) * TILE; };
+  // the weight stream: q/k/v (cluster c's groups of the 3 HL columns,
+  // rank r's half of the D rows), Wo (c's groups of the D columns, r's
+  // half of the HL rows), with TAIL Wcq (as Wo, r's half of the D rows)
+  F32_STAMP(0)
+  Stream st;
+  st.s0 = make_seg(wq, wk, wv, HL / 8, HL, 3 * HL / 8, c, NC, 0,
+                   rank * D / 2, D / 2, Bp);
+  st.s1 = make_seg(wo, wo, wo, D / 8, D, D / 8, c, NC, 0, rank * HL / 2,
+                   HL / 2, Bp);
+  st.s2 = make_seg(wcq, wcq, wcq, D / 8, D, D / 8, c, NC, 0, rank * D / 2,
+                   D / 2, Bp);
+  st.init(TAIL ? 3 : 2, 1, ring);
+  int u = 0;
 
-  fill(S);  // the stream starts before the layer norm
-  // 0. h = LN(x) of the tile's rows, a warp a row; rows past B zero
-  for (int r = warp; r < rt; r += NT / 32) {
-    if (r < nrows)
-      ln_row_warp(x + (long long)(r0 + r) * D, D, g1, b1, eps, sH + r * D, 1);
-    else
-      for (int k = lane; k < D; k += 32) sH[r * D + k] = 0.f;
+  // 1. q, k1, v1 of every row: LN(x) over the pair's halves of D
+  {
+    LnIn in;
+    const Win wi = ln_rows(cl, F3_CS, st, u, st.s0, x, D, Bp, B,
+                           D, g1, b1, eps, hbuf, stat, in);
+    seg_product(st, u, st.s0, Bp, wi, hbuf, red, in, [] {});
   }
-  __syncthreads();
-  int ti = 0;
-  for (int g = 0; g < G; ++g) {
-    const int c0 = (h0 + g) * HDIM;
-    // 1. q1, k1, v1 of the head: thread (m, c) column c of Wq, Wk or Wv
-    // over every row, a k chunk's three tiles a step
-    float acc[F3_RT];
-#pragma unroll
-    for (int r = 0; r < F3_RT; ++r) acc[r] = 0.f;
-    for (int k0 = 0; k0 < nkc; ++k0, ti += 3) {
-      acquire(ti, 3);
-      if (m < 3) rows_tile(acc, tile(ti + m) + c, sH + k0 * HDIM, D, rt);
-      __syncthreads();
-    }
-    if (m < 3) {
-      float* dst = m == 0 ? sQ : m == 1 ? sK : sV;
-      const float bias = m == 0 ? bq[c0 + c] : m == 2 ? bv[c0 + c] : 0.f;
-#pragma unroll
-      for (int r = 0; r < F3_RT; ++r) {
-        if (r >= rt) break;
-        const float v = m == 1 ? acc[r] : acc[r] + bias;
-        dst[r * HDIM + c] = v;
-        if (m > 0 && r < nrows)
-          (m == 1 ? kc : vc)[((long long)(r0 + r) * L + pos) * HL + c0 + c] =
-              v;
+  F32_STAMP(1)
+  {
+    const Seg& s = st.s0;
+    pair_out(cl, red, B, 8 * s.ng, [&](int b, int col, float4 v) {
+      const int gc = s.g0 * 8 + col, m = gc / HL, cc = gc - m * HL;
+      if (m == 0) {
+        const float4 bb = ldg4(bq + cc);
+        v = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+      } else if (m == 2) {
+        const float4 bb = ldg4(bv + cc);
+        v = make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
       }
-    }
-    __syncthreads();
-    // 2. logits of the cache rows t < pos, a (row, key) pair a thread
-    const int npair = nrows * pos;
-    for (int i = tid; i < npair; i += NT) {
-      const int r = i / pos, t = i - r * pos;
-      const float* kr = kcr + ((long long)r * L + t) * HL + c0;
+      float* dst = m == 0 ? qs + (long long)b * HL + cc
+                          : (m == 1 ? kc : vc) +
+                                ((long long)b * L + pos) * HL + cc;
+      *reinterpret_cast<float4*>(dst) = v;
+    });
+  }
+  F32_STAMP(2)
+  grid_sync(bar, G);
+  F32_STAMP(3)
+
+  // 2. the attention, the B x H (row, head) items split over the blocks,
+  // at most IB (and RED / L) a batch: logits a (item, key) pair a thread,
+  // the softmax with the fresh row in closed form a warp an item, p . V
+  // warp w the keys [w kpw, (w + 1) kpw), lane l the columns 2l, 2l + 1,
+  // the warps' partials added in warp order, then pn * v1
+  {
+    const int nI = B * H;
+    const int i0 = (int)((long long)bid * nI / G);
+    const int i1 = (int)((long long)(bid + 1) * nI / G);
+    const int nb = min(IB, RED / L);
+    float* sQ = hbuf;
+    float* sK = sQ + IB * HDIM;
+    float* sV = sK + IB * HDIM;
+    float* sPn = sV + IB * HDIM;
+    float* sS = red;
+    for (int ib = i0; ib < i1; ib += nb) {
+      const int ni = min(nb, i1 - ib);
+      // the thread's first (item, key) pair's key row is in flight
+      // while q, k1 and v1 are staged
+      const int npair = ni * pos;
       float4 kv[16];
+      auto load_key = [&](int i) {
+        const int r = i / pos, t = i - r * pos, it = ib + r, b = it / H;
+        const float* kr =
+            kc + ((long long)b * L + t) * HL + (it - b * H) * HDIM;
 #pragma unroll
-      for (int w = 0; w < 16; ++w) kv[w] = ldg4(kr + 4 * w);
-      const float* q = sQ + r * HDIM;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < 16; ++w) {
-        s = fmaf(q[4 * w], kv[w].x, s);
-        s = fmaf(q[4 * w + 1], kv[w].y, s);
-        s = fmaf(q[4 * w + 2], kv[w].z, s);
-        s = fmaf(q[4 * w + 3], kv[w].w, s);
-      }
-      sS[r * L + t] = s * scale;
-    }
-    __syncthreads();
-    // 3. softmax with the fresh row in closed form, a warp a row
-    for (int r = warp; r < nrows; r += NT / 32) {
-      float* p = sS + r * L;
-      const float* q = sQ + r * HDIM;
-      const float* k1 = sK + r * HDIM;
-      float mx = -INFINITY;
-      for (int t = lane; t < pos; t += 32) mx = fmaxf(mx, p[t]);
-      const float l_new =
-          warp_sum(q[lane] * k1[lane] + q[lane + 32] * k1[lane + 32]) * scale;
-      mx = fmaxf(warp_max(mx), l_new);
-      float sum = 0.f;
-      for (int t = lane; t < pos; t += 32) {
-        const float e = expf(p[t] - mx);
-        p[t] = e;
-        sum += e;
-      }
-      const float pn = expf(l_new - mx);
-      const float denom = warp_sum(sum) + pn;
-      for (int t = lane; t < pos; t += 32) p[t] = p[t] / denom;
-      if (lane == 0) sPn[r] = pn / denom;
-    }
-    __syncthreads();
-    // 4. p . V: warp w the keys [w kpw, (w + 1) kpw) of every row, eight
-    // keys' loads in flight at once, lane l the columns 2l, 2l + 1; the
-    // warps' partials added in warp order, then the fresh row's pn * v1
-    const int kpw = (pos + 7) / 8, ta = warp * kpw;
-    const int tb = min(pos, ta + kpw);
-    float a[F3_RT][2];
-#pragma unroll
-    for (int r = 0; r < F3_RT; ++r) {
-      a[r][0] = a[r][1] = 0.f;
-      if (r >= nrows) continue;
-      const float* vr = vcr + (long long)r * L * HL + c0 + 2 * lane;
-      const float* pr = sS + r * L;
-      for (int t = ta; t < tb; t += 8) {
-        float2 w8[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          w8[u] = __ldg(reinterpret_cast<const float2*>(
-              vr + (long long)min(t + u, tb - 1) * HL));
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const float p = t + u < tb ? pr[t + u] : 0.f;
-          a[r][0] = fmaf(p, w8[u].x, a[r][0]);
-          a[r][1] = fmaf(p, w8[u].y, a[r][1]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with the logits
-    float* red = sS;
-#pragma unroll
-    for (int r = 0; r < F3_RT; ++r)
-      if (r < rt)
-        *reinterpret_cast<float2*>(red + (warp * rt + r) * HDIM + 2 * lane) =
-            make_float2(a[r][0], a[r][1]);
-    __syncthreads();
-    for (int i = tid; i < rt * HDIM; i += NT) {
-      const int r = i / HDIM, d = i % HDIM;
-      float o = 0.f;
-      if (r < nrows) {
-#pragma unroll
-        for (int w = 0; w < NT / 32; ++w) o += red[(w * rt + r) * HDIM + d];
-        o += sPn[r] * sV[r * HDIM + d];
-      }
-      sA[r * HDIM + d] = o;
-    }
-    __syncthreads();  // sA is whole
-    // 5. the head's share of the o-projection into sPart (the rank's
-    // heads added in order), three 64-column output chunks a step
-    for (int n0 = 0; n0 < nkc; n0 += 3) {
-      const int k = min(3, nkc - n0);
-      acquire(ti, k);
-      if (m < k) {
-        float o[F3_RT];
-#pragma unroll
-        for (int r = 0; r < F3_RT; ++r) o[r] = 0.f;
-        rows_tile(o, tile(ti + m) + c, sA, HDIM, rt);
-#pragma unroll
-        for (int r = 0; r < F3_RT; ++r) {
-          if (r >= rt) break;
-          float* dst = sPart + r * D + (n0 + m) * HDIM + c;
-          *dst = g == 0 ? o[r] : *dst + o[r];
-        }
+        for (int w = 0; w < 16; ++w) kv[w] = ldg4(kr + 4 * w);
+      };
+      if (tid < npair) load_key(tid);
+      for (int e = tid; e < ni * HDIM; e += NT) {
+        const int it = ib + e / HDIM, b = it / H;
+        const long long col = (it - b * H) * HDIM + e % HDIM;
+        sQ[e] = __ldcg(qs + (long long)b * HL + col);
+        sK[e] = __ldcg(kc + ((long long)b * L + pos) * HL + col);
+        sV[e] = __ldcg(vc + ((long long)b * L + pos) * HL + col);
       }
       __syncthreads();
-      ti += k;
-    }
-  }
-  // 6. the head sum through distributed shared memory: rank r adds the
-  // ranks' partials of its ocn * 64 columns in rank order (so the heads in
-  // order), 4 columns a thread with every rank's load in flight, then
-  // bias and residual (K3p: the sum alone). Every rank stays until all
-  // have read.
-  cluster.sync();
-  const int cw = ocn * HDIM, nq = cw / 4;
-  float* sX = sS;  // TAIL: the rank's x_out columns [rt][cw]
-  for (int i = tid; i < nrows * nq; i += NT) {
-    const int r = i / nq, cc = oc0 * HDIM + (i % nq) * 4;
-    float4 pv[F3_MAX_CS];
+      for (int i = tid; i < npair; i += NT) {
+        if (i != tid) load_key(i);
+        const int r = i / pos, t = i - r * pos;
+        const float* q = sQ + r * HDIM;
+        float s = 0.f;
 #pragma unroll
-    for (int k = 0; k < F3_MAX_CS; ++k)
-      pv[k] = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(sPart, k < CS ? k : 0) + r * D + cc);
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k = 0; k < F3_MAX_CS; ++k)
-      if (k < CS) {
-        o[0] += pv[k].x;
-        o[1] += pv[k].y;
-        o[2] += pv[k].z;
-        o[3] += pv[k].w;
+        for (int w = 0; w < 16; ++w) {
+          s = fmaf(q[4 * w], kv[w].x, s);
+          s = fmaf(q[4 * w + 1], kv[w].y, s);
+          s = fmaf(q[4 * w + 2], kv[w].z, s);
+          s = fmaf(q[4 * w + 3], kv[w].w, s);
+        }
+        sS[r * L + t] = s * scale;
       }
-    const long long gi = (long long)(r0 + r) * D + cc;
-    if (PARTIAL) {
-      *reinterpret_cast<float4*>(xout + gi) =
-          make_float4(o[0], o[1], o[2], o[3]);
-      continue;
-    }
-    const float4 xx = ldg4(x + gi), bb = ldg4(bo + cc);
-    const float4 xo = make_float4(xx.x + (o[0] + bb.x), xx.y + (o[1] + bb.y),
-                                  xx.z + (o[2] + bb.z), xx.w + (o[3] + bb.w));
-    *reinterpret_cast<float4*>(xout + gi) = xo;
-    if (TAIL) *reinterpret_cast<float4*>(sX + r * cw + (i % nq) * 4) = xo;
-  }
-  if (TAIL) {
-    // 7. K3-q's tail: the cross layer norm of the x_out rows, whose
-    // columns the ranks hold in turn: each rank's row sums, then its sums
-    // of squared deviations, added over the ranks in rank order; h2 =
-    // LN2(x_out) into the rank's columns of sH, gathered from every rank;
-    // then the rank's G * 64 columns of h2 @ Wcq + bcq from the stream's
-    // last tiles.
-    __shared__ float stat[2][F3_RT];
-    __shared__ float row_mu[F3_RT], row_rs[F3_RT];
-    __syncthreads();
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int r = warp; r < F3_RT; r += NT / 32) {
-        float v = 0.f;
-        if (r < nrows)
-          for (int cc = lane; cc < cw; cc += 32) {
-            const float e = sX[r * cw + cc] - (pass ? row_mu[r] : 0.f);
-            v = pass ? fmaf(e, e, v) : v + e;
+      __syncthreads();
+      for (int r = warp; r < ni; r += NT / 32) {
+        float* p = sS + r * L;
+        const float* q = sQ + r * HDIM;
+        const float* k1 = sK + r * HDIM;
+        float mx = -INFINITY;
+        for (int t = lane; t < pos; t += 32) mx = fmaxf(mx, p[t]);
+        const float l_new =
+            warp_sum(q[lane] * k1[lane] + q[lane + 32] * k1[lane + 32]) *
+            scale;
+        mx = fmaxf(warp_max(mx), l_new);
+        float sum = 0.f;
+        for (int t = lane; t < pos; t += 32) {
+          const float e = expf(p[t] - mx);
+          p[t] = e;
+          sum += e;
+        }
+        const float pn = expf(l_new - mx);
+        const float denom = warp_sum(sum) + pn;
+        for (int t = lane; t < pos; t += 32) p[t] = p[t] / denom;
+        if (lane == 0) sPn[r] = pn / denom;
+      }
+      __syncthreads();
+      const int kpw = (pos + 7) / 8, ta = warp * kpw;
+      const int tb = min(pos, ta + kpw);
+      float a[IB][2];
+#pragma unroll
+      for (int r = 0; r < IB; ++r) {
+        a[r][0] = a[r][1] = 0.f;
+        if (r >= ni) continue;
+        const int it = ib + r, b = it / H;
+        const float* vr =
+            vc + (long long)b * L * HL + (it - b * H) * HDIM + 2 * lane;
+        const float* pr = sS + r * L;
+        for (int t = ta; t < tb; t += 8) {
+          float2 w8[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            w8[k] = __ldg(reinterpret_cast<const float2*>(
+                vr + (long long)min(t + k, tb - 1) * HL));
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float p = t + k < tb ? pr[t + k] : 0.f;
+            a[r][0] = fmaf(p, w8[k].x, a[r][0]);
+            a[r][1] = fmaf(p, w8[k].y, a[r][1]);
           }
-        v = warp_sum(v);
-        if (lane == 0) stat[pass][r] = v;
+        }
       }
-      cluster.sync();
-      if (tid < F3_RT) {
-        float t = 0.f;
-        for (int k = 0; k < CS; ++k)
-          t += cluster.map_shared_rank(&stat[pass][0], k)[tid];
-        if (pass == 0)
-          row_mu[tid] = t / D;
-        else
-          row_rs[tid] = 1.f / sqrtf(t / D + eps);
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < rt * cw; i += NT) {
-      const int r = i / cw, cc = h0 * HDIM + i % cw;
-      sH[r * D + cc] =
-          r < nrows ? (sX[i] - row_mu[r]) * row_rs[r] * g2[cc] + b2[cc] : 0.f;
-    }
-    cluster.sync();  // every rank's h2 columns are in place
-    for (int i = tid; i < rt * (D / 4); i += NT) {
-      const int r = i / (D / 4), c4 = i % (D / 4);
-      int k = 0;  // the rank holding head (chunk) c4 / 16
-      while ((k + 1) * H / CS <= c4 / 16) ++k;
-      if (k != rank)
-        *reinterpret_cast<float4*>(sH + r * D + c4 * 4) =
-            *reinterpret_cast<const float4*>(
-                cluster.map_shared_rank(sH, k) + r * D + c4 * 4);
-    }
-    __syncthreads();  // the gathered h2 is whole
-    for (int gg = 0; gg < G; ++gg) {
-      // thread (m, c): the k chunks m, m + 3, ... of column c, then the
-      // three partials added in order
-      float acc[F3_RT];
+      __syncthreads();  // every warp is done with the logits
 #pragma unroll
-      for (int r = 0; r < F3_RT; ++r) acc[r] = 0.f;
-      for (int k0 = 0; k0 < nkc; k0 += 3) {
-        const int k = min(3, nkc - k0);
-        acquire(ti, k);
-        if (m < k)
-          rows_tile(acc, tile(ti + m) + c, sH + (k0 + m) * HDIM, D, rt);
-        __syncthreads();
-        ti += k;
-      }
-      float* red = sS;
-      if (m < 3)
-#pragma unroll
-        for (int r = 0; r < F3_RT; ++r)
-          if (r < rt) red[(m * rt + r) * HDIM + c] = acc[r];
+      for (int r = 0; r < IB; ++r)
+        if (r < ni)
+          *reinterpret_cast<float2*>(red + (warp * ni + r) * HDIM +
+                                     2 * lane) = make_float2(a[r][0], a[r][1]);
       __syncthreads();
-      for (int i = tid; i < nrows * HDIM; i += NT) {
-        const int r = i / HDIM, cc = i % HDIM;
-        const int col = (h0 + gg) * HDIM + cc;
-        const float s = red[r * HDIM + cc] + red[(rt + r) * HDIM + cc] +
-                        red[(2 * rt + r) * HDIM + cc];
-        qcross[(long long)(r0 + r) * D + col] = s + bcq[col];
+      for (int e = tid; e < ni * HDIM; e += NT) {
+        const int r = e / HDIM, d = e % HDIM, it = ib + r, b = it / H;
+        float o = 0.f;
+#pragma unroll
+        for (int w = 0; w < NT / 32; ++w) o += red[(w * ni + r) * HDIM + d];
+        o += sPn[r] * sV[e];
+        as[(long long)b * HL + (it - b * H) * HDIM + d] = o;
       }
       __syncthreads();
     }
   }
-  cluster.sync();
+  F32_STAMP(4)
+  grid_sync(bar + 1, G);
+  F32_STAMP(5)
+
+  // 3. the o-projection of the attention output (+ bo + x; K3p the sum)
+  plain_product(st, u, st.s1, as, HL, Bp, B, hbuf, red);
+  F32_STAMP(6)
+  {
+    const Seg& s = st.s1;
+    pair_out(cl, red, B, 8 * s.ng, [&](int b, int col, float4 v) {
+      const int n = s.g0 * 8 + col;
+      const long long gi = (long long)b * D + n;
+      if (!PARTIAL) {
+        const float4 xx = ldg4(x + gi), bb = ldg4(bo + n);
+        v = make_float4(xx.x + (v.x + bb.x), xx.y + (v.y + bb.y),
+                        xx.z + (v.z + bb.z), xx.w + (v.w + bb.w));
+      }
+      *reinterpret_cast<float4*>(xout + gi) = v;
+    });
+  }
+  F32_STAMP(7)
+  if (TAIL) {
+    // 4. K3-q's tail: q_cross = LN2(x_out) @ Wcq + bcq
+    grid_sync(bar + 2, G);
+    F32_STAMP(8)
+    {
+      LnIn in;
+      const Win wi = ln_rows(cl, F3_CS, st, u, st.s2, xout, D,
+                             Bp, B, D, g2, b2, eps, hbuf, stat, in);
+      seg_product(st, u, st.s2, Bp, wi, hbuf, red, in, [] {});
+    }
+    F32_STAMP(9)
+    const Seg& s = st.s2;
+    pair_out(cl, red, B, 8 * s.ng, [&](int b, int col, float4 v) {
+      const int n = s.g0 * 8 + col;
+      const float4 bb = ldg4(bcq + n);
+      *reinterpret_cast<float4*>(qcross + (long long)b * D + n) =
+          make_float4(v.x + bb.x, v.y + bb.y, v.z + bb.z, v.w + bb.w);
+    });
+  }
+  cl.sync();  // the partner has read this block's partials
+  F32_STAMP(10)
+  leave(bar, G);
 }
 
-// K4-o's head: x1 = x + (attn @ W + bias), float32, a block per (32
-// output columns, 4 rows); thread (cg, ks) the 8 columns 8 cg.. over the
-// k slice ks, ks + 64, ...; the 64 slices added in order.
-constexpr int P_RB = 4, P_NC = 32, P_KS = NT / (P_NC / 8);
-inline size_t rowproj_smem(int D) {
-  return 4 * ((size_t)P_KS * P_RB * P_NC + (size_t)P_RB * D);
-}
-
-__global__ void __launch_bounds__(NT) rowproj_f32_kernel(
+// K4-o's head: x1 = x + (attn @ W + bias), float32, on clusters of two:
+// cluster c the 8-column groups [c n / NC, (c + 1) n / NC) of the D
+// columns, rank r the rows [r D / 2, (r + 1) D / 2) of W (each byte read
+// once), the pair's partials added in rank order.
+__global__ void __launch_bounds__(NT, 1) rowproj_f32_kernel(
     const float* __restrict__ attn, const float* __restrict__ W,
     const float* __restrict__ bias, const float* __restrict__ x,
     float* __restrict__ x1, int B, int D) {
-  extern __shared__ __align__(16) float psm[];
-  float* red = psm;                         // [P_KS][P_RB][P_NC]
-  float* sIn = red + P_KS * P_RB * P_NC;    // [P_RB][D]
-  const int c0 = blockIdx.x * P_NC, r0 = blockIdx.y * P_RB;
-  const int nrows = min(P_RB, B - r0);
-  const int tid = threadIdx.x;
-  for (int i = tid; i < P_RB * D; i += NT)
-    sIn[i] = i / D < nrows ? attn[(long long)(r0 + i / D) * D + i % D] : 0.f;
-  __syncthreads();
-  const int cg8 = tid % (P_NC / 8), ks = tid / (P_NC / 8);
-  float acc[P_RB][8];
-#pragma unroll
-  for (int r = 0; r < P_RB; ++r)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
-  const float* wp = W + c0 + cg8 * 8;
-#pragma unroll 4
-  for (int k = ks; k < D; k += P_KS) {
-    const float4 wa = ldg4(wp + (long long)k * D);
-    const float4 wb = ldg4(wp + (long long)k * D + 4);
-    const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-    for (int r = 0; r < P_RB; ++r) {
-      const float hv = sIn[r * D + k];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(hv, w[e], acc[r][e]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < P_RB; ++r) {
-    float4* dst =
-        reinterpret_cast<float4*>(red + (ks * P_RB + r) * P_NC + cg8 * 8);
-    dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
-  }
-  __syncthreads();
-  for (int i = tid; i < P_RB * P_NC; i += NT) {
-    const int r = i / P_NC, cc = i % P_NC;
-    if (r >= nrows) continue;
-    float s = 0.f;
-    for (int q = 0; q < P_KS; ++q) s += red[(q * P_RB + r) * P_NC + cc];
-    const long long gi = (long long)(r0 + r) * D + c0 + cc;
-    x1[gi] = x[gi] + (s + bias[c0 + cc]);
-  }
+  extern __shared__ unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), c = blockIdx.x / F3_CS;
+  const int NC = gridDim.x / F3_CS, Bp = (B + 3) / 4 * 4;
+  float* ring = smem_base(smem_raw);
+  float* hbuf = ring + (size_t)STAGES * SLOT;
+  float* red = hbuf + HBUF;
+  Stream st;
+  st.s0 = make_seg(W, W, W, D / 8, D, D / 8, c, NC, 0, rank * D / 2, D / 2,
+                   Bp);
+  st.init(1, 1, ring);
+  st.fill(STAGES);
+  int u = 0;
+  plain_product(st, u, st.s0, attn, D, Bp, B, hbuf, red);
+  const Seg& s = st.s0;
+  pair_out(cl, red, B, 8 * s.ng, [&](int b, int col, float4 v) {
+    const int n = s.g0 * 8 + col;
+    const long long gi = (long long)b * D + n;
+    const float4 xx = ldg4(x + gi), bb = ldg4(bias + n);
+    *reinterpret_cast<float4*>(x1 + gi) =
+        make_float4(xx.x + (v.x + bb.x), xx.y + (v.y + bb.y),
+                    xx.z + (v.z + bb.z), xx.w + (v.w + bb.w));
+  });
+  cl.sync();
 }
 
-// K4's float32 form (see the file's head). Shared memory of a block: the
-// slice's fc1 chunk [DC][16], h's chunk transposed [DC][36] (rows of the
-// 32-row block, 4 floats of padding), the slice's fc2 chunk [16][DC + 4],
-// u transposed [16][36], the warps' fc1 partials [8][32][16].
-constexpr int F4_FS = 16;            // fc1 columns a slice
-constexpr int F4_DC = 512;           // D chunk
-constexpr int F4_RB = 32;            // rows a row block
-constexpr int F4_LDT = F4_RB + 4;    // floats a staged h / u row
-constexpr int F4_MAX_D = 2048;
-
-inline int f4_dc(int D) { return D < F4_DC ? D : F4_DC; }
-inline size_t f4_smem(int dc) {
-  return 4 * ((size_t)dc * F4_FS + (size_t)dc * F4_LDT +
-              (size_t)F4_FS * (dc + 4) + F4_FS * F4_LDT +
-              (NT / 32) * F4_RB * F4_FS);
-}
-
-// All G blocks meet here (they are co-resident: the launch is
-// cooperative). *c counts arrivals; the waiting thread spins on it.
-__device__ __forceinline__ void grid_sync(int* c, int n) {
-  __threadfence();  // this thread's stores, before the arrival
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(c, 1);
-    while (*reinterpret_cast<volatile int*>(c) < n) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// x: [B, D] float32 (K4-o: x1 from rowproj_f32_kernel); hT: [D, Bp]
-// scratch, Bp = B rounded up to 32; part: [F / 16, B, D] scratch; bar:
-// three zeroed ints, left zero. PARTIAL (K4p, a rank's F columns of fc1
-// and rows of fc2): out = the float32 fc2 sum without x and b2.
+// K4's float32 form (see the file's head). x: [B, D] (K4-o: x1 from
+// rowproj_f32_kernel); part: [NC, B, D] scratch, NC = gridDim.x / 8; bar:
+// four zeroed ints, left zero; RB: rows a pass (a multiple of 4).
+// PARTIAL (K4p, a rank's F columns of fc1 and rows of fc2): out = the
+// float32 fc2 sum without x and b2.
 template <bool PARTIAL = false>
 __global__ void __launch_bounds__(NT, 1) mlp_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ g,
     const float* __restrict__ bln, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, float* hT, float* part, int* bar,
-    float* __restrict__ out, int B, int D, int F, float eps) {
-  extern __shared__ __align__(16) float fsm[];
-  const int DC = min(D, F4_DC), LDW2 = DC + 4;
-  float* sW1 = fsm;                    // [DC][16]
-  float* sHT = sW1 + DC * F4_FS;       // [DC][36]
-  float* sW2 = sHT + DC * F4_LDT;      // [16][DC + 4]
-  float* sUT = sW2 + F4_FS * LDW2;     // [16][36]
-  float* sRed = sUT + F4_FS * F4_LDT;  // [8][32][16]
-  const int G = gridDim.x, S = F / F4_FS;
-  const int nch = (D + DC - 1) / DC;
-  const int Bp = (B + F4_RB - 1) / F4_RB * F4_RB, nrb = Bp / F4_RB;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  // copies of fc1 rows [k0, k0 + DC) x slice j's columns into sW1, of
-  // slice j's fc2 rows x columns [n0, n0 + DC) into sW2, and of h's rows
-  // [k0, k0 + DC) x the row block's 32 columns into sHT
-  auto stage_w1 = [&](int j, int c) {
-    const int k0 = c * DC, kc = min(DC, D - k0);
-    for (int i = tid; i < kc * (F4_FS / 4); i += NT) {
-      const int k = i / (F4_FS / 4), q = (i % (F4_FS / 4)) * 4;
-      cp_async16(sW1 + k * F4_FS + q,
-                 w1 + (long long)(k0 + k) * F + j * F4_FS + q);
+    const float* __restrict__ b2, float* part, int* bar,
+    float* __restrict__ out, int B, int D, int F, int RB, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int G = gridDim.x, NC = G / F4_CS, c = blockIdx.x / F4_CS;
+  const int rank = (int)cl.block_rank();
+  const int Bp = (B + 3) / 4 * 4, npass = (Bp + RB - 1) / RB;
+  float* ring = smem_base(smem_raw);
+  float* hbuf = ring + (size_t)STAGES * SLOT;
+  float* red = hbuf + HBUF;
+  float* stat = red + RED;
+  // the cluster's groups [cf0, cf0 + ncg) of the F / 8; rank r's share of
+  // them for fc1 (every row of D), and the rank's D / 8 / 8 groups of
+  // fc2's columns over the cluster's F rows
+  const int ngF = F / 8;
+  const int cf0 = c * ngF / NC, ncg = (c + 1) * ngF / NC - cf0;
+  F32_STAMP(0)
+  Stream st;
+  st.s0 = make_seg(w1, w1, w1, ngF, F, ncg, rank, F4_CS, cf0, 0, D, RB);
+  st.s1 = make_seg(w2, w2, w2, D / 8, D, D / 8, rank, F4_CS, 0, cf0 * 8,
+                   ncg * 8, RB);
+  st.init(2, npass, ring);
+  int u = 0;
+  const Seg& s1 = st.s0;
+  const Seg& s2 = st.s1;
+  const int nc1 = 8 * s1.ng, nc2 = 8 * s2.ng;
+  for (int p = 0; p < npass; ++p) {
+    const int r0 = p * RB, rb = min(RB, Bp - r0), nrows = min(rb, B - r0);
+    // fc1 over the rank's columns, + b1, GELU, left in red [rb][8 ng]
+    {
+      LnIn in;
+      const Win wi = ln_rows(cl, 1, st, u, s1,
+                             x + (long long)r0 * D, D, rb, nrows, D, g, bln,
+                             eps, hbuf, stat, in);
+      seg_product(st, u, s1, rb, wi, hbuf, red, in, [] {});
     }
-  };
-  auto stage_w2 = [&](int j, int c) {
-    const int n0 = c * DC, cw4 = min(DC, D - n0) / 4;
-    for (int i = tid; i < F4_FS * cw4; i += NT) {
-      const int r = i / cw4, q = (i % cw4) * 4;
-      cp_async16(sW2 + r * LDW2 + q,
-                 w2 + (long long)(j * F4_FS + r) * D + n0 + q);
-    }
-  };
-  auto stage_h = [&](int rb, int c) {
-    const int k0 = c * DC, kc = min(DC, D - k0);
-    for (int i = tid; i < kc * (F4_RB / 4); i += NT) {
-      const int k = i / (F4_RB / 4), q = (i % (F4_RB / 4)) * 4;
-      cp_async16(sHT + k * F4_LDT + q,
-                 hT + (long long)(k0 + k) * Bp + rb * F4_RB + q);
-    }
-  };
-
-  // 1. the first slice's first chunks in flight through the layer norm:
-  // a warp a row, the grid's warps over the rows (the padding rows zero)
-  int w1_at = blockIdx.x * nch, w2_at = blockIdx.x * nch;  // slice*nch+chunk
-  stage_w1(blockIdx.x, 0);
-  stage_w2(blockIdx.x, 0);
-  cp_async_commit();
-  for (int r = blockIdx.x * (NT / 32) + warp; r < Bp; r += G * (NT / 32)) {
-    if (r < B)
-      ln_row_warp(x + (long long)r * D, D, g, bln, eps, hT + r, Bp);
-    else
-      for (int k = lane; k < D; k += 32) hT[(long long)k * Bp + r] = 0.f;
-  }
-  grid_sync(bar, G);
-
-  // 2. per (slice, row block): u = gelu(h @ W1[:, slice] + b1), then the
-  // slice's share of fc2, u @ W2[slice, :], into part[slice]
-  const int rq = lane >> 2, cq = lane & 3;  // fc1: rows 4 rq.., cols 4 cq..
-  for (int j = blockIdx.x; j < S; j += G) {
-    const int f0 = j * F4_FS;
-    for (int rb = 0; rb < nrb; ++rb) {
-      const int r0 = rb * F4_RB, nrows = min(F4_RB, B - r0);
-      float acc[4][4];
+    F32_STAMP(1)
+    for (int i = threadIdx.x; i < rb * nc1; i += NT)
+      red[i] = gelu_as(red[i] + b1[s1.g0 * 8 + i % nc1]);
+    cl.sync();  // every rank's u is whole
+    F32_STAMP(2)
+    // fc2 over the cluster's u, gathered a window at a time: column k of
+    // the cluster's F range from the rank holding its group
+    seg_product(
+        st, u, s2, rb, window_of(s2, rb), hbuf, red,
+        [&](int w0, int kn, int lh) {
+          const int q4 = kn / 4, n = rb * q4;
+          for (int i0 = threadIdx.x; i0 < n; i0 += 8 * NT) {
+            float4 v[8];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+            for (int k = 0; k < 8; ++k) {
+              const int i = i0 + k * NT, r = i / q4;
+              const int col = w0 + 4 * (i - r * q4), gi = col / 8;
+              const int q = ((gi + 1) * F4_CS - 1) / ncg;
+              const int gq0 = q * ncg / F4_CS;
+              const int ncq = 8 * ((q + 1) * ncg / F4_CS - gq0);
+              v[k] = i < n ? *reinterpret_cast<const float4*>(
+                                 cl.map_shared_rank(red, q) + r * ncq +
+                                 (col - 8 * gq0))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
-      for (int c = 0; c < nch; ++c) {
-        __syncthreads();  // sHT and sW1 are free
-        if (w1_at != j * nch + c) {
-          stage_w1(j, c);
-          w1_at = j * nch + c;
-        }
-        stage_h(rb, c);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        // warp w: the chunk's k rows [w kw, (w + 1) kw)
-        const int kw = min(DC, D - c * DC) / (NT / 32);
-        for (int k = warp * kw; k < (warp + 1) * kw; ++k) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              sW1 + k * F4_FS + cq * 4);
-          const float4 h = *reinterpret_cast<const float4*>(
-              sHT + k * F4_LDT + rq * 4);
-          const float hv[4] = {h.x, h.y, h.z, h.w};
-          const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[a][e] = fmaf(hv[a], wv[e], acc[a][e]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        *reinterpret_cast<float4*>(
-            sRed + (warp * F4_RB + rq * 4 + a) * F4_FS + cq * 4) =
-            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-      __syncthreads();
-      for (int i = tid; i < F4_RB * F4_FS; i += NT) {
-        const int r = i / F4_FS, f = i % F4_FS;
-        float u = 0.f;
-#pragma unroll
-        for (int w = 0; w < NT / 32; ++w)
-          u += sRed[(w * F4_RB + r) * F4_FS + f];
-        sUT[f * F4_LDT + r] = gelu_as(u + b1[f0 + f]);
-      }
-      __syncthreads();
-      for (int c = 0; c < nch; ++c) {
-        if (w2_at != j * nch + c) {
-          __syncthreads();  // sW2 is free
-          stage_w2(j, c);
-          w2_at = j * nch + c;
-          cp_async_commit();
-          cp_async_wait_all();
+            for (int k = 0; k < 8; ++k) {
+              const int i = i0 + k * NT, r = i / q4;
+              if (i < n)
+                *reinterpret_cast<float4*>(hbuf + r * lh +
+                                           4 * (i - r * q4)) = v[k];
+            }
+          }
           __syncthreads();
-        }
-        // warp w: rows 4 w .. 4 w + 3; lane: 8 columns at a time
-        const int n0 = c * DC, cw8 = min(DC, D - n0) / 8;
-        for (int co = lane; co < cw8; co += 32) {
-          float a2[4][8];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) a2[a][e] = 0.f;
-#pragma unroll 4
-          for (int f = 0; f < F4_FS; ++f) {
-            const float4 u4 = *reinterpret_cast<const float4*>(
-                sUT + f * F4_LDT + warp * 4);
-            const float4 wa = *reinterpret_cast<const float4*>(
-                sW2 + f * LDW2 + co * 8);
-            const float4 wb = *reinterpret_cast<const float4*>(
-                sW2 + f * LDW2 + co * 8 + 4);
-            const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
-            const float wv[8] = {wa.x, wa.y, wa.z, wa.w,
-                                 wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                a2[a][e] = fmaf(uv[a], wv[e], a2[a][e]);
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int r = warp * 4 + a;
-            if (r >= nrows) continue;
-            float* pj = part + ((long long)j * B + r0 + r) * D + n0 + co * 8;
-            *reinterpret_cast<float4*>(pj) =
-                make_float4(a2[a][0], a2[a][1], a2[a][2], a2[a][3]);
-            *reinterpret_cast<float4*>(pj + 4) =
-                make_float4(a2[a][4], a2[a][5], a2[a][6], a2[a][7]);
-          }
-        }
-      }
+        },
+        [&] { cl.sync(); });  // every rank has gathered before red changes
+    F32_STAMP(3)
+    for (int i = threadIdx.x; i < nrows * nc2 / 4; i += NT) {
+      const int r = i / (nc2 / 4), col = 4 * (i - r * (nc2 / 4));
+      *reinterpret_cast<float4*>(
+          part + ((long long)c * B + r0 + r) * D + s2.g0 * 8 + col) =
+          reinterpret_cast<const float4*>(red)[i];
     }
   }
-  grid_sync(bar + 1, G);
-
-  // 3. block b's share of the outputs, the S partials summed in order
+  F32_STAMP(4)
+  grid_sync(bar, G);
+  F32_STAMP(5)
+  // the NC cluster partials of the block's share of the outputs, added in
+  // cluster order, + b2 + x (K4p: the sum alone)
   const long long total = (long long)B * D;
-  const long long chunk = (total + G - 1) / G;
-  const long long i1 = min(total, (blockIdx.x + 1) * chunk);
-  for (long long i = blockIdx.x * chunk + tid; i < i1; i += NT) {
-    const int cc = (int)(i % D);
-    if (PARTIAL)
-      out[i] = ordered_sum(part + i, total, S);
-    else
-      out[i] = x[i] + (ordered_sum(part + i, total, S) + b2[cc]);
+  const long long e0 = blockIdx.x * total / G;
+  const long long e1 = (blockIdx.x + 1) * total / G;
+  for (long long i = e0 + threadIdx.x; i < e1; i += NT) {
+    const float s = ordered_sum(part + i, total, NC);
+    out[i] = PARTIAL ? s : __ldg(x + i) + (s + b2[i % D]);
   }
-  if (tid == 0 && atomicAdd(bar + 2, 1) == G - 1) {
-    bar[0] = 0;  // every block has passed both barriers
-    bar[1] = 0;
-    bar[2] = 0;
-  }
+  F32_STAMP(6)
+  cl.sync();
+  F32_STAMP(7)
+  leave(bar, G);
+}
+
+// A launch of `blocks` blocks in clusters of cs (coop: cooperative, every
+// block resident at once) with SMEM bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+int launch_grid(bool coop, void (*kernel)(Params...), int blocks, int cs,
+                cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = coop ? 2 : 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (e != cudaSuccess) (void)cudaGetLastError();
+  return (int)e;
 }
 
 // K3 / K3-q (wcq != NULL) / K3p (PARTIAL) at model width D over the
-// block's H heads (see mas_decoder_self_block_f32 and _partial_f32).
+// block's H heads on `clusters` clusters of two (see
+// mas_decoder_self_block_f32 and _partial_f32).
 int launch_self_f32(bool partial, const void* x, const void* g1,
                     const void* b1, const void* wq, const void* bq,
                     const void* wk, const void* wv, const void* bv,
                     const void* wo, const void* bo, void* kc, void* vc,
                     void* x_out, const void* g2, const void* b2,
-                    const void* wcq, const void* bcq, void* q_cross, int B,
-                    int D, int H, int L, int pos, int CS, int rt, int S,
-                    float scale, float eps, void* stream) {
+                    const void* wcq, const void* bcq, void* q_cross,
+                    void* scratch, void* counter, int B, int D, int H, int L,
+                    int pos, int clusters, float scale, float eps,
+                    void* stream) {
   const bool tail = wcq != nullptr;
-  if (B < 1 || H < 1 || D < HDIM || D % HDIM || CS < 1 || CS > H ||
-      CS > D / HDIM || CS > F3_MAX_CS || rt < 1 || rt > F3_RT ||
-      S < F3_MIN_STAGES || S > F3_MAX_STAGES || pos < 0 || pos >= L ||
-      f3_smem(D, L, S, rt) > SMEM_MAX || (B + rt - 1) / rt > 65535 ||
-      (tail && partial) || (!partial && D != H * HDIM))
+  const int HL = H * HDIM, Bp = (B + 3) / 4 * 4;
+  if (B < 1 || B > MAXB || H < 1 || D < HDIM || D % HDIM || L < 1 ||
+      L > RED || pos < 0 || pos >= L || clusters < 1 || (tail && partial) ||
+      (!partial && D != HL) || !seg_fits(3 * HL / 8, clusters, Bp) ||
+      !seg_fits(D / 8, clusters, Bp))
     return (int)cudaErrorInvalidValue;
   auto* kernel = tail      ? &self_block_f32_kernel<true>
                  : partial ? &self_block_f32_kernel<false, true>
                            : &self_block_f32_kernel<false>;
-  const int e = launch_cluster(
-      kernel, dim3(CS, (B + rt - 1) / rt), CS, NT, f3_smem(D, L, S, rt),
-      (cudaStream_t)stream, (const float*)x, (const float*)g1,
-      (const float*)b1, (const float*)wq, (const float*)bq, (const float*)wk,
-      (const float*)wv, (const float*)bv, (const float*)wo, (const float*)bo,
-      (const float*)g2, (const float*)b2, (const float*)wcq,
-      (const float*)bcq, (float*)kc, (float*)vc, (float*)x_out,
-      (float*)q_cross, B, D, H, L, pos, rt, S, scale, eps);
+  const int e = launch_grid(
+      true, kernel, F3_CS * clusters, F3_CS, (cudaStream_t)stream,
+      (const float*)x, (const float*)g1, (const float*)b1, (const float*)wq,
+      (const float*)bq, (const float*)wk, (const float*)wv, (const float*)bv,
+      (const float*)wo, (const float*)bo, (const float*)g2, (const float*)b2,
+      (const float*)wcq, (const float*)bcq, (float*)kc, (float*)vc,
+      (float*)x_out, (float*)q_cross, (float*)scratch, (int*)counter, B, D, H,
+      L, pos, scale, eps);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
@@ -867,79 +1213,65 @@ int launch_self_f32(bool partial, const void* x, const void* g1,
 int launch_mlp_f32(bool partial, const void* x, const void* g,
                    const void* bln, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* attn,
-                   const void* wco, const void* bco, void* x32, void* h,
-                   void* part, void* counter, void* out, int B, int D, int F,
-                   float eps, int sms, void* stream) {
+                   const void* wco, const void* bco, void* x32, void* part,
+                   void* counter, void* out, int B, int D, int F, float eps,
+                   int clusters, int rows, int proj_clusters, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || D < HDIM || D % HDIM || D > F4_MAX_D || F < F4_FS ||
-      F % F4_FS || sms < 1 || (partial && wco != nullptr))
+  const int Bp = (B + 3) / 4 * 4;
+  if (B < 1 || B > MAXB || D < HDIM || D % HDIM || D > F4_MAX_D ||
+      F < 16 || F % 16 || clusters < 1 || rows < 4 || rows % 4 ||
+      rows > MAXB || (partial && wco != nullptr) ||
+      !seg_fits(D / 8, F4_CS, rows))
+    return (int)cudaErrorInvalidValue;
+  if (!seg_fits((F / 8 + clusters - 1) / clusters, F4_CS, rows))
     return (int)cudaErrorInvalidValue;
   const void* xin = x;
   if (wco != nullptr) {
-    rowproj_f32_kernel<<<dim3(D / P_NC, (B + P_RB - 1) / P_RB), NT,
-                         rowproj_smem(D), s>>>(
-        (const float*)attn, (const float*)wco, (const float*)bco,
-        (const float*)x, (float*)x32, B, D);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (proj_clusters < 1 || !seg_fits(D / 8, proj_clusters, Bp))
+      return (int)cudaErrorInvalidValue;
+    const int e = launch_grid(false, &rowproj_f32_kernel,
+                              F3_CS * proj_clusters, F3_CS, s,
+                              (const float*)attn, (const float*)wco,
+                              (const float*)bco, (const float*)x, (float*)x32,
+                              B, D);
+    if (e != 0) return e;
+    const cudaError_t le = cudaGetLastError();
+    if (le != cudaSuccess) return (int)le;
     xin = x32;
   }
-  // blocks a multiprocessor holds, per device, instance and chunk width
-  // (read once)
-  static int per_sm[MAX_DEVICES][2][F4_DC / HDIM + 1];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES)
-    return (int)cudaErrorInvalidDevice;
-  const int dc = f4_dc(D);
-  const void* fn = partial ? (const void*)mlp_f32_kernel<true>
-                           : (const void*)mlp_f32_kernel<false>;
-  int& fit = per_sm[dev][partial][dc / HDIM];
-  if (fit == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &fit, fn, NT, f4_smem(dc));
-    if (e != cudaSuccess) return (int)e;
-    if (fit == 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  const int grid = F / F4_FS < sms * fit ? F / F4_FS : sms * fit;
-  void* args[] = {(void*)&xin, (void*)&g,    (void*)&bln,     (void*)&w1,
-                  (void*)&b1,  (void*)&w2,   (void*)&b2,      (void*)&h,
-                  (void*)&part, (void*)&counter, (void*)&out, (void*)&B,
-                  (void*)&D,   (void*)&F,    (void*)&eps};
-  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), args,
-                                          f4_smem(dc), s);
+  auto* kernel = partial ? &mlp_f32_kernel<true> : &mlp_f32_kernel<false>;
+  const int e = launch_grid(true, kernel, F4_CS * clusters, F4_CS, s,
+                            (const float*)xin, (const float*)g,
+                            (const float*)bln, (const float*)w1,
+                            (const float*)b1, (const float*)w2,
+                            (const float*)b2, (float*)part, (int*)counter,
+                            (float*)out, B, D, F, rows, eps);
+  if (e != 0) return e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Raises the float32 K3's dynamic shared-memory limit and allows its
-// clusters of up to 16 blocks (every instance), and the float32 K4's (both
-// instances) and its head's limits. Called once a device, when the
-// library is set up on it.
+// Raises every float32 decoder kernel's dynamic shared-memory limit to
+// SMEM. Called once a device, when the library is set up on it.
 extern "C" int mas_decoder_block_f32_init(void) {
   for (const void* fn : {(const void*)self_block_f32_kernel<false>,
                          (const void*)self_block_f32_kernel<true>,
-                         (const void*)self_block_f32_kernel<false, true>}) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
-    if (e == cudaSuccess)  // clusters of more than 8 blocks (H = 12, 20)
-      e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  for (const void* fn : {(const void*)mlp_f32_kernel<false>,
-                         (const void*)mlp_f32_kernel<true>}) {
+                         (const void*)self_block_f32_kernel<false, true>,
+                         (const void*)mlp_f32_kernel<false>,
+                         (const void*)mlp_f32_kernel<true>,
+                         (const void*)rowproj_f32_kernel}) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f4_smem(F4_DC));
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaFuncSetAttribute(rowproj_f32_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)rowproj_smem(F4_MAX_D));
+  return 0;
 }
 
-// The clusters of cs float32 K3 blocks of smem bytes the card holds at
-// once (K3p's plan asks it at the rank's shapes). Returns a cudaError_t
-// value.
+// The clusters of cs float32 decoder blocks of smem bytes (the kernels'
+// SMEM, ops/decoder_block.py::F32_SMEM) the card holds at once: the plans
+// of K3 (cs = 2), K4 (8) and K4-o's row projection (2) ask it. Returns a
+// cudaError_t value.
 extern "C" int mas_decoder_self_block_f32_fit(int cs, int smem, int* out) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
@@ -958,22 +1290,26 @@ extern "C" int mas_decoder_self_block_f32_fit(int cs, int smem, int* out) {
 
 // K3 / K3-q, float32. x, x_out, q_cross: [B, D] (D = H * 64); g1, b1, bq,
 // bv, bo, g2, b2, bcq: [D]; wq, wk, wv, wo, wcq: [D, D] row-major ([in,
-// out]); kc, vc: [B, L, D] caches, row pos written. wcq == NULL runs K3
-// (g2, b2, bcq, q_cross unused). The plan (ops/decoder_block.py::
-// self_block_f32_plan): CS <= min(H, 16) blocks a cluster, rt <= 8 rows
-// a tile, S ring slots (4..8). Every pointer 16-byte aligned. Returns a
-// cudaError_t value: a shape outside these limits, a launch the card
-// refuses, or cudaGetLastError() after the launch.
+// out]); kc, vc: [B, L, D] caches, row pos written; scratch: [2, B, D]
+// float32; counter: >= 4 zeroed ints, left zero. wcq == NULL runs K3 (g2,
+// b2, bcq, q_cross unused). The plan (ops/decoder_block.py::
+// self_block_f32_plan): `clusters` clusters of two blocks, all resident
+// (a cooperative launch). Limits: B <= 256, L <= 16384, each phase's
+// columns within a block's slot and micro-tiles (seg_fits). Every pointer
+// 16-byte aligned. Returns a cudaError_t value: a shape outside these
+// limits, a launch the card refuses, or cudaGetLastError() after the
+// launch.
 extern "C" int mas_decoder_self_block_f32(
     const void* x, const void* g1, const void* b1, const void* wq,
     const void* bq, const void* wk, const void* wv, const void* bv,
     const void* wo, const void* bo, void* kc, void* vc, void* x_out,
     const void* g2, const void* b2, const void* wcq, const void* bcq,
-    void* q_cross, int B, int H, int L, int pos, int CS, int rt, int S,
-    float scale, float eps, void* stream) {
+    void* q_cross, void* scratch, void* counter, int B, int H, int L, int pos,
+    int clusters, float scale, float eps, void* stream) {
   return launch_self_f32(false, x, g1, b1, wq, bq, wk, wv, bv, wo, bo, kc,
-                         vc, x_out, g2, b2, wcq, bcq, q_cross, B, H * HDIM,
-                         H, L, pos, CS, rt, S, scale, eps, stream);
+                         vc, x_out, g2, b2, wcq, bcq, q_cross, scratch,
+                         counter, B, H * HDIM, H, L, pos, clusters, scale,
+                         eps, stream);
 }
 
 // K3p's float32 form, one rank of the mesh's model axis: out = (K3's
@@ -981,49 +1317,52 @@ extern "C" int mas_decoder_self_block_f32(
 // and bo. x: [B, D] (the whole row, read by the layer norm); g1, b1: [D];
 // wq, wk, wv: [D, H * 64] and wo: [H * 64, D] row-major (the rank's
 // column and row shards); bq, bv: [H * 64]; kc, vc: [B, L, H * 64] caches
-// of the rank's heads, row pos written; out: [B, D]; all float32. D % 64
-// == 0; CS <= min(H, D / 64, 16); the plan is self_block_f32_plan's at
+// of the rank's heads, row pos written; out: [B, D]; scratch: [2, B, H *
+// 64]; all float32. D % 64 == 0; the plan is self_block_f32_plan's at
 // width D. Returns a cudaError_t value, as mas_decoder_self_block_f32.
 extern "C" int mas_decoder_self_block_partial_f32(
     const void* x, const void* g1, const void* b1, const void* wq,
     const void* bq, const void* wk, const void* wv, const void* bv,
-    const void* wo, void* kc, void* vc, void* out, int B, int D, int H, int L,
-    int pos, int CS, int rt, int S, float scale, float eps, void* stream) {
+    const void* wo, void* kc, void* vc, void* out, void* scratch,
+    void* counter, int B, int D, int H, int L, int pos, int clusters,
+    float scale, float eps, void* stream) {
   return launch_self_f32(true, x, g1, b1, wq, bq, wk, wv, bv, wo, bv, kc, vc,
-                         out, nullptr, nullptr, nullptr, nullptr, nullptr, B,
-                         D, H, L, pos, CS, rt, S, scale, eps, stream);
+                         out, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         scratch, counter, B, D, H, L, pos, clusters, scale,
+                         eps, stream);
 }
 
 // K4 / K4-o, float32. x, out: [B, D] (D % 64 == 0, D <= 2048); g, bln,
 // b2, bco: [D]; w1: [D, F], w2: [F, D], wco: [D, D] row-major (F % 16 ==
-// 0); b1: [F]; attn: [B, D]; x32: [B, D] scratch (K4-o's x1); h: [D, Bp]
-// scratch, Bp = B rounded up to 32; part: [F / 16, B, D] scratch;
-// counter: >= 3 zeroed ints, left zero. wco == NULL runs K4 (attn, bco,
-// x32 unused). sms: the card's multiprocessors; the grid is min(F / 16,
-// sms x the blocks a multiprocessor holds). Returns the first CUDA error
-// of the launches (0 = none).
+// 0); b1: [F]; attn: [B, D]; x32: [B, D] scratch (K4-o's x1); part:
+// [clusters, B, D] scratch; counter: >= 4 zeroed ints, left zero. wco ==
+// NULL runs K4 (attn, bco, x32, proj_clusters unused). The plan
+// (ops/decoder_block.py::mlp_f32_plan): `clusters` clusters of eight
+// blocks, all resident, `rows` batch rows a pass; K4-o's row projection
+// on `proj_clusters` clusters of two. Returns the first CUDA error of the
+// launches (0 = none).
 extern "C" int mas_decoder_mlp_block_f32(
     const void* x, const void* g, const void* bln, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* attn,
-    const void* wco, const void* bco, void* x32, void* h, void* part,
-    void* counter, void* out, int B, int D, int F, float eps, int sms,
-    void* stream) {
+    const void* wco, const void* bco, void* x32, void* part, void* counter,
+    void* out, int B, int D, int F, float eps, int clusters, int rows,
+    int proj_clusters, void* stream) {
   return launch_mlp_f32(false, x, g, bln, w1, b1, w2, b2, attn, wco, bco,
-                        x32, h, part, counter, out, B, D, F, eps, sms,
-                        stream);
+                        x32, part, counter, out, B, D, F, eps, clusters, rows,
+                        proj_clusters, stream);
 }
 
 // K4p's float32 form, one rank of the mesh's model axis: out = gelu(LN(x)
 // @ w1 + b1) @ w2 in float32, without x and b2. x: [B, D] (the whole row,
 // read by the layer norm); g, bln: [D]; w1: [D, F] and w2: [F, D]
 // row-major (the rank's column and row shards of fc1 and fc2, F % 16 ==
-// 0); b1: [F]; h, part, counter: K4's float32 scratch; out: [B, D]; all
+// 0); b1: [F]; part, counter: K4's float32 scratch; out: [B, D]; all
 // float32. Returns a cudaError_t value, as mas_decoder_mlp_block_f32.
 extern "C" int mas_decoder_mlp_block_partial_f32(
     const void* x, const void* g, const void* bln, const void* w1,
-    const void* b1, const void* w2, void* h, void* part, void* counter,
-    void* out, int B, int D, int F, float eps, int sms, void* stream) {
+    const void* b1, const void* w2, void* part, void* counter, void* out,
+    int B, int D, int F, float eps, int clusters, int rows, void* stream) {
   return launch_mlp_f32(true, x, g, bln, w1, b1, w2, nullptr, nullptr,
-                        nullptr, nullptr, nullptr, h, part, counter, out, B,
-                        D, F, eps, sms, stream);
+                        nullptr, nullptr, nullptr, part, counter, out, B, D,
+                        F, eps, clusters, rows, 0, stream);
 }

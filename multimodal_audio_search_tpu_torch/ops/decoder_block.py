@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -352,56 +353,191 @@ def self_block_plan(b: int, heads: int, l: int, rows: int | None = None,
     return -(-heads // cs), cs, rows, -(-b // rows), stages
 
 
-# K3's float32 form (csrc/decoder_block_f32.cu): rows a tile at most, a
-# streamed weight tile's bytes (64 x 64 float32), ring slots
-K3F_ROWS = 8
-K3F_TILE = 64 * 64 * 4
-K3F_MAX_STAGES, K3F_MIN_STAGES = 8, 4
+# The float32 decoder blocks (csrc/decoder_block_f32.cu): a weight ring of
+# F32_STAGES slots of F32_SLOT floats, an input window of F32_HBUF floats,
+# a partials region of F32_RED floats, five row-statistics arrays of
+# F32_MAXB floats; micro-tiles of 4 rows x 8 columns, at most
+# F32_MAXMT a thread of 256; K3 on clusters of K3F_CS blocks, K4 on
+# clusters of K4F_CS
+F32_SLOT, F32_HBUF, F32_RED, F32_MAXB = 2048, 16896, 16384, 256
+F32_STAGES, F32_MAXMT, F32_NT = 11, 2, 256
+F32_SMEM = 128 + 4 * (F32_STAGES * F32_SLOT + F32_HBUF + F32_RED
+                      + 5 * F32_MAXB)
+K3F_CS, K4F_CS = 2, 8
+# clusters of two / eight such blocks an H100 holds at once (the plans'
+# defaults; the wrappers ask the card)
+K3F_CLUSTERS, K4F_CLUSTERS = 66, 15
 
 
-def k3_f32_smem(d: int, l: int, stages: int, rows: int) -> int:
-    """Bytes of shared memory a float32 K3 block takes at width d, cache
-    length l, ``stages`` ring slots and ``rows`` rows a tile (csrc/
-    decoder_block_f32.cu's f3_smem): 128 to align the ring, the ring, the
-    o-projection partials and h [rows, d], q1/k1/v1 and the attention
-    output [rows, 64], the fresh-row weights [8], and the logits [rows,
-    l] (or the warps' p . V partials [8, rows, 64], the larger), all
-    float32."""
-    scores = -(-max(rows * l, 8 * rows * 64) // 4) * 4
-    return 128 + stages * K3F_TILE + 4 * (2 * rows * d + 4 * rows * 64
-                                          + K3F_ROWS + scores)
+class F32Plan(NamedTuple):
+    """A float32 decoder block's launch: ``blocks`` in ``clusters``
+    clusters of ``cluster`` blocks, every block resident at once (one a
+    multiprocessor), a ring of ``stages`` weight slots, ``rows`` batch
+    rows a pass over the weights and ``passes`` passes."""
+    blocks: int
+    cluster: int
+    clusters: int
+    stages: int
+    rows: int
+    passes: int
 
 
-def self_block_f32_plan(b: int, heads: int, l: int, rows: int | None = None,
-                        clusters: int = K3_CLUSTERS, d: int | None = None
-                        ) -> tuple[int, int, int, int]:
-    """(blocks a cluster, rows a tile, tiles, ring slots) of K3's float32
-    form at batch b and cache length l, on a card that holds ``clusters``
-    such clusters at once. The cluster is K3's: CS = min(H, 16) blocks,
-    rank r the heads [r H / CS, (r + 1) H / CS). A block streams its
-    heads' weights whole once a tile, so, as in self_block_plan, the
-    fewest rows a tile (up to K3F_ROWS) that keep the tiles within
-    ``clusters``; ``rows`` overrides that. The ring takes the shared
-    memory left, up to K3F_MAX_STAGES 16 KB slots; where fewer than
-    K3F_MIN_STAGES fit beside the rest, a ValueError names the limit.
-    ``d``: the model width where it is not heads * 64 (K3p: a rank's
-    heads of a wider model, whose rows the block holds whole)."""
+def f32_tile_rows(nc: int, rb: int) -> int:
+    """Rows of a weight tile of ``nc`` columns when the input window holds
+    ``rb`` rows (csrc/decoder_block_f32.cu's tile_rows): what a slot
+    takes, and no more than a window row, in multiples of 32 (of 8 below
+    32); 0 where nc does not fit a slot."""
+    t = min(F32_SLOT // nc, F32_HBUF // rb - 4)
+    return t // 32 * 32 if t >= 32 else t // 8 * 8
+
+
+def _split(n: int, parts: int, i: int) -> tuple[int, int]:
+    """Part i of [0, n) cut in ``parts`` contiguous pieces, as the
+    kernels cut it: [i n / parts, (i + 1) n / parts)."""
+    return i * n // parts, (i + 1) * n // parts
+
+
+def _seg_fits(groups: int, parts: int, rb: int) -> bool:
+    """csrc/decoder_block_f32.cu's seg_fits: ``groups`` 8-column groups
+    over ``parts`` blocks fit a slot and a thread's micro-tiles at ``rb``
+    rows."""
+    nc = 8 * -(-groups // parts)
+    return f32_tile_rows(nc, rb) >= 8 and rb * nc <= F32_MAXMT * F32_NT * 32
+
+
+def self_block_f32_plan(b: int, heads: int, l: int,
+                        clusters: int = K3F_CLUSTERS, d: int | None = None
+                        ) -> F32Plan:
+    """K3's float32 form at batch b and cache length l on a card that
+    holds ``clusters`` clusters of K3F_CS blocks at once: every cluster
+    the card holds (66 on an H100: all 132 multiprocessors), under a
+    cooperative launch. Each block streams its share of the weights once
+    a launch (``self_block_f32_partition``) over every row of the batch:
+    one pass. A ValueError names the limit a shape breaks: b <= 256, l <=
+    F32_RED (the logits of one attention item), and each phase's columns
+    within a block's slot and micro-tiles (``_seg_fits``). ``d``: the
+    model width where it is not heads * 64 (K3p: a rank's heads of a
+    wider model)."""
     d = d or heads * 64
-    cs = min(heads, K3_MAX_CLUSTER)
-    if rows is None:
-        rows = min(K3F_ROWS, max(1, -(-b // clusters)))
-    if not 1 <= rows <= K3F_ROWS:
-        raise ValueError(f"K3's float32 tiles hold 1..{K3F_ROWS} rows, got "
-                         f"{rows}")
-    stages = min(K3F_MAX_STAGES,
-                 (K3_SMEM - k3_f32_smem(d, l, 0, rows)) // K3F_TILE)
-    if stages < K3F_MIN_STAGES:
-        raise ValueError(
-            f"K3's float32 form does not fit D={d}, L={l}, {rows} rows a "
-            f"tile: a block's {K3_SMEM} bytes of shared memory hold fewer "
-            f"than {K3F_MIN_STAGES} of its {K3F_TILE}-byte weight tiles "
-            f"beside its {k3_f32_smem(d, l, 0, rows)} bytes of rows")
-    return cs, rows, -(-b // rows), stages
+    hl = heads * 64
+    bp = -(-b // 4) * 4
+    if not 1 <= b <= F32_MAXB:
+        raise ValueError(f"K3's float32 form takes 1..{F32_MAXB} rows, got "
+                         f"B={b}")
+    if not 1 <= l <= F32_RED:
+        raise ValueError(f"K3's float32 form takes caches of 1..{F32_RED} "
+                         f"rows (an item's logits in {F32_RED} floats), "
+                         f"got L={l}")
+    for what, groups in (("q/k/v", 3 * hl // 8), ("o", d // 8)):
+        if not _seg_fits(groups, clusters, bp):
+            raise ValueError(
+                f"K3's float32 form does not fit the {what} projection at "
+                f"D={d}, H={heads}, B={b} on {clusters} clusters: a "
+                f"block's {8 * -(-groups // clusters)} columns exceed its "
+                f"{F32_SLOT}-float slot or {F32_MAXMT} micro-tiles a "
+                f"thread")
+    return F32Plan(K3F_CS * clusters, K3F_CS, clusters, F32_STAGES, bp, 1)
+
+
+def mlp_f32_plan(b: int, d: int, f: int, clusters: int = K4F_CLUSTERS
+                 ) -> F32Plan:
+    """K4's float32 form at batch b, width d and MLP width f on a card
+    that holds ``clusters`` clusters of K4F_CS blocks at once (15 on an
+    H100, 120 blocks), under a cooperative launch: the rows a pass are
+    the most (a multiple of 4, at most 256) whose micro-tiles fit a
+    thread's MAXMT at the block's widest columns (its fc1 share or its D
+    / 8 / K4F_CS fc2 columns), balanced over the passes (one at B <= 64
+    for every Whisper width). A ValueError names the limit a shape
+    breaks."""
+    if not 1 <= b <= F32_MAXB:
+        raise ValueError(f"K4's float32 form takes 1..{F32_MAXB} rows, got "
+                         f"B={b}")
+    if d % 64 or not 64 <= d <= MAX_D or f % 16 or f < 16:
+        raise ValueError(f"K4's float32 form takes D % 64 == 0, 64 <= D <= "
+                         f"{MAX_D}, F % 16 == 0: D={d}, F={f}")
+    ngc = -(-(f // 8) // clusters)
+    nc = 8 * max(-(-ngc // K4F_CS), -(-(d // 8) // K4F_CS))
+    bp = -(-b // 4) * 4
+    rows = min(F32_MAXB, F32_MAXMT * F32_NT * 32 // nc // 4 * 4)
+    passes = -(-bp // rows)
+    rows = -(-(-(-bp // passes)) // 4) * 4
+    if not (_seg_fits(ngc, K4F_CS, rows) and _seg_fits(d // 8, K4F_CS, rows)):
+        raise ValueError(f"K4's float32 form does not fit D={d}, F={f} on "
+                         f"{clusters} clusters of {K4F_CS}")
+    return F32Plan(K4F_CS * clusters, K4F_CS, clusters, F32_STAGES, rows,
+                   passes)
+
+
+def rowproj_f32_plan(b: int, d: int, clusters: int = K3F_CLUSTERS
+                     ) -> F32Plan:
+    """K4-o's float32 row projection (x + attn @ Wco + bco): clusters of
+    K3F_CS blocks, one 8-column group of the d columns at least a
+    cluster, at most the clusters the card holds."""
+    nc = min(clusters, d // 8)
+    bp = -(-b // 4) * 4
+    if not _seg_fits(d // 8, nc, bp):
+        raise ValueError(f"K4-o's float32 row projection does not fit D={d} "
+                         f"at B={b}")
+    return F32Plan(K3F_CS * nc, K3F_CS, nc, F32_STAGES, bp, 1)
+
+
+def self_block_f32_partition(plan: F32Plan, heads: int, d: int | None = None,
+                             tail: bool = False) -> list[tuple]:
+    """The weight tiles each block of K3's float32 form streams, as
+    (block, matrix, (row0, row1), (col0, col1)) of the [in, out] matrices
+    wq/wk/wv [D, H * 64], wo [H * 64, D] and, with ``tail``, wcq [D, D]:
+    cluster c's 8-column groups [c n / NC, (c + 1) n / NC) of each
+    projection's columns, its rank r the rows [r n_in / 2, (r + 1) n_in /
+    2). The kernel's make_seg and copy_tile cut them so; each weight
+    byte belongs to one block and is read once a launch."""
+    d = d or heads * 64
+    hl = heads * 64
+    out = []
+    for blk in range(plan.blocks):
+        c, r = divmod(blk, plan.cluster)
+        g0, g1 = _split(3 * hl // 8, plan.clusters, c)
+        for g in range(g0, g1):
+            m, col = divmod(8 * g, hl)
+            out.append((blk, ("wq", "wk", "wv")[m],
+                        _split(d, plan.cluster, r), (col, col + 8)))
+        segs = [("wo", hl)] + ([("wcq", d)] if tail else [])
+        for name, n_in in segs:
+            g0, g1 = _split(d // 8, plan.clusters, c)
+            for g in range(g0, g1):
+                out.append((blk, name, _split(n_in, plan.cluster, r),
+                            (8 * g, 8 * g + 8)))
+    return out
+
+
+def mlp_f32_partition(plan: F32Plan, d: int, f: int, head: bool = False,
+                      proj: F32Plan | None = None) -> list[tuple]:
+    """The weight tiles each block of K4's float32 form streams, as
+    (block, matrix, (row0, row1), (col0, col1)) of w1 [D, F] and w2 [F,
+    D]: cluster c the 8-column groups [c n / NC, (c + 1) n / NC) of fc1's
+    F columns, rank r its share of them (all D rows) and, of w2, the rows
+    of the cluster's F columns and its D / 8 / K4F_CS groups of the D
+    columns. With ``head`` also K4-o's row projection's blocks (numbered
+    after K4's) over wco [D, D] on ``proj``'s clusters of two. Each weight
+    byte belongs to one block (K4 re-reads its tiles once a pass where
+    ``plan.passes`` > 1)."""
+    out = []
+    for blk in range(plan.blocks):
+        c, r = divmod(blk, plan.cluster)
+        cf0, cf1 = _split(f // 8, plan.clusters, c)
+        q0, q1 = _split(cf1 - cf0, plan.cluster, r)
+        for g in range(cf0 + q0, cf0 + q1):
+            out.append((blk, "w1", (0, d), (8 * g, 8 * g + 8)))
+        g0, g1 = _split(d // 8, plan.cluster, r)
+        for g in range(g0, g1):
+            out.append((blk, "w2", (8 * cf0, 8 * cf1), (8 * g, 8 * g + 8)))
+    if head:
+        for blk in range(proj.blocks):
+            c, r = divmod(blk, proj.cluster)
+            g0, g1 = _split(d // 8, proj.clusters, c)
+            for g in range(g0, g1):
+                out.append((plan.blocks + blk, "wco",
+                            _split(d, proj.cluster, r), (8 * g, 8 * g + 8)))
+    return out
 
 
 def _fit(dev: torch.device, cs: int, smem: int,
@@ -453,25 +589,31 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
     if not 0 <= pos < l:
         raise ValueError(f"{kernel}: pos {pos} outside [0, {l})")
     dev = x.device
-    # the clusters the card holds, asked at the largest tile's size
     if f32:
-        cs, _, _, st = self_block_f32_plan(b, heads, l, K3F_ROWS, d=d)
-        fit = _fit(dev, cs, k3_f32_smem(d, l, st, K3F_ROWS),
-                   "mas_decoder_self_block_f32_fit")
-        _, rt, _, stages = self_block_f32_plan(b, heads, l, rows, fit, d=d)
+        # clusters of two on every multiprocessor the card holds them on;
+        # the scratch holds q, then the attention output
+        plan = self_block_f32_plan(b, heads, l, _fit(
+            dev, K3F_CS, F32_SMEM, "mas_decoder_self_block_f32_fit"), d=d)
+        tail_args = (plan.clusters, 1.0 / math.sqrt(64), eps,
+                     runtime.stream_handle(dev))
+        scratch = (_buf(dev, "qa32", 2 * b * hd, torch.float32),
+                   _counters(dev))
     else:
+        # the clusters the card holds, asked at the largest tile's size
         _, cs, _, _, st = self_block_plan(b, heads, l, K3_ROWS, d=d)
         _, _, rt, _, stages = self_block_plan(
             b, heads, l, rows, _fit(dev, cs, k3_smem(d, l, st, K3_ROWS)),
             d=d)
+        tail_args = (cs, rt, stages, 1.0 / math.sqrt(64), eps,
+                     runtime.stream_handle(dev))
+        scratch = ()
     if partial:
         out = torch.empty(b, d, dtype=torch.float32, device=dev)
         runtime.launch(
             "mas_decoder_self_block_partial" + ("_f32" if f32 else ""), dev,
             *(a.data_ptr() for a in (x, ln_g, ln_b, wq, bq, wk, wv, bv, wo,
-                                     k_cache, v_cache, out)),
-            b, d, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64),
-            eps, runtime.stream_handle(dev))
+                                     k_cache, v_cache, out)), *scratch,
+            b, d, heads, l, int(pos), *tail_args)
         runtime.bump("decoder_self_block")
         return out, k_cache[:, pos], v_cache[:, pos]
     x_out = torch.empty_like(x)
@@ -483,9 +625,8 @@ def _launch_self(x, ln_g, ln_b, wq, bq, wk, wv, bv, wo, bo, k_cache,
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         bv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), x_out.data_ptr(),
-        *(_ptr(a) for a in (*cross, qc)),
-        b, heads, l, int(pos), cs, rt, stages, 1.0 / math.sqrt(64), eps,
-        runtime.stream_handle(dev))
+        *(_ptr(a) for a in (*cross, qc)), *scratch,
+        b, heads, l, int(pos), *tail_args)
     runtime.bump("decoder_self_block_q" if tail else "decoder_self_block")
     k1, v1 = k_cache[:, pos], v_cache[:, pos]
     return (x_out, k1, v1, qc) if tail else (x_out, k1, v1)
@@ -577,31 +718,72 @@ def _launch_mlp(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head=None,
         _shape(kernel, a, (hd,), name)
     _check(kernel, x, f32, x=x, b1=b1, w1=w1, w2=w2, **vecs, **extra)
     dev = x.device
-    # the float32 forms: h transposed [D, B rounded up to 32], a partial a
-    # 16 fc1 columns (the bf16 forms': h [B, D] bf16, a partial a 32)
-    h = _buf(dev, "h32", hd * -(-b // 32) * 32, torch.float32) if f32 \
-        else _buf(dev, "h", b * hd, torch.bfloat16)
+    if f32:
+        return _launch_mlp_f32(x, ln_g, ln_b, w1, b1, w2, b2, eps, head,
+                               partial)
+    h = _buf(dev, "h", b * hd, torch.bfloat16)
     if partial:
         out = torch.empty(b, hd, dtype=torch.float32, device=dev)
         runtime.launch(
-            "mas_decoder_mlp_block_partial" + ("_f32" if f32 else ""), dev,
+            "mas_decoder_mlp_block_partial", dev,
             *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2)), h,
-            _buf(dev, "part", f // (16 if f32 else 32) * b * hd,
-                 torch.float32),
+            _buf(dev, "part", f // 32 * b * hd, torch.float32),
             _counters(dev), out.data_ptr(), b, hd, f, eps,
             runtime.sm_count(dev), runtime.raw_stream(dev))
         runtime.bump("decoder_mlp_block")
         return out
     out = torch.empty_like(x)
     runtime.launch(
-        "mas_decoder_mlp_block_f32" if f32 else "mas_decoder_mlp_block", dev,
+        "mas_decoder_mlp_block", dev,
         x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         *(_ptr(a) for a in (head or (None,) * 3)),
         _buf(dev, "x32", b * hd, torch.float32) if head else 0, h,
-        _buf(dev, "part", f // (16 if f32 else 32) * b * hd, torch.float32),
+        _buf(dev, "part", f // 32 * b * hd, torch.float32),
         _counters(dev), out.data_ptr(), b, hd, f, eps,
         runtime.sm_count(dev), runtime.raw_stream(dev))
+    runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
+    return out
+
+
+def mlp_f32_plans(dev: torch.device, b: int, d: int, f: int,
+                  head: bool = False) -> tuple[F32Plan, F32Plan | None]:
+    """K4's float32 plan on ``dev`` (its clusters of K4F_CS the card
+    holds) and, with ``head``, K4-o's row projection's (clusters of
+    K3F_CS)."""
+    plan = mlp_f32_plan(b, d, f, _fit(dev, K4F_CS, F32_SMEM,
+                                      "mas_decoder_self_block_f32_fit"))
+    proj = rowproj_f32_plan(b, d, _fit(
+        dev, K3F_CS, F32_SMEM, "mas_decoder_self_block_f32_fit")) \
+        if head else None
+    return plan, proj
+
+
+def _launch_mlp_f32(x, ln_g, ln_b, w1, b1, w2, b2, eps: float, head,
+                    partial: bool):
+    """K4's, K4-o's and K4p's float32 forms (checked by _launch_mlp): the
+    cluster partials [clusters, B, D] float32 in a persistent scratch."""
+    b, hd = x.shape
+    f = w1.shape[1]
+    dev = x.device
+    plan, proj = mlp_f32_plans(dev, b, hd, f, bool(head))
+    part = _buf(dev, "part", plan.clusters * b * hd, torch.float32)
+    out = torch.empty(b, hd, dtype=torch.float32, device=dev)
+    tail = (_counters(dev), out.data_ptr(), b, hd, f, eps, plan.clusters,
+            plan.rows)
+    if partial:
+        runtime.launch(
+            "mas_decoder_mlp_block_partial_f32", dev,
+            *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2)), part,
+            *tail, runtime.raw_stream(dev))
+        runtime.bump("decoder_mlp_block")
+        return out
+    runtime.launch(
+        "mas_decoder_mlp_block_f32", dev,
+        *(a.data_ptr() for a in (x, ln_g, ln_b, w1, b1, w2, b2)),
+        *(_ptr(a) for a in (head or (None,) * 3)),
+        _buf(dev, "x32", b * hd, torch.float32) if head else 0, part,
+        *tail, proj.clusters if head else 0, runtime.raw_stream(dev))
     runtime.bump("decoder_mlp_block_o" if head else "decoder_mlp_block")
     return out
 

@@ -232,10 +232,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block.restype = i
-    # K3's float32 form: the same arguments (cluster blocks, rows a tile,
-    # ring slots as its plan gives them)
-    lib.mas_decoder_self_block_f32.argtypes = \
-        lib.mas_decoder_self_block.argtypes
+    # K3's float32 form: the bf16 form's tensors, a [2, B, D] float32
+    # scratch and the counters, then its plan's clusters of two
+    lib.mas_decoder_self_block_f32.argtypes = [
+        p, p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo, bo
+        p, p, p,                  # k/v caches, x_out
+        p, p, p, p, p,            # g2, b2, wcq, bcq, q_cross (K3-q)
+        p, p,                     # scratch, counters
+        i, i, i, i,               # B, H, L, pos
+        i,                        # clusters
+        f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block_f32.restype = i
     lib.mas_decoder_self_block_partial.argtypes = [
         p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo
@@ -244,9 +250,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # cluster blocks, rows a tile, ring stages
         f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block_partial.restype = i
-    # K3p's float32 form: the same arguments, every tensor float32
-    lib.mas_decoder_self_block_partial_f32.argtypes = \
-        lib.mas_decoder_self_block_partial.argtypes
+    # K3p's float32 form: every tensor float32, K3 f32's scratch and plan
+    lib.mas_decoder_self_block_partial_f32.argtypes = [
+        p, p, p, p, p, p, p, p, p,  # x, g1, b1, wq, bq, wk, wv, bv, wo
+        p, p, p,                  # k/v caches, out (float32)
+        p, p,                     # scratch, counters
+        i, i, i, i, i,            # B, D, H, L, pos
+        i,                        # clusters
+        f, f, p]                  # scale, eps, stream
     lib.mas_decoder_self_block_partial_f32.restype = i
     for name in ("mas_decoder_self_block_fit",
                  "mas_decoder_self_block_f32_fit",
@@ -260,10 +271,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block.restype = i
-    # K4's float32 form: the same arguments (h a [D, B rounded up to 32]
-    # float32 scratch, partials [F / 16, B, D])
-    lib.mas_decoder_mlp_block_f32.argtypes = \
-        lib.mas_decoder_mlp_block.argtypes
+    # K4's float32 form: partials [clusters, B, D] float32, then its plan
+    # (clusters of eight, rows a pass) and K4-o's row projection's
+    # clusters of two
+    lib.mas_decoder_mlp_block_f32.argtypes = [
+        p, p, p, p, p, p, p,      # x, g, b, w1, b1, w2, b2
+        p, p, p, p,               # attn, wco, bco, x32 (K4-o)
+        p, p, p,                  # partials, counters, out
+        i, i, i,                  # B, D, F
+        f, i, i, i, p]            # eps, clusters, rows, proj clusters, stream
     lib.mas_decoder_mlp_block_f32.restype = i
     lib.mas_decoder_mlp_block_partial.argtypes = [
         p, p, p, p, p, p,         # x, g, b, w1, b1, w2
@@ -271,9 +287,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i,                  # B, D, F
         f, i, p]                  # eps, multiprocessors, stream
     lib.mas_decoder_mlp_block_partial.restype = i
-    # K4p's float32 form: the same arguments (K4's float32 scratch)
-    lib.mas_decoder_mlp_block_partial_f32.argtypes = \
-        lib.mas_decoder_mlp_block_partial.argtypes
+    # K4p's float32 form: K4 f32's partials and plan
+    lib.mas_decoder_mlp_block_partial_f32.argtypes = [
+        p, p, p, p, p, p,         # x, g, b, w1, b1, w2
+        p, p, p,                  # partials, counters, out (float32)
+        i, i, i,                  # B, D, F
+        f, i, i, p]               # eps, clusters, rows, stream
     lib.mas_decoder_mlp_block_partial_f32.restype = i
     lib.mas_quant_matmul.argtypes = [
         p, p, p, p, p,            # x, wq, scale, bias (or null), out

@@ -870,11 +870,14 @@ def test_k1_float32_repeats_bit_equal(cuda, heads):
 
 
 # K3's float32 form: the float32 engine's widths at B=32, L=68 and every
-# pos of chip_smoke.K3_POS, a ragged tile, whisper-small's 12 heads, and
-# whisper-large's 20 over 16 blocks at L=448 (the widest plan)
+# pos of chip_smoke.K3_POS, a ragged batch, whisper-small's 12 heads,
+# whisper-large's 20 at L=448 (the widest plan), one row, and 256 rows
+# (every block's micro-tiles in use)
 K3_F32_CASES = [(32, 8, 68, 0), (32, 8, 68, 3), (32, 8, 68, 67),
                 (32, 6, 68, 0), (32, 6, 68, 3), (32, 6, 68, 67),
-                (5, 2, 41, 6), (33, 12, 68, 40), (9, 20, 448, 447)]
+                (5, 2, 41, 6), (33, 12, 68, 40), (9, 20, 448, 447),
+                (1, 8, 68, 67), (1, 6, 68, 0), (256, 8, 68, 67),
+                (256, 6, 68, 3), (256, 20, 448, 447)]
 
 
 @pytest.mark.parametrize("tail", [False, True])
@@ -915,14 +918,15 @@ def test_k3_float32_matches_plain(cuda, tail, b, heads, l, pos):
 @pytest.mark.parametrize("b,d,f", [(32, 512, 2048), (32, 384, 1536),
                                    (1, 128, 256), (33, 512, 2048),
                                    (7, 1024, 4096), (64, 768, 3072),
-                                   (32, 1280, 5120), (200, 384, 1536)])
+                                   (32, 1280, 5120), (200, 384, 1536),
+                                   (256, 512, 2048), (256, 1280, 5120)])
 def test_k4_float32_matches_plain(cuda, head, b, d, f):
     """K4's and K4-o's float32 forms at the float32 engine's widths (B=32,
-    base and tiny), one row, ragged row blocks and the ingest batch up to
-    200, and every Whisper width (D in 512-column chunks past 512; at
-    1280, 320 slices of 16 fc1 columns on a grid capped by the card),
-    within chip_smoke's float32 block tolerance of the plain version; a
-    second call finds the barrier counters at zero."""
+    base and tiny), one row, a ragged batch, the ingest batch up to 200
+    and 256 rows (at 1280 in passes over the batch), and every Whisper
+    width (D in windows of the block's shared memory past 512), within
+    chip_smoke's float32 block tolerance of the plain version; a second
+    call finds the barrier counters at zero."""
     from multimodal_audio_search_tpu_torch import runtime
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     gen = torch.Generator().manual_seed(2600 + b + d)
@@ -978,26 +982,59 @@ def test_decoder_float32_repeats_bit_equal(cuda, kernel, heads):
 
 def test_k3_float32_check_sees_a_dropped_rank(cuda):
     """A planted fault: K3's float32 form at base width (B=32, pos 67) run
-    with rank 1's rows of Wo (head 1's) zeroed computes what a cluster
-    sum that left rank 1's partial out computes; the float32 check
-    rejects it and passes the kernel on the true Wo."""
+    with one block's share of Wo (in the plan's partition: the first rank
+    1 holding Wo tiles, its rows of its cluster's Wo columns) zeroed
+    computes what a pair sum that left that rank's partial out computes;
+    the float32 check rejects it and passes the kernel on the true Wo."""
     from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
     gen = torch.Generator().manual_seed(13)
     x, selfw, _, kc, vc = chip_smoke.k3_inputs(gen, 32, 68, 512,
                                                dtype=torch.float32)
-    assert DB.self_block_f32_plan(32, 8, 68)[0] == 8
+    plan = DB.self_block_f32_plan(32, 8, 68, DB._fit(
+        x.device, DB.K3F_CS, DB.F32_SMEM, "mas_decoder_self_block_f32_fit"))
+    assert plan.cluster == 2 and plan.passes == 1
     ref = DB.self_block_plain(x, *selfw, kc, vc, 67, heads=8)[0]
     tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
     chip_smoke.check_close("K3 float32", DB.fused_self_block(
         x, *selfw, kc.clone(), vc.clone(), 67, heads=8)[0], ref, *tol)
+    (r0, r1), (c0, c1) = next((rr, cc) for blk, m, rr, cc in
+                              DB.self_block_f32_partition(plan, 8)
+                              if blk % plan.cluster == 1 and m == "wo")
     dropped = list(selfw)
     dropped[7] = selfw[7].clone()
-    dropped[7][64:128] = 0
+    dropped[7][r0:r1, c0:c1] = 0
     with pytest.raises(AssertionError, match="K3 float32 rank 1 dropped"):
         chip_smoke.check_close("K3 float32 rank 1 dropped",
                                DB.fused_self_block(
                                    x, *dropped, kc.clone(), vc.clone(), 67,
                                    heads=8)[0], ref, *tol)
+
+
+def test_k4_float32_check_sees_a_dropped_rank(cuda):
+    """A planted fault: K4's float32 form at base width (B=32) run with one
+    cluster rank's share of fc2 (in the plan's partition: the first rank
+    1's rows of its cluster's F range, its D columns) zeroed computes what a
+    cluster sum that left that rank's fc2 partial out computes; the
+    float32 check rejects it and passes the kernel on the true fc2."""
+    from multimodal_audio_search_tpu_torch.ops import decoder_block as DB
+    gen = torch.Generator().manual_seed(14)
+    x, mlp, _ = chip_smoke.k4_inputs(gen, 32, 512, 2048,
+                                     dtype=torch.float32)
+    plan, _ = DB.mlp_f32_plans(x.device, 32, 512, 2048)
+    assert plan.cluster == 8 and plan.passes == 1
+    ref = DB.mlp_block_plain(x, *mlp)
+    tol = (chip_smoke.F32_BLOCK_ATOL, chip_smoke.F32_BLOCK_RTOL)
+    chip_smoke.check_close("K4 float32", DB.fused_mlp_block(x, *mlp), ref,
+                           *tol)
+    (r0, r1), (c0, c1) = next((rr, cc) for blk, m, rr, cc in
+                              DB.mlp_f32_partition(plan, 512, 2048)
+                              if blk % plan.cluster == 1 and m == "w2")
+    dropped = list(mlp)
+    dropped[4] = mlp[4].clone()
+    dropped[4][r0:r1, c0:c1] = 0
+    with pytest.raises(AssertionError, match="K4 float32 rank 1 dropped"):
+        chip_smoke.check_close("K4 float32 rank 1 dropped",
+                               DB.fused_mlp_block(x, *dropped), ref, *tol)
 
 
 def test_k8_reuses_tensor_maps_only_for_the_same_view(cuda):

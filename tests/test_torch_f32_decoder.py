@@ -14,9 +14,11 @@ D=128) and B=8 (the fused gate), in float32:
 * the decode steps on those tokens give JAX's logits within 5e-5, each
   package over the merged cross K/V, so JAX's "v2" runs B5a and B5b.
 
-K3's float32 plan (``self_block_f32_plan``) fits whisper-tiny through
--large widths at every cache length up to L=448, raises a ValueError
-naming the limit past what fits, and keeps to the kernel source's limits.
+K3's and K4's float32 plans (``self_block_f32_plan``, ``mlp_f32_plan``)
+fit whisper-tiny through -large widths at every cache length up to
+L=448 and B up to 256, raise a ValueError naming the limit past what
+fits, and keep to the kernel source's figures (the partitions and the
+summation order: tests/test_torch_f32_decoder_grid.py).
 """
 import pathlib
 import re
@@ -83,34 +85,95 @@ def test_f32_fused_decode_matches_jax(fused):
 
 @pytest.mark.parametrize("heads", [6, 8, 12, 16, 20])
 def test_k3_f32_plan_fits_every_whisper_width(heads):
-    """D = 384-1280 at L = 1, 68 and 448 and B = 1, 32 and 256: the
-    cluster over the heads, 1-8 rows a tile covering B, 4-8 ring slots,
-    and the block within an H100 block's shared memory; a cache too long
-    for even 4 slots raises a ValueError naming the limit."""
+    """D = 384-1280 at L = 1, 68 and 448 and B = 1, 32 and 256 on an
+    H100's 66 clusters of two: all 132 blocks, one pass over every row,
+    each phase's columns (the q/k/v projection's 3 H * 64, the o- and
+    cross q-projections' D) within a block's slot and its threads'
+    micro-tiles, the block within an H100 block's shared memory; a cache
+    past F32_RED rows, more than 256 rows, or too few clusters for the
+    widest projection raise a ValueError naming the limit."""
     for l in (1, 68, 448):
         for b in (1, 32, 256):
-            cs, rows, tiles, stages = DB.self_block_f32_plan(b, heads, l)
-            assert cs == min(heads, DB.K3_MAX_CLUSTER)
-            assert 1 <= rows <= DB.K3F_ROWS and tiles * rows >= b
-            assert DB.K3F_MIN_STAGES <= stages <= DB.K3F_MAX_STAGES
-            assert DB.k3_f32_smem(heads * 64, l, stages, rows) <= DB.K3_SMEM
-    assert DB.self_block_f32_plan(32, heads, 68, clusters=15)[1] == 3
-    with pytest.raises(ValueError, match="does not fit D=.*shared memory"):
-        DB.self_block_f32_plan(8, heads, 8192, rows=8)
+            plan = DB.self_block_f32_plan(b, heads, l)
+            assert (plan.blocks, plan.cluster, plan.clusters) == (132, 2, 66)
+            assert plan.passes == 1 and plan.rows >= b
+            assert plan.stages == DB.F32_STAGES >= 3
+            for groups in (3 * heads * 8, heads * 8):
+                nc = 8 * -(-groups // plan.clusters)
+                assert plan.rows * nc <= DB.F32_MAXMT * DB.F32_NT * 32
+                assert DB.f32_tile_rows(nc, plan.rows) >= 8
+    assert DB.F32_SMEM <= 232448
+    with pytest.raises(ValueError, match="caches of 1..16384 rows"):
+        DB.self_block_f32_plan(8, heads, 16385)
+    with pytest.raises(ValueError, match="1..256 rows"):
+        DB.self_block_f32_plan(257, heads, 68)
+    with pytest.raises(ValueError, match="does not fit the q/k/v"):
+        DB.self_block_f32_plan(256, heads, 68, clusters=heads // 2)
+
+
+def _const(name):
+    src = (pathlib.Path(DB.__file__).resolve().parent.parent / "csrc"
+           / "decoder_block_f32.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1]), src
 
 
 def test_k3_f32_plan_mirrors_the_kernel_source():
-    """The plan's limits are the kernel's (csrc/decoder_block_f32.cu)."""
-    src = (pathlib.Path(DB.__file__).resolve().parent.parent / "csrc"
-           / "decoder_block_f32.cu").read_text()
+    """The plans' figures are the kernels' (csrc/decoder_block_f32.cu):
+    threads, slot, ring, window, partials, rows, micro-tiles, K3's cluster
+    and the shared memory they add up to."""
+    for name, value in (("NT", DB.F32_NT), ("SLOT", DB.F32_SLOT),
+                        ("STAGES", DB.F32_STAGES), ("HBUF", DB.F32_HBUF),
+                        ("RED", DB.F32_RED), ("MAXB", DB.F32_MAXB),
+                        ("MAXMT", DB.F32_MAXMT), ("F3_CS", DB.K3F_CS)):
+        assert _const(name)[0] == value, name
+    src = _const("NT")[1]
+    assert "128 + 4 * ((size_t)STAGES * SLOT + HBUF + RED + 5 * MAXB)" in src
+    assert DB.F32_SMEM == 128 + 4 * (DB.F32_STAGES * DB.F32_SLOT
+                                     + DB.F32_HBUF + DB.F32_RED
+                                     + 5 * DB.F32_MAXB)
+    # tile_rows: the slot, and a window row of the rows
+    for nc, rb in ((24, 32), (8, 32), (64, 256), (160, 32), (256, 64)):
+        t = min(DB.F32_SLOT // nc, DB.F32_HBUF // rb - 4)
+        assert DB.f32_tile_rows(nc, rb) == (t // 32 * 32 if t >= 32
+                                            else t // 8 * 8)
 
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-    assert const("F3_RT") == DB.K3F_ROWS
-    assert const("F3_MAX_STAGES") == DB.K3F_MAX_STAGES
-    assert const("F3_MIN_STAGES") == DB.K3F_MIN_STAGES
-    assert const("F3_MAX_CS") == DB.K3_MAX_CLUSTER
-    assert "232448 - 1024" in src and DB.K3_SMEM == 232448 - 1024
+
+@pytest.mark.parametrize("d,f", [(384, 1536), (512, 2048), (768, 3072),
+                                 (1024, 4096), (1280, 5120)])
+def test_k4_f32_plan_fits_every_whisper_width(d, f):
+    """K4's float32 plan at every Whisper width on an H100's 15 clusters of
+    eight (120 blocks): one pass at B <= 64, the passes covering B up to
+    256, every cluster's fc1 share and the ranks' fc2 columns within a
+    slot and the micro-tiles; the cluster partials 0.98 MB at whisper-base
+    and B=32 (from the old design's 8.4 MB of slice partials); K4-o's row
+    projection on clusters of two, one 8-column group at least a cluster;
+    a width past 2048 or more than 256 rows raise."""
+    for b in (1, 32, 64, 200, 256):
+        plan = DB.mlp_f32_plan(b, d, f)
+        assert (plan.blocks, plan.cluster, plan.clusters) == (120, 8, 15)
+        assert plan.rows * plan.passes >= b and plan.rows % 4 == 0
+        assert plan.passes == 1 or b > 64
+        ngc = -(-(f // 8) // plan.clusters)
+        for groups, parts in ((ngc, 8), (d // 8, 8)):
+            nc = 8 * -(-groups // parts)
+            assert plan.rows * nc <= DB.F32_MAXMT * DB.F32_NT * 32
+            assert DB.f32_tile_rows(nc, plan.rows) >= 8
+        proj = DB.rowproj_f32_plan(b, d)
+        assert proj.cluster == 2 and proj.clusters == min(66, d // 8)
+    if d == 512:
+        assert 15 * 32 * 512 * 4 <= 1 << 20   # the partials at B=32
+    with pytest.raises(ValueError, match="D % 64 == 0"):
+        DB.mlp_f32_plan(32, 4096, 4 * 4096)
+    with pytest.raises(ValueError, match="1..256 rows"):
+        DB.mlp_f32_plan(257, d, f)
+
+
+def test_k4_f32_plan_mirrors_the_kernel_source():
+    """K4's cluster, its widest row and the bf16 forms' limit shared with
+    it (ops/decoder_block.py::MAX_D) are the kernel's."""
+    assert _const("F4_CS")[0] == DB.K4F_CS == 8
+    assert _const("F4_MAX_D")[0] == DB.MAX_D == 2048
+    assert _const("IB")[0] == 8
 
 
 def _cpu_engine(fused):

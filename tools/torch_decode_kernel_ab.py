@@ -34,6 +34,20 @@ checkout's chip_smoke.py. For each case it prints one JSON line: the card
   more than the span, and then ``device_ms`` (the rows' sum) counts the
   overlap twice.
 
+The float32 forms (``--kernels K3f,K3-qf,K4f,K4-of,K3pf,K4pf``; none of
+them by default): K3 f32 / K3-q f32 at B=32, L=68, pos 67 at both
+chip_smoke.DEC_WIDTHS, whisper-small's and large's widths and base width
+at B=128; K4 f32 / K4-o f32 at the same widths and batches; K3p f32 and
+K4p f32 on a rank of two at base and tiny width (B=32). Each line holds
+the check against the plain version (chip_smoke.F32_BLOCK_ATOL / RTOL),
+``queued_ms``, the plain version's ms (3 calls), the bound
+(chip_smoke.k3_f32_bound, or bytes against FFMA at 67 TFLOP/s) and the
+checkout's plan where it has one (``plan``: blocks, cluster, clusters,
+stages, rows a pass, passes; K4-o also ``proj_plan``); with ``--cold``
+also ``cold_queued_ms``: the call with L2 emptied before it, as an
+engine's decode step finds a layer's float32 weights (a 128 MB buffer
+written between the calls, its own queued time subtracted).
+
 Cases: K3 and K3-q at B=32, L=68, pos 67 and both chip_smoke.DEC_WIDTHS;
 K3 at whisper-small's (D=768, H=12) and large's (D=1280, H=20) widths
 and at base width with B=128; K6 and K7 at B=32, T=1500, H=8 and H=6 (K6
@@ -142,6 +156,131 @@ def stage_ms(fn, reps: int = 20) -> dict:
             "calls_profiled": len(calls), "queued_ms": queued_ms(fn)}
 
 
+def f32_plan(DB, kind: str, dev, b: int, d: int, heads: int, f: int,
+             l: int) -> dict:
+    """The checkout's plan of a float32 form where it has one (a parent
+    without the grid plans: {})."""
+    if not hasattr(DB, "F32Plan"):
+        return {}
+    if kind == "K3":
+        fit = DB._fit(dev, DB.K3F_CS, DB.F32_SMEM,
+                      "mas_decoder_self_block_f32_fit")
+        return {"plan": DB.self_block_f32_plan(b, heads, l, fit,
+                                               d=d)._asdict()}
+    plan, proj = DB.mlp_f32_plans(dev, b, d, f, kind == "K4-o")
+    return {"plan": plan._asdict(),
+            **({"proj_plan": proj._asdict()} if proj else {})}
+
+
+def f32_cases(label: str, cs, DB, gen, want, emit, cold: bool = False
+              ) -> None:
+    """The float32 decoder forms' lines (see the module's docstring)."""
+    f32 = torch.float32
+    tol = (cs.F32_BLOCK_ATOL, cs.F32_BLOCK_RTOL)
+    l, pos = 68, 67
+    widths = [(w, 32, d, h, f) for w, d, h, f in cs.DEC_WIDTHS] + [
+        ("small", 32, 768, 12, 3072), ("large", 32, 1280, 20, 5120),
+        ("base", 128, 512, 8, 2048)]
+    flush = torch.empty(32 << 20, dtype=f32, device="cuda") if cold \
+        else None
+
+    def row(kernel, shape, err, fn, plain, bound, plan):
+        out = {"label": label, "kernel": kernel, "shape": shape,
+               "max_abs_err": err, "queued_ms": queued_ms(fn),
+               "plain_ms": cs.time_ms(plain, reps=3, warmup=1), **bound,
+               **plan}
+        if cold:
+            def evict():
+                flush.fill_(1.0)
+            out["cold_queued_ms"] = queued_ms(lambda: (evict(), fn())) - \
+                queued_ms(evict)
+        return out
+    for w, b, d, heads, f in widths:
+        for key in ("K3f", "K3-qf"):
+            if not want(key):
+                continue
+            x, selfw, tail, kc, vc = cs.k3_inputs(gen, b, l, d, dtype=f32)
+            fused, plain = ((DB.fused_self_block_q, DB.self_block_q_plain)
+                            if key == "K3-qf" else
+                            (DB.fused_self_block, DB.self_block_plain))
+            a = (x, *selfw, *(tail if key == "K3-qf" else []))
+            got = fused(*a, kc.clone(), vc.clone(), pos, heads=heads)
+            ref = plain(*a, kc, vc, pos, heads=heads)
+            err = max(cs.check_close(f"{key} {w} B={b}", g, r, *tol)
+                      for g, r in zip(got, ref))
+            emit(row(key, f"{w} B={b} D={d} H={heads} L={l} pos={pos}", err,
+                     lambda: fused(*a, kc, vc, pos, heads=heads),
+                     lambda: plain(*a, kc, vc, pos, heads=heads),
+                     cs.k3_f32_bound(a, got, pos),
+                     f32_plan(DB, "K3", x.device, b, d, heads, f, l)))
+            del x, selfw, tail, kc, vc, a, got, ref
+        for key in ("K4f", "K4-of"):
+            if not want(key):
+                continue
+            x, mlp, head = cs.k4_inputs(gen, b, d, f, dtype=f32)
+            fused, plain, a = ((DB.fused_mlp_block_o, DB.mlp_block_o_plain,
+                                (x, *head, *mlp)) if key == "K4-of" else
+                               (DB.fused_mlp_block, DB.mlp_block_plain,
+                                (x, *mlp)))
+            got = fused(*a)
+            emit(row(key, f"{w} B={b} D={d} F={f}", cs.check_close(
+                f"{key} {w} B={b}", got, plain(*a), *tol),
+                lambda: fused(*a), lambda: plain(*a),
+                {**cs.bound(cs.nbytes(*a, got), f32=4 * b * d * f + (
+                    2 * b * d * d if key == "K4-of" else 0)),
+                 "bound_rate": "f32"},
+                f32_plan(DB, key[:-1], x.device, b, d, heads, f, l)))
+            del x, mlp, head, a, got
+    # a rank of two: H / 2 heads, F / 2 columns of the MLP
+    sh = cs.tp_shard_rows
+    for w, d, heads, f in cs.DEC_WIDTHS:
+        b, hl = 32, heads // 2
+        if want("K3pf"):
+            x, selfw, _, kc, vc = cs.k3_inputs(gen, b, l, d, dtype=f32)
+            g1, b1, wq, bq, wk, wv, bv, wo, _ = selfw
+            rk = (g1, b1, sh(wq, 0, 1), sh(bq, 0, 0), sh(wk, 0, 1),
+                  sh(wv, 0, 1), sh(bv, 0, 0), sh(wo, 0, 0), None)
+            kr, vr = sh(kc, 0, 2), sh(vc, 0, 2)
+
+            def k3p(rk=rk, kr=kr, vr=vr, x=x, hl=hl):
+                return DB.fused_self_block(x, *rk, kr, vr, pos, heads=hl,
+                                           partial=True)
+
+            def k3p_plain(rk=rk, kr=kr, vr=vr, x=x, hl=hl):
+                return DB.self_block_plain(x, *rk, kr, vr, pos, heads=hl,
+                                           partial=True)
+            got = DB.fused_self_block(x, *rk, kr.clone(), vr.clone(), pos,
+                                      heads=hl, partial=True)
+            err = max(cs.check_close(f"K3pf {w}", g, r, *tol)
+                      for g, r in zip(got, k3p_plain()))
+            emit(row("K3pf", f"{w} rank of 2: B={b} D={d} H={hl} L={l} "
+                             f"pos={pos}", err, k3p, k3p_plain,
+                     {**cs.bound(cs.nbytes(x, *rk[:-1], *got)
+                                 + 2 * b * pos * hl * 64 * 4,
+                                 f32=2 * b * d * hl * 64 * 4
+                                 + 4 * b * (pos + 1) * hl * 64),
+                      "bound_rate": "f32"},
+                     f32_plan(DB, "K3", x.device, b, d, hl, f, l)))
+            del x, selfw, kc, vc, rk, kr, vr, got
+        if want("K4pf"):
+            x, mlp, _ = cs.k4_inputs(gen, b, d, f, dtype=f32)
+            g, bl, w1, b1f, w2, b2 = mlp
+            rk = (g, bl, sh(w1, 0, 1), sh(b1f, 0, 0), sh(w2, 0, 0), b2)
+            fn = (lambda rk=rk, x=x: DB.fused_mlp_block(x, *rk,
+                                                         partial=True))
+            plain = (lambda rk=rk, x=x: DB.mlp_block_plain(x, *rk,
+                                                            partial=True))
+            got = fn()
+            emit(row("K4pf", f"{w} rank of 2: B={b} D={d} F={f // 2}",
+                     cs.check_close(f"K4pf {w}", got, plain(), *tol), fn,
+                     plain, {**cs.bound(cs.nbytes(x, *rk[:-1], got),
+                                        f32=4 * b * d * f // 2),
+                             "bound_rate": "f32"},
+                     f32_plan(DB, "K4", x.device, b, d, hl, f // 2, l)))
+            del x, mlp, rk, got
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -150,11 +289,16 @@ def main() -> int:
                     help="directory for a copy of the JSON lines")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated kernels to time (default: all)")
+    ap.add_argument("--cold", action="store_true",
+                    help="the float32 forms also with L2 emptied a call")
     args = ap.parse_args()
     only = set(args.kernels.split(",")) if args.kernels else None
 
     def want(*keys) -> bool:
         return only is None or bool(only.intersection(keys))
+
+    def want_f32(*keys) -> bool:
+        return only is not None and bool(only.intersection(keys))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs = load_chip_smoke()
@@ -204,6 +348,7 @@ def main() -> int:
         return row
 
     gen = torch.Generator().manual_seed(0)
+    f32_cases(args.label, cs, DB, gen, want_f32, emit, args.cold)
     from multimodal_audio_search_tpu_torch.ops import cached_attention as CA
     from multimodal_audio_search_tpu_torch.ops import cross_attention as CX
     # K3 / K3-q: the engine's widths, then K3 past them

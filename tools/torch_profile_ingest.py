@@ -4,6 +4,7 @@
                                            int8_fused,int8]
                                           [--seconds 320] [--out DIR]
                                           [--root CHECKOUT]
+                                          [--dtype bf16|float32]
 
 Builds one engine per path (chip_smoke.ENGINE_PATHS: the default config,
 ``apply_profile(..., "fast_lossless")``, that profile with
@@ -20,7 +21,10 @@ and a last line with each path's median wall and audio-s/s; with
 ``--out`` the full kernel tables go to ``DIR/profile_ingest.json``.
 ``--root`` imports the package from another checkout (e.g. the parent
 commit unpacked by ``git archive``), with this checkout's engine
-configurations, for A/B runs in one call. Needs one CUDA card.
+configurations, for A/B runs in one call. ``--dtype float32`` builds
+each path's pipelines with ``make_default_ingest(..., dtype=
+torch.float32)``, as chip_smoke.py's ``[f32]`` does (the decoder blocks'
+float32 forms under ``fast_lossless``). Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -60,6 +64,8 @@ def main() -> int:
                     help="directory for the full kernel tables")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose package is profiled")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "float32"),
+                    help="the pipelines' dtype")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -76,8 +82,16 @@ def main() -> int:
     labels = args.paths.split(",")
     engines = {}
     for label in labels:
-        eng = AudioSearchEngine(cfg=engine_config(*paths[label]),
-                                device="cuda", seed=0)
+        cfg = engine_config(*paths[label])
+        if args.dtype == "float32":
+            from multimodal_audio_search_tpu_torch.pipelines.ingest import (
+                make_default_ingest)
+            eng = AudioSearchEngine(
+                cfg=cfg, device="cuda", seed=0,
+                ingest_pipeline=make_default_ingest(
+                    cfg, seed=0, dtype=torch.float32, device="cuda"))
+        else:
+            eng = AudioSearchEngine(cfg=cfg, device="cuda", seed=0)
         eng.load_all_models()
         eng.ingest(wav_bytes(make_audio(args.seconds, rng)), "warmup")
         engines[label] = eng
@@ -99,7 +113,8 @@ def main() -> int:
         wall_ms, trace, steps = run(label)
         walls[label].append(wall_ms)
         print(json.dumps({
-            "card": card, "path": label, "run": "timed", "wall_ms": wall_ms,
+            "card": card, "path": label, "dtype": args.dtype, "run": "timed",
+            "wall_ms": wall_ms,
             "audio_s_per_s": args.seconds / wall_ms * 1e3,
             "decode_steps": steps,
             "dispatch_ms_per_step": trace["dispatch"] / steps,
